@@ -1,0 +1,179 @@
+"""Packed-table texture sampling on torch lane tensors.
+
+Counterpart of the packed paths of ``vpt_tpu/ops/interp.py``: a trilinear
+footprint of the volume is one 8-wide corner row, a bilinear footprint of
+the material TF plus the light spectrum's linear pair is one 18-wide row.
+Semantics match WebGPU ``textureSampleLevel`` with normalized coordinates,
+linear filtering and clamp-to-edge addressing.
+
+Tables are always stored flat, ``(rows, C)``. The packers are numpy and run
+once on the host; the samplers here are the plain PyTorch versions of the
+lookups that the CUDA kernels (``vpt_tpu_torch/csrc/mcm_spectral.cu``) do.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from vpt_tpu_torch.ops.sampling import div_scalar
+
+# f32 saturation bounds for float -> int32 index conversion (see _index)
+_INT_LIMIT = float(2**31 - 128)
+
+
+@dataclass
+class PackedVolume:
+    """A full (8-corner) packed volume table stored flat.
+
+    ``table``: (rows, 8) uint8 or float32 tensor; ``dims``: the padded
+    table dims (D+1, H+1, W+1), rows == prod(dims)."""
+
+    table: torch.Tensor
+    dims: tuple
+
+    def __post_init__(self):
+        self.dims = tuple(int(d) for d in self.dims)
+        if self.table.ndim != 2 or self.table.shape[1] != 8:
+            raise ValueError(f"packed volume table must be (rows, 8), got {tuple(self.table.shape)}")
+        if self.table.shape[0] != self.dims[0] * self.dims[1] * self.dims[2]:
+            raise ValueError(f"table rows {self.table.shape[0]} != prod(dims) {self.dims}")
+        if self.table.dtype not in (torch.uint8, torch.float32):
+            raise ValueError(f"packed volume table must be uint8 or float32, got {self.table.dtype}")
+
+
+def pack_volume_corners(density) -> np.ndarray:
+    """Every trilinear footprint as one contiguous 8-value row.
+
+    Input (D, H, W); output (D+1, H+1, W+1, 8), where row [z, y, x] holds the
+    corners of the cell whose low corner is voxel (z-1, y-1, x-1) of the
+    edge-padded volume. Corner order: bit2 = z, bit1 = y, bit0 = x."""
+    d = np.asarray(density)
+    p = np.pad(d, 1, mode="edge")
+    corners = np.stack(
+        [
+            p[:-1, :-1, :-1], p[:-1, :-1, 1:],
+            p[:-1, 1:, :-1], p[:-1, 1:, 1:],
+            p[1:, :-1, :-1], p[1:, :-1, 1:],
+            p[1:, 1:, :-1], p[1:, 1:, 1:],
+        ],
+        axis=-1,
+    )
+    return np.ascontiguousarray(corners, dtype=d.dtype)
+
+
+def is_u8_quantized(density) -> bool:
+    """True when every density equals round(d*255)/255 (the readers' u8 format)."""
+    d = np.asarray(density)
+    q = np.round(d * 255.0)
+    return bool(np.allclose(q / 255.0, d, atol=1e-7))
+
+
+def pack_volume_auto(density, device) -> PackedVolume:
+    """Pack a raw (D, H, W) grid into a flat table on ``device``: uint8 when
+    the source is u8-quantized (exact: the sampler dequantizes to k/255),
+    float32 otherwise."""
+    packed = pack_volume_corners(np.asarray(density, np.float32))
+    flat = packed.reshape(-1, 8)
+    if is_u8_quantized(density):
+        flat = np.round(flat * 255.0).astype(np.uint8)
+    return PackedVolume(torch.as_tensor(flat, device=device), packed.shape[:3])
+
+
+def pack_tex2d_corners(tex) -> np.ndarray:
+    """(H, W, C) -> (H+1, W+1, 4*C) bilinear corner rows, corner order
+    (y0x0, y0x1, y1x0, y1x1), channels fastest."""
+    t = np.asarray(tex)
+    p = np.pad(t, ((1, 1), (1, 1), (0, 0)), mode="edge")
+    corners = np.concatenate([p[:-1, :-1], p[:-1, 1:], p[1:, :-1], p[1:, 1:]], axis=-1)
+    return np.ascontiguousarray(corners, dtype=t.dtype)
+
+
+def pack_tex1d_corners(tex) -> np.ndarray:
+    """(N,) -> (N+1, 2) linear pair rows."""
+    t = np.asarray(tex)
+    p = np.pad(t, 1, mode="edge")
+    return np.ascontiguousarray(np.stack([p[:-1], p[1:]], axis=-1), dtype=t.dtype)
+
+
+def pack_tex2d_with_tex1d(tex2d, tex1d) -> np.ndarray:
+    """Fuse a (W,) table that shares the 2D texture's x coordinate into its
+    corner rows: (H+1, W+1, 4*C + 2). The spectral renderer samples the TF
+    and the light spectrum at the same wavelength coordinate, so one row
+    load serves both."""
+    t2 = pack_tex2d_corners(tex2d)
+    t1 = pack_tex1d_corners(tex1d)
+    Hp, Wp, _ = t2.shape
+    if t1.shape[0] != Wp:
+        raise ValueError(f"1D table length {t1.shape[0] - 1} != 2D texture width {Wp - 1}")
+    aux = np.broadcast_to(t1[None], (Hp, Wp, 2))
+    return np.ascontiguousarray(np.concatenate([t2, aux], axis=-1), t2.dtype)
+
+
+def _index(f: torch.Tensor) -> torch.Tensor:
+    """float32 (already integral) -> int32 with saturation, NaN -> 0: the
+    float->int conversion of XLA and of CUDA's cvt.rzi (a plain cast of an
+    out-of-range float is undefined in C++)."""
+    f = torch.nan_to_num(f, nan=0.0, posinf=_INT_LIMIT, neginf=-_INT_LIMIT)
+    return torch.clamp(f, -_INT_LIMIT, _INT_LIMIT).to(torch.int32)
+
+
+def _base_and_frac(t, n: int):
+    """Normalized coord -> (clamped row index into the padded table, frac)."""
+    s = t * n - 0.5
+    i0 = torch.floor(s)
+    frac = s - i0
+    return torch.clamp(_index(i0) + 1, 0, n), frac
+
+
+def dequantize_rows(rows: torch.Tensor) -> torch.Tensor:
+    """Gathered corner rows -> float32. uint8 codes dequantize by IEEE
+    division to exactly float32(k)/float32(255) (the readers' values)."""
+    if rows.dtype == torch.uint8:
+        return div_scalar(rows.to(torch.float32), 255.0)
+    return rows.to(torch.float32)
+
+
+def sample_volume_packed(table: torch.Tensor, dims, u, v, w):
+    """Single-row trilinear sample of a flat (rows, 8) corner table with
+    padded dims (D+1, H+1, W+1). (u, v, w) index (W, H, D)."""
+    Dp, Hp, Wp = dims
+    bx, fx = _base_and_frac(u, Wp - 1)
+    by, fy = _base_and_frac(v, Hp - 1)
+    bz, fz = _base_and_frac(w, Dp - 1)
+    row = ((bz * Hp + by) * Wp + bx).to(torch.int64)
+    rows = dequantize_rows(table[row])
+    c = [rows[..., k] for k in range(8)]
+    c00 = c[0] + (c[1] - c[0]) * fx
+    c01 = c[2] + (c[3] - c[2]) * fx
+    c10 = c[4] + (c[5] - c[4]) * fx
+    c11 = c[6] + (c[7] - c[6]) * fx
+    c0 = c00 + (c01 - c00) * fy
+    c1 = c10 + (c11 - c10) * fy
+    return c0 + (c1 - c0) * fz
+
+
+def sample_tex2d_fused1d(packed: torch.Tensor, u, v, C: int = 4):
+    """Sample a pack_tex2d_with_tex1d table ((Hp, Wp, 4C+2) tensor) at
+    normalized (u, v) -> (mat (..., C), aux): the bilinear TF value and the
+    1D table's linear sample at ``u``, from one row."""
+    Hp, Wp, CC = packed.shape
+    if CC != 4 * C + 2:
+        raise ValueError(f"fused table width {CC} != 4*{C}+2")
+    bx, fx = _base_and_frac(u, Wp - 1)
+    by, fy = _base_and_frac(v, Hp - 1)
+    rows = packed.reshape(-1, CC)[(by * Wp + bx).to(torch.int64)]
+    c00 = rows[..., 0 * C: 1 * C]
+    c01 = rows[..., 1 * C: 2 * C]
+    c10 = rows[..., 2 * C: 3 * C]
+    c11 = rows[..., 3 * C: 4 * C]
+    fxc = fx[..., None]
+    fyc = fy[..., None]
+    c0 = c00 + (c01 - c00) * fxc
+    c1 = c10 + (c11 - c10) * fxc
+    mat = c0 + (c1 - c0) * fyc
+    l0 = rows[..., 4 * C]
+    l1 = rows[..., 4 * C + 1]
+    return mat, l0 + (l1 - l0) * fx
