@@ -14,6 +14,18 @@ Phases (each raises on failure, so any failure exits non-zero):
      (512^2, 4 streams, 128^3 u8 sphere_in_cube, 12 bins, 8 steps),
      64 dispatches, launch counts and outputs checked; then the same
      dispatches through the plain step for comparison
+  7. prb_tape_forward (K4) at 512^2 x 4 streams, 2 dispatches, every wrt
+     field, on the u8 table and on an f32 table: its state equals K1's
+     bit for bit, its tape equals the plain tape, two runs are identical
+  8. prb_reverse (K5) on that tape, window mode, stride 1 / stride 4 /
+     importance 4: within 1e-4 relative L2 of its plain version, two runs
+     within 1e-5, gradients finite and nonzero
+  9. the training path: fit_spectral(method="prb") on the bench scene at
+     full width, 3 iterations each at stride 1 / stride 4 / importance 4,
+     launch counts, losses and params checked; then fwd+bwd windows timed
+     as bench.py times them, against one window of the plain versions
+ 10. the gather tool (K6 gather_scalar, K7 gather_lanewise) against its
+     plain versions at every size of the TPU tools, exact
 The line before the last is a JSON object with each kernel's launches,
 error and times; the last line is {"ok": true, "device": {...}}.
 Imports nothing of jax.
@@ -21,6 +33,7 @@ Imports nothing of jax.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -31,6 +44,11 @@ import torch
 
 RES, STREAMS, VOLUME, STEPS, BINS, FRAMES = 512, 4, 128, 8, 12, 64
 SOURCE = "vpt_tpu_torch/csrc/mcm_spectral.cu"
+BWD_SOURCE = "vpt_tpu_torch/csrc/spectral_backward.cu"
+GATHER_SOURCE = "vpt_tpu_torch/csrc/gather_bench.cu"
+MODES = ((1, "stride"), (4, "stride"), (4, "importance"))
+CHUNK, FIT_ITERS, WINDOWS = 4, 3, 8
+TAPE_SHARE_MIN = 0.999  # least share of lane-steps where K4's tape equals plain, per field
 
 
 def log(msg):
@@ -249,6 +267,277 @@ def phase_main(dev):
     return launches, kern, plain
 
 
+def smoothed(density, factor: int = 8):
+    """Blockwise-mean downsample + nearest upsample (the recovery init of
+    tools/convergence_stride.py)."""
+    d = np.asarray(density, np.float32)
+    n = d.shape[0]
+    c = d.reshape(n // factor, factor, n // factor, factor, n // factor, factor).mean(axis=(1, 3, 5))
+    return np.repeat(np.repeat(np.repeat(c, factor, 0), factor, 1), factor, 2)
+
+
+def f32_ctx(renderer, camera, dev):
+    """The bench ctx with an f32 table, as the inverse loop re-packs a
+    learned density: the density moved off the u8 grid."""
+    from vpt_tpu_torch.ops import interp
+
+    ctx = renderer.ctx(camera, 7)
+    d = torch.as_tensor(np.asarray(renderer.volume.density, np.float32) * 0.9 + 0.05, device=dev)
+    table = interp.pack_volume_corners_t(d).reshape(-1, 8).contiguous()
+    return dataclasses.replace(ctx, density=interp.PackedVolume(table, ctx.density.dims))
+
+
+def phase_k4(renderer, camera, dev):
+    """K4 vs K1 (state) and vs its plain version (tape), u8 and f32 tables."""
+    from vpt_tpu_torch.kernels import mcm_spectral as K
+    from vpt_tpu_torch.kernels import spectral_backward as TB
+
+    fields = TB.tape_fields(TB.ALL_WRT)
+    seeds = [2654435761 * k % 2**32 for k in (3, 4)]
+    out = dict(name="prb_tape_forward", route="cuda", source=BWD_SOURCE,
+               replaces="vpt_tpu/kernels/spectral_backward.py:660", max_abs_err=0.0,
+               min_field_share_equal=1.0)
+    keep = None
+    for kind, ctx in (("u8", renderer.ctx(camera, 7)), ("f32", f32_ctx(renderer, camera, dev))):
+        s0 = renderer.reset(camera, 7)
+        s1 = clone_state(s0)
+        K.step(s1, ctx, seeds, STEPS, BINS)
+        sk, tk = TB.tape_forward(s0, ctx, seeds, STEPS, BINS, TB.ALL_WRT)
+        _, tk2 = TB.tape_forward(s0, ctx, seeds, STEPS, BINS, TB.ALL_WRT)
+        sp = clone_state(s0)
+        tp = TB.tape_forward_plain(sp, ctx, seeds, STEPS, BINS, TB.ALL_WRT)
+        torch.cuda.synchronize()
+        for name, a, b in zip(s0.field_names(), sk.tensors(), s1.tensors()):
+            if not torch.equal(a, b):
+                raise AssertionError(f"K4 ({kind}) final state != K1's in {name}")
+        if not torch.equal(tk.view(torch.int32), tk2.view(torch.int32)):
+            raise AssertionError(f"K4 ({kind}) is not bit-identical across two runs")
+        shares = {}
+        for i, f in enumerate(fields):
+            shares[f] = float((tk[:, :, i].view(torch.int32) == tp[:, :, i].view(torch.int32))
+                              .float().mean())
+            if f not in TB.INT_FIELDS and f not in TB.BOOL_FIELDS:
+                out["max_abs_err"] = max(out["max_abs_err"],
+                                         float((tk[:, :, i] - tp[:, :, i]).abs().max()))
+        worst = min(shares, key=shares.get)
+        out["min_field_share_equal"] = min(out["min_field_share_equal"], shares[worst])
+        out[f"share_equal_{kind}"] = shares
+        log(f"# K4 prb_tape_forward ({kind} table), 2 dispatches x {STEPS} steps, {len(fields)} "
+            f"fields: state == K1 bitwise, reruns identical; tape == plain on "
+            f"{shares[worst]:.6f} of lane-steps in the worst field ({worst})")
+        if shares[worst] < TAPE_SHARE_MIN:
+            raise AssertionError(f"K4 ({kind}) tape field {worst} equals plain on {shares[worst]}")
+        if kind == "u8":
+            keep = (ctx, s0, sk, tk)
+    ctx, s0, _, _ = keep
+    out["ms"] = cuda_ms(lambda: TB.tape_forward(s0, ctx, seeds, STEPS, BINS, TB.ALL_WRT), 5)
+    out["plain_ms"] = cuda_ms(lambda: TB.tape_forward_plain(clone_state(s0), ctx, seeds, STEPS,
+                                                            BINS, TB.ALL_WRT), 1)
+    log(f"# K4 2 dispatches, all fields: {out['ms']:.4f} ms kernel vs {out['plain_ms']:.4f} ms plain")
+    return out, keep
+
+
+def phase_k5(keep, dev):
+    """K5 vs its plain version on K4's tape: stride 1, stride 4, importance 4."""
+    from vpt_tpu_torch.kernels import spectral_backward as TB
+
+    ctx, s0, sk, tape = keep
+    fields = TB.tape_fields(TB.ALL_WRT)
+    seeds = [2654435761 * k % 2**32 for k in (3, 4)]
+    lane, res, streams, n = TB._lanes(s0)
+    rng = np.random.default_rng(0)
+    g_img = torch.as_tensor(rng.uniform(-1, 1, (RES, RES, 3)).astype(np.float32), device=dev)
+    g_rs = TB._deposit_cotangents(g_img, ctx, lane, BINS, TB._m_final(sk))
+    out = dict(name="prb_reverse", route="cuda", source=BWD_SOURCE,
+               replaces="vpt_tpu/kernels/spectral_backward.py:781", max_abs_err=0.0,
+               max_rel_l2=0.0, modes={})
+
+    def run(stride, mode, plain):
+        adj = TB._packed_adj_init(ctx, TB.ALL_WRT)
+        cot = dict(c=torch.zeros(n, device=dev), cb=torch.zeros(n, device=dev))
+        phases = [TB._dispatch_phase(k, s, len(seeds), stride) for k, s in enumerate(seeds)]
+        kw = dict(scatter_stride=stride, inv_mu=TB._inv_mu(ctx), resolution=res, streams=streams)
+        if plain:
+            TB.prb_reverse_plain(tape, fields, g_rs, cot, adj, phases, seeds,
+                                 importance=mode == "importance", **kw)
+        else:
+            TB.prb_reverse(tape, fields, g_rs, cot, adj, phases, seeds, scatter_mode=mode, **kw)
+        return adj
+
+    for stride, mode in MODES:
+        a, b, p = run(stride, mode, False), run(stride, mode, False), run(stride, mode, True)
+        torch.cuda.synchronize()
+        rec = {}
+        for k in p:
+            scale = float(p[k].norm())
+            rel = float((a[k] - p[k]).norm()) / max(scale, 1e-30)
+            rerun = float((a[k] - b[k]).norm()) / max(scale, 1e-30)
+            mabs = float((a[k] - p[k]).abs().max())
+            if not bool(torch.isfinite(a[k]).all()) or scale == 0.0:
+                raise AssertionError(f"K5 {mode}{stride} {k}: not finite or all zero")
+            if rel > 1e-4 or rerun > 1e-5:
+                raise AssertionError(f"K5 {mode}{stride} {k}: rel L2 {rel:.3g} vs plain, "
+                                     f"{rerun:.3g} between runs")
+            rec[k] = dict(rel_l2=rel, max_abs=mabs, rerun_rel_l2=rerun)
+            out["max_abs_err"] = max(out["max_abs_err"], mabs)
+            out["max_rel_l2"] = max(out["max_rel_l2"], rel)
+        rec["ms"] = cuda_ms(lambda: run(stride, mode, False), 5)
+        rec["plain_ms"] = cuda_ms(lambda: run(stride, mode, True), 1)
+        out["modes"][f"{mode}{stride}"] = rec
+        log(f"# K5 prb_reverse {mode} {stride}, 2 dispatches: " + ", ".join(
+            f"{k} rel {rec[k]['rel_l2']:.3g} abs {rec[k]['max_abs']:.3g} rerun "
+            f"{rec[k]['rerun_rel_l2']:.3g}" for k in p)
+            + f"; {rec['ms']:.4f} ms kernel vs {rec['plain_ms']:.4f} ms plain")
+    out["ms"] = out["modes"]["stride1"]["ms"]
+    out["plain_ms"] = out["modes"]["stride1"]["plain_ms"]
+    return out
+
+
+def plain_window(state, ctx, seeds, g_img, wrt, stride, mode):
+    """One fwd+bwd window through the plain versions (tape mode)."""
+    from vpt_tpu_torch.kernels import spectral_backward as TB
+
+    st = clone_state(state)
+    tapes = TB.tape_forward_plain(st, ctx, seeds, STEPS, BINS, wrt)
+    lane, res, streams, n = TB._lanes(state)
+    adj = TB._packed_adj_init(ctx, wrt)
+    cot = dict(c=torch.zeros(n, device=g_img.device), cb=torch.zeros(n, device=g_img.device))
+    phases = [TB._dispatch_phase(k, s, len(seeds), stride) for k, s in enumerate(seeds)]
+    TB.prb_reverse_plain(tapes, TB.tape_fields(wrt),
+                         TB._deposit_cotangents(g_img, ctx, lane, BINS, TB._m_final(st)), cot, adj,
+                         phases, seeds, scatter_stride=stride, importance=mode == "importance",
+                         inv_mu=TB._inv_mu(ctx), resolution=res, streams=streams)
+    return st, TB._contract_packed_adjoints(adj, ctx, wrt)
+
+
+def phase_fit(camera, dev):
+    """The training path: fit_spectral at full width in three modes, then
+    fwd+bwd windows timed as bench.py measure_fwdbwd times them."""
+    from vpt_tpu_torch.kernels import mcm_spectral as K
+    from vpt_tpu_torch.kernels import spectral_backward as TB
+    from vpt_tpu_torch.models.mcm_spectral import MCMSpectralRenderer
+    from vpt_tpu_torch.optim import fit_spectral
+    from vpt_tpu_torch.session import RenderSession
+
+    args = bench_scene_args()
+    session = RenderSession("mcm-spectral", *args, resolution=RES, streams=STREAMS, device=dev)
+    session.run(64)
+    target = session.hdr_image()
+    renderer = MCMSpectralRenderer(*args, resolution=RES, streams=STREAMS, device=dev)
+    init = smoothed(args[0].density, max(VOLUME // 16, 2))  # 8 at 128^3
+    fits = {}
+    K.reset_launch_counts()
+    TB.reset_launch_counts()
+    for stride, mode in MODES:
+        before = (dict(K.LAUNCHES), dict(TB.LAUNCHES))
+        t0 = time.perf_counter()
+        params, losses = fit_spectral(target, renderer, camera, {"density": init},
+                                      dispatches_per_step=CHUNK, iterations=FIT_ITERS,
+                                      learning_rate=0.02, seed=1, scatter_stride=stride,
+                                      scatter_mode=mode)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        d = params["density"]
+        k4 = TB.LAUNCHES["prb_tape_forward"] - before[1]["prb_tape_forward"]
+        k5 = TB.LAUNCHES["prb_reverse"] - before[1]["prb_reverse"]
+        k1 = K.LAUNCHES["step"] - before[0]["step"]
+        if (k4, k5, k1) != (FIT_ITERS, FIT_ITERS, 0):
+            raise AssertionError(f"fit_spectral {mode}{stride} launched K4 {k4}, K5 {k5}, K1 {k1}"
+                                 f" times in {FIT_ITERS} iterations")
+        if not np.isfinite(losses).all():
+            raise AssertionError(f"fit_spectral {mode}{stride}: losses {losses}")
+        moved = float((d - torch.as_tensor(init, device=dev)).abs().max())
+        if not bool(torch.isfinite(d).all()) or moved == 0.0 or float(d.min()) < 0 or float(d.max()) > 1:
+            raise AssertionError(f"fit_spectral {mode}{stride}: params moved {moved}, "
+                                 f"range [{float(d.min())}, {float(d.max())}]")
+        fits[f"{mode}{stride}"] = dict(losses=losses, seconds=dt, max_param_change=moved,
+                                       launches=dict(prb_tape_forward=k4, prb_reverse=k5))
+        log(f"# fit_spectral {mode} {stride}: {FIT_ITERS} iterations x {CHUNK} dispatches in "
+            f"{dt:.4f} s; losses {losses}; max param change {moved:.4g}; K4/K5 launches {k4}/{k5}")
+    launches = dict(TB.LAUNCHES)
+
+    # fwd+bwd windows (bench.py:125-168): chunk 4, wrt={density}, g = ones, u8 table
+    ctx = renderer.ctx(camera, 1)
+    g_img = torch.ones(RES, RES, 3, device=dev)
+    wrt = frozenset({"density"})
+    lanes = RES * RES * STREAMS
+    windows = {}
+    for stride, mode in MODES:
+        def window(state, lo):
+            seeds = [(lo + k) * 2654435761 % 2**32 for k in range(CHUNK)]
+            return TB.prb_render_and_grads_many(state, ctx, seeds, g_img, STEPS, BINS, wrt=wrt,
+                                                scatter_stride=stride, scatter_mode=mode)
+
+        state, _, g = window(renderer.reset(camera, 1), 2)
+        float(g["density"].sum())
+        s_before = int(state.samples.sum())
+        t0 = time.perf_counter()
+        for k in range(WINDOWS):
+            state, _, g = window(state, (k + 1) * CHUNK + 2)
+        float(g["density"].sum())
+        dt = time.perf_counter() - t0
+        paths = int(state.samples.sum()) - s_before
+        rec = dict(seconds=dt, mpaths_per_s=paths / dt / 1e6,
+                   m_lane_steps_per_s=lanes * STEPS * CHUNK * WINDOWS / dt / 1e6)
+        # one window split by piece (CUDA events): K4, K5, contraction
+        seeds = [(7 + k) * 2654435761 % 2**32 for k in range(CHUNK)]
+        sf, tapes, _, m_final = TB._tape_forward_sweep(state, ctx, seeds, STEPS, BINS, wrt)
+        rec["k4_ms"] = cuda_ms(lambda: TB._tape_forward_sweep(state, ctx, seeds, STEPS, BINS, wrt), 3)
+        rec["k5_contract_ms"] = cuda_ms(lambda: TB._tape_reverse_sweep(
+            state, ctx, seeds, tapes, m_final, g_img, STEPS, BINS, wrt, stride, mode), 3)
+        adj = TB._packed_adj_init(ctx, wrt)
+        rec["contract_ms"] = cuda_ms(lambda: TB._contract_packed_adjoints(adj, ctx, wrt), 3)
+        rec["window_ms"] = cuda_ms(lambda: window(state, 99), 3)
+        # the same window through the plain versions, once
+        s_plain0 = int(state.samples.sum())
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sp, gp = plain_window(state, ctx, seeds, g_img, wrt, stride, mode)
+        float(gp["density"].sum())
+        dtp = time.perf_counter() - t0
+        _, _, gk = TB.prb_render_and_grads_many(state, ctx, seeds, g_img, STEPS, BINS, wrt=wrt,
+                                                scatter_stride=stride, scatter_mode=mode)
+        rel = float((gk["density"] - gp["density"]).norm() / gp["density"].norm().clamp_min(1e-30))
+        rec["plain"] = dict(seconds=dtp, mpaths_per_s=(int(sp.samples.sum()) - s_plain0) / dtp / 1e6,
+                            m_lane_steps_per_s=lanes * STEPS * CHUNK / dtp / 1e6,
+                            grad_rel_l2_vs_kernel=rel)
+        if rel > 1e-4:
+            raise AssertionError(f"window {mode}{stride}: kernel grads differ from plain by {rel}")
+        windows[f"{mode}{stride}"] = rec
+        log(f"# fwd+bwd {mode} {stride} ({WINDOWS} windows x {CHUNK} dispatches): kernels "
+            f"{rec['mpaths_per_s']:.3f} Mpaths/s, {rec['m_lane_steps_per_s']:.1f} M lane-steps/s "
+            f"(window {rec['window_ms']:.3f} ms: K4 {rec['k4_ms']:.3f}, K5+contract "
+            f"{rec['k5_contract_ms']:.3f}, contract {rec['contract_ms']:.3f}); plain "
+            f"{rec['plain']['mpaths_per_s']:.3f} Mpaths/s, "
+            f"{rec['plain']['m_lane_steps_per_s']:.1f} M lane-steps/s; grads kernel vs plain "
+            f"rel {rel:.3g}")
+    return launches, fits, windows
+
+
+def phase_gather(dev):
+    """The gather tool's own path: every size, exact, timed."""
+    from vpt_tpu_torch.tools import gather_bench as G
+
+    G.reset_launch_counts()
+    rows = G.run(dev)
+    launches = dict(G.LAUNCHES)
+    for r in rows:
+        log(f"# {r['name']}: exact; {r['glookups_per_s']:.2f} Glookups/s kernel vs "
+            f"{r['plain_glookups_per_s']:.2f} plain ({r['ms']:.4f} / {r['plain_ms']:.4f} ms)")
+    if launches["gather_scalar"] < 1 or launches["gather_lanewise"] < len(G.LANEWISE_N):
+        raise AssertionError(f"gather tool did not launch its kernels: {launches}")
+    k6 = dict(name="gather_scalar", route="cuda", source=GATHER_SOURCE,
+              replaces="tools/gather_bench.py:54", launches=launches["gather_scalar"],
+              max_abs_err=0.0, ms=rows[0]["ms"], plain_ms=rows[0]["plain_ms"])
+    p2 = next(r for r in rows if r["name"].endswith("N=2048"))
+    k7 = dict(name="gather_lanewise", route="cuda", source=GATHER_SOURCE,
+              replaces="tools/gather_bench.py:75", also_replaces=["tools/gather_bench2.py:76",
+                                                                  "tools/gather_bench3.py:38"],
+              launches=launches["gather_lanewise"], max_abs_err=0.0, ms=p2["ms"],
+              plain_ms=p2["plain_ms"], by_size=rows[1:])
+    return k6, k7
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs one GPU", file=sys.stderr)
@@ -267,9 +556,9 @@ def main():
 
     t0 = time.perf_counter()
     _build.load()
-    log(f"# build: {time.perf_counter() - t0:.2f} s (nvcc {_build.build_info['seconds']:.2f} s)")
+    log(f"# build: {time.perf_counter() - t0:.2f} s (parallel nvcc {_build.build_info['seconds']:.2f} s)")
     for line in _build.build_info["log"].splitlines():
-        if "registers" in line or "spill" in line or "error" in line:
+        if "registers" in line or "spill" in line or "error" in line or line.startswith("=="):
             log(f"# ptxas: {line.strip()}")
 
     k3 = phase_k3(dev)
@@ -279,13 +568,20 @@ def main():
     k2 = phase_k2(renderer, camera, dev)
     k1 = phase_k1(renderer, camera, dev)
     launches, kern, plain = phase_main(dev)
+    k4, keep = phase_k4(renderer, camera, dev)
+    k5 = phase_k5(keep, dev)
+    del keep
+    bwd_launches, fits, windows = phase_fit(camera, dev)
+    k6, k7 = phase_gather(dev)
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")
 
     k1["launches"], k2["launches"] = launches["step"], launches["reset"]
     k3["launches"] = launches["sample_volume_packed"]
-    result = {"kernels": [k1, k2], "standalone": [k3],
+    k4["launches"], k5["launches"] = bwd_launches["prb_tape_forward"], bwd_launches["prb_reverse"]
+    result = {"kernels": [k1, k2, k4, k5, k6, k7], "standalone": [k3],
               "main_path": {"kernel": kern, "plain_step": plain},
+              "training_path": {"fit_spectral": fits, "fwd_bwd_windows": windows},
               "gpu": smi}
     log(json.dumps(result))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

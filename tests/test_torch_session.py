@@ -144,6 +144,8 @@ def test_port_never_imports_jax(tmp_path):
     code = textwrap.dedent("""
         import sys
         import vpt_tpu_torch, vpt_tpu_torch.session, vpt_tpu_torch.convert
+        import vpt_tpu_torch.optim, vpt_tpu_torch.kernels.spectral_backward
+        import vpt_tpu_torch.tools.gather_bench
         from vpt_tpu_torch import (LightConfig, MaterialTF, MCMSpectralConfig,
                                    SpectrumConfig, Volume)
         from vpt_tpu_torch.session import RenderSession

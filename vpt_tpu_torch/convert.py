@@ -3,7 +3,9 @@
 
 With these the two packages run the same dispatch from the same inputs:
 ``state_from_numpy({k: np.asarray(getattr(jax_state, k)) ...}, device)``
-and ``ctx_from_numpy`` on the JAX ``SpectralCtx``'s arrays.
+and ``ctx_from_numpy`` on the JAX ``SpectralCtx``'s arrays; the backward's
+packed adjoints and raw-table gradients cross with ``adjoints_from_numpy``
+and ``grads_to_numpy``.
 """
 
 from __future__ import annotations
@@ -31,13 +33,26 @@ def state_to_numpy(state: SpectralState) -> dict:
 
 
 def ctx_from_numpy(*, inv_mvp, seed_bits, extinction, blur, max_bounces,
-                   light_direction, density_table, density_dims, material_tf,
+                   light_direction, density_table, density_dims=None, material_tf,
                    light_spectrum, boundaries, bin_xyz, device) -> SpectralCtx:
-    """The port's ``SpectralCtx`` from the arrays of a JAX ``SpectralCtx``
-    (its ``PackedVolume`` given as ``density_table`` + ``density_dims``)."""
+    """The port's ``SpectralCtx`` from the arrays of a JAX ``SpectralCtx``.
+
+    The packed volume comes as a flat ``PackedVolume`` table (u8 or f32,
+    ``density_table`` (rows, 8) + ``density_dims``) or as the natural 4-D
+    (D+1, H+1, W+1, 8) array the JAX package keeps for small f32 volumes
+    (``density_dims`` None); both become a flat table."""
 
     def dev(a):
         return torch.as_tensor(np.array(a), device=device)
+
+    density_table = np.asarray(density_table)
+    if density_table.ndim == 4:
+        if density_dims is not None and tuple(density_dims) != density_table.shape[:3]:
+            raise ValueError(f"density_dims {density_dims} != table dims {density_table.shape[:3]}")
+        density_dims = density_table.shape[:3]
+        density_table = density_table.reshape(-1, density_table.shape[-1])
+    elif density_dims is None:
+        raise ValueError("a flat density table needs density_dims")
 
     return SpectralCtx(
         inv_mvp=np.asarray(inv_mvp, np.float32),
@@ -52,3 +67,19 @@ def ctx_from_numpy(*, inv_mvp, seed_bits, extinction, blur, max_bounces,
         boundaries=np.asarray(boundaries, np.float32),
         bin_xyz=dev(np.asarray(bin_xyz, np.float32)),
     )
+
+
+def adjoints_from_numpy(acc: dict, device) -> dict:
+    """Packed adjoints of the JAX backward (``raw_adjoints=True``: g_ext
+    scalar, g_tf (Hp*Wp, 18), g_vol (rows, 8)) as the port's tensors
+    (g_ext of shape (1,))."""
+    out = {}
+    for k, v in acc.items():
+        a = np.array(v, np.float32)
+        out[k] = torch.as_tensor(a.reshape(1) if k == "g_ext" else a, device=device)
+    return out
+
+
+def grads_to_numpy(grads: dict) -> dict:
+    """Gradients (or adjoints) of the port as numpy arrays, by key."""
+    return {k: v.detach().cpu().numpy() for k, v in grads.items()}

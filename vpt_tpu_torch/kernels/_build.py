@@ -1,10 +1,12 @@
 """Build the CUDA sources of the port with nvcc and load them with ctypes.
 
-``load()`` compiles every ``vpt_tpu_torch/csrc/*.cu`` into one shared
+``load()`` compiles each ``vpt_tpu_torch/csrc/*.cu`` into its own shared
 library with a plain C interface, on first use, into
-``vpt_tpu_torch/_build/`` (listed in .gitignore). The library is named by a
-hash of the sources and the flags, so an edited source builds anew and an
-unchanged one loads at once. A build or load failure raises.
+``vpt_tpu_torch/_build/`` (listed in .gitignore). The nvcc processes of the
+sources that need a build run at the same time. Each library is named by a
+hash of its source, the shared headers (``csrc/*.cuh``) and the flags, so an
+edited source builds anew and an unchanged one loads at once. A build or
+load failure raises.
 
 Flags: ``sm_90a`` (Hopper), no fast math, and ``-fmad=false`` so that the
 lerps ``a + (b - a) * f`` round like the JAX reference instead of
@@ -21,6 +23,7 @@ import subprocess
 import threading
 import time
 from pathlib import Path
+from types import SimpleNamespace
 
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
@@ -40,11 +43,26 @@ build_info = {"seconds": None, "log": "", "path": None}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
+_U = ctypes.c_uint32
+_L = ctypes.c_int64
+# C functions of each source: name -> (argtypes, restype)
 _SIGNATURES = {
-    "vpt_layout": ([_I], _I),
-    "vpt_mcm_spectral_step": ([_P] * 16 + [_P], _I),
-    "vpt_mcm_spectral_reset": ([_P, _P, ctypes.c_uint32] + [_P] * 12 + [_P], _I),
-    "vpt_sample_volume_packed": ([_P, _I, _I, _I, _I, _P, _P, _P, _P, _I, _P], _I),
+    "mcm_spectral": {
+        "vpt_layout": ([_I], _I),
+        "vpt_mcm_spectral_step": ([_P] * 16 + [_P], _I),
+        "vpt_mcm_spectral_reset": ([_P, _P, _U] + [_P] * 12 + [_P], _I),
+        "vpt_sample_volume_packed": ([_P, _I, _I, _I, _I, _P, _P, _P, _P, _I, _P], _I),
+    },
+    "spectral_backward": {
+        "vpt_bwd_layout": ([_I], _I),
+        "vpt_prb_tape_forward": ([_P, _P, _P, _I] + [_P] * 15 + [_P], _I),
+        "vpt_prb_reverse": ([_P, _F] + [_P] * 10 + [_P], _I),
+    },
+    "gather_bench": {
+        "vpt_gather_scalar": ([_P, _P, _P, _L, _P], _I),
+        "vpt_gather_lanewise": ([_P, _P, _P, _L, _P], _I),
+    },
 }
 
 
@@ -64,50 +82,69 @@ def find_nvcc() -> str:
 
 
 def _sources():
-    srcs = sorted(CSRC_DIR.glob("*.cu"))
-    if not srcs:
-        raise RuntimeError(f"no CUDA sources under {CSRC_DIR}")
+    srcs = {s.stem: s for s in sorted(CSRC_DIR.glob("*.cu"))}
+    if set(srcs) != set(_SIGNATURES):
+        raise RuntimeError(f"CUDA sources under {CSRC_DIR} are {sorted(srcs)}, "
+                           f"the loader expects {sorted(_SIGNATURES)}")
     return srcs
 
 
-def library_path() -> Path:
+def library_path(src: Path) -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for s in _sources():
+    for s in [src, *sorted(CSRC_DIR.glob("*.cuh"))]:
         h.update(s.name.encode())
         h.update(s.read_bytes())
-    return BUILD_DIR / f"libvpt_kernels_{h.hexdigest()[:16]}.so"
+    return BUILD_DIR / f"libvpt_{src.stem}_{h.hexdigest()[:16]}.so"
 
 
-def _compile(out: Path):
+def _compile(jobs):
+    """Run one nvcc per (source, output) pair, all at once; raise if any fails."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
+    nvcc = find_nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    procs = []
+    for src, out in jobs:
+        tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(src)]
+        procs.append((src, out, tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    logs, failed = [], []
+    for src, out, tmp, proc in procs:
+        text = proc.communicate()[0]
+        logs.append(f"== {src.name}\n{text}")
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            failed.append(f"{src.name} ({proc.returncode})")
+        else:
+            os.replace(tmp, out)  # atomic: concurrent builders never load a partial file
     build_info["seconds"] = time.perf_counter() - t0
-    build_info["log"] = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{build_info['log']}")
-    os.replace(tmp, out)  # atomic: concurrent builders never load a partial file
+    build_info["log"] = "\n".join(logs)
+    if failed:
+        raise RuntimeError(f"nvcc failed for {', '.join(failed)}:\n{build_info['log']}")
 
 
 def load():
-    """Build (if needed) and load the kernel library; returns the ctypes handle."""
+    """Build (if needed) and load the kernel libraries; returns a namespace
+    holding every C function of every source, with its ctypes signature."""
     global _lib
     with _lock:
         if _lib is not None:
             return _lib
-        path = library_path()
-        if not path.exists():
-            _compile(path)
+        srcs = _sources()
+        paths = {stem: library_path(src) for stem, src in srcs.items()}
+        missing = [(srcs[stem], p) for stem, p in paths.items() if not p.exists()]
+        if missing:
+            _compile(missing)
         else:
             build_info["seconds"] = 0.0
-        lib = ctypes.CDLL(str(path))
-        for name, (argtypes, restype) in _SIGNATURES.items():
-            fn = getattr(lib, name)
-            fn.argtypes = argtypes
-            fn.restype = restype
-        build_info["path"] = str(path)
-        _lib = lib
-        return lib
+        fns = {}
+        for stem, path in paths.items():
+            lib = ctypes.CDLL(str(path))
+            for name, (argtypes, restype) in _SIGNATURES[stem].items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = restype
+                fns[name] = fn
+        build_info["path"] = {stem: str(p) for stem, p in paths.items()}
+        _lib = SimpleNamespace(**fns)
+        return _lib

@@ -104,9 +104,13 @@ def _respawn(rng, mask, sx, sy, ctx, n_bins):
     )
 
 
-def _render_body(p, rng, sx, sy, ctx, n_bins, light):
+def _render_body(p, rng, sx, sy, ctx, n_bins, light, collect: bool = False):
     """One Woodcock iteration over all lanes; ``p``: dict of lane tensors.
-    Same order of operations and draws as the JAX ``_render_body``."""
+    Same order of operations and draws as the JAX ``_render_body``.
+
+    ``collect``: also return the step's internals, the quantities the
+    packed-adjoint backward tapes (``kernels/spectral_backward.py``), as
+    the JAX ``_render_body(collect=True)`` returns them."""
     all_mask = torch.ones(rng.shape, dtype=torch.bool, device=rng.device)
     rng, dist = sampling.draw_exponential(rng, all_mask, _f32(ctx.extinction))
     px = p["px"] + dist * p["dx"]
@@ -117,7 +121,8 @@ def _render_body(p, rng, sx, sy, ctx, n_bins, light):
     # material lookup (sampled, clamped, even when out of bounds)
     t = sampling.div_scalar(p["wavelength"] - 400.0, 300.0)
     dens = interp.sample_volume_packed(ctx.density.table, ctx.density.dims, px, py, pz)
-    mat, light_raw = interp.sample_tex2d_fused1d(ctx.material_tf, t, dens)
+    mat, light_raw, tf_extras = interp.sample_tex2d_fused1d(ctx.material_tf, t, dens,
+                                                            return_extras=True)
     albedo = mat[..., 0]
     alpha = mat[..., 1]
     g = mat[..., 2] * 2.0 - 1.0
@@ -131,6 +136,7 @@ def _render_body(p, rng, sx, sy, ctx, n_bins, light):
     event = ~oob
     absorb = event & (wheel < p_absorb)
     scatter = event & ~absorb & (wheel < p_absorb + p_scatter)
+    null = event & ~absorb & ~scatter
     respawn = oob | absorb
 
     # radiance deposit: incremental one-hot mean over all bins
@@ -167,6 +173,14 @@ def _render_body(p, rng, sx, sy, ctx, n_bins, light):
         wavelength=torch.where(respawn, new["wavelength"], p["wavelength"]),
         radiance=radiance,
     )
+    if collect:
+        internals = dict(
+            dist=dist, sample_pos=(px, py, pz), pre_dir=(p["dx"], p["dy"], p["dz"]),
+            pre_bin=p["bin"], albedo=albedo, alpha=alpha, g=g, null=null,
+            scatter=scatter, oob=oob, respawn=respawn, emitted=emitted,
+            hg_cos=hx * p["dx"] + hy * p["dy"] + hz * p["dz"], tf_extras=tf_extras,
+        )
+        return out, rng, internals
     return out, rng
 
 

@@ -1,0 +1,768 @@
+"""The packed-adjoint PRB backward of the spectral MCM renderer: wrappers,
+plain versions, launch counts, and the host orchestration.
+
+Counterpart of the packed path of ``vpt_tpu/kernels/spectral_backward.py``
+(``spectral_backward_packed`` and the functions built on it). PRB (path
+replay backprop) is a taped forward pass followed by a reverse pass over the
+tape that propagates each step's deposit cotangent ``(c, cb)`` and scatters
+the analytic per-event gradients into adjoints shaped like the PACKED tables
+(one 18-wide TF+light row and one 8-wide volume row per lane-step). The
+packed adjoints are contracted back to the raw tables once, through the VJP
+of the torch packers (``ops/interp.pack_*_t``).
+
+Two kernels of ``vpt_tpu_torch/csrc/spectral_backward.cu``:
+
+- ``tape_forward`` (K4): K dispatches of ``steps`` Woodcock iterations from
+  a state, writing one tape row per lane-step; replaces ``fwd_body``
+  (``:660-743``) scanned by ``_tape_forward_sweep``. Plain version
+  ``tape_forward_plain``. Its final state equals the forward step kernel's.
+- ``prb_reverse`` (K5): the reverse pass over K stored dispatch tapes, the
+  ``(c, cb)`` carry threaded across dispatches, the extinction score, and
+  the stride or importance scatters; replaces ``cotangent_update`` +
+  ``scatter_step`` (``:781-950``) and ``_importance_metric`` +
+  ``_importance_scatter`` (``:411-540``). Plain version
+  ``prb_reverse_plain``.
+
+The tape is one f32 tensor ``(K, steps, F, lanes)`` whose F fields are
+``tape_fields(wrt)`` (int and bool fields bit-cast into f32 slots); kernel
+and plain version write the same layout, so their tapes compare bitwise.
+One convention differs from the JAX tape: ``hg_cos`` is 0 where the step
+did not scatter (the JAX tape holds an unused value there).
+
+Each wrapper runs its plain version when its tensors lie on the CPU and
+launches its kernel when they lie on a CUDA device; anything else raises.
+``LAUNCHES`` counts kernel launches only. The functions here never modify
+the state they are given: the forward runs on a copy.
+
+Not ported yet (each raises ``NotImplementedError``): the raw-table replay
+backward ``spectral_backward``, xy half-packed volumes, the quasicubic
+filter, environment gradients and majorant mode.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from vpt_tpu_torch.kernels import _build
+from vpt_tpu_torch.kernels import mcm_spectral as K
+from vpt_tpu_torch.ops import geometry, interp, sampling
+from vpt_tpu_torch.ops.spectral import XYZ_TO_SRGB_KERNEL
+
+ALL_WRT = frozenset({"density", "material_tf", "light_spectrum", "extinction"})
+EPS = 1e-5
+
+# tape fields in the order of TapeField in csrc/spectral_backward.cu
+TAPE_FIELDS = (
+    "emitted", "respawn", "pre_bin", "alpha", "albedo", "g", "hg_cos",
+    "null", "scatter", "fx",                                   # always
+    "dist",                                                    # extinction
+    "tf_row", "fy", "light_w",                                 # TF / light
+    "slope0", "slope1", "slope2", "vol_row0", "vfx", "vfy", "vfz",  # density
+)
+INT_FIELDS = frozenset({"pre_bin", "tf_row", "vol_row0"})
+BOOL_FIELDS = frozenset({"respawn", "null", "scatter"})
+# must match MAX_IMP_STEPS and RParam in csrc/spectral_backward.cu
+MAX_IMP_STEPS = 32
+_R_COUNT = 13
+
+# above this many bytes of stacked tape, window_storage="auto" re-simulates
+# from stored start states instead (the JAX package's limit)
+_TAPE_AUTO_LIMIT_BYTES = 6 * 1024**3
+
+LAUNCHES = {"prb_tape_forward": 0, "prb_reverse": 0}
+
+
+def reset_launch_counts():
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def tape_fields(wrt) -> tuple:
+    """The tape's fields for a ``wrt`` subset, in slot order."""
+    wrt = frozenset(wrt)
+    bad = wrt - ALL_WRT
+    if bad:
+        raise NotImplementedError(f"gradients w.r.t. {sorted(bad)} are not ported")
+    want = set(TAPE_FIELDS[:10])
+    if "extinction" in wrt:
+        want.add("dist")
+    if "material_tf" in wrt or "light_spectrum" in wrt:
+        want.update(("tf_row", "fy", "light_w"))
+    if "density" in wrt:
+        want.update(TAPE_FIELDS[14:])
+    return tuple(f for f in TAPE_FIELDS if f in want)
+
+
+def _slots(fields) -> np.ndarray:
+    slot = np.full(len(TAPE_FIELDS), -1, np.int32)
+    for i, f in enumerate(fields):
+        slot[TAPE_FIELDS.index(f)] = i
+    return slot
+
+
+def _check_packed_ctx(ctx, volume_filter="linear"):
+    if volume_filter != "linear":
+        raise NotImplementedError(f"volume filter {volume_filter!r} is not ported to the backward")
+    if not isinstance(ctx.density, interp.PackedVolume):
+        raise NotImplementedError(
+            "the raw-table replay backward (spectral_backward) is not ported; "
+            "the port's backward needs the packed ctx (PackedVolume + fused TF)")
+    if ctx.material_tf.ndim != 3 or ctx.material_tf.shape[-1] != 18:
+        raise ValueError("packed backward needs the fused (Hp, Wp, 18) TF+light table, got "
+                         f"{tuple(ctx.material_tf.shape)}")
+
+
+def _lanes(state):
+    lane = tuple(state.px.shape)
+    streams = lane[0] if len(lane) == 3 else 1
+    return lane, lane[-1], streams, int(np.prod(lane))
+
+
+def clone_state(state):
+    return type(state)(*(t.clone() for t in state.tensors()))
+
+
+def _bits_f(x: torch.Tensor) -> torch.Tensor:
+    """int32 / bool lane tensor -> its f32 tape slot."""
+    if x.dtype == torch.bool:
+        return x.to(torch.float32)
+    return x.to(torch.int32).view(torch.float32)
+
+
+# ---------------------------------------------------------------------------
+# K4: taped forward
+# ---------------------------------------------------------------------------
+def _tape_row(it, fields, ctx, light):
+    """The tape fields of one step's internals (JAX ``fwd_body``), each a
+    flat (lanes,) f32 tensor, stacked to (F, lanes)."""
+    (lx, ly, lz), isotropic = light
+    ex = it["tf_extras"]
+    rows, fx, fy = ex["rows"], ex["fx"], ex["fy"]
+    scatter = it["scatter"]
+    v = dict(
+        emitted=it["emitted"], respawn=_bits_f(it["respawn"]),
+        pre_bin=_bits_f(it["pre_bin"]), alpha=it["alpha"], albedo=it["albedo"],
+        g=it["g"], hg_cos=torch.where(scatter, it["hg_cos"], torch.zeros_like(fx)),
+        null=_bits_f(it["null"]), scatter=_bits_f(scatter), fx=fx,
+    )
+    if "dist" in fields:
+        v["dist"] = it["dist"]
+    if "tf_row" in fields:
+        v["tf_row"] = _bits_f(ex["row_idx"])
+        v["fy"] = fy
+        dx, dy, dz = it["pre_dir"]
+        if isotropic:
+            di = torch.ones_like(fx)
+        else:
+            ddot = dx * lx + dy * ly + dz * lz
+            di = torch.where(it["emitted"] > 0.0, ddot, torch.zeros_like(ddot))
+        v["light_w"] = torch.where(it["oob"], di * 5.0, torch.zeros_like(fx))
+    if "vol_row0" in fields:
+        th = ctx.material_tf.shape[0] - 1
+        fxc = fx[..., None]
+        c00, c01 = rows[..., 0:3], rows[..., 4:7]
+        c10, c11 = rows[..., 8:11], rows[..., 12:15]
+        slopes = ((c10 + (c11 - c10) * fxc) - (c00 + (c01 - c00) * fxc)) * th
+        for c in range(3):
+            v[f"slope{c}"] = slopes[..., c]
+        VDp, VHp, VWp = ctx.density.dims
+        u, w_, z = it["sample_pos"]
+        vbx, vfx = interp._base_and_frac(u, VWp - 1)
+        vby, vfy = interp._base_and_frac(w_, VHp - 1)
+        vbz, vfz = interp._base_and_frac(z, VDp - 1)
+        v["vol_row0"] = _bits_f((vbz * VHp + vby) * VWp + vbx)
+        v["vfx"], v["vfy"], v["vfz"] = vfx, vfy, vfz
+    return torch.stack([v[f].reshape(-1) for f in fields])
+
+
+def tape_forward_plain(state, ctx, seeds, steps: int, n_bins: int, wrt=ALL_WRT):
+    """Plain PyTorch ``tape_forward``: updates ``state`` in place (like
+    ``mcm_spectral.step_plain``) and returns the tapes (K, steps, F, lanes)."""
+    fields = tape_fields(wrt)
+    lane, resolution, streams, _ = _lanes(state)
+    device = state.px.device
+    ix, iy, seed_iy = K._pixel_grid(resolution, streams, device)
+    inv_res = K._f32(np.float32(1.0) / np.float32(resolution))
+    sx, sy = geometry.screen_position(ix, iy, inv_res)
+    light = K.light_terms(ctx.light_direction)
+    p = {k: getattr(state, k) for k in K.STATE_FIELDS if k != "transmittance"}
+    tapes = []
+    for seed in np.asarray(seeds, np.uint32).reshape(-1):
+        rng = sampling.seed_state(ix, seed_iy, int(seed))
+        rows = []
+        for _ in range(steps):
+            p, rng, it = K._render_body(p, rng, sx, sy, ctx, n_bins, light, collect=True)
+            rows.append(_tape_row(it, fields, ctx, light))
+        tapes.append(torch.stack(rows))
+    for k, val in p.items():
+        getattr(state, k).copy_(val)
+    return torch.stack(tapes)
+
+
+def tape_forward(state, ctx, seeds, steps: int, n_bins: int, wrt=ALL_WRT):
+    """K taped dispatches (one per frame seed) from ``state``, which stays
+    untouched. Returns (state_out, tapes (K, steps, F, lanes) f32); one
+    kernel launch on a CUDA device."""
+    _check_packed_ctx(ctx)
+    fields = tape_fields(wrt)
+    out = clone_state(state)
+    tensors = out.tensors() + [ctx.density.table, ctx.material_tf]
+    if K._route(*tensors) == "cpu":
+        return out, tape_forward_plain(out, ctx, seeds, steps, n_bins, wrt)
+    K._check_state(out, n_bins)
+    K._check_tables(ctx)
+    seeds = np.asarray(seeds, np.uint32).reshape(-1)
+    lane, resolution, streams, n_lanes = _lanes(out)
+    f, i = K._params(ctx, resolution, streams, n_bins, steps, len(seeds))
+    lib = _build.load()
+    _check_layout(lib)
+    device = out.px.device
+    tapes = torch.empty((len(seeds), steps, len(fields), n_lanes), dtype=torch.float32,
+                        device=device)
+    slots = _slots(fields)
+    seeds_dev = torch.as_tensor(seeds.view(np.int32), device=device)
+    with torch.cuda.device(device):
+        err = lib.vpt_prb_tape_forward(
+            f.ctypes.data, i.ctypes.data, slots.ctypes.data, len(fields),
+            *(getattr(out, k).data_ptr() for k in K.STATE_FIELDS[:11]),
+            ctx.density.table.data_ptr(), ctx.material_tf.data_ptr(),
+            seeds_dev.data_ptr(), tapes.data_ptr(), K._stream(device))
+    K._raise_on(err, "prb_tape_forward")
+    LAUNCHES["prb_tape_forward"] += 1
+    return out, tapes
+
+
+def _check_layout(lib):
+    got = tuple(lib.vpt_bwd_layout(k) for k in range(5))
+    want = (len(TAPE_FIELDS), _R_COUNT, MAX_IMP_STEPS, K._F_COUNT, K._I_COUNT)
+    if got != want:
+        raise RuntimeError(f"backward kernel layout {got} does not match the wrapper's {want}")
+
+
+# ---------------------------------------------------------------------------
+# K5: reverse pass
+# ---------------------------------------------------------------------------
+class _Row:
+    """Named access to one tape row (F, lanes) of the plain reverse."""
+
+    def __init__(self, row, col):
+        self.row, self.col = row, col
+
+    def f(self, name):
+        return self.row[self.col[name]]
+
+    def i(self, name):
+        return self.f(name).view(torch.int32)
+
+    def b(self, name):
+        return self.f(name) > 0.5
+
+
+def _event_grads(t: _Row, q):
+    """(grad_alpha, grad_albedo, grad_graw) of one step (JAX :784-798)."""
+    alpha, albedo, g = t.f("alpha"), t.f("albedo"), t.f("g")
+    null, scat = t.b("null"), t.b("scatter")
+    zero = torch.zeros_like(q)
+    grad_alpha = (torch.where(null, -q / torch.clamp_min(1.0 - alpha, 1e-12), zero)
+                  + torch.where(scat, q / torch.clamp_min(alpha, 1e-12), zero))
+    grad_albedo = torch.where(scat, q / torch.clamp_min(albedo, 1e-12), zero)
+    aniso = torch.abs(g) >= EPS
+    cosd = t.f("hg_cos")
+    g2 = g * g
+    hg_score = (-2.0 * g / torch.clamp_min(1.0 - g2, 1e-9)
+                - 3.0 * (g - cosd) / torch.clamp_min(1.0 + g2 - 2.0 * g * cosd, 1e-9))
+    grad_graw = torch.where(scat & aniso, q * hg_score, zero) * 2.0
+    return grad_alpha, grad_albedo, grad_graw
+
+
+def _scatter_plain(t: _Row, c, cb, weight, adj):
+    """The per-step table scatters of one tape row (JAX ``scatter_step``)."""
+    q = cb * c * weight
+    ga, gb, gg = _event_grads(t, q)
+    if "g_tf" in adj:
+        fx, fy = t.f("fx"), t.f("fy")
+        w = ((1 - fx) * (1 - fy), fx * (1 - fy), (1 - fx) * fy, fx * fy)
+        gl = cb * weight * t.f("light_w")
+        zero = torch.zeros_like(fx)
+        cols = []
+        for wk in w:
+            cols += [gb * wk, ga * wk, gg * wk, zero]
+        cols += [gl * (1 - fx), gl * fx]
+        adj["g_tf"].index_add_(0, t.i("tf_row").to(torch.int64), torch.stack(cols, dim=-1))
+    if "g_vol" in adj:
+        gd = gb * t.f("slope0") + ga * t.f("slope1") + gg * t.f("slope2")
+        vfx, vfy, vfz = t.f("vfx"), t.f("vfy"), t.f("vfz")
+        w4 = ((1 - vfy) * (1 - vfx), (1 - vfy) * vfx, vfy * (1 - vfx), vfy * vfx)
+        a0, a1 = gd * (1 - vfz), gd * vfz
+        v8 = torch.stack([a0 * wk for wk in w4] + [a1 * wk for wk in w4], dim=-1)
+        adj["g_vol"].index_add_(0, t.i("vol_row0").to(torch.int64), v8)
+
+
+def _importance_metric_plain(t: _Row, c, cb, want_tf, want_vol):
+    """Importance-thinning selection weight of one step (JAX
+    ``_importance_metric``)."""
+    ga, gb, gg = _event_grads(t, c * cb)
+    m = torch.zeros_like(c)
+    if want_vol:
+        m = m + torch.abs(gb * t.f("slope0") + ga * t.f("slope1") + gg * t.f("slope2"))
+    if want_tf:
+        m = m + (torch.abs(gb) + torch.abs(ga) + torch.abs(gg) + torch.abs(cb * t.f("light_w")))
+    return m
+
+
+def prb_reverse_plain(tapes, fields, g_rad_scaled, cot, adj, phases, seeds, *,
+                      scatter_stride: int, importance: bool, inv_mu: float,
+                      resolution: int, streams: int, pick_bits=None):
+    """Plain PyTorch ``prb_reverse``: updates the carry ``cot`` (dict c, cb
+    of (lanes,) tensors) and the adjoints ``adj`` (dict of g_ext (1,),
+    g_tf (rows, 18), g_vol (rows, 8), as present) in place."""
+    n_disp, steps = tapes.shape[0], tapes.shape[1]
+    n_bins = g_rad_scaled.shape[0]
+    col = {f: i for i, f in enumerate(fields)}
+    importance = importance and scatter_stride > 1
+    want_tf, want_vol = "g_tf" in adj, "g_vol" in adj
+    c, cb = cot["c"], cot["cb"]
+    weight = float(scatter_stride)
+    for k in range(n_disp - 1, -1, -1):
+        c_all, cb_all = [None] * steps, [None] * steps
+        for it in range(steps - 1, -1, -1):
+            t = _Row(tapes[k, it], col)
+            dep = t.b("respawn")
+            b = t.i("pre_bin")
+            ok = (b >= 0) & (b < n_bins)
+            sel = torch.gather(g_rad_scaled, 0, b.clamp(0, n_bins - 1).to(torch.int64)[None])[0]
+            c = torch.where(dep, t.f("emitted"), c)
+            cb = torch.where(dep, torch.where(ok, sel, torch.zeros_like(sel)), cb)
+            if "g_ext" in adj:
+                adj["g_ext"] += torch.sum(c * cb * (inv_mu - t.f("dist")))
+            if importance:
+                c_all[it], cb_all[it] = c, cb
+            elif (want_tf or want_vol) and it % scatter_stride == int(phases[k]):
+                _scatter_plain(t, c, cb, weight, adj)
+        if importance and (want_tf or want_vol):
+            _importance_scatter_plain(tapes[k], col, c_all, cb_all, adj, seeds[k],
+                                      scatter_stride, resolution, streams, pick_bits,
+                                      want_tf, want_vol)
+    cot["c"], cot["cb"] = c, cb
+
+
+def _importance_picks(tape, col, c_all, cb_all, seed, stride, resolution, streams,
+                      pick_bits, want_tf, want_vol):
+    """Per-lane importance picks of one dispatch (JAX ``_importance_scatter``):
+    ``steps // stride`` i.i.d. step picks with probability proportional to
+    the step's total scatter magnitude, each weighted S / (count * metric).
+    S and the cdf are sequential sums over the steps, in the kernel's order.
+    Returns (picks, weights): per pick, (lanes,) step indices and weights."""
+    steps = tape.shape[0]
+    absq = [_importance_metric_plain(_Row(tape[s], col), c_all[s], cb_all[s],
+                                     want_tf, want_vol) for s in range(steps)]
+    S = absq[0]
+    for s in range(1, steps):
+        S = S + absq[s]
+    Sd = torch.clamp_min(S, 1e-30)
+    run, cdf = torch.zeros_like(S), []
+    for s in range(steps):
+        run = run + absq[s] / Sd
+        cdf.append(run)
+    cdf = torch.stack(cdf)
+    absq = torch.stack(absq)
+    ix, _, seed_iy = K._pixel_grid(resolution, streams, tape.device)
+    bits = (int(seed) if pick_bits is None else int(pick_bits)) ^ 0x7F4A7C15
+    pick_state = sampling.seed_state(ix.reshape(-1), seed_iy.reshape(-1), bits)
+    count = steps // stride
+    picks, weights = [], []
+    for j in range(count):
+        state = sampling.pcg_hash(pick_state ^ ((0x9E3779B9 * (j + 1)) & sampling.MASK32))
+        u = sampling.uniform_from_state(state)
+        sel = torch.sum((cdf < u[None]).to(torch.int64), dim=0).clamp(0, steps - 1)
+        a = torch.gather(absq, 0, sel[None])[0]
+        picks.append(sel)
+        weights.append(torch.where(a > 0.0, S / (count * torch.clamp_min(a, 1e-30)),
+                                   torch.zeros_like(a)))
+    return picks, weights
+
+
+def _importance_scatter_plain(tape, col, c_all, cb_all, adj, seed, stride, resolution,
+                              streams, pick_bits, want_tf, want_vol):
+    """The importance-thinned scatters of one dispatch."""
+    picks, weights = _importance_picks(tape, col, c_all, cb_all, seed, stride, resolution,
+                                       streams, pick_bits, want_tf, want_vol)
+    c_all, cb_all = torch.stack(c_all), torch.stack(cb_all)
+    for sel, w in zip(picks, weights):
+        row = torch.gather(tape, 0, sel[None, None].expand(1, tape.shape[1], tape.shape[2]))[0]
+        _scatter_plain(_Row(row, col), torch.gather(c_all, 0, sel[None])[0],
+                       torch.gather(cb_all, 0, sel[None])[0], w, adj)
+
+
+def prb_reverse(tapes, fields, g_rad_scaled, cot, adj, phases, seeds, *,
+                scatter_stride: int, scatter_mode: str, inv_mu: float,
+                resolution: int, streams: int, pick_bits=None):
+    """The reverse pass over K stored dispatch tapes (dispatch K-1 first),
+    threading ``cot`` (dict c, cb) across them and accumulating into
+    ``adj``; both are updated in place. ``phases``/``seeds``: per-dispatch
+    stride phase and frame seed. One kernel launch on a CUDA device."""
+    if scatter_mode not in ("stride", "importance"):
+        raise ValueError(f"unknown scatter_mode {scatter_mode!r}")
+    n_disp, steps, n_fields, n_lanes = tapes.shape
+    if n_fields != len(fields) or len(phases) != n_disp or len(seeds) != n_disp:
+        raise ValueError("tape, fields, phases and seeds disagree")
+    if steps % scatter_stride:
+        raise ValueError(f"scatter_stride {scatter_stride} must divide steps {steps} (unbiasedness)")
+    importance = scatter_mode == "importance" and scatter_stride > 1
+    if importance and steps > MAX_IMP_STEPS:
+        raise ValueError(f"importance thinning supports at most {MAX_IMP_STEPS} steps, got {steps}")
+    if ("g_ext" in adj) != ("dist" in fields):
+        raise ValueError("the extinction adjoint needs the tape's dist field")
+    if ("g_tf" in adj) != ("tf_row" in fields) or ("g_vol" in adj) != ("vol_row0" in fields):
+        raise ValueError("adjoints and tape fields disagree")
+    tensors = [tapes, g_rad_scaled, cot["c"], cot["cb"], *adj.values()]
+    if K._route(*tensors) == "cpu":
+        return prb_reverse_plain(tapes, fields, g_rad_scaled, cot, adj, phases, seeds,
+                                 scatter_stride=scatter_stride, importance=importance,
+                                 inv_mu=inv_mu, resolution=resolution, streams=streams,
+                                 pick_bits=pick_bits)
+    K._check(tapes, "tapes", torch.float32)
+    K._check(g_rad_scaled, "g_rad_scaled", torch.float32, (g_rad_scaled.shape[0], n_lanes))
+    for name in ("c", "cb"):
+        K._check(cot[name], name, torch.float32, (n_lanes,))
+    if "g_ext" in adj:
+        K._check(adj["g_ext"], "g_ext", torch.float32, (1,))
+    if "g_tf" in adj:
+        K._check(adj["g_tf"], "g_tf", torch.float32, (adj["g_tf"].shape[0], 18), align=8)
+    if "g_vol" in adj:
+        K._check(adj["g_vol"], "g_vol", torch.float32, (adj["g_vol"].shape[0], 8), align=16)
+    r = np.array([
+        n_lanes, resolution, steps, n_disp, n_fields, scatter_stride, int(importance),
+        int("g_ext" in adj), int("g_tf" in adj), int("g_vol" in adj), g_rad_scaled.shape[0],
+        int(pick_bits is not None),
+        int(np.uint32(0 if pick_bits is None else int(pick_bits) & 0xFFFFFFFF).view(np.int32)),
+    ], np.int32)
+    assert r.shape == (_R_COUNT,)
+    lib = _build.load()
+    _check_layout(lib)
+    device = tapes.device
+    phases_dev = torch.as_tensor(np.asarray(phases, np.int32), device=device)
+    seeds_dev = torch.as_tensor(np.asarray(seeds, np.uint32).view(np.int32), device=device)
+    slots = _slots(fields)
+
+    def ptr(name):
+        return adj[name].data_ptr() if name in adj else None
+
+    with torch.cuda.device(device):
+        err = lib.vpt_prb_reverse(
+            r.ctypes.data, float(np.float32(inv_mu)), slots.ctypes.data, tapes.data_ptr(),
+            g_rad_scaled.data_ptr(), cot["c"].data_ptr(), cot["cb"].data_ptr(),
+            phases_dev.data_ptr(), seeds_dev.data_ptr(), ptr("g_ext"), ptr("g_tf"),
+            ptr("g_vol"), K._stream(device))
+    K._raise_on(err, "prb_reverse")
+    LAUNCHES["prb_reverse"] += 1
+
+
+# ---------------------------------------------------------------------------
+# host side: cotangents, adjoints, contraction
+# ---------------------------------------------------------------------------
+def _inv_mu(ctx) -> float:
+    return float(np.float32(1.0) / np.float32(ctx.extinction))
+
+
+def _deposit_cotangents(g_image, ctx, lane, n_bins, m_final):
+    """Per-bin, per-lane deposit cotangent g_rad / m_final, (B, lanes)."""
+    cm = torch.as_tensor(XYZ_TO_SRGB_KERNEL, dtype=torch.float32,
+                         device=ctx.bin_xyz.device) @ ctx.bin_xyz  # (3, B)
+    g_rad = torch.einsum("hwc,cb->bhw", g_image, cm)
+    if len(lane) == 3:
+        g_rad = sampling.div_scalar(g_rad[:, None], float(lane[0])).expand((n_bins,) + lane)
+    return (g_rad / m_final[None]).reshape(n_bins, -1).contiguous()
+
+
+def _m_final(state):
+    return torch.clamp_min(state.samples, 1).to(torch.float32)
+
+
+def _packed_adj_init(ctx, wrt):
+    """Zero packed adjoints for a ``wrt`` subset: g_ext (1,), g_tf
+    (Hp*Wp, 18), g_vol (rows, 8)."""
+    dev = ctx.material_tf.device
+    adj = {}
+    if "extinction" in wrt:
+        adj["g_ext"] = torch.zeros(1, dtype=torch.float32, device=dev)
+    if "material_tf" in wrt or "light_spectrum" in wrt:
+        Hp, Wp, CC = ctx.material_tf.shape
+        adj["g_tf"] = torch.zeros((Hp * Wp, CC), dtype=torch.float32, device=dev)
+    if "density" in wrt:
+        adj["g_vol"] = torch.zeros((int(np.prod(ctx.density.dims)), 8), dtype=torch.float32,
+                                   device=dev)
+    return adj
+
+
+def _vjp(packer, raw_shape, cotangent):
+    """VJP of a linear packer at any point: the dense pack transpose."""
+    with torch.enable_grad():
+        raw = torch.zeros(raw_shape, dtype=torch.float32, device=cotangent.device,
+                          requires_grad=True)
+        (g,) = torch.autograd.grad(packer(raw), raw, cotangent)
+    return g
+
+
+def _contract_packed_adjoints(acc, ctx, wrt):
+    """Packed adjoints -> gradients addressing the RAW tables, through the
+    VJP of the torch packers (``ops/interp.pack_*_t``)."""
+    grads = {}
+    if "extinction" in wrt:
+        grads["extinction"] = acc["g_ext"].reshape(())
+    if "material_tf" in wrt or "light_spectrum" in wrt:
+        Hp, Wp, CC = ctx.material_tf.shape
+        g_tf = acc["g_tf"].reshape(Hp, Wp, CC)
+        if "material_tf" in wrt:
+            grads["material_tf"] = _vjp(interp.pack_tex2d_corners_t, (Hp - 1, Wp - 1, 4),
+                                        g_tf[..., :16])
+        if "light_spectrum" in wrt:
+            # the light pair was broadcast over TF rows: transpose = row sum
+            grads["light_spectrum"] = _vjp(interp.pack_tex1d_corners_t, (Wp - 1,),
+                                           torch.sum(g_tf[..., 16:], dim=0))
+    if "density" in wrt:
+        dims = ctx.density.dims
+        grads["density"] = _vjp(interp.pack_volume_corners_t, tuple(d - 1 for d in dims),
+                                acc["g_vol"].reshape(tuple(dims) + (8,)))
+    return grads
+
+
+def _image(state, ctx):
+    from vpt_tpu_torch.models.mcm_spectral import radiance_to_rgb
+
+    return radiance_to_rgb(state.radiance, ctx.bin_xyz)
+
+
+def _dispatch_phase(k: int, seed: int, n_dispatches: int, scatter_stride: int) -> int:
+    """Thinning phase of window dispatch k: k % stride when the window
+    covers every phase uniformly (K % stride == 0), else the dispatch's
+    frame seed picks it (JAX ``_dispatch_phase``)."""
+    stride = max(int(scatter_stride), 1)
+    if scatter_stride <= 1 or n_dispatches % scatter_stride == 0:
+        return int(k) % stride
+    return int(seed) % stride
+
+
+# ---------------------------------------------------------------------------
+# one dispatch
+# ---------------------------------------------------------------------------
+def spectral_backward_packed(state0, ctx, g_image, steps: int, n_bins: int,
+                             volume_filter: str = "linear", wrt=ALL_WRT,
+                             scatter_stride: int = 1, scatter_mode: str = "stride",
+                             pick_bits=None, scatter_phase=None, m_final=None,
+                             adj_in=None, raw_adjoints: bool = False, cot_in=None,
+                             return_cot: bool = False, forward_only: bool = False,
+                             tape_in=None, state_out_in=None):
+    """Hand-derived gradients of one render dispatch, packed tables.
+
+    Returns (state_out, image, grads) with grads addressing the RAW tables,
+    like the JAX function of the same name; ``state0`` stays untouched.
+    ``m_final`` overrides the deposit normalizer, ``adj_in`` seeds the packed
+    adjoints, ``raw_adjoints`` returns them uncontracted, ``cot_in`` /
+    ``return_cot`` thread the (c, cb) carry, ``forward_only`` returns
+    (state_out, tape (steps, F, lanes)) and ``tape_in`` / ``state_out_in``
+    run the reverse pass on a stored tape."""
+    _check_packed_ctx(ctx, volume_filter)
+    wrt = frozenset(wrt)
+    fields = tape_fields(wrt)
+    if tape_in is None:
+        state_out, tapes = tape_forward(state0, ctx, [ctx.seed_bits], steps, n_bins, wrt)
+    else:
+        state_out, tapes = state_out_in, tape_in[None]
+    if forward_only:
+        return state_out, tapes[0]
+    lane, resolution, streams, n_lanes = _lanes(state0)
+    if m_final is None:
+        m_final = _m_final(state_out)
+    g_rs = _deposit_cotangents(g_image, ctx, lane, n_bins, m_final)
+    adj = ({k: v.clone() for k, v in adj_in.items()} if adj_in is not None
+           else _packed_adj_init(ctx, wrt))
+    zero = torch.zeros(n_lanes, dtype=torch.float32, device=state0.px.device)
+    cot = (dict(c=cot_in["c"].reshape(-1).clone(), cb=cot_in["cb"].reshape(-1).clone())
+           if cot_in is not None else dict(c=zero, cb=zero.clone()))
+    stride = max(int(scatter_stride), 1)
+    phase = (int(scatter_phase) if scatter_phase is not None
+             else int(ctx.seed_bits) % stride)
+    prb_reverse(tapes, fields, g_rs, cot, adj, [phase], [ctx.seed_bits],
+                scatter_stride=stride, scatter_mode=scatter_mode, inv_mu=_inv_mu(ctx),
+                resolution=resolution, streams=streams, pick_bits=pick_bits)
+    cot_out = (dict(c=cot["c"].reshape(lane), cb=cot["cb"].reshape(lane))
+               if return_cot else None)
+    image = _image(state_out, ctx)
+    out = adj if raw_adjoints else _contract_packed_adjoints(adj, ctx, wrt)
+    return (state_out, image, out, cot_out) if return_cot else (state_out, image, out)
+
+
+def prb_render_and_grads(state0, ctx, g_image, steps: int, n_bins: int,
+                         volume_filter: str = "linear", wrt=ALL_WRT,
+                         scatter_stride: int = 1, scatter_mode: str = "stride",
+                         scatter_phase=None, pick_bits=None):
+    """Forward dispatch + hand-derived backward: (state_out, image, grads),
+    grads addressing the raw tables. Only the packed ctx is ported; a raw
+    ctx raises ``NotImplementedError``."""
+    return spectral_backward_packed(state0, ctx, g_image, steps, n_bins, volume_filter,
+                                    wrt=wrt, scatter_stride=scatter_stride,
+                                    scatter_mode=scatter_mode, pick_bits=pick_bits,
+                                    scatter_phase=scatter_phase)
+
+
+# ---------------------------------------------------------------------------
+# K-dispatch windows
+# ---------------------------------------------------------------------------
+def _seeds(seeds):
+    return [int(s) for s in np.asarray(seeds, np.uint32).reshape(-1)]
+
+
+def _prb_many_core(state0, ctx, seeds, g_image, steps, n_bins, wrt, scatter_stride,
+                   m_final, starts=None, scatter_mode: str = "stride"):
+    """The packed backward over K per-dispatch seeds, one dispatch per K4/K5
+    launch pair, contracting once at the end.
+
+    ``starts=None`` (sequential): forward dispatch order, each dispatch with
+    a zero carry and its own sample counts; returns (state, image, grads).
+    ``starts`` given (window, forward storage): reverse dispatch order from
+    the stored start states, the carry threaded across dispatches and the
+    window-final ``m_final``; returns grads."""
+    seeds = _seeds(seeds)
+    n = len(seeds)
+    fields = tape_fields(wrt)
+    lane, resolution, streams, n_lanes = _lanes(state0)
+    stride = max(int(scatter_stride), 1)
+    adj = _packed_adj_init(ctx, wrt)
+    inv_mu = _inv_mu(ctx)
+    dev = state0.px.device
+
+    def zero_cot():
+        return dict(c=torch.zeros(n_lanes, dtype=torch.float32, device=dev),
+                    cb=torch.zeros(n_lanes, dtype=torch.float32, device=dev))
+
+    if starts is None:
+        state = state0
+        for k, seed in enumerate(seeds):
+            state, tapes = tape_forward(state, ctx, [seed], steps, n_bins, wrt)
+            g_rs = _deposit_cotangents(g_image, ctx, lane, n_bins, _m_final(state))
+            prb_reverse(tapes, fields, g_rs, zero_cot(), adj,
+                        [_dispatch_phase(k, seed, n, stride)], [seed],
+                        scatter_stride=stride, scatter_mode=scatter_mode, inv_mu=inv_mu,
+                        resolution=resolution, streams=streams)
+        return state, _image(state, ctx), _contract_packed_adjoints(adj, ctx, wrt)
+
+    g_rs = _deposit_cotangents(g_image, ctx, lane, n_bins, m_final)
+    cot = zero_cot()
+    for k in range(n - 1, -1, -1):
+        _, tapes = tape_forward(starts[k], ctx, [seeds[k]], steps, n_bins, wrt)
+        prb_reverse(tapes, fields, g_rs, cot, adj,
+                    [_dispatch_phase(k, seeds[k], n, stride)], [seeds[k]],
+                    scatter_stride=stride, scatter_mode=scatter_mode, inv_mu=inv_mu,
+                    resolution=resolution, streams=streams)
+    return _contract_packed_adjoints(adj, ctx, wrt)
+
+
+def _tape_forward_sweep(state0, ctx, seeds, steps, n_bins, wrt):
+    """One taped forward over the K dispatches (one K4 launch):
+    (state_f, tapes (K, steps, F, lanes), image, m_final)."""
+    state_f, tapes = tape_forward(state0, ctx, _seeds(seeds), steps, n_bins, wrt)
+    return state_f, tapes, _image(state_f, ctx), _m_final(state_f)
+
+
+def _tape_reverse_sweep(state0, ctx, seeds, tapes, m_final, g_image, steps, n_bins, wrt,
+                        scatter_stride, scatter_mode: str = "stride"):
+    """One reverse pass over the stored tapes (one K5 launch), the carry
+    threaded across dispatches; contracts the packed adjoints once."""
+    seeds = _seeds(seeds)
+    lane, resolution, streams, n_lanes = _lanes(state0)
+    stride = max(int(scatter_stride), 1)
+    adj = _packed_adj_init(ctx, wrt)
+    dev = state0.px.device
+    cot = dict(c=torch.zeros(n_lanes, dtype=torch.float32, device=dev),
+               cb=torch.zeros(n_lanes, dtype=torch.float32, device=dev))
+    phases = [_dispatch_phase(k, s, len(seeds), stride) for k, s in enumerate(seeds)]
+    prb_reverse(tapes, tape_fields(wrt), _deposit_cotangents(g_image, ctx, lane, n_bins, m_final),
+                cot, adj, phases, seeds, scatter_stride=stride, scatter_mode=scatter_mode,
+                inv_mu=_inv_mu(ctx), resolution=resolution, streams=streams)
+    return _contract_packed_adjoints(adj, ctx, wrt)
+
+
+def _window_tape_bytes(state0, steps, n_dispatches, wrt) -> int:
+    """Bytes of the stacked window tape."""
+    return int(np.prod(state0.px.shape)) * steps * n_dispatches * len(tape_fields(wrt)) * 4
+
+
+def _resolve_storage(window_storage, state0, steps, n_dispatches, wrt) -> str:
+    if window_storage == "auto":
+        fits = _window_tape_bytes(state0, steps, n_dispatches, wrt) <= _TAPE_AUTO_LIMIT_BYTES
+        return "tape" if fits else "forward"
+    if window_storage not in ("tape", "forward"):
+        raise ValueError(f"unknown window_storage {window_storage!r}")
+    return window_storage
+
+
+def _window_forward(state0, ctx, seeds, steps, n_bins):
+    """Untaped K-dispatch forward (one K1 launch per dispatch):
+    (m_final, image, start_states, state_f), ``start_states`` listing each
+    dispatch's start state; ``state0`` stays untouched."""
+    state = clone_state(state0)
+    starts = []
+    for s in _seeds(seeds):
+        starts.append(clone_state(state))
+        K.step(state, ctx, [s], steps, n_bins)
+    return _m_final(state), _image(state, ctx), starts, state
+
+
+def prb_render_and_grads_many(state0, ctx, seeds, g_image, steps: int, n_bins: int,
+                              volume_filter: str = "linear", wrt=ALL_WRT,
+                              scatter_stride: int = 1, scatter_mode: str = "stride",
+                              window: bool = True, window_storage: str = "auto"):
+    """K taped fwd+bwd dispatches: (state_out, image, grads), grads summed
+    over the window and addressing the raw tables.
+
+    ``window=True``: the window-exact estimator (reverse dispatch order, the
+    (c, cb) carry threaded across dispatch boundaries, window-final
+    normalizer). ``window=False``: K sequential single-dispatch backwards.
+    ``window_storage``: "tape" (one K4 launch taping all K dispatches, one
+    K5 launch), "forward" (store start states, re-simulate each dispatch
+    taped in reverse order), or "auto" (tape while it fits in 6 GiB)."""
+    _check_packed_ctx(ctx, volume_filter)
+    wrt = frozenset(wrt)
+    if not window:
+        return _prb_many_core(state0, ctx, seeds, g_image, steps, n_bins, wrt,
+                              scatter_stride, None, scatter_mode=scatter_mode)
+    n = len(_seeds(seeds))
+    if _resolve_storage(window_storage, state0, steps, n, wrt) == "tape":
+        state_f, tapes, image, m_final = _tape_forward_sweep(state0, ctx, seeds, steps,
+                                                             n_bins, wrt)
+        grads = _tape_reverse_sweep(state0, ctx, seeds, tapes, m_final, g_image, steps,
+                                    n_bins, wrt, scatter_stride, scatter_mode)
+        return state_f, image, grads
+    m_final, image, starts, state_f = _window_forward(state0, ctx, seeds, steps, n_bins)
+    grads = _prb_many_core(state0, ctx, seeds, g_image, steps, n_bins, wrt, scatter_stride,
+                           m_final, starts=starts, scatter_mode=scatter_mode)
+    return state_f, image, grads
+
+
+def prb_loss_and_grads(state0, ctx, seeds, target, steps: int, n_bins: int,
+                       volume_filter: str = "linear", wrt=frozenset({"density"}),
+                       scatter_stride: int = 1, scatter_mode: str = "stride",
+                       window_storage: str = "auto"):
+    """MSE loss + hand-derived gradients over a K-dispatch render window,
+    the engine of ``optim.fit_spectral(method="prb")``:
+    (state_out, image, loss, grads). The image cotangent is
+    g = 2 (image - target) / numel."""
+    _check_packed_ctx(ctx, volume_filter)
+    wrt = frozenset(wrt)
+    n = len(_seeds(seeds))
+    if _resolve_storage(window_storage, state0, steps, n, wrt) == "tape":
+        state_f, tapes, image, m_final = _tape_forward_sweep(state0, ctx, seeds, steps,
+                                                             n_bins, wrt)
+        g_image = sampling.div_scalar(2.0 * (image - target), float(image.numel()))
+        grads = _tape_reverse_sweep(state0, ctx, seeds, tapes, m_final, g_image, steps,
+                                    n_bins, wrt, scatter_stride, scatter_mode)
+    else:
+        m_final, image, starts, state_f = _window_forward(state0, ctx, seeds, steps, n_bins)
+        g_image = sampling.div_scalar(2.0 * (image - target), float(image.numel()))
+        grads = _prb_many_core(state0, ctx, seeds, g_image, steps, n_bins, wrt,
+                               scatter_stride, m_final, starts=starts,
+                               scatter_mode=scatter_mode)
+    loss = torch.mean((image - target) ** 2)
+    return state_f, image, loss, grads

@@ -6,9 +6,13 @@ the material TF plus the light spectrum's linear pair is one 18-wide row.
 Semantics match WebGPU ``textureSampleLevel`` with normalized coordinates,
 linear filtering and clamp-to-edge addressing.
 
-Tables are always stored flat, ``(rows, C)``. The packers are numpy and run
-once on the host; the samplers here are the plain PyTorch versions of the
-lookups that the CUDA kernels (``vpt_tpu_torch/csrc/mcm_spectral.cu``) do.
+Tables are always stored flat, ``(rows, C)``. The numpy packers run once
+on the host when a renderer is built; the torch packers (``*_t``) give the
+same values bit for bit and are differentiable, so the inverse loop re-packs
+learned tables on the device every step and the backward contracts packed
+adjoints through their VJP. The samplers here are the plain PyTorch
+versions of the lookups that the CUDA kernels
+(``vpt_tpu_torch/csrc/mcm_common.cuh``) do.
 """
 
 from __future__ import annotations
@@ -17,6 +21,7 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from vpt_tpu_torch.ops.sampling import div_scalar
 
@@ -112,6 +117,43 @@ def pack_tex2d_with_tex1d(tex2d, tex1d) -> np.ndarray:
     return np.ascontiguousarray(np.concatenate([t2, aux], axis=-1), t2.dtype)
 
 
+def pack_volume_corners_t(density: torch.Tensor) -> torch.Tensor:
+    """Differentiable torch ``pack_volume_corners``: (D, H, W) ->
+    (D+1, H+1, W+1, 8), the same values bit for bit."""
+    p = F.pad(density[None, None], (1, 1, 1, 1, 1, 1), mode="replicate")[0, 0]
+    return torch.stack(
+        [
+            p[:-1, :-1, :-1], p[:-1, :-1, 1:],
+            p[:-1, 1:, :-1], p[:-1, 1:, 1:],
+            p[1:, :-1, :-1], p[1:, :-1, 1:],
+            p[1:, 1:, :-1], p[1:, 1:, 1:],
+        ],
+        dim=-1,
+    )
+
+
+def pack_tex2d_corners_t(tex: torch.Tensor) -> torch.Tensor:
+    """Differentiable torch ``pack_tex2d_corners``: (H, W, C) -> (H+1, W+1, 4C)."""
+    p = F.pad(tex.permute(2, 0, 1)[None], (1, 1, 1, 1), mode="replicate")[0].permute(1, 2, 0)
+    return torch.cat([p[:-1, :-1], p[:-1, 1:], p[1:, :-1], p[1:, 1:]], dim=-1)
+
+
+def pack_tex1d_corners_t(tex: torch.Tensor) -> torch.Tensor:
+    """Differentiable torch ``pack_tex1d_corners``: (N,) -> (N+1, 2)."""
+    p = F.pad(tex[None, None], (1, 1), mode="replicate")[0, 0]
+    return torch.stack([p[:-1], p[1:]], dim=-1)
+
+
+def pack_tex2d_with_tex1d_t(tex2d: torch.Tensor, tex1d: torch.Tensor) -> torch.Tensor:
+    """Differentiable torch ``pack_tex2d_with_tex1d``: (H+1, W+1, 4C + 2)."""
+    t2 = pack_tex2d_corners_t(tex2d)
+    t1 = pack_tex1d_corners_t(tex1d)
+    Hp, Wp, _ = t2.shape
+    if t1.shape[0] != Wp:
+        raise ValueError(f"1D table length {t1.shape[0] - 1} != 2D texture width {Wp - 1}")
+    return torch.cat([t2, t1[None].expand(Hp, Wp, 2)], dim=-1)
+
+
 def _index(f: torch.Tensor) -> torch.Tensor:
     """float32 (already integral) -> int32 with saturation, NaN -> 0: the
     float->int conversion of XLA and of CUDA's cvt.rzi (a plain cast of an
@@ -155,16 +197,20 @@ def sample_volume_packed(table: torch.Tensor, dims, u, v, w):
     return c0 + (c1 - c0) * fz
 
 
-def sample_tex2d_fused1d(packed: torch.Tensor, u, v, C: int = 4):
+def sample_tex2d_fused1d(packed: torch.Tensor, u, v, C: int = 4, return_extras: bool = False):
     """Sample a pack_tex2d_with_tex1d table ((Hp, Wp, 4C+2) tensor) at
     normalized (u, v) -> (mat (..., C), aux): the bilinear TF value and the
-    1D table's linear sample at ``u``, from one row."""
+    1D table's linear sample at ``u``, from one row.
+
+    ``return_extras``: also return dict(rows, row_idx, fx, fy), the gathered
+    row and its addressing, which the packed-adjoint backward's tape uses."""
     Hp, Wp, CC = packed.shape
     if CC != 4 * C + 2:
         raise ValueError(f"fused table width {CC} != 4*{C}+2")
     bx, fx = _base_and_frac(u, Wp - 1)
     by, fy = _base_and_frac(v, Hp - 1)
-    rows = packed.reshape(-1, CC)[(by * Wp + bx).to(torch.int64)]
+    row_idx = by * Wp + bx
+    rows = packed.reshape(-1, CC)[row_idx.to(torch.int64)]
     c00 = rows[..., 0 * C: 1 * C]
     c01 = rows[..., 1 * C: 2 * C]
     c10 = rows[..., 2 * C: 3 * C]
@@ -176,4 +222,7 @@ def sample_tex2d_fused1d(packed: torch.Tensor, u, v, C: int = 4):
     mat = c0 + (c1 - c0) * fyc
     l0 = rows[..., 4 * C]
     l1 = rows[..., 4 * C + 1]
-    return mat, l0 + (l1 - l0) * fx
+    aux = l0 + (l1 - l0) * fx
+    if return_extras:
+        return mat, aux, dict(rows=rows, row_idx=row_idx, fx=fx, fy=fy)
+    return mat, aux
