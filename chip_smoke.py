@@ -24,8 +24,10 @@ Phases (each raises on failure, so any failure exits non-zero):
      full width, 3 iterations each at stride 1 / stride 4 / importance 4,
      launch counts, losses and params checked; then fwd+bwd windows timed
      as bench.py times them, against one window of the plain versions
- 10. the gather tool (K6 gather_scalar, K7 gather_lanewise) against its
-     plain versions at every size of the TPU tools, exact
+ 10. the gather tool (K6 gather_scalar, K7 gather_lanewise): exact
+     against its plain versions on ragged shapes and at every size of the
+     TPU tools at L and 16 L lookups, K7's plan (shared memory for
+     N <= 2048), host-path and device (CUDA-graph) times
 The line before the last is a JSON object with each kernel's launches,
 error and times; the last line is {"ok": true, "device": {...}}.
 Imports nothing of jax.
@@ -515,26 +517,47 @@ def phase_fit(camera, dev):
 
 
 def phase_gather(dev):
-    """The gather tool's own path: every size, exact, timed."""
+    """The gather tool's own path: exact on ragged shapes and at every size
+    of the TPU tools at L and 16 L lookups, with K7's plan, timed by host
+    path and by device time (CUDA-graph replay)."""
     from vpt_tpu_torch.tools import gather_bench as G
 
+    with torch.cuda.device(dev):
+        limits = G.device_limits()
+    log(f"# gather tool: card limits {json.dumps(limits)}")
+    for name in G.check_ragged(dev):
+        log(f"# gather exact: {name}")
     G.reset_launch_counts()
     rows = G.run(dev)
     launches = dict(G.LAUNCHES)
     for r in rows:
-        log(f"# {r['name']}: exact; {r['glookups_per_s']:.2f} Glookups/s kernel vs "
-            f"{r['plain_glookups_per_s']:.2f} plain ({r['ms']:.4f} / {r['plain_ms']:.4f} ms)")
-    if launches["gather_scalar"] < 1 or launches["gather_lanewise"] < len(G.LANEWISE_N):
+        log(f"# {r['name']}, {r['lookups']} lookups: exact; plan {json.dumps(r['plan'])}; device "
+            f"{r['ms']:.5f} ms kernel vs {r['plain_ms']:.5f} plain "
+            f"({r['glookups_per_s']:.2f} vs {r['plain_glookups_per_s']:.2f} Glookups/s); host path "
+            f"{r['host_ms']:.5f} vs {r['plain_host_ms']:.5f} ms")
+    per_size = len(G.SIZES)
+    if (launches["gather_scalar"] < per_size
+            or launches["gather_lanewise"] < len(G.LANEWISE_N) * per_size):
         raise AssertionError(f"gather tool did not launch its kernels: {launches}")
-    k6 = dict(name="gather_scalar", route="cuda", source=GATHER_SOURCE,
-              replaces="tools/gather_bench.py:54", launches=launches["gather_scalar"],
-              max_abs_err=0.0, ms=rows[0]["ms"], plain_ms=rows[0]["plain_ms"])
-    p2 = next(r for r in rows if r["name"].endswith("N=2048"))
-    k7 = dict(name="gather_lanewise", route="cuda", source=GATHER_SOURCE,
-              replaces="tools/gather_bench.py:75", also_replaces=["tools/gather_bench2.py:76",
-                                                                  "tools/gather_bench3.py:38"],
-              launches=launches["gather_lanewise"], max_abs_err=0.0, ms=p2["ms"],
-              plain_ms=p2["plain_ms"], by_size=rows[1:])
+    for r in rows:
+        n = int(r["name"].split("=")[1])
+        if r["name"].startswith("gather_lanewise") and n <= 2048 and r["plan"]["route"] == "l2":
+            raise AssertionError(f"{r['name']}: planned on the L2 route, not in shared memory")
+    scalar = [r for r in rows if r["name"].startswith("gather_scalar")]
+    lanewise = [r for r in rows if r["name"].startswith("gather_lanewise")]
+    k7_main = next(r for r in lanewise if r["name"].endswith("N=2048") and r["lookups"] == G.L)
+    common = dict(route="cuda", source=GATHER_SOURCE, max_abs_err=0.0,
+                  timing="ms/plain_ms: device time per call (graph replay) at L lookups; "
+                         "host_ms: CUDA events around back-to-back Python calls")
+    k6 = dict(name="gather_scalar", replaces="tools/gather_bench.py:54",
+              launches=launches["gather_scalar"], ms=scalar[0]["ms"],
+              plain_ms=scalar[0]["plain_ms"], host_ms=scalar[0]["host_ms"],
+              plain_host_ms=scalar[0]["plain_host_ms"], by_size=scalar, **common)
+    k7 = dict(name="gather_lanewise", replaces="tools/gather_bench.py:75",
+              also_replaces=["tools/gather_bench2.py:76", "tools/gather_bench3.py:38"],
+              launches=launches["gather_lanewise"], ms=k7_main["ms"], plain_ms=k7_main["plain_ms"],
+              host_ms=k7_main["host_ms"], plain_host_ms=k7_main["plain_host_ms"], by_size=lanewise,
+              **common)
     return k6, k7
 
 

@@ -60,8 +60,9 @@ _SIGNATURES = {
         "vpt_prb_reverse": ([_P, _F] + [_P] * 10 + [_P], _I),
     },
     "gather_bench": {
+        "vpt_gather_limits": ([_P], _I),
         "vpt_gather_scalar": ([_P, _P, _P, _L, _P], _I),
-        "vpt_gather_lanewise": ([_P, _P, _P, _L, _P], _I),
+        "vpt_gather_lanewise": ([_P, _P, _P, _L, _I, _I, _I, _I, _I, _P], _I),
     },
 }
 
