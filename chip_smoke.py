@@ -28,6 +28,24 @@ Phases (each raises on failure, so any failure exits non-zero):
      against its plain versions on ragged shapes and at every size of the
      TPU tools at L and 16 L lookups, K7's plan (shared memory for
      N <= 2048), host-path and device (CUDA-graph) times
+ 11. majorant mode at full width: the sparse capability scene
+     (Volume.sparse_spheres(512), its full 513^3 x 8 u8 corner table,
+     majorant_blocks=16, 512^2 x 4 streams, frustum-filling camera); K1 in
+     majorant mode equals its plain version in every state field over 2
+     dispatches; exact and majorant paths 3 x 16 dispatches each (Mpaths/s,
+     M lane-steps/s, ratio); image parity at matched dispatch count against
+     the exact path's seed-to-seed floor; host set-up times printed
+ 12. environment map (256x512 equirect from a numpy seed) and quasicubic
+     filter on the bench scene: K1 in each mode and in both equals plain;
+     session.run(64) in environment mode, session.run(16) quasicubic
+ 13. hit-lane compaction on the bench scene at the default pose: compact
+     K2/K1 equal plain in every field, K8 compact_image equals plain bit
+     for bit, two runs give equal images, hit pixels match the full
+     kernel (rtol 1e-5); compact vs full Mpaths/s; one session with
+     compaction + majorant + quasicubic + environment together
+ 14. the CLI: `python -m vpt_tpu_torch.cli render --device cuda
+     --majorant-blocks 8 --compaction --envmap <seeded .npy> -o <tmp>.npy`
+     exits 0, writes the image, prints the metrics JSON
 The line before the last is a JSON object with each kernel's launches,
 error and times; the last line is {"ok": true, "device": {...}}.
 Imports nothing of jax.
@@ -37,8 +55,10 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -51,6 +71,8 @@ GATHER_SOURCE = "vpt_tpu_torch/csrc/gather_bench.cu"
 MODES = ((1, "stride"), (4, "stride"), (4, "importance"))
 CHUNK, FIT_ITERS, WINDOWS = 4, 3, 8
 TAPE_SHARE_MIN = 0.999  # least share of lane-steps where K4's tape equals plain, per field
+SPARSE, SPARSE_BLOCKS, SPARSE_BATCH, SPARSE_ROUNDS = 512, 16, 16, 3
+ENV_SHAPE, ENV_FRAMES = (256, 512, 3), 64
 
 
 def log(msg):
@@ -100,6 +122,390 @@ def image_contract(img_a, img_b, samples_a, samples_b):
     return dict(frac_channels=frac, median_abs=med, frac_samples_equal=same,
                 max_abs=float(diff.max()),
                 ok=frac >= 0.995 and med < 1e-5 and same >= 0.99)
+
+
+def first_difference(a, b):
+    """(field, lanes that differ, first flat index) of the first state
+    field where two states differ bit for bit (NaN == NaN), or None."""
+    for name, x, y in zip(a.field_names(), a.tensors(), b.tensors()):
+        if x.is_floating_point():
+            x, y = x.view(torch.int32), y.view(torch.int32)
+        ne = (x != y).reshape(-1)
+        if bool(ne.any()):
+            return name, int(ne.sum()), int(ne.nonzero()[0])
+    return None
+
+
+def check_mode(ctx, state0, seeds, n_bins, label, lanes=None):
+    """K1 (in the ctx's mode) vs its plain version from one state: equal in
+    every field, bit for bit; two kernel runs identical. Returns the states
+    and the largest radiance difference (0.0 when equal)."""
+    from vpt_tpu_torch.kernels import mcm_spectral as K
+
+    sk, sk2, sp = clone_state(state0), clone_state(state0), clone_state(state0)
+    K.step(sk, ctx, seeds, STEPS, n_bins, lanes)
+    K.step(sk2, ctx, seeds, STEPS, n_bins, lanes)
+    K.step_plain(sp, ctx, seeds, STEPS, n_bins, lanes)
+    torch.cuda.synchronize()
+    if first_difference(sk, sk2) is not None:
+        raise AssertionError(f"K1 {label}: two runs differ in {first_difference(sk, sk2)}")
+    diff = first_difference(sk, sp)
+    err = float((sk.radiance - sp.radiance).abs().nan_to_num(0.0).max())
+    shape = "x".join(map(str, sk.px.shape))
+    log(f"# K1 {label} vs plain, {shape} lanes, {len(seeds)} dispatches: "
+        + ("every state field equal bit for bit" if diff is None else
+           f"first difference in {diff[0]} on {diff[1]} lanes (first flat lane {diff[2]}), "
+           f"radiance max abs {err:.3g}")
+        + f"; samples {int(sk.samples.sum())}")
+    if diff is not None:
+        raise AssertionError(f"K1 {label} != plain: {diff}")
+    if int(sk.samples.sum()) <= 0:
+        raise AssertionError(f"K1 {label} completed no samples")
+    return sk, sp, err
+
+
+def mode_entry(name, replaces, ctx, state0, n_bins, lanes=None, err=0.0):
+    """A kernels-line entry for K1 in one mode: ms per dispatch, kernel vs
+    plain, on the main path's shapes."""
+    from vpt_tpu_torch.kernels import mcm_spectral as K
+
+    sk, sp = clone_state(state0), clone_state(state0)
+    one = [2654435761]
+    ms = cuda_ms(lambda: K.step(sk, ctx, one, STEPS, n_bins, lanes), 10)
+    plain_ms = cuda_ms(lambda: K.step_plain(sp, ctx, one, STEPS, n_bins, lanes), 2)
+    log(f"# {name}: one dispatch {ms:.4f} ms kernel vs {plain_ms:.4f} ms plain")
+    return dict(name=name, route="cuda", source=SOURCE, replaces=replaces, max_abs_err=err,
+                ms=ms, plain_ms=plain_ms)
+
+
+def require_launches(launches, keys, what):
+    missing = [k for k in keys if launches.get(k, 0) < 1]
+    if missing:
+        raise AssertionError(f"{what} did not launch {missing}: {launches}")
+
+
+def sparse_scene(dev):
+    """The sparse capability scene of tools/capability_configs.py:286-366,
+    with the full u8 corner table; returns (renderer, camera, host times)."""
+    from vpt_tpu_torch import (Camera, LightConfig, MaterialTF, MCMSpectralConfig,
+                               SpectrumConfig, Volume)
+    from vpt_tpu_torch.models.mcm_spectral import MCMSpectralRenderer
+
+    table = bench_scene_args()[1].table
+    t0 = time.perf_counter()
+    vol = Volume.sparse_spheres(SPARSE)
+    host = dict(sparse_spheres_s=time.perf_counter() - t0)
+    renderer = MCMSpectralRenderer(
+        vol, MaterialTF(table), LightConfig(direction=(1.0, 0.2, 0.5)), SpectrumConfig(),
+        MCMSpectralConfig(extinction=40.0, bounces=8, steps=STEPS), resolution=RES,
+        streams=STREAMS, majorant_blocks=SPARSE_BLOCKS, device=dev)
+    host.update(pack_volume_s=renderer.build_seconds["pack_volume"],
+                majorant_grid_s=renderer.build_seconds["majorant_grid"],
+                occupancy=float((np.asarray(vol.density) > 0).mean()),
+                table_bytes=renderer.vol_table.numel(),
+                table_dtype=str(renderer.vol_table.dtype).replace("torch.", ""),
+                majorant_grid=list(renderer.majorant.shape))
+    return renderer, Camera(translation=np.array([0.0, 0.0, 1.2])), host
+
+
+def phase_majorant(dev):
+    """Phase 11: the majorant mode at full width against the exact path."""
+    from vpt_tpu_torch.kernels import mcm_spectral as K
+    from vpt_tpu_torch.models import mcm_spectral as TM
+
+    renderer, cam, host = sparse_scene(dev)
+    if host["table_dtype"] != "uint8":
+        raise AssertionError(f"the sparse volume packed to {host['table_dtype']}, not uint8")
+    log(f"# sparse scene {SPARSE}^3 ({host['occupancy']:.4%} occupancy): sparse_spheres "
+        f"{host['sparse_spheres_s']:.2f} s, corner table ({host['table_bytes']} B u8) "
+        f"{host['pack_volume_s']:.2f} s, majorant grid {host['majorant_grid']} "
+        f"{host['majorant_grid_s']:.2f} s (host, outside every timed window)")
+    ctx_m = renderer.ctx(cam, 7)
+    ctx_e = dataclasses.replace(ctx_m, majorant=None)
+    seeds2 = [2654435761 * k % 2**32 for k in (1, 2)]
+    _, _, err = check_mode(ctx_m, renderer.reset(cam, 7), seeds2, BINS, "majorant mode")
+    entry = mode_entry("mcm_spectral_step[majorant]", "vpt_tpu/models/mcm_spectral.py:228",
+                       ctx_m, renderer.reset(cam, 7), BINS, err=err)
+
+    def run(majorant: bool, seed_base: int):
+        """Reset, one warm-up batch, then SPARSE_ROUNDS timed batches of
+        SPARSE_BATCH dispatches (tools/capability_configs.py::config_sparse)."""
+        seeds = lambda lo: [(seed_base + lo + k) * 2654435761 % 2**32  # noqa: E731
+                            for k in range(SPARSE_BATCH)]
+        if majorant:
+            state = renderer.reset(cam, 1)
+            step = lambda st, lo: renderer.render_many(st, cam, seeds(lo))  # noqa: E731
+        else:
+            ctx = dataclasses.replace(renderer.ctx(cam, 1), majorant=None)
+            state = TM.full_reset(ctx, RES, BINS, STREAMS, device=dev)
+            step = lambda st, lo: TM.render_many(st, ctx, seeds(lo), STEPS, BINS)  # noqa: E731
+        state, _ = step(state, 0)
+        torch.cuda.synchronize()
+        s0 = int(state.samples.sum())
+        t0 = time.perf_counter()
+        for r in range(SPARSE_ROUNDS):
+            state, img = step(state, (r + 1) * SPARSE_BATCH)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        paths = int(state.samples.sum()) - s0
+        lane_steps = RES * RES * STREAMS * STEPS * SPARSE_BATCH * SPARSE_ROUNDS
+        return img.cpu().numpy(), dict(seconds=dt, paths=paths, mpaths_per_s=paths / dt / 1e6,
+                                       m_lane_steps_per_s=lane_steps / dt / 1e6)
+
+    img_e, exact = run(False, 0)
+    K.reset_launch_counts()
+    img_m, major = run(True, 0)
+    launches = dict(K.LAUNCHES)
+    require_launches(launches, ("step_majorant", "reset"), "the majorant path")
+    img_b, _ = run(False, 10_000)
+    norm = max(float(np.abs(img_e).mean()), 1e-9)
+    rel_l1 = float(np.abs(img_e - img_m).mean()) / norm
+    floor = float(np.abs(img_e - img_b).mean()) / norm
+    ok = bool(np.isfinite(img_m).all()) and rel_l1 < 2.0 * floor + 1e-3
+    out = dict(host=host, exact=exact, majorant=major,
+               mpaths_ratio=major["mpaths_per_s"] / exact["mpaths_per_s"],
+               pixel_rel_l1_vs_exact=rel_l1, pixel_rel_l1_noise_floor=floor, parity_ok=ok)
+    log(f"# sparse {SPARSE}^3, {SPARSE_ROUNDS} x {SPARSE_BATCH} dispatches: exact "
+        f"{exact['mpaths_per_s']:.3f} Mpaths/s {exact['m_lane_steps_per_s']:.1f} M lane-steps/s; "
+        f"majorant {major['mpaths_per_s']:.3f} Mpaths/s {major['m_lane_steps_per_s']:.1f} "
+        f"M lane-steps/s; ratio {out['mpaths_ratio']:.3f}; image rel L1 {rel_l1:.4f} vs "
+        f"floor {floor:.4f}; launches {launches}")
+    if not ok:
+        raise AssertionError(f"majorant image parity failed: {out}")
+    entry["launches"] = launches["step_majorant"]
+    del renderer
+    torch.cuda.empty_cache()
+    return entry, out
+
+
+def seeded_envmap(seed: int = 2024) -> np.ndarray:
+    """An equirect map with structure in both angles: smooth bands plus
+    noise, from a numpy seed."""
+    rng = np.random.default_rng(seed)
+    h, w, _ = ENV_SHAPE
+    v, u = np.meshgrid(np.linspace(0, 1, h), np.linspace(0, 1, w), indexing="ij")
+    base = np.stack([0.6 + 0.4 * np.cos(2 * np.pi * u), 0.5 + 0.4 * v,
+                     0.7 - 0.5 * v * u], axis=-1)
+    return np.clip(base + rng.uniform(-0.1, 0.1, ENV_SHAPE), 0.0, 1.0).astype(np.float32)
+
+
+def mode_args(quasicubic: bool):
+    from vpt_tpu_torch import Volume
+
+    args = list(bench_scene_args())
+    if quasicubic:
+        args[0] = Volume(args[0].density, filter="quasicubic")
+    return args
+
+
+def run_session(dev, frames, hit_paths=None, **kw):
+    """A RenderSession on the bench scene driven for ``frames`` dispatches
+    with the launch counts set to 0 just before; returns (session, rates,
+    launches). ``hit_paths(state)``: the paths completed by hit-pixel lanes,
+    reported as ``hit_mpaths_per_s``."""
+    from vpt_tpu_torch.kernels import mcm_spectral as K
+    from vpt_tpu_torch.session import RenderSession
+
+    quasicubic = kw.pop("quasicubic", False)
+    K.reset_launch_counts()
+    session = RenderSession("mcm-spectral", *mode_args(quasicubic), resolution=RES,
+                            streams=STREAMS, device=dev, **kw)
+    session.run(4)  # warm-up
+    paths0 = int(session.state.samples.sum())
+    hit0 = hit_paths(session.state) if hit_paths else 0
+    t0 = time.perf_counter()
+    session.run(frames)
+    dt = time.perf_counter() - t0
+    launches = dict(K.LAUNCHES)
+    hdr = session.hdr_image()
+    if hdr.shape != (RES, RES, 3) or not np.isfinite(hdr).all():
+        raise AssertionError(f"session {kw}: HDR image {hdr.shape}, finite "
+                             f"{np.isfinite(hdr).all()}")
+    paths = int(session.state.samples.sum()) - paths0
+    lane_steps = session.state.px.numel() * STEPS * frames
+    rates = dict(seconds=dt, paths=paths, mpaths_per_s=paths / dt / 1e6,
+                 m_lane_steps_per_s=lane_steps / dt / 1e6, lanes=session.state.px.numel(),
+                 ms_per_dispatch=dt / frames * 1e3)
+    if hit_paths:
+        rates["hit_mpaths_per_s"] = (hit_paths(session.state) - hit0) / dt / 1e6
+    if paths <= 0:
+        raise AssertionError(f"session {kw}: no paths completed")
+    return session, rates, launches
+
+
+def phase_env_quasicubic(dev):
+    """Phase 12: K1 in environment and quasicubic mode (and both) against
+    plain on the bench scene; session.run in each mode."""
+    from vpt_tpu_torch import Camera
+    from vpt_tpu_torch.models.mcm_spectral import MCMSpectralRenderer
+
+    env = seeded_envmap()
+    cam = Camera()
+    seeds2 = [2654435761 * k % 2**32 for k in (5, 6)]
+    entries, errs = {}, {}
+    for label, qc, e in (("environment", False, env), ("quasicubic", True, None),
+                         ("environment+quasicubic", True, env)):
+        r = MCMSpectralRenderer(*mode_args(qc), resolution=RES, streams=STREAMS,
+                                environment=e, device=dev)
+        ctx = r.ctx(cam, 7)
+        _, _, errs[label] = check_mode(ctx, r.reset(cam, 7), seeds2, BINS, f"{label} mode")
+        if label != "environment+quasicubic":
+            entries[label] = mode_entry(
+                f"mcm_spectral_step[{label}]",
+                "vpt_tpu/models/mcm_spectral.py:148" if label == "environment"
+                else "vpt_tpu/ops/interp.py:389", ctx, r.reset(cam, 7), BINS, err=errs[label])
+        del r
+    rates = {}
+    for label, kw, frames in (("environment", dict(environment=env), ENV_FRAMES),
+                              ("quasicubic", dict(quasicubic=True), 16)):
+        _, rates[label], launches = run_session(dev, frames, **kw)
+        require_launches(launches, (f"step_{label}",), f"session.run in {label} mode")
+        entries[label]["launches"] = launches[f"step_{label}"]
+        log(f"# session.run({frames}) in {label} mode: {rates[label]['seconds']:.4f} s, "
+            f"{rates[label]['mpaths_per_s']:.3f} Mpaths/s, "
+            f"{rates[label]['m_lane_steps_per_s']:.1f} M lane-steps/s; launches {launches}")
+    return entries, rates
+
+
+def phase_compaction(dev):
+    """Phase 13: hit-lane compaction at the default pose (z = 2)."""
+    from vpt_tpu_torch import Camera
+    from vpt_tpu_torch.kernels import mcm_spectral as K
+    from vpt_tpu_torch.models import mcm_spectral_compact as TC
+    from vpt_tpu_torch.models.mcm_spectral import MCMSpectralRenderer, SpectralState
+
+    cam = Camera()
+    comp = MCMSpectralRenderer(*bench_scene_args(), resolution=RES, streams=STREAMS,
+                               compaction=True, device=dev)
+    t0 = time.perf_counter()
+    t = comp._compact_tables(cam)
+    tables_s = time.perf_counter() - t0
+    lanes = (t["lane_ix"], t["lane_iy"], t["lane_seed_iy"])
+    n_hit, shape = t["n_hit"], tuple(t["lane_ix"].shape)
+    log(f"# compaction tables: {n_hit} of {RES * RES} pixels hit "
+        f"({n_hit / RES / RES:.4f}), lanes {shape}; host {tables_s:.2f} s (hit mask, "
+        f"lane tables, miss radiance quadrature; cached per pose)")
+    ctx = comp.ctx(cam, 7)
+
+    # K2 over the lane table
+    got = SpectralState(**K.reset(ctx, RES, BINS, STREAMS, dev, lanes=lanes))
+    plain = SpectralState(**K.reset_plain(ctx, RES, BINS, STREAMS, dev, lanes=lanes))
+    torch.cuda.synchronize()
+    if first_difference(got, plain) is not None:
+        raise AssertionError(f"compact K2 != plain: {first_difference(got, plain)}")
+    k2_ms = cuda_ms(lambda: K.reset(ctx, RES, BINS, STREAMS, dev, lanes=lanes), 20)
+    k2_plain_ms = cuda_ms(lambda: K.reset_plain(ctx, RES, BINS, STREAMS, dev, lanes=lanes), 5)
+    log(f"# K2 over the lane table: every field equal to plain; {k2_ms:.4f} ms kernel vs "
+        f"{k2_plain_ms:.4f} ms plain")
+    k2 = dict(name="mcm_spectral_reset[lane_table]", route="cuda", source=SOURCE,
+              replaces="vpt_tpu/models/mcm_spectral_compact.py:328", max_abs_err=0.0,
+              ms=k2_ms, plain_ms=k2_plain_ms)
+
+    # K1 over the lane table, then K8 on its state
+    seeds2 = [2654435761 * k % 2**32 for k in (1, 2)]
+    sk, _, err = check_mode(ctx, got, seeds2, BINS, "lane table", lanes)
+    k1 = mode_entry("mcm_spectral_step[lane_table]",
+                    "vpt_tpu/models/mcm_spectral_compact.py:352", ctx, got, BINS, lanes, err)
+    a = K.compact_radiance(sk.radiance, t["pixel_hit"], t["miss"], n_hit, STREAMS)
+    b = K.compact_radiance(sk.radiance, t["pixel_hit"], t["miss"], n_hit, STREAMS)
+    p = K.compact_radiance_plain(sk.radiance, t["pixel_hit"], t["miss"], n_hit, STREAMS)
+    torch.cuda.synchronize()
+    if not (torch.equal(a.view(torch.int32), p.view(torch.int32)) and torch.equal(a, b)):
+        raise AssertionError(f"K8 compact_image != plain on {int((a != p).sum())} values")
+    k8_ms = cuda_ms(lambda: K.compact_radiance(sk.radiance, t["pixel_hit"], t["miss"], n_hit,
+                                               STREAMS), 50)
+    k8_plain_ms = cuda_ms(lambda: K.compact_radiance_plain(sk.radiance, t["pixel_hit"],
+                                                           t["miss"], n_hit, STREAMS), 10)
+    log(f"# K8 compact_image: equal to plain bit for bit, reruns identical; {k8_ms:.4f} ms "
+        f"kernel vs {k8_plain_ms:.4f} ms plain")
+    k8 = dict(name="compact_image", route="cuda", source=SOURCE,
+              replaces="vpt_tpu/models/mcm_spectral_compact.py:380", max_abs_err=0.0,
+              ms=k8_ms, plain_ms=k8_plain_ms)
+
+    # two runs give equal images; hit pixels match the full kernel
+    full = MCMSpectralRenderer(*bench_scene_args(), resolution=RES, streams=STREAMS,
+                               device=dev)
+    seeds = [(k + 1) * 2654435761 % 2**32 for k in range(10)]
+    i1 = comp.render_many(comp.reset(cam, seeds[0]), cam, seeds)[1]
+    i2 = comp.render_many(comp.reset(cam, seeds[0]), cam, seeds)[1]
+    i_full = full.render_many(full.reset(cam, seeds[0]), cam, seeds)[1]
+    torch.cuda.synchronize()
+    if not torch.equal(i1, i2):
+        raise AssertionError("compacted renders differ between two runs")
+    hit = t["hit"]
+    torch.testing.assert_close(i1[hit], i_full[hit], rtol=1e-5, atol=1e-6)
+    hit_err = float((i1[hit] - i_full[hit]).abs().max())
+    log(f"# compaction: two runs equal; hit pixels vs the full kernel max abs {hit_err:.3g} "
+        "(rtol 1e-5)")
+    del full
+
+    # scene Mpaths/s counts the full kernel's miss-lane churn (a miss lane
+    # completes a path every step) and the compact padding lanes, so the
+    # comparison is per dispatch and by the paths of hit-pixel lanes
+    # (tools/compact_bench.py)
+    def full_hits(state):
+        return int(state.samples[:, hit].sum())
+
+    def compact_hits(state):
+        return int(state.samples.reshape(-1)[:STREAMS * n_hit].sum())
+
+    rates, launches = {}, {}
+    for label, kw in (("full", dict(hit_paths=full_hits)),
+                      ("compact", dict(compaction=True, hit_paths=compact_hits))):
+        _, rates[label], launches[label] = run_session(dev, FRAMES, **kw)
+        log(f"# session.run({FRAMES}) {label}: {rates[label]['ms_per_dispatch']:.4f} ms per "
+            f"dispatch, hit-pixel {rates[label]['hit_mpaths_per_s']:.3f} Mpaths/s, scene "
+            f"{rates[label]['mpaths_per_s']:.3f} Mpaths/s over {rates[label]['lanes']} lanes, "
+            f"{rates[label]['m_lane_steps_per_s']:.1f} M lane-steps/s; "
+            f"launches {launches[label]}")
+    require_launches(launches["compact"], ("step_lane_table", "reset_lane_table",
+                                           "compact_radiance"), "the compacted session")
+    k1["launches"] = launches["compact"]["step_lane_table"]
+    k2["launches"] = launches["compact"]["reset_lane_table"]
+    k8["launches"] = launches["compact"]["compact_radiance"]
+    rates["dispatch_speedup"] = (rates["full"]["ms_per_dispatch"]
+                                 / rates["compact"]["ms_per_dispatch"])
+    rates["hit_mpaths_ratio"] = (rates["compact"]["hit_mpaths_per_s"]
+                                 / rates["full"]["hit_mpaths_per_s"])
+    log(f"# compaction: dispatch speedup {rates['dispatch_speedup']:.3f}, hit-pixel Mpaths/s "
+        f"ratio {rates['hit_mpaths_ratio']:.3f}")
+
+    # every mode at once
+    _, rates["all_modes"], all_launches = run_session(
+        dev, 16, compaction=True, majorant_blocks=8, quasicubic=True,
+        environment=seeded_envmap())
+    require_launches(all_launches, ("step_lane_table", "step_majorant", "step_quasicubic",
+                                    "step_environment", "compact_radiance"),
+                     "the all-modes session")
+    log(f"# compaction + majorant + quasicubic + environment, session.run(16): "
+        f"{rates['all_modes']['mpaths_per_s']:.3f} Mpaths/s; launches {all_launches}")
+    rates.update(tables_host_s=tables_s, n_hit=n_hit, lane_shape=list(shape),
+                 hit_max_abs_vs_full=hit_err)
+    return [k1, k2, k8], rates
+
+
+def phase_cli():
+    """Phase 14: the port's CLI renders on the card in a subprocess."""
+    with tempfile.TemporaryDirectory() as tmp:
+        env_path, out = os.path.join(tmp, "env.npy"), os.path.join(tmp, "render.npy")
+        np.save(env_path, seeded_envmap(7)[::4, ::4])
+        cmd = [sys.executable, "-m", "vpt_tpu_torch.cli", "render", "--device", "cuda",
+               "--majorant-blocks", "8", "--compaction", "--envmap", env_path, "-o", out]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, capture_output=True, text=True, timeout=300,
+                              cwd=os.path.dirname(os.path.abspath(__file__)))
+        dt = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise AssertionError(f"CLI exited {proc.returncode}: {proc.stderr[-2000:]}")
+        metrics = json.loads(proc.stdout.strip().splitlines()[-1])
+        img = np.load(out)
+    if img.shape != (512, 512, 3) or img.dtype != np.uint8 or metrics.get("paths", 0) <= 0:
+        raise AssertionError(f"CLI wrote {img.shape} {img.dtype}, metrics {metrics}")
+    if not metrics.get("device", "").startswith("cuda"):
+        raise AssertionError(f"CLI ran on {metrics.get('device')}")
+    log(f"# CLI render --device cuda --majorant-blocks 8 --compaction --envmap: exit 0 in "
+        f"{dt:.2f} s (process), image {img.shape}, metrics {json.dumps(metrics)}")
+    return dict(seconds=dt, metrics=metrics)
 
 
 def phase_k3(dev):
@@ -596,16 +1002,25 @@ def main():
     del keep
     bwd_launches, fits, windows = phase_fit(camera, dev)
     k6, k7 = phase_gather(dev)
+    del renderer
+    torch.cuda.empty_cache()
+    k1_maj, sparse = phase_majorant(dev)
+    k1_modes, mode_rates = phase_env_quasicubic(dev)
+    compact_kernels, compact = phase_compaction(dev)
+    cli = phase_cli()
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")
 
     k1["launches"], k2["launches"] = launches["step"], launches["reset"]
     k3["launches"] = launches["sample_volume_packed"]
     k4["launches"], k5["launches"] = bwd_launches["prb_tape_forward"], bwd_launches["prb_reverse"]
-    result = {"kernels": [k1, k2, k4, k5, k6, k7], "standalone": [k3],
+    result = {"kernels": [k1, k2, k4, k5, k6, k7, k1_maj, k1_modes["environment"],
+                          k1_modes["quasicubic"], *compact_kernels],
+              "standalone": [k3],
               "main_path": {"kernel": kern, "plain_step": plain},
               "training_path": {"fit_spectral": fits, "fwd_bwd_windows": windows},
-              "gpu": smi}
+              "majorant_path": sparse, "mode_sessions": mode_rates, "compaction": compact,
+              "cli": cli, "gpu": smi}
     log(json.dumps(result))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                           "kind": torch.cuda.get_device_name(0),

@@ -1,0 +1,103 @@
+"""The port's command line (vpt_tpu_torch.cli), mirroring tests/test_cli.py
+on ``--device cpu`` with ``.npy`` outputs, plus its exits for what is not
+ported and for a missing CUDA. Runs in-process."""
+
+import json
+import os
+
+import numpy as np
+import pytest
+import torch
+
+from vpt_tpu_torch.cli import main
+
+SMALL = ["--device", "cpu", "--volume-size", "16", "--resolution", "16", "--frames", "2",
+         "--steps", "4"]
+
+
+def _run(capsys, argv):
+    main(argv)
+    return capsys.readouterr()
+
+
+def test_renderers_and_tonemappers_lists(capsys):
+    assert _run(capsys, ["renderers"]).out.split() == ["mcm-spectral"]
+    out = _run(capsys, ["tonemappers"]).out
+    for key in ("artistic", "reinhard", "aces", "uchimura", "lottes"):
+        assert key in out
+
+
+def test_info_reports_torch_not_jax(capsys):
+    info = json.loads(_run(capsys, ["info"]).out)
+    assert info["torch"] == torch.__version__ and "jax" not in info
+    assert info["cuda_available"] == torch.cuda.is_available()
+
+
+def test_render_to_npy_and_checkpoint(tmp_path, capsys):
+    out, ck = str(tmp_path / "out.npy"), str(tmp_path / "state.npz")
+    res = _run(capsys, ["render", *SMALL, "--output", out, "--checkpoint", ck])
+    img = np.load(out)
+    assert img.shape == (16, 16, 3) and img.dtype == np.uint8 and os.path.exists(ck)
+    metrics = json.loads(res.out.strip().splitlines()[-1])
+    assert metrics["frames"] == 2 and metrics["paths"] > 0 and metrics["device"] == "cpu"
+    assert int(np.load(ck)["frame"]) == 2
+
+
+def test_render_spectral_compaction(tmp_path, capsys):
+    out = str(tmp_path / "compact.npy")
+    res = _run(capsys, ["render", *SMALL, "--streams", "2", "--compaction",
+                        "--majorant-blocks", "4", "--output", out])
+    assert np.load(out).shape == (16, 16, 3)
+    assert json.loads(res.out.strip().splitlines()[-1])["paths"] > 0
+
+
+def test_render_spectral_with_envmap(tmp_path, capsys):
+    env = str(tmp_path / "env.npy")
+    np.save(env, np.ones((4, 8, 3), np.float32))
+    out = str(tmp_path / "env_render.npy")
+    _run(capsys, ["render", *SMALL, "--envmap", env, "--output", out])
+    assert np.load(out).shape == (16, 16, 3)
+
+
+def test_animate(tmp_path, capsys):
+    outdir = str(tmp_path / "anim")
+    _run(capsys, ["animate", "--device", "cpu", "--volume-size", "16", "--resolution", "16",
+                  "--frames", "1", "--steps", "4", "--n-frames", "2", "--output", outdir])
+    assert len(os.listdir(outdir)) == 2
+
+
+def test_invert_spectral_prb(tmp_path, capsys):
+    out = str(tmp_path / "rec.npy")
+    captured = _run(capsys, [
+        "invert", "--spectral", "--device", "cpu", "--volume-size", "16", "--resolution",
+        "16", "--iterations", "2", "--method", "prb", "--scatter-stride", "2",
+        "--scatter-mode", "importance", "--output", out])
+    metrics = json.loads(captured.out.strip().splitlines()[-1])
+    assert np.isfinite(metrics["final_loss"]) and np.isfinite(metrics["density_mae"])
+    assert np.load(out).shape == (16, 16, 16)
+
+
+@pytest.mark.parametrize("argv,names", [
+    (["render", "--renderer", "eam"], "eam"),
+    (["render", "--devices", "2"], "--devices"),
+    (["invert", "--spectral", "--method", "autodiff"], "autodiff"),
+    (["invert"], "fit_density"),
+])
+def test_exits_name_what_is_not_ported(argv, names, tmp_path, capsys):
+    with pytest.raises(SystemExit) as e:
+        main([*argv, "--device", "cpu", "--volume-size", "8", "--resolution", "8",
+              "--frames", "1", "-o", str(tmp_path / "x.npy")])
+    assert names in str(e.value.code) and "not ported" in str(e.value.code)
+    assert not os.path.exists(tmp_path / "x.npy")
+
+
+@pytest.mark.parametrize("cmd", ["render", "invert"])
+def test_cuda_device_without_cuda_exits_nonzero(cmd, tmp_path, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    argv = [cmd, "--volume-size", "8", "--resolution", "8", "-o", str(tmp_path / "x.npy")]
+    if cmd == "invert":
+        argv.append("--spectral")
+    with pytest.raises(SystemExit) as e:
+        main(argv)  # --device defaults to cuda
+    assert e.value.code not in (0, None) and "CUDA is not available" in str(e.value.code)
+    assert not os.path.exists(tmp_path / "x.npy")

@@ -34,13 +34,17 @@ def state_to_numpy(state: SpectralState) -> dict:
 
 def ctx_from_numpy(*, inv_mvp, seed_bits, extinction, blur, max_bounces,
                    light_direction, density_table, density_dims=None, material_tf,
-                   light_spectrum, boundaries, bin_xyz, device) -> SpectralCtx:
+                   light_spectrum, boundaries, bin_xyz, environment=None, majorant=None,
+                   volume_filter="linear", device) -> SpectralCtx:
     """The port's ``SpectralCtx`` from the arrays of a JAX ``SpectralCtx``.
 
     The packed volume comes as a flat ``PackedVolume`` table (u8 or f32,
     ``density_table`` (rows, 8) + ``density_dims``) or as the natural 4-D
     (D+1, H+1, W+1, 8) array the JAX package keeps for small f32 volumes
-    (``density_dims`` None); both become a flat table."""
+    (``density_dims`` None); both become a flat table. ``environment`` is
+    the packed (He+1, We+1, 12) map and ``majorant`` the (Gz, Gy, Gx, 2)
+    grid, as the JAX ctx holds them; ``volume_filter`` is the JAX render
+    functions' static argument."""
 
     def dev(a):
         return torch.as_tensor(np.array(a), device=device)
@@ -66,6 +70,9 @@ def ctx_from_numpy(*, inv_mvp, seed_bits, extinction, blur, max_bounces,
         light_spectrum=dev(np.asarray(light_spectrum, np.float32)),
         boundaries=np.asarray(boundaries, np.float32),
         bin_xyz=dev(np.asarray(bin_xyz, np.float32)),
+        environment=None if environment is None else dev(np.asarray(environment, np.float32)),
+        majorant=None if majorant is None else dev(np.asarray(majorant, np.float32)),
+        volume_filter=str(volume_filter),
     )
 
 

@@ -5,6 +5,10 @@
 // Both kernels run the SAME step function, so the taped forward of the
 // backward leaves a state bit-identical to the forward step kernel's: the
 // tape is an optional per-step record (REC = true) that only adds stores.
+// The forward's other modes are compile-time parameters too (MAJ: the
+// super-voxel majorant, ENV: the environment map), so the default
+// instantiation compiles to the code it had before they existed; the
+// quasicubic weight warp is a uniform runtime flag (I_QUASICUBIC).
 //
 // Numerics (see mcm_spectral.cu): built without fast math and with
 // -fmad=false; IEEE division and sqrt; accurate logf/sinf/cosf; u8 codes
@@ -34,6 +38,9 @@ enum FParam {
 enum IParam {
   I_ISOTROPIC = 0, I_N_BINS, I_MAX_BOUNCES, I_STEPS, I_N_SEEDS, I_STREAMS,
   I_RES, I_VOL_U8, I_VOL_D, I_VOL_H, I_VOL_W, I_TF_H, I_TF_W, I_N_LANES,
+  I_QUASICUBIC,                  // 1: smoothstep-warped trilinear weights
+  I_MAJ_GZ, I_MAJ_GY, I_MAJ_GX,  // majorant grid cells (0 without one)
+  I_ENV_H, I_ENV_W,              // packed env table dims He+1, We+1
   I_COUNT,
 };
 
@@ -46,6 +53,8 @@ constexpr float kInvU32Max = 0x1p-32f;  // f32(1) / f32(0xFFFFFFFF)
 constexpr float kTwoPi = 6.28318530718f;
 constexpr float kEps = 1e-5f;
 constexpr float kIntLimit = 2147483520.0f;  // 2^31 - 128, exact in f32
+constexpr float kInvPi = 0x1.45f306p-2f;  // f32(1 / pi), rounded once
+constexpr float kEnvGain = 2.7f;
 
 __device__ __forceinline__ uint32_t pcg_hash(uint32_t x) {
   x = x * 747796405u + 2891336453u;
@@ -94,15 +103,27 @@ struct VolAddr {
   float fx, fy, fz;
 };
 
-// trilinear sample of a flat (rows, 8) corner table, padded dims (Dp,Hp,Wp)
+// smoothstep weight warp of the quasicubic filter, f*f*(3 - 2f)
+__device__ __forceinline__ float quasicubic(float f) {
+  return f * f * (3.0f - 2.0f * f);
+}
+
+// trilinear (or, with qc, quasicubic) sample of a flat (rows, 8) corner
+// table, padded dims (Dp,Hp,Wp)
 __device__ __forceinline__ float sample_volume(const void* table, int is_u8,
                                                int Dp, int Hp, int Wp, float u,
-                                               float v, float w, VolAddr* addr) {
+                                               float v, float w, VolAddr* addr,
+                                               bool qc = false) {
   int bx, by, bz;
   float fx, fy, fz;
   base_frac(u, Wp - 1, bx, fx);
   base_frac(v, Hp - 1, by, fy);
   base_frac(w, Dp - 1, bz, fz);
+  if (qc) {
+    fx = quasicubic(fx);
+    fy = quasicubic(fy);
+    fz = quasicubic(fz);
+  }
   const int64_t row = ((int64_t)bz * Hp + by) * Wp + bx;
   if (addr != nullptr) {
     addr->row = (int)row;
@@ -164,6 +185,36 @@ __device__ __forceinline__ void sample_tf(const float* tf, int Hp, int Wp,
     addr->fx = fx;
     addr->fy = fy;
   }
+}
+
+// escape radiance from a packed (He+1, We+1, 12) equirect map: the
+// reference's mapping (y quirk kept), the wavelength's channel (< 500 nm
+// blue, < 600 green, else red), gain 2.7. |dy| may exceed 1 by an ulp:
+// asinf then gives NaN, which base_frac maps to row 0 like the plain
+// version, and the NaN frac carries into the value as it does there.
+__device__ __forceinline__ float sample_environment(const float* env, int Hp,
+                                                    int Wp, float dx, float dy,
+                                                    float dz, float lam) {
+  const float u = atan2f(dx, -dz) * kInvPi * 0.5f + 0.5f;
+  const float v = asinf(-dy) * 2.0f * kInvPi * 0.5f + 0.5f;
+  int bx, by;
+  float fx, fy;
+  base_frac(u, Wp - 1, bx, fx);
+  base_frac(v, Hp - 1, by, fy);
+  const float* r = env + ((int64_t)by * Wp + bx) * 12;
+  const int c = (lam < 500.0f) ? 2 : ((lam < 600.0f) ? 1 : 0);
+  const float c0 = lerp(__ldg(r + c), __ldg(r + 3 + c), fx);
+  const float c1 = lerp(__ldg(r + 6 + c), __ldg(r + 9 + c), fx);
+  return lerp(c0, c1, fy) * kEnvGain;
+}
+
+// majorant grid cell along one axis from the pre-step position:
+// clip(int(floor(p * n)), 0, n - 1), the f32 -> int conversion saturating
+// (NaN -> 0) as XLA's does
+__device__ __forceinline__ int majorant_cell(float p, int n) {
+  const float c = floorf(p * (float)n);
+  const float cc = (c != c) ? 0.0f : fminf(fmaxf(c, -kIntLimit), kIntLimit);
+  return min(max((int)cc, 0), n - 1);
 }
 
 __device__ __forceinline__ void apply_homogeneous(const float* m, float x,
@@ -271,6 +322,25 @@ __device__ __forceinline__ void lane_coords(int lane, int res, uint32_t& ix,
   sy = (((float)iy + 0.5f) * inv_res - 0.5f) * -2.0f;
 }
 
+// the lane's pixel: from the lane tables of hit-lane compaction when given
+// (lane_ix non-null), else from the (S, H, W) grid
+__device__ __forceinline__ void lane_pixel(int lane, const Params& P,
+                                           const uint32_t* __restrict__ lane_ix,
+                                           const uint32_t* __restrict__ lane_iy,
+                                           const uint32_t* __restrict__ lane_seed_iy,
+                                           uint32_t& ix, uint32_t& iy,
+                                           uint32_t& seed_iy, float& sx, float& sy) {
+  if (lane_ix == nullptr) {
+    lane_coords(lane, P.i[I_RES], ix, iy, seed_iy, P.f[F_INV_RES], sx, sy);
+    return;
+  }
+  ix = __ldg(lane_ix + lane);
+  iy = __ldg(lane_iy + lane);
+  seed_iy = __ldg(lane_seed_iy + lane);
+  sx = (((float)ix + 0.5f) * P.f[F_INV_RES] - 0.5f) * 2.0f;
+  sy = (((float)iy + 0.5f) * P.f[F_INV_RES] - 0.5f) * -2.0f;
+}
+
 // One lane's photon state, held in registers across a launch.
 struct Lane {
   float px, py, pz, dx, dy, dz, lam;
@@ -290,46 +360,86 @@ struct StepRecord {
 // One Woodcock iteration of one lane (the JAX _render_body): free flight,
 // material lookup, event wheel, deposit + respawn or HG scatter. With
 // REC, also fills `rec`; the state update is the same either way.
-template <int NB, bool REC>
+// MAJ: the super-voxel majorant mode (`maj`: the (Gz, Gy, Gx) grid of
+// (majorant, flight cap) pairs): the flight samples at the local rate
+// extinction * m and stops at the cap, a capped flight is no event, and a
+// real event is taken with probability alpha / m. A capped lane inside
+// the volume skips both lookups (their values go unused) but still draws
+// its wheel, so every later draw of the lane stays in step.
+// ENV: escape radiance from the packed environment map `env`.
+template <int NB, bool REC, bool MAJ = false, bool ENV = false>
 __device__ __forceinline__ void woodcock_step(Lane& L, float (&rad)[NB],
                                               uint32_t& s, float sx, float sy,
                                               const Params& P,
                                               const void* __restrict__ vol,
                                               const float* __restrict__ tf,
-                                              StepRecord* rec) {
+                                              StepRecord* rec,
+                                              const float2* __restrict__ maj = nullptr,
+                                              const float* __restrict__ env = nullptr) {
+  static_assert(!(REC && (MAJ || ENV)), "the taped step has no majorant or env mode");
   const float* f = P.f;
   // free flight
-  const float dist = -logf(draw(s)) / f[F_EXTINCTION];
+  float dist, m = 0.0f;
+  bool capped = false;
+  if constexpr (MAJ) {
+    const int cz = majorant_cell(L.pz, P.i[I_MAJ_GZ]);
+    const int cy = majorant_cell(L.py, P.i[I_MAJ_GY]);
+    const int cx = majorant_cell(L.px, P.i[I_MAJ_GX]);
+    const float2 row = __ldg(maj + ((int64_t)cz * P.i[I_MAJ_GY] + cy) * P.i[I_MAJ_GX] + cx);
+    m = nmax(row.x, 1e-12f);
+    const float rate = f[F_EXTINCTION] * m;
+    dist = -logf(draw(s)) / rate;
+    capped = dist >= row.y;
+    dist = nmin(dist, row.y);
+  } else {
+    dist = -logf(draw(s)) / f[F_EXTINCTION];
+  }
   const float npx = L.px + dist * L.dx;
   const float npy = L.py + dist * L.dy;
   const float npz = L.pz + dist * L.dz;
   const bool oob = (npx > 1.0f) | (npx < 0.0f) | (npy > 1.0f) |
                    (npy < 0.0f) | (npz > 1.0f) | (npz < 0.0f);
   // material lookup (sampled even when out of bounds, like the reference)
-  const float t = (L.lam - 400.0f) / 300.0f;
-  const float dens = sample_volume(vol, P.i[I_VOL_U8], P.i[I_VOL_D], P.i[I_VOL_H],
-                                   P.i[I_VOL_W], npx, npy, npz,
-                                   REC ? &rec->vol : nullptr);
-  float mat[3], light_raw;
-  sample_tf(tf, P.i[I_TF_H], P.i[I_TF_W], t, dens, mat, light_raw,
-            REC ? &rec->tf : nullptr);
+  float mat[3] = {0.0f, 0.0f, 0.0f}, light_raw = 0.0f;
+  if (!(MAJ && capped && !oob)) {
+    const float t = (L.lam - 400.0f) / 300.0f;
+    const float dens = sample_volume(vol, P.i[I_VOL_U8], P.i[I_VOL_D], P.i[I_VOL_H],
+                                     P.i[I_VOL_W], npx, npy, npz,
+                                     REC ? &rec->vol : nullptr, P.i[I_QUASICUBIC] != 0);
+    sample_tf(tf, P.i[I_TF_H], P.i[I_TF_W], t, dens, mat, light_raw,
+              REC ? &rec->tf : nullptr);
+  }
   const float albedo = mat[0], alpha = mat[1];
   const float g = mat[2] * 2.0f - 1.0f;
   // event wheel
-  const float p_null = 1.0f - alpha;
-  const float p_scatter = (L.bounces >= P.i[I_MAX_BOUNCES]) ? 0.0f : alpha * albedo;
-  const float p_absorb = 1.0f - p_null - p_scatter;
+  float p_scatter, p_absorb;
+  if constexpr (MAJ) {
+    const float p_real = nmin(alpha / m, 1.0f);
+    p_scatter = (L.bounces >= P.i[I_MAX_BOUNCES]) ? 0.0f : p_real * albedo;
+    p_absorb = p_real - p_scatter;
+  } else {
+    const float p_null = 1.0f - alpha;
+    p_scatter = (L.bounces >= P.i[I_MAX_BOUNCES]) ? 0.0f : alpha * albedo;
+    p_absorb = 1.0f - p_null - p_scatter;
+  }
   const float wheel = draw(s);
-  const bool absorb = !oob && (wheel < p_absorb);
-  const bool scatter = !oob && !absorb && (wheel < p_absorb + p_scatter);
+  const bool event = !oob && !capped;
+  const bool absorb = event && (wheel < p_absorb);
+  const bool scatter = event && !absorb && (wheel < p_absorb + p_scatter);
   const bool isotropic = P.i[I_ISOTROPIC] != 0;
-  // escape radiance (light_raw * 5, cosine lobe unless isotropic)
+  // escape radiance: the env map, or light_raw * 5 with a cosine lobe
+  // unless isotropic
   float emitted = 0.0f;
   float ddot = 0.0f;
   if (oob) {
-    const float intensity = light_raw * 5.0f;
-    ddot = L.dx * f[F_LDX] + L.dy * f[F_LDY] + L.dz * f[F_LDZ];
-    emitted = isotropic ? intensity : nmax(ddot * intensity, 0.0f);
+    if constexpr (ENV) {
+      emitted = sample_environment(env, P.i[I_ENV_H], P.i[I_ENV_W], L.dx, L.dy,
+                                   L.dz, L.lam);
+    } else {
+      const float intensity = light_raw * 5.0f;
+      ddot = L.dx * f[F_LDX] + L.dy * f[F_LDY] + L.dz * f[F_LDZ];
+      emitted = isotropic ? intensity : nmax(ddot * intensity, 0.0f);
+    }
   }
   if (REC) {
     rec->dist = dist;
@@ -339,7 +449,7 @@ __device__ __forceinline__ void woodcock_step(Lane& L, float (&rad)[NB],
     rec->g = g;
     rec->pre_bin = L.bin;
     rec->respawn = oob || absorb;
-    rec->null_event = !oob && !absorb && !scatter;
+    rec->null_event = event && !absorb && !scatter;
     rec->scatter = scatter;
     // pathwise d(emitted)/d(light texel) weight at escape
     rec->light_w = oob ? (isotropic ? 1.0f : (emitted > 0.0f ? ddot : 0.0f)) * 5.0f : 0.0f;

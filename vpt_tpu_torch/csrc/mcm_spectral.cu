@@ -1,12 +1,20 @@
 // Spectral MCM forward kernels for Hopper (sm_90a), plain C interface.
 //
-// Three kernels share the __device__ code of mcm_common.cuh (hash chain,
+// Four kernels share the __device__ code of mcm_common.cuh (hash chain,
 // draws, geometry, packed-table lookups, the Woodcock step):
 //
 //   mcm_spectral_step   replaces vpt_tpu/models/mcm_spectral.py::_render_body
-//                       (:212-416) looped by render_many (:466-505).
+//                       (:212-416) looped by render_many (:466-505), in all
+//                       its packed-table modes: the super-voxel majorant
+//                       (:228-251, :319-332), the environment map
+//                       (:148-162, :347-348), the quasicubic filter
+//                       (ops/interp.py:389-392); and, over a lane table,
+//                       mcm_spectral_compact.py::render_compact_many (:352).
 //   mcm_spectral_reset  replaces vpt_tpu/models/mcm_spectral.py::full_reset
-//                       (:181-200).
+//                       (:181-200) and mcm_spectral_compact.py::compact_reset
+//                       (:328).
+//   compact_image       replaces the scatter-add of
+//                       mcm_spectral_compact.py::compact_image (:380-392).
 //   sample_volume_packed replaces vpt_tpu/ops/interp.py::_sample_volume_packed
 //                       + _dequantize_rows (:354-408) as a standalone lookup.
 //
@@ -26,6 +34,20 @@
 // Making it fast (occupancy tuning, FMA contraction, coalesced row loads)
 // is later work; here it has to be right.
 //
+// The modes. Majorant mode adds one 8-byte load of a (majorant, cap) pair
+// per lane-step from a grid of a few MB (L2-resident); its gain is fewer
+// steps per path in empty space, and a capped lane inside the volume skips
+// both table loads. Env mode adds, for escaping lanes only, atan2f/asinf
+// and one random 48-byte row load from the packed map. Both are template
+// parameters, so the default build carries none of their code. A lane
+// table (hit-lane compaction) replaces the lane -> pixel arithmetic by
+// three coalesced 4-byte loads per launch.
+//
+// compact_image is one thread per (bin, pixel): a hit pixel sums its S
+// stream lanes in stream order (no atomics, so every run gives the same
+// bits) and divides by S; a miss pixel copies its closed-form value.
+// It moves ~B * res^2 * (S + 2) * 4 bytes: HBM-bound and small.
+//
 // Numerics: built without fast math and with -fmad=false, so every lerp
 // rounds like the reference; IEEE division and sqrt; logf/sinf/cosf are
 // the accurate (not __intrinsic) forms; u8 codes dequantize by IEEE
@@ -37,7 +59,7 @@
 namespace {
 
 // K dispatches x `steps` Woodcock iterations per lane, state in registers.
-template <int NB>
+template <int NB, bool MAJ, bool ENV>
 __global__ void __launch_bounds__(128)
 step_kernel(const Params P, float* __restrict__ px_, float* __restrict__ py_,
             float* __restrict__ pz_, float* __restrict__ dx_,
@@ -45,14 +67,18 @@ step_kernel(const Params P, float* __restrict__ px_, float* __restrict__ py_,
             int* __restrict__ bounces_, int* __restrict__ samples_,
             int* __restrict__ bin_, float* __restrict__ lam_,
             float* __restrict__ radiance, const void* __restrict__ vol,
-            const float* __restrict__ tf, const uint32_t* __restrict__ seeds) {
+            const float* __restrict__ tf, const float2* __restrict__ maj,
+            const float* __restrict__ env, const uint32_t* __restrict__ lane_ix,
+            const uint32_t* __restrict__ lane_iy,
+            const uint32_t* __restrict__ lane_seed_iy,
+            const uint32_t* __restrict__ seeds) {
   const int n_lanes = P.i[I_N_LANES];
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
   if (lane >= n_lanes) return;
   const int n_bins = P.i[I_N_BINS];
   uint32_t ix, iy, seed_iy;
   float sx, sy;
-  lane_coords(lane, P.i[I_RES], ix, iy, seed_iy, P.f[F_INV_RES], sx, sy);
+  lane_pixel(lane, P, lane_ix, lane_iy, lane_seed_iy, ix, iy, seed_iy, sx, sy);
 
   Lane L;
   L.px = px_[lane]; L.py = py_[lane]; L.pz = pz_[lane];
@@ -67,7 +93,7 @@ step_kernel(const Params P, float* __restrict__ px_, float* __restrict__ py_,
   for (int k = 0; k < P.i[I_N_SEEDS]; ++k) {
     uint32_t s = hash3(ix, seed_iy, seeds[k]);
     for (int it = 0; it < steps; ++it) {
-      woodcock_step<NB, false>(L, rad, s, sx, sy, P, vol, tf, nullptr);
+      woodcock_step<NB, false, MAJ, ENV>(L, rad, s, sx, sy, P, vol, tf, nullptr, maj, env);
     }
   }
 
@@ -87,13 +113,16 @@ reset_kernel(const Params P, uint32_t seed, float* __restrict__ px_,
              float* __restrict__ dz_, int* __restrict__ bounces_,
              int* __restrict__ samples_, int* __restrict__ bin_,
              float* __restrict__ lam_, float* __restrict__ radiance,
-             float* __restrict__ transmittance) {
+             float* __restrict__ transmittance,
+             const uint32_t* __restrict__ lane_ix,
+             const uint32_t* __restrict__ lane_iy,
+             const uint32_t* __restrict__ lane_seed_iy) {
   const int n_lanes = P.i[I_N_LANES];
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
   if (lane >= n_lanes) return;
   uint32_t ix, iy, seed_iy;
   float sx, sy;
-  lane_coords(lane, P.i[I_RES], ix, iy, seed_iy, P.f[F_INV_RES], sx, sy);
+  lane_pixel(lane, P, lane_ix, lane_iy, lane_seed_iy, ix, iy, seed_iy, sx, sy);
   uint32_t s = hash3(ix, seed_iy, seed);
   const Ray r = respawn(s, sx, sy, P);
   px_[lane] = r.px; py_[lane] = r.py; pz_[lane] = r.pz;
@@ -109,6 +138,26 @@ reset_kernel(const Params P, uint32_t seed, float* __restrict__ px_,
 }
 
 __global__ void __launch_bounds__(256)
+compact_image_kernel(const float* __restrict__ radiance, int64_t n_lanes,
+                     const int* __restrict__ pixel_hit,
+                     const float* __restrict__ miss, float* __restrict__ out,
+                     int n_bins, int n_pixels, int n_hit, int streams) {
+  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= (int64_t)n_bins * n_pixels) return;
+  const int b = (int)(i / n_pixels);
+  const int p = (int)(i - (int64_t)b * n_pixels);
+  const int k = pixel_hit[p];
+  if (k < 0) {
+    out[i] = miss[i];
+    return;
+  }
+  const float* r = radiance + (int64_t)b * n_lanes + k;
+  float acc = 0.0f;
+  for (int s = 0; s < streams; ++s) acc = acc + r[(int64_t)s * n_hit];
+  out[i] = acc / (float)streams;
+}
+
+__global__ void __launch_bounds__(256)
 sample_volume_kernel(const void* __restrict__ table, int is_u8, int Dp, int Hp,
                      int Wp, const float* __restrict__ u,
                      const float* __restrict__ v, const float* __restrict__ w,
@@ -116,6 +165,39 @@ sample_volume_kernel(const void* __restrict__ table, int is_u8, int Dp, int Hp,
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   out[i] = sample_volume(table, is_u8, Dp, Hp, Wp, u[i], v[i], w[i], nullptr);
+}
+
+template <int NB, bool MAJ, bool ENV>
+void launch_step(const Params& P, cudaStream_t st, float* px, float* py,
+                 float* pz, float* dx, float* dy, float* dz, int* bounces,
+                 int* samples, int* bin, float* wavelength, float* radiance,
+                 const void* vol, const float* tf, const float* maj,
+                 const float* env, const uint32_t* lane_ix,
+                 const uint32_t* lane_iy, const uint32_t* lane_seed_iy,
+                 const uint32_t* seeds) {
+  step_kernel<NB, MAJ, ENV><<<blocks_for(P.i[I_N_LANES], 128), 128, 0, st>>>(
+      P, px, py, pz, dx, dy, dz, bounces, samples, bin, wavelength, radiance,
+      vol, tf, reinterpret_cast<const float2*>(maj), env, lane_ix, lane_iy,
+      lane_seed_iy, seeds);
+}
+
+template <int NB>
+void launch_step_modes(const Params& P, cudaStream_t st, float* px, float* py,
+                       float* pz, float* dx, float* dy, float* dz, int* bounces,
+                       int* samples, int* bin, float* wavelength,
+                       float* radiance, const void* vol, const float* tf,
+                       const float* maj, const float* env,
+                       const uint32_t* lane_ix, const uint32_t* lane_iy,
+                       const uint32_t* lane_seed_iy, const uint32_t* seeds) {
+#define VPT_STEP(M, E)                                                        \
+  launch_step<NB, M, E>(P, st, px, py, pz, dx, dy, dz, bounces, samples, bin, \
+                        wavelength, radiance, vol, tf, maj, env, lane_ix,     \
+                        lane_iy, lane_seed_iy, seeds)
+  if (maj == nullptr && env == nullptr) VPT_STEP(false, false);
+  else if (env == nullptr) VPT_STEP(true, false);
+  else if (maj == nullptr) VPT_STEP(false, true);
+  else VPT_STEP(true, true);
+#undef VPT_STEP
 }
 
 }  // namespace
@@ -131,25 +213,33 @@ int vpt_layout(int which) {
   }
 }
 
+// maj (Gz*Gy*Gx*2 floats), env (packed Hp*Wp*12 floats) and the three
+// lane tables (n_lanes uint32 each) are optional: null selects the
+// default form of each.
 int vpt_mcm_spectral_step(const float* fparams, const int* iparams, float* px,
                           float* py, float* pz, float* dx, float* dy, float* dz,
                           int* bounces, int* samples, int* bin, float* wavelength,
                           float* radiance, const void* vol, const float* tf,
-                          const uint32_t* seeds, void* stream) {
+                          const float* maj, const float* env,
+                          const uint32_t* lane_ix, const uint32_t* lane_iy,
+                          const uint32_t* lane_seed_iy, const uint32_t* seeds,
+                          void* stream) {
   const Params P = make_params(fparams, iparams);
   const int n = P.i[I_N_LANES];
   if (n <= 0) return 0;
+  if ((maj != nullptr) != (P.i[I_MAJ_GZ] > 0) || (env != nullptr) != (P.i[I_ENV_H] > 0) ||
+      (lane_ix == nullptr) != (lane_iy == nullptr) ||
+      (lane_ix == nullptr) != (lane_seed_iy == nullptr))
+    return (int)cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const dim3 grid(blocks_for(n, 128)), block(128);
   if (P.i[I_N_BINS] <= 16) {
-    step_kernel<16><<<grid, block, 0, st>>>(P, px, py, pz, dx, dy, dz, bounces,
-                                            samples, bin, wavelength, radiance,
-                                            vol, tf, seeds);
+    launch_step_modes<16>(P, st, px, py, pz, dx, dy, dz, bounces, samples, bin,
+                          wavelength, radiance, vol, tf, maj, env, lane_ix,
+                          lane_iy, lane_seed_iy, seeds);
   } else {
-    step_kernel<MAX_BINS><<<grid, block, 0, st>>>(P, px, py, pz, dx, dy, dz,
-                                                  bounces, samples, bin,
-                                                  wavelength, radiance, vol, tf,
-                                                  seeds);
+    launch_step_modes<MAX_BINS>(P, st, px, py, pz, dx, dy, dz, bounces, samples,
+                                bin, wavelength, radiance, vol, tf, maj, env,
+                                lane_ix, lane_iy, lane_seed_iy, seeds);
   }
   return (int)cudaGetLastError();
 }
@@ -158,13 +248,31 @@ int vpt_mcm_spectral_reset(const float* fparams, const int* iparams,
                            uint32_t seed, float* px, float* py, float* pz,
                            float* dx, float* dy, float* dz, int* bounces,
                            int* samples, int* bin, float* wavelength,
-                           float* radiance, float* transmittance, void* stream) {
+                           float* radiance, float* transmittance,
+                           const uint32_t* lane_ix, const uint32_t* lane_iy,
+                           const uint32_t* lane_seed_iy, void* stream) {
   const Params P = make_params(fparams, iparams);
   const int n = P.i[I_N_LANES];
   if (n <= 0) return 0;
+  if ((lane_ix == nullptr) != (lane_iy == nullptr) ||
+      (lane_ix == nullptr) != (lane_seed_iy == nullptr))
+    return (int)cudaErrorInvalidValue;
   reset_kernel<<<blocks_for(n, 128), 128, 0, static_cast<cudaStream_t>(stream)>>>(
       P, seed, px, py, pz, dx, dy, dz, bounces, samples, bin, wavelength,
-      radiance, transmittance);
+      radiance, transmittance, lane_ix, lane_iy, lane_seed_iy);
+  return (int)cudaGetLastError();
+}
+
+int vpt_compact_image(const float* radiance, int64_t n_lanes,
+                      const int* pixel_hit, const float* miss, float* out,
+                      int n_bins, int n_pixels, int n_hit, int streams,
+                      void* stream) {
+  const int64_t n = (int64_t)n_bins * n_pixels;
+  if (n <= 0) return 0;
+  if (streams < 1 || (int64_t)streams * n_hit > n_lanes) return (int)cudaErrorInvalidValue;
+  compact_image_kernel<<<(unsigned)((n + 255) / 256), 256, 0,
+                         static_cast<cudaStream_t>(stream)>>>(
+      radiance, n_lanes, pixel_hit, miss, out, n_bins, n_pixels, n_hit, streams);
   return (int)cudaGetLastError();
 }
 

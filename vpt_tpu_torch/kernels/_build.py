@@ -50,8 +50,9 @@ _L = ctypes.c_int64
 _SIGNATURES = {
     "mcm_spectral": {
         "vpt_layout": ([_I], _I),
-        "vpt_mcm_spectral_step": ([_P] * 16 + [_P], _I),
-        "vpt_mcm_spectral_reset": ([_P, _P, _U] + [_P] * 12 + [_P], _I),
+        "vpt_mcm_spectral_step": ([_P] * 21 + [_P], _I),
+        "vpt_mcm_spectral_reset": ([_P, _P, _U] + [_P] * 15 + [_P], _I),
+        "vpt_compact_image": ([_P, _L, _P, _P, _P, _I, _I, _I, _I, _P], _I),
         "vpt_sample_volume_packed": ([_P, _I, _I, _I, _I, _P, _P, _P, _P, _I, _P], _I),
     },
     "spectral_backward": {

@@ -1,19 +1,33 @@
 """The spectral MCM forward kernels: wrappers, plain versions, launch counts.
 
-Three kernels of ``vpt_tpu_torch/csrc/mcm_spectral.cu``:
+Four kernels of ``vpt_tpu_torch/csrc/mcm_spectral.cu``:
 
 - ``step``: K render dispatches of ``steps`` Woodcock iterations, in place
   (replaces ``vpt_tpu/models/mcm_spectral.py::_render_body`` looped by
-  ``render_many``); plain version ``step_plain``.
-- ``reset``: fresh photons (replaces ``full_reset``); plain version
-  ``reset_plain``.
+  ``render_many``, and ``mcm_spectral_compact.render_compact_many`` over a
+  lane table); plain version ``step_plain``. The ctx picks the mode: the
+  super-voxel majorant (``ctx.majorant``), the environment map
+  (``ctx.environment``), the quasicubic filter (``ctx.volume_filter``).
+- ``reset``: fresh photons (replaces ``full_reset`` and ``compact_reset``);
+  plain version ``reset_plain``.
+- ``compact_radiance``: each hit pixel's mean over its stream lanes, the
+  closed-form value elsewhere (replaces the scatter of
+  ``mcm_spectral_compact.compact_image``); plain version
+  ``compact_radiance_plain``.
 - ``sample_volume_packed``: a standalone packed-volume lookup (replaces
   ``interp._sample_volume_packed``); plain version
   ``sample_volume_packed_plain``.
 
+``step`` and ``reset`` take an optional lane table ``lanes = (ix, iy,
+seed_iy)``, int32 tensors of the lane shape (hit-lane compaction); without
+one the lanes are the (S, H, W) pixel grid.
+
 Each wrapper runs its plain version when its tensors lie on the CPU, and
 launches the CUDA kernel when they lie on a CUDA device; anything else
-raises. ``LAUNCHES`` counts kernel launches (never plain runs).
+raises. ``LAUNCHES`` counts kernel launches (never plain runs); a step
+launch also counts under each mode it ran (``step_majorant``,
+``step_environment``, ``step_quasicubic``, ``step_lane_table``), a reset
+over a lane table under ``reset_lane_table``.
 
 The plain versions take tensors on any device, so tests and
 ``chip_smoke.py`` can compare kernel and plain version on the card.
@@ -30,9 +44,15 @@ from vpt_tpu_torch.ops import geometry, interp, sampling
 # must match MAX_BINS / F_COUNT / I_COUNT in csrc/mcm_spectral.cu
 MAX_BINS = 32
 _F_COUNT = 24 + MAX_BINS + 1
-_I_COUNT = 14
+_I_COUNT = 20
 
-LAUNCHES = {"step": 0, "reset": 0, "sample_volume_packed": 0}
+LAUNCHES = {"step": 0, "reset": 0, "compact_radiance": 0, "sample_volume_packed": 0,
+            "step_majorant": 0, "step_environment": 0, "step_quasicubic": 0,
+            "step_lane_table": 0, "reset_lane_table": 0}
+
+# f32 constants of the environment lookup (vpt_tpu/models/mcm_spectral.py:155-158)
+INV_PI = float(np.float32(1.0 / np.pi))
+ENV_GAIN = float(np.float32(2.7))
 
 STATE_FIELDS = ("px", "py", "pz", "dx", "dy", "dz", "bounces", "samples",
                 "bin", "wavelength", "radiance", "transmittance")
@@ -60,6 +80,14 @@ def light_terms(light_direction):
 
 def _lane_shape(resolution: int, streams: int):
     return (resolution, resolution) if streams == 1 else (streams, resolution, resolution)
+
+
+def _lane_grid(resolution: int, streams: int, device, lanes=None):
+    """(ix, iy, seed_iy) int64 lane tensors: the pixel grid, or the given
+    lane table (hit-lane compaction)."""
+    if lanes is None:
+        return _pixel_grid(resolution, streams, device)
+    return tuple(t.to(device=device, dtype=torch.int64) for t in lanes)
 
 
 def _pixel_grid(resolution: int, streams: int, device):
@@ -104,15 +132,47 @@ def _respawn(rng, mask, sx, sy, ctx, n_bins):
     )
 
 
+def _majorant_cell(p, n: int):
+    """Majorant grid cell along one axis: clip(int32(floor(p*n)), 0, n-1)
+    from the pre-step position, saturating like XLA's f32 -> i32."""
+    return torch.clamp(interp._index(torch.floor(p * n)), 0, n - 1)
+
+
+def sample_environment(env, dx, dy, dz, lam):
+    """Escape radiance from a packed (He+1, We+1, 12) equirect map: the
+    reference's mapping (y quirk kept), gain 2.7, channel by wavelength
+    (< 500 nm blue, < 600 green, else red). Same f32 operations, in the
+    same order, as the JAX ``_sample_environment``."""
+    u = torch.atan2(dx, -dz) * INV_PI * 0.5 + 0.5
+    v = torch.asin(-dy) * 2.0 * INV_PI * 0.5 + 0.5
+    color = interp.sample_tex2d(env, u, v) * ENV_GAIN
+    return torch.where(lam < 500.0, color[..., 2],
+                       torch.where(lam < 600.0, color[..., 1], color[..., 0]))
+
+
 def _render_body(p, rng, sx, sy, ctx, n_bins, light, collect: bool = False):
     """One Woodcock iteration over all lanes; ``p``: dict of lane tensors.
-    Same order of operations and draws as the JAX ``_render_body``.
+    Same order of operations and draws as the JAX ``_render_body``,
+    including its majorant and environment branches.
 
     ``collect``: also return the step's internals, the quantities the
     packed-adjoint backward tapes (``kernels/spectral_backward.py``), as
     the JAX ``_render_body(collect=True)`` returns them."""
     all_mask = torch.ones(rng.shape, dtype=torch.bool, device=rng.device)
-    rng, dist = sampling.draw_exponential(rng, all_mask, _f32(ctx.extinction))
+    maj = None
+    if ctx.majorant is not None:
+        Gz, Gy, Gx, _ = ctx.majorant.shape
+        cell = ((_majorant_cell(p["pz"], Gz) * Gy + _majorant_cell(p["py"], Gy)) * Gx
+                + _majorant_cell(p["px"], Gx))
+        row = ctx.majorant.reshape(-1, 2)[cell.to(torch.int64)]
+        maj = torch.clamp_min(row[..., 0], 1e-12)
+        flight_cap = row[..., 1]
+        rng, dist = sampling.draw_exponential(rng, all_mask, maj * _f32(ctx.extinction))
+        # a flight past the cap is a pure advance by the cap (no event)
+        capped = dist >= flight_cap
+        dist = torch.minimum(dist, flight_cap)
+    else:
+        rng, dist = sampling.draw_exponential(rng, all_mask, _f32(ctx.extinction))
     px = p["px"] + dist * p["dx"]
     py = p["py"] + dist * p["dy"]
     pz = p["pz"] + dist * p["dz"]
@@ -120,7 +180,8 @@ def _render_body(p, rng, sx, sy, ctx, n_bins, light, collect: bool = False):
 
     # material lookup (sampled, clamped, even when out of bounds)
     t = sampling.div_scalar(p["wavelength"] - 400.0, 300.0)
-    dens = interp.sample_volume_packed(ctx.density.table, ctx.density.dims, px, py, pz)
+    dens = interp.sample_volume_packed(ctx.density.table, ctx.density.dims, px, py, pz,
+                                       ctx.volume_filter)
     mat, light_raw, tf_extras = interp.sample_tex2d_fused1d(ctx.material_tf, t, dens,
                                                             return_extras=True)
     albedo = mat[..., 0]
@@ -128,12 +189,18 @@ def _render_body(p, rng, sx, sy, ctx, n_bins, light, collect: bool = False):
     g = mat[..., 2] * 2.0 - 1.0
 
     zero = torch.zeros_like(alpha)
-    p_null = 1.0 - alpha
-    p_scatter = torch.where(p["bounces"] >= int(ctx.max_bounces), zero, alpha * albedo)
-    p_absorb = 1.0 - p_null - p_scatter
+    if maj is not None:
+        # acceptance against the local majorant: real event with p alpha/m
+        p_real = torch.clamp_max(alpha / maj, 1.0)
+        p_scatter = torch.where(p["bounces"] >= int(ctx.max_bounces), zero, p_real * albedo)
+        p_absorb = p_real - p_scatter
+    else:
+        p_null = 1.0 - alpha
+        p_scatter = torch.where(p["bounces"] >= int(ctx.max_bounces), zero, alpha * albedo)
+        p_absorb = 1.0 - p_null - p_scatter
     rng, wheel = sampling.draw(rng, all_mask)
 
-    event = ~oob
+    event = ~oob if maj is None else ~oob & ~capped
     absorb = event & (wheel < p_absorb)
     scatter = event & ~absorb & (wheel < p_absorb + p_scatter)
     null = event & ~absorb & ~scatter
@@ -142,7 +209,10 @@ def _render_body(p, rng, sx, sy, ctx, n_bins, light, collect: bool = False):
     # radiance deposit: incremental one-hot mean over all bins
     (lx, ly, lz), isotropic = light
     intensity = light_raw * 5.0
-    if isotropic:
+    if ctx.environment is not None:
+        escape = sample_environment(ctx.environment, p["dx"], p["dy"], p["dz"],
+                                    p["wavelength"])
+    elif isotropic:
         escape = intensity
     else:
         dot = p["dx"] * lx + p["dy"] * ly + p["dz"] * lz
@@ -184,14 +254,15 @@ def _render_body(p, rng, sx, sy, ctx, n_bins, light, collect: bool = False):
     return out, rng
 
 
-def step_plain(state, ctx, seeds, steps: int, n_bins: int):
+def step_plain(state, ctx, seeds, steps: int, n_bins: int, lanes=None):
     """Plain PyTorch ``step``: for each frame seed, re-seed every lane's
     chain and run ``steps`` Woodcock iterations. Updates ``state`` in place
-    (the JAX version donates it) and returns it."""
+    (the JAX version donates it) and returns it. ``lanes``: a lane table
+    (ix, iy, seed_iy) of the state's lane shape, or None for the grid."""
     resolution = state.px.shape[-1]
     streams = state.px.shape[0] if state.px.ndim == 3 else 1
     device = state.px.device
-    ix, iy, seed_iy = _pixel_grid(resolution, streams, device)
+    ix, iy, seed_iy = _lane_grid(resolution, streams, device, lanes)
     sx, sy = geometry.screen_position(ix, iy, _f32(np.float32(1.0) / np.float32(resolution)))
     light = light_terms(ctx.light_direction)
     p = {k: getattr(state, k) for k in STATE_FIELDS if k != "transmittance"}
@@ -204,10 +275,10 @@ def step_plain(state, ctx, seeds, steps: int, n_bins: int):
     return state
 
 
-def reset_plain(ctx, resolution: int, n_bins: int, streams: int, device):
+def reset_plain(ctx, resolution: int, n_bins: int, streams: int, device, lanes=None):
     """Plain PyTorch ``reset``: dict of fresh state tensors (radiance and
-    transmittance = 1, the reference's quirk)."""
-    ix, iy, seed_iy = _pixel_grid(resolution, streams, device)
+    transmittance = 1, the reference's quirk); over ``lanes`` when given."""
+    ix, iy, seed_iy = _lane_grid(resolution, streams, device, lanes)
     sx, sy = geometry.screen_position(ix, iy, _f32(np.float32(1.0) / np.float32(resolution)))
     rng = sampling.seed_state(ix, seed_iy, ctx.seed_bits)
     mask = torch.ones(ix.shape, dtype=torch.bool, device=device)
@@ -228,6 +299,24 @@ def reset_plain(ctx, resolution: int, n_bins: int, streams: int, device):
 def sample_volume_packed_plain(table, dims, u, v, w):
     """Plain PyTorch ``sample_volume_packed``."""
     return interp.sample_volume_packed(table, dims, u, v, w)
+
+
+def compact_radiance_plain(radiance, pixel_hit, miss, n_hit: int, streams: int):
+    """Plain PyTorch ``compact_radiance``. ``radiance``: (B, M, res) lane
+    radiance with lane s*n_hit + k holding stream s of hit pixel k;
+    ``pixel_hit``: (res*res,) int32, the hit index k of each pixel or -1;
+    ``miss``: (B, res, res) closed-form radiance. Returns (B, res, res):
+    for a hit pixel the sum over s = 0..S-1, in that order, divided by S
+    (no atomics: the same bits on every run); elsewhere ``miss``."""
+    B = radiance.shape[0]
+    lanes = radiance.reshape(B, -1)[:, :streams * n_hit].reshape(B, streams, n_hit)
+    acc = torch.zeros((B, n_hit), dtype=torch.float32, device=radiance.device)
+    for s in range(streams):
+        acc = acc + lanes[:, s]
+    out = miss.clone().reshape(B, -1)
+    hit = torch.nonzero(pixel_hit >= 0).reshape(-1)
+    out[:, hit] = sampling.div_scalar(acc, float(streams))
+    return out.reshape(miss.shape)
 
 
 # ---------------------------------------------------------------------------
@@ -267,10 +356,12 @@ def _raise_on(err: int, what: str):
         raise RuntimeError(f"{what}: CUDA launch failed with cudaError_t {err}")
 
 
-def _params(ctx, resolution, streams, n_bins, steps=0, n_seeds=0):
+def _params(ctx, resolution, streams, n_bins, steps=0, n_seeds=0, n_lanes=None):
     if not 1 <= n_bins <= MAX_BINS:
         raise ValueError(f"n_bins={n_bins} outside [1, {MAX_BINS}]")
-    if streams * resolution * resolution >= 2**31:
+    if n_lanes is None:
+        n_lanes = streams * resolution * resolution
+    if n_lanes >= 2**31:
         raise ValueError("more than 2**31 - 1 lanes")
     f = np.zeros(_F_COUNT, np.float32)
     f[0:16] = np.asarray(ctx.inv_mvp, np.float32).reshape(16)
@@ -286,10 +377,13 @@ def _params(ctx, resolution, streams, n_bins, steps=0, n_seeds=0):
     f[23] = bounds[n_bins] - bounds[0]
     f[24:24 + n_bins + 1] = bounds
     vol, tf = ctx.density, ctx.material_tf
+    maj = ctx.majorant.shape[:3] if ctx.majorant is not None else (0, 0, 0)
+    env = ctx.environment.shape[:2] if ctx.environment is not None else (0, 0)
     i = np.array([
         int(isotropic), n_bins, int(ctx.max_bounces), steps, n_seeds, streams,
         resolution, int(vol.table.dtype == torch.uint8), *vol.dims,
-        tf.shape[0], tf.shape[1], streams * resolution * resolution,
+        tf.shape[0], tf.shape[1], n_lanes, int(ctx.volume_filter == "quasicubic"),
+        *maj, *env,
     ], np.int32)
     assert i.shape == (_I_COUNT,)
     return f, i
@@ -306,11 +400,32 @@ def _check_tables(ctx):
     if ctx.material_tf.ndim != 3 or ctx.material_tf.shape[-1] != 18:
         raise ValueError(f"material_tf must be a fused (Hp, Wp, 18) table, got {tuple(ctx.material_tf.shape)}")
     _check(ctx.material_tf, "material_tf", torch.float32)
+    if ctx.volume_filter not in ("linear", "quasicubic"):
+        raise ValueError(f"volume filter {ctx.volume_filter!r} needs raw tables")
+    if ctx.majorant is not None:
+        if ctx.majorant.ndim != 4 or ctx.majorant.shape[-1] != 2:
+            raise ValueError(f"majorant must be a (Gz, Gy, Gx, 2) table, got "
+                             f"{tuple(ctx.majorant.shape)}")
+        _check(ctx.majorant, "majorant", torch.float32, align=8)
+    if ctx.environment is not None:
+        if ctx.environment.ndim != 3 or ctx.environment.shape[-1] != 12:
+            raise ValueError(f"environment must be a packed (He+1, We+1, 12) table, got "
+                             f"{tuple(ctx.environment.shape)}")
+        _check(ctx.environment, "environment", torch.float32)
 
 
-def _check_state(state, n_bins):
+def _check_lanes(lanes, lane_shape):
+    for t, name in zip(lanes, ("lane_ix", "lane_iy", "lane_seed_iy")):
+        _check(t, name, torch.int32, lane_shape)
+
+
+def _check_state(state, n_bins, lanes=None):
     lane = tuple(state.px.shape)
-    if len(lane) not in (2, 3) or lane[-1] != lane[-2]:
+    if lanes is not None:
+        if len(lane) != 2:
+            raise ValueError(f"a lane table's state has lane shape (M, res), got {lane}")
+        _check_lanes(lanes, lane)
+    elif len(lane) not in (2, 3) or lane[-1] != lane[-2]:
         raise ValueError(f"lane shape must be (H, W) or (S, H, W) with H == W, got {lane}")
     for k in STATE_FIELDS:
         t = getattr(state, k)
@@ -318,57 +433,112 @@ def _check_state(state, n_bins):
         _check(t, k, torch.int32 if k in _INT_FIELDS else torch.float32, shape)
 
 
-def step(state, ctx, seeds, steps: int, n_bins: int):
+def _ctx_tensors(ctx):
+    return [t for t in (ctx.density.table, ctx.material_tf, ctx.majorant, ctx.environment)
+            if t is not None]
+
+
+def _ptr(t) -> int:
+    return 0 if t is None else t.data_ptr()
+
+
+def step(state, ctx, seeds, steps: int, n_bins: int, lanes=None):
     """K render dispatches (one per frame seed) of ``steps`` iterations,
-    updating ``state`` in place; one kernel launch on a CUDA device."""
-    tensors = [getattr(state, k) for k in STATE_FIELDS] + [ctx.density.table, ctx.material_tf]
+    updating ``state`` in place; one kernel launch on a CUDA device.
+    ``lanes``: an int32 lane table (ix, iy, seed_iy) of the state's lane
+    shape (hit-lane compaction), or None for the pixel grid."""
+    tensors = [getattr(state, k) for k in STATE_FIELDS] + _ctx_tensors(ctx) + list(lanes or ())
     if _route(*tensors) == "cpu":
-        return step_plain(state, ctx, seeds, steps, n_bins)
-    _check_state(state, n_bins)
+        return step_plain(state, ctx, seeds, steps, n_bins, lanes)
+    _check_state(state, n_bins, lanes)
     _check_tables(ctx)
     seeds = np.asarray(seeds, np.uint32).reshape(-1)
     lane = tuple(state.px.shape)
     streams = lane[0] if len(lane) == 3 else 1
-    f, i = _params(ctx, lane[-1], streams, n_bins, steps, len(seeds))
+    f, i = _params(ctx, lane[-1], streams, n_bins, steps, len(seeds), state.px.numel())
     lib = _build.load()
     _check_layout(lib)
     device = state.px.device
     seeds_dev = torch.as_tensor(seeds.view(np.int32), device=device)
+    ix, iy, seed_iy = lanes or (None, None, None)
     with torch.cuda.device(device):
         err = lib.vpt_mcm_spectral_step(
             f.ctypes.data, i.ctypes.data,
             *(getattr(state, k).data_ptr() for k in STATE_FIELDS[:11]),
             ctx.density.table.data_ptr(), ctx.material_tf.data_ptr(),
+            _ptr(ctx.majorant), _ptr(ctx.environment),
+            _ptr(ix), _ptr(iy), _ptr(seed_iy),
             seeds_dev.data_ptr(), _stream(device))
     _raise_on(err, "mcm_spectral_step")
     LAUNCHES["step"] += 1
+    for mode, on in (("majorant", ctx.majorant is not None),
+                     ("environment", ctx.environment is not None),
+                     ("quasicubic", ctx.volume_filter == "quasicubic"),
+                     ("lane_table", lanes is not None)):
+        LAUNCHES[f"step_{mode}"] += int(on)
     return state
 
 
-def reset(ctx, resolution: int, n_bins: int, streams: int, device):
-    """Fresh photon state (dict of tensors) on ``device``."""
+def reset(ctx, resolution: int, n_bins: int, streams: int, device, lanes=None):
+    """Fresh photon state (dict of tensors) on ``device``; over an int32
+    lane table ``lanes`` (ix, iy, seed_iy) when given, whose shape is then
+    the lane shape."""
     device = torch.device(device)
-    route = _route(ctx.density.table, ctx.material_tf)
+    route = _route(*_ctx_tensors(ctx), *(lanes or ()))
     if route != device.type:
         raise ValueError(f"scene tables lie on {route}, state requested on {device}")
     if route == "cpu":
-        return reset_plain(ctx, resolution, n_bins, streams, device)
+        return reset_plain(ctx, resolution, n_bins, streams, device, lanes)
     _check_tables(ctx)
     device = ctx.density.table.device
-    f, i = _params(ctx, resolution, streams, n_bins)
-    lane = _lane_shape(resolution, streams)
+    lane = tuple(lanes[0].shape) if lanes is not None else _lane_shape(resolution, streams)
+    if lanes is not None:
+        if len(lane) != 2 or lane[-1] != resolution:
+            raise ValueError(f"a lane table must be (M, {resolution}), got {lane}")
+        _check_lanes(lanes, lane)
+    f, i = _params(ctx, resolution, streams, n_bins, n_lanes=int(np.prod(lane)))
     out = {k: torch.empty(lane, dtype=torch.int32 if k in _INT_FIELDS else torch.float32,
                           device=device) for k in STATE_FIELDS[:10]}
     for k in ("radiance", "transmittance"):
         out[k] = torch.empty((n_bins,) + lane, dtype=torch.float32, device=device)
     lib = _build.load()
     _check_layout(lib)
+    ix, iy, seed_iy = lanes or (None, None, None)
     with torch.cuda.device(device):
         err = lib.vpt_mcm_spectral_reset(
             f.ctypes.data, i.ctypes.data, int(ctx.seed_bits) & 0xFFFFFFFF,
-            *(out[k].data_ptr() for k in STATE_FIELDS), _stream(device))
+            *(out[k].data_ptr() for k in STATE_FIELDS), _ptr(ix), _ptr(iy), _ptr(seed_iy),
+            _stream(device))
     _raise_on(err, "mcm_spectral_reset")
     LAUNCHES["reset"] += 1
+    LAUNCHES["reset_lane_table"] += int(lanes is not None)
+    return out
+
+
+def compact_radiance(radiance, pixel_hit, miss, n_hit: int, streams: int):
+    """Per-pixel radiance (B, res, res) of a compacted state: a hit pixel's
+    mean over its ``streams`` lanes, ``miss`` elsewhere (see
+    ``compact_radiance_plain``); one kernel launch on a CUDA device."""
+    if _route(radiance, pixel_hit, miss) == "cpu":
+        return compact_radiance_plain(radiance, pixel_hit, miss, n_hit, streams)
+    B = radiance.shape[0]
+    n_lanes = radiance[0].numel()
+    if streams * n_hit > n_lanes:
+        raise ValueError(f"{streams} x {n_hit} hit lanes > the state's {n_lanes} lanes")
+    _check(radiance, "radiance", torch.float32)
+    _check(miss, "miss", torch.float32)
+    if miss.ndim != 3 or miss.shape[0] != B:
+        raise ValueError(f"miss must be ({B}, res, res), got {tuple(miss.shape)}")
+    _check(pixel_hit, "pixel_hit", torch.int32, (miss.shape[1] * miss.shape[2],))
+    out = torch.empty_like(miss)
+    lib = _build.load()
+    device = radiance.device
+    with torch.cuda.device(device):
+        err = lib.vpt_compact_image(radiance.data_ptr(), n_lanes, pixel_hit.data_ptr(),
+                                    miss.data_ptr(), out.data_ptr(), B, pixel_hit.numel(),
+                                    int(n_hit), int(streams), _stream(device))
+    _raise_on(err, "compact_image")
+    LAUNCHES["compact_radiance"] += 1
     return out
 
 

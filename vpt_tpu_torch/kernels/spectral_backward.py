@@ -36,7 +36,8 @@ the state they are given: the forward runs on a copy.
 
 Not ported yet (each raises ``NotImplementedError``): the raw-table replay
 backward ``spectral_backward``, xy half-packed volumes, the quasicubic
-filter, environment gradients and majorant mode.
+filter and environment gradients. Majorant mode raises as the reference's
+taped backward does.
 """
 
 from __future__ import annotations
@@ -102,8 +103,17 @@ def _slots(fields) -> np.ndarray:
 
 
 def _check_packed_ctx(ctx, volume_filter="linear"):
-    if volume_filter != "linear":
-        raise NotImplementedError(f"volume filter {volume_filter!r} is not ported to the backward")
+    if volume_filter != "linear" or ctx.volume_filter != "linear":
+        bad = volume_filter if volume_filter != "linear" else ctx.volume_filter
+        raise NotImplementedError(f"volume filter {bad!r} is not ported to the backward")
+    if ctx.majorant is not None:
+        raise NotImplementedError(
+            "the packed-PRB taped backward does not support the super-voxel majorant "
+            "mode; use the autodiff surrogate (render_sequence_diff / fit_spectral "
+            "method='autodiff') for majorant-mode gradients")
+    if ctx.environment is not None:
+        raise NotImplementedError("environment-map gradients (the packed backward's env "
+                                  "branch) are not ported to the torch package")
     if not isinstance(ctx.density, interp.PackedVolume):
         raise NotImplementedError(
             "the raw-table replay backward (spectral_backward) is not ported; "
@@ -179,6 +189,7 @@ def _tape_row(it, fields, ctx, light):
 def tape_forward_plain(state, ctx, seeds, steps: int, n_bins: int, wrt=ALL_WRT):
     """Plain PyTorch ``tape_forward``: updates ``state`` in place (like
     ``mcm_spectral.step_plain``) and returns the tapes (K, steps, F, lanes)."""
+    _check_packed_ctx(ctx)
     fields = tape_fields(wrt)
     lane, resolution, streams, _ = _lanes(state)
     device = state.px.device

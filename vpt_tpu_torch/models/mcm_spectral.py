@@ -1,9 +1,13 @@
 """Spectral multiple-scattering delta-tracking path tracer, forward path.
 
-Counterpart of ``vpt_tpu/models/mcm_spectral.py`` for the default
-configuration: packed tables (flat corner table, u8 when the source volume
-is u8-quantized, plus the fused (257, 257, 18) TF+light table), linear
-filter, the exact global majorant and a directional (or isotropic) light.
+Counterpart of ``vpt_tpu/models/mcm_spectral.py`` on packed tables (flat
+corner table, u8 when the source volume is u8-quantized, plus the fused
+(257, 257, 18) TF+light table), with its modes: linear or quasicubic
+filter; the exact global majorant or the super-voxel majorant grid
+(``majorant_blocks``, built by ``vpt_tpu/ops/majorant.py`` from the raw
+density and TF); a directional (or isotropic) light or an equirect
+environment map; and hit-lane compaction (``compaction=True``,
+``models/mcm_spectral_compact.py``).
 
 Photon state is a dataclass of lane tensors of shape (H, W), or (S, H, W)
 with S sample streams per pixel; radiance and transmittance carry a
@@ -19,12 +23,14 @@ out-of-bounds test.
 from __future__ import annotations
 
 import dataclasses
+import time
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 from torch import nn
 
+from vpt_tpu.ops.majorant import build_majorant_grid
 from vpt_tpu.utils.config import LightConfig, MaterialTF, MCMSpectralConfig, SpectrumConfig
 from vpt_tpu_torch.kernels import mcm_spectral as K
 from vpt_tpu_torch.models.base import register_renderer
@@ -73,6 +79,13 @@ class SpectralCtx:
     light_spectrum: torch.Tensor  # (257, 2) packed light pairs
     boundaries: np.ndarray  # (B+1,) f32 bin boundaries
     bin_xyz: torch.Tensor  # (3, B) f32 per-bin CIE coefficients
+    # packed (He+1, We+1, 12) equirect map; None = the light (directional
+    # or isotropic) is the escape radiance
+    environment: torch.Tensor | None = None
+    # (Gz, Gy, Gx, 2) f32 super-voxel (majorant, flight cap) table; None =
+    # the reference-exact global majorant
+    majorant: torch.Tensor | None = None
+    volume_filter: str = "linear"  # "linear" | "quasicubic"
 
 
 def full_reset(ctx: SpectralCtx, resolution: int, n_bins: int, streams: int = 1,
@@ -115,7 +128,11 @@ class MCMSpectralRenderer(nn.Module):
     """Progressive spectral MCM renderer bound to scene resources.
 
     The scene tables are registered buffers on ``device``; options outside
-    the ported forward path raise ``NotImplementedError``."""
+    the ported forward path (raw or partly packed tables, the ``nearest``
+    filter, a mesh) raise ``NotImplementedError``."""
+
+    # bound on _compact_tables' per-pose cache (an orbit renders many poses)
+    COMPACT_CACHE_POSES = 8
 
     def __init__(
         self,
@@ -135,13 +152,12 @@ class MCMSpectralRenderer(nn.Module):
         device,
     ):
         super().__init__()
+        if compaction and mesh is not None:
+            raise ValueError("compaction is a single-device mode")
         unsupported = {
-            "environment": environment is not None,
-            "majorant_blocks": majorant_blocks is not None,
             "mesh": mesh is not None,
-            "compaction=True": bool(compaction),
             f"pack_tables={pack_tables!r} (raw tables, streams={streams})": pack_tables is not True,
-            f"volume filter {volume.filter!r}": volume.filter != "linear",
+            f"volume filter {volume.filter!r}": volume.filter not in ("linear", "quasicubic"),
         }
         for what, bad in unsupported.items():
             if bad:
@@ -160,7 +176,11 @@ class MCMSpectralRenderer(nn.Module):
 
         bx, by, bz = bin_coefficients(np.array(self.spectrum.boundaries))
         light_spectrum = self.light.spectrum_array()
+        # host seconds of the table builds (a 512^3 volume takes seconds)
+        self.build_seconds = {}
+        t0 = time.perf_counter()
         vol = interp.pack_volume_auto(volume.density, self.device)
+        self.build_seconds["pack_volume"] = time.perf_counter() - t0
         self.vol_dims = vol.dims
         self.register_buffer("vol_table", vol.table)
         self.register_buffer("tf_table", torch.as_tensor(
@@ -170,6 +190,25 @@ class MCMSpectralRenderer(nn.Module):
         self.register_buffer("bin_xyz", torch.as_tensor(
             np.stack([bx, by, bz]).astype(np.float32), device=self.device))
         self._boundaries = np.asarray(self.spectrum.boundaries, np.float32)
+        # the majorant grid is built from the RAW density and TF
+        t0 = time.perf_counter()
+        self.register_buffer("majorant", None if majorant_blocks is None else torch.as_tensor(
+            build_majorant_grid(volume.density, self.material_tf.table, self.config.extinction,
+                                block=majorant_blocks), device=self.device))
+        self.build_seconds["majorant_grid"] = time.perf_counter() - t0
+        self.register_buffer("environment", None if environment is None else torch.as_tensor(
+            interp.pack_tex2d_corners(np.asarray(environment, np.float32)), device=self.device))
+
+        self.compaction = bool(compaction)
+        if self.compaction:
+            if self.config.blur != 0.0:
+                raise ValueError(
+                    "compaction requires blur=0 (depth of field widens the "
+                    "ray bundle beyond the per-pixel pyramid test)")
+            # raw light spectrum and env image for the closed-form miss values
+            self._light_raw = np.asarray(light_spectrum, np.float32)
+            self._env_raw = None if environment is None else np.asarray(environment, np.float32)
+            self._compact_cache = {}
 
     def ctx(self, camera, seed) -> SpectralCtx:
         """The resources of one dispatch; ``seed`` is the frame seed."""
@@ -186,17 +225,54 @@ class MCMSpectralRenderer(nn.Module):
             light_spectrum=self.light_table,
             boundaries=self._boundaries,
             bin_xyz=self.bin_xyz,
+            environment=self.environment,
+            majorant=self.majorant,
+            volume_filter=self.volume.filter,
         )
 
+    def _compact_tables(self, camera):
+        """Per-camera-pose lane tables + closed-form miss radiance, on the
+        device; LRU-cached over the last COMPACT_CACHE_POSES poses."""
+        from vpt_tpu_torch.models import mcm_spectral_compact as C
+
+        inv_mvp = camera.inverse_mvp()
+        key = inv_mvp.tobytes()
+        if key not in self._compact_cache:
+            while len(self._compact_cache) >= self.COMPACT_CACHE_POSES:
+                self._compact_cache.pop(next(iter(self._compact_cache)))
+            self._compact_cache[key] = C.device_tables(
+                inv_mvp, self.resolution, self.streams, self.spectrum, self._light_raw,
+                self.light.direction, self._env_raw, self.device)
+        else:
+            self._compact_cache[key] = self._compact_cache.pop(key)
+        return self._compact_cache[key]
+
     def reset(self, camera, seed: int = 0) -> SpectralState:
+        if self.compaction:
+            from vpt_tpu_torch.models import mcm_spectral_compact as C
+
+            t = self._compact_tables(camera)
+            return C.compact_reset(self.ctx(camera, seed), t["lane_ix"], t["lane_iy"],
+                                   t["lane_seed_iy"], self.spectrum.n_bins, self.resolution)
         return full_reset(self.ctx(camera, seed), self.resolution, self.spectrum.n_bins,
                           self.streams, device=self.vol_table.device)
 
     def render(self, state: SpectralState, camera, seed: int):
+        if self.compaction:
+            return self.render_many(state, camera, [seed])
         return render(state, self.ctx(camera, seed), self.config.steps, self.spectrum.n_bins)
 
     def render_many(self, state: SpectralState, camera, seeds):
         """K dispatches in one kernel launch (amortized host overhead)."""
         seeds = np.asarray(seeds, np.uint32).reshape(-1)
-        return render_many(state, self.ctx(camera, int(seeds[0])), seeds,
-                           self.config.steps, self.spectrum.n_bins)
+        ctx = self.ctx(camera, int(seeds[0]))
+        if self.compaction:
+            from vpt_tpu_torch.models import mcm_spectral_compact as C
+
+            t = self._compact_tables(camera)
+            C.render_compact_many(state, ctx, seeds, t["lane_ix"], t["lane_iy"],
+                                  t["lane_seed_iy"], self.config.steps, self.spectrum.n_bins,
+                                  self.resolution)
+            return state, C.compact_image(state, t["pixel_hit"], t["n_hit"], t["miss"],
+                                          ctx.bin_xyz, self.streams)
+        return render_many(state, ctx, seeds, self.config.steps, self.spectrum.n_bins)

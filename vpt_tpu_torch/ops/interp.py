@@ -79,12 +79,13 @@ def is_u8_quantized(density) -> bool:
 def pack_volume_auto(density, device) -> PackedVolume:
     """Pack a raw (D, H, W) grid into a flat table on ``device``: uint8 when
     the source is u8-quantized (exact: the sampler dequantizes to k/255),
-    float32 otherwise."""
-    packed = pack_volume_corners(np.asarray(density, np.float32))
-    flat = packed.reshape(-1, 8)
-    if is_u8_quantized(density):
-        flat = np.round(flat * 255.0).astype(np.uint8)
-    return PackedVolume(torch.as_tensor(flat, device=device), packed.shape[:3])
+    float32 otherwise. A u8 source is quantized before packing, so a 512^3
+    volume packs through a 1 GB u8 array instead of a 4 GB float one."""
+    d = np.asarray(density, np.float32)
+    if is_u8_quantized(d):
+        d = np.round(d * 255.0).astype(np.uint8)
+    packed = pack_volume_corners(d)
+    return PackedVolume(torch.as_tensor(packed.reshape(-1, 8), device=device), packed.shape[:3])
 
 
 def pack_tex2d_corners(tex) -> np.ndarray:
@@ -178,13 +179,20 @@ def dequantize_rows(rows: torch.Tensor) -> torch.Tensor:
     return rows.to(torch.float32)
 
 
-def sample_volume_packed(table: torch.Tensor, dims, u, v, w):
-    """Single-row trilinear sample of a flat (rows, 8) corner table with
-    padded dims (D+1, H+1, W+1). (u, v, w) index (W, H, D)."""
+def sample_volume_packed(table: torch.Tensor, dims, u, v, w, mode: str = "linear"):
+    """Single-row trilinear (or quasi-cubic) sample of a flat (rows, 8)
+    corner table with padded dims (D+1, H+1, W+1). (u, v, w) index (W, H, D).
+    ``mode="quasicubic"`` smoothstep-warps the weights, f*f*(3 - 2f)."""
     Dp, Hp, Wp = dims
     bx, fx = _base_and_frac(u, Wp - 1)
     by, fy = _base_and_frac(v, Hp - 1)
     bz, fz = _base_and_frac(w, Dp - 1)
+    if mode == "quasicubic":
+        fx = fx * fx * (3.0 - 2.0 * fx)
+        fy = fy * fy * (3.0 - 2.0 * fy)
+        fz = fz * fz * (3.0 - 2.0 * fz)
+    elif mode != "linear":
+        raise ValueError(f"packed volumes support linear/quasicubic, not {mode!r}")
     row = ((bz * Hp + by) * Wp + bx).to(torch.int64)
     rows = dequantize_rows(table[row])
     c = [rows[..., k] for k in range(8)]
@@ -195,6 +203,23 @@ def sample_volume_packed(table: torch.Tensor, dims, u, v, w):
     c0 = c00 + (c01 - c00) * fy
     c1 = c10 + (c11 - c10) * fy
     return c0 + (c1 - c0) * fz
+
+
+def sample_tex2d(packed: torch.Tensor, u, v):
+    """Bilinear sample of a pack_tex2d_corners table ((Hp, Wp, 4C) tensor)
+    at normalized (u, v) -> (..., C); u indexes W, v indexes H."""
+    Hp, Wp, C4 = packed.shape
+    if C4 % 4:
+        raise ValueError(f"packed 2D table width {C4} is not 4*C")
+    C = C4 // 4
+    bx, fx = _base_and_frac(u, Wp - 1)
+    by, fy = _base_and_frac(v, Hp - 1)
+    rows = packed.reshape(-1, C4)[(by * Wp + bx).to(torch.int64)]
+    fxc = fx[..., None]
+    fyc = fy[..., None]
+    c0 = rows[..., 0:C] + (rows[..., C:2 * C] - rows[..., 0:C]) * fxc
+    c1 = rows[..., 2 * C:3 * C] + (rows[..., 3 * C:4 * C] - rows[..., 2 * C:3 * C]) * fxc
+    return c0 + (c1 - c0) * fyc
 
 
 def sample_tex2d_fused1d(packed: torch.Tensor, u, v, C: int = 4, return_extras: bool = False):

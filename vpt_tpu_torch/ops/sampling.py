@@ -90,8 +90,10 @@ def draw_sphere(state, mask):
 
 
 def draw_exponential(state, mask, rate):
-    """Free-flight distance: -ln(u)/rate."""
+    """Free-flight distance: -ln(u)/rate; ``rate`` a float or a lane tensor."""
     state, u = draw(state, mask)
+    if torch.is_tensor(rate):
+        return state, -torch.log(u) / rate
     return state, div_scalar(-torch.log(u), rate)
 
 

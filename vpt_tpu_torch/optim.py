@@ -16,7 +16,8 @@ is read to the host once per iteration (the kernels take it as a scalar).
 
 Not ported yet (each raises ``NotImplementedError``): the autodiff
 surrogate (``method="autodiff"``), the inverse checkpoints
-(``checkpoint=``), and the EAM ``fit_density`` loop.
+(``checkpoint=``), the EAM ``fit_density`` loop, and renderers in the
+majorant, environment, quasicubic or compaction modes.
 """
 
 from __future__ import annotations
@@ -29,7 +30,8 @@ import numpy as np
 import torch
 
 from vpt_tpu_torch.kernels import mcm_spectral as K
-from vpt_tpu_torch.kernels.spectral_backward import clone_state, prb_loss_and_grads
+from vpt_tpu_torch.kernels.spectral_backward import (_check_packed_ctx, clone_state,
+                                                      prb_loss_and_grads)
 from vpt_tpu_torch.models.mcm_spectral import radiance_to_rgb
 from vpt_tpu_torch.ops import interp
 from vpt_tpu_torch.ops.sampling import div_scalar
@@ -215,8 +217,12 @@ def fit_spectral(target_image, renderer, camera, init_params: dict,
         raise ValueError(f"unknown method {method!r} (prb | autodiff)")
     if checkpoint is not None:
         raise NotImplementedError("fit_spectral checkpoints are not ported to the torch package")
+    if renderer.compaction:
+        raise NotImplementedError("fit_spectral on a compacted renderer (the backward over "
+                                  "a lane table) is not ported to the torch package")
     device = renderer.device
     base_ctx = renderer.ctx(camera, seed)
+    _check_packed_ctx(base_ctx)
     state0 = renderer.reset(camera, seed)
     steps = renderer.config.steps
     n_bins = renderer.spectrum.n_bins
