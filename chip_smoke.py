@@ -4,26 +4,36 @@
 
 Phases (each raises on failure, so any failure exits non-zero):
   1. the card's name and power limit (nvidia-smi); no CUDA -> exit 1
-  2. build the kernels of vpt_tpu_torch/csrc with nvcc (sm_90a)
-  3. sample_volume_packed vs its plain version: all 256 u8 codes exact
-  4. mcm_spectral_reset vs its plain version at 512^2 x 4 streams
+  2. build the kernels of vpt_tpu_torch/csrc with nvcc (sm_90a), and the
+     parent design's step kernels (csrc/baseline) beside them; print the
+     ptxas registers and spills of every K1 and K4 instantiation of both
+  3. sample_volume_packed vs its plain version: all 256 u8 codes exact;
+     timed at 1M lookups against F.grid_sample on the float volume
+  4. mcm_spectral_reset vs its plain version at 512^2 x 4 streams, and
+     equal to the parent design's K2 bit for bit; timed parent, current,
+     current, parent
   5. mcm_spectral_step vs its plain version at 512^2 x 4 streams,
      2 dispatches (the oracle contract), and bit-identical reruns; the
-     same at 64^2 x 2 streams with 24 bins (the kernel's >16-bin build)
+     same at 64^2 x 2 streams with 24 bins (the kernel's >16-bin build);
+     equal to the parent design's K1 in every field; one dispatch timed
+     parent, current, current, parent
   6. the main path: RenderSession("mcm-spectral", ...) on the bench scene
      (512^2, 4 streams, 128^3 u8 sphere_in_cube, 12 bins, 8 steps),
      64 dispatches, launch counts and outputs checked; then the same
-     dispatches through the plain step for comparison
+     dispatches through the plain step and through the parent design's K1
+     for comparison
   7. prb_tape_forward (K4) at 512^2 x 4 streams, 2 dispatches, every wrt
      field, on the u8 table and on an f32 table: its state equals K1's
-     bit for bit, its tape equals the plain tape, two runs are identical
+     bit for bit, its tape equals the plain tape and the parent design's
+     tape, two runs are identical; timed parent, current, current, parent
   8. prb_reverse (K5) on that tape, window mode, stride 1 / stride 4 /
      importance 4: within 1e-4 relative L2 of its plain version, two runs
      within 1e-5, gradients finite and nonzero
   9. the training path: fit_spectral(method="prb") on the bench scene at
      full width, 3 iterations each at stride 1 / stride 4 / importance 4,
      launch counts, losses and params checked; then fwd+bwd windows timed
-     as bench.py times them, against one window of the plain versions
+     as bench.py times them, against one window of the plain versions; the
+     window's K4 sweep also through the parent design's K4
  10. the gather tool (K6 gather_scalar, K7 gather_lanewise): exact
      against its plain versions on ragged shapes and at every size of the
      TPU tools at L and 16 L lookups, K7's plan (shared memory for
@@ -47,12 +57,17 @@ Phases (each raises on failure, so any failure exits non-zero):
      --majorant-blocks 8 --compaction --envmap <seeded .npy> -o <tmp>.npy`
      exits 0, writes the image, prints the metrics JSON
 The line before the last is a JSON object with each kernel's launches,
-error and times; the last line is {"ok": true, "device": {...}}.
-Imports nothing of jax.
+error and times, its bound (the larger of the bytes it must move over the
+HBM rate and the FP32 operations this run's data needs over the FP32
+peak, H100 SXM data-sheet rates), which of the two binds, the share of
+the bound reached, and the one PyTorch call that computes the same
+function where there is one; the last line is {"ok": true, "device":
+{...}}. Imports nothing of jax or of the JAX package vpt_tpu.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -60,6 +75,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -73,6 +89,21 @@ CHUNK, FIT_ITERS, WINDOWS = 4, 3, 8
 TAPE_SHARE_MIN = 0.999  # least share of lane-steps where K4's tape equals plain, per field
 SPARSE, SPARSE_BLOCKS, SPARSE_BATCH, SPARSE_ROUNDS = 512, 16, 16, 3
 ENV_SHAPE, ENV_FRAMES = (256, 512, 3), 64
+# H100 SXM peaks (NVIDIA's data sheet, SXM part, dense rates
+# table): HBM3 bytes/s and FP32 operations/s outside the tensor cores
+HBM_BYTES_PER_S, FP32_OPS_PER_S = 3.35e12, 67e12
+# FP32 operations per event of the Woodcock step, counted from the
+# reference's arithmetic (a lower bound: the integer hash chain and the
+# HG scatter, whose count no state records, are left out). Every
+# lane-step: the flight (2 uniforms, log, divide, 3 x mul-add), the
+# out-of-bounds test (6), the wheel (uniform, 4, 2 compares). A lookup
+# inside the volume: 3 axes (4 each), 8 u8 dequantizations, 7 trilinear
+# lerps (3 each), the TF row's density axis (4) and 9 lerps, g (2). A
+# respawn: the deposit (3 per bin), the disk (6), 4 uniforms, the screen
+# point (8), two homogeneous transforms (31 each), the normalization
+# (13), the slab test (24), the position (6), the wavelength (5 + a
+# compare per bin boundary), its TF column (6).
+OPS_STEP, OPS_LOOKUP, OPS_RESPAWN = 24, 74, 135
 
 
 def log(msg):
@@ -91,6 +122,104 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def bound(nbytes, ops, ms=None):
+    """The least time the card could take for ``nbytes`` moved and ``ops``
+    FP32 operations, which of the two binds, and the share reached by a
+    kernel time ``ms``."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / FP32_OPS_PER_S * 1e3
+    out = dict(bound_ms=max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops else "operations",
+               bound_bytes=int(nbytes), bound_ops=int(ops))
+    if ms:
+        out["bound_share"] = out["bound_ms"] / ms
+    return out
+
+
+def state_bytes(n_lanes, n_bins):
+    """Bytes of a photon state read once and written once (10 lane words
+    and the radiance bins; transmittance is never touched by a step)."""
+    return 2 * n_lanes * (10 + n_bins) * 4
+
+
+def table_bytes(ctx, lane_steps):
+    """Bytes of the scene tables a step run reads: each table once, but the
+    volume and TF tables no more than one row per lane-step (a lane-step
+    looks up at most one row of each; most of a sparse volume is never
+    read)."""
+    vol, tf = ctx.density.table, ctx.material_tf
+    out = min(vol.numel(), lane_steps * vol.shape[-1]) * vol.element_size()
+    out += min(tf.numel(), lane_steps * tf.shape[-1]) * 4
+    for t in (ctx.majorant, ctx.environment):
+        if t is not None:
+            out += t.numel() * 4
+    return out
+
+
+def step_ops(lane_steps, respawns, n_bins, lookup_steps):
+    """FP32 operations a step run needs: every lane-step, a respawn per
+    completed path, and a material lookup on ``lookup_steps`` lane-steps."""
+    return (lane_steps * OPS_STEP + respawns * (OPS_RESPAWN + 4 * n_bins)
+            + lookup_steps * OPS_LOOKUP)
+
+
+def step_bound(ctx, state, seeds, n_bins, ms, lanes=None, taped=0):
+    """``bound`` of K1 (K4 with ``taped`` tape bytes) over ``seeds`` from
+    ``state``: its state and tables once (and the tape), and the
+    operations of this run's lane-steps. K4 looks up every lane-step; K1
+    at least every lane-step that did not leave the volume, lane-steps
+    minus respawns (in majorant mode a capped flight skips its lookup, so
+    none are counted there)."""
+    from vpt_tpu_torch.kernels import mcm_spectral as K
+
+    st = clone_state(state)
+    K.step(st, ctx, seeds, STEPS, n_bins, lanes)
+    torch.cuda.synchronize()
+    n = state.px.numel()
+    lane_steps = n * STEPS * len(seeds)
+    respawns = int(st.samples.sum()) - int(state.samples.sum())
+    if taped:
+        lookup_steps = lane_steps
+    else:
+        lookup_steps = 0 if ctx.majorant is not None else max(lane_steps - respawns, 0)
+    nbytes = (state_bytes(n, n_bins) + table_bytes(ctx, lane_steps)
+              + 3 * n * 4 * (lanes is not None) + taped)
+    out = bound(nbytes, step_ops(lane_steps, respawns, n_bins, lookup_steps), ms)
+    out["respawns"] = respawns
+    return out
+
+
+def kernel_line(entry, bnd, library_ms=None):
+    """A kernels-line entry with its bound and library-call time."""
+    entry.update(bnd)
+    entry["library_ms"] = library_ms
+    return entry
+
+
+def parent_lib():
+    """The parent design's step kernels (csrc/baseline), built and loaded."""
+    from vpt_tpu_torch.kernels import _build
+
+    return _build.load(_build.BASELINE_DIR)
+
+
+def parent_kernels():
+    """Route the wrappers to the parent design's libraries while inside."""
+    from vpt_tpu_torch.kernels import _build
+
+    return _build.routed(parent_lib())
+
+
+def parent_vs_current(fn, reps):
+    """``cuda_ms(fn, reps)`` through the parent design's kernels and the
+    current ones, in the order parent, current, current, parent; returns
+    (parent times, current times)."""
+    times = {"parent": [], "current": []}
+    for which in ("parent", "current", "current", "parent"):
+        with parent_kernels() if which == "parent" else contextlib.nullcontext():
+            times[which].append(cuda_ms(fn, reps))
+    return times["parent"], times["current"]
 
 
 def bench_scene_args():
@@ -143,12 +272,17 @@ def check_mode(ctx, state0, seeds, n_bins, label, lanes=None):
     from vpt_tpu_torch.kernels import mcm_spectral as K
 
     sk, sk2, sp = clone_state(state0), clone_state(state0), clone_state(state0)
+    spar = clone_state(state0)
     K.step(sk, ctx, seeds, STEPS, n_bins, lanes)
     K.step(sk2, ctx, seeds, STEPS, n_bins, lanes)
     K.step_plain(sp, ctx, seeds, STEPS, n_bins, lanes)
+    with parent_kernels():
+        K.step(spar, ctx, seeds, STEPS, n_bins, lanes)
     torch.cuda.synchronize()
     if first_difference(sk, sk2) is not None:
         raise AssertionError(f"K1 {label}: two runs differ in {first_difference(sk, sk2)}")
+    if first_difference(sk, spar) is not None:
+        raise AssertionError(f"K1 {label} != the parent design's K1: {first_difference(sk, spar)}")
     diff = first_difference(sk, sp)
     err = float((sk.radiance - sp.radiance).abs().nan_to_num(0.0).max())
     shape = "x".join(map(str, sk.px.shape))
@@ -156,7 +290,7 @@ def check_mode(ctx, state0, seeds, n_bins, label, lanes=None):
         + ("every state field equal bit for bit" if diff is None else
            f"first difference in {diff[0]} on {diff[1]} lanes (first flat lane {diff[2]}), "
            f"radiance max abs {err:.3g}")
-        + f"; samples {int(sk.samples.sum())}")
+        + f"; equal to the parent design's K1; samples {int(sk.samples.sum())}")
     if diff is not None:
         raise AssertionError(f"K1 {label} != plain: {diff}")
     if int(sk.samples.sum()) <= 0:
@@ -171,11 +305,17 @@ def mode_entry(name, replaces, ctx, state0, n_bins, lanes=None, err=0.0):
 
     sk, sp = clone_state(state0), clone_state(state0)
     one = [2654435761]
-    ms = cuda_ms(lambda: K.step(sk, ctx, one, STEPS, n_bins, lanes), 10)
+    parent, current = parent_vs_current(lambda: K.step(sk, ctx, one, STEPS, n_bins, lanes), 10)
+    ms = float(np.mean(current))
     plain_ms = cuda_ms(lambda: K.step_plain(sp, ctx, one, STEPS, n_bins, lanes), 2)
-    log(f"# {name}: one dispatch {ms:.4f} ms kernel vs {plain_ms:.4f} ms plain")
-    return dict(name=name, route="cuda", source=SOURCE, replaces=replaces, max_abs_err=err,
-                ms=ms, plain_ms=plain_ms)
+    b = step_bound(ctx, state0, one, n_bins, ms, lanes)
+    log(f"# {name}: one dispatch {ms:.4f} ms kernel ({current[0]:.4f}, {current[1]:.4f}) vs "
+        f"parent design {parent[0]:.4f}, {parent[1]:.4f} ms, plain {plain_ms:.4f} ms; bound "
+        f"{b['bound_ms']:.4f} ms by {b['bound_by']} ({b['bound_bytes']} B, {b['bound_ops']} "
+        f"FP32 ops), share {b['bound_share']:.3f}")
+    return kernel_line(dict(name=name, route="cuda", source=SOURCE, replaces=replaces,
+                            max_abs_err=err, ms=ms, plain_ms=plain_ms, current_ms=current,
+                            parent_ms=parent), b)
 
 
 def require_launches(launches, keys, what):
@@ -397,9 +537,10 @@ def phase_compaction(dev):
     k2_plain_ms = cuda_ms(lambda: K.reset_plain(ctx, RES, BINS, STREAMS, dev, lanes=lanes), 5)
     log(f"# K2 over the lane table: every field equal to plain; {k2_ms:.4f} ms kernel vs "
         f"{k2_plain_ms:.4f} ms plain")
-    k2 = dict(name="mcm_spectral_reset[lane_table]", route="cuda", source=SOURCE,
-              replaces="vpt_tpu/models/mcm_spectral_compact.py:328", max_abs_err=0.0,
-              ms=k2_ms, plain_ms=k2_plain_ms)
+    k2 = kernel_line(dict(name="mcm_spectral_reset[lane_table]", route="cuda", source=SOURCE,
+                          replaces="vpt_tpu/models/mcm_spectral_compact.py:328", max_abs_err=0.0,
+                          ms=k2_ms, plain_ms=k2_plain_ms), reset_bound(got.px.numel(), k2_ms,
+                                                                       lanes=True))
 
     # K1 over the lane table, then K8 on its state
     seeds2 = [2654435761 * k % 2**32 for k in (1, 2)]
@@ -418,9 +559,14 @@ def phase_compaction(dev):
                                                            t["miss"], n_hit, STREAMS), 10)
     log(f"# K8 compact_image: equal to plain bit for bit, reruns identical; {k8_ms:.4f} ms "
         f"kernel vs {k8_plain_ms:.4f} ms plain")
-    k8 = dict(name="compact_image", route="cuda", source=SOURCE,
-              replaces="vpt_tpu/models/mcm_spectral_compact.py:380", max_abs_err=0.0,
-              ms=k8_ms, plain_ms=k8_plain_ms)
+    # K8 reads the S stream lanes of each hit pixel and the closed form of
+    # every pixel, writes every pixel, per bin; no arithmetic to speak of
+    n_pix = RES * RES
+    k8_bytes = BINS * (STREAMS * n_hit + 2 * n_pix) * 4 + n_pix * 4
+    k8 = kernel_line(dict(name="compact_image", route="cuda", source=SOURCE,
+                          replaces="vpt_tpu/models/mcm_spectral_compact.py:380", max_abs_err=0.0,
+                          ms=k8_ms, plain_ms=k8_plain_ms),
+                     bound(k8_bytes, BINS * STREAMS * n_hit, k8_ms))
 
     # two runs give equal images; hit pixels match the full kernel
     full = MCMSpectralRenderer(*bench_scene_args(), resolution=RES, streams=STREAMS,
@@ -543,13 +689,32 @@ def phase_k3(dev):
     uu, vv, ww = (torch.rand(n, device=dev) for _ in range(3))
     ms = cuda_ms(lambda: K.sample_volume_packed(vol.table, vol.dims, uu, vv, ww), 50)
     plain_ms = cuda_ms(lambda: K.sample_volume_packed_plain(vol.table, vol.dims, uu, vv, ww), 10)
-    err = float((K.sample_volume_packed(vol.table, vol.dims, uu, vv, ww)
-                 - K.sample_volume_packed_plain(vol.table, vol.dims, uu, vv, ww)).abs().max())
+    got = K.sample_volume_packed(vol.table, vol.dims, uu, vv, ww)
+    err = float((got - K.sample_volume_packed_plain(vol.table, vol.dims, uu, vv, ww)).abs().max())
+    # the library call: trilinear grid_sample on the float volume, texel
+    # centres at half a texel, edge-clamped; its grid built outside the timing
+    dense = torch.as_tensor(bench_scene_args()[0].density, device=dev)[None, None]
+    grid = (torch.stack([uu, vv, ww], -1) * 2.0 - 1.0).reshape(1, 1, 1, n, 3)
+
+    def library():
+        return torch.nn.functional.grid_sample(dense, grid, mode="bilinear",
+                                               padding_mode="border", align_corners=False)
+
+    lib_err = float((library().reshape(-1) - got).abs().max())
+    if lib_err > 1e-5:
+        raise AssertionError(f"grid_sample differs from K3 by {lib_err}: not the same function")
+    library_ms = cuda_ms(library, 50)
+    # 3 coordinates in and one value out per lookup, the table once; the
+    # lookup's arithmetic: 3 axes (4 each), 8 dequantizations, 7 lerps
+    b = bound(n * 16 + vol.table.numel(), n * 41, ms)
     log(f"# K3 sample_volume_packed: 256 codes exact, u8 == f32 == plain; "
-        f"{ms:.4f} ms kernel vs {plain_ms:.4f} ms plain per {n} lookups")
-    return dict(name="sample_volume_packed", route="cuda", source=SOURCE,
-                replaces="vpt_tpu/ops/interp.py:371", max_abs_err=err, ms=ms,
-                plain_ms=plain_ms)
+        f"{ms:.4f} ms kernel vs {plain_ms:.4f} ms plain vs {library_ms:.4f} ms "
+        f"F.grid_sample (max abs {lib_err:.3g} from K3) per {n} lookups; bound "
+        f"{b['bound_ms']:.4f} ms by {b['bound_by']}, share {b['bound_share']:.3f}")
+    return kernel_line(dict(name="sample_volume_packed", route="cuda", source=SOURCE,
+                            replaces="vpt_tpu/ops/interp.py:371", max_abs_err=err, ms=ms,
+                            plain_ms=plain_ms, library_call="torch.nn.functional.grid_sample",
+                            library_max_abs_err=lib_err), b, library_ms)
 
 
 def phase_k2(renderer, camera, dev):
@@ -558,7 +723,13 @@ def phase_k2(renderer, camera, dev):
     ctx = renderer.ctx(camera, 1)
     got = K.reset(ctx, RES, BINS, STREAMS, dev)
     plain = K.reset_plain(ctx, RES, BINS, STREAMS, dev)
+    with parent_kernels():
+        parent = K.reset(ctx, RES, BINS, STREAMS, dev)
     torch.cuda.synchronize()
+    for k in got:
+        if not torch.equal(got[k].view(-1).view(torch.int32), parent[k].view(-1).view(torch.int32)):
+            raise AssertionError(f"K2 {k} != the parent design's K2 "
+                                 f"(on {int((got[k] != parent[k]).sum())} lanes)")
     for k in ("bin", "samples", "bounces", "radiance", "transmittance"):
         if not torch.equal(got[k], plain[k]):
             raise AssertionError(f"K2 {k} != plain")
@@ -566,13 +737,26 @@ def phase_k2(renderer, camera, dev):
     for k in ("px", "py", "pz", "dx", "dy", "dz", "wavelength"):
         torch.testing.assert_close(got[k], plain[k], rtol=1e-5, atol=1e-6)
         err = max(err, float((got[k] - plain[k]).abs().max()))
-    ms = cuda_ms(lambda: K.reset(ctx, RES, BINS, STREAMS, dev), 20)
+    parent_ms, current = parent_vs_current(lambda: K.reset(ctx, RES, BINS, STREAMS, dev), 20)
+    ms = float(np.mean(current))
     plain_ms = cuda_ms(lambda: K.reset_plain(ctx, RES, BINS, STREAMS, dev), 5)
-    log(f"# K2 mcm_spectral_reset: matches plain (max abs {err:.3g}); "
-        f"{ms:.4f} ms kernel vs {plain_ms:.4f} ms plain")
-    return dict(name="mcm_spectral_reset", route="cuda", source=SOURCE,
-                replaces="vpt_tpu/models/mcm_spectral.py:181", max_abs_err=err,
-                ms=ms, plain_ms=plain_ms)
+    b = reset_bound(RES * RES * STREAMS, ms)
+    log(f"# K2 mcm_spectral_reset: matches plain (max abs {err:.3g}), equal to the parent "
+        f"design's K2 in every field; {ms:.4f} ms kernel ({current[0]:.4f}, {current[1]:.4f}) "
+        f"vs parent design {parent_ms[0]:.4f}, {parent_ms[1]:.4f} ms "
+        f"({np.mean(parent_ms) / ms:.3f}x), plain {plain_ms:.4f} ms; bound "
+        f"{b['bound_ms']:.4f} ms by {b['bound_by']}, share {b['bound_share']:.3f}")
+    return kernel_line(dict(name="mcm_spectral_reset", route="cuda", source=SOURCE,
+                            replaces="vpt_tpu/models/mcm_spectral.py:181", max_abs_err=err,
+                            ms=ms, plain_ms=plain_ms, current_ms=current, parent_ms=parent_ms),
+                       b)
+
+
+def reset_bound(n_lanes, ms, lanes=False):
+    """K2 writes a fresh state (10 lane words, radiance and transmittance
+    per bin) and reads a lane table when given; one respawn per lane."""
+    nbytes = n_lanes * (10 + 2 * BINS) * 4 + 3 * n_lanes * 4 * lanes
+    return bound(nbytes, n_lanes * (OPS_RESPAWN + BINS), ms)
 
 
 def check_k1(renderer, camera, n_bins):
@@ -586,18 +770,28 @@ def check_k1(renderer, camera, n_bins):
     state0 = renderer.reset(camera, 7)
     seeds = [2654435761 * k % 2**32 for k in (1, 2)]
     sk, sk2, sp = clone_state(state0), clone_state(state0), clone_state(state0)
+    spar = clone_state(state0)
     K.step(sk, ctx, seeds, STEPS, n_bins)
     K.step(sk2, ctx, seeds, STEPS, n_bins)
     K.step_plain(sp, ctx, seeds, STEPS, n_bins)
+    with parent_kernels():
+        K.step(spar, ctx, seeds, STEPS, n_bins)
     torch.cuda.synchronize()
     for a, b in zip(sk.tensors(), sk2.tensors()):
         if not torch.equal(a, b):
             raise AssertionError("K1 is not bit-identical across two runs")
+    if first_difference(sk, spar) is not None:
+        raise AssertionError(f"K1 ({n_bins} bins) != the parent design's K1: "
+                             f"{first_difference(sk, spar)}")
+    diff = first_difference(sk, sp)
     c = image_contract(radiance_to_rgb(sk.radiance, ctx.bin_xyz),
                        radiance_to_rgb(sp.radiance, ctx.bin_xyz), sk.samples, sp.samples)
     shape = "x".join(map(str, sk.px.shape))
     log(f"# K1 mcm_spectral_step vs plain, {shape} lanes, {n_bins} bins, 2 dispatches: "
-        f"{json.dumps(c)}")
+        f"{json.dumps(c)}; every state field equal to plain bit for bit: {diff is None}; "
+        f"equal to the parent design's K1 in every field")
+    if diff is not None:
+        raise AssertionError(f"K1 ({n_bins} bins) != plain: {diff}")
     if not c["ok"]:
         raise AssertionError(f"K1 fails the oracle contract against plain: {c}")
     if int(sk.samples.sum()) <= 0:
@@ -617,16 +811,23 @@ def phase_k1(renderer, camera, dev):
 
     ctx, sk, sp, c = check_k1(renderer, camera, BINS)
     one = [2654435761]
-    ms = cuda_ms(lambda: K.step(sk, ctx, one, STEPS, BINS), 20)
+    s0 = clone_state(sk)
+    parent, current = parent_vs_current(lambda: K.step(sk, ctx, one, STEPS, BINS), 20)
+    ms = float(np.mean(current))
     plain_ms = cuda_ms(lambda: K.step_plain(sp, ctx, one, STEPS, BINS), 3)
-    log(f"# K1 one dispatch ({STEPS} steps, {RES}^2 x {STREAMS}): "
-        f"{ms:.4f} ms kernel vs {plain_ms:.4f} ms plain")
-    return dict(name="mcm_spectral_step", route="cuda", source=SOURCE,
-                replaces="vpt_tpu/models/mcm_spectral.py:212",
-                pallas_counterpart="tools/pallas_step.py:125",
-                max_abs_err=c["max_abs"], ms=ms, plain_ms=plain_ms,
-                frac_channels_within_rel_1e3=c["frac_channels"],
-                frac_samples_equal=c["frac_samples_equal"])
+    b = step_bound(ctx, s0, one, BINS, ms)
+    log(f"# K1 one dispatch ({STEPS} steps, {RES}^2 x {STREAMS}): {ms:.4f} ms kernel "
+        f"({current[0]:.4f}, {current[1]:.4f}) vs parent design {parent[0]:.4f}, "
+        f"{parent[1]:.4f} ms ({np.mean(parent) / ms:.3f}x), plain {plain_ms:.4f} ms; bound "
+        f"{b['bound_ms']:.4f} ms by {b['bound_by']} ({b['bound_bytes']} B, {b['bound_ops']} "
+        f"FP32 ops, {b['respawns']} respawns), share {b['bound_share']:.3f}")
+    return kernel_line(dict(name="mcm_spectral_step", route="cuda", source=SOURCE,
+                            replaces="vpt_tpu/models/mcm_spectral.py:212",
+                            pallas_counterpart="tools/pallas_step.py:125",
+                            max_abs_err=c["max_abs"], ms=ms, plain_ms=plain_ms,
+                            current_ms=current, parent_ms=parent,
+                            frac_channels_within_rel_1e3=c["frac_channels"],
+                            frac_samples_equal=c["frac_samples_equal"]), b)
 
 
 def phase_main(dev):
@@ -661,6 +862,36 @@ def phase_main(dev):
     log(f"# main path (kernels): {FRAMES} dispatches in {dt:.4f} s; "
         f"{paths / dt / 1e6:.3f} Mpaths/s; {lane_steps / dt / 1e6:.1f} M lane-steps/s; "
         f"spp {session.metrics()['spp_mean']:.2f}; launches {launches}")
+
+    # the main path's bound: the state and tables once, the operations of
+    # the paths these 64 dispatches completed
+    kern.update(bound(state_bytes(before.px.numel(), BINS) + table_bytes(session.renderer.ctx(
+        session.camera, seeds[0]), lane_steps), step_ops(lane_steps, paths, BINS,
+                                                         max(lane_steps - paths, 0)), dt * 1e3))
+    log(f"# main path bound {kern['bound_ms']:.4f} ms by {kern['bound_by']} "
+        f"({kern['bound_bytes']} B, {kern['bound_ops']} FP32 ops), share of the run's host time "
+        f"{kern['bound_share']:.4f}")
+
+    # the same render_many through the parent design's K1, then the current
+    # one again: equal states, and the two rates in one call
+    rates = {}
+    for which in ("parent", "current"):
+        st = clone_state(before)
+        with parent_kernels() if which == "parent" else contextlib.nullcontext():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            st, _ = session.renderer.render_many(st, session.camera, seeds)
+            torch.cuda.synchronize()
+            rates[which] = time.perf_counter() - t0
+        if first_difference(st, session.state) is not None:
+            raise AssertionError(f"render_many through the {which} K1 != the session's state: "
+                                 f"{first_difference(st, session.state)}")
+    kern["parent_render_many_s"] = rates["parent"]
+    kern["current_render_many_s"] = rates["current"]
+    log(f"# the same {FRAMES} dispatches by render_many: parent design {rates['parent']:.4f} s "
+        f"({lane_steps / rates['parent'] / 1e6:.1f} M lane-steps/s), current "
+        f"{rates['current']:.4f} s ({lane_steps / rates['current'] / 1e6:.1f} M lane-steps/s), "
+        f"{rates['parent'] / rates['current']:.3f}x; both end in the session's state bit for bit")
 
     ctx = session.renderer.ctx(session.camera, seeds[0])
     t0 = time.perf_counter()
@@ -714,12 +945,17 @@ def phase_k4(renderer, camera, dev):
         _, tk2 = TB.tape_forward(s0, ctx, seeds, STEPS, BINS, TB.ALL_WRT)
         sp = clone_state(s0)
         tp = TB.tape_forward_plain(sp, ctx, seeds, STEPS, BINS, TB.ALL_WRT)
+        with parent_kernels():
+            spar, tpar = TB.tape_forward(s0, ctx, seeds, STEPS, BINS, TB.ALL_WRT)
         torch.cuda.synchronize()
         for name, a, b in zip(s0.field_names(), sk.tensors(), s1.tensors()):
             if not torch.equal(a, b):
                 raise AssertionError(f"K4 ({kind}) final state != K1's in {name}")
         if not torch.equal(tk.view(torch.int32), tk2.view(torch.int32)):
             raise AssertionError(f"K4 ({kind}) is not bit-identical across two runs")
+        if (first_difference(sk, spar) is not None
+                or not torch.equal(tk.view(torch.int32), tpar.view(torch.int32))):
+            raise AssertionError(f"K4 ({kind}) != the parent design's K4 (state or tape)")
         shares = {}
         for i, f in enumerate(fields):
             shares[f] = float((tk[:, :, i].view(torch.int32) == tp[:, :, i].view(torch.int32))
@@ -731,17 +967,25 @@ def phase_k4(renderer, camera, dev):
         out["min_field_share_equal"] = min(out["min_field_share_equal"], shares[worst])
         out[f"share_equal_{kind}"] = shares
         log(f"# K4 prb_tape_forward ({kind} table), 2 dispatches x {STEPS} steps, {len(fields)} "
-            f"fields: state == K1 bitwise, reruns identical; tape == plain on "
-            f"{shares[worst]:.6f} of lane-steps in the worst field ({worst})")
+            f"fields: state == K1 bitwise, reruns identical, state and tape == the parent "
+            f"design's bitwise; tape == plain on {shares[worst]:.6f} of lane-steps in the worst "
+            f"field ({worst})")
         if shares[worst] < TAPE_SHARE_MIN:
             raise AssertionError(f"K4 ({kind}) tape field {worst} equals plain on {shares[worst]}")
         if kind == "u8":
             keep = (ctx, s0, sk, tk)
-    ctx, s0, _, _ = keep
-    out["ms"] = cuda_ms(lambda: TB.tape_forward(s0, ctx, seeds, STEPS, BINS, TB.ALL_WRT), 5)
+    ctx, s0, _, tk = keep
+    parent, current = parent_vs_current(
+        lambda: TB.tape_forward(s0, ctx, seeds, STEPS, BINS, TB.ALL_WRT), 5)
+    out.update(ms=float(np.mean(current)), current_ms=current, parent_ms=parent)
     out["plain_ms"] = cuda_ms(lambda: TB.tape_forward_plain(clone_state(s0), ctx, seeds, STEPS,
                                                             BINS, TB.ALL_WRT), 1)
-    log(f"# K4 2 dispatches, all fields: {out['ms']:.4f} ms kernel vs {out['plain_ms']:.4f} ms plain")
+    kernel_line(out, step_bound(ctx, s0, seeds, BINS, out["ms"], taped=tk.numel() * 4))
+    log(f"# K4 2 dispatches, all fields: {out['ms']:.4f} ms kernel ({current[0]:.4f}, "
+        f"{current[1]:.4f}) vs parent design {parent[0]:.4f}, {parent[1]:.4f} ms "
+        f"({np.mean(parent) / out['ms']:.3f}x), plain {out['plain_ms']:.4f} ms; bound "
+        f"{out['bound_ms']:.4f} ms by {out['bound_by']} ({out['bound_bytes']} B, "
+        f"{out['bound_ops']} FP32 ops), share {out['bound_share']:.3f}")
     return out, keep
 
 
@@ -791,14 +1035,27 @@ def phase_k5(keep, dev):
             out["max_rel_l2"] = max(out["max_rel_l2"], rel)
         rec["ms"] = cuda_ms(lambda: run(stride, mode, False), 5)
         rec["plain_ms"] = cuda_ms(lambda: run(stride, mode, True), 1)
+        # the tape fields it must read (the carry's four on every step, the
+        # scatter's on every stride-th step, all of them for importance), the
+        # deposit cotangents, the carry in and out, the adjoints written once;
+        # per lane-step the carry and the extinction score (8 FP32 ops; the
+        # scatters' arithmetic is left out)
+        n_steps, n_fields, n = tape.shape[0] * tape.shape[1], tape.shape[2], tape.shape[3]
+        read_fields = (n_fields if mode == "importance" or stride == 1
+                       else 4 + (n_fields - 4) / stride)
+        adj_bytes = sum(v.numel() * 4 for v in p.values())
+        rec.update(bound(n_steps * n * read_fields * 4 + g_rs.numel() * 4 + 4 * n * 4 + adj_bytes,
+                         n_steps * n * 8, rec["ms"]))
         out["modes"][f"{mode}{stride}"] = rec
         log(f"# K5 prb_reverse {mode} {stride}, 2 dispatches: " + ", ".join(
             f"{k} rel {rec[k]['rel_l2']:.3g} abs {rec[k]['max_abs']:.3g} rerun "
             f"{rec[k]['rerun_rel_l2']:.3g}" for k in p)
-            + f"; {rec['ms']:.4f} ms kernel vs {rec['plain_ms']:.4f} ms plain")
-    out["ms"] = out["modes"]["stride1"]["ms"]
-    out["plain_ms"] = out["modes"]["stride1"]["plain_ms"]
-    return out
+            + f"; {rec['ms']:.4f} ms kernel vs {rec['plain_ms']:.4f} ms plain; bound "
+            f"{rec['bound_ms']:.4f} ms by {rec['bound_by']}, share {rec['bound_share']:.3f}")
+    s1 = out["modes"]["stride1"]
+    out["ms"], out["plain_ms"] = s1["ms"], s1["plain_ms"]
+    return kernel_line(out, {k: s1[k] for k in ("bound_ms", "bound_by", "bound_bytes",
+                                                "bound_ops", "bound_share")})
 
 
 def plain_window(state, ctx, seeds, g_img, wrt, stride, mode):
@@ -890,7 +1147,11 @@ def phase_fit(camera, dev):
         # one window split by piece (CUDA events): K4, K5, contraction
         seeds = [(7 + k) * 2654435761 % 2**32 for k in range(CHUNK)]
         sf, tapes, _, m_final = TB._tape_forward_sweep(state, ctx, seeds, STEPS, BINS, wrt)
-        rec["k4_ms"] = cuda_ms(lambda: TB._tape_forward_sweep(state, ctx, seeds, STEPS, BINS, wrt), 3)
+        parent, current = parent_vs_current(
+            lambda: TB._tape_forward_sweep(state, ctx, seeds, STEPS, BINS, wrt), 3)
+        rec.update(k4_ms=float(np.mean(current)), k4_current_ms=current, k4_parent_ms=parent)
+        rec.update({f"k4_{k}": v for k, v in step_bound(ctx, state, seeds, BINS, rec["k4_ms"],
+                                                         taped=tapes.numel() * 4).items()})
         rec["k5_contract_ms"] = cuda_ms(lambda: TB._tape_reverse_sweep(
             state, ctx, seeds, tapes, m_final, g_img, STEPS, BINS, wrt, stride, mode), 3)
         adj = TB._packed_adj_init(ctx, wrt)
@@ -914,7 +1175,10 @@ def phase_fit(camera, dev):
         windows[f"{mode}{stride}"] = rec
         log(f"# fwd+bwd {mode} {stride} ({WINDOWS} windows x {CHUNK} dispatches): kernels "
             f"{rec['mpaths_per_s']:.3f} Mpaths/s, {rec['m_lane_steps_per_s']:.1f} M lane-steps/s "
-            f"(window {rec['window_ms']:.3f} ms: K4 {rec['k4_ms']:.3f}, K5+contract "
+            f"(window {rec['window_ms']:.3f} ms: K4 {rec['k4_ms']:.3f} (parent design "
+            f"{rec['k4_parent_ms'][0]:.3f}, {rec['k4_parent_ms'][1]:.3f}; bound "
+            f"{rec['k4_bound_ms']:.3f} by {rec['k4_bound_by']}, {rec['k4_bound_bytes']} B, "
+            f"{rec['k4_bound_ops']} FP32 ops, share {rec['k4_bound_share']:.3f}), K5+contract "
             f"{rec['k5_contract_ms']:.3f}, contract {rec['contract_ms']:.3f}); plain "
             f"{rec['plain']['mpaths_per_s']:.3f} Mpaths/s, "
             f"{rec['plain']['m_lane_steps_per_s']:.1f} M lane-steps/s; grads kernel vs plain "
@@ -955,15 +1219,33 @@ def phase_gather(dev):
     common = dict(route="cuda", source=GATHER_SOURCE, max_abs_err=0.0,
                   timing="ms/plain_ms: device time per call (graph replay) at L lookups; "
                          "host_ms: CUDA events around back-to-back Python calls")
-    k6 = dict(name="gather_scalar", replaces="tools/gather_bench.py:54",
-              launches=launches["gather_scalar"], ms=scalar[0]["ms"],
-              plain_ms=scalar[0]["plain_ms"], host_ms=scalar[0]["host_ms"],
-              plain_host_ms=scalar[0]["plain_host_ms"], by_size=scalar, **common)
-    k7 = dict(name="gather_lanewise", replaces="tools/gather_bench.py:75",
-              also_replaces=["tools/gather_bench2.py:76", "tools/gather_bench3.py:38"],
-              launches=launches["gather_lanewise"], ms=k7_main["ms"], plain_ms=k7_main["plain_ms"],
-              host_ms=k7_main["host_ms"], plain_host_ms=k7_main["plain_host_ms"], by_size=lanewise,
-              **common)
+    # the one PyTorch call of each function on the same inputs (int64
+    # indices made once, outside the timed call), by the same device timer;
+    # the bound: each index read and each value written once, the table once
+    library, bounds = {}, {}
+    for name, _, _, tab, idx in G.cases(dev, lookups=G.L):
+        idx64 = idx.to(torch.int64)
+        if name.startswith("gather_scalar"):
+            library[name] = G.graph_ms(lambda: torch.take(tab, idx64))
+        elif name == k7_main["name"]:
+            library[name] = G.graph_ms(lambda: torch.gather(tab, 0, idx64))
+        bounds[name] = idx.numel() * 8 + tab.numel() * 4
+    k6 = kernel_line(dict(name="gather_scalar", replaces="tools/gather_bench.py:54",
+                          launches=launches["gather_scalar"], ms=scalar[0]["ms"],
+                          plain_ms=scalar[0]["plain_ms"], host_ms=scalar[0]["host_ms"],
+                          plain_host_ms=scalar[0]["plain_host_ms"], by_size=scalar, **common),
+                     bound(bounds[scalar[0]["name"]], 0, scalar[0]["ms"]),
+                     library[scalar[0]["name"]])
+    k7 = kernel_line(dict(name="gather_lanewise", replaces="tools/gather_bench.py:75",
+                          also_replaces=["tools/gather_bench2.py:76", "tools/gather_bench3.py:38"],
+                          launches=launches["gather_lanewise"], ms=k7_main["ms"],
+                          plain_ms=k7_main["plain_ms"], host_ms=k7_main["host_ms"],
+                          plain_host_ms=k7_main["plain_host_ms"], by_size=lanewise, **common),
+                     bound(bounds[k7_main["name"]], 0, k7_main["ms"]), library[k7_main["name"]])
+    for k in (k6, k7):
+        log(f"# {k['name']} at {G.L} lookups: {k['ms']:.5f} ms kernel, library call "
+            f"{k['library_ms']:.5f} ms; bound {k['bound_ms']:.5f} ms by {k['bound_by']}, share "
+            f"{k['bound_share']:.3f}")
     return k6, k7
 
 
@@ -983,12 +1265,29 @@ def main():
     from vpt_tpu_torch.kernels import _build
     from vpt_tpu_torch.models.mcm_spectral import MCMSpectralRenderer
 
+    # the current kernels and the parent design's step kernels, built at once
     t0 = time.perf_counter()
-    _build.load()
-    log(f"# build: {time.perf_counter() - t0:.2f} s (parallel nvcc {_build.build_info['seconds']:.2f} s)")
+    with ThreadPoolExecutor(2) as pool:
+        for f in [pool.submit(_build.load), pool.submit(parent_lib)]:
+            f.result()
+    log(f"# build: {time.perf_counter() - t0:.2f} s (parallel nvcc: current "
+        f"{_build.build_info['seconds']:.2f} s, parent design "
+        f"{_build.build_infos[_build.BASELINE_DIR]['seconds']:.2f} s)")
     for line in _build.build_info["log"].splitlines():
-        if "registers" in line or "spill" in line or "error" in line or line.startswith("=="):
+        if "error" in line or line.startswith("=="):
             log(f"# ptxas: {line.strip()}")
+    ptxas = {}
+    for which, d in (("current", _build.CSRC_DIR), ("parent", _build.BASELINE_DIR)):
+        ptxas[which] = [dict(kernel=k, template=a, registers=r, spill_store_bytes=s,
+                             spill_load_bytes=lo)
+                        for k, a, r, s, lo in _build.ptxas_table(_build.build_infos[d]["log"])]
+        for row in ptxas[which]:
+            args = "NB,MAJ,ENV" if row["kernel"] == "step_kernel" else "NB"
+            log(f"# ptxas {which}: {row['kernel']}<{args}={row['template']}>: {row['registers']} "
+                f"registers, {row['spill_store_bytes']} B spill stores, "
+                f"{row['spill_load_bytes']} B spill loads")
+        if not ptxas[which]:
+            raise AssertionError(f"no ptxas report of the {which} step kernels")
 
     k3 = phase_k3(dev)
     renderer = MCMSpectralRenderer(*bench_scene_args(), resolution=RES, streams=STREAMS,
@@ -1008,10 +1307,17 @@ def main():
     k1_modes, mode_rates = phase_env_quasicubic(dev)
     compact_kernels, compact = phase_compaction(dev)
     cli = phase_cli()
-    if "jax" in sys.modules:
-        raise AssertionError("jax was imported")
+    foreign = sorted(k for k in sys.modules
+                     if k in ("jax", "vpt_tpu") or k.startswith(("jax.", "vpt_tpu.")))
+    if foreign:
+        raise AssertionError(f"imported {foreign[:5]}: the port must not load jax or vpt_tpu")
 
     k1["launches"], k2["launches"] = launches["step"], launches["reset"]
+    missing = [k["name"] for k in (k1, k2, k3, k4, k5, k6, k7, k1_maj, *k1_modes.values(),
+                                   *compact_kernels)
+               if not {"bound_ms", "bound_by", "library_ms"} <= set(k)]
+    if missing:
+        raise AssertionError(f"kernels without a bound: {missing}")
     k3["launches"] = launches["sample_volume_packed"]
     k4["launches"], k5["launches"] = bwd_launches["prb_tape_forward"], bwd_launches["prb_reverse"]
     result = {"kernels": [k1, k2, k4, k5, k6, k7, k1_maj, k1_modes["environment"],
@@ -1020,7 +1326,7 @@ def main():
               "main_path": {"kernel": kern, "plain_step": plain},
               "training_path": {"fit_spectral": fits, "fwd_bwd_windows": windows},
               "majorant_path": sparse, "mode_sessions": mode_rates, "compaction": compact,
-              "cli": cli, "gpu": smi}
+              "cli": cli, "ptxas": ptxas, "gpu": smi}
     log(json.dumps(result))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                           "kind": torch.cuda.get_device_name(0),

@@ -17,6 +17,7 @@ from vpt_tpu_torch import convert
 from vpt_tpu_torch.kernels import mcm_spectral as K
 from vpt_tpu_torch.models import mcm_spectral as TM
 from vpt_tpu_torch.models import mcm_spectral_compact as TC
+from vpt_tpu_torch.scene.camera import Camera as TCamera
 from vpt_tpu_torch.session import RenderSession
 
 torch.set_num_threads(1)
@@ -45,9 +46,17 @@ def _kw(streams=2, steps=6, **extra):
                 resolution=RES, streams=streams, **extra)
 
 
+def _tkw(streams=2, steps=6, **extra):
+    """``_kw`` with the port's own scene and config types."""
+    kw = _kw(streams, steps, **extra)
+    for k in ("volume", "material_tf", "light", "spectrum", "config"):
+        kw[k] = convert.scene_from(kw[k])
+    return kw
+
+
 def _renderers(**kw):
-    return (TM.MCMSpectralRenderer(**_kw(**kw), device="cpu"),
-            TM.MCMSpectralRenderer(**_kw(**kw), compaction=True, device="cpu"))
+    return (TM.MCMSpectralRenderer(**_tkw(**kw), device="cpu"),
+            TM.MCMSpectralRenderer(**_tkw(**kw), compaction=True, device="cpu"))
 
 
 def _orbit_cam(yaw=0.7, pitch=-0.3):
@@ -113,7 +122,7 @@ def test_compact_image_plain_matches_jax(streams):
     rng = np.random.default_rng(streams)
     rad = rng.uniform(0, 2, size=(12,) + t["lane_ix"].shape).astype(np.float32)
     miss = rng.uniform(0, 1, size=(12, RES, RES)).astype(np.float32)
-    bx = np.asarray(TM.MCMSpectralRenderer(**_kw(), device="cpu").bin_xyz)
+    bx = np.asarray(TM.MCMSpectralRenderer(**_tkw(), device="cpu").bin_xyz)
     state = JM.SpectralState(**{k: jnp.zeros(1) for k in JM.SpectralState._fields
                                 if k != "radiance"}, radiance=jnp.asarray(rad))
     want = np.asarray(JC.compact_image(state, jnp.asarray(t["lane_pixel"]), jnp.asarray(HIT),
@@ -138,7 +147,7 @@ def test_compact_image_plain_matches_jax(streams):
 
 def test_hit_pixels_match_full_kernel():
     full, comp = _renderers()
-    cam = Camera()
+    cam = TCamera()
     seeds = [(k + 1) * 2654435761 % 2**32 for k in range(10)]
     sf = full.reset(cam, seeds[0])
     sf, img_full = full.render_many(sf, cam, seeds)
@@ -153,13 +162,14 @@ def test_compact_matches_jax_compact():
     """The port's compacted renderer against vpt_tpu's, from the same JAX
     compact state: the oracle contract on the image, and equal tables."""
     jc = JM.MCMSpectralRenderer(**_kw(), compaction=True)
-    tc = TM.MCMSpectralRenderer(**_kw(), compaction=True, device="cpu")
+    tc = TM.MCMSpectralRenderer(**_tkw(), compaction=True, device="cpu")
     cam = Camera()
-    jt, tt = jc._compact_tables(cam), tc._compact_tables(cam)
+    tcam = convert.camera_from(cam)
+    jt, tt = jc._compact_tables(cam), tc._compact_tables(tcam)
     for k in ("hit", "miss", "lane_ix", "lane_iy", "lane_seed_iy", "lane_pixel"):
         np.testing.assert_array_equal(tt[k].numpy(), np.asarray(jt[k]), err_msg=k)
     sj = jc.reset(cam, 4)
-    st = tc.reset(cam, 4)
+    st = tc.reset(tcam, 4)
     for k in JM.SpectralState._fields:
         np.testing.assert_allclose(getattr(st, k).numpy(), np.asarray(getattr(sj, k)),
                                    rtol=1e-5, atol=1e-6, err_msg=k)
@@ -167,7 +177,7 @@ def test_compact_matches_jax_compact():
     sj, ij = jc.render_many(sj, cam, seeds)
     st = convert.state_from_numpy({k: np.asarray(getattr(jc.reset(cam, 4), k))
                                    for k in JM.SpectralState._fields}, "cpu")
-    st, it = tc.render_many(st, cam, seeds)
+    st, it = tc.render_many(st, tcam, seeds)
     ij, it = np.asarray(ij), it.numpy()
     d = np.abs(it - ij)
     assert np.mean(d / (np.abs(ij) + 1e-3) < 1e-3) > 0.995 and np.median(d) < 1e-5
@@ -176,7 +186,7 @@ def test_compact_matches_jax_compact():
 
 def test_compact_deterministic_and_padded_lanes_harmless():
     _, comp = _renderers()
-    cam = Camera()
+    cam = TCamera()
     seeds = [(k + 7) * 2654435761 % 2**32 for k in range(4)]
     s1 = comp.reset(cam, 7)
     s1, i1 = comp.render_many(s1, cam, seeds)
@@ -194,11 +204,11 @@ def test_compact_deterministic_and_padded_lanes_harmless():
 
 
 def test_compact_composes_with_majorant_and_quasicubic():
-    kw = _kw(majorant_blocks=4)
-    kw["volume"] = Volume(kw["volume"].density, filter="quasicubic")
+    kw = _tkw(majorant_blocks=4)
+    kw["volume"] = convert.volume_from(Volume(kw["volume"].density, filter="quasicubic"))
     full = TM.MCMSpectralRenderer(**kw, device="cpu")
     comp = TM.MCMSpectralRenderer(**kw, compaction=True, device="cpu")
-    cam = Camera()
+    cam = TCamera()
 
     def run(r, seed0, n=120):
         s = r.reset(cam, seed0)
@@ -222,14 +232,15 @@ def test_compact_session_checkpoint_resume(tmp_path):
     args = (k["volume"], k["material_tf"], k["light"], k["spectrum"], k["config"])
     kw = dict(tonemapper="artistic", resolution=RES, base_seed=3, streams=2,
               compaction=True, device="cpu")
-    a = RenderSession("mcm-spectral", *args, **kw)
+    targs = convert.scene_from(*args)
+    a = RenderSession("mcm-spectral", *targs, **kw)
     a.run(6)
-    b = RenderSession("mcm-spectral", *args, **kw)
+    b = RenderSession("mcm-spectral", *targs, **kw)
     b.run(3)
     assert b.state.px.ndim == 2 and b.state.px.shape[-1] == RES
     ck = str(tmp_path / "compact.npz")
     b.save_checkpoint(ck)
-    c = RenderSession("mcm-spectral", *args, **kw)
+    c = RenderSession("mcm-spectral", *targs, **kw)
     c.load_checkpoint(ck)
     c.run(3)
     np.testing.assert_array_equal(c.hdr_image(), a.hdr_image())
@@ -246,7 +257,7 @@ def test_compact_session_checkpoint_resume(tmp_path):
 def test_compact_envmap_spectral():
     env = _envmap()
     full, comp = _renderers(environment=env)
-    cam = Camera()
+    cam = TCamera()
     seeds = [(k + 1) * 2654435761 % 2**32 for k in range(10)]
     sf = full.reset(cam, seeds[0])
     sf, img_full = full.render_many(sf, cam, seeds)
@@ -274,7 +285,7 @@ def test_compact_cache_bounded_and_bucketed():
     _, comp = _renderers(streams=1)
     shapes = set()
     for k in range(12):
-        t = comp._compact_tables(_orbit_cam(2 * np.pi * k / 12))
+        t = comp._compact_tables(convert.camera_from(_orbit_cam(2 * np.pi * k / 12)))
         shapes.add(tuple(t["lane_ix"].shape))
     assert len(comp._compact_cache) <= comp.COMPACT_CACHE_POSES
     assert len(shapes) <= 3, shapes
@@ -283,12 +294,15 @@ def test_compact_cache_bounded_and_bucketed():
 def test_compaction_config_errors(tmp_path):
     from vpt_tpu_torch import cli
 
-    args = (Volume.sphere_in_cube(16), MaterialTF(_table()), LightConfig(), SpectrumConfig())
+    args = convert.scene_from(Volume.sphere_in_cube(16), MaterialTF(_table()), LightConfig(),
+                              SpectrumConfig())
     with pytest.raises(ValueError, match="blur"):
-        TM.MCMSpectralRenderer(*args, MCMSpectralConfig(extinction=30.0, blur=0.1),
+        TM.MCMSpectralRenderer(*args, convert.scene_from(MCMSpectralConfig(extinction=30.0,
+                                                                           blur=0.1)),
                                resolution=RES, compaction=True, device="cpu")
     with pytest.raises(ValueError, match="single-device"):
-        TM.MCMSpectralRenderer(*args, MCMSpectralConfig(extinction=30.0), resolution=RES,
+        TM.MCMSpectralRenderer(*args, convert.scene_from(MCMSpectralConfig(extinction=30.0)),
+                               resolution=RES,
                                mesh=object(), compaction=True, device="cpu")
     out = tmp_path / "should_not_exist.npy"
     with pytest.raises(SystemExit):

@@ -87,6 +87,25 @@ def test_sample_volume_packed_matches_jax(table_dtype):
     assert K.LAUNCHES == before
 
 
+def test_sample_volume_packed_equals_grid_sample():
+    """One PyTorch call computes K3's function: ``F.grid_sample`` on the
+    dequantized (D, H, W) volume, trilinear, texel centres at half a texel
+    (``align_corners=False``), edge-clamped (``padding_mode="border"``),
+    with (u, v, w) mapped to [-1, 1]; chip_smoke.py times it as K3's
+    library call."""
+    rng = np.random.default_rng(5)
+    codes = rng.integers(0, 256, (5, 7, 9), dtype=np.uint8)
+    vol = codes.astype(np.float32) / np.float32(255.0)
+    pv = T.pack_volume_auto(vol, "cpu")
+    assert pv.table.dtype == torch.uint8
+    u, v, w = map(torch.as_tensor, _coords(6))
+    got = T.sample_volume_packed(pv.table, pv.dims, u, v, w)
+    grid = (torch.stack([u, v, w], -1) * 2.0 - 1.0).reshape(1, 1, 1, -1, 3)
+    lib = torch.nn.functional.grid_sample(torch.as_tensor(vol)[None, None], grid, mode="bilinear",
+                                          padding_mode="border", align_corners=False)
+    np.testing.assert_allclose(lib.reshape(-1).numpy(), got.numpy(), rtol=0, atol=1e-6)
+
+
 def test_sample_tex2d_fused1d_matches_jax():
     rng = np.random.default_rng(3)
     tf = rng.random((32, 24, 4), dtype=np.float32)

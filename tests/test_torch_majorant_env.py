@@ -26,6 +26,7 @@ from vpt_tpu_torch.kernels import mcm_spectral as K
 from vpt_tpu_torch.kernels import spectral_backward as TB
 from vpt_tpu_torch.models import mcm_spectral as TM
 from vpt_tpu_torch.optim import fit_spectral
+from vpt_tpu_torch.scene.camera import Camera as TCamera
 
 torch.set_num_threads(1)
 
@@ -113,20 +114,20 @@ def test_renderer_modes_match_jax_from_reset():
     args = _args(filt="quasicubic")
     kw = dict(majorant_blocks=4, environment=env)
     rj = JM.MCMSpectralRenderer(*args, resolution=24, **kw)
-    rt = TM.MCMSpectralRenderer(*args, resolution=24, device="cpu", **kw)
-    cam = Camera()
-    jc, tc = rj.ctx(cam, 0), rt.ctx(cam, 0)
+    rt = TM.MCMSpectralRenderer(*convert.scene_from(*args), resolution=24, device="cpu", **kw)
+    cam, tcam = Camera(), TCamera()
+    jc, tc = rj.ctx(cam, 0), rt.ctx(tcam, 0)
     np.testing.assert_array_equal(tc.majorant.numpy(), np.asarray(jc.majorant))
     np.testing.assert_array_equal(tc.environment.numpy(), np.asarray(jc.environment))
     assert tc.volume_filter == "quasicubic"
-    sj, st = rj.reset(cam, 3), rt.reset(cam, 3)
+    sj, st = rj.reset(cam, 3), rt.reset(tcam, 3)
     sj, ij = rj.render_many(sj, cam, [21, 22])
-    st, it = rt.render_many(st, cam, [21, 22])
+    st, it = rt.render_many(st, tcam, [21, 22])
     _contract(it.numpy(), ij, st.samples.numpy(), sj.samples, POLAR_ALLOWANCE)
 
 
 def _converged(renderer, seed, dispatches=96):
-    cam = Camera()
+    cam = TCamera()
     state = renderer.reset(cam, seed)
     seeds = [(seed + k + 1) * 2654435761 % 2**32 for k in range(dispatches)]
     state, img = renderer.render_many(state, cam, seeds)
@@ -139,9 +140,9 @@ def test_majorant_image_parity_and_progress():
     own seed-to-seed noise floor, and paths finish in fewer steps."""
     def renderer(blocks):
         return TM.MCMSpectralRenderer(
-            Volume.sphere_in_cube(32), _ramp_tf(g_ramp=False),
-            LightConfig(direction=(1.0, 0.2, 0.5)), SpectrumConfig(),
-            MCMSpectralConfig(extinction=EXT, bounces=8, steps=8),
+            *convert.scene_from(Volume.sphere_in_cube(32), _ramp_tf(g_ramp=False),
+                                LightConfig(direction=(1.0, 0.2, 0.5)), SpectrumConfig(),
+                                MCMSpectralConfig(extinction=EXT, bounces=8, steps=8)),
             resolution=48, majorant_blocks=blocks, device="cpu")
 
     img_a, paths_a = _converged(renderer(None), seed=1)
@@ -187,10 +188,10 @@ def test_env_render_matches_jax():
 
 def test_envmap_renderer_runs_and_differs():
     """Port of tests/test_spectral_envmap.py::test_envmap_renderer_runs_and_differs."""
-    vol = Volume.sphere_in_cube(16)
-    args = (MaterialTF.constant(0.8, 0.6), LightConfig(), SpectrumConfig(),
-            MCMSpectralConfig(extinction=20.0, steps=6))
-    cam = Camera()
+    vol, *args = convert.scene_from(
+        Volume.sphere_in_cube(16), MaterialTF.constant(0.8, 0.6), LightConfig(),
+        SpectrumConfig(), MCMSpectralConfig(extinction=20.0, steps=6))
+    cam = TCamera()
     env = np.zeros((4, 8, 3), np.float32)
     env[..., 0] = 1.0  # red only: deposits land in the bins above 600 nm
     re = TM.MCMSpectralRenderer(vol, *args, resolution=16, environment=env, device="cpu")
@@ -210,10 +211,11 @@ def test_ctx_from_numpy_carries_env_and_majorant():
     env = _envmap()
     args = _args(filt="quasicubic")
     rj = JM.MCMSpectralRenderer(*args, resolution=16, environment=env, majorant_blocks=8)
-    rt = TM.MCMSpectralRenderer(*args, resolution=16, environment=env, majorant_blocks=8,
-                                device="cpu")
+    rt = TM.MCMSpectralRenderer(*convert.scene_from(*args), resolution=16, environment=env,
+                                majorant_blocks=8, device="cpu")
     cam = Camera()
-    carried, own = _port_ctx(rj.ctx(cam, 9), "quasicubic"), rt.ctx(cam, 9)
+    carried = _port_ctx(rj.ctx(cam, 9), "quasicubic")
+    own = rt.ctx(convert.camera_from(cam), 9)
     for f in dataclasses.fields(own):
         a, b = getattr(carried, f.name), getattr(own, f.name)
         if f.name == "density":
@@ -237,8 +239,8 @@ def test_backward_raises_for_the_new_modes(mode):
         kw = dict(environment=_envmap())
     else:
         args[0] = Volume(args[0].density, filter="quasicubic")
-    r = TM.MCMSpectralRenderer(*args, resolution=8, device="cpu", **kw)
-    cam = Camera()
+    r = TM.MCMSpectralRenderer(*convert.scene_from(*args), resolution=8, device="cpu", **kw)
+    cam = TCamera()
     ctx, state = r.ctx(cam, 1), r.reset(cam, 1)
     g = torch.ones(8, 8, 3)
     with pytest.raises(NotImplementedError, match=mode):

@@ -20,6 +20,7 @@ from vpt_tpu.utils.config import LightConfig, MaterialTF, MCMSpectralConfig, Spe
 from vpt_tpu_torch import convert
 from vpt_tpu_torch.kernels import mcm_spectral as K
 from vpt_tpu_torch.models import mcm_spectral as TM
+from vpt_tpu_torch.scene.camera import Camera as TCamera
 
 torch.set_num_threads(1)
 
@@ -43,7 +44,8 @@ def _scene():
 def _pair(res=24, streams=1):
     args = _scene()
     return (JM.MCMSpectralRenderer(*args, resolution=res, streams=streams),
-            TM.MCMSpectralRenderer(*args, resolution=res, streams=streams, device="cpu"))
+            TM.MCMSpectralRenderer(*convert.scene_from(*args), resolution=res, streams=streams,
+                                   device="cpu"))
 
 
 def _contract(img, ref, samples, ref_samples):
@@ -74,8 +76,7 @@ def test_full_reset_matches_jax(streams):
     # the kernels' argument order and checkpoints both follow the JAX leaf order
     assert TM.SpectralState.field_names() == K.STATE_FIELDS == tuple(FIELDS)
     rj, rt = _pair(streams=streams)
-    cam = Camera()
-    sj, st = rj.reset(cam, 3), rt.reset(cam, 3)
+    sj, st = rj.reset(Camera(), 3), rt.reset(TCamera(), 3)
     for k in FIELDS:
         a, b = np.asarray(getattr(sj, k)), getattr(st, k).numpy()
         assert a.shape == b.shape and a.dtype == b.dtype, k
@@ -111,9 +112,9 @@ def test_oracle_contract():
     light = LightConfig(direction=(1.0, 0.0, 0.0))
     spectrum = SpectrumConfig()
     config = MCMSpectralConfig(extinction=20.0, bounces=4, steps=6)
-    cam = Camera()
-    r = TM.MCMSpectralRenderer(volume, material, light, spectrum, config, resolution=res,
-                               device="cpu")
+    cam = TCamera()
+    r = TM.MCMSpectralRenderer(*convert.scene_from(volume, material, light, spectrum, config),
+                               resolution=res, device="cpu")
     prm = oracle.OracleParams(
         inv_mvp=cam.inverse_mvp(), resolution=res, seed_bits=42, blur=config.blur,
         extinction=config.extinction, max_bounces=config.bounces, steps=config.steps,
@@ -133,10 +134,10 @@ def test_oracle_contract():
 
 def test_streams_converge_to_same_image():
     """Mirror of test_packed_tables.py::test_streams_converge_to_same_image."""
-    vol = Volume.sphere_in_cube(16)
-    args = (MaterialTF.constant(0.8, 0.6), LightConfig(), SpectrumConfig(),
-            MCMSpectralConfig(extinction=20.0, steps=4))
-    cam = Camera()
+    vol, *args = convert.scene_from(
+        Volume.sphere_in_cube(16), MaterialTF.constant(0.8, 0.6), LightConfig(),
+        SpectrumConfig(), MCMSpectralConfig(extinction=20.0, steps=4))
+    cam = TCamera()
     r1 = TM.MCMSpectralRenderer(vol, *args, resolution=16, streams=1, device="cpu")
     r4 = TM.MCMSpectralRenderer(vol, *args, resolution=16, streams=4, device="cpu")
     s1, s4 = r1.reset(cam, 3), r4.reset(cam, 3)
@@ -152,7 +153,7 @@ def test_streams_converge_to_same_image():
 
 def test_render_many_equals_sequential_renders():
     _, rt = _pair(res=16)
-    cam = Camera()
+    cam = TCamera()
     a, b = rt.reset(cam, 1), rt.reset(cam, 1)
     a, img_a = rt.render_many(a, cam, [7, 8, 9])
     for s in (7, 8, 9):
@@ -164,7 +165,7 @@ def test_render_many_equals_sequential_renders():
 
 def test_packed_tables_bit_equal_to_jax_static_ctx():
     rj, rt = _pair()
-    jc, tc = rj.ctx(Camera(), 0), rt.ctx(Camera(), 0)
+    jc, tc = rj.ctx(Camera(), 0), rt.ctx(TCamera(), 0)
     assert tc.density.dims == jc.density.dims
     np.testing.assert_array_equal(tc.density.table.numpy(), np.asarray(jc.density.table))
     for k in ("material_tf", "light_spectrum", "bin_xyz"):
@@ -191,15 +192,15 @@ def test_options_outside_the_slice_raise(option):
     """Raw or partly packed tables and a mesh raise; the environment map,
     the majorant grid, compaction and the quasicubic filter are ported and
     render finite images."""
-    args = list(_scene())
+    args = list(convert.scene_from(*_scene()))
     kw = {}
     if option == "quasicubic":
-        args[0] = Volume(args[0].density, filter="quasicubic")
+        args[0] = convert.volume_from(Volume(args[0].density, filter="quasicubic"))
     else:
         kw = option
     if option == "quasicubic" or set(kw) & {"environment", "majorant_blocks", "compaction"}:
         r = TM.MCMSpectralRenderer(*args, resolution=16, device="cpu", **kw)
-        cam = Camera()
+        cam = TCamera()
         _, img = r.render(r.reset(cam, 1), cam, 2)
         assert img.shape == (16, 16, 3) and bool(torch.isfinite(img).all())
         return
@@ -208,8 +209,8 @@ def test_options_outside_the_slice_raise(option):
 
 
 def test_nearest_filter_raises():
-    args = list(_scene())
-    args[0] = Volume(args[0].density, filter="nearest")
+    args = list(convert.scene_from(*_scene()))
+    args[0] = convert.volume_from(Volume(args[0].density, filter="nearest"))
     with pytest.raises(NotImplementedError):
         TM.MCMSpectralRenderer(*args, resolution=16, device="cpu")
 
@@ -217,8 +218,8 @@ def test_nearest_filter_raises():
 def test_cuda_route_rejects_mixed_devices_and_counts_nothing_on_cpu():
     K.reset_launch_counts()
     _, rt = _pair(res=16)
-    s = rt.reset(Camera(), 0)
-    rt.render_many(s, Camera(), [1, 2])
+    s = rt.reset(TCamera(), 0)
+    rt.render_many(s, TCamera(), [1, 2])
     assert set(K.LAUNCHES) >= {"step", "reset", "compact_radiance", "sample_volume_packed"}
     assert not any(K.LAUNCHES.values()), K.LAUNCHES
     with pytest.raises(ValueError):

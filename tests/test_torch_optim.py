@@ -23,6 +23,7 @@ from vpt_tpu_torch import convert
 from vpt_tpu_torch import optim as TO
 from vpt_tpu_torch.kernels import spectral_backward as TB
 from vpt_tpu_torch.models import mcm_spectral as TM
+from vpt_tpu_torch.scene.camera import Camera as TCamera
 
 torch.set_num_threads(1)
 
@@ -141,8 +142,9 @@ def test_live_gradient_fraction_and_policy_match_jax():
 def _alpha_renderer(alpha):
     vol = Volume(density=np.full((4, 4, 4), 0.5, np.float32))
     return TM.MCMSpectralRenderer(
-        vol, MaterialTF.constant(albedo=0.0, alpha=alpha), LightConfig(direction=(0.0, 0.0, 0.0)),
-        SpectrumConfig(), MCMSpectralConfig(extinction=2.0, bounces=0, steps=8),
+        *convert.scene_from(vol, MaterialTF.constant(albedo=0.0, alpha=alpha),
+                            LightConfig(direction=(0.0, 0.0, 0.0)), SpectrumConfig(),
+                            MCMSpectralConfig(extinction=2.0, bounces=0, steps=8)),
         resolution=RES, device="cpu")
 
 
@@ -151,7 +153,7 @@ def test_fit_spectral_prb_recovers_alpha():
     packed-tables renderer at tests/test_prb_packed.py's size."""
     true_alpha = 0.6
     r = _alpha_renderer(true_alpha)
-    cam = Camera()
+    cam = TCamera()
     state = r.reset(cam, 5)
     seeds = [int(np.uint32((5 + k + 1) * 2654435761 % 2**32)) for k in range(64)]
     state, target = r.render_many(state, cam, seeds)
@@ -173,8 +175,9 @@ def test_fit_spectral_auto_policy_leaves_state0_untouched():
     learning density and extinction; the reset state it renders from every
     iteration stays bit-unchanged."""
     r = TM.MCMSpectralRenderer(
-        Volume.sphere_in_cube(8), MaterialTF(_ramp_tf()), LightConfig(direction=(1.0, 0.2, 0.5)),
-        SpectrumConfig(), MCMSpectralConfig(extinction=20.0, bounces=4, steps=STEPS),
+        *convert.scene_from(Volume.sphere_in_cube(8), MaterialTF(_ramp_tf()),
+                            LightConfig(direction=(1.0, 0.2, 0.5)), SpectrumConfig(),
+                            MCMSpectralConfig(extinction=20.0, bounces=4, steps=STEPS)),
         resolution=8, device="cpu")
     seen = []
     reset = r.reset
@@ -186,7 +189,7 @@ def test_fit_spectral_auto_policy_leaves_state0_untouched():
 
     r.reset = recording_reset
     init = {"density": np.full((8, 8, 8), 0.6, np.float32), "extinction": np.float32(20.0)}
-    params, losses, info = TO.fit_spectral(np.zeros((8, 8, 3), np.float32), r, Camera(), init,
+    params, losses, info = TO.fit_spectral(np.zeros((8, 8, 3), np.float32), r, TCamera(), init,
                                            dispatches_per_step=2, iterations=1,
                                            return_info=True)
     assert info["method"] == "prb" and info["live_fraction"] > 0.15
@@ -200,7 +203,7 @@ def test_fit_spectral_auto_policy_leaves_state0_untouched():
 
 def test_unported_options_raise():
     r = _alpha_renderer(0.2)
-    args = (np.zeros((RES, RES, 3), np.float32), r, Camera(),
+    args = (np.zeros((RES, RES, 3), np.float32), r, TCamera(),
             {"material_tf": r.material_tf.table.copy()})
     with pytest.raises(NotImplementedError):
         TO.fit_spectral(*args, method="autodiff", iterations=1)

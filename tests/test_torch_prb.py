@@ -33,6 +33,7 @@ from vpt_tpu_torch import convert
 from vpt_tpu_torch.kernels import spectral_backward as TB
 from vpt_tpu_torch.models import mcm_spectral as TM
 from vpt_tpu_torch.ops import interp as TI
+from vpt_tpu_torch.scene.camera import Camera as TCamera
 
 torch.set_num_threads(1)
 
@@ -277,17 +278,17 @@ def test_importance_picks_match_jax():
 # ---------------------------------------------------------------------------
 def _port_renderer(volume=None, streams=1):
     return TM.MCMSpectralRenderer(
-        volume if volume is not None else Volume.sphere_in_cube(16), _table(),
-        LightConfig(direction=(0.6, 0.3, 0.2)), SpectrumConfig(),
-        MCMSpectralConfig(extinction=6.0, bounces=4, steps=STEPS), resolution=RES,
-        streams=streams, device="cpu")
+        *convert.scene_from(volume if volume is not None else Volume.sphere_in_cube(16),
+                            _table(), LightConfig(direction=(0.6, 0.3, 0.2)), SpectrumConfig(),
+                            MCMSpectralConfig(extinction=6.0, bounces=4, steps=STEPS)),
+        resolution=RES, streams=streams, device="cpu")
 
 
 def test_scatter_stride_partition_identity():
     """stride-k thinning at a FIXED seed: the k phase gradients partition
     the steps, so their average equals the exact gradient identically."""
     r = _port_renderer()
-    cam = Camera()
+    cam = TCamera()
     g_img = torch.ones(RES, RES, 3)
     ctx = r.ctx(cam, 7)
     s0 = r.reset(cam, 7)
@@ -313,7 +314,7 @@ def test_many_matches_sequential_dispatches():
     prb_render_and_grads calls with summed grads."""
     r = _port_renderer(streams=2)
     g_img = torch.ones(RES, RES, 3)
-    cam = Camera()
+    cam = TCamera()
     seeds = [11, 5021, 90001]
     wrt = frozenset({"density", "extinction"})
     state = r.reset(cam, 3)
@@ -367,7 +368,7 @@ def test_window_storage_modes_agree():
     ways: image bit-identical, grads equal to float rounding; neither
     touches the input state."""
     r = _port_renderer(streams=2)
-    cam = Camera()
+    cam = TCamera()
     seeds = [11, 5021, 90001, 7]
     g_img = torch.ones(RES, RES, 3)
     wrt = frozenset({"density", "extinction"})
@@ -398,7 +399,7 @@ def test_importance_thinning_unbiased_and_deterministic():
     give identical results. The light-spectrum term, which a |q| metric
     would bias, is pinned too. The reverse runs on one stored tape."""
     r = _port_renderer(volume=Volume.sphere_in_cube(8))
-    cam = Camera()
+    cam = TCamera()
     seed = 3
     ctx = r.ctx(cam, seed)
     g_img = torch.ones(RES, RES, 3)

@@ -17,6 +17,8 @@ from vpt_tpu.scene.camera import Camera, OrbitController
 from vpt_tpu.scene.volume import Volume
 from vpt_tpu.session import RenderSession as JaxSession
 from vpt_tpu.utils.config import LightConfig, MaterialTF, MCMSpectralConfig, SpectrumConfig
+from vpt_tpu_torch import convert
+from vpt_tpu_torch import scene as TSC
 from vpt_tpu_torch.kernels import mcm_spectral as K
 from vpt_tpu_torch.postprocess import tonemap as TT
 from vpt_tpu_torch.session import RenderSession, frame_seed
@@ -33,6 +35,12 @@ def session_args():
             MCMSpectralConfig(extinction=20.0, steps=4))
 
 
+@pytest.fixture(scope="module")
+def port_args(session_args):
+    """``session_args`` as the port's own scene and config types."""
+    return (session_args[0], *convert.scene_from(*session_args[1:]))
+
+
 def _state_arrays(session):
     s = session.state
     if hasattr(s, "tensors"):
@@ -40,9 +48,9 @@ def _state_arrays(session):
     return [np.asarray(x) for x in s]
 
 
-def test_session_image_u8_matches_jax(session_args):
+def test_session_image_u8_matches_jax(session_args, port_args):
     K.reset_launch_counts()
-    a = RenderSession(*session_args, resolution=RES, base_seed=3, device="cpu").run(3)
+    a = RenderSession(*port_args, resolution=RES, base_seed=3, device="cpu").run(3)
     b = JaxSession(*session_args, resolution=RES, base_seed=3).run(3)
     ua, ub = a.image_u8(), b.image_u8()
     assert ua.shape == ub.shape == (RES, RES, 3) and ua.dtype == np.uint8
@@ -54,25 +62,25 @@ def test_session_image_u8_matches_jax(session_args):
     assert not any(K.LAUNCHES.values()), K.LAUNCHES
 
 
-def test_checkpoint_resume(tmp_path, session_args):
-    a = RenderSession(*session_args, resolution=16, base_seed=5, device="cpu")
+def test_checkpoint_resume(tmp_path, port_args):
+    a = RenderSession(*port_args, resolution=16, base_seed=5, device="cpu")
     a.run(3)
     ckpt = str(tmp_path / "ck.npz")
     a.save_checkpoint(ckpt)
     a.run(2)
-    b = RenderSession(*session_args, resolution=16, base_seed=5, device="cpu")
+    b = RenderSession(*port_args, resolution=16, base_seed=5, device="cpu")
     b.load_checkpoint(ckpt)
     assert b.frame == 3
     b.run(2)
     np.testing.assert_array_equal(a.hdr_image(), b.hdr_image())
 
 
-def test_jax_checkpoint_loads_into_port(tmp_path, session_args):
+def test_jax_checkpoint_loads_into_port(tmp_path, session_args, port_args):
     j = JaxSession(*session_args, resolution=16, base_seed=9, streams=2)
     j.run(2)
     ckpt = str(tmp_path / "jax.npz")
     j.save_checkpoint(ckpt)
-    t = RenderSession(*session_args, resolution=16, base_seed=0, streams=2, device="cpu")
+    t = RenderSession(*port_args, resolution=16, base_seed=0, streams=2, device="cpu")
     t.load_checkpoint(ckpt)
     assert t.frame == 2 and t.base_seed == 9
     for x, y in zip(_state_arrays(t), _state_arrays(j)):
@@ -85,11 +93,11 @@ def test_jax_checkpoint_loads_into_port(tmp_path, session_args):
         np.testing.assert_array_equal(x, y)
 
 
-def test_checkpoint_rejects_other_renderer_and_shape(tmp_path, session_args):
-    a = RenderSession(*session_args, resolution=16, device="cpu").run(1)
+def test_checkpoint_rejects_other_renderer_and_shape(tmp_path, port_args):
+    a = RenderSession(*port_args, resolution=16, device="cpu").run(1)
     ckpt = str(tmp_path / "ck.npz")
     a.save_checkpoint(ckpt)
-    b = RenderSession(*session_args, resolution=8, device="cpu")
+    b = RenderSession(*port_args, resolution=8, device="cpu")
     with pytest.raises(ValueError):
         b.load_checkpoint(ckpt)
     data = dict(np.load(ckpt))
@@ -99,13 +107,13 @@ def test_checkpoint_rejects_other_renderer_and_shape(tmp_path, session_args):
         a.load_checkpoint(str(tmp_path / "other.npz"))
 
 
-def test_set_camera_resets_and_progress_path(session_args):
-    s = RenderSession(*session_args, resolution=16, device="cpu")
+def test_set_camera_resets_and_progress_path(port_args):
+    s = RenderSession(*port_args, resolution=16, device="cpu")
     seen = []
     s.run(2, progress=seen.append)
     assert seen == [1, 2] and s.frame == 2
-    cam = Camera()
-    OrbitController(yaw=1.0).apply(cam)
+    cam = TSC.Camera()
+    TSC.OrbitController(yaw=1.0).apply(cam)
     s.set_camera(cam)
     assert s.frame == 0 and s.hdr is None
     assert frame_seed(0, 1) != frame_seed(0, 2)

@@ -39,7 +39,7 @@ def _ramp_tf():
 
 
 def _load_volume(args):
-    from vpt_tpu.scene.volume import Volume
+    from vpt_tpu_torch.scene.volume import Volume
 
     if args.volume == "sphere_in_cube":
         return Volume.sphere_in_cube(args.volume_size)
@@ -101,8 +101,8 @@ def _check_ported(args):
 
 
 def _make_session(args):
-    from vpt_tpu.scene.camera import OrbitController
-    from vpt_tpu.utils.config import LightConfig, MaterialTF, MCMSpectralConfig, SpectrumConfig
+    from vpt_tpu_torch.scene.camera import OrbitController
+    from vpt_tpu_torch.utils.config import LightConfig, MaterialTF, MCMSpectralConfig, SpectrumConfig
     from vpt_tpu_torch.session import RenderSession
 
     _check_ported(args)
@@ -157,7 +157,7 @@ def cmd_render(args):
 def cmd_animate(args):
     import os
 
-    from vpt_tpu.scene.camera import CircleAnimator
+    from vpt_tpu_torch.scene.camera import CircleAnimator
 
     sess = _make_session(args)
     os.makedirs(args.output, exist_ok=True)
@@ -188,7 +188,7 @@ def cmd_tonemappers(_args):
 def cmd_info(_args):
     import torch
 
-    from vpt_tpu.scene import native_io
+    from vpt_tpu_torch.scene import native_io
 
     cuda = torch.cuda.is_available()
     print(json.dumps({
@@ -211,9 +211,9 @@ def cmd_invert(args):
     _check_ported(args)
     device = _device(args)
 
-    from vpt_tpu.scene.camera import Camera
-    from vpt_tpu.scene.volume import Volume
-    from vpt_tpu.utils.config import LightConfig, MaterialTF, MCMSpectralConfig, SpectrumConfig
+    from vpt_tpu_torch.scene.camera import Camera
+    from vpt_tpu_torch.scene.volume import Volume
+    from vpt_tpu_torch.utils.config import LightConfig, MaterialTF, MCMSpectralConfig, SpectrumConfig
     from vpt_tpu_torch.models.mcm_spectral import MCMSpectralRenderer
     from vpt_tpu_torch.optim import fit_spectral
 

@@ -6,6 +6,14 @@ With these the two packages run the same dispatch from the same inputs:
 and ``ctx_from_numpy`` on the JAX ``SpectralCtx``'s arrays; the backward's
 packed adjoints and raw-table gradients cross with ``adjoints_from_numpy``
 and ``grads_to_numpy``.
+
+The scene and config objects cross the same way: ``camera_from``,
+``volume_from``, ``light_from``, ``material_from``, ``spectrum_from`` and
+``mcm_spectral_config_from`` build the port's own types
+(``vpt_tpu_torch.scene``, ``vpt_tpu_torch.utils.config``) from any object
+with the JAX package's fields, reading only plain values and numpy arrays;
+``scene_from`` picks the function by the object's type name. The port's
+types keep the JAX package's fields, so that package reads them as well.
 """
 
 from __future__ import annotations
@@ -15,6 +23,9 @@ import torch
 
 from vpt_tpu_torch.models.mcm_spectral import SpectralCtx, SpectralState
 from vpt_tpu_torch.ops.interp import PackedVolume
+from vpt_tpu_torch.scene.camera import Camera
+from vpt_tpu_torch.scene.volume import Volume
+from vpt_tpu_torch.utils.config import LightConfig, MaterialTF, MCMSpectralConfig, SpectrumConfig
 
 
 def state_from_numpy(fields: dict, device) -> SpectralState:
@@ -44,7 +55,11 @@ def ctx_from_numpy(*, inv_mvp, seed_bits, extinction, blur, max_bounces,
     (``density_dims`` None); both become a flat table. ``environment`` is
     the packed (He+1, We+1, 12) map and ``majorant`` the (Gz, Gy, Gx, 2)
     grid, as the JAX ctx holds them; ``volume_filter`` is the JAX render
-    functions' static argument."""
+    functions' static argument. ``material_tf`` is the fused (Hp, Wp, 18)
+    table, whose light pair (channels 16:18) every density row repeats, as
+    ``interp.pack_tex2d_with_tex1d`` packs it: the forward kernel reads an
+    escaping lane's light from row 0, so a table whose rows differ there
+    is refused."""
 
     def dev(a):
         return torch.as_tensor(np.array(a), device=device)
@@ -57,6 +72,11 @@ def ctx_from_numpy(*, inv_mvp, seed_bits, extinction, blur, max_bounces,
         density_table = density_table.reshape(-1, density_table.shape[-1])
     elif density_dims is None:
         raise ValueError("a flat density table needs density_dims")
+    material_tf = np.asarray(material_tf, np.float32)
+    if material_tf.ndim == 3 and material_tf.shape[-1] == 18 and not np.array_equal(
+            material_tf[..., 16:18], np.broadcast_to(material_tf[:1, :, 16:18],
+                                                     material_tf[..., 16:18].shape)):
+        raise ValueError("material_tf's light pair (channels 16:18) differs between density rows")
 
     return SpectralCtx(
         inv_mvp=np.asarray(inv_mvp, np.float32),
@@ -66,7 +86,7 @@ def ctx_from_numpy(*, inv_mvp, seed_bits, extinction, blur, max_bounces,
         max_bounces=int(max_bounces),
         light_direction=np.asarray(light_direction, np.float32),
         density=PackedVolume(dev(density_table), tuple(density_dims)),
-        material_tf=dev(np.asarray(material_tf, np.float32)),
+        material_tf=dev(material_tf),
         light_spectrum=dev(np.asarray(light_spectrum, np.float32)),
         boundaries=np.asarray(boundaries, np.float32),
         bin_xyz=dev(np.asarray(bin_xyz, np.float32)),
@@ -90,3 +110,52 @@ def adjoints_from_numpy(acc: dict, device) -> dict:
 def grads_to_numpy(grads: dict) -> dict:
     """Gradients (or adjoints) of the port as numpy arrays, by key."""
     return {k: v.detach().cpu().numpy() for k, v in grads.items()}
+
+
+def camera_from(camera) -> Camera:
+    """The port's ``Camera`` with the fields of ``camera``."""
+    return Camera(fovy=float(camera.fovy), aspect=float(camera.aspect), near=float(camera.near),
+                  far=float(camera.far), rotation=np.array(camera.rotation, np.float64),
+                  translation=np.array(camera.translation, np.float64))
+
+
+def volume_from(volume) -> Volume:
+    """The port's ``Volume`` over the same density array and filter."""
+    return Volume(density=np.asarray(volume.density), filter=str(volume.filter))
+
+
+def light_from(light) -> LightConfig:
+    return LightConfig(direction=tuple(float(v) for v in light.direction),
+                       spectrum=tuple(float(v) for v in light.spectrum))
+
+
+def material_from(material) -> MaterialTF:
+    return MaterialTF(np.array(material.table, np.float32))
+
+
+def spectrum_from(spectrum) -> SpectrumConfig:
+    return SpectrumConfig(tuple(float(b) for b in spectrum.boundaries))
+
+
+def mcm_spectral_config_from(config) -> MCMSpectralConfig:
+    return MCMSpectralConfig(extinction=float(config.extinction),
+                             anisotropy=float(config.anisotropy), bounces=int(config.bounces),
+                             steps=int(config.steps), blur=float(config.blur))
+
+
+_BY_TYPE = {"Camera": camera_from, "Volume": volume_from, "LightConfig": light_from,
+            "MaterialTF": material_from, "SpectrumConfig": spectrum_from,
+            "MCMSpectralConfig": mcm_spectral_config_from}
+
+
+def scene_from(*objects):
+    """The port's counterpart of each scene or config object, by its type
+    name (Camera, Volume, LightConfig, MaterialTF, SpectrumConfig,
+    MCMSpectralConfig); one object gives one result, several a tuple."""
+    out = []
+    for obj in objects:
+        name = type(obj).__name__
+        if name not in _BY_TYPE:
+            raise TypeError(f"no port counterpart for {name}")
+        out.append(_BY_TYPE[name](obj))
+    return out[0] if len(out) == 1 else tuple(out)

@@ -4,9 +4,15 @@
 library with a plain C interface, on first use, into
 ``vpt_tpu_torch/_build/`` (listed in .gitignore). The nvcc processes of the
 sources that need a build run at the same time. Each library is named by a
-hash of its source, the shared headers (``csrc/*.cuh``) and the flags, so an
-edited source builds anew and an unchanged one loads at once. A build or
-load failure raises.
+hash of its source, the shared headers (``*.cuh`` beside it) and the flags,
+so an edited source builds anew and an unchanged one loads at once. A build
+or load failure raises.
+
+``load(BASELINE_DIR)`` builds and loads ``csrc/baseline/``, the step
+kernels as they were before their redesign for Hopper (the same C
+interface), which ``chip_smoke.py`` checks and times beside the current
+ones from a checkout; the wrappers never load it and the installed
+package does not carry it.
 
 Flags: ``sm_90a`` (Hopper), no fast math, and ``-fmad=false`` so that the
 lerps ``a + (b - a) * f`` round like the JAX reference instead of
@@ -15,9 +21,11 @@ contracting into FMAs.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -27,6 +35,7 @@ from types import SimpleNamespace
 
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
+BASELINE_DIR = CSRC_DIR / "baseline"
 BUILD_DIR = PACKAGE_DIR / "_build"
 
 NVCC_FLAGS = (
@@ -36,10 +45,13 @@ NVCC_FLAGS = (
     "-Xptxas", "-v",
 )
 
-_lock = threading.Lock()
-_lib = None
-# what the last build printed (ptxas register/spill report) and how long it took
-build_info = {"seconds": None, "log": "", "path": None}
+_lock = threading.Lock()  # guards _locks
+_locks = {}  # one per source directory, so several build at once
+_libs = {}
+# per source directory: what its build printed (the ptxas register/spill
+# report) and how long it took; build_info is the package's own sources'
+build_infos = {}
+build_info = build_infos.setdefault(CSRC_DIR, {"seconds": None, "log": "", "path": None})
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -83,23 +95,25 @@ def find_nvcc() -> str:
     raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
 
 
-def _sources():
-    srcs = {s.stem: s for s in sorted(CSRC_DIR.glob("*.cu"))}
-    if set(srcs) != set(_SIGNATURES):
-        raise RuntimeError(f"CUDA sources under {CSRC_DIR} are {sorted(srcs)}, "
-                           f"the loader expects {sorted(_SIGNATURES)}")
+def _sources(csrc: Path):
+    srcs = {s.stem: s for s in sorted(csrc.glob("*.cu"))}
+    want = set(_SIGNATURES) if csrc == CSRC_DIR else set(srcs) & set(_SIGNATURES)
+    if set(srcs) != want or not srcs:
+        raise RuntimeError(f"CUDA sources under {csrc} are {sorted(srcs)}, "
+                           f"the loader expects {sorted(want or _SIGNATURES)}")
     return srcs
 
 
 def library_path(src: Path) -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for s in [src, *sorted(CSRC_DIR.glob("*.cuh"))]:
+    for s in [src, *sorted(src.parent.glob("*.cuh"))]:
         h.update(s.name.encode())
         h.update(s.read_bytes())
-    return BUILD_DIR / f"libvpt_{src.stem}_{h.hexdigest()[:16]}.so"
+    tag = "" if src.parent == CSRC_DIR else f"{src.parent.name}_"
+    return BUILD_DIR / f"libvpt_{tag}{src.stem}_{h.hexdigest()[:16]}.so"
 
 
-def _compile(jobs):
+def _compile(jobs, info):
     """Run one nvcc per (source, output) pair, all at once; raise if any fails."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = find_nvcc()
@@ -119,26 +133,30 @@ def _compile(jobs):
             failed.append(f"{src.name} ({proc.returncode})")
         else:
             os.replace(tmp, out)  # atomic: concurrent builders never load a partial file
-    build_info["seconds"] = time.perf_counter() - t0
-    build_info["log"] = "\n".join(logs)
+    info["seconds"] = time.perf_counter() - t0
+    info["log"] = "\n".join(logs)
     if failed:
-        raise RuntimeError(f"nvcc failed for {', '.join(failed)}:\n{build_info['log']}")
+        raise RuntimeError(f"nvcc failed for {', '.join(failed)}:\n{info['log']}")
 
 
-def load():
-    """Build (if needed) and load the kernel libraries; returns a namespace
-    holding every C function of every source, with its ctypes signature."""
-    global _lib
+def load(csrc: Path = CSRC_DIR):
+    """Build (if needed) and load the kernel libraries of ``csrc``; returns
+    a namespace holding every C function of every source, with its ctypes
+    signature."""
+    csrc = Path(csrc)
     with _lock:
-        if _lib is not None:
-            return _lib
-        srcs = _sources()
+        lock = _locks.setdefault(csrc, threading.Lock())
+    with lock:
+        if csrc in _libs:
+            return _libs[csrc]
+        info = build_infos.setdefault(csrc, {"seconds": None, "log": "", "path": None})
+        srcs = _sources(csrc)
         paths = {stem: library_path(src) for stem, src in srcs.items()}
         missing = [(srcs[stem], p) for stem, p in paths.items() if not p.exists()]
         if missing:
-            _compile(missing)
+            _compile(missing, info)
         else:
-            build_info["seconds"] = 0.0
+            info["seconds"] = 0.0
         fns = {}
         for stem, path in paths.items():
             lib = ctypes.CDLL(str(path))
@@ -147,6 +165,44 @@ def load():
                 fn.argtypes = argtypes
                 fn.restype = restype
                 fns[name] = fn
-        build_info["path"] = {stem: str(p) for stem, p in paths.items()}
-        _lib = SimpleNamespace(**fns)
-        return _lib
+        info["path"] = {stem: str(p) for stem, p in paths.items()}
+        _libs[csrc] = SimpleNamespace(**fns)
+        return _libs[csrc]
+
+
+@contextlib.contextmanager
+def routed(lib):
+    """Route every wrapper's ``load()`` to ``lib`` (the parent design's
+    build, ``load(BASELINE_DIR)``) while inside; ``chip_smoke.py`` checks
+    and times it so."""
+    global load
+    current = load
+    load = lambda *a, **kw: lib  # noqa: E731
+    try:
+        yield
+    finally:
+        load = current
+
+
+def ptxas_table(log_text):
+    """[(kernel, template args, registers, spill store B, spill load B)] of
+    the step kernels (K1 step_kernel, K4 tape_forward_kernel) in a ptxas -v
+    log; template args as NB,MAJ,ENV (K1) or NB (K4)."""
+    rows, cur = [], None
+    for line in log_text.splitlines():
+        m = re.search(r"Compiling entry function '\S*?(step_kernel|tape_forward_kernel)I(\S*?)EEEv", line)
+        if m:
+            args = ",".join(a or b for a, b in re.findall(r"Li(\d+)E|Lb(\d)", m.group(2) + "E"))
+            cur = [m.group(1), args, None, None, None]
+            continue
+        if cur is None:
+            continue
+        s = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if s:
+            cur[3], cur[4] = int(s.group(1)), int(s.group(2))
+        r = re.search(r"Used (\d+) registers", line)
+        if r:
+            cur[2] = int(r.group(1))
+            rows.append(tuple(cur))
+            cur = None
+    return rows

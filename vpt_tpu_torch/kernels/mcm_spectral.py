@@ -395,11 +395,16 @@ def _check_layout(lib):
 
 
 def _check_tables(ctx):
+    """Shapes, types and alignment of the scene tables. Not checked here, once
+    per context instead (``convert.ctx_from_numpy``; the packers hold it by
+    construction): every density row of ``material_tf`` repeats the light
+    pair, which K1 reads from row 0 for a lane that left the volume."""
     vol = ctx.density
     _check(vol.table, "density table", vol.table.dtype, (int(np.prod(vol.dims)), 8), align=16)
     if ctx.material_tf.ndim != 3 or ctx.material_tf.shape[-1] != 18:
         raise ValueError(f"material_tf must be a fused (Hp, Wp, 18) table, got {tuple(ctx.material_tf.shape)}")
-    _check(ctx.material_tf, "material_tf", torch.float32)
+    # float2 loads of its corner channels: 8-byte aligned
+    _check(ctx.material_tf, "material_tf", torch.float32, align=8)
     if ctx.volume_filter not in ("linear", "quasicubic"):
         raise ValueError(f"volume filter {ctx.volume_filter!r} needs raw tables")
     if ctx.majorant is not None:

@@ -4,7 +4,7 @@ Counterpart of ``vpt_tpu/models/mcm_spectral.py`` on packed tables (flat
 corner table, u8 when the source volume is u8-quantized, plus the fused
 (257, 257, 18) TF+light table), with its modes: linear or quasicubic
 filter; the exact global majorant or the super-voxel majorant grid
-(``majorant_blocks``, built by ``vpt_tpu/ops/majorant.py`` from the raw
+(``majorant_blocks``, built by ``ops/majorant.py`` from the raw
 density and TF); a directional (or isotropic) light or an equirect
 environment map; and hit-lane compaction (``compaction=True``,
 ``models/mcm_spectral_compact.py``).
@@ -30,12 +30,12 @@ import numpy as np
 import torch
 from torch import nn
 
-from vpt_tpu.ops.majorant import build_majorant_grid
-from vpt_tpu.utils.config import LightConfig, MaterialTF, MCMSpectralConfig, SpectrumConfig
 from vpt_tpu_torch.kernels import mcm_spectral as K
 from vpt_tpu_torch.models.base import register_renderer
 from vpt_tpu_torch.ops import interp
+from vpt_tpu_torch.ops.majorant import build_majorant_grid
 from vpt_tpu_torch.ops.spectral import bin_coefficients, xyz_to_rgb_linear
+from vpt_tpu_torch.utils.config import LightConfig, MaterialTF, MCMSpectralConfig, SpectrumConfig
 
 
 @dataclass

@@ -19,7 +19,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from vpt_tpu.scene.camera import Camera
+from vpt_tpu_torch.scene.camera import Camera
 from vpt_tpu_torch.models import make_renderer
 from vpt_tpu_torch.postprocess.tonemap import make_tonemapper
 
