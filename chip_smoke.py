@@ -4,36 +4,38 @@
 
 Phases (each raises on failure, so any failure exits non-zero):
   1. the card's name and power limit (nvidia-smi); no CUDA -> exit 1
-  2. build the kernels of vpt_tpu_torch/csrc with nvcc (sm_90a), and the
-     parent design's step kernels (csrc/baseline) beside them; print the
-     ptxas registers and spills of every K1 and K4 instantiation of both
+  2. build the kernels of vpt_tpu_torch/csrc with nvcc (sm_90a, one nvcc
+     per source, all at once); print the ptxas registers, spills and
+     stack frame of every instantiation of K1, K4, K5, K9, K10 and K11
   3. sample_volume_packed vs its plain version: all 256 u8 codes exact;
-     timed at 1M lookups against F.grid_sample on the float volume
-  4. mcm_spectral_reset vs its plain version at 512^2 x 4 streams, and
-     equal to the parent design's K2 bit for bit; timed parent, current,
-     current, parent
+     timed at 1M lookups by device time (CUDA-graph replay) against
+     F.grid_sample on the float volume, host path beside it
+  4. mcm_spectral_reset vs its plain version at 512^2 x 4 streams, two
+     runs equal bit for bit; device time and host path
   5. mcm_spectral_step vs its plain version at 512^2 x 4 streams,
      2 dispatches (the oracle contract), and bit-identical reruns; the
      same at 64^2 x 2 streams with 24 bins (the kernel's >16-bin build);
-     equal to the parent design's K1 in every field; one dispatch timed
-     parent, current, current, parent
+     one dispatch timed
   6. the main path: RenderSession("mcm-spectral", ...) on the bench scene
      (512^2, 4 streams, 128^3 u8 sphere_in_cube, 12 bins, 8 steps),
      64 dispatches, launch counts and outputs checked; then the same
-     dispatches through the plain step and through the parent design's K1
-     for comparison
+     dispatches by render_many (the session's state bit for bit) and
+     through the plain step
   7. prb_tape_forward (K4) at 512^2 x 4 streams, 2 dispatches, every wrt
      field, on the u8 table and on an f32 table: its state equals K1's
-     bit for bit, its tape equals the plain tape and the parent design's
-     tape, two runs are identical; timed parent, current, current, parent
+     bit for bit, its tape equals the plain tape, two runs are identical
   8. prb_reverse (K5) on that tape, window mode, stride 1 / stride 4 /
      importance 4: within 1e-4 relative L2 of its plain version, two runs
      within 1e-5, gradients finite and nonzero
-  9. the training path: fit_spectral(method="prb") on the bench scene at
-     full width, 3 iterations each at stride 1 / stride 4 / importance 4,
-     launch counts, losses and params checked; then fwd+bwd windows timed
-     as bench.py times them, against one window of the plain versions; the
-     window's K4 sweep also through the parent design's K4
+  9. K9 contract_corners and K10 pack_corners at the bench's table sizes,
+     equal to their plain versions bit for bit; then the training path:
+     fit_spectral(method="prb") on the bench scene at full width, 3
+     iterations each at stride 1 / stride 4 / importance 4, launch counts
+     (K4, K5, K9, K10), losses and params checked; then fwd+bwd windows
+     timed as bench.py times them, split into the K4 sweep, K5, the
+     reverse sweep and K9, against one window of the plain versions; at
+     stride 1 also K5 without scatters (a tape of the carry's fields) and
+     its volume-row scatter alone (K11 on the window's event rows)
  10. the gather tool (K6 gather_scalar, K7 gather_lanewise): exact
      against its plain versions on ragged shapes and at every size of the
      TPU tools at L and 16 L lookups, K7's plan (shared memory for
@@ -51,11 +53,16 @@ Phases (each raises on failure, so any failure exits non-zero):
  13. hit-lane compaction on the bench scene at the default pose: compact
      K2/K1 equal plain in every field, K8 compact_image equals plain bit
      for bit, two runs give equal images, hit pixels match the full
-     kernel (rtol 1e-5); compact vs full Mpaths/s; one session with
-     compaction + majorant + quasicubic + environment together
+     kernel (rtol 1e-5); K2 and K8 by device time; compact vs full
+     Mpaths/s; one session with compaction + majorant + quasicubic +
+     environment together
  14. the CLI: `python -m vpt_tpu_torch.cli render --device cuda
      --majorant-blocks 8 --compaction --envmap <seeded .npy> -o <tmp>.npy`
      exits 0, writes the image, prints the metrics JSON
+ 15. the scatter ceiling (bench.py's measure_ceilings method): K11
+     scatter_rows, two float4 atomics per index on 16 x 1M uniform random
+     rows of the 129^3-row table, equal to its plain version, timed by
+     device time against index_add_
 The line before the last is a JSON object with each kernel's launches,
 error and times, its bound (the larger of the bytes it must move over the
 HBM rate and the FP32 operations this run's data needs over the FP32
@@ -67,7 +74,6 @@ function where there is one; the last line is {"ok": true, "device":
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 import json
 import os
@@ -75,7 +81,6 @@ import subprocess
 import sys
 import tempfile
 import time
-from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -84,6 +89,7 @@ RES, STREAMS, VOLUME, STEPS, BINS, FRAMES = 512, 4, 128, 8, 12, 64
 SOURCE = "vpt_tpu_torch/csrc/mcm_spectral.cu"
 BWD_SOURCE = "vpt_tpu_torch/csrc/spectral_backward.cu"
 GATHER_SOURCE = "vpt_tpu_torch/csrc/gather_bench.cu"
+CORNERS_SOURCE = "vpt_tpu_torch/csrc/corners.cu"
 MODES = ((1, "stride"), (4, "stride"), (4, "importance"))
 CHUNK, FIT_ITERS, WINDOWS = 4, 3, 8
 TAPE_SHARE_MIN = 0.999  # least share of lane-steps where K4's tape equals plain, per field
@@ -197,29 +203,14 @@ def kernel_line(entry, bnd, library_ms=None):
     return entry
 
 
-def parent_lib():
-    """The parent design's step kernels (csrc/baseline), built and loaded."""
-    from vpt_tpu_torch.kernels import _build
+def device_ms(fn) -> float:
+    """Device time per call of ``fn``: 20 calls captured into one CUDA graph
+    and replayed between CUDA events (``tools/gather_bench.graph_ms``), so
+    the wrapper's host path (checks, allocation, ctypes) runs only at
+    capture. ``fn`` must copy nothing from the host."""
+    from vpt_tpu_torch.tools import gather_bench as G
 
-    return _build.load(_build.BASELINE_DIR)
-
-
-def parent_kernels():
-    """Route the wrappers to the parent design's libraries while inside."""
-    from vpt_tpu_torch.kernels import _build
-
-    return _build.routed(parent_lib())
-
-
-def parent_vs_current(fn, reps):
-    """``cuda_ms(fn, reps)`` through the parent design's kernels and the
-    current ones, in the order parent, current, current, parent; returns
-    (parent times, current times)."""
-    times = {"parent": [], "current": []}
-    for which in ("parent", "current", "current", "parent"):
-        with parent_kernels() if which == "parent" else contextlib.nullcontext():
-            times[which].append(cuda_ms(fn, reps))
-    return times["parent"], times["current"]
+    return G.graph_ms(fn)
 
 
 def bench_scene_args():
@@ -272,17 +263,12 @@ def check_mode(ctx, state0, seeds, n_bins, label, lanes=None):
     from vpt_tpu_torch.kernels import mcm_spectral as K
 
     sk, sk2, sp = clone_state(state0), clone_state(state0), clone_state(state0)
-    spar = clone_state(state0)
     K.step(sk, ctx, seeds, STEPS, n_bins, lanes)
     K.step(sk2, ctx, seeds, STEPS, n_bins, lanes)
     K.step_plain(sp, ctx, seeds, STEPS, n_bins, lanes)
-    with parent_kernels():
-        K.step(spar, ctx, seeds, STEPS, n_bins, lanes)
     torch.cuda.synchronize()
     if first_difference(sk, sk2) is not None:
         raise AssertionError(f"K1 {label}: two runs differ in {first_difference(sk, sk2)}")
-    if first_difference(sk, spar) is not None:
-        raise AssertionError(f"K1 {label} != the parent design's K1: {first_difference(sk, spar)}")
     diff = first_difference(sk, sp)
     err = float((sk.radiance - sp.radiance).abs().nan_to_num(0.0).max())
     shape = "x".join(map(str, sk.px.shape))
@@ -290,7 +276,7 @@ def check_mode(ctx, state0, seeds, n_bins, label, lanes=None):
         + ("every state field equal bit for bit" if diff is None else
            f"first difference in {diff[0]} on {diff[1]} lanes (first flat lane {diff[2]}), "
            f"radiance max abs {err:.3g}")
-        + f"; equal to the parent design's K1; samples {int(sk.samples.sum())}")
+        + f"; samples {int(sk.samples.sum())}")
     if diff is not None:
         raise AssertionError(f"K1 {label} != plain: {diff}")
     if int(sk.samples.sum()) <= 0:
@@ -305,17 +291,14 @@ def mode_entry(name, replaces, ctx, state0, n_bins, lanes=None, err=0.0):
 
     sk, sp = clone_state(state0), clone_state(state0)
     one = [2654435761]
-    parent, current = parent_vs_current(lambda: K.step(sk, ctx, one, STEPS, n_bins, lanes), 10)
-    ms = float(np.mean(current))
+    ms = cuda_ms(lambda: K.step(sk, ctx, one, STEPS, n_bins, lanes), 20)
     plain_ms = cuda_ms(lambda: K.step_plain(sp, ctx, one, STEPS, n_bins, lanes), 2)
     b = step_bound(ctx, state0, one, n_bins, ms, lanes)
-    log(f"# {name}: one dispatch {ms:.4f} ms kernel ({current[0]:.4f}, {current[1]:.4f}) vs "
-        f"parent design {parent[0]:.4f}, {parent[1]:.4f} ms, plain {plain_ms:.4f} ms; bound "
+    log(f"# {name}: one dispatch {ms:.4f} ms kernel, plain {plain_ms:.4f} ms; bound "
         f"{b['bound_ms']:.4f} ms by {b['bound_by']} ({b['bound_bytes']} B, {b['bound_ops']} "
         f"FP32 ops), share {b['bound_share']:.3f}")
     return kernel_line(dict(name=name, route="cuda", source=SOURCE, replaces=replaces,
-                            max_abs_err=err, ms=ms, plain_ms=plain_ms, current_ms=current,
-                            parent_ms=parent), b)
+                            max_abs_err=err, ms=ms, plain_ms=plain_ms), b)
 
 
 def require_launches(launches, keys, what):
@@ -533,14 +516,15 @@ def phase_compaction(dev):
     torch.cuda.synchronize()
     if first_difference(got, plain) is not None:
         raise AssertionError(f"compact K2 != plain: {first_difference(got, plain)}")
-    k2_ms = cuda_ms(lambda: K.reset(ctx, RES, BINS, STREAMS, dev, lanes=lanes), 20)
-    k2_plain_ms = cuda_ms(lambda: K.reset_plain(ctx, RES, BINS, STREAMS, dev, lanes=lanes), 5)
-    log(f"# K2 over the lane table: every field equal to plain; {k2_ms:.4f} ms kernel vs "
-        f"{k2_plain_ms:.4f} ms plain")
+    k2_ms = device_ms(lambda: K.reset(ctx, RES, BINS, STREAMS, dev, lanes=lanes))
+    k2_host_ms = cuda_ms(lambda: K.reset(ctx, RES, BINS, STREAMS, dev, lanes=lanes), 20)
+    k2_plain_ms = device_ms(lambda: K.reset_plain(ctx, RES, BINS, STREAMS, dev, lanes=lanes))
+    log(f"# K2 over the lane table: every field equal to plain; device {k2_ms:.4f} ms kernel vs "
+        f"{k2_plain_ms:.4f} ms plain; host path {k2_host_ms:.4f} ms")
     k2 = kernel_line(dict(name="mcm_spectral_reset[lane_table]", route="cuda", source=SOURCE,
                           replaces="vpt_tpu/models/mcm_spectral_compact.py:328", max_abs_err=0.0,
-                          ms=k2_ms, plain_ms=k2_plain_ms), reset_bound(got.px.numel(), k2_ms,
-                                                                       lanes=True))
+                          ms=k2_ms, plain_ms=k2_plain_ms, host_ms=k2_host_ms),
+                     reset_bound(got.px.numel(), k2_ms, lanes=True))
 
     # K1 over the lane table, then K8 on its state
     seeds2 = [2654435761 * k % 2**32 for k in (1, 2)]
@@ -553,19 +537,21 @@ def phase_compaction(dev):
     torch.cuda.synchronize()
     if not (torch.equal(a.view(torch.int32), p.view(torch.int32)) and torch.equal(a, b)):
         raise AssertionError(f"K8 compact_image != plain on {int((a != p).sum())} values")
-    k8_ms = cuda_ms(lambda: K.compact_radiance(sk.radiance, t["pixel_hit"], t["miss"], n_hit,
-                                               STREAMS), 50)
+    k8_ms = device_ms(lambda: K.compact_radiance(sk.radiance, t["pixel_hit"], t["miss"], n_hit,
+                                                 STREAMS))
+    k8_host_ms = cuda_ms(lambda: K.compact_radiance(sk.radiance, t["pixel_hit"], t["miss"],
+                                                    n_hit, STREAMS), 50)
     k8_plain_ms = cuda_ms(lambda: K.compact_radiance_plain(sk.radiance, t["pixel_hit"],
                                                            t["miss"], n_hit, STREAMS), 10)
-    log(f"# K8 compact_image: equal to plain bit for bit, reruns identical; {k8_ms:.4f} ms "
-        f"kernel vs {k8_plain_ms:.4f} ms plain")
+    log(f"# K8 compact_image: equal to plain bit for bit, reruns identical; device {k8_ms:.4f} "
+        f"ms kernel vs {k8_plain_ms:.4f} ms plain; host path {k8_host_ms:.4f} ms")
     # K8 reads the S stream lanes of each hit pixel and the closed form of
     # every pixel, writes every pixel, per bin; no arithmetic to speak of
     n_pix = RES * RES
     k8_bytes = BINS * (STREAMS * n_hit + 2 * n_pix) * 4 + n_pix * 4
     k8 = kernel_line(dict(name="compact_image", route="cuda", source=SOURCE,
                           replaces="vpt_tpu/models/mcm_spectral_compact.py:380", max_abs_err=0.0,
-                          ms=k8_ms, plain_ms=k8_plain_ms),
+                          ms=k8_ms, plain_ms=k8_plain_ms, host_ms=k8_host_ms),
                      bound(k8_bytes, BINS * STREAMS * n_hit, k8_ms))
 
     # two runs give equal images; hit pixels match the full kernel
@@ -687,8 +673,9 @@ def phase_k3(dev):
     vol = interp.pack_volume_auto(bench_scene_args()[0].density, dev)
     n = RES * RES * STREAMS
     uu, vv, ww = (torch.rand(n, device=dev) for _ in range(3))
-    ms = cuda_ms(lambda: K.sample_volume_packed(vol.table, vol.dims, uu, vv, ww), 50)
-    plain_ms = cuda_ms(lambda: K.sample_volume_packed_plain(vol.table, vol.dims, uu, vv, ww), 10)
+    ms = device_ms(lambda: K.sample_volume_packed(vol.table, vol.dims, uu, vv, ww))
+    host_ms = cuda_ms(lambda: K.sample_volume_packed(vol.table, vol.dims, uu, vv, ww), 50)
+    plain_ms = device_ms(lambda: K.sample_volume_packed_plain(vol.table, vol.dims, uu, vv, ww))
     got = K.sample_volume_packed(vol.table, vol.dims, uu, vv, ww)
     err = float((got - K.sample_volume_packed_plain(vol.table, vol.dims, uu, vv, ww)).abs().max())
     # the library call: trilinear grid_sample on the float volume, texel
@@ -703,17 +690,20 @@ def phase_k3(dev):
     lib_err = float((library().reshape(-1) - got).abs().max())
     if lib_err > 1e-5:
         raise AssertionError(f"grid_sample differs from K3 by {lib_err}: not the same function")
-    library_ms = cuda_ms(library, 50)
+    library_ms = device_ms(library)
+    library_host_ms = cuda_ms(library, 50)
     # 3 coordinates in and one value out per lookup, the table once; the
     # lookup's arithmetic: 3 axes (4 each), 8 dequantizations, 7 lerps
     b = bound(n * 16 + vol.table.numel(), n * 41, ms)
-    log(f"# K3 sample_volume_packed: 256 codes exact, u8 == f32 == plain; "
+    log(f"# K3 sample_volume_packed: 256 codes exact, u8 == f32 == plain; device "
         f"{ms:.4f} ms kernel vs {plain_ms:.4f} ms plain vs {library_ms:.4f} ms "
-        f"F.grid_sample (max abs {lib_err:.3g} from K3) per {n} lookups; bound "
+        f"F.grid_sample (max abs {lib_err:.3g} from K3) per {n} lookups; host path "
+        f"{host_ms:.4f} ms kernel vs {library_host_ms:.4f} ms F.grid_sample; bound "
         f"{b['bound_ms']:.4f} ms by {b['bound_by']}, share {b['bound_share']:.3f}")
     return kernel_line(dict(name="sample_volume_packed", route="cuda", source=SOURCE,
                             replaces="vpt_tpu/ops/interp.py:371", max_abs_err=err, ms=ms,
-                            plain_ms=plain_ms, library_call="torch.nn.functional.grid_sample",
+                            plain_ms=plain_ms, host_ms=host_ms, library_host_ms=library_host_ms,
+                            library_call="torch.nn.functional.grid_sample",
                             library_max_abs_err=lib_err), b, library_ms)
 
 
@@ -722,14 +712,12 @@ def phase_k2(renderer, camera, dev):
 
     ctx = renderer.ctx(camera, 1)
     got = K.reset(ctx, RES, BINS, STREAMS, dev)
+    again = K.reset(ctx, RES, BINS, STREAMS, dev)
     plain = K.reset_plain(ctx, RES, BINS, STREAMS, dev)
-    with parent_kernels():
-        parent = K.reset(ctx, RES, BINS, STREAMS, dev)
     torch.cuda.synchronize()
     for k in got:
-        if not torch.equal(got[k].view(-1).view(torch.int32), parent[k].view(-1).view(torch.int32)):
-            raise AssertionError(f"K2 {k} != the parent design's K2 "
-                                 f"(on {int((got[k] != parent[k]).sum())} lanes)")
+        if not torch.equal(got[k].view(-1).view(torch.int32), again[k].view(-1).view(torch.int32)):
+            raise AssertionError(f"K2 {k} differs between two runs")
     for k in ("bin", "samples", "bounces", "radiance", "transmittance"):
         if not torch.equal(got[k], plain[k]):
             raise AssertionError(f"K2 {k} != plain")
@@ -737,19 +725,16 @@ def phase_k2(renderer, camera, dev):
     for k in ("px", "py", "pz", "dx", "dy", "dz", "wavelength"):
         torch.testing.assert_close(got[k], plain[k], rtol=1e-5, atol=1e-6)
         err = max(err, float((got[k] - plain[k]).abs().max()))
-    parent_ms, current = parent_vs_current(lambda: K.reset(ctx, RES, BINS, STREAMS, dev), 20)
-    ms = float(np.mean(current))
-    plain_ms = cuda_ms(lambda: K.reset_plain(ctx, RES, BINS, STREAMS, dev), 5)
+    ms = device_ms(lambda: K.reset(ctx, RES, BINS, STREAMS, dev))
+    host_ms = cuda_ms(lambda: K.reset(ctx, RES, BINS, STREAMS, dev), 20)
+    plain_ms = device_ms(lambda: K.reset_plain(ctx, RES, BINS, STREAMS, dev))
     b = reset_bound(RES * RES * STREAMS, ms)
-    log(f"# K2 mcm_spectral_reset: matches plain (max abs {err:.3g}), equal to the parent "
-        f"design's K2 in every field; {ms:.4f} ms kernel ({current[0]:.4f}, {current[1]:.4f}) "
-        f"vs parent design {parent_ms[0]:.4f}, {parent_ms[1]:.4f} ms "
-        f"({np.mean(parent_ms) / ms:.3f}x), plain {plain_ms:.4f} ms; bound "
-        f"{b['bound_ms']:.4f} ms by {b['bound_by']}, share {b['bound_share']:.3f}")
+    log(f"# K2 mcm_spectral_reset: matches plain (max abs {err:.3g}), two runs equal bit for "
+        f"bit; device {ms:.4f} ms kernel vs {plain_ms:.4f} ms plain; host path {host_ms:.4f} ms; "
+        f"bound {b['bound_ms']:.4f} ms by {b['bound_by']}, share {b['bound_share']:.3f}")
     return kernel_line(dict(name="mcm_spectral_reset", route="cuda", source=SOURCE,
                             replaces="vpt_tpu/models/mcm_spectral.py:181", max_abs_err=err,
-                            ms=ms, plain_ms=plain_ms, current_ms=current, parent_ms=parent_ms),
-                       b)
+                            ms=ms, plain_ms=plain_ms, host_ms=host_ms), b)
 
 
 def reset_bound(n_lanes, ms, lanes=False):
@@ -770,26 +755,19 @@ def check_k1(renderer, camera, n_bins):
     state0 = renderer.reset(camera, 7)
     seeds = [2654435761 * k % 2**32 for k in (1, 2)]
     sk, sk2, sp = clone_state(state0), clone_state(state0), clone_state(state0)
-    spar = clone_state(state0)
     K.step(sk, ctx, seeds, STEPS, n_bins)
     K.step(sk2, ctx, seeds, STEPS, n_bins)
     K.step_plain(sp, ctx, seeds, STEPS, n_bins)
-    with parent_kernels():
-        K.step(spar, ctx, seeds, STEPS, n_bins)
     torch.cuda.synchronize()
     for a, b in zip(sk.tensors(), sk2.tensors()):
         if not torch.equal(a, b):
             raise AssertionError("K1 is not bit-identical across two runs")
-    if first_difference(sk, spar) is not None:
-        raise AssertionError(f"K1 ({n_bins} bins) != the parent design's K1: "
-                             f"{first_difference(sk, spar)}")
     diff = first_difference(sk, sp)
     c = image_contract(radiance_to_rgb(sk.radiance, ctx.bin_xyz),
                        radiance_to_rgb(sp.radiance, ctx.bin_xyz), sk.samples, sp.samples)
     shape = "x".join(map(str, sk.px.shape))
     log(f"# K1 mcm_spectral_step vs plain, {shape} lanes, {n_bins} bins, 2 dispatches: "
-        f"{json.dumps(c)}; every state field equal to plain bit for bit: {diff is None}; "
-        f"equal to the parent design's K1 in every field")
+        f"{json.dumps(c)}; every state field equal to plain bit for bit: {diff is None}")
     if diff is not None:
         raise AssertionError(f"K1 ({n_bins} bins) != plain: {diff}")
     if not c["ok"]:
@@ -812,20 +790,17 @@ def phase_k1(renderer, camera, dev):
     ctx, sk, sp, c = check_k1(renderer, camera, BINS)
     one = [2654435761]
     s0 = clone_state(sk)
-    parent, current = parent_vs_current(lambda: K.step(sk, ctx, one, STEPS, BINS), 20)
-    ms = float(np.mean(current))
+    ms = cuda_ms(lambda: K.step(sk, ctx, one, STEPS, BINS), 40)
     plain_ms = cuda_ms(lambda: K.step_plain(sp, ctx, one, STEPS, BINS), 3)
     b = step_bound(ctx, s0, one, BINS, ms)
-    log(f"# K1 one dispatch ({STEPS} steps, {RES}^2 x {STREAMS}): {ms:.4f} ms kernel "
-        f"({current[0]:.4f}, {current[1]:.4f}) vs parent design {parent[0]:.4f}, "
-        f"{parent[1]:.4f} ms ({np.mean(parent) / ms:.3f}x), plain {plain_ms:.4f} ms; bound "
+    log(f"# K1 one dispatch ({STEPS} steps, {RES}^2 x {STREAMS}): {ms:.4f} ms kernel, "
+        f"plain {plain_ms:.4f} ms; bound "
         f"{b['bound_ms']:.4f} ms by {b['bound_by']} ({b['bound_bytes']} B, {b['bound_ops']} "
         f"FP32 ops, {b['respawns']} respawns), share {b['bound_share']:.3f}")
     return kernel_line(dict(name="mcm_spectral_step", route="cuda", source=SOURCE,
                             replaces="vpt_tpu/models/mcm_spectral.py:212",
                             pallas_counterpart="tools/pallas_step.py:125",
                             max_abs_err=c["max_abs"], ms=ms, plain_ms=plain_ms,
-                            current_ms=current, parent_ms=parent,
                             frac_channels_within_rel_1e3=c["frac_channels"],
                             frac_samples_equal=c["frac_samples_equal"]), b)
 
@@ -872,26 +847,19 @@ def phase_main(dev):
         f"({kern['bound_bytes']} B, {kern['bound_ops']} FP32 ops), share of the run's host time "
         f"{kern['bound_share']:.4f}")
 
-    # the same render_many through the parent design's K1, then the current
-    # one again: equal states, and the two rates in one call
-    rates = {}
-    for which in ("parent", "current"):
-        st = clone_state(before)
-        with parent_kernels() if which == "parent" else contextlib.nullcontext():
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            st, _ = session.renderer.render_many(st, session.camera, seeds)
-            torch.cuda.synchronize()
-            rates[which] = time.perf_counter() - t0
-        if first_difference(st, session.state) is not None:
-            raise AssertionError(f"render_many through the {which} K1 != the session's state: "
-                                 f"{first_difference(st, session.state)}")
-    kern["parent_render_many_s"] = rates["parent"]
-    kern["current_render_many_s"] = rates["current"]
-    log(f"# the same {FRAMES} dispatches by render_many: parent design {rates['parent']:.4f} s "
-        f"({lane_steps / rates['parent'] / 1e6:.1f} M lane-steps/s), current "
-        f"{rates['current']:.4f} s ({lane_steps / rates['current'] / 1e6:.1f} M lane-steps/s), "
-        f"{rates['parent'] / rates['current']:.3f}x; both end in the session's state bit for bit")
+    # the same dispatches by render_many: the session's state bit for bit
+    st = clone_state(before)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    st, _ = session.renderer.render_many(st, session.camera, seeds)
+    torch.cuda.synchronize()
+    kern["render_many_s"] = time.perf_counter() - t0
+    if first_difference(st, session.state) is not None:
+        raise AssertionError(f"render_many != the session's state: "
+                             f"{first_difference(st, session.state)}")
+    log(f"# the same {FRAMES} dispatches by render_many: {kern['render_many_s']:.4f} s "
+        f"({lane_steps / kern['render_many_s'] / 1e6:.1f} M lane-steps/s), the session's state "
+        f"bit for bit")
 
     ctx = session.renderer.ctx(session.camera, seeds[0])
     t0 = time.perf_counter()
@@ -945,17 +913,12 @@ def phase_k4(renderer, camera, dev):
         _, tk2 = TB.tape_forward(s0, ctx, seeds, STEPS, BINS, TB.ALL_WRT)
         sp = clone_state(s0)
         tp = TB.tape_forward_plain(sp, ctx, seeds, STEPS, BINS, TB.ALL_WRT)
-        with parent_kernels():
-            spar, tpar = TB.tape_forward(s0, ctx, seeds, STEPS, BINS, TB.ALL_WRT)
         torch.cuda.synchronize()
         for name, a, b in zip(s0.field_names(), sk.tensors(), s1.tensors()):
             if not torch.equal(a, b):
                 raise AssertionError(f"K4 ({kind}) final state != K1's in {name}")
         if not torch.equal(tk.view(torch.int32), tk2.view(torch.int32)):
             raise AssertionError(f"K4 ({kind}) is not bit-identical across two runs")
-        if (first_difference(sk, spar) is not None
-                or not torch.equal(tk.view(torch.int32), tpar.view(torch.int32))):
-            raise AssertionError(f"K4 ({kind}) != the parent design's K4 (state or tape)")
         shares = {}
         for i, f in enumerate(fields):
             shares[f] = float((tk[:, :, i].view(torch.int32) == tp[:, :, i].view(torch.int32))
@@ -967,23 +930,19 @@ def phase_k4(renderer, camera, dev):
         out["min_field_share_equal"] = min(out["min_field_share_equal"], shares[worst])
         out[f"share_equal_{kind}"] = shares
         log(f"# K4 prb_tape_forward ({kind} table), 2 dispatches x {STEPS} steps, {len(fields)} "
-            f"fields: state == K1 bitwise, reruns identical, state and tape == the parent "
-            f"design's bitwise; tape == plain on {shares[worst]:.6f} of lane-steps in the worst "
-            f"field ({worst})")
+            f"fields: state == K1 bitwise, reruns identical; tape == plain on {shares[worst]:.6f} "
+            f"of lane-steps in the worst field ({worst})")
         if shares[worst] < TAPE_SHARE_MIN:
             raise AssertionError(f"K4 ({kind}) tape field {worst} equals plain on {shares[worst]}")
         if kind == "u8":
             keep = (ctx, s0, sk, tk)
     ctx, s0, _, tk = keep
-    parent, current = parent_vs_current(
-        lambda: TB.tape_forward(s0, ctx, seeds, STEPS, BINS, TB.ALL_WRT), 5)
-    out.update(ms=float(np.mean(current)), current_ms=current, parent_ms=parent)
+    out["ms"] = cuda_ms(lambda: TB.tape_forward(s0, ctx, seeds, STEPS, BINS, TB.ALL_WRT), 10)
     out["plain_ms"] = cuda_ms(lambda: TB.tape_forward_plain(clone_state(s0), ctx, seeds, STEPS,
                                                             BINS, TB.ALL_WRT), 1)
     kernel_line(out, step_bound(ctx, s0, seeds, BINS, out["ms"], taped=tk.numel() * 4))
-    log(f"# K4 2 dispatches, all fields: {out['ms']:.4f} ms kernel ({current[0]:.4f}, "
-        f"{current[1]:.4f}) vs parent design {parent[0]:.4f}, {parent[1]:.4f} ms "
-        f"({np.mean(parent) / out['ms']:.3f}x), plain {out['plain_ms']:.4f} ms; bound "
+    log(f"# K4 2 dispatches, all fields: {out['ms']:.4f} ms kernel, plain "
+        f"{out['plain_ms']:.4f} ms; bound "
         f"{out['bound_ms']:.4f} ms by {out['bound_by']} ({out['bound_bytes']} B, "
         f"{out['bound_ops']} FP32 ops), share {out['bound_share']:.3f}")
     return out, keep
@@ -1059,7 +1018,9 @@ def phase_k5(keep, dev):
 
 
 def plain_window(state, ctx, seeds, g_img, wrt, stride, mode):
-    """One fwd+bwd window through the plain versions (tape mode)."""
+    """One fwd+bwd window through the plain versions (tape mode), density
+    gradients."""
+    from vpt_tpu_torch.kernels import corners as C
     from vpt_tpu_torch.kernels import spectral_backward as TB
 
     st = clone_state(state)
@@ -1072,17 +1033,19 @@ def plain_window(state, ctx, seeds, g_img, wrt, stride, mode):
                          TB._deposit_cotangents(g_img, ctx, lane, BINS, TB._m_final(st)), cot, adj,
                          phases, seeds, scatter_stride=stride, importance=mode == "importance",
                          inv_mu=TB._inv_mu(ctx), resolution=res, streams=streams)
-    return st, TB._contract_packed_adjoints(adj, ctx, wrt)
+    return st, {"density": C.contract_volume_plain(adj["g_vol"], ctx.density.dims)}
 
 
 def phase_fit(camera, dev):
     """The training path: fit_spectral at full width in three modes, then
     fwd+bwd windows timed as bench.py measure_fwdbwd times them."""
+    from vpt_tpu_torch.kernels import corners as C
     from vpt_tpu_torch.kernels import mcm_spectral as K
     from vpt_tpu_torch.kernels import spectral_backward as TB
     from vpt_tpu_torch.models.mcm_spectral import MCMSpectralRenderer
     from vpt_tpu_torch.optim import fit_spectral
     from vpt_tpu_torch.session import RenderSession
+    from vpt_tpu_torch.tools import scatter_bench as SB
 
     args = bench_scene_args()
     session = RenderSession("mcm-spectral", *args, resolution=RES, streams=STREAMS, device=dev)
@@ -1093,8 +1056,9 @@ def phase_fit(camera, dev):
     fits = {}
     K.reset_launch_counts()
     TB.reset_launch_counts()
+    C.reset_launch_counts()
     for stride, mode in MODES:
-        before = (dict(K.LAUNCHES), dict(TB.LAUNCHES))
+        before = (dict(K.LAUNCHES), dict(TB.LAUNCHES), dict(C.LAUNCHES))
         t0 = time.perf_counter()
         params, losses = fit_spectral(target, renderer, camera, {"density": init},
                                       dispatches_per_step=CHUNK, iterations=FIT_ITERS,
@@ -1106,9 +1070,11 @@ def phase_fit(camera, dev):
         k4 = TB.LAUNCHES["prb_tape_forward"] - before[1]["prb_tape_forward"]
         k5 = TB.LAUNCHES["prb_reverse"] - before[1]["prb_reverse"]
         k1 = K.LAUNCHES["step"] - before[0]["step"]
-        if (k4, k5, k1) != (FIT_ITERS, FIT_ITERS, 0):
-            raise AssertionError(f"fit_spectral {mode}{stride} launched K4 {k4}, K5 {k5}, K1 {k1}"
-                                 f" times in {FIT_ITERS} iterations")
+        k9 = C.LAUNCHES["contract_corners"] - before[2]["contract_corners"]
+        k10 = C.LAUNCHES["pack_corners"] - before[2]["pack_corners"]
+        if (k4, k5, k1, k9, k10) != (FIT_ITERS, FIT_ITERS, 0, FIT_ITERS, FIT_ITERS):
+            raise AssertionError(f"fit_spectral {mode}{stride} launched K4 {k4}, K5 {k5}, K1 {k1}, "
+                                 f"K9 {k9}, K10 {k10} times in {FIT_ITERS} iterations")
         if not np.isfinite(losses).all():
             raise AssertionError(f"fit_spectral {mode}{stride}: losses {losses}")
         moved = float((d - torch.as_tensor(init, device=dev)).abs().max())
@@ -1116,10 +1082,12 @@ def phase_fit(camera, dev):
             raise AssertionError(f"fit_spectral {mode}{stride}: params moved {moved}, "
                                  f"range [{float(d.min())}, {float(d.max())}]")
         fits[f"{mode}{stride}"] = dict(losses=losses, seconds=dt, max_param_change=moved,
-                                       launches=dict(prb_tape_forward=k4, prb_reverse=k5))
+                                       launches=dict(prb_tape_forward=k4, prb_reverse=k5,
+                                                     contract_corners=k9, pack_corners=k10))
         log(f"# fit_spectral {mode} {stride}: {FIT_ITERS} iterations x {CHUNK} dispatches in "
-            f"{dt:.4f} s; losses {losses}; max param change {moved:.4g}; K4/K5 launches {k4}/{k5}")
-    launches = dict(TB.LAUNCHES)
+            f"{dt:.4f} s; losses {losses}; max param change {moved:.4g}; K4/K5/K9/K10 launches "
+            f"{k4}/{k5}/{k9}/{k10}")
+    launches = {**TB.LAUNCHES, **C.LAUNCHES}
 
     # fwd+bwd windows (bench.py:125-168): chunk 4, wrt={density}, g = ones, u8 table
     ctx = renderer.ctx(camera, 1)
@@ -1144,19 +1112,53 @@ def phase_fit(camera, dev):
         paths = int(state.samples.sum()) - s_before
         rec = dict(seconds=dt, mpaths_per_s=paths / dt / 1e6,
                    m_lane_steps_per_s=lanes * STEPS * CHUNK * WINDOWS / dt / 1e6)
-        # one window split by piece (CUDA events): K4, K5, contraction
+        # one window split by piece: the K4 sweep, K5 alone, the reverse
+        # sweep (deposit cotangents, adjoint init, K5, K9) by CUDA events; K9
+        # by device time (CUDA-graph replay) and host path
         seeds = [(7 + k) * 2654435761 % 2**32 for k in range(CHUNK)]
         sf, tapes, _, m_final = TB._tape_forward_sweep(state, ctx, seeds, STEPS, BINS, wrt)
-        parent, current = parent_vs_current(
-            lambda: TB._tape_forward_sweep(state, ctx, seeds, STEPS, BINS, wrt), 3)
-        rec.update(k4_ms=float(np.mean(current)), k4_current_ms=current, k4_parent_ms=parent)
+        rec["k4_ms"] = cuda_ms(lambda: TB._tape_forward_sweep(state, ctx, seeds, STEPS, BINS, wrt),
+                               5)
         rec.update({f"k4_{k}": v for k, v in step_bound(ctx, state, seeds, BINS, rec["k4_ms"],
                                                          taped=tapes.numel() * 4).items()})
+        lane, res, streams, n = TB._lanes(state)
+        g_rs = TB._deposit_cotangents(g_img, ctx, lane, BINS, m_final)
+        phases = [TB._dispatch_phase(k, s, CHUNK, stride) for k, s in enumerate(seeds)]
+        adj5 = TB._packed_adj_init(ctx, wrt)
+
+        def k5(tp, fields, adj):
+            cot = dict(c=torch.zeros(n, device=dev), cb=torch.zeros(n, device=dev))
+            TB.prb_reverse(tp, fields, g_rs, cot, adj, phases, seeds, scatter_stride=stride,
+                           scatter_mode=mode, inv_mu=TB._inv_mu(ctx), resolution=res,
+                           streams=streams)
+
+        rec["k5_ms"] = cuda_ms(lambda: k5(tapes, TB.tape_fields(wrt), adj5), 5)
         rec["k5_contract_ms"] = cuda_ms(lambda: TB._tape_reverse_sweep(
-            state, ctx, seeds, tapes, m_final, g_img, STEPS, BINS, wrt, stride, mode), 3)
-        adj = TB._packed_adj_init(ctx, wrt)
-        rec["contract_ms"] = cuda_ms(lambda: TB._contract_packed_adjoints(adj, ctx, wrt), 3)
+            state, ctx, seeds, tapes, m_final, g_img, STEPS, BINS, wrt, stride, mode), 5)
+        rec["contract_ms"] = device_ms(lambda: TB._contract_packed_adjoints(adj5, ctx, wrt))
+        rec["contract_host_ms"] = cuda_ms(lambda: TB._contract_packed_adjoints(adj5, ctx, wrt), 20)
         rec["window_ms"] = cuda_ms(lambda: window(state, 99), 3)
+        if (stride, mode) == (1, "stride"):
+            # what binds K5: the same window's reverse with no scatter (a tape
+            # of the carry's fields, wrt={extinction}), and its volume-row
+            # scatter alone (K11 on the rows of the window's events)
+            wrt_e = frozenset({"extinction"})
+            _, tapes_e = TB.tape_forward(state, ctx, seeds, STEPS, BINS, wrt_e)
+            carry_ms = cuda_ms(lambda: k5(tapes_e, TB.tape_fields(wrt_e),
+                                          {"g_ext": torch.zeros(1, device=dev)}), 5)
+            del tapes_e
+            f = TB.tape_fields(wrt)
+            rows = tapes[:, :, f.index("vol_row0")].reshape(-1).view(torch.int32)
+            event = ((tapes[:, :, f.index("null")] > 0.5)
+                     | (tapes[:, :, f.index("scatter")] > 0.5)).reshape(-1)
+            rows = torch.where(event, rows, torch.full_like(rows, -1)).contiguous()
+            table = torch.zeros_like(adj5["g_vol"])
+            rec["k5_split"] = dict(
+                k5_ms=rec["k5_ms"], carry_extinction_only_ms=carry_ms,
+                scatter_alone_ms=device_ms(lambda: SB.scatter_rows(rows, table)),
+                event_lane_steps=int(event.sum()), lane_steps=int(event.numel()))
+            log(f"# K5 split, stride-1 window: {json.dumps(rec['k5_split'])}")
+            del rows, event, table
         # the same window through the plain versions, once
         s_plain0 = int(state.samples.sum())
         torch.cuda.synchronize()
@@ -1175,15 +1177,132 @@ def phase_fit(camera, dev):
         windows[f"{mode}{stride}"] = rec
         log(f"# fwd+bwd {mode} {stride} ({WINDOWS} windows x {CHUNK} dispatches): kernels "
             f"{rec['mpaths_per_s']:.3f} Mpaths/s, {rec['m_lane_steps_per_s']:.1f} M lane-steps/s "
-            f"(window {rec['window_ms']:.3f} ms: K4 {rec['k4_ms']:.3f} (parent design "
-            f"{rec['k4_parent_ms'][0]:.3f}, {rec['k4_parent_ms'][1]:.3f}; bound "
+            f"(window {rec['window_ms']:.3f} ms: K4 {rec['k4_ms']:.3f} (bound "
             f"{rec['k4_bound_ms']:.3f} by {rec['k4_bound_by']}, {rec['k4_bound_bytes']} B, "
-            f"{rec['k4_bound_ops']} FP32 ops, share {rec['k4_bound_share']:.3f}), K5+contract "
-            f"{rec['k5_contract_ms']:.3f}, contract {rec['contract_ms']:.3f}); plain "
+            f"{rec['k4_bound_ops']} FP32 ops, share {rec['k4_bound_share']:.3f}), K5 "
+            f"{rec['k5_ms']:.3f}, reverse sweep (K5 + K9 + set-up) {rec['k5_contract_ms']:.3f}, "
+            f"K9 contract {rec['contract_ms']:.4f} device, {rec['contract_host_ms']:.4f} host "
+            f"path); plain "
             f"{rec['plain']['mpaths_per_s']:.3f} Mpaths/s, "
             f"{rec['plain']['m_lane_steps_per_s']:.1f} M lane-steps/s; grads kernel vs plain "
             f"rel {rel:.3g}")
     return launches, fits, windows
+
+
+def phase_corners(dev):
+    """Phase 9, first half: K9 contract_corners and K10 pack_corners at the
+    bench's table sizes (129^3 packed volume rows, the 257 x 257 fused TF),
+    each equal to its plain version bit for bit and to a second run; timed
+    by device time (CUDA-graph replay), with the host path beside it."""
+    from vpt_tpu_torch.kernels import corners as C
+
+    vol = torch.as_tensor(np.asarray(bench_scene_args()[0].density, np.float32), device=dev)
+    dims = tuple(d + 1 for d in vol.shape)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    g_vol = torch.randn((int(np.prod(dims)), 8), device=dev, generator=gen)
+    th, tw = 256, 256
+    g_tf = torch.randn((th + 1, tw + 1, 18), device=dev, generator=gen)
+    mtf = torch.rand((th, tw, 4), device=dev, generator=gen)
+    light = torch.rand(tw, device=dev, generator=gen)
+
+    def bits(t):
+        return t.contiguous().view(torch.int32)
+
+    pairs = {
+        "contract_volume": (lambda: C.contract_volume(g_vol, dims),
+                            lambda: C.contract_volume_plain(g_vol, dims)),
+        "contract_tf": (lambda: torch.cat([t.reshape(-1) for t in C.contract_tf(g_tf)]),
+                        lambda: torch.cat([C.contract_tex2d_plain(g_tf).reshape(-1),
+                                           C.contract_light_plain(g_tf)])),
+        "pack_volume": (lambda: C.pack_volume(vol), lambda: C.pack_volume_plain(vol)),
+        "pack_tf": (lambda: torch.cat([t.reshape(-1) for t in C.pack_tf(mtf, light, True)]),
+                    lambda: torch.cat([t.reshape(-1) for t in C.pack_tf_plain(mtf, light, True)])),
+    }
+    rec = {}
+    for name, (kern, plain) in pairs.items():
+        a, b, want = kern(), kern(), plain()
+        torch.cuda.synchronize()
+        if not (torch.equal(bits(a), bits(want)) and torch.equal(bits(a), bits(b))):
+            raise AssertionError(f"{name}: kernel != plain on {int((a != want).sum())} values, "
+                                 f"or two runs differ")
+        rec[name] = dict(equal_plain_bitwise=True, numel=a.numel())
+    timed = {
+        "contract_volume": lambda: C.contract_volume(g_vol, dims),
+        "contract_tf": lambda: C.contract_tf(g_tf),
+        "pack_volume": lambda: C.pack_volume(vol),
+        "pack_tf": lambda: C.pack_tf(mtf, light, True),
+    }
+    for name, fn in timed.items():
+        rec[name].update(ms=device_ms(fn), host_ms=cuda_ms(fn, 20),
+                         plain_ms=cuda_ms(pairs[name][1], 3))
+    # bytes: each input read once, each output written once; operations:
+    # one add per packed entry a contraction reads, none for a pack
+    n_vol, n_packed = vol.numel(), g_vol.numel()
+    n_tf_raw = th * tw * 4 + tw
+    bounds = {
+        "contract_volume": bound((n_packed + n_vol) * 4, n_packed),
+        "pack_volume": bound((n_packed + n_vol) * 4, 0),
+        "contract_tf": bound((g_tf.numel() + n_tf_raw) * 4, g_tf.numel()),
+        "pack_tf": bound((n_tf_raw + g_tf.numel() + (tw + 1) * 2) * 4, 0),
+    }
+    for name, r in rec.items():
+        r.update(bounds[name])
+        r["bound_share"] = r["bound_ms"] / r["ms"]
+        log(f"# {name}: equal to plain bit for bit, reruns identical; device {r['ms']:.5f} ms "
+            f"kernel (host path {r['host_ms']:.5f}), plain {r['plain_ms']:.4f} ms; bound "
+            f"{r['bound_ms']:.5f} ms by {r['bound_by']} ({r['bound_bytes']} B), share "
+            f"{r['bound_share']:.3f}")
+    keys = ("bound_ms", "bound_by", "bound_bytes", "bound_ops", "bound_share")
+    k9 = kernel_line(dict(name="contract_corners", route="cuda", source=CORNERS_SOURCE,
+                          replaces="vpt_tpu/kernels/spectral_backward.py:355", max_abs_err=0.0,
+                          ms=rec["contract_volume"]["ms"], plain_ms=rec["contract_volume"]["plain_ms"],
+                          host_ms=rec["contract_volume"]["host_ms"], tf=rec["contract_tf"]),
+                     {k: rec["contract_volume"][k] for k in keys})
+    k10 = kernel_line(dict(name="pack_corners", route="cuda", source=CORNERS_SOURCE,
+                           replaces="vpt_tpu/optim.py:185", max_abs_err=0.0,
+                           ms=rec["pack_volume"]["ms"], plain_ms=rec["pack_volume"]["plain_ms"],
+                           host_ms=rec["pack_volume"]["host_ms"], tf=rec["pack_tf"]),
+                      {k: rec["pack_volume"][k] for k in keys})
+    return k9, k10
+
+
+def phase_scatter(dev):
+    """Phase 15: the scatter ceiling (bench.py:210-276, measure_ceilings):
+    K11 scatter_rows, two float4 atomics of ones per index, on bench.py's
+    stream of 16 x 1M uniform random rows of the 129^3-row table; equal to
+    its plain version bit for bit (sums of ones are exact); timed by device
+    time against the library call index_add_ on the same inputs."""
+    from vpt_tpu_torch.tools import scatter_bench as SB
+
+    n_rows, idx = SB.bench_rows(VOLUME)
+    rows = torch.as_tensor(idx, device=dev)
+    a = torch.zeros((n_rows, 8), device=dev)
+    want = torch.zeros((n_rows, 8), device=dev)
+    SB.reset_launch_counts()
+    SB.scatter_rows(rows, a)
+    launches = SB.LAUNCHES["scatter_rows"]
+    SB.scatter_rows_plain(rows, want)
+    torch.cuda.synchronize()
+    if not torch.equal(a, want):
+        raise AssertionError(f"scatter_rows != plain on {int((a != want).sum())} values")
+    table = torch.zeros((n_rows, 8), device=dev)
+    ms = device_ms(lambda: SB.scatter_rows(rows, table))
+    plain_ms = cuda_ms(lambda: SB.scatter_rows_plain(rows, table), 3)
+    rows64, ones = rows.to(torch.int64), torch.ones((rows.numel(), 8), device=dev)
+    library_ms = device_ms(lambda: table.index_add_(0, rows64, ones))
+    # each index read once; each row it touches read and written once
+    touched = int(torch.unique(rows).numel())
+    b = bound(rows.numel() * 4 + touched * 32 * 2, rows.numel() * 8, ms)
+    rate = rows.numel() / (ms * 1e-3)
+    log(f"# K11 scatter_rows (scatter ceiling, {rows.numel()} rows of {n_rows}, {touched} "
+        f"touched): equal to plain; device {ms:.4f} ms ({rate / 1e9:.3f} G lane-steps/s), "
+        f"plain {plain_ms:.4f} ms, index_add_ {library_ms:.4f} ms; bound {b['bound_ms']:.4f} ms "
+        f"by {b['bound_by']}, share {b['bound_share']:.3f}")
+    return kernel_line(dict(name="scatter_rows", route="cuda", source=BWD_SOURCE,
+                            replaces="bench.py:246", max_abs_err=0.0, launches=launches, ms=ms,
+                            plain_ms=plain_ms, library_call="Tensor.index_add_",
+                            scatter_ceiling_lane_steps_per_s=rate, rows_touched=touched), b,
+                       library_ms)
 
 
 def phase_gather(dev):
@@ -1265,29 +1384,23 @@ def main():
     from vpt_tpu_torch.kernels import _build
     from vpt_tpu_torch.models.mcm_spectral import MCMSpectralRenderer
 
-    # the current kernels and the parent design's step kernels, built at once
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:
-        for f in [pool.submit(_build.load), pool.submit(parent_lib)]:
-            f.result()
-    log(f"# build: {time.perf_counter() - t0:.2f} s (parallel nvcc: current "
-        f"{_build.build_info['seconds']:.2f} s, parent design "
-        f"{_build.build_infos[_build.BASELINE_DIR]['seconds']:.2f} s)")
+    _build.load()
+    log(f"# build: {time.perf_counter() - t0:.2f} s (one nvcc per source, all at once: "
+        f"{_build.build_info['seconds']:.2f} s)")
     for line in _build.build_info["log"].splitlines():
         if "error" in line or line.startswith("=="):
             log(f"# ptxas: {line.strip()}")
-    ptxas = {}
-    for which, d in (("current", _build.CSRC_DIR), ("parent", _build.BASELINE_DIR)):
-        ptxas[which] = [dict(kernel=k, template=a, registers=r, spill_store_bytes=s,
-                             spill_load_bytes=lo)
-                        for k, a, r, s, lo in _build.ptxas_table(_build.build_infos[d]["log"])]
-        for row in ptxas[which]:
-            args = "NB,MAJ,ENV" if row["kernel"] == "step_kernel" else "NB"
-            log(f"# ptxas {which}: {row['kernel']}<{args}={row['template']}>: {row['registers']} "
-                f"registers, {row['spill_store_bytes']} B spill stores, "
-                f"{row['spill_load_bytes']} B spill loads")
-        if not ptxas[which]:
-            raise AssertionError(f"no ptxas report of the {which} step kernels")
+    ptxas = [dict(kernel=k, template=a, registers=r, spill_store_bytes=s, spill_load_bytes=lo,
+                  stack_frame_bytes=f)
+             for k, a, r, s, lo, f in _build.ptxas_table(_build.build_info["log"])]
+    for row in ptxas:
+        log(f"# ptxas: {row['kernel']}<{row['template']}>: {row['registers']} registers, "
+            f"{row['spill_store_bytes']} B spill stores, {row['spill_load_bytes']} B spill loads, "
+            f"{row['stack_frame_bytes']} B stack frame")
+    missing = set(_build.KERNELS) - {row["kernel"] for row in ptxas}
+    if missing:
+        raise AssertionError(f"no ptxas report of {sorted(missing)}")
 
     k3 = phase_k3(dev)
     renderer = MCMSpectralRenderer(*bench_scene_args(), resolution=RES, streams=STREAMS,
@@ -1299,6 +1412,7 @@ def main():
     k4, keep = phase_k4(renderer, camera, dev)
     k5 = phase_k5(keep, dev)
     del keep
+    k9, k10 = phase_corners(dev)
     bwd_launches, fits, windows = phase_fit(camera, dev)
     k6, k7 = phase_gather(dev)
     del renderer
@@ -1307,20 +1421,26 @@ def main():
     k1_modes, mode_rates = phase_env_quasicubic(dev)
     compact_kernels, compact = phase_compaction(dev)
     cli = phase_cli()
+    k11 = phase_scatter(dev)
     foreign = sorted(k for k in sys.modules
                      if k in ("jax", "vpt_tpu") or k.startswith(("jax.", "vpt_tpu.")))
     if foreign:
         raise AssertionError(f"imported {foreign[:5]}: the port must not load jax or vpt_tpu")
 
     k1["launches"], k2["launches"] = launches["step"], launches["reset"]
-    missing = [k["name"] for k in (k1, k2, k3, k4, k5, k6, k7, k1_maj, *k1_modes.values(),
-                                   *compact_kernels)
+    missing = [k["name"] for k in (k1, k2, k3, k4, k5, k6, k7, k9, k10, k11, k1_maj,
+                                   *k1_modes.values(), *compact_kernels)
                if not {"bound_ms", "bound_by", "library_ms"} <= set(k)]
     if missing:
         raise AssertionError(f"kernels without a bound: {missing}")
     k3["launches"] = launches["sample_volume_packed"]
     k4["launches"], k5["launches"] = bwd_launches["prb_tape_forward"], bwd_launches["prb_reverse"]
-    result = {"kernels": [k1, k2, k4, k5, k6, k7, k1_maj, k1_modes["environment"],
+    k9["launches"], k10["launches"] = (bwd_launches["contract_corners"],
+                                       bwd_launches["pack_corners"])
+    if k9["launches"] < 1 or k10["launches"] < 1:
+        raise AssertionError(f"the training path did not launch K9/K10: {bwd_launches}")
+    k5["split_stride1_window"] = windows["stride1"]["k5_split"]
+    result = {"kernels": [k1, k2, k4, k5, k6, k7, k9, k10, k11, k1_maj, k1_modes["environment"],
                           k1_modes["quasicubic"], *compact_kernels],
               "standalone": [k3],
               "main_path": {"kernel": kern, "plain_step": plain},

@@ -1,9 +1,6 @@
 """The kernel build's host side (``kernels/_build.py``), which runs only on
-the machine with nvcc: library naming, the ptxas report parser that
-``chip_smoke.py`` prints from, and the routing of the wrappers to the
-parent design's build."""
-
-import pytest
+the machine with nvcc: library naming, the source list, and the ptxas
+report parser that ``chip_smoke.py`` prints from."""
 
 from vpt_tpu_torch.kernels import _build
 
@@ -18,12 +15,23 @@ ptxas info    : Used 28 registers, used 0 barriers
 ptxas info    : Compiling entry function '_ZN53_GLOBAL__N__329e020e_20_spectral_backward_cu_fefce9d619tape_forward_kernelILi32EEEvNS_6ParamsENS_8TapeSpecEPf' for 'sm_90a'
     32 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
 ptxas info    : Used 64 registers, used 0 barriers, 32 bytes cumulative stack size
+ptxas info    : Compiling entry function '_ZN53_GLOBAL__N__329e020e_20_spectral_backward_cu_fefce9d614reverse_kernelILi16EEEvNS_3RevEPKfS3_PfS4_PKiPKjS4_S4_S4_' for 'sm_90a'
+ptxas info    : Function properties for _ZN53_GLOBAL__N__329e020e_20_spectral_backward_cu_fefce9d614reverse_kernelILi16EEEvNS_3RevEPKfS3_PfS4_PKiPKjS4_S4_S4_
+    512 bytes stack frame, 12 bytes spill stores, 16 bytes spill loads
+ptxas info    : Used 123 registers, used 1 barriers, 512 bytes cumulative stack size
+== corners.cu
+ptxas info    : Compiling entry function '_ZN45_GLOBAL__N__0b1d2e3f_10_corners_cu_4f5e6d7c22contract_volume_kernelEPKfPfiii' for 'sm_90a'
+ptxas info    : Function properties for _ZN45_GLOBAL__N__0b1d2e3f_10_corners_cu_4f5e6d7c22contract_volume_kernelEPKfPfiii
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 26 registers, used 0 barriers
 """
 
 
 def test_ptxas_table_reads_the_step_kernels_only():
-    assert _build.ptxas_table(LOG) == [("step_kernel", "12,1,0", 48, 4, 8),
-                                       ("tape_forward_kernel", "32", 64, 0, 0)]
+    assert _build.ptxas_table(LOG) == [("step_kernel", "12,1,0", 48, 4, 8, 40),
+                                       ("tape_forward_kernel", "32", 64, 0, 0, 32),
+                                       ("reverse_kernel", "16", 123, 12, 16, 512),
+                                       ("contract_volume_kernel", "", 26, 0, 0, 0)]
     assert _build.ptxas_table("") == []
 
 
@@ -32,21 +40,11 @@ def test_library_names_separate_directories():
     plain = _build.library_path(src)
     assert plain == _build.library_path(src)  # named by content: stable
     assert plain.parent == _build.BUILD_DIR and plain.name.startswith("libvpt_mcm_spectral_")
-    base = _build.library_path(_build.BASELINE_DIR / "mcm_spectral.cu")
-    assert base.name.startswith("libvpt_baseline_mcm_spectral_") and base != plain
+    other = _build.library_path(_build.CSRC_DIR / "corners.cu")
+    assert other.name.startswith("libvpt_corners_") and other != plain
 
 
 def test_sources_of_each_directory():
-    assert set(_build._sources(_build.CSRC_DIR)) == set(_build._SIGNATURES)
-    # the parent design's directory holds the two step sources only
-    assert set(_build._sources(_build.BASELINE_DIR)) == {"mcm_spectral", "spectral_backward"}
-
-
-def test_routed_restores_load_even_on_error():
-    load, lib = _build.load, object()
-    with pytest.raises(RuntimeError):
-        with _build.routed(lib):
-            assert _build.load() is lib and _build.load(_build.BASELINE_DIR) is lib
-            raise RuntimeError
-    assert _build.load is load
-
+    assert set(_build._sources()) == set(_build._SIGNATURES)
+    assert set(_build._SIGNATURES) == {"mcm_spectral", "spectral_backward", "corners",
+                                       "gather_bench"}

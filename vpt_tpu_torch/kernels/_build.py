@@ -8,12 +8,6 @@ hash of its source, the shared headers (``*.cuh`` beside it) and the flags,
 so an edited source builds anew and an unchanged one loads at once. A build
 or load failure raises.
 
-``load(BASELINE_DIR)`` builds and loads ``csrc/baseline/``, the step
-kernels as they were before their redesign for Hopper (the same C
-interface), which ``chip_smoke.py`` checks and times beside the current
-ones from a checkout; the wrappers never load it and the installed
-package does not carry it.
-
 Flags: ``sm_90a`` (Hopper), no fast math, and ``-fmad=false`` so that the
 lerps ``a + (b - a) * f`` round like the JAX reference instead of
 contracting into FMAs.
@@ -21,7 +15,6 @@ contracting into FMAs.
 
 from __future__ import annotations
 
-import contextlib
 import ctypes
 import hashlib
 import os
@@ -35,7 +28,6 @@ from types import SimpleNamespace
 
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
-BASELINE_DIR = CSRC_DIR / "baseline"
 BUILD_DIR = PACKAGE_DIR / "_build"
 
 NVCC_FLAGS = (
@@ -45,13 +37,10 @@ NVCC_FLAGS = (
     "-Xptxas", "-v",
 )
 
-_lock = threading.Lock()  # guards _locks
-_locks = {}  # one per source directory, so several build at once
-_libs = {}
-# per source directory: what its build printed (the ptxas register/spill
-# report) and how long it took; build_info is the package's own sources'
-build_infos = {}
-build_info = build_infos.setdefault(CSRC_DIR, {"seconds": None, "log": "", "path": None})
+_lock = threading.Lock()
+_lib = None
+# what the build printed (the ptxas register/spill report) and how long it took
+build_info = {"seconds": None, "log": "", "path": None}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -71,6 +60,13 @@ _SIGNATURES = {
         "vpt_bwd_layout": ([_I], _I),
         "vpt_prb_tape_forward": ([_P, _P, _P, _I] + [_P] * 15 + [_P], _I),
         "vpt_prb_reverse": ([_P, _F] + [_P] * 10 + [_P], _I),
+        "vpt_scatter_rows": ([_P, _L, _P, _P], _I),
+    },
+    "corners": {
+        "vpt_contract_volume": ([_P, _P, _I, _I, _I, _P], _I),
+        "vpt_contract_tf": ([_P, _P, _P, _I, _I, _P], _I),
+        "vpt_pack_volume": ([_P, _P, _I, _I, _I, _P], _I),
+        "vpt_pack_tf": ([_P, _P, _P, _P, _I, _I, _P], _I),
     },
     "gather_bench": {
         "vpt_gather_limits": ([_P], _I),
@@ -95,12 +91,11 @@ def find_nvcc() -> str:
     raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
 
 
-def _sources(csrc: Path):
-    srcs = {s.stem: s for s in sorted(csrc.glob("*.cu"))}
-    want = set(_SIGNATURES) if csrc == CSRC_DIR else set(srcs) & set(_SIGNATURES)
-    if set(srcs) != want or not srcs:
-        raise RuntimeError(f"CUDA sources under {csrc} are {sorted(srcs)}, "
-                           f"the loader expects {sorted(want or _SIGNATURES)}")
+def _sources():
+    srcs = {s.stem: s for s in sorted(CSRC_DIR.glob("*.cu"))}
+    if set(srcs) != set(_SIGNATURES):
+        raise RuntimeError(f"CUDA sources under {CSRC_DIR} are {sorted(srcs)}, "
+                           f"the loader expects {sorted(_SIGNATURES)}")
     return srcs
 
 
@@ -109,11 +104,10 @@ def library_path(src: Path) -> Path:
     for s in [src, *sorted(src.parent.glob("*.cuh"))]:
         h.update(s.name.encode())
         h.update(s.read_bytes())
-    tag = "" if src.parent == CSRC_DIR else f"{src.parent.name}_"
-    return BUILD_DIR / f"libvpt_{tag}{src.stem}_{h.hexdigest()[:16]}.so"
+    return BUILD_DIR / f"libvpt_{src.stem}_{h.hexdigest()[:16]}.so"
 
 
-def _compile(jobs, info):
+def _compile(jobs):
     """Run one nvcc per (source, output) pair, all at once; raise if any fails."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = find_nvcc()
@@ -133,30 +127,27 @@ def _compile(jobs, info):
             failed.append(f"{src.name} ({proc.returncode})")
         else:
             os.replace(tmp, out)  # atomic: concurrent builders never load a partial file
-    info["seconds"] = time.perf_counter() - t0
-    info["log"] = "\n".join(logs)
+    build_info["seconds"] = time.perf_counter() - t0
+    build_info["log"] = "\n".join(logs)
     if failed:
-        raise RuntimeError(f"nvcc failed for {', '.join(failed)}:\n{info['log']}")
+        raise RuntimeError(f"nvcc failed for {', '.join(failed)}:\n{build_info['log']}")
 
 
-def load(csrc: Path = CSRC_DIR):
-    """Build (if needed) and load the kernel libraries of ``csrc``; returns
+def load():
+    """Build (if needed) and load the kernel libraries of ``csrc/``; returns
     a namespace holding every C function of every source, with its ctypes
     signature."""
-    csrc = Path(csrc)
+    global _lib
     with _lock:
-        lock = _locks.setdefault(csrc, threading.Lock())
-    with lock:
-        if csrc in _libs:
-            return _libs[csrc]
-        info = build_infos.setdefault(csrc, {"seconds": None, "log": "", "path": None})
-        srcs = _sources(csrc)
+        if _lib is not None:
+            return _lib
+        srcs = _sources()
         paths = {stem: library_path(src) for stem, src in srcs.items()}
         missing = [(srcs[stem], p) for stem, p in paths.items() if not p.exists()]
         if missing:
-            _compile(missing, info)
+            _compile(missing)
         else:
-            info["seconds"] = 0.0
+            build_info["seconds"] = 0.0
         fns = {}
         for stem, path in paths.items():
             lib = ctypes.CDLL(str(path))
@@ -165,41 +156,38 @@ def load(csrc: Path = CSRC_DIR):
                 fn.argtypes = argtypes
                 fn.restype = restype
                 fns[name] = fn
-        info["path"] = {stem: str(p) for stem, p in paths.items()}
-        _libs[csrc] = SimpleNamespace(**fns)
-        return _libs[csrc]
+        build_info["path"] = {stem: str(p) for stem, p in paths.items()}
+        _lib = SimpleNamespace(**fns)
+        return _lib
 
 
-@contextlib.contextmanager
-def routed(lib):
-    """Route every wrapper's ``load()`` to ``lib`` (the parent design's
-    build, ``load(BASELINE_DIR)``) while inside; ``chip_smoke.py`` checks
-    and times it so."""
-    global load
-    current = load
-    load = lambda *a, **kw: lib  # noqa: E731
-    try:
-        yield
-    finally:
-        load = current
+# the kernels whose registers and spills the ptxas report is read for
+KERNELS = ("step_kernel", "tape_forward_kernel", "reverse_kernel", "contract_volume_kernel",
+           "contract_tf_kernel", "pack_volume_kernel", "pack_tf_kernel", "scatter_rows_kernel")
+_ENTRY = re.compile(r"Compiling entry function '\S*?\d(" + "|".join(KERNELS) + r")(I\S*?EE)?[Ev]")
 
 
 def ptxas_table(log_text):
-    """[(kernel, template args, registers, spill store B, spill load B)] of
-    the step kernels (K1 step_kernel, K4 tape_forward_kernel) in a ptxas -v
-    log; template args as NB,MAJ,ENV (K1) or NB (K4)."""
+    """[(kernel, template args, registers, spill store B, spill load B,
+    stack frame B)] of the kernels named in ``KERNELS`` in a ptxas -v log
+    (the stack frame is the thread's local memory: spills and arrays
+    indexed at run time); template args as
+    NB,MAJ,ENV (K1 step_kernel), NB (K4 tape_forward_kernel), NS (K5
+    reverse_kernel: 0 for stride mode, else the importance step count), ""
+    for the untemplated ones."""
     rows, cur = [], None
     for line in log_text.splitlines():
-        m = re.search(r"Compiling entry function '\S*?(step_kernel|tape_forward_kernel)I(\S*?)EEEv", line)
+        m = _ENTRY.search(line)
         if m:
-            args = ",".join(a or b for a, b in re.findall(r"Li(\d+)E|Lb(\d)", m.group(2) + "E"))
-            cur = [m.group(1), args, None, None, None]
+            args = ",".join(a or b for a, b in re.findall(r"Li(\d+)E|Lb(\d)", m.group(2) or ""))
+            cur = [m.group(1), args, None, 0, 0, 0]
             continue
         if cur is None:
             continue
-        s = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        s = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
         if s:
-            cur[3], cur[4] = int(s.group(1)), int(s.group(2))
+            cur[5], cur[3], cur[4] = (int(g) for g in s.groups())
         r = re.search(r"Used (\d+) registers", line)
         if r:
             cur[2] = int(r.group(1))

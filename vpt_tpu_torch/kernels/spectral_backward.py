@@ -7,8 +7,8 @@ replay backprop) is a taped forward pass followed by a reverse pass over the
 tape that propagates each step's deposit cotangent ``(c, cb)`` and scatters
 the analytic per-event gradients into adjoints shaped like the PACKED tables
 (one 18-wide TF+light row and one 8-wide volume row per lane-step). The
-packed adjoints are contracted back to the raw tables once, through the VJP
-of the torch packers (``ops/interp.pack_*_t``).
+packed adjoints are contracted back to the raw tables once, by the dense
+pack transpose K9 ``contract_corners`` (``kernels/corners.py``).
 
 Two kernels of ``vpt_tpu_torch/csrc/spectral_backward.cu``:
 
@@ -45,7 +45,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from vpt_tpu_torch.kernels import _build
+from vpt_tpu_torch.kernels import _build, corners
 from vpt_tpu_torch.kernels import mcm_spectral as K
 from vpt_tpu_torch.ops import geometry, interp, sampling
 from vpt_tpu_torch.ops.spectral import XYZ_TO_SRGB_KERNEL
@@ -460,14 +460,18 @@ def prb_reverse(tapes, fields, g_rad_scaled, cot, adj, phases, seeds, *,
     def ptr(name):
         return adj[name].data_ptr() if name in adj else None
 
+    # the extinction score, summed across blocks in f64 (csrc block_add)
+    ext_acc = torch.zeros(1, dtype=torch.float64, device=device) if "g_ext" in adj else None
     with torch.cuda.device(device):
         err = lib.vpt_prb_reverse(
             r.ctypes.data, float(np.float32(inv_mu)), slots.ctypes.data, tapes.data_ptr(),
             g_rad_scaled.data_ptr(), cot["c"].data_ptr(), cot["cb"].data_ptr(),
-            phases_dev.data_ptr(), seeds_dev.data_ptr(), ptr("g_ext"), ptr("g_tf"),
+            phases_dev.data_ptr(), seeds_dev.data_ptr(), K._ptr(ext_acc), ptr("g_tf"),
             ptr("g_vol"), K._stream(device))
     K._raise_on(err, "prb_reverse")
     LAUNCHES["prb_reverse"] += 1
+    if ext_acc is not None:
+        adj["g_ext"] += ext_acc.to(torch.float32)
 
 
 # ---------------------------------------------------------------------------
@@ -507,35 +511,22 @@ def _packed_adj_init(ctx, wrt):
     return adj
 
 
-def _vjp(packer, raw_shape, cotangent):
-    """VJP of a linear packer at any point: the dense pack transpose."""
-    with torch.enable_grad():
-        raw = torch.zeros(raw_shape, dtype=torch.float32, device=cotangent.device,
-                          requires_grad=True)
-        (g,) = torch.autograd.grad(packer(raw), raw, cotangent)
-    return g
-
-
 def _contract_packed_adjoints(acc, ctx, wrt):
-    """Packed adjoints -> gradients addressing the RAW tables, through the
-    VJP of the torch packers (``ops/interp.pack_*_t``)."""
+    """Packed adjoints -> gradients addressing the RAW tables: the dense pack
+    transpose, K9 ``contract_corners`` (``kernels/corners.py``)."""
     grads = {}
     if "extinction" in wrt:
         grads["extinction"] = acc["g_ext"].reshape(())
     if "material_tf" in wrt or "light_spectrum" in wrt:
-        Hp, Wp, CC = ctx.material_tf.shape
-        g_tf = acc["g_tf"].reshape(Hp, Wp, CC)
-        if "material_tf" in wrt:
-            grads["material_tf"] = _vjp(interp.pack_tex2d_corners_t, (Hp - 1, Wp - 1, 4),
-                                        g_tf[..., :16])
-        if "light_spectrum" in wrt:
-            # the light pair was broadcast over TF rows: transpose = row sum
-            grads["light_spectrum"] = _vjp(interp.pack_tex1d_corners_t, (Wp - 1,),
-                                           torch.sum(g_tf[..., 16:], dim=0))
+        g_mtf, g_light = corners.contract_tf(acc["g_tf"].reshape(ctx.material_tf.shape),
+                                             material_tf="material_tf" in wrt,
+                                             light="light_spectrum" in wrt)
+        if g_mtf is not None:
+            grads["material_tf"] = g_mtf
+        if g_light is not None:
+            grads["light_spectrum"] = g_light
     if "density" in wrt:
-        dims = ctx.density.dims
-        grads["density"] = _vjp(interp.pack_volume_corners_t, tuple(d - 1 for d in dims),
-                                acc["g_vol"].reshape(tuple(dims) + (8,)))
+        grads["density"] = corners.contract_volume(acc["g_vol"], ctx.density.dims)
     return grads
 
 

@@ -29,6 +29,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from vpt_tpu_torch.kernels import corners
 from vpt_tpu_torch.kernels import mcm_spectral as K
 from vpt_tpu_torch.kernels.spectral_backward import (_check_packed_ctx, clone_state,
                                                       prb_loss_and_grads)
@@ -84,25 +85,27 @@ def sanitize_grads(grads: dict, clip: float) -> dict:
 
 def _pack_params_into_ctx(base_ctx, params: dict, raw_mtf=None, raw_light=None) -> dict:
     """Re-pack learned RAW tables into the base ctx's packed representation
-    (a flat f32 ``PackedVolume``, the fused 18-wide TF+light table): the
-    ctx fields to replace. ``raw_mtf`` / ``raw_light`` stand in for the
-    fused table's unlearned half."""
+    (a flat f32 ``PackedVolume``, the fused 18-wide TF+light table) by K10
+    ``pack_corners`` (``kernels/corners.py``): the ctx fields to replace.
+    ``raw_mtf`` / ``raw_light`` stand in for the fused table's unlearned
+    half."""
     unknown = set(params) - {"density", "material_tf", "light_spectrum", "extinction"}
     if unknown:
         raise NotImplementedError(f"learning {sorted(unknown)} is not ported")
     updates = {}
     if "density" in params:
-        packed = interp.pack_volume_corners_t(params["density"])
-        updates["density"] = interp.PackedVolume(packed.reshape(-1, 8), base_ctx.density.dims)
+        updates["density"] = interp.PackedVolume(corners.pack_volume(params["density"]),
+                                                 base_ctx.density.dims)
     if "material_tf" in params or "light_spectrum" in params:
         mtf = params.get("material_tf", raw_mtf)
         light = params.get("light_spectrum", raw_light)
         if mtf is None or light is None:
             raise ValueError("fused-TF ctx needs raw_mtf/raw_light fallbacks when only "
                              "one of material_tf/light_spectrum is learned")
-        updates["material_tf"] = interp.pack_tex2d_with_tex1d_t(mtf, light).contiguous()
-        if "light_spectrum" in params:
-            updates["light_spectrum"] = interp.pack_tex1d_corners_t(light)
+        fused, pairs = corners.pack_tf(mtf, light, pairs="light_spectrum" in params)
+        updates["material_tf"] = fused
+        if pairs is not None:
+            updates["light_spectrum"] = pairs
     if "extinction" in params:
         updates["extinction"] = np.float32(float(params["extinction"]))
     return updates
