@@ -6,7 +6,8 @@ Phases (each raises on failure, so any failure exits non-zero):
   1. the card's name and power limit (nvidia-smi); no CUDA -> exit 1
   2. build the kernels of vpt_tpu_torch/csrc with nvcc (sm_90a, one nvcc
      per source, all at once); print the ptxas registers, spills and
-     stack frame of every instantiation of K1, K4, K5, K9, K10 and K11
+     stack frame of every instantiation of K1, K4 (and its surrogate
+     mode), K5, K9, K10, K11 and K12
   3. sample_volume_packed vs its plain version: all 256 u8 codes exact;
      timed at 1M lookups by device time (CUDA-graph replay) against
      F.grid_sample on the float volume, host path beside it
@@ -63,6 +64,21 @@ Phases (each raises on failure, so any failure exits non-zero):
      scatter_rows, two float4 atomics per index on 16 x 1M uniform random
      rows of the 129^3-row table, equal to its plain version, timed by
      device time against index_add_
+ 16. the autodiff surrogate's kernels at 512^2 x 4 streams, 2 dispatches,
+     exact and majorant mode (the bench scene, majorant_blocks=16): K4's
+     surrogate mode (its state equals K1's bit for bit, its tape the
+     plain tape), K12 surrogate_reverse on that tape within 1e-4 relative
+     L2 of its plain version (two runs within 1e-5); both timed against
+     their bounds; then render_sequence_diff's kernel path against the
+     autograd twin on the card (128^2 x 2, K = 2, all four tables, 1e-4)
+ 17. the autodiff training path: fit_spectral(method="autodiff") at full
+     width on the bench scene and, routed by default, on the sparse 512^3
+     majorant scene (3 iterations each, the launch counts set to 0 before:
+     K4's surrogate mode, K12, K9 and K10 required; seconds per
+     iteration); a K = 4 surrogate window split into the taped sweep, K12
+     and K9 beside phase 9's PRB stride-1 window; a checkpoint after
+     iteration 2 and a resume (losses rtol 1e-4, params 5e-4; K12's
+     atomics make runs differ by rounding)
 The line before the last is a JSON object with each kernel's launches,
 error and times, its bound (the larger of the bytes it must move over the
 HBM rate and the FP32 operations this run's data needs over the FP32
@@ -110,6 +126,14 @@ HBM_BYTES_PER_S, FP32_OPS_PER_S = 3.35e12, 67e12
 # (13), the slab test (24), the position (6), the wavelength (5 + a
 # compare per bin boundary), its TF column (6).
 OPS_STEP, OPS_LOOKUP, OPS_RESPAWN = 24, 74, 135
+# FP32 operations of K12 (surrogate_reverse), counted from its source: per
+# lane-step the carry, the extinction score and the position update (~30);
+# per null or scatter event the re-read volume row (3 axes, 7 lerps) and TF
+# row (9 lerps, 3 slopes), the event scores, the spatial gradient and the
+# scatter weights (~100); per anisotropic scatter the sphere and cosine
+# redraw and the HG reverse (~90)
+OPS_SUR_STEP, OPS_SUR_EVENT, OPS_SUR_HG = 30, 100, 90
+SUR_SOURCE = "vpt_tpu_torch/csrc/surrogate.cu"
 
 
 def log(msg):
@@ -1305,6 +1329,383 @@ def phase_scatter(dev):
                        library_ms)
 
 
+def sur_adjoints(ctx, n, n_bins, seed):
+    """A carry of seeded random adjoints (the state's end) and zero packed
+    adjoints of every table, for K12."""
+    from vpt_tpu_torch.kernels import spectral_backward as TB
+
+    rng = np.random.default_rng(seed)
+    dev = ctx.material_tf.device
+
+    def g(*shape):
+        return torch.as_tensor(rng.standard_normal(shape).astype(np.float32), device=dev)
+
+    carry = dict(c=g(n), gp=[g(n) for _ in range(3)], gd=[g(n) for _ in range(3)],
+                 grad=g(n_bins, n) / float(RES))
+    return carry, TB._packed_adj_init(ctx, TB.ALL_WRT)
+
+
+def copy_carry(carry):
+    return {k: [t.clone() for t in v] if isinstance(v, list) else v.clone()
+            for k, v in carry.items()}
+
+
+def sur_bound(tape, samples, adj, ctx, n_bins, ms):
+    """K12's bound: the tape read once, the carry in and out, the sample
+    counts, the scene tables read once (no more than a row per event
+    lane-step), the packed adjoints written once; FP32 operations per
+    lane-step (carry, deposit, extinction score, position: OPS_SUR_STEP),
+    per event (the re-read material, the scores, the spatial gradient and
+    the scatter weights: OPS_SUR_EVENT) and per anisotropic scatter (the
+    redraw and the HG reverse: OPS_SUR_HG), counted from the tape's flags."""
+    from vpt_tpu_torch.kernels import surrogate as S
+
+    flags = tape[:, :, 0].view(torch.int32)
+    events = int(((flags & (S.F_NULL | S.F_SCATTER)) != 0).sum())
+    scatters = int(((flags & S.F_SCATTER) != 0).sum())
+    n = tape.shape[-1]
+    nbytes = (tape.numel() * 4 + 2 * n * (7 + n_bins) * 4 + n * 4
+              + table_bytes(ctx, events) + sum(v.numel() * 4 for v in adj.values()))
+    out = bound(nbytes, tape.shape[0] * tape.shape[1] * n * OPS_SUR_STEP
+                + events * OPS_SUR_EVENT + scatters * OPS_SUR_HG, ms)
+    out.update(event_lane_steps=events, scatter_lane_steps=scatters,
+               lane_steps=tape.shape[0] * tape.shape[1] * n)
+    return out
+
+
+def phase_surrogate(renderer, camera, dev):
+    """Phase 16: K4's surrogate mode and K12 at 512^2 x 4, 2 dispatches, in
+    exact and majorant mode; then the kernel path of render_sequence_diff
+    against the autograd twin on the card."""
+    from vpt_tpu_torch.kernels import mcm_spectral as K
+    from vpt_tpu_torch.kernels import surrogate as S
+    from vpt_tpu_torch.models.mcm_spectral import MCMSpectralRenderer
+
+    seeds = [2654435761 * k % 2**32 for k in (3, 4)]
+    k4 = dict(name="surrogate_tape_forward", route="cuda", source=BWD_SOURCE,
+              replaces="vpt_tpu/models/mcm_spectral.py:508 (the residuals of render_diff)",
+              max_abs_err=0.0, min_field_share_equal=1.0, modes={})
+    k12 = dict(name="surrogate_reverse", route="cuda", source=SUR_SOURCE,
+               replaces="vpt_tpu/models/mcm_spectral.py:508 (jax.grad of render_diff)",
+               max_abs_err=0.0, max_rel_l2=0.0, modes={})
+    # the bench scene with the super-voxel majorant (blocks of 16)
+    maj_renderer = MCMSpectralRenderer(*bench_scene_args(), resolution=RES, streams=STREAMS,
+                                       majorant_blocks=16, device=dev)
+    for mode, r in (("exact", renderer), ("majorant", maj_renderer)):
+        ctx = r.ctx(camera, 7)
+        s0 = r.reset(camera, 7)
+        s1 = clone_state(s0)
+        K.step(s1, ctx, seeds, STEPS, BINS)
+        sk, tk = S.tape_forward(s0, ctx, seeds, STEPS, BINS)
+        _, tk2 = S.tape_forward(s0, ctx, seeds, STEPS, BINS)
+        sp = clone_state(s0)
+        tp = S.tape_forward_plain(sp, ctx, seeds, STEPS, BINS)
+        torch.cuda.synchronize()
+        diff = first_difference(sk, s1)
+        if diff is not None:
+            raise AssertionError(f"K4 surrogate ({mode}) state != K1's: {diff}")
+        if not torch.equal(tk.view(torch.int32), tk2.view(torch.int32)):
+            raise AssertionError(f"K4 surrogate ({mode}) differs between two runs")
+        flds = S.fields(ctx.majorant is not None)
+        shares = {f: float((tk[:, :, i].view(torch.int32) == tp[:, :, i].view(torch.int32))
+                           .float().mean()) for i, f in enumerate(flds)}
+        worst = min(shares, key=shares.get)
+        k4["min_field_share_equal"] = min(k4["min_field_share_equal"], shares[worst])
+        for i, f in enumerate(flds):
+            if f not in ("flags", "rng"):
+                k4["max_abs_err"] = max(k4["max_abs_err"],
+                                        float((tk[:, :, i] - tp[:, :, i]).abs().max()))
+        if shares[worst] < TAPE_SHARE_MIN:
+            raise AssertionError(f"K4 surrogate ({mode}) tape field {worst} equals plain on "
+                                 f"{shares[worst]}")
+        rec4 = dict(share_equal=shares)
+        rec4["ms"] = cuda_ms(lambda: S.tape_forward(s0, ctx, seeds, STEPS, BINS), 10)
+        rec4["plain_ms"] = cuda_ms(lambda: S.tape_forward_plain(clone_state(s0), ctx, seeds,
+                                                                STEPS, BINS), 1)
+        rec4.update(step_bound(ctx, s0, seeds, BINS, rec4["ms"], taped=tk.numel() * 4))
+        k4["modes"][mode] = rec4
+        log(f"# K4 surrogate mode ({mode}), 2 dispatches x {STEPS} steps, {len(flds)} fields: "
+            f"state == K1 bitwise, reruns identical; tape == plain on {shares[worst]:.6f} of "
+            f"lane-steps in the worst field ({worst}); {rec4['ms']:.4f} ms kernel, plain "
+            f"{rec4['plain_ms']:.4f} ms; bound {rec4['bound_ms']:.4f} ms by {rec4['bound_by']} "
+            f"({rec4['bound_bytes']} B, {rec4['bound_ops']} FP32 ops), share "
+            f"{rec4['bound_share']:.3f}")
+
+        # K12 on the kernel's tape against its plain version, two runs
+        n = s0.px.numel()
+        carry0, adj0 = sur_adjoints(ctx, n, BINS, 11)
+
+        def run(plain):
+            carry, adj = copy_carry(carry0), {k: v.clone() for k, v in adj0.items()}
+            (S.reverse_plain if plain else S.reverse)(tk, flds, sk.samples, carry, adj, ctx,
+                                                      BINS)
+            return carry, adj
+
+        (ca, aa), (cb, ab), (cp, ap) = run(False), run(False), run(True)
+        torch.cuda.synchronize()
+        rec = {}
+        pairs = {k: (aa[k], ab[k], ap[k]) for k in ap}
+        pairs.update(c=(ca["c"], cb["c"], cp["c"]), grad=(ca["grad"], cb["grad"], cp["grad"]),
+                     gp=tuple(torch.stack(x[k]) for x, k in ((ca, "gp"), (cb, "gp"), (cp, "gp"))),
+                     gd=tuple(torch.stack(x[k]) for x, k in ((ca, "gd"), (cb, "gd"), (cp, "gd"))))
+        for k, (a, b, p) in pairs.items():
+            scale = float(p.norm())
+            rel = float((a - p).norm()) / max(scale, 1e-30)
+            rerun = float((a - b).norm()) / max(scale, 1e-30)
+            mabs = float((a - p).abs().max())
+            if not bool(torch.isfinite(a).all()) or scale == 0.0:
+                raise AssertionError(f"K12 ({mode}) {k}: not finite or all zero")
+            if rel > 1e-4 or rerun > 1e-5:
+                raise AssertionError(f"K12 ({mode}) {k}: rel L2 {rel:.3g} vs plain, {rerun:.3g} "
+                                     f"between runs")
+            rec[k] = dict(rel_l2=rel, max_abs=mabs, rerun_rel_l2=rerun)
+            k12["max_abs_err"] = max(k12["max_abs_err"], mabs)
+            k12["max_rel_l2"] = max(k12["max_rel_l2"], rel)
+        adj_t = {k: v.clone() for k, v in adj0.items()}
+        rec["ms"] = cuda_ms(lambda: S.reverse(tk, flds, sk.samples, copy_carry(carry0), adj_t, ctx,
+                                              BINS), 5)
+        rec["plain_ms"] = cuda_ms(lambda: run(True), 1)
+        rec.update(sur_bound(tk, sk.samples, adj0, ctx, BINS, rec["ms"]))
+        k12["modes"][mode] = rec
+        log(f"# K12 surrogate_reverse ({mode}), 2 dispatches: " + ", ".join(
+            f"{k} rel {rec[k]['rel_l2']:.3g} rerun {rec[k]['rerun_rel_l2']:.3g}" for k in pairs)
+            + f"; {rec['ms']:.4f} ms kernel vs {rec['plain_ms']:.4f} ms plain; bound "
+            f"{rec['bound_ms']:.4f} ms by {rec['bound_by']} ({rec['bound_bytes']} B, "
+            f"{rec['bound_ops']} FP32 ops; {rec['event_lane_steps']} event and "
+            f"{rec['scatter_lane_steps']} scatter lane-steps of {rec['lane_steps']}), share "
+            f"{rec['bound_share']:.3f}")
+        del tk, tk2, tp
+    for entry in (k4, k12):
+        ex = entry["modes"]["exact"]
+        entry.update(ms=ex["ms"], plain_ms=ex["plain_ms"])
+        kernel_line(entry, {k: ex[k] for k in ("bound_ms", "bound_by", "bound_bytes", "bound_ops",
+                                               "bound_share")})
+    k12["library_call"] = "— (no single call)"
+    twin = twin_check(dev, camera)
+    del maj_renderer
+    torch.cuda.empty_cache()
+    return k4, k12, twin
+
+
+def twin_check(dev, camera):
+    """The kernel path of render_sequence_diff (K1, K4's surrogate mode,
+    K12, K10, K9) against the autograd twin, both on the card: 128^2 x 2
+    streams, K = 2 dispatches, gradients of an MSE loss w.r.t. all four
+    tables, relative L2 <= 1e-4 each, exact and majorant mode."""
+    from vpt_tpu_torch.kernels import corners as C
+    from vpt_tpu_torch.kernels import mcm_spectral as K
+    from vpt_tpu_torch.models import mcm_spectral as TM
+    from vpt_tpu_torch.ops import interp
+
+    res, streams, seeds = 128, 2, [8, 5100]
+    args = list(bench_scene_args())
+    out = {}
+    for mode, blocks in (("exact", None), ("majorant", 16)):
+        r = TM.MCMSpectralRenderer(*args, resolution=res, streams=streams, majorant_blocks=blocks,
+                                   device=dev)
+        base, s0 = r.ctx(camera, 7), r.reset(camera, 7)
+        raw = dict(density=torch.as_tensor(np.asarray(args[0].density, np.float32), device=dev),
+                   material_tf=torch.as_tensor(np.array(args[1].table, np.float32), device=dev),
+                   light_spectrum=torch.as_tensor(np.asarray(args[2].spectrum_array(), np.float32),
+                                                  device=dev),
+                   extinction=torch.tensor(np.float32(args[4].extinction), device=dev))
+        target = torch.full((res, res, 3), 0.25, device=dev)
+
+        def ctx_of(p):
+            vol = interp.PackedVolume(C.pack_volume_diff(p["density"]), base.density.dims)
+            return dataclasses.replace(base, density=vol, extinction=p["extinction"],
+                                       material_tf=C.pack_tf_diff(p["material_tf"],
+                                                                  p["light_spectrum"]))
+
+        def grads(loss_fn):
+            p = {k: v.clone().requires_grad_(True) for k, v in raw.items()}
+            loss = loss_fn(p)
+            return float(loss.detach()), dict(zip(p, torch.autograd.grad(loss, list(p.values()))))
+
+        def kernels(p):
+            img = TM.render_sequence_diff(seeds, s0, ctx_of(p), STEPS, BINS)
+            return torch.mean((img - target) ** 2)
+
+        def twin(p):
+            ctx = ctx_of(p)
+            st = {k: getattr(s0, k).clone() for k in K.STATE_FIELDS}
+            score = torch.ones_like(s0.px)
+            for s in seeds:
+                st, score = K.render_diff_plain(st, score, dataclasses.replace(ctx, seed_bits=s),
+                                                [s], STEPS, BINS)
+            img = TM.radiance_to_rgb(st["radiance"], base.bin_xyz)
+            return torch.mean((img - target) ** 2)
+
+        lk, gk = grads(kernels)
+        lt, gt = grads(twin)
+        rec = dict(loss=lk, loss_twin=lt)
+        for k in gk:
+            rel = float((gk[k] - gt[k]).norm() / gt[k].norm().clamp_min(1e-30))
+            rec[k] = rel
+            if not bool(torch.isfinite(gk[k]).all()) or float(gt[k].norm()) == 0.0 or rel > 1e-4:
+                raise AssertionError(f"render_sequence_diff ({mode}) {k}: kernel path vs twin rel "
+                                     f"L2 {rel:.3g}, norm {float(gt[k].norm())}")
+        if lk != lt:
+            raise AssertionError(f"render_sequence_diff ({mode}): loss {lk} != twin's {lt}")
+        out[mode] = rec
+        log(f"# render_sequence_diff ({mode}, {res}^2 x {streams}, K = 2) kernel path vs the "
+            f"autograd twin on the card: loss equal ({lk:.6g}); " + ", ".join(
+                f"{k} rel L2 {rec[k]:.3g}" for k in gk))
+        del r
+    return out
+
+
+def launch_counts():
+    from vpt_tpu_torch.kernels import corners as C
+    from vpt_tpu_torch.kernels import mcm_spectral as K
+    from vpt_tpu_torch.kernels import surrogate as S
+
+    return {**K.LAUNCHES, **S.LAUNCHES, **C.LAUNCHES}
+
+
+def reset_counts():
+    from vpt_tpu_torch.kernels import corners as C
+    from vpt_tpu_torch.kernels import mcm_spectral as K
+    from vpt_tpu_torch.kernels import spectral_backward as TB
+    from vpt_tpu_torch.kernels import surrogate as S
+
+    for mod in (K, S, C, TB):
+        mod.reset_launch_counts()
+
+
+def autodiff_fit(label, target, renderer, camera, init, dev, **kw):
+    """fit_spectral with the surrogate: FIT_ITERS iterations of CHUNK
+    dispatches, the launch counts set to 0 just before; checks the launches
+    (K4's surrogate mode, K12, K9, K10), finite losses and moved params."""
+    from vpt_tpu_torch.optim import fit_spectral
+
+    reset_counts()
+    t0 = time.perf_counter()
+    params, losses, info = fit_spectral(target, renderer, camera, {"density": init},
+                                        dispatches_per_step=CHUNK, iterations=FIT_ITERS,
+                                        learning_rate=0.02, seed=1, return_info=True, **kw)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = launch_counts()
+    require_launches(launches, ("surrogate_tape_forward", "surrogate_reverse",
+                                "contract_corners", "pack_corners"), f"fit_spectral ({label})")
+    d = params["density"]
+    moved = float((d - torch.as_tensor(init, device=dev)).abs().max())
+    if (info["method"] != "autodiff" or not np.isfinite(losses).all() or moved == 0.0
+            or not bool(torch.isfinite(d).all())):
+        raise AssertionError(f"fit_spectral ({label}): method {info['method']}, losses {losses}, "
+                             f"params moved {moved}")
+    rec = dict(losses=losses, seconds=dt, seconds_per_iteration=dt / FIT_ITERS,
+               max_param_change=moved, launches={k: v for k, v in launches.items() if v})
+    log(f"# fit_spectral autodiff ({label}): {FIT_ITERS} iterations x {CHUNK} dispatches in "
+        f"{dt:.4f} s ({dt / FIT_ITERS:.4f} s per iteration); losses {losses}; max param change "
+        f"{moved:.4g}; launches {rec['launches']}")
+    return params, rec
+
+
+def surrogate_window(renderer, camera, dev, init):
+    """One K = 4 window of the surrogate, wrt={density}: the whole
+    fwd+bwd (the loss through render_sequence_diff and its backward,
+    re-pack and contraction included) by CUDA events, then its pieces: the
+    taped sweep (K4's surrogate mode over the 4 dispatches, one launch),
+    K12 over that tape, and K9 on the packed volume adjoint."""
+    from vpt_tpu_torch.kernels import corners as C
+    from vpt_tpu_torch.kernels import surrogate as S
+    from vpt_tpu_torch.optim import spectral_render_loss
+
+    ctx = renderer.ctx(camera, 1)
+    state = renderer.reset(camera, 1)
+    seeds = [(7 + k) * 2654435761 % 2**32 for k in range(CHUNK)]
+    target = torch.zeros(RES, RES, 3, device=dev)
+    dens = torch.as_tensor(init, device=dev)
+
+    def window():
+        p = {"density": dens.clone().requires_grad_(True)}
+        loss = spectral_render_loss(p, state, ctx, seeds, target, STEPS, BINS)
+        return torch.autograd.grad(loss, [p["density"]])[0]
+
+    window()
+    rec = dict(window_ms=cuda_ms(window, 3))
+    fctx = dataclasses.replace(ctx, density=dataclasses.replace(
+        ctx.density, table=C.pack_volume(dens)))
+    _, tape = S.tape_forward(state, fctx, seeds, STEPS, BINS)
+    rec["taped_sweep_ms"] = cuda_ms(lambda: S.tape_forward(state, fctx, seeds, STEPS, BINS), 3)
+    sf, _ = S.tape_forward(state, fctx, seeds, STEPS, BINS)
+    n = state.px.numel()
+    carry0, _ = sur_adjoints(fctx, n, BINS, 5)
+    adj = {"g_vol": torch.zeros(fctx.density.table.shape, device=dev)}
+    rec["k12_ms"] = cuda_ms(lambda: S.reverse(tape, S.fields(False), sf.samples,
+                                              copy_carry(carry0), adj, fctx, BINS), 3)
+    rec["k9_ms"] = device_ms(lambda: C.contract_volume(adj["g_vol"], fctx.density.dims))
+    rec["tape_bytes"] = tape.numel() * 4
+    log(f"# surrogate window (K = {CHUNK}, wrt={{density}}): {rec['window_ms']:.3f} ms fwd+bwd; "
+        f"taped sweep {rec['taped_sweep_ms']:.3f} ms, K12 {rec['k12_ms']:.3f} ms, K9 "
+        f"{rec['k9_ms']:.4f} ms (device); tape {rec['tape_bytes']} B")
+    return rec
+
+
+def phase_autodiff_fit(camera, dev, prb_windows):
+    """Phase 17: fit_spectral(method="autodiff") at full width on the bench
+    scene, the default routing on the sparse 512^3 majorant scene, a
+    surrogate window split beside phase 9's PRB stride-1 window, and a
+    checkpoint save and resume."""
+    from vpt_tpu_torch.models.mcm_spectral import MCMSpectralRenderer
+    from vpt_tpu_torch.session import RenderSession
+
+    args = bench_scene_args()
+    session = RenderSession("mcm-spectral", *args, resolution=RES, streams=STREAMS, device=dev)
+    session.run(64)
+    target = session.hdr_image()
+    del session
+    renderer = MCMSpectralRenderer(*args, resolution=RES, streams=STREAMS, device=dev)
+    init = smoothed(args[0].density, max(VOLUME // 16, 2))
+    out = {}
+    params, out["bench"] = autodiff_fit("bench scene", target, renderer, camera, init, dev,
+                                        method="autodiff")
+    out["window"] = surrogate_window(renderer, camera, dev, init)
+    out["window"]["prb_stride1_window_ms"] = prb_windows["stride1"]["window_ms"]
+
+    # checkpoint: 2 iterations saved, then resumed to 3, against the 3 above
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "inverse.npz")
+        from vpt_tpu_torch.optim import fit_spectral
+
+        kw = dict(dispatches_per_step=CHUNK, learning_rate=0.02, seed=1, method="autodiff",
+                  checkpoint=path)
+        fit_spectral(target, renderer, camera, {"density": init}, iterations=FIT_ITERS - 1, **kw)
+        resumed, losses = fit_spectral(target, renderer, camera, {"density": init},
+                                       iterations=FIT_ITERS, **kw)
+    straight = out["bench"]["losses"][-1]
+    rel_loss = abs(losses[0] - straight) / abs(straight)
+    dp = resumed["density"] - params["density"]
+    rel_params = float(dp.abs().max()) / max(float(params["density"].abs().max()), 1e-30)
+    ok = len(losses) == 1 and rel_loss <= 1e-4 and torch.allclose(
+        resumed["density"], params["density"], rtol=5e-4, atol=5e-6)
+    out["checkpoint"] = dict(resumed_loss=losses, straight_loss=straight, loss_rel=rel_loss,
+                             params_max_rel=rel_params, ok=bool(ok))
+    log(f"# checkpoint after iteration {FIT_ITERS - 1}, resumed: loss {losses} vs straight "
+        f"{straight} (rel {rel_loss:.3g}), params max rel {rel_params:.3g} (K12's atomics make "
+        f"runs differ by rounding)")
+    if not ok:
+        raise AssertionError(f"resumed trajectory differs: {out['checkpoint']}")
+    del renderer, params, resumed
+    torch.cuda.empty_cache()
+
+    # the sparse 512^3 majorant scene, method=None: routed to the surrogate
+    sparse, cam, host = sparse_scene(dev)
+    _, sparse_target = sparse.render_many(sparse.reset(cam, 3), cam,
+                                          [(3 + k) * 2654435761 % 2**32 for k in range(16)])
+    sparse_init = np.clip(smoothed(sparse.volume.density, 16) * 0.8 + 0.05, 0.0, 1.0)
+    torch.cuda.reset_peak_memory_stats()
+    _, out["sparse"] = autodiff_fit("sparse 512^3, majorant, method=None", sparse_target, sparse,
+                                    cam, sparse_init, dev)
+    out["sparse"]["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+    log(f"# sparse autodiff fit: peak device memory {out['sparse']['peak_memory_bytes']} B")
+    del sparse
+    torch.cuda.empty_cache()
+    return out
+
+
 def phase_gather(dev):
     """The gather tool's own path: exact on ragged shapes and at every size
     of the TPU tools at L and 16 L lookups, with K7's plan, timed by host
@@ -1422,14 +1823,19 @@ def main():
     compact_kernels, compact = phase_compaction(dev)
     cli = phase_cli()
     k11 = phase_scatter(dev)
+    k4_sur, k12, twin = phase_surrogate(MCMSpectralRenderer(
+        *bench_scene_args(), resolution=RES, streams=STREAMS, device=dev), camera, dev)
+    autodiff = phase_autodiff_fit(camera, dev, windows)
     foreign = sorted(k for k in sys.modules
                      if k in ("jax", "vpt_tpu") or k.startswith(("jax.", "vpt_tpu.")))
     if foreign:
         raise AssertionError(f"imported {foreign[:5]}: the port must not load jax or vpt_tpu")
 
     k1["launches"], k2["launches"] = launches["step"], launches["reset"]
+    k4_sur["launches"] = autodiff["bench"]["launches"]["surrogate_tape_forward"]
+    k12["launches"] = autodiff["bench"]["launches"]["surrogate_reverse"]
     missing = [k["name"] for k in (k1, k2, k3, k4, k5, k6, k7, k9, k10, k11, k1_maj,
-                                   *k1_modes.values(), *compact_kernels)
+                                   *k1_modes.values(), *compact_kernels, k4_sur, k12)
                if not {"bound_ms", "bound_by", "library_ms"} <= set(k)]
     if missing:
         raise AssertionError(f"kernels without a bound: {missing}")
@@ -1441,12 +1847,13 @@ def main():
         raise AssertionError(f"the training path did not launch K9/K10: {bwd_launches}")
     k5["split_stride1_window"] = windows["stride1"]["k5_split"]
     result = {"kernels": [k1, k2, k4, k5, k6, k7, k9, k10, k11, k1_maj, k1_modes["environment"],
-                          k1_modes["quasicubic"], *compact_kernels],
+                          k1_modes["quasicubic"], *compact_kernels, k4_sur, k12],
               "standalone": [k3],
               "main_path": {"kernel": kern, "plain_step": plain},
               "training_path": {"fit_spectral": fits, "fwd_bwd_windows": windows},
               "majorant_path": sparse, "mode_sessions": mode_rates, "compaction": compact,
-              "cli": cli, "ptxas": ptxas, "gpu": smi}
+              "cli": cli, "surrogate": {"twin_on_card": twin, "autodiff_fit": autodiff},
+              "ptxas": ptxas, "gpu": smi}
     log(json.dumps(result))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                           "kind": torch.cuda.get_device_name(0),

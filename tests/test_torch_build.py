@@ -19,6 +19,13 @@ ptxas info    : Compiling entry function '_ZN53_GLOBAL__N__329e020e_20_spectral_
 ptxas info    : Function properties for _ZN53_GLOBAL__N__329e020e_20_spectral_backward_cu_fefce9d614reverse_kernelILi16EEEvNS_3RevEPKfS3_PfS4_PKiPKjS4_S4_S4_
     512 bytes stack frame, 12 bytes spill stores, 16 bytes spill loads
 ptxas info    : Used 123 registers, used 1 barriers, 512 bytes cumulative stack size
+ptxas info    : Compiling entry function '_ZN53_GLOBAL__N__329e020e_20_spectral_backward_cu_fefce9d621surrogate_tape_kernelILi12ELb1EEEvNS_6ParamsENS_7SurSpecEPf' for 'sm_90a'
+ptxas info    : Used 64 registers, used 0 barriers
+== surrogate.cu
+ptxas info    : Compiling entry function '_ZN45_GLOBAL__N__1a2b3c4d_12_surrogate_cu_0a1b2c3d24surrogate_reverse_kernelILi12ELb0EEEvNS_6ParamsENS_7SurSpecEPKf' for 'sm_90a'
+ptxas info    : Function properties for _ZN45_GLOBAL__N__1a2b3c4d_12_surrogate_cu_0a1b2c3d24surrogate_reverse_kernelILi12ELb0EEEvNS_6ParamsENS_7SurSpecEPKf
+    32 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 96 registers, used 1 barriers, 32 bytes cumulative stack size
 == corners.cu
 ptxas info    : Compiling entry function '_ZN45_GLOBAL__N__0b1d2e3f_10_corners_cu_4f5e6d7c22contract_volume_kernelEPKfPfiii' for 'sm_90a'
 ptxas info    : Function properties for _ZN45_GLOBAL__N__0b1d2e3f_10_corners_cu_4f5e6d7c22contract_volume_kernelEPKfPfiii
@@ -31,6 +38,8 @@ def test_ptxas_table_reads_the_step_kernels_only():
     assert _build.ptxas_table(LOG) == [("step_kernel", "12,1,0", 48, 4, 8, 40),
                                        ("tape_forward_kernel", "32", 64, 0, 0, 32),
                                        ("reverse_kernel", "16", 123, 12, 16, 512),
+                                       ("surrogate_tape_kernel", "12,1", 64, 0, 0, 0),
+                                       ("surrogate_reverse_kernel", "12,0", 96, 0, 0, 32),
                                        ("contract_volume_kernel", "", 26, 0, 0, 0)]
     assert _build.ptxas_table("") == []
 
@@ -47,4 +56,4 @@ def test_library_names_separate_directories():
 def test_sources_of_each_directory():
     assert set(_build._sources()) == set(_build._SIGNATURES)
     assert set(_build._SIGNATURES) == {"mcm_spectral", "spectral_backward", "corners",
-                                       "gather_bench"}
+                                       "gather_bench", "surrogate"}

@@ -77,10 +77,19 @@ def test_invert_spectral_prb(tmp_path, capsys):
     assert np.load(out).shape == (16, 16, 16)
 
 
+def test_invert_spectral_autodiff(tmp_path, capsys):
+    out = str(tmp_path / "rec_autodiff.npy")
+    captured = _run(capsys, [
+        "invert", "--spectral", "--device", "cpu", "--volume-size", "8", "--resolution", "8",
+        "--iterations", "2", "--method", "autodiff", "--output", out])
+    metrics = json.loads(captured.out.strip().splitlines()[-1])
+    assert np.isfinite(metrics["final_loss"]) and np.isfinite(metrics["density_mae"])
+    assert np.load(out).shape == (8, 8, 8)
+
+
 @pytest.mark.parametrize("argv,names", [
     (["render", "--renderer", "eam"], "eam"),
     (["render", "--devices", "2"], "--devices"),
-    (["invert", "--spectral", "--method", "autodiff"], "autodiff"),
     (["invert"], "fit_density"),
 ])
 def test_exits_name_what_is_not_ported(argv, names, tmp_path, capsys):
@@ -101,3 +110,13 @@ def test_cuda_device_without_cuda_exits_nonzero(cmd, tmp_path, monkeypatch):
         main(argv)  # --device defaults to cuda
     assert e.value.code not in (0, None) and "CUDA is not available" in str(e.value.code)
     assert not os.path.exists(tmp_path / "x.npy")
+
+
+def test_profile_fit_exits_without_cuda(monkeypatch, capsys):
+    """The fit profiler measures the card only: without CUDA it exits 1."""
+    from vpt_tpu_torch.tools import profile_fit
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit) as e:
+        profile_fit.main([])
+    assert e.value.code == 1 and "CUDA" in capsys.readouterr().err

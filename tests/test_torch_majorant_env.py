@@ -249,7 +249,13 @@ def test_backward_raises_for_the_new_modes(mode):
         TB.tape_forward(state, ctx, [1], 6, 12)
     with pytest.raises(NotImplementedError):  # the plain taped forward, called directly
         TB.tape_forward_plain(state, ctx, [1], 6, 12)
-    with pytest.raises(NotImplementedError):
-        fit_spectral(np.zeros((8, 8, 3), np.float32), r, cam,
-                     {"density": np.asarray(args[0].density)}, iterations=1,
-                     scatter_stride=1)
+    fit_args = (np.zeros((8, 8, 3), np.float32), r, cam, {"density": np.asarray(args[0].density)})
+    if mode == "majorant":
+        # fit_spectral routes the majorant mode to the autodiff surrogate and
+        # refuses a forced PRB with the reference's ValueError
+        with pytest.raises(ValueError, match=mode):
+            fit_spectral(*fit_args, iterations=1, scatter_stride=1, method="prb")
+    else:
+        for method in ("prb", "autodiff"):
+            with pytest.raises(NotImplementedError):
+                fit_spectral(*fit_args, iterations=1, scatter_stride=1, method=method)

@@ -336,10 +336,14 @@ def test_many_matches_sequential_dispatches():
 def test_window_matches_autodiff_multi_dispatch():
     """The window-correctness pin: the port's prb_loss_and_grads over a
     K = 4 dispatch window equals jax.grad of the JAX autodiff surrogate loss
-    (optim.spectral_render_loss) PER SEED (the port has no autodiff yet, so
-    the JAX gradient is carried across). Truncating the (c, cb) carry at
-    dispatch boundaries fails this."""
+    (optim.spectral_render_loss) PER SEED, and so does the port's own
+    surrogate (vpt_tpu_torch.optim.spectral_render_loss): port PRB ~ port
+    autodiff ~ JAX autodiff. With g = 0 (isotropic scattering) no position
+    or direction depends on a table, so the surrogate's pathwise chains
+    reach none and the two estimators agree seed by seed. Truncating the
+    (c, cb) carry at dispatch boundaries fails this."""
     from vpt_tpu import optim as JO
+    from vpt_tpu_torch import optim as TO
 
     table = _table(g_density_dependent=False)
     vol = Volume.sphere_in_cube(16)
@@ -361,6 +365,14 @@ def test_window_matches_autodiff_multi_dispatch():
     scale = max(np.abs(a).max(), 1e-6)
     np.testing.assert_allclose(b / scale, a / scale, atol=5e-4)
     assert np.abs(a).sum() > 0
+    # the port's surrogate, the third party
+    dens = torch.tensor(np.asarray(vol.density, np.float32), requires_grad=True)
+    loss_s = TO.spectral_render_loss({"density": dens}, s0, ctx, seeds, torch.as_tensor(target),
+                                     STEPS, 12)
+    c = torch.autograd.grad(loss_s, [dens])[0].numpy()
+    assert float(loss_s.detach()) == pytest.approx(float(loss_a), rel=1e-5)
+    np.testing.assert_allclose(c / scale, a / scale, atol=5e-4)
+    np.testing.assert_allclose(c / scale, b / scale, atol=5e-4)
 
 
 def test_window_storage_modes_agree():

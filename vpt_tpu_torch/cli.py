@@ -10,13 +10,13 @@ Subcommands:
   renderers   list the port's registered renderers
   tonemappers list the tone mappers
   info        torch / CUDA / device report
-  invert      spectral-MCM inverse rendering (--spectral --method prb)
+  invert      spectral-MCM inverse rendering (--spectral --method prb|autodiff)
 
 ``--device`` defaults to ``cuda``: the kernels run on the card, and a
 machine without CUDA exits non-zero instead of falling back to the CPU.
 ``--device cpu`` runs the plain PyTorch versions. What the port has not
-ported yet (other renderers, ``--devices > 1``, ``--method autodiff``, the
-non-spectral ``invert``) exits non-zero with a message naming it.
+ported yet (other renderers, ``--devices > 1``, the non-spectral
+``invert``) exits non-zero with a message naming it.
 """
 
 from __future__ import annotations
@@ -205,9 +205,6 @@ def cmd_invert(args):
     if not args.spectral:
         raise SystemExit("invert without --spectral (the EAM fit_density loop) is not "
                          "ported to vpt_tpu_torch yet")
-    if args.method == "autodiff":
-        raise SystemExit("invert --method autodiff (the autodiff surrogate) is not ported "
-                         "to vpt_tpu_torch yet")
     _check_ported(args)
     device = _device(args)
 
@@ -311,15 +308,16 @@ def main(argv=None):
     sp = sub.add_parser("info")
     sp.set_defaults(fn=cmd_info)
 
-    sp = sub.add_parser("invert", help="inverse rendering (spectral MCM, PRB)")
+    sp = sub.add_parser("invert", help="inverse rendering (spectral MCM)")
     common(sp)
     sp.add_argument("--output", "-o", default="recovered.npy")
     sp.add_argument("--views", type=int, default=4)
     sp.add_argument("--iterations", type=int, default=200)
     sp.add_argument("--spectral", action="store_true",
-                    help="spectral-MCM inverse on the packed-PRB path")
+                    help="spectral-MCM inverse rendering")
     sp.add_argument("--method", choices=["prb", "autodiff"], default=None,
-                    help="gradient estimator (default: prb)")
+                    help="gradient estimator: prb (the packed-adjoint backward, the default) "
+                         "or autodiff (the score-function surrogate)")
     sp.add_argument("--scatter-stride", default="auto",
                     type=lambda s: s if s == "auto" else int(s),
                     help="PRB scatter thinning stride; 'auto' probes the live-gradient "

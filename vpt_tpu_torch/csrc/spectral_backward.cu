@@ -10,6 +10,11 @@
 //                     path _importance_metric + _importance_scatter
 //                     (:411-540), and the reverse dispatch loop of
 //                     _tape_reverse_sweep / _prb_many_core (:1076-1139).
+//   surrogate_tape    K4's surrogate mode: the same step with woodcock_step's
+//                     SUR record, in exact or majorant mode, writing the
+//                     autodiff surrogate's tape (SurField, adjoint_common.cuh)
+//                     that K12 (surrogate.cu) walks back; its own template,
+//                     so the PRB instantiations keep their code.
 //
 // The tape is one f32 tensor (K, steps, F, lanes), lanes innermost so every
 // warp writes and reads whole 128-byte lines. Int and bool fields are
@@ -73,6 +78,7 @@
 // NaN-propagating max. The scatter order of the atomics varies from run to
 // run, so adjoints agree with the plain version to rounding, not bitwise.
 
+#include "adjoint_common.cuh"
 #include "mcm_common.cuh"
 
 namespace {
@@ -193,6 +199,75 @@ tape_forward_kernel(const Params P, const TapeSpec T, float* __restrict__ px_,
     if (b < n_bins) radiance[(int64_t)b * n_lanes + lane] = rad[b];
 }
 
+// one surrogate tape value of this lane, evict-first
+__device__ __forceinline__ void sput(float* row, const SurSpec& T, int field, float v) {
+  const long long o = T.off[field];
+  if (o >= 0) __stcs(row + o, v);
+}
+
+// K4's surrogate mode (replaces the residuals jax.grad keeps of
+// vpt_tpu/models/mcm_spectral.py::render_diff, :508-556): the same step
+// (woodcock_step's SUR record), in exact or majorant mode (MAJ), one
+// surrogate tape row per lane-step (SurField, adjoint_common.cuh). Its own
+// template, so the PRB instantiations above keep their code. The state it
+// leaves equals K1's bit for bit (the lookups a taped step adds feed no
+// state).
+template <int NB, bool MAJ>
+__global__ void __launch_bounds__(STEP_THREADS, 8)
+surrogate_tape_kernel(const Params P, const SurSpec T, float* __restrict__ px_,
+                      float* __restrict__ py_, float* __restrict__ pz_,
+                      float* __restrict__ dx_, float* __restrict__ dy_,
+                      float* __restrict__ dz_, int* __restrict__ bounces_,
+                      int* __restrict__ samples_, int* __restrict__ bin_,
+                      float* __restrict__ lam_, float* __restrict__ radiance,
+                      const void* __restrict__ vol, const float* __restrict__ tf,
+                      const float2* __restrict__ maj, const uint32_t* __restrict__ seeds,
+                      float* __restrict__ tape) {
+  const int n_lanes = P.i[I_N_LANES];
+  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
+  if (lane >= n_lanes) return;
+  const int n_bins = P.i[I_N_BINS];
+  uint32_t ix, iy, seed_iy;
+  float sx, sy;
+  lane_coords(lane, P.i[I_RES], ix, iy, seed_iy, P.f[F_INV_RES], sx, sy);
+
+  Lane L = load_lane(lane, P, px_, py_, pz_, dx_, dy_, dz_, bounces_, samples_, bin_, lam_);
+  float rad[NB];
+#pragma unroll
+  for (int b = 0; b < NB; ++b) rad[b] = (b < n_bins) ? radiance[(int64_t)b * n_lanes + lane] : 0.0f;
+
+  const StepConsts C = step_consts(P);
+  const int steps = P.i[I_STEPS];
+  const int64_t step_rows = (int64_t)T.n_fields * n_lanes;
+  float* row = tape + lane;
+  for (int k = 0; k < P.i[I_N_SEEDS]; ++k) {
+    uint32_t s = hash3(ix, seed_iy, seeds[k]);
+    for (int it = 0; it < steps; ++it, row += step_rows) {
+      StepRecord r;
+      woodcock_step<NB, true, MAJ, false, true>(L, rad, s, sx, sy, P, C, vol, tf, &r, maj);
+      const int flags = (r.respawn ? SF_RESPAWN : 0) | (r.oob ? SF_OOB : 0) |
+                        (r.null_event ? SF_NULL : 0) | (r.scatter ? SF_SCATTER : 0) |
+                        (r.capped ? SF_CAPPED : 0) | (r.pre_bin << 8);
+      sput(row, T, S_FLAGS, __int_as_float(flags));
+      sput(row, T, S_DIST, r.dist);
+      sput(row, T, S_DX, r.pdx);
+      sput(row, T, S_DY, r.pdy);
+      sput(row, T, S_DZ, r.pdz);
+      sput(row, T, S_RNG, __uint_as_float(r.rng));
+      sput(row, T, S_PX, r.spx);
+      sput(row, T, S_PY, r.spy);
+      sput(row, T, S_PZ, r.spz);
+      sput(row, T, S_LAM, r.lam);
+      if (MAJ) sput(row, T, S_MAJ, r.maj);
+    }
+  }
+
+  store_lane(L, lane, px_, py_, pz_, dx_, dy_, dz_, bounces_, samples_, bin_, lam_);
+#pragma unroll
+  for (int b = 0; b < NB; ++b)
+    if (b < n_bins) radiance[(int64_t)b * n_lanes + lane] = rad[b];
+}
+
 // a tape read: evict-first, since the tape streams through once and the
 // L2 is better spent on the adjoint tables the scatters add into
 __device__ __forceinline__ float tape_at(const float* row, long long off) {
@@ -298,32 +373,6 @@ __device__ __forceinline__ EventGrads event_grads(const EventIn& e, float q) {
   return G;
 }
 
-// sm_90 vector atomics (float2 / float4, global memory, CUDA >= 12.1)
-#if defined(__CUDA_ARCH__) && __CUDA_ARCH__ >= 900 && \
-    (__CUDACC_VER_MAJOR__ > 12 || (__CUDACC_VER_MAJOR__ == 12 && __CUDACC_VER_MINOR__ >= 1))
-#define VPT_VECTOR_ATOMICS 1
-#endif
-
-__device__ __forceinline__ void add2(float* p, float a, float b) {
-#ifdef VPT_VECTOR_ATOMICS
-  atomicAdd(reinterpret_cast<float2*>(p), make_float2(a, b));
-#else
-  atomicAdd(p, a);
-  atomicAdd(p + 1, b);
-#endif
-}
-
-__device__ __forceinline__ void add4(float* p, float a, float b, float c, float d) {
-#ifdef VPT_VECTOR_ATOMICS
-  atomicAdd(reinterpret_cast<float4*>(p), make_float4(a, b, c, d));
-#else
-  atomicAdd(p, a);
-  atomicAdd(p + 1, b);
-  atomicAdd(p + 2, c);
-  atomicAdd(p + 3, d);
-#endif
-}
-
 // the analytic per-step table scatters of one tape row (JAX scatter_step,
 // :781-862): one 18-wide TF+light row and one 8-wide volume row
 __device__ __forceinline__ void scatter_step(const EventIn& e, const ScatterIn& s, const Rev& R,
@@ -375,17 +424,6 @@ __device__ __forceinline__ float importance_metric(const EventIn& e, const Scatt
     m = m + (fabsf(G.albedo) + fabsf(G.alpha) + fabsf(G.graw) + fabsf(cb * s.light_w));
   }
   return m;
-}
-
-// block sum of one value per thread, added to *out with one atomic; in
-// f64, so the order in which the blocks' atomics land moves the sum by
-// f64 rounding only (an f32 sum over 8192 blocks moved it by up to ~3e-6)
-__device__ __forceinline__ void block_add(double v, double* out) {
-  __shared__ double warp_sums[REV_THREADS / 32];
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
-  if ((threadIdx.x & 31) == 0) warp_sums[threadIdx.x >> 5] = v;
-  __syncthreads();
-  if (threadIdx.x == 0) atomicAdd(out, ((warp_sums[0] + warp_sums[1]) + warp_sums[2]) + warp_sums[3]);
 }
 
 // The reverse pass, stride mode (NS == 0) or importance mode over at most
@@ -499,7 +537,7 @@ reverse_kernel(const Rev R, const float* __restrict__ tape,
     c_io[lane] = c;
     cb_io[lane] = cb;
   }
-  if (want_ext) block_add(ext, ext_acc);
+  if (want_ext) block_add<REV_THREADS>(ext, ext_acc);
 }
 
 // the scatter ceiling (bench.py:210-276 measure_ceilings' scatter_run):
@@ -553,6 +591,37 @@ int vpt_prb_tape_forward(const float* fparams, const int* iparams,
     break;
     VPT_NB(4) VPT_NB(8) VPT_NB(12) VPT_NB(16) VPT_NB(20) VPT_NB(24) VPT_NB(28) VPT_NB(32)
 #undef VPT_NB
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
+// K4's surrogate mode: the majorant table `maj` (Gz, Gy, Gx) x (majorant,
+// flight cap), or null for the exact mode
+int vpt_surrogate_tape_forward(const float* fparams, const int* iparams, const int* slots,
+                               int n_fields, float* px, float* py, float* pz, float* dx,
+                               float* dy, float* dz, int* bounces, int* samples, int* bin,
+                               float* wavelength, float* radiance, const void* vol,
+                               const float* tf, const float2* maj, const uint32_t* seeds,
+                               float* tape, void* stream) {
+  const Params P = make_params(fparams, iparams);
+  const int n = P.i[I_N_LANES];
+  const SurSpec T = make_sur_spec(slots, n_fields, n);
+  if (n <= 0) return 0;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const dim3 grid(blocks_for(n, STEP_THREADS)), block(STEP_THREADS);
+  switch (bins_rounded(P.i[I_N_BINS]) * 2 + (maj != nullptr ? 1 : 0)) {
+#define VPT_NB_MAJ(NB, M, MB)                                                              \
+  case NB * 2 + M:                                                                         \
+    surrogate_tape_kernel<NB, MB><<<grid, block, 0, st>>>(P, T, px, py, pz, dx, dy, dz,    \
+                                                          bounces, samples, bin, wavelength, \
+                                                          radiance, vol, tf, maj, seeds, tape); \
+    break;
+#define VPT_NB(NB) VPT_NB_MAJ(NB, 0, false) VPT_NB_MAJ(NB, 1, true)
+    VPT_NB(4) VPT_NB(8) VPT_NB(12) VPT_NB(16) VPT_NB(20) VPT_NB(24) VPT_NB(28) VPT_NB(32)
+#undef VPT_NB
+#undef VPT_NB_MAJ
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -1,0 +1,403 @@
+// K12 surrogate_reverse for Hopper (sm_90a), plain C interface.
+//
+//   surrogate_reverse  replaces jax.grad's reverse of
+//                      vpt_tpu/models/mcm_spectral.py::render_diff
+//                      (:508-556; the diff branches of _render_body,
+//                      :253-279, :352-355, :379-383, and _surrogate,
+//                      :203-209): the autodiff surrogate's backward, one
+//                      thread per lane walking K stored dispatch tapes
+//                      (K4's surrogate mode, spectral_backward.cu) in
+//                      reverse.
+//
+// Per lane it carries in registers the score cotangent c (the deposit
+// cotangents after this step up to the next respawn), the adjoints of the
+// position and the direction, and the radiance adjoint of every bin; a
+// respawn's running mean r += (target - r) / n sends g / n to the deposit
+// and leaves g (1 - 1/n). Per lane-step it adds the extinction score, the
+// event scores into alpha and albedo (majorant mode: p_real = min(alpha /
+// m, 1), nothing where clipped), the HG inversion's pathwise terms into g
+// and the incoming direction, the light's into the direction, the density
+// lookup's spatial gradient into the position, dist x g_pos into the
+// direction, and slopes x (g_albedo, g_alpha, 2 g_g) into the density. It
+// scatters one 18-wide TF+light row and one 8-wide volume row per
+// lane-step into the packed adjoints with float2/float4 atomics, as K5
+// does; K9 contracts them. A respawn drops the position and direction
+// adjoints: the camera ray depends on no parameter. The carry is read from
+// and written back to its arrays, so the adjoints at the tapes' end go in
+// and those at their start come out, and dispatches chain.
+//
+// The tape holds what cannot be recomputed: the flags and bin, the flight,
+// the pre-step direction, the chain's state before its disk draw, the
+// sample position and the wavelength (and m in majorant mode), 10-11
+// fields per lane-step. The rest comes from the forward's own device code
+// (mcm_common.cuh), so it equals the forward's values bit for bit: the
+// escape light from the wavelength's light pair, the HG sample redrawn
+// from the chain's state, and, on event steps only, the material and its
+// slopes from the volume row re-gathered at the sample position and then
+// the TF row (L2-resident, 4.8 MB at 257^2).
+//
+// What bounds it: the tape's bytes (40-44 B per lane-step, read once,
+// evict-first) and, on event steps, a random volume-row gather and the two
+// atomic row adds; the HG reverse (~60 FP32 operations, two sqrt and a
+// redraw with its cos/sin) runs on scattering lanes only.
+//
+// Numerics: -fmad=false and IEEE division, in the op order of the plain
+// version (kernels/surrogate.py::reverse_plain), so the two differ only by
+// the order of the atomics and of the block sums.
+
+#include "adjoint_common.cuh"
+#include "mcm_common.cuh"
+
+namespace {
+
+#define SUR_THREADS 128
+
+__device__ __forceinline__ float tie_max(float x, float lo) {
+  return x > lo ? 1.0f : (x == lo ? 0.5f : 0.0f);
+}
+
+__device__ __forceinline__ float tie_min(float x, float hi) {
+  return x < hi ? 1.0f : (x == hi ? 0.5f : 0.0f);
+}
+
+// the 8 corners of a packed volume row, dequantized as sample_volume does
+__device__ __forceinline__ void volume_row(const void* table, int is_u8, int64_t row, float c[8]) {
+  if (is_u8) {
+    const uint2 raw = __ldg(reinterpret_cast<const uint2*>(
+        static_cast<const uint8_t*>(table) + row * 8));
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      c[k] = u8_unit(raw.x, k);
+      c[4 + k] = u8_unit(raw.y, k);
+    }
+  } else {
+    const float4* r = reinterpret_cast<const float4*>(static_cast<const float*>(table) + row * 8);
+    const float4 a = __ldg(r), b = __ldg(r + 1);
+    c[0] = a.x; c[1] = a.y; c[2] = a.z; c[3] = a.w;
+    c[4] = b.x; c[5] = b.y; c[6] = b.z; c[7] = b.w;
+  }
+}
+
+// The reverse of sampling.draw_hg's anisotropic branch at (g, d) with the
+// sphere sample u and cosine draw ucos, for the output adjoint go: adds
+// into g_g and gd_out (the incoming direction's adjoint). The forward's
+// intermediates first, then their transposes, in kernels/surrogate.py::
+// _hg_reverse's order.
+__device__ __forceinline__ void hg_reverse(float g, const float d[3], const float u[3], float ucos,
+                                           const float go[3], float& g_g, float gd_out[3]) {
+  const float g2 = g * g;
+  const float den = (1.0f - g) + 2.0f * g * ucos;
+  const float cc = (1.0f - g2) / den;
+  const float num = (1.0f + g2) - cc * cc;
+  const float g2x = 2.0f * g;
+  const float h = num / g2x;
+  const float udotd = u[0] * d[0] + u[1] * d[1] + u[2] * d[2];
+  float cv[3];
+#pragma unroll
+  for (int a = 0; a < 3; ++a) cv[a] = u[a] - udotd * d[a];
+  const float cl = cv[0] * cv[0] + cv[1] * cv[1] + cv[2] * cv[2];
+  const bool pos = cl > 0.0f;
+  const float y = sqrtf(nmax(cl, 1e-30f));
+  const float cn = pos ? 1.0f / y : 0.0f;
+  const float m_arg = 1.0f - h * h;
+  const float sn = sqrtf(nmax(m_arg, 0.0f));
+  // o = (sn c) cn + h d
+  float g_h = go[0] * d[0] + go[1] * d[1] + go[2] * d[2];
+  float gd[3], gc[3];
+  float g_cn = 0.0f, g_sn = 0.0f;
+#pragma unroll
+  for (int a = 0; a < 3; ++a) gd[a] = go[a] * h;
+  float gt[3];
+#pragma unroll
+  for (int a = 0; a < 3; ++a) gt[a] = go[a] * cn;
+  g_cn = go[0] * (sn * cv[0]) + go[1] * (sn * cv[1]) + go[2] * (sn * cv[2]);
+  g_sn = gt[0] * cv[0] + gt[1] * cv[1] + gt[2] * cv[2];
+#pragma unroll
+  for (int a = 0; a < 3; ++a) gc[a] = gt[a] * sn;
+  // sn = sqrt(max(1 - h^2, 0)): inf / NaN at sn == 0, as jax.grad gives
+  const float g_marg = g_sn / (2.0f * sn) * tie_max(m_arg, 0.0f);
+  g_h = g_h - 2.0f * h * g_marg;
+  // cn = 1 / sqrt(max(cl, 1e-30)) where cl > 0
+  const float g_y = -(g_cn * cn * cn);
+  const float g_cl = pos ? g_y / (2.0f * y) * tie_max(cl, 1e-30f) : 0.0f;
+#pragma unroll
+  for (int a = 0; a < 3; ++a) gc[a] = gc[a] + 2.0f * cv[a] * g_cl;
+  // c = u - (u . d) d
+  const float g_ud = -(gc[0] * d[0] + gc[1] * d[1] + gc[2] * d[2]);
+#pragma unroll
+  for (int a = 0; a < 3; ++a) gd[a] = gd[a] - udotd * gc[a];
+#pragma unroll
+  for (int a = 0; a < 3; ++a) gd_out[a] = gd[a] + g_ud * u[a];
+  // h = (1 + g^2 - c^2) / (2 g), c = (1 - g^2) / (1 - g + 2 g ucos)
+  const float g_num = g_h / g2x;
+  float gg = 2.0f * (-(g_h * h / g2x));
+  const float g_cc = -2.0f * cc * g_num;
+  const float g_den = -(g_cc * cc / den);
+  const float g_g2 = g_num - g_cc / den;
+  gg = gg - g_den + 2.0f * ucos * g_den + 2.0f * g * g_g2;
+  g_g = gg;
+}
+
+// one lane walks K dispatch tapes back (NB: the bins rounded up to 4; MAJ:
+// the majorant mode, whose tape holds m)
+template <int NB, bool MAJ>
+__global__ void __launch_bounds__(SUR_THREADS)
+surrogate_reverse_kernel(const Params P, const SurSpec T, const float* __restrict__ tape,
+                         const int* __restrict__ samples, float* __restrict__ c_io,
+                         float* __restrict__ gpx_io, float* __restrict__ gpy_io,
+                         float* __restrict__ gpz_io, float* __restrict__ gdx_io,
+                         float* __restrict__ gdy_io, float* __restrict__ gdz_io,
+                         float* __restrict__ grad_io, const void* __restrict__ vol,
+                         const float* __restrict__ tf, double* __restrict__ ext_acc,
+                         float* __restrict__ g_tf, float* __restrict__ g_vol) {
+  // no early return: every thread reaches block_add's __syncthreads
+  const int n_lanes = P.i[I_N_LANES];
+  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
+  const bool active = lane < n_lanes;
+  float ext = 0.0f;
+  if (active) {
+    const int n_bins = P.i[I_N_BINS];
+    const int steps = P.i[I_STEPS];
+    const int tf_h = P.i[I_TF_H], tf_w = P.i[I_TF_W];
+    const int vd = P.i[I_VOL_D], vh = P.i[I_VOL_H], vw = P.i[I_VOL_W], u8 = P.i[I_VOL_U8];
+    const bool iso = P.i[I_ISOTROPIC] != 0;
+    const float ldx = P.f[F_LDX], ldy = P.f[F_LDY], ldz = P.f[F_LDZ];
+    const float mu = P.f[F_EXTINCTION];
+    const float inv_mu = __frcp_rn(mu);
+    const int64_t lanes = n_lanes;
+    const int64_t step_rows = (int64_t)T.n_fields * lanes;
+    float c = c_io[lane];
+    float gp[3] = {gpx_io[lane], gpy_io[lane], gpz_io[lane]};
+    float gd[3] = {gdx_io[lane], gdy_io[lane], gdz_io[lane]};
+    float grad[NB];
+#pragma unroll
+    for (int b = 0; b < NB; ++b) grad[b] = (b < n_bins) ? grad_io[(int64_t)b * lanes + lane] : 0.0f;
+    int n = samples[lane];
+
+    for (int k = P.i[I_N_SEEDS] - 1; k >= 0; --k) {
+      for (int it = steps - 1; it >= 0; --it) {
+        const float* row = tape + ((int64_t)k * steps + it) * step_rows + lane;
+        const int flags = __float_as_int(__ldcs(row + T.off[S_FLAGS]));
+        const float dist = __ldcs(row + T.off[S_DIST]);
+        const float d[3] = {__ldcs(row + T.off[S_DX]), __ldcs(row + T.off[S_DY]),
+                            __ldcs(row + T.off[S_DZ])};
+        const uint32_t rng = __float_as_uint(__ldcs(row + T.off[S_RNG]));
+        const float pos[3] = {__ldcs(row + T.off[S_PX]), __ldcs(row + T.off[S_PY]),
+                              __ldcs(row + T.off[S_PZ])};
+        const float lam = __ldcs(row + T.off[S_LAM]);
+        const float m = MAJ ? __ldcs(row + T.off[S_MAJ]) : 1.0f;
+        const bool respawn = flags & SF_RESPAWN, oob = flags & SF_OOB;
+        const bool nul = flags & SF_NULL, scat = flags & SF_SCATTER;
+        const bool capped = flags & SF_CAPPED;
+        const int pre_bin = flags >> 8;
+
+        // the deposit: g / n to it, g (1 - 1/n) stays
+        float g_dep = 0.0f;
+        if (respawn) {
+          const float denom = (float)max(n, 1);
+          float sel = 0.0f;
+#pragma unroll
+          for (int b = 0; b < NB; ++b)
+            if (b == pre_bin) sel = grad[b];
+          if (pre_bin >= 0 && pre_bin < n_bins) g_dep = __fdiv_rn(sel, denom);
+#pragma unroll
+          for (int b = 0; b < NB; ++b) grad[b] = grad[b] - __fdiv_rn(grad[b], denom);
+          n -= 1;
+        }
+        // the escape light, recomputed from the wavelength's light pair
+        int bx;
+        float tfx;
+        wavelength_coord(lam, tf_w, bx, tfx);
+        float emitted = 0.0f, intensity = 0.0f, ddot = 0.0f, prod = 0.0f;
+        if (oob) {
+          intensity = sample_light(tf, bx, tfx) * 5.0f;
+          if (iso) {
+            emitted = intensity;
+          } else {
+            ddot = d[0] * ldx + d[1] * ldy + d[2] * ldz;
+            prod = ddot * intensity;
+            emitted = nmax(prod, 0.0f);
+          }
+        }
+        // the score cotangent: cut at a respawn, restarted by its deposit
+        const float c_mid = respawn ? 0.0f : c;
+        const float gs1 = c_mid + g_dep * emitted;
+        if (MAJ) {
+          const float rate = mu * m;
+          ext = ext + ((capped ? 0.0f : __fdiv_rn(gs1, rate)) - gs1 * dist) * m;
+        } else {
+          ext = ext + (gs1 * inv_mu - gs1 * dist);
+        }
+        // the light's pathwise terms
+        float gdl[3] = {0.0f, 0.0f, 0.0f};
+        float g_light = 0.0f;
+        if (oob) {
+          float g_int = g_dep;
+          if (!iso) {
+            const float g_prod = g_dep * tie_max(prod, 0.0f);
+            g_int = g_prod * ddot;
+            const float g_dot = g_prod * intensity;
+            gdl[0] = g_dot * ldx;
+            gdl[1] = g_dot * ldy;
+            gdl[2] = g_dot * ldz;
+          }
+          g_light = g_int * 5.0f;
+          if (g_tf != nullptr && g_light != 0.0f) {
+            add2(g_tf + (int64_t)bx * 18 + 16, g_light * (1 - tfx), g_light * tfx);
+          }
+        }
+        // events: the material re-read at the sample position, the scores,
+        // the HG inversion, the TF row, the density row and its position
+        float gpd[3] = {0.0f, 0.0f, 0.0f};
+        float gd_hg[3] = {0.0f, 0.0f, 0.0f};
+        if (nul || scat) {
+          int vbx, vby, vbz;
+          float vf[3];
+          base_frac(pos[0], vw - 1, vbx, vf[0]);
+          base_frac(pos[1], vh - 1, vby, vf[1]);
+          base_frac(pos[2], vd - 1, vbz, vf[2]);
+          const int64_t vrow = ((int64_t)vbz * vh + vby) * vw + vbx;
+          float cc[8];
+          volume_row(vol, u8, vrow, cc);
+          const float l00 = lerp(cc[0], cc[1], vf[0]);
+          const float l01 = lerp(cc[2], cc[3], vf[0]);
+          const float l10 = lerp(cc[4], cc[5], vf[0]);
+          const float l11 = lerp(cc[6], cc[7], vf[0]);
+          const float l0 = lerp(l00, l01, vf[1]);
+          const float l1 = lerp(l10, l11, vf[1]);
+          const float dens = lerp(l0, l1, vf[2]);
+          float mat[3];
+          TfAddr ta;
+          sample_tf(tf, tf_h, tf_w, bx, tfx, dens, mat, nullptr, &ta);
+          const float albedo = mat[0], alpha = mat[1], g = mat[2] * 2.0f - 1.0f;
+          float x = 0.0f, p_real = 0.0f, p_null, p_s;
+          if (MAJ) {
+            x = alpha / m;
+            p_real = nmin(x, 1.0f);
+            p_null = 1.0f - p_real;
+            p_s = p_real * albedo;
+          } else {
+            p_null = 1.0f - alpha;
+            p_s = alpha * albedo;
+          }
+          const float g_pn = nul ? c_mid / nmax(p_null, 1e-12f) * tie_max(p_null, 1e-12f) : 0.0f;
+          const float g_ps = scat ? c_mid / nmax(p_s, 1e-12f) * tie_max(p_s, 1e-12f) : 0.0f;
+          float g_alpha, g_albedo;
+          if (MAJ) {
+            const float g_preal = -g_pn + g_ps * albedo;
+            g_albedo = g_ps * p_real;
+            g_alpha = g_preal * tie_min(x, 1.0f) / m;
+          } else {
+            g_alpha = -g_pn + g_ps * albedo;
+            g_albedo = g_ps * alpha;
+          }
+          float g_mat2 = 0.0f;
+          if (scat && fabsf(g) >= kEps) {
+            uint32_t s = rng;
+            float kx, ky;
+            draw_disk(s, kx, ky);
+            const float norm = kx * kx + ky * ky;
+            const float rr = 2.0f * sqrtf(nmax(1.0f - norm, 0.0f));
+            const float u[3] = {rr * kx, rr * ky, 1.0f - 2.0f * norm};
+            const float ucos = draw(s);
+            float g_g;
+            hg_reverse(g, d, u, ucos, gd, g_g, gd_hg);
+            g_mat2 = g_g * 2.0f;
+          }
+          if (g_tf != nullptr && (g_albedo != 0.0f || g_alpha != 0.0f || g_mat2 != 0.0f)) {
+            const float fx = ta.fx, fy = ta.fy;
+            const float w[4] = {(1 - fx) * (1 - fy), fx * (1 - fy), (1 - fx) * fy, fx * fy};
+            float* r = g_tf + (int64_t)ta.row * 18;
+#pragma unroll
+            for (int q = 0; q < 4; ++q) {
+              add2(r + 4 * q, g_albedo * w[q], g_alpha * w[q]);
+              add2(r + 4 * q + 2, g_mat2 * w[q], 0.0f);
+            }
+          }
+          const float g_dens = g_albedo * ta.slope[0] + g_alpha * ta.slope[1] + g_mat2 * ta.slope[2];
+          if (g_dens != 0.0f) {
+            const float vfx = vf[0], vfy = vf[1], vfz = vf[2];
+            if (g_vol != nullptr) {
+              const float w0 = (1 - vfy) * (1 - vfx), w1 = (1 - vfy) * vfx;
+              const float w2 = vfy * (1 - vfx), w3 = vfy * vfx;
+              const float a0 = g_dens * (1 - vfz), a1 = g_dens * vfz;
+              float* r = g_vol + vrow * 8;
+              add4(r, a0 * w0, a0 * w1, a0 * w2, a0 * w3);
+              add4(r + 4, a1 * w0, a1 * w1, a1 * w2, a1 * w3);
+            }
+            const float g_fz = g_dens * (l1 - l0);
+            const float g_l0 = g_dens * (1 - vfz), g_l1 = g_dens * vfz;
+            const float g_fy = g_l0 * (l01 - l00) + g_l1 * (l11 - l10);
+            const float g_fx = g_l0 * (1 - vfy) * (cc[1] - cc[0]) + g_l0 * vfy * (cc[3] - cc[2]) +
+                               g_l1 * (1 - vfy) * (cc[5] - cc[4]) + g_l1 * vfy * (cc[7] - cc[6]);
+            gpd[0] = g_fx * (float)(vw - 1);
+            gpd[1] = g_fy * (float)(vh - 1);
+            gpd[2] = g_fz * (float)(vd - 1);
+          }
+        }
+        // the position and direction adjoints before the step
+#pragma unroll
+        for (int a = 0; a < 3; ++a) {
+          const float gps = (respawn ? 0.0f : gp[a]) + gpd[a];
+          gd[a] = ((respawn ? 0.0f : (scat ? gd_hg[a] : gd[a])) + gdl[a]) + dist * gps;
+          gp[a] = gps;
+        }
+        c = gs1;
+      }
+    }
+    c_io[lane] = c;
+    gpx_io[lane] = gp[0]; gpy_io[lane] = gp[1]; gpz_io[lane] = gp[2];
+    gdx_io[lane] = gd[0]; gdy_io[lane] = gd[1]; gdz_io[lane] = gd[2];
+#pragma unroll
+    for (int b = 0; b < NB; ++b)
+      if (b < n_bins) grad_io[(int64_t)b * lanes + lane] = grad[b];
+  }
+  if (ext_acc != nullptr) block_add<SUR_THREADS>(ext, ext_acc);
+}
+
+}  // namespace
+
+extern "C" {
+
+int vpt_sur_layout(int which) {
+  switch (which) {
+    case 0: return S_COUNT;
+    case 1: return F_COUNT;
+    case 2: return I_COUNT;
+    default: return -1;
+  }
+}
+
+// the adjoints at the tapes' end in (c, gp*, gd*, grad: bins x lanes), at
+// their start out; g_tf / g_vol / ext_acc null when not wanted; majorant
+// mode when the tape has the m field
+int vpt_surrogate_reverse(const float* fparams, const int* iparams, const int* slots,
+                          int n_fields, const float* tape, const int* samples, float* c,
+                          float* gpx, float* gpy, float* gpz, float* gdx, float* gdy,
+                          float* gdz, float* grad, const void* vol, const float* tf,
+                          double* ext_acc, float* g_tf, float* g_vol, void* stream) {
+  const Params P = make_params(fparams, iparams);
+  const int n = P.i[I_N_LANES];
+  const SurSpec T = make_sur_spec(slots, n_fields, n);
+  if (n <= 0) return 0;
+  const bool maj = T.off[S_MAJ] >= 0;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const dim3 grid(blocks_for(n, SUR_THREADS)), block(SUR_THREADS);
+  switch (bins_rounded(P.i[I_N_BINS]) * 2 + (maj ? 1 : 0)) {
+#define VPT_NB_MAJ(NB, M, MB)                                                                  \
+  case NB * 2 + M:                                                                             \
+    surrogate_reverse_kernel<NB, MB><<<grid, block, 0, st>>>(P, T, tape, samples, c, gpx, gpy, \
+                                                             gpz, gdx, gdy, gdz, grad, vol, tf, \
+                                                             ext_acc, g_tf, g_vol);            \
+    break;
+#define VPT_NB(NB) VPT_NB_MAJ(NB, 0, false) VPT_NB_MAJ(NB, 1, true)
+    VPT_NB(4) VPT_NB(8) VPT_NB(12) VPT_NB(16) VPT_NB(20) VPT_NB(24) VPT_NB(28) VPT_NB(32)
+#undef VPT_NB
+#undef VPT_NB_MAJ
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
+}  // extern "C"

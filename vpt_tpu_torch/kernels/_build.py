@@ -61,6 +61,11 @@ _SIGNATURES = {
         "vpt_prb_tape_forward": ([_P, _P, _P, _I] + [_P] * 15 + [_P], _I),
         "vpt_prb_reverse": ([_P, _F] + [_P] * 10 + [_P], _I),
         "vpt_scatter_rows": ([_P, _L, _P, _P], _I),
+        "vpt_surrogate_tape_forward": ([_P, _P, _P, _I] + [_P] * 16 + [_P], _I),
+    },
+    "surrogate": {
+        "vpt_sur_layout": ([_I], _I),
+        "vpt_surrogate_reverse": ([_P, _P, _P, _I] + [_P] * 15 + [_P], _I),
     },
     "corners": {
         "vpt_contract_volume": ([_P, _P, _I, _I, _I, _P], _I),
@@ -163,7 +168,8 @@ def load():
 
 # the kernels whose registers and spills the ptxas report is read for
 KERNELS = ("step_kernel", "tape_forward_kernel", "reverse_kernel", "contract_volume_kernel",
-           "contract_tf_kernel", "pack_volume_kernel", "pack_tf_kernel", "scatter_rows_kernel")
+           "contract_tf_kernel", "pack_volume_kernel", "pack_tf_kernel", "scatter_rows_kernel",
+           "surrogate_tape_kernel", "surrogate_reverse_kernel")
 _ENTRY = re.compile(r"Compiling entry function '\S*?\d(" + "|".join(KERNELS) + r")(I\S*?EE)?[Ev]")
 
 
@@ -173,8 +179,9 @@ def ptxas_table(log_text):
     (the stack frame is the thread's local memory: spills and arrays
     indexed at run time); template args as
     NB,MAJ,ENV (K1 step_kernel), NB (K4 tape_forward_kernel), NS (K5
-    reverse_kernel: 0 for stride mode, else the importance step count), ""
-    for the untemplated ones."""
+    reverse_kernel: 0 for stride mode, else the importance step count),
+    NB,MAJ (K4's surrogate mode surrogate_tape_kernel, K12
+    surrogate_reverse_kernel), "" for the untemplated ones."""
     rows, cur = [], None
     for line in log_text.splitlines():
         m = _ENTRY.search(line)

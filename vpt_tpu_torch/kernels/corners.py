@@ -19,6 +19,10 @@ Two kernels of ``vpt_tpu_torch/csrc/corners.cu``:
   ``pack_tf``; their plain versions are the torch packers
   ``interp.pack_*_t``, bit-equal to the numpy and JAX packers.
 
+``PackCorners`` (``pack_volume_diff``, ``pack_tf_diff``) is the re-pack
+under torch autograd, K10 forward and K9 backward: the autodiff
+surrogate's loss packs its raw parameters through it.
+
 Each wrapper runs its plain version when its tensors lie on the CPU and
 launches its kernel when they lie on a CUDA device; anything else raises.
 ``LAUNCHES`` counts kernel launches only. The plain versions take any
@@ -194,6 +198,44 @@ def pack_volume(density: torch.Tensor) -> torch.Tensor:
     K._raise_on(err, "pack_corners (volume)")
     LAUNCHES["pack_corners"] += 1
     return out
+
+
+class PackCorners(torch.autograd.Function):
+    """The re-pack as a differentiable function: forward K10 (the torch
+    packers on the CPU), backward K9, its exact transpose. ``kind``
+    "volume": (density,) -> the flat (rows, 8) table; "tf": (material_tf,
+    light_spectrum) -> the fused (TH+1, TW+1, 18) table."""
+
+    @staticmethod
+    def forward(ctx, kind, *raw):
+        ctx.kind = kind
+        with torch.no_grad():
+            if kind == "volume":
+                ctx.dims = tuple(d + 1 for d in raw[0].shape)
+                return pack_volume(raw[0].contiguous())
+            return pack_tf(raw[0].contiguous(), raw[1].contiguous())[0]
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous()
+        if ctx.kind == "volume":
+            return None, contract_volume(g, ctx.dims)
+        want_mtf, want_light = ctx.needs_input_grad[1], ctx.needs_input_grad[2]
+        if not (want_mtf or want_light):
+            return None, None, None
+        g_mtf, g_light = contract_tf(g, material_tf=want_mtf, light=want_light)
+        return None, g_mtf, g_light
+
+
+def pack_volume_diff(density: torch.Tensor) -> torch.Tensor:
+    """``pack_volume`` under autograd (its backward is ``contract_volume``)."""
+    return PackCorners.apply("volume", density)
+
+
+def pack_tf_diff(mtf: torch.Tensor, light: torch.Tensor) -> torch.Tensor:
+    """The fused table of ``pack_tf`` under autograd (its backward is
+    ``contract_tf``)."""
+    return PackCorners.apply("tf", mtf, light)
 
 
 def pack_tf(mtf: torch.Tensor, light: torch.Tensor, pairs: bool = False):

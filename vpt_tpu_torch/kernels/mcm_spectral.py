@@ -150,16 +150,36 @@ def sample_environment(env, dx, dy, dz, lam):
                        torch.where(lam < 600.0, color[..., 1], color[..., 0]))
 
 
-def _render_body(p, rng, sx, sy, ctx, n_bins, light, collect: bool = False):
+def _surrogate(prob, taken):
+    """Score-function factor of an event: 1.0 where ``taken``, carrying
+    d log P / d params under autograd (JAX ``_surrogate``); no gradient
+    where P is below the 1e-12 floor, half of it at the floor."""
+    safe = torch.maximum(prob, torch.full_like(prob, 1e-12))
+    return torch.where(taken, safe / safe.detach(), torch.ones_like(prob))
+
+
+def _render_body(p, rng, sx, sy, ctx, n_bins, light, collect: bool = False, score=None):
     """One Woodcock iteration over all lanes; ``p``: dict of lane tensors.
     Same order of operations and draws as the JAX ``_render_body``,
     including its majorant and environment branches.
 
     ``collect``: also return the step's internals, the quantities the
-    packed-adjoint backward tapes (``kernels/spectral_backward.py``), as
-    the JAX ``_render_body(collect=True)`` returns them."""
+    packed-adjoint backward and the surrogate tape record
+    (``kernels/spectral_backward.py``, ``kernels/surrogate.py``), as the
+    JAX ``_render_body(collect=True)`` returns them.
+
+    ``score``: the per-lane score weight of the autodiff surrogate (JAX
+    ``diff=True``): the free flight in score form (the distance detached,
+    d log p(dist) on the score), the event factors ``_surrogate``, the
+    deposit times the score, 1 after a respawn. Returns (p, rng, score).
+    Forward values equal the plain step's bit for bit; under torch
+    autograd this is the surrogate's autograd twin, a test oracle.
+    ``ctx.extinction`` may then be a 0-d tensor; the draw keeps its
+    float32 value."""
     all_mask = torch.ones(rng.shape, dtype=torch.bool, device=rng.device)
-    maj = None
+    diff = score is not None
+    ext_f = _f32(float(torch.as_tensor(ctx.extinction).detach()))
+    maj = capped = None
     if ctx.majorant is not None:
         Gz, Gy, Gx, _ = ctx.majorant.shape
         cell = ((_majorant_cell(p["pz"], Gz) * Gy + _majorant_cell(p["py"], Gy)) * Gx
@@ -167,12 +187,25 @@ def _render_body(p, rng, sx, sy, ctx, n_bins, light, collect: bool = False):
         row = ctx.majorant.reshape(-1, 2)[cell.to(torch.int64)]
         maj = torch.clamp_min(row[..., 0], 1e-12)
         flight_cap = row[..., 1]
-        rng, dist = sampling.draw_exponential(rng, all_mask, maj * _f32(ctx.extinction))
+        rng, dist = sampling.draw_exponential(rng, all_mask, maj * ext_f)
         # a flight past the cap is a pure advance by the cap (no event)
         capped = dist >= flight_cap
         dist = torch.minimum(dist, flight_cap)
     else:
-        rng, dist = sampling.draw_exponential(rng, all_mask, _f32(ctx.extinction))
+        rng, dist = sampling.draw_exponential(rng, all_mask, ext_f)
+    if diff:
+        # d log p(dist; extinction) on the score, the distance detached; in
+        # majorant mode the rate extinction * m with m detached, and a
+        # capped flight's log-survival term alone
+        ext_t = torch.as_tensor(ctx.extinction, dtype=torch.float32, device=rng.device)
+        if maj is not None:
+            rate = ext_t * maj.detach()
+            logp = (torch.where(capped, torch.zeros_like(dist), torch.log(rate))
+                    - rate * dist.detach())
+        else:
+            logp = torch.log(ext_t) - ext_t * dist.detach()
+        score = score * torch.exp(logp - logp.detach())
+        dist = dist.detach()
     px = p["px"] + dist * p["dx"]
     py = p["py"] + dist * p["dy"]
     pz = p["pz"] + dist * p["dz"]
@@ -191,9 +224,11 @@ def _render_body(p, rng, sx, sy, ctx, n_bins, light, collect: bool = False):
     zero = torch.zeros_like(alpha)
     if maj is not None:
         # acceptance against the local majorant: real event with p alpha/m
-        p_real = torch.clamp_max(alpha / maj, 1.0)
+        # (torch.minimum: half the gradient at a tie, like jnp.minimum)
+        p_real = torch.minimum(alpha / maj.detach(), torch.ones_like(alpha))
         p_scatter = torch.where(p["bounces"] >= int(ctx.max_bounces), zero, p_real * albedo)
         p_absorb = p_real - p_scatter
+        p_null = 1.0 - p_real
     else:
         p_null = 1.0 - alpha
         p_scatter = torch.where(p["bounces"] >= int(ctx.max_bounces), zero, alpha * albedo)
@@ -218,16 +253,22 @@ def _render_body(p, rng, sx, sy, ctx, n_bins, light, collect: bool = False):
         dot = p["dx"] * lx + p["dy"] * ly + p["dz"] * lz
         escape = torch.maximum(dot * intensity, zero)
     emitted = torch.where(oob, escape, zero)
+    deposit = emitted * score if diff else emitted
     samples = p["samples"] + respawn.to(torch.int32)
     bins = torch.arange(n_bins, dtype=torch.int32, device=rng.device)
     one_hot = bins.view((-1,) + (1,) * p["bin"].ndim) == p["bin"][None]
-    target = torch.where(one_hot, emitted[None], torch.zeros_like(p["radiance"]))
+    target = torch.where(one_hot, deposit[None], torch.zeros_like(p["radiance"]))
     denom = torch.clamp_min(samples, 1).to(torch.float32)[None]
     radiance = torch.where(respawn[None], p["radiance"] + (target - p["radiance"]) / denom,
                            p["radiance"])
 
+    # the lane's chain before its disk draw (a respawn's or an HG scatter's)
+    rng_disk = rng
     rng, new = _respawn(rng, respawn, sx, sy, ctx, n_bins)
     rng, (hx, hy, hz) = sampling.draw_hg(rng, scatter, g, p["dx"], p["dy"], p["dz"])
+    if diff:
+        score = score * _surrogate(p_null, null) * _surrogate(p_scatter, scatter)
+        score = torch.where(respawn, torch.ones_like(score), score)
 
     out = dict(
         px=torch.where(respawn, new["px"], px),
@@ -249,9 +290,32 @@ def _render_body(p, rng, sx, sy, ctx, n_bins, light, collect: bool = False):
             pre_bin=p["bin"], albedo=albedo, alpha=alpha, g=g, null=null,
             scatter=scatter, oob=oob, respawn=respawn, emitted=emitted,
             hg_cos=hx * p["dx"] + hy * p["dy"] + hz * p["dz"], tf_extras=tf_extras,
+            capped=capped, maj=maj, rng_disk=rng_disk, pre_wavelength=p["wavelength"],
         )
         return out, rng, internals
+    if diff:
+        return out, rng, score
     return out, rng
+
+
+def render_diff_plain(p, score, ctx, seeds, steps: int, n_bins: int):
+    """The autograd twin of the surrogate: ``steps`` iterations per frame
+    seed of the diff ``_render_body`` on the state dict ``p`` (float
+    fields may require grad) and the (lanes) score; returns (p, score),
+    new tensors that torch autograd differentiates. A test oracle: the
+    port's gradient comes from ``kernels/surrogate.py``."""
+    resolution = p["px"].shape[-1]
+    streams = p["px"].shape[0] if p["px"].ndim == 3 else 1
+    device = p["px"].device
+    ix, iy, seed_iy = _pixel_grid(resolution, streams, device)
+    sx, sy = geometry.screen_position(ix, iy, _f32(np.float32(1.0) / np.float32(resolution)))
+    light = light_terms(ctx.light_direction)
+    p = {k: p[k] for k in STATE_FIELDS if k != "transmittance"}
+    for seed in np.asarray(seeds, np.uint32).reshape(-1):
+        rng = sampling.seed_state(ix, seed_iy, int(seed))
+        for _ in range(steps):
+            p, rng, score = _render_body(p, rng, sx, sy, ctx, n_bins, light, score=score)
+    return p, score
 
 
 def step_plain(state, ctx, seeds, steps: int, n_bins: int, lanes=None):

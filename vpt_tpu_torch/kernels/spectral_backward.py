@@ -37,7 +37,9 @@ the state they are given: the forward runs on a copy.
 Not ported yet (each raises ``NotImplementedError``): the raw-table replay
 backward ``spectral_backward``, xy half-packed volumes, the quasicubic
 filter and environment gradients. Majorant mode raises as the reference's
-taped backward does.
+taped backward does; its gradients come from the autodiff surrogate
+(``kernels/surrogate.py``, whose tape is K4's surrogate mode in the same
+CUDA source).
 """
 
 from __future__ import annotations

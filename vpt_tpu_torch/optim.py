@@ -1,28 +1,36 @@
 """Inverse rendering with the spectral MCM renderer: recover scene tables
-from a target render by Adam on the packed-adjoint PRB gradients.
+from a target render by Adam on the packed-adjoint PRB gradients or the
+autodiff surrogate's.
 
-Counterpart of the PRB half of ``vpt_tpu/optim.py``: ``sanitize_grads``,
-``_pack_params_into_ctx``, ``make_spectral_prb_step``, the adaptive
-scatter-stride policy (``live_gradient_fraction``, ``auto_initial_stride``,
-``auto_initial_policy``, ``EvalStallDetector``) and
-``fit_spectral(method="prb")``. Each iteration is one
-``prb_loss_and_grads`` window: K taped forward dispatches, the loss and its
-image cotangent, the reverse sweep, the contraction to the raw tables, and
-an Adam step.
+Counterpart of the spectral half of ``vpt_tpu/optim.py``: the inverse
+checkpoints (``save_inverse_checkpoint``, ``load_inverse_checkpoint``),
+``sanitize_grads``, ``spectral_render_loss`` and
+``make_spectral_inverse_step`` (the surrogate), ``_pack_params_into_ctx``,
+``make_spectral_prb_step``, the adaptive scatter-stride policy
+(``live_gradient_fraction``, ``auto_initial_stride``,
+``auto_initial_policy``, ``EvalStallDetector``) and ``fit_spectral``. A PRB
+iteration is one ``prb_loss_and_grads`` window: K taped forward
+dispatches, the loss and its image cotangent, the reverse sweep, the
+contraction to the raw tables, and an Adam step. An autodiff iteration
+re-packs the learned tables by ``corners.PackCorners``, renders through
+``render_sequence_diff`` and backpropagates with torch autograd, whose
+per-dispatch backward is the surrogate's hand-written kernels
+(``kernels/surrogate.py``).
 
 Adam is written out as plain tensor ops in the order optax uses, so a
 trajectory follows ``vpt_tpu.optim.fit_spectral``'s. A learned extinction
 is read to the host once per iteration (the kernels take it as a scalar).
 
-Not ported yet (each raises ``NotImplementedError``): the autodiff
-surrogate (``method="autodiff"``), the inverse checkpoints
-(``checkpoint=``), the EAM ``fit_density`` loop, and renderers in the
-majorant, environment, quasicubic or compaction modes.
+Not ported yet (each raises ``NotImplementedError``): the EAM
+``fit_density`` loop, and renderers in the environment or quasicubic
+modes. A compacted renderer raises ``ValueError``, as the reference's
+``fit_spectral`` does (its reset state has the lane table's shape).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 import warnings
 from typing import NamedTuple
 
@@ -33,7 +41,8 @@ from vpt_tpu_torch.kernels import corners
 from vpt_tpu_torch.kernels import mcm_spectral as K
 from vpt_tpu_torch.kernels.spectral_backward import (_check_packed_ctx, clone_state,
                                                       prb_loss_and_grads)
-from vpt_tpu_torch.models.mcm_spectral import radiance_to_rgb
+from vpt_tpu_torch.kernels.surrogate import check_ctx as check_surrogate_ctx
+from vpt_tpu_torch.models.mcm_spectral import radiance_to_rgb, render_sequence_diff
 from vpt_tpu_torch.ops import interp
 from vpt_tpu_torch.ops.sampling import div_scalar
 
@@ -76,11 +85,111 @@ class Adam:
         return out, dict(count=count, mu=mu, nu=nu)
 
 
+def _leaves(istate: InverseState) -> list:
+    """``jax.tree.leaves`` order of ``vpt_tpu.optim.InverseState`` with an
+    ``optax.adam`` state: the params by sorted key, Adam's count, mu and nu
+    by sorted key, the step."""
+    keys = sorted(istate.params)
+    opt = istate.opt_state
+    return ([istate.params[k] for k in keys] + [opt["count"]] + [opt["mu"][k] for k in keys]
+            + [opt["nu"][k] for k in keys] + [istate.step])
+
+
+def save_inverse_checkpoint(path: str, istate: InverseState) -> None:
+    """Persist (params, Adam state, step) as ``vpt_tpu.optim`` does: an
+    ``np.savez`` of ``n_leaves`` and ``leaf_i`` in its leaf order (counts
+    as int32 scalars), so the files interchange both ways."""
+    leaves = []
+    for leaf in _leaves(istate):
+        if torch.is_tensor(leaf):
+            leaves.append(leaf.detach().cpu().numpy())
+        else:
+            leaves.append(np.asarray(leaf, np.int32))
+    np.savez(path, n_leaves=len(leaves), **{f"leaf_{i}": v for i, v in enumerate(leaves)})
+
+
+def load_inverse_checkpoint(path: str, template: InverseState) -> InverseState:
+    """Restore an ``InverseState`` saved by ``save_inverse_checkpoint`` (or
+    by ``vpt_tpu.optim``'s) onto the template's devices; the template's
+    values are ignored, its params keys give the structure."""
+    keys = sorted(template.params)
+    n = len(keys)
+    with np.load(path) as data:
+        got = int(data["n_leaves"])
+        if got != 3 * n + 2:
+            raise ValueError(f"checkpoint has {got} leaves; template has {3 * n + 2} "
+                             "(different params subset or optimizer?)")
+        leaves = [data[f"leaf_{i}"] for i in range(got)]
+
+    def tensor(a, like):
+        return torch.as_tensor(np.array(a, np.float32), device=like.device).reshape(like.shape)
+
+    params = {k: tensor(leaves[i], template.params[k]) for i, k in enumerate(keys)}
+    mu = {k: tensor(leaves[n + 1 + i], template.params[k]) for i, k in enumerate(keys)}
+    nu = {k: tensor(leaves[2 * n + 1 + i], template.params[k]) for i, k in enumerate(keys)}
+    return InverseState(params, dict(count=int(leaves[n]), mu=mu, nu=nu), int(leaves[-1]))
+
+
 def sanitize_grads(grads: dict, clip: float) -> dict:
     """NaN -> 0, +/-inf -> +/-clip, then clamp to [-clip, clip]: the spike
     guard against the score estimator's heavy tails (see vpt_tpu.optim)."""
     return {k: torch.clamp(torch.nan_to_num(g, nan=0.0, posinf=clip, neginf=-clip), -clip, clip)
             for k, g in grads.items()}
+
+
+def spectral_render_loss(params: dict, state0, base_ctx, seeds, target, steps: int, n_bins: int,
+                         raw_mtf=None, raw_light=None):
+    """MSE between the autodiff surrogate's render (``render_sequence_diff``
+    from ``state0``) and ``target``, differentiable w.r.t. ``params``: raw
+    tables (any subset of density, material_tf, light_spectrum, extinction)
+    that ``corners.PackCorners`` packs into the base ctx's representation.
+    ``raw_mtf`` / ``raw_light`` stand in for the fused table's unlearned
+    half. The port always packs (JAX ``pack_params=True``); the fused table
+    carries the light pair, so the light comes from it in both cases."""
+    unknown = set(params) - {"density", "material_tf", "light_spectrum", "extinction"}
+    if unknown:
+        raise NotImplementedError(f"learning {sorted(unknown)} is not ported")
+    updates = {}
+    if "density" in params:
+        updates["density"] = interp.PackedVolume(corners.pack_volume_diff(params["density"]),
+                                                 base_ctx.density.dims)
+    if "material_tf" in params or "light_spectrum" in params:
+        mtf = params.get("material_tf", raw_mtf)
+        light = params.get("light_spectrum", raw_light)
+        if mtf is None or light is None:
+            raise ValueError("fused-TF ctx needs raw_mtf/raw_light fallbacks when only "
+                             "one of material_tf/light_spectrum is learned")
+        updates["material_tf"] = corners.pack_tf_diff(mtf, light)
+    if "extinction" in params:
+        updates["extinction"] = params["extinction"]
+    ctx = dataclasses.replace(base_ctx, **updates)
+    img = render_sequence_diff(seeds, state0, ctx, steps, n_bins)
+    return torch.mean((img - target) ** 2)
+
+
+def make_spectral_inverse_step(optimizer: Adam, steps: int, n_bins: int,
+                               clip_params=("density", "material_tf"), grad_clip: float = 1e3,
+                               raw_mtf=None, raw_light=None):
+    """An Adam step on the autodiff surrogate's gradients:
+    ``step(istate, state0, base_ctx, seeds, target) -> (istate, loss)``.
+    ``grad_clip``: the ``sanitize_grads`` spike guard (None disables)."""
+
+    def step(istate: InverseState, state0, base_ctx, seeds, target):
+        params = {k: v.detach().requires_grad_(True) for k, v in istate.params.items()}
+        loss = spectral_render_loss(params, state0, base_ctx, seeds, target, steps, n_bins,
+                                    raw_mtf=raw_mtf, raw_light=raw_light)
+        grads = dict(zip(params, torch.autograd.grad(loss, list(params.values()))))
+        with torch.no_grad():
+            if grad_clip is not None:
+                grads = sanitize_grads(grads, grad_clip)
+            new, opt_state = optimizer.update(grads, istate.opt_state,
+                                              {k: v.detach() for k, v in params.items()})
+            for key in clip_params:
+                if key in new:
+                    new[key] = torch.clamp(new[key], 0.0, 1.0)
+        return InverseState(new, opt_state, istate.step + 1), loss.detach()
+
+    return step
 
 
 def _pack_params_into_ctx(base_ctx, params: dict, raw_mtf=None, raw_light=None) -> dict:
@@ -202,30 +311,47 @@ def fit_spectral(target_image, renderer, camera, init_params: dict,
                  scatter_mode: str = "stride", checkpoint: str | None = None,
                  checkpoint_every: int = 25, eval_every: int = 10,
                  eval_dispatches: int = 16, return_info: bool = False):
-    """Recover spectral-MCM scene tables from a target HDR render by the
-    PRB gradients (``method="prb"``, the default for the port's packed
-    renderer). ``init_params``: a subset of {density, material_tf,
-    light_spectrum, extinction}, arrays or tensors. ``scatter_stride="auto"``
-    picks the initial (mode, stride) with ``auto_initial_policy`` and, while
-    thinned, anneals to stride 1 when a fixed-seed eval loss stalls; an
-    integer forces the stride (lowered to the largest divisor of ``steps``
-    with a warning). Returns (params, losses) or, with ``return_info``,
-    (params, losses, info), as ``vpt_tpu.optim.fit_spectral`` does."""
-    if method is None:
-        method = "prb"
-    if method == "autodiff":
-        raise NotImplementedError("fit_spectral(method='autodiff') (the autodiff surrogate) "
-                                  "is not ported to the torch package")
-    if method != "prb":
-        raise ValueError(f"unknown method {method!r} (prb | autodiff)")
-    if checkpoint is not None:
-        raise NotImplementedError("fit_spectral checkpoints are not ported to the torch package")
+    """Recover spectral-MCM scene tables from a target HDR render.
+    ``init_params``: a subset of {density, material_tf, light_spectrum,
+    extinction}, arrays or tensors.
+
+    ``method``: "prb" (the packed-adjoint backward; honours
+    ``scatter_stride``) or "autodiff" (the surrogate, the one gradient
+    path of the majorant mode); None picks "autodiff" for a renderer with
+    a majorant grid and "prb" otherwise, and "prb" on a majorant renderer
+    raises ``ValueError``, as the reference does. ``scatter_stride="auto"``
+    picks PRB's initial (mode, stride) with ``auto_initial_policy`` and,
+    while thinned, anneals to stride 1 when a fixed-seed eval loss stalls;
+    an integer forces the stride (lowered to the largest divisor of
+    ``steps`` with a warning).
+
+    ``checkpoint``: a path for (params, Adam state, step) snapshots every
+    ``checkpoint_every`` iterations and at the end
+    (``save_inverse_checkpoint``); if the file exists the run resumes from
+    it and ``losses`` covers the resumed iterations only. The auto-anneal
+    state is not saved, as in the reference. Returns (params, losses) or,
+    with ``return_info``, (params, losses, info), as
+    ``vpt_tpu.optim.fit_spectral`` does."""
     if renderer.compaction:
-        raise NotImplementedError("fit_spectral on a compacted renderer (the backward over "
-                                  "a lane table) is not ported to the torch package")
+        # the reference's fit_spectral fails too: the compacted reset state
+        # (lane table shape) does not broadcast against the pixel grid
+        raise ValueError("fit_spectral on a compacted renderer: the reset state has the lane "
+                         "table's shape, which the reference's fit_spectral does not broadcast "
+                         "either (ValueError: incompatible shapes)")
     device = renderer.device
     base_ctx = renderer.ctx(camera, seed)
-    _check_packed_ctx(base_ctx)
+    if method is None:
+        method = "autodiff" if base_ctx.majorant is not None else "prb"
+    elif method == "prb" and base_ctx.majorant is not None:
+        raise ValueError("the packed-PRB backward does not support the super-voxel majorant "
+                         "mode; use method='autodiff' (the surrogate carries majorant-mode "
+                         "gradients)")
+    if method == "prb":
+        _check_packed_ctx(base_ctx)
+    elif method == "autodiff":
+        check_surrogate_ctx(base_ctx)
+    else:
+        raise ValueError(f"unknown method {method!r} (prb | autodiff)")
     state0 = renderer.reset(camera, seed)
     steps = renderer.config.steps
     n_bins = renderer.spectrum.n_bins
@@ -241,30 +367,41 @@ def fit_spectral(target_image, renderer, camera, init_params: dict,
 
     info = dict(method=method, live_fraction=None, stride_history=[], eval_checks=[])
     anneal_armed = False
-    if scatter_stride == "auto":
-        probe_density = init_params.get("density", renderer.volume.density)
-        probe_tf = init_params.get("material_tf", renderer.material_tf.table)
-        if torch.is_tensor(probe_density):
-            probe_density = probe_density.detach().cpu().numpy()
-        if torch.is_tensor(probe_tf):
-            probe_tf = probe_tf.detach().cpu().numpy()
-        scatter_mode, scatter_stride, frac = auto_initial_policy(probe_density, probe_tf)
-        info["live_fraction"] = frac
-        anneal_armed = scatter_stride > 1
-    if steps % scatter_stride != 0:
-        eff = max(d for d in range(1, scatter_stride + 1) if steps % d == 0)
-        warnings.warn(f"scatter_stride={scatter_stride} does not divide steps={steps}; using "
-                      f"the largest divisor {eff} (the effective estimator differs from the "
-                      "requested one)")
-        scatter_stride = eff
+    if method == "prb":
+        if scatter_stride == "auto":
+            probe_density = init_params.get("density", renderer.volume.density)
+            probe_tf = init_params.get("material_tf", renderer.material_tf.table)
+            if torch.is_tensor(probe_density):
+                probe_density = probe_density.detach().cpu().numpy()
+            if torch.is_tensor(probe_tf):
+                probe_tf = probe_tf.detach().cpu().numpy()
+            scatter_mode, scatter_stride, frac = auto_initial_policy(probe_density, probe_tf)
+            info["live_fraction"] = frac
+            anneal_armed = scatter_stride > 1
+        if steps % scatter_stride != 0:
+            eff = max(d for d in range(1, scatter_stride + 1) if steps % d == 0)
+            warnings.warn(f"scatter_stride={scatter_stride} does not divide steps={steps}; "
+                          f"using the largest divisor {eff} (the effective estimator differs "
+                          "from the requested one)")
+            scatter_stride = eff
 
-    def make_step(stride, mode):
-        return make_spectral_prb_step(optimizer, steps, n_bins, wrt=frozenset(params),
-                                      scatter_stride=stride, scatter_mode=mode,
-                                      raw_mtf=raw_mtf, raw_light=raw_light)
+        def make_step(stride, mode):
+            return make_spectral_prb_step(optimizer, steps, n_bins, wrt=frozenset(params),
+                                          scatter_stride=stride, scatter_mode=mode,
+                                          raw_mtf=raw_mtf, raw_light=raw_light)
 
-    step = make_step(scatter_stride, scatter_mode)
-    info["stride_history"].append((0, f"{scatter_mode}:{scatter_stride}"))
+        step = make_step(scatter_stride, scatter_mode)
+        info["stride_history"].append((0, f"{scatter_mode}:{scatter_stride}"))
+    else:
+        scatter_stride = 1
+        step = make_spectral_inverse_step(optimizer, steps, n_bins, raw_mtf=raw_mtf,
+                                          raw_light=raw_light)
+        info["stride_history"].append((0, "autodiff"))
+
+    start = 0
+    if checkpoint and os.path.exists(checkpoint):
+        istate = load_inverse_checkpoint(checkpoint, istate)
+        start = istate.step
     target = torch.as_tensor(np.asarray(target_image, np.float32) if not torch.is_tensor(
         target_image) else target_image, dtype=torch.float32, device=device)
 
@@ -283,7 +420,7 @@ def fit_spectral(target_image, renderer, camera, init_params: dict,
                 return float(torch.mean((img - target) ** 2))
 
     losses = []
-    for i in range(iterations):
+    for i in range(start, iterations):
         seeds = _frame_seeds(seed + 1 + i * dispatches_per_step, dispatches_per_step)
         istate, loss = step(istate, state0, base_ctx, seeds, target)
         losses.append(float(loss))
@@ -300,6 +437,8 @@ def fit_spectral(target_image, renderer, camera, init_params: dict,
                 anneal_armed = False
         if progress is not None and (i % 10 == 0 or i == iterations - 1):
             progress(i, losses[-1])
+        if checkpoint and ((i + 1) % checkpoint_every == 0 or i == iterations - 1):
+            save_inverse_checkpoint(checkpoint, istate)
     info["final_stride"] = int(scatter_stride)
     if return_info:
         return istate.params, losses, info

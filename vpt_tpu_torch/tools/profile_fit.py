@@ -1,0 +1,116 @@
+"""Where a ``fit_spectral`` iteration's time goes on the card: the PRB step
+and the autodiff surrogate's step on the bench scene (512^2 x 4 streams,
+128^3 u8 ``sphere_in_cube``, 12 bins, 8 steps, 4 dispatches per
+iteration, ``wrt={density}``), profiled with ``torch.profiler``.
+
+    python -m vpt_tpu_torch.tools.profile_fit [--iterations 3]
+
+Per method it prints one JSON line: the iterations' host-clock seconds
+without the profiler, the device time of every kernel under the profiler
+(summed by name, with launch counts), their total, and the device's busy
+share (kernel time over the profiled window's host time, which the
+profiler's own overhead lengthens). Needs a CUDA device; exits 1 without.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+
+def _bench_scene():
+    from vpt_tpu_torch import (LightConfig, MaterialTF, MCMSpectralConfig, SpectrumConfig,
+                               Volume)
+
+    table = np.zeros((256, 256, 4), np.float32)
+    dens = np.linspace(0, 1, 256)[:, None]
+    table[..., 0] = 0.9
+    table[..., 1] = np.where(dens > 0.3, (dens - 0.3) / 0.7, 0.0)
+    table[..., 2] = 0.5
+    return (Volume.sphere_in_cube(128), MaterialTF(table), LightConfig(direction=(1.0, 0.2, 0.5)),
+            SpectrumConfig(), MCMSpectralConfig(extinction=40.0, bounces=8, steps=8))
+
+
+def _smoothed(density, factor):
+    d = np.asarray(density, np.float32)
+    n = d.shape[0]
+    c = d.reshape(n // factor, factor, n // factor, factor, n // factor,
+                  factor).mean(axis=(1, 3, 5))
+    return np.repeat(np.repeat(np.repeat(c, factor, 0), factor, 1), factor, 2)
+
+
+def profile_method(method: str, iterations: int, dev) -> dict:
+    from torch.profiler import ProfilerActivity, profile
+
+    from vpt_tpu_torch import Camera
+    from vpt_tpu_torch import optim as TO
+    from vpt_tpu_torch.models.mcm_spectral import MCMSpectralRenderer
+
+    args = _bench_scene()
+    renderer = MCMSpectralRenderer(*args, resolution=512, streams=4, device=dev)
+    cam = Camera()
+    base, state0 = renderer.ctx(cam, 1), renderer.reset(cam, 1)
+    target = torch.zeros(512, 512, 3, device=dev)
+    opt = TO.Adam(0.02)
+    params = {"density": torch.as_tensor(_smoothed(args[0].density, 8), device=dev)}
+    istate = TO.InverseState(params, opt.init(params), 0)
+    if method == "autodiff":
+        step = TO.make_spectral_inverse_step(opt, 8, 12)
+    else:
+        step = TO.make_spectral_prb_step(opt, 8, 12, wrt={"density"})
+
+    def run(first):
+        nonlocal istate
+        for i in range(first, first + iterations):
+            seeds = [(7 + 4 * i + k) * 2654435761 % 2**32 for k in range(4)]
+            istate, loss = step(istate, state0, base, seeds, target)
+            float(loss)
+        torch.cuda.synchronize()
+
+    run(0)  # warm-up
+    t0 = time.perf_counter()
+    run(iterations)
+    seconds = time.perf_counter() - t0
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run(2 * iterations)
+        profiled = time.perf_counter() - t0
+    kernels = {}
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA and e.device_time_total > 0:
+            name = e.key.replace("(anonymous namespace)::", "").replace("void ", "")
+            name = name.split("(")[0].strip()
+            k = kernels.setdefault(name, dict(ms=0.0, launches=0))
+            k["ms"] += e.device_time_total / 1e3
+            k["launches"] += e.count
+    device_ms = sum(k["ms"] for k in kernels.values())
+    top = dict(sorted(kernels.items(), key=lambda kv: -kv[1]["ms"])[:12])
+    return dict(method=method, iterations=iterations, seconds=seconds,
+                seconds_per_iteration=seconds / iterations, profiled_seconds=profiled,
+                device_ms=device_ms, busy_share_profiled=device_ms / (profiled * 1e3),
+                kernels=top)
+
+
+def main(argv=None):
+    p = argparse.ArgumentParser(prog="python -m vpt_tpu_torch.tools.profile_fit")
+    p.add_argument("--iterations", type=int, default=3)
+    args = p.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("profile_fit: needs a CUDA device", file=sys.stderr)
+        sys.exit(1)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True).stdout.strip()
+    print(smi)
+    dev = torch.device("cuda:0")
+    for method in ("prb", "autodiff"):
+        print(json.dumps(profile_method(method, args.iterations, dev)))
+
+
+if __name__ == "__main__":
+    main()
