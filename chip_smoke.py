@@ -67,18 +67,22 @@ Phases (each raises on failure, so any failure exits non-zero):
  16. the autodiff surrogate's kernels at 512^2 x 4 streams, 2 dispatches,
      exact and majorant mode (the bench scene, majorant_blocks=16): K4's
      surrogate mode (its state equals K1's bit for bit, its tape the
-     plain tape), K12 surrogate_reverse on that tape within 1e-4 relative
-     L2 of its plain version (two runs within 1e-5); both timed against
-     their bounds; then render_sequence_diff's kernel path against the
-     autograd twin on the card (128^2 x 2, K = 2, all four tables, 1e-4)
+     plain tape; timed beside K1 on the same state copy), K12
+     surrogate_reverse on that tape within 1e-4 relative L2 of its plain
+     version (two runs within 1e-5) with all four adjoints and with the
+     density's alone; both timed against their bounds; then the window of
+     render_sequence_diff against the autograd twin on the card (128^2 x
+     2, K = 2, all four tables, 1e-4) under both window_storage schedules
  17. the autodiff training path: fit_spectral(method="autodiff") at full
      width on the bench scene and, routed by default, on the sparse 512^3
      majorant scene (3 iterations each, the launch counts set to 0 before:
-     K4's surrogate mode, K12, K9 and K10 required; seconds per
-     iteration); a K = 4 surrogate window split into the taped sweep, K12
-     and K9 beside phase 9's PRB stride-1 window; a checkpoint after
-     iteration 2 and a resume (losses rtol 1e-4, params 5e-4; K12's
-     atomics make runs differ by rounding)
+     one K4 surrogate sweep and one K12 per iteration, K9 and K10
+     required, no K1 inside the loss; seconds per iteration); a K = 4
+     surrogate window under "tape" and "forward" (gradients within 1e-4 of
+     each other), the tape schedule split into the taped sweep, K12 and K9,
+     beside phase 9's PRB stride-1 window; a checkpoint after iteration 2
+     and a resume (losses rtol 1e-4, params 5e-4; K12's atomics make runs
+     differ by rounding)
 The line before the last is a JSON object with each kernel's launches,
 error and times, its bound (the larger of the bytes it must move over the
 HBM rate and the FP32 operations this run's data needs over the FP32
@@ -1353,7 +1357,8 @@ def copy_carry(carry):
 def sur_bound(tape, samples, adj, ctx, n_bins, ms):
     """K12's bound: the tape read once, the carry in and out, the sample
     counts, the scene tables read once (no more than a row per event
-    lane-step), the packed adjoints written once; FP32 operations per
+    lane-step), the packed adjoints present in ``adj`` written once (with
+    wrt={density} the volume's alone); FP32 operations per
     lane-step (carry, deposit, extinction score, position: OPS_SUR_STEP),
     per event (the re-read material, the scores, the spatial gradient and
     the scatter weights: OPS_SUR_EVENT) and per anisotropic scatter (the
@@ -1419,67 +1424,47 @@ def phase_surrogate(renderer, camera, dev):
             raise AssertionError(f"K4 surrogate ({mode}) tape field {worst} equals plain on "
                                  f"{shares[worst]}")
         rec4 = dict(share_equal=shares)
+        # the wrapper copies the state, then launches; K1 timed on the same
+        # copy, so the two differ by the kernels alone
         rec4["ms"] = cuda_ms(lambda: S.tape_forward(s0, ctx, seeds, STEPS, BINS), 10)
+        rec4["k1_ms"] = cuda_ms(lambda: K.step(S.clone_steppable(s0), ctx, seeds, STEPS, BINS), 10)
+        rec4["state_copy_ms"] = cuda_ms(lambda: S.clone_steppable(s0), 10)
+        rec4["tape_bytes"] = tk.numel() * 4
+        # the yardstick: K1 for the same dispatches plus the tape's bytes
+        rec4["k1_plus_tape_ms"] = rec4["k1_ms"] + bound(rec4["tape_bytes"], 0)["bound_ms"]
         rec4["plain_ms"] = cuda_ms(lambda: S.tape_forward_plain(clone_state(s0), ctx, seeds,
                                                                 STEPS, BINS), 1)
-        rec4.update(step_bound(ctx, s0, seeds, BINS, rec4["ms"], taped=tk.numel() * 4))
+        rec4.update(step_bound(ctx, s0, seeds, BINS, rec4["ms"], taped=rec4["tape_bytes"]))
         k4["modes"][mode] = rec4
         log(f"# K4 surrogate mode ({mode}), 2 dispatches x {STEPS} steps, {len(flds)} fields: "
             f"state == K1 bitwise, reruns identical; tape == plain on {shares[worst]:.6f} of "
-            f"lane-steps in the worst field ({worst}); {rec4['ms']:.4f} ms kernel, plain "
-            f"{rec4['plain_ms']:.4f} ms; bound {rec4['bound_ms']:.4f} ms by {rec4['bound_by']} "
-            f"({rec4['bound_bytes']} B, {rec4['bound_ops']} FP32 ops), share "
+            f"lane-steps in the worst field ({worst}); {rec4['ms']:.4f} ms (state copy and "
+            f"kernel) vs K1 {rec4['k1_ms']:.4f} ms on the same copy (the copy alone "
+            f"{rec4['state_copy_ms']:.4f}); K1 + the tape's bytes {rec4['k1_plus_tape_ms']:.4f} "
+            f"ms; plain {rec4['plain_ms']:.4f} ms; bound {rec4['bound_ms']:.4f} ms by "
+            f"{rec4['bound_by']} ({rec4['bound_bytes']} B, {rec4['bound_ops']} FP32 ops), share "
             f"{rec4['bound_share']:.3f}")
 
-        # K12 on the kernel's tape against its plain version, two runs
+        # K12 on the kernel's tape against its plain version, two runs, with
+        # the adjoints of all four tables and with the density's alone
         n = s0.px.numel()
-        carry0, adj0 = sur_adjoints(ctx, n, BINS, 11)
-
-        def run(plain):
-            carry, adj = copy_carry(carry0), {k: v.clone() for k, v in adj0.items()}
-            (S.reverse_plain if plain else S.reverse)(tk, flds, sk.samples, carry, adj, ctx,
-                                                      BINS)
-            return carry, adj
-
-        (ca, aa), (cb, ab), (cp, ap) = run(False), run(False), run(True)
-        torch.cuda.synchronize()
-        rec = {}
-        pairs = {k: (aa[k], ab[k], ap[k]) for k in ap}
-        pairs.update(c=(ca["c"], cb["c"], cp["c"]), grad=(ca["grad"], cb["grad"], cp["grad"]),
-                     gp=tuple(torch.stack(x[k]) for x, k in ((ca, "gp"), (cb, "gp"), (cp, "gp"))),
-                     gd=tuple(torch.stack(x[k]) for x, k in ((ca, "gd"), (cb, "gd"), (cp, "gd"))))
-        for k, (a, b, p) in pairs.items():
-            scale = float(p.norm())
-            rel = float((a - p).norm()) / max(scale, 1e-30)
-            rerun = float((a - b).norm()) / max(scale, 1e-30)
-            mabs = float((a - p).abs().max())
-            if not bool(torch.isfinite(a).all()) or scale == 0.0:
-                raise AssertionError(f"K12 ({mode}) {k}: not finite or all zero")
-            if rel > 1e-4 or rerun > 1e-5:
-                raise AssertionError(f"K12 ({mode}) {k}: rel L2 {rel:.3g} vs plain, {rerun:.3g} "
-                                     f"between runs")
-            rec[k] = dict(rel_l2=rel, max_abs=mabs, rerun_rel_l2=rerun)
-            k12["max_abs_err"] = max(k12["max_abs_err"], mabs)
-            k12["max_rel_l2"] = max(k12["max_rel_l2"], rel)
-        adj_t = {k: v.clone() for k, v in adj0.items()}
-        rec["ms"] = cuda_ms(lambda: S.reverse(tk, flds, sk.samples, copy_carry(carry0), adj_t, ctx,
-                                              BINS), 5)
-        rec["plain_ms"] = cuda_ms(lambda: run(True), 1)
-        rec.update(sur_bound(tk, sk.samples, adj0, ctx, BINS, rec["ms"]))
-        k12["modes"][mode] = rec
-        log(f"# K12 surrogate_reverse ({mode}), 2 dispatches: " + ", ".join(
-            f"{k} rel {rec[k]['rel_l2']:.3g} rerun {rec[k]['rerun_rel_l2']:.3g}" for k in pairs)
-            + f"; {rec['ms']:.4f} ms kernel vs {rec['plain_ms']:.4f} ms plain; bound "
-            f"{rec['bound_ms']:.4f} ms by {rec['bound_by']} ({rec['bound_bytes']} B, "
-            f"{rec['bound_ops']} FP32 ops; {rec['event_lane_steps']} event and "
-            f"{rec['scatter_lane_steps']} scatter lane-steps of {rec['lane_steps']}), share "
-            f"{rec['bound_share']:.3f}")
+        carry0, adj_all = sur_adjoints(ctx, n, BINS, 11)
+        for wrt, adj0 in (("all", adj_all), ("density", {"g_vol": adj_all["g_vol"]})):
+            rec = k12_check(mode, wrt, tk, flds, sk.samples, carry0, adj0, ctx, k12)
+            k12["modes"][f"{mode}/{wrt}"] = rec
         del tk, tk2, tp
-    for entry in (k4, k12):
-        ex = entry["modes"]["exact"]
-        entry.update(ms=ex["ms"], plain_ms=ex["plain_ms"])
-        kernel_line(entry, {k: ex[k] for k in ("bound_ms", "bound_by", "bound_bytes", "bound_ops",
-                                               "bound_share")})
+    ex = k4["modes"]["exact"]
+    k4.update(ms=ex["ms"], plain_ms=ex["plain_ms"], k1_ms=ex["k1_ms"])
+    kernel_line(k4, {k: ex[k] for k in ("bound_ms", "bound_by", "bound_bytes", "bound_ops",
+                                        "bound_share")})
+    # the kernels line: all four adjoints (as the parent design was timed) and the main
+    # path's wrt={density} beside it
+    ex = k12["modes"]["exact/all"]
+    k12.update(ms=ex["ms"], plain_ms=ex["plain_ms"],
+               wrt_density_ms=k12["modes"]["exact/density"]["ms"],
+               wrt_density_bound_ms=k12["modes"]["exact/density"]["bound_ms"])
+    kernel_line(k12, {k: ex[k] for k in ("bound_ms", "bound_by", "bound_bytes", "bound_ops",
+                                         "bound_share")})
     k12["library_call"] = "— (no single call)"
     twin = twin_check(dev, camera)
     del maj_renderer
@@ -1487,11 +1472,63 @@ def phase_surrogate(renderer, camera, dev):
     return k4, k12, twin
 
 
+def k12_check(mode, wrt, tk, flds, samples, carry0, adj0, ctx, k12):
+    """K12 on a tape against reverse_plain (relative L2 <= 1e-4 per output,
+    two kernel runs within 1e-5), then timed (a fresh copy of the carry per
+    call, made outside the timed span) against its bound."""
+    from vpt_tpu_torch.kernels import surrogate as S
+
+    def run(plain):
+        carry, adj = copy_carry(carry0), {k: v.clone() for k, v in adj0.items()}
+        (S.reverse_plain if plain else S.reverse)(tk, flds, samples, carry, adj, ctx, BINS)
+        return carry, adj
+
+    (ca, aa), (cb, ab), (cp, ap) = run(False), run(False), run(True)
+    torch.cuda.synchronize()
+    rec = {}
+    pairs = {k: (aa[k], ab[k], ap[k]) for k in ap}
+    pairs.update(c=(ca["c"], cb["c"], cp["c"]), grad=(ca["grad"], cb["grad"], cp["grad"]),
+                 gp=tuple(torch.stack(x[k]) for x, k in ((ca, "gp"), (cb, "gp"), (cp, "gp"))),
+                 gd=tuple(torch.stack(x[k]) for x, k in ((ca, "gd"), (cb, "gd"), (cp, "gd"))))
+    for k, (a, b, p) in pairs.items():
+        scale = float(p.norm())
+        rel = float((a - p).norm()) / max(scale, 1e-30)
+        rerun = float((a - b).norm()) / max(scale, 1e-30)
+        mabs = float((a - p).abs().max())
+        if not bool(torch.isfinite(a).all()) or scale == 0.0:
+            raise AssertionError(f"K12 ({mode}, wrt {wrt}) {k}: not finite or all zero")
+        if rel > 1e-4 or rerun > 1e-5:
+            raise AssertionError(f"K12 ({mode}, wrt {wrt}) {k}: rel L2 {rel:.3g} vs plain, "
+                                 f"{rerun:.3g} between runs")
+        rec[k] = dict(rel_l2=rel, max_abs=mabs, rerun_rel_l2=rerun)
+        k12["max_abs_err"] = max(k12["max_abs_err"], mabs)
+        k12["max_rel_l2"] = max(k12["max_rel_l2"], rel)
+    del ca, cb, cp, aa, ab, ap
+    reps = 5
+    pool = [copy_carry(carry0) for _ in range(reps + 1)]
+    adj_t = {k: v.clone() for k, v in adj0.items()}
+    calls = iter(pool)
+    rec["ms"] = cuda_ms(lambda: S.reverse(tk, flds, samples, next(calls), adj_t, ctx, BINS), reps)
+    del pool
+    rec["plain_ms"] = cuda_ms(lambda: run(True), 1)
+    rec.update(sur_bound(tk, samples, adj0, ctx, BINS, rec["ms"]))
+    log(f"# K12 surrogate_reverse ({mode}, wrt {wrt}), 2 dispatches: " + ", ".join(
+        f"{k} rel {rec[k]['rel_l2']:.3g} rerun {rec[k]['rerun_rel_l2']:.3g}" for k in pairs)
+        + f"; {rec['ms']:.4f} ms kernel vs {rec['plain_ms']:.4f} ms plain; bound "
+        f"{rec['bound_ms']:.4f} ms by {rec['bound_by']} ({rec['bound_bytes']} B, "
+        f"{rec['bound_ops']} FP32 ops; {rec['event_lane_steps']} event and "
+        f"{rec['scatter_lane_steps']} scatter lane-steps of {rec['lane_steps']}), share "
+        f"{rec['bound_share']:.3f}")
+    return rec
+
+
 def twin_check(dev, camera):
-    """The kernel path of render_sequence_diff (K1, K4's surrogate mode,
-    K12, K10, K9) against the autograd twin, both on the card: 128^2 x 2
-    streams, K = 2 dispatches, gradients of an MSE loss w.r.t. all four
-    tables, relative L2 <= 1e-4 each, exact and majorant mode."""
+    """The kernel path of render_sequence_diff against the autograd twin,
+    both on the card: 128^2 x 2 streams, K = 2 dispatches, gradients of an
+    MSE loss w.r.t. all four tables, relative L2 <= 1e-4 each, the loss
+    equal, exact and majorant mode, under both schedules of the window
+    ("tape": K4's surrogate mode, K12, K10, K9; "forward": K1, then K4's
+    surrogate mode and K12 per dispatch, K10, K9)."""
     from vpt_tpu_torch.kernels import corners as C
     from vpt_tpu_torch.kernels import mcm_spectral as K
     from vpt_tpu_torch.models import mcm_spectral as TM
@@ -1522,8 +1559,9 @@ def twin_check(dev, camera):
             loss = loss_fn(p)
             return float(loss.detach()), dict(zip(p, torch.autograd.grad(loss, list(p.values()))))
 
-        def kernels(p):
-            img = TM.render_sequence_diff(seeds, s0, ctx_of(p), STEPS, BINS)
+        def kernels(p, storage):
+            img = TM.render_sequence_diff(seeds, s0, ctx_of(p), STEPS, BINS,
+                                          window_storage=storage)
             return torch.mean((img - target) ** 2)
 
         def twin(p):
@@ -1536,21 +1574,25 @@ def twin_check(dev, camera):
             img = TM.radiance_to_rgb(st["radiance"], base.bin_xyz)
             return torch.mean((img - target) ** 2)
 
-        lk, gk = grads(kernels)
         lt, gt = grads(twin)
-        rec = dict(loss=lk, loss_twin=lt)
-        for k in gk:
-            rel = float((gk[k] - gt[k]).norm() / gt[k].norm().clamp_min(1e-30))
-            rec[k] = rel
-            if not bool(torch.isfinite(gk[k]).all()) or float(gt[k].norm()) == 0.0 or rel > 1e-4:
-                raise AssertionError(f"render_sequence_diff ({mode}) {k}: kernel path vs twin rel "
-                                     f"L2 {rel:.3g}, norm {float(gt[k].norm())}")
-        if lk != lt:
-            raise AssertionError(f"render_sequence_diff ({mode}): loss {lk} != twin's {lt}")
-        out[mode] = rec
-        log(f"# render_sequence_diff ({mode}, {res}^2 x {streams}, K = 2) kernel path vs the "
-            f"autograd twin on the card: loss equal ({lk:.6g}); " + ", ".join(
-                f"{k} rel L2 {rec[k]:.3g}" for k in gk))
+        for storage in ("tape", "forward"):
+            lk, gk = grads(lambda p: kernels(p, storage))
+            rec = dict(loss=lk, loss_twin=lt)
+            for k in gk:
+                rel = float((gk[k] - gt[k]).norm() / gt[k].norm().clamp_min(1e-30))
+                rec[k] = rel
+                if (not bool(torch.isfinite(gk[k]).all()) or float(gt[k].norm()) == 0.0
+                        or rel > 1e-4):
+                    raise AssertionError(f"render_sequence_diff ({mode}, {storage}) {k}: kernel "
+                                         f"path vs twin rel L2 {rel:.3g}, norm "
+                                         f"{float(gt[k].norm())}")
+            if lk != lt:
+                raise AssertionError(f"render_sequence_diff ({mode}, {storage}): loss {lk} != "
+                                     f"twin's {lt}")
+            out[f"{mode}/{storage}"] = rec
+            log(f"# render_sequence_diff ({mode}, window_storage={storage!r}, {res}^2 x "
+                f"{streams}, K = 2) kernel path vs the autograd twin on the card: loss equal "
+                f"({lk:.6g}); " + ", ".join(f"{k} rel L2 {rec[k]:.3g}" for k in gk))
         del r
     return out
 
@@ -1576,19 +1618,43 @@ def reset_counts():
 def autodiff_fit(label, target, renderer, camera, init, dev, **kw):
     """fit_spectral with the surrogate: FIT_ITERS iterations of CHUNK
     dispatches, the launch counts set to 0 just before; checks the launches
-    (K4's surrogate mode, K12, K9, K10), finite losses and moved params."""
-    from vpt_tpu_torch.optim import fit_spectral
+    (per iteration one K4 surrogate sweep and one K12, K9 and K10 at least
+    once, and no K1 inside the loss), finite losses and moved params."""
+    from vpt_tpu_torch import optim as TO
+
+    loss_fn = TO.spectral_render_loss
+    inside_loss = []
+
+    def counted_loss(*a, **kw):
+        before = launch_counts()
+        out = loss_fn(*a, **kw)
+        after = launch_counts()
+        inside_loss.append({k: after[k] - before[k] for k in after if after[k] != before[k]})
+        return out
 
     reset_counts()
-    t0 = time.perf_counter()
-    params, losses, info = fit_spectral(target, renderer, camera, {"density": init},
-                                        dispatches_per_step=CHUNK, iterations=FIT_ITERS,
-                                        learning_rate=0.02, seed=1, return_info=True, **kw)
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
+    TO.spectral_render_loss = counted_loss
+    try:
+        t0 = time.perf_counter()
+        params, losses, info = TO.fit_spectral(target, renderer, camera, {"density": init},
+                                               dispatches_per_step=CHUNK, iterations=FIT_ITERS,
+                                               learning_rate=0.02, seed=1, return_info=True, **kw)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+    finally:
+        TO.spectral_render_loss = loss_fn
     launches = launch_counts()
     require_launches(launches, ("surrogate_tape_forward", "surrogate_reverse",
                                 "contract_corners", "pack_corners"), f"fit_spectral ({label})")
+    per_iteration = (launches["surrogate_tape_forward"] == FIT_ITERS
+                     and launches["surrogate_reverse"] == FIT_ITERS
+                     and launches["contract_corners"] >= FIT_ITERS)
+    if (not per_iteration or len(inside_loss) != FIT_ITERS
+            or any(d.get("step", 0) != 0 or d.get("surrogate_tape_forward", 0) != 1
+                   for d in inside_loss)):
+        raise AssertionError(f"fit_spectral ({label}): launches {launches}, inside each loss "
+                             f"{inside_loss}; want one K4 surrogate sweep and one K12 per "
+                             f"iteration and no K1 inside the loss")
     d = params["density"]
     moved = float((d - torch.as_tensor(init, device=dev)).abs().max())
     if (info["method"] != "autodiff" or not np.isfinite(losses).all() or moved == 0.0
@@ -1596,22 +1662,26 @@ def autodiff_fit(label, target, renderer, camera, init, dev, **kw):
         raise AssertionError(f"fit_spectral ({label}): method {info['method']}, losses {losses}, "
                              f"params moved {moved}")
     rec = dict(losses=losses, seconds=dt, seconds_per_iteration=dt / FIT_ITERS,
-               max_param_change=moved, launches={k: v for k, v in launches.items() if v})
+               max_param_change=moved, launches={k: v for k, v in launches.items() if v},
+               launches_inside_each_loss=inside_loss)
     log(f"# fit_spectral autodiff ({label}): {FIT_ITERS} iterations x {CHUNK} dispatches in "
         f"{dt:.4f} s ({dt / FIT_ITERS:.4f} s per iteration); losses {losses}; max param change "
-        f"{moved:.4g}; launches {rec['launches']}")
+        f"{moved:.4g}; launches {rec['launches']}, inside each loss {inside_loss[0]}")
     return params, rec
 
 
 def surrogate_window(renderer, camera, dev, init):
     """One K = 4 window of the surrogate, wrt={density}: the whole
-    fwd+bwd (the loss through render_sequence_diff and its backward,
-    re-pack and contraction included) by CUDA events, then its pieces: the
-    taped sweep (K4's surrogate mode over the 4 dispatches, one launch),
-    K12 over that tape, and K9 on the packed volume adjoint."""
+    fwd+bwd (the re-pack, render_sequence_diff, the MSE loss, the backward
+    and the contraction) by CUDA events under each schedule, "tape" (one K4
+    surrogate sweep, one K12) and "forward" (K1 per dispatch, then a re-tape
+    and a K12 per dispatch), whose gradients agree within 1e-4; then the
+    tape schedule's pieces: the taped sweep (K4's surrogate mode over the 4
+    dispatches, one launch), K12 over that tape, and K9 on the packed
+    volume adjoint."""
     from vpt_tpu_torch.kernels import corners as C
     from vpt_tpu_torch.kernels import surrogate as S
-    from vpt_tpu_torch.optim import spectral_render_loss
+    from vpt_tpu_torch.models.mcm_spectral import render_sequence_diff
 
     ctx = renderer.ctx(camera, 1)
     state = renderer.reset(camera, 1)
@@ -1619,13 +1689,22 @@ def surrogate_window(renderer, camera, dev, init):
     target = torch.zeros(RES, RES, 3, device=dev)
     dens = torch.as_tensor(init, device=dev)
 
-    def window():
-        p = {"density": dens.clone().requires_grad_(True)}
-        loss = spectral_render_loss(p, state, ctx, seeds, target, STEPS, BINS)
-        return torch.autograd.grad(loss, [p["density"]])[0]
+    def window(storage):
+        d = dens.clone().requires_grad_(True)
+        vol = dataclasses.replace(ctx.density, table=C.pack_volume_diff(d))
+        img = render_sequence_diff(seeds, state, dataclasses.replace(ctx, density=vol), STEPS,
+                                   BINS, window_storage=storage)
+        return torch.autograd.grad(torch.mean((img - target) ** 2), [d])[0]
 
-    window()
-    rec = dict(window_ms=cuda_ms(window, 3))
+    g_tape, g_fwd = window("tape"), window("forward")
+    rel = float((g_tape - g_fwd).norm() / g_fwd.norm().clamp_min(1e-30))
+    if not bool(torch.isfinite(g_tape).all()) or float(g_fwd.norm()) == 0.0 or rel > 1e-4:
+        raise AssertionError(f"surrogate window: the two schedules' gradients differ by rel L2 "
+                             f"{rel:.3g}")
+    del g_tape, g_fwd
+    rec = dict(window_ms=cuda_ms(lambda: window("tape"), 3),
+               forward_schedule_window_ms=cuda_ms(lambda: window("forward"), 3),
+               schedules_rel_l2=rel)
     fctx = dataclasses.replace(ctx, density=dataclasses.replace(
         ctx.density, table=C.pack_volume(dens)))
     _, tape = S.tape_forward(state, fctx, seeds, STEPS, BINS)
@@ -1634,13 +1713,15 @@ def surrogate_window(renderer, camera, dev, init):
     n = state.px.numel()
     carry0, _ = sur_adjoints(fctx, n, BINS, 5)
     adj = {"g_vol": torch.zeros(fctx.density.table.shape, device=dev)}
-    rec["k12_ms"] = cuda_ms(lambda: S.reverse(tape, S.fields(False), sf.samples,
-                                              copy_carry(carry0), adj, fctx, BINS), 3)
+    calls = iter([copy_carry(carry0) for _ in range(4)])
+    rec["k12_ms"] = cuda_ms(lambda: S.reverse(tape, S.fields(False), sf.samples, next(calls), adj,
+                                              fctx, BINS), 3)
     rec["k9_ms"] = device_ms(lambda: C.contract_volume(adj["g_vol"], fctx.density.dims))
     rec["tape_bytes"] = tape.numel() * 4
-    log(f"# surrogate window (K = {CHUNK}, wrt={{density}}): {rec['window_ms']:.3f} ms fwd+bwd; "
-        f"taped sweep {rec['taped_sweep_ms']:.3f} ms, K12 {rec['k12_ms']:.3f} ms, K9 "
-        f"{rec['k9_ms']:.4f} ms (device); tape {rec['tape_bytes']} B")
+    log(f"# surrogate window (K = {CHUNK}, wrt={{density}}): {rec['window_ms']:.3f} ms fwd+bwd "
+        f"under \"tape\", {rec['forward_schedule_window_ms']:.3f} ms under \"forward\" "
+        f"(gradients within rel L2 {rel:.3g}); taped sweep {rec['taped_sweep_ms']:.3f} ms, K12 "
+        f"{rec['k12_ms']:.3f} ms, K9 {rec['k9_ms']:.4f} ms (device); tape {rec['tape_bytes']} B")
     return rec
 
 

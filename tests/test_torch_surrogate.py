@@ -36,7 +36,9 @@ from vpt_tpu_torch.kernels import corners as C
 from vpt_tpu_torch.kernels import mcm_spectral as K
 from vpt_tpu_torch.kernels import surrogate as S
 from vpt_tpu_torch.models import mcm_spectral as TM
+from vpt_tpu_torch.ops import geometry as TG
 from vpt_tpu_torch.ops import interp as TI
+from vpt_tpu_torch.ops import sampling as TS
 
 torch.set_num_threads(1)
 
@@ -304,3 +306,148 @@ def test_options_outside_the_slice_raise():
     K.reset_launch_counts()
     TM.render_diff(s0, score, ctx, STEPS, BINS)
     assert set(S.LAUNCHES.values()) == {0} and K.LAUNCHES["step"] == 0
+
+
+# ---------------------------------------------------------------------------
+# one window: the taped and the checkpointed schedule against K chained
+# single-dispatch windows
+# ---------------------------------------------------------------------------
+_STATE_GRADS = ("px", "py", "pz", "dx", "dy", "dz", "radiance")
+
+
+def _window_grads(r, blocks, seeds, how):
+    """(loss, grads of the four raw tables and of the start state's float
+    fields) of an MSE loss on one window from a state with history, rendered
+    ``how``: "chained" (one render_diff per seed), "tape" or "forward"."""
+    vol = Volume.sphere_in_cube(8)
+    cam = convert.camera_from(Camera())
+    base, s0 = r.ctx(cam, 7), r.reset(cam, 7)
+    K.step_plain(s0, base, [SEEDS[3]], STEPS, BINS)  # positions and radiance off the reset
+    raw = _raw_params(vol, r.light)
+    target = torch.full((RES, RES, 3), 0.25)
+    p = {k: torch.tensor(np.asarray(v)).requires_grad_(True) for k, v in raw.items()}
+    start = {k: getattr(s0, k).clone().requires_grad_(True) for k in _STATE_GRADS}
+    state = dataclasses.replace(s0, **start)
+    ctx = _ctx_of(base, p)
+    if how == "chained":
+        score = torch.ones_like(s0.px)
+        for s in seeds:
+            state, score, img = TM.render_diff(state, score, dataclasses.replace(ctx, seed_bits=s),
+                                               STEPS, BINS)
+    else:
+        img = TM.render_sequence_diff(seeds, state, ctx, STEPS, BINS, window_storage=how)
+    loss = torch.mean((img - target) ** 2)
+    leaves = {**p, **start}
+    return float(loss.detach()), dict(zip(leaves, torch.autograd.grad(loss, list(leaves.values()))))
+
+
+@pytest.mark.parametrize("blocks", [None, 4])
+@pytest.mark.parametrize("n_disp", [1, 4])
+def test_window_schedules_match_chained_dispatches(blocks, n_disp):
+    """The window Function under "tape" and "forward" against K chained
+    render_diff windows: the loss bit for bit, every gradient within 1e-6
+    relative L2 (only the order of the adjoint sums differs: one packed
+    adjoint per window against one per dispatch that autograd adds)."""
+    r = _port_renderer(Volume.sphere_in_cube(8), blocks)
+    seeds = SEEDS[:n_disp]
+    lc, gc = _window_grads(r, blocks, seeds, "chained")
+    for how in ("tape", "forward"):
+        lw, gw = _window_grads(r, blocks, seeds, how)
+        assert lw == lc, how
+        for k in gc:
+            err = _rel(gw[k], gc[k])
+            assert err <= 1e-6, f"{how} {k}: relative L2 {err:.3g} from the chained dispatches"
+            assert bool(torch.isfinite(gw[k]).all()), (how, k)
+        assert all(float(gc[k].abs().sum()) > 0 for k in ("density", "material_tf",
+                                                           "light_spectrum", "extinction", "px"))
+
+
+@pytest.mark.parametrize("storage", ["tape", "forward"])
+def test_window_launch_structure(monkeypatch, storage):
+    """Which kernels one window of 4 dispatches runs: under "tape" one taped
+    sweep forward and one reverse pass backward, no step; under "forward" a
+    step per dispatch forward, then per dispatch a re-tape and a reverse."""
+    calls = []
+    for mod, name in ((S, "tape_forward"), (S, "reverse"), (K, "step")):
+        fn = getattr(mod, name)
+
+        def counted(*a, _fn=fn, _name=name, **kw):
+            calls.append(_name)
+            return _fn(*a, **kw)
+
+        monkeypatch.setattr(mod, name, counted)
+    r = _port_renderer(Volume.sphere_in_cube(8), None)
+    cam = convert.camera_from(Camera())
+    base, s0 = r.ctx(cam, 7), r.reset(cam, 7)
+    raw = _raw_params(Volume.sphere_in_cube(8), r.light)
+    p = {k: torch.tensor(np.asarray(v)).requires_grad_(True) for k, v in raw.items()}
+    img = TM.render_sequence_diff(SEEDS, s0, _ctx_of(base, p), STEPS, BINS, window_storage=storage)
+    forward, calls[:] = list(calls), []
+    torch.autograd.grad(img.sum(), list(p.values()))
+    if storage == "tape":
+        assert forward == ["tape_forward"] and calls == ["reverse"]
+    else:
+        assert forward == ["step"] * len(SEEDS)
+        assert calls == ["tape_forward", "reverse"] * len(SEEDS)
+
+
+def test_window_input_checks():
+    r = _port_renderer(Volume.sphere_in_cube(8), None)
+    cam = convert.camera_from(Camera())
+    ctx, s0 = r.ctx(cam, 7), r.reset(cam, 7)
+    score = torch.ones_like(s0.px)
+    # the carried score is a product of P / stop_grad(P): any lane off 1 raises
+    off = score.clone()
+    off.view(-1)[5] = float(np.nextafter(np.float32(1), np.float32(2)))
+    with pytest.raises(ValueError, match="all ones"):
+        TM.render_diff(s0, off, ctx, STEPS, BINS)
+    with pytest.raises(ValueError, match="window_storage"):
+        TM.render_sequence_diff(SEEDS, s0, ctx, STEPS, BINS, window_storage="disk")
+    with pytest.raises(ValueError, match="frame seed"):
+        TM.render_sequence_diff([], s0, ctx, STEPS, BINS)
+
+
+# ---------------------------------------------------------------------------
+# the surrogate tape's definition (what K4's surrogate mode writes and K12
+# reads), rebuilt here from the plain step's internals
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("blocks", [None, 4])
+def test_plain_surrogate_tape_definition(blocks):
+    assert S.SUR_FIELDS == ("flags", "dist", "dx", "dy", "dz", "rng", "px", "py", "pz", "lam",
+                            "maj")
+    assert (S.F_RESPAWN, S.F_OOB, S.F_NULL, S.F_SCATTER, S.F_CAPPED) == (1, 2, 4, 8, 16)
+    r = _port_renderer(Volume.sphere_in_cube(8), blocks)
+    cam = convert.camera_from(Camera())
+    ctx, s0 = r.ctx(cam, 7), r.reset(cam, 7)
+    seeds = SEEDS[:2]
+    st = _clone(s0)
+    tape = S.tape_forward_plain(st, ctx, seeds, STEPS, BINS)
+    flds = S.fields(blocks is not None)
+    assert tape.shape == (len(seeds), STEPS, len(flds), s0.px.numel())
+
+    ix, iy, seed_iy = K._pixel_grid(RES, 2, s0.px.device)
+    sx, sy = TG.screen_position(ix, iy, K._f32(np.float32(1.0) / np.float32(RES)))
+    light = K.light_terms(ctx.light_direction)
+    p = {k: getattr(s0, k).clone() for k in K.STATE_FIELDS if k != "transmittance"}
+    for k, seed in enumerate(seeds):
+        rng = TS.seed_state(ix, seed_iy, seed)
+        for i in range(STEPS):
+            p, rng, it = K._render_body(p, rng, sx, sy, ctx, BINS, light, collect=True)
+            bits = (it["respawn"].to(torch.int32) + 2 * it["oob"].to(torch.int32)
+                    + 4 * it["null"].to(torch.int32) + 8 * it["scatter"].to(torch.int32)
+                    + 256 * it["pre_bin"].to(torch.int32))
+            if blocks is not None:
+                bits = bits + 16 * it["capped"].to(torch.int32)
+            want = dict(flags=bits.view(torch.float32), dist=it["dist"],
+                        dx=it["pre_dir"][0], dy=it["pre_dir"][1], dz=it["pre_dir"][2],
+                        rng=(it["rng_disk"] - (it["rng_disk"] >= 2**31) * 2**32).to(torch.int32)
+                        .view(torch.float32),
+                        px=it["sample_pos"][0], py=it["sample_pos"][1], pz=it["sample_pos"][2],
+                        lam=it["pre_wavelength"], maj=it["maj"])
+            for j, f in enumerate(flds):
+                got = tape[k, i, j].view(torch.int32)
+                assert torch.equal(got, want[f].reshape(-1).view(torch.int32)), (k, i, f)
+    plain = _clone(s0)
+    K.step_plain(plain, ctx, seeds, STEPS, BINS)
+    for name in FIELDS:
+        assert torch.equal(getattr(st, name), getattr(plain, name)), name

@@ -460,12 +460,18 @@ struct StepRecord {
   bool respawn, null_event, scatter;
   TfAddr tf;
   VolAddr vol;
-  // the surrogate tape's extras (SUR): the lane's chain before its disk
-  // draw, the pre-step direction and wavelength, the sample position, the
-  // local majorant, and whether the lane left the volume or was capped
+};
+
+// What the autodiff surrogate's tape needs from one step (SUR): the events,
+// the flight, the lane's chain before its disk draw, the pre-step direction
+// and wavelength, the sample position and the local majorant. No lookup
+// value: the reverse pass (surrogate.cu) re-derives the material.
+struct SurRecord {
+  float dist;
+  int pre_bin;
+  bool respawn, null_event, scatter, oob, capped;
   uint32_t rng;
   float pdx, pdy, pdz, spx, spy, spz, lam, maj;
-  bool oob, capped;
 };
 
 // Per-launch constants of the step: the extinction as a shared divisor.
@@ -521,8 +527,10 @@ __device__ __forceinline__ void deposit(float (&rad)[NB], int bin, float emitted
 // A lane that respawns or scatters draws its disk point once, before the
 // branch (draw_disk: the first two draws of either), so a warp holding
 // both kinds runs the sqrt / cos / sin once.
-// SUR (with REC): also record the surrogate tape's extras; the surrogate
-// tape has a majorant mode, the PRB tape has none.
+// SUR (without REC): fill `sur`, the surrogate tape's record. The step then
+// looks up the material under the forward's own condition and records no
+// lookup, so a surrogate step costs K1's step and the record's stores. The
+// surrogate tape has a majorant mode, the PRB tape has none.
 template <int NB, bool REC, bool MAJ = false, bool ENV = false, bool SUR = false>
 __device__ __forceinline__ void woodcock_step(Lane& L, float (&rad)[NB],
                                               uint32_t& s, float sx, float sy,
@@ -531,9 +539,10 @@ __device__ __forceinline__ void woodcock_step(Lane& L, float (&rad)[NB],
                                               const float* __restrict__ tf,
                                               StepRecord* rec,
                                               const float2* __restrict__ maj = nullptr,
-                                              const float* __restrict__ env = nullptr) {
-  static_assert(!(REC && ENV) && !(REC && MAJ && !SUR) && !(SUR && !REC),
-                "the taped step has no env mode, and a majorant mode only for the surrogate");
+                                              const float* __restrict__ env = nullptr,
+                                              SurRecord* sur = nullptr) {
+  static_assert(!(REC && (ENV || MAJ || SUR)) && !(SUR && ENV),
+                "the PRB tape has no env or majorant mode, the surrogate tape no env mode");
   const float* f = P.f;
   // free flight
   float dist, m = 0.0f;
@@ -614,13 +623,18 @@ __device__ __forceinline__ void woodcock_step(Lane& L, float (&rad)[NB],
     rec->hg_cos = 0.0f;
   }
   if constexpr (SUR) {
-    rec->rng = s;
-    rec->pdx = L.dx; rec->pdy = L.dy; rec->pdz = L.dz;
-    rec->spx = npx; rec->spy = npy; rec->spz = npz;
-    rec->lam = L.lam;
-    rec->maj = m;
-    rec->oob = oob;
-    rec->capped = capped;
+    sur->dist = dist;
+    sur->pre_bin = L.bin;
+    sur->respawn = oob || absorb;
+    sur->null_event = event && !absorb && !scatter;
+    sur->scatter = scatter;
+    sur->oob = oob;
+    sur->capped = capped;
+    sur->rng = s;
+    sur->pdx = L.dx; sur->pdy = L.dy; sur->pdz = L.dz;
+    sur->spx = npx; sur->spy = npy; sur->spz = npz;
+    sur->lam = L.lam;
+    sur->maj = m;
   }
   const bool respawn_now = oob || absorb;
   float kx = 0.0f, ky = 0.0f;

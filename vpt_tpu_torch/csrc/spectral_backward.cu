@@ -10,11 +10,13 @@
 //                     path _importance_metric + _importance_scatter
 //                     (:411-540), and the reverse dispatch loop of
 //                     _tape_reverse_sweep / _prb_many_core (:1076-1139).
-//   surrogate_tape    K4's surrogate mode: the same step with woodcock_step's
-//                     SUR record, in exact or majorant mode, writing the
-//                     autodiff surrogate's tape (SurField, adjoint_common.cuh)
-//                     that K12 (surrogate.cu) walks back; its own template,
-//                     so the PRB instantiations keep their code.
+//   surrogate_tape    K4's surrogate mode: K1's step (no REC record, so it
+//                     looks up the material only where K1 does) with
+//                     woodcock_step's SUR record, in exact or majorant mode,
+//                     writing the autodiff surrogate's tape (SurField,
+//                     adjoint_common.cuh) that K12 (surrogate.cu) walks back;
+//                     its own template, so the PRB instantiations keep their
+//                     code.
 //
 // The tape is one f32 tensor (K, steps, F, lanes), lanes innermost so every
 // warp writes and reads whole 128-byte lines. Int and bool fields are
@@ -206,12 +208,14 @@ __device__ __forceinline__ void sput(float* row, const SurSpec& T, int field, fl
 }
 
 // K4's surrogate mode (replaces the residuals jax.grad keeps of
-// vpt_tpu/models/mcm_spectral.py::render_diff, :508-556): the same step
-// (woodcock_step's SUR record), in exact or majorant mode (MAJ), one
+// vpt_tpu/models/mcm_spectral.py::render_diff, :508-556): K1's step with
+// woodcock_step's SUR record, in exact or majorant mode (MAJ), one
 // surrogate tape row per lane-step (SurField, adjoint_common.cuh). Its own
-// template, so the PRB instantiations above keep their code. The state it
-// leaves equals K1's bit for bit (the lookups a taped step adds feed no
-// state).
+// template, so the PRB instantiations above keep their code. The record
+// holds no lookup value, so the step looks up the material only where K1
+// does (not on a lane that left the volume or was capped, as the PRB
+// tape's every-lane record must): its time is K1's plus the tape's
+// evict-first stores, and the state it leaves equals K1's bit for bit.
 template <int NB, bool MAJ>
 __global__ void __launch_bounds__(STEP_THREADS, 8)
 surrogate_tape_kernel(const Params P, const SurSpec T, float* __restrict__ px_,
@@ -243,8 +247,9 @@ surrogate_tape_kernel(const Params P, const SurSpec T, float* __restrict__ px_,
   for (int k = 0; k < P.i[I_N_SEEDS]; ++k) {
     uint32_t s = hash3(ix, seed_iy, seeds[k]);
     for (int it = 0; it < steps; ++it, row += step_rows) {
-      StepRecord r;
-      woodcock_step<NB, true, MAJ, false, true>(L, rad, s, sx, sy, P, C, vol, tf, &r, maj);
+      SurRecord r;
+      woodcock_step<NB, false, MAJ, false, true>(L, rad, s, sx, sy, P, C, vol, tf, nullptr, maj,
+                                                 nullptr, &r);
       const int flags = (r.respawn ? SF_RESPAWN : 0) | (r.oob ? SF_OOB : 0) |
                         (r.null_event ? SF_NULL : 0) | (r.scatter ? SF_SCATTER : 0) |
                         (r.capped ? SF_CAPPED : 0) | (r.pre_bin << 8);

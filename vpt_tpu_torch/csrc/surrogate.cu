@@ -9,22 +9,23 @@
 //                      (K4's surrogate mode, spectral_backward.cu) in
 //                      reverse.
 //
-// Per lane it carries in registers the score cotangent c (the deposit
-// cotangents after this step up to the next respawn), the adjoints of the
-// position and the direction, and the radiance adjoint of every bin; a
-// respawn's running mean r += (target - r) / n sends g / n to the deposit
-// and leaves g (1 - 1/n). Per lane-step it adds the extinction score, the
-// event scores into alpha and albedo (majorant mode: p_real = min(alpha /
-// m, 1), nothing where clipped), the HG inversion's pathwise terms into g
-// and the incoming direction, the light's into the direction, the density
-// lookup's spatial gradient into the position, dist x g_pos into the
-// direction, and slopes x (g_albedo, g_alpha, 2 g_g) into the density. It
-// scatters one 18-wide TF+light row and one 8-wide volume row per
-// lane-step into the packed adjoints with float2/float4 atomics, as K5
-// does; K9 contracts them. A respawn drops the position and direction
-// adjoints: the camera ray depends on no parameter. The carry is read from
-// and written back to its arrays, so the adjoints at the tapes' end go in
-// and those at their start come out, and dispatches chain.
+// Per lane it carries the score cotangent c (the deposit cotangents after
+// this step up to the next respawn), the adjoints of the position and the
+// direction, and the radiance adjoint of every bin; a respawn's running
+// mean r += (target - r) / n sends g / n to the deposit and leaves
+// g (1 - 1/n). Per lane-step it adds the extinction score, the event scores
+// into alpha and albedo (majorant mode: p_real = min(alpha / m, 1), nothing
+// where clipped), the HG inversion's pathwise terms into g and the incoming
+// direction, the light's into the direction, the density lookup's spatial
+// gradient into the position, dist x g_pos into the direction, and
+// slopes x (g_albedo, g_alpha, 2 g_g) into the density. It adds one 8-wide
+// volume row per event lane-step and the TF+light rows into the packed
+// adjoints with float2/float4 atomics, as K5 does; K9 contracts them. A
+// respawn drops the position and direction adjoints: the camera ray depends
+// on no parameter. The carry is read from and written back to its arrays,
+// so the adjoints at the tapes' end go in and those at their start come
+// out: one launch walks a whole window back, and dispatches also chain
+// launch to launch.
 //
 // The tape holds what cannot be recomputed: the flags and bin, the flight,
 // the pre-step direction, the chain's state before its disk draw, the
@@ -36,21 +37,49 @@
 // slopes from the volume row re-gathered at the sample position and then
 // the TF row (L2-resident, 4.8 MB at 257^2).
 //
-// What bounds it: the tape's bytes (40-44 B per lane-step, read once,
-// evict-first) and, on event steps, a random volume-row gather and the two
-// atomic row adds; the HG reverse (~60 FP32 operations, two sqrt and a
-// redraw with its cos/sin) runs on scattering lanes only.
+// What bounds it. The parent design (one thread per lane, everything in
+// registers, 96 registers, 5 blocks per SM) was split by variant builds
+// timed in one call on an NVIDIA H100 80GB HBM3 at its 700 W power limit
+// (PERF.md section 6; 2 dispatches at 512^2 x 4, exact mode): the tape
+// stream and the carry alone took 0.33 ms (the tape's 0.67 GB of
+// evict-first reads run at ~3/4 of the HBM rate),
+// the event re-gathers 0.09 ms more, the HG reverse 0.06, the volume
+// atomics 0.02; with all four tables the TF atomics took 0.76 ms more, 60%
+// of the kernel: every event added 8 float2 rows into one 18-wide TF row,
+// 4 of them a constant 0 in one half, and 40k distinct rows took 5.8 M
+// events (4% of a warp's event rows coincide, so warp aggregation cannot
+// help). The design:
+// - a lane keeps the sums of the TF row its events read (per corner:
+//   albedo, alpha, 2 g) and adds them when its events move to another row
+//   or at the end: a lane's wavelength column holds until it respawns and
+//   the density row of a homogeneous region stays, so runs of events share
+//   a row; the g channel's atomic only where it is not 0, none for the
+//   fourth channel;
+// - the radiance adjoints live in shared memory, a column per thread (read
+//   and written at respawns only), and so do the TF-row sums, which leaves
+//   registers for SUR_MIN_BLOCKS = 6 blocks per SM (80 registers, 12 B of spill stores); in
+//   the same call 5 blocks (93 registers) took 0.540 ms with wrt={density}
+//   and 8 (64 registers, 120 B of spills) 0.509, against 0.500 at 6.
+// The per-lane sums change only the order of the additions into the TF
+// adjoint, as the atomics' order does. Tried and not adopted, in the same
+// calls: the volume row requested before the carry's arithmetic (0.534
+// against 0.500 ms), and the respawn's quotients by one shared reciprocal
+// (0.68 against 0.54 ms; IEEE division per bin stays).
 //
 // Numerics: -fmad=false and IEEE division, in the op order of the plain
 // version (kernels/surrogate.py::reverse_plain), so the two differ only by
-// the order of the atomics and of the block sums.
+// the order of the additions into the packed adjoints and of the block
+// sums.
 
 #include "adjoint_common.cuh"
 #include "mcm_common.cuh"
 
 namespace {
 
+// threads per block, and the blocks per SM that __launch_bounds__ asks
+// ptxas to fit (see the note above)
 #define SUR_THREADS 128
+#define SUR_MIN_BLOCKS 6
 
 __device__ __forceinline__ float tie_max(float x, float lo) {
   return x > lo ? 1.0f : (x == lo ? 0.5f : 0.0f);
@@ -58,24 +87,6 @@ __device__ __forceinline__ float tie_max(float x, float lo) {
 
 __device__ __forceinline__ float tie_min(float x, float hi) {
   return x < hi ? 1.0f : (x == hi ? 0.5f : 0.0f);
-}
-
-// the 8 corners of a packed volume row, dequantized as sample_volume does
-__device__ __forceinline__ void volume_row(const void* table, int is_u8, int64_t row, float c[8]) {
-  if (is_u8) {
-    const uint2 raw = __ldg(reinterpret_cast<const uint2*>(
-        static_cast<const uint8_t*>(table) + row * 8));
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      c[k] = u8_unit(raw.x, k);
-      c[4 + k] = u8_unit(raw.y, k);
-    }
-  } else {
-    const float4* r = reinterpret_cast<const float4*>(static_cast<const float*>(table) + row * 8);
-    const float4 a = __ldg(r), b = __ldg(r + 1);
-    c[0] = a.x; c[1] = a.y; c[2] = a.z; c[3] = a.w;
-    c[4] = b.x; c[5] = b.y; c[6] = b.z; c[7] = b.w;
-  }
 }
 
 // The reverse of sampling.draw_hg's anisotropic branch at (g, d) with the
@@ -138,10 +149,41 @@ __device__ __forceinline__ void hg_reverse(float g, const float d[3], const floa
   g_g = gg;
 }
 
+// the 8 corners of a packed volume row, dequantized as sample_volume does
+__device__ __forceinline__ void volume_row(const void* table, int is_u8, int64_t row, float c[8]) {
+  if (is_u8) {
+    const uint2 raw = __ldg(reinterpret_cast<const uint2*>(
+        static_cast<const uint8_t*>(table) + row * 8));
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      c[k] = u8_unit(raw.x, k);
+      c[4 + k] = u8_unit(raw.y, k);
+    }
+  } else {
+    const float4* r = reinterpret_cast<const float4*>(static_cast<const float*>(table) + row * 8);
+    const float4 a = __ldg(r), b = __ldg(r + 1);
+    c[0] = a.x; c[1] = a.y; c[2] = a.z; c[3] = a.w;
+    c[4] = b.x; c[5] = b.y; c[6] = b.z; c[7] = b.w;
+  }
+}
+
+// adds a lane's pending TF-row sums (albedo, alpha, 2 g per corner) into
+// the packed TF adjoint: a float2 atomic per corner, and the g channel's
+// only where it is not 0 (the fourth channel takes nothing)
+__device__ __forceinline__ void flush_tf(float* g_tf, int row, float (*acc)[SUR_THREADS], int t) {
+  float* r = g_tf + (int64_t)row * 18;
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    add2(r + 4 * q, acc[3 * q][t], acc[3 * q + 1][t]);
+    const float g2 = acc[3 * q + 2][t];
+    if (g2 != 0.0f) atomicAdd(r + 4 * q + 2, g2);
+  }
+}
+
 // one lane walks K dispatch tapes back (NB: the bins rounded up to 4; MAJ:
 // the majorant mode, whose tape holds m)
 template <int NB, bool MAJ>
-__global__ void __launch_bounds__(SUR_THREADS)
+__global__ void __launch_bounds__(SUR_THREADS, SUR_MIN_BLOCKS)
 surrogate_reverse_kernel(const Params P, const SurSpec T, const float* __restrict__ tape,
                          const int* __restrict__ samples, float* __restrict__ c_io,
                          float* __restrict__ gpx_io, float* __restrict__ gpy_io,
@@ -150,9 +192,15 @@ surrogate_reverse_kernel(const Params P, const SurSpec T, const float* __restric
                          float* __restrict__ grad_io, const void* __restrict__ vol,
                          const float* __restrict__ tf, double* __restrict__ ext_acc,
                          float* __restrict__ g_tf, float* __restrict__ g_vol) {
+  // per thread, in its own column: the radiance adjoint of every bin (read
+  // and written at respawns only) and the pending sums of the TF row its
+  // last events read
+  __shared__ float grad_s[NB][SUR_THREADS];
+  __shared__ float tf_acc[12][SUR_THREADS];
   // no early return: every thread reaches block_add's __syncthreads
+  const int t = threadIdx.x;
   const int n_lanes = P.i[I_N_LANES];
-  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
+  const int lane = blockIdx.x * blockDim.x + t;
   const bool active = lane < n_lanes;
   float ext = 0.0f;
   if (active) {
@@ -169,10 +217,11 @@ surrogate_reverse_kernel(const Params P, const SurSpec T, const float* __restric
     float c = c_io[lane];
     float gp[3] = {gpx_io[lane], gpy_io[lane], gpz_io[lane]};
     float gd[3] = {gdx_io[lane], gdy_io[lane], gdz_io[lane]};
-    float grad[NB];
 #pragma unroll
-    for (int b = 0; b < NB; ++b) grad[b] = (b < n_bins) ? grad_io[(int64_t)b * lanes + lane] : 0.0f;
+    for (int b = 0; b < NB; ++b)
+      grad_s[b][t] = (b < n_bins) ? grad_io[(int64_t)b * lanes + lane] : 0.0f;
     int n = samples[lane];
+    int acc_row = -1;  // the TF row whose sums tf_acc holds, -1 for none
 
     for (int k = P.i[I_N_SEEDS] - 1; k >= 0; --k) {
       for (int it = steps - 1; it >= 0; --it) {
@@ -190,18 +239,16 @@ surrogate_reverse_kernel(const Params P, const SurSpec T, const float* __restric
         const bool nul = flags & SF_NULL, scat = flags & SF_SCATTER;
         const bool capped = flags & SF_CAPPED;
         const int pre_bin = flags >> 8;
-
         // the deposit: g / n to it, g (1 - 1/n) stays
         float g_dep = 0.0f;
         if (respawn) {
           const float denom = (float)max(n, 1);
-          float sel = 0.0f;
+          float gb[NB];
 #pragma unroll
-          for (int b = 0; b < NB; ++b)
-            if (b == pre_bin) sel = grad[b];
-          if (pre_bin >= 0 && pre_bin < n_bins) g_dep = __fdiv_rn(sel, denom);
+          for (int b = 0; b < NB; ++b) gb[b] = grad_s[b][t];
+          if (pre_bin >= 0 && pre_bin < n_bins) g_dep = __fdiv_rn(grad_s[pre_bin][t], denom);
 #pragma unroll
-          for (int b = 0; b < NB; ++b) grad[b] = grad[b] - __fdiv_rn(grad[b], denom);
+          for (int b = 0; b < NB; ++b) grad_s[b][t] = gb[b] - __fdiv_rn(gb[b], denom);
           n -= 1;
         }
         // the escape light, recomputed from the wavelength's light pair
@@ -230,7 +277,6 @@ surrogate_reverse_kernel(const Params P, const SurSpec T, const float* __restric
         }
         // the light's pathwise terms
         float gdl[3] = {0.0f, 0.0f, 0.0f};
-        float g_light = 0.0f;
         if (oob) {
           float g_int = g_dep;
           if (!iso) {
@@ -241,13 +287,13 @@ surrogate_reverse_kernel(const Params P, const SurSpec T, const float* __restric
             gdl[1] = g_dot * ldy;
             gdl[2] = g_dot * ldz;
           }
-          g_light = g_int * 5.0f;
+          const float g_light = g_int * 5.0f;
           if (g_tf != nullptr && g_light != 0.0f) {
             add2(g_tf + (int64_t)bx * 18 + 16, g_light * (1 - tfx), g_light * tfx);
           }
         }
-        // events: the material re-read at the sample position, the scores,
-        // the HG inversion, the TF row, the density row and its position
+        // events: the material at the sample position, the scores, the HG
+        // inversion, the TF row, the density row and its position
         float gpd[3] = {0.0f, 0.0f, 0.0f};
         float gd_hg[3] = {0.0f, 0.0f, 0.0f};
         if (nul || scat) {
@@ -304,14 +350,22 @@ surrogate_reverse_kernel(const Params P, const SurSpec T, const float* __restric
             hg_reverse(g, d, u, ucos, gd, g_g, gd_hg);
             g_mat2 = g_g * 2.0f;
           }
+          // the TF row's adjoint: summed per lane while its events stay on
+          // one row, added to the table when the row changes
           if (g_tf != nullptr && (g_albedo != 0.0f || g_alpha != 0.0f || g_mat2 != 0.0f)) {
+            if (ta.row != acc_row) {
+              if (acc_row >= 0) flush_tf(g_tf, acc_row, tf_acc, t);
+#pragma unroll
+              for (int j = 0; j < 12; ++j) tf_acc[j][t] = 0.0f;
+              acc_row = ta.row;
+            }
             const float fx = ta.fx, fy = ta.fy;
             const float w[4] = {(1 - fx) * (1 - fy), fx * (1 - fy), (1 - fx) * fy, fx * fy};
-            float* r = g_tf + (int64_t)ta.row * 18;
 #pragma unroll
             for (int q = 0; q < 4; ++q) {
-              add2(r + 4 * q, g_albedo * w[q], g_alpha * w[q]);
-              add2(r + 4 * q + 2, g_mat2 * w[q], 0.0f);
+              tf_acc[3 * q][t] += g_albedo * w[q];
+              tf_acc[3 * q + 1][t] += g_alpha * w[q];
+              tf_acc[3 * q + 2][t] += g_mat2 * w[q];
             }
           }
           const float g_dens = g_albedo * ta.slope[0] + g_alpha * ta.slope[1] + g_mat2 * ta.slope[2];
@@ -345,12 +399,13 @@ surrogate_reverse_kernel(const Params P, const SurSpec T, const float* __restric
         c = gs1;
       }
     }
+    if (acc_row >= 0) flush_tf(g_tf, acc_row, tf_acc, t);
     c_io[lane] = c;
     gpx_io[lane] = gp[0]; gpy_io[lane] = gp[1]; gpz_io[lane] = gp[2];
     gdx_io[lane] = gd[0]; gdy_io[lane] = gd[1]; gdz_io[lane] = gd[2];
 #pragma unroll
     for (int b = 0; b < NB; ++b)
-      if (b < n_bins) grad_io[(int64_t)b * lanes + lane] = grad[b];
+      if (b < n_bins) grad_io[(int64_t)b * lanes + lane] = grad_s[b][t];
   }
   if (ext_acc != nullptr) block_add<SUR_THREADS>(ext, ext_acc);
 }

@@ -693,10 +693,11 @@ def _window_tape_bytes(state0, steps, n_dispatches, wrt) -> int:
     return int(np.prod(state0.px.shape)) * steps * n_dispatches * len(tape_fields(wrt)) * 4
 
 
-def _resolve_storage(window_storage, state0, steps, n_dispatches, wrt) -> str:
+def resolve_storage(window_storage, tape_bytes: int) -> str:
+    """A window's schedule, "tape" or "forward"; "auto" keeps the tape while
+    its ``tape_bytes`` fit under ``_TAPE_AUTO_LIMIT_BYTES``."""
     if window_storage == "auto":
-        fits = _window_tape_bytes(state0, steps, n_dispatches, wrt) <= _TAPE_AUTO_LIMIT_BYTES
-        return "tape" if fits else "forward"
+        return "tape" if tape_bytes <= _TAPE_AUTO_LIMIT_BYTES else "forward"
     if window_storage not in ("tape", "forward"):
         raise ValueError(f"unknown window_storage {window_storage!r}")
     return window_storage
@@ -733,7 +734,7 @@ def prb_render_and_grads_many(state0, ctx, seeds, g_image, steps: int, n_bins: i
         return _prb_many_core(state0, ctx, seeds, g_image, steps, n_bins, wrt,
                               scatter_stride, None, scatter_mode=scatter_mode)
     n = len(_seeds(seeds))
-    if _resolve_storage(window_storage, state0, steps, n, wrt) == "tape":
+    if resolve_storage(window_storage, _window_tape_bytes(state0, steps, n, wrt)) == "tape":
         state_f, tapes, image, m_final = _tape_forward_sweep(state0, ctx, seeds, steps,
                                                              n_bins, wrt)
         grads = _tape_reverse_sweep(state0, ctx, seeds, tapes, m_final, g_image, steps,
@@ -756,7 +757,7 @@ def prb_loss_and_grads(state0, ctx, seeds, target, steps: int, n_bins: int,
     _check_packed_ctx(ctx, volume_filter)
     wrt = frozenset(wrt)
     n = len(_seeds(seeds))
-    if _resolve_storage(window_storage, state0, steps, n, wrt) == "tape":
+    if resolve_storage(window_storage, _window_tape_bytes(state0, steps, n, wrt)) == "tape":
         state_f, tapes, image, m_final = _tape_forward_sweep(state0, ctx, seeds, steps,
                                                              n_bins, wrt)
         g_image = sampling.div_scalar(2.0 * (image - target), float(image.numel()))

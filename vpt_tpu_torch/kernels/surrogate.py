@@ -16,13 +16,22 @@ bin, across steps and dispatches.
 - ``tape_forward`` (K4's surrogate mode, ``surrogate_tape_kernel`` in
   ``csrc/spectral_backward.cu``): K dispatches from a state, one tape row
   per lane-step; the state it leaves equals K1's bit for bit, in exact and
-  majorant mode. Plain version ``tape_forward_plain``.
+  majorant mode, and it looks up the material only where K1 does. Plain
+  version ``tape_forward_plain``.
 - ``reverse`` (K12, ``csrc/surrogate.cu``): the reverse pass over K stored
   dispatch tapes. Its inputs are the adjoints at the last dispatch's end,
   which it replaces in place by those at the first dispatch's start; it
   adds into the packed adjoints (one 18-wide TF+light row and one 8-wide
-  volume row per lane-step) and the extinction adjoint. Plain version
-  ``reverse_plain``: the same derivation in torch ops, in K12's order.
+  volume row per event lane-step) and the extinction adjoint. Plain
+  version ``reverse_plain``: the same derivation in torch ops, in K12's
+  order.
+
+``models/mcm_spectral.py::_RenderWindow`` runs a window of K dispatches as
+one launch of each: ``tape_forward`` over the K seeds in its forward, the
+tapes kept (1.34 GB for 4 dispatches at 512^2 x 4 streams), and ``reverse``
+over them in its backward into one packed adjoint per learned table. Above
+the PRB window's tape limit it keeps each dispatch's start state instead and
+re-tapes the dispatches one by one in the backward.
 
 The tape is one f32 tensor (K, steps, F, lanes) of ``SUR_FIELDS`` (``maj``
 in majorant mode only): the step's flags and bin, the flight, the
@@ -59,7 +68,6 @@ import torch
 
 from vpt_tpu_torch.kernels import _build
 from vpt_tpu_torch.kernels import mcm_spectral as K
-from vpt_tpu_torch.kernels.spectral_backward import clone_state
 from vpt_tpu_torch.ops import geometry, interp, sampling
 
 # tape fields in the order of SurField in csrc/surrogate.cu
@@ -96,6 +104,13 @@ def check_ctx(ctx):
     if ctx.material_tf.ndim != 3 or ctx.material_tf.shape[-1] != 18:
         raise ValueError("the surrogate needs the fused (Hp, Wp, 18) TF+light table, got "
                          f"{tuple(ctx.material_tf.shape)}")
+
+
+def clone_steppable(state):
+    """A copy of the state fields a dispatch updates; the transmittance,
+    which no dispatch changes, is shared with ``state``."""
+    return dataclasses.replace(state, **{k: getattr(state, k).detach().clone()
+                                         for k in K.STATE_FIELDS[:11]})
 
 
 def _u32_to_f(x: torch.Tensor) -> torch.Tensor:
@@ -163,7 +178,8 @@ def _check_layout(lib):
 
 def _kernel_ctx(ctx):
     """The ctx with its extinction as a float32 scalar (a learned
-    extinction is a 0-d tensor)."""
+    extinction is a 0-d tensor, read here; the window reads it once and
+    passes the scalar)."""
     return dataclasses.replace(
         ctx, extinction=np.float32(float(torch.as_tensor(ctx.extinction).detach())))
 
@@ -174,7 +190,7 @@ def tape_forward(state, ctx, seeds, steps: int, n_bins: int):
     one kernel launch on a CUDA device."""
     check_ctx(ctx)
     ctx = _kernel_ctx(ctx)
-    out = clone_state(state)
+    out = clone_steppable(state)
     tensors = out.tensors() + K._ctx_tensors(ctx)
     if K._route(*tensors) == "cpu":
         return out, tape_forward_plain(out, ctx, seeds, steps, n_bins)

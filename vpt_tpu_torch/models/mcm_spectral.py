@@ -16,8 +16,10 @@ where the JAX functions donate it. One ``render_many`` call is one launch
 of the step kernel on a CUDA device (``vpt_tpu_torch/kernels``).
 
 ``render_diff`` / ``render_sequence_diff`` are the differentiable
-dispatches of the autodiff surrogate (a ``torch.autograd.Function`` per
-dispatch whose backward is ``kernels/surrogate.py``'s kernels).
+dispatches of the autodiff surrogate: one ``torch.autograd.Function`` per
+window of dispatches (``_RenderWindow``), whose forward tapes the window in
+one launch of K4's surrogate mode and whose backward walks the tapes back in
+one K12 launch (``kernels/surrogate.py``).
 
 Known reference quirks preserved: radiance starts at 1.0; y-flipped screen
 coordinates; light gain 5.0; the volume is sampled (clamped) before the
@@ -35,6 +37,7 @@ import torch
 from torch import nn
 
 from vpt_tpu_torch.kernels import mcm_spectral as K
+from vpt_tpu_torch.kernels import spectral_backward as TB
 from vpt_tpu_torch.kernels import surrogate as S
 from vpt_tpu_torch.models.base import register_renderer
 from vpt_tpu_torch.ops import interp
@@ -126,63 +129,84 @@ _DIFF_FIELDS = ("px", "py", "pz", "dx", "dy", "dz", "radiance")
 _PLAIN_FIELDS = ("bounces", "samples", "bin", "wavelength")
 
 
-class _RenderDiff(torch.autograd.Function):
-    """One differentiable dispatch over (the state's float fields, the
-    score, the packed volume table, the fused TF table, the extinction).
-    Forward: K1 on a copy of the state, which is saved (as jax.checkpoint
-    saves the dispatch's input), so memory holds no tape between passes.
-    Backward: K4's surrogate mode re-runs the dispatch taped from the saved
-    state, then K12 walks the tape back (``kernels/surrogate.py``)."""
+class _RenderWindow(torch.autograd.Function):
+    """K differentiable dispatches, one per frame seed, over (the start
+    state's float fields, the score, the packed volume table, the fused TF
+    table, the extinction), in one of two schedules that compute the same
+    values (``window_storage`` resolved as the PRB window's):
+
+    - "tape": the forward is one launch of K4's surrogate mode over the K
+      dispatches, whose tapes are kept; the backward is one K12 launch over
+      them, from the adjoints at the window's end to those at its start,
+      into one packed adjoint per learned table.
+    - "forward": K1 per dispatch, each dispatch's start state kept (the
+      memory policy of the reference's ``jax.checkpoint``); the backward
+      re-tapes each dispatch from its start state and walks it back,
+      dispatch K-1 first, into the same packed adjoints.
+
+    The state's copy, the extinction's read to the host and the adjoints'
+    zeroing happen once per window."""
 
     @staticmethod
     def forward(fctx, meta, px, py, pz, dx, dy, dz, radiance, score, vol, tf, extinction):
-        sctx, state, steps, n_bins = meta
+        sctx, state, seeds, steps, n_bins, storage = meta
         kctx = dataclasses.replace(
             sctx, density=interp.PackedVolume(vol.detach(), sctx.density.dims),
             material_tf=tf.detach(), extinction=np.float32(float(extinction.detach())))
-        saved = SpectralState(px=px, py=py, pz=pz, dx=dx, dy=dy, dz=dz, bounces=state.bounces,
+        start = SpectralState(px=px, py=py, pz=pz, dx=dx, dy=dy, dz=dz, bounces=state.bounces,
                               samples=state.samples, bin=state.bin, wavelength=state.wavelength,
                               radiance=radiance, transmittance=state.transmittance)
         with torch.no_grad():
-            out = SpectralState(*(t.detach().clone() for t in saved.tensors()))
-            K.step(out, kctx, [kctx.seed_bits], steps, n_bins)
-        fctx.meta = (kctx, steps, n_bins)
-        fctx.save_for_backward(*saved.tensors())
+            if storage == "tape":
+                out, tapes = S.tape_forward(start, kctx, seeds, steps, n_bins)
+                fctx.starts = None
+                fctx.save_for_backward(tapes, out.samples)
+            else:
+                out, fctx.starts = S.clone_steppable(start), []
+                for s in seeds:
+                    fctx.starts.append(S.clone_steppable(out))
+                    K.step(out, kctx, [s], steps, n_bins)
+                fctx.save_for_backward(out.samples)
+        fctx.meta = (kctx, seeds, steps, n_bins)
         fctx.mark_non_differentiable(*(getattr(out, k) for k in _PLAIN_FIELDS))
         return (*(getattr(out, k) for k in _DIFF_FIELDS), torch.ones_like(score),
                 *(getattr(out, k) for k in _PLAIN_FIELDS))
 
     @staticmethod
     def backward(fctx, *grads):
-        kctx, steps, n_bins = fctx.meta
-        state = SpectralState(*fctx.saved_tensors)
-        lane = tuple(state.px.shape)
-        n = state.px.numel()
+        kctx, seeds, steps, n_bins = fctx.meta
+        samples = fctx.saved_tensors[-1]
+        lane = tuple(samples.shape)
+        n = samples.numel()
+        dev = samples.device
 
         def flat(g, shape):
             if g is None:
-                return torch.zeros(int(np.prod(shape)), dtype=torch.float32, device=state.px.device)
+                return torch.zeros(int(np.prod(shape)), dtype=torch.float32, device=dev)
             return g.detach().reshape(-1).clone()
 
         carry = dict(gp=[flat(grads[a], lane) for a in range(3)],
                      gd=[flat(grads[3 + a], lane) for a in range(3)],
                      grad=flat(grads[6], (n_bins,) + lane).reshape(n_bins, n),
                      c=flat(grads[7], lane))
+        need = fctx.needs_input_grad
+        adj = {}
+        if need[9]:
+            adj["g_vol"] = torch.zeros(kctx.density.table.shape, dtype=torch.float32, device=dev)
+        if need[10]:
+            adj["g_tf"] = torch.zeros((kctx.material_tf.shape[0] * kctx.material_tf.shape[1], 18),
+                                      dtype=torch.float32, device=dev)
+        if need[11]:
+            adj["g_ext"] = torch.zeros(1, dtype=torch.float32, device=dev)
+        flds = S.fields(kctx.majorant is not None)
         with torch.no_grad():
-            state_out, tape = S.tape_forward(state, kctx, [kctx.seed_bits], steps, n_bins)
-            adj = {}
-            need = fctx.needs_input_grad
-            dev = kctx.material_tf.device
-            if need[9]:
-                adj["g_vol"] = torch.zeros(kctx.density.table.shape, dtype=torch.float32,
-                                           device=dev)
-            if need[10]:
-                adj["g_tf"] = torch.zeros((kctx.material_tf.shape[0] * kctx.material_tf.shape[1],
-                                           18), dtype=torch.float32, device=dev)
-            if need[11]:
-                adj["g_ext"] = torch.zeros(1, dtype=torch.float32, device=dev)
-            S.reverse(tape, S.fields(kctx.majorant is not None), state_out.samples, carry, adj,
-                      kctx, n_bins)
+            if fctx.starts is None:
+                S.reverse(fctx.saved_tensors[0], flds, samples, carry, adj, kctx, n_bins)
+            else:
+                for k in range(len(seeds) - 1, -1, -1):
+                    end, tape = S.tape_forward(fctx.starts[k], kctx, seeds[k:k + 1], steps, n_bins)
+                    S.reverse(tape, flds, end.samples, carry, adj, kctx, n_bins)
+                    del end, tape
         g_state = [t.reshape(lane) for t in (*carry["gp"], *carry["gd"])]
         return (None, *g_state, carry["grad"].reshape((n_bins,) + lane), carry["c"].reshape(lane),
                 adj.get("g_vol"),
@@ -190,48 +214,63 @@ class _RenderDiff(torch.autograd.Function):
                 adj["g_ext"].reshape(()) if "g_ext" in adj else None)
 
 
-def render_diff(state: SpectralState, score: torch.Tensor, ctx: SpectralCtx, steps: int,
-                n_bins: int, volume_filter: str = "linear"):
-    """Differentiable render dispatch: (state, score, image), the forward
-    bit for bit ``render``'s. Gradients of the outputs flow to the packed
-    tables ``ctx.density.table`` (f32) and ``ctx.material_tf``, to
-    ``ctx.extinction`` (a 0-d tensor), and to the state's position,
-    direction and radiance and the score, by the autodiff surrogate's
-    hand-derived backward (``kernels/surrogate.py``). ``score``: the
-    carried score weights, ones after a reset; a product of factors
-    P / stop_grad(P), so its value is always 1 (anything else raises).
-    The wavelength and the integer fields get no gradient: they depend on
-    no parameter."""
+def _render_window(state: SpectralState, score: torch.Tensor, ctx: SpectralCtx, seeds,
+                   steps: int, n_bins: int, volume_filter: str, window_storage: str):
+    """The differentiable window from ``state`` (untouched): (state, score)."""
     if volume_filter != "linear":
         raise NotImplementedError(f"surrogate gradients with the {volume_filter!r} filter "
                                   "are not ported")
     S.check_ctx(ctx)
-    if not bool((score == 1).all()):
-        raise ValueError("the surrogate's carried score must be all ones (its factors are "
-                         "P / stop_grad(P))")
+    seeds = [int(s) for s in np.asarray(seeds, np.uint32).reshape(-1)]
+    if not seeds:
+        raise ValueError("a differentiable window needs at least one frame seed")
+    tape_bytes = state.px.numel() * steps * len(seeds) * len(S.fields(ctx.majorant is not None)) * 4
+    storage = TB.resolve_storage(window_storage, tape_bytes)
     ext = ctx.extinction
     if not torch.is_tensor(ext):
         ext = torch.tensor(np.float32(ext))
-    outs = _RenderDiff.apply((ctx, state, steps, n_bins), *(getattr(state, k) for k in _DIFF_FIELDS),
-                             score, ctx.density.table, ctx.material_tf, ext)
+    outs = _RenderWindow.apply((ctx, state, seeds, steps, n_bins, storage),
+                               *(getattr(state, k) for k in _DIFF_FIELDS), score,
+                               ctx.density.table, ctx.material_tf, ext)
     fields = dict(zip(_DIFF_FIELDS, outs[:7]))
     fields.update(zip(_PLAIN_FIELDS, outs[8:]))
-    new = SpectralState(**fields, transmittance=state.transmittance)
-    return new, outs[7], radiance_to_rgb(new.radiance, ctx.bin_xyz)
+    return SpectralState(**fields, transmittance=state.transmittance), outs[7]
+
+
+def render_diff(state: SpectralState, score: torch.Tensor, ctx: SpectralCtx, steps: int,
+                n_bins: int, volume_filter: str = "linear"):
+    """Differentiable render dispatch: (state, score, image), the forward
+    bit for bit ``render``'s; the window of one dispatch. Gradients of the
+    outputs flow to the packed tables ``ctx.density.table`` (f32) and
+    ``ctx.material_tf``, to ``ctx.extinction`` (a 0-d tensor), and to the
+    state's position, direction and radiance and the score, by the
+    autodiff surrogate's hand-derived backward (``kernels/surrogate.py``).
+    ``score``: the carried score weights, ones after a reset; a product of
+    factors P / stop_grad(P), so its value is always 1 (anything else
+    raises). The wavelength and the integer fields get no gradient: they
+    depend on no parameter."""
+    if not bool((score == 1).all()):
+        raise ValueError("the surrogate's carried score must be all ones (its factors are "
+                         "P / stop_grad(P))")
+    new, score = _render_window(state, score, ctx, [ctx.seed_bits], steps, n_bins, volume_filter,
+                                "auto")
+    return new, score, radiance_to_rgb(new.radiance, ctx.bin_xyz)
 
 
 def render_sequence_diff(seeds, init_state: SpectralState, ctx: SpectralCtx, steps: int,
-                         n_bins: int, volume_filter: str = "linear"):
-    """Differentiable accumulation over per-dispatch frame ``seeds``:
-    ``render_diff`` chained from ``init_state`` (which stays untouched)
-    with a score of ones; returns the final HDR image. Each dispatch keeps
-    only its input state for the backward."""
-    score = torch.ones_like(init_state.px)
-    state, image = init_state, None
-    for s in np.asarray(seeds, np.uint32).reshape(-1):
-        state, score, image = render_diff(state, score, dataclasses.replace(ctx, seed_bits=int(s)),
-                                          steps, n_bins, volume_filter)
-    return image
+                         n_bins: int, volume_filter: str = "linear", *,
+                         window_storage: str = "auto"):
+    """Differentiable accumulation over per-dispatch frame ``seeds`` from
+    ``init_state`` (which stays untouched) with a score of ones: the same
+    values as ``render_diff`` chained, as one window (``_RenderWindow``).
+    Returns the final HDR image. ``window_storage``: "tape" (keep the
+    window's surrogate tapes between the passes: one K4 launch forward, one
+    K12 launch backward), "forward" (keep each dispatch's start state and
+    re-tape it in the backward), or "auto" ("tape" while the tapes fit in
+    6 GiB)."""
+    new, _ = _render_window(init_state, torch.ones_like(init_state.px), ctx, seeds, steps, n_bins,
+                            volume_filter, window_storage)
+    return radiance_to_rgb(new.radiance, ctx.bin_xyz)
 
 
 def _seed_bits(seed) -> int:

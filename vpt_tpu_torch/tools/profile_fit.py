@@ -7,9 +7,13 @@ iteration, ``wrt={density}``), profiled with ``torch.profiler``.
 
 Per method it prints one JSON line: the iterations' host-clock seconds
 without the profiler, the device time of every kernel under the profiler
-(summed by name, with launch counts), their total, and the device's busy
-share (kernel time over the profiled window's host time, which the
-profiler's own overhead lengthens). Needs a CUDA device; exits 1 without.
+(summed by name, with launch counts), their total, the device's busy share
+(kernel time over the profiled window's host time, which the profiler's
+own overhead lengthens), and the device time and launches per iteration
+split by piece: K1, K4 (PRB or surrogate mode), K5, K12, K9, K10, the
+device-to-device copies, the copy kernels, the fills, and the other torch
+ops. Needs a CUDA
+device; exits 1 without.
 """
 
 from __future__ import annotations
@@ -43,6 +47,32 @@ def _smoothed(density, factor):
     c = d.reshape(n // factor, factor, n // factor, factor, n // factor,
                   factor).mean(axis=(1, 3, 5))
     return np.repeat(np.repeat(np.repeat(c, factor, 0), factor, 1), factor, 2)
+
+
+# pieces of an iteration's device time: (piece, substring of the kernel's
+# name), the first match wins
+PIECES = (("K12 surrogate_reverse", "surrogate_reverse_kernel"),
+          ("K4 surrogate mode", "surrogate_tape_kernel"),
+          ("K4 prb_tape_forward", "tape_forward_kernel"),
+          ("K5 prb_reverse", "reverse_kernel"),
+          ("K1 step", "step_kernel"),
+          ("K9 contract_corners", "contract_"),
+          ("K10 pack_corners", "pack_"),
+          ("device-to-device copies", "Memcpy DtoD"),
+          ("copy kernels", "direct_copy_kernel"),
+          ("fills", "FillFunctor"))
+
+
+def split(kernels: dict, iterations: int) -> dict:
+    """Device ms and launches per iteration by piece (``PIECES``, then the
+    other torch ops)."""
+    out = {}
+    for name, k in kernels.items():
+        piece = next((p for p, sub in PIECES if sub in name), "other torch ops")
+        acc = out.setdefault(piece, dict(ms=0.0, launches=0))
+        acc["ms"] += k["ms"] / iterations
+        acc["launches"] += k["launches"] / iterations
+    return out
 
 
 def profile_method(method: str, iterations: int, dev) -> dict:
@@ -93,8 +123,9 @@ def profile_method(method: str, iterations: int, dev) -> dict:
     top = dict(sorted(kernels.items(), key=lambda kv: -kv[1]["ms"])[:12])
     return dict(method=method, iterations=iterations, seconds=seconds,
                 seconds_per_iteration=seconds / iterations, profiled_seconds=profiled,
-                device_ms=device_ms, busy_share_profiled=device_ms / (profiled * 1e3),
-                kernels=top)
+                device_ms=device_ms, device_ms_per_iteration=device_ms / iterations,
+                busy_share_profiled=device_ms / (profiled * 1e3),
+                per_iteration=split(kernels, iterations), kernels=top)
 
 
 def main(argv=None):
