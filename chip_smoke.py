@@ -65,8 +65,9 @@ Phases (each raises on failure, so any failure exits non-zero):
      rows of the 129^3-row table, equal to its plain version, timed by
      device time against index_add_
  16. the autodiff surrogate's kernels at 512^2 x 4 streams, 2 dispatches,
-     exact and majorant mode (the bench scene, majorant_blocks=16): K4's
-     surrogate mode (its state equals K1's bit for bit, its tape the
+     exact, majorant (the bench scene, majorant_blocks=16), environment,
+     environment+majorant and quasicubic mode: K4's surrogate mode (its
+     state equals K1's bit for bit, its tape the
      plain tape; timed beside K1 on the same state copy), K12
      surrogate_reverse on that tape within 1e-4 relative L2 of its plain
      version (two runs within 1e-5) with all four adjoints and with the
@@ -138,6 +139,8 @@ OPS_STEP, OPS_LOOKUP, OPS_RESPAWN = 24, 74, 135
 # redraw and the HG reverse (~90)
 OPS_SUR_STEP, OPS_SUR_EVENT, OPS_SUR_HG = 30, 100, 90
 SUR_SOURCE = "vpt_tpu_torch/csrc/surrogate.cu"
+# the xy half-packed volume (the reference's big-volume mode)
+XY_TABLES = frozenset({"density_xy", "material_tf", "light_spectrum"})
 
 
 def log(msg):
@@ -424,20 +427,147 @@ def phase_majorant(dev):
     if not ok:
         raise AssertionError(f"majorant image parity failed: {out}")
     entry["launches"] = launches["step_majorant"]
-    del renderer
+    return entry, out, renderer, cam
+
+
+def phase_xy(camera, dev):
+    """Phase 5, xy: K1 over the bench scene's xy half-packed table equals
+    its plain version and the full-table K1 bit for bit in every state
+    field (2 dispatches); one dispatch timed against the full table's;
+    session.run(16) in xy mode."""
+    from vpt_tpu_torch.kernels import mcm_spectral as K
+    from vpt_tpu_torch.models.mcm_spectral import MCMSpectralRenderer
+
+    full = MCMSpectralRenderer(*bench_scene_args(), resolution=RES, streams=STREAMS, device=dev)
+    xy = MCMSpectralRenderer(*bench_scene_args(), resolution=RES, streams=STREAMS,
+                             pack_tables=XY_TABLES, device=dev)
+    seeds2 = [2654435761 * k % 2**32 for k in (1, 2)]
+    ctx_x, ctx_f = xy.ctx(camera, 7), full.ctx(camera, 7)
+    sk, _, err = check_mode(ctx_x, xy.reset(camera, 7), seeds2, BINS, "xy volume")
+    sf = full.reset(camera, 7)
+    K.step(sf, ctx_f, seeds2, STEPS, BINS)
+    torch.cuda.synchronize()
+    if first_difference(sk, sf) is not None:
+        raise AssertionError(f"K1 xy != K1 full table: {first_difference(sk, sf)}")
+    entry = mode_entry("mcm_spectral_step[xy]", "vpt_tpu/ops/interp.py:226", ctx_x,
+                       xy.reset(camera, 7), BINS, err=err)
+    one = [2654435761]
+    st = full.reset(camera, 7)
+    entry["full_table_ms"] = cuda_ms(lambda: K.step(st, ctx_f, one, STEPS, BINS), 20)
+    entry.update(table_bytes_xy=xy.vol_table.numel(), table_bytes_full=full.vol_table.numel())
+    del full, xy
+    _, rates, launches = run_session(dev, 16, pack_tables=XY_TABLES)
+    require_launches(launches, ("step_xy",), "session.run in xy mode")
+    entry["launches"] = launches["step_xy"]
+    entry["session"] = rates
+    log(f"# K1 xy == plain == K1 full table bit for bit; one dispatch {entry['ms']:.4f} ms xy vs "
+        f"{entry['full_table_ms']:.4f} ms full; session.run(16) in xy mode "
+        f"{rates['seconds']:.4f} s, {rates['mpaths_per_s']:.3f} Mpaths/s; launches {launches}")
+    return entry
+
+
+def prb_fit(label, target, renderer, camera, init, dev, mode):
+    """fit_spectral(method="prb") at stride 1: FIT_ITERS iterations of CHUNK
+    dispatches, the launch counts set to 0 just before; per iteration one
+    K4 and one K5 launch, K9 and K10 per learned table, all in ``mode``
+    (their ``_environment`` / ``_xy`` counts), and no K1; finite losses,
+    moved params, seconds per iteration, peak device memory."""
+    from vpt_tpu_torch.kernels import spectral_backward as TB
+    from vpt_tpu_torch.optim import fit_spectral
+
+    suffix = {"environment": "env", "xy": "xy"}[mode]
+    reset_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params, losses, info = fit_spectral(target, renderer, camera, init, dispatches_per_step=CHUNK,
+                                        iterations=FIT_ITERS, learning_rate=0.02, seed=1,
+                                        method="prb", scatter_stride=1, return_info=True)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = {**launch_counts(), **TB.LAUNCHES}
+    want = {"prb_tape_forward": FIT_ITERS, "prb_reverse": FIT_ITERS,
+            f"prb_tape_forward_{mode}": FIT_ITERS, f"prb_reverse_{mode}": FIT_ITERS,
+            f"contract_corners_{suffix}": FIT_ITERS, f"pack_corners_{suffix}": FIT_ITERS,
+            "step": 0}
+    bad = {k: launches.get(k) for k, v in want.items() if launches.get(k) != v}
+    if bad or not np.isfinite(losses).all():
+        raise AssertionError(f"fit_spectral prb ({label}): launches {bad} (want {want}), "
+                             f"losses {losses}")
+    (key, p), = params.items()
+    moved = float((p - torch.as_tensor(init[key], device=dev)).abs().max())
+    if moved == 0.0 or not bool(torch.isfinite(p).all()):
+        raise AssertionError(f"fit_spectral prb ({label}): {key} moved {moved}")
+    rec = dict(losses=losses, seconds=dt, seconds_per_iteration=dt / FIT_ITERS,
+               max_param_change=moved, peak_memory_bytes=torch.cuda.max_memory_allocated(),
+               launches={k: v for k, v in launches.items() if v}, method=info["method"])
+    log(f"# fit_spectral prb ({label}, learning {key}): {FIT_ITERS} iterations x {CHUNK} "
+        f"dispatches in {dt:.4f} s ({dt / FIT_ITERS:.4f} s per iteration); losses {losses}; max "
+        f"param change {moved:.4g}; peak device memory {rec['peak_memory_bytes']} B; launches "
+        f"{rec['launches']}")
+    return rec
+
+
+def phase_sparse_xy(renderer, cam, dev):
+    """Phase 11, xy: the sparse 512^3 scene's xy table (half the full
+    table's bytes) beside the full one: K1 equal to its plain version and
+    to the full-table K1 bit for bit over 2 dispatches, in exact and in
+    majorant mode (the full renderer's majorant grid); one dispatch timed
+    on each table, in turns; then fit_spectral(method="prb") learning an
+    f32 density into the xy table, exact mode."""
+    from vpt_tpu_torch.kernels import mcm_spectral as K
+    from vpt_tpu_torch.models.mcm_spectral import MCMSpectralRenderer
+
+    t0 = time.perf_counter()
+    xy = MCMSpectralRenderer(renderer.volume, renderer.material_tf, renderer.light,
+                             renderer.spectrum, renderer.config, resolution=RES, streams=STREAMS,
+                             pack_tables=XY_TABLES, device=dev)
+    out = dict(pack_xy_s=time.perf_counter() - t0, table_bytes_xy=xy.vol_table.numel(),
+               table_bytes_full=renderer.vol_table.numel(),
+               table_dtype=str(xy.vol_table.dtype).replace("torch.", ""))
+    seeds2 = [2654435761 * k % 2**32 for k in (1, 2)]
+    one = [2654435761]
+    for mode, maj in (("exact", None), ("majorant", renderer.majorant)):
+        ctx_x = dataclasses.replace(xy.ctx(cam, 7), majorant=maj)
+        ctx_f = dataclasses.replace(renderer.ctx(cam, 7), majorant=maj)
+        sk, _, err = check_mode(ctx_x, xy.reset(cam, 7), seeds2, BINS,
+                                f"xy volume, sparse {SPARSE}^3, {mode} mode")
+        sf = xy.reset(cam, 7)
+        K.step(sf, ctx_f, seeds2, STEPS, BINS)
+        torch.cuda.synchronize()
+        if first_difference(sk, sf) is not None:
+            raise AssertionError(f"sparse K1 xy ({mode}) != K1 full: {first_difference(sk, sf)}")
+        st_x, st_f = xy.reset(cam, 7), xy.reset(cam, 7)
+        times = dict(full=[], xy=[])
+        for which in ("full", "xy", "xy", "full"):
+            st, ctx = (st_x, ctx_x) if which == "xy" else (st_f, ctx_f)
+            times[which].append(cuda_ms(lambda: K.step(st, ctx, one, STEPS, BINS), 10))
+        rec = dict(xy_ms=float(np.mean(times["xy"])), full_ms=float(np.mean(times["full"])),
+                   times=times, max_abs_err=err)
+        rec.update(step_bound(ctx_x, xy.reset(cam, 7), one, BINS, rec["xy_ms"]))
+        out[mode] = rec
+        log(f"# sparse {SPARSE}^3 K1 {mode} mode: xy == plain == full table bit for bit; one "
+            f"dispatch {rec['xy_ms']:.4f} ms xy ({out['table_bytes_xy']} B table) vs "
+            f"{rec['full_ms']:.4f} ms full ({out['table_bytes_full']} B); bound "
+            f"{rec['bound_ms']:.4f} ms by {rec['bound_by']}, share {rec['bound_share']:.3f}")
+    # the training path on the big-volume table: a learned f32 density
+    # re-packed into xy rows (2.16 GB) each iteration
+    seeds = [(3 + k) * 2654435761 % 2**32 for k in range(16)]
+    _, target = xy.render_many(xy.reset(cam, 3), cam, seeds)
+    init = np.clip(smoothed(renderer.volume.density, 16) * 0.8 + 0.05, 0.0, 1.0)
+    out["fit"] = prb_fit(f"sparse {SPARSE}^3, xy, exact", target, xy, cam, {"density": init}, dev,
+                         "xy")
+    del xy
     torch.cuda.empty_cache()
-    return entry, out
+    return out
 
 
 def seeded_envmap(seed: int = 2024) -> np.ndarray:
-    """An equirect map with structure in both angles: smooth bands plus
-    noise, from a numpy seed."""
-    rng = np.random.default_rng(seed)
-    h, w, _ = ENV_SHAPE
-    v, u = np.meshgrid(np.linspace(0, 1, h), np.linspace(0, 1, w), indexing="ij")
-    base = np.stack([0.6 + 0.4 * np.cos(2 * np.pi * u), 0.5 + 0.4 * v,
-                     0.7 - 0.5 * v * u], axis=-1)
-    return np.clip(base + rng.uniform(-0.1, 0.1, ENV_SHAPE), 0.0, 1.0).astype(np.float32)
+    """ENV_SHAPE's equirect map with structure in both angles
+    (``tools/profile_fit.seeded_envmap``)."""
+    from vpt_tpu_torch.tools.profile_fit import seeded_envmap as envmap
+
+    return envmap(ENV_SHAPE, seed)
 
 
 def mode_args(quasicubic: bool):
@@ -522,7 +652,6 @@ def phase_compaction(dev):
     """Phase 13: hit-lane compaction at the default pose (z = 2)."""
     from vpt_tpu_torch import Camera
     from vpt_tpu_torch.kernels import mcm_spectral as K
-    from vpt_tpu_torch.models import mcm_spectral_compact as TC
     from vpt_tpu_torch.models.mcm_spectral import MCMSpectralRenderer, SpectralState
 
     cam = Camera()
@@ -559,6 +688,16 @@ def phase_compaction(dev):
     sk, _, err = check_mode(ctx, got, seeds2, BINS, "lane table", lanes)
     k1 = mode_entry("mcm_spectral_step[lane_table]",
                     "vpt_tpu/models/mcm_spectral_compact.py:352", ctx, got, BINS, lanes, err)
+    # the xy half-packed volume over the lane table: plain and the full
+    # table's K1 bit for bit
+    comp_xy = MCMSpectralRenderer(*bench_scene_args(), resolution=RES, streams=STREAMS,
+                                  compaction=True, pack_tables=XY_TABLES, device=dev)
+    sk_xy, _, _ = check_mode(comp_xy.ctx(cam, 7), got, seeds2, BINS, "lane table, xy volume",
+                             lanes)
+    if first_difference(sk_xy, sk) is not None:
+        raise AssertionError(f"K1 xy over the lane table != the full table's: "
+                             f"{first_difference(sk_xy, sk)}")
+    del comp_xy, sk_xy
     a = K.compact_radiance(sk.radiance, t["pixel_hit"], t["miss"], n_hit, STREAMS)
     b = K.compact_radiance(sk.radiance, t["pixel_hit"], t["miss"], n_hit, STREAMS)
     p = K.compact_radiance_plain(sk.radiance, t["pixel_hit"], t["miss"], n_hit, STREAMS)
@@ -633,11 +772,11 @@ def phase_compaction(dev):
     # every mode at once
     _, rates["all_modes"], all_launches = run_session(
         dev, 16, compaction=True, majorant_blocks=8, quasicubic=True,
-        environment=seeded_envmap())
+        environment=seeded_envmap(), pack_tables=XY_TABLES)
     require_launches(all_launches, ("step_lane_table", "step_majorant", "step_quasicubic",
-                                    "step_environment", "compact_radiance"),
+                                    "step_environment", "step_xy", "compact_radiance"),
                      "the all-modes session")
-    log(f"# compaction + majorant + quasicubic + environment, session.run(16): "
+    log(f"# compaction + majorant + quasicubic + environment + xy, session.run(16): "
         f"{rates['all_modes']['mpaths_per_s']:.3f} Mpaths/s; launches {all_launches}")
     rates.update(tables_host_s=tables_s, n_hit=n_hit, lane_shape=list(shape),
                  hit_max_abs_vs_full=hit_err)
@@ -728,11 +867,49 @@ def phase_k3(dev):
         f"F.grid_sample (max abs {lib_err:.3g} from K3) per {n} lookups; host path "
         f"{host_ms:.4f} ms kernel vs {library_host_ms:.4f} ms F.grid_sample; bound "
         f"{b['bound_ms']:.4f} ms by {b['bound_by']}, share {b['bound_share']:.3f}")
-    return kernel_line(dict(name="sample_volume_packed", route="cuda", source=SOURCE,
-                            replaces="vpt_tpu/ops/interp.py:371", max_abs_err=err, ms=ms,
-                            plain_ms=plain_ms, host_ms=host_ms, library_host_ms=library_host_ms,
-                            library_call="torch.nn.functional.grid_sample",
-                            library_max_abs_err=lib_err), b, library_ms)
+    k3 = kernel_line(dict(name="sample_volume_packed", route="cuda", source=SOURCE,
+                          replaces="vpt_tpu/ops/interp.py:371", max_abs_err=err, ms=ms,
+                          plain_ms=plain_ms, host_ms=host_ms, library_host_ms=library_host_ms,
+                          library_call="torch.nn.functional.grid_sample",
+                          library_max_abs_err=lib_err), b, library_ms)
+
+    # the xy table: two 4-wide plane rows per lookup, the same corner values
+    # lerped in the same order, so every lookup equals the full table's
+    full_codes = K.sample_volume_packed(pv.table, pv.dims, u, v, w)
+    for dtype, table_of in (("u8", lambda: interp.pack_volume_auto(raw, dev, "xy").table),
+                            ("f32", lambda: torch.as_tensor(
+                                interp.pack_volume_corners_xy(raw).reshape(-1, 4), device=dev))):
+        txy = table_of()
+        dims_xy = (4, 9, 9)
+        got_xy = K.sample_volume_packed(txy, dims_xy, u, v, w, "xy")
+        plain_xy = K.sample_volume_packed_plain(txy, dims_xy, u, v, w, "xy")
+        cxy = K.sample_volume_packed(txy, dims_xy, cu, cv, cw, "xy").cpu().numpy()
+        torch.cuda.synchronize()
+        if not (torch.equal(got_xy, plain_xy) and torch.equal(got_xy, full_codes)
+                and np.array_equal(cxy, want)):
+            raise AssertionError(f"K3 xy ({dtype}) != plain / the full table / k/255 on "
+                                 f"{int((got_xy != full_codes).sum())} of 4096")
+    vxy = interp.pack_volume_auto(bench_scene_args()[0].density, dev, "xy")
+    ms_xy = device_ms(lambda: K.sample_volume_packed(vxy.table, vxy.dims, uu, vv, ww, "xy"))
+    plain_xy_ms = device_ms(lambda: K.sample_volume_packed_plain(vxy.table, vxy.dims, uu, vv, ww,
+                                                                 "xy"))
+    got_xy = K.sample_volume_packed(vxy.table, vxy.dims, uu, vv, ww, "xy")
+    if not torch.equal(got_xy, got):
+        raise AssertionError("K3 xy != K3 full at the bench table")
+    lib_err_xy = float((library().reshape(-1) - got_xy).abs().max())
+    # 3 coordinates in, one value out, the xy table once; the same arithmetic
+    bxy = bound(n * 16 + vxy.table.numel(), n * 41, ms_xy)
+    log(f"# K3 sample_volume_packed[xy]: 256 codes exact (u8 and f32), equal to plain and to the "
+        f"full table's lookup bit for bit; device {ms_xy:.4f} ms kernel ({ms:.4f} full table) vs "
+        f"{plain_xy_ms:.4f} ms plain vs {library_ms:.4f} ms F.grid_sample per {n} lookups; "
+        f"bound {bxy['bound_ms']:.4f} ms by {bxy['bound_by']} ({vxy.table.numel()} B table), "
+        f"share {bxy['bound_share']:.3f}")
+    k3_xy = kernel_line(dict(name="sample_volume_packed[xy]", route="cuda", source=SOURCE,
+                             replaces="vpt_tpu/ops/interp.py:226", max_abs_err=0.0, ms=ms_xy,
+                             plain_ms=plain_xy_ms, full_table_ms=ms,
+                             library_call="torch.nn.functional.grid_sample",
+                             library_max_abs_err=lib_err_xy), bxy, library_ms)
+    return k3, k3_xy
 
 
 def phase_k2(renderer, camera, dev):
@@ -922,12 +1099,60 @@ def f32_ctx(renderer, camera, dev):
     return dataclasses.replace(ctx, density=interp.PackedVolume(table, ctx.density.dims))
 
 
-def phase_k4(renderer, camera, dev):
-    """K4 vs K1 (state) and vs its plain version (tape), u8 and f32 tables."""
+def k4_check(ctx, s0, seeds, wrt, label):
+    """K4 from ``s0`` over ``seeds``: its state equals K1's bit for bit,
+    two runs are identical, its tape equals the plain tape on at least
+    TAPE_SHARE_MIN of lane-steps in every field. Returns (per-field shares,
+    the largest float difference, K4's state and tape)."""
     from vpt_tpu_torch.kernels import mcm_spectral as K
     from vpt_tpu_torch.kernels import spectral_backward as TB
 
-    fields = TB.tape_fields(TB.ALL_WRT)
+    fields = TB.ctx_tape_fields(ctx, wrt)
+    s1 = clone_state(s0)
+    K.step(s1, ctx, seeds, STEPS, BINS)
+    sk, tk = TB.tape_forward(s0, ctx, seeds, STEPS, BINS, wrt)
+    _, tk2 = TB.tape_forward(s0, ctx, seeds, STEPS, BINS, wrt)
+    sp = clone_state(s0)
+    tp = TB.tape_forward_plain(sp, ctx, seeds, STEPS, BINS, wrt)
+    torch.cuda.synchronize()
+    diff = first_difference(sk, s1)
+    if diff is not None:
+        raise AssertionError(f"K4 ({label}) final state != K1's: {diff}")
+    if not torch.equal(tk.view(torch.int32), tk2.view(torch.int32)):
+        raise AssertionError(f"K4 ({label}) is not bit-identical across two runs")
+    shares, max_abs = {}, 0.0
+    for i, f in enumerate(fields):
+        shares[f] = float((tk[:, :, i].view(torch.int32) == tp[:, :, i].view(torch.int32))
+                          .float().mean())
+        if f not in TB.INT_FIELDS and f not in TB.BOOL_FIELDS:
+            max_abs = max(max_abs, float((tk[:, :, i] - tp[:, :, i]).abs().max()))
+    worst = min(shares, key=shares.get)
+    log(f"# K4 prb_tape_forward ({label}), {len(seeds)} dispatches x {STEPS} steps, "
+        f"{len(fields)} fields: state == K1 bitwise, reruns identical; tape == plain on "
+        f"{shares[worst]:.6f} of lane-steps in the worst field ({worst})")
+    if shares[worst] < TAPE_SHARE_MIN:
+        raise AssertionError(f"K4 ({label}) tape field {worst} equals plain on {shares[worst]}")
+    return shares, max_abs, (sk, tk)
+
+
+def k4_timed(out, ctx, s0, seeds, wrt, tape_numel):
+    """K4's and its plain version's time over ``seeds``, and its bound."""
+    from vpt_tpu_torch.kernels import spectral_backward as TB
+
+    out["ms"] = cuda_ms(lambda: TB.tape_forward(s0, ctx, seeds, STEPS, BINS, wrt), 10)
+    out["plain_ms"] = cuda_ms(lambda: TB.tape_forward_plain(clone_state(s0), ctx, seeds, STEPS,
+                                                            BINS, wrt), 1)
+    kernel_line(out, step_bound(ctx, s0, seeds, BINS, out["ms"], taped=tape_numel * 4))
+    log(f"# {out['name']} {len(seeds)} dispatches: {out['ms']:.4f} ms kernel, plain "
+        f"{out['plain_ms']:.4f} ms; bound {out['bound_ms']:.4f} ms by {out['bound_by']} "
+        f"({out['bound_bytes']} B, {out['bound_ops']} FP32 ops), share {out['bound_share']:.3f}")
+    return out
+
+
+def phase_k4(renderer, camera, dev):
+    """K4 vs K1 (state) and vs its plain version (tape), u8 and f32 tables."""
+    from vpt_tpu_torch.kernels import spectral_backward as TB
+
     seeds = [2654435761 * k % 2**32 for k in (3, 4)]
     out = dict(name="prb_tape_forward", route="cuda", source=BWD_SOURCE,
                replaces="vpt_tpu/kernels/spectral_backward.py:660", max_abs_err=0.0,
@@ -935,64 +1160,34 @@ def phase_k4(renderer, camera, dev):
     keep = None
     for kind, ctx in (("u8", renderer.ctx(camera, 7)), ("f32", f32_ctx(renderer, camera, dev))):
         s0 = renderer.reset(camera, 7)
-        s1 = clone_state(s0)
-        K.step(s1, ctx, seeds, STEPS, BINS)
-        sk, tk = TB.tape_forward(s0, ctx, seeds, STEPS, BINS, TB.ALL_WRT)
-        _, tk2 = TB.tape_forward(s0, ctx, seeds, STEPS, BINS, TB.ALL_WRT)
-        sp = clone_state(s0)
-        tp = TB.tape_forward_plain(sp, ctx, seeds, STEPS, BINS, TB.ALL_WRT)
-        torch.cuda.synchronize()
-        for name, a, b in zip(s0.field_names(), sk.tensors(), s1.tensors()):
-            if not torch.equal(a, b):
-                raise AssertionError(f"K4 ({kind}) final state != K1's in {name}")
-        if not torch.equal(tk.view(torch.int32), tk2.view(torch.int32)):
-            raise AssertionError(f"K4 ({kind}) is not bit-identical across two runs")
-        shares = {}
-        for i, f in enumerate(fields):
-            shares[f] = float((tk[:, :, i].view(torch.int32) == tp[:, :, i].view(torch.int32))
-                              .float().mean())
-            if f not in TB.INT_FIELDS and f not in TB.BOOL_FIELDS:
-                out["max_abs_err"] = max(out["max_abs_err"],
-                                         float((tk[:, :, i] - tp[:, :, i]).abs().max()))
-        worst = min(shares, key=shares.get)
-        out["min_field_share_equal"] = min(out["min_field_share_equal"], shares[worst])
+        shares, max_abs, (sk, tk) = k4_check(ctx, s0, seeds, TB.ALL_WRT, f"{kind} table")
+        out["max_abs_err"] = max(out["max_abs_err"], max_abs)
+        out["min_field_share_equal"] = min(out["min_field_share_equal"], min(shares.values()))
         out[f"share_equal_{kind}"] = shares
-        log(f"# K4 prb_tape_forward ({kind} table), 2 dispatches x {STEPS} steps, {len(fields)} "
-            f"fields: state == K1 bitwise, reruns identical; tape == plain on {shares[worst]:.6f} "
-            f"of lane-steps in the worst field ({worst})")
-        if shares[worst] < TAPE_SHARE_MIN:
-            raise AssertionError(f"K4 ({kind}) tape field {worst} equals plain on {shares[worst]}")
         if kind == "u8":
             keep = (ctx, s0, sk, tk)
     ctx, s0, _, tk = keep
-    out["ms"] = cuda_ms(lambda: TB.tape_forward(s0, ctx, seeds, STEPS, BINS, TB.ALL_WRT), 10)
-    out["plain_ms"] = cuda_ms(lambda: TB.tape_forward_plain(clone_state(s0), ctx, seeds, STEPS,
-                                                            BINS, TB.ALL_WRT), 1)
-    kernel_line(out, step_bound(ctx, s0, seeds, BINS, out["ms"], taped=tk.numel() * 4))
-    log(f"# K4 2 dispatches, all fields: {out['ms']:.4f} ms kernel, plain "
-        f"{out['plain_ms']:.4f} ms; bound "
-        f"{out['bound_ms']:.4f} ms by {out['bound_by']} ({out['bound_bytes']} B, "
-        f"{out['bound_ops']} FP32 ops), share {out['bound_share']:.3f}")
-    return out, keep
+    return k4_timed(out, ctx, s0, seeds, TB.ALL_WRT, tk.numel()), keep
 
 
-def phase_k5(keep, dev):
+def phase_k5(keep, dev, wrt=None, name="prb_reverse"):
     """K5 vs its plain version on K4's tape: stride 1, stride 4, importance 4."""
     from vpt_tpu_torch.kernels import spectral_backward as TB
 
+    wrt = TB.ALL_WRT if wrt is None else wrt
     ctx, s0, sk, tape = keep
-    fields = TB.tape_fields(TB.ALL_WRT)
+    fields = TB.ctx_tape_fields(ctx, wrt)
     seeds = [2654435761 * k % 2**32 for k in (3, 4)]
     lane, res, streams, n = TB._lanes(s0)
     rng = np.random.default_rng(0)
     g_img = torch.as_tensor(rng.uniform(-1, 1, (RES, RES, 3)).astype(np.float32), device=dev)
     g_rs = TB._deposit_cotangents(g_img, ctx, lane, BINS, TB._m_final(sk))
-    out = dict(name="prb_reverse", route="cuda", source=BWD_SOURCE,
+    out = dict(name=name, route="cuda", source=BWD_SOURCE,
                replaces="vpt_tpu/kernels/spectral_backward.py:781", max_abs_err=0.0,
                max_rel_l2=0.0, modes={})
 
     def run(stride, mode, plain):
-        adj = TB._packed_adj_init(ctx, TB.ALL_WRT)
+        adj = TB._packed_adj_init(ctx, wrt)
         cot = dict(c=torch.zeros(n, device=dev), cb=torch.zeros(n, device=dev))
         phases = [TB._dispatch_phase(k, s, len(seeds), stride) for k, s in enumerate(seeds)]
         kw = dict(scatter_stride=stride, inv_mu=TB._inv_mu(ctx), resolution=res, streams=streams)
@@ -1013,9 +1208,9 @@ def phase_k5(keep, dev):
             rerun = float((a[k] - b[k]).norm()) / max(scale, 1e-30)
             mabs = float((a[k] - p[k]).abs().max())
             if not bool(torch.isfinite(a[k]).all()) or scale == 0.0:
-                raise AssertionError(f"K5 {mode}{stride} {k}: not finite or all zero")
+                raise AssertionError(f"{name} {mode}{stride} {k}: not finite or all zero")
             if rel > 1e-4 or rerun > 1e-5:
-                raise AssertionError(f"K5 {mode}{stride} {k}: rel L2 {rel:.3g} vs plain, "
+                raise AssertionError(f"{name} {mode}{stride} {k}: rel L2 {rel:.3g} vs plain, "
                                      f"{rerun:.3g} between runs")
             rec[k] = dict(rel_l2=rel, max_abs=mabs, rerun_rel_l2=rerun)
             out["max_abs_err"] = max(out["max_abs_err"], mabs)
@@ -1034,7 +1229,7 @@ def phase_k5(keep, dev):
         rec.update(bound(n_steps * n * read_fields * 4 + g_rs.numel() * 4 + 4 * n * 4 + adj_bytes,
                          n_steps * n * 8, rec["ms"]))
         out["modes"][f"{mode}{stride}"] = rec
-        log(f"# K5 prb_reverse {mode} {stride}, 2 dispatches: " + ", ".join(
+        log(f"# {name} {mode} {stride}, 2 dispatches: " + ", ".join(
             f"{k} rel {rec[k]['rel_l2']:.3g} abs {rec[k]['max_abs']:.3g} rerun "
             f"{rec[k]['rerun_rel_l2']:.3g}" for k in p)
             + f"; {rec['ms']:.4f} ms kernel vs {rec['plain_ms']:.4f} ms plain; bound "
@@ -1043,6 +1238,41 @@ def phase_k5(keep, dev):
     out["ms"], out["plain_ms"] = s1["ms"], s1["plain_ms"]
     return kernel_line(out, {k: s1[k] for k in ("bound_ms", "bound_by", "bound_bytes",
                                                 "bound_ops", "bound_share")})
+
+
+def phase_bwd_modes(camera, dev):
+    """Phases 7-8 in the backward's environment, quasicubic and xy
+    branches, on the bench scene at full width (the env-lit one with
+    ENV_SHAPE's seeded map; the quasicubic filter; the xy half-packed
+    table), 2 dispatches: K4 against K1 and its plain version, K5 against
+    its plain version at stride 1, stride 4 and importance 4; all five
+    keys in env mode."""
+    from vpt_tpu_torch.kernels import spectral_backward as TB
+    from vpt_tpu_torch.models.mcm_spectral import MCMSpectralRenderer
+
+    env = seeded_envmap()
+    seeds = [2654435761 * k % 2**32 for k in (3, 4)]
+    k4s, k5s = {}, {}
+    for mode, replaces in (("environment", "vpt_tpu/kernels/spectral_backward.py:690"),
+                           ("quasicubic", "vpt_tpu/kernels/spectral_backward.py:735"),
+                           ("xy", "vpt_tpu/kernels/spectral_backward.py:723")):
+        r = MCMSpectralRenderer(*mode_args(mode == "quasicubic"), resolution=RES,
+                                streams=STREAMS, environment=env if mode == "environment" else None,
+                                pack_tables=XY_TABLES if mode == "xy" else True, device=dev)
+        ctx, s0 = r.ctx(camera, 7), r.reset(camera, 7)
+        wrt = TB.ALL_WRT | {"environment"} if mode == "environment" else TB.ALL_WRT
+        shares, max_abs, (sk, tk) = k4_check(ctx, s0, seeds, wrt, f"{mode} mode")
+        out = dict(name=f"prb_tape_forward[{mode}]", route="cuda", source=BWD_SOURCE,
+                   replaces=replaces, max_abs_err=max_abs,
+                   min_field_share_equal=min(shares.values()), share_equal=shares)
+        k4s[mode] = k4_timed(out, ctx, s0, seeds, wrt, tk.numel())
+        k5s[mode] = phase_k5((ctx, s0, sk, tk), dev, wrt, f"prb_reverse[{mode}]")
+        k5s[mode]["replaces"] = {"environment": "vpt_tpu/kernels/spectral_backward.py:821",
+                                 "quasicubic": "vpt_tpu/kernels/spectral_backward.py:844",
+                                 "xy": "vpt_tpu/kernels/spectral_backward.py:849"}[mode]
+        del r, tk, sk
+        torch.cuda.empty_cache()
+    return k4s, k5s
 
 
 def plain_window(state, ctx, seeds, g_img, wrt, stride, mode):
@@ -1214,7 +1444,48 @@ def phase_fit(camera, dev):
             f"{rec['plain']['mpaths_per_s']:.3f} Mpaths/s, "
             f"{rec['plain']['m_lane_steps_per_s']:.1f} M lane-steps/s; grads kernel vs plain "
             f"rel {rel:.3g}")
-    return launches, fits, windows
+
+    # the quasicubic PRB window (K = 4, stride 1, wrt={density}) beside the
+    # linear one, in turns; its launches counted from 0
+    seeds = [(7 + k) * 2654435761 % 2**32 for k in range(CHUNK)]
+    state = renderer.reset(camera, 1)
+
+    def filt_window(filt):
+        return TB.prb_render_and_grads_many(state, ctx, seeds, g_img, STEPS, BINS, filt, wrt=wrt)
+
+    filt_window("quasicubic")
+    TB.reset_launch_counts()
+    _, _, gq = filt_window("quasicubic")
+    torch.cuda.synchronize()
+    qc_launches = dict(TB.LAUNCHES)
+    require_launches(qc_launches, ("prb_tape_forward_quasicubic", "prb_reverse"),
+                     "the quasicubic window")
+    if not bool(torch.isfinite(gq["density"]).all()) or float(gq["density"].abs().sum()) == 0.0:
+        raise AssertionError("the quasicubic window's density gradient is not finite or zero")
+    times = dict(linear=[], quasicubic=[])
+    for filt in ("linear", "quasicubic", "quasicubic", "linear"):
+        times[filt].append(cuda_ms(lambda: filt_window(filt), 3))
+    windows["quasicubic_stride1"] = dict(window_ms=float(np.mean(times["quasicubic"])),
+                                         linear_window_ms=float(np.mean(times["linear"])),
+                                         times=times, launches=qc_launches)
+    log(f"# fwd+bwd window, stride 1, K = {CHUNK}: quasicubic "
+        f"{windows['quasicubic_stride1']['window_ms']:.3f} ms vs linear "
+        f"{windows['quasicubic_stride1']['linear_window_ms']:.3f} ms (in turns); launches "
+        f"{qc_launches}")
+
+    # the env-lit bench scene: fit_spectral(method="prb") learning the map
+    env = seeded_envmap()
+    session = RenderSession("mcm-spectral", *args, resolution=RES, streams=STREAMS,
+                            environment=env, device=dev)
+    session.run(64)
+    target_env = session.hdr_image()
+    del session
+    env_r = MCMSpectralRenderer(*args, resolution=RES, streams=STREAMS, environment=env,
+                                device=dev)
+    fits["environment"] = prb_fit("env-lit bench scene", target_env, env_r, camera,
+                                  {"environment": np.full(ENV_SHAPE, 0.5, np.float32)}, dev,
+                                  "environment")
+    return launches, fits, windows, qc_launches
 
 
 def phase_corners(dev):
@@ -1226,12 +1497,17 @@ def phase_corners(dev):
 
     vol = torch.as_tensor(np.asarray(bench_scene_args()[0].density, np.float32), device=dev)
     dims = tuple(d + 1 for d in vol.shape)
+    dims_xy = (vol.shape[0], dims[1], dims[2])
     gen = torch.Generator(device=dev).manual_seed(0)
     g_vol = torch.randn((int(np.prod(dims)), 8), device=dev, generator=gen)
+    g_xy = torch.randn((int(np.prod(dims_xy)), 4), device=dev, generator=gen)
     th, tw = 256, 256
     g_tf = torch.randn((th + 1, tw + 1, 18), device=dev, generator=gen)
     mtf = torch.rand((th, tw, 4), device=dev, generator=gen)
     light = torch.rand(tw, device=dev, generator=gen)
+    env = torch.as_tensor(seeded_envmap(), device=dev)
+    eh, ew, _ = env.shape
+    g_env = torch.randn((eh + 1, ew + 1, 12), device=dev, generator=gen)
 
     def bits(t):
         return t.contiguous().view(torch.int32)
@@ -1245,6 +1521,13 @@ def phase_corners(dev):
         "pack_volume": (lambda: C.pack_volume(vol), lambda: C.pack_volume_plain(vol)),
         "pack_tf": (lambda: torch.cat([t.reshape(-1) for t in C.pack_tf(mtf, light, True)]),
                     lambda: torch.cat([t.reshape(-1) for t in C.pack_tf_plain(mtf, light, True)])),
+        "contract_volume_xy": (lambda: C.contract_volume(g_xy, dims_xy, "xy"),
+                               lambda: C.contract_volume_xy_plain(g_xy, dims_xy)),
+        "contract_env": (lambda: C.contract_env(g_env),
+                         lambda: C.contract_tex2d_plain(g_env, channels=3)),
+        "pack_volume_xy": (lambda: C.pack_volume(vol, "xy"),
+                           lambda: C.pack_volume_plain(vol, "xy")),
+        "pack_env": (lambda: C.pack_env(env), lambda: C.pack_env_plain(env)),
     }
     rec = {}
     for name, (kern, plain) in pairs.items():
@@ -1259,6 +1542,10 @@ def phase_corners(dev):
         "contract_tf": lambda: C.contract_tf(g_tf),
         "pack_volume": lambda: C.pack_volume(vol),
         "pack_tf": lambda: C.pack_tf(mtf, light, True),
+        "contract_volume_xy": lambda: C.contract_volume(g_xy, dims_xy, "xy"),
+        "contract_env": lambda: C.contract_env(g_env),
+        "pack_volume_xy": lambda: C.pack_volume(vol, "xy"),
+        "pack_env": lambda: C.pack_env(env),
     }
     for name, fn in timed.items():
         rec[name].update(ms=device_ms(fn), host_ms=cuda_ms(fn, 20),
@@ -1272,6 +1559,10 @@ def phase_corners(dev):
         "pack_volume": bound((n_packed + n_vol) * 4, 0),
         "contract_tf": bound((g_tf.numel() + n_tf_raw) * 4, g_tf.numel()),
         "pack_tf": bound((n_tf_raw + g_tf.numel() + (tw + 1) * 2) * 4, 0),
+        "contract_volume_xy": bound((g_xy.numel() + n_vol) * 4, g_xy.numel()),
+        "pack_volume_xy": bound((g_xy.numel() + n_vol) * 4, 0),
+        "contract_env": bound((g_env.numel() + env.numel()) * 4, g_env.numel()),
+        "pack_env": bound((g_env.numel() + env.numel()) * 4, 0),
     }
     for name, r in rec.items():
         r.update(bounds[name])
@@ -1291,7 +1582,20 @@ def phase_corners(dev):
                            ms=rec["pack_volume"]["ms"], plain_ms=rec["pack_volume"]["plain_ms"],
                            host_ms=rec["pack_volume"]["host_ms"], tf=rec["pack_tf"]),
                       {k: rec["pack_volume"][k] for k in keys})
-    return k9, k10
+    modes = {}
+    for name, mode, kernel, replaces in (
+            ("contract_volume_xy", "xy", "contract_corners",
+             "vpt_tpu/kernels/spectral_backward.py:379"),
+            ("contract_env", "environment", "contract_corners",
+             "vpt_tpu/kernels/spectral_backward.py:390"),
+            ("pack_volume_xy", "xy", "pack_corners", "vpt_tpu/optim.py:200"),
+            ("pack_env", "environment", "pack_corners", "vpt_tpu/optim.py:233")):
+        r = rec[name]
+        modes[f"{kernel}[{mode}]"] = kernel_line(
+            dict(name=f"{kernel}[{mode}]", route="cuda", source=CORNERS_SOURCE, replaces=replaces,
+                 max_abs_err=0.0, ms=r["ms"], plain_ms=r["plain_ms"], host_ms=r["host_ms"]),
+            {k: r[k] for k in keys})
+    return k9, k10, modes
 
 
 def phase_scatter(dev):
@@ -1346,7 +1650,7 @@ def sur_adjoints(ctx, n, n_bins, seed):
 
     carry = dict(c=g(n), gp=[g(n) for _ in range(3)], gd=[g(n) for _ in range(3)],
                  grad=g(n_bins, n) / float(RES))
-    return carry, TB._packed_adj_init(ctx, TB.ALL_WRT)
+    return carry, TB._packed_adj_init(ctx, TB.ALL_WRT | {"environment"})
 
 
 def copy_carry(carry):
@@ -1380,8 +1684,9 @@ def sur_bound(tape, samples, adj, ctx, n_bins, ms):
 
 def phase_surrogate(renderer, camera, dev):
     """Phase 16: K4's surrogate mode and K12 at 512^2 x 4, 2 dispatches, in
-    exact and majorant mode; then the kernel path of render_sequence_diff
-    against the autograd twin on the card."""
+    exact and majorant mode, with the environment map (alone and with the
+    majorant) and with the quasicubic filter; then the kernel path of
+    render_sequence_diff against the autograd twin on the card."""
     from vpt_tpu_torch.kernels import mcm_spectral as K
     from vpt_tpu_torch.kernels import surrogate as S
     from vpt_tpu_torch.models.mcm_spectral import MCMSpectralRenderer
@@ -1396,7 +1701,17 @@ def phase_surrogate(renderer, camera, dev):
     # the bench scene with the super-voxel majorant (blocks of 16)
     maj_renderer = MCMSpectralRenderer(*bench_scene_args(), resolution=RES, streams=STREAMS,
                                        majorant_blocks=16, device=dev)
-    for mode, r in (("exact", renderer), ("majorant", maj_renderer)):
+    env = seeded_envmap()
+    env_renderer = MCMSpectralRenderer(*bench_scene_args(), resolution=RES, streams=STREAMS,
+                                       environment=env, device=dev)
+    # env and majorant at once: the instantiation the env-lit majorant fit runs
+    env_maj_renderer = MCMSpectralRenderer(*bench_scene_args(), resolution=RES, streams=STREAMS,
+                                           environment=env, majorant_blocks=16, device=dev)
+    qc_renderer = MCMSpectralRenderer(*mode_args(True), resolution=RES, streams=STREAMS,
+                                      device=dev)
+    for mode, r in (("exact", renderer), ("majorant", maj_renderer),
+                    ("environment", env_renderer), ("environment+majorant", env_maj_renderer),
+                    ("quasicubic", qc_renderer)):
         ctx = r.ctx(camera, 7)
         s0 = r.reset(camera, 7)
         s1 = clone_state(s0)
@@ -1449,7 +1764,8 @@ def phase_surrogate(renderer, camera, dev):
         # the adjoints of all four tables and with the density's alone
         n = s0.px.numel()
         carry0, adj_all = sur_adjoints(ctx, n, BINS, 11)
-        for wrt, adj0 in (("all", adj_all), ("density", {"g_vol": adj_all["g_vol"]})):
+        wrts = (("all", adj_all), ("density", {"g_vol": adj_all["g_vol"]}))
+        for wrt, adj0 in wrts[:2 if mode in ("exact", "majorant") else 1]:
             rec = k12_check(mode, wrt, tk, flds, sk.samples, carry0, adj0, ctx, k12)
             k12["modes"][f"{mode}/{wrt}"] = rec
         del tk, tk2, tp
@@ -1466,10 +1782,35 @@ def phase_surrogate(renderer, camera, dev):
     kernel_line(k12, {k: ex[k] for k in ("bound_ms", "bound_by", "bound_bytes", "bound_ops",
                                          "bound_share")})
     k12["library_call"] = "— (no single call)"
+    keys = ("bound_ms", "bound_by", "bound_bytes", "bound_ops", "bound_share")
+    modes = {}
+    for mode, replaces in (("environment", "vpt_tpu/models/mcm_spectral.py:148"),
+                           ("environment+majorant",
+                            "vpt_tpu/models/mcm_spectral.py:148 and :228"),
+                           ("quasicubic", "vpt_tpu/ops/interp.py:389")):
+        r4, r12 = k4["modes"][mode], k12["modes"][f"{mode}/all"]
+        modes[f"surrogate_tape_forward[{mode}]"] = kernel_line(
+            dict(name=f"surrogate_tape_forward[{mode}]", route="cuda", source=BWD_SOURCE,
+                 replaces=replaces, max_abs_err=0.0,
+                 min_field_share_equal=min(r4["share_equal"].values()), ms=r4["ms"],
+                 plain_ms=r4["plain_ms"], k1_ms=r4["k1_ms"]), {k: r4[k] for k in keys})
+        modes[f"surrogate_reverse[{mode}]"] = kernel_line(
+            dict(name=f"surrogate_reverse[{mode}]", route="cuda", source=SUR_SOURCE,
+                 replaces=replaces, max_abs_err=max(r12[k]["max_abs"] for k in r12
+                                                    if isinstance(r12[k], dict)),
+                 max_rel_l2=max(r12[k]["rel_l2"] for k in r12 if isinstance(r12[k], dict)),
+                 ms=r12["ms"], plain_ms=r12["plain_ms"]), {k: r12[k] for k in keys})
     twin = twin_check(dev, camera)
-    del maj_renderer
+    # launches of the env-only and quasicubic instantiations: the twin's
+    # window (render_sequence_diff); the env+majorant one's: phase 17's fit
+    for mode in ("environment", "quasicubic"):
+        modes[f"surrogate_tape_forward[{mode}]"]["launches"] = twin["launches"][mode][
+            "surrogate_tape_forward"]
+        modes[f"surrogate_reverse[{mode}]"]["launches"] = twin["launches"][mode][
+            "surrogate_reverse"]
+    del maj_renderer, env_renderer, env_maj_renderer, qc_renderer
     torch.cuda.empty_cache()
-    return k4, k12, twin
+    return k4, k12, twin, modes
 
 
 def k12_check(mode, wrt, tk, flds, samples, carry0, adj0, ctx, k12):
@@ -1526,7 +1867,8 @@ def twin_check(dev, camera):
     """The kernel path of render_sequence_diff against the autograd twin,
     both on the card: 128^2 x 2 streams, K = 2 dispatches, gradients of an
     MSE loss w.r.t. all four tables, relative L2 <= 1e-4 each, the loss
-    equal, exact and majorant mode, under both schedules of the window
+    equal, in exact, majorant, environment, environment+majorant and
+    quasicubic mode, under both schedules of the window
     ("tape": K4's surrogate mode, K12, K10, K9; "forward": K1, then K4's
     surrogate mode and K12 per dispatch, K10, K9)."""
     from vpt_tpu_torch.kernels import corners as C
@@ -1535,24 +1877,32 @@ def twin_check(dev, camera):
     from vpt_tpu_torch.ops import interp
 
     res, streams, seeds = 128, 2, [8, 5100]
-    args = list(bench_scene_args())
-    out = {}
-    for mode, blocks in (("exact", None), ("majorant", 16)):
+    out, launches = {}, {}
+    env = seeded_envmap()
+    for mode, blocks in (("exact", None), ("majorant", 16), ("environment", None),
+                         ("environment+majorant", 16), ("quasicubic", None)):
+        args = mode_args(mode == "quasicubic")
+        lit = mode.startswith("environment")
         r = TM.MCMSpectralRenderer(*args, resolution=res, streams=streams, majorant_blocks=blocks,
-                                   device=dev)
+                                   environment=env if lit else None, device=dev)
         base, s0 = r.ctx(camera, 7), r.reset(camera, 7)
         raw = dict(density=torch.as_tensor(np.asarray(args[0].density, np.float32), device=dev),
                    material_tf=torch.as_tensor(np.array(args[1].table, np.float32), device=dev),
                    light_spectrum=torch.as_tensor(np.asarray(args[2].spectrum_array(), np.float32),
                                                   device=dev),
                    extinction=torch.tensor(np.float32(args[4].extinction), device=dev))
+        if lit:
+            raw["environment"] = torch.as_tensor(env, device=dev)
         target = torch.full((res, res, 3), 0.25, device=dev)
 
         def ctx_of(p):
             vol = interp.PackedVolume(C.pack_volume_diff(p["density"]), base.density.dims)
-            return dataclasses.replace(base, density=vol, extinction=p["extinction"],
-                                       material_tf=C.pack_tf_diff(p["material_tf"],
-                                                                  p["light_spectrum"]))
+            ctx = dataclasses.replace(base, density=vol, extinction=p["extinction"],
+                                      material_tf=C.pack_tf_diff(p["material_tf"],
+                                                                 p["light_spectrum"]))
+            if "environment" in p:
+                ctx = dataclasses.replace(ctx, environment=C.pack_env_diff(p["environment"]))
+            return ctx
 
         def grads(loss_fn):
             p = {k: v.clone().requires_grad_(True) for k, v in raw.items()}
@@ -1560,7 +1910,7 @@ def twin_check(dev, camera):
             return float(loss.detach()), dict(zip(p, torch.autograd.grad(loss, list(p.values()))))
 
         def kernels(p, storage):
-            img = TM.render_sequence_diff(seeds, s0, ctx_of(p), STEPS, BINS,
+            img = TM.render_sequence_diff(seeds, s0, ctx_of(p), STEPS, BINS, base.volume_filter,
                                           window_storage=storage)
             return torch.mean((img - target) ** 2)
 
@@ -1576,11 +1926,19 @@ def twin_check(dev, camera):
 
         lt, gt = grads(twin)
         for storage in ("tape", "forward"):
+            reset_counts()
             lk, gk = grads(lambda p: kernels(p, storage))
+            if storage == "tape":
+                launches[mode] = launch_counts()
             rec = dict(loss=lk, loss_twin=lt)
             for k in gk:
                 rel = float((gk[k] - gt[k]).norm() / gt[k].norm().clamp_min(1e-30))
                 rec[k] = rel
+                if lit and k == "light_spectrum":
+                    # never sampled under an env map: zero on both paths
+                    if float(gk[k].abs().sum()) != 0.0 or float(gt[k].abs().sum()) != 0.0:
+                        raise AssertionError("env mode: a nonzero light_spectrum gradient")
+                    continue
                 if (not bool(torch.isfinite(gk[k]).all()) or float(gt[k].norm()) == 0.0
                         or rel > 1e-4):
                     raise AssertionError(f"render_sequence_diff ({mode}, {storage}) {k}: kernel "
@@ -1594,6 +1952,17 @@ def twin_check(dev, camera):
                 f"{streams}, K = 2) kernel path vs the autograd twin on the card: loss equal "
                 f"({lk:.6g}); " + ", ".join(f"{k} rel L2 {rec[k]:.3g}" for k in gk))
         del r
+    require_launches(launches["environment"], ("surrogate_tape_forward_environment",
+                                               "surrogate_reverse_environment",
+                                               "contract_corners_env", "pack_corners_env"),
+                     "the env-mode window")
+    require_launches(launches["environment+majorant"],
+                     ("surrogate_tape_forward_environment_majorant",
+                      "surrogate_reverse_environment_majorant", "contract_corners_env",
+                      "pack_corners_env"), "the env-lit majorant window")
+    require_launches(launches["quasicubic"], ("surrogate_reverse_quasicubic",), "the "
+                     "quasicubic window")
+    out["launches"] = launches
     return out
 
 
@@ -1746,6 +2115,23 @@ def phase_autodiff_fit(camera, dev, prb_windows):
     out["window"] = surrogate_window(renderer, camera, dev, init)
     out["window"]["prb_stride1_window_ms"] = prb_windows["stride1"]["window_ms"]
 
+    # the env-lit bench scene with the majorant grid, method=None: routed to
+    # the surrogate (the majorant mode's one gradient path)
+    env = seeded_envmap()
+    session = RenderSession("mcm-spectral", *args, resolution=RES, streams=STREAMS,
+                            environment=env, majorant_blocks=16, device=dev)
+    session.run(64)
+    target_env = session.hdr_image()
+    del session
+    env_maj = MCMSpectralRenderer(*args, resolution=RES, streams=STREAMS, environment=env,
+                                  majorant_blocks=16, device=dev)
+    _, out["env_majorant"] = autodiff_fit("env-lit bench scene, majorant, method=None",
+                                          target_env, env_maj, camera, init, dev)
+    require_launches(out["env_majorant"]["launches"],
+                     ("surrogate_tape_forward_environment_majorant",
+                      "surrogate_reverse_environment_majorant"), "the env-lit majorant fit")
+    del env_maj
+
     # checkpoint: 2 iterations saved, then resumed to 3, against the 3 above
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "inverse.npz")
@@ -1884,27 +2270,33 @@ def main():
     if missing:
         raise AssertionError(f"no ptxas report of {sorted(missing)}")
 
-    k3 = phase_k3(dev)
+    t_start = time.perf_counter()
+    k3, k3_xy = phase_k3(dev)
     renderer = MCMSpectralRenderer(*bench_scene_args(), resolution=RES, streams=STREAMS,
                                    device=dev)
     camera = Camera()
     k2 = phase_k2(renderer, camera, dev)
     k1 = phase_k1(renderer, camera, dev)
+    k1_xy = phase_xy(camera, dev)
     launches, kern, plain = phase_main(dev)
     k4, keep = phase_k4(renderer, camera, dev)
     k5 = phase_k5(keep, dev)
     del keep
-    k9, k10 = phase_corners(dev)
-    bwd_launches, fits, windows = phase_fit(camera, dev)
+    k4_modes, k5_modes = phase_bwd_modes(camera, dev)
+    k9, k10, corner_modes = phase_corners(dev)
+    bwd_launches, fits, windows, qc_launches = phase_fit(camera, dev)
     k6, k7 = phase_gather(dev)
     del renderer
     torch.cuda.empty_cache()
-    k1_maj, sparse = phase_majorant(dev)
+    k1_maj, sparse, sparse_renderer, sparse_cam = phase_majorant(dev)
+    sparse["xy"] = phase_sparse_xy(sparse_renderer, sparse_cam, dev)
+    del sparse_renderer
+    torch.cuda.empty_cache()
     k1_modes, mode_rates = phase_env_quasicubic(dev)
     compact_kernels, compact = phase_compaction(dev)
     cli = phase_cli()
     k11 = phase_scatter(dev)
-    k4_sur, k12, twin = phase_surrogate(MCMSpectralRenderer(
+    k4_sur, k12, twin, sur_modes = phase_surrogate(MCMSpectralRenderer(
         *bench_scene_args(), resolution=RES, streams=STREAMS, device=dev), camera, dev)
     autodiff = phase_autodiff_fit(camera, dev, windows)
     foreign = sorted(k for k in sys.modules
@@ -1915,21 +2307,47 @@ def main():
     k1["launches"], k2["launches"] = launches["step"], launches["reset"]
     k4_sur["launches"] = autodiff["bench"]["launches"]["surrogate_tape_forward"]
     k12["launches"] = autodiff["bench"]["launches"]["surrogate_reverse"]
-    missing = [k["name"] for k in (k1, k2, k3, k4, k5, k6, k7, k9, k10, k11, k1_maj,
-                                   *k1_modes.values(), *compact_kernels, k4_sur, k12)
-               if not {"bound_ms", "bound_by", "library_ms"} <= set(k)]
-    if missing:
-        raise AssertionError(f"kernels without a bound: {missing}")
     k3["launches"] = launches["sample_volume_packed"]
+    k3_xy["launches"] = launches["sample_volume_packed_xy"]
     k4["launches"], k5["launches"] = bwd_launches["prb_tape_forward"], bwd_launches["prb_reverse"]
     k9["launches"], k10["launches"] = (bwd_launches["contract_corners"],
                                        bwd_launches["pack_corners"])
     if k9["launches"] < 1 or k10["launches"] < 1:
         raise AssertionError(f"the training path did not launch K9/K10: {bwd_launches}")
+    # the new modes' launches: the env PRB fit, the sparse xy PRB fit, the
+    # quasicubic window (phase 9), the env-lit majorant fit (phase 17)
+    env_fit, xy_fit = fits["environment"]["launches"], sparse["xy"]["fit"]["launches"]
+    k4_modes["environment"]["launches"] = env_fit["prb_tape_forward_environment"]
+    k5_modes["environment"]["launches"] = env_fit["prb_reverse_environment"]
+    k4_modes["xy"]["launches"] = xy_fit["prb_tape_forward_xy"]
+    k5_modes["xy"]["launches"] = xy_fit["prb_reverse_xy"]
+    k4_modes["quasicubic"]["launches"] = qc_launches["prb_tape_forward_quasicubic"]
+    k5_modes["quasicubic"]["launches"] = qc_launches["prb_reverse"]
+    for name, src in (("contract_corners[environment]", env_fit["contract_corners_env"]),
+                      ("pack_corners[environment]", env_fit["pack_corners_env"]),
+                      ("contract_corners[xy]", xy_fit["contract_corners_xy"]),
+                      ("pack_corners[xy]", xy_fit["pack_corners_xy"])):
+        corner_modes[name]["launches"] = src
+    env_maj = autodiff["env_majorant"]["launches"]
+    sur_modes["surrogate_tape_forward[environment+majorant]"]["launches"] = env_maj[
+        "surrogate_tape_forward_environment_majorant"]
+    sur_modes["surrogate_reverse[environment+majorant]"]["launches"] = env_maj[
+        "surrogate_reverse_environment_majorant"]
+    kernels = [k1, k2, k4, k5, k6, k7, k9, k10, k11, k1_maj, k1_modes["environment"],
+               k1_modes["quasicubic"], *compact_kernels, k4_sur, k12, k1_xy, *k4_modes.values(),
+               *k5_modes.values(), *corner_modes.values(), *sur_modes.values()]
+    missing = [k["name"] for k in kernels + [k3, k3_xy]
+               if not {"bound_ms", "bound_by", "library_ms", "launches", "ms", "plain_ms",
+                       "max_abs_err"} <= set(k)]
+    if missing:
+        raise AssertionError(f"kernels without a bound, a time or launches: {missing}")
+    unlaunched = [k["name"] for k in kernels if k["launches"] < 1]
+    if unlaunched:
+        raise AssertionError(f"kernels of the path launched no time: {unlaunched}")
     k5["split_stride1_window"] = windows["stride1"]["k5_split"]
-    result = {"kernels": [k1, k2, k4, k5, k6, k7, k9, k10, k11, k1_maj, k1_modes["environment"],
-                          k1_modes["quasicubic"], *compact_kernels, k4_sur, k12],
-              "standalone": [k3],
+    log(f"# chip_smoke: {time.perf_counter() - t_start:.1f} s after the build")
+    result = {"kernels": kernels,
+              "standalone": [k3, k3_xy],
               "main_path": {"kernel": kern, "plain_step": plain},
               "training_path": {"fit_spectral": fits, "fwd_bwd_windows": windows},
               "majorant_path": sparse, "mode_sessions": mode_rates, "compaction": compact,

@@ -229,8 +229,11 @@ def test_ctx_from_numpy_carries_env_and_majorant():
 
 @pytest.mark.parametrize("mode", ["majorant", "environment", "quasicubic"])
 def test_backward_raises_for_the_new_modes(mode):
-    """The packed backward refuses every forward mode it has no branch for,
-    before it tapes anything: majorant with the reference's own error."""
+    """The packed backward refuses the majorant mode, with the reference's
+    own error, before it tapes anything; the environment and quasicubic
+    modes, ported since, run through every entry point: the PRB backward
+    (environment gradients included), the taped forward, and fit_spectral
+    by both methods."""
     args = list(_args())
     kw = {}
     if mode == "majorant":
@@ -243,19 +246,52 @@ def test_backward_raises_for_the_new_modes(mode):
     cam = TCamera()
     ctx, state = r.ctx(cam, 1), r.reset(cam, 1)
     g = torch.ones(8, 8, 3)
-    with pytest.raises(NotImplementedError, match=mode):
-        TB.prb_render_and_grads(state, ctx, g, 6, 12)
-    with pytest.raises(NotImplementedError):
-        TB.tape_forward(state, ctx, [1], 6, 12)
-    with pytest.raises(NotImplementedError):  # the plain taped forward, called directly
-        TB.tape_forward_plain(state, ctx, [1], 6, 12)
     fit_args = (np.zeros((8, 8, 3), np.float32), r, cam, {"density": np.asarray(args[0].density)})
     if mode == "majorant":
+        with pytest.raises(NotImplementedError, match=mode):
+            TB.prb_render_and_grads(state, ctx, g, 6, 12)
+        with pytest.raises(NotImplementedError):
+            TB.tape_forward(state, ctx, [1], 6, 12)
+        with pytest.raises(NotImplementedError):  # the plain taped forward, called directly
+            TB.tape_forward_plain(state, ctx, [1], 6, 12)
         # fit_spectral routes the majorant mode to the autodiff surrogate and
         # refuses a forced PRB with the reference's ValueError
         with pytest.raises(ValueError, match=mode):
             fit_spectral(*fit_args, iterations=1, scatter_stride=1, method="prb")
-    else:
-        for method in ("prb", "autodiff"):
-            with pytest.raises(NotImplementedError):
-                fit_spectral(*fit_args, iterations=1, scatter_stride=1, method=method)
+        return
+    wrt = TB.ALL_WRT | {"environment"}
+    _, img, grads = TB.prb_render_and_grads(state, ctx, g, 6, 12, ctx.volume_filter, wrt=wrt)
+    assert set(grads) == (wrt if mode == "environment" else TB.ALL_WRT)
+    assert bool(torch.isfinite(img).all())
+    for k, v in grads.items():
+        assert bool(torch.isfinite(v).all()), k
+    if mode == "environment":
+        assert grads["environment"].shape == (8, 16, 3)
+        assert float(grads["environment"].abs().sum()) > 0
+        assert float(grads["light_spectrum"].abs().sum()) == 0.0  # never sampled
+    # the taped forward leaves the forward step's state and tapes the mode's
+    # fields (the tape against JAX's, field by field: test_torch_prb_modes.py)
+    out, tapes = TB.tape_forward(state, ctx, [1], 6, 12, wrt)
+    fwd = TB.clone_state(state)
+    K.step(fwd, ctx, [1], 6, 12)
+    for a, b in zip(out.tensors(), fwd.tensors()):
+        assert torch.equal(a, b)
+    assert tapes.shape[2] == len(TB.ctx_tape_fields(ctx, wrt))
+    assert ("env_row" in TB.ctx_tape_fields(ctx, wrt)) == (mode == "environment")
+    for method in ("prb", "autodiff"):
+        params, losses = fit_spectral(*fit_args, iterations=1, scatter_stride=1, method=method,
+                                      dispatches_per_step=1)
+        assert np.isfinite(losses).all() and params["density"].shape == (16, 16, 16)
+    # what stays unported in these modes raises: raw and partly packed
+    # tables, the nearest filter, the surrogate over an xy volume
+    for pack in (False, {"density_xy", "material_tf"}):
+        with pytest.raises(NotImplementedError, match="pack_tables"):
+            TM.MCMSpectralRenderer(*convert.scene_from(*args), resolution=8, pack_tables=pack,
+                                   device="cpu", **kw)
+    with pytest.raises(NotImplementedError, match="nearest"):
+        TB.prb_render_and_grads(state, ctx, g, 6, 12, "nearest")
+    xy = TM.MCMSpectralRenderer(*convert.scene_from(*args), resolution=8, device="cpu",
+                                pack_tables={"density_xy", "material_tf", "light_spectrum"}, **kw)
+    with pytest.raises(NotImplementedError, match="xy"):
+        fit_spectral(np.zeros((8, 8, 3), np.float32), xy, cam,
+                     {"density": np.asarray(args[0].density)}, iterations=1, method="autodiff")

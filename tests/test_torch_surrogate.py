@@ -288,18 +288,36 @@ def test_learned_tf_agrees_with_jax_packed_loss():
 
 
 def test_options_outside_the_slice_raise():
+    """The quasicubic filter (the argument decides, as JAX's static
+    argument does) and the environment map run; the surrogate over an xy
+    half-packed volume, a raw volume and the nearest filter raise
+    NotImplementedError before any launch."""
     r = _port_renderer(Volume.sphere_in_cube(8), None)
     cam = convert.camera_from(Camera())
     ctx, s0 = r.ctx(cam, 7), r.reset(cam, 7)
     score = torch.ones_like(s0.px)
+    qc_ctx = dataclasses.replace(ctx, volume_filter="quasicubic")
+    qc_state = _clone(s0)
+    K.step_plain(qc_state, qc_ctx, [ctx.seed_bits], STEPS, BINS)
+    new, _, _ = TM.render_diff(s0, score, ctx, STEPS, BINS, volume_filter="quasicubic")
+    assert torch.equal(new.radiance, qc_state.radiance)
+    lin_state = _clone(s0)
+    K.step_plain(lin_state, ctx, [ctx.seed_bits], STEPS, BINS)
+    new, _, _ = TM.render_diff(s0, score, qc_ctx, STEPS, BINS)
+    assert torch.equal(new.radiance, lin_state.radiance)
+    env = torch.as_tensor(TI.pack_tex2d_corners(
+        np.random.default_rng(1).uniform(0.1, 1.0, (4, 8, 3)).astype(np.float32)))
+    env_ctx = dataclasses.replace(ctx, environment=env)
+    _, _, img = TM.render_diff(s0, score, env_ctx, STEPS, BINS)
+    assert bool(torch.isfinite(img).all())
+    xy = TI.pack_volume_auto(np.asarray(Volume.sphere_in_cube(8).density), "cpu", "xy")
+    with pytest.raises(NotImplementedError, match="xy"):
+        TM.render_diff(s0, score, dataclasses.replace(ctx, density=xy), STEPS, BINS)
     with pytest.raises(NotImplementedError):
-        TM.render_diff(s0, score, ctx, STEPS, BINS, volume_filter="quasicubic")
-    with pytest.raises(NotImplementedError):
-        TM.render_diff(s0, score, dataclasses.replace(ctx, volume_filter="quasicubic"), STEPS,
+        TM.render_diff(s0, score, dataclasses.replace(ctx, density=torch.zeros(8, 8, 8)), STEPS,
                        BINS)
-    env = torch.zeros((5, 9, 12))
-    with pytest.raises(NotImplementedError):
-        TM.render_diff(s0, score, dataclasses.replace(ctx, environment=env), STEPS, BINS)
+    with pytest.raises(NotImplementedError, match="nearest"):
+        TM.render_diff(s0, score, ctx, STEPS, BINS, volume_filter="nearest")
     with pytest.raises(ValueError):
         TM.render_diff(s0, score * 2.0, ctx, STEPS, BINS)
     S.reset_launch_counts()

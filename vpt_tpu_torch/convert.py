@@ -50,9 +50,10 @@ def ctx_from_numpy(*, inv_mvp, seed_bits, extinction, blur, max_bounces,
     """The port's ``SpectralCtx`` from the arrays of a JAX ``SpectralCtx``.
 
     The packed volume comes as a flat ``PackedVolume`` table (u8 or f32,
-    ``density_table`` (rows, 8) + ``density_dims``) or as the natural 4-D
-    (D+1, H+1, W+1, 8) array the JAX package keeps for small f32 volumes
-    (``density_dims`` None); both become a flat table. ``environment`` is
+    ``density_table`` (rows, 8) or (rows, 4) + ``density_dims``) or as the
+    natural 4-D (D+1, H+1, W+1, 8) or (D, H+1, W+1, 4) array the JAX
+    package keeps for small f32 volumes (``density_dims`` None); both
+    become a flat table, of kind "xy" when 4 wide. ``environment`` is
     the packed (He+1, We+1, 12) map and ``majorant`` the (Gz, Gy, Gx, 2)
     grid, as the JAX ctx holds them; ``volume_filter`` is the JAX render
     functions' static argument. ``material_tf`` is the fused (Hp, Wp, 18)
@@ -85,7 +86,8 @@ def ctx_from_numpy(*, inv_mvp, seed_bits, extinction, blur, max_bounces,
         blur=np.float32(blur),
         max_bounces=int(max_bounces),
         light_direction=np.asarray(light_direction, np.float32),
-        density=PackedVolume(dev(density_table), tuple(density_dims)),
+        density=PackedVolume(dev(density_table), tuple(density_dims),
+                             "xy" if density_table.shape[-1] == 4 else "full"),
         material_tf=dev(material_tf),
         light_spectrum=dev(np.asarray(light_spectrum, np.float32)),
         boundaries=np.asarray(boundaries, np.float32),

@@ -6,9 +6,10 @@
 // backward leaves a state bit-identical to the forward step kernel's: the
 // tape is an optional per-step record (REC = true) that only adds stores.
 // The forward's other modes are compile-time parameters too (MAJ: the
-// super-voxel majorant, ENV: the environment map), so the default
-// instantiation compiles to the code it had before they existed; the
-// quasicubic weight warp is a uniform runtime flag (I_QUASICUBIC).
+// super-voxel majorant, ENV: the environment map, XY: the xy half-packed
+// volume), so the default instantiation compiles to the code it had before
+// they existed; the quasicubic weight warp is a uniform runtime flag
+// (I_QUASICUBIC).
 //
 // Numerics (see mcm_spectral.cu): built without fast math and with
 // -fmad=false; every quotient equals the IEEE one and every sqrt is IEEE;
@@ -57,6 +58,7 @@ enum IParam {
   I_QUASICUBIC,                  // 1: smoothstep-warped trilinear weights
   I_MAJ_GZ, I_MAJ_GY, I_MAJ_GX,  // majorant grid cells (0 without one)
   I_ENV_H, I_ENV_W,              // packed env table dims He+1, We+1
+  I_VOL_XY,                      // 1: an xy half-packed (rows, 4) volume table (selects XY)
   I_COUNT,
 };
 
@@ -159,9 +161,11 @@ __device__ __forceinline__ float lerp(float a, float b, float f) {
   return a + (b - a) * f;
 }
 
-// where a trilinear lookup read: its corner row and fractions
+// where a trilinear lookup read: its corner row (full table), or the rows
+// of its z0 and z1 planes (xy table), and fractions (warped under the
+// quasicubic filter)
 struct VolAddr {
-  int row;
+  int row, row1;
   float fx, fy, fz;
 };
 
@@ -170,43 +174,82 @@ __device__ __forceinline__ float quasicubic(float f) {
   return f * f * (3.0f - 2.0f * f);
 }
 
-// trilinear (or, with qc, quasicubic) sample of a flat (rows, 8) corner
-// table, padded dims (Dp,Hp,Wp)
-__device__ __forceinline__ float sample_volume(const void* table, int is_u8,
-                                               int Dp, int Hp, int Wp, float u,
-                                               float v, float w, VolAddr* addr,
-                                               bool qc = false) {
+// The addressing of a packed volume lookup (interp.volume_rows): the base
+// row(s) and the unwarped fractions. Full table (xy false): padded dims
+// (Dp, Hp, Wp), one 8-wide row, row1 == row. xy table: dims (D, Hp, Wp),
+// the 4-wide rows of planes z0 = clamp(i, 0, D-1) and z1 = clamp(i+1, 0,
+// D-1), from the padded index b = clamp(i + 1, 0, D) as max(b - 1, 0) and
+// min(b, D - 1).
+__device__ __forceinline__ void volume_rows(bool xy, int D0, int Hp, int Wp, float u,
+                                            float v, float w, int64_t& row, int64_t& row1,
+                                            float& fx, float& fy, float& fz) {
   int bx, by, bz;
-  float fx, fy, fz;
   base_frac(u, Wp - 1, bx, fx);
   base_frac(v, Hp - 1, by, fy);
-  base_frac(w, Dp - 1, bz, fz);
+  base_frac(w, xy ? D0 : D0 - 1, bz, fz);
+  if (xy) {
+    const int64_t plane = (int64_t)by * Wp + bx, hw = (int64_t)Hp * Wp;
+    row = (int64_t)max(bz - 1, 0) * hw + plane;
+    row1 = (int64_t)min(bz, D0 - 1) * hw + plane;
+  } else {
+    row = ((int64_t)bz * Hp + by) * Wp + bx;
+    row1 = row;
+  }
+}
+
+// The 8 corners of a lookup, dequantized: one 8-wide row of a full table
+// (one 8-byte u8 load or two float4), or the two 4-wide plane rows of an xy
+// table (two 4-byte u8 loads or two float4); the same values in the same
+// order either way, so an xy lookup equals the full one bit for bit.
+__device__ __forceinline__ void volume_corners(const void* table, int is_u8, bool xy,
+                                               int64_t row, int64_t row1, float c[8]) {
+  const int64_t e0 = xy ? row * 4 : row * 8, e1 = xy ? row1 * 4 : row * 8 + 4;
+  if (is_u8) {
+    const uint8_t* t = static_cast<const uint8_t*>(table);
+    uint32_t w0, w1;
+    if (xy) {
+      w0 = __ldg(reinterpret_cast<const uint32_t*>(t + e0));
+      w1 = __ldg(reinterpret_cast<const uint32_t*>(t + e1));
+    } else {
+      const uint2 raw = __ldg(reinterpret_cast<const uint2*>(t + e0));
+      w0 = raw.x;
+      w1 = raw.y;
+    }
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      c[k] = u8_unit(w0, k);
+      c[4 + k] = u8_unit(w1, k);
+    }
+  } else {
+    const float* t = static_cast<const float*>(table);
+    const float4 a = __ldg(reinterpret_cast<const float4*>(t + e0));
+    const float4 b = __ldg(reinterpret_cast<const float4*>(t + e1));
+    c[0] = a.x; c[1] = a.y; c[2] = a.z; c[3] = a.w;
+    c[4] = b.x; c[5] = b.y; c[6] = b.z; c[7] = b.w;
+  }
+}
+
+// trilinear (or, with qc, quasicubic) sample of a flat packed volume table:
+// (rows, 8) at padded dims (Dp, Hp, Wp), or with xy (rows, 4) at (D, Hp, Wp)
+__device__ __forceinline__ float sample_volume(const void* table, int is_u8,
+                                               int D0, int Hp, int Wp, float u,
+                                               float v, float w, VolAddr* addr,
+                                               bool qc = false, bool xy = false) {
+  int64_t row, row1;
+  float fx, fy, fz;
+  volume_rows(xy, D0, Hp, Wp, u, v, w, row, row1, fx, fy, fz);
   if (qc) {
     fx = quasicubic(fx);
     fy = quasicubic(fy);
     fz = quasicubic(fz);
   }
-  const int64_t row = ((int64_t)bz * Hp + by) * Wp + bx;
   if (addr != nullptr) {
     addr->row = (int)row;
+    addr->row1 = (int)row1;
     addr->fx = fx; addr->fy = fy; addr->fz = fz;
   }
   float c[8];
-  if (is_u8) {
-    const uint2 raw = __ldg(reinterpret_cast<const uint2*>(
-        static_cast<const uint8_t*>(table) + row * 8));
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      c[k] = u8_unit(raw.x, k);
-      c[4 + k] = u8_unit(raw.y, k);
-    }
-  } else {
-    const float4* r = reinterpret_cast<const float4*>(
-        static_cast<const float*>(table) + row * 8);
-    const float4 a = __ldg(r), b = __ldg(r + 1);
-    c[0] = a.x; c[1] = a.y; c[2] = a.z; c[3] = a.w;
-    c[4] = b.x; c[5] = b.y; c[6] = b.z; c[7] = b.w;
-  }
+  volume_corners(table, is_u8, xy, row, row1, c);
   const float c00 = lerp(c[0], c[1], fx);
   const float c01 = lerp(c[2], c[3], fx);
   const float c10 = lerp(c[4], c[5], fx);
@@ -277,22 +320,48 @@ __device__ __forceinline__ float sample_light(const float* tf, int bx, float fx)
   return lerp(l.x, l.y, fx);
 }
 
+// where an escape's environment lookup read: its 12-wide row, fractions
+// and the wavelength's channel (band)
+struct EnvAddr {
+  int row, band;
+  float fx, fy;
+};
+
+// the equirect coordinates of a direction: the reference's mapping (y
+// quirk kept)
+__device__ __forceinline__ void env_coords(float dx, float dy, float dz, float& u, float& v) {
+  u = atan2f(dx, -dz) * kInvPi * 0.5f + 0.5f;
+  v = asinf(-dy) * 2.0f * kInvPi * 0.5f + 0.5f;
+}
+
+// the channel of a wavelength: < 500 nm blue, < 600 green, else red
+__device__ __forceinline__ int env_band(float lam) {
+  return (lam < 500.0f) ? 2 : ((lam < 600.0f) ? 1 : 0);
+}
+
 // escape radiance from a packed (He+1, We+1, 12) equirect map: the
-// reference's mapping (y quirk kept), the wavelength's channel (< 500 nm
-// blue, < 600 green, else red), gain 2.7. |dy| may exceed 1 by an ulp:
-// asinf then gives NaN, which base_frac maps to row 0 like the plain
-// version, and the NaN frac carries into the value as it does there.
+// wavelength's channel, gain 2.7. |dy| may exceed 1 by an ulp: asinf then
+// gives NaN, which base_frac maps to row 0 like the plain version, and the
+// NaN frac carries into the value as it does there. With `addr`, records
+// where the lookup read.
 __device__ __forceinline__ float sample_environment(const float* env, int Hp,
                                                     int Wp, float dx, float dy,
-                                                    float dz, float lam) {
-  const float u = atan2f(dx, -dz) * kInvPi * 0.5f + 0.5f;
-  const float v = asinf(-dy) * 2.0f * kInvPi * 0.5f + 0.5f;
+                                                    float dz, float lam,
+                                                    EnvAddr* addr = nullptr) {
+  float u, v;
+  env_coords(dx, dy, dz, u, v);
   int bx, by;
   float fx, fy;
   base_frac(u, Wp - 1, bx, fx);
   base_frac(v, Hp - 1, by, fy);
   const float* r = env + ((int64_t)by * Wp + bx) * 12;
-  const int c = (lam < 500.0f) ? 2 : ((lam < 600.0f) ? 1 : 0);
+  const int c = env_band(lam);
+  if (addr != nullptr) {
+    addr->row = by * Wp + bx;
+    addr->band = c;
+    addr->fx = fx;
+    addr->fy = fy;
+  }
   const float c0 = lerp(__ldg(r + c), __ldg(r + 3 + c), fx);
   const float c1 = lerp(__ldg(r + 6 + c), __ldg(r + 9 + c), fx);
   return lerp(c0, c1, fy) * kEnvGain;
@@ -460,6 +529,10 @@ struct StepRecord {
   bool respawn, null_event, scatter;
   TfAddr tf;
   VolAddr vol;
+  // ENV: the escape's env lookup and its weight 2.7; zero where the lane
+  // did not escape
+  EnvAddr env;
+  float env_w;
 };
 
 // What the autodiff surrogate's tape needs from one step (SUR): the events,
@@ -519,6 +592,9 @@ __device__ __forceinline__ void deposit(float (&rad)[NB], int bin, float emitted
 // the volume skips both lookups (their values go unused) but still draws
 // its wheel, so every later draw of the lane stays in step.
 // ENV: escape radiance from the packed environment map `env`.
+// XY: the volume is an xy half-packed (rows, 4) table (two plane rows per
+// lookup); a template parameter, so the full-table instantiations carry
+// no branch and no second row for it.
 //
 // Without REC (the forward) a lane that leaves the volume reads no
 // material: its wheel cannot take an event, and its escape light is the
@@ -531,7 +607,8 @@ __device__ __forceinline__ void deposit(float (&rad)[NB], int bin, float emitted
 // looks up the material under the forward's own condition and records no
 // lookup, so a surrogate step costs K1's step and the record's stores. The
 // surrogate tape has a majorant mode, the PRB tape has none.
-template <int NB, bool REC, bool MAJ = false, bool ENV = false, bool SUR = false>
+template <int NB, bool REC, bool MAJ = false, bool ENV = false, bool SUR = false,
+          bool XY = false>
 __device__ __forceinline__ void woodcock_step(Lane& L, float (&rad)[NB],
                                               uint32_t& s, float sx, float sy,
                                               const Params& P, const StepConsts& C,
@@ -541,8 +618,7 @@ __device__ __forceinline__ void woodcock_step(Lane& L, float (&rad)[NB],
                                               const float2* __restrict__ maj = nullptr,
                                               const float* __restrict__ env = nullptr,
                                               SurRecord* sur = nullptr) {
-  static_assert(!(REC && (ENV || MAJ || SUR)) && !(SUR && ENV),
-                "the PRB tape has no env or majorant mode, the surrogate tape no env mode");
+  static_assert(!(REC && (MAJ || SUR)), "the PRB tape has no majorant mode");
   const float* f = P.f;
   // free flight
   float dist, m = 0.0f;
@@ -571,7 +647,7 @@ __device__ __forceinline__ void woodcock_step(Lane& L, float (&rad)[NB],
   if (REC ? true : (!oob && !(MAJ && capped))) {
     const float dens = sample_volume(vol, P.i[I_VOL_U8], P.i[I_VOL_D], P.i[I_VOL_H],
                                      P.i[I_VOL_W], npx, npy, npz,
-                                     REC ? &rec->vol : nullptr, P.i[I_QUASICUBIC] != 0);
+                                     REC ? &rec->vol : nullptr, P.i[I_QUASICUBIC] != 0, XY);
     sample_tf(tf, P.i[I_TF_H], P.i[I_TF_W], L.tbx, L.tfx, dens, mat,
               REC ? &light_raw : nullptr, REC ? &rec->tf : nullptr);
   }
@@ -597,10 +673,14 @@ __device__ __forceinline__ void woodcock_step(Lane& L, float (&rad)[NB],
   // unless isotropic
   float emitted = 0.0f;
   float ddot = 0.0f;
+  if constexpr (REC && ENV) {
+    rec->env = EnvAddr{0, 0, 0.0f, 0.0f};
+    rec->env_w = oob ? kEnvGain : 0.0f;
+  }
   if (oob) {
     if constexpr (ENV) {
       emitted = sample_environment(env, P.i[I_ENV_H], P.i[I_ENV_W], L.dx, L.dy,
-                                   L.dz, L.lam);
+                                   L.dz, L.lam, REC ? &rec->env : nullptr);
     } else {
       if (!REC) light_raw = sample_light(tf, L.tbx, L.tfx);
       const float intensity = light_raw * 5.0f;
@@ -618,8 +698,10 @@ __device__ __forceinline__ void woodcock_step(Lane& L, float (&rad)[NB],
     rec->respawn = oob || absorb;
     rec->null_event = event && !absorb && !scatter;
     rec->scatter = scatter;
-    // pathwise d(emitted)/d(light texel) weight at escape
-    rec->light_w = oob ? (isotropic ? 1.0f : (emitted > 0.0f ? ddot : 0.0f)) * 5.0f : 0.0f;
+    // pathwise d(emitted)/d(light texel) weight at escape; in env mode the
+    // light is never sampled, so its weight is 0
+    rec->light_w = (oob && !ENV) ? (isotropic ? 1.0f : (emitted > 0.0f ? ddot : 0.0f)) * 5.0f
+                                 : 0.0f;
     rec->hg_cos = 0.0f;
   }
   if constexpr (SUR) {

@@ -6,13 +6,21 @@
 //                     The K1 step (mcm_common.cuh::woodcock_step, the same
 //                     device code as mcm_spectral_step) plus one tape row per
 //                     lane-step; its final state is bit-identical to K1's.
+//                     All of the packed backward's branches: the
+//                     environment map (ENV: the escape's env row, fractions
+//                     and band), the quasicubic filter (warped volume
+//                     fractions) and the xy half-packed volume (the two
+//                     plane rows).
 //   prb_reverse       replaces the reverse scans (:864-950), the importance
 //                     path _importance_metric + _importance_scatter
 //                     (:411-540), and the reverse dispatch loop of
-//                     _tape_reverse_sweep / _prb_many_core (:1076-1139).
+//                     _tape_reverse_sweep / _prb_many_core (:1076-1139);
+//                     with the env row scatter (:821-836) and the xy
+//                     volume's two 4-wide rows (:849-855).
 //   surrogate_tape    K4's surrogate mode: K1's step (no REC record, so it
 //                     looks up the material only where K1 does) with
 //                     woodcock_step's SUR record, in exact or majorant mode,
+//                     with the light or the environment map (ENV),
 //                     writing the autodiff surrogate's tape (SurField,
 //                     adjoint_common.cuh) that K12 (surrogate.cu) walks back;
 //                     its own template, so the PRB instantiations keep their
@@ -41,8 +49,15 @@
 //   rows it picks a second time) and issues random f32 atomics: one 8-wide
 //   row into the volume adjoint (69 MB at 129^3, larger than the 50 MB L2)
 //   and one 18-wide row into the TF adjoint (4.8 MB, L2-resident) per
-//   scattering lane-step. Rows whose values are all zero (lanes whose
-//   path contributes nothing) are skipped, which changes no sum. The
+//   scattering lane-step; an xy volume takes two 4-wide rows (two float4
+//   atomics, as the full row's two halves), and an escaping lane-step of
+//   the env mode adds its 4 nonzero texel terms (one channel of each
+//   corner of a 12-wide row), summed first over the lanes of a warp that
+//   share the row and channel (adjoint_common.cuh add_env_texels: miss
+//   lanes of neighbouring pixels escape towards the same texels, and their
+//   atomics on one address serialize). Rows whose values are all zero
+//   (lanes whose path contributes nothing) are skipped, which changes no
+//   sum. The
 //   extinction score is summed per lane, reduced per block in f64, and
 //   added with one f64 atomic per block into `ext_acc`, which the wrapper
 //   adds to the f32 adjoint. Its bound is the tape's bytes: 2.28 GB in a
@@ -92,6 +107,8 @@ enum TapeField {
   T_DIST,                                        // extinction
   T_TF_ROW, T_FY, T_LIGHT_W,                     // material_tf / light
   T_SLOPE0, T_SLOPE1, T_SLOPE2, T_VOL_ROW0, T_VFX, T_VFY, T_VFZ,  // density
+  T_VOL_ROW1,                                    // density, xy volume
+  T_ENV_ROW, T_ENV_FX, T_ENV_FY, T_ENV_BAND, T_ENV_W,  // environment
   T_COUNT,
 };
 
@@ -99,7 +116,7 @@ enum TapeField {
 enum RParam {
   R_N_LANES = 0, R_RES, R_STEPS, R_N_DISPATCH, R_N_FIELDS, R_STRIDE,
   R_IMPORTANCE, R_WANT_EXT, R_WANT_TF, R_WANT_VOL, R_N_BINS,
-  R_PICK_BITS_SET, R_PICK_BITS, R_COUNT,
+  R_PICK_BITS_SET, R_PICK_BITS, R_WANT_ENV, R_VOL_XY, R_COUNT,
 };
 
 // importance mode keeps per-step c, cb, metric and cdf in registers, sized
@@ -138,8 +155,9 @@ __device__ __forceinline__ void put(float* row, const TapeSpec& T, int field, fl
   if (o >= 0) __stcs(row + o, v);
 }
 
-// K seeds x `steps` Woodcock iterations per lane (K1), one tape row per step
-template <int NB>
+// K seeds x `steps` Woodcock iterations per lane (K1), one tape row per
+// step; ENV: escapes read the environment map; XY: an xy half-packed volume
+template <int NB, bool ENV, bool XY>
 __global__ void __launch_bounds__(STEP_THREADS, 8)
 tape_forward_kernel(const Params P, const TapeSpec T, float* __restrict__ px_,
                     float* __restrict__ py_, float* __restrict__ pz_,
@@ -148,7 +166,8 @@ tape_forward_kernel(const Params P, const TapeSpec T, float* __restrict__ px_,
                     int* __restrict__ samples_, int* __restrict__ bin_,
                     float* __restrict__ lam_, float* __restrict__ radiance,
                     const void* __restrict__ vol, const float* __restrict__ tf,
-                    const uint32_t* __restrict__ seeds, float* __restrict__ tape) {
+                    const float* __restrict__ env, const uint32_t* __restrict__ seeds,
+                    float* __restrict__ tape) {
   const int n_lanes = P.i[I_N_LANES];
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
   if (lane >= n_lanes) return;
@@ -170,7 +189,8 @@ tape_forward_kernel(const Params P, const TapeSpec T, float* __restrict__ px_,
     uint32_t s = hash3(ix, seed_iy, seeds[k]);
     for (int it = 0; it < steps; ++it, row += step_rows) {
       StepRecord r;
-      woodcock_step<NB, true>(L, rad, s, sx, sy, P, C, vol, tf, &r);
+      woodcock_step<NB, true, false, ENV, false, XY>(L, rad, s, sx, sy, P, C, vol, tf, &r,
+                                                     nullptr, env);
       put(row, T, T_EMITTED, r.emitted);
       put(row, T, T_RESPAWN, r.respawn ? 1.0f : 0.0f);
       put(row, T, T_PRE_BIN, __int_as_float(r.pre_bin));
@@ -192,6 +212,14 @@ tape_forward_kernel(const Params P, const TapeSpec T, float* __restrict__ px_,
       put(row, T, T_VFX, r.vol.fx);
       put(row, T, T_VFY, r.vol.fy);
       put(row, T, T_VFZ, r.vol.fz);
+      if constexpr (XY) put(row, T, T_VOL_ROW1, __int_as_float(r.vol.row1));
+      if constexpr (ENV) {
+        put(row, T, T_ENV_ROW, __int_as_float(r.env.row));
+        put(row, T, T_ENV_FX, r.env.fx);
+        put(row, T, T_ENV_FY, r.env.fy);
+        put(row, T, T_ENV_BAND, __int_as_float(r.env.band));
+        put(row, T, T_ENV_W, r.env_w);
+      }
     }
   }
 
@@ -216,7 +244,7 @@ __device__ __forceinline__ void sput(float* row, const SurSpec& T, int field, fl
 // does (not on a lane that left the volume or was capped, as the PRB
 // tape's every-lane record must): its time is K1's plus the tape's
 // evict-first stores, and the state it leaves equals K1's bit for bit.
-template <int NB, bool MAJ>
+template <int NB, bool MAJ, bool ENV>
 __global__ void __launch_bounds__(STEP_THREADS, 8)
 surrogate_tape_kernel(const Params P, const SurSpec T, float* __restrict__ px_,
                       float* __restrict__ py_, float* __restrict__ pz_,
@@ -225,8 +253,8 @@ surrogate_tape_kernel(const Params P, const SurSpec T, float* __restrict__ px_,
                       int* __restrict__ samples_, int* __restrict__ bin_,
                       float* __restrict__ lam_, float* __restrict__ radiance,
                       const void* __restrict__ vol, const float* __restrict__ tf,
-                      const float2* __restrict__ maj, const uint32_t* __restrict__ seeds,
-                      float* __restrict__ tape) {
+                      const float2* __restrict__ maj, const float* __restrict__ env,
+                      const uint32_t* __restrict__ seeds, float* __restrict__ tape) {
   const int n_lanes = P.i[I_N_LANES];
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
   if (lane >= n_lanes) return;
@@ -248,8 +276,8 @@ surrogate_tape_kernel(const Params P, const SurSpec T, float* __restrict__ px_,
     uint32_t s = hash3(ix, seed_iy, seeds[k]);
     for (int it = 0; it < steps; ++it, row += step_rows) {
       SurRecord r;
-      woodcock_step<NB, false, MAJ, false, true>(L, rad, s, sx, sy, P, C, vol, tf, nullptr, maj,
-                                                 nullptr, &r);
+      woodcock_step<NB, false, MAJ, ENV, true>(L, rad, s, sx, sy, P, C, vol, tf, nullptr, maj,
+                                               env, &r);
       const int flags = (r.respawn ? SF_RESPAWN : 0) | (r.oob ? SF_OOB : 0) |
                         (r.null_event ? SF_NULL : 0) | (r.scatter ? SF_SCATTER : 0) |
                         (r.capped ? SF_CAPPED : 0) | (r.pre_bin << 8);
@@ -291,14 +319,16 @@ struct EventIn {
   bool nul, scat;
 };
 
-// the fields that weight (slopes, light_w) and address (the rest) the
-// scatters
+// the fields that weight (slopes, light_w, env_w) and address (the rest)
+// the scatters
 struct ScatterIn {
-  float slope[3], light_w;
+  float slope[3], light_w, env_w;
   float fx, fy;
   int tf_row;
   float vfx, vfy, vfz;
-  int vol_row;
+  int vol_row, vol_row1;
+  float efx, efy;
+  int env_row, env_band;
 };
 
 __device__ __forceinline__ CarryIn load_carry(const float* row, const Rev& R, bool want_ext) {
@@ -336,6 +366,16 @@ __device__ __forceinline__ ScatterIn load_scatter(const float* row, const Rev& R
       s.vfy = tape_at(row, R.off[T_VFY]);
       s.vfz = tape_at(row, R.off[T_VFZ]);
       s.vol_row = __float_as_int(tape_at(row, R.off[T_VOL_ROW0]));
+      if (R.i[R_VOL_XY]) s.vol_row1 = __float_as_int(tape_at(row, R.off[T_VOL_ROW1]));
+    }
+  }
+  if (R.i[R_WANT_ENV]) {
+    s.env_w = tape_at(row, R.off[T_ENV_W]);
+    if (address) {
+      s.efx = tape_at(row, R.off[T_ENV_FX]);
+      s.efy = tape_at(row, R.off[T_ENV_FY]);
+      s.env_row = __float_as_int(tape_at(row, R.off[T_ENV_ROW]));
+      s.env_band = __float_as_int(tape_at(row, R.off[T_ENV_BAND]));
     }
   }
   if (want_tf) {
@@ -379,11 +419,13 @@ __device__ __forceinline__ EventGrads event_grads(const EventIn& e, float q) {
 }
 
 // the analytic per-step table scatters of one tape row (JAX scatter_step,
-// :781-862): one 18-wide TF+light row and one 8-wide volume row
+// :781-862): one 18-wide TF+light row, one 8-wide volume row (two 4-wide
+// plane rows of an xy volume), and an escape's env texels
 __device__ __forceinline__ void scatter_step(const EventIn& e, const ScatterIn& s, const Rev& R,
                                              float c, float cb, float weight,
                                              float* __restrict__ g_tf,
-                                             float* __restrict__ g_vol) {
+                                             float* __restrict__ g_vol,
+                                             float* __restrict__ g_env) {
   const float q = cb * c * weight;
   const EventGrads G = event_grads(e, q);
   if (R.i[R_WANT_TF]) {
@@ -408,11 +450,19 @@ __device__ __forceinline__ void scatter_step(const EventIn& e, const ScatterIn& 
       const float w0 = (1 - vfy) * (1 - vfx), w1 = (1 - vfy) * vfx;
       const float w2 = vfy * (1 - vfx), w3 = vfy * vfx;
       const float a0 = gd * (1 - vfz), a1 = gd * vfz;
-      // an 8-wide row is 32 B: two 16-byte-aligned float4 adds
-      float* r = g_vol + (int64_t)s.vol_row * 8;
-      add4(r, a0 * w0, a0 * w1, a0 * w2, a0 * w3);
-      add4(r + 4, a1 * w0, a1 * w1, a1 * w2, a1 * w3);
+      // an 8-wide row is 32 B: two 16-byte-aligned float4 adds; an xy
+      // volume's plane rows are 16 B each
+      float* r0 = R.i[R_VOL_XY] ? g_vol + (int64_t)s.vol_row * 4 : g_vol + (int64_t)s.vol_row * 8;
+      float* r1 = R.i[R_VOL_XY] ? g_vol + (int64_t)s.vol_row1 * 4 : r0 + 4;
+      add4(r0, a0 * w0, a0 * w1, a0 * w2, a0 * w3);
+      add4(r1, a1 * w0, a1 * w1, a1 * w2, a1 * w3);
     }
+  }
+  if (R.i[R_WANT_ENV]) {
+    // the 12-wide row holds 4 corners x 3 channels; only the band's
+    // channel of each corner takes a term
+    const float gE = cb * weight * s.env_w;
+    if (gE != 0.0f) add_env_texels(g_env, s.env_row, s.env_band, gE, s.efx, s.efy);
   }
 }
 
@@ -428,6 +478,7 @@ __device__ __forceinline__ float importance_metric(const EventIn& e, const Scatt
   if (R.i[R_WANT_TF]) {
     m = m + (fabsf(G.albedo) + fabsf(G.alpha) + fabsf(G.graw) + fabsf(cb * s.light_w));
   }
+  if (R.i[R_WANT_ENV]) m = m + fabsf(cb * s.env_w);
   return m;
 }
 
@@ -445,7 +496,8 @@ reverse_kernel(const Rev R, const float* __restrict__ tape,
                const float* __restrict__ g_rad_scaled, float* __restrict__ c_io,
                float* __restrict__ cb_io, const int* __restrict__ phases,
                const uint32_t* __restrict__ seeds, double* __restrict__ ext_acc,
-               float* __restrict__ g_tf, float* __restrict__ g_vol) {
+               float* __restrict__ g_tf, float* __restrict__ g_vol,
+               float* __restrict__ g_env) {
   // no early return: every thread reaches block_add's __syncthreads
   const int n_lanes = R.i[R_N_LANES];
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
@@ -457,7 +509,7 @@ reverse_kernel(const Rev R, const float* __restrict__ tape,
     const int n_bins = R.i[R_N_BINS];
     const int stride = R.i[R_STRIDE];
     const bool want_tf = R.i[R_WANT_TF] != 0, want_vol = R.i[R_WANT_VOL] != 0;
-    const bool want_scatter = want_tf || want_vol;
+    const bool want_scatter = want_tf || want_vol || R.i[R_WANT_ENV] != 0;
     const int64_t lanes = n_lanes;
     const int64_t step_rows = (int64_t)R.i[R_N_FIELDS] * lanes;
     float c = c_io[lane], cb = cb_io[lane];
@@ -479,7 +531,7 @@ reverse_kernel(const Rev R, const float* __restrict__ tape,
           }
           carry_update(t, g_rad_scaled, lanes, lane, n_bins, c, cb);
           if (want_ext) ext += c * cb * (R.inv_mu - t.dist);
-          if (now) scatter_step(e, s, R, c, cb, weight, g_tf, g_vol);
+          if (now) scatter_step(e, s, R, c, cb, weight, g_tf, g_vol, g_env);
         }
       } else {
         // per-lane i.i.d. step picks proportional to the scatter magnitude,
@@ -535,7 +587,7 @@ reverse_kernel(const Rev R, const float* __restrict__ tape,
           const float w = (a > 0.0f) ? S / ((float)count * nmax(a, 1e-30f)) : 0.0f;
           const float* row = disp + sel * step_rows;
           scatter_step(load_event(row, R), load_scatter(row, R, want_tf, want_vol, true), R,
-                       cs, cbs, w, g_tf, g_vol);
+                       cs, cbs, w, g_tf, g_vol, g_env);
         }
       }
     }
@@ -573,29 +625,40 @@ int vpt_bwd_layout(int which) {
   }
 }
 
+// env: the packed (He+1, We+1, 12) environment map, or null
 int vpt_prb_tape_forward(const float* fparams, const int* iparams,
                          const int* slots, int n_fields, float* px, float* py,
                          float* pz, float* dx, float* dy, float* dz,
                          int* bounces, int* samples, int* bin, float* wavelength,
                          float* radiance, const void* vol, const float* tf,
-                         const uint32_t* seeds, float* tape, void* stream) {
+                         const float* env, const uint32_t* seeds, float* tape,
+                         void* stream) {
   const Params P = make_params(fparams, iparams);
   const int n = P.i[I_N_LANES];
   TapeSpec T;
   T.n_fields = n_fields;
   for (int k = 0; k < T_COUNT; ++k) T.off[k] = slots[k] < 0 ? -1 : (long long)slots[k] * n;
   if (n <= 0) return 0;
+  if ((env != nullptr) != (P.i[I_ENV_H] > 0)) return (int)cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const dim3 grid(blocks_for(n, STEP_THREADS)), block(STEP_THREADS);
-  switch (bins_rounded(P.i[I_N_BINS])) {
-#define VPT_NB(NB)                                                                         \
-  case NB:                                                                                 \
-    tape_forward_kernel<NB><<<grid, block, 0, st>>>(P, T, px, py, pz, dx, dy, dz, bounces, \
-                                                    samples, bin, wavelength, radiance,    \
-                                                    vol, tf, seeds, tape);                 \
+  switch (bins_rounded(P.i[I_N_BINS]) * 4 + (env != nullptr ? 1 : 0) +
+          (P.i[I_VOL_XY] != 0 ? 2 : 0)) {
+#define VPT_NB_ENV(NB, M, EB, XB)                                                          \
+  case NB * 4 + M:                                                                         \
+    tape_forward_kernel<NB, EB, XB><<<grid, block, 0, st>>>(P, T, px, py, pz, dx, dy, dz,  \
+                                                            bounces, samples, bin,         \
+                                                            wavelength, radiance, vol, tf, \
+                                                            env, seeds, tape);             \
     break;
+#define VPT_NB(NB)                       \
+  VPT_NB_ENV(NB, 0, false, false)        \
+  VPT_NB_ENV(NB, 1, true, false)         \
+  VPT_NB_ENV(NB, 2, false, true)         \
+  VPT_NB_ENV(NB, 3, true, true)
     VPT_NB(4) VPT_NB(8) VPT_NB(12) VPT_NB(16) VPT_NB(20) VPT_NB(24) VPT_NB(28) VPT_NB(32)
 #undef VPT_NB
+#undef VPT_NB_ENV
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -603,30 +666,38 @@ int vpt_prb_tape_forward(const float* fparams, const int* iparams,
 }
 
 // K4's surrogate mode: the majorant table `maj` (Gz, Gy, Gx) x (majorant,
-// flight cap), or null for the exact mode
+// flight cap), or null for the exact mode; `env` the packed environment
+// map, or null
 int vpt_surrogate_tape_forward(const float* fparams, const int* iparams, const int* slots,
                                int n_fields, float* px, float* py, float* pz, float* dx,
                                float* dy, float* dz, int* bounces, int* samples, int* bin,
                                float* wavelength, float* radiance, const void* vol,
-                               const float* tf, const float2* maj, const uint32_t* seeds,
-                               float* tape, void* stream) {
+                               const float* tf, const float2* maj, const float* env,
+                               const uint32_t* seeds, float* tape, void* stream) {
   const Params P = make_params(fparams, iparams);
   const int n = P.i[I_N_LANES];
   const SurSpec T = make_sur_spec(slots, n_fields, n);
   if (n <= 0) return 0;
+  if ((env != nullptr) != (P.i[I_ENV_H] > 0) || (maj != nullptr) != (P.i[I_MAJ_GZ] > 0) ||
+      P.i[I_VOL_XY] != 0)
+    return (int)cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const dim3 grid(blocks_for(n, STEP_THREADS)), block(STEP_THREADS);
-  switch (bins_rounded(P.i[I_N_BINS]) * 2 + (maj != nullptr ? 1 : 0)) {
-#define VPT_NB_MAJ(NB, M, MB)                                                              \
-  case NB * 2 + M:                                                                         \
-    surrogate_tape_kernel<NB, MB><<<grid, block, 0, st>>>(P, T, px, py, pz, dx, dy, dz,    \
-                                                          bounces, samples, bin, wavelength, \
-                                                          radiance, vol, tf, maj, seeds, tape); \
+  switch (bins_rounded(P.i[I_N_BINS]) * 4 + (maj != nullptr ? 1 : 0) + (env != nullptr ? 2 : 0)) {
+#define VPT_NB_MODE(NB, M, MB, EB)                                                         \
+  case NB * 4 + M:                                                                         \
+    surrogate_tape_kernel<NB, MB, EB><<<grid, block, 0, st>>>(                             \
+        P, T, px, py, pz, dx, dy, dz, bounces, samples, bin, wavelength, radiance, vol, tf, \
+        maj, env, seeds, tape);                                                            \
     break;
-#define VPT_NB(NB) VPT_NB_MAJ(NB, 0, false) VPT_NB_MAJ(NB, 1, true)
+#define VPT_NB(NB)                 \
+  VPT_NB_MODE(NB, 0, false, false) \
+  VPT_NB_MODE(NB, 1, true, false)  \
+  VPT_NB_MODE(NB, 2, false, true)  \
+  VPT_NB_MODE(NB, 3, true, true)
     VPT_NB(4) VPT_NB(8) VPT_NB(12) VPT_NB(16) VPT_NB(20) VPT_NB(24) VPT_NB(28) VPT_NB(32)
 #undef VPT_NB
-#undef VPT_NB_MAJ
+#undef VPT_NB_MODE
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -636,7 +707,8 @@ int vpt_surrogate_tape_forward(const float* fparams, const int* iparams, const i
 int vpt_prb_reverse(const int* rparams, float inv_mu, const int* slots,
                     const float* tape, const float* g_rad_scaled, float* c,
                     float* cb, const int* phases, const uint32_t* seeds,
-                    double* ext_acc, float* g_tf, float* g_vol, void* stream) {
+                    double* ext_acc, float* g_tf, float* g_vol, float* g_env,
+                    void* stream) {
   Rev R;
   for (int k = 0; k < R_COUNT; ++k) R.i[k] = rparams[k];
   R.inv_mu = inv_mu;
@@ -645,7 +717,7 @@ int vpt_prb_reverse(const int* rparams, float inv_mu, const int* slots,
   if (n <= 0) return 0;
   const int steps = R.i[R_STEPS];
   const bool importance = R.i[R_IMPORTANCE] && R.i[R_STRIDE] > 1 &&
-                          (R.i[R_WANT_TF] || R.i[R_WANT_VOL]);
+                          (R.i[R_WANT_TF] || R.i[R_WANT_VOL] || R.i[R_WANT_ENV]);
   if (importance && steps > MAX_IMP_STEPS) return (int)cudaErrorInvalidValue;
   const int ns = !importance ? 0 : steps <= 8 ? 8 : steps <= 16 ? 16 : 32;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -654,7 +726,7 @@ int vpt_prb_reverse(const int* rparams, float inv_mu, const int* slots,
 #define VPT_NS(NS)                                                                          \
   case NS:                                                                                  \
     reverse_kernel<NS><<<grid, block, 0, st>>>(R, tape, g_rad_scaled, c, cb, phases, seeds, \
-                                               ext_acc, g_tf, g_vol);                       \
+                                               ext_acc, g_tf, g_vol, g_env);                \
     break;
     VPT_NS(0) VPT_NS(8) VPT_NS(16) VPT_NS(32)
 #undef VPT_NS

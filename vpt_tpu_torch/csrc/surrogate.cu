@@ -7,7 +7,9 @@
 //                      :203-209): the autodiff surrogate's backward, one
 //                      thread per lane walking K stored dispatch tapes
 //                      (K4's surrogate mode, spectral_backward.cu) in
-//                      reverse.
+//                      reverse. With the environment map (ENV, the escape
+//                      of :148-162) and the quasicubic filter
+//                      (ops/interp.py:389-392).
 //
 // Per lane it carries the score cotangent c (the deposit cotangents after
 // this step up to the next respawn), the adjoints of the position and the
@@ -16,8 +18,15 @@
 // g (1 - 1/n). Per lane-step it adds the extinction score, the event scores
 // into alpha and albedo (majorant mode: p_real = min(alpha / m, 1), nothing
 // where clipped), the HG inversion's pathwise terms into g and the incoming
-// direction, the light's into the direction, the density lookup's spatial
-// gradient into the position, dist x g_pos into the direction, and
+// direction, the light's into the direction (in env mode the equirect
+// lookup's: its slopes in u and v times d(u, v)/d(direction) through
+// atan2(dx, -dz) and asin(-dy), unbounded at the poles as jax.grad's; and
+// the escape's 4 texel terms, one channel of a 12-wide row, into the env
+// adjoint, summed over a warp's lanes that share the row and channel
+// first: add_env_texels), the density lookup's spatial gradient into
+// the position (through the warp's derivative 6f(1 - f) under the
+// quasicubic filter, whose corner weights are the warped ones), dist x
+// g_pos into the direction, and
 // slopes x (g_albedo, g_alpha, 2 g_g) into the density. It adds one 8-wide
 // volume row per event lane-step and the TF+light rows into the packed
 // adjoints with float2/float4 atomics, as K5 does; K9 contracts them. A
@@ -149,24 +158,6 @@ __device__ __forceinline__ void hg_reverse(float g, const float d[3], const floa
   g_g = gg;
 }
 
-// the 8 corners of a packed volume row, dequantized as sample_volume does
-__device__ __forceinline__ void volume_row(const void* table, int is_u8, int64_t row, float c[8]) {
-  if (is_u8) {
-    const uint2 raw = __ldg(reinterpret_cast<const uint2*>(
-        static_cast<const uint8_t*>(table) + row * 8));
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      c[k] = u8_unit(raw.x, k);
-      c[4 + k] = u8_unit(raw.y, k);
-    }
-  } else {
-    const float4* r = reinterpret_cast<const float4*>(static_cast<const float*>(table) + row * 8);
-    const float4 a = __ldg(r), b = __ldg(r + 1);
-    c[0] = a.x; c[1] = a.y; c[2] = a.z; c[3] = a.w;
-    c[4] = b.x; c[5] = b.y; c[6] = b.z; c[7] = b.w;
-  }
-}
-
 // adds a lane's pending TF-row sums (albedo, alpha, 2 g per corner) into
 // the packed TF adjoint: a float2 atomic per corner, and the g channel's
 // only where it is not 0 (the fourth channel takes nothing)
@@ -180,9 +171,42 @@ __device__ __forceinline__ void flush_tf(float* g_tf, int row, float (*acc)[SUR_
   }
 }
 
+// The escape's environment lookup in reverse, for the adjoint g_emit of
+// the emitted value (the forward's sample_environment x 2.7): the 4 texel
+// terms into the packed env adjoint g_env (when given), and the
+// direction's adjoint into gdl, in kernels/surrogate.py::_env_reverse's
+// order. The slope of asin is 1/sqrt(1 - dy^2): inf or NaN at the poles,
+// as jax.grad gives.
+__device__ __forceinline__ void env_reverse(const float* env, int Hp, int Wp, const float d[3],
+                                            float lam, float g_emit, float* g_env,
+                                            float gdl[3]) {
+  float u, v;
+  env_coords(d[0], d[1], d[2], u, v);
+  int bx, by;
+  float fx, fy;
+  base_frac(u, Wp - 1, bx, fx);
+  base_frac(v, Hp - 1, by, fy);
+  const int64_t row = (int64_t)by * Wp + bx;
+  const int c = env_band(lam);
+  const float* r = env + row * 12 + c;
+  const float a00 = __ldg(r), a01 = __ldg(r + 3), a10 = __ldg(r + 6), a11 = __ldg(r + 9);
+  const float c0 = lerp(a00, a01, fx), c1 = lerp(a10, a11, fx);
+  const float g = g_emit * kEnvGain;
+  if (g_env != nullptr && g != 0.0f) add_env_texels(g_env, row, c, g, fx, fy);
+  const float g_fx = g * (1 - fy) * (a01 - a00) + g * fy * (a11 - a10);
+  const float g_fy = g * (c1 - c0);
+  const float g_at = g_fx * (float)(Wp - 1) * 0.5f * kInvPi;
+  const float g_as = g_fy * (float)(Hp - 1) * 0.5f * 2.0f * kInvPi;
+  const float r2 = d[0] * d[0] + d[2] * d[2];
+  gdl[0] = g_at * -d[2] / r2;
+  gdl[1] = -(g_as / sqrtf(1.0f - d[1] * d[1]));
+  gdl[2] = g_at * d[0] / r2;
+}
+
 // one lane walks K dispatch tapes back (NB: the bins rounded up to 4; MAJ:
-// the majorant mode, whose tape holds m)
-template <int NB, bool MAJ>
+// the majorant mode, whose tape holds m; ENV: escapes read the environment
+// map)
+template <int NB, bool MAJ, bool ENV>
 __global__ void __launch_bounds__(SUR_THREADS, SUR_MIN_BLOCKS)
 surrogate_reverse_kernel(const Params P, const SurSpec T, const float* __restrict__ tape,
                          const int* __restrict__ samples, float* __restrict__ c_io,
@@ -190,8 +214,9 @@ surrogate_reverse_kernel(const Params P, const SurSpec T, const float* __restric
                          float* __restrict__ gpz_io, float* __restrict__ gdx_io,
                          float* __restrict__ gdy_io, float* __restrict__ gdz_io,
                          float* __restrict__ grad_io, const void* __restrict__ vol,
-                         const float* __restrict__ tf, double* __restrict__ ext_acc,
-                         float* __restrict__ g_tf, float* __restrict__ g_vol) {
+                         const float* __restrict__ tf, const float* __restrict__ env,
+                         double* __restrict__ ext_acc, float* __restrict__ g_tf,
+                         float* __restrict__ g_vol, float* __restrict__ g_env) {
   // per thread, in its own column: the radiance adjoint of every bin (read
   // and written at respawns only) and the pending sums of the TF row its
   // last events read
@@ -209,6 +234,7 @@ surrogate_reverse_kernel(const Params P, const SurSpec T, const float* __restric
     const int tf_h = P.i[I_TF_H], tf_w = P.i[I_TF_W];
     const int vd = P.i[I_VOL_D], vh = P.i[I_VOL_H], vw = P.i[I_VOL_W], u8 = P.i[I_VOL_U8];
     const bool iso = P.i[I_ISOTROPIC] != 0;
+    const bool qc = P.i[I_QUASICUBIC] != 0;
     const float ldx = P.f[F_LDX], ldy = P.f[F_LDY], ldz = P.f[F_LDZ];
     const float mu = P.f[F_EXTINCTION];
     const float inv_mu = __frcp_rn(mu);
@@ -252,11 +278,14 @@ surrogate_reverse_kernel(const Params P, const SurSpec T, const float* __restric
           n -= 1;
         }
         // the escape light, recomputed from the wavelength's light pair
+        // (or the environment map)
         int bx;
         float tfx;
         wavelength_coord(lam, tf_w, bx, tfx);
         float emitted = 0.0f, intensity = 0.0f, ddot = 0.0f, prod = 0.0f;
-        if (oob) {
+        if (ENV && oob) {
+          emitted = sample_environment(env, P.i[I_ENV_H], P.i[I_ENV_W], d[0], d[1], d[2], lam);
+        } else if (oob) {
           intensity = sample_light(tf, bx, tfx) * 5.0f;
           if (iso) {
             emitted = intensity;
@@ -277,7 +306,9 @@ surrogate_reverse_kernel(const Params P, const SurSpec T, const float* __restric
         }
         // the light's pathwise terms
         float gdl[3] = {0.0f, 0.0f, 0.0f};
-        if (oob) {
+        if (ENV && oob) {
+          env_reverse(env, P.i[I_ENV_H], P.i[I_ENV_W], d, lam, g_dep, g_env, gdl);
+        } else if (oob) {
           float g_int = g_dep;
           if (!iso) {
             const float g_prod = g_dep * tie_max(prod, 0.0f);
@@ -297,14 +328,13 @@ surrogate_reverse_kernel(const Params P, const SurSpec T, const float* __restric
         float gpd[3] = {0.0f, 0.0f, 0.0f};
         float gd_hg[3] = {0.0f, 0.0f, 0.0f};
         if (nul || scat) {
-          int vbx, vby, vbz;
-          float vf[3];
-          base_frac(pos[0], vw - 1, vbx, vf[0]);
-          base_frac(pos[1], vh - 1, vby, vf[1]);
-          base_frac(pos[2], vd - 1, vbz, vf[2]);
-          const int64_t vrow = ((int64_t)vbz * vh + vby) * vw + vbx;
+          int64_t vrow, vrow1;
+          float vr[3], vf[3];
+          volume_rows(false, vd, vh, vw, pos[0], pos[1], pos[2], vrow, vrow1, vr[0], vr[1], vr[2]);
+#pragma unroll
+          for (int a = 0; a < 3; ++a) vf[a] = qc ? quasicubic(vr[a]) : vr[a];
           float cc[8];
-          volume_row(vol, u8, vrow, cc);
+          volume_corners(vol, u8, false, vrow, vrow1, cc);
           const float l00 = lerp(cc[0], cc[1], vf[0]);
           const float l01 = lerp(cc[2], cc[3], vf[0]);
           const float l10 = lerp(cc[4], cc[5], vf[0]);
@@ -384,9 +414,13 @@ surrogate_reverse_kernel(const Params P, const SurSpec T, const float* __restric
             const float g_fy = g_l0 * (l01 - l00) + g_l1 * (l11 - l10);
             const float g_fx = g_l0 * (1 - vfy) * (cc[1] - cc[0]) + g_l0 * vfy * (cc[3] - cc[2]) +
                                g_l1 * (1 - vfy) * (cc[5] - cc[4]) + g_l1 * vfy * (cc[7] - cc[6]);
-            gpd[0] = g_fx * (float)(vw - 1);
-            gpd[1] = g_fy * (float)(vh - 1);
-            gpd[2] = g_fz * (float)(vd - 1);
+            // the quasicubic warp's derivative 6f(1 - f) at the unwarped frac
+            const float s0 = qc ? 6.0f * vr[0] * (1.0f - vr[0]) : 1.0f;
+            const float s1 = qc ? 6.0f * vr[1] * (1.0f - vr[1]) : 1.0f;
+            const float s2 = qc ? 6.0f * vr[2] * (1.0f - vr[2]) : 1.0f;
+            gpd[0] = g_fx * s0 * (float)(vw - 1);
+            gpd[1] = g_fy * s1 * (float)(vh - 1);
+            gpd[2] = g_fz * s2 * (float)(vd - 1);
           }
         }
         // the position and direction adjoints before the step
@@ -424,31 +458,40 @@ int vpt_sur_layout(int which) {
 }
 
 // the adjoints at the tapes' end in (c, gp*, gd*, grad: bins x lanes), at
-// their start out; g_tf / g_vol / ext_acc null when not wanted; majorant
-// mode when the tape has the m field
+// their start out; g_tf / g_vol / g_env / ext_acc null when not wanted;
+// majorant mode when the tape has the m field; env: the packed (He+1,
+// We+1, 12) environment map, or null
 int vpt_surrogate_reverse(const float* fparams, const int* iparams, const int* slots,
                           int n_fields, const float* tape, const int* samples, float* c,
                           float* gpx, float* gpy, float* gpz, float* gdx, float* gdy,
                           float* gdz, float* grad, const void* vol, const float* tf,
-                          double* ext_acc, float* g_tf, float* g_vol, void* stream) {
+                          const float* env, double* ext_acc, float* g_tf, float* g_vol,
+                          float* g_env, void* stream) {
   const Params P = make_params(fparams, iparams);
   const int n = P.i[I_N_LANES];
   const SurSpec T = make_sur_spec(slots, n_fields, n);
   if (n <= 0) return 0;
+  if ((env != nullptr) != (P.i[I_ENV_H] > 0) || (g_env != nullptr && env == nullptr) ||
+      P.i[I_VOL_XY] != 0)
+    return (int)cudaErrorInvalidValue;
   const bool maj = T.off[S_MAJ] >= 0;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const dim3 grid(blocks_for(n, SUR_THREADS)), block(SUR_THREADS);
-  switch (bins_rounded(P.i[I_N_BINS]) * 2 + (maj ? 1 : 0)) {
-#define VPT_NB_MAJ(NB, M, MB)                                                                  \
-  case NB * 2 + M:                                                                             \
-    surrogate_reverse_kernel<NB, MB><<<grid, block, 0, st>>>(P, T, tape, samples, c, gpx, gpy, \
-                                                             gpz, gdx, gdy, gdz, grad, vol, tf, \
-                                                             ext_acc, g_tf, g_vol);            \
+  switch (bins_rounded(P.i[I_N_BINS]) * 4 + (maj ? 1 : 0) + (env != nullptr ? 2 : 0)) {
+#define VPT_NB_MODE(NB, M, MB, EB)                                                             \
+  case NB * 4 + M:                                                                             \
+    surrogate_reverse_kernel<NB, MB, EB><<<grid, block, 0, st>>>(                              \
+        P, T, tape, samples, c, gpx, gpy, gpz, gdx, gdy, gdz, grad, vol, tf, env, ext_acc,     \
+        g_tf, g_vol, g_env);                                                                   \
     break;
-#define VPT_NB(NB) VPT_NB_MAJ(NB, 0, false) VPT_NB_MAJ(NB, 1, true)
+#define VPT_NB(NB)                     \
+  VPT_NB_MODE(NB, 0, false, false)     \
+  VPT_NB_MODE(NB, 1, true, false)      \
+  VPT_NB_MODE(NB, 2, false, true)      \
+  VPT_NB_MODE(NB, 3, true, true)
     VPT_NB(4) VPT_NB(8) VPT_NB(12) VPT_NB(16) VPT_NB(20) VPT_NB(24) VPT_NB(28) VPT_NB(32)
 #undef VPT_NB
-#undef VPT_NB_MAJ
+#undef VPT_NB_MODE
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -5,8 +5,10 @@ library with a plain C interface, on first use, into
 ``vpt_tpu_torch/_build/`` (listed in .gitignore). The nvcc processes of the
 sources that need a build run at the same time. Each library is named by a
 hash of its source, the shared headers (``*.cuh`` beside it) and the flags,
-so an edited source builds anew and an unchanged one loads at once. A build
-or load failure raises.
+so an edited source builds anew and an unchanged one loads at once; the
+build's output (the ptxas report) is kept beside each library, so
+``build_info["log"]`` holds it for a library loaded from an earlier build
+too. A build or load failure raises.
 
 Flags: ``sm_90a`` (Hopper), no fast math, and ``-fmad=false`` so that the
 lerps ``a + (b - a) * f`` round like the JAX reference instead of
@@ -39,7 +41,8 @@ NVCC_FLAGS = (
 
 _lock = threading.Lock()
 _lib = None
-# what the build printed (the ptxas register/spill report) and how long it took
+# what the builds of the loaded libraries printed (the ptxas register/spill
+# report) and how long this process's build took
 build_info = {"seconds": None, "log": "", "path": None}
 
 _P = ctypes.c_void_p
@@ -54,24 +57,28 @@ _SIGNATURES = {
         "vpt_mcm_spectral_step": ([_P] * 21 + [_P], _I),
         "vpt_mcm_spectral_reset": ([_P, _P, _U] + [_P] * 15 + [_P], _I),
         "vpt_compact_image": ([_P, _L, _P, _P, _P, _I, _I, _I, _I, _P], _I),
-        "vpt_sample_volume_packed": ([_P, _I, _I, _I, _I, _P, _P, _P, _P, _I, _P], _I),
+        "vpt_sample_volume_packed": ([_P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _I, _P], _I),
     },
     "spectral_backward": {
         "vpt_bwd_layout": ([_I], _I),
-        "vpt_prb_tape_forward": ([_P, _P, _P, _I] + [_P] * 15 + [_P], _I),
-        "vpt_prb_reverse": ([_P, _F] + [_P] * 10 + [_P], _I),
+        "vpt_prb_tape_forward": ([_P, _P, _P, _I] + [_P] * 16 + [_P], _I),
+        "vpt_prb_reverse": ([_P, _F] + [_P] * 11 + [_P], _I),
         "vpt_scatter_rows": ([_P, _L, _P, _P], _I),
-        "vpt_surrogate_tape_forward": ([_P, _P, _P, _I] + [_P] * 16 + [_P], _I),
+        "vpt_surrogate_tape_forward": ([_P, _P, _P, _I] + [_P] * 17 + [_P], _I),
     },
     "surrogate": {
         "vpt_sur_layout": ([_I], _I),
-        "vpt_surrogate_reverse": ([_P, _P, _P, _I] + [_P] * 15 + [_P], _I),
+        "vpt_surrogate_reverse": ([_P, _P, _P, _I] + [_P] * 17 + [_P], _I),
     },
     "corners": {
         "vpt_contract_volume": ([_P, _P, _I, _I, _I, _P], _I),
         "vpt_contract_tf": ([_P, _P, _P, _I, _I, _P], _I),
         "vpt_pack_volume": ([_P, _P, _I, _I, _I, _P], _I),
         "vpt_pack_tf": ([_P, _P, _P, _P, _I, _I, _P], _I),
+        "vpt_contract_volume_xy": ([_P, _P, _I, _I, _I, _P], _I),
+        "vpt_contract_env": ([_P, _P, _I, _I, _P], _I),
+        "vpt_pack_volume_xy": ([_P, _P, _I, _I, _I, _P], _I),
+        "vpt_pack_env": ([_P, _P, _I, _I, _P], _I),
     },
     "gather_bench": {
         "vpt_gather_limits": ([_P], _I),
@@ -131,11 +138,11 @@ def _compile(jobs):
             tmp.unlink(missing_ok=True)
             failed.append(f"{src.name} ({proc.returncode})")
         else:
+            out.with_suffix(".log").write_text(text)
             os.replace(tmp, out)  # atomic: concurrent builders never load a partial file
     build_info["seconds"] = time.perf_counter() - t0
-    build_info["log"] = "\n".join(logs)
     if failed:
-        raise RuntimeError(f"nvcc failed for {', '.join(failed)}:\n{build_info['log']}")
+        raise RuntimeError(f"nvcc failed for {', '.join(failed)}:\n" + "\n".join(logs))
 
 
 def load():
@@ -153,6 +160,9 @@ def load():
             _compile(missing)
         else:
             build_info["seconds"] = 0.0
+        build_info["log"] = "\n".join(
+            f"== {srcs[stem].name}\n{p.with_suffix('.log').read_text()}"
+            for stem, p in paths.items() if p.with_suffix(".log").exists())
         fns = {}
         for stem, path in paths.items():
             lib = ctypes.CDLL(str(path))
@@ -168,8 +178,9 @@ def load():
 
 # the kernels whose registers and spills the ptxas report is read for
 KERNELS = ("step_kernel", "tape_forward_kernel", "reverse_kernel", "contract_volume_kernel",
-           "contract_tf_kernel", "pack_volume_kernel", "pack_tf_kernel", "scatter_rows_kernel",
-           "surrogate_tape_kernel", "surrogate_reverse_kernel")
+           "contract_volume_xy_kernel", "contract_env_kernel", "contract_tf_kernel",
+           "pack_volume_kernel", "pack_volume_xy_kernel", "pack_env_kernel", "pack_tf_kernel",
+           "scatter_rows_kernel", "surrogate_tape_kernel", "surrogate_reverse_kernel")
 _ENTRY = re.compile(r"Compiling entry function '\S*?\d(" + "|".join(KERNELS) + r")(I\S*?EE)?[Ev]")
 
 
@@ -178,10 +189,10 @@ def ptxas_table(log_text):
     stack frame B)] of the kernels named in ``KERNELS`` in a ptxas -v log
     (the stack frame is the thread's local memory: spills and arrays
     indexed at run time); template args as
-    NB,MAJ,ENV (K1 step_kernel), NB (K4 tape_forward_kernel), NS (K5
-    reverse_kernel: 0 for stride mode, else the importance step count),
-    NB,MAJ (K4's surrogate mode surrogate_tape_kernel, K12
-    surrogate_reverse_kernel), "" for the untemplated ones."""
+    NB,MAJ,ENV (K1 step_kernel; K4's surrogate mode surrogate_tape_kernel
+    and K12 surrogate_reverse_kernel), NB,ENV (K4 tape_forward_kernel), NS
+    (K5 reverse_kernel: 0 for stride mode, else the importance step
+    count), "" for the untemplated ones."""
     rows, cur = [], None
     for line in log_text.splitlines():
         m = _ENTRY.search(line)

@@ -8,20 +8,22 @@ Two kernels of ``vpt_tpu_torch/csrc/corners.cu``:
   gradients addressing the raw tables (replaces
   ``vpt_tpu/kernels/spectral_backward.py::_contract_packed_adjoints``, the
   ``jax.vjp`` of ``ops/interp.py::pack_*_jnp``). Wrappers
-  ``contract_volume`` and ``contract_tf``; plain versions
-  ``contract_volume_plain``, ``contract_tex2d_plain``, ``contract_tex1d_plain``
-  and ``contract_light_plain``. A gather with one thread per raw cell,
+  ``contract_volume`` (full or xy table), ``contract_tf`` and
+  ``contract_env``; plain versions ``contract_volume_plain``,
+  ``contract_volume_xy_plain``, ``contract_tex2d_plain``,
+  ``contract_tex1d_plain`` and ``contract_light_plain``. A gather with one
+  thread per raw cell,
   no atomics: the plain versions add the same terms in the kernel's order
   (``axis_slots``), so the two agree bit for bit.
 - ``pack_corners`` (K10): the re-pack of learned raw tables on every
   ``fit_spectral`` iteration (replaces ``vpt_tpu/optim.py::
-  _pack_params_into_ctx``'s ``pack_*_jnp``). Wrappers ``pack_volume`` and
-  ``pack_tf``; their plain versions are the torch packers
-  ``interp.pack_*_t``, bit-equal to the numpy and JAX packers.
+  _pack_params_into_ctx``'s ``pack_*_jnp``). Wrappers ``pack_volume`` (full
+  or xy table), ``pack_tf`` and ``pack_env``; their plain versions are the
+  torch packers ``interp.pack_*_t``, bit-equal to the numpy and JAX packers.
 
-``PackCorners`` (``pack_volume_diff``, ``pack_tf_diff``) is the re-pack
-under torch autograd, K10 forward and K9 backward: the autodiff
-surrogate's loss packs its raw parameters through it.
+``PackCorners`` (``pack_volume_diff``, ``pack_tf_diff``, ``pack_env_diff``)
+is the re-pack under torch autograd, K10 forward and K9 backward: the
+autodiff surrogate's loss packs its raw parameters through it.
 
 Each wrapper runs its plain version when its tensors lie on the CPU and
 launches its kernel when they lie on a CUDA device; anything else raises.
@@ -37,7 +39,10 @@ from vpt_tpu_torch.kernels import _build
 from vpt_tpu_torch.kernels import mcm_spectral as K
 from vpt_tpu_torch.ops import interp
 
-LAUNCHES = {"contract_corners": 0, "pack_corners": 0}
+# a launch also counts under its table: "_xy" (an xy volume), "_env" (an
+# environment map)
+LAUNCHES = {"contract_corners": 0, "pack_corners": 0, "contract_corners_xy": 0,
+            "contract_corners_env": 0, "pack_corners_xy": 0, "pack_corners_env": 0}
 
 
 def reset_launch_counts():
@@ -83,6 +88,21 @@ def contract_volume_plain(g_packed: torch.Tensor, dims) -> torch.Tensor:
     return acc
 
 
+def contract_volume_xy_plain(g_packed: torch.Tensor, dims) -> torch.Tensor:
+    """Plain ``contract_volume`` of an xy table: the (rows, 4) adjoint with
+    dims (D, H+1, W+1) -> the raw (D, H, W) gradient, each voxel summing the
+    2-D slots of its own z plane (the z axis is not padded)."""
+    D, Hp, Wp = (int(d) for d in dims)
+    g = g_packed.reshape(D, Hp, Wp, 4)
+    dev = g.device
+    acc = torch.zeros((D, Hp - 1, Wp - 1), dtype=g.dtype, device=dev)
+    for iy, by, vy in axis_slots(Hp - 1, dev):
+        for ix, bx, vx in axis_slots(Wp - 1, dev):
+            term = g[:, iy[:, None], ix[None, :], by * 2 + bx]
+            acc = _add(acc, (vy[:, None] & vx[None, :])[None], term)
+    return acc
+
+
 def contract_tex2d_plain(g_packed: torch.Tensor, channels: int = 4) -> torch.Tensor:
     """Plain transpose of ``pack_tex2d_corners``: a (H+1, W+1, >= 4C)
     adjoint (its first 4C channels: 4 corners x C) -> the raw (H, W, C)
@@ -118,9 +138,17 @@ def contract_light_plain(g_tf: torch.Tensor) -> torch.Tensor:
     return contract_tex1d_plain(rows)
 
 
-def pack_volume_plain(density: torch.Tensor) -> torch.Tensor:
-    """Plain ``pack_volume``: (D, H, W) -> flat ((D+1)(H+1)(W+1), 8)."""
+def pack_volume_plain(density: torch.Tensor, kind: str = "full") -> torch.Tensor:
+    """Plain ``pack_volume``: (D, H, W) -> flat ((D+1)(H+1)(W+1), 8), or of
+    kind "xy" flat (D(H+1)(W+1), 4)."""
+    if kind == "xy":
+        return interp.pack_volume_corners_xy_t(density).reshape(-1, 4)
     return interp.pack_volume_corners_t(density).reshape(-1, 8)
+
+
+def pack_env_plain(env: torch.Tensor) -> torch.Tensor:
+    """Plain ``pack_env``: (He, We, 3) -> (He+1, We+1, 12)."""
+    return interp.pack_tex2d_corners_t(env).contiguous()
 
 
 def pack_tf_plain(mtf: torch.Tensor, light: torch.Tensor, pairs: bool = False):
@@ -137,20 +165,47 @@ def _check(t, name, shape, align=4):
     K._check(t, name, torch.float32, shape, align=align)
 
 
-def contract_volume(g_packed: torch.Tensor, dims) -> torch.Tensor:
-    """The raw (D, H, W) density gradient of a packed volume adjoint (rows,
-    8) with padded dims ``dims``; one kernel launch on a CUDA device."""
+def contract_volume(g_packed: torch.Tensor, dims, kind: str = "full") -> torch.Tensor:
+    """The raw (D, H, W) density gradient of a packed volume adjoint: (rows,
+    8) with padded dims ``dims`` (D+1, H+1, W+1), or of ``kind`` "xy"
+    (rows, 4) with dims (D, H+1, W+1); one kernel launch on a CUDA
+    device."""
+    xy = kind == "xy"
     if K._route(g_packed) == "cpu":
-        return contract_volume_plain(g_packed, dims)
-    Dp, Hp, Wp = (int(d) for d in dims)
-    _check(g_packed, "g_packed", (Dp * Hp * Wp, 8))
-    out = torch.empty((Dp - 1, Hp - 1, Wp - 1), dtype=torch.float32, device=g_packed.device)
+        return (contract_volume_xy_plain if xy else contract_volume_plain)(g_packed, dims)
+    D0, Hp, Wp = (int(d) for d in dims)
+    _check(g_packed, "g_packed", (D0 * Hp * Wp, 4 if xy else 8))
+    D = D0 if xy else D0 - 1
+    out = torch.empty((D, Hp - 1, Wp - 1), dtype=torch.float32, device=g_packed.device)
     lib = _build.load()
+    fn = lib.vpt_contract_volume_xy if xy else lib.vpt_contract_volume
     with torch.cuda.device(g_packed.device):
-        err = lib.vpt_contract_volume(g_packed.data_ptr(), out.data_ptr(), Dp - 1, Hp - 1,
-                                      Wp - 1, K._stream(g_packed.device))
-    K._raise_on(err, "contract_corners (volume)")
+        err = fn(g_packed.data_ptr(), out.data_ptr(), D, Hp - 1, Wp - 1,
+                 K._stream(g_packed.device))
+    K._raise_on(err, f"contract_corners ({kind} volume)")
     LAUNCHES["contract_corners"] += 1
+    LAUNCHES["contract_corners_xy"] += int(xy)
+    return out
+
+
+def contract_env(g_env: torch.Tensor) -> torch.Tensor:
+    """The raw (He, We, 3) environment gradient of a packed (He+1, We+1,
+    12) environment adjoint; one kernel launch on a CUDA device."""
+    if g_env.ndim != 3 or g_env.shape[-1] != 12:
+        raise ValueError(f"g_env must be a packed (He+1, We+1, 12) adjoint, got "
+                         f"{tuple(g_env.shape)}")
+    if K._route(g_env) == "cpu":
+        return contract_tex2d_plain(g_env, channels=3)
+    Hp, Wp, _ = g_env.shape
+    _check(g_env, "g_env", (Hp, Wp, 12))
+    out = torch.empty((Hp - 1, Wp - 1, 3), dtype=torch.float32, device=g_env.device)
+    lib = _build.load()
+    with torch.cuda.device(g_env.device):
+        err = lib.vpt_contract_env(g_env.data_ptr(), out.data_ptr(), Hp - 1, Wp - 1,
+                                   K._stream(g_env.device))
+    K._raise_on(err, "contract_corners (environment)")
+    LAUNCHES["contract_corners"] += 1
+    LAUNCHES["contract_corners_env"] += 1
     return out
 
 
@@ -180,46 +235,75 @@ def contract_tf(g_tf: torch.Tensor, material_tf: bool = True, light: bool = True
     return g_mtf, g_light
 
 
-def pack_volume(density: torch.Tensor) -> torch.Tensor:
+def pack_volume(density: torch.Tensor, kind: str = "full") -> torch.Tensor:
     """The flat ((D+1)(H+1)(W+1), 8) corner table of a raw (D, H, W)
-    density; one kernel launch on a CUDA device."""
+    density, or of ``kind`` "xy" the flat (D(H+1)(W+1), 4) table; one kernel
+    launch on a CUDA device."""
+    xy = kind == "xy"
     if K._route(density) == "cpu":
-        return pack_volume_plain(density)
+        return pack_volume_plain(density, kind)
     if density.ndim != 3:
         raise ValueError(f"density must be (D, H, W), got {tuple(density.shape)}")
     D, H, W = density.shape
     _check(density, "density", (D, H, W))
-    out = torch.empty(((D + 1) * (H + 1) * (W + 1), 8), dtype=torch.float32,
-                      device=density.device)
+    rows = D * (H + 1) * (W + 1) if xy else (D + 1) * (H + 1) * (W + 1)
+    out = torch.empty((rows, 4 if xy else 8), dtype=torch.float32, device=density.device)
     lib = _build.load()
+    fn = lib.vpt_pack_volume_xy if xy else lib.vpt_pack_volume
     with torch.cuda.device(density.device):
-        err = lib.vpt_pack_volume(density.data_ptr(), out.data_ptr(), D, H, W,
-                                  K._stream(density.device))
-    K._raise_on(err, "pack_corners (volume)")
+        err = fn(density.data_ptr(), out.data_ptr(), D, H, W, K._stream(density.device))
+    K._raise_on(err, f"pack_corners ({kind} volume)")
     LAUNCHES["pack_corners"] += 1
+    LAUNCHES["pack_corners_xy"] += int(xy)
+    return out
+
+
+def pack_env(env: torch.Tensor) -> torch.Tensor:
+    """The packed (He+1, We+1, 12) table of a raw (He, We, 3) environment
+    map; one kernel launch on a CUDA device."""
+    if K._route(env) == "cpu":
+        return pack_env_plain(env)
+    if env.ndim != 3 or env.shape[-1] != 3:
+        raise ValueError(f"environment must be (He, We, 3), got {tuple(env.shape)}")
+    He, We, _ = env.shape
+    _check(env, "environment", (He, We, 3))
+    out = torch.empty((He + 1, We + 1, 12), dtype=torch.float32, device=env.device)
+    lib = _build.load()
+    with torch.cuda.device(env.device):
+        err = lib.vpt_pack_env(env.data_ptr(), out.data_ptr(), He, We, K._stream(env.device))
+    K._raise_on(err, "pack_corners (environment)")
+    LAUNCHES["pack_corners"] += 1
+    LAUNCHES["pack_corners_env"] += 1
     return out
 
 
 class PackCorners(torch.autograd.Function):
     """The re-pack as a differentiable function: forward K10 (the torch
     packers on the CPU), backward K9, its exact transpose. ``kind``
-    "volume": (density,) -> the flat (rows, 8) table; "tf": (material_tf,
-    light_spectrum) -> the fused (TH+1, TW+1, 18) table."""
+    "volume": (density,) -> the flat (rows, 8) table ("volume_xy": the
+    flat (rows, 4) xy table); "tf": (material_tf,
+    light_spectrum) -> the fused (TH+1, TW+1, 18) table; "env":
+    (environment,) -> the packed (He+1, We+1, 12) table."""
 
     @staticmethod
     def forward(ctx, kind, *raw):
         ctx.kind = kind
         with torch.no_grad():
-            if kind == "volume":
-                ctx.dims = tuple(d + 1 for d in raw[0].shape)
-                return pack_volume(raw[0].contiguous())
+            if kind in ("volume", "volume_xy"):
+                D, H, W = raw[0].shape
+                ctx.dims = (D, H + 1, W + 1) if kind == "volume_xy" else (D + 1, H + 1, W + 1)
+                return pack_volume(raw[0].contiguous(), "xy" if kind == "volume_xy" else "full")
+            if kind == "env":
+                return pack_env(raw[0].contiguous())
             return pack_tf(raw[0].contiguous(), raw[1].contiguous())[0]
 
     @staticmethod
     def backward(ctx, g):
         g = g.contiguous()
-        if ctx.kind == "volume":
-            return None, contract_volume(g, ctx.dims)
+        if ctx.kind in ("volume", "volume_xy"):
+            return None, contract_volume(g, ctx.dims, "xy" if ctx.kind == "volume_xy" else "full")
+        if ctx.kind == "env":
+            return None, contract_env(g)
         want_mtf, want_light = ctx.needs_input_grad[1], ctx.needs_input_grad[2]
         if not (want_mtf or want_light):
             return None, None, None
@@ -227,9 +311,15 @@ class PackCorners(torch.autograd.Function):
         return None, g_mtf, g_light
 
 
-def pack_volume_diff(density: torch.Tensor) -> torch.Tensor:
-    """``pack_volume`` under autograd (its backward is ``contract_volume``)."""
-    return PackCorners.apply("volume", density)
+def pack_volume_diff(density: torch.Tensor, kind: str = "full") -> torch.Tensor:
+    """``pack_volume`` of ``kind`` under autograd (its backward is
+    ``contract_volume``)."""
+    return PackCorners.apply("volume_xy" if kind == "xy" else "volume", density)
+
+
+def pack_env_diff(env: torch.Tensor) -> torch.Tensor:
+    """``pack_env`` under autograd (its backward is ``contract_env``)."""
+    return PackCorners.apply("env", env)
 
 
 def pack_tf_diff(mtf: torch.Tensor, light: torch.Tensor) -> torch.Tensor:

@@ -7,16 +7,17 @@ Four kernels of ``vpt_tpu_torch/csrc/mcm_spectral.cu``:
   ``render_many``, and ``mcm_spectral_compact.render_compact_many`` over a
   lane table); plain version ``step_plain``. The ctx picks the mode: the
   super-voxel majorant (``ctx.majorant``), the environment map
-  (``ctx.environment``), the quasicubic filter (``ctx.volume_filter``).
+  (``ctx.environment``), the quasicubic filter (``ctx.volume_filter``), the
+  xy half-packed volume (``ctx.density.kind == "xy"``).
 - ``reset``: fresh photons (replaces ``full_reset`` and ``compact_reset``);
   plain version ``reset_plain``.
 - ``compact_radiance``: each hit pixel's mean over its stream lanes, the
   closed-form value elsewhere (replaces the scatter of
   ``mcm_spectral_compact.compact_image``); plain version
   ``compact_radiance_plain``.
-- ``sample_volume_packed``: a standalone packed-volume lookup (replaces
-  ``interp._sample_volume_packed``); plain version
-  ``sample_volume_packed_plain``.
+- ``sample_volume_packed``: a standalone packed-volume lookup, full or xy
+  table (replaces ``interp._sample_volume_packed`` and
+  ``_sample_volume_packed_xy``); plain version ``sample_volume_packed_plain``.
 
 ``step`` and ``reset`` take an optional lane table ``lanes = (ix, iy,
 seed_iy)``, int32 tensors of the lane shape (hit-lane compaction); without
@@ -26,8 +27,9 @@ Each wrapper runs its plain version when its tensors lie on the CPU, and
 launches the CUDA kernel when they lie on a CUDA device; anything else
 raises. ``LAUNCHES`` counts kernel launches (never plain runs); a step
 launch also counts under each mode it ran (``step_majorant``,
-``step_environment``, ``step_quasicubic``, ``step_lane_table``), a reset
-over a lane table under ``reset_lane_table``.
+``step_environment``, ``step_quasicubic``, ``step_xy``, ``step_lane_table``),
+a reset over a lane table under ``reset_lane_table``, a lookup in an xy
+table under ``sample_volume_packed_xy``.
 
 The plain versions take tensors on any device, so tests and
 ``chip_smoke.py`` can compare kernel and plain version on the card.
@@ -44,11 +46,11 @@ from vpt_tpu_torch.ops import geometry, interp, sampling
 # must match MAX_BINS / F_COUNT / I_COUNT in csrc/mcm_spectral.cu
 MAX_BINS = 32
 _F_COUNT = 24 + MAX_BINS + 1
-_I_COUNT = 20
+_I_COUNT = 21
 
 LAUNCHES = {"step": 0, "reset": 0, "compact_radiance": 0, "sample_volume_packed": 0,
-            "step_majorant": 0, "step_environment": 0, "step_quasicubic": 0,
-            "step_lane_table": 0, "reset_lane_table": 0}
+            "step_majorant": 0, "step_environment": 0, "step_quasicubic": 0, "step_xy": 0,
+            "step_lane_table": 0, "reset_lane_table": 0, "sample_volume_packed_xy": 0}
 
 # f32 constants of the environment lookup (vpt_tpu/models/mcm_spectral.py:155-158)
 INV_PI = float(np.float32(1.0 / np.pi))
@@ -150,6 +152,30 @@ def sample_environment(env, dx, dy, dz, lam):
                        torch.where(lam < 600.0, color[..., 1], color[..., 0]))
 
 
+def env_addr(env, dx, dy, dz, lam):
+    """Where an escape's lookup in a packed (He+1, We+1, 12) equirect map
+    reads, as ``sample_environment`` addresses it: (row of the flat (rows,
+    12) map, fx, fy, the wavelength's channel), row and channel int64."""
+    Hp, Wp, _ = env.shape
+    u = torch.atan2(dx, -dz) * INV_PI * 0.5 + 0.5
+    v = torch.asin(-dy) * 2.0 * INV_PI * 0.5 + 0.5
+    bx, fx = interp._base_and_frac(u, Wp - 1)
+    by, fy = interp._base_and_frac(v, Hp - 1)
+    band = torch.where(lam < 500.0, 2, torch.where(lam < 600.0, 1, 0))
+    return (by * Wp + bx).to(torch.int64), fx, fy, band.to(torch.int64)
+
+
+def add_env_texels_plain(g_env, row, band, g, fx, fy):
+    """Plain ``add_env_texels`` (csrc/adjoint_common.cuh): adds ``g`` times
+    the bilinear weights of (fx, fy) on channel ``band`` of the 4 corners of
+    each lane's row of the (rows, 12) adjoint ``g_env``."""
+    w = ((1 - fx) * (1 - fy), fx * (1 - fy), (1 - fx) * fy, fx * fy)
+    v12 = torch.zeros((g.shape[0], 12), dtype=g.dtype, device=g.device)
+    for k, wk in enumerate(w):
+        v12.scatter_(1, (3 * k + band)[:, None], (g * wk)[:, None])
+    g_env.index_add_(0, row, v12)
+
+
 def _surrogate(prob, taken):
     """Score-function factor of an event: 1.0 where ``taken``, carrying
     d log P / d params under autograd (JAX ``_surrogate``); no gradient
@@ -214,7 +240,7 @@ def _render_body(p, rng, sx, sy, ctx, n_bins, light, collect: bool = False, scor
     # material lookup (sampled, clamped, even when out of bounds)
     t = sampling.div_scalar(p["wavelength"] - 400.0, 300.0)
     dens = interp.sample_volume_packed(ctx.density.table, ctx.density.dims, px, py, pz,
-                                       ctx.volume_filter)
+                                       ctx.volume_filter, ctx.density.kind)
     mat, light_raw, tf_extras = interp.sample_tex2d_fused1d(ctx.material_tf, t, dens,
                                                             return_extras=True)
     albedo = mat[..., 0]
@@ -360,9 +386,9 @@ def reset_plain(ctx, resolution: int, n_bins: int, streams: int, device, lanes=N
     )
 
 
-def sample_volume_packed_plain(table, dims, u, v, w):
+def sample_volume_packed_plain(table, dims, u, v, w, kind: str = "full"):
     """Plain PyTorch ``sample_volume_packed``."""
-    return interp.sample_volume_packed(table, dims, u, v, w)
+    return interp.sample_volume_packed(table, dims, u, v, w, kind=kind)
 
 
 def compact_radiance_plain(radiance, pixel_hit, miss, n_hit: int, streams: int):
@@ -447,7 +473,7 @@ def _params(ctx, resolution, streams, n_bins, steps=0, n_seeds=0, n_lanes=None):
         int(isotropic), n_bins, int(ctx.max_bounces), steps, n_seeds, streams,
         resolution, int(vol.table.dtype == torch.uint8), *vol.dims,
         tf.shape[0], tf.shape[1], n_lanes, int(ctx.volume_filter == "quasicubic"),
-        *maj, *env,
+        *maj, *env, int(vol.kind == "xy"),
     ], np.int32)
     assert i.shape == (_I_COUNT,)
     return f, i
@@ -464,7 +490,8 @@ def _check_tables(ctx):
     construction): every density row of ``material_tf`` repeats the light
     pair, which K1 reads from row 0 for a lane that left the volume."""
     vol = ctx.density
-    _check(vol.table, "density table", vol.table.dtype, (int(np.prod(vol.dims)), 8), align=16)
+    _check(vol.table, "density table", vol.table.dtype, (int(np.prod(vol.dims)), vol.width),
+           align=16)
     if ctx.material_tf.ndim != 3 or ctx.material_tf.shape[-1] != 18:
         raise ValueError(f"material_tf must be a fused (Hp, Wp, 18) table, got {tuple(ctx.material_tf.shape)}")
     # float2 loads of its corner channels: 8-byte aligned
@@ -543,6 +570,7 @@ def step(state, ctx, seeds, steps: int, n_bins: int, lanes=None):
     for mode, on in (("majorant", ctx.majorant is not None),
                      ("environment", ctx.environment is not None),
                      ("quasicubic", ctx.volume_filter == "quasicubic"),
+                     ("xy", ctx.density.kind == "xy"),
                      ("lane_table", lanes is not None)):
         LAUNCHES[f"step_{mode}"] += int(on)
     return state
@@ -611,14 +639,17 @@ def compact_radiance(radiance, pixel_hit, miss, n_hit: int, streams: int):
     return out
 
 
-def sample_volume_packed(table: torch.Tensor, dims, u, v, w):
-    """Trilinear density at (u, v, w) from a flat (rows, 8) u8|f32 corner table."""
+def sample_volume_packed(table: torch.Tensor, dims, u, v, w, kind: str = "full"):
+    """Trilinear density at (u, v, w) from a flat u8|f32 packed volume table:
+    (rows, 8) of kind "full" or (rows, 4) of kind "xy"."""
+    if kind not in ("full", "xy"):
+        raise ValueError(f"packed volume kind must be 'full' or 'xy', got {kind!r}")
     if _route(table, u, v, w) == "cpu":
-        return sample_volume_packed_plain(table, dims, u, v, w)
+        return sample_volume_packed_plain(table, dims, u, v, w, kind)
     dims = tuple(int(d) for d in dims)
     if table.dtype not in (torch.uint8, torch.float32):
         raise TypeError(f"table: expected uint8 or float32, got {table.dtype}")
-    _check(table, "table", table.dtype, (int(np.prod(dims)), 8), align=16)
+    _check(table, "table", table.dtype, (int(np.prod(dims)), 4 if kind == "xy" else 8), align=16)
     n = u.numel()
     for t, name in ((u, "u"), (v, "v"), (w, "w")):
         _check(t, name, torch.float32, u.shape)
@@ -626,9 +657,10 @@ def sample_volume_packed(table: torch.Tensor, dims, u, v, w):
     lib = _build.load()
     with torch.cuda.device(table.device):
         err = lib.vpt_sample_volume_packed(
-            table.data_ptr(), int(table.dtype == torch.uint8), *dims,
+            table.data_ptr(), int(table.dtype == torch.uint8), int(kind == "xy"), *dims,
             u.data_ptr(), v.data_ptr(), w.data_ptr(), out.data_ptr(), n,
             _stream(table.device))
     _raise_on(err, "sample_volume_packed")
     LAUNCHES["sample_volume_packed"] += 1
+    LAUNCHES["sample_volume_packed_xy"] += int(kind == "xy")
     return out

@@ -6,9 +6,11 @@ Counterpart of the packed path of ``vpt_tpu/kernels/spectral_backward.py``
 replay backprop) is a taped forward pass followed by a reverse pass over the
 tape that propagates each step's deposit cotangent ``(c, cb)`` and scatters
 the analytic per-event gradients into adjoints shaped like the PACKED tables
-(one 18-wide TF+light row and one 8-wide volume row per lane-step). The
-packed adjoints are contracted back to the raw tables once, by the dense
-pack transpose K9 ``contract_corners`` (``kernels/corners.py``).
+(one 18-wide TF+light row and one 8-wide volume row per lane-step; two
+4-wide plane rows of an xy half-packed volume; an escape's 12-wide
+environment row). The packed adjoints are contracted back to the raw
+tables once, by the dense pack transpose K9 ``contract_corners``
+(``kernels/corners.py``).
 
 Two kernels of ``vpt_tpu_torch/csrc/spectral_backward.cu``:
 
@@ -24,10 +26,23 @@ Two kernels of ``vpt_tpu_torch/csrc/spectral_backward.cu``:
   ``prb_reverse_plain``.
 
 The tape is one f32 tensor ``(K, steps, F, lanes)`` whose F fields are
-``tape_fields(wrt)`` (int and bool fields bit-cast into f32 slots); kernel
-and plain version write the same layout, so their tapes compare bitwise.
-One convention differs from the JAX tape: ``hg_cos`` is 0 where the step
-did not scatter (the JAX tape holds an unused value there).
+``tape_fields(wrt, env, xy)`` (int and bool fields bit-cast into f32
+slots); kernel and plain version write the same layout, so their tapes
+compare bitwise. Two conventions differ from the JAX tape: ``hg_cos`` is 0
+where the step did not scatter, and the environment's addressing
+(``env_row``, ``env_fx``, ``env_fy``, ``env_band``) is 0 where the lane did
+not escape (the JAX tape holds unused values there; ``env_w`` is 0 there in
+both).
+
+The modes (JAX ``spectral_backward_packed``'s branches): the environment
+map (``"environment"`` in ``wrt`` on an env ctx: the escape's texel
+adjoints, 2.7 times the bilinear weights on the wavelength's channel; the
+light spectrum's gradient is then 0, as it is never sampled), the
+quasicubic filter (the volume rows' adjoints take the warped weights; the
+positions are detached, so no warp derivative arises) and the xy
+half-packed volume (``ctx.density.kind == "xy"``). The ``volume_filter``
+argument decides the filter, as the static argument does in JAX: a ctx
+whose ``volume_filter`` differs is rendered with the argument's.
 
 Each wrapper runs its plain version when its tensors lie on the CPU and
 launches its kernel when they lie on a CUDA device; anything else raises.
@@ -35,14 +50,16 @@ launches its kernel when they lie on a CUDA device; anything else raises.
 the state they are given: the forward runs on a copy.
 
 Not ported yet (each raises ``NotImplementedError``): the raw-table replay
-backward ``spectral_backward``, xy half-packed volumes, the quasicubic
-filter and environment gradients. Majorant mode raises as the reference's
-taped backward does; its gradients come from the autodiff surrogate
+backward ``spectral_backward`` (raw or partly packed tables, the
+``nearest`` filter). Majorant mode raises as the reference's taped
+backward does; its gradients come from the autodiff surrogate
 (``kernels/surrogate.py``, whose tape is K4's surrogate mode in the same
 CUDA source).
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
@@ -53,6 +70,9 @@ from vpt_tpu_torch.ops import geometry, interp, sampling
 from vpt_tpu_torch.ops.spectral import XYZ_TO_SRGB_KERNEL
 
 ALL_WRT = frozenset({"density", "material_tf", "light_spectrum", "extinction"})
+# the keys a backward takes: "environment" differentiates the env map (JAX
+# ``want_env``), and only on a ctx that has one
+LEGAL_WRT = ALL_WRT | {"environment"}
 EPS = 1e-5
 
 # tape fields in the order of TapeField in csrc/spectral_backward.cu
@@ -62,18 +82,25 @@ TAPE_FIELDS = (
     "dist",                                                    # extinction
     "tf_row", "fy", "light_w",                                 # TF / light
     "slope0", "slope1", "slope2", "vol_row0", "vfx", "vfy", "vfz",  # density
+    "vol_row1",                                                # density, xy volume
+    "env_row", "env_fx", "env_fy", "env_band", "env_w",        # environment
 )
-INT_FIELDS = frozenset({"pre_bin", "tf_row", "vol_row0"})
+INT_FIELDS = frozenset({"pre_bin", "tf_row", "vol_row0", "vol_row1", "env_row", "env_band"})
 BOOL_FIELDS = frozenset({"respawn", "null", "scatter"})
+_ENV_FIELDS = TAPE_FIELDS[22:]
 # must match MAX_IMP_STEPS and RParam in csrc/spectral_backward.cu
 MAX_IMP_STEPS = 32
-_R_COUNT = 13
+_R_COUNT = 15
 
 # above this many bytes of stacked tape, window_storage="auto" re-simulates
 # from stored start states instead (the JAX package's limit)
 _TAPE_AUTO_LIMIT_BYTES = 6 * 1024**3
 
-LAUNCHES = {"prb_tape_forward": 0, "prb_reverse": 0}
+# a launch also counts under each mode it ran: the environment map, the
+# quasicubic filter, the xy volume
+LAUNCHES = {"prb_tape_forward": 0, "prb_reverse": 0,
+            "prb_tape_forward_environment": 0, "prb_tape_forward_quasicubic": 0,
+            "prb_tape_forward_xy": 0, "prb_reverse_environment": 0, "prb_reverse_xy": 0}
 
 
 def reset_launch_counts():
@@ -81,20 +108,30 @@ def reset_launch_counts():
         LAUNCHES[k] = 0
 
 
-def tape_fields(wrt) -> tuple:
-    """The tape's fields for a ``wrt`` subset, in slot order."""
+def tape_fields(wrt, env: bool = False, xy: bool = False) -> tuple:
+    """The tape's fields for a ``wrt`` subset, in slot order; ``env``: the
+    ctx has an environment map, ``xy``: its volume is xy half-packed."""
     wrt = frozenset(wrt)
-    bad = wrt - ALL_WRT
+    bad = wrt - LEGAL_WRT
     if bad:
-        raise NotImplementedError(f"gradients w.r.t. {sorted(bad)} are not ported")
+        raise ValueError(f"unknown gradient keys {sorted(bad)} (legal: {sorted(LEGAL_WRT)})")
     want = set(TAPE_FIELDS[:10])
     if "extinction" in wrt:
         want.add("dist")
     if "material_tf" in wrt or "light_spectrum" in wrt:
         want.update(("tf_row", "fy", "light_w"))
     if "density" in wrt:
-        want.update(TAPE_FIELDS[14:])
+        want.update(TAPE_FIELDS[14:21])
+        if xy:
+            want.add("vol_row1")
+    if "environment" in wrt and env:
+        want.update(_ENV_FIELDS)
     return tuple(f for f in TAPE_FIELDS if f in want)
+
+
+def ctx_tape_fields(ctx, wrt) -> tuple:
+    """``tape_fields`` of a ctx's modes."""
+    return tape_fields(wrt, ctx.environment is not None, ctx.density.kind == "xy")
 
 
 def _slots(fields) -> np.ndarray:
@@ -104,18 +141,23 @@ def _slots(fields) -> np.ndarray:
     return slot
 
 
-def _check_packed_ctx(ctx, volume_filter="linear"):
-    if volume_filter != "linear" or ctx.volume_filter != "linear":
-        bad = volume_filter if volume_filter != "linear" else ctx.volume_filter
-        raise NotImplementedError(f"volume filter {bad!r} is not ported to the backward")
+def packed_ctx(ctx, volume_filter="linear"):
+    """The ctx a packed backward renders with: checked, and with the
+    ``volume_filter`` argument as its filter (the argument decides, as the
+    static argument of the JAX functions does)."""
+    if volume_filter not in ("linear", "quasicubic"):
+        raise NotImplementedError(
+            f"volume filter {volume_filter!r} needs raw tables, whose replay backward "
+            "(spectral_backward) is not ported")
     if ctx.majorant is not None:
         raise NotImplementedError(
             "the packed-PRB taped backward does not support the super-voxel majorant "
             "mode; use the autodiff surrogate (render_sequence_diff / fit_spectral "
             "method='autodiff') for majorant-mode gradients")
-    if ctx.environment is not None:
-        raise NotImplementedError("environment-map gradients (the packed backward's env "
-                                  "branch) are not ported to the torch package")
+    if ctx.environment is not None and (ctx.environment.ndim != 3
+                                        or ctx.environment.shape[-1] != 12):
+        raise ValueError("environment gradients need the packed (He+1, We+1, 12) equirect "
+                         f"table, got {tuple(ctx.environment.shape)}")
     if not isinstance(ctx.density, interp.PackedVolume):
         raise NotImplementedError(
             "the raw-table replay backward (spectral_backward) is not ported; "
@@ -123,6 +165,9 @@ def _check_packed_ctx(ctx, volume_filter="linear"):
     if ctx.material_tf.ndim != 3 or ctx.material_tf.shape[-1] != 18:
         raise ValueError("packed backward needs the fused (Hp, Wp, 18) TF+light table, got "
                          f"{tuple(ctx.material_tf.shape)}")
+    if ctx.volume_filter != volume_filter:
+        ctx = dataclasses.replace(ctx, volume_filter=volume_filter)
+    return ctx
 
 
 def _lanes(state):
@@ -170,6 +215,9 @@ def _tape_row(it, fields, ctx, light):
             ddot = dx * lx + dy * ly + dz * lz
             di = torch.where(it["emitted"] > 0.0, ddot, torch.zeros_like(ddot))
         v["light_w"] = torch.where(it["oob"], di * 5.0, torch.zeros_like(fx))
+        if ctx.environment is not None:
+            # the escape comes from the env map: the light is never sampled
+            v["light_w"] = torch.zeros_like(fx)
     if "vol_row0" in fields:
         th = ctx.material_tf.shape[0] - 1
         fxc = fx[..., None]
@@ -178,21 +226,33 @@ def _tape_row(it, fields, ctx, light):
         slopes = ((c10 + (c11 - c10) * fxc) - (c00 + (c01 - c00) * fxc)) * th
         for c in range(3):
             v[f"slope{c}"] = slopes[..., c]
-        VDp, VHp, VWp = ctx.density.dims
-        u, w_, z = it["sample_pos"]
-        vbx, vfx = interp._base_and_frac(u, VWp - 1)
-        vby, vfy = interp._base_and_frac(w_, VHp - 1)
-        vbz, vfz = interp._base_and_frac(z, VDp - 1)
-        v["vol_row0"] = _bits_f((vbz * VHp + vby) * VWp + vbx)
+        row0, row1, vfx, vfy, vfz = interp.volume_rows(ctx.density.dims, *it["sample_pos"],
+                                                       kind=ctx.density.kind)
+        if ctx.volume_filter == "quasicubic":
+            # the corner adjoints take the warped weights (JAX :735-742)
+            vfx, vfy, vfz = (interp.quasicubic_warp(f) for f in (vfx, vfy, vfz))
+        v["vol_row0"], v["vol_row1"] = _bits_f(row0), _bits_f(row1)
         v["vfx"], v["vfy"], v["vfz"] = vfx, vfy, vfz
+    if "env_row" in fields:
+        # the escape's equirect addressing (K.sample_environment's ops),
+        # zero where the lane did not escape
+        oob = it["oob"]
+        erow, efx, efy, band = K.env_addr(ctx.environment, *it["pre_dir"], it["pre_wavelength"])
+        zero, izero = torch.zeros_like(fx), torch.zeros_like(erow, dtype=torch.int32)
+        v["env_row"] = _bits_f(torch.where(oob, erow.to(torch.int32), izero))
+        v["env_fx"] = torch.where(oob, efx, zero)
+        v["env_fy"] = torch.where(oob, efy, zero)
+        v["env_band"] = _bits_f(torch.where(oob, band.to(torch.int32), izero))
+        v["env_w"] = torch.where(oob, torch.full_like(fx, K.ENV_GAIN), zero)
     return torch.stack([v[f].reshape(-1) for f in fields])
 
 
 def tape_forward_plain(state, ctx, seeds, steps: int, n_bins: int, wrt=ALL_WRT):
     """Plain PyTorch ``tape_forward``: updates ``state`` in place (like
-    ``mcm_spectral.step_plain``) and returns the tapes (K, steps, F, lanes)."""
-    _check_packed_ctx(ctx)
-    fields = tape_fields(wrt)
+    ``mcm_spectral.step_plain``) and returns the tapes (K, steps, F, lanes).
+    ``ctx``: checked by ``packed_ctx`` (its filter is the one rendered)."""
+    ctx = packed_ctx(ctx, ctx.volume_filter)
+    fields = ctx_tape_fields(ctx, wrt)
     lane, resolution, streams, _ = _lanes(state)
     device = state.px.device
     ix, iy, seed_iy = K._pixel_grid(resolution, streams, device)
@@ -216,11 +276,12 @@ def tape_forward_plain(state, ctx, seeds, steps: int, n_bins: int, wrt=ALL_WRT):
 def tape_forward(state, ctx, seeds, steps: int, n_bins: int, wrt=ALL_WRT):
     """K taped dispatches (one per frame seed) from ``state``, which stays
     untouched. Returns (state_out, tapes (K, steps, F, lanes) f32); one
-    kernel launch on a CUDA device."""
-    _check_packed_ctx(ctx)
-    fields = tape_fields(wrt)
+    kernel launch on a CUDA device. ``ctx``: checked by ``packed_ctx`` (its
+    filter is the one rendered)."""
+    ctx = packed_ctx(ctx, ctx.volume_filter)
+    fields = ctx_tape_fields(ctx, wrt)
     out = clone_state(state)
-    tensors = out.tensors() + [ctx.density.table, ctx.material_tf]
+    tensors = out.tensors() + K._ctx_tensors(ctx)
     if K._route(*tensors) == "cpu":
         return out, tape_forward_plain(out, ctx, seeds, steps, n_bins, wrt)
     K._check_state(out, n_bins)
@@ -239,10 +300,14 @@ def tape_forward(state, ctx, seeds, steps: int, n_bins: int, wrt=ALL_WRT):
         err = lib.vpt_prb_tape_forward(
             f.ctypes.data, i.ctypes.data, slots.ctypes.data, len(fields),
             *(getattr(out, k).data_ptr() for k in K.STATE_FIELDS[:11]),
-            ctx.density.table.data_ptr(), ctx.material_tf.data_ptr(),
+            ctx.density.table.data_ptr(), ctx.material_tf.data_ptr(), K._ptr(ctx.environment),
             seeds_dev.data_ptr(), tapes.data_ptr(), K._stream(device))
     K._raise_on(err, "prb_tape_forward")
     LAUNCHES["prb_tape_forward"] += 1
+    for mode, on in (("environment", ctx.environment is not None),
+                     ("quasicubic", ctx.volume_filter == "quasicubic"),
+                     ("xy", ctx.density.kind == "xy")):
+        LAUNCHES[f"prb_tape_forward_{mode}"] += int(on)
     return out, tapes
 
 
@@ -290,7 +355,8 @@ def _event_grads(t: _Row, q):
 
 
 def _scatter_plain(t: _Row, c, cb, weight, adj):
-    """The per-step table scatters of one tape row (JAX ``scatter_step``)."""
+    """The per-step table scatters of one tape row (JAX ``scatter_step``),
+    in the kernel's order."""
     q = cb * c * weight
     ga, gb, gg = _event_grads(t, q)
     if "g_tf" in adj:
@@ -308,11 +374,22 @@ def _scatter_plain(t: _Row, c, cb, weight, adj):
         vfx, vfy, vfz = t.f("vfx"), t.f("vfy"), t.f("vfz")
         w4 = ((1 - vfy) * (1 - vfx), (1 - vfy) * vfx, vfy * (1 - vfx), vfy * vfx)
         a0, a1 = gd * (1 - vfz), gd * vfz
-        v8 = torch.stack([a0 * wk for wk in w4] + [a1 * wk for wk in w4], dim=-1)
-        adj["g_vol"].index_add_(0, t.i("vol_row0").to(torch.int64), v8)
+        if adj["g_vol"].shape[1] == 4:
+            # xy volume: the z0 and z1 plane rows
+            adj["g_vol"].index_add_(0, t.i("vol_row0").to(torch.int64),
+                                    torch.stack([a0 * wk for wk in w4], dim=-1))
+            adj["g_vol"].index_add_(0, t.i("vol_row1").to(torch.int64),
+                                    torch.stack([a1 * wk for wk in w4], dim=-1))
+        else:
+            v8 = torch.stack([a0 * wk for wk in w4] + [a1 * wk for wk in w4], dim=-1)
+            adj["g_vol"].index_add_(0, t.i("vol_row0").to(torch.int64), v8)
+    if "g_env" in adj:
+        K.add_env_texels_plain(adj["g_env"], t.i("env_row").to(torch.int64),
+                               t.i("env_band").to(torch.int64), cb * weight * t.f("env_w"),
+                               t.f("env_fx"), t.f("env_fy"))
 
 
-def _importance_metric_plain(t: _Row, c, cb, want_tf, want_vol):
+def _importance_metric_plain(t: _Row, c, cb, want_tf, want_vol, want_env=False):
     """Importance-thinning selection weight of one step (JAX
     ``_importance_metric``)."""
     ga, gb, gg = _event_grads(t, c * cb)
@@ -321,6 +398,8 @@ def _importance_metric_plain(t: _Row, c, cb, want_tf, want_vol):
         m = m + torch.abs(gb * t.f("slope0") + ga * t.f("slope1") + gg * t.f("slope2"))
     if want_tf:
         m = m + (torch.abs(gb) + torch.abs(ga) + torch.abs(gg) + torch.abs(cb * t.f("light_w")))
+    if want_env:
+        m = m + torch.abs(cb * t.f("env_w"))
     return m
 
 
@@ -329,12 +408,14 @@ def prb_reverse_plain(tapes, fields, g_rad_scaled, cot, adj, phases, seeds, *,
                       resolution: int, streams: int, pick_bits=None):
     """Plain PyTorch ``prb_reverse``: updates the carry ``cot`` (dict c, cb
     of (lanes,) tensors) and the adjoints ``adj`` (dict of g_ext (1,),
-    g_tf (rows, 18), g_vol (rows, 8), as present) in place."""
+    g_tf (rows, 18), g_vol (rows, 8) or (rows, 4) for an xy volume, g_env
+    (rows, 12), as present) in place."""
     n_disp, steps = tapes.shape[0], tapes.shape[1]
     n_bins = g_rad_scaled.shape[0]
     col = {f: i for i, f in enumerate(fields)}
     importance = importance and scatter_stride > 1
-    want_tf, want_vol = "g_tf" in adj, "g_vol" in adj
+    want_tf, want_vol, want_env = "g_tf" in adj, "g_vol" in adj, "g_env" in adj
+    want_scatter = want_tf or want_vol or want_env
     c, cb = cot["c"], cot["cb"]
     weight = float(scatter_stride)
     for k in range(n_disp - 1, -1, -1):
@@ -351,17 +432,17 @@ def prb_reverse_plain(tapes, fields, g_rad_scaled, cot, adj, phases, seeds, *,
                 adj["g_ext"] += torch.sum(c * cb * (inv_mu - t.f("dist")))
             if importance:
                 c_all[it], cb_all[it] = c, cb
-            elif (want_tf or want_vol) and it % scatter_stride == int(phases[k]):
+            elif want_scatter and it % scatter_stride == int(phases[k]):
                 _scatter_plain(t, c, cb, weight, adj)
-        if importance and (want_tf or want_vol):
+        if importance and want_scatter:
             _importance_scatter_plain(tapes[k], col, c_all, cb_all, adj, seeds[k],
                                       scatter_stride, resolution, streams, pick_bits,
-                                      want_tf, want_vol)
+                                      want_tf, want_vol, want_env)
     cot["c"], cot["cb"] = c, cb
 
 
 def _importance_picks(tape, col, c_all, cb_all, seed, stride, resolution, streams,
-                      pick_bits, want_tf, want_vol):
+                      pick_bits, want_tf, want_vol, want_env=False):
     """Per-lane importance picks of one dispatch (JAX ``_importance_scatter``):
     ``steps // stride`` i.i.d. step picks with probability proportional to
     the step's total scatter magnitude, each weighted S / (count * metric).
@@ -369,7 +450,7 @@ def _importance_picks(tape, col, c_all, cb_all, seed, stride, resolution, stream
     Returns (picks, weights): per pick, (lanes,) step indices and weights."""
     steps = tape.shape[0]
     absq = [_importance_metric_plain(_Row(tape[s], col), c_all[s], cb_all[s],
-                                     want_tf, want_vol) for s in range(steps)]
+                                     want_tf, want_vol, want_env) for s in range(steps)]
     S = absq[0]
     for s in range(1, steps):
         S = S + absq[s]
@@ -397,10 +478,10 @@ def _importance_picks(tape, col, c_all, cb_all, seed, stride, resolution, stream
 
 
 def _importance_scatter_plain(tape, col, c_all, cb_all, adj, seed, stride, resolution,
-                              streams, pick_bits, want_tf, want_vol):
+                              streams, pick_bits, want_tf, want_vol, want_env):
     """The importance-thinned scatters of one dispatch."""
     picks, weights = _importance_picks(tape, col, c_all, cb_all, seed, stride, resolution,
-                                       streams, pick_bits, want_tf, want_vol)
+                                       streams, pick_bits, want_tf, want_vol, want_env)
     c_all, cb_all = torch.stack(c_all), torch.stack(cb_all)
     for sel, w in zip(picks, weights):
         row = torch.gather(tape, 0, sel[None, None].expand(1, tape.shape[1], tape.shape[2]))[0]
@@ -427,8 +508,12 @@ def prb_reverse(tapes, fields, g_rad_scaled, cot, adj, phases, seeds, *,
         raise ValueError(f"importance thinning supports at most {MAX_IMP_STEPS} steps, got {steps}")
     if ("g_ext" in adj) != ("dist" in fields):
         raise ValueError("the extinction adjoint needs the tape's dist field")
-    if ("g_tf" in adj) != ("tf_row" in fields) or ("g_vol" in adj) != ("vol_row0" in fields):
+    if (("g_tf" in adj) != ("tf_row" in fields) or ("g_vol" in adj) != ("vol_row0" in fields)
+            or ("g_env" in adj) != ("env_row" in fields)):
         raise ValueError("adjoints and tape fields disagree")
+    xy = "g_vol" in adj and adj["g_vol"].shape[1] == 4
+    if xy != ("vol_row1" in fields):
+        raise ValueError("an xy volume's (rows, 4) adjoint needs the tape's vol_row1 field")
     tensors = [tapes, g_rad_scaled, cot["c"], cot["cb"], *adj.values()]
     if K._route(*tensors) == "cpu":
         return prb_reverse_plain(tapes, fields, g_rad_scaled, cot, adj, phases, seeds,
@@ -444,12 +529,16 @@ def prb_reverse(tapes, fields, g_rad_scaled, cot, adj, phases, seeds, *,
     if "g_tf" in adj:
         K._check(adj["g_tf"], "g_tf", torch.float32, (adj["g_tf"].shape[0], 18), align=8)
     if "g_vol" in adj:
-        K._check(adj["g_vol"], "g_vol", torch.float32, (adj["g_vol"].shape[0], 8), align=16)
+        K._check(adj["g_vol"], "g_vol", torch.float32,
+                 (adj["g_vol"].shape[0], 4 if xy else 8), align=16)
+    if "g_env" in adj:
+        K._check(adj["g_env"], "g_env", torch.float32, (adj["g_env"].shape[0], 12))
     r = np.array([
         n_lanes, resolution, steps, n_disp, n_fields, scatter_stride, int(importance),
         int("g_ext" in adj), int("g_tf" in adj), int("g_vol" in adj), g_rad_scaled.shape[0],
         int(pick_bits is not None),
         int(np.uint32(0 if pick_bits is None else int(pick_bits) & 0xFFFFFFFF).view(np.int32)),
+        int("g_env" in adj), int(xy),
     ], np.int32)
     assert r.shape == (_R_COUNT,)
     lib = _build.load()
@@ -469,9 +558,11 @@ def prb_reverse(tapes, fields, g_rad_scaled, cot, adj, phases, seeds, *,
             r.ctypes.data, float(np.float32(inv_mu)), slots.ctypes.data, tapes.data_ptr(),
             g_rad_scaled.data_ptr(), cot["c"].data_ptr(), cot["cb"].data_ptr(),
             phases_dev.data_ptr(), seeds_dev.data_ptr(), K._ptr(ext_acc), ptr("g_tf"),
-            ptr("g_vol"), K._stream(device))
+            ptr("g_vol"), ptr("g_env"), K._stream(device))
     K._raise_on(err, "prb_reverse")
     LAUNCHES["prb_reverse"] += 1
+    LAUNCHES["prb_reverse_environment"] += int("g_env" in adj)
+    LAUNCHES["prb_reverse_xy"] += int(xy)
     if ext_acc is not None:
         adj["g_ext"] += ext_acc.to(torch.float32)
 
@@ -499,7 +590,8 @@ def _m_final(state):
 
 def _packed_adj_init(ctx, wrt):
     """Zero packed adjoints for a ``wrt`` subset: g_ext (1,), g_tf
-    (Hp*Wp, 18), g_vol (rows, 8)."""
+    (Hp*Wp, 18), g_vol (rows, 8), or (rows, 4) for an xy volume, g_env
+    (He+1 * We+1, 12) on an env ctx."""
     dev = ctx.material_tf.device
     adj = {}
     if "extinction" in wrt:
@@ -508,8 +600,11 @@ def _packed_adj_init(ctx, wrt):
         Hp, Wp, CC = ctx.material_tf.shape
         adj["g_tf"] = torch.zeros((Hp * Wp, CC), dtype=torch.float32, device=dev)
     if "density" in wrt:
-        adj["g_vol"] = torch.zeros((int(np.prod(ctx.density.dims)), 8), dtype=torch.float32,
-                                   device=dev)
+        adj["g_vol"] = torch.zeros((int(np.prod(ctx.density.dims)), ctx.density.width),
+                                   dtype=torch.float32, device=dev)
+    if "environment" in wrt and ctx.environment is not None:
+        HpE, WpE, _ = ctx.environment.shape
+        adj["g_env"] = torch.zeros((HpE * WpE, 12), dtype=torch.float32, device=dev)
     return adj
 
 
@@ -528,7 +623,10 @@ def _contract_packed_adjoints(acc, ctx, wrt):
         if g_light is not None:
             grads["light_spectrum"] = g_light
     if "density" in wrt:
-        grads["density"] = corners.contract_volume(acc["g_vol"], ctx.density.dims)
+        grads["density"] = corners.contract_volume(acc["g_vol"], ctx.density.dims,
+                                                   ctx.density.kind)
+    if "environment" in wrt and ctx.environment is not None:
+        grads["environment"] = corners.contract_env(acc["g_env"].reshape(ctx.environment.shape))
     return grads
 
 
@@ -567,9 +665,9 @@ def spectral_backward_packed(state0, ctx, g_image, steps: int, n_bins: int,
     ``return_cot`` thread the (c, cb) carry, ``forward_only`` returns
     (state_out, tape (steps, F, lanes)) and ``tape_in`` / ``state_out_in``
     run the reverse pass on a stored tape."""
-    _check_packed_ctx(ctx, volume_filter)
+    ctx = packed_ctx(ctx, volume_filter)
     wrt = frozenset(wrt)
-    fields = tape_fields(wrt)
+    fields = ctx_tape_fields(ctx, wrt)
     if tape_in is None:
         state_out, tapes = tape_forward(state0, ctx, [ctx.seed_bits], steps, n_bins, wrt)
     else:
@@ -603,8 +701,9 @@ def prb_render_and_grads(state0, ctx, g_image, steps: int, n_bins: int,
                          scatter_stride: int = 1, scatter_mode: str = "stride",
                          scatter_phase=None, pick_bits=None):
     """Forward dispatch + hand-derived backward: (state_out, image, grads),
-    grads addressing the raw tables. Only the packed ctx is ported; a raw
-    ctx raises ``NotImplementedError``."""
+    grads addressing the raw tables. Only the packed ctx is ported (full
+    or xy volume, any filter ``volume_filter`` names, with or without an
+    environment map); a raw ctx raises ``NotImplementedError``."""
     return spectral_backward_packed(state0, ctx, g_image, steps, n_bins, volume_filter,
                                     wrt=wrt, scatter_stride=scatter_stride,
                                     scatter_mode=scatter_mode, pick_bits=pick_bits,
@@ -630,7 +729,7 @@ def _prb_many_core(state0, ctx, seeds, g_image, steps, n_bins, wrt, scatter_stri
     window-final ``m_final``; returns grads."""
     seeds = _seeds(seeds)
     n = len(seeds)
-    fields = tape_fields(wrt)
+    fields = ctx_tape_fields(ctx, wrt)
     lane, resolution, streams, n_lanes = _lanes(state0)
     stride = max(int(scatter_stride), 1)
     adj = _packed_adj_init(ctx, wrt)
@@ -682,15 +781,17 @@ def _tape_reverse_sweep(state0, ctx, seeds, tapes, m_final, g_image, steps, n_bi
     cot = dict(c=torch.zeros(n_lanes, dtype=torch.float32, device=dev),
                cb=torch.zeros(n_lanes, dtype=torch.float32, device=dev))
     phases = [_dispatch_phase(k, s, len(seeds), stride) for k, s in enumerate(seeds)]
-    prb_reverse(tapes, tape_fields(wrt), _deposit_cotangents(g_image, ctx, lane, n_bins, m_final),
+    prb_reverse(tapes, ctx_tape_fields(ctx, wrt),
+                _deposit_cotangents(g_image, ctx, lane, n_bins, m_final),
                 cot, adj, phases, seeds, scatter_stride=stride, scatter_mode=scatter_mode,
                 inv_mu=_inv_mu(ctx), resolution=resolution, streams=streams)
     return _contract_packed_adjoints(adj, ctx, wrt)
 
 
-def _window_tape_bytes(state0, steps, n_dispatches, wrt) -> int:
+def _window_tape_bytes(state0, ctx, steps, n_dispatches, wrt) -> int:
     """Bytes of the stacked window tape."""
-    return int(np.prod(state0.px.shape)) * steps * n_dispatches * len(tape_fields(wrt)) * 4
+    return (int(np.prod(state0.px.shape)) * steps * n_dispatches
+            * len(ctx_tape_fields(ctx, wrt)) * 4)
 
 
 def resolve_storage(window_storage, tape_bytes: int) -> str:
@@ -728,13 +829,13 @@ def prb_render_and_grads_many(state0, ctx, seeds, g_image, steps: int, n_bins: i
     ``window_storage``: "tape" (one K4 launch taping all K dispatches, one
     K5 launch), "forward" (store start states, re-simulate each dispatch
     taped in reverse order), or "auto" (tape while it fits in 6 GiB)."""
-    _check_packed_ctx(ctx, volume_filter)
+    ctx = packed_ctx(ctx, volume_filter)
     wrt = frozenset(wrt)
     if not window:
         return _prb_many_core(state0, ctx, seeds, g_image, steps, n_bins, wrt,
                               scatter_stride, None, scatter_mode=scatter_mode)
     n = len(_seeds(seeds))
-    if resolve_storage(window_storage, _window_tape_bytes(state0, steps, n, wrt)) == "tape":
+    if resolve_storage(window_storage, _window_tape_bytes(state0, ctx, steps, n, wrt)) == "tape":
         state_f, tapes, image, m_final = _tape_forward_sweep(state0, ctx, seeds, steps,
                                                              n_bins, wrt)
         grads = _tape_reverse_sweep(state0, ctx, seeds, tapes, m_final, g_image, steps,
@@ -754,10 +855,10 @@ def prb_loss_and_grads(state0, ctx, seeds, target, steps: int, n_bins: int,
     the engine of ``optim.fit_spectral(method="prb")``:
     (state_out, image, loss, grads). The image cotangent is
     g = 2 (image - target) / numel."""
-    _check_packed_ctx(ctx, volume_filter)
+    ctx = packed_ctx(ctx, volume_filter)
     wrt = frozenset(wrt)
     n = len(_seeds(seeds))
-    if resolve_storage(window_storage, _window_tape_bytes(state0, steps, n, wrt)) == "tape":
+    if resolve_storage(window_storage, _window_tape_bytes(state0, ctx, steps, n, wrt)) == "tape":
         state_f, tapes, image, m_final = _tape_forward_sweep(state0, ctx, seeds, steps,
                                                              n_bins, wrt)
         g_image = sampling.div_scalar(2.0 * (image - target), float(image.numel()))

@@ -8,8 +8,10 @@ and ``_surrogate``). The surrogate differentiates the discrete events by
 their scores (the free flight in score form, P / stop_grad(P) on null and
 scatter events, as PRB does) and the continuous chains pathwise: the HG
 inversion through g and the incoming direction, the position through the
-trilinear lookup's spatial gradient, and the directional light through the
-direction. So its reverse carries, per lane, the score cotangent ``c``, the
+trilinear lookup's spatial gradient (through the smoothstep warp's
+derivative under the quasicubic filter), and the directional light or the
+environment map's equirect lookup through the direction. So its reverse
+carries, per lane, the score cotangent ``c``, the
 adjoints of the position and the direction, and the radiance adjoint per
 bin, across steps and dispatches.
 
@@ -22,7 +24,8 @@ bin, across steps and dispatches.
   dispatch tapes. Its inputs are the adjoints at the last dispatch's end,
   which it replaces in place by those at the first dispatch's start; it
   adds into the packed adjoints (one 18-wide TF+light row and one 8-wide
-  volume row per event lane-step) and the extinction adjoint. Plain
+  volume row per event lane-step, the 4 texel terms of an escape's 12-wide
+  environment row) and the extinction adjoint. Plain
   version ``reverse_plain``: the same derivation in torch ops, in K12's
   order.
 
@@ -55,8 +58,15 @@ here the HG adjoint is computed on scattering lanes only.
 
 Each wrapper runs its plain version when its tensors lie on the CPU and
 launches its kernel when they lie on a CUDA device; anything else raises.
-``LAUNCHES`` counts kernel launches only. Environment maps, the
-quasicubic filter and lane tables raise ``NotImplementedError``.
+``LAUNCHES`` counts kernel launches only (a launch in env mode also under
+its ``_environment`` key, in env and majorant mode at once, one
+instantiation of its own, under ``_environment_majorant``, K12 with the
+quasicubic filter under ``surrogate_reverse_quasicubic``). The xy half-packed volume, raw tables
+and lane tables raise ``NotImplementedError``.
+
+At the poles of the environment map (|dy| = 1) the slope of asin is
+unbounded: an escape there gets an inf or NaN direction adjoint, as under
+``jax.grad`` (ROADMAP C, "Env-mode deposits").
 """
 
 from __future__ import annotations
@@ -77,7 +87,10 @@ F_RESPAWN, F_OOB, F_NULL, F_SCATTER, F_CAPPED = 1, 2, 4, 8, 16
 EPS = 1e-5
 
 LAUNCHES = {"surrogate_tape_forward": 0, "surrogate_tape_forward_majorant": 0,
-            "surrogate_reverse": 0}
+            "surrogate_tape_forward_environment": 0,
+            "surrogate_tape_forward_environment_majorant": 0, "surrogate_reverse": 0,
+            "surrogate_reverse_environment": 0, "surrogate_reverse_environment_majorant": 0,
+            "surrogate_reverse_quasicubic": 0}
 
 
 def reset_launch_counts():
@@ -92,15 +105,22 @@ def fields(majorant: bool) -> tuple:
 
 def check_ctx(ctx):
     """The modes the surrogate's backward covers: exact or majorant mode,
-    the linear filter, a directional or isotropic light, packed tables."""
-    if ctx.volume_filter != "linear":
+    the linear or quasicubic filter, a directional or isotropic light or an
+    environment map, the full packed tables."""
+    if ctx.volume_filter not in ("linear", "quasicubic"):
         raise NotImplementedError(f"surrogate gradients with the {ctx.volume_filter!r} filter "
-                                  "are not ported")
-    if ctx.environment is not None:
-        raise NotImplementedError("environment-map gradients of the surrogate are not ported")
+                                  "need raw tables, which are not ported")
     if not isinstance(ctx.density, interp.PackedVolume):
         raise NotImplementedError("the surrogate's backward needs the packed ctx "
-                                  "(PackedVolume + fused TF)")
+                                  "(PackedVolume + fused TF); raw tables are not ported")
+    if ctx.density.kind != "full":
+        raise NotImplementedError("the surrogate over an xy half-packed volume is not ported "
+                                  "yet (the next slice, with raw tables); use the PRB backward "
+                                  "(method='prb') for xy volumes")
+    if ctx.environment is not None and (ctx.environment.ndim != 3
+                                        or ctx.environment.shape[-1] != 12):
+        raise ValueError("the surrogate needs the packed (He+1, We+1, 12) environment map, got "
+                         f"{tuple(ctx.environment.shape)}")
     if ctx.material_tf.ndim != 3 or ctx.material_tf.shape[-1] != 18:
         raise ValueError("the surrogate needs the fused (Hp, Wp, 18) TF+light table, got "
                          f"{tuple(ctx.material_tf.shape)}")
@@ -212,10 +232,13 @@ def tape_forward(state, ctx, seeds, steps: int, n_bins: int):
             f.ctypes.data, i.ctypes.data, _slots(flds).ctypes.data, len(flds),
             *(getattr(out, k).data_ptr() for k in K.STATE_FIELDS[:11]),
             ctx.density.table.data_ptr(), ctx.material_tf.data_ptr(), K._ptr(ctx.majorant),
-            seeds_dev.data_ptr(), tapes.data_ptr(), K._stream(device))
+            K._ptr(ctx.environment), seeds_dev.data_ptr(), tapes.data_ptr(), K._stream(device))
     K._raise_on(err, "surrogate_tape_forward")
     LAUNCHES["surrogate_tape_forward"] += 1
     LAUNCHES["surrogate_tape_forward_majorant"] += int(ctx.majorant is not None)
+    LAUNCHES["surrogate_tape_forward_environment"] += int(ctx.environment is not None)
+    LAUNCHES["surrogate_tape_forward_environment_majorant"] += int(
+        ctx.environment is not None and ctx.majorant is not None)
     return out, tapes
 
 
@@ -233,14 +256,13 @@ def _tie_min(x, hi: float):
     return torch.where(x < hi, one, torch.where(x == hi, 0.5 * one, 0.0 * one))
 
 
-def _volume_corners(vol, px, py, pz):
-    """The forward's trilinear lookup at the sample position, with what its
-    adjoint needs: (dens, row, (fx, fy, fz), corners (8 tensors))."""
-    Dp, Hp, Wp = vol.dims
-    bx, fx = interp._base_and_frac(px, Wp - 1)
-    by, fy = interp._base_and_frac(py, Hp - 1)
-    bz, fz = interp._base_and_frac(pz, Dp - 1)
-    row = ((bz * Hp + by) * Wp + bx).to(torch.int64)
+def _volume_corners(vol, px, py, pz, qc: bool = False):
+    """The forward's trilinear (``qc``: quasicubic) lookup at the sample
+    position, with what its adjoint needs: (dens, row, the unwarped
+    fractions, the weights (fx, fy, fz), corners (8 tensors))."""
+    row, _, *raw = interp.volume_rows(vol.dims, px, py, pz)
+    fx, fy, fz = (interp.quasicubic_warp(f) for f in raw) if qc else raw
+    row = row.to(torch.int64)
     rows = interp.dequantize_rows(vol.table[row])
     c = [rows[..., k] for k in range(8)]
     c00 = c[0] + (c[1] - c[0]) * fx
@@ -249,7 +271,32 @@ def _volume_corners(vol, px, py, pz):
     c11 = c[6] + (c[7] - c[6]) * fx
     c0 = c00 + (c01 - c00) * fy
     c1 = c10 + (c11 - c10) * fy
-    return c0 + (c1 - c0) * fz, row, (fx, fy, fz), c
+    return c0 + (c1 - c0) * fz, row, tuple(raw), (fx, fy, fz), c
+
+
+def _env_reverse(env, d, lam, g_emit, oob, adj):
+    """The escape's environment lookup in reverse (K12's ``env_reverse``,
+    in its order), for the adjoint ``g_emit`` of the emitted value on the
+    escaping lanes ``oob``: adds the 4 texel terms into ``adj["g_env"]``
+    when present and returns the direction's adjoint (3 tensors)."""
+    dx, dy, dz = d
+    Hp, Wp, _ = env.shape
+    row, fx, fy, band = K.env_addr(env, dx, dy, dz, lam)
+    flat = env.reshape(-1, 12)
+    a = [flat[row, 3 * k + band] for k in range(4)]
+    c0 = a[0] + (a[1] - a[0]) * fx
+    c1 = a[2] + (a[3] - a[2]) * fx
+    zero = torch.zeros_like(g_emit)
+    g = torch.where(oob, g_emit, zero) * K.ENV_GAIN
+    if "g_env" in adj:
+        K.add_env_texels_plain(adj["g_env"], row, band, g, fx, fy)
+    g_fx = g * (1 - fy) * (a[1] - a[0]) + g * fy * (a[3] - a[2])
+    g_fy = g * (c1 - c0)
+    g_at = g_fx * float(Wp - 1) * 0.5 * K.INV_PI
+    g_as = g_fy * float(Hp - 1) * 0.5 * 2.0 * K.INV_PI
+    r2 = dx * dx + dz * dz
+    gdl = (g_at * -dz / r2, -(g_as / torch.sqrt(1.0 - dy * dy)), g_at * dx / r2)
+    return tuple(torch.where(oob, t, zero) for t in gdl)
 
 
 def _hg_reverse(g, d, u, ucos, go):
@@ -306,8 +353,9 @@ def reverse_plain(tapes, flds, samples, carry, adj, ctx, n_bins: int):
     """Plain ``reverse``: walks the K dispatch tapes backwards, updating
     the carry (dict: c (lanes,), gp (3, lanes), gd (3, lanes), grad
     (n_bins, lanes)) and adding into ``adj`` (g_ext (1,), g_tf (rows, 18),
-    g_vol (rows, 8), as present), both in place. ``samples``: each lane's
-    sample count at the end of the last dispatch."""
+    g_vol (rows, 8), g_env (rows, 12), as present), both in place.
+    ``samples``: each lane's sample count at the end of the last
+    dispatch."""
     check_ctx(ctx)
     n_disp, steps = tapes.shape[:2]
     col = {f: i for i, f in enumerate(flds)}
@@ -319,6 +367,8 @@ def reverse_plain(tapes, flds, samples, carry, adj, ctx, n_bins: int):
     vol = ctx.density
     Dp, VHp, VWp = vol.dims
     majorant = "maj" in col
+    env = ctx.environment
+    qc = ctx.volume_filter == "quasicubic"
     c = carry["c"].clone()
     gp = [t.clone() for t in carry["gp"]]
     gd = [t.clone() for t in carry["gd"]]
@@ -345,12 +395,15 @@ def reverse_plain(tapes, flds, samples, carry, adj, ctx, n_bins: int):
             grad = torch.where(respawn[None], grad - grad / denom[None], grad)
             n = n - respawn.to(torch.int32)
             # the escape light, recomputed from the wavelength's light pair
+            # (or the environment map)
             bx, tfx = interp._base_and_frac(sampling.div_scalar(t[col["lam"]] - 400.0, 300.0),
                                             Wp - 1)
             pair = tf_flat[bx.to(torch.int64)]
             light_raw = pair[:, 16] + (pair[:, 17] - pair[:, 16]) * tfx
             intensity = light_raw * 5.0
-            if isotropic:
+            if env is not None:
+                emitted = K.sample_environment(env, *d, t[col["lam"]])
+            elif isotropic:
                 emitted = intensity
             else:
                 ddot = d[0] * lx + d[1] * ly + d[2] * lz
@@ -369,7 +422,10 @@ def reverse_plain(tapes, flds, samples, carry, adj, ctx, n_bins: int):
                 ext_lane = ext_lane + (gs1 * inv_mu - gs1 * dist)
             # the light's pathwise terms (escaping lanes)
             g_esc = torch.where(oob, g_dep, zero)
-            if isotropic:
+            if env is not None:
+                gdl = _env_reverse(env, d, t[col["lam"]], g_dep, oob, adj)
+                g_int = zero
+            elif isotropic:
                 g_int = g_esc
                 gdl = (zero, zero, zero)
             else:
@@ -379,7 +435,7 @@ def reverse_plain(tapes, flds, samples, carry, adj, ctx, n_bins: int):
                 gdl = (g_dot * lx, g_dot * ly, g_dot * lz)
             g_light = g_int * 5.0
             # the material at the sample position (the forward's lookups)
-            dens, vrow, (vfx, vfy, vfz), corner = _volume_corners(vol, *pos)
+            dens, vrow, vraw, (vfx, vfy, vfz), corner = _volume_corners(vol, *pos, qc)
             t_coord = sampling.div_scalar(t[col["lam"]] - 400.0, 300.0)
             mat, _, ex = interp.sample_tex2d_fused1d(ctx.material_tf, t_coord, dens,
                                                      return_extras=True)
@@ -447,6 +503,10 @@ def reverse_plain(tapes, flds, samples, carry, adj, ctx, n_bins: int):
             g_fy = g_l0 * (l01 - l00) + g_l1 * (l11 - l10)
             g_fx = (g_l0 * (1 - vfy) * (cc[1] - cc[0]) + g_l0 * vfy * (cc[3] - cc[2])
                     + g_l1 * (1 - vfy) * (cc[5] - cc[4]) + g_l1 * vfy * (cc[7] - cc[6]))
+            if qc:
+                # the warp's derivative 6f(1 - f) at the unwarped fraction
+                g_fx, g_fy, g_fz = (gf * (6.0 * f * (1.0 - f))
+                                    for gf, f in zip((g_fx, g_fy, g_fz), vraw))
             gpd = (g_fx * float(VWp - 1), g_fy * float(VHp - 1), g_fz * float(Dp - 1))
             # position and direction adjoints before the step
             keep = ~respawn
@@ -491,6 +551,10 @@ def reverse(tapes, flds, samples, carry, adj, ctx, n_bins: int):
         K._check(adj["g_tf"], "g_tf", torch.float32, (adj["g_tf"].shape[0], 18), align=8)
     if "g_vol" in adj:
         K._check(adj["g_vol"], "g_vol", torch.float32, (adj["g_vol"].shape[0], 8), align=16)
+    if "g_env" in adj:
+        if ctx.environment is None:
+            raise ValueError("an environment adjoint needs a ctx with an environment map")
+        K._check(adj["g_env"], "g_env", torch.float32, (adj["g_env"].shape[0], 12))
     K._check_tables(ctx)
     # the lanes' pixels play no part in the reverse: resolution 1, 1 stream
     f, i = K._params(ctx, 1, 1, n_bins, steps, n_disp, n_lanes)
@@ -504,10 +568,15 @@ def reverse(tapes, flds, samples, carry, adj, ctx, n_bins: int):
             f.ctypes.data, i.ctypes.data, _slots(flds).ctypes.data, len(flds), tapes.data_ptr(),
             samples.data_ptr(), carry["c"].data_ptr(), *(t.data_ptr() for t in carry["gp"]),
             *(t.data_ptr() for t in carry["gd"]), carry["grad"].data_ptr(),
-            ctx.density.table.data_ptr(), ctx.material_tf.data_ptr(), K._ptr(ext_acc),
-            K._ptr(adj.get("g_tf")), K._ptr(adj.get("g_vol")), K._stream(device))
+            ctx.density.table.data_ptr(), ctx.material_tf.data_ptr(), K._ptr(ctx.environment),
+            K._ptr(ext_acc), K._ptr(adj.get("g_tf")), K._ptr(adj.get("g_vol")),
+            K._ptr(adj.get("g_env")), K._stream(device))
     K._raise_on(err, "surrogate_reverse")
     LAUNCHES["surrogate_reverse"] += 1
+    LAUNCHES["surrogate_reverse_environment"] += int(ctx.environment is not None)
+    LAUNCHES["surrogate_reverse_environment_majorant"] += int(
+        ctx.environment is not None and ctx.majorant is not None)
+    LAUNCHES["surrogate_reverse_quasicubic"] += int(ctx.volume_filter == "quasicubic")
     if ext_acc is not None:
         adj["g_ext"] += ext_acc.to(torch.float32)
 

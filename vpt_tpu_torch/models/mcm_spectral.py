@@ -1,8 +1,9 @@
 """Spectral multiple-scattering delta-tracking path tracer, forward path.
 
 Counterpart of ``vpt_tpu/models/mcm_spectral.py`` on packed tables (flat
-corner table, u8 when the source volume is u8-quantized, plus the fused
-(257, 257, 18) TF+light table), with its modes: linear or quasicubic
+corner table, full or xy half-packed, u8 when the source volume is
+u8-quantized, plus the fused (257, 257, 18) TF+light table), with its
+modes: linear or quasicubic
 filter; the exact global majorant or the super-voxel majorant grid
 (``majorant_blocks``, built by ``ops/majorant.py`` from the raw
 density and TF); a directional (or isotropic) light or an equirect
@@ -19,7 +20,9 @@ of the step kernel on a CUDA device (``vpt_tpu_torch/kernels``).
 dispatches of the autodiff surrogate: one ``torch.autograd.Function`` per
 window of dispatches (``_RenderWindow``), whose forward tapes the window in
 one launch of K4's surrogate mode and whose backward walks the tapes back in
-one K12 launch (``kernels/surrogate.py``).
+one K12 launch (``kernels/surrogate.py``), over a full packed volume with
+the linear or quasicubic filter and the light or the environment map. The
+surrogate over an xy half-packed volume raises ``NotImplementedError``.
 
 Known reference quirks preserved: radiance starts at 1.0; y-flipped screen
 coordinates; light gain 5.0; the volume is sampled (clamped) before the
@@ -82,7 +85,7 @@ class SpectralCtx:
     blur: np.float32
     max_bounces: int
     light_direction: np.ndarray  # (3,) f32, unnormalized
-    density: interp.PackedVolume  # flat (rows, 8) u8|f32 corner table
+    density: interp.PackedVolume  # flat (rows, 8) full or (rows, 4) xy u8|f32 table
     material_tf: torch.Tensor  # (257, 257, 18) fused TF + light table
     light_spectrum: torch.Tensor  # (257, 2) packed light pairs
     boundaries: np.ndarray  # (B+1,) f32 bin boundaries
@@ -132,8 +135,9 @@ _PLAIN_FIELDS = ("bounces", "samples", "bin", "wavelength")
 class _RenderWindow(torch.autograd.Function):
     """K differentiable dispatches, one per frame seed, over (the start
     state's float fields, the score, the packed volume table, the fused TF
-    table, the extinction), in one of two schedules that compute the same
-    values (``window_storage`` resolved as the PRB window's):
+    table, the extinction, the packed environment map or None), in one of
+    two schedules that compute the same values (``window_storage`` resolved
+    as the PRB window's):
 
     - "tape": the forward is one launch of K4's surrogate mode over the K
       dispatches, whose tapes are kept; the backward is one K12 launch over
@@ -148,11 +152,12 @@ class _RenderWindow(torch.autograd.Function):
     zeroing happen once per window."""
 
     @staticmethod
-    def forward(fctx, meta, px, py, pz, dx, dy, dz, radiance, score, vol, tf, extinction):
+    def forward(fctx, meta, px, py, pz, dx, dy, dz, radiance, score, vol, tf, extinction, env):
         sctx, state, seeds, steps, n_bins, storage = meta
         kctx = dataclasses.replace(
-            sctx, density=interp.PackedVolume(vol.detach(), sctx.density.dims),
-            material_tf=tf.detach(), extinction=np.float32(float(extinction.detach())))
+            sctx, density=dataclasses.replace(sctx.density, table=vol.detach()),
+            material_tf=tf.detach(), extinction=np.float32(float(extinction.detach())),
+            environment=None if env is None else env.detach())
         start = SpectralState(px=px, py=py, pz=pz, dx=dx, dy=dy, dz=dz, bounces=state.bounces,
                               samples=state.samples, bin=state.bin, wavelength=state.wavelength,
                               radiance=radiance, transmittance=state.transmittance)
@@ -198,6 +203,9 @@ class _RenderWindow(torch.autograd.Function):
                                       dtype=torch.float32, device=dev)
         if need[11]:
             adj["g_ext"] = torch.zeros(1, dtype=torch.float32, device=dev)
+        if need[12]:
+            HpE, WpE, _ = kctx.environment.shape
+            adj["g_env"] = torch.zeros((HpE * WpE, 12), dtype=torch.float32, device=dev)
         flds = S.fields(kctx.majorant is not None)
         with torch.no_grad():
             if fctx.starts is None:
@@ -211,15 +219,17 @@ class _RenderWindow(torch.autograd.Function):
         return (None, *g_state, carry["grad"].reshape((n_bins,) + lane), carry["c"].reshape(lane),
                 adj.get("g_vol"),
                 adj["g_tf"].reshape(kctx.material_tf.shape) if "g_tf" in adj else None,
-                adj["g_ext"].reshape(()) if "g_ext" in adj else None)
+                adj["g_ext"].reshape(()) if "g_ext" in adj else None,
+                adj["g_env"].reshape(kctx.environment.shape) if "g_env" in adj else None)
 
 
 def _render_window(state: SpectralState, score: torch.Tensor, ctx: SpectralCtx, seeds,
                    steps: int, n_bins: int, volume_filter: str, window_storage: str):
-    """The differentiable window from ``state`` (untouched): (state, score)."""
-    if volume_filter != "linear":
-        raise NotImplementedError(f"surrogate gradients with the {volume_filter!r} filter "
-                                  "are not ported")
+    """The differentiable window from ``state`` (untouched): (state, score).
+    ``volume_filter`` is the filter rendered, whatever ``ctx.volume_filter``
+    says (the static argument of the JAX functions, whose ctx holds none)."""
+    if ctx.volume_filter != volume_filter:
+        ctx = dataclasses.replace(ctx, volume_filter=volume_filter)
     S.check_ctx(ctx)
     seeds = [int(s) for s in np.asarray(seeds, np.uint32).reshape(-1)]
     if not seeds:
@@ -231,7 +241,7 @@ def _render_window(state: SpectralState, score: torch.Tensor, ctx: SpectralCtx, 
         ext = torch.tensor(np.float32(ext))
     outs = _RenderWindow.apply((ctx, state, seeds, steps, n_bins, storage),
                                *(getattr(state, k) for k in _DIFF_FIELDS), score,
-                               ctx.density.table, ctx.material_tf, ext)
+                               ctx.density.table, ctx.material_tf, ext, ctx.environment)
     fields = dict(zip(_DIFF_FIELDS, outs[:7]))
     fields.update(zip(_PLAIN_FIELDS, outs[8:]))
     return SpectralState(**fields, transmittance=state.transmittance), outs[7]
@@ -240,9 +250,11 @@ def _render_window(state: SpectralState, score: torch.Tensor, ctx: SpectralCtx, 
 def render_diff(state: SpectralState, score: torch.Tensor, ctx: SpectralCtx, steps: int,
                 n_bins: int, volume_filter: str = "linear"):
     """Differentiable render dispatch: (state, score, image), the forward
-    bit for bit ``render``'s; the window of one dispatch. Gradients of the
-    outputs flow to the packed tables ``ctx.density.table`` (f32) and
-    ``ctx.material_tf``, to ``ctx.extinction`` (a 0-d tensor), and to the
+    bit for bit ``render``'s with the ``volume_filter`` argument's filter
+    (it decides, as the JAX static argument does); the window of one
+    dispatch. Gradients of the outputs flow to the packed tables
+    ``ctx.density.table`` (f32), ``ctx.material_tf`` and
+    ``ctx.environment``, to ``ctx.extinction`` (a 0-d tensor), and to the
     state's position, direction and radiance and the score, by the
     autodiff surrogate's hand-derived backward (``kernels/surrogate.py``).
     ``score``: the carried score weights, ones after a reset; a product of
@@ -273,6 +285,20 @@ def render_sequence_diff(seeds, init_state: SpectralState, ctx: SpectralCtx, ste
     return radiance_to_rgb(new.radiance, ctx.bin_xyz)
 
 
+def _volume_kind(pack_tables):
+    """The packed volume kind a ``pack_tables`` option asks for, as the
+    reference reads it: True or a set holding "density", "material_tf" and
+    "light_spectrum" is "full"; a set holding "density_xy" and the two TF
+    keys (and not "density") is "xy". None for the options that keep a raw
+    table, which are not ported: False, a set without a volume key or
+    without both TF keys."""
+    keys = {"density", "material_tf", "light_spectrum"} if pack_tables is True else set(
+        pack_tables or ())
+    if not {"material_tf", "light_spectrum"} <= keys:
+        return None
+    return "full" if "density" in keys else "xy" if "density_xy" in keys else None
+
+
 def _seed_bits(seed) -> int:
     if isinstance(seed, (int, np.integer)):
         return int(np.uint32(seed))
@@ -283,9 +309,13 @@ def _seed_bits(seed) -> int:
 class MCMSpectralRenderer(nn.Module):
     """Progressive spectral MCM renderer bound to scene resources.
 
-    The scene tables are registered buffers on ``device``; options outside
-    the ported forward path (raw or partly packed tables, the ``nearest``
-    filter, a mesh) raise ``NotImplementedError``."""
+    The scene tables are registered buffers on ``device``. ``pack_tables``:
+    True (the full 8-wide corner table) or {"density_xy", "material_tf",
+    "light_spectrum"} (the xy half-packed volume, the reference's big-volume
+    mode: 4x the raw grid's memory instead of 8x), both with the fused
+    TF+light table. Options outside the ported path (``pack_tables=False``
+    or another subset, i.e. raw tables; the ``nearest`` filter; a mesh)
+    raise ``NotImplementedError``."""
 
     # bound on _compact_tables' per-pose cache (an orbit renders many poses)
     COMPACT_CACHE_POSES = 8
@@ -310,9 +340,11 @@ class MCMSpectralRenderer(nn.Module):
         super().__init__()
         if compaction and mesh is not None:
             raise ValueError("compaction is a single-device mode")
+        vol_kind = _volume_kind(pack_tables)
         unsupported = {
             "mesh": mesh is not None,
-            f"pack_tables={pack_tables!r} (raw tables, streams={streams})": pack_tables is not True,
+            f"pack_tables={pack_tables!r} (raw or partly packed tables, streams={streams})":
+                vol_kind is None,
             f"volume filter {volume.filter!r}": volume.filter not in ("linear", "quasicubic"),
         }
         for what, bad in unsupported.items():
@@ -335,9 +367,9 @@ class MCMSpectralRenderer(nn.Module):
         # host seconds of the table builds (a 512^3 volume takes seconds)
         self.build_seconds = {}
         t0 = time.perf_counter()
-        vol = interp.pack_volume_auto(volume.density, self.device)
+        vol = interp.pack_volume_auto(volume.density, self.device, vol_kind)
         self.build_seconds["pack_volume"] = time.perf_counter() - t0
-        self.vol_dims = vol.dims
+        self.vol_dims, self.vol_kind = vol.dims, vol.kind
         self.register_buffer("vol_table", vol.table)
         self.register_buffer("tf_table", torch.as_tensor(
             interp.pack_tex2d_with_tex1d(self.material_tf.table, light_spectrum), device=self.device))
@@ -376,7 +408,7 @@ class MCMSpectralRenderer(nn.Module):
             blur=np.float32(cfg.blur),
             max_bounces=int(cfg.bounces),
             light_direction=np.asarray(self.light.direction, np.float32),
-            density=interp.PackedVolume(self.vol_table, self.vol_dims),
+            density=interp.PackedVolume(self.vol_table, self.vol_dims, self.vol_kind),
             material_tf=self.tf_table,
             light_spectrum=self.light_table,
             boundaries=self._boundaries,

@@ -1,8 +1,10 @@
 """Packed-table texture sampling on torch lane tensors.
 
 Counterpart of the packed paths of ``vpt_tpu/ops/interp.py``: a trilinear
-footprint of the volume is one 8-wide corner row, a bilinear footprint of
-the material TF plus the light spectrum's linear pair is one 18-wide row.
+footprint of the volume is one 8-wide corner row (kind "full") or two
+4-wide rows of its z planes (kind "xy", the half-packed big-volume table
+at 4x memory instead of 8x), a bilinear footprint of the material TF plus
+the light spectrum's linear pair is one 18-wide row.
 Semantics match WebGPU ``textureSampleLevel`` with normalized coordinates,
 linear filtering and clamp-to-edge addressing.
 
@@ -31,22 +33,38 @@ _INT_LIMIT = float(2**31 - 128)
 
 @dataclass
 class PackedVolume:
-    """A full (8-corner) packed volume table stored flat.
+    """A packed volume table stored flat.
 
-    ``table``: (rows, 8) uint8 or float32 tensor; ``dims``: the padded
-    table dims (D+1, H+1, W+1), rows == prod(dims)."""
+    ``table``: (rows, width) uint8 or float32 tensor; ``dims``: the padded
+    table dims, rows == prod(dims); ``kind``: "full" (width 8, dims (D+1,
+    H+1, W+1)) or "xy" (width 4, dims (D, H+1, W+1)), as the JAX
+    ``PackedVolume`` defines them."""
 
     table: torch.Tensor
     dims: tuple
+    kind: str = "full"
 
     def __post_init__(self):
         self.dims = tuple(int(d) for d in self.dims)
-        if self.table.ndim != 2 or self.table.shape[1] != 8:
-            raise ValueError(f"packed volume table must be (rows, 8), got {tuple(self.table.shape)}")
+        if self.kind not in ("full", "xy"):
+            raise ValueError(f"packed volume kind must be 'full' or 'xy', got {self.kind!r}")
+        if self.table.ndim != 2 or self.table.shape[1] != self.width:
+            raise ValueError(f"a {self.kind} packed volume table must be (rows, {self.width}), "
+                             f"got {tuple(self.table.shape)}")
         if self.table.shape[0] != self.dims[0] * self.dims[1] * self.dims[2]:
             raise ValueError(f"table rows {self.table.shape[0]} != prod(dims) {self.dims}")
         if self.table.dtype not in (torch.uint8, torch.float32):
             raise ValueError(f"packed volume table must be uint8 or float32, got {self.table.dtype}")
+
+    @property
+    def width(self) -> int:
+        return 4 if self.kind == "xy" else 8
+
+    @property
+    def raw_shape(self) -> tuple:
+        """The (D, H, W) shape of the raw grid the table packs."""
+        D, Hp, Wp = self.dims
+        return (D if self.kind == "xy" else D - 1, Hp - 1, Wp - 1)
 
 
 def pack_volume_corners(density) -> np.ndarray:
@@ -69,6 +87,16 @@ def pack_volume_corners(density) -> np.ndarray:
     return np.ascontiguousarray(corners, dtype=d.dtype)
 
 
+def pack_volume_corners_xy(density) -> np.ndarray:
+    """The half-packed volume: each row holds the 4 xy corners of one depth
+    plane. Input (D, H, W); output (D, H+1, W+1, 4), corner order
+    (y0x0, y0x1, y1x0, y1x1); a lookup reads the rows of planes z0 and z1."""
+    d = np.asarray(density)
+    p = np.pad(d, ((0, 0), (1, 1), (1, 1)), mode="edge")
+    corners = np.stack([p[:, :-1, :-1], p[:, :-1, 1:], p[:, 1:, :-1], p[:, 1:, 1:]], axis=-1)
+    return np.ascontiguousarray(corners, dtype=d.dtype)
+
+
 def is_u8_quantized(density) -> bool:
     """True when every density equals round(d*255)/255 (the readers' u8 format)."""
     d = np.asarray(density)
@@ -76,16 +104,20 @@ def is_u8_quantized(density) -> bool:
     return bool(np.allclose(q / 255.0, d, atol=1e-7))
 
 
-def pack_volume_auto(density, device) -> PackedVolume:
-    """Pack a raw (D, H, W) grid into a flat table on ``device``: uint8 when
-    the source is u8-quantized (exact: the sampler dequantizes to k/255),
-    float32 otherwise. A u8 source is quantized before packing, so a 512^3
-    volume packs through a 1 GB u8 array instead of a 4 GB float one."""
+def pack_volume_auto(density, device, kind: str = "full") -> PackedVolume:
+    """Pack a raw (D, H, W) grid into a flat table of ``kind`` ("full" or
+    "xy") on ``device``: uint8 when the source is u8-quantized (exact: the
+    sampler dequantizes to k/255), float32 otherwise. A u8 source is
+    quantized before packing, so a 512^3 volume packs through a 1 GB u8
+    array instead of a 4 GB float one."""
+    if kind not in ("full", "xy"):
+        raise ValueError(f"packed volume kind must be 'full' or 'xy', got {kind!r}")
     d = np.asarray(density, np.float32)
     if is_u8_quantized(d):
         d = np.round(d * 255.0).astype(np.uint8)
-    packed = pack_volume_corners(d)
-    return PackedVolume(torch.as_tensor(packed.reshape(-1, 8), device=device), packed.shape[:3])
+    packed = (pack_volume_corners_xy if kind == "xy" else pack_volume_corners)(d)
+    return PackedVolume(torch.as_tensor(packed.reshape(-1, packed.shape[-1]), device=device),
+                        packed.shape[:3], kind)
 
 
 def pack_tex2d_corners(tex) -> np.ndarray:
@@ -131,6 +163,13 @@ def pack_volume_corners_t(density: torch.Tensor) -> torch.Tensor:
         ],
         dim=-1,
     )
+
+
+def pack_volume_corners_xy_t(density: torch.Tensor) -> torch.Tensor:
+    """Differentiable torch ``pack_volume_corners_xy``: (D, H, W) ->
+    (D, H+1, W+1, 4), the same values bit for bit."""
+    p = F.pad(density[:, None], (1, 1, 1, 1), mode="replicate")[:, 0]
+    return torch.stack([p[:, :-1, :-1], p[:, :-1, 1:], p[:, 1:, :-1], p[:, 1:, 1:]], dim=-1)
 
 
 def pack_tex2d_corners_t(tex: torch.Tensor) -> torch.Tensor:
@@ -179,22 +218,51 @@ def dequantize_rows(rows: torch.Tensor) -> torch.Tensor:
     return rows.to(torch.float32)
 
 
-def sample_volume_packed(table: torch.Tensor, dims, u, v, w, mode: str = "linear"):
-    """Single-row trilinear (or quasi-cubic) sample of a flat (rows, 8)
-    corner table with padded dims (D+1, H+1, W+1). (u, v, w) index (W, H, D).
-    ``mode="quasicubic"`` smoothstep-warps the weights, f*f*(3 - 2f)."""
-    Dp, Hp, Wp = dims
+def volume_rows(dims, u, v, w, kind: str = "full"):
+    """The addressing of a packed volume lookup: (row0, row1, fx, fy, fz)
+    before any weight warp. A full table's corner row is row0 (row1 ==
+    row0); an xy table's rows of the z0 and z1 planes are row0 and row1
+    (the z planes unpadded, so both clamp to [0, D - 1], as JAX's
+    ``_sample_volume_packed_xy`` does)."""
+    D0, Hp, Wp = dims
     bx, fx = _base_and_frac(u, Wp - 1)
     by, fy = _base_and_frac(v, Hp - 1)
-    bz, fz = _base_and_frac(w, Dp - 1)
+    if kind == "xy":
+        # the padded-table index b = clamp(i + 1, 0, D) gives z0 = clamp(i,
+        # 0, D - 1) = max(b - 1, 0) and z1 = clamp(i + 1, 0, D - 1) = min(b, D - 1)
+        bz, fz = _base_and_frac(w, D0)
+        plane = by * Wp + bx
+        row0 = torch.clamp_min(bz - 1, 0) * (Hp * Wp) + plane
+        row1 = torch.clamp_max(bz, D0 - 1) * (Hp * Wp) + plane
+        return row0, row1, fx, fy, fz
+    bz, fz = _base_and_frac(w, D0 - 1)
+    row = (bz * Hp + by) * Wp + bx
+    return row, row, fx, fy, fz
+
+
+def quasicubic_warp(f):
+    """The quasicubic filter's smoothstep weight warp, f*f*(3 - 2f)."""
+    return f * f * (3.0 - 2.0 * f)
+
+
+def sample_volume_packed(table: torch.Tensor, dims, u, v, w, mode: str = "linear",
+                         kind: str = "full"):
+    """Trilinear (or quasi-cubic) sample of a flat packed volume table:
+    kind "full", one (rows, 8) corner row at padded dims (D+1, H+1, W+1);
+    kind "xy", two (rows, 4) rows of the z0 / z1 planes at dims (D, H+1,
+    W+1). (u, v, w) index (W, H, D). Both kinds lerp the same corner values
+    in the same order, so they give the same bits. ``mode="quasicubic"``
+    smoothstep-warps the weights, f*f*(3 - 2f)."""
+    row0, row1, fx, fy, fz = volume_rows(dims, u, v, w, kind)
     if mode == "quasicubic":
-        fx = fx * fx * (3.0 - 2.0 * fx)
-        fy = fy * fy * (3.0 - 2.0 * fy)
-        fz = fz * fz * (3.0 - 2.0 * fz)
+        fx, fy, fz = quasicubic_warp(fx), quasicubic_warp(fy), quasicubic_warp(fz)
     elif mode != "linear":
         raise ValueError(f"packed volumes support linear/quasicubic, not {mode!r}")
-    row = ((bz * Hp + by) * Wp + bx).to(torch.int64)
-    rows = dequantize_rows(table[row])
+    if kind == "xy":
+        rows = dequantize_rows(torch.cat([table[row0.to(torch.int64)],
+                                          table[row1.to(torch.int64)]], dim=-1))
+    else:
+        rows = dequantize_rows(table[row0.to(torch.int64)])
     c = [rows[..., k] for k in range(8)]
     c00 = c[0] + (c[1] - c[0]) * fx
     c01 = c[2] + (c[3] - c[2]) * fx

@@ -21,10 +21,18 @@ Adam is written out as plain tensor ops in the order optax uses, so a
 trajectory follows ``vpt_tpu.optim.fit_spectral``'s. A learned extinction
 is read to the host once per iteration (the kernels take it as a scalar).
 
+The learnable keys are density, material_tf, light_spectrum, extinction
+and, on an env-lit renderer, environment (the raw (He, We, 3) equirect
+map). A learned density is re-packed into the renderer's volume kind, the
+full corner table or the xy half-packed one. ``fit_spectral`` renders with
+the linear filter whatever the renderer's, as the reference does: its
+loss and its PRB step pass no filter, and its ctx holds none.
+
 Not ported yet (each raises ``NotImplementedError``): the EAM
-``fit_density`` loop, and renderers in the environment or quasicubic
-modes. A compacted renderer raises ``ValueError``, as the reference's
-``fit_spectral`` does (its reset state has the lane table's shape).
+``fit_density`` loop, and the autodiff surrogate over an xy half-packed
+volume (the next slice, with the raw tables). A compacted renderer raises
+``ValueError``, as the reference's ``fit_spectral`` does (its reset state
+has the lane table's shape).
 """
 
 from __future__ import annotations
@@ -39,14 +47,14 @@ import torch
 
 from vpt_tpu_torch.kernels import corners
 from vpt_tpu_torch.kernels import mcm_spectral as K
-from vpt_tpu_torch.kernels.spectral_backward import (_check_packed_ctx, clone_state,
-                                                      prb_loss_and_grads)
+from vpt_tpu_torch.kernels.spectral_backward import clone_state, packed_ctx, prb_loss_and_grads
 from vpt_tpu_torch.kernels.surrogate import check_ctx as check_surrogate_ctx
 from vpt_tpu_torch.models.mcm_spectral import radiance_to_rgb, render_sequence_diff
 from vpt_tpu_torch.ops import interp
 from vpt_tpu_torch.ops.sampling import div_scalar
 
 LIVE_FRACTION_STRIDE_THRESHOLD = 0.15
+LEARNABLE = frozenset({"density", "material_tf", "light_spectrum", "extinction", "environment"})
 
 
 class InverseState(NamedTuple):
@@ -141,18 +149,18 @@ def spectral_render_loss(params: dict, state0, base_ctx, seeds, target, steps: i
                          raw_mtf=None, raw_light=None):
     """MSE between the autodiff surrogate's render (``render_sequence_diff``
     from ``state0``) and ``target``, differentiable w.r.t. ``params``: raw
-    tables (any subset of density, material_tf, light_spectrum, extinction)
-    that ``corners.PackCorners`` packs into the base ctx's representation.
-    ``raw_mtf`` / ``raw_light`` stand in for the fused table's unlearned
-    half. The port always packs (JAX ``pack_params=True``); the fused table
-    carries the light pair, so the light comes from it in both cases."""
-    unknown = set(params) - {"density", "material_tf", "light_spectrum", "extinction"}
-    if unknown:
-        raise NotImplementedError(f"learning {sorted(unknown)} is not ported")
+    tables (any subset of ``LEARNABLE``) that ``corners.PackCorners`` packs
+    into the base ctx's representation. ``raw_mtf`` / ``raw_light`` stand in
+    for the fused table's unlearned half. The port always packs (JAX
+    ``pack_params=True``); the fused table carries the light pair, so the
+    light comes from it in both cases. Rendered with the linear filter, as
+    the reference's loss is."""
+    _check_keys(params, base_ctx)
     updates = {}
     if "density" in params:
-        updates["density"] = interp.PackedVolume(corners.pack_volume_diff(params["density"]),
-                                                 base_ctx.density.dims)
+        vol = base_ctx.density
+        updates["density"] = interp.PackedVolume(
+            corners.pack_volume_diff(params["density"], vol.kind), vol.dims, vol.kind)
     if "material_tf" in params or "light_spectrum" in params:
         mtf = params.get("material_tf", raw_mtf)
         light = params.get("light_spectrum", raw_light)
@@ -162,9 +170,20 @@ def spectral_render_loss(params: dict, state0, base_ctx, seeds, target, steps: i
         updates["material_tf"] = corners.pack_tf_diff(mtf, light)
     if "extinction" in params:
         updates["extinction"] = params["extinction"]
+    if "environment" in params:
+        updates["environment"] = corners.pack_env_diff(params["environment"])
     ctx = dataclasses.replace(base_ctx, **updates)
     img = render_sequence_diff(seeds, state0, ctx, steps, n_bins)
     return torch.mean((img - target) ** 2)
+
+
+def _check_keys(params, base_ctx):
+    unknown = set(params) - LEARNABLE
+    if unknown:
+        raise NotImplementedError(f"learning {sorted(unknown)} is not ported")
+    if "environment" in params and base_ctx.environment is None:
+        raise ValueError("learning the environment needs an env-lit renderer (its ctx has no "
+                         "environment map to re-pack into)")
 
 
 def make_spectral_inverse_step(optimizer: Adam, steps: int, n_bins: int,
@@ -194,17 +213,17 @@ def make_spectral_inverse_step(optimizer: Adam, steps: int, n_bins: int,
 
 def _pack_params_into_ctx(base_ctx, params: dict, raw_mtf=None, raw_light=None) -> dict:
     """Re-pack learned RAW tables into the base ctx's packed representation
-    (a flat f32 ``PackedVolume``, the fused 18-wide TF+light table) by K10
+    (a flat f32 ``PackedVolume`` of the base's kind, full or xy; the fused
+    18-wide TF+light table; the 12-wide environment map) by K10
     ``pack_corners`` (``kernels/corners.py``): the ctx fields to replace.
     ``raw_mtf`` / ``raw_light`` stand in for the fused table's unlearned
     half."""
-    unknown = set(params) - {"density", "material_tf", "light_spectrum", "extinction"}
-    if unknown:
-        raise NotImplementedError(f"learning {sorted(unknown)} is not ported")
+    _check_keys(params, base_ctx)
     updates = {}
     if "density" in params:
-        updates["density"] = interp.PackedVolume(corners.pack_volume(params["density"]),
-                                                 base_ctx.density.dims)
+        vol = base_ctx.density
+        updates["density"] = interp.PackedVolume(corners.pack_volume(params["density"], vol.kind),
+                                                 vol.dims, vol.kind)
     if "material_tf" in params or "light_spectrum" in params:
         mtf = params.get("material_tf", raw_mtf)
         light = params.get("light_spectrum", raw_light)
@@ -217,6 +236,8 @@ def _pack_params_into_ctx(base_ctx, params: dict, raw_mtf=None, raw_light=None) 
             updates["light_spectrum"] = pairs
     if "extinction" in params:
         updates["extinction"] = np.float32(float(params["extinction"]))
+    if "environment" in params:
+        updates["environment"] = corners.pack_env(params["environment"])
     return updates
 
 
@@ -312,8 +333,10 @@ def fit_spectral(target_image, renderer, camera, init_params: dict,
                  checkpoint_every: int = 25, eval_every: int = 10,
                  eval_dispatches: int = 16, return_info: bool = False):
     """Recover spectral-MCM scene tables from a target HDR render.
-    ``init_params``: a subset of {density, material_tf, light_spectrum,
-    extinction}, arrays or tensors.
+    ``init_params``: a subset of ``LEARNABLE`` (environment on an env-lit
+    renderer), arrays or tensors. The renderer's volume kind (full or xy)
+    is kept; its filter is not: the fit renders with the linear filter, as
+    the reference's does.
 
     ``method``: "prb" (the packed-adjoint backward; honours
     ``scatter_stride``) or "autodiff" (the surrogate, the one gradient
@@ -339,7 +362,8 @@ def fit_spectral(target_image, renderer, camera, init_params: dict,
                          "table's shape, which the reference's fit_spectral does not broadcast "
                          "either (ValueError: incompatible shapes)")
     device = renderer.device
-    base_ctx = renderer.ctx(camera, seed)
+    # the reference's loss, PRB step and eval pass no filter: linear
+    base_ctx = dataclasses.replace(renderer.ctx(camera, seed), volume_filter="linear")
     if method is None:
         method = "autodiff" if base_ctx.majorant is not None else "prb"
     elif method == "prb" and base_ctx.majorant is not None:
@@ -347,7 +371,7 @@ def fit_spectral(target_image, renderer, camera, init_params: dict,
                          "mode; use method='autodiff' (the surrogate carries majorant-mode "
                          "gradients)")
     if method == "prb":
-        _check_packed_ctx(base_ctx)
+        packed_ctx(base_ctx)
     elif method == "autodiff":
         check_surrogate_ctx(base_ctx)
     else:

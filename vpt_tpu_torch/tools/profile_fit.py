@@ -1,9 +1,15 @@
 """Where a ``fit_spectral`` iteration's time goes on the card: the PRB step
 and the autodiff surrogate's step on the bench scene (512^2 x 4 streams,
 128^3 u8 ``sphere_in_cube``, 12 bins, 8 steps, 4 dispatches per
-iteration, ``wrt={density}``), profiled with ``torch.profiler``.
+iteration), profiled with ``torch.profiler``.
 
-    python -m vpt_tpu_torch.tools.profile_fit [--iterations 3]
+    python -m vpt_tpu_torch.tools.profile_fit [--iterations 3] [--mode default|env|xy]
+
+``--mode``: "default" learns the density (``wrt={density}``), PRB and
+autodiff; "env" lights the scene with a seeded 256x512x3 equirect map and
+learns the map, PRB and autodiff; "xy" packs the volume into the xy
+half-packed table and learns the density, PRB only (the surrogate over an
+xy table is not ported).
 
 Per method it prints one JSON line: the iterations' host-clock seconds
 without the profiler, the device time of every kernel under the profiler
@@ -41,6 +47,17 @@ def _bench_scene():
             SpectrumConfig(), MCMSpectralConfig(extinction=40.0, bounces=8, steps=8))
 
 
+def seeded_envmap(shape=(256, 512, 3), seed: int = 2024) -> np.ndarray:
+    """An equirect map with structure in both angles: smooth bands plus
+    noise, from a numpy seed."""
+    rng = np.random.default_rng(seed)
+    h, w, _ = shape
+    v, u = np.meshgrid(np.linspace(0, 1, h), np.linspace(0, 1, w), indexing="ij")
+    base = np.stack([0.6 + 0.4 * np.cos(2 * np.pi * u), 0.5 + 0.4 * v,
+                     0.7 - 0.5 * v * u], axis=-1)
+    return np.clip(base + rng.uniform(-0.1, 0.1, shape), 0.0, 1.0).astype(np.float32)
+
+
 def _smoothed(density, factor):
     d = np.asarray(density, np.float32)
     n = d.shape[0]
@@ -75,7 +92,11 @@ def split(kernels: dict, iterations: int) -> dict:
     return out
 
 
-def profile_method(method: str, iterations: int, dev) -> dict:
+# per mode: the methods it profiles
+MODES = {"default": ("prb", "autodiff"), "env": ("prb", "autodiff"), "xy": ("prb",)}
+
+
+def profile_method(method: str, iterations: int, dev, mode: str = "default") -> dict:
     from torch.profiler import ProfilerActivity, profile
 
     from vpt_tpu_torch import Camera
@@ -83,17 +104,25 @@ def profile_method(method: str, iterations: int, dev) -> dict:
     from vpt_tpu_torch.models.mcm_spectral import MCMSpectralRenderer
 
     args = _bench_scene()
-    renderer = MCMSpectralRenderer(*args, resolution=512, streams=4, device=dev)
+    kw = {}
+    if mode == "env":
+        kw["environment"] = seeded_envmap()
+    elif mode == "xy":
+        kw["pack_tables"] = {"density_xy", "material_tf", "light_spectrum"}
+    renderer = MCMSpectralRenderer(*args, resolution=512, streams=4, device=dev, **kw)
     cam = Camera()
     base, state0 = renderer.ctx(cam, 1), renderer.reset(cam, 1)
     target = torch.zeros(512, 512, 3, device=dev)
     opt = TO.Adam(0.02)
-    params = {"density": torch.as_tensor(_smoothed(args[0].density, 8), device=dev)}
+    if mode == "env":
+        params = {"environment": torch.full((256, 512, 3), 0.5, device=dev)}
+    else:
+        params = {"density": torch.as_tensor(_smoothed(args[0].density, 8), device=dev)}
     istate = TO.InverseState(params, opt.init(params), 0)
     if method == "autodiff":
         step = TO.make_spectral_inverse_step(opt, 8, 12)
     else:
-        step = TO.make_spectral_prb_step(opt, 8, 12, wrt={"density"})
+        step = TO.make_spectral_prb_step(opt, 8, 12, wrt=set(params))
 
     def run(first):
         nonlocal istate
@@ -121,7 +150,7 @@ def profile_method(method: str, iterations: int, dev) -> dict:
             k["launches"] += e.count
     device_ms = sum(k["ms"] for k in kernels.values())
     top = dict(sorted(kernels.items(), key=lambda kv: -kv[1]["ms"])[:12])
-    return dict(method=method, iterations=iterations, seconds=seconds,
+    return dict(method=method, mode=mode, iterations=iterations, seconds=seconds,
                 seconds_per_iteration=seconds / iterations, profiled_seconds=profiled,
                 device_ms=device_ms, device_ms_per_iteration=device_ms / iterations,
                 busy_share_profiled=device_ms / (profiled * 1e3),
@@ -131,6 +160,7 @@ def profile_method(method: str, iterations: int, dev) -> dict:
 def main(argv=None):
     p = argparse.ArgumentParser(prog="python -m vpt_tpu_torch.tools.profile_fit")
     p.add_argument("--iterations", type=int, default=3)
+    p.add_argument("--mode", choices=sorted(MODES), default="default")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_fit: needs a CUDA device", file=sys.stderr)
@@ -139,8 +169,8 @@ def main(argv=None):
                          capture_output=True, text=True).stdout.strip()
     print(smi)
     dev = torch.device("cuda:0")
-    for method in ("prb", "autodiff"):
-        print(json.dumps(profile_method(method, args.iterations, dev)))
+    for method in MODES[args.mode]:
+        print(json.dumps(profile_method(method, args.iterations, dev, args.mode)))
 
 
 if __name__ == "__main__":
