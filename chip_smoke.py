@@ -7,7 +7,7 @@ Phases (each raises on failure, so any failure exits non-zero):
   2. build the kernels of vpt_tpu_torch/csrc with nvcc (sm_90a, one nvcc
      per source, all at once); print the ptxas registers, spills and
      stack frame of every instantiation of K1, K4 (and its surrogate
-     mode), K5, K9, K10, K11 and K12
+     mode), K5, K9, K10, K11, K12, K13 and K14
   3. sample_volume_packed vs its plain version: all 256 u8 codes exact;
      timed at 1M lookups by device time (CUDA-graph replay) against
      F.grid_sample on the float volume, host path beside it
@@ -84,6 +84,19 @@ Phases (each raises on failure, so any failure exits non-zero):
      beside phase 9's PRB stride-1 window; a checkpoint after iteration 2
      and a resume (losses rtol 1e-4, params 5e-4; K12's atomics make runs
      differ by rounding)
+ 18. raw and partly packed tables (pack_tables False, {material_tf,
+     light_spectrum}, {material_tf}, {light_spectrum}, {density}, and the
+     nearest filter) on the bench scene: K3's raw mode (linear, quasicubic,
+     nearest) equal to plain, timed against F.grid_sample (run beside phase
+     3); K1 in every layout equal to its plain version and to the packed K1
+     bit for bit over 2 dispatches (nearest: to plain), one dispatch timed
+     per layout; the sparse 512^3 scene over its raw 537 MB grid with the
+     fused TF, exact and majorant mode, equal to plain and to the full
+     table (run beside phase 11); session.run(16) over raw tables; K13
+     raw_tape (state == K1, tape == plain bit for bit) and K14 raw_replay
+     (within 1e-4 relative L2 of plain, two runs within 1e-5) in linear,
+     quasicubic and nearest mode, timed against their bounds, and the raw
+     replay backward driven through prb_render_and_grads
 The line before the last is a JSON object with each kernel's launches,
 error and times, its bound (the larger of the bytes it must move over the
 HBM rate and the FP32 operations this run's data needs over the FP32
@@ -141,6 +154,19 @@ OPS_SUR_STEP, OPS_SUR_EVENT, OPS_SUR_HG = 30, 100, 90
 SUR_SOURCE = "vpt_tpu_torch/csrc/surrogate.cu"
 # the xy half-packed volume (the reference's big-volume mode)
 XY_TABLES = frozenset({"density_xy", "material_tf", "light_spectrum"})
+RAW_SOURCE = "vpt_tpu_torch/csrc/raw_backward.cu"
+# the raw and partly packed layouts of phase 18 (pack_tables values)
+RAW_LAYOUTS = (("raw", False), ("raw grid + fused TF", frozenset({"material_tf", "light_spectrum"})),
+               ("16-wide TF", frozenset({"material_tf"})),
+               ("pair light", frozenset({"light_spectrum"})),
+               ("packed volume + raw TF", frozenset({"density"})))
+# FP32 operations of K14 (raw_replay), counted from its source, beside the
+# replayed step's: per scoring event (null or scatter with q != 0) the
+# re-derived material (3 axes and 7 lerps of the grid, 9 lerps and 3
+# slopes of the TF), the scores (~20), the TF weights and 12 products, the
+# trilinear weights and 8 products (~110); per escape with cb != 0 the
+# light's coordinate and 2 weights (~12)
+OPS_RAW_EVENT, OPS_RAW_ESCAPE = 110, 12
 
 
 def log(msg):
@@ -182,13 +208,18 @@ def state_bytes(n_lanes, n_bins):
 
 def table_bytes(ctx, lane_steps):
     """Bytes of the scene tables a step run reads: each table once, but the
-    volume and TF tables no more than one row per lane-step (a lane-step
-    looks up at most one row of each; most of a sparse volume is never
-    read)."""
-    vol, tf = ctx.density.table, ctx.material_tf
-    out = min(vol.numel(), lane_steps * vol.shape[-1]) * vol.element_size()
-    out += min(tf.numel(), lane_steps * tf.shape[-1]) * 4
-    for t in (ctx.majorant, ctx.environment):
+    volume and TF tables no more than one lookup's values per lane-step (a
+    packed row, or a raw grid's 8 corners (1 for nearest) and a raw TF's 4
+    texels; most of a sparse volume is never read)."""
+    from vpt_tpu_torch.kernels import mcm_spectral as K
+
+    vol, tf = K.density_table(ctx), ctx.material_tf
+    per_vol = vol.shape[-1] if vol.ndim == 2 else (1 if ctx.volume_filter == "nearest" else 8)
+    per_tf = 16 if tf.shape[-1] == 4 else tf.shape[-1]
+    out = min(vol.numel(), lane_steps * per_vol) * vol.element_size()
+    out += min(tf.numel(), lane_steps * per_tf) * 4
+    light = None if tf.shape[-1] == 18 else ctx.light_spectrum
+    for t in (ctx.majorant, ctx.environment, light):
         if t is not None:
             out += t.numel() * 4
     return out
@@ -562,6 +593,201 @@ def phase_sparse_xy(renderer, cam, dev):
     return out
 
 
+def phase_sparse_raw(renderer, cam, dev):
+    """Phase 18, sparse: the sparse 512^3 scene with
+    pack_tables={"material_tf", "light_spectrum"} (the reference's own
+    big-volume mode: the raw 537 MB f32 grid beside the fused TF), in exact
+    and majorant mode (the full renderer's majorant grid): K1 equal to its
+    plain version and to the full-table K1 bit for bit over 2 dispatches;
+    one dispatch timed on each, in turns."""
+    from vpt_tpu_torch.kernels import mcm_spectral as K
+    from vpt_tpu_torch.models.mcm_spectral import MCMSpectralRenderer
+
+    t0 = time.perf_counter()
+    raw = MCMSpectralRenderer(renderer.volume, renderer.material_tf, renderer.light,
+                              renderer.spectrum, renderer.config, resolution=RES, streams=STREAMS,
+                              pack_tables=RAW_LAYOUTS[1][1], device=dev)
+    out = dict(upload_s=time.perf_counter() - t0, grid_bytes=raw.vol_table.numel() * 4,
+               table_bytes_full=renderer.vol_table.numel())
+    seeds2 = [2654435761 * k % 2**32 for k in (1, 2)]
+    one = [2654435761]
+    for mode, maj in (("exact", None), ("majorant", renderer.majorant)):
+        ctx_r = dataclasses.replace(raw.ctx(cam, 7), majorant=maj)
+        ctx_f = dataclasses.replace(renderer.ctx(cam, 7), majorant=maj)
+        sk, _, err = check_mode(ctx_r, raw.reset(cam, 7), seeds2, BINS,
+                                f"raw grid, sparse {SPARSE}^3, {mode} mode")
+        sf = raw.reset(cam, 7)
+        K.step(sf, ctx_f, seeds2, STEPS, BINS)
+        torch.cuda.synchronize()
+        if first_difference(sk, sf) is not None:
+            raise AssertionError(f"sparse K1 raw ({mode}) != K1 full: {first_difference(sk, sf)}")
+        st_r, st_f = raw.reset(cam, 7), raw.reset(cam, 7)
+        times = dict(full=[], raw=[])
+        for which in ("full", "raw", "raw", "full"):
+            st, ctx = (st_r, ctx_r) if which == "raw" else (st_f, ctx_f)
+            times[which].append(cuda_ms(lambda: K.step(st, ctx, one, STEPS, BINS), 10))
+        rec = dict(raw_ms=float(np.mean(times["raw"])), full_ms=float(np.mean(times["full"])),
+                   times=times, max_abs_err=err)
+        rec.update(step_bound(ctx_r, raw.reset(cam, 7), one, BINS, rec["raw_ms"]))
+        out[mode] = rec
+        log(f"# sparse {SPARSE}^3 K1 {mode} mode over the raw grid: == plain == full table bit "
+            f"for bit; one dispatch {rec['raw_ms']:.4f} ms raw ({out['grid_bytes']} B grid) vs "
+            f"{rec['full_ms']:.4f} ms full ({out['table_bytes_full']} B); bound "
+            f"{rec['bound_ms']:.4f} ms by {rec['bound_by']}, share {rec['bound_share']:.3f}")
+    del raw
+    torch.cuda.empty_cache()
+    return out
+
+
+def raw_scene(camera, dev, pack=False, filt="linear"):
+    """The bench scene over raw or partly packed tables: (renderer, ctx,
+    reset state)."""
+    from vpt_tpu_torch import Volume
+    from vpt_tpu_torch.models.mcm_spectral import MCMSpectralRenderer
+
+    args = list(bench_scene_args())
+    args[0] = Volume(args[0].density, filter=filt)
+    r = MCMSpectralRenderer(*args, resolution=RES, streams=STREAMS, pack_tables=pack, device=dev)
+    return r, r.ctx(camera, 7), r.reset(camera, 7)
+
+
+def raw_backward_check(ctx, s0, g_image, label):
+    """K13 and K14 on one raw ctx against K1 and the plain versions: K13's
+    state equals K1's bit for bit and its tape the plain tape; K14 within
+    1e-4 relative L2 of plain per gradient, two runs within 1e-5. Returns
+    (tape, g_rs, max relative error, the gradients)."""
+    from vpt_tpu_torch.kernels import mcm_spectral as K
+    from vpt_tpu_torch.kernels import spectral_backward as TB
+
+    out, tape = TB.raw_tape(s0, ctx, STEPS, BINS)
+    k1 = clone_state(s0)
+    K.step(k1, ctx, [ctx.seed_bits], STEPS, BINS)
+    tp = TB.raw_tape_plain(clone_state(s0), ctx, STEPS, BINS)
+    torch.cuda.synchronize()
+    if first_difference(out, k1) is not None:
+        raise AssertionError(f"K13 ({label}) state != K1: {first_difference(out, k1)}")
+    if not torch.equal(tape.view(torch.int32), tp.view(torch.int32)):
+        raise AssertionError(f"K13 ({label}) tape != plain on "
+                             f"{int((tape.view(torch.int32) != tp.view(torch.int32)).sum())} slots")
+    g_rs = TB._deposit_cotangents(g_image, ctx, tuple(s0.px.shape), BINS, TB._m_final(out))
+    gk = TB.raw_replay(s0, ctx, tape, g_rs, STEPS, BINS)
+    gk2 = TB.raw_replay(s0, ctx, tape, g_rs, STEPS, BINS)
+    gp = TB.raw_replay_plain(s0, ctx, tape, g_rs, STEPS, BINS, TB._inv_mu(ctx))
+    torch.cuda.synchronize()
+    errs, reruns = {}, {}
+    for k in gp:
+        ref = gp[k].double()
+        scale = max(float(torch.linalg.norm(ref)), 1e-30)
+        errs[k] = float(torch.linalg.norm(gk[k].double() - ref)) / scale
+        reruns[k] = float(torch.linalg.norm(gk[k].double() - gk2[k].double())) / scale
+        if not bool(torch.isfinite(gk[k]).all()) or float(ref.abs().sum()) == 0.0:
+            raise AssertionError(f"K14 ({label}) {k}: not finite, or a zero gradient")
+    log(f"# K13 raw_tape ({label}): state == K1, tape == plain bit for bit; K14 raw_replay vs "
+        f"plain, relative L2 {json.dumps(errs)}, two runs {json.dumps(reruns)}")
+    if max(errs.values()) > 1e-4 or max(reruns.values()) > 1e-5:
+        raise AssertionError(f"K14 ({label}) vs plain {errs}, reruns {reruns}")
+    return tape, g_rs, max(errs.values()), gk
+
+
+def phase_raw(camera, dev):
+    """Phase 18: raw and partly packed tables on the bench scene (the raw
+    128^3 f32 grid, the raw (256, 256, 4) TF, the raw 256-texel light).
+    K1 in every layout equals its plain version and the packed K1 bit for
+    bit (2 dispatches), the nearest filter equals its plain version; one
+    dispatch timed per layout; session.run(16) over raw tables; K13/K14
+    checked in linear, quasicubic and nearest mode and timed, and driven
+    through prb_render_and_grads with the counts set to 0 just before."""
+    from vpt_tpu_torch.kernels import mcm_spectral as K
+    from vpt_tpu_torch.kernels import spectral_backward as TB
+
+    seeds2 = [2654435761 * k % 2**32 for k in (1, 2)]
+    one = [2654435761]
+    full, ctx_f, s0f = raw_scene(camera, dev, True)
+    sf = clone_state(s0f)
+    K.step(sf, ctx_f, seeds2, STEPS, BINS)
+    st_full = clone_state(s0f)
+    layouts = dict(full_table=cuda_ms(lambda: K.step(st_full, ctx_f, one, STEPS, BINS), 20))
+    del full
+    entry = None
+    for label, pack in RAW_LAYOUTS + (("nearest", True),):
+        r, ctx, s0 = raw_scene(camera, dev, pack, "nearest" if label == "nearest" else "linear")
+        if not K.is_raw(ctx):
+            raise AssertionError(f"{label}: the ctx does not select K1's raw instantiation")
+        sk, _, err = check_mode(ctx, s0, seeds2, BINS, f"raw tables ({label})")
+        if label != "nearest" and first_difference(sk, sf) is not None:
+            raise AssertionError(f"K1 raw ({label}) != K1 packed: {first_difference(sk, sf)}")
+        if label == "raw":
+            entry = mode_entry("mcm_spectral_step[raw]", "vpt_tpu/models/mcm_spectral.py:296",
+                               ctx, s0, BINS, err=err)
+            layouts[label] = entry["ms"]
+        else:
+            st = clone_state(s0)
+            layouts[label] = cuda_ms(lambda: K.step(st, ctx, one, STEPS, BINS), 20)
+        del r
+    entry["layouts_ms"] = layouts
+    log(f"# K1 raw == plain == K1 packed bit for bit in every layout (nearest == plain); one "
+        f"dispatch, ms: {json.dumps(layouts)}")
+    _, rates, launches = run_session(dev, 16, pack_tables=False)
+    require_launches(launches, ("step_raw",), "session.run over raw tables")
+    entry["launches"], entry["session"] = launches["step_raw"], rates
+    log(f"# session.run(16) over raw tables: {rates['seconds']:.4f} s, "
+        f"{rates['mpaths_per_s']:.3f} Mpaths/s; launches {launches}")
+
+    # the raw replay backward (B9)
+    g_image = torch.as_tensor(np.random.default_rng(18).uniform(0.5, 1.5, (RES, RES, 3))
+                              .astype(np.float32), device=dev)
+    errs = {}
+    for filt in ("quasicubic", "nearest", "linear"):
+        _, ctx, s0 = raw_scene(camera, dev, False, filt)
+        tape, g_rs, errs[filt], _ = raw_backward_check(ctx, s0, g_image, filt)
+    n = s0.px.numel()
+    lane_steps = n * STEPS
+    flags = tape[:, 1].view(torch.int32)
+    dep = (flags & 1) > 0
+    respawns = int(dep.sum())
+    carry = TB._raw_carry(tape, g_rs)
+    scoring = sum(int(((c * cb != 0) & ~dep[k]).sum()) for k, (c, cb) in enumerate(carry))
+    escapes = sum(int(((cb != 0) & dep[k]).sum()) for k, (_, cb) in enumerate(carry))
+    k13_ms = cuda_ms(lambda: TB.raw_tape(s0, ctx, STEPS, BINS), 10)
+    k13_plain = cuda_ms(lambda: TB.raw_tape_plain(clone_state(s0), ctx, STEPS, BINS), 1)
+    k14_ms = cuda_ms(lambda: TB.raw_replay(s0, ctx, tape, g_rs, STEPS, BINS), 10)
+    k14_plain = cuda_ms(lambda: TB.raw_replay_plain(s0, ctx, tape, g_rs, STEPS, BINS,
+                                                    TB._inv_mu(ctx)), 1)
+    tables = table_bytes(ctx, lane_steps)
+    ops = step_ops(lane_steps, respawns, BINS, lane_steps - respawns)
+    # K13: the state once, the tables once, the tape written once (with the
+    # state copy the wrapper makes)
+    b13 = bound(state_bytes(n, BINS) + tables + tape.numel() * 4, ops, k13_ms)
+    # K14: the start state, the tape, the deposit cotangents and the tables
+    # read once, the four raw adjoints written once
+    adj_bytes = (ctx.density.numel() + ctx.material_tf.numel() + ctx.light_spectrum.numel()) * 4
+    b14 = bound(n * 10 * 4 + tape.numel() * 4 + g_rs.numel() * 4 + tables + adj_bytes,
+                ops + scoring * OPS_RAW_EVENT + escapes * OPS_RAW_ESCAPE, k14_ms)
+    TB.reset_launch_counts()
+    _, img, grads = TB.prb_render_and_grads(s0, ctx, g_image, STEPS, BINS)
+    torch.cuda.synchronize()
+    bwd = dict(TB.LAUNCHES)
+    require_launches(bwd, ("raw_tape", "raw_replay"), "prb_render_and_grads over raw tables")
+    if set(grads) != TB.ALL_WRT or not all(bool(torch.isfinite(g).all()) for g in grads.values()):
+        raise AssertionError(f"the raw backward's gradients: {sorted(grads)}")
+    log(f"# K13 raw_tape: {k13_ms:.4f} ms (with the state copy) vs plain {k13_plain:.4f}; bound "
+        f"{b13['bound_ms']:.4f} ms by {b13['bound_by']}, share {b13['bound_share']:.3f}. K14 "
+        f"raw_replay: {k14_ms:.4f} ms (with the adjoints' zeroing) vs plain {k14_plain:.4f}; "
+        f"{scoring} scoring events, {escapes} escapes of {lane_steps} lane-steps; bound "
+        f"{b14['bound_ms']:.4f} ms by {b14['bound_by']} ({b14['bound_bytes']} B, "
+        f"{b14['bound_ops']} FP32 ops), share {b14['bound_share']:.3f}; prb_render_and_grads "
+        f"launches {bwd}")
+    k13 = kernel_line(dict(name="raw_tape", route="cuda", source=RAW_SOURCE,
+                           replaces="vpt_tpu/kernels/spectral_backward.py:140", max_abs_err=0.0,
+                           ms=k13_ms, plain_ms=k13_plain, launches=bwd["raw_tape"]), b13)
+    k14 = kernel_line(dict(name="raw_replay", route="cuda", source=RAW_SOURCE,
+                           replaces="vpt_tpu/kernels/spectral_backward.py:175",
+                           max_abs_err=max(errs.values()), rel_l2_by_filter=errs, ms=k14_ms,
+                           plain_ms=k14_plain, launches=bwd["raw_replay"],
+                           scoring_events=scoring, escapes=escapes), b14)
+    return entry, k13, k14
+
+
 def seeded_envmap(seed: int = 2024) -> np.ndarray:
     """ENV_SHAPE's equirect map with structure in both angles
     (``tools/profile_fit.seeded_envmap``)."""
@@ -910,6 +1136,55 @@ def phase_k3(dev):
                              library_call="torch.nn.functional.grid_sample",
                              library_max_abs_err=lib_err_xy), bxy, library_ms)
     return k3, k3_xy
+
+
+def phase_k3_raw(dev):
+    """Phase 18, K3 raw mode: the standalone lookup in the bench scene's raw
+    128^3 f32 grid, linear, quasicubic and nearest, equal to the plain
+    version bit for bit at 1M coordinates in [-0.2, 1.2]; timed by device
+    time per filter, the linear one against F.grid_sample on the same grid."""
+    from vpt_tpu_torch.kernels import mcm_spectral as K
+
+    grid = torch.as_tensor(np.asarray(bench_scene_args()[0].density, np.float32), device=dev)
+    n = RES * RES * STREAMS
+    gen = torch.Generator(device=dev).manual_seed(18)
+    ue, ve, we = (torch.rand(n, device=dev, generator=gen) * 1.4 - 0.2 for _ in range(3))
+    uu, vv, ww = (torch.rand(n, device=dev, generator=gen) for _ in range(3))
+    times, plain_times = {}, {}
+    for mode in ("linear", "quasicubic", "nearest"):
+        got = K.sample_volume_raw(grid, ue, ve, we, mode)
+        plain = K.sample_volume_raw_plain(grid, ue, ve, we, mode)
+        torch.cuda.synchronize()
+        if not torch.equal(got, plain):
+            raise AssertionError(f"K3 raw {mode} != plain on {int((got != plain).sum())} of {n}")
+        times[mode] = device_ms(lambda: K.sample_volume_raw(grid, uu, vv, ww, mode))
+        plain_times[mode] = device_ms(lambda: K.sample_volume_raw_plain(grid, uu, vv, ww, mode))
+    got = K.sample_volume_raw(grid, uu, vv, ww)
+    dense = grid[None, None]
+    coords = (torch.stack([uu, vv, ww], -1) * 2.0 - 1.0).reshape(1, 1, 1, n, 3)
+
+    def library():
+        return torch.nn.functional.grid_sample(dense, coords, mode="bilinear",
+                                               padding_mode="border", align_corners=False)
+
+    lib_err = float((library().reshape(-1) - got).abs().max())
+    if lib_err > 1e-5:
+        raise AssertionError(f"grid_sample differs from K3 raw by {lib_err}: not the same function")
+    library_ms = device_ms(library)
+    # 3 coordinates in and one value out per lookup, the grid once; 3 axes
+    # (4 each) and 7 lerps (3 each)
+    b = bound(n * 16 + grid.numel() * 4, n * 33, times["linear"])
+    log(f"# K3 sample_volume_raw (128^3 f32 grid): linear, quasicubic, nearest each == plain bit "
+        f"for bit on {n} lookups in [-0.2, 1.2]; device ms {json.dumps(times)} kernel vs "
+        f"{json.dumps(plain_times)} plain vs {library_ms:.4f} F.grid_sample (linear, max abs "
+        f"{lib_err:.3g} from K3); bound {b['bound_ms']:.4f} ms by {b['bound_by']}, share "
+        f"{b['bound_share']:.3f}")
+    return kernel_line(dict(name="sample_volume_raw", route="cuda", source=SOURCE,
+                            replaces="vpt_tpu/ops/interp.py:411", max_abs_err=0.0,
+                            ms=times["linear"], plain_ms=plain_times["linear"],
+                            ms_by_filter=times, plain_ms_by_filter=plain_times,
+                            library_call="torch.nn.functional.grid_sample",
+                            library_max_abs_err=lib_err), b, library_ms)
 
 
 def phase_k2(renderer, camera, dev):
@@ -2272,6 +2547,7 @@ def main():
 
     t_start = time.perf_counter()
     k3, k3_xy = phase_k3(dev)
+    k3_raw = phase_k3_raw(dev)
     renderer = MCMSpectralRenderer(*bench_scene_args(), resolution=RES, streams=STREAMS,
                                    device=dev)
     camera = Camera()
@@ -2290,6 +2566,7 @@ def main():
     torch.cuda.empty_cache()
     k1_maj, sparse, sparse_renderer, sparse_cam = phase_majorant(dev)
     sparse["xy"] = phase_sparse_xy(sparse_renderer, sparse_cam, dev)
+    sparse["raw"] = phase_sparse_raw(sparse_renderer, sparse_cam, dev)
     del sparse_renderer
     torch.cuda.empty_cache()
     k1_modes, mode_rates = phase_env_quasicubic(dev)
@@ -2299,6 +2576,7 @@ def main():
     k4_sur, k12, twin, sur_modes = phase_surrogate(MCMSpectralRenderer(
         *bench_scene_args(), resolution=RES, streams=STREAMS, device=dev), camera, dev)
     autodiff = phase_autodiff_fit(camera, dev, windows)
+    k1_raw, k13, k14 = phase_raw(camera, dev)
     foreign = sorted(k for k in sys.modules
                      if k in ("jax", "vpt_tpu") or k.startswith(("jax.", "vpt_tpu.")))
     if foreign:
@@ -2309,6 +2587,7 @@ def main():
     k12["launches"] = autodiff["bench"]["launches"]["surrogate_reverse"]
     k3["launches"] = launches["sample_volume_packed"]
     k3_xy["launches"] = launches["sample_volume_packed_xy"]
+    k3_raw["launches"] = launches["sample_volume_raw"]
     k4["launches"], k5["launches"] = bwd_launches["prb_tape_forward"], bwd_launches["prb_reverse"]
     k9["launches"], k10["launches"] = (bwd_launches["contract_corners"],
                                        bwd_launches["pack_corners"])
@@ -2335,8 +2614,9 @@ def main():
         "surrogate_reverse_environment_majorant"]
     kernels = [k1, k2, k4, k5, k6, k7, k9, k10, k11, k1_maj, k1_modes["environment"],
                k1_modes["quasicubic"], *compact_kernels, k4_sur, k12, k1_xy, *k4_modes.values(),
-               *k5_modes.values(), *corner_modes.values(), *sur_modes.values()]
-    missing = [k["name"] for k in kernels + [k3, k3_xy]
+               *k5_modes.values(), *corner_modes.values(), *sur_modes.values(), k1_raw, k13,
+               k14]
+    missing = [k["name"] for k in kernels + [k3, k3_xy, k3_raw]
                if not {"bound_ms", "bound_by", "library_ms", "launches", "ms", "plain_ms",
                        "max_abs_err"} <= set(k)]
     if missing:
@@ -2347,7 +2627,7 @@ def main():
     k5["split_stride1_window"] = windows["stride1"]["k5_split"]
     log(f"# chip_smoke: {time.perf_counter() - t_start:.1f} s after the build")
     result = {"kernels": kernels,
-              "standalone": [k3, k3_xy],
+              "standalone": [k3, k3_xy, k3_raw],
               "main_path": {"kernel": kern, "plain_step": plain},
               "training_path": {"fit_spectral": fits, "fwd_bwd_windows": windows},
               "majorant_path": sparse, "mode_sessions": mode_rates, "compaction": compact,

@@ -56,4 +56,4 @@ def test_library_names_separate_directories():
 def test_sources_of_each_directory():
     assert set(_build._sources()) == set(_build._SIGNATURES)
     assert set(_build._SIGNATURES) == {"mcm_spectral", "spectral_backward", "corners",
-                                       "gather_bench", "surrogate"}
+                                       "gather_bench", "surrogate", "raw_backward"}

@@ -282,13 +282,20 @@ def test_backward_raises_for_the_new_modes(mode):
         params, losses = fit_spectral(*fit_args, iterations=1, scatter_stride=1, method=method,
                                       dispatches_per_step=1)
         assert np.isfinite(losses).all() and params["density"].shape == (16, 16, 16)
-    # what stays unported in these modes raises: raw and partly packed
-    # tables, the nearest filter, the surrogate over an xy volume
+    # raw and partly packed tables render in these modes, and their
+    # surrogate raises (the next slice's); the packed backward refuses the
+    # nearest filter as the reference's assertion does; the surrogate over
+    # an xy volume raises
     for pack in (False, {"density_xy", "material_tf"}):
-        with pytest.raises(NotImplementedError, match="pack_tables"):
-            TM.MCMSpectralRenderer(*convert.scene_from(*args), resolution=8, pack_tables=pack,
-                                   device="cpu", **kw)
-    with pytest.raises(NotImplementedError, match="nearest"):
+        r2 = TM.MCMSpectralRenderer(*convert.scene_from(*args), resolution=8, pack_tables=pack,
+                                    device="cpu", **kw)
+        _, img2 = r2.render(r2.reset(cam, 1), cam, 2)
+        assert bool(torch.isfinite(img2).all())
+        with pytest.raises(NotImplementedError, match="next slice"):
+            fit_spectral(np.zeros((8, 8, 3), np.float32), r2, cam,
+                         {"density": np.asarray(args[0].density)}, iterations=1,
+                         method="autodiff")
+    with pytest.raises(AssertionError, match="linear/quasicubic"):
         TB.prb_render_and_grads(state, ctx, g, 6, 12, "nearest")
     xy = TM.MCMSpectralRenderer(*convert.scene_from(*args), resolution=8, device="cpu",
                                 pack_tables={"density_xy", "material_tf", "light_spectrum"}, **kw)

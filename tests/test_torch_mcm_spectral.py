@@ -189,8 +189,8 @@ def test_packed_tables_bit_equal_to_jax_static_ctx():
     "quasicubic",
 ])
 def test_options_outside_the_slice_raise(option):
-    """Raw or partly packed tables and a mesh raise; the environment map,
-    the majorant grid, compaction and the quasicubic filter are ported and
+    """A mesh raises; the environment map, the majorant grid, compaction,
+    the quasicubic filter and raw or partly packed tables are ported and
     render finite images."""
     args = list(convert.scene_from(*_scene()))
     kw = {}
@@ -198,7 +198,8 @@ def test_options_outside_the_slice_raise(option):
         args[0] = convert.volume_from(Volume(args[0].density, filter="quasicubic"))
     else:
         kw = option
-    if option == "quasicubic" or set(kw) & {"environment", "majorant_blocks", "compaction"}:
+    if option == "quasicubic" or set(kw) & {"environment", "majorant_blocks", "compaction",
+                                            "pack_tables"}:
         r = TM.MCMSpectralRenderer(*args, resolution=16, device="cpu", **kw)
         cam = TCamera()
         _, img = r.render(r.reset(cam, 1), cam, 2)
@@ -209,10 +210,17 @@ def test_options_outside_the_slice_raise(option):
 
 
 def test_nearest_filter_raises():
+    """A nearest volume renders over raw tables (tests/test_torch_raw.py);
+    its surrogate gradients raise, the next slice's."""
     args = list(convert.scene_from(*_scene()))
     args[0] = convert.volume_from(Volume(args[0].density, filter="nearest"))
-    with pytest.raises(NotImplementedError):
-        TM.MCMSpectralRenderer(*args, resolution=16, device="cpu")
+    r = TM.MCMSpectralRenderer(*args, resolution=16, device="cpu")
+    cam = TCamera()
+    s0 = r.reset(cam, 1)
+    _, img = r.render(TM.SpectralState(*(t.clone() for t in s0.tensors())), cam, 2)
+    assert r.vol_kind == "raw" and bool(torch.isfinite(img).all())
+    with pytest.raises(NotImplementedError, match="next slice"):
+        TM.render_diff(s0, torch.ones_like(s0.px), r.ctx(cam, 2), 6, 12, volume_filter="nearest")
 
 
 def test_cuda_route_rejects_mixed_devices_and_counts_nothing_on_cpu():

@@ -450,8 +450,9 @@ def test_importance_thinning_unbiased_and_deterministic():
 def test_options_outside_the_slice_raise():
     """The modes ported since run (the quasicubic filter, the environment
     key on a ctx without a map: no env gradient, as JAX gives none); what
-    stays unported raises NotImplementedError before any launch: a raw
-    volume (the replay backward), the nearest filter."""
+    the reference refuses raises before any launch: a raw volume beside
+    the fused TF (``ValueError``: neither the packed nor the fully raw
+    ctx), the nearest filter on the packed ctx (its assertion)."""
     jctx, js0, tctx, ts0 = _pair(1)
     g = torch.ones(RES, RES, 3)
     _, img, grads = TB.prb_render_and_grads(ts0, tctx, g, STEPS, 12, volume_filter="quasicubic")
@@ -460,9 +461,9 @@ def test_options_outside_the_slice_raise():
                                           wrt=frozenset({"environment", "density"}))
     assert set(grads) == {"density"} and float(grads["density"].abs().sum()) > 0
     raw_ctx = type(tctx)(**{**tctx.__dict__, "density": torch.zeros(4, 4, 4)})
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="packed"):
         TB.prb_render_and_grads(ts0, raw_ctx, g, STEPS, 12)
-    with pytest.raises(NotImplementedError, match="nearest"):
+    with pytest.raises(AssertionError, match="linear/quasicubic"):
         TB.prb_render_and_grads(ts0, tctx, g, STEPS, 12, volume_filter="nearest")
     with pytest.raises(ValueError):
         TB.prb_render_and_grads(ts0, tctx, g, STEPS, 12, wrt=frozenset({"albedo"}))

@@ -175,8 +175,9 @@ def test_the_filter_argument_decides():
 
 def test_environment_key_without_a_map_and_unported_options():
     """wrt="environment" on a ctx without a map adds no gradient (JAX's
-    want_env is False there); raw volumes, the nearest filter and unknown
-    keys raise before any launch."""
+    want_env is False there); a raw volume beside the fused TF, the nearest
+    filter on the packed ctx and unknown keys raise before any launch, as
+    the reference's checks do."""
     jctx, js0, tctx, ts0, _ = _pair(3, "xy")
     g = torch.ones(RES, RES, 3)
     _, _, gr = TB.prb_render_and_grads(ts0, tctx, g, STEPS, 12,
@@ -184,9 +185,9 @@ def test_environment_key_without_a_map_and_unported_options():
     assert set(gr) == {"density"} and gr["density"].shape == (16, 16, 16)
     TB.reset_launch_counts()
     raw = dataclasses.replace(tctx, density=torch.zeros(16, 16, 16))
-    with pytest.raises(NotImplementedError, match="raw"):
+    with pytest.raises(ValueError, match="fully raw"):
         TB.prb_render_and_grads(ts0, raw, g, STEPS, 12)
-    with pytest.raises(NotImplementedError, match="nearest"):
+    with pytest.raises(AssertionError, match="linear/quasicubic"):
         TB.prb_render_and_grads_many(ts0, tctx, [1, 2], g, STEPS, 12, volume_filter="nearest")
     with pytest.raises(ValueError, match="unknown"):
         TB.tape_fields(frozenset({"density", "albedo"}))

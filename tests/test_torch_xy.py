@@ -160,9 +160,21 @@ def test_pack_tables_kinds_as_the_reference_reads_them(pack):
 @pytest.mark.parametrize("pack", [False, {"density_xy"}, {"density_xy", "material_tf"},
                                   {"material_tf", "light_spectrum"}])
 def test_raw_and_partly_packed_tables_still_raise(pack):
-    with pytest.raises(NotImplementedError, match="pack_tables"):
-        TM.MCMSpectralRenderer(*convert.scene_from(*_scene()), resolution=8, pack_tables=pack,
-                               device="cpu")
+    """Raw and partly packed tables beside the xy options render the full
+    table's bits (tests/test_torch_raw.py); what still raises over them is
+    the surrogate, the next slice's."""
+    targs = convert.scene_from(*_scene())
+    cam = TCamera()
+    imgs = []
+    for p in (pack, True):
+        r = TM.MCMSpectralRenderer(*targs, resolution=8, pack_tables=p, device="cpu")
+        s0 = r.reset(cam, 1)
+        imgs.append(r.render(s0, cam, 2)[1])
+    assert torch.equal(imgs[0], imgs[1])
+    r = TM.MCMSpectralRenderer(*targs, resolution=8, pack_tables=pack, device="cpu")
+    s0 = r.reset(cam, 1)
+    with pytest.raises(NotImplementedError, match="next slice"):
+        TM.render_diff(s0, torch.ones_like(s0.px), r.ctx(cam, 2), 6, 12)
 
 
 def _port_ctx(jctx, filt):

@@ -53,26 +53,36 @@ def ctx_from_numpy(*, inv_mvp, seed_bits, extinction, blur, max_bounces,
     ``density_table`` (rows, 8) or (rows, 4) + ``density_dims``) or as the
     natural 4-D (D+1, H+1, W+1, 8) or (D, H+1, W+1, 4) array the JAX
     package keeps for small f32 volumes (``density_dims`` None); both
-    become a flat table, of kind "xy" when 4 wide. ``environment`` is
-    the packed (He+1, We+1, 12) map and ``majorant`` the (Gz, Gy, Gx, 2)
-    grid, as the JAX ctx holds them; ``volume_filter`` is the JAX render
-    functions' static argument. ``material_tf`` is the fused (Hp, Wp, 18)
-    table, whose light pair (channels 16:18) every density row repeats, as
-    ``interp.pack_tex2d_with_tex1d`` packs it: the forward kernel reads an
-    escaping lane's light from row 0, so a table whose rows differ there
-    is refused."""
+    become a flat table, of kind "xy" when 4 wide. A 3-D ``density_table``
+    (``density_dims`` None) is a raw (D, H, W) grid and stays one (f32).
+    ``environment`` is the packed (He+1, We+1, 12) or raw (He, We, 3) map
+    and ``majorant`` the (Gz, Gy, Gx, 2) grid, as the JAX ctx holds them;
+    ``volume_filter`` is the JAX render functions' static argument.
+    ``material_tf`` is the fused (Hp, Wp, 18) table, the packed (Hp, Wp,
+    16) TF or the raw (H, W, 4) one, ``light_spectrum`` the (N+1, 2) pair
+    table or the raw (N,) one, as the reference's ``pack_tables`` left
+    them. A fused table's light pair (channels 16:18) repeats in every
+    density row, as ``interp.pack_tex2d_with_tex1d`` packs it: the forward
+    kernel reads an escaping lane's light from row 0, so a table whose rows
+    differ there is refused."""
 
     def dev(a):
         return torch.as_tensor(np.array(a), device=device)
 
     density_table = np.asarray(density_table)
-    if density_table.ndim == 4:
-        if density_dims is not None and tuple(density_dims) != density_table.shape[:3]:
-            raise ValueError(f"density_dims {density_dims} != table dims {density_table.shape[:3]}")
-        density_dims = density_table.shape[:3]
-        density_table = density_table.reshape(-1, density_table.shape[-1])
-    elif density_dims is None:
-        raise ValueError("a flat density table needs density_dims")
+    if density_table.ndim == 3 and density_dims is None:
+        density = dev(np.asarray(density_table, np.float32))
+    else:
+        if density_table.ndim == 4:
+            if density_dims is not None and tuple(density_dims) != density_table.shape[:3]:
+                raise ValueError(f"density_dims {density_dims} != table dims "
+                                 f"{density_table.shape[:3]}")
+            density_dims = density_table.shape[:3]
+            density_table = density_table.reshape(-1, density_table.shape[-1])
+        elif density_dims is None:
+            raise ValueError("a flat density table needs density_dims")
+        density = PackedVolume(dev(density_table), tuple(density_dims),
+                               "xy" if density_table.shape[-1] == 4 else "full")
     material_tf = np.asarray(material_tf, np.float32)
     if material_tf.ndim == 3 and material_tf.shape[-1] == 18 and not np.array_equal(
             material_tf[..., 16:18], np.broadcast_to(material_tf[:1, :, 16:18],
@@ -86,8 +96,7 @@ def ctx_from_numpy(*, inv_mvp, seed_bits, extinction, blur, max_bounces,
         blur=np.float32(blur),
         max_bounces=int(max_bounces),
         light_direction=np.asarray(light_direction, np.float32),
-        density=PackedVolume(dev(density_table), tuple(density_dims),
-                             "xy" if density_table.shape[-1] == 4 else "full"),
+        density=density,
         material_tf=dev(material_tf),
         light_spectrum=dev(np.asarray(light_spectrum, np.float32)),
         boundaries=np.asarray(boundaries, np.float32),

@@ -7,9 +7,11 @@
 // tape is an optional per-step record (REC = true) that only adds stores.
 // The forward's other modes are compile-time parameters too (MAJ: the
 // super-voxel majorant, ENV: the environment map, XY: the xy half-packed
-// volume), so the default instantiation compiles to the code it had before
-// they existed; the quasicubic weight warp is a uniform runtime flag
-// (I_QUASICUBIC).
+// volume, RAW: raw or partly packed tables), so the default instantiation
+// compiles to the code it had before they existed; the quasicubic weight
+// warp is a uniform runtime flag (I_QUASICUBIC), and so are the table kinds
+// inside the RAW instantiation (I_VOL_RAW, I_NEAREST, I_TF_KIND,
+// I_LIGHT_KIND, I_ENV_RAW).
 //
 // Numerics (see mcm_spectral.cu): built without fast math and with
 // -fmad=false; every quotient equals the IEEE one and every sqrt is IEEE;
@@ -59,8 +61,20 @@ enum IParam {
   I_MAJ_GZ, I_MAJ_GY, I_MAJ_GX,  // majorant grid cells (0 without one)
   I_ENV_H, I_ENV_W,              // packed env table dims He+1, We+1
   I_VOL_XY,                      // 1: an xy half-packed (rows, 4) volume table (selects XY)
+  // the raw-table kinds, read only by the RAW instantiations. A raw table
+  // of n texels along an axis gives that axis as n + 1, as a packed table
+  // of the same texture would, so both address it by base_frac(t, n).
+  I_RAW,         // 1: some table is raw or partly packed (selects RAW)
+  I_VOL_RAW,     // 1: a raw (D, H, W) f32 grid; I_VOL_D/H/W hold D+1, H+1, W+1
+  I_NEAREST,     // 1: the nearest filter (raw grid only)
+  I_TF_KIND,     // TF_FUSED (257, 257, 18), TF_RAW (H, W, 4), TF_PACKED (Hp, Wp, 16)
+  I_LIGHT_KIND,  // LIGHT_FUSED (in the TF rows), LIGHT_RAW (N,), LIGHT_PAIR (N+1, 2)
+  I_LIGHT_N,     // N, the light's texels
+  I_ENV_RAW,     // 1: a raw (He, We, 3) map; I_ENV_H/W hold He+1, We+1
   I_COUNT,
 };
+enum TfKind { TF_FUSED = 0, TF_RAW = 1, TF_PACKED = 2 };
+enum LightKind { LIGHT_FUSED = 0, LIGHT_RAW = 1, LIGHT_PAIR = 2 };
 
 struct Params {
   float f[F_COUNT];
@@ -259,6 +273,72 @@ __device__ __forceinline__ float sample_volume(const void* table, int is_u8,
   return lerp(c0, c1, fz);
 }
 
+// a raw axis of n = np1 - 1 texels: the two clamped texels and the frac
+// of a normalized coordinate (JAX _coords), from the padded-table index b
+// of base_frac as clamp(i, 0, n-1) = max(b - 1, 0) and clamp(i + 1, 0,
+// n-1) = min(b, n - 1): the frac and the corner values of the packed
+// lookup, so a raw lookup equals it bit for bit
+__device__ __forceinline__ void raw_axis(float t, int np1, int& i0, int& i1, float& frac) {
+  int b;
+  base_frac(t, np1 - 1, b, frac);
+  i0 = max(b - 1, 0);
+  i1 = min(b, np1 - 2);
+}
+
+// an integral float as int, saturating (NaN -> 0) as XLA's f32 -> i32 does
+__device__ __forceinline__ int sat_int(float c) {
+  return (int)((c != c) ? 0.0f : fminf(fmaxf(c, -kIntLimit), kIntLimit));
+}
+
+// clip(int(floor(p * n)), 0, n - 1): a nearest lookup's texel, a majorant
+// grid cell along one axis from the pre-step position
+__device__ __forceinline__ int floor_cell(float p, int n) {
+  return min(max(sat_int(floorf(p * (float)n)), 0), n - 1);
+}
+
+// sample of a raw (D, H, W) f32 grid given as (Dp, Hp, Wp) = (D+1, H+1,
+// W+1): the nearest voxel (1 scalar load), or 8 scalar corner loads lerped
+// as the packed row's corners (quasicubic: the warped fractions)
+__device__ __forceinline__ float sample_volume_raw(const float* __restrict__ g, int Dp, int Hp,
+                                                   int Wp, float u, float v, float w, bool qc,
+                                                   bool nearest) {
+  const int D = Dp - 1, H = Hp - 1, W = Wp - 1;
+  if (nearest) {
+    const int x = floor_cell(u, W), y = floor_cell(v, H), z = floor_cell(w, D);
+    return __ldg(g + ((int64_t)z * H + y) * W + x);
+  }
+  int x0, x1, y0, y1, z0, z1;
+  float fx, fy, fz;
+  raw_axis(u, Wp, x0, x1, fx);
+  raw_axis(v, Hp, y0, y1, fy);
+  raw_axis(w, Dp, z0, z1, fz);
+  if (qc) {
+    fx = quasicubic(fx);
+    fy = quasicubic(fy);
+    fz = quasicubic(fz);
+  }
+  const int64_t p00 = ((int64_t)z0 * H + y0) * W, p01 = ((int64_t)z0 * H + y1) * W;
+  const int64_t p10 = ((int64_t)z1 * H + y0) * W, p11 = ((int64_t)z1 * H + y1) * W;
+  const float c00 = lerp(__ldg(g + p00 + x0), __ldg(g + p00 + x1), fx);
+  const float c01 = lerp(__ldg(g + p01 + x0), __ldg(g + p01 + x1), fx);
+  const float c10 = lerp(__ldg(g + p10 + x0), __ldg(g + p10 + x1), fx);
+  const float c11 = lerp(__ldg(g + p11 + x0), __ldg(g + p11 + x1), fx);
+  const float c0 = lerp(c00, c01, fy);
+  const float c1 = lerp(c10, c11, fy);
+  return lerp(c0, c1, fz);
+}
+
+// the volume lookup of the RAW instantiations: the raw grid, or a packed
+// table (full or xy) read as the default instantiations read it
+__device__ __forceinline__ float sample_volume_any(const void* vol, const Params& P, float u,
+                                                   float v, float w) {
+  if (P.i[I_VOL_RAW] != 0)
+    return sample_volume_raw(static_cast<const float*>(vol), P.i[I_VOL_D], P.i[I_VOL_H],
+                             P.i[I_VOL_W], u, v, w, P.i[I_QUASICUBIC] != 0, P.i[I_NEAREST] != 0);
+  return sample_volume(vol, P.i[I_VOL_U8], P.i[I_VOL_D], P.i[I_VOL_H], P.i[I_VOL_W], u, v, w,
+                       nullptr, P.i[I_QUASICUBIC] != 0, P.i[I_VOL_XY] != 0);
+}
+
 // where a TF lookup read: its row, fractions, and the per-channel slope
 // d(value)/d(density coordinate) = (x-lerped row1 - row0) * (Hp - 1)
 struct TfAddr {
@@ -312,12 +392,73 @@ __device__ __forceinline__ void sample_tf(const float* tf, int Hp, int Wp, int b
   }
 }
 
+// channels 0..2 of the TF at wavelength column (bx, fx) and density v in
+// the RAW instantiations, in sample_tf's lerp order: the fused table as
+// sample_tf reads it; the 16-wide packed row as four float4 corners; the
+// raw (H, W, 4) texture (given as Hp, Wp = H+1, W+1) as four float4 texels
+// (16-byte rows), the columns max(bx - 1, 0) and min(bx, W - 1) of the
+// raw axis. `slope` (optional): d(value)/d(density coordinate) per channel,
+// (x-lerped row1 - row0) * H.
+__device__ __forceinline__ void sample_tf_any(const float* tf, int kind, int Hp, int Wp, int bx,
+                                              float fx, float v, float mat[3],
+                                              float* slope = nullptr) {
+  if (kind == TF_FUSED) {
+    sample_tf(tf, Hp, Wp, bx, fx, v, mat, nullptr, nullptr);
+    return;
+  }
+  int by;
+  float fy;
+  base_frac(v, Hp - 1, by, fy);
+  float4 k00, k01, k10, k11;
+  if (kind == TF_PACKED) {
+    const float4* r = reinterpret_cast<const float4*>(tf + ((int64_t)by * Wp + bx) * 16);
+    k00 = __ldg(r); k01 = __ldg(r + 1); k10 = __ldg(r + 2); k11 = __ldg(r + 3);
+  } else {
+    const int W = Wp - 1, x0 = max(bx - 1, 0), x1 = min(bx, W - 1);
+    const int y0 = max(by - 1, 0), y1 = min(by, Hp - 2);
+    const float4* t = reinterpret_cast<const float4*>(tf);
+    k00 = __ldg(t + (int64_t)y0 * W + x0); k01 = __ldg(t + (int64_t)y0 * W + x1);
+    k10 = __ldg(t + (int64_t)y1 * W + x0); k11 = __ldg(t + (int64_t)y1 * W + x1);
+  }
+  const float a00[3] = {k00.x, k00.y, k00.z}, a01[3] = {k01.x, k01.y, k01.z};
+  const float a10[3] = {k10.x, k10.y, k10.z}, a11[3] = {k11.x, k11.y, k11.z};
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    const float c0 = lerp(a00[c], a01[c], fx);
+    const float c1 = lerp(a10[c], a11[c], fx);
+    mat[c] = lerp(c0, c1, fy);
+    if (slope != nullptr) slope[c] = (c1 - c0) * (float)(Hp - 1);
+  }
+}
+
 // the light value at wavelength column (bx, fx): the fused table holds the
 // same light pair in every density row (interp.pack_tex2d_with_tex1d
 // broadcasts it), so row 0's pair is the pair of any row a lookup reads
 __device__ __forceinline__ float sample_light(const float* tf, int bx, float fx) {
   const float2 l = __ldg(reinterpret_cast<const float2*>(tf + (int64_t)bx * 18 + 16));
   return lerp(l.x, l.y, fx);
+}
+
+// the light value of wavelength lam in the RAW instantiations: from the
+// fused TF (sample_light), or from the light's own table of N texels at
+// t = (lam - 400) / 300, a pair row (N+1, 2) or two texels of the raw (N,)
+// table (JAX sample_tex1d)
+__device__ __forceinline__ float sample_light_any(const float* tf, const float* light,
+                                                  const Params& P, int bx, float fx, float lam) {
+  const int kind = P.i[I_LIGHT_KIND], n = P.i[I_LIGHT_N];
+  if (kind == LIGHT_FUSED) return sample_light(tf, bx, fx);
+  const float t = (lam - 400.0f) / 300.0f;
+  if (kind == LIGHT_PAIR) {
+    int b;
+    float f;
+    base_frac(t, n, b, f);
+    const float2 l = __ldg(reinterpret_cast<const float2*>(light) + b);
+    return lerp(l.x, l.y, f);
+  }
+  int i0, i1;
+  float f;
+  raw_axis(t, n + 1, i0, i1, f);
+  return lerp(__ldg(light + i0), __ldg(light + i1), f);
 }
 
 // where an escape's environment lookup read: its 12-wide row, fractions
@@ -339,23 +480,32 @@ __device__ __forceinline__ int env_band(float lam) {
   return (lam < 500.0f) ? 2 : ((lam < 600.0f) ? 1 : 0);
 }
 
-// escape radiance from a packed (He+1, We+1, 12) equirect map: the
-// wavelength's channel, gain 2.7. |dy| may exceed 1 by an ulp: asinf then
-// gives NaN, which base_frac maps to row 0 like the plain version, and the
-// NaN frac carries into the value as it does there. With `addr`, records
-// where the lookup read.
+// escape radiance from a packed (He+1, We+1, 12) equirect map, or with
+// `raw` from a raw (He, We, 3) one given as (Hp, Wp) = (He+1, We+1) (12-byte
+// texels, scalar loads): the wavelength's channel, gain 2.7. |dy| may
+// exceed 1 by an ulp: asinf then gives NaN, which base_frac maps to row 0
+// like the plain version, and the NaN frac carries into the value as it
+// does there. With `addr` (packed only), records where the lookup read.
 __device__ __forceinline__ float sample_environment(const float* env, int Hp,
                                                     int Wp, float dx, float dy,
                                                     float dz, float lam,
-                                                    EnvAddr* addr = nullptr) {
+                                                    EnvAddr* addr = nullptr,
+                                                    bool raw = false) {
   float u, v;
   env_coords(dx, dy, dz, u, v);
   int bx, by;
   float fx, fy;
   base_frac(u, Wp - 1, bx, fx);
   base_frac(v, Hp - 1, by, fy);
-  const float* r = env + ((int64_t)by * Wp + bx) * 12;
   const int c = env_band(lam);
+  if (raw) {
+    const int W = Wp - 1, x0 = max(bx - 1, 0), x1 = min(bx, W - 1);
+    const int64_t r0 = (int64_t)max(by - 1, 0) * W, r1 = (int64_t)min(by, Hp - 2) * W;
+    const float c0 = lerp(__ldg(env + (r0 + x0) * 3 + c), __ldg(env + (r0 + x1) * 3 + c), fx);
+    const float c1 = lerp(__ldg(env + (r1 + x0) * 3 + c), __ldg(env + (r1 + x1) * 3 + c), fx);
+    return lerp(c0, c1, fy) * kEnvGain;
+  }
+  const float* r = env + ((int64_t)by * Wp + bx) * 12;
   if (addr != nullptr) {
     addr->row = by * Wp + bx;
     addr->band = c;
@@ -365,15 +515,6 @@ __device__ __forceinline__ float sample_environment(const float* env, int Hp,
   const float c0 = lerp(__ldg(r + c), __ldg(r + 3 + c), fx);
   const float c1 = lerp(__ldg(r + 6 + c), __ldg(r + 9 + c), fx);
   return lerp(c0, c1, fy) * kEnvGain;
-}
-
-// majorant grid cell along one axis from the pre-step position:
-// clip(int(floor(p * n)), 0, n - 1), the f32 -> int conversion saturating
-// (NaN -> 0) as XLA's does
-__device__ __forceinline__ int majorant_cell(float p, int n) {
-  const float c = floorf(p * (float)n);
-  const float cc = (c != c) ? 0.0f : fminf(fmaxf(c, -kIntLimit), kIntLimit);
-  return min(max((int)cc, 0), n - 1);
 }
 
 __device__ __forceinline__ void apply_homogeneous(const float* m, float x,
@@ -538,9 +679,10 @@ struct StepRecord {
 // What the autodiff surrogate's tape needs from one step (SUR): the events,
 // the flight, the lane's chain before its disk draw, the pre-step direction
 // and wavelength, the sample position and the local majorant. No lookup
-// value: the reverse pass (surrogate.cu) re-derives the material.
+// value: the reverse pass (surrogate.cu) re-derives the material. The raw
+// replay backward (raw_backward.cu) reads the same record and the deposit.
 struct SurRecord {
-  float dist;
+  float dist, emitted;
   int pre_bin;
   bool respawn, null_event, scatter, oob, capped;
   uint32_t rng;
@@ -595,6 +737,14 @@ __device__ __forceinline__ void deposit(float (&rad)[NB], int bin, float emitted
 // XY: the volume is an xy half-packed (rows, 4) table (two plane rows per
 // lookup); a template parameter, so the full-table instantiations carry
 // no branch and no second row for it.
+// RAW: some table is raw or partly packed (the reference's pack_tables
+// other than True): the volume a raw (D, H, W) f32 grid (8 scalar gathers,
+// 1 for the nearest filter) or a packed table (full or xy, a runtime flag
+// here), the TF fused, 16-wide packed or raw (4 float4 texel loads), the
+// light from the fused rows or its own raw or pair table, the env map
+// packed or raw; each kind a uniform runtime flag (I_VOL_RAW, I_NEAREST,
+// I_TF_KIND, I_LIGHT_KIND, I_ENV_RAW) inside the one RAW instantiation,
+// so the packed builds carry none of this code. `light`: the light table.
 //
 // Without REC (the forward) a lane that leaves the volume reads no
 // material: its wheel cannot take an event, and its escape light is the
@@ -608,7 +758,7 @@ __device__ __forceinline__ void deposit(float (&rad)[NB], int bin, float emitted
 // lookup, so a surrogate step costs K1's step and the record's stores. The
 // surrogate tape has a majorant mode, the PRB tape has none.
 template <int NB, bool REC, bool MAJ = false, bool ENV = false, bool SUR = false,
-          bool XY = false>
+          bool XY = false, bool RAW = false>
 __device__ __forceinline__ void woodcock_step(Lane& L, float (&rad)[NB],
                                               uint32_t& s, float sx, float sy,
                                               const Params& P, const StepConsts& C,
@@ -617,16 +767,19 @@ __device__ __forceinline__ void woodcock_step(Lane& L, float (&rad)[NB],
                                               StepRecord* rec,
                                               const float2* __restrict__ maj = nullptr,
                                               const float* __restrict__ env = nullptr,
-                                              SurRecord* sur = nullptr) {
+                                              SurRecord* sur = nullptr,
+                                              const float* __restrict__ light = nullptr) {
   static_assert(!(REC && (MAJ || SUR)), "the PRB tape has no majorant mode");
+  static_assert(!(REC && RAW) && !(XY && RAW), "the PRB tape reads packed tables; RAW reads "
+                "an xy table by its runtime flag");
   const float* f = P.f;
   // free flight
   float dist, m = 0.0f;
   bool capped = false;
   if constexpr (MAJ) {
-    const int cz = majorant_cell(L.pz, P.i[I_MAJ_GZ]);
-    const int cy = majorant_cell(L.py, P.i[I_MAJ_GY]);
-    const int cx = majorant_cell(L.px, P.i[I_MAJ_GX]);
+    const int cz = floor_cell(L.pz, P.i[I_MAJ_GZ]);
+    const int cy = floor_cell(L.py, P.i[I_MAJ_GY]);
+    const int cx = floor_cell(L.px, P.i[I_MAJ_GX]);
     const float2 row = __ldg(maj + ((int64_t)cz * P.i[I_MAJ_GY] + cy) * P.i[I_MAJ_GX] + cx);
     m = nmax(row.x, 1e-12f);
     const float rate = f[F_EXTINCTION] * m;
@@ -645,11 +798,16 @@ __device__ __forceinline__ void woodcock_step(Lane& L, float (&rad)[NB],
   // like the reference)
   float mat[3] = {0.0f, 0.0f, 0.0f}, light_raw = 0.0f;
   if (REC ? true : (!oob && !(MAJ && capped))) {
-    const float dens = sample_volume(vol, P.i[I_VOL_U8], P.i[I_VOL_D], P.i[I_VOL_H],
-                                     P.i[I_VOL_W], npx, npy, npz,
-                                     REC ? &rec->vol : nullptr, P.i[I_QUASICUBIC] != 0, XY);
-    sample_tf(tf, P.i[I_TF_H], P.i[I_TF_W], L.tbx, L.tfx, dens, mat,
-              REC ? &light_raw : nullptr, REC ? &rec->tf : nullptr);
+    if constexpr (RAW) {
+      const float dens = sample_volume_any(vol, P, npx, npy, npz);
+      sample_tf_any(tf, P.i[I_TF_KIND], P.i[I_TF_H], P.i[I_TF_W], L.tbx, L.tfx, dens, mat);
+    } else {
+      const float dens = sample_volume(vol, P.i[I_VOL_U8], P.i[I_VOL_D], P.i[I_VOL_H],
+                                       P.i[I_VOL_W], npx, npy, npz,
+                                       REC ? &rec->vol : nullptr, P.i[I_QUASICUBIC] != 0, XY);
+      sample_tf(tf, P.i[I_TF_H], P.i[I_TF_W], L.tbx, L.tfx, dens, mat,
+                REC ? &light_raw : nullptr, REC ? &rec->tf : nullptr);
+    }
   }
   const float albedo = mat[0], alpha = mat[1];
   const float g = mat[2] * 2.0f - 1.0f;
@@ -680,9 +838,14 @@ __device__ __forceinline__ void woodcock_step(Lane& L, float (&rad)[NB],
   if (oob) {
     if constexpr (ENV) {
       emitted = sample_environment(env, P.i[I_ENV_H], P.i[I_ENV_W], L.dx, L.dy,
-                                   L.dz, L.lam, REC ? &rec->env : nullptr);
+                                   L.dz, L.lam, REC ? &rec->env : nullptr,
+                                   RAW && P.i[I_ENV_RAW] != 0);
     } else {
-      if (!REC) light_raw = sample_light(tf, L.tbx, L.tfx);
+      if constexpr (RAW) {
+        light_raw = sample_light_any(tf, light, P, L.tbx, L.tfx, L.lam);
+      } else if (!REC) {
+        light_raw = sample_light(tf, L.tbx, L.tfx);
+      }
       const float intensity = light_raw * 5.0f;
       ddot = L.dx * f[F_LDX] + L.dy * f[F_LDY] + L.dz * f[F_LDZ];
       emitted = isotropic ? intensity : nmax(ddot * intensity, 0.0f);
@@ -706,6 +869,7 @@ __device__ __forceinline__ void woodcock_step(Lane& L, float (&rad)[NB],
   }
   if constexpr (SUR) {
     sur->dist = dist;
+    sur->emitted = emitted;
     sur->pre_bin = L.bin;
     sur->respawn = oob || absorb;
     sur->null_event = event && !absorb && !scatter;

@@ -20,6 +20,9 @@
 //                       + _dequantize_rows (:354-408), and
 //                       _sample_volume_packed_xy (:226-266), as a standalone
 //                       lookup.
+//   sample_volume_raw   replaces vpt_tpu/ops/interp.py::sample_volume on a
+//                       raw (D, H, W) grid (:411-469), with the linear,
+//                       quasicubic and nearest filters (K3's raw mode).
 //
 // What bounds them on this card. The step kernel is one thread per photon
 // lane. Per lane-step it does one random 8-byte (u8) or 32-byte (f32) load
@@ -68,6 +71,18 @@
 // table (hit-lane compaction) replaces the lane -> pixel arithmetic by
 // three coalesced 4-byte loads per launch.
 //
+// Raw and partly packed tables (RAW, selected by I_RAW: the reference's
+// pack_tables other than True, and every nearest-filtered volume) replace
+// the single-row loads by gathers: a raw (D, H, W) f32 grid costs 8 scalar
+// loads per lookup from 4 lines (1 for nearest), a raw (256, 256, 4) TF 4
+// float4 loads from 4 lines, a raw or pair light its own 1-2 loads on an
+// escape, a raw env map 4 scalar loads of 12-byte texels. The corner values
+// and the lerps are the packed lookup's, so every layout renders the same
+// bits. The bench's raw grid (8.4 MB) and TF (1 MB) stay in the L2; the
+// sparse 512^3 raw grid (537 MB) does not, and each of its 8 gathers is a
+// sector from HBM. RAW is a template parameter, so the packed builds keep
+// their code; the kinds inside it are uniform runtime flags.
+//
 // compact_image is one thread per (bin, pixel): a hit pixel sums its S
 // stream lanes in stream order (no atomics, so every run gives the same
 // bits) and divides by S; a miss pixel copies its closed-form value.
@@ -86,7 +101,7 @@
 namespace {
 
 // K dispatches x `steps` Woodcock iterations per lane, state in registers.
-template <int NB, bool MAJ, bool ENV, bool XY>
+template <int NB, bool MAJ, bool ENV, bool XY, bool RAW>
 __global__ void __launch_bounds__(STEP_THREADS, 10)
 step_kernel(const Params P, float* __restrict__ px_, float* __restrict__ py_,
             float* __restrict__ pz_, float* __restrict__ dx_,
@@ -98,7 +113,7 @@ step_kernel(const Params P, float* __restrict__ px_, float* __restrict__ py_,
             const float* __restrict__ env, const uint32_t* __restrict__ lane_ix,
             const uint32_t* __restrict__ lane_iy,
             const uint32_t* __restrict__ lane_seed_iy,
-            const uint32_t* __restrict__ seeds) {
+            const uint32_t* __restrict__ seeds, const float* __restrict__ light) {
   const int n_lanes = P.i[I_N_LANES];
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
   if (lane >= n_lanes) return;
@@ -117,8 +132,8 @@ step_kernel(const Params P, float* __restrict__ px_, float* __restrict__ py_,
   for (int k = 0; k < P.i[I_N_SEEDS]; ++k) {
     uint32_t s = hash3(ix, seed_iy, seeds[k]);
     for (int it = 0; it < steps; ++it) {
-      woodcock_step<NB, false, MAJ, ENV, false, XY>(L, rad, s, sx, sy, P, C, vol, tf, nullptr,
-                                                    maj, env);
+      woodcock_step<NB, false, MAJ, ENV, false, XY, RAW>(L, rad, s, sx, sy, P, C, vol, tf,
+                                                         nullptr, maj, env, nullptr, light);
     }
   }
 
@@ -180,6 +195,16 @@ compact_image_kernel(const float* __restrict__ radiance, int64_t n_lanes,
 }
 
 __global__ void __launch_bounds__(256)
+sample_volume_raw_kernel(const float* __restrict__ grid, int D, int H, int W, int qc,
+                         int nearest, const float* __restrict__ u,
+                         const float* __restrict__ v, const float* __restrict__ w,
+                         float* __restrict__ out, int n) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  out[i] = sample_volume_raw(grid, D + 1, H + 1, W + 1, u[i], v[i], w[i], qc != 0, nearest != 0);
+}
+
+__global__ void __launch_bounds__(256)
 sample_volume_kernel(const void* __restrict__ table, int is_u8, int xy, int D0, int Hp,
                      int Wp, const float* __restrict__ u,
                      const float* __restrict__ v, const float* __restrict__ w,
@@ -189,19 +214,19 @@ sample_volume_kernel(const void* __restrict__ table, int is_u8, int xy, int D0, 
   out[i] = sample_volume(table, is_u8, D0, Hp, Wp, u[i], v[i], w[i], nullptr, false, xy != 0);
 }
 
-template <int NB, bool MAJ, bool ENV, bool XY>
+template <int NB, bool MAJ, bool ENV, bool XY, bool RAW>
 void launch_step(const Params& P, cudaStream_t st, float* px, float* py,
                  float* pz, float* dx, float* dy, float* dz, int* bounces,
                  int* samples, int* bin, float* wavelength, float* radiance,
                  const void* vol, const float* tf, const float* maj,
                  const float* env, const uint32_t* lane_ix,
                  const uint32_t* lane_iy, const uint32_t* lane_seed_iy,
-                 const uint32_t* seeds) {
-  step_kernel<NB, MAJ, ENV, XY><<<blocks_for(P.i[I_N_LANES], STEP_THREADS), STEP_THREADS,
-                                  0, st>>>(
+                 const uint32_t* seeds, const float* light) {
+  step_kernel<NB, MAJ, ENV, XY, RAW><<<blocks_for(P.i[I_N_LANES], STEP_THREADS), STEP_THREADS,
+                                       0, st>>>(
       P, px, py, pz, dx, dy, dz, bounces, samples, bin, wavelength, radiance,
       vol, tf, reinterpret_cast<const float2*>(maj), env, lane_ix, lane_iy,
-      lane_seed_iy, seeds);
+      lane_seed_iy, seeds, light);
 }
 
 template <int NB>
@@ -211,20 +236,23 @@ void launch_step_modes(const Params& P, cudaStream_t st, float* px, float* py,
                        float* radiance, const void* vol, const float* tf,
                        const float* maj, const float* env,
                        const uint32_t* lane_ix, const uint32_t* lane_iy,
-                       const uint32_t* lane_seed_iy, const uint32_t* seeds) {
-#define VPT_STEP(M, E, X)                                                        \
-  launch_step<NB, M, E, X>(P, st, px, py, pz, dx, dy, dz, bounces, samples, bin, \
-                           wavelength, radiance, vol, tf, maj, env, lane_ix,     \
-                           lane_iy, lane_seed_iy, seeds)
-#define VPT_STEP_MODES(X)                                          \
-  if (maj == nullptr && env == nullptr) VPT_STEP(false, false, X); \
-  else if (env == nullptr) VPT_STEP(true, false, X);               \
-  else if (maj == nullptr) VPT_STEP(false, true, X);               \
-  else VPT_STEP(true, true, X);
-  if (P.i[I_VOL_XY] != 0) {
-    VPT_STEP_MODES(true)
+                       const uint32_t* lane_seed_iy, const uint32_t* seeds,
+                       const float* light) {
+#define VPT_STEP(M, E, X, R)                                                        \
+  launch_step<NB, M, E, X, R>(P, st, px, py, pz, dx, dy, dz, bounces, samples, bin, \
+                              wavelength, radiance, vol, tf, maj, env, lane_ix,     \
+                              lane_iy, lane_seed_iy, seeds, light)
+#define VPT_STEP_MODES(X, R)                                          \
+  if (maj == nullptr && env == nullptr) VPT_STEP(false, false, X, R); \
+  else if (env == nullptr) VPT_STEP(true, false, X, R);               \
+  else if (maj == nullptr) VPT_STEP(false, true, X, R);               \
+  else VPT_STEP(true, true, X, R);
+  if (P.i[I_RAW] != 0) {
+    VPT_STEP_MODES(false, true)
+  } else if (P.i[I_VOL_XY] != 0) {
+    VPT_STEP_MODES(true, false)
   } else {
-    VPT_STEP_MODES(false)
+    VPT_STEP_MODES(false, false)
   }
 #undef VPT_STEP_MODES
 #undef VPT_STEP
@@ -243,9 +271,10 @@ int vpt_layout(int which) {
   }
 }
 
-// maj (Gz*Gy*Gx*2 floats), env (packed Hp*Wp*12 floats) and the three
-// lane tables (n_lanes uint32 each) are optional: null selects the
-// default form of each.
+// maj (Gz*Gy*Gx*2 floats), env (packed Hp*Wp*12 or raw He*We*3 floats)
+// and the three lane tables (n_lanes uint32 each) are optional: null
+// selects the default form of each. light: the light's own table (RAW with
+// I_LIGHT_KIND raw or pair), else null.
 int vpt_mcm_spectral_step(const float* fparams, const int* iparams, float* px,
                           float* py, float* pz, float* dx, float* dy, float* dz,
                           int* bounces, int* samples, int* bin, float* wavelength,
@@ -253,10 +282,14 @@ int vpt_mcm_spectral_step(const float* fparams, const int* iparams, float* px,
                           const float* maj, const float* env,
                           const uint32_t* lane_ix, const uint32_t* lane_iy,
                           const uint32_t* lane_seed_iy, const uint32_t* seeds,
-                          void* stream) {
+                          const float* light, void* stream) {
   const Params P = make_params(fparams, iparams);
   const int n = P.i[I_N_LANES];
   if (n <= 0) return 0;
+  const bool own_light = P.i[I_RAW] != 0 && P.i[I_LIGHT_KIND] != LIGHT_FUSED;
+  if ((light != nullptr) != own_light) return (int)cudaErrorInvalidValue;
+  if (P.i[I_RAW] == 0 && (P.i[I_VOL_RAW] | P.i[I_NEAREST] | P.i[I_TF_KIND] | P.i[I_ENV_RAW]) != 0)
+    return (int)cudaErrorInvalidValue;
   if ((maj != nullptr) != (P.i[I_MAJ_GZ] > 0) || (env != nullptr) != (P.i[I_ENV_H] > 0) ||
       (lane_ix == nullptr) != (lane_iy == nullptr) ||
       (lane_ix == nullptr) != (lane_seed_iy == nullptr))
@@ -267,7 +300,7 @@ int vpt_mcm_spectral_step(const float* fparams, const int* iparams, float* px,
   case NB:                                                                               \
     launch_step_modes<NB>(P, st, px, py, pz, dx, dy, dz, bounces, samples, bin,          \
                           wavelength, radiance, vol, tf, maj, env, lane_ix, lane_iy,     \
-                          lane_seed_iy, seeds);                                          \
+                          lane_seed_iy, seeds, light);                                   \
     break;
     VPT_NB(4) VPT_NB(8) VPT_NB(12) VPT_NB(16) VPT_NB(20) VPT_NB(24) VPT_NB(28) VPT_NB(32)
 #undef VPT_NB
@@ -317,6 +350,16 @@ int vpt_sample_volume_packed(const void* table, int is_u8, int xy, int D0, int H
   if (n <= 0) return 0;
   sample_volume_kernel<<<blocks_for(n, 256), 256, 0, static_cast<cudaStream_t>(stream)>>>(
       table, is_u8, xy, D0, Hp, Wp, u, v, w, out, n);
+  return (int)cudaGetLastError();
+}
+
+// a raw (D, H, W) f32 grid; filter 0 linear, 1 quasicubic, 2 nearest
+int vpt_sample_volume_raw(const float* grid, int D, int H, int W, int filter, const float* u,
+                          const float* v, const float* w, float* out, int n, void* stream) {
+  if (n <= 0) return 0;
+  if (filter < 0 || filter > 2) return (int)cudaErrorInvalidValue;
+  sample_volume_raw_kernel<<<blocks_for(n, 256), 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      grid, D, H, W, filter == 1, filter == 2, u, v, w, out, n);
   return (int)cudaGetLastError();
 }
 

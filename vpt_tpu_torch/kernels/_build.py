@@ -54,10 +54,11 @@ _L = ctypes.c_int64
 _SIGNATURES = {
     "mcm_spectral": {
         "vpt_layout": ([_I], _I),
-        "vpt_mcm_spectral_step": ([_P] * 21 + [_P], _I),
+        "vpt_mcm_spectral_step": ([_P] * 22 + [_P], _I),
         "vpt_mcm_spectral_reset": ([_P, _P, _U] + [_P] * 15 + [_P], _I),
         "vpt_compact_image": ([_P, _L, _P, _P, _P, _I, _I, _I, _I, _P], _I),
         "vpt_sample_volume_packed": ([_P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _I, _P], _I),
+        "vpt_sample_volume_raw": ([_P, _I, _I, _I, _I, _P, _P, _P, _P, _I, _P], _I),
     },
     "spectral_backward": {
         "vpt_bwd_layout": ([_I], _I),
@@ -69,6 +70,11 @@ _SIGNATURES = {
     "surrogate": {
         "vpt_sur_layout": ([_I], _I),
         "vpt_surrogate_reverse": ([_P, _P, _P, _I] + [_P] * 17 + [_P], _I),
+    },
+    "raw_backward": {
+        "vpt_raw_layout": ([_I], _I),
+        "vpt_raw_tape": ([_P, _P, _U] + [_P] * 14 + [_P], _I),
+        "vpt_raw_replay": ([_P, _P, _U, _F] + [_P] * 19 + [_P], _I),
     },
     "corners": {
         "vpt_contract_volume": ([_P, _P, _I, _I, _I, _P], _I),
@@ -180,7 +186,8 @@ def load():
 KERNELS = ("step_kernel", "tape_forward_kernel", "reverse_kernel", "contract_volume_kernel",
            "contract_volume_xy_kernel", "contract_env_kernel", "contract_tf_kernel",
            "pack_volume_kernel", "pack_volume_xy_kernel", "pack_env_kernel", "pack_tf_kernel",
-           "scatter_rows_kernel", "surrogate_tape_kernel", "surrogate_reverse_kernel")
+           "scatter_rows_kernel", "surrogate_tape_kernel", "surrogate_reverse_kernel",
+           "raw_tape_kernel", "raw_replay_kernel")
 _ENTRY = re.compile(r"Compiling entry function '\S*?\d(" + "|".join(KERNELS) + r")(I\S*?EE)?[Ev]")
 
 
@@ -189,8 +196,9 @@ def ptxas_table(log_text):
     stack frame B)] of the kernels named in ``KERNELS`` in a ptxas -v log
     (the stack frame is the thread's local memory: spills and arrays
     indexed at run time); template args as
-    NB,MAJ,ENV (K1 step_kernel; K4's surrogate mode surrogate_tape_kernel
-    and K12 surrogate_reverse_kernel), NB,ENV (K4 tape_forward_kernel), NS
+    NB,MAJ,ENV,XY,RAW (K1 step_kernel), NB,MAJ,ENV (K4's surrogate mode
+    surrogate_tape_kernel and K12 surrogate_reverse_kernel), NB,ENV,XY (K4
+    tape_forward_kernel), NB (K13 raw_tape_kernel, K14 raw_replay_kernel), NS
     (K5 reverse_kernel: 0 for stride mode, else the importance step
     count), "" for the untemplated ones."""
     rows, cur = [], None

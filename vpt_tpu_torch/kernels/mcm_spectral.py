@@ -1,6 +1,6 @@
 """The spectral MCM forward kernels: wrappers, plain versions, launch counts.
 
-Four kernels of ``vpt_tpu_torch/csrc/mcm_spectral.cu``:
+Five kernels of ``vpt_tpu_torch/csrc/mcm_spectral.cu``:
 
 - ``step``: K render dispatches of ``steps`` Woodcock iterations, in place
   (replaces ``vpt_tpu/models/mcm_spectral.py::_render_body`` looped by
@@ -8,7 +8,9 @@ Four kernels of ``vpt_tpu_torch/csrc/mcm_spectral.cu``:
   lane table); plain version ``step_plain``. The ctx picks the mode: the
   super-voxel majorant (``ctx.majorant``), the environment map
   (``ctx.environment``), the quasicubic filter (``ctx.volume_filter``), the
-  xy half-packed volume (``ctx.density.kind == "xy"``).
+  xy half-packed volume (``ctx.density.kind == "xy"``), raw or partly
+  packed tables (``is_raw``: a raw grid, with the nearest filter too, a
+  raw or 16-wide TF with the light's own table, a raw env map).
 - ``reset``: fresh photons (replaces ``full_reset`` and ``compact_reset``);
   plain version ``reset_plain``.
 - ``compact_radiance``: each hit pixel's mean over its stream lanes, the
@@ -18,6 +20,9 @@ Four kernels of ``vpt_tpu_torch/csrc/mcm_spectral.cu``:
 - ``sample_volume_packed``: a standalone packed-volume lookup, full or xy
   table (replaces ``interp._sample_volume_packed`` and
   ``_sample_volume_packed_xy``); plain version ``sample_volume_packed_plain``.
+- ``sample_volume_raw``: a standalone raw-grid lookup, linear, quasicubic
+  or nearest (replaces ``interp.sample_volume`` on a raw grid); plain
+  version ``sample_volume_raw_plain``.
 
 ``step`` and ``reset`` take an optional lane table ``lanes = (ix, iy,
 seed_iy)``, int32 tensors of the lane shape (hit-lane compaction); without
@@ -27,7 +32,8 @@ Each wrapper runs its plain version when its tensors lie on the CPU, and
 launches the CUDA kernel when they lie on a CUDA device; anything else
 raises. ``LAUNCHES`` counts kernel launches (never plain runs); a step
 launch also counts under each mode it ran (``step_majorant``,
-``step_environment``, ``step_quasicubic``, ``step_xy``, ``step_lane_table``),
+``step_environment``, ``step_quasicubic``, ``step_xy``, ``step_raw``,
+``step_lane_table``),
 a reset over a lane table under ``reset_lane_table``, a lookup in an xy
 table under ``sample_volume_packed_xy``.
 
@@ -46,11 +52,15 @@ from vpt_tpu_torch.ops import geometry, interp, sampling
 # must match MAX_BINS / F_COUNT / I_COUNT in csrc/mcm_spectral.cu
 MAX_BINS = 32
 _F_COUNT = 24 + MAX_BINS + 1
-_I_COUNT = 21
+_I_COUNT = 28
+# TfKind and LightKind of csrc/mcm_common.cuh
+_TF_KIND = {18: 0, 4: 1, 16: 2}
+_LIGHT_FUSED, _LIGHT_RAW, _LIGHT_PAIR = 0, 1, 2
 
 LAUNCHES = {"step": 0, "reset": 0, "compact_radiance": 0, "sample_volume_packed": 0,
             "step_majorant": 0, "step_environment": 0, "step_quasicubic": 0, "step_xy": 0,
-            "step_lane_table": 0, "reset_lane_table": 0, "sample_volume_packed_xy": 0}
+            "step_raw": 0, "step_lane_table": 0, "reset_lane_table": 0,
+            "sample_volume_packed_xy": 0, "sample_volume_raw": 0}
 
 # f32 constants of the environment lookup (vpt_tpu/models/mcm_spectral.py:155-158)
 INV_PI = float(np.float32(1.0 / np.pi))
@@ -134,14 +144,9 @@ def _respawn(rng, mask, sx, sy, ctx, n_bins):
     )
 
 
-def _majorant_cell(p, n: int):
-    """Majorant grid cell along one axis: clip(int32(floor(p*n)), 0, n-1)
-    from the pre-step position, saturating like XLA's f32 -> i32."""
-    return torch.clamp(interp._index(torch.floor(p * n)), 0, n - 1)
-
-
 def sample_environment(env, dx, dy, dz, lam):
-    """Escape radiance from a packed (He+1, We+1, 12) equirect map: the
+    """Escape radiance from a packed (He+1, We+1, 12) or raw (He, We, 3)
+    equirect map: the
     reference's mapping (y quirk kept), gain 2.7, channel by wavelength
     (< 500 nm blue, < 600 green, else red). Same f32 operations, in the
     same order, as the JAX ``_sample_environment``."""
@@ -208,8 +213,9 @@ def _render_body(p, rng, sx, sy, ctx, n_bins, light, collect: bool = False, scor
     maj = capped = None
     if ctx.majorant is not None:
         Gz, Gy, Gx, _ = ctx.majorant.shape
-        cell = ((_majorant_cell(p["pz"], Gz) * Gy + _majorant_cell(p["py"], Gy)) * Gx
-                + _majorant_cell(p["px"], Gx))
+        # the pre-step position's cell: clip(int32(floor(p*n)), 0, n-1) per axis
+        cell = ((interp._nearest_coords(p["pz"], Gz) * Gy + interp._nearest_coords(p["py"], Gy))
+                * Gx + interp._nearest_coords(p["px"], Gx))
         row = ctx.majorant.reshape(-1, 2)[cell.to(torch.int64)]
         maj = torch.clamp_min(row[..., 0], 1e-12)
         flight_cap = row[..., 1]
@@ -239,10 +245,15 @@ def _render_body(p, rng, sx, sy, ctx, n_bins, light, collect: bool = False, scor
 
     # material lookup (sampled, clamped, even when out of bounds)
     t = sampling.div_scalar(p["wavelength"] - 400.0, 300.0)
-    dens = interp.sample_volume_packed(ctx.density.table, ctx.density.dims, px, py, pz,
-                                       ctx.volume_filter, ctx.density.kind)
-    mat, light_raw, tf_extras = interp.sample_tex2d_fused1d(ctx.material_tf, t, dens,
-                                                            return_extras=True)
+    dens = interp.sample_volume(ctx.density, px, py, pz, ctx.volume_filter)
+    if ctx.material_tf.shape[-1] == 18:
+        # the fused TF+light table: one row holds both
+        mat, light_raw, tf_extras = interp.sample_tex2d_fused1d(ctx.material_tf, t, dens,
+                                                                return_extras=True)
+    else:
+        # a raw or 16-wide TF and the light from its own raw or pair table
+        mat, tf_extras = interp.sample_tex2d(ctx.material_tf, t, dens), None
+        light_raw = interp.sample_tex1d(ctx.light_spectrum, t)
     albedo = mat[..., 0]
     alpha = mat[..., 1]
     g = mat[..., 2] * 2.0 - 1.0
@@ -313,7 +324,7 @@ def _render_body(p, rng, sx, sy, ctx, n_bins, light, collect: bool = False, scor
     if collect:
         internals = dict(
             dist=dist, sample_pos=(px, py, pz), pre_dir=(p["dx"], p["dy"], p["dz"]),
-            pre_bin=p["bin"], albedo=albedo, alpha=alpha, g=g, null=null,
+            pre_bin=p["bin"], dens=dens, albedo=albedo, alpha=alpha, g=g, null=null,
             scatter=scatter, oob=oob, respawn=respawn, emitted=emitted,
             hg_cos=hx * p["dx"] + hy * p["dy"] + hz * p["dz"], tf_extras=tf_extras,
             capped=capped, maj=maj, rng_disk=rng_disk, pre_wavelength=p["wavelength"],
@@ -466,14 +477,26 @@ def _params(ctx, resolution, streams, n_bins, steps=0, n_seeds=0, n_lanes=None):
     f[22] = bounds[0]
     f[23] = bounds[n_bins] - bounds[0]
     f[24:24 + n_bins + 1] = bounds
-    vol, tf = ctx.density, ctx.material_tf
+    vol, tf, light, env = ctx.density, ctx.material_tf, ctx.light_spectrum, ctx.environment
+    # a raw table of n texels along an axis gives that axis as n + 1
+    # (csrc/mcm_common.cuh IParam)
+    vol_raw = not isinstance(vol, interp.PackedVolume)
+    dims = tuple(d + 1 for d in vol.shape) if vol_raw else vol.dims
+    tf_kind = _TF_KIND[tf.shape[-1]]
+    tf_dims = (tf.shape[0] + 1, tf.shape[1] + 1) if tf_kind == 1 else tf.shape[:2]
+    light_kind = (_LIGHT_FUSED if tf_kind == 0 else _LIGHT_PAIR if light.ndim == 2
+                  else _LIGHT_RAW)
+    light_n = light.shape[0] - (light.ndim == 2)
+    env_raw = env is not None and env.shape[-1] == 3
+    env_dims = (0, 0) if env is None else (env.shape[0] + env_raw, env.shape[1] + env_raw)
     maj = ctx.majorant.shape[:3] if ctx.majorant is not None else (0, 0, 0)
-    env = ctx.environment.shape[:2] if ctx.environment is not None else (0, 0)
     i = np.array([
         int(isotropic), n_bins, int(ctx.max_bounces), steps, n_seeds, streams,
-        resolution, int(vol.table.dtype == torch.uint8), *vol.dims,
-        tf.shape[0], tf.shape[1], n_lanes, int(ctx.volume_filter == "quasicubic"),
-        *maj, *env, int(vol.kind == "xy"),
+        resolution, int(not vol_raw and vol.table.dtype == torch.uint8), *dims,
+        *tf_dims, n_lanes, int(ctx.volume_filter == "quasicubic"),
+        *maj, *env_dims, int(not vol_raw and vol.kind == "xy"),
+        int(is_raw(ctx)), int(vol_raw), int(ctx.volume_filter == "nearest"), tf_kind, light_kind,
+        light_n, int(env_raw),
     ], np.int32)
     assert i.shape == (_I_COUNT,)
     return f, i
@@ -484,29 +507,51 @@ def _check_layout(lib):
         raise RuntimeError("kernel library parameter layout does not match the wrapper")
 
 
+def is_raw(ctx) -> bool:
+    """Whether a ctx runs K1's RAW instantiation: a raw grid, a TF other
+    than the fused table, or a raw environment map."""
+    return (not isinstance(ctx.density, interp.PackedVolume) or ctx.material_tf.shape[-1] != 18
+            or (ctx.environment is not None and ctx.environment.shape[-1] == 3))
+
+
 def _check_tables(ctx):
     """Shapes, types and alignment of the scene tables. Not checked here, once
     per context instead (``convert.ctx_from_numpy``; the packers hold it by
-    construction): every density row of ``material_tf`` repeats the light
-    pair, which K1 reads from row 0 for a lane that left the volume."""
+    construction): every density row of a fused ``material_tf`` repeats the
+    light pair, which K1 reads from row 0 for a lane that left the volume."""
     vol = ctx.density
-    _check(vol.table, "density table", vol.table.dtype, (int(np.prod(vol.dims)), vol.width),
-           align=16)
-    if ctx.material_tf.ndim != 3 or ctx.material_tf.shape[-1] != 18:
-        raise ValueError(f"material_tf must be a fused (Hp, Wp, 18) table, got {tuple(ctx.material_tf.shape)}")
-    # float2 loads of its corner channels: 8-byte aligned
-    _check(ctx.material_tf, "material_tf", torch.float32, align=8)
-    if ctx.volume_filter not in ("linear", "quasicubic"):
-        raise ValueError(f"volume filter {ctx.volume_filter!r} needs raw tables")
+    if isinstance(vol, interp.PackedVolume):
+        _check(vol.table, "density table", vol.table.dtype,
+               (int(np.prod(vol.dims)), vol.width), align=16)
+        if ctx.volume_filter not in ("linear", "quasicubic"):
+            raise ValueError(f"volume filter {ctx.volume_filter!r} needs a raw grid")
+    else:
+        if vol.ndim != 3:
+            raise ValueError(f"a raw density must be a (D, H, W) grid, got {tuple(vol.shape)}")
+        _check(vol, "density grid", torch.float32)
+        if ctx.volume_filter not in ("linear", "quasicubic", "nearest"):
+            raise ValueError(f"unknown volume filter {ctx.volume_filter!r}")
+    tf = ctx.material_tf
+    if tf.ndim != 3 or tf.shape[-1] not in _TF_KIND:
+        raise ValueError("material_tf must be a fused (Hp, Wp, 18), packed (Hp, Wp, 16) or raw "
+                         f"(H, W, 4) table, got {tuple(tf.shape)}")
+    # the fused table's corners load as float2 (8-byte aligned), the others as float4
+    _check(tf, "material_tf", torch.float32, align=8 if tf.shape[-1] == 18 else 16)
+    if tf.shape[-1] != 18:
+        light = ctx.light_spectrum
+        if light.ndim == 2 and light.shape[1] != 2 or light.ndim not in (1, 2):
+            raise ValueError(f"light_spectrum must be a raw (N,) or pair (N+1, 2) table, got "
+                             f"{tuple(light.shape)}")
+        _check(light, "light_spectrum", torch.float32, align=8)
     if ctx.majorant is not None:
         if ctx.majorant.ndim != 4 or ctx.majorant.shape[-1] != 2:
             raise ValueError(f"majorant must be a (Gz, Gy, Gx, 2) table, got "
                              f"{tuple(ctx.majorant.shape)}")
         _check(ctx.majorant, "majorant", torch.float32, align=8)
     if ctx.environment is not None:
-        if ctx.environment.ndim != 3 or ctx.environment.shape[-1] != 12:
-            raise ValueError(f"environment must be a packed (He+1, We+1, 12) table, got "
-                             f"{tuple(ctx.environment.shape)}")
+        if ctx.environment.ndim != 3 or ctx.environment.shape[-1] not in (3, 12):
+            raise ValueError(f"environment must be a packed (He+1, We+1, 12) or raw (He, We, 3) "
+                             f"table, got {tuple(ctx.environment.shape)}")
         _check(ctx.environment, "environment", torch.float32)
 
 
@@ -529,13 +574,23 @@ def _check_state(state, n_bins, lanes=None):
         _check(t, k, torch.int32 if k in _INT_FIELDS else torch.float32, shape)
 
 
+def density_table(ctx) -> torch.Tensor:
+    """The ctx's volume tensor: the packed table or the raw grid."""
+    return ctx.density.table if isinstance(ctx.density, interp.PackedVolume) else ctx.density
+
+
 def _ctx_tensors(ctx):
-    return [t for t in (ctx.density.table, ctx.material_tf, ctx.majorant, ctx.environment)
-            if t is not None]
+    return [t for t in (density_table(ctx), ctx.material_tf, ctx.light_spectrum, ctx.majorant,
+                        ctx.environment) if t is not None]
 
 
 def _ptr(t) -> int:
     return 0 if t is None else t.data_ptr()
+
+
+def _light_ptr(ctx) -> int:
+    """The light's own table for K1, whose TF rows do not carry it; else 0."""
+    return 0 if ctx.material_tf.shape[-1] == 18 else ctx.light_spectrum.data_ptr()
 
 
 def step(state, ctx, seeds, steps: int, n_bins: int, lanes=None):
@@ -561,16 +616,17 @@ def step(state, ctx, seeds, steps: int, n_bins: int, lanes=None):
         err = lib.vpt_mcm_spectral_step(
             f.ctypes.data, i.ctypes.data,
             *(getattr(state, k).data_ptr() for k in STATE_FIELDS[:11]),
-            ctx.density.table.data_ptr(), ctx.material_tf.data_ptr(),
+            density_table(ctx).data_ptr(), ctx.material_tf.data_ptr(),
             _ptr(ctx.majorant), _ptr(ctx.environment),
             _ptr(ix), _ptr(iy), _ptr(seed_iy),
-            seeds_dev.data_ptr(), _stream(device))
+            seeds_dev.data_ptr(), _light_ptr(ctx), _stream(device))
     _raise_on(err, "mcm_spectral_step")
     LAUNCHES["step"] += 1
     for mode, on in (("majorant", ctx.majorant is not None),
                      ("environment", ctx.environment is not None),
                      ("quasicubic", ctx.volume_filter == "quasicubic"),
-                     ("xy", ctx.density.kind == "xy"),
+                     ("xy", getattr(ctx.density, "kind", None) == "xy"),
+                     ("raw", is_raw(ctx)),
                      ("lane_table", lanes is not None)):
         LAUNCHES[f"step_{mode}"] += int(on)
     return state
@@ -587,7 +643,7 @@ def reset(ctx, resolution: int, n_bins: int, streams: int, device, lanes=None):
     if route == "cpu":
         return reset_plain(ctx, resolution, n_bins, streams, device, lanes)
     _check_tables(ctx)
-    device = ctx.density.table.device
+    device = density_table(ctx).device
     lane = tuple(lanes[0].shape) if lanes is not None else _lane_shape(resolution, streams)
     if lanes is not None:
         if len(lane) != 2 or lane[-1] != resolution:
@@ -663,4 +719,36 @@ def sample_volume_packed(table: torch.Tensor, dims, u, v, w, kind: str = "full")
     _raise_on(err, "sample_volume_packed")
     LAUNCHES["sample_volume_packed"] += 1
     LAUNCHES["sample_volume_packed_xy"] += int(kind == "xy")
+    return out
+
+
+_FILTERS = ("linear", "quasicubic", "nearest")
+
+
+def sample_volume_raw_plain(grid, u, v, w, mode: str = "linear"):
+    """Plain PyTorch ``sample_volume_raw``."""
+    return interp.sample_volume_raw(grid, u, v, w, mode)
+
+
+def sample_volume_raw(grid: torch.Tensor, u, v, w, mode: str = "linear"):
+    """Density at (u, v, w) from a raw (D, H, W) f32 grid with the linear,
+    quasicubic or nearest filter (K3's raw mode: 8 scalar gathers per
+    lookup, 1 for nearest)."""
+    if mode not in _FILTERS:
+        raise ValueError(f"unknown volume filter {mode!r}")
+    if _route(grid, u, v, w) == "cpu":
+        return sample_volume_raw_plain(grid, u, v, w, mode)
+    if grid.ndim != 3:
+        raise ValueError(f"a raw grid must be (D, H, W), got {tuple(grid.shape)}")
+    _check(grid, "grid", torch.float32)
+    for t, name in ((u, "u"), (v, "v"), (w, "w")):
+        _check(t, name, torch.float32, u.shape)
+    out = torch.empty_like(u)
+    lib = _build.load()
+    with torch.cuda.device(grid.device):
+        err = lib.vpt_sample_volume_raw(grid.data_ptr(), *grid.shape, _FILTERS.index(mode),
+                                        u.data_ptr(), v.data_ptr(), w.data_ptr(), out.data_ptr(),
+                                        u.numel(), _stream(grid.device))
+    _raise_on(err, "sample_volume_raw")
+    LAUNCHES["sample_volume_raw"] += 1
     return out

@@ -100,7 +100,8 @@ _TAPE_AUTO_LIMIT_BYTES = 6 * 1024**3
 # quasicubic filter, the xy volume
 LAUNCHES = {"prb_tape_forward": 0, "prb_reverse": 0,
             "prb_tape_forward_environment": 0, "prb_tape_forward_quasicubic": 0,
-            "prb_tape_forward_xy": 0, "prb_reverse_environment": 0, "prb_reverse_xy": 0}
+            "prb_tape_forward_xy": 0, "prb_reverse_environment": 0, "prb_reverse_xy": 0,
+            "raw_tape": 0, "raw_replay": 0}
 
 
 def reset_launch_counts():
@@ -134,6 +135,12 @@ def ctx_tape_fields(ctx, wrt) -> tuple:
     return tape_fields(wrt, ctx.environment is not None, ctx.density.kind == "xy")
 
 
+# the reference's taped forward refuses the majorant mode with this error
+_MAJORANT_REFUSAL = ("the packed-PRB taped backward does not support the super-voxel majorant "
+                     "mode; use the autodiff surrogate (render_sequence_diff / fit_spectral "
+                     "method='autodiff') for majorant-mode gradients")
+
+
 def _slots(fields) -> np.ndarray:
     slot = np.full(len(TAPE_FIELDS), -1, np.int32)
     for i, f in enumerate(fields):
@@ -144,27 +151,21 @@ def _slots(fields) -> np.ndarray:
 def packed_ctx(ctx, volume_filter="linear"):
     """The ctx a packed backward renders with: checked, and with the
     ``volume_filter`` argument as its filter (the argument decides, as the
-    static argument of the JAX functions does)."""
+    static argument of the JAX functions does). A ctx without the fused TF
+    or without a packed volume, or another filter, fails the reference's
+    assertions (``spectral_backward_packed``, ``_packed_vol_meta``)."""
+    if ctx.material_tf.ndim != 3 or ctx.material_tf.shape[-1] != 18:
+        raise AssertionError("packed backward needs the fused TF")
     if volume_filter not in ("linear", "quasicubic"):
-        raise NotImplementedError(
-            f"volume filter {volume_filter!r} needs raw tables, whose replay backward "
-            "(spectral_backward) is not ported")
+        raise AssertionError("packed backward supports linear/quasicubic filtering")
     if ctx.majorant is not None:
-        raise NotImplementedError(
-            "the packed-PRB taped backward does not support the super-voxel majorant "
-            "mode; use the autodiff surrogate (render_sequence_diff / fit_spectral "
-            "method='autodiff') for majorant-mode gradients")
+        raise NotImplementedError(_MAJORANT_REFUSAL)
     if ctx.environment is not None and (ctx.environment.ndim != 3
                                         or ctx.environment.shape[-1] != 12):
         raise ValueError("environment gradients need the packed (He+1, We+1, 12) equirect "
                          f"table, got {tuple(ctx.environment.shape)}")
     if not isinstance(ctx.density, interp.PackedVolume):
-        raise NotImplementedError(
-            "the raw-table replay backward (spectral_backward) is not ported; "
-            "the port's backward needs the packed ctx (PackedVolume + fused TF)")
-    if ctx.material_tf.ndim != 3 or ctx.material_tf.shape[-1] != 18:
-        raise ValueError("packed backward needs the fused (Hp, Wp, 18) TF+light table, got "
-                         f"{tuple(ctx.material_tf.shape)}")
+        raise AssertionError("packed backward needs a packed volume")
     if ctx.volume_filter != volume_filter:
         ctx = dataclasses.replace(ctx, volume_filter=volume_filter)
     return ctx
@@ -701,13 +702,303 @@ def prb_render_and_grads(state0, ctx, g_image, steps: int, n_bins: int,
                          scatter_stride: int = 1, scatter_mode: str = "stride",
                          scatter_phase=None, pick_bits=None):
     """Forward dispatch + hand-derived backward: (state_out, image, grads),
-    grads addressing the raw tables. Only the packed ctx is ported (full
-    or xy volume, any filter ``volume_filter`` names, with or without an
-    environment map); a raw ctx raises ``NotImplementedError``."""
-    return spectral_backward_packed(state0, ctx, g_image, steps, n_bins, volume_filter,
-                                    wrt=wrt, scatter_stride=scatter_stride,
-                                    scatter_mode=scatter_mode, pick_bits=pick_bits,
-                                    scatter_phase=scatter_phase)
+    grads addressing the raw tables, routed by the ctx's tables as the
+    reference routes them: the packed ctx (fused TF, full or xy packed
+    volume, with or without an environment map) to the packed-adjoint
+    backward; a fully raw ctx (raw grid, raw (H, W, 4) TF) to the raw
+    replay backward ``spectral_backward``, which returns all four
+    gradients whatever ``wrt`` and the thinning arguments say, as the
+    reference's does; any other mix raises ``ValueError``."""
+    packed_vol = isinstance(ctx.density, interp.PackedVolume)
+    if ctx.material_tf.shape[-1] == 18 and packed_vol:
+        return spectral_backward_packed(state0, ctx, g_image, steps, n_bins, volume_filter,
+                                        wrt=wrt, scatter_stride=scatter_stride,
+                                        scatter_mode=scatter_mode, pick_bits=pick_bits,
+                                        scatter_phase=scatter_phase)
+    if ctx.material_tf.shape[-1] == 4 and not packed_vol and ctx.density.ndim == 3:
+        return spectral_backward(state0, ctx, g_image, steps, n_bins, volume_filter)
+    dens = ctx.density.dims if packed_vol else tuple(ctx.density.shape)
+    raise ValueError(
+        "prb_render_and_grads needs either a fully raw ctx (pack_tables=False) "
+        "or the standard packed ctx (fused 18-wide TF + packed volume); got "
+        f"material_tf {tuple(ctx.material_tf.shape)}, density {dens}")
+
+
+# ---------------------------------------------------------------------------
+# the raw-table replay backward (B9): K13 raw_tape, K14 raw_replay
+# ---------------------------------------------------------------------------
+def _bilinear_corners(u, v, H: int, W: int):
+    """Corner indices + weights of a raw (H, W, C) texture's bilinear lookup
+    (JAX ``_bilinear_corners``): ((y0, y1, x0, x1), (w00, w01, w10, w11),
+    (fx, fy))."""
+    x0, x1, fx = interp._coords(u, W)
+    y0, y1, fy = interp._coords(v, H)
+    w = ((1 - fx) * (1 - fy), fx * (1 - fy), (1 - fx) * fy, fx * fy)
+    return (y0, y1, x0, x1), w, (fx, fy)
+
+
+def _trilinear_corners(u, v, w, D: int, H: int, W: int, volume_filter: str = "linear"):
+    """Flat corner indices and weights of a raw grid's trilinear lookup
+    (JAX ``_trilinear_corners``): the smoothstep-warped fractions for
+    "quasicubic", the linear ones for every other filter, "nearest"
+    included (the reference has no nearest branch, ROADMAP C)."""
+    x0, x1, fx = interp._coords(u, W)
+    y0, y1, fy = interp._coords(v, H)
+    z0, z1, fz = interp._coords(w, D)
+    if volume_filter == "quasicubic":
+        fx, fy, fz = (interp.quasicubic_warp(f) for f in (fx, fy, fz))
+    idx, wts = [], []
+    for zi, wz in ((z0, 1 - fz), (z1, fz)):
+        for yi, wy in ((y0, 1 - fy), (y1, fy)):
+            for xi, wx in ((x0, 1 - fx), (x1, fx)):
+                idx.append((zi * H + yi) * W + xi)
+                wts.append(wz * wy * wx)
+    return idx, wts
+
+
+def _tf_row_slope(tf_table, t, dens, channel: int):
+    """d(bilinear TF value)/d(density coordinate) of one channel of a raw
+    (H, W, C) TF: H * (x-lerped row1 - row0) (JAX ``_tf_row_slope``)."""
+    H, W, _ = tf_table.shape
+    (y0, y1, x0, x1), _, (fx, _) = _bilinear_corners(t, dens, H, W)
+    flat = tf_table[..., channel].reshape(-1)
+    c00, c01 = flat[(y0 * W + x0).to(torch.int64)], flat[(y0 * W + x1).to(torch.int64)]
+    c10, c11 = flat[(y1 * W + x0).to(torch.int64)], flat[(y1 * W + x1).to(torch.int64)]
+    r0 = c00 + (c01 - c00) * fx
+    r1 = c10 + (c11 - c10) * fx
+    return (r1 - r0) * H
+
+
+# the raw tape's fields per lane-step, (steps, 2, lanes) f32: the deposit,
+# and bit 0 respawn with bits 8.. the pre-step bin (RawTapeField in
+# csrc/raw_backward.cu)
+RAW_TAPE_FIELDS = ("emitted", "flags")
+
+
+def raw_ctx(ctx, volume_filter="linear"):
+    """The ctx the raw replay backward renders with: checked as the
+    reference checks it (an environment map fails its assertion, the
+    majorant mode its taped forward, a light other than a raw (N,) table
+    its unpacking), with the ``volume_filter`` argument as its filter."""
+    if ctx.environment is not None:
+        raise AssertionError("the raw replay backward does not support environment maps; use "
+                             "the packed path (pack_tables=True), which carries env-texel "
+                             "gradients")
+    if ctx.majorant is not None:
+        raise NotImplementedError(_MAJORANT_REFUSAL)
+    if isinstance(ctx.density, interp.PackedVolume) or ctx.material_tf.shape[-1] != 4:
+        raise ValueError("the raw replay backward needs the raw grid and the raw (H, W, 4) TF")
+    if ctx.light_spectrum.ndim != 1:
+        raise ValueError("the raw replay backward needs the raw (N,) light spectrum, got "
+                         f"{tuple(ctx.light_spectrum.shape)}")
+    if volume_filter not in ("linear", "quasicubic", "nearest"):
+        raise ValueError(f"unknown volume filter {volume_filter!r}")
+    if ctx.volume_filter != volume_filter:
+        ctx = dataclasses.replace(ctx, volume_filter=volume_filter)
+    return ctx
+
+
+def raw_tape_plain(state, ctx, steps: int, n_bins: int):
+    """Plain PyTorch ``raw_tape``: one dispatch with ``ctx.seed_bits``,
+    updating ``state`` in place; returns the tape (steps, 2, lanes)."""
+    lane, resolution, streams, _ = _lanes(state)
+    device = state.px.device
+    ix, iy, seed_iy = K._pixel_grid(resolution, streams, device)
+    sx, sy = geometry.screen_position(ix, iy, K._f32(np.float32(1.0) / np.float32(resolution)))
+    light = K.light_terms(ctx.light_direction)
+    p = {k: getattr(state, k) for k in K.STATE_FIELDS if k != "transmittance"}
+    rng = sampling.seed_state(ix, seed_iy, ctx.seed_bits)
+    rows = []
+    for _ in range(steps):
+        p, rng, it = K._render_body(p, rng, sx, sy, ctx, n_bins, light, collect=True)
+        flags = (it["pre_bin"].to(torch.int32) << 8) | it["respawn"].to(torch.int32)
+        rows.append(torch.stack([it["emitted"].reshape(-1), flags.reshape(-1).view(torch.float32)]))
+    for k, val in p.items():
+        getattr(state, k).copy_(val)
+    return torch.stack(rows)
+
+
+def raw_tape(state, ctx, steps: int, n_bins: int):
+    """K13: the taped dispatch of the raw backward from ``state``, which
+    stays untouched: (state_out, tape (steps, 2, lanes) f32); one kernel
+    launch on a CUDA device. Its state equals ``K.step``'s bit for bit."""
+    out = clone_state(state)
+    if K._route(*out.tensors(), *K._ctx_tensors(ctx)) == "cpu":
+        return out, raw_tape_plain(out, ctx, steps, n_bins)
+    K._check_state(out, n_bins)
+    K._check_tables(ctx)
+    lane, resolution, streams, n_lanes = _lanes(out)
+    f, i = K._params(ctx, resolution, streams, n_bins, steps, 1)
+    lib = _build.load()
+    _check_raw_layout(lib)
+    device = out.px.device
+    tape = torch.empty((steps, len(RAW_TAPE_FIELDS), n_lanes), dtype=torch.float32,
+                       device=device)
+    with torch.cuda.device(device):
+        err = lib.vpt_raw_tape(f.ctypes.data, i.ctypes.data, int(ctx.seed_bits) & 0xFFFFFFFF,
+                               *(getattr(out, k).data_ptr() for k in K.STATE_FIELDS[:11]),
+                               K.density_table(ctx).data_ptr(), ctx.material_tf.data_ptr(),
+                               K._light_ptr(ctx), tape.data_ptr(), K._stream(device))
+    K._raise_on(err, "raw_tape")
+    LAUNCHES["raw_tape"] += 1
+    return out, tape
+
+
+def _check_raw_layout(lib):
+    got = tuple(lib.vpt_raw_layout(k) for k in range(3))
+    want = (K._F_COUNT, K._I_COUNT, len(RAW_TAPE_FIELDS))
+    if got != want:
+        raise RuntimeError(f"raw backward kernel layout {got} does not match the wrapper's {want}")
+
+
+def _raw_carry(tape, g_rad_scaled):
+    """The reverse scan over a raw tape (JAX ``rev_body``): per step the
+    (c, cb) of the first respawn at or after it, zero if none."""
+    steps, n_bins = tape.shape[0], g_rad_scaled.shape[0]
+    c = torch.zeros(tape.shape[2], dtype=torch.float32, device=tape.device)
+    cb = torch.zeros_like(c)
+    out = [None] * steps
+    for it in range(steps - 1, -1, -1):
+        flags = tape[it, 1].view(torch.int32)
+        dep = (flags & 1) > 0
+        b = flags >> 8
+        sel = torch.gather(g_rad_scaled, 0, b.clamp(0, n_bins - 1).to(torch.int64)[None])[0]
+        c = torch.where(dep, tape[it, 0], c)
+        cb = torch.where(dep, torch.where((b >= 0) & (b < n_bins), sel, torch.zeros_like(sel)),
+                         cb)
+        out[it] = (c, cb)
+    return out
+
+
+def raw_replay_plain(state0, ctx, tape, g_rad_scaled, steps: int, n_bins: int,
+                     inv_mu: float):
+    """Plain PyTorch ``raw_replay``: the reverse scan, then the replay of
+    the dispatch from ``state0`` (untouched) with its analytic scatters (JAX
+    ``rep_body``). Returns the raw gradients (density (D, H, W),
+    material_tf (H, W, 4), light_spectrum (N,), extinction ())."""
+    lane, resolution, streams, _ = _lanes(state0)
+    device = state0.px.device
+    carry = _raw_carry(tape, g_rad_scaled)
+    ix, iy, seed_iy = K._pixel_grid(resolution, streams, device)
+    sx, sy = geometry.screen_position(ix, iy, K._f32(np.float32(1.0) / np.float32(resolution)))
+    light = K.light_terms(ctx.light_direction)
+    (ldx, ldy, ldz), isotropic = light
+    p = {k: getattr(state0, k).clone() for k in K.STATE_FIELDS if k != "transmittance"}
+    rng = sampling.seed_state(ix, seed_iy, ctx.seed_bits)
+    D, H, W = ctx.density.shape
+    TH, TW, TC = ctx.material_tf.shape
+    (LN,) = ctx.light_spectrum.shape
+    g_dens = torch.zeros(D * H * W, dtype=torch.float32, device=device)
+    g_tf = torch.zeros(TH * TW * TC, dtype=torch.float32, device=device)
+    g_ls = torch.zeros(LN, dtype=torch.float32, device=device)
+    g_ext = torch.zeros((), dtype=torch.float64, device=device)
+    for step in range(steps):
+        p, rng, it = K._render_body(p, rng, sx, sy, ctx, n_bins, light, collect=True)
+        c, cb = (x.reshape(lane) for x in carry[step])
+        q = cb * c
+        zero = torch.zeros_like(q)
+        t_lam = sampling.div_scalar(it["pre_wavelength"] - 400.0, 300.0)
+        ga, gb, gg = _event_grads(_Internals(it), q)
+        g_ext += torch.sum((q * (inv_mu - it["dist"])).to(torch.float64))
+        # the light spectrum, pathwise at escape (weights cb)
+        dx, dy, dz = it["pre_dir"]
+        ddot = dx * ldx + dy * ldy + dz * ldz
+        di = (torch.ones_like(q) if isotropic
+              else torch.where(it["emitted"] > 0.0, ddot, zero))
+        gl = torch.where(it["oob"], cb * di * 5.0, zero)
+        tl = t_lam * LN - 0.5
+        fl = torch.floor(tl)
+        l0 = torch.clamp(interp._index(fl), 0, LN - 1)
+        l1 = torch.clamp(interp._index(fl) + 1, 0, LN - 1)
+        lf = tl - fl
+        g_ls.index_add_(0, l0.reshape(-1).to(torch.int64), (gl * (1 - lf)).reshape(-1))
+        g_ls.index_add_(0, l1.reshape(-1).to(torch.int64), (gl * lf).reshape(-1))
+        # the TF texels: 3 channels x 4 corners
+        dens = it["dens"]
+        (y0, y1, x0, x1), (w00, w01, w10, w11), _ = _bilinear_corners(t_lam, dens, TH, TW)
+        for ch, gval in ((0, gb), (1, ga), (2, gg)):
+            for yi, xi, wc in ((y0, x0, w00), (y0, x1, w01), (y1, x0, w10), (y1, x1, w11)):
+                g_tf.index_add_(0, ((yi * TW + xi) * TC + ch).reshape(-1).to(torch.int64),
+                                (gval * wc).reshape(-1))
+        # the density chain: the channel slopes, trilinear-scattered
+        gd = (gb * _tf_row_slope(ctx.material_tf, t_lam, dens, 0)
+              + ga * _tf_row_slope(ctx.material_tf, t_lam, dens, 1)
+              + gg * _tf_row_slope(ctx.material_tf, t_lam, dens, 2))
+        idx, wts = _trilinear_corners(*it["sample_pos"], D, H, W, ctx.volume_filter)
+        for i, wt in zip(idx, wts):
+            g_dens.index_add_(0, i.reshape(-1).to(torch.int64), (gd * wt).reshape(-1))
+    return dict(density=g_dens.reshape(D, H, W), material_tf=g_tf.reshape(TH, TW, TC),
+                light_spectrum=g_ls, extinction=g_ext.to(torch.float32))
+
+
+class _Internals:
+    """A step's internals in the named access of ``_event_grads``."""
+
+    def __init__(self, it):
+        self.it = it
+
+    def f(self, name):
+        return self.it[name]
+
+    def b(self, name):
+        return self.it[name]
+
+
+def raw_replay(state0, ctx, tape, g_rad_scaled, steps: int, n_bins: int):
+    """K14: the raw backward's reverse scan, replay and scatters of one
+    dispatch from ``state0`` (untouched), given its K13 tape and the
+    per-lane deposit cotangents ``g_rad_scaled`` (n_bins, lanes). Returns
+    the raw gradients (density, material_tf, light_spectrum, extinction);
+    one kernel launch on a CUDA device."""
+    inv_mu = _inv_mu(ctx)
+    tensors = [*state0.tensors(), *K._ctx_tensors(ctx), tape, g_rad_scaled]
+    if K._route(*tensors) == "cpu":
+        return raw_replay_plain(state0, ctx, tape, g_rad_scaled, steps, n_bins, inv_mu)
+    K._check_state(state0, n_bins)
+    K._check_tables(ctx)
+    lane, resolution, streams, n_lanes = _lanes(state0)
+    K._check(tape, "tape", torch.float32, (steps, len(RAW_TAPE_FIELDS), n_lanes))
+    K._check(g_rad_scaled, "g_rad_scaled", torch.float32, (n_bins, n_lanes))
+    f, i = K._params(ctx, resolution, streams, n_bins, steps, 1)
+    lib = _build.load()
+    _check_raw_layout(lib)
+    device = state0.px.device
+    D, H, W = ctx.density.shape
+    TH, TW, TC = ctx.material_tf.shape
+    g = dict(density=torch.zeros((D, H, W), dtype=torch.float32, device=device),
+             material_tf=torch.zeros((TH, TW, TC), dtype=torch.float32, device=device),
+             light_spectrum=torch.zeros(ctx.light_spectrum.shape, dtype=torch.float32,
+                                        device=device))
+    ext_acc = torch.zeros(1, dtype=torch.float64, device=device)
+    with torch.cuda.device(device):
+        err = lib.vpt_raw_replay(
+            f.ctypes.data, i.ctypes.data, int(ctx.seed_bits) & 0xFFFFFFFF,
+            float(np.float32(inv_mu)), *(getattr(state0, k).data_ptr() for k in K.STATE_FIELDS[:10]),
+            K.density_table(ctx).data_ptr(), ctx.material_tf.data_ptr(), K._light_ptr(ctx),
+            tape.data_ptr(), g_rad_scaled.data_ptr(), g["density"].data_ptr(),
+            g["material_tf"].data_ptr(), g["light_spectrum"].data_ptr(), ext_acc.data_ptr(),
+            K._stream(device))
+    K._raise_on(err, "raw_replay")
+    LAUNCHES["raw_replay"] += 1
+    g["extinction"] = ext_acc.to(torch.float32).reshape(())
+    return g
+
+
+def spectral_backward(state0, ctx, g_image, steps: int, n_bins: int,
+                      volume_filter: str = "linear"):
+    """Hand-derived gradients of one render dispatch over raw tables, by
+    path replay (JAX ``spectral_backward``): (state_out, image, grads),
+    grads = dict(density (D, H, W), material_tf (H, W, 4), light_spectrum
+    (N,), extinction ()), the cotangents of the dispatch's image contracted
+    with ``g_image``; ``state0`` stays untouched. K13 tapes the dispatch,
+    K14 walks each lane's tape, replays the dispatch and scatters the
+    analytic terms into the raw tables."""
+    ctx = raw_ctx(ctx, volume_filter)
+    state_out, tape = raw_tape(state0, ctx, steps, n_bins)
+    lane, _, _, _ = _lanes(state0)
+    g_rs = _deposit_cotangents(g_image, ctx, lane, n_bins, _m_final(state_out))
+    grads = raw_replay(state0, ctx, tape, g_rs, steps, n_bins)
+    return state_out, _image(state_out, ctx), grads
 
 
 # ---------------------------------------------------------------------------

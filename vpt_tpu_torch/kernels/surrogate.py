@@ -109,10 +109,13 @@ def check_ctx(ctx):
     environment map, the full packed tables."""
     if ctx.volume_filter not in ("linear", "quasicubic"):
         raise NotImplementedError(f"surrogate gradients with the {ctx.volume_filter!r} filter "
-                                  "need raw tables, which are not ported")
-    if not isinstance(ctx.density, interp.PackedVolume):
-        raise NotImplementedError("the surrogate's backward needs the packed ctx "
-                                  "(PackedVolume + fused TF); raw tables are not ported")
+                                  "run over raw tables, whose surrogate is not ported yet (the "
+                                  "next slice: the surrogate over xy and raw tables)")
+    if (not isinstance(ctx.density, interp.PackedVolume) or ctx.material_tf.shape[-1] != 18
+            or (ctx.environment is not None and ctx.environment.shape[-1] == 3)):
+        raise NotImplementedError("the surrogate over raw or partly packed tables is not ported "
+                                  "yet (the next slice: the surrogate over xy and raw tables); "
+                                  "its backward needs the packed ctx (PackedVolume + fused TF)")
     if ctx.density.kind != "full":
         raise NotImplementedError("the surrogate over an xy half-packed volume is not ported "
                                   "yet (the next slice, with raw tables); use the PRB backward "

@@ -2,9 +2,10 @@
 
 Counterpart of ``vpt_tpu/models/mcm_spectral.py`` on packed tables (flat
 corner table, full or xy half-packed, u8 when the source volume is
-u8-quantized, plus the fused (257, 257, 18) TF+light table), with its
-modes: linear or quasicubic
-filter; the exact global majorant or the super-voxel majorant grid
+u8-quantized, plus the fused (257, 257, 18) TF+light table), on raw
+tables (the (D, H, W) f32 grid, the (256, 256, 4) TF, the (256,) light)
+and on every mix of the two that ``pack_tables`` names, with its modes:
+linear, quasicubic or (raw grid) nearest filter; the exact global majorant or the super-voxel majorant grid
 (``majorant_blocks``, built by ``ops/majorant.py`` from the raw
 density and TF); a directional (or isotropic) light or an equirect
 environment map; and hit-lane compaction (``compaction=True``,
@@ -22,7 +23,8 @@ window of dispatches (``_RenderWindow``), whose forward tapes the window in
 one launch of K4's surrogate mode and whose backward walks the tapes back in
 one K12 launch (``kernels/surrogate.py``), over a full packed volume with
 the linear or quasicubic filter and the light or the environment map. The
-surrogate over an xy half-packed volume raises ``NotImplementedError``.
+surrogate over an xy half-packed volume or raw tables raises
+``NotImplementedError``.
 
 Known reference quirks preserved: radiance starts at 1.0; y-flipped screen
 coordinates; light gain 5.0; the volume is sampled (clamped) before the
@@ -85,18 +87,20 @@ class SpectralCtx:
     blur: np.float32
     max_bounces: int
     light_direction: np.ndarray  # (3,) f32, unnormalized
-    density: interp.PackedVolume  # flat (rows, 8) full or (rows, 4) xy u8|f32 table
-    material_tf: torch.Tensor  # (257, 257, 18) fused TF + light table
-    light_spectrum: torch.Tensor  # (257, 2) packed light pairs
+    # flat (rows, 8) full or (rows, 4) xy u8|f32 table, or a raw (D, H, W) f32 grid
+    density: interp.PackedVolume | torch.Tensor
+    # (257, 257, 18) fused TF + light table, (257, 257, 16) packed TF or raw (256, 256, 4)
+    material_tf: torch.Tensor
+    light_spectrum: torch.Tensor  # (257, 2) packed light pairs or raw (256,)
     boundaries: np.ndarray  # (B+1,) f32 bin boundaries
     bin_xyz: torch.Tensor  # (3, B) f32 per-bin CIE coefficients
-    # packed (He+1, We+1, 12) equirect map; None = the light (directional
-    # or isotropic) is the escape radiance
+    # packed (He+1, We+1, 12) or raw (He, We, 3) equirect map; None = the
+    # light (directional or isotropic) is the escape radiance
     environment: torch.Tensor | None = None
     # (Gz, Gy, Gx, 2) f32 super-voxel (majorant, flight cap) table; None =
     # the reference-exact global majorant
     majorant: torch.Tensor | None = None
-    volume_filter: str = "linear"  # "linear" | "quasicubic"
+    volume_filter: str = "linear"  # "linear" | "quasicubic" | "nearest" (raw grid)
 
 
 def full_reset(ctx: SpectralCtx, resolution: int, n_bins: int, streams: int = 1,
@@ -285,18 +289,26 @@ def render_sequence_diff(seeds, init_state: SpectralState, ctx: SpectralCtx, ste
     return radiance_to_rgb(new.radiance, ctx.bin_xyz)
 
 
-def _volume_kind(pack_tables):
-    """The packed volume kind a ``pack_tables`` option asks for, as the
-    reference reads it: True or a set holding "density", "material_tf" and
-    "light_spectrum" is "full"; a set holding "density_xy" and the two TF
-    keys (and not "density") is "xy". None for the options that keep a raw
-    table, which are not ported: False, a set without a volume key or
-    without both TF keys."""
+def table_layout(pack_tables, volume_filter: str = "linear"):
+    """What the reference keeps for a ``pack_tables`` option (True, False or
+    a subset of {"density", "density_xy", "material_tf", "light_spectrum"})
+    and a volume filter: (volume, tf, light, env_packed) with volume "full",
+    "xy" or "raw", tf "fused" (the (257, 257, 18) TF+light table), "packed"
+    (the 16-wide TF) or "raw", light "pair" or "raw". The environment map
+    packs when "material_tf" does. A ``nearest`` volume is never packed, and
+    nothing else is then but the environment map
+    (``vpt_tpu/models/mcm_spectral.py:609-647``)."""
     keys = {"density", "material_tf", "light_spectrum"} if pack_tables is True else set(
         pack_tables or ())
-    if not {"material_tf", "light_spectrum"} <= keys:
-        return None
-    return "full" if "density" in keys else "xy" if "density_xy" in keys else None
+    env_packed = "material_tf" in keys
+    if volume_filter not in ("linear", "quasicubic"):
+        return "raw", "raw", "raw", env_packed
+    volume = "full" if "density" in keys else "xy" if "density_xy" in keys else "raw"
+    if {"material_tf", "light_spectrum"} <= keys:
+        return volume, "fused", "pair", env_packed
+    if "material_tf" in keys:
+        return volume, "packed", "raw", env_packed
+    return volume, "raw", "pair" if "light_spectrum" in keys else "raw", env_packed
 
 
 def _seed_bits(seed) -> int:
@@ -309,13 +321,19 @@ def _seed_bits(seed) -> int:
 class MCMSpectralRenderer(nn.Module):
     """Progressive spectral MCM renderer bound to scene resources.
 
-    The scene tables are registered buffers on ``device``. ``pack_tables``:
-    True (the full 8-wide corner table) or {"density_xy", "material_tf",
-    "light_spectrum"} (the xy half-packed volume, the reference's big-volume
-    mode: 4x the raw grid's memory instead of 8x), both with the fused
-    TF+light table. Options outside the ported path (``pack_tables=False``
-    or another subset, i.e. raw tables; the ``nearest`` filter; a mesh)
-    raise ``NotImplementedError``."""
+    The scene tables are registered buffers on ``device``: ``vol_table``
+    (the packed volume table, or the raw (D, H, W) f32 grid when
+    ``vol_kind`` is "raw"), ``tf_table``, ``light_table`` and
+    ``environment``. ``pack_tables`` follows the reference
+    (``table_layout``): True packs everything (the full 8-wide corner
+    table and the fused TF+light table); a subset of {"density",
+    "density_xy", "material_tf", "light_spectrum"} packs those tables and
+    keeps the others raw ({"density_xy", "material_tf", "light_spectrum"}
+    is the xy half-packed volume at 4x the raw grid's memory,
+    {"material_tf", "light_spectrum"} the raw grid with the fused TF);
+    False keeps every table raw. A ``nearest`` volume renders over raw
+    tables whatever ``pack_tables`` says. A mesh raises
+    ``NotImplementedError``."""
 
     # bound on _compact_tables' per-pose cache (an orbit renders many poses)
     COMPACT_CACHE_POSES = 8
@@ -340,17 +358,12 @@ class MCMSpectralRenderer(nn.Module):
         super().__init__()
         if compaction and mesh is not None:
             raise ValueError("compaction is a single-device mode")
-        vol_kind = _volume_kind(pack_tables)
-        unsupported = {
-            "mesh": mesh is not None,
-            f"pack_tables={pack_tables!r} (raw or partly packed tables, streams={streams})":
-                vol_kind is None,
-            f"volume filter {volume.filter!r}": volume.filter not in ("linear", "quasicubic"),
-        }
-        for what, bad in unsupported.items():
-            if bad:
-                raise NotImplementedError(
-                    f"mcm-spectral option not ported to the torch package yet: {what}")
+        if mesh is not None:
+            raise NotImplementedError(
+                "mcm-spectral option not ported to the torch package yet: mesh")
+        if volume.filter not in ("linear", "quasicubic", "nearest"):
+            raise ValueError(f"unknown volume filter {volume.filter!r}")
+        vol_kind, tf_kind, light_kind, env_packed = table_layout(pack_tables, volume.filter)
         self.volume = volume
         self.material_tf = material_tf or MaterialTF.constant(0.5, 0.5)
         self.light = light or LightConfig()
@@ -367,14 +380,23 @@ class MCMSpectralRenderer(nn.Module):
         # host seconds of the table builds (a 512^3 volume takes seconds)
         self.build_seconds = {}
         t0 = time.perf_counter()
-        vol = interp.pack_volume_auto(volume.density, self.device, vol_kind)
+        if vol_kind == "raw":
+            self.vol_kind, self.vol_dims = "raw", tuple(np.shape(volume.density))
+            self.register_buffer("vol_table", torch.as_tensor(
+                np.asarray(volume.density, np.float32), device=self.device))
+        else:
+            vol = interp.pack_volume_auto(volume.density, self.device, vol_kind)
+            self.vol_dims, self.vol_kind = vol.dims, vol.kind
+            self.register_buffer("vol_table", vol.table)
         self.build_seconds["pack_volume"] = time.perf_counter() - t0
-        self.vol_dims, self.vol_kind = vol.dims, vol.kind
-        self.register_buffer("vol_table", vol.table)
-        self.register_buffer("tf_table", torch.as_tensor(
-            interp.pack_tex2d_with_tex1d(self.material_tf.table, light_spectrum), device=self.device))
+        mtf = np.array(self.material_tf.table, np.float32)
+        light_spectrum = np.array(light_spectrum, np.float32)
+        tf = {"fused": lambda: interp.pack_tex2d_with_tex1d(mtf, light_spectrum),
+              "packed": lambda: interp.pack_tex2d_corners(mtf), "raw": lambda: mtf}[tf_kind]()
+        self.register_buffer("tf_table", torch.as_tensor(tf, device=self.device))
         self.register_buffer("light_table", torch.as_tensor(
-            interp.pack_tex1d_corners(light_spectrum), device=self.device))
+            interp.pack_tex1d_corners(light_spectrum) if light_kind == "pair" else light_spectrum,
+            device=self.device))
         self.register_buffer("bin_xyz", torch.as_tensor(
             np.stack([bx, by, bz]).astype(np.float32), device=self.device))
         self._boundaries = np.asarray(self.spectrum.boundaries, np.float32)
@@ -384,8 +406,11 @@ class MCMSpectralRenderer(nn.Module):
             build_majorant_grid(volume.density, self.material_tf.table, self.config.extinction,
                                 block=majorant_blocks), device=self.device))
         self.build_seconds["majorant_grid"] = time.perf_counter() - t0
-        self.register_buffer("environment", None if environment is None else torch.as_tensor(
-            interp.pack_tex2d_corners(np.asarray(environment, np.float32)), device=self.device))
+        env = None if environment is None else np.asarray(environment, np.float32)
+        if env is not None and env_packed:
+            env = interp.pack_tex2d_corners(env)
+        self.register_buffer("environment", None if env is None else torch.as_tensor(
+            env, device=self.device))
 
         self.compaction = bool(compaction)
         if self.compaction:
@@ -408,7 +433,8 @@ class MCMSpectralRenderer(nn.Module):
             blur=np.float32(cfg.blur),
             max_bounces=int(cfg.bounces),
             light_direction=np.asarray(self.light.direction, np.float32),
-            density=interp.PackedVolume(self.vol_table, self.vol_dims, self.vol_kind),
+            density=(self.vol_table if self.vol_kind == "raw"
+                     else interp.PackedVolume(self.vol_table, self.vol_dims, self.vol_kind)),
             material_tf=self.tf_table,
             light_spectrum=self.light_table,
             boundaries=self._boundaries,

@@ -1,10 +1,15 @@
-"""Packed-table texture sampling on torch lane tensors.
+"""Texture sampling on torch lane tensors, raw and packed tables.
 
-Counterpart of the packed paths of ``vpt_tpu/ops/interp.py``: a trilinear
+Counterpart of ``vpt_tpu/ops/interp.py``. Packed tables: a trilinear
 footprint of the volume is one 8-wide corner row (kind "full") or two
 4-wide rows of its z planes (kind "xy", the half-packed big-volume table
 at 4x memory instead of 8x), a bilinear footprint of the material TF plus
-the light spectrum's linear pair is one 18-wide row.
+the light spectrum's linear pair is one 18-wide row (or, without the light,
+one 4C-wide row), a linear footprint of a 1D table one (N+1, 2) pair.
+Raw tables: a (D, H, W) grid (linear, quasicubic or nearest filter), an
+(H, W, C) texture, an (N,) table, each lookup gathering its corners one by
+one. A raw lookup and the packed lookup of the same table lerp the same
+corner values in the same order, so they give the same bits.
 Semantics match WebGPU ``textureSampleLevel`` with normalized coordinates,
 linear filtering and clamp-to-edge addressing.
 
@@ -202,6 +207,21 @@ def _index(f: torch.Tensor) -> torch.Tensor:
     return torch.clamp(f, -_INT_LIMIT, _INT_LIMIT).to(torch.int32)
 
 
+def _coords(u, n: int):
+    """Normalized coord -> (lo index, hi index, frac) with clamp-to-edge, as
+    the raw lookups address a table of n texels (JAX ``_coords``)."""
+    t = u * n - 0.5
+    i0 = torch.floor(t)
+    frac = t - i0
+    base = _index(i0)
+    return torch.clamp(base, 0, n - 1), torch.clamp(base + 1, 0, n - 1), frac
+
+
+def _nearest_coords(u, n: int):
+    """Normalized coord -> the nearest texel's index, clamped to [0, n-1]."""
+    return torch.clamp(_index(torch.floor(u * n)), 0, n - 1)
+
+
 def _base_and_frac(t, n: int):
     """Normalized coord -> (clamped row index into the padded table, frac)."""
     s = t * n - 0.5
@@ -273,12 +293,73 @@ def sample_volume_packed(table: torch.Tensor, dims, u, v, w, mode: str = "linear
     return c0 + (c1 - c0) * fz
 
 
-def sample_tex2d(packed: torch.Tensor, u, v):
-    """Bilinear sample of a pack_tex2d_corners table ((Hp, Wp, 4C) tensor)
-    at normalized (u, v) -> (..., C); u indexes W, v indexes H."""
+def sample_volume_raw(density: torch.Tensor, u, v, w, mode: str = "linear"):
+    """Sample a raw (D, H, W) grid at normalized (u, v, w), which index (W,
+    H, D): trilinear ("linear"), smoothstep-warped trilinear ("quasicubic")
+    or the nearest voxel ("nearest"); JAX ``sample_volume`` on a raw grid.
+    The trilinear lookup equals the packed table's bit for bit: the same
+    fractions, the same 8 corners, the same lerps."""
+    D, H, W = density.shape
+    flat = density.reshape(-1)
+    if mode == "nearest":
+        ix, iy, iz = _nearest_coords(u, W), _nearest_coords(v, H), _nearest_coords(w, D)
+        return flat[((iz * H + iy) * W + ix).to(torch.int64)]
+    x0, x1, fx = _coords(u, W)
+    y0, y1, fy = _coords(v, H)
+    z0, z1, fz = _coords(w, D)
+    if mode == "quasicubic":
+        fx, fy, fz = quasicubic_warp(fx), quasicubic_warp(fy), quasicubic_warp(fz)
+    elif mode != "linear":
+        raise ValueError(f"unknown volume filter {mode!r}")
+
+    def fetch(iz, iy, ix):
+        return flat[((iz * H + iy) * W + ix).to(torch.int64)]
+
+    c = [fetch(zi, yi, xi) for zi in (z0, z1) for yi in (y0, y1) for xi in (x0, x1)]
+    c00 = c[0] + (c[1] - c[0]) * fx
+    c01 = c[2] + (c[3] - c[2]) * fx
+    c10 = c[4] + (c[5] - c[4]) * fx
+    c11 = c[6] + (c[7] - c[6]) * fx
+    c0 = c00 + (c01 - c00) * fy
+    c1 = c10 + (c11 - c10) * fy
+    return c0 + (c1 - c0) * fz
+
+
+def sample_volume(density, u, v, w, mode: str = "linear"):
+    """Sample a volume at normalized (u, v, w): a ``PackedVolume`` (linear
+    or quasicubic) or a raw (D, H, W) grid (also nearest)."""
+    if isinstance(density, PackedVolume):
+        return sample_volume_packed(density.table, density.dims, u, v, w, mode, density.kind)
+    return sample_volume_raw(density, u, v, w, mode)
+
+
+def is_packed_tex2d(tex) -> bool:
+    """A ``pack_tex2d_corners`` table (trailing width 4C > 4), as JAX's
+    ``sample_tex2d`` tells it from a raw (H, W, C <= 4) texture."""
+    return tex.shape[-1] > 4 and tex.shape[-1] % 4 == 0
+
+
+def sample_tex2d(tex: torch.Tensor, u, v):
+    """Bilinear sample of a texture at normalized (u, v) -> (..., C); u
+    indexes W, v indexes H. ``tex``: a raw (H, W, C <= 4) texture (4
+    corner gathers) or a pack_tex2d_corners (Hp, Wp, 4C) table (one row)."""
+    if not is_packed_tex2d(tex):
+        H, W, C = tex.shape
+        flat = tex.reshape(-1, C)
+        x0, x1, fx = _coords(u, W)
+        y0, y1, fy = _coords(v, H)
+
+        def fetch(iy, ix):
+            return flat[(iy * W + ix).to(torch.int64)]
+
+        fxc, fyc = fx[..., None], fy[..., None]
+        c00, c01 = fetch(y0, x0), fetch(y0, x1)
+        c10, c11 = fetch(y1, x0), fetch(y1, x1)
+        c0 = c00 + (c01 - c00) * fxc
+        c1 = c10 + (c11 - c10) * fxc
+        return c0 + (c1 - c0) * fyc
+    packed = tex
     Hp, Wp, C4 = packed.shape
-    if C4 % 4:
-        raise ValueError(f"packed 2D table width {C4} is not 4*C")
     C = C4 // 4
     bx, fx = _base_and_frac(u, Wp - 1)
     by, fy = _base_and_frac(v, Hp - 1)
@@ -319,3 +400,20 @@ def sample_tex2d_fused1d(packed: torch.Tensor, u, v, C: int = 4, return_extras: 
     if return_extras:
         return mat, aux, dict(rows=rows, row_idx=row_idx, fx=fx, fy=fy)
     return mat, aux
+
+
+def sample_tex1d(tex: torch.Tensor, u):
+    """Linear sample of a raw (N,) table (two gathers) or of a
+    pack_tex1d_corners (N+1, 2) pair table (one row) at normalized u. JAX
+    selects the pair row by a one-hot matmul, exact since every other
+    product is zero; the row gather gives the same bits."""
+    if tex.ndim == 2:
+        N = tex.shape[0] - 1
+        b, frac = _base_and_frac(u, N)
+        rows = tex[b.to(torch.int64)]
+        return rows[..., 0] + (rows[..., 1] - rows[..., 0]) * frac
+    (N,) = tex.shape
+    x0, x1, fx = _coords(u, N)
+    c0 = tex[x0.to(torch.int64)]
+    c1 = tex[x1.to(torch.int64)]
+    return c0 + (c1 - c0) * fx

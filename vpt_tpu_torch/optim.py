@@ -30,7 +30,10 @@ loss and its PRB step pass no filter, and its ctx holds none.
 
 Not ported yet (each raises ``NotImplementedError``): the EAM
 ``fit_density`` loop, and the autodiff surrogate over an xy half-packed
-volume (the next slice, with the raw tables). A compacted renderer raises
+volume or raw or partly packed tables (the next slice), which is where the
+reference routes a raw renderer by default; ``method="prb"`` on such a
+renderer fails the reference's assertions (``AssertionError``: the packed
+backward needs the fused TF and a packed volume). A compacted renderer raises
 ``ValueError``, as the reference's ``fit_spectral`` does (its reset state
 has the lane table's shape).
 """
@@ -340,9 +343,9 @@ def fit_spectral(target_image, renderer, camera, init_params: dict,
 
     ``method``: "prb" (the packed-adjoint backward; honours
     ``scatter_stride``) or "autodiff" (the surrogate, the one gradient
-    path of the majorant mode); None picks "autodiff" for a renderer with
-    a majorant grid and "prb" otherwise, and "prb" on a majorant renderer
-    raises ``ValueError``, as the reference does. ``scatter_stride="auto"``
+    path of the majorant mode); None picks "prb" for the packed tables
+    without a majorant grid and "autodiff" otherwise, and "prb" on a
+    majorant renderer raises ``ValueError``, as the reference does. ``scatter_stride="auto"``
     picks PRB's initial (mode, stride) with ``auto_initial_policy`` and,
     while thinned, anneals to stride 1 when a fixed-seed eval loss stalls;
     an integer forces the stride (lowered to the largest divisor of
@@ -365,7 +368,11 @@ def fit_spectral(target_image, renderer, camera, init_params: dict,
     # the reference's loss, PRB step and eval pass no filter: linear
     base_ctx = dataclasses.replace(renderer.ctx(camera, seed), volume_filter="linear")
     if method is None:
-        method = "autodiff" if base_ctx.majorant is not None else "prb"
+        # the reference's default: PRB on the packed tables (fused TF and a
+        # packed volume) without a majorant grid, else the surrogate
+        packed = (base_ctx.material_tf.shape[-1] == 18
+                  and isinstance(base_ctx.density, interp.PackedVolume))
+        method = "prb" if packed and base_ctx.majorant is None else "autodiff"
     elif method == "prb" and base_ctx.majorant is not None:
         raise ValueError("the packed-PRB backward does not support the super-voxel majorant "
                          "mode; use method='autodiff' (the surrogate carries majorant-mode "

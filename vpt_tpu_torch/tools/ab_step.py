@@ -5,7 +5,10 @@ modes and the default-mode K4 ``prb_tape_forward`` (all four keys) on
 ``sphere_in_cube``, 12 bins, 8 steps; its seeded 256x512 equirect map, its
 quasicubic volume, a majorant grid of 16^3 blocks), with the ptxas
 registers and spills of their 12-bin instantiations and of K5
-``prb_reverse``'s.
+``prb_reverse``'s. A checkout that renders raw tables also times K1 over
+them (``pack_tables=False``, the RAW instantiation), printed beside the
+ratios: the default K1 and K4 against the other checkout's show what the
+raw template costs the packed builds.
 
     python -m vpt_tpu_torch.tools.ab_step --other DIR [--reps 50] [--rounds 2]
 
@@ -75,11 +78,21 @@ def child(reps: int) -> dict:
             out["k4_ms"] = ms(lambda: TB.tape_forward(s0, ctx, two, CS.STEPS, CS.BINS,
                                                       TB.ALL_WRT))
         del r, ctx, state
+    try:
+        r = MCMSpectralRenderer(*CS.mode_args(False), resolution=CS.RES, streams=CS.STREAMS,
+                                pack_tables=False, device=dev)
+    except NotImplementedError:  # a checkout without raw tables
+        out["k1_raw_ms"] = None
+    else:
+        ctx, state = r.ctx(cam, 7), r.reset(cam, 7)
+        out["k1_raw_ms"] = ms(lambda: K.step(state, ctx, one, CS.STEPS, CS.BINS))
+        del r, ctx, state
     out["build_seconds"] = _build.build_info["seconds"]
     out["ptxas"] = [dict(kernel=k, template=t, registers=g, spill_store_bytes=s,
                          spill_load_bytes=lo, stack_frame_bytes=f)
                     for k, t, g, s, lo, f in _build.ptxas_table(_build.build_info["log"])
-                    if (k in ("step_kernel", "tape_forward_kernel") and t.split(",")[0] == "12")
+                    if (k in ("step_kernel", "tape_forward_kernel", "raw_tape_kernel",
+                              "raw_replay_kernel") and t.split(",")[0] == "12")
                     or k == "reverse_kernel"]
     return out
 
@@ -128,7 +141,10 @@ def main(argv=None):
     mean = {side: {k: sum(r[k] for r in recs) / len(recs) for k in KEYS}
             for side, recs in runs.items()}
     ratio = {k: mean["this"][k] / mean["other"][k] for k in KEYS}
-    print(json.dumps(dict(mean=mean, ratio=ratio)))
+    raw = {side: [r["k1_raw_ms"] for r in recs if r.get("k1_raw_ms") is not None]
+           for side, recs in runs.items()}
+    k1_raw = {side: sum(v) / len(v) for side, v in raw.items() if v}
+    print(json.dumps(dict(mean=mean, ratio=ratio, k1_raw_ms=k1_raw)))
 
 
 if __name__ == "__main__":
