@@ -7,7 +7,7 @@ Phases (each raises on failure, so any failure exits non-zero):
   2. build the kernels of vpt_tpu_torch/csrc with nvcc (sm_90a, one nvcc
      per source, all at once); print the ptxas registers, spills and
      stack frame of every instantiation of K1, K4 (and its surrogate
-     mode), K5, K9, K10, K11, K12, K13 and K14
+     mode), K5, K9, K10, K11, K12, K13, K14 and K15-K18
   3. sample_volume_packed vs its plain version: all 256 u8 codes exact;
      timed at 1M lookups by device time (CUDA-graph replay) against
      F.grid_sample on the float volume, host path beside it
@@ -97,6 +97,21 @@ Phases (each raises on failure, so any failure exits non-zero):
      (within 1e-4 relative L2 of plain, two runs within 1e-5) in linear,
      quasicubic and nearest mode, timed against their bounds, and the raw
      replay backward driven through prb_render_and_grads
+ 19. the ray marchers (K15 march_kernel<EAM|DEPTH>, K16 mip_kernel, K17
+     iso_kernel, K18 iso_shade_kernel) on the bench volume at 512^2 with
+     the JAX renderers' defaults (EAM extinction 100, 64 slices; MIP 64
+     steps; ISO 50 steps, isovalue 0.5; Depth extinction 100, 64 slices,
+     threshold 0.1): each kernel equal to its plain version bit for bit on
+     the u8 packed table, an f32 packed table, quasicubic and nearest over
+     the raw grid, at offset 0 and a session's first (the first differing
+     pixel printed otherwise); BASELINE config 1 (64^3, 256^2, 64 slices,
+     extinction 80, offsets 0 and 0.37); K15 over sphere_in_cube(256) (a
+     136 MB u8 table, past the L2), checked and timed; each kernel timed by
+     device time against its bound and its plain version; a
+     RenderSession per renderer, run(16) with the counts set to 0 before
+     (16 launches of K15, K16 or K17, for ISO also 16 of K18), finite and
+     non-empty images, a second run and a checkpoint round trip equal bit
+     for bit. Phase 14 also runs `render --renderer eam --device cuda`.
 The line before the last is a JSON object with each kernel's launches,
 error and times, its bound (the larger of the bytes it must move over the
 HBM rate and the FP32 operations this run's data needs over the FP32
@@ -167,6 +182,19 @@ RAW_LAYOUTS = (("raw", False), ("raw grid + fused TF", frozenset({"material_tf",
 # trilinear weights and 8 products (~110); per escape with cb != 0 the
 # light's coordinate and 2 weights (~12)
 OPS_RAW_EVENT, OPS_RAW_ESCAPE = 110, 12
+RM_SOURCE = "vpt_tpu_torch/csrc/raymarch.cu"
+# phase 19, the ray marchers at the JAX renderers' defaults, R = 512
+RM_RES, RM_EAM, RM_MIP_STEPS, RM_ISO, RM_DEPTH = (
+    512, dict(extinction=100.0, slices=64), 64, dict(steps=50, isovalue=0.5),
+    dict(extinction=100.0, slices=64, threshold=0.1))
+RM_FRAMES = 16
+# FP32 operations of K15-K18, counted from csrc/raymarch.cu: per pixel the
+# ray (the screen point 8, two homogeneous transforms 31 each, the slab test
+# 26, entry and exit 18, the segment length 10); per sample the position (9
+# with its t), the volume lookup (3 axes, 8 dequantizations, 7 lerps: 41)
+# and the TF row (2 axes, 12 lerps: 44) and the march's own update (~6);
+# per shaded pixel 7 lookups and the normal and Lambert term (~30)
+OPS_MARCH_RAY, OPS_MARCH_SAMPLE, OPS_SHADE = 127, 100, 7 * 85 + 30
 
 
 def log(msg):
@@ -1030,7 +1058,26 @@ def phase_cli():
         raise AssertionError(f"CLI ran on {metrics.get('device')}")
     log(f"# CLI render --device cuda --majorant-blocks 8 --compaction --envmap: exit 0 in "
         f"{dt:.2f} s (process), image {img.shape}, metrics {json.dumps(metrics)}")
-    return dict(seconds=dt, metrics=metrics)
+    # the ray marcher EAM through the CLI (K15)
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "eam.npy")
+        cmd = [sys.executable, "-m", "vpt_tpu_torch.cli", "render", "--device", "cuda",
+               "--renderer", "eam", "--frames", "16", "-o", out]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, capture_output=True, text=True, timeout=300,
+                              cwd=os.path.dirname(os.path.abspath(__file__)))
+        dt_eam = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise AssertionError(f"CLI --renderer eam exited {proc.returncode}: "
+                                 f"{proc.stderr[-2000:]}")
+        m_eam = json.loads(proc.stdout.strip().splitlines()[-1])
+        img = np.load(out)
+    if (img.shape != (512, 512, 3) or img.dtype != np.uint8 or m_eam.get("frames") != 16
+            or not m_eam.get("device", "").startswith("cuda") or not img.any()):
+        raise AssertionError(f"CLI --renderer eam wrote {img.shape} {img.dtype}, metrics {m_eam}")
+    log(f"# CLI render --device cuda --renderer eam --frames 16: exit 0 in {dt_eam:.2f} s "
+        f"(process), image {img.shape}, metrics {json.dumps(m_eam)}")
+    return dict(seconds=dt, metrics=metrics, eam=dict(seconds=dt_eam, metrics=m_eam))
 
 
 def phase_k3(dev):
@@ -2241,6 +2288,403 @@ def twin_check(dev, camera):
     return out
 
 
+def rm_modes(dev):
+    """The ray marchers' table modes on the bench volume: (label, density,
+    tf_table, filter): linear on the u8 packed table, an f32 packed table
+    (a smoothed random density), quasicubic, nearest on the raw grid."""
+    from vpt_tpu_torch import Volume
+    from vpt_tpu_torch.models import raymarch as TR
+    from vpt_tpu_torch.scene.tf import TransferFunction2D
+
+    tf = TransferFunction2D.grayscale_ramp()
+    vol = Volume.sphere_in_cube(VOLUME)
+    rng = np.random.default_rng(13)
+    vols = (("linear u8", vol), ("f32", Volume(density=smoothed(rng.random(vol.shape, np.float32)))),
+            ("quasicubic", Volume(vol.density, "quasicubic")),
+            ("nearest", Volume(vol.density, "nearest")))
+    return [(label, *TR._pack_if_linear(v, tf, dev), v.filter) for label, v in vols]
+
+
+def rm_bitwise(label, kern, plain):
+    """Kernel and plain outputs equal bit for bit, else the first differing
+    pixel is printed and the check fails."""
+    for k, (a, b) in enumerate(zip(kern, plain)):
+        ne = (a.contiguous().view(torch.int32) != b.contiguous().view(torch.int32)).reshape(-1)
+        if bool(ne.any()):
+            i = int(ne.nonzero()[0])
+            raise AssertionError(f"{label}: output {k} differs on {int(ne.sum())} values; first "
+                                 f"flat index {i}: kernel {a.reshape(-1)[i].item()!r}, plain "
+                                 f"{b.reshape(-1)[i].item()!r}")
+
+
+def rm_entries(dens, filt, x, y, z):
+    """The volume table entries a lookup at (x, y, z) reads: a packed
+    table's corner row, or a raw grid's 8 corner texels (1 for nearest)."""
+    from vpt_tpu_torch.ops import interp
+
+    if isinstance(dens, interp.PackedVolume):
+        return [interp.volume_rows(dens.dims, x, y, z)[0]]
+    D, H, W = dens.shape
+    if filt == "nearest":
+        ix, iy, iz = ([interp._nearest_coords(u, n)] for u, n in ((x, W), (y, H), (z, D)))
+    else:
+        ix, iy, iz = (interp._coords(u, n)[:2] for u, n in ((x, W), (y, H), (z, D)))
+    return [(k * H + j) * W + i for k in iz for j in iy for i in ix]
+
+
+class RmReads:
+    """The lookups of a ray-march pass, replayed with the plain pieces: how
+    many, and which volume table entries (packed rows or raw texels) they
+    touch, each counted once."""
+
+    def __init__(self, dens, filt):
+        from vpt_tpu_torch.ops import interp
+
+        packed = isinstance(dens, interp.PackedVolume)
+        vol = dens.table if packed else dens
+        self.dens, self.filt, self.lookups = dens, filt, 0
+        self.entry_bytes = vol.shape[-1] * vol.element_size() if packed else vol.element_size()
+        self.touched = torch.zeros(vol.shape[0] if packed else vol.numel(), dtype=torch.bool,
+                                   device=vol.device)
+
+    def add(self, x, y, z, mask):
+        self.lookups += int(mask.sum())
+        for e in rm_entries(self.dens, self.filt, x, y, z):
+            self.touched[e[mask].to(torch.int64)] = True
+
+    def volume_bytes(self):
+        return int(self.touched.sum()) * self.entry_bytes
+
+
+def rm_replay(kind, inv, dens, tft, filt, offset):
+    """The lookups K15 (EAM, Depth), K16 or K17 makes in one pass: its march
+    and stop rule replayed with the plain pieces (a missing ray takes none;
+    EAM stops at acc_a >= 0.99, Depth at the threshold, ISO, walking near ->
+    far, at the first hit; MIP takes every step). Returns the ``RmReads``
+    and, for ISO, each pixel's hit t (-1 where none)."""
+    from vpt_tpu_torch.kernels import raymarch as RK
+
+    n = RM_MIP_STEPS if kind == "mip" else RM_ISO["steps"] if kind == "iso" else RM_EAM["slices"]
+    _, _, miss, entry, exit_, rsl, step = RK._march_setup(inv, RM_RES, tft.device, n)
+    reads = RmReads(dens, filt)
+    if kind == "mip":
+        for k in range(n):
+            o = float(np.remainder(np.float32(offset) + np.float32(k) * step, np.float32(1.0)))
+            reads.add(*RK._mix3(entry, exit_, o), ~miss)
+        return reads, None
+    if kind == "iso":
+        t_far = np.float32(1.0) - np.float32(offset) * step
+        ts = [float(t_far - np.float32(k) * step) for k in range(n)]
+        last, hit_t = torch.full_like(rsl, -1.0), torch.full_like(rsl, -1.0)
+        for k, t in enumerate(ts):  # far -> near: the nearest hit survives
+            c = RK.sample_tf(dens, tft, *RK._mix3(entry, exit_, t), filt)
+            hit = (c[..., 3] >= RM_ISO["isovalue"]) & (t >= 0.0)
+            last, hit_t = torch.where(hit, float(k), last), torch.where(hit, t, hit_t)
+        for k, t in enumerate(ts):  # the kernel's walk, near -> far to that hit
+            reads.add(*RK._mix3(entry, exit_, t), ~miss & ((last < 0) | (last <= k)))
+        return reads, torch.where(miss, -1.0, hit_t)
+    stop = 0.99 if kind == "eam" else RM_DEPTH["threshold"]
+    ext = RM_EAM["extinction"] if kind == "eam" else RM_DEPTH["extinction"]
+    a = torch.zeros_like(rsl)
+    for k in range(n + 1):
+        t = float(step * np.float32(offset) + np.float32(k) * step)
+        active = (t < 1.0) & (a < stop) & ~miss
+        pos = RK._mix3(entry, exit_, t)
+        c = RK.sample_tf(dens, tft, *pos, filt)
+        w = ((1.0 - a) * (c[..., 3] * rsl * ext) if kind == "eam"
+             else (1.0 - a) * c[..., 3] * rsl * ext)
+        a = torch.where(active, a + w, a)
+        reads.add(*pos, active)
+    return reads, None
+
+
+def rm_shade_reads(dens, filt, closest, h):
+    """The lookups K18 makes: 7 at each pixel with a hit (ct > 0)."""
+    cx, cy, cz, ct = closest
+    h = float(np.float32(h))
+    reads = RmReads(dens, filt)
+    for p in ((cx + h, cy, cz), (cx - h, cy, cz), (cx, cy + h, cz), (cx, cy - h, cz),
+              (cx, cy, cz + h), (cx, cy, cz - h), (cx, cy, cz)):
+        reads.add(*p, ct > 0.0)
+    return reads
+
+
+def rm_iso_state_bytes(hit_t, closest):
+    """The state bytes K17 moves on ``closest``: ct read where the ray hits,
+    the four fields written where the merge takes the new hit."""
+    ct = closest[3]
+    hits = hit_t >= 0.0
+    both = (hit_t > 0.0) & (ct > 0.0)
+    take = hits & ((both & (hit_t < ct)) | (~both & (hit_t > 0.0)))
+    return 4 * int(hits.sum()) + 16 * int(take.sum())
+
+
+def rm_bound(reads, tft, state_bytes, ops):
+    """``bound`` of a ray-march pass: the state bytes it touches, each
+    volume table entry its lookups touch once, the TF row it reads (the
+    classic TF at v = 0: a packed (Wp, 16) row or a raw (W, 4) row), and
+    ``ops`` FP32 operations."""
+    tf_row = tft[0].numel() * tft.element_size() if reads.lookups else 0
+    return bound(state_bytes + reads.volume_bytes() + tf_row, ops)
+
+
+def rm_passes(inv, dens, tft, filt, offset, dev):
+    """K15-K18 and their plain versions on one table mode: each pass from
+    the same inputs (EAM a random running average at frame 3, MIP a random
+    max, ISO a state with earlier hits, shade on the merged hit); returns
+    {name: (kernel fn, plain fn, check fn)} where check runs both once and
+    compares them bit for bit."""
+    from vpt_tpu_torch.kernels import raymarch as RK
+
+    res = RM_RES
+    gen = torch.Generator(device=dev).manual_seed(5)
+    acc0 = torch.rand((res, res, 3), generator=gen, device=dev)
+    frame = torch.tensor(3, dtype=torch.int32, device=dev)
+    mip0 = torch.rand((res, res), generator=gen, device=dev) * 0.5
+    iso0 = tuple(torch.full((res, res), -1.0, device=dev) for _ in range(4))
+    RK.iso_pass(iso0, inv, dens, tft, RM_ISO["isovalue"], 0.61, RM_ISO["steps"], filt)
+    light = np.array([0.26726124, -0.40089187, -0.8728716], np.float32)
+    e, d, i = RM_EAM, RM_DEPTH, RM_ISO
+    return {
+        "march[eam]": (lambda st: RK.eam_pass(st, frame, inv, dens, tft, e["extinction"], offset,
+                                              e["slices"], filt),
+                       lambda st: RK.eam_pass_plain(st, frame, inv, dens, tft, e["extinction"],
+                                                    offset, e["slices"], filt), acc0),
+        "march[depth]": (lambda st: RK.depth_pass(inv, dens, tft, d["extinction"], d["threshold"],
+                                                  offset, d["slices"], res, filt),
+                         lambda st: RK.depth_pass_plain(inv, dens, tft, d["extinction"],
+                                                        d["threshold"], offset, d["slices"], res,
+                                                        filt), None),
+        "mip": (lambda st: RK.mip_pass(st, inv, dens, tft, offset, RM_MIP_STEPS, filt),
+                lambda st: RK.mip_pass_plain(st, inv, dens, tft, offset, RM_MIP_STEPS, filt),
+                mip0),
+        "iso": (lambda st: RK.iso_pass(st, inv, dens, tft, i["isovalue"], offset, i["steps"],
+                                       filt),
+                lambda st: RK.iso_pass_plain(st, inv, dens, tft, i["isovalue"], offset,
+                                             i["steps"], filt), iso0),
+        "iso_shade": (lambda st: RK.shade_pass(st, dens, tft, light, 0.005, filt),
+                      lambda st: RK.iso_shade(st, dens, tft, light, 0.005, filt), iso0),
+    }
+
+
+def rm_clone(st):
+    return None if st is None else (tuple(t.clone() for t in st) if isinstance(st, tuple)
+                                    else st.clone())
+
+
+def rm_check(passes, label):
+    """Each kernel against its plain version from the same inputs, bit for
+    bit; returns the kernels' outputs."""
+    out = {}
+    for name, (kern, plain, st0) in passes.items():
+        a, b = rm_clone(st0), rm_clone(st0)
+        ka, pb = kern(a), plain(b)
+        torch.cuda.synchronize()
+        ka = ka if isinstance(ka, tuple) else (ka,)
+        pb = pb if isinstance(pb, tuple) else (pb,)
+        rm_bitwise(f"{name} ({label})", ka, pb)
+        out[name] = ka
+    return out
+
+
+RM_REPLACES = {
+    "march[eam]": "vpt_tpu/models/raymarch.py:99",
+    "march[depth]": "vpt_tpu/models/raymarch.py:343",
+    "mip": "vpt_tpu/models/raymarch.py:179",
+    "iso": "vpt_tpu/models/raymarch.py:229",
+    "iso_shade": "vpt_tpu/models/raymarch.py:259",
+}
+RM_SESSIONS = (("eam", "march_eam"), ("mip", "mip"), ("iso", "iso"), ("depth", "march_depth"))
+
+
+def rm_session(key, dev, frames, checkpoint_at=None, tmp=None):
+    """RenderSession(key) on the bench volume at R = 512: launch counts
+    around run(frames), the HDR image, seconds; with ``checkpoint_at`` the
+    run is split there by a save and a load into a fresh session."""
+    from vpt_tpu_torch import Volume
+    from vpt_tpu_torch.kernels import raymarch as RK
+    from vpt_tpu_torch.session import RenderSession
+
+    def make():
+        return RenderSession(key, Volume.sphere_in_cube(VOLUME), device=dev, resolution=RM_RES)
+
+    s = make()
+    s.run(1)  # warm-up
+    s.reset()
+    RK.reset_launch_counts()
+    t0 = time.perf_counter()
+    if checkpoint_at is None:
+        s.run(frames)
+    else:
+        s.run(checkpoint_at)
+        path = os.path.join(tmp, f"{key}.npz")
+        s.save_checkpoint(path)
+        s = make().load_checkpoint(path)
+        s.run(frames - checkpoint_at)
+    dt = time.perf_counter() - t0
+    return dict(RK.LAUNCHES), s.hdr_image(), dt, s.metrics()
+
+
+def rm_profile(key, dev, frames):
+    """One ``RenderSession(key).run(frames)`` under torch.profiler after a
+    warm-up: the device work by kernel name (ms and launches per frame),
+    the device ms per frame and the profiled host ms per frame (which the
+    profiler's own overhead lengthens)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from vpt_tpu_torch import Volume
+    from vpt_tpu_torch.session import RenderSession
+    from vpt_tpu_torch.tools.profile_fit import device_kernels
+
+    s = RenderSession(key, Volume.sphere_in_cube(VOLUME), device=dev, resolution=RM_RES)
+    s.run(2)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        s.run(frames)
+        host = time.perf_counter() - t0
+    kernels = {name: dict(ms=k["ms"] / frames, launches=k["launches"] / frames)
+               for name, k in device_kernels(prof).items()}
+    return dict(kernels=kernels, device_ms=sum(k["ms"] for k in kernels.values()),
+                profiled_host_ms=host * 1e3 / frames)
+
+
+def phase_raymarch(dev):
+    """Phase 19: the ray marchers (K15-K18) on the bench volume at R = 512
+    with the JAX renderers' defaults: each kernel bit for bit against its
+    plain version in four table modes, BASELINE config 1, K15 over a 256^3
+    volume, then a session per renderer (launch counts, images, two runs,
+    a checkpoint round trip); each kernel timed by device time."""
+    from vpt_tpu_torch import Camera, Volume
+    from vpt_tpu_torch.kernels import raymarch as RK
+    from vpt_tpu_torch.models import raymarch as TR
+    from vpt_tpu_torch.scene.camera import OrbitController
+    from vpt_tpu_torch.scene.tf import TransferFunction2D
+
+    from vpt_tpu_torch.session import frame_seed
+
+    t_phase = time.perf_counter()
+    inv = Camera().inverse_mvp()
+    offset = TR._seed_to_offset(frame_seed(0, 1))
+    modes = rm_modes(dev)
+    for label, dens, tft, filt in modes:
+        for off in (0.0, offset):
+            rm_check(rm_passes(inv, dens, tft, filt, off, dev), f"{label}, offset {off:.4f}")
+        log(f"# K15-K18 ({label}) == plain bit for bit at {RM_RES}^2, offsets 0 and {offset:.4f}")
+
+    # BASELINE config 1: 64^3, 256^2, 64 slices, extinction 80, the oracle
+    # test's TF and pose, raw tables as its eam_frame call takes them
+    cam1 = Camera()
+    OrbitController(yaw=0.5, pitch=-0.3).apply(cam1)
+    tf1 = np.zeros((256, 256, 4), np.float32)
+    tf1[..., :3] = (0.9, 0.7, 0.4)
+    tf1[..., 3] = np.linspace(0, 1, 256)[None, :]
+    d1 = torch.as_tensor(Volume.sphere_in_cube(64).density, device=dev)
+    t1 = torch.as_tensor(tf1, device=dev)
+    frame1 = torch.tensor(1, dtype=torch.int32, device=dev)
+    for off in (0.0, 0.37):
+        a, b = torch.zeros((256, 256, 3), device=dev), torch.zeros((256, 256, 3), device=dev)
+        RK.eam_pass(a, frame1, cam1.inverse_mvp(), d1, t1, 80.0, off, 64)
+        RK.eam_pass_plain(b, frame1, cam1.inverse_mvp(), d1, t1, 80.0, off, 64)
+        torch.cuda.synchronize()
+        rm_bitwise(f"BASELINE config 1, offset {off}", (a,), (b,))
+        if not (float(a.max()) > 0.3 and float((a.sum(-1) == 0).float().mean()) > 0.1):
+            raise AssertionError(f"BASELINE config 1 rendered {float(a.max())} max")
+    log("# BASELINE config 1 (64^3, 256^2, 64 slices, extinction 80, offsets 0 and 0.37): "
+        "K15 == plain bit for bit")
+
+    # each kernel by device time at R = 512 on the u8 linear table
+    _, dens, tft, filt = modes[0]
+    passes = rm_passes(inv, dens, tft, filt, offset, dev)
+    kinds = {"march[eam]": "eam", "march[depth]": "depth", "mip": "mip", "iso": "iso"}
+    n_px = RM_RES * RM_RES
+    # state bytes each pass touches: EAM reads and writes acc (and reads the
+    # frame count), Depth writes its image, MIP reads and writes acc; K18
+    # reads ct everywhere, the hit point where ct > 0, and writes its image
+    state_bytes = {"march[eam]": n_px * 3 * 4 * 2 + 4, "march[depth]": n_px * 3 * 4,
+                   "mip": n_px * 4 * 2}
+    entries = {}
+    for name, (kern, plain, st0) in passes.items():
+        st_k, st_p = rm_clone(st0), rm_clone(st0)
+        ms = device_ms(lambda: kern(st_k))
+        plain_ms = cuda_ms(lambda: plain(st_p), 2)
+        if name == "iso_shade":
+            reads = rm_shade_reads(dens, filt, st0, 0.005)
+            shaded = reads.lookups // 7
+            b = rm_bound(reads, tft, n_px * 4 + shaded * 12 + n_px * 3 * 4, shaded * OPS_SHADE)
+        else:
+            reads, hit_t = rm_replay(kinds[name], inv, dens, tft, filt, offset)
+            # K17's timed calls run on the state their first call merged
+            nbytes = rm_iso_state_bytes(hit_t, st_k) if name == "iso" else state_bytes[name]
+            b = rm_bound(reads, tft, nbytes, n_px * OPS_MARCH_RAY + reads.lookups * OPS_MARCH_SAMPLE)
+        b["bound_share"] = b["bound_ms"] / ms
+        entries[name] = kernel_line(dict(name=name, route="cuda", source=RM_SOURCE,
+                                         replaces=RM_REPLACES[name], max_abs_err=0.0, ms=ms,
+                                         plain_ms=plain_ms, samples=reads.lookups), b)
+        log(f"# {name} at {RM_RES}^2: {ms:.5f} ms kernel (device), plain {plain_ms:.4f} ms; "
+            f"{reads.lookups} lookups, {int(reads.touched.sum())} volume entries; bound "
+            f"{b['bound_ms']:.5f} ms by {b['bound_by']} ({b['bound_bytes']} B, "
+            f"{b['bound_ops']} FP32 ops), share {b['bound_share']:.3f}")
+
+    # K15 over a 256^3 volume: its 136 MB u8 table does not fit in the L2
+    big = TR._pack_if_linear(Volume.sphere_in_cube(256), TransferFunction2D.grayscale_ramp(), dev)
+    big_passes = rm_passes(inv, *big, "linear", offset, dev)
+    big_passes = {k: big_passes[k] for k in ("march[eam]",)}
+    rm_check(big_passes, "256^3")
+    kern, _, st0 = big_passes["march[eam]"]
+    st = rm_clone(st0)
+    big_ms = device_ms(lambda: kern(st))
+    big_reads, _ = rm_replay("eam", inv, *big, "linear", offset)
+    big_b = rm_bound(big_reads, big[1], state_bytes["march[eam]"],
+                     n_px * OPS_MARCH_RAY + big_reads.lookups * OPS_MARCH_SAMPLE)
+    big_b["bound_share"] = big_b["bound_ms"] / big_ms
+    entries["march[eam]"]["volume_256"] = dict(ms=big_ms, table_bytes=big[0].table.numel(), **big_b)
+    log(f"# march[eam] over sphere_in_cube(256) ({big[0].table.numel()} B u8 table) == plain bit "
+        f"for bit; {big_ms:.5f} ms (device), bound {big_b['bound_ms']:.5f} ms by "
+        f"{big_b['bound_by']}, share {big_b['bound_share']:.3f}")
+    del big, big_passes, big_reads, st, st0, kern
+
+    # a session per renderer: launches, images, two runs, a checkpoint
+    sessions = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for key, counter in RM_SESSIONS:
+            launches, img, dt, metrics = rm_session(key, dev, RM_FRAMES)
+            want = {counter: RM_FRAMES, **({"iso_shade": RM_FRAMES} if key == "iso" else {})}
+            if any(launches[k] != v for k, v in want.items()):
+                raise AssertionError(f"RenderSession({key!r}).run({RM_FRAMES}) launched {launches}")
+            if not np.isfinite(img).all() or img.shape != (RM_RES, RM_RES, 3):
+                raise AssertionError(f"{key}: image {img.shape} not finite")
+            background = 1.0 if key in ("iso", "depth") else 0.0
+            if float(np.mean(img != background)) < 0.01:
+                raise AssertionError(f"{key}: the image is empty")
+            _, img2, _, _ = rm_session(key, dev, RM_FRAMES)
+            _, img3, _, _ = rm_session(key, dev, RM_FRAMES, checkpoint_at=RM_FRAMES // 2, tmp=tmp)
+            for other, what in ((img2, "a second run"), (img3, "a checkpoint round trip")):
+                if not np.array_equal(img.view(np.int32), other.view(np.int32)):
+                    raise AssertionError(f"{key}: {what} differs from the first run")
+            prof = rm_profile(key, dev, RM_FRAMES)
+            if not prof["device_ms"] > 0:
+                raise AssertionError(f"{key}: the profiler saw no device time")
+            frame_ms = dt * 1e3 / RM_FRAMES
+            sessions[key] = dict(launches=launches, seconds=dt, frames_per_s=RM_FRAMES / dt,
+                                 metrics=metrics, profile=prof,
+                                 device_busy_share=prof["device_ms"] / frame_ms)
+            log(f"# RenderSession({key!r}).run({RM_FRAMES}) at {RM_RES}^2: {dt:.4f} s "
+                f"({RM_FRAMES / dt:.1f} frames/s); launches {launches}; a second run and a "
+                f"checkpoint round trip equal bit for bit")
+            log(f"# profiled run({RM_FRAMES}) of {key!r}, per frame: device "
+                f"{prof['device_ms']:.5f} ms of {frame_ms:.5f} ms unprofiled (busy "
+                f"{prof['device_ms'] / frame_ms:.3f}; profiled host "
+                f"{prof['profiled_host_ms']:.5f} ms); " + ", ".join(
+                    f"{n} {k['ms']:.5f} ms x{k['launches']:g}" for n, k in prof["kernels"].items()))
+    entries["march[eam]"]["launches"] = sessions["eam"]["launches"]["march_eam"]
+    entries["march[depth]"]["launches"] = sessions["depth"]["launches"]["march_depth"]
+    entries["mip"]["launches"] = sessions["mip"]["launches"]["mip"]
+    entries["iso"]["launches"] = sessions["iso"]["launches"]["iso"]
+    entries["iso_shade"]["launches"] = sessions["iso"]["launches"]["iso_shade"]
+    log(f"# phase 19 (ray marchers): {time.perf_counter() - t_phase:.1f} s")
+    return list(entries.values()), sessions
+
+
 def launch_counts():
     from vpt_tpu_torch.kernels import corners as C
     from vpt_tpu_torch.kernels import mcm_spectral as K
@@ -2577,6 +3021,8 @@ def main():
         *bench_scene_args(), resolution=RES, streams=STREAMS, device=dev), camera, dev)
     autodiff = phase_autodiff_fit(camera, dev, windows)
     k1_raw, k13, k14 = phase_raw(camera, dev)
+    torch.cuda.empty_cache()
+    rm_kernels, rm_sessions = phase_raymarch(dev)
     foreign = sorted(k for k in sys.modules
                      if k in ("jax", "vpt_tpu") or k.startswith(("jax.", "vpt_tpu.")))
     if foreign:
@@ -2615,7 +3061,7 @@ def main():
     kernels = [k1, k2, k4, k5, k6, k7, k9, k10, k11, k1_maj, k1_modes["environment"],
                k1_modes["quasicubic"], *compact_kernels, k4_sur, k12, k1_xy, *k4_modes.values(),
                *k5_modes.values(), *corner_modes.values(), *sur_modes.values(), k1_raw, k13,
-               k14]
+               k14, *rm_kernels]
     missing = [k["name"] for k in kernels + [k3, k3_xy, k3_raw]
                if not {"bound_ms", "bound_by", "library_ms", "launches", "ms", "plain_ms",
                        "max_abs_err"} <= set(k)]
@@ -2632,6 +3078,7 @@ def main():
               "training_path": {"fit_spectral": fits, "fwd_bwd_windows": windows},
               "majorant_path": sparse, "mode_sessions": mode_rates, "compaction": compact,
               "cli": cli, "surrogate": {"twin_on_card": twin, "autodiff_fit": autodiff},
+              "raymarch_sessions": rm_sessions,
               "ptxas": ptxas, "gpu": smi}
     log(json.dumps(result))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

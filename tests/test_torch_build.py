@@ -56,4 +56,27 @@ def test_library_names_separate_directories():
 def test_sources_of_each_directory():
     assert set(_build._sources()) == set(_build._SIGNATURES)
     assert set(_build._SIGNATURES) == {"mcm_spectral", "spectral_backward", "corners",
-                                       "gather_bench", "surrogate", "raw_backward"}
+                                       "gather_bench", "surrogate", "raw_backward", "raymarch"}
+
+
+RAYMARCH_LOG = """== raymarch.cu
+ptxas info    : Compiling entry function '_ZN46_GLOBAL__N__5d1e2f3a_11_raymarch_cu_7c6b5a4912march_kernelILi1EEEvNS_5MarchEPKvPKfPfPKiS6_' for 'sm_90a'
+ptxas info    : Used 56 registers, used 0 barriers
+ptxas info    : Compiling entry function '_ZN46_GLOBAL__N__5d1e2f3a_11_raymarch_cu_7c6b5a4916iso_shade_kernelENS_5MarchEPKvPKfS4_S4_S4_S4_Pf' for 'sm_90a'
+ptxas info    : Function properties for _ZN46_GLOBAL__N__5d1e2f3a_11_raymarch_cu_7c6b5a4916iso_shade_kernelENS_5MarchEPKvPKfS4_S4_S4_S4_Pf
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 56 registers, used 0 barriers
+ptxas info    : Compiling entry function '_ZN46_GLOBAL__N__5d1e2f3a_11_raymarch_cu_7c6b5a4910iso_kernelENS_5MarchEPKvPKfPfS5_S5_S5_' for 'sm_90a'
+ptxas info    : Used 40 registers, used 0 barriers
+ptxas info    : Compiling entry function '_ZN46_GLOBAL__N__5d1e2f3a_11_raymarch_cu_7c6b5a4910mip_kernelENS_5MarchEPKvPKfPf' for 'sm_90a'
+ptxas info    : Used 48 registers, used 0 barriers
+"""
+
+
+def test_ptxas_table_reads_the_ray_march_kernels():
+    """K15's mode is its template argument; iso_kernel is not read into
+    iso_shade_kernel's row."""
+    assert _build.ptxas_table(RAYMARCH_LOG) == [("march_kernel", "1", 56, 0, 0, 0),
+                                                ("iso_shade_kernel", "", 56, 0, 0, 0),
+                                                ("iso_kernel", "", 40, 0, 0, 0),
+                                                ("mip_kernel", "", 48, 0, 0, 0)]

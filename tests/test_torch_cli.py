@@ -21,7 +21,8 @@ def _run(capsys, argv):
 
 
 def test_renderers_and_tonemappers_lists(capsys):
-    assert _run(capsys, ["renderers"]).out.split() == ["mcm-spectral"]
+    assert _run(capsys, ["renderers"]).out.split() == ["depth", "eam", "iso", "mcm-spectral",
+                                                       "mip"]
     out = _run(capsys, ["tonemappers"]).out
     for key in ("artistic", "reinhard", "aces", "uchimura", "lottes"):
         assert key in out
@@ -88,9 +89,10 @@ def test_invert_spectral_autodiff(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("argv,names", [
-    (["render", "--renderer", "eam"], "eam"),
+    (["invert", "--spectral", "--renderer", "eam"], "eam"),
     (["render", "--devices", "2"], "--devices"),
     (["invert"], "fit_density"),
+    (["render", "--renderer", "mcm"], "mcm"),
 ])
 def test_exits_name_what_is_not_ported(argv, names, tmp_path, capsys):
     with pytest.raises(SystemExit) as e:

@@ -2,7 +2,8 @@
 
 The JAX package ``vpt_tpu`` stays the reference. This package mirrors its
 layout (``ops/``, ``kernels/``, ``models/``, ``postprocess/``,
-``session.py``) and runs the spectral forward render: plain PyTorch on CPU
+``session.py``) and runs the spectral renderer (forward and gradients)
+and the ray marchers (EAM, MIP, ISO, Depth): plain PyTorch on CPU
 tensors, hand-written CUDA kernels (``csrc/``, built with nvcc for sm_90a
 on first use) on CUDA tensors. It imports nothing of ``vpt_tpu`` or jax: it carries its own
 copies of the scene, camera and config types (``scene/``, ``utils/``), the

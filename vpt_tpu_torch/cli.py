@@ -3,6 +3,7 @@
 
     python -m vpt_tpu_torch.cli render --device cuda --majorant-blocks 8 \\
         --compaction --envmap env.npy -o render.npy
+    python -m vpt_tpu_torch.cli render --device cuda --renderer eam -o eam.npy
 
 Subcommands:
   render      progressive render to a PNG/NPY (metrics JSON on stdout)
@@ -11,6 +12,12 @@ Subcommands:
   tonemappers list the tone mappers
   info        torch / CUDA / device report
   invert      spectral-MCM inverse rendering (--spectral --method prb|autodiff)
+
+``render`` and ``animate`` take ``--renderer mcm-spectral`` (the default)
+or one of the ray marchers ``eam``, ``mip``, ``iso``, ``depth``, built as
+``vpt_tpu/cli.py`` builds them (EAM with ``--extinction``, the others
+with their defaults). ``--compaction`` is for ``mcm-spectral`` (and the
+unported ``mcm``) only.
 
 ``--device`` defaults to ``cuda``: the kernels run on the card, and a
 machine without CUDA exits non-zero instead of falling back to the CPU.
@@ -91,34 +98,62 @@ def _device(args):
     return dev
 
 
-def _check_ported(args):
-    if args.renderer != "mcm-spectral":
-        raise SystemExit(f"renderer {args.renderer!r} is not ported to vpt_tpu_torch yet "
-                         "(ported: mcm-spectral)")
+RAY_MARCHERS = ("eam", "mip", "iso", "depth")
+
+
+def _check_devices(args):
     if args.devices is not None and args.devices > 1:
         raise SystemExit("--devices > 1 (the multi-device mesh) is not ported to "
                          "vpt_tpu_torch yet")
 
 
+def _check_render_ported(args):
+    """``render`` / ``animate``: mcm-spectral and the ray marchers."""
+    key = args.renderer
+    if args.compaction and key not in ("mcm-spectral", "mcm"):
+        raise SystemExit(f"--compaction is supported by mcm-spectral and mcm, not {key!r}")
+    if key != "mcm-spectral" and key not in RAY_MARCHERS:
+        raise SystemExit(f"renderer {key!r} is not ported to vpt_tpu_torch yet "
+                         f"(ported: mcm-spectral, {', '.join(RAY_MARCHERS)})")
+    _check_devices(args)
+
+
+def _check_invert_ported(args):
+    """``invert --spectral``: mcm-spectral only."""
+    if args.renderer != "mcm-spectral":
+        raise SystemExit(f"invert --spectral on renderer {args.renderer!r} is not ported to "
+                         "vpt_tpu_torch yet (ported: mcm-spectral)")
+    _check_devices(args)
+
+
 def _make_session(args):
     from vpt_tpu_torch.scene.camera import OrbitController
-    from vpt_tpu_torch.utils.config import LightConfig, MaterialTF, MCMSpectralConfig, SpectrumConfig
+    from vpt_tpu_torch.utils.config import (EAMConfig, LightConfig, MaterialTF,
+                                            MCMSpectralConfig, SpectrumConfig)
     from vpt_tpu_torch.session import RenderSession
 
-    _check_ported(args)
+    _check_render_ported(args)
     device = _device(args)
     volume = _load_volume(args)
-    material = (MaterialTF.from_uint8(np.load(args.material)) if args.material
-                else MaterialTF(_ramp_tf()))
-    sess = RenderSession(
-        "mcm-spectral", volume, material,
-        LightConfig(direction=tuple(args.light)),
-        SpectrumConfig.uniform(args.bins),
-        MCMSpectralConfig(extinction=args.extinction, bounces=args.bounces, steps=args.steps),
-        device=device, tonemapper=args.tonemapper, resolution=args.resolution,
-        base_seed=args.seed, streams=args.streams, environment=_load_envmap(args),
-        majorant_blocks=args.majorant_blocks, compaction=args.compaction,
-    )
+    key = args.renderer
+    common = dict(device=device, tonemapper=args.tonemapper, resolution=args.resolution,
+                  base_seed=args.seed)
+    if key == "eam":
+        sess = RenderSession(key, volume, None, EAMConfig(extinction=args.extinction), **common)
+    elif key in RAY_MARCHERS:
+        sess = RenderSession(key, volume, **common)
+    else:
+        material = (MaterialTF.from_uint8(np.load(args.material)) if args.material
+                    else MaterialTF(_ramp_tf()))
+        sess = RenderSession(
+            key, volume, material,
+            LightConfig(direction=tuple(args.light)),
+            SpectrumConfig.uniform(args.bins),
+            MCMSpectralConfig(extinction=args.extinction, bounces=args.bounces,
+                              steps=args.steps),
+            streams=args.streams, environment=_load_envmap(args),
+            majorant_blocks=args.majorant_blocks, compaction=args.compaction, **common,
+        )
     if args.orbit:
         yaw, pitch, dist = args.orbit
         OrbitController(yaw=yaw, pitch=pitch, focus_distance=dist).apply(sess.camera)
@@ -205,7 +240,7 @@ def cmd_invert(args):
     if not args.spectral:
         raise SystemExit("invert without --spectral (the EAM fit_density loop) is not "
                          "ported to vpt_tpu_torch yet")
-    _check_ported(args)
+    _check_invert_ported(args)
     device = _device(args)
 
     from vpt_tpu_torch.scene.camera import Camera

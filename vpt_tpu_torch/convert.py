@@ -7,9 +7,13 @@ and ``ctx_from_numpy`` on the JAX ``SpectralCtx``'s arrays; the backward's
 packed adjoints and raw-table gradients cross with ``adjoints_from_numpy``
 and ``grads_to_numpy``.
 
+The ray-march renderers' dict states cross with
+``raymarch_state_from_numpy`` and ``raymarch_state_to_numpy``.
+
 The scene and config objects cross the same way: ``camera_from``,
-``volume_from``, ``light_from``, ``material_from``, ``spectrum_from`` and
-``mcm_spectral_config_from`` build the port's own types
+``volume_from``, ``light_from``, ``material_from``, ``spectrum_from``,
+``mcm_spectral_config_from``, ``eam_config_from`` and ``tf2d_from`` build
+the port's own types
 (``vpt_tpu_torch.scene``, ``vpt_tpu_torch.utils.config``) from any object
 with the JAX package's fields, reading only plain values and numpy arrays;
 ``scene_from`` picks the function by the object's type name. The port's
@@ -18,14 +22,18 @@ types keep the JAX package's fields, so that package reads them as well.
 
 from __future__ import annotations
 
+import json
+
 import numpy as np
 import torch
 
 from vpt_tpu_torch.models.mcm_spectral import SpectralCtx, SpectralState
 from vpt_tpu_torch.ops.interp import PackedVolume
 from vpt_tpu_torch.scene.camera import Camera
+from vpt_tpu_torch.scene.tf import TransferFunction2D
 from vpt_tpu_torch.scene.volume import Volume
-from vpt_tpu_torch.utils.config import LightConfig, MaterialTF, MCMSpectralConfig, SpectrumConfig
+from vpt_tpu_torch.utils.config import (EAMConfig, LightConfig, MaterialTF, MCMSpectralConfig,
+                                        SpectrumConfig)
 
 
 def state_from_numpy(fields: dict, device) -> SpectralState:
@@ -107,6 +115,17 @@ def ctx_from_numpy(*, inv_mvp, seed_bits, extinction, blur, max_bounces,
     )
 
 
+def raymarch_state_from_numpy(fields: dict, device) -> dict:
+    """A ray-march renderer's state (EAM: acc, frame; MIP: acc; ISO: cx,
+    cy, cz, ct; Depth: frame) from numpy arrays keyed as the JAX state."""
+    return {k: torch.as_tensor(np.array(v), device=device) for k, v in fields.items()}
+
+
+def raymarch_state_to_numpy(state: dict) -> dict:
+    """A ray-march renderer's state as numpy arrays, by key."""
+    return {k: t.cpu().numpy() for k, t in state.items()}
+
+
 def adjoints_from_numpy(acc: dict, device) -> dict:
     """Packed adjoints of the JAX backward (``raw_adjoints=True``: g_ext
     scalar, g_tf (Hp*Wp, 18), g_vol (rows, 8)) as the port's tensors
@@ -154,15 +173,29 @@ def mcm_spectral_config_from(config) -> MCMSpectralConfig:
                              steps=int(config.steps), blur=float(config.blur))
 
 
+def eam_config_from(config) -> EAMConfig:
+    return EAMConfig(extinction=float(config.extinction), slices=int(config.slices),
+                     random_offset=bool(config.random_offset))
+
+
+def tf2d_from(tf2d) -> TransferFunction2D:
+    """The port's ``TransferFunction2D`` with the same bumps (copied as
+    plain values through their JSON form) and raster size."""
+    return TransferFunction2D(tuple(json.loads(json.dumps(list(tf2d.bumps)))),
+                              int(tf2d.width), int(tf2d.height))
+
+
 _BY_TYPE = {"Camera": camera_from, "Volume": volume_from, "LightConfig": light_from,
             "MaterialTF": material_from, "SpectrumConfig": spectrum_from,
-            "MCMSpectralConfig": mcm_spectral_config_from}
+            "MCMSpectralConfig": mcm_spectral_config_from, "EAMConfig": eam_config_from,
+            "TransferFunction2D": tf2d_from}
 
 
 def scene_from(*objects):
     """The port's counterpart of each scene or config object, by its type
     name (Camera, Volume, LightConfig, MaterialTF, SpectrumConfig,
-    MCMSpectralConfig); one object gives one result, several a tuple."""
+    MCMSpectralConfig, EAMConfig, TransferFunction2D); one object gives one
+    result, several a tuple."""
     out = []
     for obj in objects:
         name = type(obj).__name__

@@ -1,0 +1,405 @@
+// Ray-march renderer kernels for Hopper (sm_90a), plain C interface.
+//
+//   K15 march_kernel<EAM>   replaces vpt_tpu/models/raymarch.py::eam_frame
+//                           (:99-134) and EAMRenderer.render's running
+//                           average (:170-173): front-to-back compositing
+//                           over slices + 1 samples, then acc += (img - acc)
+//                           / frame, in place.
+//   K15 march_kernel<DEPTH> replaces depth_frame (:343-373) and
+//                           DepthRenderer.render's display (:404): the same
+//                           opacity march up to the threshold, written as the
+//                           grey display image.
+//   K16 mip_kernel          replaces mip_frame (:179-198) and MIPRenderer's
+//                           max merge (:222), in place.
+//   K17 iso_kernel          replaces iso_frame (:229-256) and ISORenderer's
+//                           closest-hit merge (:321-329), in place.
+//   K18 iso_shade_kernel    replaces iso_shade (:259-280): Lambert shading
+//                           from a central difference of the TF alpha, white
+//                           where nothing was hit.
+//
+// One thread per pixel; the march state lives in registers and each kernel
+// reads and writes its pixel's state once. The volume is a packed "full"
+// corner table (u8 or f32, linear or quasicubic) or a raw (D, H, W) f32 grid
+// (also nearest), read through mcm_common.cuh's samplers; the classic 2D TF
+// is a packed (257, 257, 16) corner table or the raw (256, 256, 4) texture,
+// read at (density, 0) by sample_rgba below.
+//
+// What bounds them on this card. Per sample a thread does one random
+// volume lookup (an 8-byte u8 or 32-byte f32 row, or 8 scalar loads of a
+// raw grid) and one TF row (64 bytes, or 4 float4 texels), plus ~100 FP32
+// operations. At the bench size (512^2 pixels, up to 65 samples) the
+// volume rows the samples touch sit in the L2 (the whole 129^3 x 8 u8
+// table is 17 MB), and the TF is read at v = 0 only, one row of the table
+// (16 KB packed); the bytes and operations a pass needs (counted by
+// chip_smoke.py's phase 19) bound it far below its time. A pass is one
+// wave of threads and lasts as long as its longest rays (those that graze
+// the cube or cross its empty margin take every sample), each sample two
+// dependent gathers (the TF row waits on the density): the kernels are
+// bound by that latency chain. A thread holds 40-56 registers, a block
+// 128 threads.
+//
+// The marches stop early where nothing later can change the result, which
+// the masked scans of the JAX code cannot: EAM once acc_a >= 0.99 or t >= 1,
+// Depth once the threshold is crossed or t >= 1 (an inactive step leaves the
+// accumulators as they are, and t only grows), ISO by walking near -> far
+// and stopping at the first hit (the far -> near overwrite keeps the same,
+// smallest t). A pixel whose ray misses the cube skips its march. For a TF
+// with finite entries every pixel equals the masked march bit for bit.
+//
+// Numerics: built without fast math and with -fmad=false, so every
+// expression rounds as the plain PyTorch version's (kernels/raymarch.py);
+// every quotient is the IEEE one (__fdiv_rn), sqrt is IEEE, min/max
+// propagate NaN like torch.minimum/maximum, and the lerps keep the order
+// a + (b - a) * t.
+
+#include "mcm_common.cuh"
+
+namespace {
+
+#define MARCH_THREADS 128
+
+// parameter block layout, mirrored by vpt_tpu_torch/kernels/raymarch.py
+enum MarchF {
+  RF_INV_MVP = 0,  // 16 floats, row-major
+  RF_INV_RES = 16,
+  RF_STEP,         // 1 / slices (EAM, Depth) or 1 / steps (MIP, ISO), rounded to f32
+  RF_OFFSET,
+  RF_EXTINCTION,
+  RF_THRESHOLD,    // Depth
+  RF_ISOVALUE,     // ISO
+  RF_LX, RF_LY, RF_LZ,  // ISO shade: the light in model space
+  RF_H,            // ISO shade: the central difference's step
+  RF_COUNT,
+};
+enum MarchI {
+  RI_RES = 0,
+  RI_TRIPS,        // samples per ray: slices + 1 (EAM, Depth) or steps (MIP, ISO)
+  RI_VOL_RAW,      // 1: a raw (D, H, W) f32 grid, given as D+1, H+1, W+1
+  RI_VOL_U8,       // packed table: 1 u8, 0 f32
+  RI_VOL_D, RI_VOL_H, RI_VOL_W,
+  RI_QUASICUBIC,
+  RI_NEAREST,      // raw grid only
+  RI_TF_RAW,       // 1: a raw (H, W, 4) texture, given as H+1, W+1
+  RI_TF_H, RI_TF_W,
+  RI_COUNT,
+};
+enum MarchMode { EAM = 0, DEPTH = 1 };
+
+struct March {
+  float f[RF_COUNT];
+  int i[RI_COUNT];
+};
+
+March make_march(const float* fparams, const int* iparams) {
+  March P;
+  for (int k = 0; k < RF_COUNT; ++k) P.f[k] = fparams[k];
+  for (int k = 0; k < RI_COUNT; ++k) P.i[k] = iparams[k];
+  return P;
+}
+
+__device__ __forceinline__ float march_density(const void* vol, const March& P, float u,
+                                               float v, float w) {
+  if (P.i[RI_VOL_RAW] != 0)
+    return sample_volume_raw(static_cast<const float*>(vol), P.i[RI_VOL_D], P.i[RI_VOL_H],
+                             P.i[RI_VOL_W], u, v, w, P.i[RI_QUASICUBIC] != 0,
+                             P.i[RI_NEAREST] != 0);
+  return sample_volume(vol, P.i[RI_VOL_U8], P.i[RI_VOL_D], P.i[RI_VOL_H], P.i[RI_VOL_W], u, v,
+                       w, nullptr, P.i[RI_QUASICUBIC] != 0, false);
+}
+
+// RGBA of the classic TF at (x, 0), interp.sample_tex2d's lerps: one 16-wide
+// packed corner row (four float4), or four float4 texels of the raw (H, W, 4)
+// texture, the columns max(bx - 1, 0) and min(bx, W - 1) of the raw axis
+// (mcm_common.cuh raw_axis), so both layouts give the same bits
+__device__ __forceinline__ float4 sample_rgba(const float* __restrict__ tf, const March& P,
+                                              float x) {
+  const int Hp = P.i[RI_TF_H], Wp = P.i[RI_TF_W];
+  int bx, by;
+  float fx, fy;
+  base_frac(x, Wp - 1, bx, fx);
+  base_frac(0.0f, Hp - 1, by, fy);
+  float4 k00, k01, k10, k11;
+  if (P.i[RI_TF_RAW] != 0) {
+    const int W = Wp - 1, x0 = max(bx - 1, 0), x1 = min(bx, W - 1);
+    const int y0 = max(by - 1, 0), y1 = min(by, Hp - 2);
+    const float4* t = reinterpret_cast<const float4*>(tf);
+    k00 = __ldg(t + (int64_t)y0 * W + x0); k01 = __ldg(t + (int64_t)y0 * W + x1);
+    k10 = __ldg(t + (int64_t)y1 * W + x0); k11 = __ldg(t + (int64_t)y1 * W + x1);
+  } else {
+    const float4* r = reinterpret_cast<const float4*>(tf + ((int64_t)by * Wp + bx) * 16);
+    k00 = __ldg(r); k01 = __ldg(r + 1); k10 = __ldg(r + 2); k11 = __ldg(r + 3);
+  }
+  float4 o;
+  o.x = lerp(lerp(k00.x, k01.x, fx), lerp(k10.x, k11.x, fx), fy);
+  o.y = lerp(lerp(k00.y, k01.y, fx), lerp(k10.y, k11.y, fx), fy);
+  o.z = lerp(lerp(k00.z, k01.z, fx), lerp(k10.z, k11.z, fx), fy);
+  o.w = lerp(lerp(k00.w, k01.w, fx), lerp(k10.w, k11.w, fx), fy);
+  return o;
+}
+
+// raymarch.sample_tf: the volume density at a point, then its TF RGBA
+__device__ __forceinline__ float4 sample_point(const void* vol, const float* tf, const March& P,
+                                               float x, float y, float z) {
+  return sample_rgba(tf, P, march_density(vol, P, x, y, z));
+}
+
+// A pixel's ray clamped to the cube: camera_rays + ray_bounds + the entry
+// and exit points (_mix3 at tnear and tfar).
+struct PixelRay {
+  float nx, ny, nz;  // entry
+  float xx, xy, xz;  // exit
+  float tn, tf;
+  bool miss;
+};
+
+__device__ __forceinline__ PixelRay pixel_ray(const March& P, int ix, int iy) {
+  const float inv_res = P.f[RF_INV_RES];
+  const float sx = (((float)ix + 0.5f) * inv_res - 0.5f) * 2.0f;
+  const float sy = (((float)iy + 0.5f) * inv_res - 0.5f) * -2.0f;
+  float fx, fy, fz, tx, ty, tz;
+  apply_homogeneous(P.f + RF_INV_MVP, sx, sy, -1.0f, fx, fy, fz);
+  apply_homogeneous(P.f + RF_INV_MVP, sx, sy, 1.0f, tx, ty, tz);
+  const float dx = tx - fx, dy = ty - fy, dz = tz - fz;
+  const float t0x = __fdiv_rn(0.0f - fx, dx), t0y = __fdiv_rn(0.0f - fy, dy);
+  const float t0z = __fdiv_rn(0.0f - fz, dz);
+  const float t1x = __fdiv_rn(1.0f - fx, dx), t1y = __fdiv_rn(1.0f - fy, dy);
+  const float t1z = __fdiv_rn(1.0f - fz, dz);
+  const float tn = nmax(nmax(nmax(nmin(t0x, t1x), nmin(t0y, t1y)), nmin(t0z, t1z)), 0.0f);
+  const float tf = nmax(nmin(nmin(nmax(t0x, t1x), nmax(t0y, t1y)), nmax(t0z, t1z)), 0.0f);
+  PixelRay r;
+  r.nx = lerp(fx, tx, tn); r.ny = lerp(fy, ty, tn); r.nz = lerp(fz, tz, tn);
+  r.xx = lerp(fx, tx, tf); r.xy = lerp(fy, ty, tf); r.xz = lerp(fz, tz, tf);
+  r.tn = tn;
+  r.tf = tf;
+  r.miss = tn >= tf;
+  return r;
+}
+
+// the ray's length inside the cube over the sample count: ray_step_len
+__device__ __forceinline__ float step_length(const PixelRay& r, float step) {
+  const float ex = r.xx - r.nx, ey = r.xy - r.ny, ez = r.xz - r.nz;
+  return sqrtf(ex * ex + ey * ey + ez * ez) * step;
+}
+
+// K15: EAM (composite, renormalize, running average into acc (R, R, 3) with
+// the frame count already advanced) or Depth (march to the threshold, write
+// the display image out (R, R, 3)).
+template <int MODE>
+__global__ void __launch_bounds__(MARCH_THREADS)
+march_kernel(const March P, const void* __restrict__ vol, const float* __restrict__ tf,
+             float* __restrict__ acc, const int* __restrict__ frame,
+             float* __restrict__ out) {
+  const int res = P.i[RI_RES];
+  const int pix = blockIdx.x * blockDim.x + threadIdx.x;
+  if (pix >= res * res) return;
+  const int iy = pix / res, ix = pix - iy * res;
+  const PixelRay r = pixel_ray(P, ix, iy);
+  const float step = P.f[RF_STEP], offset = P.f[RF_OFFSET], ext = P.f[RF_EXTINCTION];
+  const float rsl = step_length(r, step);
+  const int trips = P.i[RI_TRIPS];
+  if (MODE == EAM) {
+    float ar = 0.0f, ag = 0.0f, ab = 0.0f, aa = 0.0f;
+    if (!r.miss) {
+      for (int k = 0; k < trips; ++k) {
+        const float t = step * offset + (float)k * step;
+        if (!(t < 1.0f) || !(aa < 0.99f)) break;
+        const float4 c = sample_point(vol, tf, P, lerp(r.nx, r.xx, t), lerp(r.ny, r.xy, t),
+                                      lerp(r.nz, r.xz, t));
+        const float w = (1.0f - aa) * (c.w * rsl * ext);
+        ar = ar + w * c.x;
+        ag = ag + w * c.y;
+        ab = ab + w * c.z;
+        aa = aa + w;
+      }
+    }
+    // over-saturation renormalization; a miss renders black
+    const float scale = (aa > 1.0f) ? __fdiv_rn(1.0f, nmax(aa, 1.0f)) : 1.0f;
+    const float img[3] = {r.miss ? 0.0f : ar * scale, r.miss ? 0.0f : ag * scale,
+                          r.miss ? 0.0f : ab * scale};
+    const float mix = __fdiv_rn(1.0f, (float)__ldg(frame));
+    float* a = acc + (int64_t)pix * 3;
+#pragma unroll
+    for (int c = 0; c < 3; ++c) a[c] = a[c] + (img[c] - a[c]) * mix;
+  } else {
+    const float thr = P.f[RF_THRESHOLD];
+    float a = 0.0f, t_stop = -1.0f;
+    if (!r.miss) {
+      for (int k = 0; k < trips; ++k) {
+        const float t = step * offset + (float)k * step;
+        if (!(t < 1.0f) || !(a < thr)) break;
+        const float4 c = sample_point(vol, tf, P, lerp(r.nx, r.xx, t), lerp(r.ny, r.xy, t),
+                                      lerp(r.nz, r.xz, t));
+        a = a + (1.0f - a) * c.w * rsl * ext;
+        if (a >= thr) t_stop = t + step;
+      }
+    }
+    const float depth = (r.miss || !(a >= thr)) ? -1.0f : r.tn + (r.tf - r.tn) * t_stop;
+    // display: normalized depth as grey, misses white
+    const float vis = (depth < 0.0f) ? 1.0f : nmin(nmax(depth, 0.0f), 1.0f);
+    float* o = out + (int64_t)pix * 3;
+    o[0] = vis;
+    o[1] = vis;
+    o[2] = vis;
+  }
+}
+
+// K16: the maximum TF alpha over the offset-wrapped march, max-merged into
+// acc (R, R).
+__global__ void __launch_bounds__(MARCH_THREADS)
+mip_kernel(const March P, const void* __restrict__ vol, const float* __restrict__ tf,
+           float* __restrict__ acc) {
+  const int res = P.i[RI_RES];
+  const int pix = blockIdx.x * blockDim.x + threadIdx.x;
+  if (pix >= res * res) return;
+  const int iy = pix / res, ix = pix - iy * res;
+  const PixelRay r = pixel_ray(P, ix, iy);
+  const float step = P.f[RF_STEP], offset = P.f[RF_OFFSET];
+  float val = 0.0f;
+  if (!r.miss) {
+    for (int k = 0; k < P.i[RI_TRIPS]; ++k) {
+      // jnp.mod / torch.remainder by 1: fmod, then the divisor's sign
+      float o = fmodf(offset + (float)k * step, 1.0f);
+      if (o < 0.0f) o = o + 1.0f;
+      const float4 c = sample_point(vol, tf, P, lerp(r.nx, r.xx, o), lerp(r.ny, r.xy, o),
+                                    lerp(r.nz, r.xz, o));
+      val = nmax(val, c.w);
+    }
+  }
+  acc[pix] = nmax(acc[pix], val);
+}
+
+// K17: the closest sample with alpha >= isovalue, merged into the state's
+// closest hit (cx, cy, cz, ct), each (R, R), in place: a new hit replaces
+// the old one when it is nearer or the old one is none (t > 0 marks a hit).
+__global__ void __launch_bounds__(MARCH_THREADS)
+iso_kernel(const March P, const void* __restrict__ vol, const float* __restrict__ tf,
+           float* __restrict__ cx, float* __restrict__ cy, float* __restrict__ cz,
+           float* __restrict__ ct) {
+  const int res = P.i[RI_RES];
+  const int pix = blockIdx.x * blockDim.x + threadIdx.x;
+  if (pix >= res * res) return;
+  const int iy = pix / res, ix = pix - iy * res;
+  const PixelRay r = pixel_ray(P, ix, iy);
+  if (r.miss) return;  // t = -1: the merge keeps the state
+  const float step = P.f[RF_STEP], offset = P.f[RF_OFFSET], iso = P.f[RF_ISOVALUE];
+  const float t_far = 1.0f - offset * step;
+  for (int k = P.i[RI_TRIPS] - 1; k >= 0; --k) {
+    const float t = t_far - (float)k * step;
+    const float x = lerp(r.nx, r.xx, t), y = lerp(r.ny, r.xy, t), z = lerp(r.nz, r.xz, t);
+    const float4 c = sample_point(vol, tf, P, x, y, z);
+    if (c.w >= iso && t >= 0.0f) {
+      const float old = ct[pix];
+      const bool both = t > 0.0f && old > 0.0f;
+      if ((both && t < old) || (!both && t > 0.0f)) {
+        cx[pix] = x;
+        cy[pix] = y;
+        cz[pix] = z;
+        ct[pix] = t;
+      }
+      return;
+    }
+  }
+}
+
+// K18: Lambert shading at the merged closest hit into out (R, R, 3).
+__global__ void __launch_bounds__(MARCH_THREADS)
+iso_shade_kernel(const March P, const void* __restrict__ vol, const float* __restrict__ tf,
+                 const float* __restrict__ cx, const float* __restrict__ cy,
+                 const float* __restrict__ cz, const float* __restrict__ ct,
+                 float* __restrict__ out) {
+  const int res = P.i[RI_RES];
+  const int pix = blockIdx.x * blockDim.x + threadIdx.x;
+  if (pix >= res * res) return;
+  float* o = out + (int64_t)pix * 3;
+  if (!(__ldg(ct + pix) > 0.0f)) {
+    o[0] = 1.0f;
+    o[1] = 1.0f;
+    o[2] = 1.0f;
+    return;
+  }
+  const float x = __ldg(cx + pix), y = __ldg(cy + pix), z = __ldg(cz + pix);
+  const float h = P.f[RF_H];
+  const float gx = sample_point(vol, tf, P, x + h, y, z).w - sample_point(vol, tf, P, x - h, y, z).w;
+  const float gy = sample_point(vol, tf, P, x, y + h, z).w - sample_point(vol, tf, P, x, y - h, z).w;
+  const float gz = sample_point(vol, tf, P, x, y, z + h).w - sample_point(vol, tf, P, x, y, z - h).w;
+  const float norm = sqrtf(gx * gx + gy * gy + gz * gz);
+  const float inv = __fdiv_rn(1.0f, nmax(norm, 1e-20f));
+  const float lambert =
+      nmax((gx * P.f[RF_LX] + gy * P.f[RF_LY] + gz * P.f[RF_LZ]) * inv, 0.0f);
+  const float4 m = sample_point(vol, tf, P, x, y, z);
+  o[0] = m.x * lambert;
+  o[1] = m.y * lambert;
+  o[2] = m.z * lambert;
+}
+
+bool march_ok(const March& P, const void* vol, const float* tf) {
+  return vol != nullptr && tf != nullptr && P.i[RI_RES] > 0 && P.i[RI_TRIPS] >= 0 &&
+         (P.i[RI_NEAREST] == 0 || P.i[RI_VOL_RAW] != 0);
+}
+
+unsigned march_blocks(const March& P) {
+  return (unsigned)blocks_for(P.i[RI_RES] * P.i[RI_RES], MARCH_THREADS);
+}
+
+}  // namespace
+
+extern "C" {
+
+int vpt_march_layout(int which) {
+  switch (which) {
+    case 0: return RF_COUNT;
+    case 1: return RI_COUNT;
+    default: return -1;
+  }
+}
+
+// mode 0 (EAM): acc (R*R*3 floats) updated in place, frame a device int
+// holding the advanced frame count, out null; mode 1 (Depth): out (R*R*3
+// floats) written, acc and frame null
+int vpt_march(const float* fparams, const int* iparams, int mode, const void* vol,
+              const float* tf, float* acc, const int* frame, float* out, void* stream) {
+  const March P = make_march(fparams, iparams);
+  if (!march_ok(P, vol, tf)) return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (mode == EAM) {
+    if (acc == nullptr || frame == nullptr || out != nullptr) return (int)cudaErrorInvalidValue;
+    march_kernel<EAM><<<march_blocks(P), MARCH_THREADS, 0, st>>>(P, vol, tf, acc, frame, out);
+  } else if (mode == DEPTH) {
+    if (acc != nullptr || frame != nullptr || out == nullptr) return (int)cudaErrorInvalidValue;
+    march_kernel<DEPTH><<<march_blocks(P), MARCH_THREADS, 0, st>>>(P, vol, tf, acc, frame, out);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
+int vpt_mip(const float* fparams, const int* iparams, const void* vol, const float* tf,
+            float* acc, void* stream) {
+  const March P = make_march(fparams, iparams);
+  if (!march_ok(P, vol, tf) || acc == nullptr) return (int)cudaErrorInvalidValue;
+  mip_kernel<<<march_blocks(P), MARCH_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      P, vol, tf, acc);
+  return (int)cudaGetLastError();
+}
+
+int vpt_iso(const float* fparams, const int* iparams, const void* vol, const float* tf,
+            float* cx, float* cy, float* cz, float* ct, void* stream) {
+  const March P = make_march(fparams, iparams);
+  if (!march_ok(P, vol, tf) || !cx || !cy || !cz || !ct) return (int)cudaErrorInvalidValue;
+  iso_kernel<<<march_blocks(P), MARCH_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      P, vol, tf, cx, cy, cz, ct);
+  return (int)cudaGetLastError();
+}
+
+int vpt_iso_shade(const float* fparams, const int* iparams, const void* vol, const float* tf,
+                  const float* cx, const float* cy, const float* cz, const float* ct,
+                  float* out, void* stream) {
+  const March P = make_march(fparams, iparams);
+  if (!march_ok(P, vol, tf) || !cx || !cy || !cz || !ct || !out)
+    return (int)cudaErrorInvalidValue;
+  iso_shade_kernel<<<march_blocks(P), MARCH_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      P, vol, tf, cx, cy, cz, ct, out);
+  return (int)cudaGetLastError();
+}
+
+}  // extern "C"

@@ -86,6 +86,13 @@ _SIGNATURES = {
         "vpt_pack_volume_xy": ([_P, _P, _I, _I, _I, _P], _I),
         "vpt_pack_env": ([_P, _P, _I, _I, _P], _I),
     },
+    "raymarch": {
+        "vpt_march_layout": ([_I], _I),
+        "vpt_march": ([_P, _P, _I] + [_P] * 6, _I),
+        "vpt_mip": ([_P] * 6, _I),
+        "vpt_iso": ([_P] * 9, _I),
+        "vpt_iso_shade": ([_P] * 10, _I),
+    },
     "gather_bench": {
         "vpt_gather_limits": ([_P], _I),
         "vpt_gather_scalar": ([_P, _P, _P, _L, _P], _I),
@@ -187,7 +194,8 @@ KERNELS = ("step_kernel", "tape_forward_kernel", "reverse_kernel", "contract_vol
            "contract_volume_xy_kernel", "contract_env_kernel", "contract_tf_kernel",
            "pack_volume_kernel", "pack_volume_xy_kernel", "pack_env_kernel", "pack_tf_kernel",
            "scatter_rows_kernel", "surrogate_tape_kernel", "surrogate_reverse_kernel",
-           "raw_tape_kernel", "raw_replay_kernel")
+           "raw_tape_kernel", "raw_replay_kernel", "march_kernel", "mip_kernel", "iso_kernel",
+           "iso_shade_kernel")
 _ENTRY = re.compile(r"Compiling entry function '\S*?\d(" + "|".join(KERNELS) + r")(I\S*?EE)?[Ev]")
 
 
@@ -200,7 +208,8 @@ def ptxas_table(log_text):
     surrogate_tape_kernel and K12 surrogate_reverse_kernel), NB,ENV,XY (K4
     tape_forward_kernel), NB (K13 raw_tape_kernel, K14 raw_replay_kernel), NS
     (K5 reverse_kernel: 0 for stride mode, else the importance step
-    count), "" for the untemplated ones."""
+    count), MODE (K15 march_kernel: 0 EAM, 1 Depth), "" for the
+    untemplated ones."""
     rows, cur = [], None
     for line in log_text.splitlines():
         m = _ENTRY.search(line)

@@ -49,9 +49,12 @@ launches its kernel when they lie on a CUDA device; anything else raises.
 ``LAUNCHES`` counts kernel launches only. The functions here never modify
 the state they are given: the forward runs on a copy.
 
-Not ported yet (each raises ``NotImplementedError``): the raw-table replay
-backward ``spectral_backward`` (raw or partly packed tables, the
-``nearest`` filter). Majorant mode raises as the reference's taped
+The raw-table replay backward is ``spectral_backward`` (a fully raw ctx,
+also the ``nearest`` filter): K13 ``raw_tape`` and K14 ``raw_replay``
+(``csrc/raw_backward.cu``), with their plain versions;
+``prb_render_and_grads`` routes a packed ctx to the packed backward and a
+fully raw one to it, as the reference does, and refuses a partly packed
+one. Majorant mode raises as the reference's taped
 backward does; its gradients come from the autodiff surrogate
 (``kernels/surrogate.py``, whose tape is K4's surrogate mode in the same
 CUDA source).

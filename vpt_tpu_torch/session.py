@@ -4,9 +4,10 @@ reset-on-camera-change contract, the progressive frame loop with
 deterministic per-frame seeds, metrics, and checkpoint/resume of the
 accumulation state.
 
-Checkpoints keep the JAX package's format (``leaf_i`` arrays in the JAX
-``SpectralState`` leaf order), so a checkpoint written by either package
-loads into the other's session for the same renderer.
+Checkpoints keep the JAX package's format (``leaf_i`` arrays in the order
+``jax.tree.flatten`` gives the state: the ``SpectralState`` fields, or a
+dict state's values by sorted key), so a checkpoint written by either
+package loads into the other's session for the same renderer.
 """
 
 from __future__ import annotations
@@ -24,6 +25,21 @@ from vpt_tpu_torch.models import make_renderer
 from vpt_tpu_torch.postprocess.tonemap import make_tonemapper
 
 log = logging.getLogger("vpt_tpu_torch.session")
+
+
+def state_leaves(state) -> list:
+    """The state's tensors in the JAX package's leaf order: a dict state's
+    values by sorted key (the ray-march renderers), else ``tensors()``."""
+    if isinstance(state, dict):
+        return [state[k] for k in sorted(state)]
+    return state.tensors()
+
+
+def state_from_leaves(template, leaves):
+    """A state of ``template``'s structure holding ``leaves``."""
+    if isinstance(template, dict):
+        return dict(zip(sorted(template), leaves))
+    return type(template)(*leaves)
 
 
 def frame_seed(base_seed: int, frame: int) -> int:
@@ -86,13 +102,15 @@ class RenderSession:
     # -- the frame loop ----------------------------------------------------
     def run(self, frames: int = 1, progress: Optional[Callable] = None):
         """Dispatch ``frames`` progressive render passes: one batched
-        ``render_many`` (one kernel launch on the GPU) when no per-frame
-        progress is requested, identical to the sequential path."""
+        ``render_many`` (one kernel launch on the GPU) when the renderer has
+        one and no per-frame progress is requested, identical to the
+        sequential path; else one ``render`` per frame."""
         t0 = time.perf_counter()
-        if progress is None and frames > 1:
+        many = getattr(self.renderer, "render_many", None)
+        if many is not None and progress is None and frames > 1:
             seeds = [frame_seed(self.base_seed, self.frame + 1 + k) for k in range(frames)]
             self.frame += frames
-            self.state, self.hdr = self.renderer.render_many(self.state, self.camera, seeds)
+            self.state, self.hdr = many(self.state, self.camera, seeds)
         else:
             for _ in range(frames):
                 self.frame += 1
@@ -121,11 +139,12 @@ class RenderSession:
 
     def metrics(self) -> dict:
         out = {"frames": self.frame, "seconds": self._t_total}
-        s = self.state.samples
-        out["spp_mean"] = float(s.to(torch.float64).mean())
-        out["paths"] = int(s.to(torch.int64).sum())
-        if self._t_total > 0:
-            out["paths_per_s"] = out["paths"] / self._t_total
+        s = getattr(self.state, "samples", None)
+        if s is not None:
+            out["spp_mean"] = float(s.to(torch.float64).mean())
+            out["paths"] = int(s.to(torch.int64).sum())
+            if self._t_total > 0:
+                out["paths_per_s"] = out["paths"] / self._t_total
         return out
 
     # -- animation recording ----------------------------------------------
@@ -148,7 +167,7 @@ class RenderSession:
     # -- checkpoint / resume ----------------------------------------------
     def save_checkpoint(self, path: str):
         """Snapshot the accumulation state (resumable progressive render)."""
-        leaves = [t.cpu().numpy() for t in self.state.tensors()]
+        leaves = [t.cpu().numpy() for t in state_leaves(self.state)]
         np.savez(
             path,
             frame=self.frame,
@@ -164,7 +183,7 @@ class RenderSession:
         if str(data["renderer_key"]) != self.renderer_key:
             raise ValueError(f"checkpoint was for renderer {data['renderer_key']}, "
                              f"session uses {self.renderer_key}")
-        template = self.state.tensors()
+        template = state_leaves(self.state)
         if int(data["n_leaves"]) != len(template):
             raise ValueError("checkpoint structure mismatch")
         leaves = []
@@ -174,7 +193,7 @@ class RenderSession:
             if (saved.shape, str(saved.dtype)) != want:
                 raise ValueError(f"leaf {i} mismatch: {saved.shape}/{saved.dtype} vs {want}")
             leaves.append(torch.as_tensor(saved, device=old.device))
-        self.state = type(self.state)(*leaves)
+        self.state = state_from_leaves(self.state, leaves)
         self.frame = int(data["frame"])
         self.base_seed = int(data["base_seed"])
         return self

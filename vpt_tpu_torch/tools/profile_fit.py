@@ -92,6 +92,19 @@ def split(kernels: dict, iterations: int) -> dict:
     return out
 
 
+def device_kernels(prof) -> dict:
+    """A profile's device work summed by kernel name: {name: {ms, launches}}."""
+    kernels = {}
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA and e.device_time_total > 0:
+            name = e.key.replace("(anonymous namespace)::", "").replace("void ", "")
+            name = name.split("(")[0].strip()
+            k = kernels.setdefault(name, dict(ms=0.0, launches=0))
+            k["ms"] += e.device_time_total / 1e3
+            k["launches"] += e.count
+    return kernels
+
+
 # per mode: the methods it profiles
 MODES = {"default": ("prb", "autodiff"), "env": ("prb", "autodiff"), "xy": ("prb",)}
 
@@ -140,14 +153,7 @@ def profile_method(method: str, iterations: int, dev, mode: str = "default") -> 
         t0 = time.perf_counter()
         run(2 * iterations)
         profiled = time.perf_counter() - t0
-    kernels = {}
-    for e in prof.key_averages():
-        if e.device_type == torch.autograd.DeviceType.CUDA and e.device_time_total > 0:
-            name = e.key.replace("(anonymous namespace)::", "").replace("void ", "")
-            name = name.split("(")[0].strip()
-            k = kernels.setdefault(name, dict(ms=0.0, launches=0))
-            k["ms"] += e.device_time_total / 1e3
-            k["launches"] += e.count
+    kernels = device_kernels(prof)
     device_ms = sum(k["ms"] for k in kernels.values())
     top = dict(sorted(kernels.items(), key=lambda kv: -kv[1]["ms"])[:12])
     return dict(method=method, mode=mode, iterations=iterations, seconds=seconds,
