@@ -7,7 +7,7 @@ Phases (each raises on failure, so any failure exits non-zero):
   2. build the kernels of vpt_tpu_torch/csrc with nvcc (sm_90a, one nvcc
      per source, all at once); print the ptxas registers, spills and
      stack frame of every instantiation of K1, K4 (and its surrogate
-     mode), K5, K9, K10, K11, K12, K13, K14 and K15-K18
+     mode), K5, K9, K10, K11, K12, K13, K14 and K15-K19
   3. sample_volume_packed vs its plain version: all 256 u8 codes exact;
      timed at 1M lookups by device time (CUDA-graph replay) against
      F.grid_sample on the float volume, host path beside it
@@ -112,6 +112,23 @@ Phases (each raises on failure, so any failure exits non-zero):
      (16 launches of K15, K16 or K17, for ISO also 16 of K18), finite and
      non-empty images, a second run and a checkpoint round trip equal bit
      for bit. Phase 14 also runs `render --renderer eam --device cuda`.
+ 20. EAM training on the CLI's invert scene at full width (sphere_in_cube(64)
+     as an f32 grid, 512^2, 32 slices, extinction 40, 4 orbit views, the
+     ramp-alpha TF): K19 eam_backward against eam_backward_plain within
+     1e-4 of max |g| (the TF's gradient against the plain version with
+     the TF in float64) in the linear, quasicubic and nearest modes, with
+     and without the TF, over 64^3 and the 128^3 bench volume; EAMFrame's
+     forward (K15, the frame alone) equal to eam_frame bit for bit; both
+     timed by device time against their bounds (K19's: the replayed grid
+     entries read and their gradients written once, g_img, the TF row;
+     the ray, the replayed samples and the reverse steps' operations);
+     fit_density for 10 iterations without and with learn_tf, the counts
+     set to 0 before (one K15 frame and one K19 launch an iteration, and
+     nothing else), its losses against the same loop through the plain
+     versions (iteration 0 bit for bit, then 1e-3 relative: all 10
+     learning the density, the first 5 learning the TF too), seconds per
+     iteration, the device busy share of an iteration (torch.profiler);
+     `invert --device cuda --iterations 10` through the CLI.
 The line before the last is a JSON object with each kernel's launches,
 error and times, its bound (the larger of the bytes it must move over the
 HBM rate and the FP32 operations this run's data needs over the FP32
@@ -195,6 +212,31 @@ RM_FRAMES = 16
 # and the TF row (2 axes, 12 lerps: 44) and the march's own update (~6);
 # per shaded pixel 7 lookups and the normal and Lambert term (~30)
 OPS_MARCH_RAY, OPS_MARCH_SAMPLE, OPS_SHADE = 127, 100, 7 * 85 + 30
+# phase 20, EAM training on the CLI's invert scene: sphere_in_cube(64) as an
+# f32 grid, R = 512, 32 slices, extinction 40, 4 orbit views (pitch -0.4),
+# the ramp-alpha TF, Adam at fit_density's learning rate; 10 iterations
+EAM_FIT = dict(volume=64, res=512, slices=32, extinction=40.0, views=4, iterations=10, lr=0.05)
+# K19's bound counts the function's work: each active sample's forward once
+# (OPS_MARCH_SAMPLE, which the reverse needs) and the reverse's own adjoint
+# arithmetic per active step, counted from csrc/raymarch.cu: the recurrence
+# and the cotangent of c (18), the TF row's slope (12) and the volume
+# scatter's transposed lerps (14); learning the TF, the texels' transposed
+# lerps (8). K19's replay of the TF value and the sample position in the
+# reverse walk is its design's, not the function's, and is not counted.
+OPS_EAM_BWD_STEP, OPS_EAM_BWD_TF = 44, 8
+# K19 against its plain version: max |kernel - plain| <= this x max |plain|.
+# Atomics add in no fixed order. The TF's gradient sums ~1e6 terms a texel
+# (texel 0's alpha takes every empty-space sample), which a signed cotangent
+# cancels ~1000-fold: K19 sums the TF's row in double, and its plain
+# reference is the plain version run with the TF in float64, so that the
+# reference's own float32 sums do not set the error. The chip read 1.3e-7 to
+# 3.4e-7 (g_density) and 3.7e-8 to 1.7e-7 (g_tf) of max |g|; a float32 row
+# reads 5.1e-5 to 8.6e-5 (probes/eam_tf_sums.py), which this limit refuses
+EAM_BWD_RTOL = 1e-6
+# fit_density's losses against the same loop through the plain versions, at
+# most this relative per iteration (the chip read 0 for the density and
+# 1.6e-6 learning the TF)
+EAM_FIT_LOSS_RTOL = 1e-5
 
 
 def log(msg):
@@ -2356,16 +2398,20 @@ class RmReads:
         return int(self.touched.sum()) * self.entry_bytes
 
 
-def rm_replay(kind, inv, dens, tft, filt, offset):
+def rm_replay(kind, inv, dens, tft, filt, offset, eam=None):
     """The lookups K15 (EAM, Depth), K16 or K17 makes in one pass: its march
     and stop rule replayed with the plain pieces (a missing ray takes none;
     EAM stops at acc_a >= 0.99, Depth at the threshold, ISO, walking near ->
-    far, at the first hit; MIP takes every step). Returns the ``RmReads``
-    and, for ISO, each pixel's hit t (-1 where none)."""
+    far, at the first hit; MIP takes every step). ``eam``: another EAM
+    march (res, slices, extinction) than phase 19's. Returns the
+    ``RmReads`` and, for ISO, each pixel's hit t (-1 where none)."""
     from vpt_tpu_torch.kernels import raymarch as RK
 
     n = RM_MIP_STEPS if kind == "mip" else RM_ISO["steps"] if kind == "iso" else RM_EAM["slices"]
-    _, _, miss, entry, exit_, rsl, step = RK._march_setup(inv, RM_RES, tft.device, n)
+    res = RM_RES
+    if eam is not None:
+        n, res = eam["slices"], eam["res"]
+    _, _, miss, entry, exit_, rsl, step = RK._march_setup(inv, res, tft.device, n)
     reads = RmReads(dens, filt)
     if kind == "mip":
         for k in range(n):
@@ -2385,6 +2431,8 @@ def rm_replay(kind, inv, dens, tft, filt, offset):
         return reads, torch.where(miss, -1.0, hit_t)
     stop = 0.99 if kind == "eam" else RM_DEPTH["threshold"]
     ext = RM_EAM["extinction"] if kind == "eam" else RM_DEPTH["extinction"]
+    if eam is not None:
+        ext = eam["extinction"]
     a = torch.zeros_like(rsl)
     for k in range(n + 1):
         t = float(step * np.float32(offset) + np.float32(k) * step)
@@ -2683,6 +2731,299 @@ def phase_raymarch(dev):
     entries["iso_shade"]["launches"] = sessions["iso"]["launches"]["iso_shade"]
     log(f"# phase 19 (ray marchers): {time.perf_counter() - t_phase:.1f} s")
     return list(entries.values()), sessions
+
+
+def eam_fit_scene(dev, volume=None):
+    """The CLI's invert scene (vpt_tpu_torch/cli.py, as vpt_tpu/cli.py): the
+    f32 density of sphere_in_cube, the ramp-alpha TF, the orbit cameras."""
+    from vpt_tpu_torch import Camera, Volume
+    from vpt_tpu_torch.scene.camera import OrbitController
+
+    F = EAM_FIT
+    tf = np.zeros((256, 256, 4), np.float32)
+    tf[..., :3] = 1.0
+    tf[..., 3] = np.linspace(0, 1, 256)[None, :]
+    cams = []
+    for k in range(F["views"]):
+        cam = Camera()
+        OrbitController(yaw=2 * np.pi * k / F["views"], pitch=-0.4).apply(cam)
+        cams.append(cam)
+    truth = Volume.sphere_in_cube(volume or F["volume"]).density
+    return (torch.as_tensor(np.asarray(truth, np.float32), device=dev),
+            torch.as_tensor(tf, device=dev), cams)
+
+
+def eam_bwd_check(g, inv, dens, tft, offset, filt, learn_tf, label):
+    """K19 against eam_backward_plain on the same inputs: each gradient within
+    EAM_BWD_RTOL of the plain one's largest magnitude (the TF's against the
+    plain version with the TF in float64); returns the largest absolute
+    difference."""
+    from vpt_tpu_torch.kernels import raymarch as RK
+
+    F = EAM_FIT
+    rest = (F["extinction"], offset, F["slices"], filt)
+    kd, kt = RK.eam_backward(g, inv, dens, tft, *rest, learn_tf)
+    pd, _ = RK.eam_backward_plain(g, inv, dens, tft, *rest, False)
+    pt = (RK.eam_backward_plain(g.double(), inv, dens, tft.double(), *rest, True)[1]
+          if learn_tf else None)
+    torch.cuda.synchronize()
+    err = 0.0
+    for name, k, p in (("g_density", kd, pd), ("g_tf", kt, pt)):
+        if p is None:
+            if k is not None:
+                raise AssertionError(f"K19 ({label}) returned a TF gradient it was not asked for")
+            continue
+        scale, diff = float(p.abs().max()), float((k - p).abs().max())
+        if not (scale > 0 and np.isfinite(diff) and diff <= EAM_BWD_RTOL * scale):
+            raise AssertionError(f"K19 ({label}) {name}: max |kernel - plain| {diff} against "
+                                 f"max |plain| {scale} (tolerance {EAM_BWD_RTOL} of it)")
+        err = max(err, diff)
+        log(f"# eam_backward ({label}) {name}: max |kernel - plain| {diff:.3e}, max |plain| "
+            f"{scale:.3e} ({diff / scale:.2e} of it)")
+    return err
+
+
+def eam_bwd_bound(reads, tft, res, learn_tf):
+    """``bound`` of K19 over a frame whose march ``reads`` replays: g_img
+    read, each touched grid entry read once (the replay) and its gradient
+    written once, the TF's row 0 read (and its gradient written with
+    learn_tf); the ray, each active sample's forward once and its reverse's
+    adjoint operations."""
+    row = tft[0].numel() * tft.element_size()
+    nbytes = (res * res * 3 * 4 + 2 * reads.volume_bytes() + row * (2 if learn_tf else 1))
+    step = OPS_MARCH_SAMPLE + OPS_EAM_BWD_STEP + (OPS_EAM_BWD_TF if learn_tf else 0)
+    ops = res * res * OPS_MARCH_RAY + reads.lookups * step
+    return bound(nbytes, ops)
+
+
+def eam_fit_run(targets, cams, tft, dev, learn_tf, plain=False, iterations=None):
+    """fit_density on the card for ``iterations`` (EAM_FIT's) from a constant
+    0.2 density, the ray-march counts set to 0 just before; ``plain`` runs
+    the same loop through the plain frame under autograd (optim's
+    ``eam_frame_diff`` replaced by ``eam_frame``). Returns (params, losses,
+    seconds, launches)."""
+    from vpt_tpu_torch import optim as TO
+    from vpt_tpu_torch.kernels import raymarch as RK
+
+    F = EAM_FIT
+    init = np.full((F["volume"],) * 3, 0.2, np.float32)
+    diff = TO.eam_frame_diff
+    if plain:
+        TO.eam_frame_diff = RK.eam_frame
+    try:
+        torch.cuda.synchronize()
+        RK.reset_launch_counts()
+        t0 = time.perf_counter()
+        params, losses = TO.fit_density(targets, cams, init, tft, extinction=F["extinction"],
+                                        slices=F["slices"], resolution=F["res"],
+                                        learn_tf=learn_tf,
+                                        iterations=iterations or F["iterations"],
+                                        learning_rate=F["lr"], device=dev)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches = dict(RK.LAUNCHES)
+    finally:
+        TO.eam_frame_diff = diff
+    return params, losses, dt, launches
+
+
+def eam_fit_profile(targets, cams, tft, dev, iterations=5):
+    """Iterations of make_inverse_step (as fit_density runs them, float(loss)
+    each) under torch.profiler after two warm-up iterations: the device work
+    by kernel name per iteration and the device ms per iteration."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from vpt_tpu_torch import optim as TO
+    from vpt_tpu_torch.models.raymarch import _seed_to_offset
+    from vpt_tpu_torch.tools.profile_fit import device_kernels
+
+    F = EAM_FIT
+    static = dict(tf_table=tft, extinction=F["extinction"], slices=F["slices"],
+                  resolution=F["res"], volume_filter="linear")
+    params = {"density": torch.full((F["volume"],) * 3, 0.2, device=dev)}
+    opt = TO.Adam(F["lr"])
+    state = TO.InverseState(params, opt.init(params), 0)
+    step = TO.make_inverse_step(opt, static)
+
+    def run(first, n):
+        nonlocal state
+        for i in range(first, first + n):
+            k = i % len(targets)
+            state, loss = step(state, cams[k].inverse_mvp(), np.float32(_seed_to_offset(i)),
+                               targets[k])
+            float(loss)
+
+    run(0, 2)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run(2, iterations)
+    kernels = {name: dict(ms=k["ms"] / iterations, launches=k["launches"] / iterations)
+               for name, k in device_kernels(prof).items()}
+    return dict(kernels=kernels, device_ms=sum(k["ms"] for k in kernels.values()))
+
+
+def phase_eam_fit(dev):
+    """Phase 20: EAM training on the CLI's invert scene at full width (K15's
+    frame alone and K19 eam_backward): K19 against its plain version in the
+    linear, quasicubic and nearest modes with and without the TF, on the
+    64^3 scene and the 128^3 bench volume; EAMFrame's forward against
+    eam_frame bit for bit; both timed by device time against their bounds;
+    fit_density for EAM_FIT's iterations with and without learn_tf (one K15
+    and one K19 launch an iteration, the loss trajectory against the same
+    loop through the plain versions), its device busy share under the
+    profiler; the CLI's invert --iterations 10."""
+    from vpt_tpu_torch.kernels import raymarch as RK
+    from vpt_tpu_torch.models import raymarch as TR
+
+    F = EAM_FIT
+    t_phase = time.perf_counter()
+    truth, tft, cams = eam_fit_scene(dev)
+    res = F["res"]
+    inv = cams[1].inverse_mvp()
+    offset = np.float32(TR._seed_to_offset(1))
+    gen = torch.Generator(device=dev).manual_seed(20)
+    g = torch.rand((res, res, 3), generator=gen, device=dev) * 2.0 - 1.0
+    big = eam_fit_scene(dev, 128)[0]
+
+    # EAMFrame's forward (K15, the frame alone) == eam_frame bit for bit, and
+    # K19 == plain, in the three filters, with and without the TF
+    err = {"eam_backward": 0.0, "eam_backward[tf]": 0.0}
+    for label, dens in ((f"{F['volume']}^3", truth), ("128^3", big)):
+        for filt in ("linear", "quasicubic", "nearest"):
+            leaf = dens.clone().requires_grad_(True)
+            img = RK.eam_frame_diff(inv, leaf, tft, F["extinction"], offset, F["slices"], res, filt)
+            ref = RK.eam_frame(inv, dens, tft, F["extinction"], offset, F["slices"], res, filt)
+            torch.cuda.synchronize()
+            rm_bitwise(f"EAMFrame forward ({label}, {filt})", (img.detach(),), (ref,))
+            if not float(ref.max()) > 0.05:
+                raise AssertionError(f"the EAM frame ({label}, {filt}) is empty")
+            # the plain TF gradient takes ~7 s a call on the card (autograd's
+            # index backward): with the TF on the fit's scene, and linear at 128^3
+            for learn_tf in (False, True) if dens is truth or filt == "linear" else (False,):
+                key = "eam_backward[tf]" if learn_tf else "eam_backward"
+                err[key] = max(err[key], eam_bwd_check(
+                    g, inv, dens, tft, offset, filt, learn_tf,
+                    f"{label}, {filt}, {'with' if learn_tf else 'without'} the TF"))
+        log(f"# EAMFrame forward == eam_frame bit for bit ({label}; linear, quasicubic, nearest)")
+
+    # device times against the bounds, on the fit's scene (linear)
+    entries, reads = {}, rm_replay("eam", inv, truth, tft, "linear", offset,
+                                   eam=dict(res=res, slices=F["slices"],
+                                            extinction=F["extinction"]))[0]
+    frame_args = (inv, truth, tft, F["extinction"], offset, F["slices"], res)
+    ms = device_ms(lambda: RK.eam_frame_pass(*frame_args))
+    plain_ms = cuda_ms(lambda: RK.eam_frame(*frame_args), 2)
+    b = rm_bound(reads, tft, res * res * 3 * 4,
+                 res * res * OPS_MARCH_RAY + reads.lookups * OPS_MARCH_SAMPLE)
+    b["bound_share"] = b["bound_ms"] / ms
+    entries["march[eam_frame]"] = kernel_line(dict(
+        name="march[eam_frame]", route="cuda", source=RM_SOURCE,
+        replaces="vpt_tpu/models/raymarch.py:99", max_abs_err=0.0, ms=ms,
+        plain_ms=plain_ms, samples=reads.lookups), b)
+    log(f"# march[eam_frame] (K15, the frame alone) at {res}^2 over {F['volume']}^3: {ms:.5f} ms "
+        f"(device), plain {plain_ms:.4f} ms; {reads.lookups} samples, "
+        f"{int(reads.touched.sum())} grid entries; bound {b['bound_ms']:.5f} ms by "
+        f"{b['bound_by']}, share {b['bound_share']:.3f}")
+    for learn_tf in (False, True):
+        key = "eam_backward[tf]" if learn_tf else "eam_backward"
+        args = (g, inv, truth, tft, F["extinction"], offset, F["slices"], "linear", learn_tf)
+        ms = device_ms(lambda: RK.eam_backward(*args))
+        plain_ms = cuda_ms(lambda: RK.eam_backward_plain(*args), 1 if learn_tf else 2)
+        b = eam_bwd_bound(reads, tft, res, learn_tf)
+        b["bound_share"] = b["bound_ms"] / ms
+        big_reads = rm_replay("eam", inv, big, tft, "linear", offset,
+                              eam=dict(res=res, slices=F["slices"],
+                                       extinction=F["extinction"]))[0]
+        big_args = (g, inv, big, tft, F["extinction"], offset, F["slices"], "linear", learn_tf)
+        big_ms = device_ms(lambda: RK.eam_backward(*big_args))
+        big_b = eam_bwd_bound(big_reads, tft, res, learn_tf)
+        big_b["bound_share"] = big_b["bound_ms"] / big_ms
+        entries[key] = kernel_line(dict(
+            name=key, route="cuda", source=RM_SOURCE,
+            replaces="vpt_tpu/models/raymarch.py:99", max_abs_err=err[key], ms=ms,
+            plain_ms=plain_ms, samples=reads.lookups,
+            volume_128=dict(ms=big_ms, samples=big_reads.lookups, **big_b)), b)
+        log(f"# {key} (K19) at {res}^2 over {F['volume']}^3, with the gradients' zeroing: "
+            f"{ms:.5f} ms (device), plain {plain_ms:.4f} ms; {reads.lookups} samples; bound "
+            f"{b['bound_ms']:.5f} ms by {b['bound_by']} ({b['bound_bytes']} B, "
+            f"{b['bound_ops']} FP32 ops), share {b['bound_share']:.3f}; over 128^3 "
+            f"{big_ms:.5f} ms, {big_reads.lookups} samples, bound {big_b['bound_ms']:.5f} ms by "
+            f"{big_b['bound_by']}, share {big_b['bound_share']:.3f}")
+    del big
+
+    # fit_density: targets at offset 0 (K15), then the loop with and without
+    # learn_tf, and the same loops through the plain versions
+    targets = [RK.eam_frame_pass(c.inverse_mvp(), truth, tft, F["extinction"], 0.0, F["slices"],
+                                 res) for c in cams]
+    fits = {}
+    for learn_tf in (False, True):
+        key = "learn_tf" if learn_tf else "density"
+        eam_fit_run(targets, cams, tft, dev, learn_tf, iterations=2)  # warm-up
+        params, losses, dt, launches = eam_fit_run(targets, cams, tft, dev, learn_tf)
+        want = {"march_eam_frame": F["iterations"], "eam_backward": F["iterations"]}
+        if any(launches[k] != v for k, v in want.items()) or sum(launches.values()) != sum(
+                want.values()):
+            raise AssertionError(f"fit_density ({key}) launched {launches}, not one K15 frame and "
+                                 f"one K19 an iteration")
+        # Adam moves an element whose gradient is rounding noise by up to the
+        # learning rate; learning the TF, the trajectories may part after
+        # iteration 5 (tests/test_torch_eam_grad.py), and the plain TF
+        # gradient takes seconds: the plain loop runs the iterations compared
+        held = F["iterations"] if not learn_tf else 5
+        _, plain_losses, plain_dt, plain_launches = eam_fit_run(targets, cams, tft, dev, learn_tf,
+                                                                plain=True, iterations=held)
+        if any(plain_launches.values()):
+            raise AssertionError(f"the plain loop launched {plain_launches}")
+        rel = np.abs(losses[:held] - plain_losses) / np.abs(plain_losses)
+        if not (losses[0] == plain_losses[0] and (rel <= EAM_FIT_LOSS_RTOL).all()
+                and np.isfinite(losses).all() and losses[-1] < losses[0]):
+            raise AssertionError(f"fit_density ({key}) losses {losses.tolist()} against the plain "
+                                 f"loop's {plain_losses.tolist()}")
+        d = params["density"]
+        if not (float(d.min()) >= 0.0 and float(d.max()) <= 1.0 and float((d - 0.2).abs().max()) > 0):
+            raise AssertionError(f"fit_density ({key}): the density left [0, 1] or did not move")
+        fits[key] = dict(losses=losses.tolist(), plain_losses=plain_losses.tolist(), seconds=dt,
+                         s_per_iteration=dt / F["iterations"], plain_s_per_iteration=plain_dt /
+                         held, launches=launches, max_rel_loss_diff=float(rel.max()))
+        log(f"# fit_density ({key}) at {res}^2 over {F['volume']}^3, {F['views']} views, "
+            f"{F['iterations']} iterations: {dt / F['iterations']:.5f} s an iteration (plain "
+            f"{plain_dt / held:.5f}); launches {launches}; losses {losses[0]:.6f} -> "
+            f"{losses[-1]:.6f}, the first {held} against the plain loop's at most "
+            f"{rel.max():.2e} relative (iteration 0 bit for bit)")
+    prof = eam_fit_profile(targets, cams, tft, dev)
+    if not prof["device_ms"] > 0:
+        raise AssertionError("the profiler saw no device time in fit_density's iterations")
+    it_ms = fits["density"]["s_per_iteration"] * 1e3
+    fits["density"]["profile"] = prof
+    fits["density"]["device_busy_share"] = prof["device_ms"] / it_ms
+    log(f"# profiled fit_density iteration: device {prof['device_ms']:.5f} ms of {it_ms:.5f} ms "
+        f"unprofiled (busy {prof['device_ms'] / it_ms:.3f}); " + ", ".join(
+            f"{n} {k['ms']:.5f} ms x{k['launches']:g}" for n, k in prof["kernels"].items()))
+
+    # the CLI: invert without --spectral on the card
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "rec.npy")
+        cmd = [sys.executable, "-m", "vpt_tpu_torch.cli", "invert", "--device", "cuda",
+               "--volume-size", str(F["volume"]), "--resolution", str(res), "--extinction",
+               str(F["extinction"]), "--views", str(F["views"]), "--iterations", "10", "-o", out]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, capture_output=True, text=True, timeout=300,
+                              cwd=os.path.dirname(os.path.abspath(__file__)))
+        dt_cli = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise AssertionError(f"CLI invert exited {proc.returncode}: {proc.stderr[-2000:]}")
+        metrics = json.loads(proc.stdout.strip().splitlines()[-1])
+        rec = np.load(out)
+    if (set(metrics) != {"final_loss", "density_mae"} or rec.shape != (F["volume"],) * 3
+            or not np.isfinite(rec).all() or not all(np.isfinite(v) for v in metrics.values())):
+        raise AssertionError(f"CLI invert wrote {rec.shape}, metrics {metrics}")
+    fits["cli"] = dict(seconds=dt_cli, metrics=metrics)
+    log(f"# CLI invert --device cuda --iterations 10: exit 0 in {dt_cli:.2f} s (process), "
+        f"{rec.shape} grid, metrics {json.dumps(metrics)}")
+    entries["march[eam_frame]"]["launches"] = fits["density"]["launches"]["march_eam_frame"]
+    entries["eam_backward"]["launches"] = fits["density"]["launches"]["eam_backward"]
+    entries["eam_backward[tf]"]["launches"] = fits["learn_tf"]["launches"]["eam_backward"]
+    log(f"# phase 20 (EAM training): {time.perf_counter() - t_phase:.1f} s")
+    return list(entries.values()), fits
 
 
 def launch_counts():
@@ -3023,6 +3364,7 @@ def main():
     k1_raw, k13, k14 = phase_raw(camera, dev)
     torch.cuda.empty_cache()
     rm_kernels, rm_sessions = phase_raymarch(dev)
+    eam_kernels, eam_fits = phase_eam_fit(dev)
     foreign = sorted(k for k in sys.modules
                      if k in ("jax", "vpt_tpu") or k.startswith(("jax.", "vpt_tpu.")))
     if foreign:
@@ -3061,7 +3403,7 @@ def main():
     kernels = [k1, k2, k4, k5, k6, k7, k9, k10, k11, k1_maj, k1_modes["environment"],
                k1_modes["quasicubic"], *compact_kernels, k4_sur, k12, k1_xy, *k4_modes.values(),
                *k5_modes.values(), *corner_modes.values(), *sur_modes.values(), k1_raw, k13,
-               k14, *rm_kernels]
+               k14, *rm_kernels, *eam_kernels]
     missing = [k["name"] for k in kernels + [k3, k3_xy, k3_raw]
                if not {"bound_ms", "bound_by", "library_ms", "launches", "ms", "plain_ms",
                        "max_abs_err"} <= set(k)]
@@ -3078,7 +3420,7 @@ def main():
               "training_path": {"fit_spectral": fits, "fwd_bwd_windows": windows},
               "majorant_path": sparse, "mode_sessions": mode_rates, "compaction": compact,
               "cli": cli, "surrogate": {"twin_on_card": twin, "autodiff_fit": autodiff},
-              "raymarch_sessions": rm_sessions,
+              "raymarch_sessions": rm_sessions, "eam_training": eam_fits,
               "ptxas": ptxas, "gpu": smi}
     log(json.dumps(result))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

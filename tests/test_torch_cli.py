@@ -88,10 +88,29 @@ def test_invert_spectral_autodiff(tmp_path, capsys):
     assert np.load(out).shape == (8, 8, 8)
 
 
+def test_invert_eam_matches_jax(tmp_path, capsys):
+    """invert without --spectral (EAM fit_density) at 8^3 / 8^2 for 2
+    iterations: JAX's JSON keys, its numbers (rtol 1e-4: the two packages
+    sum in other orders), the recovered grid's shape."""
+    from vpt_tpu.cli import main as jax_main
+
+    argv = ["invert", "--volume-size", "8", "--resolution", "8", "--iterations", "2"]
+    out, out_j = str(tmp_path / "rec.npy"), str(tmp_path / "rec_jax.npy")
+    metrics = json.loads(_run(capsys, [*argv, "--device", "cpu", "-o", out]).out
+                         .strip().splitlines()[-1])
+    jax_main([*argv, "-o", out_j])
+    want = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert set(metrics) == set(want) == {"final_loss", "density_mae"}
+    for key in want:
+        assert metrics[key] == pytest.approx(want[key], rel=1e-4), key
+    rec = np.load(out)
+    assert rec.shape == (8, 8, 8) and rec.dtype == np.float32
+    np.testing.assert_allclose(rec, np.load(out_j), atol=1e-4)
+
+
 @pytest.mark.parametrize("argv,names", [
     (["invert", "--spectral", "--renderer", "eam"], "eam"),
     (["render", "--devices", "2"], "--devices"),
-    (["invert"], "fit_density"),
     (["render", "--renderer", "mcm"], "mcm"),
 ])
 def test_exits_name_what_is_not_ported(argv, names, tmp_path, capsys):
@@ -102,10 +121,11 @@ def test_exits_name_what_is_not_ported(argv, names, tmp_path, capsys):
     assert not os.path.exists(tmp_path / "x.npy")
 
 
-@pytest.mark.parametrize("cmd", ["render", "invert"])
+@pytest.mark.parametrize("cmd", ["render", "invert", "invert-eam"])
 def test_cuda_device_without_cuda_exits_nonzero(cmd, tmp_path, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    argv = [cmd, "--volume-size", "8", "--resolution", "8", "-o", str(tmp_path / "x.npy")]
+    argv = [cmd.split("-")[0], "--volume-size", "8", "--resolution", "8", "-o",
+            str(tmp_path / "x.npy")]
     if cmd == "invert":
         argv.append("--spectral")
     with pytest.raises(SystemExit) as e:

@@ -429,7 +429,6 @@ def test_cli_lists_five_renderers(capsys):
 @pytest.mark.parametrize("argv,message", [
     (["render", "--renderer", "eam", "--compaction"],
      "--compaction is supported by mcm-spectral and mcm, not 'eam'"),
-    (["invert", "--renderer", "eam"], "fit_density"),
     (["invert", "--spectral", "--renderer", "eam"], "mcm-spectral"),
 ])
 def test_cli_refuses_compaction_and_invert_on_a_ray_marcher(argv, message, tmp_path):
@@ -438,3 +437,16 @@ def test_cli_refuses_compaction_and_invert_on_a_ray_marcher(argv, message, tmp_p
                   "--frames", "1", "-o", str(tmp_path / "x.npy")])
     assert e.value.code not in (0, None) and message in str(e.value.code)
     assert not os.path.exists(tmp_path / "x.npy")
+
+
+@pytest.mark.parametrize("key", ["eam", "depth"])
+def test_cli_invert_runs_fit_density_whatever_the_renderer(key, tmp_path, capsys):
+    """invert without --spectral is EAM's fit_density, and like vpt_tpu's it
+    ignores --renderer: JAX's JSON keys, a recovered (8, 8, 8) grid."""
+    out = str(tmp_path / "rec.npy")
+    cli_main(["invert", "--renderer", key, "--device", "cpu", "--volume-size", "8",
+              "--resolution", "8", "--iterations", "2", "-o", out])
+    metrics = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert set(metrics) == {"final_loss", "density_mae"}
+    assert all(np.isfinite(v) for v in metrics.values())
+    assert np.load(out).shape == (8, 8, 8)

@@ -4,6 +4,7 @@
     python -m vpt_tpu_torch.cli render --device cuda --majorant-blocks 8 \\
         --compaction --envmap env.npy -o render.npy
     python -m vpt_tpu_torch.cli render --device cuda --renderer eam -o eam.npy
+    python -m vpt_tpu_torch.cli invert --device cuda --iterations 100 -o density.npy
 
 Subcommands:
   render      progressive render to a PNG/NPY (metrics JSON on stdout)
@@ -11,7 +12,8 @@ Subcommands:
   renderers   list the port's registered renderers
   tonemappers list the tone mappers
   info        torch / CUDA / device report
-  invert      spectral-MCM inverse rendering (--spectral --method prb|autodiff)
+  invert      inverse rendering: EAM density recovery (fit_density), or
+              spectral MCM with --spectral --method prb|autodiff
 
 ``render`` and ``animate`` take ``--renderer mcm-spectral`` (the default)
 or one of the ray marchers ``eam``, ``mip``, ``iso``, ``depth``, built as
@@ -19,11 +21,16 @@ or one of the ray marchers ``eam``, ``mip``, ``iso``, ``depth``, built as
 with their defaults). ``--compaction`` is for ``mcm-spectral`` (and the
 unported ``mcm``) only.
 
+``invert`` without ``--spectral`` recovers the volume's density from
+``--views`` orbit renders by EAM (``optim.fit_density``), as
+``vpt_tpu/cli.py`` does: the ramp-alpha TF, 32 slices, targets at offset 0,
+a constant 0.2 start; like it, it ignores ``--renderer``.
+
 ``--device`` defaults to ``cuda``: the kernels run on the card, and a
 machine without CUDA exits non-zero instead of falling back to the CPU.
 ``--device cpu`` runs the plain PyTorch versions. What the port has not
-ported yet (other renderers, ``--devices > 1``, the non-spectral
-``invert``) exits non-zero with a message naming it.
+ported yet (other renderers, ``--devices > 1``) exits non-zero with a
+message naming it.
 """
 
 from __future__ import annotations
@@ -236,10 +243,45 @@ def cmd_info(_args):
     }, indent=2))
 
 
+def _cmd_invert_eam(args):
+    """EAM inverse rendering (BASELINE config 4's original form): targets
+    rendered from the volume at offset 0, then ``fit_density`` from a
+    constant 0.2 density."""
+    import torch
+
+    from vpt_tpu_torch.kernels.raymarch import eam_frame_pass
+    from vpt_tpu_torch.optim import fit_density
+    from vpt_tpu_torch.scene.camera import Camera, OrbitController
+
+    device = _device(args)
+    target_vol = _load_volume(args)
+    tf = np.zeros((256, 256, 4), np.float32)
+    tf[..., :3] = 1.0
+    tf[..., 3] = np.linspace(0, 1, 256)[None, :]
+
+    cameras = []
+    for k in range(args.views):
+        cam = Camera()
+        OrbitController(yaw=2 * np.pi * k / args.views, pitch=-0.4).apply(cam)
+        cameras.append(cam)
+    density = torch.as_tensor(np.asarray(target_vol.density, np.float32), device=device)
+    tf_t = torch.as_tensor(tf, device=device)
+    targets = [eam_frame_pass(c.inverse_mvp(), density, tf_t, args.extinction, 0.0, 32,
+                              args.resolution) for c in cameras]
+    D = target_vol.density.shape[0]
+    params, losses = fit_density(
+        targets, cameras, np.full((D, D, D), 0.2, np.float32), tf, extinction=args.extinction,
+        slices=32, resolution=args.resolution, iterations=args.iterations,
+        progress=lambda i, l: print(f"iter {i}: loss {l:.6f}", file=sys.stderr), device=device)
+    rec = params["density"].cpu().numpy()
+    np.save(args.output, rec)
+    err = float(np.abs(rec - target_vol.density).mean())
+    print(json.dumps({"final_loss": float(losses[-1]), "density_mae": err}))
+
+
 def cmd_invert(args):
     if not args.spectral:
-        raise SystemExit("invert without --spectral (the EAM fit_density loop) is not "
-                         "ported to vpt_tpu_torch yet")
+        return _cmd_invert_eam(args)
     _check_invert_ported(args)
     device = _device(args)
 
@@ -343,7 +385,7 @@ def main(argv=None):
     sp = sub.add_parser("info")
     sp.set_defaults(fn=cmd_info)
 
-    sp = sub.add_parser("invert", help="inverse rendering (spectral MCM)")
+    sp = sub.add_parser("invert", help="inverse rendering (EAM, or spectral MCM)")
     common(sp)
     sp.add_argument("--output", "-o", default="recovered.npy")
     sp.add_argument("--views", type=int, default=4)

@@ -4,7 +4,10 @@
 //                           (:99-134) and EAMRenderer.render's running
 //                           average (:170-173): front-to-back compositing
 //                           over slices + 1 samples, then acc += (img - acc)
-//                           / frame, in place.
+//                           / frame, in place; or, given an output image and
+//                           no running average, the frame alone (eam_frame,
+//                           the forward of the differentiable frame that
+//                           optim.fit_density trains through).
 //   K15 march_kernel<DEPTH> replaces depth_frame (:343-373) and
 //                           DepthRenderer.render's display (:404): the same
 //                           opacity march up to the threshold, written as the
@@ -16,13 +19,20 @@
 //   K18 iso_shade_kernel    replaces iso_shade (:259-280): Lambert shading
 //                           from a central difference of the TF alpha, white
 //                           where nothing was hit.
+//   K19 eam_backward_kernel<LEARN_TF>
+//                           replaces eam_frame under jax.grad (through
+//                           vpt_tpu/optim.py::eam_loss, :88-100): the
+//                           cotangent of the frame scattered into the raw
+//                           density grid and, with LEARN_TF, into the raw
+//                           TF's row 0.
 //
 // One thread per pixel; the march state lives in registers and each kernel
 // reads and writes its pixel's state once. The volume is a packed "full"
 // corner table (u8 or f32, linear or quasicubic) or a raw (D, H, W) f32 grid
 // (also nearest), read through mcm_common.cuh's samplers; the classic 2D TF
 // is a packed (257, 257, 16) corner table or the raw (256, 256, 4) texture,
-// read at (density, 0) by sample_rgba below.
+// read at (density, 0) by sample_rgba below. K19 takes the raw grid and the
+// raw TF only (what fit_density learns).
 //
 // What bounds them on this card. Per sample a thread does one random
 // volume lookup (an 8-byte u8 or 32-byte f32 row, or 8 scalar loads of a
@@ -36,7 +46,11 @@
 // the cube or cross its empty margin take every sample), each sample two
 // dependent gathers (the TF row waits on the density): the kernels are
 // bound by that latency chain. A thread holds 40-56 registers, a block
-// 128 threads.
+// 128 threads. K19 walks each ray twice (the march replayed, then its
+// steps backwards) and adds 8 float atomics per step into the density
+// gradient (1 for nearest); neighbouring pixels' rays share voxels, so
+// those atomics meet on the same addresses (counted by chip_smoke.py's
+// phase 20).
 //
 // The marches stop early where nothing later can change the result, which
 // the masked scans of the JAX code cannot: EAM once acc_a >= 0.99 or t >= 1,
@@ -44,13 +58,16 @@
 // accumulators as they are, and t only grows), ISO by walking near -> far
 // and stopping at the first hit (the far -> near overwrite keeps the same,
 // smallest t). A pixel whose ray misses the cube skips its march. For a TF
-// with finite entries every pixel equals the masked march bit for bit.
+// with finite entries every pixel equals the masked march bit for bit. An
+// inactive EAM step gets no cotangent under jax.grad either (jnp.where
+// selects 0), so K19's walk over the active steps alone is exact.
 //
 // Numerics: built without fast math and with -fmad=false, so every
 // expression rounds as the plain PyTorch version's (kernels/raymarch.py);
 // every quotient is the IEEE one (__fdiv_rn), sqrt is IEEE, min/max
 // propagate NaN like torch.minimum/maximum, and the lerps keep the order
-// a + (b - a) * t.
+// a + (b - a) * t. K19's sums differ from autograd's in order (the atomics
+// add in no fixed order), so it agrees with its plain version to rounding.
 
 #include "mcm_common.cuh"
 
@@ -182,8 +199,9 @@ __device__ __forceinline__ float step_length(const PixelRay& r, float step) {
 }
 
 // K15: EAM (composite, renormalize, running average into acc (R, R, 3) with
-// the frame count already advanced) or Depth (march to the threshold, write
-// the display image out (R, R, 3)).
+// the frame count already advanced, or the frame itself into out (R, R, 3)
+// when out is given) or Depth (march to the threshold, write the display
+// image out (R, R, 3)).
 template <int MODE>
 __global__ void __launch_bounds__(MARCH_THREADS)
 march_kernel(const March P, const void* __restrict__ vol, const float* __restrict__ tf,
@@ -216,6 +234,12 @@ march_kernel(const March P, const void* __restrict__ vol, const float* __restric
     const float scale = (aa > 1.0f) ? __fdiv_rn(1.0f, nmax(aa, 1.0f)) : 1.0f;
     const float img[3] = {r.miss ? 0.0f : ar * scale, r.miss ? 0.0f : ag * scale,
                           r.miss ? 0.0f : ab * scale};
+    if (out != nullptr) {  // the frame alone
+      float* o = out + (int64_t)pix * 3;
+#pragma unroll
+      for (int c = 0; c < 3; ++c) o[c] = img[c];
+      return;
+    }
     const float mix = __fdiv_rn(1.0f, (float)__ldg(frame));
     float* a = acc + (int64_t)pix * 3;
 #pragma unroll
@@ -332,6 +356,194 @@ iso_shade_kernel(const March P, const void* __restrict__ vol, const float* __res
   o[2] = m.z * lambert;
 }
 
+// ---------------------------------------------------------------------------
+// K19: the EAM frame's reverse
+// ---------------------------------------------------------------------------
+// Most samples a ray may take (slices + 1): K19 keeps each active step's
+// opacity before it and its density in the thread's local memory (a float2
+// a step, 2 KB a thread at most), because the compositing recurrence cannot
+// be run backwards by division (an unclamped a = c.a * ray_step_len * ext
+// may reach 1 or more, and then A_k = (A_k+1 - a) / (1 - a) is undefined).
+#define EAM_BWD_MAX_TRIPS 256
+// widest raw TF whose row-0 gradient a block sums in shared memory (48 KB
+// of doubles)
+#define EAM_BWD_MAX_TF_W 1536
+
+// The raw TF's texels that a classic lookup at (x, 0) reads, and its value
+// with sample_rgba's bits: base_frac(0, H) puts v = 0 on rows y0 = y1 = 0
+// (fy = 0.5) for every H, so sample_rgba's four texels are row 0's columns
+// x0, x1 twice, and its lerps are repeated here on those two.
+struct TfRow0 {
+  int x0, x1;
+  float fx;
+  float4 k0, k1;
+};
+
+__device__ __forceinline__ float4 tf_row0(const float* __restrict__ tf, const March& P, float x,
+                                          TfRow0& q) {
+  const int W = P.i[RI_TF_W] - 1;
+  int bx, by;
+  float fx, fy;
+  base_frac(x, W, bx, fx);
+  base_frac(0.0f, P.i[RI_TF_H] - 1, by, fy);
+  q.x0 = max(bx - 1, 0);
+  q.x1 = min(bx, W - 1);
+  q.fx = fx;
+  const float4* t = reinterpret_cast<const float4*>(tf);
+  q.k0 = __ldg(t + q.x0);
+  q.k1 = __ldg(t + q.x1);
+  float4 o;
+  o.x = lerp(lerp(q.k0.x, q.k1.x, fx), lerp(q.k0.x, q.k1.x, fx), fy);
+  o.y = lerp(lerp(q.k0.y, q.k1.y, fx), lerp(q.k0.y, q.k1.y, fx), fy);
+  o.z = lerp(lerp(q.k0.z, q.k1.z, fx), lerp(q.k0.z, q.k1.z, fx), fy);
+  o.w = lerp(lerp(q.k0.w, q.k1.w, fx), lerp(q.k0.w, q.k1.w, fx), fy);
+  return o;
+}
+
+// The cotangent dd of a raw-grid lookup at (u, v, w) added into g (D, H, W)
+// as jax.grad transposes interp.sample_volume: the one voxel read (nearest),
+// or the 8 clamped corners by the transposed lerps (quasicubic: the warped
+// fractions); corners clamped onto one voxel add up.
+__device__ __forceinline__ void scatter_volume_raw(float* __restrict__ g, const March& P, float u,
+                                                   float v, float w, float dd) {
+  const int Dp = P.i[RI_VOL_D], Hp = P.i[RI_VOL_H], Wp = P.i[RI_VOL_W];
+  const int D = Dp - 1, H = Hp - 1, W = Wp - 1;
+  if (P.i[RI_NEAREST] != 0) {
+    const int x = floor_cell(u, W), y = floor_cell(v, H), z = floor_cell(w, D);
+    atomicAdd(g + ((int64_t)z * H + y) * W + x, dd);
+    return;
+  }
+  int x0, x1, y0, y1, z0, z1;
+  float fx, fy, fz;
+  raw_axis(u, Wp, x0, x1, fx);
+  raw_axis(v, Hp, y0, y1, fy);
+  raw_axis(w, Dp, z0, z1, fz);
+  if (P.i[RI_QUASICUBIC] != 0) {
+    fx = quasicubic(fx);
+    fy = quasicubic(fy);
+    fz = quasicubic(fz);
+  }
+  // out = c0 + (c1 - c0) fz, c0 = c00 + (c01 - c00) fy, c00 = v000 + (v001 - v000) fx
+  const float g1 = dd * fz, g0 = dd - g1;
+  const float g01 = g0 * fy, g00 = g0 - g01, g11 = g1 * fy, g10 = g1 - g11;
+  const int64_t p00 = ((int64_t)z0 * H + y0) * W, p01 = ((int64_t)z0 * H + y1) * W;
+  const int64_t p10 = ((int64_t)z1 * H + y0) * W, p11 = ((int64_t)z1 * H + y1) * W;
+  atomicAdd(g + p00 + x0, g00 - g00 * fx);
+  atomicAdd(g + p00 + x1, g00 * fx);
+  atomicAdd(g + p01 + x0, g01 - g01 * fx);
+  atomicAdd(g + p01 + x1, g01 * fx);
+  atomicAdd(g + p10 + x0, g10 - g10 * fx);
+  atomicAdd(g + p10 + x1, g10 * fx);
+  atomicAdd(g + p11 + x0, g11 - g11 * fx);
+  atomicAdd(g + p11 + x1, g11 * fx);
+}
+
+// One pixel of K19. Forward: K15<EAM>'s march replayed with the same
+// rounding, taping (A, d) per active step. Then the renormalization's
+// adjoint and the compositing recurrence walked backwards. With A the
+// opacity before a step, a = c.a * ray_step_len * ext and w = (1 - A) a:
+//   lambda_C = scale * g (the RGB sums' adjoint, constant along the ray);
+//   lambda_A starts at -(g . C) * scale^2 where A_final > 1 (scale =
+//   1 / A_final), else 0; per step from the last, with u = lambda_A +
+//   lambda_C . c_rgb (dL/dw): dL/dc_rgb = w lambda_C, dL/da = (1 - A) u,
+//   dL/dc.a = dL/da * ext * ray_step_len, lambda_A -= a u.
+// dL/dc reaches d through the TF row's slope, (k1 - k0) * W, and the
+// texels x0, x1 by the transposed lerp (LEARN_TF: into the block's shared
+// row s_tf).
+template <bool LEARN_TF>
+__device__ __forceinline__ void eam_backward_pixel(const March& P, const float* __restrict__ vol,
+                                                   const float* __restrict__ tf,
+                                                   const float* __restrict__ g_img,
+                                                   float* __restrict__ g_vol, double* s_tf,
+                                                   int pix) {
+  const int res = P.i[RI_RES];
+  const int iy = pix / res, ix = pix - iy * res;
+  const PixelRay r = pixel_ray(P, ix, iy);
+  if (r.miss) return;  // the frame is 0 there whatever the tables
+  const float step = P.f[RF_STEP], offset = P.f[RF_OFFSET], ext = P.f[RF_EXTINCTION];
+  const float rsl = step_length(r, step);
+  const int trips = P.i[RI_TRIPS];
+  float2 tape[EAM_BWD_MAX_TRIPS];
+  float ar = 0.0f, ag = 0.0f, ab = 0.0f, aa = 0.0f;
+  int n = 0;
+  for (; n < trips; ++n) {
+    const float t = step * offset + (float)n * step;
+    if (!(t < 1.0f) || !(aa < 0.99f)) break;
+    const float d = march_density(vol, P, lerp(r.nx, r.xx, t), lerp(r.ny, r.xy, t),
+                                  lerp(r.nz, r.xz, t));
+    const float4 c = sample_rgba(tf, P, d);
+    tape[n] = make_float2(aa, d);
+    const float w = (1.0f - aa) * (c.w * rsl * ext);
+    ar = ar + w * c.x;
+    ag = ag + w * c.y;
+    ab = ab + w * c.z;
+    aa = aa + w;
+  }
+  const float* gp = g_img + (int64_t)pix * 3;
+  const float g0 = __ldg(gp), g1 = __ldg(gp + 1), g2 = __ldg(gp + 2);
+  const bool over = aa > 1.0f;
+  const float scale = over ? __fdiv_rn(1.0f, nmax(aa, 1.0f)) : 1.0f;
+  const float lr = g0 * scale, lg = g1 * scale, lb = g2 * scale;
+  // d(1 / A)/dA = -(1 / A)^2, as torch.reciprocal's backward takes it
+  float lam = over ? -((g0 * ar + g1 * ag + g2 * ab) * (scale * scale)) : 0.0f;
+  const float fW = (float)(P.i[RI_TF_W] - 1);
+  for (int k = n - 1; k >= 0; --k) {
+    const float A = tape[k].x, d = tape[k].y;
+    TfRow0 q;
+    const float4 c = tf_row0(tf, P, d, q);
+    const float a = c.w * rsl * ext;
+    const float w = (1.0f - A) * a;
+    const float u = lam + (lr * c.x + lg * c.y + lb * c.z);
+    const float da = (1.0f - A) * u;
+    lam = lam - a * u;
+    const float4 gc = make_float4(w * lr, w * lg, w * lb, da * ext * rsl);
+    if (LEARN_TF) {
+      const float gx[4] = {gc.x, gc.y, gc.z, gc.w};
+#pragma unroll
+      for (int ch = 0; ch < 4; ++ch) {
+        const float hi = gx[ch] * q.fx;
+        atomicAdd(s_tf + q.x0 * 4 + ch, (double)(gx[ch] - hi));
+        atomicAdd(s_tf + q.x1 * 4 + ch, (double)hi);
+      }
+    }
+    const float dd = (gc.x * (q.k1.x - q.k0.x) + gc.y * (q.k1.y - q.k0.y) +
+                      gc.z * (q.k1.z - q.k0.z) + gc.w * (q.k1.w - q.k0.w)) * fW;
+    if (dd != 0.0f) {  // a flat TF column moves nothing (a NaN passes)
+      const float t = step * offset + (float)k * step;
+      scatter_volume_raw(g_vol, P, lerp(r.nx, r.xx, t), lerp(r.ny, r.xy, t), lerp(r.nz, r.xz, t),
+                         dd);
+    }
+  }
+}
+
+// K19: g_vol (D, H, W) += the density's gradient; with LEARN_TF, g_row
+// (the TF's row 0, W x 4) += the TF's, summed per block in shared memory
+// and flushed once per block: every sample reads row 0, so global atomics
+// there would serialise on W x 4 addresses. The row is summed in double:
+// a texel takes ~1e6 terms at 512^2 (every empty-space sample lands on
+// texel 0's alpha), which under a signed cotangent cancel ~1000-fold, and
+// float32 sums then lose ~1e-4 of the result.
+template <bool LEARN_TF>
+__global__ void __launch_bounds__(MARCH_THREADS)
+eam_backward_kernel(const March P, const float* __restrict__ vol, const float* __restrict__ tf,
+                    const float* __restrict__ g_img, float* __restrict__ g_vol,
+                    double* __restrict__ g_row) {
+  extern __shared__ double s_tf[];
+  const int row = (P.i[RI_TF_W] - 1) * 4;
+  if (LEARN_TF) {
+    for (int k = threadIdx.x; k < row; k += blockDim.x) s_tf[k] = 0.0;
+    __syncthreads();
+  }
+  const int pix = blockIdx.x * blockDim.x + threadIdx.x;
+  if (pix < P.i[RI_RES] * P.i[RI_RES])
+    eam_backward_pixel<LEARN_TF>(P, vol, tf, g_img, g_vol, s_tf, pix);
+  if (LEARN_TF) {
+    __syncthreads();
+    for (int k = threadIdx.x; k < row; k += blockDim.x)
+      if (s_tf[k] != 0.0) atomicAdd(g_row + k, s_tf[k]);
+  }
+}
+
 bool march_ok(const March& P, const void* vol, const float* tf) {
   return vol != nullptr && tf != nullptr && P.i[RI_RES] > 0 && P.i[RI_TRIPS] >= 0 &&
          (P.i[RI_NEAREST] == 0 || P.i[RI_VOL_RAW] != 0);
@@ -349,12 +561,15 @@ int vpt_march_layout(int which) {
   switch (which) {
     case 0: return RF_COUNT;
     case 1: return RI_COUNT;
+    case 2: return EAM_BWD_MAX_TRIPS;
+    case 3: return EAM_BWD_MAX_TF_W;
     default: return -1;
   }
 }
 
 // mode 0 (EAM): acc (R*R*3 floats) updated in place, frame a device int
-// holding the advanced frame count, out null; mode 1 (Depth): out (R*R*3
+// holding the advanced frame count, out null; or the frame alone: out
+// (R*R*3 floats) written, acc and frame null; mode 1 (Depth): out (R*R*3
 // floats) written, acc and frame null
 int vpt_march(const float* fparams, const int* iparams, int mode, const void* vol,
               const float* tf, float* acc, const int* frame, float* out, void* stream) {
@@ -362,7 +577,9 @@ int vpt_march(const float* fparams, const int* iparams, int mode, const void* vo
   if (!march_ok(P, vol, tf)) return (int)cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (mode == EAM) {
-    if (acc == nullptr || frame == nullptr || out != nullptr) return (int)cudaErrorInvalidValue;
+    const bool merge = acc != nullptr && frame != nullptr && out == nullptr;
+    const bool alone = acc == nullptr && frame == nullptr && out != nullptr;
+    if (!merge && !alone) return (int)cudaErrorInvalidValue;
     march_kernel<EAM><<<march_blocks(P), MARCH_THREADS, 0, st>>>(P, vol, tf, acc, frame, out);
   } else if (mode == DEPTH) {
     if (acc != nullptr || frame != nullptr || out == nullptr) return (int)cudaErrorInvalidValue;
@@ -399,6 +616,31 @@ int vpt_iso_shade(const float* fparams, const int* iparams, const void* vol, con
     return (int)cudaErrorInvalidValue;
   iso_shade_kernel<<<march_blocks(P), MARCH_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
       P, vol, tf, cx, cy, cz, ct, out);
+  return (int)cudaGetLastError();
+}
+
+// K19: g_vol (D*H*W floats, zeroed by the caller) += the density's
+// gradient of <g_img, eam_frame> for the cotangent g_img (R*R*3 floats);
+// g_row (W*4 doubles, zeroed) += the gradient of the raw TF's row 0, the
+// only row a classic lookup reads, when not null. The volume must be a raw
+// grid and the TF a raw texture, the parameter block as K15<EAM>'s.
+int vpt_eam_backward(const float* fparams, const int* iparams, const float* vol, const float* tf,
+                     const float* g_img, float* g_vol, double* g_row, void* stream) {
+  const March P = make_march(fparams, iparams);
+  if (!march_ok(P, vol, tf) || P.i[RI_VOL_RAW] == 0 || P.i[RI_TF_RAW] == 0 || g_img == nullptr ||
+      g_vol == nullptr || P.i[RI_TRIPS] > EAM_BWD_MAX_TRIPS ||
+      P.i[RI_TF_W] - 1 > EAM_BWD_MAX_TF_W)
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* v = static_cast<const float*>(vol);
+  if (g_row != nullptr) {
+    const size_t smem = (size_t)(P.i[RI_TF_W] - 1) * 4 * sizeof(double);
+    eam_backward_kernel<true><<<march_blocks(P), MARCH_THREADS, smem, st>>>(P, v, tf, g_img,
+                                                                             g_vol, g_row);
+  } else {
+    eam_backward_kernel<false><<<march_blocks(P), MARCH_THREADS, 0, st>>>(P, v, tf, g_img, g_vol,
+                                                                          g_row);
+  }
   return (int)cudaGetLastError();
 }
 

@@ -92,6 +92,7 @@ _SIGNATURES = {
         "vpt_mip": ([_P] * 6, _I),
         "vpt_iso": ([_P] * 9, _I),
         "vpt_iso_shade": ([_P] * 10, _I),
+        "vpt_eam_backward": ([_P] * 8, _I),
     },
     "gather_bench": {
         "vpt_gather_limits": ([_P], _I),
@@ -195,7 +196,7 @@ KERNELS = ("step_kernel", "tape_forward_kernel", "reverse_kernel", "contract_vol
            "pack_volume_kernel", "pack_volume_xy_kernel", "pack_env_kernel", "pack_tf_kernel",
            "scatter_rows_kernel", "surrogate_tape_kernel", "surrogate_reverse_kernel",
            "raw_tape_kernel", "raw_replay_kernel", "march_kernel", "mip_kernel", "iso_kernel",
-           "iso_shade_kernel")
+           "iso_shade_kernel", "eam_backward_kernel")
 _ENTRY = re.compile(r"Compiling entry function '\S*?\d(" + "|".join(KERNELS) + r")(I\S*?EE)?[Ev]")
 
 
@@ -208,8 +209,8 @@ def ptxas_table(log_text):
     surrogate_tape_kernel and K12 surrogate_reverse_kernel), NB,ENV,XY (K4
     tape_forward_kernel), NB (K13 raw_tape_kernel, K14 raw_replay_kernel), NS
     (K5 reverse_kernel: 0 for stride mode, else the importance step
-    count), MODE (K15 march_kernel: 0 EAM, 1 Depth), "" for the
-    untemplated ones."""
+    count), MODE (K15 march_kernel: 0 EAM, 1 Depth), LEARN_TF (K19
+    eam_backward_kernel: 0 or 1), "" for the untemplated ones."""
     rows, cur = [], None
     for line in log_text.splitlines():
         m = _ENTRY.search(line)

@@ -18,6 +18,23 @@ place (the JAX functions return new arrays):
   ``ISORenderer.render``'s merge); plain ``iso_pass_plain``.
 - ``shade_pass`` (K18 ``iso_shade_kernel``): the ISO image from the merged
   hit (replaces ``iso_shade``); plain ``iso_shade``.
+- ``eam_frame_pass`` (K15 ``march_kernel<EAM>`` given an output image): one
+  EAM frame alone (``eam_frame``), the forward of the differentiable frame.
+- ``eam_backward`` (K19 ``eam_backward_kernel<LEARN_TF>``): the reverse of
+  ``eam_frame`` under ``jax.grad`` (through ``vpt_tpu/optim.py::eam_loss``):
+  a cotangent of the frame into the gradients of the raw density grid and,
+  with ``learn_tf``, of the raw TF; plain version ``eam_backward_plain``
+  (torch autograd through the plain ``eam_frame``).
+
+``eam_frame_diff`` (``EAMFrame``, a ``torch.autograd.Function``) is
+``eam_frame`` made differentiable in the density and the TF: on a CUDA
+device one K15 launch forward and one K19 launch backward, never autograd
+of the plain version; on the CPU the plain ``eam_frame``, whose samplers are
+differentiable gathers, under torch autograd. It takes the raw (D, H, W)
+f32 grid and the raw (H, W, 4) TF (what ``optim.fit_density`` learns) and
+raises on a packed table; K19 keeps at most ``EAM_BACKWARD_MAX_TRIPS``
+samples a ray (slices + 1) and sums at most ``EAM_BACKWARD_MAX_TF_W`` TF
+columns in shared memory, and the wrapper raises beyond either.
 
 The frame functions keep the JAX names and signatures (``eam_frame``,
 ``mip_frame``, ``iso_frame``, ``iso_shade``, ``depth_frame``, with the
@@ -34,7 +51,8 @@ packed (257, 257, 16) corner table or the raw (256, 256, 4) texture.
 Each wrapper runs its plain version when its tensors lie on the CPU and
 launches the kernel when they lie on a CUDA device; anything else raises.
 ``LAUNCHES`` counts kernel launches (never plain runs): K15 under its
-mode (``march_eam``, ``march_depth``).
+mode (``march_eam``, ``march_depth``, and ``march_eam_frame`` for the frame
+alone), K19 as ``eam_backward``.
 """
 
 from __future__ import annotations
@@ -51,8 +69,12 @@ _F_COUNT = 26
 _I_COUNT = 12
 _EAM, _DEPTH = 0, 1
 _FILTERS = ("linear", "quasicubic", "nearest")
+# K19's limits: EAM_BWD_MAX_TRIPS and EAM_BWD_MAX_TF_W in csrc/raymarch.cu
+EAM_BACKWARD_MAX_TRIPS = 256
+EAM_BACKWARD_MAX_TF_W = 1536
 
-LAUNCHES = {"march_eam": 0, "march_depth": 0, "mip": 0, "iso": 0, "iso_shade": 0}
+LAUNCHES = {"march_eam": 0, "march_eam_frame": 0, "march_depth": 0, "mip": 0, "iso": 0,
+            "iso_shade": 0, "eam_backward": 0}
 
 
 def reset_launch_counts():
@@ -235,6 +257,17 @@ def eam_pass_plain(acc, frame, inv_mvp, density, tf_table, extinction, offset, s
     return eam_merge(acc, frame, img)
 
 
+def eam_backward_plain(g_img, inv_mvp, density, tf_table, extinction, offset, slices: int,
+                       volume_filter: str = "linear", learn_tf: bool = False):
+    """Plain ``eam_backward``: torch autograd through the plain ``eam_frame``."""
+    d = density.detach().requires_grad_(True)
+    t = tf_table.detach().requires_grad_(learn_tf)
+    with torch.enable_grad():
+        img = eam_frame(inv_mvp, d, t, extinction, offset, slices, g_img.shape[0], volume_filter)
+        grads = torch.autograd.grad(img, [d, t] if learn_tf else [d], g_img)
+    return grads[0], (grads[1] if learn_tf else None)
+
+
 def depth_pass_plain(inv_mvp, density, tf_table, extinction, threshold, offset, slices: int,
                      resolution: int, volume_filter: str = "linear"):
     """Plain ``depth_pass``."""
@@ -300,7 +333,8 @@ def _params(inv_mvp, density, tf_table, volume_filter, resolution, trips, step, 
 
 def _lib():
     lib = _build.load()
-    if (lib.vpt_march_layout(0), lib.vpt_march_layout(1)) != (_F_COUNT, _I_COUNT):
+    if (tuple(lib.vpt_march_layout(k) for k in range(4))
+            != (_F_COUNT, _I_COUNT, EAM_BACKWARD_MAX_TRIPS, EAM_BACKWARD_MAX_TF_W)):
         raise RuntimeError("ray-march kernel library parameter layout does not match the wrapper")
     return lib
 
@@ -337,6 +371,115 @@ def eam_pass(acc, frame, inv_mvp, density, tf_table, extinction, offset, slices:
     K._raise_on(err, "march<EAM>")
     LAUNCHES["march_eam"] += 1
     return acc
+
+
+def eam_frame_pass(inv_mvp, density, tf_table, extinction, offset, slices: int,
+                   resolution: int = 512, volume_filter: str = "linear"):
+    """One EAM frame (R, R, 3), ``eam_frame``; one launch of K15
+    ``march_kernel<EAM>`` into a new image on a CUDA device."""
+    vol = _volume_tensor(density)
+    if K._route(vol, tf_table) == "cpu":
+        return eam_frame(inv_mvp, density, tf_table, extinction, offset, slices, resolution,
+                         volume_filter)
+    _check_tables(density, tf_table, volume_filter)
+    f, i = _params(inv_mvp, density, tf_table, volume_filter, resolution, slices + 1,
+                   np.float32(1.0 / slices), np.float32(offset), extinction=np.float32(extinction))
+    out = torch.empty((resolution, resolution, 3), dtype=torch.float32, device=vol.device)
+    lib = _lib()
+    with torch.cuda.device(vol.device):
+        err = lib.vpt_march(f.ctypes.data, i.ctypes.data, _EAM, vol.data_ptr(),
+                            tf_table.data_ptr(), None, None, out.data_ptr(),
+                            K._stream(vol.device))
+    K._raise_on(err, "march<EAM> (frame)")
+    LAUNCHES["march_eam_frame"] += 1
+    return out
+
+
+def _check_raw_tables(density, tf_table, slices: int):
+    """What K19 takes: a raw (D, H, W) grid, a raw (H, W, 4) TF, at most
+    EAM_BACKWARD_MAX_TRIPS samples a ray and EAM_BACKWARD_MAX_TF_W TF
+    columns."""
+    if isinstance(density, interp.PackedVolume) or tf_table.ndim != 3 or tf_table.shape[-1] != 4:
+        raise ValueError("the EAM backward (K19) takes a raw (D, H, W) density grid and a raw "
+                         "(H, W, 4) TF, not packed tables")
+    if slices + 1 > EAM_BACKWARD_MAX_TRIPS:
+        raise ValueError(f"the EAM backward (K19) keeps at most {EAM_BACKWARD_MAX_TRIPS} samples "
+                         f"a ray: slices <= {EAM_BACKWARD_MAX_TRIPS - 1}, got {slices}")
+    if tf_table.shape[1] > EAM_BACKWARD_MAX_TF_W:
+        raise ValueError(f"the EAM backward (K19) sums at most {EAM_BACKWARD_MAX_TF_W} TF columns, "
+                         f"got {tf_table.shape[1]}")
+
+
+def eam_backward(g_img, inv_mvp, density, tf_table, extinction, offset, slices: int,
+                 volume_filter: str = "linear", learn_tf: bool = False):
+    """The gradients of ``<g_img, eam_frame(...)>`` with respect to the raw
+    density grid and, with ``learn_tf``, the raw TF (else None): the
+    cotangent ``g_img`` (R, R, 3) of one EAM frame carried back as
+    ``jax.grad`` carries it. One launch of K19 ``eam_backward_kernel`` on a
+    CUDA device (the gradients summed by atomics, so in no fixed order)."""
+    _check_raw_tables(density, tf_table, slices)
+    if K._route(g_img, density, tf_table) == "cpu":
+        return eam_backward_plain(g_img, inv_mvp, density, tf_table, extinction, offset, slices,
+                                  volume_filter, learn_tf)
+    _check_tables(density, tf_table, volume_filter)
+    res = g_img.shape[0]
+    _check_image(g_img, "g_img", res, 3)
+    f, i = _params(inv_mvp, density, tf_table, volume_filter, res, slices + 1,
+                   np.float32(1.0 / slices), np.float32(offset), extinction=np.float32(extinction))
+    g_density = torch.zeros_like(density)
+    # the TF's row 0, the only row a classic lookup reads, summed in double
+    g_row = (torch.zeros((tf_table.shape[1], 4), dtype=torch.float64, device=g_img.device)
+             if learn_tf else None)
+    lib = _lib()
+    with torch.cuda.device(g_img.device):
+        err = lib.vpt_eam_backward(f.ctypes.data, i.ctypes.data, density.data_ptr(),
+                                   tf_table.data_ptr(), g_img.data_ptr(), g_density.data_ptr(),
+                                   None if g_row is None else g_row.data_ptr(),
+                                   K._stream(g_img.device))
+    K._raise_on(err, "eam_backward")
+    LAUNCHES["eam_backward"] += 1
+    if not learn_tf:
+        return g_density, None
+    g_tf = torch.zeros_like(tf_table)
+    g_tf[0] = g_row
+    return g_density, g_tf
+
+
+class EAMFrame(torch.autograd.Function):
+    """``eam_frame`` on a CUDA device with its reverse: K15 forward, K19
+    backward."""
+
+    @staticmethod
+    def forward(ctx, density, tf_table, inv_mvp, extinction, offset, slices, resolution,
+                volume_filter):
+        ctx.save_for_backward(density, tf_table)
+        ctx.args = (inv_mvp, extinction, offset, slices, volume_filter)
+        return eam_frame_pass(inv_mvp, density, tf_table, extinction, offset, slices, resolution,
+                              volume_filter)
+
+    @staticmethod
+    def backward(ctx, g_img):
+        density, tf_table = ctx.saved_tensors
+        inv_mvp, extinction, offset, slices, volume_filter = ctx.args
+        g_density, g_tf = eam_backward(g_img.contiguous(), inv_mvp, density, tf_table, extinction,
+                                       offset, slices, volume_filter,
+                                       learn_tf=ctx.needs_input_grad[1])
+        return (g_density if ctx.needs_input_grad[0] else None, g_tf,
+                None, None, None, None, None, None)
+
+
+def eam_frame_diff(inv_mvp, density, tf_table, extinction, offset, slices: int,
+                   resolution: int = 512, volume_filter: str = "linear"):
+    """``eam_frame``, differentiable in ``density`` (a raw (D, H, W) grid)
+    and ``tf_table`` (a raw (H, W, 4) TF): ``EAMFrame`` on a CUDA device
+    (K15 forward, K19 backward), the plain ``eam_frame`` under torch
+    autograd on the CPU."""
+    _check_raw_tables(density, tf_table, slices)
+    if K._route(density, tf_table) == "cpu":
+        return eam_frame(inv_mvp, density, tf_table, extinction, offset, slices, resolution,
+                         volume_filter)
+    return EAMFrame.apply(density, tf_table, inv_mvp, extinction, offset, slices, resolution,
+                          volume_filter)
 
 
 def depth_pass(inv_mvp, density, tf_table, extinction, threshold, offset, slices: int,

@@ -14,7 +14,10 @@ the plain PyTorch versions run. States are dicts of tensors with the JAX
 renderers' keys (checkpoints store them in sorted key order, as
 ``jax.tree.flatten`` does). ``camera_rays``, ``ray_bounds``, ``_mix3`` and
 ``sample_tf`` are the shared helpers the JAX module exports, defined
-beside the plain versions that use them.
+beside the plain versions that use them. ``eam_frame`` is the plain frame
+and ``eam_frame_diff`` the frame that ``optim.fit_density`` differentiates
+(K15 forward and K19 backward on a CUDA device), exported here as the JAX
+optimizer imports ``eam_frame`` from this module.
 """
 
 from __future__ import annotations
@@ -23,7 +26,8 @@ import numpy as np
 import torch
 
 from vpt_tpu_torch.kernels import raymarch as K
-from vpt_tpu_torch.kernels.raymarch import _mix3, camera_rays, ray_bounds, sample_tf  # noqa: F401
+from vpt_tpu_torch.kernels.raymarch import (_mix3, camera_rays, eam_frame,  # noqa: F401
+                                             eam_frame_diff, ray_bounds, sample_tf)
 from vpt_tpu_torch.models.base import register_renderer
 from vpt_tpu_torch.ops import interp
 from vpt_tpu_torch.scene import transform as T

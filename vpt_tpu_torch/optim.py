@@ -1,8 +1,15 @@
-"""Inverse rendering with the spectral MCM renderer: recover scene tables
-from a target render by Adam on the packed-adjoint PRB gradients or the
+"""Inverse rendering: recover a density grid (and the TF) from EAM renders
+by Adam on the EAM frame's exact gradients, or scene tables from a
+spectral MCM render by Adam on the packed-adjoint PRB gradients or the
 autodiff surrogate's.
 
-Counterpart of the spectral half of ``vpt_tpu/optim.py``: the inverse
+Counterpart of ``vpt_tpu/optim.py``. The EAM half: ``eam_loss``,
+``make_inverse_step`` and ``fit_density``, whose iteration is one
+differentiable frame (``models.raymarch.eam_frame_diff``: on a CUDA device
+one K15 launch forward and one K19 ``eam_backward`` launch backward), the
+loss and an Adam step; its state is an ``InverseState`` over
+{"density", "tf_table"}, checkpointed as the spectral one. The spectral
+half: the inverse
 checkpoints (``save_inverse_checkpoint``, ``load_inverse_checkpoint``),
 ``sanitize_grads``, ``spectral_render_loss`` and
 ``make_spectral_inverse_step`` (the surrogate), ``_pack_params_into_ctx``,
@@ -28,9 +35,9 @@ full corner table or the xy half-packed one. ``fit_spectral`` renders with
 the linear filter whatever the renderer's, as the reference does: its
 loss and its PRB step pass no filter, and its ctx holds none.
 
-Not ported yet (each raises ``NotImplementedError``): the EAM
-``fit_density`` loop, and the autodiff surrogate over an xy half-packed
-volume or raw or partly packed tables (the next slice), which is where the
+Not ported yet (each raises ``NotImplementedError``): ``fit_density``
+on a mesh (``mesh=``, ROADMAP A12), and the autodiff surrogate over an xy
+half-packed volume or raw or partly packed tables, which is where the
 reference routes a raw renderer by default; ``method="prb"`` on such a
 renderer fails the reference's assertions (``AssertionError``: the packed
 backward needs the fused TF and a packed volume). A compacted renderer raises
@@ -53,6 +60,7 @@ from vpt_tpu_torch.kernels import mcm_spectral as K
 from vpt_tpu_torch.kernels.spectral_backward import clone_state, packed_ctx, prb_loss_and_grads
 from vpt_tpu_torch.kernels.surrogate import check_ctx as check_surrogate_ctx
 from vpt_tpu_torch.models.mcm_spectral import radiance_to_rgb, render_sequence_diff
+from vpt_tpu_torch.models.raymarch import _seed_to_offset, eam_frame_diff
 from vpt_tpu_torch.ops import interp
 from vpt_tpu_torch.ops.sampling import div_scalar
 
@@ -61,7 +69,7 @@ LEARNABLE = frozenset({"density", "material_tf", "light_spectrum", "extinction",
 
 
 class InverseState(NamedTuple):
-    params: dict  # raw tables by name (any subset of the learnable keys)
+    params: dict  # raw tables by name: any subset of LEARNABLE, or EAM's density and tf_table
     opt_state: dict
     step: int
 
@@ -328,6 +336,13 @@ def _frame_seeds(first: int, n: int) -> list:
     return [int(np.uint32((first + k) * 2654435761 % 2**32)) for k in range(n)]
 
 
+def _tensor(x, device) -> torch.Tensor:
+    """An array or tensor as a float32 tensor on ``device`` (no graph)."""
+    if torch.is_tensor(x):
+        return x.detach().to(device=device, dtype=torch.float32)
+    return torch.as_tensor(np.asarray(x, np.float32), device=device)
+
+
 def fit_spectral(target_image, renderer, camera, init_params: dict,
                  dispatches_per_step: int = 8, iterations: int = 100,
                  learning_rate: float = 0.02, seed: int = 0, progress=None,
@@ -387,9 +402,7 @@ def fit_spectral(target_image, renderer, camera, init_params: dict,
     steps = renderer.config.steps
     n_bins = renderer.spectrum.n_bins
 
-    params = {k: torch.as_tensor(np.asarray(v, np.float32) if not torch.is_tensor(v) else v,
-                                 dtype=torch.float32, device=device).clone()
-              for k, v in init_params.items()}
+    params = {k: _tensor(v, device).clone() for k, v in init_params.items()}
     optimizer = Adam(learning_rate)
     istate = InverseState(params, optimizer.init(params), 0)
     raw_mtf = torch.as_tensor(np.array(renderer.material_tf.table, np.float32), device=device)
@@ -433,8 +446,7 @@ def fit_spectral(target_image, renderer, camera, init_params: dict,
     if checkpoint and os.path.exists(checkpoint):
         istate = load_inverse_checkpoint(checkpoint, istate)
         start = istate.step
-    target = torch.as_tensor(np.asarray(target_image, np.float32) if not torch.is_tensor(
-        target_image) else target_image, dtype=torch.float32, device=device)
+    target = _tensor(target_image, device)
 
     detector = None
     if anneal_armed:
@@ -474,3 +486,74 @@ def fit_spectral(target_image, renderer, camera, init_params: dict,
     if return_info:
         return istate.params, losses, info
     return istate.params, losses
+
+
+# ---------------------------------------------------------------------------
+# EAM: the ray marcher's exact gradients (BASELINE config 4's original form)
+# ---------------------------------------------------------------------------
+def eam_loss(params: dict, inv_mvp, offset, target, static: dict):
+    """MSE between the EAM render of ``params`` ("density", and "tf_table"
+    when learned, else ``static``'s) and ``target``, differentiable through
+    ``eam_frame_diff``."""
+    img = eam_frame_diff(inv_mvp, params["density"], params.get("tf_table", static["tf_table"]),
+                         static["extinction"], offset, static["slices"], static["resolution"],
+                         static["volume_filter"])
+    return torch.mean((img - target) ** 2)
+
+
+def make_inverse_step(optimizer: Adam, static: dict, learn_tf: bool = False):
+    """An Adam step on ``eam_loss``'s gradients, the densities (and a
+    learned TF) clamped to [0, 1] after it: ``step(state, inv_mvp, offset,
+    target) -> (state, loss)``. ``static``: tf_table, extinction, slices,
+    resolution, volume_filter; the state's params decide what is learned
+    (``learn_tf`` is kept for the reference's signature)."""
+
+    def step(state: InverseState, inv_mvp, offset, target):
+        params = {k: v.detach().requires_grad_(True) for k, v in state.params.items()}
+        loss = eam_loss(params, inv_mvp, offset, target, static)
+        grads = dict(zip(params, torch.autograd.grad(loss, list(params.values()))))
+        with torch.no_grad():
+            new, opt_state = optimizer.update(grads, state.opt_state,
+                                              {k: v.detach() for k, v in params.items()})
+            for key in ("density", "tf_table"):
+                if key in new:
+                    new[key] = torch.clamp(new[key], 0.0, 1.0)
+        return InverseState(new, opt_state, state.step + 1), loss.detach()
+
+    return step
+
+
+def fit_density(target_images, cameras, init_density, tf_table, extinction: float = 100.0,
+                slices: int = 32, resolution: int = 64, volume_filter: str = "linear",
+                learn_tf: bool = False, iterations: int = 200, learning_rate: float = 0.05,
+                mesh=None, progress=None, *, device="cuda"):
+    """An Adam loop recovering the raw density grid (and, with ``learn_tf``,
+    the raw (H, W, 4) TF) from EAM targets: iteration i renders view i mod
+    len(cameras) at the march offset ``_seed_to_offset(i)``.
+    ``target_images``: (R, R, 3) arrays or tensors; ``cameras``: the
+    matching cameras. Runs on ``device`` (the card unless the caller asks
+    for the CPU). Returns (params, losses), losses a numpy array, as
+    ``vpt_tpu.optim.fit_density`` does."""
+    if mesh is not None:
+        raise NotImplementedError("fit_density(mesh=...): the multi-device mesh (ROADMAP A12) is "
+                                  "not ported to the torch package yet")
+    device = torch.device(device)
+    tf = _tensor(tf_table, device)
+    static = dict(tf_table=tf, extinction=float(np.float32(extinction)), slices=slices,
+                  resolution=resolution, volume_filter=volume_filter)
+    params = {"density": _tensor(init_density, device).clone()}
+    if learn_tf:
+        params["tf_table"] = tf.clone()
+    optimizer = Adam(learning_rate)
+    state = InverseState(params, optimizer.init(params), 0)
+    step = make_inverse_step(optimizer, static, learn_tf)
+    inv_mvps = [c.inverse_mvp() for c in cameras]
+    targets = [_tensor(t, device) for t in target_images]
+    losses = []
+    for i in range(iterations):
+        k = i % len(targets)
+        state, loss = step(state, inv_mvps[k], np.float32(_seed_to_offset(i)), targets[k])
+        losses.append(float(loss))
+        if progress is not None and (i % 20 == 0 or i == iterations - 1):
+            progress(i, losses[-1])
+    return state.params, np.asarray(losses)
