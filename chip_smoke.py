@@ -7,7 +7,7 @@ Phases (each raises on failure, so any failure exits non-zero):
   2. build the kernels of vpt_tpu_torch/csrc with nvcc (sm_90a, one nvcc
      per source, all at once); print the ptxas registers, spills and
      stack frame of every instantiation of K1, K4 (and its surrogate
-     mode), K5, K9, K10, K11, K12, K13, K14 and K15-K19
+     mode), K5, K9, K10, K11, K12, K13, K14 and K15-K21
   3. sample_volume_packed vs its plain version: all 256 u8 codes exact;
      timed at 1M lookups by device time (CUDA-graph replay) against
      F.grid_sample on the float volume, host path beside it
@@ -129,6 +129,26 @@ Phases (each raises on failure, so any failure exits non-zero):
      learning the density, the first 5 learning the TF too), seconds per
      iteration, the device busy share of an iteration (torch.profiler);
      `invert --device cuda --iterations 10` through the CLI.
+ 21. the RGB MCM renderer (K20 mcm_step, K21 mcm_reset, K8 on the RGB
+     state) at 512^2 on the bench volume with the CLI's defaults
+     (extinction 40, 8 bounces, 8 steps) and the grayscale ramp TF: K21
+     and K20 (2 dispatches) equal to their plain versions in every state
+     field bit for bit, two runs identical, on the u8 packed table, an
+     f32 packed table, quasicubic, raw tables (pack_tables=False),
+     nearest, phase 12's environment map and over a lane table (the
+     default pose, with that map); K20 timed as the session calls it (one
+     launch of 16 dispatches from the reset state) against its bound (the
+     state read and written once, each volume entry and env texel its
+     replayed lookups touch once, the TF's row 0; the replayed run's
+     operations), K21 by device time; K8 on the RGB state equal to
+     plain; the compacted render's hit pixels equal to the full render's
+     over 10 dispatches;
+     a RenderSession per mode, reset() and run(16) with the counts set to
+     0 before (one K21 and one K20 launch, K8 when compacted); on the
+     default a second run and a checkpoint round trip bit for bit and
+     four run(16) calls profiled in a fresh process (every K20 launch
+     seen; the device busy share). Phase 14 also runs `render
+     --renderer mcm --envmap <npy> --compaction`.
 The line before the last is a JSON object with each kernel's launches,
 error and times, its bound (the larger of the bytes it must move over the
 HBM rate and the FP32 operations this run's data needs over the FP32
@@ -237,6 +257,24 @@ EAM_BWD_RTOL = 1e-6
 # most this relative per iteration (the chip read 0 for the density and
 # 1.6e-6 learning the TF)
 EAM_FIT_LOSS_RTOL = 1e-5
+MCM_SOURCE = "vpt_tpu_torch/csrc/mcm.cu"
+# phase 21, the RGB MCM renderer on the bench volume at R = 512 with the CLI's
+# defaults (extinction 40, 8 bounces, 8 steps) and JAX's grayscale ramp TF
+MCM_CONFIG = dict(extinction=40.0, bounces=8, steps=STEPS)
+MCM_FRAMES = 16
+# FP32 operations of K20, counted from csrc/mcm.cu: every lane-step the
+# flight (a uniform, log, the quotient, 3 x mul-add: 11), the out-of-bounds
+# test (6) and the wheel (a uniform, p_null, max3, the products and sums, 2
+# compares: 11); a lookup inside the volume: 3 axes (4 each), 8 u8
+# dequantizations, 7 lerps (3 each) and the TF row's 2 axes and 12 lerps
+# (85); a respawn (a completed path): the running mean (10), the disk (10),
+# the square and screen points (16), two homogeneous transforms (31 each),
+# the normalization (13), the slab test (24), the position (6); an escape:
+# the equirect coordinates (9), 2 axes (8), 9 lerps (27), the transmittance
+# products (3); a scatter: the disk and sphere (20), the transmittance (3),
+# and with |g| >= 1e-5 the HG cosine and frame (30, none at the phase's g = 0)
+OPS_MCM_STEP, OPS_MCM_LOOKUP, OPS_MCM_RESPAWN, OPS_MCM_ESCAPE, OPS_MCM_SCATTER = (
+    28, 85, 134, 47, 23)
 
 
 def log(msg):
@@ -1119,7 +1157,29 @@ def phase_cli():
         raise AssertionError(f"CLI --renderer eam wrote {img.shape} {img.dtype}, metrics {m_eam}")
     log(f"# CLI render --device cuda --renderer eam --frames 16: exit 0 in {dt_eam:.2f} s "
         f"(process), image {img.shape}, metrics {json.dumps(m_eam)}")
-    return dict(seconds=dt, metrics=metrics, eam=dict(seconds=dt_eam, metrics=m_eam))
+    # the RGB renderer through the CLI (K20, K21, K8), env map and compaction
+    with tempfile.TemporaryDirectory() as tmp:
+        env_path, out = os.path.join(tmp, "env.npy"), os.path.join(tmp, "mcm.npy")
+        np.save(env_path, seeded_envmap(7)[::4, ::4])
+        cmd = [sys.executable, "-m", "vpt_tpu_torch.cli", "render", "--device", "cuda",
+               "--renderer", "mcm", "--envmap", env_path, "--compaction", "--frames", "16",
+               "-o", out]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, capture_output=True, text=True, timeout=300,
+                              cwd=os.path.dirname(os.path.abspath(__file__)))
+        dt_mcm = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise AssertionError(f"CLI --renderer mcm exited {proc.returncode}: "
+                                 f"{proc.stderr[-2000:]}")
+        m_mcm = json.loads(proc.stdout.strip().splitlines()[-1])
+        img = np.load(out)
+    if (img.shape != (512, 512, 3) or img.dtype != np.uint8 or m_mcm.get("paths", 0) <= 0
+            or not m_mcm.get("device", "").startswith("cuda") or not img.any()):
+        raise AssertionError(f"CLI --renderer mcm wrote {img.shape} {img.dtype}, metrics {m_mcm}")
+    log(f"# CLI render --device cuda --renderer mcm --envmap --compaction --frames 16: exit 0 "
+        f"in {dt_mcm:.2f} s (process), image {img.shape}, metrics {json.dumps(m_mcm)}")
+    return dict(seconds=dt, metrics=metrics, eam=dict(seconds=dt_eam, metrics=m_eam),
+                mcm=dict(seconds=dt_mcm, metrics=m_mcm))
 
 
 def phase_k3(dev):
@@ -2573,27 +2633,29 @@ def rm_session(key, dev, frames, checkpoint_at=None, tmp=None):
     return dict(RK.LAUNCHES), s.hdr_image(), dt, s.metrics()
 
 
-def rm_profile(key, dev, frames):
-    """One ``RenderSession(key).run(frames)`` under torch.profiler after a
-    warm-up: the device work by kernel name (ms and launches per frame),
-    the device ms per frame and the profiled host ms per frame (which the
-    profiler's own overhead lengthens)."""
+def rm_profile(key, dev, frames, *args, calls=1):
+    """``calls`` x ``RenderSession(key, volume, *args).run(frames)`` under
+    torch.profiler after a warm-up: the device work by kernel name (ms and
+    launches per frame), the device ms per frame and the profiled host ms
+    per frame (which the profiler's own overhead lengthens)."""
     from torch.profiler import ProfilerActivity, profile
 
     from vpt_tpu_torch import Volume
     from vpt_tpu_torch.session import RenderSession
     from vpt_tpu_torch.tools.profile_fit import device_kernels
 
-    s = RenderSession(key, Volume.sphere_in_cube(VOLUME), device=dev, resolution=RM_RES)
+    s = RenderSession(key, Volume.sphere_in_cube(VOLUME), *args, device=dev, resolution=RM_RES)
     s.run(2)
+    n = frames * calls
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        s.run(frames)
+        for _ in range(calls):
+            s.run(frames)
         host = time.perf_counter() - t0
-    kernels = {name: dict(ms=k["ms"] / frames, launches=k["launches"] / frames)
+    kernels = {name: dict(ms=k["ms"] / n, launches=k["launches"] / n)
                for name, k in device_kernels(prof).items()}
     return dict(kernels=kernels, device_ms=sum(k["ms"] for k in kernels.values()),
-                profiled_host_ms=host * 1e3 / frames)
+                profiled_host_ms=host * 1e3 / n)
 
 
 def phase_raymarch(dev):
@@ -3026,6 +3088,322 @@ def phase_eam_fit(dev):
     return list(entries.values()), fits
 
 
+def mcm_modes():
+    """Phase 21's modes: (label, volume, environment, pack_tables,
+    compaction) on the bench volume; the environment is phase 12's seeded
+    map."""
+    from vpt_tpu_torch import Volume
+
+    vol = Volume.sphere_in_cube(VOLUME)
+    f32 = Volume(density=smoothed(np.random.default_rng(13).random(vol.shape, np.float32)))
+    env = seeded_envmap()
+    return (("u8", vol, None, True, False), ("f32", f32, None, True, False),
+            ("quasicubic", Volume(vol.density, "quasicubic"), None, True, False),
+            ("raw", vol, None, False, False), ("nearest", Volume(vol.density, "nearest"), None,
+                                                True, False),
+            ("environment", vol, env, True, False), ("lane_table", vol, env, True, True))
+
+
+def mcm_renderer(vol, env, pack, compaction, dev):
+    from vpt_tpu_torch.models.mcm import MCMRenderer
+    from vpt_tpu_torch.utils.config import MCMConfig
+
+    return MCMRenderer(vol, None, env, MCMConfig(**MCM_CONFIG), resolution=RES, pack_tables=pack,
+                       compaction=compaction, device=dev)
+
+
+def mcm_replay(ctx, state, seeds, lanes=None):
+    """K20's work on ``state`` over ``seeds``, replayed with the plain
+    version: lane-steps, lookups inside the volume (``RmReads``: each
+    volume entry touched once), escapes and the environment texels they
+    read (each once), scatters and completed paths."""
+    from vpt_tpu_torch.kernels import mcm as KM
+    from vpt_tpu_torch.ops import interp, sampling
+
+    env = ctx.environment
+    He, We, _ = env.shape
+    reads = RmReads(ctx.density, ctx.volume_filter)
+    env_touched = torch.zeros(He * We, dtype=torch.bool, device=env.device)
+    n = dict(lane_steps=0, escapes=0, scatters=0)
+    last = {}
+    sample_volume, sample_environment, draw_hg = (interp.sample_volume, KM.sample_environment,
+                                                  sampling.draw_hg)
+
+    def volume_hook(density, x, y, z, mode="linear"):
+        oob = (x > 1.0) | (x < 0.0) | (y > 1.0) | (y < 0.0) | (z > 1.0) | (z < 0.0)
+        last["oob"] = oob
+        n["lane_steps"] += oob.numel()
+        n["escapes"] += int(oob.sum())
+        reads.add(x, y, z, ~oob)
+        return sample_volume(density, x, y, z, mode)
+
+    def env_hook(e, dx, dy, dz):
+        oob = last["oob"]
+        u = torch.atan2(dx, -dz) * KM.INV_PI_HALF + 0.5
+        v = torch.asin(torch.clamp(-dy, -1.0, 1.0)) * 2.0 * KM.INV_PI_HALF + 0.5
+        xs, ys = interp._coords(u, We)[:2], interp._coords(v, He)[:2]
+        for iy in ys:
+            for ix in xs:
+                env_touched[(iy * We + ix)[oob].to(torch.int64)] = True
+        return sample_environment(e, dx, dy, dz)
+
+    def hg_hook(rng, mask, *args):
+        n["scatters"] += int(mask.sum())
+        return draw_hg(rng, mask, *args)
+
+    st = clone_state(state)
+    interp.sample_volume, KM.sample_environment, sampling.draw_hg = volume_hook, env_hook, hg_hook
+    try:
+        KM.step_plain(st, ctx, seeds, STEPS, lanes)
+    finally:
+        interp.sample_volume, KM.sample_environment, sampling.draw_hg = (
+            sample_volume, sample_environment, draw_hg)
+    n["lookups"] = reads.lookups
+    n["respawns"] = int(st.samples.sum()) - int(state.samples.sum())
+    n["env_bytes"] = int(env_touched.sum()) * 12
+    return reads, n
+
+
+def mcm_step_bound(ctx, state, seeds, ms, lanes=None):
+    """``bound`` of K20 over ``seeds`` from ``state``: the state read and
+    written once (14 words a lane each way), the lane table, each volume
+    entry and environment texel the replayed lookups touch once, the TF's
+    row 0; the replayed run's operations."""
+    reads, n = mcm_replay(ctx, state, seeds, lanes)
+    lanes_n = state.px.numel()
+    nbytes = (2 * 14 * 4 * lanes_n + 2 * 4 * lanes_n * (lanes is not None) + reads.volume_bytes()
+              + (ctx.tf_table[0].numel() * 4 if n["lookups"] else 0) + n["env_bytes"])
+    aniso = abs(float(ctx.anisotropy)) >= 1e-5
+    ops = (n["lane_steps"] * OPS_MCM_STEP + n["lookups"] * OPS_MCM_LOOKUP
+           + n["respawns"] * OPS_MCM_RESPAWN + n["escapes"] * OPS_MCM_ESCAPE
+           + n["scatters"] * (OPS_MCM_SCATTER + 30 * aniso))
+    out = bound(nbytes, ops, ms)
+    out.update({k: v for k, v in n.items() if k != "env_bytes"})
+    return out
+
+
+def mcm_check(label, kern, plain):
+    """Kernel and plain states equal in every field, bit for bit."""
+    diff = first_difference(kern, plain)
+    if diff is not None:
+        raise AssertionError(f"{label} != plain: first difference in {diff[0]} on {diff[1]} lanes "
+                             f"(first flat lane {diff[2]})")
+
+
+def mcm_session(dev, vol, env, pack, compaction, frames, checkpoint_at=None, tmp=None):
+    """RenderSession("mcm") at R = 512: the counts set to 0, then reset()
+    and run(frames) (split by a save and a load into a fresh session at
+    ``checkpoint_at``); returns (K20/K21 and K8 launches, HDR image,
+    seconds)."""
+    from vpt_tpu_torch.kernels import mcm as KM
+    from vpt_tpu_torch.kernels import mcm_spectral as KS
+    from vpt_tpu_torch.session import RenderSession
+    from vpt_tpu_torch.utils.config import MCMConfig
+
+    def make():
+        return RenderSession("mcm", vol, None, env, MCMConfig(**MCM_CONFIG), resolution=RES,
+                             pack_tables=pack, compaction=compaction, device=dev)
+
+    s = make()
+    s.run(1)  # warm-up
+    KM.reset_launch_counts()
+    KS.reset_launch_counts()
+    t0 = time.perf_counter()
+    s.reset()
+    if checkpoint_at is None:
+        s.run(frames)
+    else:
+        s.run(checkpoint_at)
+        path = os.path.join(tmp, "mcm.npz")
+        s.save_checkpoint(path)
+        s = make().load_checkpoint(path)
+        s.run(frames - checkpoint_at)
+    dt = time.perf_counter() - t0
+    launches = {**KM.LAUNCHES, "compact_radiance": KS.LAUNCHES["compact_radiance"]}
+    return launches, s.hdr_image(), dt, s.metrics()
+
+
+def mcm_profile():
+    """``rm_profile`` of 4 x the default ``RenderSession("mcm").run(16)`` in
+    a fresh process: in this one, after phase 20's profiles, torch.profiler
+    returned none or some of K20's launches (my chip runs 2-3, PR 15)."""
+    code = ("import json, torch, chip_smoke as CS; "
+            "from vpt_tpu_torch.utils.config import MCMConfig; "
+            "print(json.dumps(CS.rm_profile('mcm', torch.device('cuda:0'), CS.MCM_FRAMES, None, "
+            "None, MCMConfig(**CS.MCM_CONFIG), calls=4)))")
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                          timeout=300, cwd=os.path.dirname(os.path.abspath(__file__)))
+    if proc.returncode != 0:
+        raise AssertionError(f"the mcm profile exited {proc.returncode}: {proc.stderr[-2000:]}")
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def phase_mcm(dev):
+    """Phase 21: the RGB MCM renderer (K20 mcm_step, K21 mcm_reset, K8 on the
+    RGB state) at R = 512 on the bench volume with the CLI's defaults: K21
+    and K20 bit for bit against their plain versions in every mode, each
+    timed against its bound; K8 on the RGB state; compacted hit pixels
+    against the full render; a RenderSession per mode (launches), the
+    default's second run, checkpoint round trip and profiled busy share."""
+    from vpt_tpu_torch import Camera
+    from vpt_tpu_torch.kernels import mcm as KM
+    from vpt_tpu_torch.kernels import mcm_spectral as KS
+    from vpt_tpu_torch.models.mcm import MCMState
+
+    t_phase = time.perf_counter()
+    cam = Camera()
+    seeds2 = [2654435761 * k % 2**32 for k in (3, 4)]
+    frames = [(k + 1) * 2654435761 % 2**32 for k in range(MCM_FRAMES)]
+    entries, sessions = {}, {}
+    for label, vol, env, pack, compaction in mcm_modes():
+        r = mcm_renderer(vol, env, pack, compaction, dev)
+        ctx = r.ctx(cam, 7)
+        lanes = None
+        if compaction:
+            t = r._compact_tables(cam)
+            lanes = (t["lane_ix"], t["lane_iy"])
+        # K21 against reset_plain, two runs identical
+        s0 = MCMState(**KM.reset(ctx, RES, dev, lanes))
+        s0b = MCMState(**KM.reset(ctx, RES, dev, lanes))
+        sp = MCMState(**KM.reset_plain(ctx, RES, dev, lanes))
+        torch.cuda.synchronize()
+        mcm_check(f"K21 ({label})", s0, sp)
+        mcm_check(f"K21 ({label}) second run", s0, s0b)
+        # K20 against step_plain over 2 dispatches, two runs identical
+        sk, sk2, sp = clone_state(s0), clone_state(s0), clone_state(s0)
+        KM.step(sk, ctx, seeds2, STEPS, lanes)
+        KM.step(sk2, ctx, seeds2, STEPS, lanes)
+        KM.step_plain(sp, ctx, seeds2, STEPS, lanes)
+        torch.cuda.synchronize()
+        mcm_check(f"K20 ({label})", sk, sp)
+        mcm_check(f"K20 ({label}) second run", sk, sk2)
+        if int(sk.samples.sum()) <= 0:
+            raise AssertionError(f"K20 ({label}) completed no samples")
+        # K20 timed as the session calls it, one launch of MCM_FRAMES
+        # dispatches (which amortizes the wrapper's host path), each call
+        # from the reset state, so the replayed bound counts the timed work
+        st_k, st_p = clone_state(s0), clone_state(s0)
+
+        def from_s0(st, fn):
+            for a, b0 in zip(st.tensors(), s0.tensors()):
+                a.copy_(b0)
+            fn(st, ctx, frames, STEPS, lanes)
+
+        ms = cuda_ms(lambda: from_s0(st_k, KM.step), 10)
+        plain_ms = cuda_ms(lambda: from_s0(st_p, KM.step_plain), 1)
+        b = mcm_step_bound(ctx, s0, frames, ms, lanes)
+        name = "mcm_step" if label == "u8" else f"mcm_step[{label}]"
+        entries[name] = kernel_line(dict(
+            name=name, route="cuda", source=MCM_SOURCE,
+            replaces=("vpt_tpu/models/mcm_compact.py:55" if compaction
+                      else "vpt_tpu/models/mcm.py:111"), max_abs_err=0.0, ms=ms,
+            plain_ms=plain_ms, dispatches=MCM_FRAMES, ms_per_dispatch=ms / MCM_FRAMES), b)
+        log(f"# K20 ({label}) == plain bit for bit over 2 dispatches ({tuple(sk.px.shape)} lanes, "
+            f"{int(sk.samples.sum())} samples), K21 == plain; a launch of {MCM_FRAMES} dispatches "
+            f"{ms:.5f} ms kernel ({ms / MCM_FRAMES:.5f} per dispatch), plain {plain_ms:.4f} ms; "
+            f"{b['lookups']} lookups, {b['escapes']} escapes, {b['respawns']} paths; bound "
+            f"{b['bound_ms']:.5f} ms by {b['bound_by']} ({b['bound_bytes']} B, "
+            f"{b['bound_ops']} FP32 ops), share {b['bound_share']:.3f}")
+        if label in ("u8", "lane_table"):
+            n = s0.px.numel()
+            k21_ms = device_ms(lambda: KM.reset(ctx, RES, dev, lanes))
+            k21_plain_ms = cuda_ms(lambda: KM.reset_plain(ctx, RES, dev, lanes), 2)
+            # K21 writes the 14 state words of each lane (and reads the lane
+            # table); one camera ray per lane
+            kb = bound(14 * 4 * n + 2 * 4 * n * (lanes is not None), n * (OPS_MCM_RESPAWN - 10),
+                       k21_ms)
+            rname = "mcm_reset" if label == "u8" else "mcm_reset[lane_table]"
+            entries[rname] = kernel_line(dict(
+                name=rname, route="cuda", source=MCM_SOURCE,
+                replaces=("vpt_tpu/models/mcm_compact.py:33" if compaction
+                          else "vpt_tpu/models/mcm.py:94"), max_abs_err=0.0, ms=k21_ms,
+                plain_ms=k21_plain_ms), kb)
+            log(f"# K21 ({label}): device {k21_ms:.5f} ms kernel, plain {k21_plain_ms:.4f} ms; "
+                f"bound {kb['bound_ms']:.5f} ms by {kb['bound_by']}, share "
+                f"{kb['bound_share']:.3f}")
+        if compaction:
+            # K8 on the RGB state: the three channels as bins, one stream
+            rad = torch.stack([sk.rr, sk.rg, sk.rb])
+            a = KS.compact_radiance(rad, t["pixel_hit"], t["miss"], t["n_hit"], 1)
+            p = KS.compact_radiance_plain(rad, t["pixel_hit"], t["miss"], t["n_hit"], 1)
+            torch.cuda.synchronize()
+            if not torch.equal(a.view(torch.int32), p.view(torch.int32)):
+                raise AssertionError(f"K8 on the RGB state != plain on {int((a != p).sum())} "
+                                     "values")
+            k8_ms = device_ms(lambda: KS.compact_radiance(rad, t["pixel_hit"], t["miss"],
+                                                          t["n_hit"], 1))
+            k8_plain_ms = cuda_ms(lambda: KS.compact_radiance_plain(rad, t["pixel_hit"], t["miss"],
+                                                                    t["n_hit"], 1), 10)
+            n_pix, n_hit = RES * RES, t["n_hit"]
+            k8b = bound(3 * (n_hit + 2 * n_pix) * 4 + n_pix * 4, 3 * n_hit, k8_ms)
+            entries["compact_image[rgb]"] = kernel_line(dict(
+                name="compact_image[rgb]", route="cuda", source=SOURCE,
+                replaces="vpt_tpu/models/mcm_compact.py:79", max_abs_err=0.0, ms=k8_ms,
+                plain_ms=k8_plain_ms), k8b)
+            log(f"# K8 on the RGB state ({n_hit} hit pixels): equal to plain bit for bit; device "
+                f"{k8_ms:.5f} ms kernel vs {k8_plain_ms:.4f} ms plain; bound "
+                f"{k8b['bound_ms']:.5f} ms, share {k8b['bound_share']:.3f}")
+            # compacted hit pixels against the full render, same seeds
+            full = mcm_renderer(vol, env, pack, False, dev)
+            seeds = [(k + 1) * 2654435761 % 2**32 for k in range(10)]
+            i_full = full.render_many(full.reset(cam, seeds[0]), cam, seeds)[1]
+            i_comp = r.render_many(r.reset(cam, seeds[0]), cam, seeds)[1]
+            torch.cuda.synchronize()
+            hit = t["hit"]
+            if not torch.equal(i_comp[hit], i_full[hit]):
+                raise AssertionError("compacted hit pixels differ from the full render")
+            log(f"# compaction: the compacted render's {n_hit} hit pixels equal the full "
+                "render's bit for bit over 10 dispatches")
+            del full
+        del r, s0, s0b, sp, sk, sk2, st_k, st_p
+        # the mode's session: one K21 and one K20 launch per reset + run
+        launches, img, dt, metrics = mcm_session(dev, vol, env, pack, compaction, MCM_FRAMES)
+        modes = {"raw": ("step_raw",), "nearest": ("step_raw",),
+                 "quasicubic": ("step_quasicubic",), "environment": ("step_environment",),
+                 "lane_table": ("step_environment", "step_lane_table", "reset_lane_table",
+                                "compact_radiance")}.get(label, ())
+        want = dict(step=1, reset=1, **{k: 1 for k in modes})
+        if any(launches[k] != v for k, v in want.items()):
+            raise AssertionError(f"RenderSession('mcm', {label}).run({MCM_FRAMES}) launched "
+                                 f"{launches}")
+        if img.shape != (RES, RES, 3) or not np.isfinite(img).all() or not img.any():
+            raise AssertionError(f"mcm {label}: image {img.shape} empty or not finite")
+        entries[name]["launches"] = launches["step"]
+        if label == "u8":
+            entries["mcm_reset"]["launches"] = launches["reset"]
+        if compaction:
+            entries["mcm_reset[lane_table]"]["launches"] = launches["reset_lane_table"]
+            entries["compact_image[rgb]"]["launches"] = launches["compact_radiance"]
+        sessions[label] = dict(launches=launches, seconds=dt, frames_per_s=MCM_FRAMES / dt,
+                               metrics=metrics)
+        log(f"# RenderSession('mcm', {label}).run({MCM_FRAMES}) at {RES}^2: {dt:.4f} s "
+            f"({MCM_FRAMES / dt:.1f} frames/s, {metrics['paths'] / dt / 1e6:.3f} Mpaths/s); "
+            f"launches {launches}")
+        if label == "u8":
+            with tempfile.TemporaryDirectory() as tmp:
+                _, img2, _, _ = mcm_session(dev, vol, env, pack, compaction, MCM_FRAMES)
+                _, img3, _, _ = mcm_session(dev, vol, env, pack, compaction, MCM_FRAMES,
+                                            checkpoint_at=MCM_FRAMES // 2, tmp=tmp)
+            for other, what in ((img2, "a second run"), (img3, "a checkpoint round trip")):
+                if not np.array_equal(img.view(np.int32), other.view(np.int32)):
+                    raise AssertionError(f"mcm: {what} differs from the first run")
+            prof = mcm_profile()
+            seen = prof["kernels"].get("mcm_step_kernel", {}).get("launches", 0) * MCM_FRAMES
+            if seen != 1:
+                raise AssertionError(f"mcm: the profiler saw {seen * 4:g} of 4 K20 launches")
+            frame_ms = dt * 1e3 / MCM_FRAMES
+            sessions[label].update(profile=prof, device_busy_share=prof["device_ms"] / frame_ms)
+            log(f"# mcm: a second run and a checkpoint round trip equal bit for bit; profiled "
+                f"4 x run({MCM_FRAMES}) per frame (a fresh process): device "
+                f"{prof['device_ms']:.5f} ms of {frame_ms:.5f} ms unprofiled (busy "
+                f"{prof['device_ms'] / frame_ms:.3f}; profiled host "
+                f"{prof['profiled_host_ms']:.5f} ms); " + ", ".join(
+                    f"{k} {v['ms']:.5f} ms x{v['launches']:g}" for k, v in prof["kernels"].items()))
+        torch.cuda.empty_cache()
+    log(f"# phase 21 (RGB MCM): {time.perf_counter() - t_phase:.1f} s")
+    return list(entries.values()), sessions
+
+
 def launch_counts():
     from vpt_tpu_torch.kernels import corners as C
     from vpt_tpu_torch.kernels import mcm_spectral as K
@@ -3365,6 +3743,7 @@ def main():
     torch.cuda.empty_cache()
     rm_kernels, rm_sessions = phase_raymarch(dev)
     eam_kernels, eam_fits = phase_eam_fit(dev)
+    mcm_kernels, mcm_sessions = phase_mcm(dev)
     foreign = sorted(k for k in sys.modules
                      if k in ("jax", "vpt_tpu") or k.startswith(("jax.", "vpt_tpu.")))
     if foreign:
@@ -3403,7 +3782,7 @@ def main():
     kernels = [k1, k2, k4, k5, k6, k7, k9, k10, k11, k1_maj, k1_modes["environment"],
                k1_modes["quasicubic"], *compact_kernels, k4_sur, k12, k1_xy, *k4_modes.values(),
                *k5_modes.values(), *corner_modes.values(), *sur_modes.values(), k1_raw, k13,
-               k14, *rm_kernels, *eam_kernels]
+               k14, *rm_kernels, *eam_kernels, *mcm_kernels]
     missing = [k["name"] for k in kernels + [k3, k3_xy, k3_raw]
                if not {"bound_ms", "bound_by", "library_ms", "launches", "ms", "plain_ms",
                        "max_abs_err"} <= set(k)]
@@ -3421,6 +3800,7 @@ def main():
               "majorant_path": sparse, "mode_sessions": mode_rates, "compaction": compact,
               "cli": cli, "surrogate": {"twin_on_card": twin, "autodiff_fit": autodiff},
               "raymarch_sessions": rm_sessions, "eam_training": eam_fits,
+              "mcm_sessions": mcm_sessions,
               "ptxas": ptxas, "gpu": smi}
     log(json.dumps(result))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -56,7 +56,8 @@ def test_library_names_separate_directories():
 def test_sources_of_each_directory():
     assert set(_build._sources()) == set(_build._SIGNATURES)
     assert set(_build._SIGNATURES) == {"mcm_spectral", "spectral_backward", "corners",
-                                       "gather_bench", "surrogate", "raw_backward", "raymarch"}
+                                       "gather_bench", "surrogate", "raw_backward", "raymarch",
+                                       "mcm"}
 
 
 RAYMARCH_LOG = """== raymarch.cu
@@ -80,3 +81,22 @@ def test_ptxas_table_reads_the_ray_march_kernels():
                                                 ("iso_shade_kernel", "", 56, 0, 0, 0),
                                                 ("iso_kernel", "", 40, 0, 0, 0),
                                                 ("mip_kernel", "", 48, 0, 0, 0)]
+
+
+MCM_LOG = """== mcm.cu
+ptxas info    : Compiling entry function '_ZN46_GLOBAL__N__6a7b8c9d_6_mcm_cu_1f2e3d4c15mcm_step_kernelENS_9McmParamsENS_8McmStateEPKvPKfS6_PKjS8_S8_' for 'sm_90a'
+ptxas info    : Function properties for _ZN46_GLOBAL__N__6a7b8c9d_6_mcm_cu_1f2e3d4c15mcm_step_kernelENS_9McmParamsENS_8McmStateEPKvPKfS6_PKjS8_S8_
+    16 bytes stack frame, 4 bytes spill stores, 4 bytes spill loads
+ptxas info    : Used 64 registers, used 0 barriers, 16 bytes cumulative stack size
+ptxas info    : Compiling entry function '_ZN46_GLOBAL__N__6a7b8c9d_6_mcm_cu_1f2e3d4c16mcm_reset_kernelENS_9McmParamsEjNS_8McmStateEPKjS4_' for 'sm_90a'
+ptxas info    : Function properties for _ZN46_GLOBAL__N__6a7b8c9d_6_mcm_cu_1f2e3d4c16mcm_reset_kernelENS_9McmParamsEjNS_8McmStateEPKjS4_
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 40 registers, used 0 barriers
+"""
+
+
+def test_ptxas_table_reads_the_rgb_mcm_kernels():
+    """K20 and K21 (csrc/mcm.cu) are untemplated: their rows carry no
+    template arguments, and K1's name inside K20's does not match."""
+    assert _build.ptxas_table(MCM_LOG) == [("mcm_step_kernel", "", 64, 4, 4, 16),
+                                           ("mcm_reset_kernel", "", 40, 0, 0, 0)]

@@ -21,8 +21,8 @@ def _run(capsys, argv):
 
 
 def test_renderers_and_tonemappers_lists(capsys):
-    assert _run(capsys, ["renderers"]).out.split() == ["depth", "eam", "iso", "mcm-spectral",
-                                                       "mip"]
+    assert _run(capsys, ["renderers"]).out.split() == ["depth", "eam", "iso", "mcm",
+                                                       "mcm-spectral", "mip"]
     out = _run(capsys, ["tonemappers"]).out
     for key in ("artistic", "reinhard", "aces", "uchimura", "lottes"):
         assert key in out
@@ -111,7 +111,8 @@ def test_invert_eam_matches_jax(tmp_path, capsys):
 @pytest.mark.parametrize("argv,names", [
     (["invert", "--spectral", "--renderer", "eam"], "eam"),
     (["render", "--devices", "2"], "--devices"),
-    (["render", "--renderer", "mcm"], "mcm"),
+    # mcm is ported; the id stays, the case now checks the unported mcs
+    pytest.param(["render", "--renderer", "mcs"], "'mcs'", id="argv2-mcm"),
 ])
 def test_exits_name_what_is_not_ported(argv, names, tmp_path, capsys):
     with pytest.raises(SystemExit) as e:

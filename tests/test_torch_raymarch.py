@@ -421,9 +421,10 @@ def test_cli_renders_each_ray_marcher(key, tmp_path, capsys):
     assert metrics["frames"] == 2 and metrics["device"] == "cpu" and "paths" not in metrics
 
 
-def test_cli_lists_five_renderers(capsys):
+def test_cli_lists_the_ported_renderers(capsys):
     cli_main(["renderers"])
-    assert capsys.readouterr().out.split() == ["depth", "eam", "iso", "mcm-spectral", "mip"]
+    assert capsys.readouterr().out.split() == ["depth", "eam", "iso", "mcm", "mcm-spectral",
+                                               "mip"]
 
 
 @pytest.mark.parametrize("argv,message", [

@@ -15,11 +15,13 @@ Subcommands:
   invert      inverse rendering: EAM density recovery (fit_density), or
               spectral MCM with --spectral --method prb|autodiff
 
-``render`` and ``animate`` take ``--renderer mcm-spectral`` (the default)
-or one of the ray marchers ``eam``, ``mip``, ``iso``, ``depth``, built as
-``vpt_tpu/cli.py`` builds them (EAM with ``--extinction``, the others
-with their defaults). ``--compaction`` is for ``mcm-spectral`` (and the
-unported ``mcm``) only.
+``render`` and ``animate`` take ``--renderer mcm-spectral`` (the default),
+the RGB renderer ``mcm`` or one of the ray marchers ``eam``, ``mip``,
+``iso``, ``depth``, built as ``vpt_tpu/cli.py`` builds them (``mcm`` with
+``--envmap``, ``--compaction``, ``--extinction``, ``--bounces`` and
+``--steps`` and the grayscale ramp TF; EAM with ``--extinction``; the
+others with their defaults). ``--compaction`` is for ``mcm-spectral`` and
+``mcm`` only.
 
 ``invert`` without ``--spectral`` recovers the volume's density from
 ``--views`` orbit renders by EAM (``optim.fit_density``), as
@@ -115,13 +117,13 @@ def _check_devices(args):
 
 
 def _check_render_ported(args):
-    """``render`` / ``animate``: mcm-spectral and the ray marchers."""
+    """``render`` / ``animate``: mcm-spectral, mcm and the ray marchers."""
     key = args.renderer
     if args.compaction and key not in ("mcm-spectral", "mcm"):
         raise SystemExit(f"--compaction is supported by mcm-spectral and mcm, not {key!r}")
-    if key != "mcm-spectral" and key not in RAY_MARCHERS:
+    if key not in ("mcm-spectral", "mcm") and key not in RAY_MARCHERS:
         raise SystemExit(f"renderer {key!r} is not ported to vpt_tpu_torch yet "
-                         f"(ported: mcm-spectral, {', '.join(RAY_MARCHERS)})")
+                         f"(ported: mcm-spectral, mcm, {', '.join(RAY_MARCHERS)})")
     _check_devices(args)
 
 
@@ -135,7 +137,7 @@ def _check_invert_ported(args):
 
 def _make_session(args):
     from vpt_tpu_torch.scene.camera import OrbitController
-    from vpt_tpu_torch.utils.config import (EAMConfig, LightConfig, MaterialTF,
+    from vpt_tpu_torch.utils.config import (EAMConfig, LightConfig, MaterialTF, MCMConfig,
                                             MCMSpectralConfig, SpectrumConfig)
     from vpt_tpu_torch.session import RenderSession
 
@@ -145,7 +147,12 @@ def _make_session(args):
     key = args.renderer
     common = dict(device=device, tonemapper=args.tonemapper, resolution=args.resolution,
                   base_seed=args.seed)
-    if key == "eam":
+    if key == "mcm":
+        sess = RenderSession(key, volume, None, _load_envmap(args),
+                             MCMConfig(extinction=args.extinction, bounces=args.bounces,
+                                       steps=args.steps),
+                             compaction=args.compaction, **common)
+    elif key == "eam":
         sess = RenderSession(key, volume, None, EAMConfig(extinction=args.extinction), **common)
     elif key in RAY_MARCHERS:
         sess = RenderSession(key, volume, **common)

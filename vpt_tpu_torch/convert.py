@@ -8,11 +8,15 @@ packed adjoints and raw-table gradients cross with ``adjoints_from_numpy``
 and ``grads_to_numpy``.
 
 The ray-march renderers' dict states cross with
-``raymarch_state_from_numpy`` and ``raymarch_state_to_numpy``.
+``raymarch_state_from_numpy`` and ``raymarch_state_to_numpy``; the RGB MCM
+renderer's state with ``mcm_state_from_numpy`` and ``mcm_state_to_numpy``
+and its ``MCMCtx`` with ``mcm_ctx_from_numpy`` (the environment a raw
+(He, We, 3) array, as the JAX renderer keeps it).
 
 The scene and config objects cross the same way: ``camera_from``,
 ``volume_from``, ``light_from``, ``material_from``, ``spectrum_from``,
-``mcm_spectral_config_from``, ``eam_config_from`` and ``tf2d_from`` build
+``mcm_spectral_config_from``, ``mcm_config_from``, ``eam_config_from`` and
+``tf2d_from`` build
 the port's own types
 (``vpt_tpu_torch.scene``, ``vpt_tpu_torch.utils.config``) from any object
 with the JAX package's fields, reading only plain values and numpy arrays;
@@ -27,13 +31,14 @@ import json
 import numpy as np
 import torch
 
+from vpt_tpu_torch.models.mcm import MCMCtx, MCMState
 from vpt_tpu_torch.models.mcm_spectral import SpectralCtx, SpectralState
 from vpt_tpu_torch.ops.interp import PackedVolume
 from vpt_tpu_torch.scene.camera import Camera
 from vpt_tpu_torch.scene.tf import TransferFunction2D
 from vpt_tpu_torch.scene.volume import Volume
-from vpt_tpu_torch.utils.config import (EAMConfig, LightConfig, MaterialTF, MCMSpectralConfig,
-                                        SpectrumConfig)
+from vpt_tpu_torch.utils.config import (EAMConfig, LightConfig, MaterialTF, MCMConfig,
+                                        MCMSpectralConfig, SpectrumConfig)
 
 
 def state_from_numpy(fields: dict, device) -> SpectralState:
@@ -115,6 +120,58 @@ def ctx_from_numpy(*, inv_mvp, seed_bits, extinction, blur, max_bounces,
     )
 
 
+def mcm_state_from_numpy(fields: dict, device) -> MCMState:
+    """``MCMState`` from numpy arrays keyed by the JAX ``PhotonState``'s
+    field names."""
+    names = MCMState.field_names()
+    missing = set(names) - set(fields)
+    if missing:
+        raise KeyError(f"missing state fields: {sorted(missing)}")
+    return MCMState(**{k: torch.as_tensor(np.array(fields[k]), device=device) for k in names})
+
+
+def mcm_state_to_numpy(state: MCMState) -> dict:
+    """The RGB state's tensors as numpy arrays keyed by field name."""
+    return {k: t.cpu().numpy() for k, t in zip(state.field_names(), state.tensors())}
+
+
+def mcm_ctx_from_numpy(*, inv_mvp, seed_bits, extinction, blur, anisotropy, max_bounces,
+                       density_table, density_dims=None, tf_table, environment,
+                       volume_filter="linear", device) -> MCMCtx:
+    """The port's ``MCMCtx`` from the arrays of a JAX ``MCMCtx``: the
+    volume a flat full table (``density_table`` (rows, 8) + ``density_dims``)
+    or the natural (D+1, H+1, W+1, 8) array (``density_dims`` None), else a
+    raw (D, H, W) grid; ``tf_table`` the packed (257, 257, 16) or raw
+    (256, 256, 4) TF; ``environment`` the raw (He, We, 3) map;
+    ``volume_filter`` the JAX render functions' static argument."""
+
+    def dev(a):
+        return torch.as_tensor(np.array(a), device=device)
+
+    density_table = np.asarray(density_table)
+    if density_table.ndim == 3 and density_dims is None:
+        density = dev(np.asarray(density_table, np.float32))
+    else:
+        if density_table.ndim == 4:
+            density_dims = density_table.shape[:3]
+            density_table = density_table.reshape(-1, density_table.shape[-1])
+        elif density_dims is None:
+            raise ValueError("a flat density table needs density_dims")
+        density = PackedVolume(dev(density_table), tuple(density_dims), "full")
+    return MCMCtx(
+        inv_mvp=np.asarray(inv_mvp, np.float32),
+        seed_bits=int(np.asarray(seed_bits).astype(np.uint32)),
+        extinction=np.float32(extinction),
+        blur=np.float32(blur),
+        anisotropy=np.float32(anisotropy),
+        max_bounces=int(max_bounces),
+        density=density,
+        tf_table=dev(np.asarray(tf_table, np.float32)),
+        environment=dev(np.asarray(environment, np.float32)),
+        volume_filter=str(volume_filter),
+    )
+
+
 def raymarch_state_from_numpy(fields: dict, device) -> dict:
     """A ray-march renderer's state (EAM: acc, frame; MIP: acc; ISO: cx,
     cy, cz, ct; Depth: frame) from numpy arrays keyed as the JAX state."""
@@ -173,6 +230,12 @@ def mcm_spectral_config_from(config) -> MCMSpectralConfig:
                              steps=int(config.steps), blur=float(config.blur))
 
 
+def mcm_config_from(config) -> MCMConfig:
+    return MCMConfig(extinction=float(config.extinction), anisotropy=float(config.anisotropy),
+                     bounces=int(config.bounces), steps=int(config.steps),
+                     blur=float(config.blur))
+
+
 def eam_config_from(config) -> EAMConfig:
     return EAMConfig(extinction=float(config.extinction), slices=int(config.slices),
                      random_offset=bool(config.random_offset))
@@ -187,14 +250,15 @@ def tf2d_from(tf2d) -> TransferFunction2D:
 
 _BY_TYPE = {"Camera": camera_from, "Volume": volume_from, "LightConfig": light_from,
             "MaterialTF": material_from, "SpectrumConfig": spectrum_from,
-            "MCMSpectralConfig": mcm_spectral_config_from, "EAMConfig": eam_config_from,
+            "MCMSpectralConfig": mcm_spectral_config_from, "MCMConfig": mcm_config_from,
+            "EAMConfig": eam_config_from,
             "TransferFunction2D": tf2d_from}
 
 
 def scene_from(*objects):
     """The port's counterpart of each scene or config object, by its type
     name (Camera, Volume, LightConfig, MaterialTF, SpectrumConfig,
-    MCMSpectralConfig, EAMConfig, TransferFunction2D); one object gives one
+    MCMSpectralConfig, MCMConfig, EAMConfig, TransferFunction2D); one object gives one
     result, several a tuple."""
     out = []
     for obj in objects:

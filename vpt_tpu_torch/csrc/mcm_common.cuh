@@ -1,6 +1,8 @@
 // Device code shared by the spectral MCM forward (mcm_spectral.cu) and the
 // packed-adjoint backward (spectral_backward.cu): the parameter block, the
 // hash chain and draws, the packed-table lookups, and one Woodcock step.
+// The ray marchers (raymarch.cu) and the RGB MCM kernels (mcm.cu) use its
+// draws, samplers, camera ray and the classic TF's RGBA (sample_rgba).
 //
 // Both kernels run the SAME step function, so the taped forward of the
 // backward leaves a state bit-identical to the forward step kernel's: the
@@ -461,6 +463,36 @@ __device__ __forceinline__ float sample_light_any(const float* tf, const float* 
   return lerp(__ldg(light + i0), __ldg(light + i1), f);
 }
 
+// RGBA of the classic 2D TF at (x, 0), interp.sample_tex2d's lerps: one
+// 16-wide packed corner row (four float4) of a (Hp, Wp, 16) table, or with
+// `raw` four float4 texels of the raw (H, W, 4) texture given as (Hp, Wp) =
+// (H+1, W+1), the columns max(bx - 1, 0) and min(bx, W - 1) of the raw axis
+// (raw_axis), so both layouts give the same bits
+__device__ __forceinline__ float4 sample_rgba(const float* __restrict__ tf, bool raw, int Hp,
+                                              int Wp, float x) {
+  int bx, by;
+  float fx, fy;
+  base_frac(x, Wp - 1, bx, fx);
+  base_frac(0.0f, Hp - 1, by, fy);
+  float4 k00, k01, k10, k11;
+  if (raw) {
+    const int W = Wp - 1, x0 = max(bx - 1, 0), x1 = min(bx, W - 1);
+    const int y0 = max(by - 1, 0), y1 = min(by, Hp - 2);
+    const float4* t = reinterpret_cast<const float4*>(tf);
+    k00 = __ldg(t + (int64_t)y0 * W + x0); k01 = __ldg(t + (int64_t)y0 * W + x1);
+    k10 = __ldg(t + (int64_t)y1 * W + x0); k11 = __ldg(t + (int64_t)y1 * W + x1);
+  } else {
+    const float4* r = reinterpret_cast<const float4*>(tf + ((int64_t)by * Wp + bx) * 16);
+    k00 = __ldg(r); k01 = __ldg(r + 1); k10 = __ldg(r + 2); k11 = __ldg(r + 3);
+  }
+  float4 o;
+  o.x = lerp(lerp(k00.x, k01.x, fx), lerp(k10.x, k11.x, fx), fy);
+  o.y = lerp(lerp(k00.y, k01.y, fx), lerp(k10.y, k11.y, fx), fy);
+  o.z = lerp(lerp(k00.z, k01.z, fx), lerp(k10.z, k11.z, fx), fy);
+  o.w = lerp(lerp(k00.w, k01.w, fx), lerp(k10.w, k11.w, fx), fy);
+  return o;
+}
+
 // where an escape's environment lookup read: its 12-wide row, fractions
 // and the wavelength's channel (band)
 struct EnvAddr {
@@ -548,25 +580,24 @@ __device__ __forceinline__ void draw_disk(uint32_t& s, float& ox, float& oy) {
   oy = radius * sinf(angle);
 }
 
-// PhotonSpectral_reset: new camera ray + hero wavelength, from the lens
-// disk point (ox, oy) already drawn.
-// Draw order: disk(2) + square(2) inside unprojectRand, then wavelength(1).
-__device__ Ray respawn_from_disk(uint32_t& s, float ox, float oy, float sx, float sy,
-                                 const Params& P) {
-  const float* f = P.f;
-  const float near_x = sx + ox * f[F_BLUR];
-  const float near_y = sy + oy * f[F_BLUR];
+// resetPhoton's camera ray (unprojectRand, normalize, the cube's entry
+// clamped at 0) from the lens disk point (ox, oy) already drawn; draws the
+// far-plane square (2). Fills r's position and direction.
+__device__ __forceinline__ void camera_ray_from_disk(uint32_t& s, float ox, float oy, float sx,
+                                                     float sy, const float* inv_mvp, float blur,
+                                                     float inv_res, Ray& r) {
+  const float near_x = sx + ox * blur;
+  const float near_y = sy + oy * blur;
   const float ax = draw(s);
   const float ay = draw(s);
-  const float far_x = sx + (ax * 2.0f - 1.0f) * f[F_INV_RES];
-  const float far_y = sy + (ay * 2.0f - 1.0f) * f[F_INV_RES];
+  const float far_x = sx + (ax * 2.0f - 1.0f) * inv_res;
+  const float far_y = sy + (ay * 2.0f - 1.0f) * inv_res;
   float fx, fy, fz, tx, ty, tz;
-  apply_homogeneous(f + F_INV_MVP, near_x, near_y, -1.0f, fx, fy, fz);
-  apply_homogeneous(f + F_INV_MVP, far_x, far_y, 1.0f, tx, ty, tz);
+  apply_homogeneous(inv_mvp, near_x, near_y, -1.0f, fx, fy, fz);
+  apply_homogeneous(inv_mvp, far_x, far_y, 1.0f, tx, ty, tz);
   const float vx = tx - fx, vy = ty - fy, vz = tz - fz;
   // __frcp_rn(x) is 1.0f / x, correctly rounded, for every x
   const float inv = __frcp_rn(sqrtf(vx * vx + vy * vy + vz * vz));
-  Ray r;
   r.dx = vx * inv;
   r.dy = vy * inv;
   r.dz = vz * inv;
@@ -578,6 +609,16 @@ __device__ Ray respawn_from_disk(uint32_t& s, float ox, float oy, float sx, floa
   r.px = fx + tnear * r.dx;
   r.py = fy + tnear * r.dy;
   r.pz = fz + tnear * r.dz;
+}
+
+// PhotonSpectral_reset: new camera ray + hero wavelength, from the lens
+// disk point (ox, oy) already drawn.
+// Draw order: disk(2) + square(2) inside unprojectRand, then wavelength(1).
+__device__ Ray respawn_from_disk(uint32_t& s, float ox, float oy, float sx, float sy,
+                                 const Params& P) {
+  const float* f = P.f;
+  Ray r;
+  camera_ray_from_disk(s, ox, oy, sx, sy, f + F_INV_MVP, f[F_BLUR], f[F_INV_RES], r);
   const float u = draw(s);
   r.lam = u * f[F_LAM_SPAN] + f[F_LAM_LO];
   int b = 0;

@@ -31,8 +31,8 @@
 // corner table (u8 or f32, linear or quasicubic) or a raw (D, H, W) f32 grid
 // (also nearest), read through mcm_common.cuh's samplers; the classic 2D TF
 // is a packed (257, 257, 16) corner table or the raw (256, 256, 4) texture,
-// read at (density, 0) by sample_rgba below. K19 takes the raw grid and the
-// raw TF only (what fit_density learns).
+// read at (density, 0) by mcm_common.cuh's sample_rgba. K19 takes the raw
+// grid and the raw TF only (what fit_density learns).
 //
 // What bounds them on this card. Per sample a thread does one random
 // volume lookup (an 8-byte u8 or 32-byte f32 row, or 8 scalar loads of a
@@ -124,40 +124,17 @@ __device__ __forceinline__ float march_density(const void* vol, const March& P, 
                        w, nullptr, P.i[RI_QUASICUBIC] != 0, false);
 }
 
-// RGBA of the classic TF at (x, 0), interp.sample_tex2d's lerps: one 16-wide
-// packed corner row (four float4), or four float4 texels of the raw (H, W, 4)
-// texture, the columns max(bx - 1, 0) and min(bx, W - 1) of the raw axis
-// (mcm_common.cuh raw_axis), so both layouts give the same bits
-__device__ __forceinline__ float4 sample_rgba(const float* __restrict__ tf, const March& P,
-                                              float x) {
-  const int Hp = P.i[RI_TF_H], Wp = P.i[RI_TF_W];
-  int bx, by;
-  float fx, fy;
-  base_frac(x, Wp - 1, bx, fx);
-  base_frac(0.0f, Hp - 1, by, fy);
-  float4 k00, k01, k10, k11;
-  if (P.i[RI_TF_RAW] != 0) {
-    const int W = Wp - 1, x0 = max(bx - 1, 0), x1 = min(bx, W - 1);
-    const int y0 = max(by - 1, 0), y1 = min(by, Hp - 2);
-    const float4* t = reinterpret_cast<const float4*>(tf);
-    k00 = __ldg(t + (int64_t)y0 * W + x0); k01 = __ldg(t + (int64_t)y0 * W + x1);
-    k10 = __ldg(t + (int64_t)y1 * W + x0); k11 = __ldg(t + (int64_t)y1 * W + x1);
-  } else {
-    const float4* r = reinterpret_cast<const float4*>(tf + ((int64_t)by * Wp + bx) * 16);
-    k00 = __ldg(r); k01 = __ldg(r + 1); k10 = __ldg(r + 2); k11 = __ldg(r + 3);
-  }
-  float4 o;
-  o.x = lerp(lerp(k00.x, k01.x, fx), lerp(k10.x, k11.x, fx), fy);
-  o.y = lerp(lerp(k00.y, k01.y, fx), lerp(k10.y, k11.y, fx), fy);
-  o.z = lerp(lerp(k00.z, k01.z, fx), lerp(k10.z, k11.z, fx), fy);
-  o.w = lerp(lerp(k00.w, k01.w, fx), lerp(k10.w, k11.w, fx), fy);
-  return o;
+// the classic TF's RGBA at (x, 0) in the layout P names (mcm_common.cuh
+// sample_rgba: one packed row or four raw texels, the same bits)
+__device__ __forceinline__ float4 march_rgba(const float* __restrict__ tf, const March& P,
+                                             float x) {
+  return sample_rgba(tf, P.i[RI_TF_RAW] != 0, P.i[RI_TF_H], P.i[RI_TF_W], x);
 }
 
 // raymarch.sample_tf: the volume density at a point, then its TF RGBA
 __device__ __forceinline__ float4 sample_point(const void* vol, const float* tf, const March& P,
                                                float x, float y, float z) {
-  return sample_rgba(tf, P, march_density(vol, P, x, y, z));
+  return march_rgba(tf, P, march_density(vol, P, x, y, z));
 }
 
 // A pixel's ray clamped to the cube: camera_rays + ray_bounds + the entry
@@ -471,7 +448,7 @@ __device__ __forceinline__ void eam_backward_pixel(const March& P, const float* 
     if (!(t < 1.0f) || !(aa < 0.99f)) break;
     const float d = march_density(vol, P, lerp(r.nx, r.xx, t), lerp(r.ny, r.xy, t),
                                   lerp(r.nz, r.xz, t));
-    const float4 c = sample_rgba(tf, P, d);
+    const float4 c = march_rgba(tf, P, d);
     tape[n] = make_float2(aa, d);
     const float w = (1.0f - aa) * (c.w * rsl * ext);
     ar = ar + w * c.x;
