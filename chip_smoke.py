@@ -7,7 +7,7 @@ Phases (each raises on failure, so any failure exits non-zero):
   2. build the kernels of vpt_tpu_torch/csrc with nvcc (sm_90a, one nvcc
      per source, all at once); print the ptxas registers, spills and
      stack frame of every instantiation of K1, K4 (and its surrogate
-     mode), K5, K9, K10, K11, K12, K13, K14 and K15-K21
+     mode), K5, K9, K10, K11, K12, K13, K14 and K15-K22
   3. sample_volume_packed vs its plain version: all 256 u8 codes exact;
      timed at 1M lookups by device time (CUDA-graph replay) against
      F.grid_sample on the float volume, host path beside it
@@ -149,6 +149,25 @@ Phases (each raises on failure, so any failure exits non-zero):
      four run(16) calls profiled in a fresh process (every K20 launch
      seen; the device busy share). Phase 14 also runs `render
      --renderer mcm --envmap <npy> --compaction`.
+ 22. the single-scattering renderer MCS (K22 mcs_frames) on BASELINE config
+     2's MCS tier (sphere_in_cube(128), u8; 512^2; extinction 50; the
+     frustum-filling camera at z = 1.2; 16 frames a launch): K22 equal to
+     its plain version bit for bit (acc and the frame count), two runs
+     identical, over 2 frames from a running mean at frame 3 on the u8
+     packed table, an f32 packed table, quasicubic, nearest over the raw
+     grid, phase 12's environment map, majorant_blocks=8 and
+     max_collisions=16 (the cap binds); the main scene's 16-frame launch,
+     exact and majorant, from a zero state, bit for bit against the plain
+     version and a replay of it, timed by device time (CUDA-graph replay)
+     against the replay's bound (acc once, each volume entry, majorant cell
+     and env texel touched once, the TF's row 0; the replayed trips' and
+     lookups' operations), with the trips per lane and frame (mean, p99,
+     max) and what a warp and the reference's lockstep frames pay; a
+     RenderSession per mode, reset() and run(16) with the counts set to 0
+     before (one K22 launch and nothing else of the port's kernels); on the
+     default a second run and a checkpoint round trip bit for bit and four
+     run(16) calls profiled in a fresh process (the device busy share).
+     Phase 14 also runs `render --renderer mcs`.
 The line before the last is a JSON object with each kernel's launches,
 error and times, its bound (the larger of the bytes it must move over the
 HBM rate and the FP32 operations this run's data needs over the FP32
@@ -163,6 +182,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import select
 import subprocess
 import sys
 import tempfile
@@ -275,6 +295,39 @@ MCM_FRAMES = 16
 # and with |g| >= 1e-5 the HG cosine and frame (30, none at the phase's g = 0)
 OPS_MCM_STEP, OPS_MCM_LOOKUP, OPS_MCM_RESPAWN, OPS_MCM_ESCAPE, OPS_MCM_SCATTER = (
     28, 85, 134, 47, 23)
+
+MCS_SOURCE = "vpt_tpu_torch/csrc/mcs.cu"
+# phase 22, the single-scattering renderer MCS on BASELINE config 2's MCS tier
+# (tools/capability_configs.py:80-112): sphere_in_cube(128) (u8), R = 512,
+# extinction 50, the frustum-filling camera at z = 1.2, 16 frames a launch,
+# exact and with majorant_blocks=8; JAX's grayscale ramp TF, the white env
+MCS_EXTINCTION, MCS_FRAMES, MCS_BLOCKS = 50.0, 16, 8
+# FP32 operations that K22's function needs, counted from csrc/mcs.cu (work
+# the kernel repeats or the compiler drops is not charged): per pixel and
+# launch the camera ray (two homogeneous transforms, 31 each), the slab test
+# (24), the entry and exit (12), the segment's length and divisor (7), the
+# view direction (13) and its environment (the equirect coordinates 9, 2 axes
+# 8, 9 lerps 27), the uv (4): 166; per lane and frame the running mean (13);
+# per frame the light, one environment sample at the scattering direction
+# (44); per trip of either loop the flight (a uniform, log, the negation, the
+# quotient, the add, the escape compare: 7), with the majorant 13 more (3
+# cells of a product, floor and conversion, the floor at 1e-12, the rate, the
+# cap's compare and min); the point at a distance (the fraction and 3 lerps:
+# 10), charged per lookup and per majorant trip whose starting point no
+# earlier trip computed (one after a capped trip; the entry point is known);
+# per lookup the volume row (3 axes of 4, 8 u8 dequantizations, 7 lerps: 41)
+# and the TF's alpha at (density, 0) (one axis and one lerp: 7; row 0 at v =
+# 0 is mixed with itself, and the loops read alpha only), then the
+# acceptance (a uniform and the compare: 3) or the transmittance product
+# (2), with the majorant alpha / m and its min (2); per collision shaded the
+# light's exit and its segment (the slab quotients and differences 12, their
+# maxima, minima and the clamp 6, the end point 6, the segment 10: 34), the
+# diffuse's RGB on top of the last trip's lookup at the same point (3 lerps:
+# 9) and the shading (7); where the last trip of the distance loop was capped
+# and computed no point, the point and the lookup in full (58)
+(OPS_MCS_PIXEL, OPS_MCS_FRAME, OPS_MCS_LIGHT, OPS_MCS_TRIP, OPS_MCS_TRIP_MAJ, OPS_MCS_POINT,
+ OPS_MCS_LOOKUP, OPS_MCS_ACCEPT, OPS_MCS_PRODUCT, OPS_MCS_SHADE, OPS_MCS_FRESH) = (
+    166, 13, 44, 7, 13, 10, 48, 3, 2, 50, 58)
 
 
 def log(msg):
@@ -1178,8 +1231,28 @@ def phase_cli():
         raise AssertionError(f"CLI --renderer mcm wrote {img.shape} {img.dtype}, metrics {m_mcm}")
     log(f"# CLI render --device cuda --renderer mcm --envmap --compaction --frames 16: exit 0 "
         f"in {dt_mcm:.2f} s (process), image {img.shape}, metrics {json.dumps(m_mcm)}")
+    # the single-scattering renderer through the CLI (K22), the reference's
+    # defaults
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "mcs.npy")
+        cmd = [sys.executable, "-m", "vpt_tpu_torch.cli", "render", "--device", "cuda",
+               "--renderer", "mcs", "--frames", "16", "-o", out]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, capture_output=True, text=True, timeout=300,
+                              cwd=os.path.dirname(os.path.abspath(__file__)))
+        dt_mcs = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise AssertionError(f"CLI --renderer mcs exited {proc.returncode}: "
+                                 f"{proc.stderr[-2000:]}")
+        m_mcs = json.loads(proc.stdout.strip().splitlines()[-1])
+        img = np.load(out)
+    if (img.shape != (512, 512, 3) or img.dtype != np.uint8 or m_mcs.get("frames") != 16
+            or not m_mcs.get("device", "").startswith("cuda") or not img.any()):
+        raise AssertionError(f"CLI --renderer mcs wrote {img.shape} {img.dtype}, metrics {m_mcs}")
+    log(f"# CLI render --device cuda --renderer mcs --frames 16: exit 0 in {dt_mcs:.2f} s "
+        f"(process), image {img.shape}, metrics {json.dumps(m_mcs)}")
     return dict(seconds=dt, metrics=metrics, eam=dict(seconds=dt_eam, metrics=m_eam),
-                mcm=dict(seconds=dt_mcm, metrics=m_mcm))
+                mcm=dict(seconds=dt_mcm, metrics=m_mcm), mcs=dict(seconds=dt_mcs, metrics=m_mcs))
 
 
 def phase_k3(dev):
@@ -2633,19 +2706,24 @@ def rm_session(key, dev, frames, checkpoint_at=None, tmp=None):
     return dict(RK.LAUNCHES), s.hdr_image(), dt, s.metrics()
 
 
-def rm_profile(key, dev, frames, *args, calls=1):
-    """``calls`` x ``RenderSession(key, volume, *args).run(frames)`` under
-    torch.profiler after a warm-up: the device work by kernel name (ms and
-    launches per frame), the device ms per frame and the profiled host ms
-    per frame (which the profiler's own overhead lengthens)."""
+def rm_profile(key, dev, frames, *args, calls=1, ready=None, **kw):
+    """``calls`` x ``RenderSession(key, volume, *args, **kw).run(frames)``
+    under torch.profiler after a warm-up (and after ``ready()`` returns,
+    where given): the device work by kernel name (ms and launches per
+    frame), the device ms per frame and the profiled host ms per frame
+    (which the profiler's own overhead lengthens)."""
     from torch.profiler import ProfilerActivity, profile
 
     from vpt_tpu_torch import Volume
     from vpt_tpu_torch.session import RenderSession
     from vpt_tpu_torch.tools.profile_fit import device_kernels
 
-    s = RenderSession(key, Volume.sphere_in_cube(VOLUME), *args, device=dev, resolution=RM_RES)
+    s = RenderSession(key, Volume.sphere_in_cube(VOLUME), *args, device=dev, resolution=RM_RES,
+                      **kw)
     s.run(2)
+    if ready is not None:
+        torch.cuda.synchronize()
+        ready()
     n = frames * calls
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -3404,6 +3482,465 @@ def phase_mcm(dev):
     return list(entries.values()), sessions
 
 
+def mcs_modes():
+    """Phase 22's modes: (label, volume, environment, renderer kwargs) on
+    config 2's volume; the f32 volume and the environment map are phase
+    21's."""
+    from vpt_tpu_torch import Volume
+
+    vol = Volume.sphere_in_cube(VOLUME)
+    f32 = Volume(density=smoothed(np.random.default_rng(13).random(vol.shape, np.float32)))
+    return (("u8", vol, None, {}), ("f32", f32, None, {}),
+            ("quasicubic", Volume(vol.density, "quasicubic"), None, {}),
+            ("nearest", Volume(vol.density, "nearest"), None, {}),
+            ("environment", vol, seeded_envmap(), {}),
+            ("majorant", vol, None, dict(majorant_blocks=MCS_BLOCKS)),
+            ("max_collisions=16", vol, None, dict(max_collisions=16)))
+
+
+def mcs_camera():
+    """Config 2's frustum-filling camera for MCS."""
+    from vpt_tpu_torch import Camera
+
+    return Camera(translation=np.array([0.0, 0.0, 1.2]))
+
+
+def mcs_inputs(r, seeds):
+    """The ctx of ``seeds[0]`` and the host's scattering directions."""
+    from vpt_tpu_torch.models.mcs import _host_scatter_direction
+
+    return r.ctx(mcs_camera(), seeds[0]), np.stack([_host_scatter_direction(s) for s in seeds])
+
+
+def mcs_check(label, r, seeds, acc0, frame0):
+    """K22 (two runs) and its plain version over ``seeds`` from (acc0,
+    frame0): acc bit for bit and the frame count equal. Returns the kernel's
+    (acc, frame) and the plain version's seconds."""
+    from vpt_tpu_torch.kernels import mcs as KS
+
+    ctx, dirs = mcs_inputs(r, seeds)
+    out = []
+    for fn in (KS.frames, KS.frames, KS.frames_plain):
+        acc, frame = acc0.clone(), frame0.clone()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn(acc, frame, ctx, seeds, dirs, r.max_collisions, r.volume.filter)
+        torch.cuda.synchronize()
+        out.append((acc, frame, time.perf_counter() - t0))
+    for (acc, frame, _), what in ((out[1], "a second run"), (out[2], "the plain version")):
+        if int(frame) != int(out[0][1]) or int(frame) != int(frame0) + len(seeds):
+            raise AssertionError(f"K22 ({label}): frame {int(out[0][1])}, {what} {int(frame)}")
+        rm_bitwise(f"K22 ({label}) against {what}", [out[0][0]], [acc])
+    if not bool(torch.isfinite(out[0][0]).all()):
+        raise AssertionError(f"K22 ({label}): acc not finite")
+    return out[0][0], out[0][1], out[2][2]
+
+
+def mcs_device_ms(r, ctx, seeds, dirs):
+    """K22's device time for one launch over ``seeds``: the kernel alone,
+    launched through the library with its inputs uploaded once, 20 calls
+    captured in a CUDA graph (``device_ms``); each call runs the same frames
+    (the count is not advanced), so each does the same work."""
+    from vpt_tpu_torch.kernels import _build
+    from vpt_tpu_torch.kernels import mcm_spectral as K
+    from vpt_tpu_torch.kernels import mcs as KS
+
+    dev = r.device
+    f, i = KS._params(ctx, RES, len(seeds), r.max_collisions, r.volume.filter)
+    inputs = torch.as_tensor(KS._frame_inputs(seeds, dirs), device=dev)
+    acc = torch.zeros((RES, RES, 4), dtype=torch.float32, device=dev)
+    frame = torch.zeros((), dtype=torch.int32, device=dev)
+    vol, lib = KS.RK._volume_tensor(ctx.density), _build.load()
+
+    def launch():
+        K._raise_on(lib.vpt_mcs_frames(
+            f.ctypes.data, i.ctypes.data, vol.data_ptr(), ctx.tf_table.data_ptr(),
+            ctx.environment.data_ptr(), K._ptr(ctx.majorant), inputs.data_ptr(), acc.data_ptr(),
+            frame.data_ptr(), K._stream(dev)), "mcs_frames")
+
+    return device_ms(launch)
+
+
+def mcs_replay(r, ctx, seeds, dirs):
+    """K22's work over one launch from a zero state, replayed with the plain
+    pieces (kernels/mcs.py) on the lanes and trips the kernel takes: per
+    lane and frame the trips of both loops (a pixel whose ray misses the
+    cube runs neither), each loop's lookups (a trip that neither escaped
+    nor was capped; ``RmReads``, with a collision's diffuse: each volume
+    entry touched once), the majorant trips whose starting point no earlier
+    trip computed, the majorant cells and environment texels touched, the
+    collisions shaded and those whose last distance trip computed no point.
+    Returns the replay's acc (the caller holds it against the plain
+    version's, bit for bit), the counts and the trips (F, R, R) of each
+    loop."""
+    from vpt_tpu_torch.kernels import mcm as KM
+    from vpt_tpu_torch.kernels import mcs as KS
+    from vpt_tpu_torch.kernels import raymarch as RK
+    from vpt_tpu_torch.ops import geometry, interp, sampling
+
+    dev, filt, maj = r.device, r.volume.filter, ctx.majorant
+    frm, to = RK.camera_rays(RES, ctx.inv_mvp, dev)
+    tn, tf, miss = RK.ray_bounds(frm, to)
+    entry, exit_ = RK._mix3(frm, to, tn), RK._mix3(frm, to, tf)
+    view = geometry.normalize3(*(to[k] - frm[k] for k in range(3)))
+    reads = RmReads(ctx.density, filt)
+    env = ctx.environment
+    He, We, _ = env.shape
+    env_touched = torch.zeros(He * We, dtype=torch.bool, device=dev)
+    maj_touched = None if maj is None else torch.zeros(maj[..., 0].numel(), dtype=torch.bool,
+                                                       device=dev)
+
+    def touch_env(dx, dy, dz, mask):
+        u = torch.atan2(dx, -dz) * KM.INV_PI_HALF + 0.5
+        v = torch.asin(torch.clamp(-dy, -1.0, 1.0)) * 2.0 * KM.INV_PI_HALF + 0.5
+        for iy in interp._coords(v, He)[:2]:
+            for ix in interp._coords(u, We)[:2]:
+                env_touched[(iy * We + ix)[mask].to(torch.int64)] = True
+
+    count = dict(distance_lookups=0, transmittance_lookups=0, majorant_points=0)
+
+    def loop(c, rng, lanes, a, b, distance):
+        max_dist = KS._length(a, b)
+        denom = torch.clamp_min(max_dist, 1e-30)
+        dist, trans = torch.zeros_like(max_dist), torch.ones_like(max_dist)
+        done, trips = ~lanes, torch.zeros(max_dist.shape, dtype=torch.int32, device=dev)
+        # the point at the lane's distance is known (the entry, or the last
+        # trip's lookup); the last trip looked up
+        known, looked = torch.ones_like(done), torch.zeros_like(done)
+        for _ in range(r.max_collisions):
+            if bool(done.all()):
+                break
+            active = ~done
+            if maj is not None:
+                count["majorant_points"] += int((active & ~known).sum())
+                Gz, Gy, Gx, _ = maj.shape
+                p = RK._mix3(a, b, dist / denom)
+                cell = ((interp._nearest_coords(p[2], Gz) * Gy + interp._nearest_coords(p[1], Gy))
+                        * Gx + interp._nearest_coords(p[0], Gx))
+                maj_touched[cell[active].to(torch.int64)] = True
+            rng, step, capped, m = KS._flight(rng, active, c, a, b, dist, denom)
+            dist = torch.where(active, dist + step, dist)
+            escaped = active & (dist > max_dist)
+            still = active & ~escaped & ~capped
+            pos = RK._mix3(a, b, dist / denom)
+            reads.add(*pos, still)
+            count["distance_lookups" if distance else "transmittance_lookups"] += int(still.sum())
+            known = torch.where(active, still, known)
+            looked = torch.where(active, still, looked)
+            alpha = KS._sample_tf(c, *pos, filt)[..., 3]
+            if m is not None:
+                alpha = torch.clamp_max(alpha / m, 1.0)
+            trips += active.to(torch.int32)
+            if distance:
+                rng, u = sampling.draw(rng, still)
+                done = done | escaped | (still & (u < alpha))
+            else:
+                trans = torch.where(still, trans * (1.0 - alpha), trans)
+                done = done | escaped
+        return rng, dist, max_dist, trans, trips, looked
+
+    touch_env(*view, torch.ones_like(miss))  # every pixel's view, once a launch
+    env_view = KS._with_alpha(KM.sample_environment(env, *view))
+    acc = torch.zeros((RES, RES, 4), dtype=torch.float32, device=dev)
+    d_trips, t_trips, shaded, fresh = [], [], 0, 0
+    for k, (seed, sd) in enumerate(zip(seeds, dirs)):
+        c = dataclasses.replace(ctx, seed_bits=int(seed), scatter_dir=sd)
+        rng = KS.pixel_seeds(RES, c.seed_bits, dev)
+        rng, dist, max_dist, _, dt, looked = loop(c, rng, ~miss, entry, exit_, True)
+        escaped = dist > max_dist
+        scat = RK._mix3(entry, exit_, dist / torch.clamp_min(max_dist, 1e-30))
+        sdt = torch.as_tensor(sd, device=dev)
+        sdir = tuple(sdt[i].expand(dist.shape) for i in range(3))
+        stf = torch.clamp_min(geometry.intersect_cube(*scat, *sdir)[1], 0.0)
+        need = ~miss & ~escaped
+        reads.add(*scat, need)
+        diffuse = KS._sample_tf(c, *scat, filt)
+        touch_env(sdt[0:1], sdt[1:2], sdt[2:3], torch.ones(1, dtype=torch.bool, device=dev))
+        light = KS._with_alpha(KM.sample_environment(env, sdt[0], sdt[1], sdt[2]))
+        rng, _, _, trans, tt, _ = loop(c, rng, need, scat,
+                                    tuple(scat[i] + sdir[i] * stf for i in range(3)), False)
+        img = torch.where((miss | escaped)[..., None], env_view, diffuse * light * trans[..., None])
+        acc = acc + (img - acc) / torch.full((), k + 1.0, dtype=torch.float32, device=dev)
+        d_trips.append(dt)
+        t_trips.append(tt)
+        shaded += int(need.sum())
+        fresh += int((need & ~looked).sum())
+    n = dict(**count, shaded=shaded, fresh_diffuse=fresh, hit_pixels=int((~miss).sum()),
+             trip_count=int(sum(int(t.sum()) for t in d_trips + t_trips)),
+             env_bytes=int(env_touched.sum()) * 12,
+             majorant_bytes=0 if maj is None else int(maj_touched.sum()) * 8)
+    return acc, n, reads, torch.stack(d_trips), torch.stack(t_trips), ~miss
+
+
+def mcs_trip_stats(d_trips, t_trips, hit):
+    """The trips per lane and frame (both loops) over the pixels whose ray
+    hits the cube (mean, p99, max), and per launch: a lane's mean total,
+    the mean over warps (32 neighbouring pixels) of what a warp pays, the
+    sum over frames of each loop's slowest lane in the warp, and what the
+    reference's lockstep loops pay, the sum over frames of each loop's
+    slowest lane in the frame."""
+    tr = (d_trips + t_trips)[:, hit].to(torch.float32).reshape(-1)
+    warp = lambda t: t.reshape(t.shape[0], -1, 32).amax(-1).to(torch.float64)  # noqa: E731
+    return dict(lane_frame_mean=float(tr.mean()),
+                lane_frame_p99=float(torch.quantile(tr, 0.99)), lane_frame_max=int(tr.max()),
+                distance_mean=float(d_trips[:, hit].to(torch.float32).mean()),
+                transmittance_mean=float(t_trips[:, hit].to(torch.float32).mean()),
+                launch_lane_mean=float((d_trips + t_trips).sum(0)[hit].to(torch.float32).mean()),
+                launch_warp_paid=float((warp(d_trips) + warp(t_trips)).sum(0).mean()),
+                launch_frame_paid=int((d_trips.reshape(d_trips.shape[0], -1).amax(-1)
+                                       + t_trips.reshape(t_trips.shape[0], -1).amax(-1)).sum()))
+
+
+def mcs_bound(r, ctx, n, reads, n_frames, ms):
+    """``bound`` of K22 over one launch: acc read and written once, the
+    count and the frame inputs, each volume entry, majorant cell and
+    environment texel the replayed lookups touch once, the TF's row 0; the
+    operations the replayed launch needs (``OPS_MCS_*``)."""
+    maj = ctx.majorant is not None
+    lookups = n["distance_lookups"] + n["transmittance_lookups"]
+    tf_row = ctx.tf_table[0].numel() * 4 if lookups else 0
+    nbytes = (2 * RES * RES * 16 + 4 + 16 * n_frames + reads.volume_bytes() + tf_row
+              + n["env_bytes"] + n["majorant_bytes"])
+    ops = (RES * RES * (OPS_MCS_PIXEL + n_frames * OPS_MCS_FRAME) + n_frames * OPS_MCS_LIGHT
+           + n["trip_count"] * (OPS_MCS_TRIP + OPS_MCS_TRIP_MAJ * maj)
+           + n["majorant_points"] * OPS_MCS_POINT
+           + lookups * (OPS_MCS_POINT + OPS_MCS_LOOKUP + 2 * maj)
+           + n["distance_lookups"] * OPS_MCS_ACCEPT + n["transmittance_lookups"] * OPS_MCS_PRODUCT
+           + n["shaded"] * OPS_MCS_SHADE + n["fresh_diffuse"] * OPS_MCS_FRESH)
+    return bound(nbytes, ops, ms)
+
+
+def all_launches():
+    """Every kernel launch count of the port, as module.key."""
+    from vpt_tpu_torch.kernels import corners, mcm, mcm_spectral, mcs, raymarch
+    from vpt_tpu_torch.kernels import spectral_backward, surrogate
+
+    return {f"{m.__name__.rsplit('.', 1)[1]}.{k}": v
+            for m in (corners, mcm, mcm_spectral, mcs, raymarch, spectral_backward, surrogate)
+            for k, v in m.LAUNCHES.items()}
+
+
+def reset_all_counts():
+    from vpt_tpu_torch.kernels import corners, mcm, mcm_spectral, mcs, raymarch
+    from vpt_tpu_torch.kernels import spectral_backward, surrogate
+
+    for m in (corners, mcm, mcm_spectral, mcs, raymarch, spectral_backward, surrogate):
+        m.reset_launch_counts()
+
+
+def mcs_make_session(dev, vol, env, kw):
+    """RenderSession("mcs") on the MCS scene, warmed up by one frame."""
+    from vpt_tpu_torch.session import RenderSession
+
+    s = RenderSession("mcs", vol, None, env, extinction=MCS_EXTINCTION, resolution=RES,
+                      camera=mcs_camera(), device=dev, **kw)
+    s.run(1)
+    return s
+
+
+def mcs_session(s, frames, checkpoint_at=None, tmp=None):
+    """The counts set to 0, then ``s.reset()`` and ``s.run(frames)``, split
+    at ``checkpoint_at`` by a save, a reset and a load; returns (every
+    launch count, HDR image, seconds)."""
+    reset_all_counts()
+    t0 = time.perf_counter()
+    s.reset()
+    if checkpoint_at is None:
+        s.run(frames)
+    else:
+        s.run(checkpoint_at)
+        path = os.path.join(tmp, "mcs.npz")
+        s.save_checkpoint(path)
+        s.reset()
+        s.load_checkpoint(path).run(frames - checkpoint_at)
+    dt = time.perf_counter() - t0
+    return all_launches(), s.hdr_image(), dt
+
+
+class McsProfile:
+    """``rm_profile`` of 4 x the default ``RenderSession("mcs").run(16)`` on
+    the MCS scene, in a fresh process (as phase 21's), started early so
+    that its start-up overlaps the phase's checks: it warms up, says
+    "ready" and waits; ``ready()`` waits for that, after which the process
+    holds the card idle until ``finish()`` lets it profile. ``close()``
+    ends it whatever happened."""
+
+    def __init__(self):
+        code = ("import json, sys, torch, chip_smoke as CS\n"
+                "def ready():\n"
+                "    print('ready', flush=True)\n"
+                "    sys.stdin.readline()\n"
+                "print(json.dumps(CS.rm_profile('mcs', torch.device('cuda:0'), CS.MCS_FRAMES, "
+                "calls=4, ready=ready, extinction=CS.MCS_EXTINCTION, camera=CS.mcs_camera())))")
+        self.err = tempfile.TemporaryFile(mode="w+")
+        self.proc = subprocess.Popen([sys.executable, "-c", code], stdin=subprocess.PIPE,
+                                     stdout=subprocess.PIPE, stderr=self.err, text=True,
+                                     cwd=os.path.dirname(os.path.abspath(__file__)))
+
+    def _fail(self, what):
+        self.err.seek(0)
+        raise AssertionError(f"the mcs profile {what}: {self.err.read()[-2000:]}")
+
+    def ready(self):
+        if not select.select([self.proc.stdout], [], [], 300)[0]:
+            self._fail("was not ready within 300 s")
+        if self.proc.stdout.readline().strip() != "ready":
+            self._fail(f"exited {self.proc.wait()} before it was ready")
+
+    def finish(self):
+        out, _ = self.proc.communicate("go\n", timeout=300)
+        if self.proc.returncode != 0:
+            self._fail(f"exited {self.proc.returncode}")
+        return json.loads(out.strip().splitlines()[-1])
+
+    def close(self):
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+        self.err.close()
+
+
+def phase_mcs(dev):
+    """Phase 22: the single-scattering renderer MCS (K22 mcs_frames) on
+    config 2's MCS scene at R = 512, in two passes over the modes. Checks:
+    K22 bit for bit against its plain version over 2 frames in seven modes
+    and over the main scene's 16-frame launch, exact and majorant, with a
+    replay of that launch's work (its trip distribution). Then, once the
+    profiling process (started first) waits: each launch timed by device
+    time, the 16-frame ones against the replay's bound; a RenderSession
+    per mode (exactly one K22 launch and nothing else), whose renderer the
+    checks used; the default's second run, checkpoint round trip and
+    profiled busy share. The phase's seconds by step close it."""
+    from vpt_tpu_torch.kernels import mcs as KS
+
+    t_phase = time.perf_counter()
+    split = {}
+
+    def timed(step, fn, *args, **kw):
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        split[step] = split.get(step, 0.0) + time.perf_counter() - t0
+        return out
+
+    seeds2 = [2654435761 * k % 2**32 for k in (3, 4)]
+    frames = [(k + 1) * 2654435761 % 2**32 for k in range(MCS_FRAMES)]
+    rng = np.random.default_rng(22)
+    acc0 = torch.as_tensor(rng.random((RES, RES, 4), np.float32), device=dev)
+    frame0 = torch.full((), 3, dtype=torch.int32, device=dev)
+    zero_acc = torch.zeros((RES, RES, 4), dtype=torch.float32, device=dev)
+    zero_frame = torch.zeros((), dtype=torch.int32, device=dev)
+    entries, sessions, trips, runs = {}, {}, {}, []
+    profiler = McsProfile()
+    try:
+        for label, vol, env, kw in mcs_modes():
+            s = timed("sessions built", mcs_make_session, dev, vol, env, kw)
+            r = s.renderer
+            timed("2-frame checks", mcs_check, label, r, seeds2, acc0, frame0)
+            ctx, dirs = mcs_inputs(r, frames)
+            log(f"# K22 ({label}) == plain bit for bit over 2 frames from a running mean at frame "
+                "3 (acc and the count), two runs identical")
+            replay = None
+            if label in ("u8", "majorant"):
+                # the main scene's 16-frame launch from a zero state: kernel
+                # == plain == the replay
+                acc, _, plain_s = timed(f"{MCS_FRAMES}-frame checks", mcs_check,
+                                        f"{label}, {MCS_FRAMES} frames", r, frames, zero_acc,
+                                        zero_frame)
+                racc, n, reads, d_trips, t_trips, hit = timed("replays", mcs_replay, r, ctx,
+                                                              frames, dirs)
+                rm_bitwise(f"the replay of K22 ({label})", [acc], [racc])
+                stats = mcs_trip_stats(d_trips, t_trips, hit)
+                trips[label] = stats
+                replay = (plain_s, n, reads, stats)
+                log(f"# K22 ({label}) == plain == the replay bit for bit over the main scene's "
+                    f"{MCS_FRAMES}-frame launch, plain {plain_s * 1e3:.1f} ms; "
+                    f"{n['trip_count']} trips, {n['distance_lookups']} + "
+                    f"{n['transmittance_lookups']} lookups (distance + transmittance), "
+                    f"{n['majorant_points']} majorant points, {n['shaded']} shaded "
+                    f"({n['fresh_diffuse']} after a capped trip)")
+                log(f"# K22 ({label}) trips per lane and frame over the {int(hit.sum())} hit "
+                    f"pixels: mean {stats['lane_frame_mean']:.3f} (distance "
+                    f"{stats['distance_mean']:.3f}, transmittance "
+                    f"{stats['transmittance_mean']:.3f}), p99 {stats['lane_frame_p99']:.1f}, max "
+                    f"{stats['lane_frame_max']}; per launch a lane {stats['launch_lane_mean']:.2f},"
+                    f" a warp pays {stats['launch_warp_paid']:.2f}, the reference's lockstep "
+                    f"frames {stats['launch_frame_paid']}")
+                del acc, racc, d_trips, t_trips
+            runs.append((label, s, ctx, dirs, replay))
+            torch.cuda.empty_cache()
+        # the timings, with the profiling process idle
+        timed("waiting for the profiling process", profiler.ready)
+        for label, s, ctx, dirs, replay in runs:
+            r = s.renderer
+            ms = timed("device timing", mcs_device_ms, r, ctx, frames, dirs)
+            if replay is not None:
+                plain_s, n, reads, stats = replay
+                call_ms = timed("device timing", cuda_ms, lambda: KS.frames(
+                    zero_acc.clone(), zero_frame.clone(), ctx, frames, dirs, r.max_collisions,
+                    r.volume.filter), 10)
+                b = mcs_bound(r, ctx, n, reads, MCS_FRAMES, ms)
+                name = "mcs_frames" if label == "u8" else f"mcs_frames[{label}]"
+                entries[name] = kernel_line(dict(
+                    name=name, route="cuda", source=MCS_SOURCE,
+                    replaces="vpt_tpu/models/mcs.py:174", max_abs_err=0.0, ms=ms,
+                    plain_ms=plain_s * 1e3, frames=MCS_FRAMES, ms_per_frame=ms / MCS_FRAMES,
+                    call_ms=call_ms, trips=stats,
+                    **{k: v for k, v in n.items() if k not in ("env_bytes", "majorant_bytes")}),
+                    b)
+                log(f"# K22 ({label}): the main scene's {MCS_FRAMES}-frame launch {ms:.5f} ms by "
+                    f"device time ({ms / MCS_FRAMES:.5f} a frame; the wrapper's call "
+                    f"{call_ms:.5f} ms), plain {plain_s * 1e3:.1f} ms; bound "
+                    f"{b['bound_ms']:.5f} ms by {b['bound_by']} ({b['bound_bytes']} B, "
+                    f"{b['bound_ops']} FP32 ops), share {b['bound_share']:.3f}")
+            else:
+                log(f"# K22 ({label}): a {MCS_FRAMES}-frame launch {ms:.5f} ms by device time")
+            # the mode's session: one K22 launch per run and nothing else
+            launches, img, dt = timed("sessions run", mcs_session, s, MCS_FRAMES)
+            modes = {"nearest": ("mcs.frames_raw",), "environment": ("mcs.frames_environment",),
+                     "majorant": ("mcs.frames_majorant",)}.get(label, ())
+            want = {"mcs.frames": 1, **{k: 1 for k in modes}}
+            got = {k: v for k, v in launches.items() if v}
+            if got != want:
+                raise AssertionError(f"RenderSession('mcs', {label}).run({MCS_FRAMES}) "
+                                     f"launched {got}")
+            if img.shape != (RES, RES, 3) or not np.isfinite(img).all() or not img.any():
+                raise AssertionError(f"mcs {label}: image {img.shape} empty or not finite")
+            sessions[label] = dict(launches=got, seconds=dt, frames_per_s=MCS_FRAMES / dt,
+                                   k22_ms=ms)
+            if replay is not None:
+                entries["mcs_frames" if label == "u8" else "mcs_frames[majorant]"]["launches"] = (
+                    launches["mcs.frames"])
+            log(f"# RenderSession('mcs', {label}).run({MCS_FRAMES}) at {RES}^2: {dt:.5f} s "
+                f"({MCS_FRAMES / dt:.1f} frames/s); launches {got}")
+            if label == "u8":
+                with tempfile.TemporaryDirectory() as tmp:
+                    _, img2, _ = timed("sessions run", mcs_session, s, MCS_FRAMES)
+                    _, img3, _ = timed("sessions run", mcs_session, s, MCS_FRAMES,
+                                       checkpoint_at=MCS_FRAMES // 2, tmp=tmp)
+                for other, what in ((img2, "a second run"), (img3, "a checkpoint round trip")):
+                    if not np.array_equal(img.view(np.int32), other.view(np.int32)):
+                        raise AssertionError(f"mcs: {what} differs from the first run")
+                log("# mcs: a second run and a checkpoint round trip equal bit for bit")
+        del runs, s
+        torch.cuda.empty_cache()
+        prof = timed("the profile", profiler.finish)
+    finally:
+        profiler.close()
+    seen = prof["kernels"].get("mcs_frames_kernel", {}).get("launches", 0) * MCS_FRAMES
+    if seen != 1:
+        raise AssertionError(f"mcs: the profiler saw {seen * 4:g} of 4 K22 launches")
+    frame_ms = sessions["u8"]["seconds"] * 1e3 / MCS_FRAMES
+    sessions["u8"].update(profile=prof, device_busy_share=prof["device_ms"] / frame_ms)
+    log(f"# mcs: profiled 4 x run({MCS_FRAMES}) per frame (a fresh process): device "
+        f"{prof['device_ms']:.5f} ms of {frame_ms:.5f} ms unprofiled (busy "
+        f"{prof['device_ms'] / frame_ms:.3f}; profiled host {prof['profiled_host_ms']:.5f} ms); "
+        + ", ".join(f"{k} {v['ms']:.5f} ms x{v['launches']:g}" for k, v in prof["kernels"].items()))
+    total = time.perf_counter() - t_phase
+    split["other"] = total - sum(split.values())
+    log(f"# phase 22 (MCS): {total:.1f} s: " + ", ".join(f"{k} {v:.1f} s" for k, v in split.items()))
+    return list(entries.values()), dict(sessions=sessions, trips=trips, seconds=split)
+
+
 def launch_counts():
     from vpt_tpu_torch.kernels import corners as C
     from vpt_tpu_torch.kernels import mcm_spectral as K
@@ -3744,6 +4281,7 @@ def main():
     rm_kernels, rm_sessions = phase_raymarch(dev)
     eam_kernels, eam_fits = phase_eam_fit(dev)
     mcm_kernels, mcm_sessions = phase_mcm(dev)
+    mcs_kernels, mcs = phase_mcs(dev)
     foreign = sorted(k for k in sys.modules
                      if k in ("jax", "vpt_tpu") or k.startswith(("jax.", "vpt_tpu.")))
     if foreign:
@@ -3782,7 +4320,7 @@ def main():
     kernels = [k1, k2, k4, k5, k6, k7, k9, k10, k11, k1_maj, k1_modes["environment"],
                k1_modes["quasicubic"], *compact_kernels, k4_sur, k12, k1_xy, *k4_modes.values(),
                *k5_modes.values(), *corner_modes.values(), *sur_modes.values(), k1_raw, k13,
-               k14, *rm_kernels, *eam_kernels, *mcm_kernels]
+               k14, *rm_kernels, *eam_kernels, *mcm_kernels, *mcs_kernels]
     missing = [k["name"] for k in kernels + [k3, k3_xy, k3_raw]
                if not {"bound_ms", "bound_by", "library_ms", "launches", "ms", "plain_ms",
                        "max_abs_err"} <= set(k)]
@@ -3800,7 +4338,7 @@ def main():
               "majorant_path": sparse, "mode_sessions": mode_rates, "compaction": compact,
               "cli": cli, "surrogate": {"twin_on_card": twin, "autodiff_fit": autodiff},
               "raymarch_sessions": rm_sessions, "eam_training": eam_fits,
-              "mcm_sessions": mcm_sessions,
+              "mcm_sessions": mcm_sessions, "mcs": mcs,
               "ptxas": ptxas, "gpu": smi}
     log(json.dumps(result))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -57,7 +57,7 @@ def test_sources_of_each_directory():
     assert set(_build._sources()) == set(_build._SIGNATURES)
     assert set(_build._SIGNATURES) == {"mcm_spectral", "spectral_backward", "corners",
                                        "gather_bench", "surrogate", "raw_backward", "raymarch",
-                                       "mcm"}
+                                       "mcm", "mcs"}
 
 
 RAYMARCH_LOG = """== raymarch.cu
@@ -100,3 +100,17 @@ def test_ptxas_table_reads_the_rgb_mcm_kernels():
     template arguments, and K1's name inside K20's does not match."""
     assert _build.ptxas_table(MCM_LOG) == [("mcm_step_kernel", "", 64, 4, 4, 16),
                                            ("mcm_reset_kernel", "", 40, 0, 0, 0)]
+
+
+MCS_LOG = """== mcs.cu
+ptxas info    : Compiling entry function '_ZN46_GLOBAL__N__7b8c9d0e_6_mcs_cu_2a3b4c5d17mcs_frames_kernelENS_9McsParamsEPKvPKfS4_PK6float2PK6float4PS8_PKi' for 'sm_90a'
+ptxas info    : Function properties for _ZN46_GLOBAL__N__7b8c9d0e_6_mcs_cu_2a3b4c5d17mcs_frames_kernelENS_9McsParamsEPKvPKfS4_PK6float2PK6float4PS8_PKi
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 72 registers, used 0 barriers
+"""
+
+
+def test_ptxas_table_reads_the_mcs_kernel():
+    """K22 (csrc/mcs.cu) is untemplated: its row carries no template
+    arguments."""
+    assert _build.ptxas_table(MCS_LOG) == [("mcs_frames_kernel", "", 72, 0, 0, 0)]

@@ -22,7 +22,7 @@ def _run(capsys, argv):
 
 def test_renderers_and_tonemappers_lists(capsys):
     assert _run(capsys, ["renderers"]).out.split() == ["depth", "eam", "iso", "mcm",
-                                                       "mcm-spectral", "mip"]
+                                                       "mcm-spectral", "mcs", "mip"]
     out = _run(capsys, ["tonemappers"]).out
     for key in ("artistic", "reinhard", "aces", "uchimura", "lottes"):
         assert key in out
@@ -109,10 +109,9 @@ def test_invert_eam_matches_jax(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("argv,names", [
-    (["invert", "--spectral", "--renderer", "eam"], "eam"),
-    (["render", "--devices", "2"], "--devices"),
-    # mcm is ported; the id stays, the case now checks the unported mcs
-    pytest.param(["render", "--renderer", "mcs"], "'mcs'", id="argv2-mcm"),
+    pytest.param(["render", "--devices", "2"], "--devices", id="argv1---devices"),
+    # mcm and mcs are ported; the id stays, the case now checks the unported dos
+    pytest.param(["render", "--renderer", "dos"], "'dos'", id="argv2-mcm"),
 ])
 def test_exits_name_what_is_not_ported(argv, names, tmp_path, capsys):
     with pytest.raises(SystemExit) as e:
@@ -120,6 +119,43 @@ def test_exits_name_what_is_not_ported(argv, names, tmp_path, capsys):
               "--frames", "1", "-o", str(tmp_path / "x.npy")])
     assert names in str(e.value.code) and "not ported" in str(e.value.code)
     assert not os.path.exists(tmp_path / "x.npy")
+
+
+def test_invert_spectral_ignores_the_renderer_as_jax(tmp_path, capsys):
+    """invert --spectral fits mcm-spectral whatever --renderer says, as
+    vpt_tpu's CLI does: at 16^3 / 16^2 for 2 iterations, JAX's JSON keys, its
+    numbers (rtol 1e-4: the two packages round the fit's sums in other
+    orders) and its recovered grid (atol 1e-4)."""
+    from vpt_tpu.cli import main as jax_main
+
+    argv = ["invert", "--spectral", "--renderer", "eam", "--volume-size", "16", "--resolution",
+            "16", "--iterations", "2"]
+    out, out_j = str(tmp_path / "rec.npy"), str(tmp_path / "rec_jax.npy")
+    metrics = json.loads(_run(capsys, [*argv, "--device", "cpu", "-o", out]).out
+                         .strip().splitlines()[-1])
+    jax_main([*argv, "-o", out_j])
+    want = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert set(metrics) == set(want) == {"final_loss", "density_mae", "init_density_mae"}
+    for key in want:
+        assert metrics[key] == pytest.approx(want[key], rel=1e-4), key
+    rec = np.load(out)
+    assert rec.shape == (16, 16, 16) and rec.dtype == np.float32
+    np.testing.assert_allclose(rec, np.load(out_j), atol=1e-4)
+
+
+def test_devices_is_ignored_off_mcm_spectral(tmp_path, capsys):
+    """render --renderer eam --devices 2 runs on one device, as vpt_tpu's
+    CLI does (it builds a mesh for mcm-spectral only): the image equals
+    --devices 1's bit for bit."""
+    outs = []
+    for n in ("1", "2"):
+        out = str(tmp_path / f"eam{n}.npy")
+        metrics = json.loads(_run(capsys, ["render", *SMALL, "--renderer", "eam", "--devices", n,
+                                           "--output", out]).out.strip().splitlines()[-1])
+        assert metrics["frames"] == 2 and metrics["device"] == "cpu"
+        outs.append(np.load(out))
+    assert outs[0].shape == (16, 16, 3) and outs[0].any()
+    np.testing.assert_array_equal(outs[0], outs[1])
 
 
 @pytest.mark.parametrize("cmd", ["render", "invert", "invert-eam"])

@@ -424,13 +424,12 @@ def test_cli_renders_each_ray_marcher(key, tmp_path, capsys):
 def test_cli_lists_the_ported_renderers(capsys):
     cli_main(["renderers"])
     assert capsys.readouterr().out.split() == ["depth", "eam", "iso", "mcm", "mcm-spectral",
-                                               "mip"]
+                                               "mcs", "mip"]
 
 
 @pytest.mark.parametrize("argv,message", [
     (["render", "--renderer", "eam", "--compaction"],
      "--compaction is supported by mcm-spectral and mcm, not 'eam'"),
-    (["invert", "--spectral", "--renderer", "eam"], "mcm-spectral"),
 ])
 def test_cli_refuses_compaction_and_invert_on_a_ray_marcher(argv, message, tmp_path):
     with pytest.raises(SystemExit) as e:

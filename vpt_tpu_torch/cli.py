@@ -16,23 +16,26 @@ Subcommands:
               spectral MCM with --spectral --method prb|autodiff
 
 ``render`` and ``animate`` take ``--renderer mcm-spectral`` (the default),
-the RGB renderer ``mcm`` or one of the ray marchers ``eam``, ``mip``,
-``iso``, ``depth``, built as ``vpt_tpu/cli.py`` builds them (``mcm`` with
-``--envmap``, ``--compaction``, ``--extinction``, ``--bounces`` and
-``--steps`` and the grayscale ramp TF; EAM with ``--extinction``; the
-others with their defaults). ``--compaction`` is for ``mcm-spectral`` and
-``mcm`` only.
+the RGB renderers ``mcm`` and ``mcs`` or one of the ray marchers ``eam``,
+``mip``, ``iso``, ``depth``, built as ``vpt_tpu/cli.py`` builds them
+(``mcm`` with ``--envmap``, ``--compaction``, ``--extinction``,
+``--bounces`` and ``--steps`` and the grayscale ramp TF; EAM with
+``--extinction``; ``mcs`` and the others with their defaults).
+``--compaction`` is for ``mcm-spectral`` and ``mcm`` only.
 
 ``invert`` without ``--spectral`` recovers the volume's density from
 ``--views`` orbit renders by EAM (``optim.fit_density``), as
 ``vpt_tpu/cli.py`` does: the ramp-alpha TF, 32 slices, targets at offset 0,
-a constant 0.2 start; like it, it ignores ``--renderer``.
+a constant 0.2 start. ``invert --spectral`` always fits an
+``MCMSpectralRenderer``. Like the reference, both ignore ``--renderer``.
 
 ``--device`` defaults to ``cuda``: the kernels run on the card, and a
 machine without CUDA exits non-zero instead of falling back to the CPU.
 ``--device cpu`` runs the plain PyTorch versions. What the port has not
-ported yet (other renderers, ``--devices > 1``) exits non-zero with a
-message naming it.
+ported yet (other renderers, and ``--devices > 1`` on ``mcm-spectral``,
+the one renderer the reference builds a mesh for) exits non-zero with a
+message naming it; every other renderer ignores ``--devices``, as the
+reference does.
 """
 
 from __future__ import annotations
@@ -110,29 +113,23 @@ def _device(args):
 RAY_MARCHERS = ("eam", "mip", "iso", "depth")
 
 
-def _check_devices(args):
-    if args.devices is not None and args.devices > 1:
-        raise SystemExit("--devices > 1 (the multi-device mesh) is not ported to "
-                         "vpt_tpu_torch yet")
+PORTED = ("mcm-spectral", "mcm", "mcs", *RAY_MARCHERS)
 
 
 def _check_render_ported(args):
-    """``render`` / ``animate``: mcm-spectral, mcm and the ray marchers."""
+    """``render`` / ``animate``: mcm-spectral, mcm, mcs and the ray marchers.
+    As in ``vpt_tpu/cli.py``, ``--devices`` builds a mesh for mcm-spectral
+    only (not ported yet, so refused there) and every other renderer
+    ignores it."""
     key = args.renderer
     if args.compaction and key not in ("mcm-spectral", "mcm"):
         raise SystemExit(f"--compaction is supported by mcm-spectral and mcm, not {key!r}")
-    if key not in ("mcm-spectral", "mcm") and key not in RAY_MARCHERS:
+    if key not in PORTED:
         raise SystemExit(f"renderer {key!r} is not ported to vpt_tpu_torch yet "
-                         f"(ported: mcm-spectral, mcm, {', '.join(RAY_MARCHERS)})")
-    _check_devices(args)
-
-
-def _check_invert_ported(args):
-    """``invert --spectral``: mcm-spectral only."""
-    if args.renderer != "mcm-spectral":
-        raise SystemExit(f"invert --spectral on renderer {args.renderer!r} is not ported to "
-                         "vpt_tpu_torch yet (ported: mcm-spectral)")
-    _check_devices(args)
+                         f"(ported: {', '.join(PORTED)})")
+    if key == "mcm-spectral" and args.devices is not None and args.devices > 1:
+        raise SystemExit("--devices > 1 (the multi-device mesh) is not ported to "
+                         "vpt_tpu_torch yet")
 
 
 def _make_session(args):
@@ -154,7 +151,7 @@ def _make_session(args):
                              compaction=args.compaction, **common)
     elif key == "eam":
         sess = RenderSession(key, volume, None, EAMConfig(extinction=args.extinction), **common)
-    elif key in RAY_MARCHERS:
+    elif key in RAY_MARCHERS or key == "mcs":
         sess = RenderSession(key, volume, **common)
     else:
         material = (MaterialTF.from_uint8(np.load(args.material)) if args.material
@@ -289,7 +286,6 @@ def _cmd_invert_eam(args):
 def cmd_invert(args):
     if not args.spectral:
         return _cmd_invert_eam(args)
-    _check_invert_ported(args)
     device = _device(args)
 
     from vpt_tpu_torch.scene.camera import Camera

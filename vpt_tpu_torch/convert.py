@@ -8,10 +8,14 @@ packed adjoints and raw-table gradients cross with ``adjoints_from_numpy``
 and ``grads_to_numpy``.
 
 The ray-march renderers' dict states cross with
-``raymarch_state_from_numpy`` and ``raymarch_state_to_numpy``; the RGB MCM
+``raymarch_state_from_numpy`` and ``raymarch_state_to_numpy``, and MCS's
+(``acc``, ``frame``) with the same functions under the names
+``mcs_state_from_numpy`` and ``mcs_state_to_numpy``; the RGB MCM
 renderer's state with ``mcm_state_from_numpy`` and ``mcm_state_to_numpy``
 and its ``MCMCtx`` with ``mcm_ctx_from_numpy`` (the environment a raw
-(He, We, 3) array, as the JAX renderer keeps it).
+(He, We, 3) array, as the JAX renderer keeps it); MCS's ``MCSCtx`` with
+``mcs_ctx_from_numpy`` (its majorant grid and tables as the JAX renderer
+built them).
 
 The scene and config objects cross the same way: ``camera_from``,
 ``volume_from``, ``light_from``, ``material_from``, ``spectrum_from``,
@@ -33,6 +37,7 @@ import torch
 
 from vpt_tpu_torch.models.mcm import MCMCtx, MCMState
 from vpt_tpu_torch.models.mcm_spectral import SpectralCtx, SpectralState
+from vpt_tpu_torch.models.mcs import MCSCtx
 from vpt_tpu_torch.ops.interp import PackedVolume
 from vpt_tpu_torch.scene.camera import Camera
 from vpt_tpu_torch.scene.tf import TransferFunction2D
@@ -148,16 +153,7 @@ def mcm_ctx_from_numpy(*, inv_mvp, seed_bits, extinction, blur, anisotropy, max_
     def dev(a):
         return torch.as_tensor(np.array(a), device=device)
 
-    density_table = np.asarray(density_table)
-    if density_table.ndim == 3 and density_dims is None:
-        density = dev(np.asarray(density_table, np.float32))
-    else:
-        if density_table.ndim == 4:
-            density_dims = density_table.shape[:3]
-            density_table = density_table.reshape(-1, density_table.shape[-1])
-        elif density_dims is None:
-            raise ValueError("a flat density table needs density_dims")
-        density = PackedVolume(dev(density_table), tuple(density_dims), "full")
+    density = _volume_from_numpy(density_table, density_dims, device)
     return MCMCtx(
         inv_mvp=np.asarray(inv_mvp, np.float32),
         seed_bits=int(np.asarray(seed_bits).astype(np.uint32)),
@@ -172,6 +168,45 @@ def mcm_ctx_from_numpy(*, inv_mvp, seed_bits, extinction, blur, anisotropy, max_
     )
 
 
+def _volume_from_numpy(density_table, density_dims, device):
+    """A flat full table (``density_table`` (rows, 8) + ``density_dims``),
+    the natural (D+1, H+1, W+1, 8) array (``density_dims`` None), or a raw
+    (D, H, W) grid."""
+    density_table = np.asarray(density_table)
+    if density_table.ndim == 3 and density_dims is None:
+        return torch.as_tensor(np.array(density_table, np.float32), device=device)
+    if density_table.ndim == 4:
+        density_dims = density_table.shape[:3]
+        density_table = density_table.reshape(-1, density_table.shape[-1])
+    elif density_dims is None:
+        raise ValueError("a flat density table needs density_dims")
+    return PackedVolume(torch.as_tensor(np.array(density_table), device=device),
+                        tuple(density_dims), "full")
+
+
+def mcs_ctx_from_numpy(*, inv_mvp, seed_bits, extinction, scatter_dir, density_table,
+                       density_dims=None, tf_table, environment, majorant=None,
+                       device) -> MCSCtx:
+    """The port's ``MCSCtx`` from the arrays of a JAX ``MCSCtx``: the volume
+    as ``mcm_ctx_from_numpy`` takes it, ``tf_table`` the packed (257, 257,
+    16) or raw (256, 256, 4) TF, ``environment`` the raw (He, We, 3) map,
+    ``majorant`` the (Gz, Gy, Gx, 2) grid or None."""
+
+    def dev(a):
+        return torch.as_tensor(np.array(a, np.float32), device=device)
+
+    return MCSCtx(
+        inv_mvp=np.asarray(inv_mvp, np.float32),
+        seed_bits=int(np.asarray(seed_bits).astype(np.uint32)),
+        extinction=np.float32(extinction),
+        scatter_dir=np.asarray(scatter_dir, np.float32),
+        density=_volume_from_numpy(density_table, density_dims, device),
+        tf_table=dev(tf_table),
+        environment=dev(environment),
+        majorant=None if majorant is None else dev(majorant),
+    )
+
+
 def raymarch_state_from_numpy(fields: dict, device) -> dict:
     """A ray-march renderer's state (EAM: acc, frame; MIP: acc; ISO: cx,
     cy, cz, ct; Depth: frame) from numpy arrays keyed as the JAX state."""
@@ -181,6 +216,10 @@ def raymarch_state_from_numpy(fields: dict, device) -> dict:
 def raymarch_state_to_numpy(state: dict) -> dict:
     """A ray-march renderer's state as numpy arrays, by key."""
     return {k: t.cpu().numpy() for k, t in state.items()}
+
+
+mcs_state_from_numpy = raymarch_state_from_numpy
+mcs_state_to_numpy = raymarch_state_to_numpy
 
 
 def adjoints_from_numpy(acc: dict, device) -> dict:

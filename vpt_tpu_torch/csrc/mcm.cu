@@ -26,8 +26,8 @@
 // (density, 0) (sample_rgba), P_scatter = alpha * max(r, g, b), and a
 // scatter multiplies the transmittance by the TF's rgb and samples HG with
 // the global anisotropy; the escape reads all three channels of the raw map
-// with -dy clipped to [-1, 1] and no gain, at the pre-step direction; the
-// deposit is a running mean of the three channels.
+// with -dy clipped to [-1, 1] and no gain (mcm_common.cuh sample_env_rgb), at
+// the pre-step direction; the deposit is a running mean of the three channels.
 //
 // Modes, all uniform runtime flags of the one instantiation: the volume a
 // packed "full" corner table (u8 or f32, linear or quasicubic) or a raw
@@ -81,9 +81,6 @@ struct McmParams {
   int i[MI_COUNT];
 };
 
-// the equirect mapping's f32 constant INVPI * 0.5 (vpt_tpu/models/mcm.py:67)
-constexpr float kInvPiHalf = 0x1.45f306p-3f;
-
 // One lane's RGB photon state, held in registers across a launch.
 struct McmLane {
   float px, py, pz, dx, dy, dz;
@@ -106,32 +103,6 @@ __device__ __forceinline__ float mcm_density(const void* vol, const McmParams& P
                              P.i[MI_NEAREST] != 0);
   return sample_volume(vol, P.i[MI_VOL_U8], P.i[MI_VOL_D], P.i[MI_VOL_H], P.i[MI_VOL_W], u, v,
                        w, nullptr, P.i[MI_QUASICUBIC] != 0, false);
-}
-
-// RGB of the raw (He, We, 3) equirect map in direction d (mcm.py:64-69):
-// u = atan2(x, -z), v = asin(clip(-y, -1, 1)) * 2, both times INVPI / 2
-// plus 0.5; the texels of interp.sample_tex2d's raw path (raw_axis), each
-// channel lerped in its order
-__device__ __forceinline__ float3 sample_env_rgb(const float* __restrict__ env, int He, int We,
-                                                 float dx, float dy, float dz) {
-  const float u = atan2f(dx, -dz) * kInvPiHalf + 0.5f;
-  const float v = asinf(nmin(nmax(-dy, -1.0f), 1.0f)) * 2.0f * kInvPiHalf + 0.5f;
-  int x0, x1, y0, y1;
-  float fx, fy;
-  raw_axis(u, We + 1, x0, x1, fx);
-  raw_axis(v, He + 1, y0, y1, fy);
-  const float* t00 = env + ((int64_t)y0 * We + x0) * 3;
-  const float* t01 = env + ((int64_t)y0 * We + x1) * 3;
-  const float* t10 = env + ((int64_t)y1 * We + x0) * 3;
-  const float* t11 = env + ((int64_t)y1 * We + x1) * 3;
-  float o[3];
-#pragma unroll
-  for (int c = 0; c < 3; ++c) {
-    const float c0 = lerp(__ldg(t00 + c), __ldg(t01 + c), fx);
-    const float c1 = lerp(__ldg(t10 + c), __ldg(t11 + c), fx);
-    o[c] = lerp(c0, c1, fy);
-  }
-  return make_float3(o[0], o[1], o[2]);
 }
 
 // the lane's pixel and screen point: from the lane table when given, else

@@ -1,8 +1,9 @@
 // Device code shared by the spectral MCM forward (mcm_spectral.cu) and the
 // packed-adjoint backward (spectral_backward.cu): the parameter block, the
 // hash chain and draws, the packed-table lookups, and one Woodcock step.
-// The ray marchers (raymarch.cu) and the RGB MCM kernels (mcm.cu) use its
-// draws, samplers, camera ray and the classic TF's RGBA (sample_rgba).
+// The ray marchers (raymarch.cu) and the RGB kernels (mcm.cu, mcs.cu) use
+// its draws, samplers, camera ray, the classic TF's RGBA (sample_rgba) and
+// the raw RGB environment lookup (sample_env_rgb).
 //
 // Both kernels run the SAME step function, so the taped forward of the
 // backward leaves a state bit-identical to the forward step kernel's: the
@@ -547,6 +548,36 @@ __device__ __forceinline__ float sample_environment(const float* env, int Hp,
   const float c0 = lerp(__ldg(r + c), __ldg(r + 3 + c), fx);
   const float c1 = lerp(__ldg(r + 6 + c), __ldg(r + 9 + c), fx);
   return lerp(c0, c1, fy) * kEnvGain;
+}
+
+// the equirect mapping's f32 constant INVPI * 0.5 (vpt_tpu/models/mcm.py:67)
+constexpr float kInvPiHalf = 0x1.45f306p-3f;
+
+// RGB of the raw (He, We, 3) equirect map in direction d (vpt_tpu/models/
+// mcm.py:64-69, which the RGB renderers mcm (K20) and mcs (K22) read): u =
+// atan2(x, -z), v = asin(clip(-y, -1, 1)) * 2, both times INVPI / 2 plus
+// 0.5; the texels of interp.sample_tex2d's raw path (raw_axis), each channel
+// lerped in its order
+__device__ __forceinline__ float3 sample_env_rgb(const float* __restrict__ env, int He, int We,
+                                                 float dx, float dy, float dz) {
+  const float u = atan2f(dx, -dz) * kInvPiHalf + 0.5f;
+  const float v = asinf(nmin(nmax(-dy, -1.0f), 1.0f)) * 2.0f * kInvPiHalf + 0.5f;
+  int x0, x1, y0, y1;
+  float fx, fy;
+  raw_axis(u, We + 1, x0, x1, fx);
+  raw_axis(v, He + 1, y0, y1, fy);
+  const float* t00 = env + ((int64_t)y0 * We + x0) * 3;
+  const float* t01 = env + ((int64_t)y0 * We + x1) * 3;
+  const float* t10 = env + ((int64_t)y1 * We + x0) * 3;
+  const float* t11 = env + ((int64_t)y1 * We + x1) * 3;
+  float o[3];
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    const float c0 = lerp(__ldg(t00 + c), __ldg(t01 + c), fx);
+    const float c1 = lerp(__ldg(t10 + c), __ldg(t11 + c), fx);
+    o[c] = lerp(c0, c1, fy);
+  }
+  return make_float3(o[0], o[1], o[2]);
 }
 
 __device__ __forceinline__ void apply_homogeneous(const float* m, float x,

@@ -1,0 +1,306 @@
+// The single-scattering MCS kernel for Hopper (sm_90a), plain C interface.
+//
+//   K22 mcs_frames_kernel  replaces vpt_tpu/models/mcs.py::_mcs_frame_impl
+//                          (:174-243) looped by mcs_frames (:256-275), and
+//                          MCSRenderer.render's running average (:400-406).
+//
+// One thread per pixel. The pixel's camera ray, its cube interval, its view
+// direction's environment and its uv seed bits are the same for every
+// frame, so a thread computes them once; then, for each of the launch's K
+// frames (seed and host-drawn scattering direction read from `inputs`):
+// the chain hash3(bits(u), bits(v), seed); a Woodcock free flight from the
+// cube's entry to a real collision or an escape (_woodcock_distance); at
+// the collision the TF's RGBA, the light (the environment at the scattering
+// direction, alpha 1) and a ratio-tracked transmittance toward the cube's
+// exit along that direction (_woodcock_transmittance); diffuse x light x
+// transmittance, or the environment on a miss or an escape; the running
+// mean acc + (img - acc) / frame. `acc` is read and written once per
+// launch, in place. The frame count is read, never written: the wrapper
+// advances it on the same stream after the launch.
+//
+// Both loops run per lane, capped at max_collisions trips. That equals the
+// reference's all-lanes-done while_loops under their global trip counter:
+// there every active lane takes exactly one trip per iteration and a done
+// lane never moves again. The RNG advances only where the reference's mask
+// is on: the flight's exponential on an active lane, the distance loop's
+// acceptance uniform on a lane that neither escaped nor was capped, no
+// uniform in the transmittance loop. A pixel whose ray misses the cube
+// skips both loops: the reference runs them there too, but its result is
+// the environment, whatever they draw. With the majorant (a (Gz, Gy, Gx)
+// grid of (majorant, flight cap) pairs) a flight samples at the rate
+// extinction * m of the cell at the lane's current distance and stops at
+// the cap; a capped trip is a pure advance (no lookup, no uniform), and a
+// tentative collision counts with alpha / m.
+//
+// Modes, all uniform runtime flags of the one instantiation: the volume a
+// packed "full" corner table (u8 or f32, linear or quasicubic) or a raw
+// (D, H, W) f32 grid (linear, quasicubic or nearest); the TF the packed
+// (257, 257, 16) corner table or the raw (256, 256, 4) texture, read at
+// (density, 0) (mcm_common.cuh sample_rgba); the environment a raw (He, We,
+// 3) map (sample_env_rgb); the majorant grid present or not.
+//
+// What bounds it on this card: each trip is a dependent chain (a hash, a
+// log, a volume row, then the TF row the density selects), and a warp
+// lasts as long as its slowest lane's trips; the bytes (acc once, the rows
+// the lookups touch, most in the L2) and the FP32 operations bound it far
+// below that (counted by chip_smoke.py's phase 22). The design keeps a lane
+// in registers for all K frames and pays per warp, not per frame as the
+// reference's lockstep loops do.
+//
+// Numerics: built without fast math and with -fmad=false, so every
+// expression rounds as the plain PyTorch version's (kernels/mcs.py); every
+// quotient is IEEE's (__fdiv_rn, or the exact reciprocal-and-correction
+// quot), sqrt is IEEE, logf/atan2f/asinf the accurate forms, min/max
+// propagate NaN like torch. There are no atomics, so the kernel equals its
+// plain version bit for bit.
+
+#include "mcm_common.cuh"
+
+namespace {
+
+#define MCS_THREADS 128
+
+// parameter block layout, mirrored by vpt_tpu_torch/kernels/mcs.py
+enum McsF {
+  SF_INV_MVP = 0,  // 16 floats, row-major
+  SF_EXTINCTION = 16,
+  SF_INV_RES,      // f32(1 / R), the camera rays' pixel step
+  SF_COUNT,
+};
+enum McsI {
+  SI_RES = 0, SI_N_FRAMES, SI_MAX_COLLISIONS,
+  SI_VOL_RAW,      // 1: a raw (D, H, W) f32 grid, given as D+1, H+1, W+1
+  SI_VOL_U8,       // packed table: 1 u8, 0 f32
+  SI_VOL_D, SI_VOL_H, SI_VOL_W,
+  SI_QUASICUBIC,
+  SI_NEAREST,      // raw grid only
+  SI_TF_RAW,       // 1: a raw (H, W, 4) texture, given as H+1, W+1
+  SI_TF_H, SI_TF_W,
+  SI_ENV_H, SI_ENV_W,               // the raw map's He, We
+  SI_MAJ_GZ, SI_MAJ_GY, SI_MAJ_GX,  // majorant grid cells (0 without one)
+  SI_COUNT,
+};
+
+struct McsParams {
+  float f[SF_COUNT];
+  int i[SI_COUNT];
+};
+
+// the TF's RGBA at the volume's density at (x, y, z): _sample_tf
+__device__ __forceinline__ float4 mcs_rgba(const void* vol, const float* __restrict__ tf,
+                                           const McsParams& P, float x, float y, float z) {
+  float d;
+  if (P.i[SI_VOL_RAW] != 0)
+    d = sample_volume_raw(static_cast<const float*>(vol), P.i[SI_VOL_D], P.i[SI_VOL_H],
+                          P.i[SI_VOL_W], x, y, z, P.i[SI_QUASICUBIC] != 0, P.i[SI_NEAREST] != 0);
+  else
+    d = sample_volume(vol, P.i[SI_VOL_U8], P.i[SI_VOL_D], P.i[SI_VOL_H], P.i[SI_VOL_W], x, y, z,
+                      nullptr, P.i[SI_QUASICUBIC] != 0, false);
+  return sample_rgba(tf, P.i[SI_TF_RAW] != 0, P.i[SI_TF_H], P.i[SI_TF_W], d);
+}
+
+// A segment from (fx, fy, fz) to (tx, ty, tz): its length and the divisor
+// max(length, 1e-30) of the fraction t = dist / divisor along it
+struct Segment {
+  float fx, fy, fz, tx, ty, tz, len, den;
+};
+
+__device__ __forceinline__ Segment segment(float fx, float fy, float fz, float tx, float ty,
+                                           float tz) {
+  Segment g{fx, fy, fz, tx, ty, tz, 0.0f, 0.0f};
+  const float ex = tx - fx, ey = ty - fy, ez = tz - fz;
+  g.len = sqrtf(ex * ex + ey * ey + ez * ez);
+  g.den = nmax(g.len, 1e-30f);
+  return g;
+}
+
+// One trip's free flight from distance `dist`: the step (capped at the
+// majorant cell's flight range), whether it was capped, and the cell's
+// majorant m (1 without a grid)
+__device__ __forceinline__ float flight(uint32_t& s, const McsParams& P, const Recip& ext,
+                                        const float2* __restrict__ maj, const Segment& g,
+                                        float dist, bool& capped, float& m) {
+  capped = false;
+  m = 1.0f;
+  if (maj == nullptr) return quot(-logf(draw(s)), ext);
+  const float t0 = __fdiv_rn(dist, g.den);
+  const int gz = P.i[SI_MAJ_GZ], gy = P.i[SI_MAJ_GY], gx = P.i[SI_MAJ_GX];
+  const int cz = floor_cell(lerp(g.fz, g.tz, t0), gz);
+  const int cy = floor_cell(lerp(g.fy, g.ty, t0), gy);
+  const int cx = floor_cell(lerp(g.fx, g.tx, t0), gx);
+  const float2 row = __ldg(maj + ((int64_t)cz * gy + cy) * gx + cx);
+  m = nmax(row.x, 1e-12f);
+  const float step = __fdiv_rn(-logf(draw(s)), m * P.f[SF_EXTINCTION]);
+  capped = step >= row.y;
+  return nmin(step, row.y);
+}
+
+// _woodcock_distance on one lane: the distance of the first real collision,
+// or past g.len on an escape, or where max_collisions trips left it.
+__device__ __forceinline__ float woodcock_distance(uint32_t& s, const McsParams& P,
+                                                   const Recip& ext, const void* vol,
+                                                   const float* __restrict__ tf,
+                                                   const float2* __restrict__ maj,
+                                                   const Segment& g) {
+  float dist = 0.0f;
+  const int cap = P.i[SI_MAX_COLLISIONS];
+  for (int i = 0; i < cap; ++i) {
+    bool capped;
+    float m;
+    dist = dist + flight(s, P, ext, maj, g, dist, capped, m);
+    if (dist > g.len) break;  // escaped
+    if (capped) continue;     // a pure advance: no lookup, no uniform
+    const float t = __fdiv_rn(dist, g.den);
+    float alpha = mcs_rgba(vol, tf, P, lerp(g.fx, g.tx, t), lerp(g.fy, g.ty, t),
+                           lerp(g.fz, g.tz, t)).w;
+    const float u = draw(s);
+    if (maj != nullptr) alpha = nmin(__fdiv_rn(alpha, m), 1.0f);
+    if (u < alpha) break;  // a real collision
+  }
+  return dist;
+}
+
+// _woodcock_transmittance on one lane: the product of (1 - alpha) over the
+// tentative collisions up to g.len; draws only the flights.
+__device__ __forceinline__ float woodcock_transmittance(uint32_t& s, const McsParams& P,
+                                                        const Recip& ext, const void* vol,
+                                                        const float* __restrict__ tf,
+                                                        const float2* __restrict__ maj,
+                                                        const Segment& g) {
+  float dist = 0.0f, trans = 1.0f;
+  const int cap = P.i[SI_MAX_COLLISIONS];
+  for (int i = 0; i < cap; ++i) {
+    bool capped;
+    float m;
+    dist = dist + flight(s, P, ext, maj, g, dist, capped, m);
+    if (dist > g.len) break;
+    if (capped) continue;
+    const float t = __fdiv_rn(dist, g.den);
+    float alpha = mcs_rgba(vol, tf, P, lerp(g.fx, g.tx, t), lerp(g.fy, g.ty, t),
+                           lerp(g.fz, g.tz, t)).w;
+    if (maj != nullptr) alpha = nmin(__fdiv_rn(alpha, m), 1.0f);
+    trans = trans * (1.0f - alpha);
+  }
+  return trans;
+}
+
+// the far end of the ray from (x, y, z) along d in the unit cube, clamped
+// at 0: intersect_cube's tfar
+__device__ __forceinline__ float cube_exit(float x, float y, float z, float dx, float dy,
+                                           float dz) {
+  const float t0x = __fdiv_rn(0.0f - x, dx), t0y = __fdiv_rn(0.0f - y, dy);
+  const float t0z = __fdiv_rn(0.0f - z, dz);
+  const float t1x = __fdiv_rn(1.0f - x, dx), t1y = __fdiv_rn(1.0f - y, dy);
+  const float t1z = __fdiv_rn(1.0f - z, dz);
+  return nmax(nmin(nmin(nmax(t0x, t1x), nmax(t0y, t1y)), nmax(t0z, t1z)), 0.0f);
+}
+
+// K22: K frames per pixel merged into acc (R, R, 4) in place. inputs: K
+// float4 (the frame seed's bits, the scattering direction); frame: the
+// count before this launch.
+__global__ void __launch_bounds__(MCS_THREADS)
+mcs_frames_kernel(const McsParams P, const void* __restrict__ vol, const float* __restrict__ tf,
+                  const float* __restrict__ env, const float2* __restrict__ maj,
+                  const float4* __restrict__ inputs, float4* __restrict__ acc,
+                  const int* __restrict__ frame) {
+  const int res = P.i[SI_RES];
+  const int pix = blockIdx.x * blockDim.x + threadIdx.x;
+  if (pix >= res * res) return;
+  const int iy = pix / res, ix = pix - iy * res;
+  // the camera ray (camera_rays), its cube interval (ray_bounds), the
+  // entry and exit points, the view direction's environment
+  const float inv_res = P.f[SF_INV_RES];
+  const float sx = (((float)ix + 0.5f) * inv_res - 0.5f) * 2.0f;
+  const float sy = (((float)iy + 0.5f) * inv_res - 0.5f) * -2.0f;
+  float fx, fy, fz, tx, ty, tz;
+  apply_homogeneous(P.f + SF_INV_MVP, sx, sy, -1.0f, fx, fy, fz);
+  apply_homogeneous(P.f + SF_INV_MVP, sx, sy, 1.0f, tx, ty, tz);
+  const float dx = tx - fx, dy = ty - fy, dz = tz - fz;
+  const float t0x = __fdiv_rn(0.0f - fx, dx), t0y = __fdiv_rn(0.0f - fy, dy);
+  const float t0z = __fdiv_rn(0.0f - fz, dz);
+  const float t1x = __fdiv_rn(1.0f - fx, dx), t1y = __fdiv_rn(1.0f - fy, dy);
+  const float t1z = __fdiv_rn(1.0f - fz, dz);
+  const float tn = nmax(nmax(nmax(nmin(t0x, t1x), nmin(t0y, t1y)), nmin(t0z, t1z)), 0.0f);
+  const float tfar = nmax(nmin(nmin(nmax(t0x, t1x), nmax(t0y, t1y)), nmax(t0z, t1z)), 0.0f);
+  const bool miss = tn >= tfar;
+  const Segment ray = segment(lerp(fx, tx, tn), lerp(fy, ty, tn), lerp(fz, tz, tn),
+                              lerp(fx, tx, tfar), lerp(fy, ty, tfar), lerp(fz, tz, tfar));
+  const int He = P.i[SI_ENV_H], We = P.i[SI_ENV_W];
+  // normalize3: x * (1 / |d|), the reciprocal correctly rounded
+  const float inv = __frcp_rn(sqrtf(dx * dx + dy * dy + dz * dz));
+  const float3 view = sample_env_rgb(env, He, We, dx * inv, dy * inv, dz * inv);
+  // the pixel's uv bits: (i + 0.5) / R by IEEE division
+  const uint32_t ubits = __float_as_uint(__fdiv_rn((float)ix + 0.5f, (float)res));
+  const uint32_t vbits = __float_as_uint(__fdiv_rn((float)iy + 0.5f, (float)res));
+  const Recip ext = recip(P.f[SF_EXTINCTION]);
+  float4 a = acc[pix];
+  int count = __ldg(frame);
+  for (int k = 0; k < P.i[SI_N_FRAMES]; ++k) {
+    const float4 in = __ldg(inputs + k);
+    float4 img = make_float4(view.x, view.y, view.z, 1.0f);
+    if (!miss) {
+      uint32_t s = hash3(ubits, vbits, __float_as_uint(in.x));
+      const float dist = woodcock_distance(s, P, ext, vol, tf, maj, ray);
+      if (!(dist > ray.len)) {
+        // the collision, the light's exit along the scattering direction
+        const float t = __fdiv_rn(dist, ray.den);
+        const float cx = lerp(ray.fx, ray.tx, t), cy = lerp(ray.fy, ray.ty, t);
+        const float cz = lerp(ray.fz, ray.tz, t);
+        const float stf = cube_exit(cx, cy, cz, in.y, in.z, in.w);
+        const Segment shadow = segment(cx, cy, cz, cx + in.y * stf, cy + in.z * stf,
+                                       cz + in.w * stf);
+        const float4 diffuse = mcs_rgba(vol, tf, P, cx, cy, cz);
+        const float3 light = sample_env_rgb(env, He, We, in.y, in.z, in.w);
+        const float T = woodcock_transmittance(s, P, ext, vol, tf, maj, shadow);
+        img = make_float4(diffuse.x * light.x * T, diffuse.y * light.y * T,
+                          diffuse.z * light.z * T, diffuse.w * 1.0f * T);
+      }
+    }
+    count += 1;
+    const float n = (float)count;
+    a.x = a.x + __fdiv_rn(img.x - a.x, n);
+    a.y = a.y + __fdiv_rn(img.y - a.y, n);
+    a.z = a.z + __fdiv_rn(img.z - a.z, n);
+    a.w = a.w + __fdiv_rn(img.w - a.w, n);
+  }
+  acc[pix] = a;
+}
+
+McsParams make_mcs_params(const float* fparams, const int* iparams) {
+  McsParams P;
+  for (int k = 0; k < SF_COUNT; ++k) P.f[k] = fparams[k];
+  for (int k = 0; k < SI_COUNT; ++k) P.i[k] = iparams[k];
+  return P;
+}
+
+}  // namespace
+
+extern "C" {
+
+int vpt_mcs_layout(int which) {
+  switch (which) {
+    case 0: return SF_COUNT;
+    case 1: return SI_COUNT;
+    default: return -1;
+  }
+}
+
+// maj (Gz*Gy*Gx float2) may be null: exact mode. inputs: n_frames float4.
+int vpt_mcs_frames(const float* fparams, const int* iparams, const void* vol, const float* tf,
+                   const float* env, const float* maj, const float* inputs, float* acc,
+                   const int* frame, void* stream) {
+  const McsParams P = make_mcs_params(fparams, iparams);
+  const int res = P.i[SI_RES];
+  if (res <= 0 || P.i[SI_N_FRAMES] <= 0) return 0;
+  if (env == nullptr || P.i[SI_ENV_H] < 1 || P.i[SI_ENV_W] < 1 ||
+      (maj != nullptr) != (P.i[SI_MAJ_GZ] > 0) ||
+      (P.i[SI_NEAREST] != 0 && P.i[SI_VOL_RAW] == 0) || res > 46340)
+    return (int)cudaErrorInvalidValue;
+  mcs_frames_kernel<<<blocks_for(res * res, MCS_THREADS), MCS_THREADS, 0,
+                      static_cast<cudaStream_t>(stream)>>>(
+      P, vol, tf, env, reinterpret_cast<const float2*>(maj),
+      reinterpret_cast<const float4*>(inputs), reinterpret_cast<float4*>(acc), frame);
+  return (int)cudaGetLastError();
+}
+
+}  // extern "C"

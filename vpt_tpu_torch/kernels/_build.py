@@ -99,6 +99,10 @@ _SIGNATURES = {
         "vpt_mcm_step": ([_P] * 22 + [_P], _I),
         "vpt_mcm_reset": ([_P, _P, _U] + [_P] * 16 + [_P], _I),
     },
+    "mcs": {
+        "vpt_mcs_layout": ([_I], _I),
+        "vpt_mcs_frames": ([_P] * 10, _I),
+    },
     "gather_bench": {
         "vpt_gather_limits": ([_P], _I),
         "vpt_gather_scalar": ([_P, _P, _P, _L, _P], _I),
@@ -201,7 +205,8 @@ KERNELS = ("step_kernel", "tape_forward_kernel", "reverse_kernel", "contract_vol
            "pack_volume_kernel", "pack_volume_xy_kernel", "pack_env_kernel", "pack_tf_kernel",
            "scatter_rows_kernel", "surrogate_tape_kernel", "surrogate_reverse_kernel",
            "raw_tape_kernel", "raw_replay_kernel", "march_kernel", "mip_kernel", "iso_kernel",
-           "iso_shade_kernel", "eam_backward_kernel", "mcm_step_kernel", "mcm_reset_kernel")
+           "iso_shade_kernel", "eam_backward_kernel", "mcm_step_kernel", "mcm_reset_kernel",
+           "mcs_frames_kernel")
 _ENTRY = re.compile(r"Compiling entry function '\S*?\d(" + "|".join(KERNELS) + r")(I\S*?EE)?[Ev]")
 
 
@@ -216,7 +221,8 @@ def ptxas_table(log_text):
     (K5 reverse_kernel: 0 for stride mode, else the importance step
     count), MODE (K15 march_kernel: 0 EAM, 1 Depth), LEARN_TF (K19
     eam_backward_kernel: 0 or 1), "" for the untemplated ones (K20
-    mcm_step_kernel and K21 mcm_reset_kernel among them)."""
+    mcm_step_kernel, K21 mcm_reset_kernel and K22 mcs_frames_kernel among
+    them)."""
     rows, cur = [], None
     for line in log_text.splitlines():
         m = _ENTRY.search(line)

@@ -1,0 +1,305 @@
+"""The single-scattering MCS kernel: wrapper, plain versions, launch counts.
+
+One kernel of ``vpt_tpu_torch/csrc/mcs.cu``:
+
+- ``frames`` (K22 ``mcs_frames``): K frames of the reference-exact frame
+  path merged into the running mean ``acc`` in place (replaces
+  ``vpt_tpu/models/mcs.py::_mcs_frame_impl`` looped by ``mcs_frames``);
+  plain version ``frames_plain``.
+
+Per pixel and frame: a Woodcock free flight along the camera ray to a real
+collision or an escape (``_woodcock_distance``), a ratio-tracked
+transmittance from the collision toward the frame's scattering direction
+(``_woodcock_transmittance``), and diffuse x light x transmittance, or the
+environment on a miss or an escape. Both loops can run against the
+super-voxel majorant (``_majorant_lookup``). The plain versions keep the
+JAX names, signatures and masked loops: all-lanes-done exits capped at
+``max_collisions`` iterations, an active lane taking one trip per
+iteration, draws only where the reference's mask is on.
+
+The tables: the volume a packed "full" corner table (u8 or f32; linear or
+quasicubic filter) or a raw (D, H, W) f32 grid (also nearest); the classic
+2D TF the packed (257, 257, 16) corner table or the raw (256, 256, 4)
+texture, read at (density, 0); the environment a raw (He, We, 3) equirect
+map (the renderer's default is one white texel); the majorant an optional
+(Gz, Gy, Gx, 2) f32 grid.
+
+The wrapper runs the plain version when its tensors lie on the CPU and
+launches K22 when they lie on one CUDA device; anything else raises.
+``LAUNCHES`` counts kernel launches (never plain runs); a launch also
+counts under each mode it ran: ``frames_majorant``, ``frames_raw`` (a raw
+grid and TF) and ``frames_environment`` (a map of more than one texel).
+The plain versions take tensors on any device, so tests and
+``chip_smoke.py`` compare kernel and plain version on the card.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from vpt_tpu_torch.kernels import _build
+from vpt_tpu_torch.kernels import mcm_spectral as K
+from vpt_tpu_torch.kernels import raymarch as RK
+from vpt_tpu_torch.kernels.mcm import sample_environment
+from vpt_tpu_torch.kernels.raymarch import _mix3, camera_rays, ray_bounds
+from vpt_tpu_torch.ops import geometry, interp, sampling
+
+# must match SF_COUNT / SI_COUNT in csrc/mcs.cu
+_F_COUNT = 18
+_I_COUNT = 18
+
+LAUNCHES = {"frames": 0, "frames_majorant": 0, "frames_raw": 0, "frames_environment": 0}
+
+
+def reset_launch_counts():
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+# ---------------------------------------------------------------------------
+# plain PyTorch versions
+# ---------------------------------------------------------------------------
+def _majorant_lookup(ctx, px, py, pz):
+    """(m, r) of the majorant cell at normalized (px, py, pz): the local
+    alpha majorant, floored at 1e-12, and the flight cap."""
+    Gz, Gy, Gx, _ = ctx.majorant.shape
+    cell = ((interp._nearest_coords(pz, Gz) * Gy + interp._nearest_coords(py, Gy)) * Gx
+            + interp._nearest_coords(px, Gx))
+    row = ctx.majorant.reshape(-1, 2)[cell.to(torch.int64)]
+    return torch.clamp_min(row[..., 0], 1e-12), row[..., 1]
+
+
+def _sample_tf(ctx, px, py, pz, volume_filter):
+    return RK.sample_tf(ctx.density, ctx.tf_table, px, py, pz, volume_filter)
+
+
+def _flight(rng, active, ctx, frm, to, dist, denom):
+    """One masked free-flight draw: (rng, step, capped, m); in majorant
+    mode at the local rate extinction * m from the cell at the lane's
+    current distance, the step capped at the cell's flight range."""
+    ext = K._f32(ctx.extinction)
+    if ctx.majorant is None:
+        rng, step = sampling.draw_exponential(rng, active, ext)
+        return rng, step, torch.zeros_like(active), None
+    m, cap = _majorant_lookup(ctx, *_mix3(frm, to, dist / denom))
+    rng, step = sampling.draw_exponential(rng, active, m * ext)
+    return rng, torch.minimum(step, cap), step >= cap, m
+
+
+def _length(frm, to):
+    ex, ey, ez = (to[i] - frm[i] for i in range(3))
+    return torch.sqrt(ex * ex + ey * ey + ez * ez)
+
+
+def _woodcock_distance(rng, ctx, frm, to, max_collisions, volume_filter):
+    """sampleDistance: free flight until a real collision or an escape;
+    returns (rng, dist, max_dist). A lane stops drawing once it is done;
+    the loop ends when every lane is done or after ``max_collisions``
+    iterations."""
+    max_dist = _length(frm, to)
+    denom = torch.clamp_min(max_dist, 1e-30)
+    dist = torch.zeros_like(max_dist)
+    done = torch.zeros(max_dist.shape, dtype=torch.bool, device=max_dist.device)
+    i = 0
+    while i < max_collisions and not bool(done.all()):
+        active = ~done
+        rng, step, capped, m = _flight(rng, active, ctx, frm, to, dist, denom)
+        dist = torch.where(active, dist + step, dist)
+        escaped = active & (dist > max_dist)
+        still = active & ~escaped & ~capped
+        tf4 = _sample_tf(ctx, *_mix3(frm, to, dist / denom), volume_filter)
+        rng, u = sampling.draw(rng, still)
+        alpha = tf4[..., 3]
+        if m is not None:
+            # delta tracking against the local majorant: accept with alpha / m
+            alpha = torch.clamp_max(alpha / m, 1.0)
+        done = done | escaped | (still & (u < alpha))
+        i += 1
+    return rng, dist, max_dist
+
+
+def _woodcock_transmittance(rng, mask, ctx, frm, to, max_collisions, volume_filter):
+    """sampleTransmittance: the product of (1 - alpha) over the tentative
+    collisions to ``to`` (alpha / m against the majorant); lanes outside
+    ``mask`` never run. Returns (rng, trans)."""
+    max_dist = _length(frm, to)
+    denom = torch.clamp_min(max_dist, 1e-30)
+    dist = torch.zeros_like(max_dist)
+    trans = torch.ones_like(max_dist)
+    done = ~mask
+    i = 0
+    while i < max_collisions and not bool(done.all()):
+        active = mask & ~done
+        rng, step, capped, m = _flight(rng, active, ctx, frm, to, dist, denom)
+        dist = torch.where(active, dist + step, dist)
+        escaped = active & (dist > max_dist)
+        still = active & ~escaped & ~capped
+        alpha = _sample_tf(ctx, *_mix3(frm, to, dist / denom), volume_filter)[..., 3]
+        if m is not None:
+            alpha = torch.clamp_max(alpha / m, 1.0)
+        trans = torch.where(still, trans * (1.0 - alpha), trans)
+        done = done | escaped
+        i += 1
+    return rng, trans
+
+
+def pixel_seeds(resolution: int, seed_bits: int, device) -> torch.Tensor:
+    """Each pixel's chain seed, hash3(bits(u), bits(v), seed) of its screen
+    uv ((ix + 0.5) / R by IEEE division, as K22 divides)."""
+    i = torch.arange(resolution, dtype=torch.float32, device=device)
+    bits = sampling.div_scalar(i + 0.5, float(resolution)).view(torch.int32).to(torch.int64)
+    u = bits.view(1, -1).expand(resolution, resolution)
+    v = bits.view(-1, 1).expand(resolution, resolution)
+    return sampling.hash3(u, v, torch.full_like(u, int(seed_bits) & sampling.MASK32))
+
+
+def _with_alpha(rgb):
+    return torch.cat([rgb, torch.ones_like(rgb[..., :1])], dim=-1)
+
+
+def mcs_frame(ctx, resolution: int, max_collisions: int = 1024, volume_filter: str = "linear"):
+    """One single-scattering sample per pixel -> (R, R, 4) RGBA frame."""
+    device = ctx.tf_table.device
+    frm, to = camera_rays(resolution, ctx.inv_mvp, device)
+    view = geometry.normalize3(*(to[i] - frm[i] for i in range(3)))
+    tn, tf_, miss = ray_bounds(frm, to)
+    entry, exit_ = _mix3(frm, to, tn), _mix3(frm, to, tf_)
+    rng = pixel_seeds(resolution, ctx.seed_bits, device)
+    rng, dist, max_dist = _woodcock_distance(rng, ctx, entry, exit_, max_collisions,
+                                             volume_filter)
+    escaped = dist > max_dist
+    scat = _mix3(entry, exit_, dist / torch.clamp_min(max_dist, 1e-30))
+    sd = torch.as_tensor(np.array(ctx.scatter_dir, np.float32), device=device)
+    sdir = tuple(sd[i].expand(dist.shape) for i in range(3))
+    _, stf = geometry.intersect_cube(*scat, *sdir)
+    stf = torch.clamp_min(stf, 0.0)
+    light_exit = tuple(scat[i] + sdir[i] * stf for i in range(3))
+    diffuse = _sample_tf(ctx, *scat, volume_filter)
+    # the light: one env sample at the frame's scattering direction, alpha 1
+    light = _with_alpha(sample_environment(ctx.environment, sd[0], sd[1], sd[2]))
+    rng, trans = _woodcock_transmittance(rng, ~miss & ~escaped, ctx, scat, light_exit,
+                                         max_collisions, volume_filter)
+    shaded = diffuse * light * trans[..., None]
+    env = _with_alpha(sample_environment(ctx.environment, *view))
+    return torch.where((miss | escaped)[..., None], env, shaded)
+
+
+def frames_plain(acc, frame, ctx, seeds, scatter_dirs, max_collisions: int = 1024,
+                 volume_filter: str = "linear"):
+    """Plain ``frames``: for each (seed, scatter direction) one
+    ``mcs_frame`` merged as acc + (img - acc) / frame; ``acc`` (R, R, 4)
+    and ``frame`` (0-d int32) updated in place. Returns (acc, frame)."""
+    seeds = np.asarray(seeds, np.uint32).reshape(-1)
+    dirs = np.asarray(scatter_dirs, np.float32).reshape(-1, 3)
+    out = acc.clone()
+    for k, (seed, sd) in enumerate(zip(seeds, dirs)):
+        c = dataclasses.replace(ctx, seed_bits=int(seed), scatter_dir=sd)
+        img = mcs_frame(c, acc.shape[0], max_collisions, volume_filter)
+        n = (frame + (k + 1)).to(torch.float32)
+        out = out + (img - out) / n
+    acc.copy_(out)
+    frame.add_(len(seeds))
+    return acc, frame
+
+
+def mcs_frames(ctx, seeds, scatter_dirs, acc, frame, resolution: int, max_collisions: int = 1024,
+               volume_filter: str = "linear"):
+    """The JAX ``mcs_frames``: K frames folded into the running mean;
+    returns new (acc, frame) and leaves its arguments as they were."""
+    if tuple(acc.shape[:2]) != (resolution, resolution):
+        raise ValueError(f"acc is {tuple(acc.shape)}, not ({resolution}, {resolution}, 4)")
+    acc, frame = acc.clone(), frame.clone()
+    return frames_plain(acc, frame, ctx, seeds, scatter_dirs, max_collisions, volume_filter)
+
+
+# ---------------------------------------------------------------------------
+# CUDA wrapper
+# ---------------------------------------------------------------------------
+def _check_tables(ctx, volume_filter):
+    if isinstance(ctx.density, interp.PackedVolume) and ctx.density.kind != "full":
+        raise ValueError(f"mcs reads a full packed volume table, not {ctx.density.kind!r}")
+    RK._check_tables(ctx.density, ctx.tf_table, volume_filter)
+    env = ctx.environment
+    if env.ndim != 3 or env.shape[-1] != 3:
+        raise ValueError(f"environment must be a raw (He, We, 3) map, got {tuple(env.shape)}")
+    K._check(env, "environment", torch.float32)
+    if ctx.majorant is not None:
+        if ctx.majorant.ndim != 4 or ctx.majorant.shape[-1] != 2:
+            raise ValueError(f"majorant must be a (Gz, Gy, Gx, 2) table, got "
+                             f"{tuple(ctx.majorant.shape)}")
+        K._check(ctx.majorant, "majorant", torch.float32, align=8)
+
+
+def _params(ctx, resolution: int, n_frames: int, max_collisions: int, volume_filter: str):
+    f = np.zeros(_F_COUNT, np.float32)
+    f[0:16] = np.asarray(ctx.inv_mvp, np.float32).reshape(16)
+    f[16] = ctx.extinction
+    f[17] = np.float32(1.0 / resolution)
+    vol, tf, env = ctx.density, ctx.tf_table, ctx.environment
+    vol_raw = not isinstance(vol, interp.PackedVolume)
+    # a raw axis of n texels is given as n + 1, as a packed table's would be
+    dims = tuple(d + 1 for d in vol.shape) if vol_raw else vol.dims
+    tf_raw = tf.shape[-1] == 4
+    maj = tuple(ctx.majorant.shape[:3]) if ctx.majorant is not None else (0, 0, 0)
+    i = np.array([
+        resolution, n_frames, max_collisions, int(vol_raw),
+        int(not vol_raw and vol.table.dtype == torch.uint8), *dims,
+        int(volume_filter == "quasicubic"), int(volume_filter == "nearest"), int(tf_raw),
+        tf.shape[0] + tf_raw, tf.shape[1] + tf_raw, env.shape[0], env.shape[1], *maj,
+    ], np.int32)
+    assert i.shape == (_I_COUNT,)
+    return f, i
+
+
+def _frame_inputs(seeds, dirs) -> np.ndarray:
+    """The launch's per-frame inputs as one (K, 4) f32 array: the seed's
+    bits, then the scattering direction."""
+    out = np.empty((len(seeds), 4), np.float32)
+    out[:, 0] = np.asarray(seeds, np.uint32).view(np.float32)
+    out[:, 1:] = dirs
+    return out
+
+
+def frames(acc, frame, ctx, seeds, scatter_dirs, max_collisions: int = 1024,
+           volume_filter: str = "linear"):
+    """K frames, one per (seed, scatter direction), merged into the running
+    mean ``acc`` (R, R, 4) in place; ``frame`` (0-d int32) advanced by K.
+    On a CUDA device one launch of K22 ``mcs_frames`` (which reads the
+    count) and the count's ``add_`` on the same stream."""
+    seeds = np.asarray(seeds, np.uint32).reshape(-1)
+    dirs = np.asarray(scatter_dirs, np.float32).reshape(-1, 3)
+    if len(dirs) != len(seeds):
+        raise ValueError(f"{len(seeds)} seeds but {len(dirs)} scatter directions")
+    tensors = [acc, frame, RK._volume_tensor(ctx.density), ctx.tf_table, ctx.environment]
+    if ctx.majorant is not None:
+        tensors.append(ctx.majorant)
+    if K._route(*tensors) == "cpu":
+        return frames_plain(acc, frame, ctx, seeds, dirs, max_collisions, volume_filter)
+    _check_tables(ctx, volume_filter)
+    res = acc.shape[0]
+    K._check(acc, "acc", torch.float32, (res, res, 4), align=16)
+    K._check(frame, "frame", torch.int32, ())
+    if len(seeds) == 0:
+        return acc, frame
+    f, i = _params(ctx, res, len(seeds), int(max_collisions), volume_filter)
+    lib = _build.load()
+    if (lib.vpt_mcs_layout(0), lib.vpt_mcs_layout(1)) != (_F_COUNT, _I_COUNT):
+        raise RuntimeError("mcs kernel library parameter layout does not match the wrapper")
+    device = acc.device
+    inputs = torch.as_tensor(_frame_inputs(seeds, dirs), device=device)
+    with torch.cuda.device(device):
+        err = lib.vpt_mcs_frames(f.ctypes.data, i.ctypes.data, tensors[2].data_ptr(),
+                                 ctx.tf_table.data_ptr(), ctx.environment.data_ptr(),
+                                 K._ptr(ctx.majorant), inputs.data_ptr(), acc.data_ptr(),
+                                 frame.data_ptr(), K._stream(device))
+    K._raise_on(err, "mcs_frames")
+    frame.add_(len(seeds))
+    LAUNCHES["frames"] += 1
+    for mode, on in (("majorant", ctx.majorant is not None),
+                     ("raw", not isinstance(ctx.density, interp.PackedVolume)),
+                     ("environment", ctx.environment.numel() > 3)):
+        LAUNCHES[f"frames_{mode}"] += int(on)
+    return acc, frame
