@@ -7,7 +7,7 @@ Phases (each raises on failure, so any failure exits non-zero):
   2. build the kernels of vpt_tpu_torch/csrc with nvcc (sm_90a, one nvcc
      per source, all at once); print the ptxas registers, spills and
      stack frame of every instantiation of K1, K4 (and its surrogate
-     mode), K5, K9, K10, K11, K12, K13, K14 and K15-K22
+     mode), K5, K9, K10, K11, K12, K13, K14 and K15-K23
   3. sample_volume_packed vs its plain version: all 256 u8 codes exact;
      timed at 1M lookups by device time (CUDA-graph replay) against
      F.grid_sample on the float volume, host path beside it
@@ -168,6 +168,24 @@ Phases (each raises on failure, so any failure exits non-zero):
      default a second run and a checkpoint round trip bit for bit and four
      run(16) calls profiled in a fresh process (the device busy share).
      Phase 14 also runs `render --renderer mcs`.
+ 23. MCS's persistent lanes (K23 mcs_persistent) on phase 22's scene, BASELINE
+     config 2's persistent tiers (512^2 x 4 streams, 8 steps, 16 dispatches
+     a launch): K23 equal to its plain version bit for bit on all 16 state
+     fields, two launches identical, over 2 dispatches from a mid-flight
+     state on the u8 packed table, an f32 packed table, quasicubic, nearest
+     over the raw grid, phase 12's environment map, majorant_blocks=8 and one
+     stream; the main scene's 16-dispatch launch from a warm state, exact
+     and majorant, bit for bit against the plain version run twice, once
+     with its work counted (lane-steps, lookups, scatters, deposits, the
+     volume entries, env texels and majorant cells touched); each launch
+     timed by device time (CUDA-graph replay) against the bound of its
+     counted work, with lane-steps/s, deposits/s and steps a deposit beside
+     K22's 16-frame launch on the same tables (paths/s); a persistent
+     RenderSession per mode, reset() and run(16) with the counts set to 0
+     before (one K23 launch and nothing else of the port's kernels); on the
+     default a second run and a checkpoint round trip bit for bit and four
+     run(16) calls profiled in a fresh process (the busy share, the host's
+     wait).
 The line before the last is a JSON object with each kernel's launches,
 error and times, its bound (the larger of the bytes it must move over the
 HBM rate and the FP32 operations this run's data needs over the FP32
@@ -329,6 +347,32 @@ MCS_EXTINCTION, MCS_FRAMES, MCS_BLOCKS = 50.0, 16, 8
  OPS_MCS_LOOKUP, OPS_MCS_ACCEPT, OPS_MCS_PRODUCT, OPS_MCS_SHADE, OPS_MCS_FRESH) = (
     166, 13, 44, 7, 13, 10, 48, 3, 2, 50, 58)
 
+
+# phase 23, MCS's persistent lanes on phase 22's scene: BASELINE config 2's
+# persistent tiers (tools/capability_configs.py:126-133 through
+# tools/mcs_profile.py:134-175): 512^2 x 4 streams, 8 steps, 16 dispatches a
+# launch from a warm state (16 dispatches in), exact and majorant_blocks=8
+MCSP_STEPS, MCSP_STREAMS, MCSP_DISPATCHES = 8, 4, 16
+MCSP_LANE_BYTES = 73  # a lane's 16 fields: 13 f32, the phase byte, samples, acc
+# FP32 operations that K23's function needs, counted from csrc/mcs.cu, each
+# where the state takes its result (the hash chain is integer work, so a
+# uniform whose value no lane reads costs none): per pixel and launch the
+# camera ray, slab test, entry and exit (98), the segment, its length and
+# direction (14): 112; per pixel whose lanes deposit the environment the view
+# direction (13) and its environment (44): 57; per lane the chain's uv (6);
+# per lane-step the flight (a uniform, log, the negation, the quotient, the
+# add, the escape compare: 7), with the majorant 19 more (the start point 6,
+# 3 cells of a product, floor and conversion, the floor at 1e-12, the rate,
+# the cap's compare and min); per lookup the point (6), the volume row and
+# the TF's alpha (48) and its min (1; with the majorant / m, 1 more), then
+# the acceptance (its uniform and the compare: 3, distance phase) or the
+# transmittance product (2, shadow phase); per scatter the TF's RGB on the
+# lookup's row (9), the sphere (its two uniforms 4, the rest 17) and the
+# shadow ray's cube exit (18); per deposit the mean (13), a shadow-phase one
+# the light (44) and the shading (7) besides
+(OPS_MCSP_PIXEL, OPS_MCSP_VIEW, OPS_MCSP_LANE, OPS_MCSP_STEP, OPS_MCSP_MAJ, OPS_MCSP_LOOKUP,
+ OPS_MCSP_ACCEPT, OPS_MCSP_PRODUCT, OPS_MCSP_SCATTER, OPS_MCSP_DEPOSIT, OPS_MCSP_SHADE) = (
+    112, 57, 6, 7, 19, 55, 3, 2, 48, 13, 51)
 
 def log(msg):
     print(msg, flush=True)
@@ -3561,6 +3605,30 @@ def mcs_device_ms(r, ctx, seeds, dirs):
     return device_ms(launch)
 
 
+def touch_env_texels(env, touched, dx, dy, dz, mask):
+    """Mark in ``touched`` (He * We bools) the texels of the raw (He, We, 3)
+    map that an equirect lookup in direction d reads where ``mask``."""
+    from vpt_tpu_torch.kernels import mcm as KM
+    from vpt_tpu_torch.ops import interp
+
+    He, We, _ = env.shape
+    u = torch.atan2(dx, -dz) * KM.INV_PI_HALF + 0.5
+    v = torch.asin(torch.clamp(-dy, -1.0, 1.0)) * 2.0 * KM.INV_PI_HALF + 0.5
+    for iy in interp._coords(v, He)[:2]:
+        for ix in interp._coords(u, We)[:2]:
+            touched[(iy * We + ix)[mask].to(torch.int64)] = True
+
+
+def majorant_cells(maj, x, y, z):
+    """The flat index of the (Gz, Gy, Gx, 2) majorant grid's cell at
+    normalized (x, y, z), as ``_majorant_lookup`` addresses it."""
+    from vpt_tpu_torch.ops import interp
+
+    Gz, Gy, Gx, _ = maj.shape
+    return ((interp._nearest_coords(z, Gz) * Gy + interp._nearest_coords(y, Gy)) * Gx
+            + interp._nearest_coords(x, Gx)).to(torch.int64)
+
+
 def mcs_replay(r, ctx, seeds, dirs):
     """K22's work over one launch from a zero state, replayed with the plain
     pieces (kernels/mcs.py) on the lanes and trips the kernel takes: per
@@ -3576,7 +3644,7 @@ def mcs_replay(r, ctx, seeds, dirs):
     from vpt_tpu_torch.kernels import mcm as KM
     from vpt_tpu_torch.kernels import mcs as KS
     from vpt_tpu_torch.kernels import raymarch as RK
-    from vpt_tpu_torch.ops import geometry, interp, sampling
+    from vpt_tpu_torch.ops import geometry, sampling
 
     dev, filt, maj = r.device, r.volume.filter, ctx.majorant
     frm, to = RK.camera_rays(RES, ctx.inv_mvp, dev)
@@ -3591,11 +3659,7 @@ def mcs_replay(r, ctx, seeds, dirs):
                                                        device=dev)
 
     def touch_env(dx, dy, dz, mask):
-        u = torch.atan2(dx, -dz) * KM.INV_PI_HALF + 0.5
-        v = torch.asin(torch.clamp(-dy, -1.0, 1.0)) * 2.0 * KM.INV_PI_HALF + 0.5
-        for iy in interp._coords(v, He)[:2]:
-            for ix in interp._coords(u, We)[:2]:
-                env_touched[(iy * We + ix)[mask].to(torch.int64)] = True
+        touch_env_texels(env, env_touched, dx, dy, dz, mask)
 
     count = dict(distance_lookups=0, transmittance_lookups=0, majorant_points=0)
 
@@ -3613,11 +3677,7 @@ def mcs_replay(r, ctx, seeds, dirs):
             active = ~done
             if maj is not None:
                 count["majorant_points"] += int((active & ~known).sum())
-                Gz, Gy, Gx, _ = maj.shape
-                p = RK._mix3(a, b, dist / denom)
-                cell = ((interp._nearest_coords(p[2], Gz) * Gy + interp._nearest_coords(p[1], Gy))
-                        * Gx + interp._nearest_coords(p[0], Gx))
-                maj_touched[cell[active].to(torch.int64)] = True
+                maj_touched[majorant_cells(maj, *RK._mix3(a, b, dist / denom))[active]] = True
             rng, step, capped, m = KS._flight(rng, active, c, a, b, dist, denom)
             dist = torch.where(active, dist + step, dist)
             escaped = active & (dist > max_dist)
@@ -3759,19 +3819,20 @@ def mcs_session(s, frames, checkpoint_at=None, tmp=None):
 
 class McsProfile:
     """``rm_profile`` of 4 x the default ``RenderSession("mcs").run(16)`` on
-    the MCS scene, in a fresh process (as phase 21's), started early so
+    the MCS scene (with ``kw``, a source text of further renderer keywords),
+    in a fresh process (as phase 21's), started early so
     that its start-up overlaps the phase's checks: it warms up, says
     "ready" and waits; ``ready()`` waits for that, after which the process
     holds the card idle until ``finish()`` lets it profile. ``close()``
     ends it whatever happened."""
 
-    def __init__(self):
+    def __init__(self, kw=""):
         code = ("import json, sys, torch, chip_smoke as CS\n"
                 "def ready():\n"
                 "    print('ready', flush=True)\n"
                 "    sys.stdin.readline()\n"
                 "print(json.dumps(CS.rm_profile('mcs', torch.device('cuda:0'), CS.MCS_FRAMES, "
-                "calls=4, ready=ready, extinction=CS.MCS_EXTINCTION, camera=CS.mcs_camera())))")
+                f"calls=4, ready=ready, extinction=CS.MCS_EXTINCTION, camera=CS.mcs_camera(){kw})))")
         self.err = tempfile.TemporaryFile(mode="w+")
         self.proc = subprocess.Popen([sys.executable, "-c", code], stdin=subprocess.PIPE,
                                      stdout=subprocess.PIPE, stderr=self.err, text=True,
@@ -3939,6 +4000,336 @@ def phase_mcs(dev):
     split["other"] = total - sum(split.values())
     log(f"# phase 22 (MCS): {total:.1f} s: " + ", ".join(f"{k} {v:.1f} s" for k, v in split.items()))
     return list(entries.values()), dict(sessions=sessions, trips=trips, seconds=split)
+
+
+def mcsp_modes():
+    """Phase 23's modes: phase 22's tables and majorant at 4 streams, and the
+    u8 table at one stream."""
+    modes = [m for m in mcs_modes() if m[0] != "max_collisions=16"]
+    return modes + [("streams=1", modes[0][1], None, dict(streams=1))]
+
+
+def mcsp_clone(state):
+    return type(state)(*(t.clone() for t in state.tensors()))
+
+
+def mcsp_seeds(first, n):
+    return [(first + k) * 2654435761 % 2**32 for k in range(n)]
+
+
+class McspCounts:
+    """The work of one K23 launch, counted from its plain version's
+    iterations (``kernels/mcs.py``'s ``observe`` hook): lane-steps,
+    distance-phase lane-steps, lookups (a step that neither escaped nor was
+    capped; ``RmReads``, each volume entry touched once) by phase, scatters,
+    deposits by phase, and the environment texels (the view's of a lane
+    that deposits it, the light's of a shadow-phase deposit) and majorant
+    cells the launch touches."""
+
+    def __init__(self, ctx, filt):
+        self.ctx, self.reads = ctx, RmReads(ctx.density, filt)
+        dev = ctx.tf_table.device
+        self.n = {}
+        He, We, _ = ctx.environment.shape
+        self.env = torch.zeros(He * We, dtype=torch.bool, device=dev)
+        self.maj = (None if ctx.majorant is None else
+                    torch.zeros(ctx.majorant[..., 0].numel(), dtype=torch.bool, device=dev))
+        self.view = None
+
+    def add(self, key, mask):
+        self.n[key] = self.n.get(key, 0) + mask.sum()
+
+    def __call__(self, d):
+        shadow, tent, esc, p = d["shadow"], d["tentative"], d["escaped"], d["p"]
+        self.add("lane_steps", torch.ones_like(shadow))
+        self.add("distance_steps", ~shadow)
+        self.add("distance_lookups", tent & ~shadow)
+        self.add("shadow_lookups", tent & shadow)
+        self.add("scatters", d["scatter"])
+        self.add("env_deposits", esc & ~shadow)
+        self.add("shaded_deposits", esc & shadow)
+        self.reads.add(*d["point"], tent)
+        touch_env_texels(self.ctx.environment, self.env, p.sdx, p.sdy, p.sdz, esc & shadow)
+        view = esc & ~shadow
+        self.view = view if self.view is None else self.view | view
+        if d["start"] is not None:
+            self.maj[majorant_cells(self.ctx.majorant, *d["start"]).reshape(-1)] = True
+
+    def totals(self, res):
+        """The counts as ints, with the pixels whose lanes deposited the
+        environment (``view_pixels``) and their view texels, and the touched
+        bytes."""
+        from vpt_tpu_torch.kernels import raymarch as RK
+        from vpt_tpu_torch.ops import geometry
+
+        out = {k: int(v) for k, v in self.n.items()}
+        frm, to = RK.camera_rays(res, self.ctx.inv_mvp, self.env.device)
+        used = self.view.reshape(-1, res, res).any(0)
+        out["view_pixels"] = int(used.sum())
+        touch_env_texels(self.ctx.environment, self.env,
+                         *geometry.normalize3(*(to[k] - frm[k] for k in range(3))), used)
+        out["lookups"] = out["distance_lookups"] + out["shadow_lookups"]
+        out["deposits"] = out["env_deposits"] + out["shaded_deposits"]
+        out["env_bytes"] = int(self.env.sum()) * 12
+        out["majorant_bytes"] = 0 if self.maj is None else int(self.maj.sum()) * 8
+        out["volume_bytes"] = self.reads.volume_bytes()
+        return out
+
+
+def mcsp_bound(ctx, n, lanes, n_seeds, ms):
+    """``bound`` of K23 over one launch: the state read and written once, the
+    seeds, each volume entry, majorant cell and environment texel the
+    launch's lookups touch once, the TF's row 0; the operations the
+    launch's counted work needs (``OPS_MCSP_*``)."""
+    maj = ctx.majorant is not None
+    tf_row = ctx.tf_table[0].numel() * 4 if n["lookups"] else 0
+    nbytes = (2 * lanes * MCSP_LANE_BYTES + 4 * n_seeds + n["volume_bytes"] + tf_row
+              + n["env_bytes"] + n["majorant_bytes"])
+    ops = (RES * RES * OPS_MCSP_PIXEL + n["view_pixels"] * OPS_MCSP_VIEW + lanes * OPS_MCSP_LANE
+           + n["lane_steps"] * (OPS_MCSP_STEP + OPS_MCSP_MAJ * maj)
+           + n["lookups"] * (OPS_MCSP_LOOKUP + maj)
+           + n["distance_lookups"] * OPS_MCSP_ACCEPT + n["shadow_lookups"] * OPS_MCSP_PRODUCT
+           + n["scatters"] * OPS_MCSP_SCATTER + n["deposits"] * OPS_MCSP_DEPOSIT
+           + n["shaded_deposits"] * OPS_MCSP_SHADE)
+    return bound(nbytes, ops, ms)
+
+
+def mcsp_check(label, r, state0, seeds):
+    """K23 (two launches) and its plain version over ``seeds`` from
+    ``state0``, then the plain version again with the work counted
+    (``McspCounts``): all four states equal on every field bit for bit.
+    Returns (the kernel's state, the plain version's seconds, the counts)."""
+    from vpt_tpu_torch.kernels import mcs as KS
+
+    ctx = r.ctx(mcs_camera(), seeds[0])
+    counts = McspCounts(ctx, r.volume.filter)
+    out = []
+    for fn, kw in ((KS.persistent, {}), (KS.persistent, {}), (KS.persistent_plain, {}),
+                   (KS.persistent_plain, dict(observe=counts))):
+        st = mcsp_clone(state0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn(st, ctx, seeds, r.steps, r.volume.filter, r.streams, **kw)
+        torch.cuda.synchronize()
+        out.append((st, time.perf_counter() - t0))
+    for (st, _), what in ((out[1], "a second launch"), (out[2], "the plain version"),
+                          (out[3], "the counted plain version")):
+        bad = [k for k in KS.PERSISTENT_FIELDS
+               if not torch.equal(getattr(out[0][0], k).view(torch.uint8),
+                                  getattr(st, k).view(torch.uint8))]
+        if bad:
+            a, b = getattr(out[0][0], bad[0]), getattr(st, bad[0])
+            lanes = (a != b).reshape(a.shape[:state0.dist.ndim] + (-1,)).any(-1)
+            raise AssertionError(f"K23 ({label}) differs from {what} in {bad}: "
+                                 f"{int(lanes.sum())} lanes of {bad[0]}, the first "
+                                 f"{[int(i) for i in lanes.nonzero()[0]]}")
+    st = out[0][0]
+    if not bool(torch.isfinite(st.acc).all()) or int(st.samples.sum()) <= int(state0.samples.sum()):
+        raise AssertionError(f"K23 ({label}): acc not finite or no sample deposited")
+    return st, out[2][1], counts.totals(RES)
+
+
+def mcsp_device_ms(r, state0, seeds):
+    """K23's device time for one launch over ``seeds`` from ``state0``: 20
+    calls of (copy ``state0`` into a working state, launch) captured in a
+    CUDA graph (``device_ms``), less 20 copies alone; the launch goes
+    through the library with its inputs uploaded once, so each call does
+    the same work."""
+    from vpt_tpu_torch.kernels import _build
+    from vpt_tpu_torch.kernels import mcm_spectral as K
+    from vpt_tpu_torch.kernels import mcs as KS
+
+    dev = r.device
+    ctx = r.ctx(mcs_camera(), seeds[0])
+    f, i = KS._params(ctx, RES, len(seeds), 0, r.volume.filter, r.steps, r.streams)
+    seeds_dev = torch.as_tensor(np.asarray(seeds, np.uint32).view(np.int32), device=dev)
+    work = mcsp_clone(state0)
+    vol, lib = KS.RK._volume_tensor(ctx.density), _build.load()
+
+    def copy():
+        for a, b in zip(work.tensors(), state0.tensors()):
+            a.copy_(b)
+
+    def launch():
+        copy()
+        K._raise_on(lib.vpt_mcs_persistent(
+            f.ctypes.data, i.ctypes.data, vol.data_ptr(), ctx.tf_table.data_ptr(),
+            ctx.environment.data_ptr(), K._ptr(ctx.majorant), seeds_dev.data_ptr(),
+            *(getattr(work, k).data_ptr() for k in KS.PERSISTENT_FIELDS),
+            K._stream(dev)), "mcs_persistent")
+
+    return device_ms(launch) - device_ms(copy)
+
+
+def phase_mcs_persistent(dev):
+    """Phase 23: MCS's persistent lanes (K23 mcs_persistent) on phase 22's
+    scene at 512^2 x 4 streams, 8 steps. Checks: K23 bit for bit against
+    its plain version (two launches, all 16 fields) over 2 dispatches from a
+    mid-flight state in each mode (u8, f32, quasicubic, nearest, the
+    environment map, majorant_blocks=8, one stream) and over the main
+    scene's 16-dispatch launch from a warm state, exact and majorant. Then,
+    once the profiling process (started first) waits: each launch timed by
+    device time against the bound of its counted work, K22's 16-frame
+    launch on the same tables beside it (paths/s against deposits/s); a
+    persistent RenderSession per mode, reset() and run(16) with the counts
+    set to 0 before (one K23 launch and nothing else of the port's
+    kernels); on the default a second run and a checkpoint round trip bit
+    for bit and four run(16) calls profiled in a fresh process (the device
+    busy share). The phase's seconds by step close it."""
+    from vpt_tpu_torch.kernels import mcs as KS
+
+    t_phase = time.perf_counter()
+    split = {}
+
+    def timed(step, fn, *args, **kw):
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        split[step] = split.get(step, 0.0) + time.perf_counter() - t0
+        return out
+
+    kw_p = dict(persistent=True, steps=MCSP_STEPS, streams=MCSP_STREAMS)
+    entries, sessions, launches_ = {}, {}, []
+    profiler = McsProfile(", persistent=True, steps=CS.MCSP_STEPS, streams=CS.MCSP_STREAMS")
+    try:
+        for label, vol, env, kw in mcsp_modes():
+            s = timed("sessions built", mcs_make_session, dev, vol, env, {**kw_p, **kw})
+            r = s.renderer
+            # a mid-flight state: two dispatches from the reset state
+            mid = r.reset(None)
+            KS.persistent(mid, r.ctx(mcs_camera(), 1), mcsp_seeds(1, 2), r.steps,
+                          r.volume.filter, r.streams)
+            seeds2 = mcsp_seeds(3, 2)
+            _, plain2_s, n2 = timed("2-dispatch checks", mcsp_check, label, r, mid, seeds2)
+            log(f"# K23 ({label}) == plain on all 16 fields bit for bit over 2 dispatches from a "
+                f"mid-flight state ({100 * float(mid.phase.float().mean()):.1f}% in the shadow "
+                "phase), two launches identical")
+            main = None
+            if label in ("u8", "majorant"):
+                # config 2's launch: 16 dispatches from a warm state (16 in)
+                warm = r.reset(None)
+                KS.persistent(warm, r.ctx(mcs_camera(), 1), mcsp_seeds(1, MCSP_DISPATCHES),
+                              r.steps, r.volume.filter, r.streams)
+                seeds16 = mcsp_seeds(1 + MCSP_DISPATCHES, MCSP_DISPATCHES)
+                _, plain_s, n = timed(f"{MCSP_DISPATCHES}-dispatch checks", mcsp_check,
+                                      f"{label}, {MCSP_DISPATCHES} dispatches", r, warm, seeds16)
+                main = (warm, seeds16, plain_s, n)
+                log(f"# K23 ({label}) == plain bit for bit over the main scene's "
+                    f"{MCSP_DISPATCHES}-dispatch launch, plain {plain_s * 1e3:.1f} ms; "
+                    f"{n['lane_steps']} lane-steps ({n['distance_steps']} in the distance phase), "
+                    f"{n['distance_lookups']} + {n['shadow_lookups']} lookups (distance + shadow), "
+                    f"{n['scatters']} scatters, {n['env_deposits']} + {n['shaded_deposits']} "
+                    f"deposits (environment + shaded): {n['lane_steps'] / n['deposits']:.3f} "
+                    "steps a deposit")
+            launches_.append((label, s, mid, seeds2, plain2_s, n2, main))
+            torch.cuda.empty_cache()
+        timed("waiting for the profiling process", profiler.ready)
+        k22 = {}
+        for label, s, mid, seeds2, plain2_s, n2, main in launches_:
+            r = s.renderer
+            lanes = mid.dist.numel()
+            name = "mcs_persistent" if label == "u8" else f"mcs_persistent[{label}]"
+            ms2 = timed("device timing", mcsp_device_ms, r, mid, seeds2)
+            if main is None:
+                b = mcsp_bound(r.ctx(mcs_camera(), seeds2[0]), n2, lanes, 2, ms2)
+                entries[name] = kernel_line(dict(
+                    name=name, route="cuda", source=MCS_SOURCE,
+                    replaces="vpt_tpu/models/mcs.py:473", max_abs_err=0.0, ms=ms2,
+                    plain_ms=plain2_s * 1e3, dispatches=2, steps=r.steps, streams=r.streams,
+                    counts={k: v for k, v in n2.items() if not k.endswith("_bytes")}), b)
+                log(f"# K23 ({label}): a 2-dispatch launch {ms2:.5f} ms by device time, plain "
+                    f"{plain2_s * 1e3:.1f} ms; bound {b['bound_ms']:.5f} ms by {b['bound_by']} "
+                    f"({b['bound_bytes']} B, {b['bound_ops']} FP32 ops), share "
+                    f"{b['bound_share']:.3f}")
+            else:
+                warm, seeds16, plain_s, n = main
+                ms = timed("device timing", mcsp_device_ms, r, warm, seeds16)
+                ctx22, dirs = mcs_inputs(r, mcsp_seeds(1, MCS_FRAMES))
+                k22_ms = timed("device timing", mcs_device_ms, r, ctx22, mcsp_seeds(1, MCS_FRAMES),
+                               dirs)
+                b = mcsp_bound(r.ctx(mcs_camera(), seeds16[0]), n, lanes, MCSP_DISPATCHES, ms)
+                rates = dict(lane_steps_per_s=n["lane_steps"] / ms * 1e3,
+                             deposits_per_s=n["deposits"] / ms * 1e3,
+                             steps_per_deposit=n["lane_steps"] / n["deposits"],
+                             k22_ms=k22_ms, k22_paths_per_s=RES * RES * MCS_FRAMES / k22_ms * 1e3)
+                rates["deposits_over_k22_paths"] = (rates["deposits_per_s"]
+                                                    / rates["k22_paths_per_s"])
+                k22[label] = rates
+                entries[name] = kernel_line(dict(
+                    name=name, route="cuda", source=MCS_SOURCE,
+                    replaces="vpt_tpu/models/mcs.py:473", max_abs_err=0.0, ms=ms,
+                    plain_ms=plain_s * 1e3, dispatches=MCSP_DISPATCHES, steps=r.steps,
+                    streams=r.streams, two_dispatch_ms=ms2, two_dispatch_plain_ms=plain2_s * 1e3,
+                    counts={k: v for k, v in n.items() if not k.endswith("_bytes")}, **rates), b)
+                log(f"# K23 ({label}): the main scene's {MCSP_DISPATCHES}-dispatch launch "
+                    f"{ms:.5f} ms by device time (2 dispatches {ms2:.5f}), plain "
+                    f"{plain_s * 1e3:.1f} ms; bound {b['bound_ms']:.5f} ms by {b['bound_by']} "
+                    f"({b['bound_bytes']} B, {b['bound_ops']} FP32 ops), share "
+                    f"{b['bound_share']:.3f}; {rates['lane_steps_per_s'] / 1e9:.3f} G lane-steps/s,"
+                    f" {rates['deposits_per_s'] / 1e9:.4f} G deposits/s, "
+                    f"{rates['steps_per_deposit']:.3f} steps a deposit; K22's {MCS_FRAMES}-frame "
+                    f"launch on the same tables {k22_ms:.5f} ms, "
+                    f"{rates['k22_paths_per_s'] / 1e9:.4f} G paths/s: deposits/s over paths/s "
+                    f"{rates['deposits_over_k22_paths']:.3f}")
+            # the mode's session: one K23 launch per run and nothing else
+            launches, img, dt = timed("sessions run", mcs_session, s, MCS_FRAMES)
+            deposited = int(s.state.samples.sum())
+            modes = {"nearest": ("mcs.persistent_raw",),
+                     "environment": ("mcs.persistent_environment",),
+                     "majorant": ("mcs.persistent_majorant",)}.get(label, ())
+            want = {"mcs.persistent": 1, **{k: 1 for k in modes}}
+            if r.streams > 1:
+                want["mcs.persistent_streams"] = 1
+            got = {k: v for k, v in launches.items() if v}
+            if got != want:
+                raise AssertionError(f"RenderSession('mcs', {label}, persistent).run({MCS_FRAMES})"
+                                     f" launched {got}")
+            if img.shape != (RES, RES, 3) or not np.isfinite(img).all() or not img.any():
+                raise AssertionError(f"mcs persistent {label}: image {img.shape} empty or not "
+                                     "finite")
+            entries[name]["launches"] = launches["mcs.persistent"]
+            sessions[label] = dict(launches=got, seconds=dt, dispatches_per_s=MCS_FRAMES / dt,
+                                   deposits=deposited, deposits_per_s=deposited / dt)
+            log(f"# RenderSession('mcs', {label}, persistent=True, steps={r.steps}, "
+                f"streams={r.streams}).run({MCS_FRAMES}) at {RES}^2: {dt:.5f} s, {deposited} "
+                f"deposits ({deposited / dt / 1e9:.4f} G/s); launches {got}")
+            if label == "u8":
+                with tempfile.TemporaryDirectory() as tmp:
+                    _, img2, dt2 = timed("sessions run", mcs_session, s, MCS_FRAMES)
+                    _, img3, _ = timed("sessions run", mcs_session, s, MCS_FRAMES,
+                                       checkpoint_at=MCS_FRAMES // 2, tmp=tmp)
+                for other, what in ((img2, "a second run"), (img3, "a checkpoint round trip")):
+                    if not np.array_equal(img.view(np.int32), other.view(np.int32)):
+                        raise AssertionError(f"mcs persistent: {what} differs from the first run")
+                sessions[label]["second_run_seconds"] = dt2
+                log(f"# mcs persistent: a second run ({dt2:.5f} s) and a checkpoint round trip "
+                    "equal bit for bit")
+        del launches_, s
+        torch.cuda.empty_cache()
+        prof = timed("the profile", profiler.finish)
+    finally:
+        profiler.close()
+    seen = prof["kernels"].get("mcs_persistent_kernel", {}).get("launches", 0) * MCS_FRAMES
+    if seen != 1:
+        raise AssertionError(f"mcs persistent: the profiler saw {seen * 4:g} of 4 K23 launches")
+    # the device's share and the host's wait of the session's first and second
+    # run(16): the first has read slower than the next (PERF.md, question 12)
+    dev_ms = prof["device_ms"] * MCS_FRAMES
+    runs = {which: dict(ms=sessions["u8"][key] * 1e3,
+                        busy=dev_ms / (sessions["u8"][key] * 1e3),
+                        host_wait_ms=sessions["u8"][key] * 1e3 - dev_ms)
+            for which, key in (("first", "seconds"), ("second", "second_run_seconds"))}
+    sessions["u8"].update(profile=prof, runs=runs)
+    log(f"# mcs persistent: profiled 4 x run({MCS_FRAMES}) (a fresh process): device "
+        f"{prof['device_ms']:.5f} ms a dispatch, {dev_ms:.5f} ms a run; unprofiled, "
+        + "; ".join(f"the {k} run {v['ms']:.3f} ms, busy {v['busy']:.3f}, waits "
+                    f"{v['host_wait_ms']:.3f} ms on the host" for k, v in runs.items())
+        + f" (profiled host {prof['profiled_host_ms']:.5f} ms); "
+        + ", ".join(f"{k} {v['ms']:.5f} ms x{v['launches']:g}" for k, v in prof["kernels"].items()))
+    total = time.perf_counter() - t_phase
+    split["other"] = total - sum(split.values())
+    log(f"# phase 23 (MCS persistent): {total:.1f} s: "
+        + ", ".join(f"{k} {v:.1f} s" for k, v in split.items()))
+    return list(entries.values()), dict(sessions=sessions, against_k22=k22, seconds=split)
 
 
 def launch_counts():
@@ -4282,6 +4673,7 @@ def main():
     eam_kernels, eam_fits = phase_eam_fit(dev)
     mcm_kernels, mcm_sessions = phase_mcm(dev)
     mcs_kernels, mcs = phase_mcs(dev)
+    mcsp_kernels, mcsp = phase_mcs_persistent(dev)
     foreign = sorted(k for k in sys.modules
                      if k in ("jax", "vpt_tpu") or k.startswith(("jax.", "vpt_tpu.")))
     if foreign:
@@ -4320,7 +4712,7 @@ def main():
     kernels = [k1, k2, k4, k5, k6, k7, k9, k10, k11, k1_maj, k1_modes["environment"],
                k1_modes["quasicubic"], *compact_kernels, k4_sur, k12, k1_xy, *k4_modes.values(),
                *k5_modes.values(), *corner_modes.values(), *sur_modes.values(), k1_raw, k13,
-               k14, *rm_kernels, *eam_kernels, *mcm_kernels, *mcs_kernels]
+               k14, *rm_kernels, *eam_kernels, *mcm_kernels, *mcs_kernels, *mcsp_kernels]
     missing = [k["name"] for k in kernels + [k3, k3_xy, k3_raw]
                if not {"bound_ms", "bound_by", "library_ms", "launches", "ms", "plain_ms",
                        "max_abs_err"} <= set(k)]
@@ -4338,7 +4730,7 @@ def main():
               "majorant_path": sparse, "mode_sessions": mode_rates, "compaction": compact,
               "cli": cli, "surrogate": {"twin_on_card": twin, "autodiff_fit": autodiff},
               "raymarch_sessions": rm_sessions, "eam_training": eam_fits,
-              "mcm_sessions": mcm_sessions, "mcs": mcs,
+              "mcm_sessions": mcm_sessions, "mcs": mcs, "mcs_persistent": mcsp,
               "ptxas": ptxas, "gpu": smi}
     log(json.dumps(result))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

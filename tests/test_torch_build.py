@@ -114,3 +114,18 @@ def test_ptxas_table_reads_the_mcs_kernel():
     """K22 (csrc/mcs.cu) is untemplated: its row carries no template
     arguments."""
     assert _build.ptxas_table(MCS_LOG) == [("mcs_frames_kernel", "", 72, 0, 0, 0)]
+
+
+MCSP_LOG = """== mcs.cu
+ptxas info    : Compiling entry function '_ZN46_GLOBAL__N__7b8c9d0e_6_mcs_cu_2a3b4c5d21mcs_persistent_kernelENS_9McsParamsEPKvPKfS4_PK6float2PKjNS_8McsLanesE' for 'sm_90a'
+ptxas info    : Function properties for _ZN46_GLOBAL__N__7b8c9d0e_6_mcs_cu_2a3b4c5d21mcs_persistent_kernelENS_9McsParamsEPKvPKfS4_PK6float2PKjNS_8McsLanesE
+    104 bytes stack frame, 72 bytes spill stores, 72 bytes spill loads
+ptxas info    : Used 96 registers, used 0 barriers
+"""
+
+
+def test_ptxas_table_reads_the_mcs_persistent_kernel():
+    """K23 (csrc/mcs.cu, beside K22) is untemplated too, and K22's name is
+    not read inside its row."""
+    assert _build.ptxas_table(MCSP_LOG) == [("mcs_persistent_kernel", "", 96, 72, 72, 104)]
+    assert "mcs_persistent_kernel" in _build.KERNELS

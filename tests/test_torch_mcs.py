@@ -450,10 +450,7 @@ def test_jax_checkpoint_loads_into_port_and_back(tmp_path):
 
 
 # -- refusals, devices, the command line -----------------------------------------------------
-def test_persistent_and_xy_tables_raise():
-    vol = convert.volume_from(JVolume.sphere_in_cube(8))
-    with pytest.raises(NotImplementedError, match="persistent"):
-        TM.MCSRenderer(vol, persistent=True, device="cpu")
+def test_xy_tables_raise():
     _, t = _pair(res=8)
     ctx = t.ctx(convert.camera_from(JCamera()), 1)
     xy = K.interp.pack_volume_auto(JVolume.sphere_in_cube(8).density, "cpu", "xy")

@@ -10,7 +10,9 @@ and ``grads_to_numpy``.
 The ray-march renderers' dict states cross with
 ``raymarch_state_from_numpy`` and ``raymarch_state_to_numpy``, and MCS's
 (``acc``, ``frame``) with the same functions under the names
-``mcs_state_from_numpy`` and ``mcs_state_to_numpy``; the RGB MCM
+``mcs_state_from_numpy`` and ``mcs_state_to_numpy``, and its persistent
+lanes' ``MCSPersistentState`` with ``mcs_persistent_state_from_numpy`` and
+``mcs_persistent_state_to_numpy``; the RGB MCM
 renderer's state with ``mcm_state_from_numpy`` and ``mcm_state_to_numpy``
 and its ``MCMCtx`` with ``mcm_ctx_from_numpy`` (the environment a raw
 (He, We, 3) array, as the JAX renderer keeps it); MCS's ``MCSCtx`` with
@@ -37,7 +39,7 @@ import torch
 
 from vpt_tpu_torch.models.mcm import MCMCtx, MCMState
 from vpt_tpu_torch.models.mcm_spectral import SpectralCtx, SpectralState
-from vpt_tpu_torch.models.mcs import MCSCtx
+from vpt_tpu_torch.models.mcs import MCSCtx, MCSPersistentState
 from vpt_tpu_torch.ops.interp import PackedVolume
 from vpt_tpu_torch.scene.camera import Camera
 from vpt_tpu_torch.scene.tf import TransferFunction2D
@@ -220,6 +222,22 @@ def raymarch_state_to_numpy(state: dict) -> dict:
 
 mcs_state_from_numpy = raymarch_state_from_numpy
 mcs_state_to_numpy = raymarch_state_to_numpy
+
+
+def mcs_persistent_state_from_numpy(fields: dict, device) -> MCSPersistentState:
+    """``MCSPersistentState`` from numpy arrays keyed by the JAX state's
+    field names."""
+    names = MCSPersistentState.field_names()
+    missing = set(names) - set(fields)
+    if missing:
+        raise KeyError(f"missing state fields: {sorted(missing)}")
+    return MCSPersistentState(**{k: torch.as_tensor(np.array(fields[k]), device=device)
+                                 for k in names})
+
+
+def mcs_persistent_state_to_numpy(state: MCSPersistentState) -> dict:
+    """The persistent lanes' tensors as numpy arrays keyed by field name."""
+    return {k: t.cpu().numpy() for k, t in zip(state.field_names(), state.tensors())}
 
 
 def adjoints_from_numpy(acc: dict, device) -> dict:

@@ -1,10 +1,13 @@
-// The single-scattering MCS kernel for Hopper (sm_90a), plain C interface.
+// The single-scattering MCS kernels for Hopper (sm_90a), plain C interface.
 //
-//   K22 mcs_frames_kernel  replaces vpt_tpu/models/mcs.py::_mcs_frame_impl
-//                          (:174-243) looped by mcs_frames (:256-275), and
-//                          MCSRenderer.render's running average (:400-406).
+//   K22 mcs_frames_kernel      replaces vpt_tpu/models/mcs.py::_mcs_frame_impl
+//                              (:174-243) looped by mcs_frames (:256-275), and
+//                              MCSRenderer.render's running average (:400-406).
+//   K23 mcs_persistent_kernel  replaces _mcs_persistent_dispatch_impl
+//                              (:473-615) looped by mcs_persistent_many
+//                              (:625-641): the persistent lanes.
 //
-// One thread per pixel. The pixel's camera ray, its cube interval, its view
+// K22. One thread per pixel. The pixel's camera ray, its cube interval, its view
 // direction's environment and its uv seed bits are the same for every
 // frame, so a thread computes them once; then, for each of the launch's K
 // frames (seed and host-drawn scattering direction read from `inputs`):
@@ -32,27 +35,53 @@
 // the cap; a capped trip is a pure advance (no lookup, no uniform), and a
 // tentative collision counts with alpha / m.
 //
-// Modes, all uniform runtime flags of the one instantiation: the volume a
-// packed "full" corner table (u8 or f32, linear or quasicubic) or a raw
-// (D, H, W) f32 grid (linear, quasicubic or nearest); the TF the packed
-// (257, 257, 16) corner table or the raw (256, 256, 4) texture, read at
-// (density, 0) (mcm_common.cuh sample_rgba); the environment a raw (He, We,
-// 3) map (sample_env_rgb); the majorant grid present or not.
+// K23. One thread per lane of the (S, R, R) lanes (S streams of the R x R
+// pixels). A lane reads its 16 state fields once (13 f32, `phase` as the
+// bool tensor's byte, `samples`, `acc` as a float4), runs the launch's K
+// dispatches x `steps` iterations in registers and writes them back once,
+// in place. Its camera segment (the ray's stretch inside the cube; a ray
+// that misses gets length 0, so its first step escapes), the segment's
+// direction (seg * (1 / max(length, 1e-30))) and its view direction's
+// environment are the same for every dispatch and are computed once; each
+// dispatch restarts the chain at hash3(bits(u), bits(v), seed), v of the
+// row iy + s R (stream s seeds as the rows of a taller framebuffer). Each
+// iteration: the exponential step (at extinction * m of the majorant cell
+// at the lane's point b + d * dist, capped, with the grid), the point b +
+// d * dist2, the TF's RGBA there unless the step escaped or was capped; the
+// acceptance uniform in the distance phase only; draw_sphere's two
+// uniforms on every lane (their cos/sin and the shadow ray's cube exit only
+// where the lane scatters). A distance-phase escape deposits the view's
+// environment, a shadow-phase escape diffuse x light x transmittance (the
+// light the environment at the sample's direction); the deposit enters the
+// incremental mean acc + (value - acc) / samples. A distance-phase real
+// collision (uniform < alpha) turns the lane into a shadow ray from the
+// point along the drawn direction; a shadow ray multiplies its
+// transmittance by (1 - alpha) at each tentative collision.
 //
-// What bounds it on this card: each trip is a dependent chain (a hash, a
+// Modes, all uniform runtime flags of each kernel's one instantiation: the
+// volume a packed "full" corner table (u8 or f32, linear or quasicubic) or
+// a raw (D, H, W) f32 grid (linear, quasicubic or nearest); the TF the
+// packed (257, 257, 16) corner table or the raw (256, 256, 4) texture, read
+// at (density, 0) (mcm_common.cuh sample_rgba); the environment a raw (He,
+// We, 3) map (sample_env_rgb); the majorant grid present or not; K23's
+// stream count.
+//
+// What bounds them on this card: each trip is a dependent chain (a hash, a
 // log, a volume row, then the TF row the density selects), and a warp
-// lasts as long as its slowest lane's trips; the bytes (acc once, the rows
-// the lookups touch, most in the L2) and the FP32 operations bound it far
-// below that (counted by chip_smoke.py's phase 22). The design keeps a lane
-// in registers for all K frames and pays per warp, not per frame as the
-// reference's lockstep loops do.
+// lasts as long as its slowest lane's trips; the bytes (the state once, the
+// rows the lookups touch, most in the L2) and the FP32 operations bound them
+// far below that (counted by chip_smoke.py's phases 22 and 23). K22 keeps a
+// lane in registers for all K frames and pays per warp, not per frame as
+// the reference's lockstep loops do; K23 keeps every lane busy every
+// iteration (a finished sample starts the next at once), and pays for it
+// with a sphere draw and four hashes each step.
 //
 // Numerics: built without fast math and with -fmad=false, so every
-// expression rounds as the plain PyTorch version's (kernels/mcs.py); every
+// expression rounds as the plain PyTorch versions' (kernels/mcs.py); every
 // quotient is IEEE's (__fdiv_rn, or the exact reciprocal-and-correction
-// quot), sqrt is IEEE, logf/atan2f/asinf the accurate forms, min/max
-// propagate NaN like torch. There are no atomics, so the kernel equals its
-// plain version bit for bit.
+// quot), sqrt is IEEE, logf/atan2f/asinf/sinf/cosf the accurate forms,
+// min/max propagate NaN like torch. There are no atomics, so each kernel
+// equals its plain version bit for bit.
 
 #include "mcm_common.cuh"
 
@@ -68,7 +97,9 @@ enum McsF {
   SF_COUNT,
 };
 enum McsI {
-  SI_RES = 0, SI_N_FRAMES, SI_MAX_COLLISIONS,
+  SI_RES = 0,
+  SI_N_FRAMES,     // K22's frames, K23's dispatches
+  SI_MAX_COLLISIONS,
   SI_VOL_RAW,      // 1: a raw (D, H, W) f32 grid, given as D+1, H+1, W+1
   SI_VOL_U8,       // packed table: 1 u8, 0 f32
   SI_VOL_D, SI_VOL_H, SI_VOL_W,
@@ -78,6 +109,7 @@ enum McsI {
   SI_TF_H, SI_TF_W,
   SI_ENV_H, SI_ENV_W,               // the raw map's He, We
   SI_MAJ_GZ, SI_MAJ_GY, SI_MAJ_GX,  // majorant grid cells (0 without one)
+  SI_STEPS, SI_STREAMS,             // K23: iterations a dispatch, streams
   SI_COUNT,
 };
 
@@ -114,6 +146,15 @@ __device__ __forceinline__ Segment segment(float fx, float fy, float fz, float t
   return g;
 }
 
+// the (majorant, flight cap) row of the grid cell at normalized (x, y, z):
+// _majorant_lookup's cell
+__device__ __forceinline__ float2 majorant_row(const float2* __restrict__ maj, const McsParams& P,
+                                               float x, float y, float z) {
+  const int gz = P.i[SI_MAJ_GZ], gy = P.i[SI_MAJ_GY], gx = P.i[SI_MAJ_GX];
+  const int cz = floor_cell(z, gz), cy = floor_cell(y, gy), cx = floor_cell(x, gx);
+  return __ldg(maj + ((int64_t)cz * gy + cy) * gx + cx);
+}
+
 // One trip's free flight from distance `dist`: the step (capped at the
 // majorant cell's flight range), whether it was capped, and the cell's
 // majorant m (1 without a grid)
@@ -124,11 +165,8 @@ __device__ __forceinline__ float flight(uint32_t& s, const McsParams& P, const R
   m = 1.0f;
   if (maj == nullptr) return quot(-logf(draw(s)), ext);
   const float t0 = __fdiv_rn(dist, g.den);
-  const int gz = P.i[SI_MAJ_GZ], gy = P.i[SI_MAJ_GY], gx = P.i[SI_MAJ_GX];
-  const int cz = floor_cell(lerp(g.fz, g.tz, t0), gz);
-  const int cy = floor_cell(lerp(g.fy, g.ty, t0), gy);
-  const int cx = floor_cell(lerp(g.fx, g.tx, t0), gx);
-  const float2 row = __ldg(maj + ((int64_t)cz * gy + cy) * gx + cx);
+  const float2 row = majorant_row(maj, P, lerp(g.fx, g.tx, t0), lerp(g.fy, g.ty, t0),
+                                  lerp(g.fz, g.tz, t0));
   m = nmax(row.x, 1e-12f);
   const float step = __fdiv_rn(-logf(draw(s)), m * P.f[SF_EXTINCTION]);
   capped = step >= row.y;
@@ -195,20 +233,15 @@ __device__ __forceinline__ float cube_exit(float x, float y, float z, float dx, 
   return nmax(nmin(nmin(nmax(t0x, t1x), nmax(t0y, t1y)), nmax(t0z, t1z)), 0.0f);
 }
 
-// K22: K frames per pixel merged into acc (R, R, 4) in place. inputs: K
-// float4 (the frame seed's bits, the scattering direction); frame: the
-// count before this launch.
-__global__ void __launch_bounds__(MCS_THREADS)
-mcs_frames_kernel(const McsParams P, const void* __restrict__ vol, const float* __restrict__ tf,
-                  const float* __restrict__ env, const float2* __restrict__ maj,
-                  const float4* __restrict__ inputs, float4* __restrict__ acc,
-                  const int* __restrict__ frame) {
-  const int res = P.i[SI_RES];
-  const int pix = blockIdx.x * blockDim.x + threadIdx.x;
-  if (pix >= res * res) return;
-  const int iy = pix / res, ix = pix - iy * res;
-  // the camera ray (camera_rays), its cube interval (ray_bounds), the
-  // entry and exit points, the view direction's environment
+// A pixel's camera ray (camera_rays) clamped to the cube (ray_bounds): its
+// points at tn and tfar, whether it misses, and its normalized direction
+// (normalize3: x * (1 / |d|), the reciprocal correctly rounded)
+struct PixelRay {
+  float ex, ey, ez, xx, xy, xz, vx, vy, vz;
+  bool miss;
+};
+
+__device__ __forceinline__ PixelRay pixel_ray(const McsParams& P, int ix, int iy) {
   const float inv_res = P.f[SF_INV_RES];
   const float sx = (((float)ix + 0.5f) * inv_res - 0.5f) * 2.0f;
   const float sy = (((float)iy + 0.5f) * inv_res - 0.5f) * -2.0f;
@@ -222,13 +255,31 @@ mcs_frames_kernel(const McsParams P, const void* __restrict__ vol, const float* 
   const float t1z = __fdiv_rn(1.0f - fz, dz);
   const float tn = nmax(nmax(nmax(nmin(t0x, t1x), nmin(t0y, t1y)), nmin(t0z, t1z)), 0.0f);
   const float tfar = nmax(nmin(nmin(nmax(t0x, t1x), nmax(t0y, t1y)), nmax(t0z, t1z)), 0.0f);
-  const bool miss = tn >= tfar;
-  const Segment ray = segment(lerp(fx, tx, tn), lerp(fy, ty, tn), lerp(fz, tz, tn),
-                              lerp(fx, tx, tfar), lerp(fy, ty, tfar), lerp(fz, tz, tfar));
-  const int He = P.i[SI_ENV_H], We = P.i[SI_ENV_W];
-  // normalize3: x * (1 / |d|), the reciprocal correctly rounded
   const float inv = __frcp_rn(sqrtf(dx * dx + dy * dy + dz * dz));
-  const float3 view = sample_env_rgb(env, He, We, dx * inv, dy * inv, dz * inv);
+  return PixelRay{lerp(fx, tx, tn), lerp(fy, ty, tn), lerp(fz, tz, tn), lerp(fx, tx, tfar),
+                  lerp(fy, ty, tfar), lerp(fz, tz, tfar), dx * inv, dy * inv, dz * inv,
+                  tn >= tfar};
+}
+
+// K22: K frames per pixel merged into acc (R, R, 4) in place. inputs: K
+// float4 (the frame seed's bits, the scattering direction); frame: the
+// count before this launch.
+__global__ void __launch_bounds__(MCS_THREADS)
+mcs_frames_kernel(const McsParams P, const void* __restrict__ vol, const float* __restrict__ tf,
+                  const float* __restrict__ env, const float2* __restrict__ maj,
+                  const float4* __restrict__ inputs, float4* __restrict__ acc,
+                  const int* __restrict__ frame) {
+  const int res = P.i[SI_RES];
+  const int pix = blockIdx.x * blockDim.x + threadIdx.x;
+  if (pix >= res * res) return;
+  const int iy = pix / res, ix = pix - iy * res;
+  // the camera ray, its entry and exit points, the view direction's
+  // environment
+  const PixelRay pr = pixel_ray(P, ix, iy);
+  const bool miss = pr.miss;
+  const Segment ray = segment(pr.ex, pr.ey, pr.ez, pr.xx, pr.xy, pr.xz);
+  const int He = P.i[SI_ENV_H], We = P.i[SI_ENV_W];
+  const float3 view = sample_env_rgb(env, He, We, pr.vx, pr.vy, pr.vz);
   // the pixel's uv bits: (i + 0.5) / R by IEEE division
   const uint32_t ubits = __float_as_uint(__fdiv_rn((float)ix + 0.5f, (float)res));
   const uint32_t vbits = __float_as_uint(__fdiv_rn((float)iy + 0.5f, (float)res));
@@ -266,6 +317,151 @@ mcs_frames_kernel(const McsParams P, const void* __restrict__ vol, const float* 
   acc[pix] = a;
 }
 
+// The persistent lanes' state: each field an (S, R, R) array, `phase` the
+// bool tensor's bytes (0 or 1), `acc` float4
+struct McsLanes {
+  uint8_t* phase;
+  float *dist, *trans, *sdx, *sdy, *sdz, *smax, *scx, *scy, *scz, *dr, *dg, *db, *da;
+  float4* acc;
+  int* samples;
+};
+
+// K23: K dispatches (one per seed) of SI_STEPS iterations on each lane, its
+// state updated in place.
+__global__ void __launch_bounds__(MCS_THREADS)
+mcs_persistent_kernel(const McsParams P, const void* __restrict__ vol,
+                      const float* __restrict__ tf, const float* __restrict__ env,
+                      const float2* __restrict__ maj, const uint32_t* __restrict__ seeds,
+                      const McsLanes L) {
+  const int res = P.i[SI_RES];
+  const int plane = res * res;
+  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
+  if (lane >= P.i[SI_STREAMS] * plane) return;
+  const int stream = lane / plane, pix = lane - stream * plane;
+  const int iy = pix / res, ix = pix - iy * res;
+  // the camera segment: its start, its direction seg * (1 / max(len,
+  // 1e-30)) and its length, 0 for a ray that misses the cube
+  const PixelRay pr = pixel_ray(P, ix, iy);
+  const float segx = pr.xx - pr.ex, segy = pr.xy - pr.ey, segz = pr.xz - pr.ez;
+  const float max_dist = pr.miss ? 0.0f : sqrtf(segx * segx + segy * segy + segz * segz);
+  const float inv_md = __frcp_rn(nmax(max_dist, 1e-30f));
+  const float rdx = segx * inv_md, rdy = segy * inv_md, rdz = segz * inv_md;
+  const int He = P.i[SI_ENV_H], We = P.i[SI_ENV_W];
+  const float3 view = sample_env_rgb(env, He, We, pr.vx, pr.vy, pr.vz);
+  // the chain's uv bits: (ix + 0.5) / R and (iy + s R + 0.5) / R
+  const uint32_t ubits = __float_as_uint(__fdiv_rn((float)ix + 0.5f, (float)res));
+  const float row = (float)iy + (float)stream * (float)res;
+  const uint32_t vbits = __float_as_uint(__fdiv_rn(row + 0.5f, (float)res));
+  const Recip ext = recip(P.f[SF_EXTINCTION]);
+  const bool has_maj = maj != nullptr;
+
+  bool shadow = L.phase[lane] != 0;
+  float dist = L.dist[lane], trans = L.trans[lane];
+  float sdx = L.sdx[lane], sdy = L.sdy[lane], sdz = L.sdz[lane], smax = L.smax[lane];
+  float scx = L.scx[lane], scy = L.scy[lane], scz = L.scz[lane];
+  float dr = L.dr[lane], dg = L.dg[lane], db = L.db[lane], da = L.da[lane];
+  float4 acc = L.acc[lane];
+  int samples = L.samples[lane];
+  const int steps = P.i[SI_STEPS];
+  for (int k = 0; k < P.i[SI_N_FRAMES]; ++k) {
+    uint32_t s = hash3(ubits, vbits, __ldg(seeds + k));
+    for (int it = 0; it < steps; ++it) {
+      // the segment: the camera ray (distance phase) or the shadow ray
+      const float bx = shadow ? scx : pr.ex, by = shadow ? scy : pr.ey;
+      const float bz = shadow ? scz : pr.ez;
+      const float dx = shadow ? sdx : rdx, dy = shadow ? sdy : rdy, dz = shadow ? sdz : rdz;
+      const float seg_max = shadow ? smax : max_dist;
+      float m = 1.0f, step;
+      bool capped = false;
+      if (has_maj) {
+        const float2 cell = majorant_row(maj, P, bx + dx * dist, by + dy * dist, bz + dz * dist);
+        m = nmax(cell.x, 1e-12f);
+        step = __fdiv_rn(-logf(draw(s)), m * P.f[SF_EXTINCTION]);
+        capped = step >= cell.y;
+        step = nmin(step, cell.y);
+      } else {
+        step = quot(-logf(draw(s)), ext);
+      }
+      const float dist2 = dist + step;
+      const bool escaped = dist2 > seg_max;
+      const float px = bx + dx * dist2, py = by + dy * dist2, pz = bz + dz * dist2;
+      const bool tentative = !escaped && !capped;
+      // the lookup only where its result is taken (no draw depends on it)
+      float4 rgba = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      float alpha = 0.0f;
+      if (tentative) {
+        rgba = mcs_rgba(vol, tf, P, px, py, pz);
+        alpha = nmin(has_maj ? __fdiv_rn(rgba.w, m) : rgba.w, 1.0f);  // rgba.w / 1 exactly
+      }
+      bool scatter = false;
+      if (!shadow) {
+        const float wheel = draw(s);  // the acceptance uniform, distance phase only
+        scatter = tentative && wheel < alpha;
+      }
+      // draw_sphere's two uniforms: every lane, every step
+      const float u1 = draw(s);
+      const float u2 = draw(s);
+      if (escaped) {
+        // a deposit: the view's environment, or the shaded collision
+        float4 v = make_float4(view.x, view.y, view.z, 1.0f);
+        if (shadow) {
+          const float3 l = sample_env_rgb(env, He, We, sdx, sdy, sdz);
+          v = make_float4(dr * l.x * trans, dg * l.y * trans, db * l.z * trans, da * trans);
+        }
+        samples += 1;
+        const float n = (float)max(samples, 1);
+        acc.x = acc.x + __fdiv_rn(v.x - acc.x, n);
+        acc.y = acc.y + __fdiv_rn(v.y - acc.y, n);
+        acc.z = acc.z + __fdiv_rn(v.z - acc.z, n);
+        acc.w = acc.w + __fdiv_rn(v.w - acc.w, n);
+        shadow = false;
+        dist = 0.0f;
+        trans = 1.0f;
+      } else if (scatter) {
+        // a real collision: a shadow ray from it along a uniform direction
+        const float radius = sqrtf(u1);
+        const float angle = u2 * kTwoPi;
+        const float ox = radius * cosf(angle), oy = radius * sinf(angle);
+        const float norm = ox * ox + oy * oy;
+        const float r2 = 2.0f * sqrtf(nmax(1.0f - norm, 0.0f));
+        sdx = r2 * ox;
+        sdy = r2 * oy;
+        sdz = 1.0f - 2.0f * norm;
+        smax = cube_exit(px, py, pz, sdx, sdy, sdz);
+        scx = px;
+        scy = py;
+        scz = pz;
+        dr = rgba.x;
+        dg = rgba.y;
+        db = rgba.z;
+        da = rgba.w;
+        shadow = true;
+        dist = 0.0f;
+        trans = 1.0f;
+      } else {
+        if (shadow && tentative) trans = trans * (1.0f - alpha);  // ratio tracking
+        dist = dist2;
+      }
+    }
+  }
+  L.phase[lane] = shadow ? 1 : 0;
+  L.dist[lane] = dist;
+  L.trans[lane] = trans;
+  L.sdx[lane] = sdx;
+  L.sdy[lane] = sdy;
+  L.sdz[lane] = sdz;
+  L.smax[lane] = smax;
+  L.scx[lane] = scx;
+  L.scy[lane] = scy;
+  L.scz[lane] = scz;
+  L.dr[lane] = dr;
+  L.dg[lane] = dg;
+  L.db[lane] = db;
+  L.da[lane] = da;
+  L.acc[lane] = acc;
+  L.samples[lane] = samples;
+}
+
 McsParams make_mcs_params(const float* fparams, const int* iparams) {
   McsParams P;
   for (int k = 0; k < SF_COUNT; ++k) P.f[k] = fparams[k];
@@ -300,6 +496,30 @@ int vpt_mcs_frames(const float* fparams, const int* iparams, const void* vol, co
                       static_cast<cudaStream_t>(stream)>>>(
       P, vol, tf, env, reinterpret_cast<const float2*>(maj),
       reinterpret_cast<const float4*>(inputs), reinterpret_cast<float4*>(acc), frame);
+  return (int)cudaGetLastError();
+}
+
+// maj may be null: exact mode. seeds: n_frames (dispatches) uint32. The 16
+// state arrays: S * R * R lanes each (acc S * R * R float4), updated in place.
+int vpt_mcs_persistent(const float* fparams, const int* iparams, const void* vol,
+                       const float* tf, const float* env, const float* maj, const uint32_t* seeds,
+                       uint8_t* phase, float* dist, float* trans, float* sdx, float* sdy,
+                       float* sdz, float* smax, float* scx, float* scy, float* scz, float* dr,
+                       float* dg, float* db, float* da, float* acc, int* samples, void* stream) {
+  const McsParams P = make_mcs_params(fparams, iparams);
+  const int res = P.i[SI_RES], streams = P.i[SI_STREAMS];
+  if (res <= 0 || P.i[SI_N_FRAMES] <= 0 || P.i[SI_STEPS] <= 0) return 0;
+  if (env == nullptr || P.i[SI_ENV_H] < 1 || P.i[SI_ENV_W] < 1 ||
+      (maj != nullptr) != (P.i[SI_MAJ_GZ] > 0) ||
+      (P.i[SI_NEAREST] != 0 && P.i[SI_VOL_RAW] == 0) || streams < 1 ||
+      (int64_t)streams * res * res > 2147483647LL || (int64_t)streams * res > (1 << 23))
+    return (int)cudaErrorInvalidValue;
+  const McsLanes L{phase, dist, trans, sdx, sdy, sdz, smax, scx, scy, scz, dr, dg, db, da,
+                   reinterpret_cast<float4*>(acc), samples};
+  const int lanes = streams * res * res;
+  mcs_persistent_kernel<<<blocks_for(lanes, MCS_THREADS), MCS_THREADS, 0,
+                          static_cast<cudaStream_t>(stream)>>>(
+      P, vol, tf, env, reinterpret_cast<const float2*>(maj), seeds, L);
   return (int)cudaGetLastError();
 }
 

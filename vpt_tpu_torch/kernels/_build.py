@@ -102,6 +102,7 @@ _SIGNATURES = {
     "mcs": {
         "vpt_mcs_layout": ([_I], _I),
         "vpt_mcs_frames": ([_P] * 10, _I),
+        "vpt_mcs_persistent": ([_P] * 24, _I),
     },
     "gather_bench": {
         "vpt_gather_limits": ([_P], _I),
@@ -206,7 +207,7 @@ KERNELS = ("step_kernel", "tape_forward_kernel", "reverse_kernel", "contract_vol
            "scatter_rows_kernel", "surrogate_tape_kernel", "surrogate_reverse_kernel",
            "raw_tape_kernel", "raw_replay_kernel", "march_kernel", "mip_kernel", "iso_kernel",
            "iso_shade_kernel", "eam_backward_kernel", "mcm_step_kernel", "mcm_reset_kernel",
-           "mcs_frames_kernel")
+           "mcs_frames_kernel", "mcs_persistent_kernel")
 _ENTRY = re.compile(r"Compiling entry function '\S*?\d(" + "|".join(KERNELS) + r")(I\S*?EE)?[Ev]")
 
 
@@ -221,8 +222,8 @@ def ptxas_table(log_text):
     (K5 reverse_kernel: 0 for stride mode, else the importance step
     count), MODE (K15 march_kernel: 0 EAM, 1 Depth), LEARN_TF (K19
     eam_backward_kernel: 0 or 1), "" for the untemplated ones (K20
-    mcm_step_kernel, K21 mcm_reset_kernel and K22 mcs_frames_kernel among
-    them)."""
+    mcm_step_kernel, K21 mcm_reset_kernel, K22 mcs_frames_kernel and K23
+    mcs_persistent_kernel among them)."""
     rows, cur = [], None
     for line in log_text.splitlines():
         m = _ENTRY.search(line)

@@ -1,11 +1,15 @@
-"""The single-scattering MCS kernel: wrapper, plain versions, launch counts.
+"""The single-scattering MCS kernels: wrappers, plain versions, launch counts.
 
-One kernel of ``vpt_tpu_torch/csrc/mcs.cu``:
+Two kernels of ``vpt_tpu_torch/csrc/mcs.cu``:
 
 - ``frames`` (K22 ``mcs_frames``): K frames of the reference-exact frame
   path merged into the running mean ``acc`` in place (replaces
   ``vpt_tpu/models/mcs.py::_mcs_frame_impl`` looped by ``mcs_frames``);
   plain version ``frames_plain``.
+- ``persistent`` (K23 ``mcs_persistent``): K dispatches of ``steps``
+  iterations of the persistent-lane state machine, the lane state updated
+  in place (replaces ``_mcs_persistent_dispatch_impl`` looped by
+  ``mcs_persistent_many``); plain version ``persistent_plain``.
 
 Per pixel and frame: a Woodcock free flight along the camera ray to a real
 collision or an escape (``_woodcock_distance``), a ratio-tracked
@@ -24,11 +28,24 @@ texture, read at (density, 0); the environment a raw (He, We, 3) equirect
 map (the renderer's default is one white texel); the majorant an optional
 (Gz, Gy, Gx, 2) f32 grid.
 
-The wrapper runs the plain version when its tensors lie on the CPU and
-launches K22 when they lie on one CUDA device; anything else raises.
+Persistent lanes (``MCSPersistentState``, lane shape (R, R), or (S, R, R)
+over S streams): each iteration a lane takes one free-flight step along its
+segment, the camera ray's stretch inside the cube (distance phase) or the
+shadow ray from its scatter point along a direction drawn per sample
+(shadow phase). A real collision in the distance phase turns the lane into
+a shadow ray; a shadow ray ratio-tracks its transmittance; an escape
+deposits the environment (distance phase) or diffuse x light x
+transmittance (shadow phase) into the lane's incremental mean and starts
+the next sample. Each dispatch reseeds the lane's chain from its uv bits
+and the dispatch's seed (``persistent_seeds``); only the lane state carries
+over.
+
+The wrappers run the plain version when their tensors lie on the CPU and
+launch the kernel when they lie on one CUDA device; anything else raises.
 ``LAUNCHES`` counts kernel launches (never plain runs); a launch also
-counts under each mode it ran: ``frames_majorant``, ``frames_raw`` (a raw
-grid and TF) and ``frames_environment`` (a map of more than one texel).
+counts under each mode it ran: ``*_majorant``, ``*_raw`` (a raw grid and
+TF), ``*_environment`` (a map of more than one texel) and
+``persistent_streams`` (more than one stream).
 The plain versions take tensors on any device, so tests and
 ``chip_smoke.py`` compare kernel and plain version on the card.
 """
@@ -49,9 +66,15 @@ from vpt_tpu_torch.ops import geometry, interp, sampling
 
 # must match SF_COUNT / SI_COUNT in csrc/mcs.cu
 _F_COUNT = 18
-_I_COUNT = 18
+_I_COUNT = 20
 
-LAUNCHES = {"frames": 0, "frames_majorant": 0, "frames_raw": 0, "frames_environment": 0}
+# MCSPersistentState's fields, in the JAX state's leaf order
+PERSISTENT_FIELDS = ("phase", "dist", "trans", "sdx", "sdy", "sdz", "smax", "scx", "scy", "scz",
+                     "dr", "dg", "db", "da", "acc", "samples")
+
+LAUNCHES = {"frames": 0, "frames_majorant": 0, "frames_raw": 0, "frames_environment": 0,
+            "persistent": 0, "persistent_majorant": 0, "persistent_raw": 0,
+            "persistent_environment": 0, "persistent_streams": 0}
 
 
 def reset_launch_counts():
@@ -146,14 +169,28 @@ def _woodcock_transmittance(rng, mask, ctx, frm, to, max_collisions, volume_filt
     return rng, trans
 
 
+def persistent_seeds(shape, seed_bits: int, device) -> torch.Tensor:
+    """Each lane's chain seed over the lane shape (S, R, R): hash3(bits(u),
+    bits(v), seed) of u = (ix + 0.5) / R and v = (iy + s R + 0.5) / R by IEEE
+    division (as the kernels divide), so stream s seeds its rows as the rows
+    of a taller framebuffer would."""
+    streams, rows, res = shape
+    if rows != res:
+        raise ValueError(f"lane shape {tuple(shape)} is not (S, R, R)")
+
+    def bits(n):
+        i = torch.arange(n, dtype=torch.float32, device=device)
+        return sampling.div_scalar(i + 0.5, float(res)).view(torch.int32).to(torch.int64)
+
+    u = bits(res).view(1, 1, res).expand(streams, res, res)
+    v = bits(streams * res).view(streams, res, 1).expand(streams, res, res)
+    return sampling.hash3(u, v, torch.full_like(u, int(seed_bits) & sampling.MASK32))
+
+
 def pixel_seeds(resolution: int, seed_bits: int, device) -> torch.Tensor:
     """Each pixel's chain seed, hash3(bits(u), bits(v), seed) of its screen
-    uv ((ix + 0.5) / R by IEEE division, as K22 divides)."""
-    i = torch.arange(resolution, dtype=torch.float32, device=device)
-    bits = sampling.div_scalar(i + 0.5, float(resolution)).view(torch.int32).to(torch.int64)
-    u = bits.view(1, -1).expand(resolution, resolution)
-    v = bits.view(-1, 1).expand(resolution, resolution)
-    return sampling.hash3(u, v, torch.full_like(u, int(seed_bits) & sampling.MASK32))
+    uv: ``persistent_seeds`` of one stream."""
+    return persistent_seeds((1, resolution, resolution), seed_bits, device)[0]
 
 
 def _with_alpha(rgb):
@@ -215,6 +252,119 @@ def mcs_frames(ctx, seeds, scatter_dirs, acc, frame, resolution: int, max_collis
     return frames_plain(acc, frame, ctx, seeds, scatter_dirs, max_collisions, volume_filter)
 
 
+def _lane_shape(resolution: int, streams: int):
+    return (streams, resolution, resolution) if streams > 1 else (resolution, resolution)
+
+
+def _mcs_persistent_dispatch_impl(state, ctx, resolution: int, steps: int, volume_filter: str,
+                                  streams: int = 1, *, observe=None):
+    """``steps`` persistent lane iterations from ``state`` (an
+    ``MCSPersistentState``); returns the new state and leaves ``state`` as
+    it was. ``observe``, when given, is called once per iteration with the
+    iteration's lane values by name (``chip_smoke.py`` counts the work from
+    them)."""
+    device = ctx.tf_table.device
+    lane_shape = _lane_shape(resolution, streams)
+    frm, to = camera_rays(resolution, ctx.inv_mvp, device)
+    view = geometry.normalize3(*(to[i] - frm[i] for i in range(3)))
+    tn, tf_, miss = ray_bounds(frm, to)
+    entry, exit_ = _mix3(frm, to, tn), _mix3(frm, to, tf_)
+    # a ray that misses the cube gets max_dist 0: its first step escapes
+    # and deposits the environment
+    sx, sy, sz = (exit_[i] - entry[i] for i in range(3))
+    max_dist = torch.where(miss, torch.zeros_like(tn), torch.sqrt(sx * sx + sy * sy + sz * sz))
+    inv_md = torch.reciprocal(torch.clamp_min(max_dist, 1e-30))
+    ray = tuple(a.expand(lane_shape) for a in (*entry, sx * inv_md, sy * inv_md, sz * inv_md,
+                                                max_dist))
+    env4 = _with_alpha(sample_environment(ctx.environment, *view)).expand(lane_shape + (4,))
+    rng = persistent_seeds((streams, resolution, resolution), ctx.seed_bits,
+                           device).reshape(lane_shape)
+    ext = K._f32(ctx.extinction)
+    every = torch.ones(lane_shape, dtype=torch.bool, device=device)
+    p = state
+    for _ in range(steps):
+        shadow = p.phase
+        # the segment: the camera ray (distance phase) or the shadow ray
+        bx, by, bz, dx, dy, dz, seg_max = (
+            torch.where(shadow, a, b) for a, b in zip(
+                (p.scx, p.scy, p.scz, p.sdx, p.sdy, p.sdz, p.smax), ray))
+        start = None
+        if ctx.majorant is not None:
+            start = (bx + dx * p.dist, by + dy * p.dist, bz + dz * p.dist)
+            m, cap = _majorant_lookup(ctx, *start)
+            rng, step = sampling.draw_exponential(rng, every, m * ext)
+            capped = step >= cap
+            step = torch.minimum(step, cap)
+        else:
+            m = torch.ones_like(p.dist)
+            rng, step = sampling.draw_exponential(rng, every, ext)
+            capped = torch.zeros_like(shadow)
+        dist2 = p.dist + step
+        escaped = dist2 > seg_max
+        point = (bx + dx * dist2, by + dy * dist2, bz + dz * dist2)
+        tf4 = _sample_tf(ctx, *point, volume_filter)
+        alpha = torch.clamp_max(tf4[..., 3] / m, 1.0)
+        tentative = ~escaped & ~capped
+        # the acceptance draw in the distance phase only; the shadow phase
+        # ratio-tracks every tentative collision
+        rng, wheel = sampling.draw(rng, ~shadow)
+        scatter = ~shadow & tentative & (wheel < alpha)
+        rng, (nsx, nsy, nsz) = sampling.draw_sphere(rng, every)
+        sfar = torch.clamp_min(geometry.intersect_cube(*point, nsx, nsy, nsz)[1], 0.0)
+        # deposits: the environment on a distance-phase escape, the shaded
+        # collision (the light at the sample's direction) on a shadow escape
+        esc0 = ~shadow & escaped
+        light = sample_environment(ctx.environment, p.sdx, p.sdy, p.sdz)
+        shaded = torch.stack([p.dr * light[..., 0], p.dg * light[..., 1], p.db * light[..., 2],
+                              p.da], dim=-1) * p.trans[..., None]
+        deposit = escaped
+        value = torch.where(esc0[..., None], env4, shaded)
+        samples = p.samples + deposit.to(torch.int32)
+        denom = torch.clamp_min(samples, 1).to(torch.float32)[..., None]
+        acc = torch.where(deposit[..., None], p.acc + (value - p.acc) / denom, p.acc)
+        if observe is not None:
+            observe(dict(p=p, shadow=shadow, start=start, capped=capped, escaped=escaped,
+                         point=point, tentative=tentative, scatter=scatter))
+        # the next lane state
+        trans = torch.where(shadow & tentative, p.trans * (1.0 - alpha), p.trans)
+        restart = deposit | scatter
+        sel = lambda a, b: torch.where(scatter, a, b)  # noqa: E731
+        p = dataclasses.replace(
+            p, phase=(shadow | scatter) & ~deposit,
+            dist=torch.where(restart, torch.zeros_like(dist2), dist2),
+            trans=torch.where(restart, torch.ones_like(trans), trans),
+            sdx=sel(nsx, p.sdx), sdy=sel(nsy, p.sdy), sdz=sel(nsz, p.sdz), smax=sel(sfar, p.smax),
+            scx=sel(point[0], p.scx), scy=sel(point[1], p.scy), scz=sel(point[2], p.scz),
+            dr=sel(tf4[..., 0], p.dr), dg=sel(tf4[..., 1], p.dg), db=sel(tf4[..., 2], p.db),
+            da=sel(tf4[..., 3], p.da), acc=acc, samples=samples)
+    return p
+
+
+mcs_persistent_dispatch = _mcs_persistent_dispatch_impl
+
+
+def mcs_persistent_many(state, ctx, seeds, resolution: int, steps: int,
+                        volume_filter: str = "linear", streams: int = 1, *, observe=None):
+    """K dispatches, one per seed (the ctx's seed replaced); returns the new
+    state and leaves ``state`` as it was."""
+    for seed in np.asarray(seeds, np.uint32).reshape(-1):
+        state = _mcs_persistent_dispatch_impl(
+            state, dataclasses.replace(ctx, seed_bits=int(seed)), resolution, steps,
+            volume_filter, streams, observe=observe)
+    return state
+
+
+def persistent_plain(state, ctx, seeds, steps: int, volume_filter: str = "linear",
+                     streams: int = 1, *, observe=None):
+    """Plain ``persistent``: ``mcs_persistent_many`` written into
+    ``state``'s tensors in place. Returns ``state``."""
+    out = mcs_persistent_many(state, ctx, seeds, state.dist.shape[-1], steps, volume_filter,
+                              streams, observe=observe)
+    for k in PERSISTENT_FIELDS:
+        getattr(state, k).copy_(getattr(out, k))
+    return state
+
+
 # ---------------------------------------------------------------------------
 # CUDA wrapper
 # ---------------------------------------------------------------------------
@@ -233,7 +383,8 @@ def _check_tables(ctx, volume_filter):
         K._check(ctx.majorant, "majorant", torch.float32, align=8)
 
 
-def _params(ctx, resolution: int, n_frames: int, max_collisions: int, volume_filter: str):
+def _params(ctx, resolution: int, n_frames: int, max_collisions: int, volume_filter: str,
+            steps: int = 0, streams: int = 1):
     f = np.zeros(_F_COUNT, np.float32)
     f[0:16] = np.asarray(ctx.inv_mvp, np.float32).reshape(16)
     f[16] = ctx.extinction
@@ -249,6 +400,7 @@ def _params(ctx, resolution: int, n_frames: int, max_collisions: int, volume_fil
         int(not vol_raw and vol.table.dtype == torch.uint8), *dims,
         int(volume_filter == "quasicubic"), int(volume_filter == "nearest"), int(tf_raw),
         tf.shape[0] + tf_raw, tf.shape[1] + tf_raw, env.shape[0], env.shape[1], *maj,
+        steps, streams,
     ], np.int32)
     assert i.shape == (_I_COUNT,)
     return f, i
@@ -303,3 +455,54 @@ def frames(acc, frame, ctx, seeds, scatter_dirs, max_collisions: int = 1024,
                      ("environment", ctx.environment.numel() > 3)):
         LAUNCHES[f"frames_{mode}"] += int(on)
     return acc, frame
+
+
+def _check_persistent_state(state, streams: int):
+    shape = tuple(state.dist.shape)
+    if len(shape) not in (2, 3) or shape[-1] != shape[-2]:
+        raise ValueError(f"the lane shape must be (R, R) or (S, R, R), got {shape}")
+    if shape != _lane_shape(shape[-1], streams):
+        raise ValueError(f"a lane shape {shape} is not that of {streams} stream(s)")
+    for k in PERSISTENT_FIELDS:
+        dtype = {"phase": torch.bool, "samples": torch.int32}.get(k, torch.float32)
+        K._check(getattr(state, k), k, dtype, shape + (4,) if k == "acc" else shape,
+                 align=16 if k == "acc" else 4)
+
+
+def persistent(state, ctx, seeds, steps: int, volume_filter: str = "linear", streams: int = 1):
+    """K dispatches of ``steps`` persistent-lane iterations, one per seed,
+    updating ``state`` (an ``MCSPersistentState``) in place. On a CUDA device
+    one launch of K23 ``mcs_persistent``, which reads and writes each lane's
+    fields once; the seeds are uploaded on the launch's stream."""
+    seeds = np.asarray(seeds, np.uint32).reshape(-1)
+    tensors = [getattr(state, k) for k in PERSISTENT_FIELDS] + [
+        RK._volume_tensor(ctx.density), ctx.tf_table, ctx.environment]
+    if ctx.majorant is not None:
+        tensors.append(ctx.majorant)
+    if K._route(*tensors) == "cpu":
+        return persistent_plain(state, ctx, seeds, steps, volume_filter, streams)
+    _check_tables(ctx, volume_filter)
+    _check_persistent_state(state, streams)
+    if len(seeds) == 0 or steps <= 0:
+        return state
+    res = state.dist.shape[-1]
+    f, i = _params(ctx, res, len(seeds), 0, volume_filter, int(steps), int(streams))
+    lib = _build.load()
+    if (lib.vpt_mcs_layout(0), lib.vpt_mcs_layout(1)) != (_F_COUNT, _I_COUNT):
+        raise RuntimeError("mcs kernel library parameter layout does not match the wrapper")
+    device = state.dist.device
+    seeds_dev = torch.as_tensor(seeds.view(np.int32), device=device)
+    with torch.cuda.device(device):
+        err = lib.vpt_mcs_persistent(
+            f.ctypes.data, i.ctypes.data, tensors[len(PERSISTENT_FIELDS)].data_ptr(),
+            ctx.tf_table.data_ptr(), ctx.environment.data_ptr(), K._ptr(ctx.majorant),
+            seeds_dev.data_ptr(), *(getattr(state, k).data_ptr() for k in PERSISTENT_FIELDS),
+            K._stream(device))
+    K._raise_on(err, "mcs_persistent")
+    LAUNCHES["persistent"] += 1
+    for mode, on in (("majorant", ctx.majorant is not None),
+                     ("raw", not isinstance(ctx.density, interp.PackedVolume)),
+                     ("environment", ctx.environment.numel() > 3),
+                     ("streams", streams > 1)):
+        LAUNCHES[f"persistent_{mode}"] += int(on)
+    return state

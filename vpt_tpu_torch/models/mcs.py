@@ -1,7 +1,8 @@
-"""Single-scattering Monte-Carlo renderer (MCS), the reference-exact frames.
+"""Single-scattering Monte-Carlo renderer (MCS): the reference-exact frames
+and the persistent lanes.
 
-Counterpart of ``vpt_tpu/models/mcs.py`` with ``persistent=False``: per
-frame, each pixel's ray Woodcock-samples one collision, then ratio-tracks
+Counterpart of ``vpt_tpu/models/mcs.py``. With ``persistent=False`` (the
+default), per frame, each pixel's ray Woodcock-samples one collision, then ratio-tracks
 the transmittance toward the frame's scattering direction; the pixel's
 value is diffuse x light x transmittance (the light one environment sample
 at that direction), or the environment on a miss or an escape; frames
@@ -18,8 +19,18 @@ int32, updated in place where the JAX functions donate it.
 ``majorant_blocks`` builds the super-voxel majorant grid (``ops/majorant``)
 against the TF's alpha curve along row 0, remapped onto build_majorant_grid's
 density-rows convention as the reference does: statistically exact, with
-other per-seed frames than the exact path. ``persistent=True`` (the
-persistent-lane path) is not ported yet and raises.
+other per-seed frames than the exact path.
+
+``persistent=True`` runs the persistent-lane state machine instead
+(``MCSPersistentState``, one lane per pixel and stream): every iteration
+each lane takes one free-flight step, and a lane that finishes a sample
+deposits it into its incremental mean and starts the next at once, its
+light direction drawn per sample. ``steps`` iterations make one dispatch;
+``streams`` S > 1 gives each pixel S chains (lane shape (S, R, R)), and the
+image is their sample-weighted mean. One ``render_many`` call of K seeds is
+one launch of K23 ``mcs_persistent`` on a CUDA device (the plain version on
+CPU tensors); the same converged image as the frames, other per-seed
+images.
 
 Known reference quirks preserved: the per-pixel chain seeded from the bits
 of the pixel's screen uv; a white 1x1 environment when none is given.
@@ -27,6 +38,7 @@ of the pixel's screen uv; a white 1x1 environment when none is given.
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 
 import numpy as np
@@ -55,6 +67,37 @@ class MCSCtx:
     tf_table: torch.Tensor  # packed (257, 257, 16) or raw (256, 256, 4)
     environment: torch.Tensor  # raw (He, We, 3) equirect map
     majorant: torch.Tensor | None = None  # (Gz, Gy, Gx, 2) f32
+
+
+@dataclass
+class MCSPersistentState:
+    """Per-lane single-scatter state, (R, R) or (S, R, R) lane tensors; the
+    JAX ``MCSPersistentState``'s fields in its leaf order, which checkpoints
+    keep."""
+
+    phase: torch.Tensor  # bool: False distance sampling, True shadow ray
+    dist: torch.Tensor  # f32 distance travelled along the current segment
+    trans: torch.Tensor  # f32 running transmittance (shadow phase)
+    sdx: torch.Tensor  # f32 the sample's scatter (light) direction
+    sdy: torch.Tensor
+    sdz: torch.Tensor
+    smax: torch.Tensor  # f32 shadow segment length
+    scx: torch.Tensor  # f32 scatter point
+    scy: torch.Tensor
+    scz: torch.Tensor
+    dr: torch.Tensor  # f32 diffuse RGBA at the scatter point
+    dg: torch.Tensor
+    db: torch.Tensor
+    da: torch.Tensor
+    acc: torch.Tensor  # (..., 4) f32 incremental-mean RGBA
+    samples: torch.Tensor  # i32 completed samples
+
+    @staticmethod
+    def field_names():
+        return tuple(f.name for f in dataclasses.fields(MCSPersistentState))
+
+    def tensors(self):
+        return [getattr(self, k) for k in self.field_names()]
 
 
 def _pcg_hash(x: np.uint32) -> np.uint32:
@@ -111,10 +154,6 @@ class MCSRenderer(nn.Module):
                  majorant_blocks: int | None = None, persistent: bool = False, steps: int = 32,
                  streams: int = 1, *, device):
         super().__init__()
-        if persistent:
-            raise NotImplementedError("MCSRenderer(persistent=True), the persistent-lane path, "
-                                      "is not ported to vpt_tpu_torch yet (ROADMAP.md queue A "
-                                      "item 1b)")
         if volume.filter not in ("linear", "quasicubic", "nearest"):
             raise ValueError(f"unknown volume filter {volume.filter!r}")
         self.persistent, self.steps, self.streams = persistent, steps, streams
@@ -165,17 +204,41 @@ class MCSRenderer(nn.Module):
 
     def reset(self, camera, seed: int = 0):
         n = self.resolution
+        if self.persistent:
+            shape = K._lane_shape(n, self.streams)
+            # distinct buffers per field: the kernel updates each in place
+            z = lambda: torch.zeros(shape, dtype=torch.float32, device=self.device)  # noqa: E731
+            o = lambda: torch.ones(shape, dtype=torch.float32, device=self.device)  # noqa: E731
+            return MCSPersistentState(
+                phase=torch.zeros(shape, dtype=torch.bool, device=self.device), dist=z(),
+                trans=o(), sdx=z(), sdy=z(), sdz=o(), smax=z(), scx=z(), scy=z(), scz=z(),
+                dr=z(), dg=z(), db=z(), da=z(),
+                acc=torch.zeros(shape + (4,), dtype=torch.float32, device=self.device),
+                samples=torch.zeros(shape, dtype=torch.int32, device=self.device))
         return dict(acc=torch.zeros((n, n, 4), dtype=torch.float32, device=self.device),
                     frame=torch.zeros((), dtype=torch.int32, device=self.device))
+
+    def _persistent_image(self, state):
+        """The sample-weighted mean over streams (streams hold unequal
+        sample counts at any finite step)."""
+        if self.streams == 1:
+            return state.acc[..., :3]
+        w = state.samples.to(torch.float32)[..., None]
+        total = torch.clamp_min(w.sum(dim=0), 1.0)
+        return (state.acc[..., :3] * w).sum(dim=0) / total
 
     def render(self, state, camera, seed: int):
         return self.render_many(state, camera, [seed])
 
     def render_many(self, state, camera, seeds):
-        """K frames in one kernel launch: per-frame seeds and host-drawn
-        scattering directions; the ctx's seed is ``seeds[0]``. Returns
-        (state, (H, W, 3) image)."""
+        """K frames (persistent: K dispatches) in one kernel launch; the
+        ctx's seed is ``seeds[0]``, the frames' scattering directions are
+        drawn on the host. Returns (state, (H, W, 3) image)."""
         seeds = np.asarray(seeds, np.uint32).reshape(-1)
+        if self.persistent:
+            K.persistent(state, self.ctx(camera, int(seeds[0])), seeds, self.steps,
+                         self.volume.filter, self.streams)
+            return state, self._persistent_image(state)
         dirs = np.stack([_host_scatter_direction(int(s)) for s in seeds])
         K.frames(state["acc"], state["frame"], self.ctx(camera, int(seeds[0]), dirs[0]), seeds,
                  dirs, self.max_collisions, self.volume.filter)
