@@ -7,7 +7,8 @@ Phases (each raises on failure, so any failure exits non-zero):
   2. build the kernels of vpt_tpu_torch/csrc with nvcc (sm_90a, one nvcc
      per source, all at once); print the ptxas registers, spills and
      stack frame of every instantiation of K1, K4 (and its surrogate
-     mode), K5, K9, K10, K11, K12, K13, K14 and K15-K23
+     mode, <NB,MAJ,ENV,XY>), K5, K9, K10, K11, K12 (<NB,MAJ,ENV,XY>), K13,
+     K14 and K15-K23
   3. sample_volume_packed vs its plain version: all 256 u8 codes exact;
      timed at 1M lookups by device time (CUDA-graph replay) against
      F.grid_sample on the float volume, host path beside it
@@ -66,19 +67,28 @@ Phases (each raises on failure, so any failure exits non-zero):
      device time against index_add_
  16. the autodiff surrogate's kernels at 512^2 x 4 streams, 2 dispatches,
      exact, majorant (the bench scene, majorant_blocks=16), environment,
-     environment+majorant and quasicubic mode: K4's surrogate mode (its
-     state equals K1's bit for bit, its tape the
+     environment+majorant and quasicubic mode, and over the bench scene's
+     xy half-packed u8 table (8.5 MB) in exact, majorant, quasicubic and
+     environment+majorant mode: K4's surrogate mode (its state equals K1's
+     bit for bit, its tape the
      plain tape; timed beside K1 on the same state copy), K12
      surrogate_reverse on that tape within 1e-4 relative L2 of its plain
-     version (two runs within 1e-5) with all four adjoints and with the
-     density's alone; both timed against their bounds; then the window of
-     render_sequence_diff against the autograd twin on the card (128^2 x
-     2, K = 2, all four tables, 1e-4) under both window_storage schedules
+     version (two runs within 1e-5) with all four adjoints and (exact and
+     majorant, full and xy) with the density's alone; both timed against
+     their bounds (an xy lookup reads and scatters two 4-wide plane rows);
+     then the window of render_sequence_diff against the autograd twin on
+     the card (128^2 x 2, K = 2, all four tables, 1e-4) under both
+     window_storage schedules, in each of those nine modes
  17. the autodiff training path: fit_spectral(method="autodiff") at full
      width on the bench scene and, routed by default, on the sparse 512^3
      majorant scene (3 iterations each, the launch counts set to 0 before:
      one K4 surrogate sweep and one K12 per iteration, K9 and K10
-     required, no K1 inside the loss; seconds per iteration); a K = 4
+     required, no K1 inside the loss; seconds per iteration, peak device
+     memory); the same scene's xy table with the same majorant blocks: one
+     window's contracted density gradient against the full table's (1e-4
+     relative L2, the loss equal), then method=None learning an f32 density
+     (routed to the surrogate: one K4 xy+majorant sweep, one K12 xy launch,
+     K9 contract_volume_xy and K10 pack_volume_xy per iteration); a K = 4
      surrogate window under "tape" and "forward" (gradients within 1e-4 of
      each other), the tape schedule split into the taped sweep, K12 and K9,
      beside phase 9's PRB stride-1 window; a checkpoint after iteration 2
@@ -414,12 +424,13 @@ def state_bytes(n_lanes, n_bins):
 def table_bytes(ctx, lane_steps):
     """Bytes of the scene tables a step run reads: each table once, but the
     volume and TF tables no more than one lookup's values per lane-step (a
-    packed row, or a raw grid's 8 corners (1 for nearest) and a raw TF's 4
-    texels; most of a sparse volume is never read)."""
+    full table's 8-wide row or an xy table's two 4-wide plane rows, a raw
+    grid's 8 corners (1 for nearest) and a raw TF's 4 texels; most of a
+    sparse volume is never read)."""
     from vpt_tpu_torch.kernels import mcm_spectral as K
 
     vol, tf = K.density_table(ctx), ctx.material_tf
-    per_vol = vol.shape[-1] if vol.ndim == 2 else (1 if ctx.volume_filter == "nearest" else 8)
+    per_vol = 1 if vol.ndim == 3 and ctx.volume_filter == "nearest" else 8
     per_tf = 16 if tf.shape[-1] == 4 else tf.shape[-1]
     out = min(vol.numel(), lane_steps * per_vol) * vol.element_size()
     out += min(tf.numel(), lane_steps * per_tf) * 4
@@ -2250,9 +2261,18 @@ def phase_surrogate(renderer, camera, dev):
                                            environment=env, majorant_blocks=16, device=dev)
     qc_renderer = MCMSpectralRenderer(*mode_args(True), resolution=RES, streams=STREAMS,
                                       device=dev)
+    # the xy half-packed volume (the bench scene's 8.5 MB u8 xy table) in
+    # exact, majorant, quasicubic and environment+majorant mode
+    xy_kw = dict(resolution=RES, streams=STREAMS, pack_tables=XY_TABLES, device=dev)
+    xy_renderers = (
+        ("xy", MCMSpectralRenderer(*bench_scene_args(), **xy_kw)),
+        ("xy majorant", MCMSpectralRenderer(*bench_scene_args(), majorant_blocks=16, **xy_kw)),
+        ("xy quasicubic", MCMSpectralRenderer(*mode_args(True), **xy_kw)),
+        ("xy environment+majorant", MCMSpectralRenderer(*bench_scene_args(), environment=env,
+                                                        majorant_blocks=16, **xy_kw)))
     for mode, r in (("exact", renderer), ("majorant", maj_renderer),
                     ("environment", env_renderer), ("environment+majorant", env_maj_renderer),
-                    ("quasicubic", qc_renderer)):
+                    ("quasicubic", qc_renderer), *xy_renderers):
         ctx = r.ctx(camera, 7)
         s0 = r.reset(camera, 7)
         s1 = clone_state(s0)
@@ -2306,7 +2326,7 @@ def phase_surrogate(renderer, camera, dev):
         n = s0.px.numel()
         carry0, adj_all = sur_adjoints(ctx, n, BINS, 11)
         wrts = (("all", adj_all), ("density", {"g_vol": adj_all["g_vol"]}))
-        for wrt, adj0 in wrts[:2 if mode in ("exact", "majorant") else 1]:
+        for wrt, adj0 in wrts[:2 if mode in ("exact", "majorant", "xy", "xy majorant") else 1]:
             rec = k12_check(mode, wrt, tk, flds, sk.samples, carry0, adj0, ctx, k12)
             k12["modes"][f"{mode}/{wrt}"] = rec
         del tk, tk2, tp
@@ -2325,10 +2345,14 @@ def phase_surrogate(renderer, camera, dev):
     k12["library_call"] = "— (no single call)"
     keys = ("bound_ms", "bound_by", "bound_bytes", "bound_ops", "bound_share")
     modes = {}
+    xy_replaces = "vpt_tpu/ops/interp.py:226 (_sample_volume_packed_xy under jax.grad)"
     for mode, replaces in (("environment", "vpt_tpu/models/mcm_spectral.py:148"),
                            ("environment+majorant",
                             "vpt_tpu/models/mcm_spectral.py:148 and :228"),
-                           ("quasicubic", "vpt_tpu/ops/interp.py:389")):
+                           ("quasicubic", "vpt_tpu/ops/interp.py:389"),
+                           ("xy", xy_replaces), ("xy majorant", xy_replaces),
+                           ("xy quasicubic", xy_replaces),
+                           ("xy environment+majorant", xy_replaces)):
         r4, r12 = k4["modes"][mode], k12["modes"][f"{mode}/all"]
         modes[f"surrogate_tape_forward[{mode}]"] = kernel_line(
             dict(name=f"surrogate_tape_forward[{mode}]", route="cuda", source=BWD_SOURCE,
@@ -2342,14 +2366,15 @@ def phase_surrogate(renderer, camera, dev):
                  max_rel_l2=max(r12[k]["rel_l2"] for k in r12 if isinstance(r12[k], dict)),
                  ms=r12["ms"], plain_ms=r12["plain_ms"]), {k: r12[k] for k in keys})
     twin = twin_check(dev, camera)
-    # launches of the env-only and quasicubic instantiations: the twin's
-    # window (render_sequence_diff); the env+majorant one's: phase 17's fit
-    for mode in ("environment", "quasicubic"):
+    # launches of the env-only, quasicubic and xy instantiations: the twin's
+    # window (render_sequence_diff); the env+majorant and xy+majorant ones':
+    # phase 17's fits
+    for mode in ("environment", "quasicubic", "xy", "xy quasicubic", "xy environment+majorant"):
         modes[f"surrogate_tape_forward[{mode}]"]["launches"] = twin["launches"][mode][
             "surrogate_tape_forward"]
         modes[f"surrogate_reverse[{mode}]"]["launches"] = twin["launches"][mode][
             "surrogate_reverse"]
-    del maj_renderer, env_renderer, env_maj_renderer, qc_renderer
+    del maj_renderer, env_renderer, env_maj_renderer, qc_renderer, xy_renderers
     torch.cuda.empty_cache()
     return k4, k12, twin, modes
 
@@ -2409,7 +2434,9 @@ def twin_check(dev, camera):
     both on the card: 128^2 x 2 streams, K = 2 dispatches, gradients of an
     MSE loss w.r.t. all four tables, relative L2 <= 1e-4 each, the loss
     equal, in exact, majorant, environment, environment+majorant and
-    quasicubic mode, under both schedules of the window
+    quasicubic mode and over the xy half-packed volume in exact, majorant,
+    quasicubic and environment+majorant mode, under both schedules of the
+    window
     ("tape": K4's surrogate mode, K12, K10, K9; "forward": K1, then K4's
     surrogate mode and K12 per dispatch, K10, K9)."""
     from vpt_tpu_torch.kernels import corners as C
@@ -2421,11 +2448,15 @@ def twin_check(dev, camera):
     out, launches = {}, {}
     env = seeded_envmap()
     for mode, blocks in (("exact", None), ("majorant", 16), ("environment", None),
-                         ("environment+majorant", 16), ("quasicubic", None)):
-        args = mode_args(mode == "quasicubic")
-        lit = mode.startswith("environment")
+                         ("environment+majorant", 16), ("quasicubic", None), ("xy", None),
+                         ("xy majorant", 16), ("xy quasicubic", None),
+                         ("xy environment+majorant", 16)):
+        args = mode_args(mode.endswith("quasicubic"))
+        lit = "environment" in mode
         r = TM.MCMSpectralRenderer(*args, resolution=res, streams=streams, majorant_blocks=blocks,
-                                   environment=env if lit else None, device=dev)
+                                   environment=env if lit else None,
+                                   pack_tables=XY_TABLES if mode.startswith("xy") else True,
+                                   device=dev)
         base, s0 = r.ctx(camera, 7), r.reset(camera, 7)
         raw = dict(density=torch.as_tensor(np.asarray(args[0].density, np.float32), device=dev),
                    material_tf=torch.as_tensor(np.array(args[1].table, np.float32), device=dev),
@@ -2437,7 +2468,9 @@ def twin_check(dev, camera):
         target = torch.full((res, res, 3), 0.25, device=dev)
 
         def ctx_of(p):
-            vol = interp.PackedVolume(C.pack_volume_diff(p["density"]), base.density.dims)
+            kind = base.density.kind
+            vol = interp.PackedVolume(C.pack_volume_diff(p["density"], kind), base.density.dims,
+                                      kind)
             ctx = dataclasses.replace(base, density=vol, extinction=p["extinction"],
                                       material_tf=C.pack_tf_diff(p["material_tf"],
                                                                  p["light_spectrum"]))
@@ -2503,6 +2536,13 @@ def twin_check(dev, camera):
                       "pack_corners_env"), "the env-lit majorant window")
     require_launches(launches["quasicubic"], ("surrogate_reverse_quasicubic",), "the "
                      "quasicubic window")
+    for mode in ("xy", "xy majorant", "xy quasicubic", "xy environment+majorant"):
+        require_launches(launches[mode], ("surrogate_tape_forward_xy", "surrogate_reverse_xy",
+                                          "contract_corners_xy", "pack_corners_xy"),
+                         f"the {mode} window")
+    require_launches(launches["xy environment+majorant"],
+                     ("surrogate_tape_forward_environment_majorant",
+                      "surrogate_reverse_environment_majorant"), "the xy env-lit majorant window")
     out["launches"] = launches
     return out
 
@@ -4534,9 +4574,100 @@ def phase_autodiff_fit(camera, dev, prb_windows):
                                     cam, sparse_init, dev)
     out["sparse"]["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
     log(f"# sparse autodiff fit: peak device memory {out['sparse']['peak_memory_bytes']} B")
+    xy, out["sparse_xy"] = sparse_xy_window(sparse, cam, sparse_target, sparse_init, dev)
     del sparse
     torch.cuda.empty_cache()
+    out["sparse_xy"]["fit"] = sparse_xy_fit(xy, cam, sparse_target, sparse_init, dev)
+    del xy
+    torch.cuda.empty_cache()
     return out
+
+
+def sparse_xy_window(sparse, cam, target, init, dev):
+    """Phase 17, xy: the sparse 512^3 scene's xy table (half the full
+    table's bytes) with the same majorant blocks, and one window's
+    contracted density gradient (spectral_render_loss, K = CHUNK) over it
+    against the full table's on the same raw grid (relative L2 <= 1e-4:
+    the same terms, summed through other rows and K12's atomics; the loss
+    equal). Returns (the xy renderer, the record)."""
+    from vpt_tpu_torch.models.mcm_spectral import MCMSpectralRenderer
+    from vpt_tpu_torch.optim import spectral_render_loss
+
+    t0 = time.perf_counter()
+    xy = MCMSpectralRenderer(sparse.volume, sparse.material_tf, sparse.light, sparse.spectrum,
+                             sparse.config, resolution=RES, streams=STREAMS,
+                             majorant_blocks=SPARSE_BLOCKS, pack_tables=XY_TABLES, device=dev)
+    out = dict(set_up_s=time.perf_counter() - t0, table_bytes_xy=xy.vol_table.numel(),
+               table_bytes_full=sparse.vol_table.numel())
+    seeds = [(11 + k) * 2654435761 % 2**32 for k in range(CHUNK)]
+
+    def window_grad(r):
+        ctx = dataclasses.replace(r.ctx(cam, 1), volume_filter="linear")
+        d = torch.as_tensor(init, device=dev).requires_grad_(True)
+        loss = spectral_render_loss({"density": d}, r.reset(cam, 1), ctx, seeds, target, STEPS,
+                                    BINS)
+        return float(loss.detach()), torch.autograd.grad(loss, [d])[0]
+
+    (loss_f, g_full), (loss_x, g_xy) = window_grad(sparse), window_grad(xy)
+    rel = float((g_xy - g_full).norm() / g_full.norm().clamp_min(1e-30))
+    if loss_x != loss_f or not bool(torch.isfinite(g_xy).all()) or rel > 1e-4:
+        raise AssertionError(f"sparse window over xy vs the full table: loss {loss_x} vs "
+                             f"{loss_f}, density gradient rel L2 {rel:.3g}")
+    out.update(window_loss=loss_x, window_grad_rel_l2=rel)
+    log(f"# sparse {SPARSE}^3 surrogate window (K = {CHUNK}) over xy ({out['table_bytes_xy']} B "
+        f"table) vs the full table ({out['table_bytes_full']} B): loss equal ({loss_x:.6g}), "
+        f"contracted density gradient rel L2 {rel:.3g}")
+    del g_full, g_xy
+    out["split"] = {which: sparse_window_split(r, cam, init, seeds, dev)
+                    for which, r in (("full", sparse), ("xy", xy))}
+    log(f"# sparse {SPARSE}^3 window split, full vs xy (ms, CUDA events): " + "; ".join(
+        f"{k} {out['split']['full'][k]:.4f} vs {out['split']['xy'][k]:.4f}"
+        for k in out["split"]["full"]))
+    return xy, out
+
+
+def sparse_window_split(r, cam, init, seeds, dev):
+    """Where a sparse fit's window goes on ``r``'s table: the re-pack of
+    the learned f32 density (K10), the taped sweep over the window (K4's
+    surrogate mode), K12 over that tape with wrt={density}, and the
+    contraction of its adjoint (K9), each by CUDA events."""
+    from vpt_tpu_torch.kernels import corners as C
+    from vpt_tpu_torch.kernels import surrogate as S
+
+    dens = torch.as_tensor(init, device=dev)
+    base = r.ctx(cam, 1)
+    kind, state = base.density.kind, r.reset(cam, 1)
+    rec = dict(k10_ms=cuda_ms(lambda: C.pack_volume(dens, kind), 3))
+    ctx = dataclasses.replace(base, volume_filter="linear", density=dataclasses.replace(
+        base.density, table=C.pack_volume(dens, kind)))
+    rec["taped_sweep_ms"] = cuda_ms(lambda: S.tape_forward(state, ctx, seeds, STEPS, BINS), 3)
+    end, tape = S.tape_forward(state, ctx, seeds, STEPS, BINS)
+    carry0, _ = sur_adjoints(ctx, state.px.numel(), BINS, 5)
+    adj = {"g_vol": torch.zeros(ctx.density.table.shape, device=dev)}
+    calls = iter([copy_carry(carry0) for _ in range(4)])
+    rec["k12_ms"] = cuda_ms(lambda: S.reverse(tape, S.fields(ctx.majorant is not None),
+                                              end.samples, next(calls), adj, ctx, BINS), 3)
+    rec["k9_ms"] = cuda_ms(lambda: C.contract_volume(adj["g_vol"], ctx.density.dims, kind), 3)
+    return rec
+
+
+def sparse_xy_fit(xy, cam, target, init, dev):
+    """fit_spectral with method=None on the sparse xy renderer with its
+    majorant grid, learning an f32 density: routed to the surrogate over
+    xy, one K4 xy+majorant sweep and one K12 xy launch, K10 pack_volume_xy
+    and K9 contract_volume_xy each iteration; peak device memory from the
+    fit's start."""
+    torch.cuda.reset_peak_memory_stats()
+    _, rec = autodiff_fit(f"sparse {SPARSE}^3 xy, majorant, method=None", target, xy, cam, init,
+                          dev)
+    rec["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+    per_iteration = ("surrogate_tape_forward_xy", "surrogate_tape_forward_majorant",
+                     "surrogate_reverse_xy", "contract_corners_xy", "pack_corners_xy")
+    if any(rec["launches"].get(k, 0) != FIT_ITERS for k in per_iteration):
+        raise AssertionError(f"sparse xy fit: launches {rec['launches']}; want each of "
+                             f"{per_iteration} once per iteration")
+    log(f"# sparse xy autodiff fit: peak device memory {rec['peak_memory_bytes']} B")
+    return rec
 
 
 def phase_gather(dev):
@@ -4709,6 +4840,11 @@ def main():
         "surrogate_tape_forward_environment_majorant"]
     sur_modes["surrogate_reverse[environment+majorant]"]["launches"] = env_maj[
         "surrogate_reverse_environment_majorant"]
+    # the xy+majorant instantiation: the sparse xy fit (phase 17)
+    xy_maj = autodiff["sparse_xy"]["fit"]["launches"]
+    sur_modes["surrogate_tape_forward[xy majorant]"]["launches"] = xy_maj[
+        "surrogate_tape_forward_xy"]
+    sur_modes["surrogate_reverse[xy majorant]"]["launches"] = xy_maj["surrogate_reverse_xy"]
     kernels = [k1, k2, k4, k5, k6, k7, k9, k10, k11, k1_maj, k1_modes["environment"],
                k1_modes["quasicubic"], *compact_kernels, k4_sur, k12, k1_xy, *k4_modes.values(),
                *k5_modes.values(), *corner_modes.values(), *sur_modes.values(), k1_raw, k13,

@@ -125,16 +125,19 @@ def test_quasicubic_renderer_fits_with_the_linear_filter_as_jax(method):
 
 
 def test_unported_fit_options_raise():
-    """The surrogate over an xy volume waits for the next slice; learning
-    the environment needs an env-lit renderer."""
+    """The surrogate over an xy volume runs (tests/test_torch_surrogate_xy.py
+    follows JAX's trajectories); learning the environment needs an env-lit
+    renderer, and an unknown key raises."""
     scene = (Volume.sphere_in_cube(8), _ramp_tf(), LightConfig(direction=(1.0, 0.2, 0.5)),
              SpectrumConfig(), MCMSpectralConfig(extinction=20.0, bounces=4, steps=4))
     _, tr = _both(scene, resolution=8, pack_tables=XY)
     args = (np.zeros((8, 8, 3), np.float32), tr, TCamera(),
             {"density": np.full((8, 8, 8), 0.6, np.float32)})
     TB.reset_launch_counts()
-    with pytest.raises(NotImplementedError, match="next slice"):
-        TO.fit_spectral(*args, iterations=1, method="autodiff")
+    params, losses, info = TO.fit_spectral(*args, iterations=1, method="autodiff",
+                                           return_info=True)
+    assert info["method"] == "autodiff" and np.isfinite(losses).all()
+    assert params["density"].shape == (8, 8, 8)
     _, tl = _both(scene, resolution=8)
     with pytest.raises(ValueError, match="env-lit"):
         TO.fit_spectral(np.zeros((8, 8, 3), np.float32), tl, TCamera(),

@@ -244,7 +244,9 @@ __device__ __forceinline__ void sput(float* row, const SurSpec& T, int field, fl
 // does (not on a lane that left the volume or was capped, as the PRB
 // tape's every-lane record must): its time is K1's plus the tape's
 // evict-first stores, and the state it leaves equals K1's bit for bit.
-template <int NB, bool MAJ, bool ENV>
+// XY: an xy half-packed volume (K1's two plane-row lookup); the tape is the
+// same, since K12 re-gathers the rows from the taped position.
+template <int NB, bool MAJ, bool ENV, bool XY>
 __global__ void __launch_bounds__(STEP_THREADS, 8)
 surrogate_tape_kernel(const Params P, const SurSpec T, float* __restrict__ px_,
                       float* __restrict__ py_, float* __restrict__ pz_,
@@ -276,8 +278,8 @@ surrogate_tape_kernel(const Params P, const SurSpec T, float* __restrict__ px_,
     uint32_t s = hash3(ix, seed_iy, seeds[k]);
     for (int it = 0; it < steps; ++it, row += step_rows) {
       SurRecord r;
-      woodcock_step<NB, false, MAJ, ENV, true>(L, rad, s, sx, sy, P, C, vol, tf, nullptr, maj,
-                                               env, &r);
+      woodcock_step<NB, false, MAJ, ENV, true, XY>(L, rad, s, sx, sy, P, C, vol, tf, nullptr,
+                                                   maj, env, &r);
       const int flags = (r.respawn ? SF_RESPAWN : 0) | (r.oob ? SF_OOB : 0) |
                         (r.null_event ? SF_NULL : 0) | (r.scatter ? SF_SCATTER : 0) |
                         (r.capped ? SF_CAPPED : 0) | (r.pre_bin << 8);
@@ -667,7 +669,7 @@ int vpt_prb_tape_forward(const float* fparams, const int* iparams,
 
 // K4's surrogate mode: the majorant table `maj` (Gz, Gy, Gx) x (majorant,
 // flight cap), or null for the exact mode; `env` the packed environment
-// map, or null
+// map, or null; an xy half-packed `vol` when I_VOL_XY is set
 int vpt_surrogate_tape_forward(const float* fparams, const int* iparams, const int* slots,
                                int n_fields, float* px, float* py, float* pz, float* dx,
                                float* dy, float* dz, int* bounces, int* samples, int* bin,
@@ -678,23 +680,28 @@ int vpt_surrogate_tape_forward(const float* fparams, const int* iparams, const i
   const int n = P.i[I_N_LANES];
   const SurSpec T = make_sur_spec(slots, n_fields, n);
   if (n <= 0) return 0;
-  if ((env != nullptr) != (P.i[I_ENV_H] > 0) || (maj != nullptr) != (P.i[I_MAJ_GZ] > 0) ||
-      P.i[I_VOL_XY] != 0)
+  if ((env != nullptr) != (P.i[I_ENV_H] > 0) || (maj != nullptr) != (P.i[I_MAJ_GZ] > 0))
     return (int)cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const dim3 grid(blocks_for(n, STEP_THREADS)), block(STEP_THREADS);
-  switch (bins_rounded(P.i[I_N_BINS]) * 4 + (maj != nullptr ? 1 : 0) + (env != nullptr ? 2 : 0)) {
-#define VPT_NB_MODE(NB, M, MB, EB)                                                         \
+  // NB is a multiple of 4, so NB * 4 leaves the low 4 bits to the mode
+  switch (bins_rounded(P.i[I_N_BINS]) * 4 + (maj != nullptr ? 1 : 0) + (env != nullptr ? 2 : 0) +
+          (P.i[I_VOL_XY] != 0 ? 4 : 0)) {
+#define VPT_NB_MODE(NB, M, MB, EB, XB)                                                     \
   case NB * 4 + M:                                                                         \
-    surrogate_tape_kernel<NB, MB, EB><<<grid, block, 0, st>>>(                             \
+    surrogate_tape_kernel<NB, MB, EB, XB><<<grid, block, 0, st>>>(                         \
         P, T, px, py, pz, dx, dy, dz, bounces, samples, bin, wavelength, radiance, vol, tf, \
         maj, env, seeds, tape);                                                            \
     break;
-#define VPT_NB(NB)                 \
-  VPT_NB_MODE(NB, 0, false, false) \
-  VPT_NB_MODE(NB, 1, true, false)  \
-  VPT_NB_MODE(NB, 2, false, true)  \
-  VPT_NB_MODE(NB, 3, true, true)
+#define VPT_NB(NB)                        \
+  VPT_NB_MODE(NB, 0, false, false, false) \
+  VPT_NB_MODE(NB, 1, true, false, false)  \
+  VPT_NB_MODE(NB, 2, false, true, false)  \
+  VPT_NB_MODE(NB, 3, true, true, false)   \
+  VPT_NB_MODE(NB, 4, false, false, true)  \
+  VPT_NB_MODE(NB, 5, true, false, true)   \
+  VPT_NB_MODE(NB, 6, false, true, true)   \
+  VPT_NB_MODE(NB, 7, true, true, true)
     VPT_NB(4) VPT_NB(8) VPT_NB(12) VPT_NB(16) VPT_NB(20) VPT_NB(24) VPT_NB(28) VPT_NB(32)
 #undef VPT_NB
 #undef VPT_NB_MODE

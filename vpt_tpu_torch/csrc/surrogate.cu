@@ -8,8 +8,9 @@
 //                      thread per lane walking K stored dispatch tapes
 //                      (K4's surrogate mode, spectral_backward.cu) in
 //                      reverse. With the environment map (ENV, the escape
-//                      of :148-162) and the quasicubic filter
-//                      (ops/interp.py:389-392).
+//                      of :148-162), the quasicubic filter
+//                      (ops/interp.py:389-392) and the xy half-packed
+//                      volume (XY, ops/interp.py:226-266).
 //
 // Per lane it carries the score cotangent c (the deposit cotangents after
 // this step up to the next respawn), the adjoints of the position and the
@@ -28,8 +29,10 @@
 // quasicubic filter, whose corner weights are the warped ones), dist x
 // g_pos into the direction, and
 // slopes x (g_albedo, g_alpha, 2 g_g) into the density. It adds one 8-wide
-// volume row per event lane-step and the TF+light rows into the packed
-// adjoints with float2/float4 atomics, as K5 does; K9 contracts them. A
+// volume row per event lane-step (over an xy volume the two 4-wide rows of
+// the z0 and z1 planes, one float4 each; at a clamped z plane both land on
+// one row, as JAX's scatter adds both) and the TF+light rows into the
+// packed adjoints with float2/float4 atomics, as K5 does; K9 contracts them. A
 // respawn drops the position and direction adjoints: the camera ray depends
 // on no parameter. The carry is read from and written back to its arrays,
 // so the adjoints at the tapes' end go in and those at their start come
@@ -205,8 +208,8 @@ __device__ __forceinline__ void env_reverse(const float* env, int Hp, int Wp, co
 
 // one lane walks K dispatch tapes back (NB: the bins rounded up to 4; MAJ:
 // the majorant mode, whose tape holds m; ENV: escapes read the environment
-// map)
-template <int NB, bool MAJ, bool ENV>
+// map; XY: the volume is an xy half-packed (rows, 4) table)
+template <int NB, bool MAJ, bool ENV, bool XY>
 __global__ void __launch_bounds__(SUR_THREADS, SUR_MIN_BLOCKS)
 surrogate_reverse_kernel(const Params P, const SurSpec T, const float* __restrict__ tape,
                          const int* __restrict__ samples, float* __restrict__ c_io,
@@ -330,11 +333,11 @@ surrogate_reverse_kernel(const Params P, const SurSpec T, const float* __restric
         if (nul || scat) {
           int64_t vrow, vrow1;
           float vr[3], vf[3];
-          volume_rows(false, vd, vh, vw, pos[0], pos[1], pos[2], vrow, vrow1, vr[0], vr[1], vr[2]);
+          volume_rows(XY, vd, vh, vw, pos[0], pos[1], pos[2], vrow, vrow1, vr[0], vr[1], vr[2]);
 #pragma unroll
           for (int a = 0; a < 3; ++a) vf[a] = qc ? quasicubic(vr[a]) : vr[a];
           float cc[8];
-          volume_corners(vol, u8, false, vrow, vrow1, cc);
+          volume_corners(vol, u8, XY, vrow, vrow1, cc);
           const float l00 = lerp(cc[0], cc[1], vf[0]);
           const float l01 = lerp(cc[2], cc[3], vf[0]);
           const float l10 = lerp(cc[4], cc[5], vf[0]);
@@ -405,9 +408,12 @@ surrogate_reverse_kernel(const Params P, const SurSpec T, const float* __restric
               const float w0 = (1 - vfy) * (1 - vfx), w1 = (1 - vfy) * vfx;
               const float w2 = vfy * (1 - vfx), w3 = vfy * vfx;
               const float a0 = g_dens * (1 - vfz), a1 = g_dens * vfz;
-              float* r = g_vol + vrow * 8;
-              add4(r, a0 * w0, a0 * w1, a0 * w2, a0 * w3);
-              add4(r + 4, a1 * w0, a1 * w1, a1 * w2, a1 * w3);
+              // a full table's 8-wide row is 32 B, two float4 halves; an xy
+              // table's plane rows are 16 B each
+              float* r0 = XY ? g_vol + vrow * 4 : g_vol + vrow * 8;
+              float* r1 = XY ? g_vol + vrow1 * 4 : r0 + 4;
+              add4(r0, a0 * w0, a0 * w1, a0 * w2, a0 * w3);
+              add4(r1, a1 * w0, a1 * w1, a1 * w2, a1 * w3);
             }
             const float g_fz = g_dens * (l1 - l0);
             const float g_l0 = g_dens * (1 - vfz), g_l1 = g_dens * vfz;
@@ -420,7 +426,8 @@ surrogate_reverse_kernel(const Params P, const SurSpec T, const float* __restric
             const float s2 = qc ? 6.0f * vr[2] * (1.0f - vr[2]) : 1.0f;
             gpd[0] = g_fx * s0 * (float)(vw - 1);
             gpd[1] = g_fy * s1 * (float)(vh - 1);
-            gpd[2] = g_fz * s2 * (float)(vd - 1);
+            // z's scale is D both ways: a full table's vd is D + 1, an xy one's D
+            gpd[2] = g_fz * s2 * (float)(XY ? vd : vd - 1);
           }
         }
         // the position and direction adjoints before the step
@@ -460,7 +467,8 @@ int vpt_sur_layout(int which) {
 // the adjoints at the tapes' end in (c, gp*, gd*, grad: bins x lanes), at
 // their start out; g_tf / g_vol / g_env / ext_acc null when not wanted;
 // majorant mode when the tape has the m field; env: the packed (He+1,
-// We+1, 12) environment map, or null
+// We+1, 12) environment map, or null; an xy half-packed vol (and a (rows,
+// 4) g_vol) when I_VOL_XY is set
 int vpt_surrogate_reverse(const float* fparams, const int* iparams, const int* slots,
                           int n_fields, const float* tape, const int* samples, float* c,
                           float* gpx, float* gpy, float* gpz, float* gdx, float* gdy,
@@ -471,24 +479,29 @@ int vpt_surrogate_reverse(const float* fparams, const int* iparams, const int* s
   const int n = P.i[I_N_LANES];
   const SurSpec T = make_sur_spec(slots, n_fields, n);
   if (n <= 0) return 0;
-  if ((env != nullptr) != (P.i[I_ENV_H] > 0) || (g_env != nullptr && env == nullptr) ||
-      P.i[I_VOL_XY] != 0)
+  if ((env != nullptr) != (P.i[I_ENV_H] > 0) || (g_env != nullptr && env == nullptr))
     return (int)cudaErrorInvalidValue;
   const bool maj = T.off[S_MAJ] >= 0;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const dim3 grid(blocks_for(n, SUR_THREADS)), block(SUR_THREADS);
-  switch (bins_rounded(P.i[I_N_BINS]) * 4 + (maj ? 1 : 0) + (env != nullptr ? 2 : 0)) {
-#define VPT_NB_MODE(NB, M, MB, EB)                                                             \
+  // NB is a multiple of 4, so NB * 4 leaves the low 4 bits to the mode
+  switch (bins_rounded(P.i[I_N_BINS]) * 4 + (maj ? 1 : 0) + (env != nullptr ? 2 : 0) +
+          (P.i[I_VOL_XY] != 0 ? 4 : 0)) {
+#define VPT_NB_MODE(NB, M, MB, EB, XB)                                                         \
   case NB * 4 + M:                                                                             \
-    surrogate_reverse_kernel<NB, MB, EB><<<grid, block, 0, st>>>(                              \
+    surrogate_reverse_kernel<NB, MB, EB, XB><<<grid, block, 0, st>>>(                          \
         P, T, tape, samples, c, gpx, gpy, gpz, gdx, gdy, gdz, grad, vol, tf, env, ext_acc,     \
         g_tf, g_vol, g_env);                                                                   \
     break;
-#define VPT_NB(NB)                     \
-  VPT_NB_MODE(NB, 0, false, false)     \
-  VPT_NB_MODE(NB, 1, true, false)      \
-  VPT_NB_MODE(NB, 2, false, true)      \
-  VPT_NB_MODE(NB, 3, true, true)
+#define VPT_NB(NB)                            \
+  VPT_NB_MODE(NB, 0, false, false, false)     \
+  VPT_NB_MODE(NB, 1, true, false, false)      \
+  VPT_NB_MODE(NB, 2, false, true, false)      \
+  VPT_NB_MODE(NB, 3, true, true, false)       \
+  VPT_NB_MODE(NB, 4, false, false, true)      \
+  VPT_NB_MODE(NB, 5, true, false, true)       \
+  VPT_NB_MODE(NB, 6, false, true, true)       \
+  VPT_NB_MODE(NB, 7, true, true, true)
     VPT_NB(4) VPT_NB(8) VPT_NB(12) VPT_NB(16) VPT_NB(20) VPT_NB(24) VPT_NB(28) VPT_NB(32)
 #undef VPT_NB
 #undef VPT_NB_MODE

@@ -216,7 +216,7 @@ def ptxas_table(log_text):
     stack frame B)] of the kernels named in ``KERNELS`` in a ptxas -v log
     (the stack frame is the thread's local memory: spills and arrays
     indexed at run time); template args as
-    NB,MAJ,ENV,XY,RAW (K1 step_kernel), NB,MAJ,ENV (K4's surrogate mode
+    NB,MAJ,ENV,XY,RAW (K1 step_kernel), NB,MAJ,ENV,XY (K4's surrogate mode
     surrogate_tape_kernel and K12 surrogate_reverse_kernel), NB,ENV,XY (K4
     tape_forward_kernel), NB (K13 raw_tape_kernel, K14 raw_replay_kernel), NS
     (K5 reverse_kernel: 0 for stride mode, else the importance step

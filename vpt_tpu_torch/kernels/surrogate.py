@@ -24,8 +24,9 @@ bin, across steps and dispatches.
   dispatch tapes. Its inputs are the adjoints at the last dispatch's end,
   which it replaces in place by those at the first dispatch's start; it
   adds into the packed adjoints (one 18-wide TF+light row and one 8-wide
-  volume row per event lane-step, the 4 texel terms of an escape's 12-wide
-  environment row) and the extinction adjoint. Plain
+  volume row per event lane-step, or over an xy half-packed volume the two
+  4-wide rows of the z0 and z1 planes, the 4 texel terms of an escape's
+  12-wide environment row) and the extinction adjoint. Plain
   version ``reverse_plain``: the same derivation in torch ops, in K12's
   order.
 
@@ -61,8 +62,9 @@ launches its kernel when they lie on a CUDA device; anything else raises.
 ``LAUNCHES`` counts kernel launches only (a launch in env mode also under
 its ``_environment`` key, in env and majorant mode at once, one
 instantiation of its own, under ``_environment_majorant``, K12 with the
-quasicubic filter under ``surrogate_reverse_quasicubic``). The xy half-packed volume, raw tables
-and lane tables raise ``NotImplementedError``.
+quasicubic filter under ``surrogate_reverse_quasicubic``, a launch over an
+xy half-packed volume also under its ``_xy`` key). Raw and partly packed
+tables, the nearest filter and lane tables raise ``NotImplementedError``.
 
 At the poles of the environment map (|dy| = 1) the slope of asin is
 unbounded: an escape there gets an inf or NaN direction adjoint, as under
@@ -88,9 +90,10 @@ EPS = 1e-5
 
 LAUNCHES = {"surrogate_tape_forward": 0, "surrogate_tape_forward_majorant": 0,
             "surrogate_tape_forward_environment": 0,
-            "surrogate_tape_forward_environment_majorant": 0, "surrogate_reverse": 0,
-            "surrogate_reverse_environment": 0, "surrogate_reverse_environment_majorant": 0,
-            "surrogate_reverse_quasicubic": 0}
+            "surrogate_tape_forward_environment_majorant": 0, "surrogate_tape_forward_xy": 0,
+            "surrogate_reverse": 0, "surrogate_reverse_environment": 0,
+            "surrogate_reverse_environment_majorant": 0, "surrogate_reverse_quasicubic": 0,
+            "surrogate_reverse_xy": 0}
 
 
 def reset_launch_counts():
@@ -106,20 +109,18 @@ def fields(majorant: bool) -> tuple:
 def check_ctx(ctx):
     """The modes the surrogate's backward covers: exact or majorant mode,
     the linear or quasicubic filter, a directional or isotropic light or an
-    environment map, the full packed tables."""
+    environment map, the packed tables with the full or the xy half-packed
+    volume."""
     if ctx.volume_filter not in ("linear", "quasicubic"):
         raise NotImplementedError(f"surrogate gradients with the {ctx.volume_filter!r} filter "
                                   "run over raw tables, whose surrogate is not ported yet (the "
-                                  "next slice: the surrogate over xy and raw tables)")
+                                  "next slice, ROADMAP A item 2b: the surrogate over raw tables)")
     if (not isinstance(ctx.density, interp.PackedVolume) or ctx.material_tf.shape[-1] != 18
             or (ctx.environment is not None and ctx.environment.shape[-1] == 3)):
         raise NotImplementedError("the surrogate over raw or partly packed tables is not ported "
-                                  "yet (the next slice: the surrogate over xy and raw tables); "
-                                  "its backward needs the packed ctx (PackedVolume + fused TF)")
-    if ctx.density.kind != "full":
-        raise NotImplementedError("the surrogate over an xy half-packed volume is not ported "
-                                  "yet (the next slice, with raw tables); use the PRB backward "
-                                  "(method='prb') for xy volumes")
+                                  "yet (the next slice, ROADMAP A item 2b: the surrogate over raw "
+                                  "tables); its backward needs the packed ctx (a full or xy "
+                                  "PackedVolume + fused TF)")
     if ctx.environment is not None and (ctx.environment.ndim != 3
                                         or ctx.environment.shape[-1] != 12):
         raise ValueError("the surrogate needs the packed (He+1, We+1, 12) environment map, got "
@@ -242,6 +243,7 @@ def tape_forward(state, ctx, seeds, steps: int, n_bins: int):
     LAUNCHES["surrogate_tape_forward_environment"] += int(ctx.environment is not None)
     LAUNCHES["surrogate_tape_forward_environment_majorant"] += int(
         ctx.environment is not None and ctx.majorant is not None)
+    LAUNCHES["surrogate_tape_forward_xy"] += int(ctx.density.kind == "xy")
     return out, tapes
 
 
@@ -261,12 +263,18 @@ def _tie_min(x, hi: float):
 
 def _volume_corners(vol, px, py, pz, qc: bool = False):
     """The forward's trilinear (``qc``: quasicubic) lookup at the sample
-    position, with what its adjoint needs: (dens, row, the unwarped
-    fractions, the weights (fx, fy, fz), corners (8 tensors))."""
-    row, _, *raw = interp.volume_rows(vol.dims, px, py, pz)
+    position, with what its adjoint needs: (dens, (row0, row1), the
+    unwarped fractions, the weights (fx, fy, fz), corners (8 tensors)). A
+    full table's corners are its row0's 8 (row1 == row0); an xy table's
+    are the 4 of the z0 plane's row0, then the 4 of the z1 plane's row1,
+    the same values in the same order."""
+    row0, row1, *raw = interp.volume_rows(vol.dims, px, py, pz, vol.kind)
     fx, fy, fz = (interp.quasicubic_warp(f) for f in raw) if qc else raw
-    row = row.to(torch.int64)
-    rows = interp.dequantize_rows(vol.table[row])
+    row0, row1 = row0.to(torch.int64), row1.to(torch.int64)
+    if vol.kind == "xy":
+        rows = interp.dequantize_rows(torch.cat([vol.table[row0], vol.table[row1]], dim=-1))
+    else:
+        rows = interp.dequantize_rows(vol.table[row0])
     c = [rows[..., k] for k in range(8)]
     c00 = c[0] + (c[1] - c[0]) * fx
     c01 = c[2] + (c[3] - c[2]) * fx
@@ -274,7 +282,7 @@ def _volume_corners(vol, px, py, pz, qc: bool = False):
     c11 = c[6] + (c[7] - c[6]) * fx
     c0 = c00 + (c01 - c00) * fy
     c1 = c10 + (c11 - c10) * fy
-    return c0 + (c1 - c0) * fz, row, tuple(raw), (fx, fy, fz), c
+    return c0 + (c1 - c0) * fz, (row0, row1), tuple(raw), (fx, fy, fz), c
 
 
 def _env_reverse(env, d, lam, g_emit, oob, adj):
@@ -356,7 +364,8 @@ def reverse_plain(tapes, flds, samples, carry, adj, ctx, n_bins: int):
     """Plain ``reverse``: walks the K dispatch tapes backwards, updating
     the carry (dict: c (lanes,), gp (3, lanes), gd (3, lanes), grad
     (n_bins, lanes)) and adding into ``adj`` (g_ext (1,), g_tf (rows, 18),
-    g_vol (rows, 8), g_env (rows, 12), as present), both in place.
+    g_vol (rows, 8), or (rows, 4) over an xy volume, g_env (rows, 12), as
+    present), both in place.
     ``samples``: each lane's sample count at the end of the last
     dispatch."""
     check_ctx(ctx)
@@ -369,6 +378,10 @@ def reverse_plain(tapes, flds, samples, carry, adj, ctx, n_bins: int):
     tf_flat = ctx.material_tf.reshape(-1, 18)
     vol = ctx.density
     Dp, VHp, VWp = vol.dims
+    # the position's z scale is D for both kinds: volume_rows addresses z
+    # by _base_and_frac(w, dims[0] - 1) on a full table (dims[0] = D + 1)
+    # and by _base_and_frac(w, dims[0]) on an xy table (dims[0] = D)
+    vzs = float(Dp if vol.kind == "xy" else Dp - 1)
     majorant = "maj" in col
     env = ctx.environment
     qc = ctx.volume_filter == "quasicubic"
@@ -492,8 +505,14 @@ def reverse_plain(tapes, flds, samples, carry, adj, ctx, n_bins: int):
             if "g_vol" in adj:
                 w4 = ((1 - vfy) * (1 - vfx), (1 - vfy) * vfx, vfy * (1 - vfx), vfy * vfx)
                 a0, a1 = g_dens * (1 - vfz), g_dens * vfz
-                adj["g_vol"].index_add_(0, vrow, torch.stack([a0 * wk for wk in w4]
-                                                             + [a1 * wk for wk in w4], dim=-1))
+                t0 = torch.stack([a0 * wk for wk in w4], dim=-1)
+                t1 = torch.stack([a1 * wk for wk in w4], dim=-1)
+                if vol.kind == "xy":
+                    # two plane rows; at a clamped z plane both land on one
+                    adj["g_vol"].index_add_(0, vrow[0], t0)
+                    adj["g_vol"].index_add_(0, vrow[1], t1)
+                else:
+                    adj["g_vol"].index_add_(0, vrow[0], torch.cat([t0, t1], dim=-1))
             cc = corner
             l00 = cc[0] + (cc[1] - cc[0]) * vfx
             l01 = cc[2] + (cc[3] - cc[2]) * vfx
@@ -510,7 +529,7 @@ def reverse_plain(tapes, flds, samples, carry, adj, ctx, n_bins: int):
                 # the warp's derivative 6f(1 - f) at the unwarped fraction
                 g_fx, g_fy, g_fz = (gf * (6.0 * f * (1.0 - f))
                                     for gf, f in zip((g_fx, g_fy, g_fz), vraw))
-            gpd = (g_fx * float(VWp - 1), g_fy * float(VHp - 1), g_fz * float(Dp - 1))
+            gpd = (g_fx * float(VWp - 1), g_fy * float(VHp - 1), g_fz * vzs)
             # position and direction adjoints before the step
             keep = ~respawn
             gps = [torch.where(keep, gp[a], zero) + gpd[a] for a in range(3)]
@@ -553,7 +572,7 @@ def reverse(tapes, flds, samples, carry, adj, ctx, n_bins: int):
     if "g_tf" in adj:
         K._check(adj["g_tf"], "g_tf", torch.float32, (adj["g_tf"].shape[0], 18), align=8)
     if "g_vol" in adj:
-        K._check(adj["g_vol"], "g_vol", torch.float32, (adj["g_vol"].shape[0], 8), align=16)
+        K._check(adj["g_vol"], "g_vol", torch.float32, tuple(ctx.density.table.shape), align=16)
     if "g_env" in adj:
         if ctx.environment is None:
             raise ValueError("an environment adjoint needs a ctx with an environment map")
@@ -580,6 +599,7 @@ def reverse(tapes, flds, samples, carry, adj, ctx, n_bins: int):
     LAUNCHES["surrogate_reverse_environment_majorant"] += int(
         ctx.environment is not None and ctx.majorant is not None)
     LAUNCHES["surrogate_reverse_quasicubic"] += int(ctx.volume_filter == "quasicubic")
+    LAUNCHES["surrogate_reverse_xy"] += int(ctx.density.kind == "xy")
     if ext_acc is not None:
         adj["g_ext"] += ext_acc.to(torch.float32)
 

@@ -21,9 +21,9 @@ of the step kernel on a CUDA device (``vpt_tpu_torch/kernels``).
 dispatches of the autodiff surrogate: one ``torch.autograd.Function`` per
 window of dispatches (``_RenderWindow``), whose forward tapes the window in
 one launch of K4's surrogate mode and whose backward walks the tapes back in
-one K12 launch (``kernels/surrogate.py``), over a full packed volume with
-the linear or quasicubic filter and the light or the environment map. The
-surrogate over an xy half-packed volume or raw tables raises
+one K12 launch (``kernels/surrogate.py``), over a full or xy half-packed
+volume with the linear or quasicubic filter and the light or the
+environment map. The surrogate over raw or partly packed tables raises
 ``NotImplementedError``.
 
 Known reference quirks preserved: radiance starts at 1.0; y-flipped screen

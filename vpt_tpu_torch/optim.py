@@ -35,9 +35,16 @@ full corner table or the xy half-packed one. ``fit_spectral`` renders with
 the linear filter whatever the renderer's, as the reference does: its
 loss and its PRB step pass no filter, and its ctx holds none.
 
+The autodiff surrogate runs over the full and the xy half-packed volume,
+so ``method=None`` routes an xy renderer with a majorant grid to it, as the
+reference does. The reference's loss packs a learned density into the full
+corner table whatever the renderer's kind; the port packs it into the
+renderer's (the same forward bits, the gradient sums rounded in another
+order).
+
 Not ported yet (each raises ``NotImplementedError``): ``fit_density``
-on a mesh (``mesh=``, ROADMAP A12), and the autodiff surrogate over an xy
-half-packed volume or raw or partly packed tables, which is where the
+on a mesh (``mesh=``, ROADMAP A12), and the autodiff surrogate over raw or
+partly packed tables, which is where the
 reference routes a raw renderer by default; ``method="prb"`` on such a
 renderer fails the reference's assertions (``AssertionError``: the packed
 backward needs the fused TF and a packed volume). A compacted renderer raises

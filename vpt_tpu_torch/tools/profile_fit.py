@@ -8,8 +8,7 @@ iteration), profiled with ``torch.profiler``.
 ``--mode``: "default" learns the density (``wrt={density}``), PRB and
 autodiff; "env" lights the scene with a seeded 256x512x3 equirect map and
 learns the map, PRB and autodiff; "xy" packs the volume into the xy
-half-packed table and learns the density, PRB only (the surrogate over an
-xy table is not ported).
+half-packed table and learns the density, PRB and autodiff.
 
 Per method it prints one JSON line: the iterations' host-clock seconds
 without the profiler, the device time of every kernel under the profiler
@@ -105,8 +104,7 @@ def device_kernels(prof) -> dict:
     return kernels
 
 
-# per mode: the methods it profiles
-MODES = {"default": ("prb", "autodiff"), "env": ("prb", "autodiff"), "xy": ("prb",)}
+MODES = ("default", "env", "xy")
 
 
 def profile_method(method: str, iterations: int, dev, mode: str = "default") -> dict:
@@ -166,7 +164,7 @@ def profile_method(method: str, iterations: int, dev, mode: str = "default") -> 
 def main(argv=None):
     p = argparse.ArgumentParser(prog="python -m vpt_tpu_torch.tools.profile_fit")
     p.add_argument("--iterations", type=int, default=3)
-    p.add_argument("--mode", choices=sorted(MODES), default="default")
+    p.add_argument("--mode", choices=MODES, default="default")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_fit: needs a CUDA device", file=sys.stderr)
@@ -175,7 +173,7 @@ def main(argv=None):
                          capture_output=True, text=True).stdout.strip()
     print(smi)
     dev = torch.device("cuda:0")
-    for method in MODES[args.mode]:
+    for method in ("prb", "autodiff"):
         print(json.dumps(profile_method(method, args.iterations, dev, args.mode)))
 
 
