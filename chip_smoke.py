@@ -2190,9 +2190,9 @@ def phase_scatter(dev):
 
 
 def sur_adjoints(ctx, n, n_bins, seed):
-    """A carry of seeded random adjoints (the state's end) and zero packed
-    adjoints of every table, for K12."""
-    from vpt_tpu_torch.kernels import spectral_backward as TB
+    """A carry of seeded random adjoints (the state's end) and zero
+    adjoints of every table, each of its table's kind, for K12."""
+    from vpt_tpu_torch.kernels import surrogate as S
 
     rng = np.random.default_rng(seed)
     dev = ctx.material_tf.device
@@ -2202,7 +2202,10 @@ def sur_adjoints(ctx, n, n_bins, seed):
 
     carry = dict(c=g(n), gp=[g(n) for _ in range(3)], gd=[g(n) for _ in range(3)],
                  grad=g(n_bins, n) / float(RES))
-    return carry, TB._packed_adj_init(ctx, TB.ALL_WRT | {"environment"})
+    # under an environment map the light is never read: its adjoint stays 0
+    keys = [k for k in S.adjoint_shapes(ctx)
+            if not (k == "g_light" and ctx.environment is not None)]
+    return carry, S.zero_adjoints(ctx, keys)
 
 
 def copy_carry(carry):
@@ -2238,9 +2241,8 @@ def phase_surrogate(renderer, camera, dev):
     """Phase 16: K4's surrogate mode and K12 at 512^2 x 4, 2 dispatches, in
     exact and majorant mode, with the environment map (alone and with the
     majorant) and with the quasicubic filter; then the kernel path of
-    render_sequence_diff against the autograd twin on the card."""
-    from vpt_tpu_torch.kernels import mcm_spectral as K
-    from vpt_tpu_torch.kernels import surrogate as S
+    render_sequence_diff against the autograd twin on the card (the raw
+    modes: phase_surrogate_raw)."""
     from vpt_tpu_torch.models.mcm_spectral import MCMSpectralRenderer
 
     seeds = [2654435761 * k % 2**32 for k in (3, 4)]
@@ -2273,63 +2275,8 @@ def phase_surrogate(renderer, camera, dev):
     for mode, r in (("exact", renderer), ("majorant", maj_renderer),
                     ("environment", env_renderer), ("environment+majorant", env_maj_renderer),
                     ("quasicubic", qc_renderer), *xy_renderers):
-        ctx = r.ctx(camera, 7)
-        s0 = r.reset(camera, 7)
-        s1 = clone_state(s0)
-        K.step(s1, ctx, seeds, STEPS, BINS)
-        sk, tk = S.tape_forward(s0, ctx, seeds, STEPS, BINS)
-        _, tk2 = S.tape_forward(s0, ctx, seeds, STEPS, BINS)
-        sp = clone_state(s0)
-        tp = S.tape_forward_plain(sp, ctx, seeds, STEPS, BINS)
-        torch.cuda.synchronize()
-        diff = first_difference(sk, s1)
-        if diff is not None:
-            raise AssertionError(f"K4 surrogate ({mode}) state != K1's: {diff}")
-        if not torch.equal(tk.view(torch.int32), tk2.view(torch.int32)):
-            raise AssertionError(f"K4 surrogate ({mode}) differs between two runs")
-        flds = S.fields(ctx.majorant is not None)
-        shares = {f: float((tk[:, :, i].view(torch.int32) == tp[:, :, i].view(torch.int32))
-                           .float().mean()) for i, f in enumerate(flds)}
-        worst = min(shares, key=shares.get)
-        k4["min_field_share_equal"] = min(k4["min_field_share_equal"], shares[worst])
-        for i, f in enumerate(flds):
-            if f not in ("flags", "rng"):
-                k4["max_abs_err"] = max(k4["max_abs_err"],
-                                        float((tk[:, :, i] - tp[:, :, i]).abs().max()))
-        if shares[worst] < TAPE_SHARE_MIN:
-            raise AssertionError(f"K4 surrogate ({mode}) tape field {worst} equals plain on "
-                                 f"{shares[worst]}")
-        rec4 = dict(share_equal=shares)
-        # the wrapper copies the state, then launches; K1 timed on the same
-        # copy, so the two differ by the kernels alone
-        rec4["ms"] = cuda_ms(lambda: S.tape_forward(s0, ctx, seeds, STEPS, BINS), 10)
-        rec4["k1_ms"] = cuda_ms(lambda: K.step(S.clone_steppable(s0), ctx, seeds, STEPS, BINS), 10)
-        rec4["state_copy_ms"] = cuda_ms(lambda: S.clone_steppable(s0), 10)
-        rec4["tape_bytes"] = tk.numel() * 4
-        # the yardstick: K1 for the same dispatches plus the tape's bytes
-        rec4["k1_plus_tape_ms"] = rec4["k1_ms"] + bound(rec4["tape_bytes"], 0)["bound_ms"]
-        rec4["plain_ms"] = cuda_ms(lambda: S.tape_forward_plain(clone_state(s0), ctx, seeds,
-                                                                STEPS, BINS), 1)
-        rec4.update(step_bound(ctx, s0, seeds, BINS, rec4["ms"], taped=rec4["tape_bytes"]))
-        k4["modes"][mode] = rec4
-        log(f"# K4 surrogate mode ({mode}), 2 dispatches x {STEPS} steps, {len(flds)} fields: "
-            f"state == K1 bitwise, reruns identical; tape == plain on {shares[worst]:.6f} of "
-            f"lane-steps in the worst field ({worst}); {rec4['ms']:.4f} ms (state copy and "
-            f"kernel) vs K1 {rec4['k1_ms']:.4f} ms on the same copy (the copy alone "
-            f"{rec4['state_copy_ms']:.4f}); K1 + the tape's bytes {rec4['k1_plus_tape_ms']:.4f} "
-            f"ms; plain {rec4['plain_ms']:.4f} ms; bound {rec4['bound_ms']:.4f} ms by "
-            f"{rec4['bound_by']} ({rec4['bound_bytes']} B, {rec4['bound_ops']} FP32 ops), share "
-            f"{rec4['bound_share']:.3f}")
-
-        # K12 on the kernel's tape against its plain version, two runs, with
-        # the adjoints of all four tables and with the density's alone
-        n = s0.px.numel()
-        carry0, adj_all = sur_adjoints(ctx, n, BINS, 11)
-        wrts = (("all", adj_all), ("density", {"g_vol": adj_all["g_vol"]}))
-        for wrt, adj0 in wrts[:2 if mode in ("exact", "majorant", "xy", "xy majorant") else 1]:
-            rec = k12_check(mode, wrt, tk, flds, sk.samples, carry0, adj0, ctx, k12)
-            k12["modes"][f"{mode}/{wrt}"] = rec
-        del tk, tk2, tp
+        wrts = 2 if mode in ("exact", "majorant", "xy", "xy majorant") else 1
+        sur_mode(mode, r.ctx(camera, 7), r.reset(camera, 7), seeds, k4, k12, wrts)
     ex = k4["modes"]["exact"]
     k4.update(ms=ex["ms"], plain_ms=ex["plain_ms"], k1_ms=ex["k1_ms"])
     kernel_line(k4, {k: ex[k] for k in ("bound_ms", "bound_by", "bound_bytes", "bound_ops",
@@ -2379,10 +2326,140 @@ def phase_surrogate(renderer, camera, dev):
     return k4, k12, twin, modes
 
 
-def k12_check(mode, wrt, tk, flds, samples, carry0, adj0, ctx, k12):
-    """K12 on a tape against reverse_plain (relative L2 <= 1e-4 per output,
-    two kernel runs within 1e-5), then timed (a fresh copy of the carry per
-    call, made outside the timed span) against its bound."""
+def sur_mode(mode, ctx, s0, seeds, k4, k12, wrts=1, rtol=1e-4):
+    """One mode of phase 16 from the reset state ``s0``: K4's surrogate
+    mode against K1 (the state bit for bit, two runs identical, the tape
+    against the plain tape's fields) and timed beside K1 on the same copy;
+    K12 on that tape against reverse_plain within ``rtol`` relative L2 (two
+    runs within 1e-5), with the adjoints of every table and, for ``wrts``
+    2, the density's alone. Records into ``k4["modes"]`` and
+    ``k12["modes"]``."""
+    from vpt_tpu_torch.kernels import mcm_spectral as K
+    from vpt_tpu_torch.kernels import surrogate as S
+
+    s1 = clone_state(s0)
+    K.step(s1, ctx, seeds, STEPS, BINS)
+    sk, tk = S.tape_forward(s0, ctx, seeds, STEPS, BINS)
+    _, tk2 = S.tape_forward(s0, ctx, seeds, STEPS, BINS)
+    sp = clone_state(s0)
+    tp = S.tape_forward_plain(sp, ctx, seeds, STEPS, BINS)
+    torch.cuda.synchronize()
+    diff = first_difference(sk, s1)
+    if diff is not None:
+        raise AssertionError(f"K4 surrogate ({mode}) state != K1's: {diff}")
+    if not torch.equal(tk.view(torch.int32), tk2.view(torch.int32)):
+        raise AssertionError(f"K4 surrogate ({mode}) differs between two runs")
+    flds = S.fields(ctx.majorant is not None)
+    shares = {f: float((tk[:, :, i].view(torch.int32) == tp[:, :, i].view(torch.int32))
+                       .float().mean()) for i, f in enumerate(flds)}
+    worst = min(shares, key=shares.get)
+    k4["min_field_share_equal"] = min(k4["min_field_share_equal"], shares[worst])
+    for i, f in enumerate(flds):
+        if f not in ("flags", "rng"):
+            k4["max_abs_err"] = max(k4["max_abs_err"],
+                                    float((tk[:, :, i] - tp[:, :, i]).abs().max()))
+    if shares[worst] < TAPE_SHARE_MIN:
+        raise AssertionError(f"K4 surrogate ({mode}) tape field {worst} equals plain on "
+                             f"{shares[worst]}")
+    rec4 = dict(share_equal=shares)
+    # the wrapper copies the state, then launches; K1 timed on the same
+    # copy, so the two differ by the kernels alone
+    rec4["ms"] = cuda_ms(lambda: S.tape_forward(s0, ctx, seeds, STEPS, BINS), 10)
+    rec4["k1_ms"] = cuda_ms(lambda: K.step(S.clone_steppable(s0), ctx, seeds, STEPS, BINS), 10)
+    rec4["state_copy_ms"] = cuda_ms(lambda: S.clone_steppable(s0), 10)
+    rec4["tape_bytes"] = tk.numel() * 4
+    # the yardstick: K1 for the same dispatches plus the tape's bytes
+    rec4["k1_plus_tape_ms"] = rec4["k1_ms"] + bound(rec4["tape_bytes"], 0)["bound_ms"]
+    rec4["plain_ms"] = cuda_ms(lambda: S.tape_forward_plain(clone_state(s0), ctx, seeds,
+                                                            STEPS, BINS), 1)
+    rec4.update(step_bound(ctx, s0, seeds, BINS, rec4["ms"], taped=rec4["tape_bytes"]))
+    k4["modes"][mode] = rec4
+    log(f"# K4 surrogate mode ({mode}), 2 dispatches x {STEPS} steps, {len(flds)} fields: "
+        f"state == K1 bitwise, reruns identical; tape == plain on {shares[worst]:.6f} of "
+        f"lane-steps in the worst field ({worst}); {rec4['ms']:.4f} ms (state copy and "
+        f"kernel) vs K1 {rec4['k1_ms']:.4f} ms on the same copy (the copy alone "
+        f"{rec4['state_copy_ms']:.4f}); K1 + the tape's bytes {rec4['k1_plus_tape_ms']:.4f} "
+        f"ms; plain {rec4['plain_ms']:.4f} ms; bound {rec4['bound_ms']:.4f} ms by "
+        f"{rec4['bound_by']} ({rec4['bound_bytes']} B, {rec4['bound_ops']} FP32 ops), share "
+        f"{rec4['bound_share']:.3f}")
+
+    # K12 on the kernel's tape against its plain version, two runs, with
+    # the adjoints of all four tables and with the density's alone
+    n = s0.px.numel()
+    carry0, adj_all = sur_adjoints(ctx, n, BINS, 11)
+    adjs = (("all", adj_all), ("density", {"g_vol": adj_all["g_vol"]}))
+    for wrt, adj0 in adjs[:wrts]:
+        rec = k12_check(mode, wrt, tk, flds, sk.samples, carry0, adj0, ctx, k12, rtol)
+        k12["modes"][f"{mode}/{wrt}"] = rec
+    del tk, tk2, tp
+
+
+def sur_raw_renderers(dev):
+    """Phase 16's raw modes over the bench scene: (label, a function that
+    builds its renderer), every layout of RAW_LAYOUTS, the xy table beside
+    a raw TF, the nearest filter, a raw environment map (phase 12's), raw
+    tables with majorant_blocks=16."""
+    from vpt_tpu_torch import Volume
+    from vpt_tpu_torch.models.mcm_spectral import MCMSpectralRenderer
+
+    args = bench_scene_args()
+    near = [Volume(args[0].density, filter="nearest"), *args[1:]]
+
+    def make(a=args, **kw):
+        return lambda: MCMSpectralRenderer(*a, resolution=RES, streams=STREAMS, device=dev, **kw)
+
+    return ([(label, make(pack_tables=pack)) for label, pack in RAW_LAYOUTS]
+            + [("xy + raw TF", make(pack_tables=frozenset({"density_xy"}))),
+               ("nearest", make(near)),
+               ("raw environment", make(pack_tables=False, environment=seeded_envmap())),
+               ("raw majorant", make(pack_tables=False, majorant_blocks=16))])
+
+
+def phase_surrogate_raw(camera, dev):
+    """Phase 16, raw: K4's surrogate mode and K12 in their RAW mode at
+    512^2 x 4, 2 dispatches, in each of sur_raw_renderers' modes: K4s RAW's
+    state == K1 RAW's bit for bit, its tape equal between two runs and to
+    the plain tape's fields, K12 RAW within 1e-5 relative L2 of
+    reverse_plain on every output (with the adjoints of every table, and
+    with the density's alone where the fits learn it), each timed against
+    its bound. Returns the two kernels-line entries (the fully raw layout's
+    numbers, every mode's under "modes")."""
+    from vpt_tpu_torch.kernels import mcm_spectral as K
+
+    seeds = [2654435761 * k % 2**32 for k in (3, 4)]
+    replaces = "vpt_tpu/ops/interp.py:411 (the raw lookups of :411-648 under jax.grad)"
+    k4 = dict(name="surrogate_tape_forward[raw]", route="cuda", source=BWD_SOURCE,
+              replaces=replaces, max_abs_err=0.0, min_field_share_equal=1.0, modes={})
+    k12 = dict(name="surrogate_reverse[raw]", route="cuda", source=SUR_SOURCE,
+               replaces=replaces, max_abs_err=0.0, max_rel_l2=0.0, modes={})
+    for mode, make in sur_raw_renderers(dev):
+        r = make()
+        ctx = r.ctx(camera, 7)
+        if not K.is_raw(ctx):
+            raise AssertionError(f"phase 16 raw mode {mode}: the ctx is not raw")
+        sur_mode(mode, ctx, r.reset(camera, 7), seeds, k4, k12,
+                 wrts=2 if mode in ("raw", "raw majorant") else 1, rtol=1e-5)
+        del r, ctx
+        torch.cuda.empty_cache()
+    keys = ("bound_ms", "bound_by", "bound_bytes", "bound_ops", "bound_share")
+    r4, r12 = k4["modes"]["raw"], k12["modes"]["raw/all"]
+    k4.update(ms=r4["ms"], plain_ms=r4["plain_ms"], k1_ms=r4["k1_ms"])
+    k12.update(ms=r12["ms"], plain_ms=r12["plain_ms"],
+               wrt_density_ms=k12["modes"]["raw/density"]["ms"])
+    kernel_line(k4, {k: r4[k] for k in keys})
+    kernel_line(k12, {k: r12[k] for k in keys})
+    k12["library_call"] = "— (no single call)"
+    log("# phase 16 raw modes (ms, K4s RAW with the state copy / K1 RAW on the copy / K12 RAW "
+        "all adjoints): " + "; ".join(
+            f"{m} {k4['modes'][m]['ms']:.4f} / {k4['modes'][m]['k1_ms']:.4f} / "
+            f"{k12['modes'][m + '/all']['ms']:.4f}" for m in k4["modes"]))
+    return k4, k12
+
+
+def k12_check(mode, wrt, tk, flds, samples, carry0, adj0, ctx, k12, rtol=1e-4):
+    """K12 on a tape against reverse_plain (relative L2 <= ``rtol`` per
+    output, two kernel runs within 1e-5), then timed (a fresh copy of the
+    carry per call, made outside the timed span) against its bound."""
     from vpt_tpu_torch.kernels import surrogate as S
 
     def run(plain):
@@ -2404,7 +2481,7 @@ def k12_check(mode, wrt, tk, flds, samples, carry0, adj0, ctx, k12):
         mabs = float((a - p).abs().max())
         if not bool(torch.isfinite(a).all()) or scale == 0.0:
             raise AssertionError(f"K12 ({mode}, wrt {wrt}) {k}: not finite or all zero")
-        if rel > 1e-4 or rerun > 1e-5:
+        if rel > rtol or rerun > 1e-5:
             raise AssertionError(f"K12 ({mode}, wrt {wrt}) {k}: rel L2 {rel:.3g} vs plain, "
                                  f"{rerun:.3g} between runs")
         rec[k] = dict(rel_l2=rel, max_abs=mabs, rerun_rel_l2=rerun)
@@ -4390,11 +4467,14 @@ def reset_counts():
         mod.reset_launch_counts()
 
 
-def autodiff_fit(label, target, renderer, camera, init, dev, **kw):
+def autodiff_fit(label, target, renderer, camera, init, dev,
+                 need=("contract_corners", "pack_corners"), **kw):
     """fit_spectral with the surrogate: FIT_ITERS iterations of CHUNK
-    dispatches, the launch counts set to 0 just before; checks the launches
-    (per iteration one K4 surrogate sweep and one K12, K9 and K10 at least
-    once, and no K1 inside the loss), finite losses and moved params."""
+    dispatches from ``init`` (a density, or a dict of learned tables), the
+    launch counts set to 0 just before; checks the launches (per iteration
+    one K4 surrogate sweep and one K12 and each of ``need``, K9 and K10 for
+    a learned density, and no K1 inside the loss), finite losses and moved
+    params."""
     from vpt_tpu_torch import optim as TO
 
     loss_fn = TO.spectral_render_loss
@@ -4411,7 +4491,7 @@ def autodiff_fit(label, target, renderer, camera, init, dev, **kw):
     TO.spectral_render_loss = counted_loss
     try:
         t0 = time.perf_counter()
-        params, losses, info = TO.fit_spectral(target, renderer, camera, {"density": init},
+        params, losses, info = TO.fit_spectral(target, renderer, camera, init,
                                                dispatches_per_step=CHUNK, iterations=FIT_ITERS,
                                                learning_rate=0.02, seed=1, return_info=True, **kw)
         torch.cuda.synchronize()
@@ -4419,21 +4499,21 @@ def autodiff_fit(label, target, renderer, camera, init, dev, **kw):
     finally:
         TO.spectral_render_loss = loss_fn
     launches = launch_counts()
-    require_launches(launches, ("surrogate_tape_forward", "surrogate_reverse",
-                                "contract_corners", "pack_corners"), f"fit_spectral ({label})")
+    require_launches(launches, ("surrogate_tape_forward", "surrogate_reverse", *need),
+                     f"fit_spectral ({label})")
     per_iteration = (launches["surrogate_tape_forward"] == FIT_ITERS
                      and launches["surrogate_reverse"] == FIT_ITERS
-                     and launches["contract_corners"] >= FIT_ITERS)
+                     and all(launches[k] >= FIT_ITERS for k in need))
     if (not per_iteration or len(inside_loss) != FIT_ITERS
             or any(d.get("step", 0) != 0 or d.get("surrogate_tape_forward", 0) != 1
                    for d in inside_loss)):
         raise AssertionError(f"fit_spectral ({label}): launches {launches}, inside each loss "
                              f"{inside_loss}; want one K4 surrogate sweep and one K12 per "
                              f"iteration and no K1 inside the loss")
-    d = params["density"]
-    moved = float((d - torch.as_tensor(init, device=dev)).abs().max())
+    moved = max(float((params[k] - torch.as_tensor(np.asarray(v, np.float32), device=dev))
+                      .abs().max()) for k, v in init.items())
     if (info["method"] != "autodiff" or not np.isfinite(losses).all() or moved == 0.0
-            or not bool(torch.isfinite(d).all())):
+            or not all(bool(torch.isfinite(p).all()) for p in params.values())):
         raise AssertionError(f"fit_spectral ({label}): method {info['method']}, losses {losses}, "
                              f"params moved {moved}")
     rec = dict(losses=losses, seconds=dt, seconds_per_iteration=dt / FIT_ITERS,
@@ -4516,8 +4596,8 @@ def phase_autodiff_fit(camera, dev, prb_windows):
     renderer = MCMSpectralRenderer(*args, resolution=RES, streams=STREAMS, device=dev)
     init = smoothed(args[0].density, max(VOLUME // 16, 2))
     out = {}
-    params, out["bench"] = autodiff_fit("bench scene", target, renderer, camera, init, dev,
-                                        method="autodiff")
+    params, out["bench"] = autodiff_fit("bench scene", target, renderer, camera,
+                                        {"density": init}, dev, method="autodiff")
     out["window"] = surrogate_window(renderer, camera, dev, init)
     out["window"]["prb_stride1_window_ms"] = prb_windows["stride1"]["window_ms"]
 
@@ -4532,7 +4612,7 @@ def phase_autodiff_fit(camera, dev, prb_windows):
     env_maj = MCMSpectralRenderer(*args, resolution=RES, streams=STREAMS, environment=env,
                                   majorant_blocks=16, device=dev)
     _, out["env_majorant"] = autodiff_fit("env-lit bench scene, majorant, method=None",
-                                          target_env, env_maj, camera, init, dev)
+                                          target_env, env_maj, camera, {"density": init}, dev)
     require_launches(out["env_majorant"]["launches"],
                      ("surrogate_tape_forward_environment_majorant",
                       "surrogate_reverse_environment_majorant"), "the env-lit majorant fit")
@@ -4563,6 +4643,7 @@ def phase_autodiff_fit(camera, dev, prb_windows):
         raise AssertionError(f"resumed trajectory differs: {out['checkpoint']}")
     del renderer, params, resumed
     torch.cuda.empty_cache()
+    out["raw"] = raw_bench_fit(args, target, init, camera, dev)
 
     # the sparse 512^3 majorant scene, method=None: routed to the surrogate
     sparse, cam, host = sparse_scene(dev)
@@ -4571,9 +4652,10 @@ def phase_autodiff_fit(camera, dev, prb_windows):
     sparse_init = np.clip(smoothed(sparse.volume.density, 16) * 0.8 + 0.05, 0.0, 1.0)
     torch.cuda.reset_peak_memory_stats()
     _, out["sparse"] = autodiff_fit("sparse 512^3, majorant, method=None", sparse_target, sparse,
-                                    cam, sparse_init, dev)
+                                    cam, {"density": sparse_init}, dev)
     out["sparse"]["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
     log(f"# sparse autodiff fit: peak device memory {out['sparse']['peak_memory_bytes']} B")
+    out["sparse_raw"] = sparse_raw_fit(sparse, cam, sparse_target, dev)
     xy, out["sparse_xy"] = sparse_xy_window(sparse, cam, sparse_target, sparse_init, dev)
     del sparse
     torch.cuda.empty_cache()
@@ -4581,6 +4663,104 @@ def phase_autodiff_fit(camera, dev, prb_windows):
     del xy
     torch.cuda.empty_cache()
     return out
+
+
+def raw_fit_record(label, rec, r, cam, init, dev):
+    """A raw fit's record completed: its RAW launches required, its peak
+    memory (from the fit's start) and its window's device pieces."""
+    rec["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+    require_launches(rec["launches"], ("surrogate_tape_forward_raw", "surrogate_reverse_raw"),
+                     label)
+    seeds = [(11 + k) * 2654435761 % 2**32 for k in range(CHUNK)]
+    rec["split"] = raw_window_split(r, cam, init, seeds, dev)
+    log(f"# {label}: {rec['seconds_per_iteration']:.4f} s per iteration, peak device memory "
+        f"{rec['peak_memory_bytes']} B; one window's pieces (ms, CUDA events): "
+        + ", ".join(f"{k} {v:.4f}" for k, v in rec["split"].items()))
+    return rec
+
+
+def raw_bench_fit(args, target, init, camera, dev):
+    """Phase 17, raw: fit_spectral with method=None on the fully raw bench
+    scene (pack_tables=False: the 128^3 f32 grid, the raw TF and light),
+    learning the density, which the loss packs into the full corner table
+    (K10, K9 backward) as the reference's does: routed to the surrogate,
+    one K4s RAW sweep and one K12 RAW launch per iteration."""
+    from vpt_tpu_torch.models.mcm_spectral import MCMSpectralRenderer
+
+    raw = MCMSpectralRenderer(*args, resolution=RES, streams=STREAMS, pack_tables=False,
+                              device=dev)
+    label = "bench scene, raw tables, method=None"
+    torch.cuda.reset_peak_memory_stats()
+    _, rec = autodiff_fit(label, target, raw, camera, {"density": init}, dev)
+    rec = raw_fit_record(label, rec, raw, camera, {"density": init}, dev)
+    del raw
+    torch.cuda.empty_cache()
+    return rec
+
+
+def sparse_raw_fit(sparse, cam, target, dev):
+    """Phase 17, sparse raw: fit_spectral with method=None on phase 18's
+    sparse 512^3 renderer (pack_tables={"material_tf", "light_spectrum"}:
+    the raw 537 MB f32 grid beside the fused TF) with the full renderer's
+    majorant grid (majorant_blocks=16), learning the TF and the extinction:
+    routed to the surrogate, whose loss packs the learned TF into the
+    16-wide table beside the light's pair table, as the reference's does;
+    one K4s RAW+majorant sweep and one K12 RAW launch per iteration."""
+    from vpt_tpu_torch.models.mcm_spectral import MCMSpectralRenderer
+
+    raw = MCMSpectralRenderer(sparse.volume, sparse.material_tf, sparse.light, sparse.spectrum,
+                              sparse.config, resolution=RES, streams=STREAMS,
+                              pack_tables=RAW_LAYOUTS[1][1], device=dev)
+    raw.majorant = sparse.majorant
+    table = np.asarray(sparse.material_tf.table, np.float32)
+    init = {"material_tf": np.clip(table * 0.8 + 0.1, 0.0, 1.0).astype(np.float32),
+            "extinction": np.float32(30.0)}
+    label = f"sparse {SPARSE}^3 raw grid + fused TF, majorant, method=None (TF, extinction)"
+    torch.cuda.reset_peak_memory_stats()
+    _, rec = autodiff_fit(label, target, raw, cam, init, dev, need=())
+    per_iteration = ("surrogate_tape_forward_raw", "surrogate_tape_forward_majorant",
+                     "surrogate_reverse_raw")
+    if any(rec["launches"].get(k, 0) != FIT_ITERS for k in per_iteration):
+        raise AssertionError(f"{label}: launches {rec['launches']}; want each of "
+                             f"{per_iteration} once per iteration")
+    rec = raw_fit_record(label, rec, raw, cam, init, dev)
+    del raw
+    torch.cuda.empty_cache()
+    return rec
+
+
+def raw_window_split(r, cam, init, seeds, dev):
+    """Where a raw fit's window goes on ``r``'s tables, each piece by CUDA
+    events: the learned tables packed as the loss packs them (pack), the
+    taped sweep (K4s RAW), K12 RAW over that tape into the learned tables'
+    adjoints, and the packers' backward from those adjoints to the raw
+    gradients (unpack: K9 for a density, torch ops for a TF)."""
+    from vpt_tpu_torch import optim as TO
+    from vpt_tpu_torch.kernels import mcm_spectral as K
+    from vpt_tpu_torch.kernels import surrogate as S
+
+    base = dataclasses.replace(r.ctx(cam, 1), volume_filter="linear")
+    state = r.reset(cam, 1)
+    params = {k: torch.as_tensor(np.asarray(v, np.float32), device=dev).requires_grad_(True)
+              for k, v in init.items()}
+    rec = dict(pack_ms=cuda_ms(lambda: TO.pack_loss_ctx(params, base), 3))
+    ctx = TO.pack_loss_ctx(params, base)
+    tables = {k: t for k, t in (("g_vol", K.density_table(ctx)), ("g_tf", ctx.material_tf),
+                                ("g_light", ctx.light_spectrum), ("g_env", ctx.environment))
+              if t is not None and t.requires_grad}
+    rec["taped_sweep_ms"] = cuda_ms(lambda: S.tape_forward(state, ctx, seeds, STEPS, BINS), 3)
+    end, tape = S.tape_forward(state, ctx, seeds, STEPS, BINS)
+    carry0, _ = sur_adjoints(ctx, state.px.numel(), BINS, 5)
+    adj = S.zero_adjoints(ctx, [*tables, *(["g_ext"] if "extinction" in params else [])])
+    calls = iter([copy_carry(carry0) for _ in range(4)])
+    rec["k12_ms"] = cuda_ms(lambda: S.reverse(tape, S.fields(ctx.majorant is not None),
+                                              end.samples, next(calls), adj, ctx, BINS), 3)
+    outs = list(tables.values())
+    g_outs = [adj[k].reshape(t.shape) for k, t in tables.items()]
+    leaves = [v for k, v in params.items() if k != "extinction"]
+    rec["unpack_ms"] = cuda_ms(lambda: torch.autograd.grad(outs, leaves, g_outs,
+                                                           retain_graph=True), 3)
+    return rec
 
 
 def sparse_xy_window(sparse, cam, target, init, dev):
@@ -4658,8 +4838,8 @@ def sparse_xy_fit(xy, cam, target, init, dev):
     and K9 contract_volume_xy each iteration; peak device memory from the
     fit's start."""
     torch.cuda.reset_peak_memory_stats()
-    _, rec = autodiff_fit(f"sparse {SPARSE}^3 xy, majorant, method=None", target, xy, cam, init,
-                          dev)
+    _, rec = autodiff_fit(f"sparse {SPARSE}^3 xy, majorant, method=None", target, xy, cam,
+                          {"density": init}, dev)
     rec["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
     per_iteration = ("surrogate_tape_forward_xy", "surrogate_tape_forward_majorant",
                      "surrogate_reverse_xy", "contract_corners_xy", "pack_corners_xy")
@@ -4797,6 +4977,7 @@ def main():
     k11 = phase_scatter(dev)
     k4_sur, k12, twin, sur_modes = phase_surrogate(MCMSpectralRenderer(
         *bench_scene_args(), resolution=RES, streams=STREAMS, device=dev), camera, dev)
+    k4_raw, k12_raw = phase_surrogate_raw(camera, dev)
     autodiff = phase_autodiff_fit(camera, dev, windows)
     k1_raw, k13, k14 = phase_raw(camera, dev)
     torch.cuda.empty_cache()
@@ -4845,9 +5026,13 @@ def main():
     sur_modes["surrogate_tape_forward[xy majorant]"]["launches"] = xy_maj[
         "surrogate_tape_forward_xy"]
     sur_modes["surrogate_reverse[xy majorant]"]["launches"] = xy_maj["surrogate_reverse_xy"]
+    # the RAW mode: phase 17's two raw fits
+    for entry, key in ((k4_raw, "surrogate_tape_forward_raw"), (k12_raw, "surrogate_reverse_raw")):
+        entry["launches"] = sum(autodiff[f]["launches"][key] for f in ("raw", "sparse_raw"))
     kernels = [k1, k2, k4, k5, k6, k7, k9, k10, k11, k1_maj, k1_modes["environment"],
                k1_modes["quasicubic"], *compact_kernels, k4_sur, k12, k1_xy, *k4_modes.values(),
-               *k5_modes.values(), *corner_modes.values(), *sur_modes.values(), k1_raw, k13,
+               *k5_modes.values(), *corner_modes.values(), *sur_modes.values(), k4_raw, k12_raw,
+               k1_raw, k13,
                k14, *rm_kernels, *eam_kernels, *mcm_kernels, *mcs_kernels, *mcsp_kernels]
     missing = [k["name"] for k in kernels + [k3, k3_xy, k3_raw]
                if not {"bound_ms", "bound_by", "library_ms", "launches", "ms", "plain_ms",

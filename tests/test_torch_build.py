@@ -150,3 +150,24 @@ def test_ptxas_table_reads_the_surrogate_xy_instantiations():
     assert _build.ptxas_table(SURROGATE_XY_LOG) == [
         ("surrogate_tape_kernel", "12,1,0,1", 64, 4, 4, 40),
         ("surrogate_reverse_kernel", "12,0,1,1", 80, 28, 36, 64)]
+
+
+SURROGATE_RAW_LOG = """== spectral_backward.cu
+ptxas info    : Compiling entry function '_ZN53_GLOBAL__N__329e020e_20_spectral_backward_cu_fefce9d621surrogate_tape_kernelILi12ELb1ELb0ELb0ELb1EEEvNS_6ParamsENS_7SurSpecEPf' for 'sm_90a'
+ptxas info    : Function properties for _ZN53_GLOBAL__N__329e020e_20_spectral_backward_cu_fefce9d621surrogate_tape_kernelILi12ELb1ELb0ELb0ELb1EEEvNS_6ParamsENS_7SurSpecEPf
+    40 bytes stack frame, 4 bytes spill stores, 4 bytes spill loads
+ptxas info    : Used 64 registers, used 0 barriers, 40 bytes cumulative stack size
+== surrogate.cu
+ptxas info    : Compiling entry function '_ZN45_GLOBAL__N__1a2b3c4d_12_surrogate_cu_0a1b2c3d24surrogate_reverse_kernelILi12ELb0ELb0ELb0ELb1EEEvNS_6ParamsENS_7SurSpecEPKf' for 'sm_90a'
+ptxas info    : Function properties for _ZN45_GLOBAL__N__1a2b3c4d_12_surrogate_cu_0a1b2c3d24surrogate_reverse_kernelILi12ELb0ELb0ELb0ELb1EEEvNS_6ParamsENS_7SurSpecEPKf
+    120 bytes stack frame, 156 bytes spill stores, 136 bytes spill loads
+ptxas info    : Used 80 registers, used 1 barriers, 120 bytes cumulative stack size
+"""
+
+
+def test_ptxas_table_reads_the_surrogate_raw_instantiations():
+    """K4's surrogate mode and K12 carry <NB,MAJ,ENV,XY,RAW>: the raw
+    tables' flag is the fifth template argument of their rows."""
+    assert _build.ptxas_table(SURROGATE_RAW_LOG) == [
+        ("surrogate_tape_kernel", "12,1,0,0,1", 64, 4, 4, 40),
+        ("surrogate_reverse_kernel", "12,0,0,0,1", 80, 156, 136, 120)]

@@ -8,6 +8,8 @@ Rare ulp differences in log/sin/cos between libms may flip one lane's
 event, after which that lane diverges; the allowance covers that.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -211,7 +213,8 @@ def test_options_outside_the_slice_raise(option):
 
 def test_nearest_filter_raises():
     """A nearest volume renders over raw tables (tests/test_torch_raw.py);
-    its surrogate gradients raise, the next slice's."""
+    its surrogate, which raised until the RAW mode, runs too: render_diff
+    gives the render's bits and a density gradient on the raw grid."""
     args = list(convert.scene_from(*_scene()))
     args[0] = convert.volume_from(Volume(args[0].density, filter="nearest"))
     r = TM.MCMSpectralRenderer(*args, resolution=16, device="cpu")
@@ -219,8 +222,13 @@ def test_nearest_filter_raises():
     s0 = r.reset(cam, 1)
     _, img = r.render(TM.SpectralState(*(t.clone() for t in s0.tensors())), cam, 2)
     assert r.vol_kind == "raw" and bool(torch.isfinite(img).all())
-    with pytest.raises(NotImplementedError, match="next slice"):
-        TM.render_diff(s0, torch.ones_like(s0.px), r.ctx(cam, 2), 6, 12, volume_filter="nearest")
+    ctx = r.ctx(cam, 2)
+    d = ctx.density.clone().requires_grad_(True)
+    _, _, img_d = TM.render_diff(s0, torch.ones_like(s0.px), dataclasses.replace(ctx, density=d),
+                                 r.config.steps, r.spectrum.n_bins, volume_filter="nearest")
+    assert torch.equal(img_d.detach(), img)
+    (g,) = torch.autograd.grad(img_d.sum(), [d])
+    assert g.shape == d.shape and bool(torch.isfinite(g).all()) and float(g.abs().sum()) > 0
 
 
 def test_cuda_route_rejects_mixed_devices_and_counts_nothing_on_cpu():

@@ -224,8 +224,9 @@ def test_refusals_as_the_reference():
 @pytest.mark.parametrize("pack", [False, {"material_tf", "light_spectrum"}, {"density"}])
 def test_fit_spectral_routing_on_raw_renderers(pack):
     """The reference routes a raw or partly packed renderer to the
-    surrogate by default, which the port raises for as the next slice's;
-    ``method="prb"`` fails the same assertion in both packages."""
+    surrogate by default, and so does the port (it raised there until the
+    surrogate's RAW mode): one iteration's loss as JAX's; ``method="prb"``
+    fails the same assertion in both packages."""
     scene = _scene()
     jr = JM.MCMSpectralRenderer(*scene, resolution=8, pack_tables=pack)
     tr = TM.MCMSpectralRenderer(*convert.scene_from(*scene), resolution=8, pack_tables=pack,
@@ -235,8 +236,12 @@ def test_fit_spectral_routing_on_raw_renderers(pack):
     ctx = jr.ctx(Camera(), 0)
     packed = ctx.material_tf.shape[-1] == 18 and hasattr(ctx.density, "table")
     assert not packed  # the reference's own test for its default method
-    with pytest.raises(NotImplementedError, match="next slice"):
-        TO.fit_spectral(target, tr, TCamera(), params, dispatches_per_step=1, iterations=1)
+    _, losses_t, info = TO.fit_spectral(target, tr, TCamera(), params, dispatches_per_step=1,
+                                        iterations=1, return_info=True)
+    _, losses_j = JO.fit_spectral(target, jr, Camera(), params, dispatches_per_step=1,
+                                  iterations=1)
+    assert info["method"] == "autodiff"
+    np.testing.assert_allclose(losses_t, losses_j, rtol=1e-4)
     with pytest.raises(AssertionError) as ej:
         JO.fit_spectral(target, jr, Camera(), params, dispatches_per_step=1, iterations=1,
                         method="prb", scatter_stride=1)

@@ -289,9 +289,9 @@ def test_learned_tf_agrees_with_jax_packed_loss():
 
 def test_options_outside_the_slice_raise():
     """The quasicubic filter (the argument decides, as JAX's static
-    argument does), the environment map and an xy half-packed volume run;
-    the surrogate over a raw volume and the nearest filter raise
-    NotImplementedError before any launch."""
+    argument does), the environment map, an xy half-packed volume and a raw
+    grid run; the nearest filter over a packed table raises ValueError
+    before any launch, as JAX's packed lookup does."""
     r = _port_renderer(Volume.sphere_in_cube(8), None)
     cam = convert.camera_from(Camera())
     ctx, s0 = r.ctx(cam, 7), r.reset(cam, 7)
@@ -313,11 +313,13 @@ def test_options_outside_the_slice_raise():
     xy = TI.pack_volume_auto(np.asarray(Volume.sphere_in_cube(8).density), "cpu", "xy")
     new, _, img = TM.render_diff(s0, score, dataclasses.replace(ctx, density=xy), STEPS, BINS)
     assert torch.equal(new.radiance, lin_state.radiance) and bool(torch.isfinite(img).all())
-    with pytest.raises(NotImplementedError):
-        TM.render_diff(s0, score, dataclasses.replace(ctx, density=torch.zeros(8, 8, 8)), STEPS,
-                       BINS)
-    with pytest.raises(NotImplementedError, match="nearest"):
+    grid = torch.as_tensor(np.asarray(Volume.sphere_in_cube(8).density, np.float32))
+    new, _, img = TM.render_diff(s0, score, dataclasses.replace(ctx, density=grid), STEPS, BINS)
+    assert torch.equal(new.radiance, lin_state.radiance) and bool(torch.isfinite(img).all())
+    S.reset_launch_counts()
+    with pytest.raises(ValueError, match="nearest"):
         TM.render_diff(s0, score, ctx, STEPS, BINS, volume_filter="nearest")
+    assert set(S.LAUNCHES.values()) == {0}
     with pytest.raises(ValueError):
         TM.render_diff(s0, score * 2.0, ctx, STEPS, BINS)
     S.reset_launch_counts()

@@ -449,11 +449,15 @@ def test_xy_fit_launch_structure(monkeypatch, blocks):
 
 
 # ---------------------------------------------------------------------------
-# what stays outside: raw and partly packed tables, the nearest filter
+# beside the xy options: raw and partly packed tables, the nearest filter
+# (the surrogate's RAW mode, tests/test_torch_surrogate_raw.py)
 # ---------------------------------------------------------------------------
 @pytest.mark.parametrize("pack", [False, {"density_xy"}, {"density_xy", "material_tf"},
                                   {"material_tf", "light_spectrum"}, "nearest"])
 def test_raw_partly_packed_and_nearest_still_raise(pack):
+    """These layouts raised until the surrogate's RAW mode: render_diff now
+    runs on them and gives the step's bits; fit_spectral(method="autodiff")
+    runs, and on the CPU launches no kernel."""
     if pack == "nearest":
         r = _port(True, filt="nearest")
         filt = "nearest"
@@ -462,12 +466,17 @@ def test_raw_partly_packed_and_nearest_still_raise(pack):
         filt = "linear"
     cam = TCamera()
     s0 = r.reset(cam, 1)
-    with pytest.raises(NotImplementedError, match="item 2b"):
-        TM.render_diff(s0, torch.ones_like(s0.px), r.ctx(cam, 2), STEPS, BINS,
-                       volume_filter=filt)
+    ctx = r.ctx(cam, 2)
+    assert K.is_raw(ctx)
+    new, _, img = TM.render_diff(s0, torch.ones_like(s0.px), ctx, STEPS, BINS,
+                                 volume_filter=filt)
+    ref = TM.SpectralState(*(t.clone() for t in s0.tensors()))
+    K.step_plain(ref, dataclasses.replace(ctx, volume_filter=filt), [ctx.seed_bits], STEPS, BINS)
+    assert torch.equal(new.radiance, ref.radiance) and bool(torch.isfinite(img).all())
     S.reset_launch_counts()
-    with pytest.raises(NotImplementedError, match="item 2b"):
-        TO.fit_spectral(np.zeros((8, 8, 3), np.float32), r, cam,
-                        {"density": np.asarray(r.volume.density)}, iterations=1,
-                        method="autodiff")
+    params, losses, info = TO.fit_spectral(np.zeros((8, 8, 3), np.float32), r, cam,
+                                           {"density": np.asarray(r.volume.density)},
+                                           iterations=1, method="autodiff", return_info=True)
+    assert info["method"] == "autodiff" and np.isfinite(losses).all()
+    assert params["density"].shape == (8, 8, 8) and bool(torch.isfinite(params["density"]).all())
     assert set(S.LAUNCHES.values()) == {0}

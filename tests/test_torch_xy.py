@@ -161,8 +161,10 @@ def test_pack_tables_kinds_as_the_reference_reads_them(pack):
                                   {"material_tf", "light_spectrum"}])
 def test_raw_and_partly_packed_tables_still_raise(pack):
     """Raw and partly packed tables beside the xy options render the full
-    table's bits (tests/test_torch_raw.py); what still raises over them is
-    the surrogate, the next slice's."""
+    table's bits (tests/test_torch_raw.py), and so does the surrogate over
+    them, which raised until its RAW mode: render_diff's image equals the
+    packed tables' bit for bit, and so does its extinction gradient (the
+    same per-lane terms, summed in the same order)."""
     targs = convert.scene_from(*_scene())
     cam = TCamera()
     imgs = []
@@ -171,10 +173,17 @@ def test_raw_and_partly_packed_tables_still_raise(pack):
         s0 = r.reset(cam, 1)
         imgs.append(r.render(s0, cam, 2)[1])
     assert torch.equal(imgs[0], imgs[1])
-    r = TM.MCMSpectralRenderer(*targs, resolution=8, pack_tables=pack, device="cpu")
-    s0 = r.reset(cam, 1)
-    with pytest.raises(NotImplementedError, match="next slice"):
-        TM.render_diff(s0, torch.ones_like(s0.px), r.ctx(cam, 2), 6, 12)
+    out = []
+    for p in (pack, True):
+        r = TM.MCMSpectralRenderer(*targs, resolution=8, pack_tables=p, device="cpu")
+        s0 = r.reset(cam, 1)
+        ext = torch.tensor(np.float32(r.config.extinction), requires_grad=True)
+        ctx = dataclasses.replace(r.ctx(cam, 2), extinction=ext)
+        _, _, img = TM.render_diff(s0, torch.ones_like(s0.px), ctx, 6, 12)
+        (g,) = torch.autograd.grad(img.sum(), [ext])
+        out.append((img.detach(), g))
+    assert torch.equal(out[0][0], out[1][0])
+    assert torch.equal(out[0][1], out[1][1]) and float(out[0][1]) != 0.0
 
 
 def _port_ctx(jctx, filt):

@@ -400,13 +400,14 @@ __device__ __forceinline__ void sample_tf(const float* tf, int Hp, int Wp, int b
 // sample_tf reads it; the 16-wide packed row as four float4 corners; the
 // raw (H, W, 4) texture (given as Hp, Wp = H+1, W+1) as four float4 texels
 // (16-byte rows), the columns max(bx - 1, 0) and min(bx, W - 1) of the
-// raw axis. `slope` (optional): d(value)/d(density coordinate) per channel,
-// (x-lerped row1 - row0) * H.
+// raw axis. `addr` (optional): where it read, as sample_tf records it (the
+// padded row by * Wp + bx, whose raw texels the raw axes' clamps give), and
+// d(value)/d(density coordinate) per channel, (x-lerped row1 - row0) * H.
 __device__ __forceinline__ void sample_tf_any(const float* tf, int kind, int Hp, int Wp, int bx,
                                               float fx, float v, float mat[3],
-                                              float* slope = nullptr) {
+                                              TfAddr* addr = nullptr) {
   if (kind == TF_FUSED) {
-    sample_tf(tf, Hp, Wp, bx, fx, v, mat, nullptr, nullptr);
+    sample_tf(tf, Hp, Wp, bx, fx, v, mat, nullptr, addr);
     return;
   }
   int by;
@@ -430,7 +431,12 @@ __device__ __forceinline__ void sample_tf_any(const float* tf, int kind, int Hp,
     const float c0 = lerp(a00[c], a01[c], fx);
     const float c1 = lerp(a10[c], a11[c], fx);
     mat[c] = lerp(c0, c1, fy);
-    if (slope != nullptr) slope[c] = (c1 - c0) * (float)(Hp - 1);
+    if (addr != nullptr) addr->slope[c] = (c1 - c0) * (float)(Hp - 1);
+  }
+  if (addr != nullptr) {
+    addr->row = by * Wp + bx;
+    addr->fx = fx;
+    addr->fy = fy;
   }
 }
 

@@ -20,7 +20,8 @@
 //   surrogate_tape    K4's surrogate mode: K1's step (no REC record, so it
 //                     looks up the material only where K1 does) with
 //                     woodcock_step's SUR record, in exact or majorant mode,
-//                     with the light or the environment map (ENV),
+//                     with the light or the environment map (ENV), over
+//                     packed, xy (XY) or raw and partly packed (RAW) tables,
 //                     writing the autodiff surrogate's tape (SurField,
 //                     adjoint_common.cuh) that K12 (surrogate.cu) walks back;
 //                     its own template, so the PRB instantiations keep their
@@ -245,8 +246,12 @@ __device__ __forceinline__ void sput(float* row, const SurSpec& T, int field, fl
 // tape's every-lane record must): its time is K1's plus the tape's
 // evict-first stores, and the state it leaves equals K1's bit for bit.
 // XY: an xy half-packed volume (K1's two plane-row lookup); the tape is the
-// same, since K12 re-gathers the rows from the taped position.
-template <int NB, bool MAJ, bool ENV, bool XY>
+// same, since K12 re-gathers the rows from the taped position. RAW: raw or
+// partly packed tables, K1's RAW step (replaces the residuals of
+// render_diff over ops/interp.py:411-648's raw lookups), the table kinds
+// runtime flags as there (an xy table too, by I_VOL_XY), `light` the
+// light's own table beside a TF without it; the tape is again the same.
+template <int NB, bool MAJ, bool ENV, bool XY, bool RAW>
 __global__ void __launch_bounds__(STEP_THREADS, 8)
 surrogate_tape_kernel(const Params P, const SurSpec T, float* __restrict__ px_,
                       float* __restrict__ py_, float* __restrict__ pz_,
@@ -256,7 +261,8 @@ surrogate_tape_kernel(const Params P, const SurSpec T, float* __restrict__ px_,
                       float* __restrict__ lam_, float* __restrict__ radiance,
                       const void* __restrict__ vol, const float* __restrict__ tf,
                       const float2* __restrict__ maj, const float* __restrict__ env,
-                      const uint32_t* __restrict__ seeds, float* __restrict__ tape) {
+                      const uint32_t* __restrict__ seeds, float* __restrict__ tape,
+                      const float* __restrict__ light) {
   const int n_lanes = P.i[I_N_LANES];
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
   if (lane >= n_lanes) return;
@@ -278,8 +284,8 @@ surrogate_tape_kernel(const Params P, const SurSpec T, float* __restrict__ px_,
     uint32_t s = hash3(ix, seed_iy, seeds[k]);
     for (int it = 0; it < steps; ++it, row += step_rows) {
       SurRecord r;
-      woodcock_step<NB, false, MAJ, ENV, true, XY>(L, rad, s, sx, sy, P, C, vol, tf, nullptr,
-                                                   maj, env, &r);
+      woodcock_step<NB, false, MAJ, ENV, true, XY, RAW>(L, rad, s, sx, sy, P, C, vol, tf,
+                                                        nullptr, maj, env, &r, light);
       const int flags = (r.respawn ? SF_RESPAWN : 0) | (r.oob ? SF_OOB : 0) |
                         (r.null_event ? SF_NULL : 0) | (r.scatter ? SF_SCATTER : 0) |
                         (r.capped ? SF_CAPPED : 0) | (r.pre_bin << 8);
@@ -669,39 +675,51 @@ int vpt_prb_tape_forward(const float* fparams, const int* iparams,
 
 // K4's surrogate mode: the majorant table `maj` (Gz, Gy, Gx) x (majorant,
 // flight cap), or null for the exact mode; `env` the packed environment
-// map, or null; an xy half-packed `vol` when I_VOL_XY is set
+// map, or null; an xy half-packed `vol` when I_VOL_XY is set; with I_RAW
+// raw or partly packed tables (K1's RAW kinds; `env` packed or raw,
+// `light` the light's own table beside a TF without it, else null)
 int vpt_surrogate_tape_forward(const float* fparams, const int* iparams, const int* slots,
                                int n_fields, float* px, float* py, float* pz, float* dx,
                                float* dy, float* dz, int* bounces, int* samples, int* bin,
                                float* wavelength, float* radiance, const void* vol,
                                const float* tf, const float2* maj, const float* env,
-                               const uint32_t* seeds, float* tape, void* stream) {
+                               const uint32_t* seeds, float* tape, const float* light,
+                               void* stream) {
   const Params P = make_params(fparams, iparams);
   const int n = P.i[I_N_LANES];
   const SurSpec T = make_sur_spec(slots, n_fields, n);
   if (n <= 0) return 0;
   if ((env != nullptr) != (P.i[I_ENV_H] > 0) || (maj != nullptr) != (P.i[I_MAJ_GZ] > 0))
     return (int)cudaErrorInvalidValue;
+  const bool raw = P.i[I_RAW] != 0;
+  if ((light != nullptr) != (raw && P.i[I_LIGHT_KIND] != LIGHT_FUSED) ||
+      (!raw && (P.i[I_VOL_RAW] | P.i[I_NEAREST] | P.i[I_TF_KIND] | P.i[I_ENV_RAW]) != 0))
+    return (int)cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const dim3 grid(blocks_for(n, STEP_THREADS)), block(STEP_THREADS);
-  // NB is a multiple of 4, so NB * 4 leaves the low 4 bits to the mode
+  // NB is a multiple of 4, so NB * 4 leaves the low 4 bits to the mode; RAW
+  // reads an xy table by its runtime flag, so its modes take 8 + MAJ + 2 ENV
   switch (bins_rounded(P.i[I_N_BINS]) * 4 + (maj != nullptr ? 1 : 0) + (env != nullptr ? 2 : 0) +
-          (P.i[I_VOL_XY] != 0 ? 4 : 0)) {
-#define VPT_NB_MODE(NB, M, MB, EB, XB)                                                     \
+          (raw ? 8 : (P.i[I_VOL_XY] != 0 ? 4 : 0))) {
+#define VPT_NB_MODE(NB, M, MB, EB, XB, RB)                                                 \
   case NB * 4 + M:                                                                         \
-    surrogate_tape_kernel<NB, MB, EB, XB><<<grid, block, 0, st>>>(                         \
+    surrogate_tape_kernel<NB, MB, EB, XB, RB><<<grid, block, 0, st>>>(                     \
         P, T, px, py, pz, dx, dy, dz, bounces, samples, bin, wavelength, radiance, vol, tf, \
-        maj, env, seeds, tape);                                                            \
+        maj, env, seeds, tape, light);                                                     \
     break;
-#define VPT_NB(NB)                        \
-  VPT_NB_MODE(NB, 0, false, false, false) \
-  VPT_NB_MODE(NB, 1, true, false, false)  \
-  VPT_NB_MODE(NB, 2, false, true, false)  \
-  VPT_NB_MODE(NB, 3, true, true, false)   \
-  VPT_NB_MODE(NB, 4, false, false, true)  \
-  VPT_NB_MODE(NB, 5, true, false, true)   \
-  VPT_NB_MODE(NB, 6, false, true, true)   \
-  VPT_NB_MODE(NB, 7, true, true, true)
+#define VPT_NB(NB)                               \
+  VPT_NB_MODE(NB, 0, false, false, false, false) \
+  VPT_NB_MODE(NB, 1, true, false, false, false)  \
+  VPT_NB_MODE(NB, 2, false, true, false, false)  \
+  VPT_NB_MODE(NB, 3, true, true, false, false)   \
+  VPT_NB_MODE(NB, 4, false, false, true, false)  \
+  VPT_NB_MODE(NB, 5, true, false, true, false)   \
+  VPT_NB_MODE(NB, 6, false, true, true, false)   \
+  VPT_NB_MODE(NB, 7, true, true, true, false)    \
+  VPT_NB_MODE(NB, 8, false, false, false, true)  \
+  VPT_NB_MODE(NB, 9, true, false, false, true)   \
+  VPT_NB_MODE(NB, 10, false, true, false, true)  \
+  VPT_NB_MODE(NB, 11, true, true, false, true)
     VPT_NB(4) VPT_NB(8) VPT_NB(12) VPT_NB(16) VPT_NB(20) VPT_NB(24) VPT_NB(28) VPT_NB(32)
 #undef VPT_NB
 #undef VPT_NB_MODE

@@ -65,11 +65,11 @@ _SIGNATURES = {
         "vpt_prb_tape_forward": ([_P, _P, _P, _I] + [_P] * 16 + [_P], _I),
         "vpt_prb_reverse": ([_P, _F] + [_P] * 11 + [_P], _I),
         "vpt_scatter_rows": ([_P, _L, _P, _P], _I),
-        "vpt_surrogate_tape_forward": ([_P, _P, _P, _I] + [_P] * 17 + [_P], _I),
+        "vpt_surrogate_tape_forward": ([_P, _P, _P, _I] + [_P] * 18 + [_P], _I),
     },
     "surrogate": {
         "vpt_sur_layout": ([_I], _I),
-        "vpt_surrogate_reverse": ([_P, _P, _P, _I] + [_P] * 17 + [_P], _I),
+        "vpt_surrogate_reverse": ([_P, _P, _P, _I] + [_P] * 19 + [_P], _I),
     },
     "raw_backward": {
         "vpt_raw_layout": ([_I], _I),
@@ -216,7 +216,7 @@ def ptxas_table(log_text):
     stack frame B)] of the kernels named in ``KERNELS`` in a ptxas -v log
     (the stack frame is the thread's local memory: spills and arrays
     indexed at run time); template args as
-    NB,MAJ,ENV,XY,RAW (K1 step_kernel), NB,MAJ,ENV,XY (K4's surrogate mode
+    NB,MAJ,ENV,XY,RAW (K1 step_kernel, K4's surrogate mode
     surrogate_tape_kernel and K12 surrogate_reverse_kernel), NB,ENV,XY (K4
     tape_forward_kernel), NB (K13 raw_tape_kernel, K14 raw_replay_kernel), NS
     (K5 reverse_kernel: 0 for stride mode, else the importance step

@@ -23,10 +23,11 @@ bin, across steps and dispatches.
 - ``reverse`` (K12, ``csrc/surrogate.cu``): the reverse pass over K stored
   dispatch tapes. Its inputs are the adjoints at the last dispatch's end,
   which it replaces in place by those at the first dispatch's start; it
-  adds into the packed adjoints (one 18-wide TF+light row and one 8-wide
-  volume row per event lane-step, or over an xy half-packed volume the two
-  4-wide rows of the z0 and z1 planes, the 4 texel terms of an escape's
-  12-wide environment row) and the extinction adjoint. Plain
+  adds into the adjoints of the tables (over the packed tables one
+  18-wide TF+light row and one 8-wide volume row per event lane-step, or
+  over an xy half-packed volume the two 4-wide rows of the z0 and z1
+  planes, the 4 texel terms of an escape's 12-wide environment row; over
+  raw tables the texels a lookup read) and the extinction adjoint. Plain
   version ``reverse_plain``: the same derivation in torch ops, in K12's
   order.
 
@@ -63,8 +64,24 @@ launches its kernel when they lie on a CUDA device; anything else raises.
 its ``_environment`` key, in env and majorant mode at once, one
 instantiation of its own, under ``_environment_majorant``, K12 with the
 quasicubic filter under ``surrogate_reverse_quasicubic``, a launch over an
-xy half-packed volume also under its ``_xy`` key). Raw and partly packed
-tables, the nearest filter and lane tables raise ``NotImplementedError``.
+xy half-packed volume also under its ``_xy`` key, one over raw or partly
+packed tables under its ``_raw`` key).
+
+Raw and partly packed tables (``K.is_raw``: the reference's ``pack_tables``
+other than True, and every ``nearest`` volume) run the kernels' RAW mode,
+whose table kinds are runtime flags, as K1's RAW instantiation reads them
+(PR 10): the volume a raw (D, H, W) f32 grid (8 corners, 1 voxel under the
+nearest filter) or a packed full or xy table; the TF fused (18 wide), packed
+(16 wide, the light then in its own table) or raw (H, W, 4); the light a raw
+(N,) or pair (N+1, 2) table beside a TF that does not carry it; the
+environment map packed (12 wide) or raw (He, We, 3). Each adjoint has the
+kind of its table, flattened to rows (``adjoint_shapes``). A raw axis of n
+texels scales its spatial slope by n (``ops/interp.py`` ``_coords`` leaves
+the fraction unclamped; at a clamped edge both corners are the same texel,
+which takes both terms). Under the nearest filter the density gradient goes
+to the one voxel read and the position gets none (``floor`` has no
+gradient), as under ``jax.grad``; the raw PRB backward's trilinear scatter
+of a nearest lookup (``kernels/spectral_backward.py``) is its own path.
 
 At the poles of the environment map (|dy| = 1) the slope of asin is
 unbounded: an escape there gets an inf or NaN direction adjoint, as under
@@ -91,9 +108,10 @@ EPS = 1e-5
 LAUNCHES = {"surrogate_tape_forward": 0, "surrogate_tape_forward_majorant": 0,
             "surrogate_tape_forward_environment": 0,
             "surrogate_tape_forward_environment_majorant": 0, "surrogate_tape_forward_xy": 0,
+            "surrogate_tape_forward_raw": 0,
             "surrogate_reverse": 0, "surrogate_reverse_environment": 0,
             "surrogate_reverse_environment_majorant": 0, "surrogate_reverse_quasicubic": 0,
-            "surrogate_reverse_xy": 0}
+            "surrogate_reverse_xy": 0, "surrogate_reverse_raw": 0}
 
 
 def reset_launch_counts():
@@ -107,27 +125,57 @@ def fields(majorant: bool) -> tuple:
 
 
 def check_ctx(ctx):
-    """The modes the surrogate's backward covers: exact or majorant mode,
-    the linear or quasicubic filter, a directional or isotropic light or an
-    environment map, the packed tables with the full or the xy half-packed
-    volume."""
-    if ctx.volume_filter not in ("linear", "quasicubic"):
-        raise NotImplementedError(f"surrogate gradients with the {ctx.volume_filter!r} filter "
-                                  "run over raw tables, whose surrogate is not ported yet (the "
-                                  "next slice, ROADMAP A item 2b: the surrogate over raw tables)")
-    if (not isinstance(ctx.density, interp.PackedVolume) or ctx.material_tf.shape[-1] != 18
-            or (ctx.environment is not None and ctx.environment.shape[-1] == 3)):
-        raise NotImplementedError("the surrogate over raw or partly packed tables is not ported "
-                                  "yet (the next slice, ROADMAP A item 2b: the surrogate over raw "
-                                  "tables); its backward needs the packed ctx (a full or xy "
-                                  "PackedVolume + fused TF)")
-    if ctx.environment is not None and (ctx.environment.ndim != 3
-                                        or ctx.environment.shape[-1] != 12):
-        raise ValueError("the surrogate needs the packed (He+1, We+1, 12) environment map, got "
-                         f"{tuple(ctx.environment.shape)}")
-    if ctx.material_tf.ndim != 3 or ctx.material_tf.shape[-1] != 18:
-        raise ValueError("the surrogate needs the fused (Hp, Wp, 18) TF+light table, got "
-                         f"{tuple(ctx.material_tf.shape)}")
+    """The tables and modes the surrogate's backward covers: every layout
+    that K1 renders (``K.is_raw``: raw or partly packed tables too), in
+    exact or majorant mode, with the linear, quasicubic or (raw grid)
+    nearest filter, with a directional or isotropic light or an
+    environment map. Raises ``ValueError`` on a malformed table."""
+    vol, tf, env = ctx.density, ctx.material_tf, ctx.environment
+    if ctx.volume_filter not in ("linear", "quasicubic", "nearest"):
+        raise ValueError(f"unknown volume filter {ctx.volume_filter!r}")
+    if isinstance(vol, interp.PackedVolume):
+        if ctx.volume_filter == "nearest":
+            raise ValueError("the nearest filter needs a raw (D, H, W) grid, got a packed "
+                             f"{vol.kind} table")
+    elif vol.ndim != 3:
+        raise ValueError(f"a raw density must be a (D, H, W) grid, got {tuple(vol.shape)}")
+    if tf.ndim != 3 or tf.shape[-1] not in K._TF_KIND:
+        raise ValueError("the surrogate needs a fused (Hp, Wp, 18), packed (Hp, Wp, 16) or raw "
+                         f"(H, W, 4) TF, got {tuple(tf.shape)}")
+    if tf.shape[-1] != 18:
+        light = ctx.light_spectrum
+        if light.ndim not in (1, 2) or (light.ndim == 2 and light.shape[1] != 2):
+            raise ValueError("beside a TF without the light the surrogate needs a raw (N,) or "
+                             f"pair (N+1, 2) light table, got {tuple(light.shape)}")
+    if env is not None and (env.ndim != 3 or env.shape[-1] not in (3, 12)):
+        raise ValueError("the surrogate needs a packed (He+1, We+1, 12) or raw (He, We, 3) "
+                         f"environment map, got {tuple(env.shape)}")
+
+
+def adjoint_shapes(ctx) -> dict:
+    """The shape of each table's adjoint, the table flattened to rows:
+    g_vol (rows, 8) or (rows, 4) over a packed volume, (D*H*W,) over a raw
+    grid; g_tf (rows, 18 | 16 | 4); g_light (N,) or (N+1, 2) beside a TF
+    that does not carry the light; g_env (rows, 12 | 3); g_ext (1,)."""
+    vol, tf = ctx.density, ctx.material_tf
+    out = dict(g_ext=(1,), g_tf=(tf.shape[0] * tf.shape[1], tf.shape[2]),
+               g_vol=(tuple(vol.table.shape) if isinstance(vol, interp.PackedVolume)
+                      else (vol.numel(),)))
+    if tf.shape[-1] != 18:
+        out["g_light"] = tuple(ctx.light_spectrum.shape)
+    if ctx.environment is not None:
+        env = ctx.environment
+        out["g_env"] = (env.shape[0] * env.shape[1], env.shape[2])
+    return out
+
+
+def zero_adjoints(ctx, keys) -> dict:
+    """Zero f32 adjoints (``adjoint_shapes``) of ``keys`` on the ctx's
+    device; a key the ctx has no table for is left out."""
+    shapes = adjoint_shapes(ctx)
+    dev = ctx.material_tf.device
+    return {k: torch.zeros(shapes[k], dtype=torch.float32, device=dev) for k in keys
+            if k in shapes}
 
 
 def clone_steppable(state):
@@ -235,16 +283,25 @@ def tape_forward(state, ctx, seeds, steps: int, n_bins: int):
         err = lib.vpt_surrogate_tape_forward(
             f.ctypes.data, i.ctypes.data, _slots(flds).ctypes.data, len(flds),
             *(getattr(out, k).data_ptr() for k in K.STATE_FIELDS[:11]),
-            ctx.density.table.data_ptr(), ctx.material_tf.data_ptr(), K._ptr(ctx.majorant),
-            K._ptr(ctx.environment), seeds_dev.data_ptr(), tapes.data_ptr(), K._stream(device))
+            K.density_table(ctx).data_ptr(), ctx.material_tf.data_ptr(), K._ptr(ctx.majorant),
+            K._ptr(ctx.environment), seeds_dev.data_ptr(), tapes.data_ptr(), K._light_ptr(ctx),
+            K._stream(device))
     K._raise_on(err, "surrogate_tape_forward")
-    LAUNCHES["surrogate_tape_forward"] += 1
-    LAUNCHES["surrogate_tape_forward_majorant"] += int(ctx.majorant is not None)
-    LAUNCHES["surrogate_tape_forward_environment"] += int(ctx.environment is not None)
-    LAUNCHES["surrogate_tape_forward_environment_majorant"] += int(
-        ctx.environment is not None and ctx.majorant is not None)
-    LAUNCHES["surrogate_tape_forward_xy"] += int(ctx.density.kind == "xy")
+    _count("surrogate_tape_forward", ctx, majorant=True)
     return out, tapes
+
+
+def _count(name, ctx, majorant=False, quasicubic=False):
+    """Counts a launch under ``name`` and under each mode it ran."""
+    env, maj = ctx.environment is not None, ctx.majorant is not None
+    LAUNCHES[name] += 1
+    for mode, on in (("majorant", majorant and maj), ("environment", env),
+                     ("environment_majorant", env and maj),
+                     ("quasicubic", quasicubic and ctx.volume_filter == "quasicubic"),
+                     ("xy", getattr(ctx.density, "kind", None) == "xy"),
+                     ("raw", K.is_raw(ctx))):
+        if on:
+            LAUNCHES[f"{name}_{mode}"] += 1
 
 
 # ---------------------------------------------------------------------------
@@ -261,50 +318,131 @@ def _tie_min(x, hi: float):
     return torch.where(x < hi, one, torch.where(x == hi, 0.5 * one, 0.0 * one))
 
 
-def _volume_corners(vol, px, py, pz, qc: bool = False):
-    """The forward's trilinear (``qc``: quasicubic) lookup at the sample
-    position, with what its adjoint needs: (dens, (row0, row1), the
-    unwarped fractions, the weights (fx, fy, fz), corners (8 tensors)). A
-    full table's corners are its row0's 8 (row1 == row0); an xy table's
-    are the 4 of the z0 plane's row0, then the 4 of the z1 plane's row1,
-    the same values in the same order."""
-    row0, row1, *raw = interp.volume_rows(vol.dims, px, py, pz, vol.kind)
-    fx, fy, fz = (interp.quasicubic_warp(f) for f in raw) if qc else raw
-    row0, row1 = row0.to(torch.int64), row1.to(torch.int64)
-    if vol.kind == "xy":
-        rows = interp.dequantize_rows(torch.cat([vol.table[row0], vol.table[row1]], dim=-1))
+def _volume_corners(vol, px, py, pz, filt: str = "linear"):
+    """The forward's volume lookup at the sample position, with what its
+    adjoint needs: (dens, where it read, the unwarped fractions, the
+    weights (fx, fy, fz), corners (8 tensors)). A full table's corners are
+    its row0's 8 and it read (row0, row0); an xy table's are the 4 of the
+    z0 plane's row0, then the 4 of the z1 plane's row1; a raw grid's are
+    the 8 voxels it read, in the packed row's order (bit 2 z, bit 1 y,
+    bit 0 x), and their flat indices; the same values in the same order
+    every way. Under the nearest filter: (dens, the voxel's flat index,
+    None, None, None)."""
+    if not isinstance(vol, interp.PackedVolume):
+        D, H, W = vol.shape
+        flat = vol.reshape(-1)
+        if filt == "nearest":
+            idx = ((interp._nearest_coords(pz, D) * H + interp._nearest_coords(py, H)) * W
+                   + interp._nearest_coords(px, W)).to(torch.int64)
+            return flat[idx], idx, None, None, None
+        x0, x1, fx = interp._coords(px, W)
+        y0, y1, fy = interp._coords(py, H)
+        z0, z1, fz = interp._coords(pz, D)
+        idx = [((zi * H + yi) * W + xi).to(torch.int64)
+               for zi in (z0, z1) for yi in (y0, y1) for xi in (x0, x1)]
+        c = [flat[i] for i in idx]
+        raw = (fx, fy, fz)
     else:
-        rows = interp.dequantize_rows(vol.table[row0])
-    c = [rows[..., k] for k in range(8)]
+        row0, row1, *raw = interp.volume_rows(vol.dims, px, py, pz, vol.kind)
+        row0, row1 = row0.to(torch.int64), row1.to(torch.int64)
+        if vol.kind == "xy":
+            rows = interp.dequantize_rows(torch.cat([vol.table[row0], vol.table[row1]], dim=-1))
+        else:
+            rows = interp.dequantize_rows(vol.table[row0])
+        c = [rows[..., k] for k in range(8)]
+        idx = (row0, row1)
+    fx, fy, fz = (interp.quasicubic_warp(f) for f in raw) if filt == "quasicubic" else raw
     c00 = c[0] + (c[1] - c[0]) * fx
     c01 = c[2] + (c[3] - c[2]) * fx
     c10 = c[4] + (c[5] - c[4]) * fx
     c11 = c[6] + (c[7] - c[6]) * fx
     c0 = c00 + (c01 - c00) * fy
     c1 = c10 + (c11 - c10) * fy
-    return c0 + (c1 - c0) * fz, (row0, row1), tuple(raw), (fx, fy, fz), c
+    return c0 + (c1 - c0) * fz, idx, tuple(raw), (fx, fy, fz), c
+
+
+def _volume_scales(vol) -> tuple:
+    """d(fraction) / d(position) along x, y, z: the axis lengths W, H, D
+    for every kind (a full table's dims are D+1, H+1, W+1, an xy table's
+    D, H+1, W+1)."""
+    if not isinstance(vol, interp.PackedVolume):
+        D, H, W = vol.shape
+        return float(W), float(H), float(D)
+    D0, Hp, Wp = vol.dims
+    return float(Wp - 1), float(Hp - 1), float(D0 if vol.kind == "xy" else D0 - 1)
+
+
+def _tf_corners(tf, t_coord, dens):
+    """The forward's TF lookup at (wavelength coordinate, density): (the 4
+    corners (y0x0, y0x1, y1x0, y1x1), each (lanes, >= 3), fx, fy, the
+    density axis's scale, where the corners lie). A fused (18) or packed
+    (16) table reads one row (``sample_tex2d``'s packed path; where: the
+    row), a raw (H, W, 4) one 4 texels (its raw path; where: the 4
+    texels)."""
+    H0, W0, CC = tf.shape
+    flat = tf.reshape(-1, CC)
+    if CC == 4:
+        x0, x1, fx = interp._coords(t_coord, W0)
+        y0, y1, fy = interp._coords(dens, H0)
+        where = [(yi * W0 + xi).to(torch.int64) for yi in (y0, y1) for xi in (x0, x1)]
+        return [flat[i] for i in where], fx, fy, float(H0), where
+    bx, fx = interp._base_and_frac(t_coord, W0 - 1)
+    by, fy = interp._base_and_frac(dens, H0 - 1)
+    row = (by * W0 + bx).to(torch.int64)
+    rows = flat[row]
+    return [rows[..., 4 * q:4 * q + 4] for q in range(4)], fx, fy, float(H0 - 1), row
+
+
+def _light_add(g_light, light, t_coord, g):
+    """Adds the adjoint ``g`` of the light's value at ``t_coord`` into
+    ``g_light``, of the light table's kind: a raw (N,) table's two texels,
+    a pair (N+1, 2) table's row (``interp.sample_tex1d``)."""
+    if light.ndim == 2:
+        b, f = interp._base_and_frac(t_coord, light.shape[0] - 1)
+        g_light.index_add_(0, b.to(torch.int64), torch.stack([g * (1 - f), g * f], dim=-1))
+        return
+    x0, x1, f = interp._coords(t_coord, light.shape[0])
+    g_light.index_add_(0, x0.to(torch.int64), g * (1 - f))
+    g_light.index_add_(0, x1.to(torch.int64), g * f)
 
 
 def _env_reverse(env, d, lam, g_emit, oob, adj):
     """The escape's environment lookup in reverse (K12's ``env_reverse``,
     in its order), for the adjoint ``g_emit`` of the emitted value on the
     escaping lanes ``oob``: adds the 4 texel terms into ``adj["g_env"]``
-    when present and returns the direction's adjoint (3 tensors)."""
+    when present and returns the direction's adjoint (3 tensors). A packed
+    (He+1, We+1, 12) map reads one row, a raw (He, We, 3) one 4 texels
+    (``sample_environment``'s lookups); the band's channel of each."""
     dx, dy, dz = d
-    Hp, Wp, _ = env.shape
-    row, fx, fy, band = K.env_addr(env, dx, dy, dz, lam)
-    flat = env.reshape(-1, 12)
-    a = [flat[row, 3 * k + band] for k in range(4)]
+    H0, W0, CC = env.shape
+    u = torch.atan2(dx, -dz) * K.INV_PI * 0.5 + 0.5
+    v = torch.asin(-dy) * 2.0 * K.INV_PI * 0.5 + 0.5
+    band = torch.where(lam < 500.0, 2, torch.where(lam < 600.0, 1, 0)).to(torch.int64)
+    if CC == 3:
+        x0, x1, fx = interp._coords(u, W0)
+        y0, y1, fy = interp._coords(v, H0)
+        where = [(yi * W0 + xi).to(torch.int64) * 3 + band for yi in (y0, y1) for xi in (x0, x1)]
+        scale_x, scale_y = float(W0), float(H0)
+    else:
+        bx, fx = interp._base_and_frac(u, W0 - 1)
+        by, fy = interp._base_and_frac(v, H0 - 1)
+        row = (by * W0 + bx).to(torch.int64) * 12 + band
+        where = [row + 3 * k for k in range(4)]
+        scale_x, scale_y = float(W0 - 1), float(H0 - 1)
+    flat = env.reshape(-1)
+    a = [flat[i] for i in where]
     c0 = a[0] + (a[1] - a[0]) * fx
     c1 = a[2] + (a[3] - a[2]) * fx
     zero = torch.zeros_like(g_emit)
     g = torch.where(oob, g_emit, zero) * K.ENV_GAIN
     if "g_env" in adj:
-        K.add_env_texels_plain(adj["g_env"], row, band, g, fx, fy)
+        w = ((1 - fx) * (1 - fy), fx * (1 - fy), (1 - fx) * fy, fx * fy)
+        for i, wk in zip(where, w):
+            adj["g_env"].view(-1).index_add_(0, i, torch.where(oob, g * wk, zero))
     g_fx = g * (1 - fy) * (a[1] - a[0]) + g * fy * (a[3] - a[2])
     g_fy = g * (c1 - c0)
-    g_at = g_fx * float(Wp - 1) * 0.5 * K.INV_PI
-    g_as = g_fy * float(Hp - 1) * 0.5 * 2.0 * K.INV_PI
+    g_at = g_fx * scale_x * 0.5 * K.INV_PI
+    g_as = g_fy * scale_y * 0.5 * 2.0 * K.INV_PI
     r2 = dx * dx + dz * dz
     gdl = (g_at * -dz / r2, -(g_as / torch.sqrt(1.0 - dy * dy)), g_at * dx / r2)
     return tuple(torch.where(oob, t, zero) for t in gdl)
@@ -363,10 +501,9 @@ def _hg_reverse(g, d, u, ucos, go):
 def reverse_plain(tapes, flds, samples, carry, adj, ctx, n_bins: int):
     """Plain ``reverse``: walks the K dispatch tapes backwards, updating
     the carry (dict: c (lanes,), gp (3, lanes), gd (3, lanes), grad
-    (n_bins, lanes)) and adding into ``adj`` (g_ext (1,), g_tf (rows, 18),
-    g_vol (rows, 8), or (rows, 4) over an xy volume, g_env (rows, 12), as
-    present), both in place.
-    ``samples``: each lane's sample count at the end of the last
+    (n_bins, lanes)) and adding into ``adj`` (any of g_ext, g_tf, g_vol,
+    g_light, g_env, each of its table's kind: ``adjoint_shapes``), both in
+    place. ``samples``: each lane's sample count at the end of the last
     dispatch."""
     check_ctx(ctx)
     n_disp, steps = tapes.shape[:2]
@@ -374,17 +511,15 @@ def reverse_plain(tapes, flds, samples, carry, adj, ctx, n_bins: int):
     (lx, ly, lz), isotropic = K.light_terms(ctx.light_direction)
     mu = K._f32(float(torch.as_tensor(ctx.extinction).detach()))
     inv_mu = K._f32(np.float32(1.0) / np.float32(mu))
-    Hp, Wp, _ = ctx.material_tf.shape
-    tf_flat = ctx.material_tf.reshape(-1, 18)
+    tf = ctx.material_tf
+    fused = tf.shape[-1] == 18
+    tf_flat = tf.reshape(-1, tf.shape[-1])
     vol = ctx.density
-    Dp, VHp, VWp = vol.dims
-    # the position's z scale is D for both kinds: volume_rows addresses z
-    # by _base_and_frac(w, dims[0] - 1) on a full table (dims[0] = D + 1)
-    # and by _base_and_frac(w, dims[0]) on an xy table (dims[0] = D)
-    vzs = float(Dp if vol.kind == "xy" else Dp - 1)
+    filt = ctx.volume_filter
+    raw_vol = not isinstance(vol, interp.PackedVolume)
+    scales = _volume_scales(vol)
     majorant = "maj" in col
     env = ctx.environment
-    qc = ctx.volume_filter == "quasicubic"
     c = carry["c"].clone()
     gp = [t.clone() for t in carry["gp"]]
     gd = [t.clone() for t in carry["gd"]]
@@ -392,7 +527,6 @@ def reverse_plain(tapes, flds, samples, carry, adj, ctx, n_bins: int):
     n = samples.reshape(-1).to(torch.int32).clone()
     zero = torch.zeros_like(c)
     ext_lane = torch.zeros_like(c)
-    bins = torch.arange(n_bins, device=c.device).view(-1, 1)
     for k in range(n_disp - 1, -1, -1):
         for it in range(steps - 1, -1, -1):
             t = tapes[k, it]
@@ -411,11 +545,15 @@ def reverse_plain(tapes, flds, samples, carry, adj, ctx, n_bins: int):
             grad = torch.where(respawn[None], grad - grad / denom[None], grad)
             n = n - respawn.to(torch.int32)
             # the escape light, recomputed from the wavelength's light pair
-            # (or the environment map)
-            bx, tfx = interp._base_and_frac(sampling.div_scalar(t[col["lam"]] - 400.0, 300.0),
-                                            Wp - 1)
-            pair = tf_flat[bx.to(torch.int64)]
-            light_raw = pair[:, 16] + (pair[:, 17] - pair[:, 16]) * tfx
+            # in the fused TF rows or from the light's own table (or the
+            # environment map)
+            t_coord = sampling.div_scalar(t[col["lam"]] - 400.0, 300.0)
+            bx, tfx = interp._base_and_frac(t_coord, tf.shape[1] - 1)
+            if fused:
+                pair = tf_flat[bx.to(torch.int64)]
+                light_raw = pair[:, 16] + (pair[:, 17] - pair[:, 16]) * tfx
+            else:
+                light_raw = interp.sample_tex1d(ctx.light_spectrum, t_coord)
             intensity = light_raw * 5.0
             if env is not None:
                 emitted = K.sample_environment(env, *d, t[col["lam"]])
@@ -450,11 +588,14 @@ def reverse_plain(tapes, flds, samples, carry, adj, ctx, n_bins: int):
                 g_dot = g_prod * intensity
                 gdl = (g_dot * lx, g_dot * ly, g_dot * lz)
             g_light = g_int * 5.0
+            if "g_light" in adj:
+                _light_add(adj["g_light"], ctx.light_spectrum, t_coord, g_light)
             # the material at the sample position (the forward's lookups)
-            dens, vrow, vraw, (vfx, vfy, vfz), corner = _volume_corners(vol, *pos, qc)
-            t_coord = sampling.div_scalar(t[col["lam"]] - 400.0, 300.0)
-            mat, _, ex = interp.sample_tex2d_fused1d(ctx.material_tf, t_coord, dens,
-                                                     return_extras=True)
+            dens, vwhere, vraw, vf, corner = _volume_corners(vol, *pos, filt)
+            tk, fx, fy, th, twhere = _tf_corners(tf, t_coord, dens)
+            cx0 = tk[0][..., :3] + (tk[1][..., :3] - tk[0][..., :3]) * fx[..., None]
+            cx1 = tk[2][..., :3] + (tk[3][..., :3] - tk[2][..., :3]) * fx[..., None]
+            mat = cx0 + (cx1 - cx0) * fy[..., None]
             albedo, alpha, g = mat[..., 0], mat[..., 1], mat[..., 2] * 2.0 - 1.0
             # event scores
             if majorant:
@@ -485,51 +626,65 @@ def reverse_plain(tapes, flds, samples, carry, adj, ctx, n_bins: int):
             g_g = torch.where(aniso, g_g, zero)
             gd_hg = [torch.where(aniso, v, zero) for v in gd_hg]
             g_mat2 = g_g * 2.0
-            # the TF row (events) or the light pair (escapes): one row
-            fx, fy = ex["fx"], ex["fy"]
+            # the TF corners (events) and, in the fused table, the light
+            # pair (escapes): one row; a 16-wide row; or 4 raw texels
             w = ((1 - fx) * (1 - fy), fx * (1 - fy), (1 - fx) * fy, fx * fy)
-            if "g_tf" in adj:
+            if "g_tf" in adj and fused:
                 cols = []
                 for wk in w:
                     cols += [g_albedo * wk, g_alpha * wk, g_mat2 * wk, zero]
                 cols += [g_light * (1 - tfx), g_light * tfx]
-                row = torch.where(oob, bx, ex["row_idx"]).to(torch.int64)
+                row = torch.where(oob, bx.to(torch.int64), twhere)
                 adj["g_tf"].index_add_(0, row, torch.stack(cols, dim=-1))
+            elif "g_tf" in adj:
+                # each corner's 4 channels as a row of the (-1, 4) view
+                g4 = adj["g_tf"].view(-1, 4)
+                for q, wk in enumerate(w):
+                    at = twhere * 4 + q if tf.shape[-1] == 16 else twhere[q]
+                    g4.index_add_(0, at, torch.stack([g_albedo * wk, g_alpha * wk, g_mat2 * wk,
+                                                      zero], dim=-1))
             # the density: slopes, then the corner weights and the position
-            rows = ex["rows"]
-            th = float(Hp - 1)
-            c0 = rows[..., 0:3] + (rows[..., 4:7] - rows[..., 0:3]) * fx[..., None]
-            c1 = rows[..., 8:11] + (rows[..., 12:15] - rows[..., 8:11]) * fx[..., None]
-            slope = (c1 - c0) * th
+            slope = (cx1 - cx0) * th
             g_dens = g_albedo * slope[..., 0] + g_alpha * slope[..., 1] + g_mat2 * slope[..., 2]
-            if "g_vol" in adj:
-                w4 = ((1 - vfy) * (1 - vfx), (1 - vfy) * vfx, vfy * (1 - vfx), vfy * vfx)
-                a0, a1 = g_dens * (1 - vfz), g_dens * vfz
-                t0 = torch.stack([a0 * wk for wk in w4], dim=-1)
-                t1 = torch.stack([a1 * wk for wk in w4], dim=-1)
-                if vol.kind == "xy":
-                    # two plane rows; at a clamped z plane both land on one
-                    adj["g_vol"].index_add_(0, vrow[0], t0)
-                    adj["g_vol"].index_add_(0, vrow[1], t1)
-                else:
-                    adj["g_vol"].index_add_(0, vrow[0], torch.cat([t0, t1], dim=-1))
-            cc = corner
-            l00 = cc[0] + (cc[1] - cc[0]) * vfx
-            l01 = cc[2] + (cc[3] - cc[2]) * vfx
-            l10 = cc[4] + (cc[5] - cc[4]) * vfx
-            l11 = cc[6] + (cc[7] - cc[6]) * vfx
-            l0 = l00 + (l01 - l00) * vfy
-            l1 = l10 + (l11 - l10) * vfy
-            g_fz = g_dens * (l1 - l0)
-            g_l0, g_l1 = g_dens * (1 - vfz), g_dens * vfz
-            g_fy = g_l0 * (l01 - l00) + g_l1 * (l11 - l10)
-            g_fx = (g_l0 * (1 - vfy) * (cc[1] - cc[0]) + g_l0 * vfy * (cc[3] - cc[2])
-                    + g_l1 * (1 - vfy) * (cc[5] - cc[4]) + g_l1 * vfy * (cc[7] - cc[6]))
-            if qc:
-                # the warp's derivative 6f(1 - f) at the unwarped fraction
-                g_fx, g_fy, g_fz = (gf * (6.0 * f * (1.0 - f))
-                                    for gf, f in zip((g_fx, g_fy, g_fz), vraw))
-            gpd = (g_fx * float(VWp - 1), g_fy * float(VHp - 1), g_fz * vzs)
+            if corner is None:
+                # the nearest voxel: its density alone, no spatial gradient
+                if "g_vol" in adj:
+                    adj["g_vol"].index_add_(0, vwhere, g_dens)
+                gpd = (zero, zero, zero)
+            else:
+                vfx, vfy, vfz = vf
+                if "g_vol" in adj:
+                    w4 = ((1 - vfy) * (1 - vfx), (1 - vfy) * vfx, vfy * (1 - vfx), vfy * vfx)
+                    a0, a1 = g_dens * (1 - vfz), g_dens * vfz
+                    t0 = [a0 * wk for wk in w4]
+                    t1 = [a1 * wk for wk in w4]
+                    if raw_vol:
+                        # the 8 voxels; at a clamped edge two are one voxel
+                        for i, term in zip(vwhere, t0 + t1):
+                            adj["g_vol"].index_add_(0, i, term)
+                    elif vol.kind == "xy":
+                        # two plane rows; at a clamped z plane both land on one
+                        adj["g_vol"].index_add_(0, vwhere[0], torch.stack(t0, dim=-1))
+                        adj["g_vol"].index_add_(0, vwhere[1], torch.stack(t1, dim=-1))
+                    else:
+                        adj["g_vol"].index_add_(0, vwhere[0], torch.stack(t0 + t1, dim=-1))
+                cc = corner
+                l00 = cc[0] + (cc[1] - cc[0]) * vfx
+                l01 = cc[2] + (cc[3] - cc[2]) * vfx
+                l10 = cc[4] + (cc[5] - cc[4]) * vfx
+                l11 = cc[6] + (cc[7] - cc[6]) * vfx
+                l0 = l00 + (l01 - l00) * vfy
+                l1 = l10 + (l11 - l10) * vfy
+                g_fz = g_dens * (l1 - l0)
+                g_l0, g_l1 = g_dens * (1 - vfz), g_dens * vfz
+                g_fy = g_l0 * (l01 - l00) + g_l1 * (l11 - l10)
+                g_fx = (g_l0 * (1 - vfy) * (cc[1] - cc[0]) + g_l0 * vfy * (cc[3] - cc[2])
+                        + g_l1 * (1 - vfy) * (cc[5] - cc[4]) + g_l1 * vfy * (cc[7] - cc[6]))
+                if filt == "quasicubic":
+                    # the warp's derivative 6f(1 - f) at the unwarped fraction
+                    g_fx, g_fy, g_fz = (gf * (6.0 * f * (1.0 - f))
+                                        for gf, f in zip((g_fx, g_fy, g_fz), vraw))
+                gpd = (g_fx * scales[0], g_fy * scales[1], g_fz * scales[2])
             # position and direction adjoints before the step
             keep = ~respawn
             gps = [torch.where(keep, gp[a], zero) + gpd[a] for a in range(3)]
@@ -556,6 +711,11 @@ def reverse(tapes, flds, samples, carry, adj, ctx, n_bins: int):
     n_disp, steps, n_fields, n_lanes = tapes.shape
     if tuple(flds) != fields(ctx.majorant is not None) or n_fields != len(flds):
         raise ValueError("the tape's fields do not match the ctx's mode")
+    shapes = adjoint_shapes(ctx)
+    unknown = set(adj) - set(shapes)
+    if unknown:
+        raise ValueError(f"adjoints {sorted(unknown)} have no table in this ctx (its adjoints: "
+                         f"{sorted(shapes)})")
     tensors = ([tapes, samples, carry["c"], carry["grad"], *carry["gp"], *carry["gd"],
                 *adj.values()] + K._ctx_tensors(ctx))
     if K._route(*tensors) == "cpu":
@@ -567,16 +727,12 @@ def reverse(tapes, flds, samples, carry, adj, ctx, n_bins: int):
     for name in ("gp", "gd"):
         for a in range(3):
             K._check(carry[name][a], f"{name}[{a}]", torch.float32, (n_lanes,))
-    if "g_ext" in adj:
-        K._check(adj["g_ext"], "g_ext", torch.float32, (1,))
-    if "g_tf" in adj:
-        K._check(adj["g_tf"], "g_tf", torch.float32, (adj["g_tf"].shape[0], 18), align=8)
-    if "g_vol" in adj:
-        K._check(adj["g_vol"], "g_vol", torch.float32, tuple(ctx.density.table.shape), align=16)
-    if "g_env" in adj:
-        if ctx.environment is None:
-            raise ValueError("an environment adjoint needs a ctx with an environment map")
-        K._check(adj["g_env"], "g_env", torch.float32, (adj["g_env"].shape[0], 12))
+    # the vector atomics' alignment: float2 into TF+light rows and pairs,
+    # float4 into 16-wide TF rows, raw texels and packed volume rows
+    align = dict(g_tf={18: 8, 16: 16, 4: 16}[shapes["g_tf"][1]], g_light=8,
+                 g_vol=16 if len(shapes["g_vol"]) == 2 else 4)
+    for k, v in adj.items():
+        K._check(v, k, torch.float32, shapes[k], align=align.get(k, 4))
     K._check_tables(ctx)
     # the lanes' pixels play no part in the reverse: resolution 1, 1 stream
     f, i = K._params(ctx, 1, 1, n_bins, steps, n_disp, n_lanes)
@@ -590,16 +746,11 @@ def reverse(tapes, flds, samples, carry, adj, ctx, n_bins: int):
             f.ctypes.data, i.ctypes.data, _slots(flds).ctypes.data, len(flds), tapes.data_ptr(),
             samples.data_ptr(), carry["c"].data_ptr(), *(t.data_ptr() for t in carry["gp"]),
             *(t.data_ptr() for t in carry["gd"]), carry["grad"].data_ptr(),
-            ctx.density.table.data_ptr(), ctx.material_tf.data_ptr(), K._ptr(ctx.environment),
-            K._ptr(ext_acc), K._ptr(adj.get("g_tf")), K._ptr(adj.get("g_vol")),
-            K._ptr(adj.get("g_env")), K._stream(device))
+            K.density_table(ctx).data_ptr(), ctx.material_tf.data_ptr(), K._light_ptr(ctx),
+            K._ptr(ctx.environment), K._ptr(ext_acc), K._ptr(adj.get("g_tf")),
+            K._ptr(adj.get("g_vol")), K._ptr(adj.get("g_light")), K._ptr(adj.get("g_env")),
+            K._stream(device))
     K._raise_on(err, "surrogate_reverse")
-    LAUNCHES["surrogate_reverse"] += 1
-    LAUNCHES["surrogate_reverse_environment"] += int(ctx.environment is not None)
-    LAUNCHES["surrogate_reverse_environment_majorant"] += int(
-        ctx.environment is not None and ctx.majorant is not None)
-    LAUNCHES["surrogate_reverse_quasicubic"] += int(ctx.volume_filter == "quasicubic")
-    LAUNCHES["surrogate_reverse_xy"] += int(ctx.density.kind == "xy")
+    _count("surrogate_reverse", ctx, quasicubic=True)
     if ext_acc is not None:
         adj["g_ext"] += ext_acc.to(torch.float32)
-

@@ -21,10 +21,10 @@ of the step kernel on a CUDA device (``vpt_tpu_torch/kernels``).
 dispatches of the autodiff surrogate: one ``torch.autograd.Function`` per
 window of dispatches (``_RenderWindow``), whose forward tapes the window in
 one launch of K4's surrogate mode and whose backward walks the tapes back in
-one K12 launch (``kernels/surrogate.py``), over a full or xy half-packed
-volume with the linear or quasicubic filter and the light or the
-environment map. The surrogate over raw or partly packed tables raises
-``NotImplementedError``.
+one K12 launch (``kernels/surrogate.py``), over every table layout the
+forward renders (packed, xy half-packed, raw and partly packed), with the
+linear, quasicubic or (raw grid) nearest filter and the light or the
+environment map.
 
 Known reference quirks preserved: radiance starts at 1.0; y-flipped screen
 coordinates; light gain 5.0; the volume is sampled (clamped) before the
@@ -138,30 +138,35 @@ _PLAIN_FIELDS = ("bounces", "samples", "bin", "wavelength")
 
 class _RenderWindow(torch.autograd.Function):
     """K differentiable dispatches, one per frame seed, over (the start
-    state's float fields, the score, the packed volume table, the fused TF
-    table, the extinction, the packed environment map or None), in one of
-    two schedules that compute the same values (``window_storage`` resolved
-    as the PRB window's):
+    state's float fields, the score, the volume (a packed table or the raw
+    grid), the TF table, the extinction, the environment map or None, the
+    light's own table or None beside a fused TF), in one of two schedules
+    that compute the same values (``window_storage`` resolved as the PRB
+    window's):
 
     - "tape": the forward is one launch of K4's surrogate mode over the K
       dispatches, whose tapes are kept; the backward is one K12 launch over
       them, from the adjoints at the window's end to those at its start,
-      into one packed adjoint per learned table.
+      into one adjoint per learned table, of the table's own kind.
     - "forward": K1 per dispatch, each dispatch's start state kept (the
       memory policy of the reference's ``jax.checkpoint``); the backward
       re-tapes each dispatch from its start state and walks it back,
-      dispatch K-1 first, into the same packed adjoints.
+      dispatch K-1 first, into the same adjoints.
 
     The state's copy, the extinction's read to the host and the adjoints'
     zeroing happen once per window."""
 
     @staticmethod
-    def forward(fctx, meta, px, py, pz, dx, dy, dz, radiance, score, vol, tf, extinction, env):
+    def forward(fctx, meta, px, py, pz, dx, dy, dz, radiance, score, vol, tf, extinction, env,
+                light):
         sctx, state, seeds, steps, n_bins, storage = meta
+        density = (dataclasses.replace(sctx.density, table=vol.detach())
+                   if isinstance(sctx.density, interp.PackedVolume) else vol.detach())
         kctx = dataclasses.replace(
-            sctx, density=dataclasses.replace(sctx.density, table=vol.detach()),
-            material_tf=tf.detach(), extinction=np.float32(float(extinction.detach())),
-            environment=None if env is None else env.detach())
+            sctx, density=density, material_tf=tf.detach(),
+            extinction=np.float32(float(extinction.detach())),
+            environment=None if env is None else env.detach(),
+            light_spectrum=sctx.light_spectrum if light is None else light.detach())
         start = SpectralState(px=px, py=py, pz=pz, dx=dx, dy=dy, dz=dz, bounces=state.bounces,
                               samples=state.samples, bin=state.bin, wavelength=state.wavelength,
                               radiance=radiance, transmittance=state.transmittance)
@@ -198,18 +203,9 @@ class _RenderWindow(torch.autograd.Function):
                      gd=[flat(grads[3 + a], lane) for a in range(3)],
                      grad=flat(grads[6], (n_bins,) + lane).reshape(n_bins, n),
                      c=flat(grads[7], lane))
-        need = fctx.needs_input_grad
-        adj = {}
-        if need[9]:
-            adj["g_vol"] = torch.zeros(kctx.density.table.shape, dtype=torch.float32, device=dev)
-        if need[10]:
-            adj["g_tf"] = torch.zeros((kctx.material_tf.shape[0] * kctx.material_tf.shape[1], 18),
-                                      dtype=torch.float32, device=dev)
-        if need[11]:
-            adj["g_ext"] = torch.zeros(1, dtype=torch.float32, device=dev)
-        if need[12]:
-            HpE, WpE, _ = kctx.environment.shape
-            adj["g_env"] = torch.zeros((HpE * WpE, 12), dtype=torch.float32, device=dev)
+        # the adjoints of the learned inputs (vol, tf, extinction, env, light)
+        want = [k for k, need in zip(_WINDOW_ADJOINTS, fctx.needs_input_grad[9:]) if need]
+        adj = S.zero_adjoints(kctx, want)
         flds = S.fields(kctx.majorant is not None)
         with torch.no_grad():
             if fctx.starts is None:
@@ -220,11 +216,17 @@ class _RenderWindow(torch.autograd.Function):
                     S.reverse(tape, flds, end.samples, carry, adj, kctx, n_bins)
                     del end, tape
         g_state = [t.reshape(lane) for t in (*carry["gp"], *carry["gd"])]
+        # each adjoint in its input's shape (the adjoints hold tables as rows)
+        shapes = dict(g_vol=K.density_table(kctx).shape, g_tf=kctx.material_tf.shape, g_ext=(),
+                      g_light=kctx.light_spectrum.shape,
+                      g_env=None if kctx.environment is None else kctx.environment.shape)
+        g_tables = [adj[k].reshape(shapes[k]) if k in adj else None for k in _WINDOW_ADJOINTS]
         return (None, *g_state, carry["grad"].reshape((n_bins,) + lane), carry["c"].reshape(lane),
-                adj.get("g_vol"),
-                adj["g_tf"].reshape(kctx.material_tf.shape) if "g_tf" in adj else None,
-                adj["g_ext"].reshape(()) if "g_ext" in adj else None,
-                adj["g_env"].reshape(kctx.environment.shape) if "g_env" in adj else None)
+                *g_tables)
+
+
+# the window's table inputs (vol, tf, extinction, env, light) and their adjoints
+_WINDOW_ADJOINTS = ("g_vol", "g_tf", "g_ext", "g_env", "g_light")
 
 
 def _render_window(state: SpectralState, score: torch.Tensor, ctx: SpectralCtx, seeds,
@@ -243,9 +245,11 @@ def _render_window(state: SpectralState, score: torch.Tensor, ctx: SpectralCtx, 
     ext = ctx.extinction
     if not torch.is_tensor(ext):
         ext = torch.tensor(np.float32(ext))
+    # the light's own table is read only beside a TF that does not carry it
+    light = None if ctx.material_tf.shape[-1] == 18 else ctx.light_spectrum
     outs = _RenderWindow.apply((ctx, state, seeds, steps, n_bins, storage),
                                *(getattr(state, k) for k in _DIFF_FIELDS), score,
-                               ctx.density.table, ctx.material_tf, ext, ctx.environment)
+                               K.density_table(ctx), ctx.material_tf, ext, ctx.environment, light)
     fields = dict(zip(_DIFF_FIELDS, outs[:7]))
     fields.update(zip(_PLAIN_FIELDS, outs[8:]))
     return SpectralState(**fields, transmittance=state.transmittance), outs[7]
@@ -256,11 +260,14 @@ def render_diff(state: SpectralState, score: torch.Tensor, ctx: SpectralCtx, ste
     """Differentiable render dispatch: (state, score, image), the forward
     bit for bit ``render``'s with the ``volume_filter`` argument's filter
     (it decides, as the JAX static argument does); the window of one
-    dispatch. Gradients of the outputs flow to the packed tables
-    ``ctx.density.table`` (f32), ``ctx.material_tf`` and
-    ``ctx.environment``, to ``ctx.extinction`` (a 0-d tensor), and to the
-    state's position, direction and radiance and the score, by the
-    autodiff surrogate's hand-derived backward (``kernels/surrogate.py``).
+    dispatch. Gradients of the outputs flow to the scene tables in the
+    layout the ctx holds them, packed or raw: the volume
+    (``ctx.density.table``, f32, or the raw (D, H, W) grid
+    ``ctx.density``), ``ctx.material_tf``, ``ctx.light_spectrum`` beside a
+    TF that does not carry the light, and ``ctx.environment``; to
+    ``ctx.extinction`` (a 0-d tensor); and to the state's position,
+    direction and radiance and the score, by the autodiff surrogate's
+    hand-derived backward (``kernels/surrogate.py``).
     ``score``: the carried score weights, ones after a reset; a product of
     factors P / stop_grad(P), so its value is always 1 (anything else
     raises). The wavelength and the integer fields get no gradient: they

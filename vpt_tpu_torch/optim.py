@@ -11,7 +11,7 @@ loss and an Adam step; its state is an ``InverseState`` over
 {"density", "tf_table"}, checkpointed as the spectral one. The spectral
 half: the inverse
 checkpoints (``save_inverse_checkpoint``, ``load_inverse_checkpoint``),
-``sanitize_grads``, ``spectral_render_loss`` and
+``sanitize_grads``, ``pack_loss_ctx``, ``spectral_render_loss`` and
 ``make_spectral_inverse_step`` (the surrogate), ``_pack_params_into_ctx``,
 ``make_spectral_prb_step``, the adaptive scatter-stride policy
 (``live_gradient_fraction``, ``auto_initial_stride``,
@@ -35,21 +35,21 @@ full corner table or the xy half-packed one. ``fit_spectral`` renders with
 the linear filter whatever the renderer's, as the reference does: its
 loss and its PRB step pass no filter, and its ctx holds none.
 
-The autodiff surrogate runs over the full and the xy half-packed volume,
-so ``method=None`` routes an xy renderer with a majorant grid to it, as the
-reference does. The reference's loss packs a learned density into the full
-corner table whatever the renderer's kind; the port packs it into the
-renderer's (the same forward bits, the gradient sums rounded in another
-order).
+The autodiff surrogate runs over every table layout the renderer keeps,
+so ``method=None`` routes an xy renderer with a majorant grid, and every
+raw or partly packed renderer, to it, as the reference does. The
+reference's loss packs a learned density into the full corner table
+whatever the renderer's kind; the port packs it into the renderer's on a
+packed base (the same forward bits, the gradient sums rounded in another
+order) and, as the reference, into the full table on a raw or partly
+packed base (``pack_loss_ctx``).
 
 Not ported yet (each raises ``NotImplementedError``): ``fit_density``
-on a mesh (``mesh=``, ROADMAP A12), and the autodiff surrogate over raw or
-partly packed tables, which is where the
-reference routes a raw renderer by default; ``method="prb"`` on such a
-renderer fails the reference's assertions (``AssertionError``: the packed
-backward needs the fused TF and a packed volume). A compacted renderer raises
-``ValueError``, as the reference's ``fit_spectral`` does (its reset state
-has the lane table's shape).
+on a mesh (``mesh=``, ROADMAP A12). ``method="prb"`` on a raw or partly
+packed renderer fails the reference's assertions (``AssertionError``: the
+packed backward needs the fused TF and a packed volume). A compacted
+renderer raises ``ValueError``, as the reference's ``fit_spectral`` does
+(its reset state has the lane table's shape).
 """
 
 from __future__ import annotations
@@ -163,23 +163,34 @@ def sanitize_grads(grads: dict, clip: float) -> dict:
             for k, g in grads.items()}
 
 
-def spectral_render_loss(params: dict, state0, base_ctx, seeds, target, steps: int, n_bins: int,
-                         raw_mtf=None, raw_light=None):
-    """MSE between the autodiff surrogate's render (``render_sequence_diff``
-    from ``state0``) and ``target``, differentiable w.r.t. ``params``: raw
-    tables (any subset of ``LEARNABLE``) that ``corners.PackCorners`` packs
-    into the base ctx's representation. ``raw_mtf`` / ``raw_light`` stand in
-    for the fused table's unlearned half. The port always packs (JAX
-    ``pack_params=True``); the fused table carries the light pair, so the
-    light comes from it in both cases. Rendered with the linear filter, as
-    the reference's loss is."""
+def pack_loss_ctx(params: dict, base_ctx, raw_mtf=None, raw_light=None):
+    """The ctx ``spectral_render_loss`` renders: ``base_ctx`` with the raw
+    tables ``params`` (any subset of ``LEARNABLE``) packed as JAX's
+    ``pack_params=True`` packs them, differentiably. On a base ctx with a
+    packed volume and the fused TF, ``corners.PackCorners`` packs a learned
+    density into the base's volume kind (full or xy) and a learned TF or
+    light into the fused table (``raw_mtf`` / ``raw_light`` stand in for
+    its unlearned half; the light then comes from it). On a base ctx with a
+    raw volume or a TF without the light, the reference's layout: a learned
+    density into the full corner table (K10, K9 backward), a learned TF into
+    the 16-wide table and a learned light into the pair table (plain
+    differentiable torch packers), the unlearned tables staying as the base
+    holds them. A learned environment map packs into the 12-wide table."""
     _check_keys(params, base_ctx)
     updates = {}
+    reference_layout = (not isinstance(base_ctx.density, interp.PackedVolume)
+                        or base_ctx.material_tf.shape[-1] != 18)
     if "density" in params:
-        vol = base_ctx.density
-        updates["density"] = interp.PackedVolume(
-            corners.pack_volume_diff(params["density"], vol.kind), vol.dims, vol.kind)
-    if "material_tf" in params or "light_spectrum" in params:
+        kind = "full" if reference_layout else base_ctx.density.kind
+        d = params["density"]
+        dims = (d.shape[0] + (kind == "full"), d.shape[1] + 1, d.shape[2] + 1)
+        updates["density"] = interp.PackedVolume(corners.pack_volume_diff(d, kind), dims, kind)
+    if reference_layout:
+        if "material_tf" in params:
+            updates["material_tf"] = interp.pack_tex2d_corners_t(params["material_tf"])
+        if "light_spectrum" in params:
+            updates["light_spectrum"] = interp.pack_tex1d_corners_t(params["light_spectrum"])
+    elif "material_tf" in params or "light_spectrum" in params:
         mtf = params.get("material_tf", raw_mtf)
         light = params.get("light_spectrum", raw_light)
         if mtf is None or light is None:
@@ -190,7 +201,17 @@ def spectral_render_loss(params: dict, state0, base_ctx, seeds, target, steps: i
         updates["extinction"] = params["extinction"]
     if "environment" in params:
         updates["environment"] = corners.pack_env_diff(params["environment"])
-    ctx = dataclasses.replace(base_ctx, **updates)
+    return dataclasses.replace(base_ctx, **updates)
+
+
+def spectral_render_loss(params: dict, state0, base_ctx, seeds, target, steps: int, n_bins: int,
+                         raw_mtf=None, raw_light=None):
+    """MSE between the autodiff surrogate's render (``render_sequence_diff``
+    from ``state0``) and ``target``, differentiable w.r.t. ``params``: raw
+    tables (any subset of ``LEARNABLE``) packed into the base ctx by
+    ``pack_loss_ctx``. Rendered with the linear filter, as the reference's
+    loss is."""
+    ctx = pack_loss_ctx(params, base_ctx, raw_mtf=raw_mtf, raw_light=raw_light)
     img = render_sequence_diff(seeds, state0, ctx, steps, n_bins)
     return torch.mean((img - target) ** 2)
 
@@ -359,14 +380,16 @@ def fit_spectral(target_image, renderer, camera, init_params: dict,
                  eval_dispatches: int = 16, return_info: bool = False):
     """Recover spectral-MCM scene tables from a target HDR render.
     ``init_params``: a subset of ``LEARNABLE`` (environment on an env-lit
-    renderer), arrays or tensors. The renderer's volume kind (full or xy)
-    is kept; its filter is not: the fit renders with the linear filter, as
-    the reference's does.
+    renderer), arrays or tensors. The renderer's tables are kept as it
+    holds them, packed, xy or raw, and a learned table packs as
+    ``pack_loss_ctx`` says; its filter is not: the fit renders with the
+    linear filter, as the reference's does.
 
     ``method``: "prb" (the packed-adjoint backward; honours
     ``scatter_stride``) or "autodiff" (the surrogate, the one gradient
-    path of the majorant mode); None picks "prb" for the packed tables
-    without a majorant grid and "autodiff" otherwise, and "prb" on a
+    path of the majorant mode and of raw or partly packed tables); None
+    picks "prb" for the packed tables (a full or xy volume and the fused
+    TF) without a majorant grid and "autodiff" otherwise, and "prb" on a
     majorant renderer raises ``ValueError``, as the reference does. ``scatter_stride="auto"``
     picks PRB's initial (mode, stride) with ``auto_initial_policy`` and,
     while thinned, anneals to stride 1 when a fixed-seed eval loss stalls;
