@@ -8,7 +8,7 @@ Phases (each raises on failure, so any failure exits non-zero):
      per source, all at once); print the ptxas registers, spills and
      stack frame of every instantiation of K1, K4 (and its surrogate
      mode, <NB,MAJ,ENV,XY>), K5, K9, K10, K11, K12 (<NB,MAJ,ENV,XY>), K13,
-     K14 and K15-K23
+     K14 and K15-K25
   3. sample_volume_packed vs its plain version: all 256 u8 codes exact;
      timed at 1M lookups by device time (CUDA-graph replay) against
      F.grid_sample on the float volume, host path beside it
@@ -60,7 +60,8 @@ Phases (each raises on failure, so any failure exits non-zero):
      environment together
  14. the CLI: `python -m vpt_tpu_torch.cli render --device cuda
      --majorant-blocks 8 --compaction --envmap <seeded .npy> -o <tmp>.npy`
-     exits 0, writes the image, prints the metrics JSON
+     exits 0, writes the image, prints the metrics JSON (and `--renderer`
+     eam, mcm, mcs, dos and lao, phases 19-25)
  15. the scatter ceiling (bench.py's measure_ceilings method): K11
      scatter_rows, two float4 atomics per index on 16 x 1M uniform random
      rows of the 129^3-row table, equal to its plain version, timed by
@@ -196,6 +197,33 @@ Phases (each raises on failure, so any failure exits non-zero):
      default a second run and a checkpoint round trip bit for bit and four
      run(16) calls profiled in a fresh process (the busy share, the host's
      wait).
+ 24. the directional-occlusion renderer DOS (K24 dos_slice) on the bench
+     volume at 512^2 with the JAX defaults (steps 50, slices 200, extinction
+     100, aperture 30, 8 samples), the grayscale ramp TF: K24 equal to its
+     plain version bit for bit (colour, occlusion, display) for one slice
+     and for three (the occlusion buffers' ping-pong) from a mid-sweep state
+     on the u8 packed table, an f32 packed table, quasicubic and nearest over
+     the raw grid at 8 samples, and on the u8 table at 4; a whole sweep by
+     RenderSession("dos").run(5), the counts set to 0 before (one K24 launch
+     a slice and nothing else), equal to the plain versions' sweep on the
+     card bit for bit, and a render past the end (one display launch, the
+     same image); a slice launch by device time against its bound (the
+     colour and both occlusion buffers once, the volume rows and the TF row
+     its replay touches); ms per render and the busy share of four whole
+     sweeps profiled in a fresh process. Phase 14 also runs `render
+     --renderer dos`.
+ 25. the local-ambient-occlusion renderer LAO (K25 lao_frame<LAO,SHADOWS>) on
+     the bench volume at 512^2 with the JAX defaults but 64 slices: K25 equal
+     to its plain version (and a second run) bit for bit in the same four
+     table modes with both terms and on the u8 table in the three other flag
+     pairs, the masked march equal to the early-stopping one; the u8 frame by
+     device time against the bound of its work replayed through the plain
+     version (volume entries and TF rows at (value, |gradient|) touched once,
+     the operations per sample), with the trips per ray (mean, p99, max, what
+     a warp pays); RenderSession("lao").run(16), the counts set to 0 before
+     (16 K25 launches and nothing else), equal to the plain frame; ms per
+     frame and the busy share in a fresh process. Phase 14 also runs
+     `render --renderer lao`.
 The line before the last is a JSON object with each kernel's launches,
 error and times, its bound (the larger of the bytes it must move over the
 HBM rate and the FP32 operations this run's data needs over the FP32
@@ -383,6 +411,49 @@ MCSP_LANE_BYTES = 73  # a lane's 16 fields: 13 f32, the phase byte, samples, acc
 (OPS_MCSP_PIXEL, OPS_MCSP_VIEW, OPS_MCSP_LANE, OPS_MCSP_STEP, OPS_MCSP_MAJ, OPS_MCSP_LOOKUP,
  OPS_MCSP_ACCEPT, OPS_MCSP_PRODUCT, OPS_MCSP_SCATTER, OPS_MCSP_DEPOSIT, OPS_MCSP_SHADE) = (
     112, 57, 6, 7, 19, 55, 3, 2, 48, 13, 51)
+
+DOS_SOURCE = "vpt_tpu_torch/csrc/dos.cu"
+LAO_SOURCE = "vpt_tpu_torch/csrc/lao.cu"
+# phase 24, DOS on the bench volume at R = 512 with the JAX defaults (steps
+# 50, slices 200, extinction 100, aperture 30, 8 samples); a whole sweep is
+# RenderSession("dos").run(5)
+DOS_KW = dict(steps=50, slices=200, extinction=100.0, aperture=30.0)
+DOS_RENDERS = 5
+# FP32 operations of K24, counted from csrc/dos.cu, each charged where the
+# function first needs its result: per slice each disk offset's scale (2 a
+# sample); per pixel the uv and NDC (2 adds and 2 quotients, 2 products and
+# 2 subtractions: 8), the plane point (a homogeneous transform, 31) and the
+# cube test (6), and on a render's last slice the display (7); per pixel
+# inside the cube the volume row (3 axes, 8 dequantizations, 7 lerps: 41),
+# the TF row at (d, 0) (2 axes, 12 lerps: 44), the extinction, its
+# exponential and alpha (4), the compositing (1 - a, 3 x 4, the alpha's sum
+# and clamp: 15), the mean and its attenuation (2); per occlusion sample the
+# offset point (2), its bilinear texel lerps (2 axes, 3 lerps: 17) and the
+# sum (1)
+(OPS_DOS_SLICE_SAMPLE, OPS_DOS_PIXEL, OPS_DOS_DISPLAY, OPS_DOS_INSIDE, OPS_DOS_SAMPLE) = (
+    2, 45, 7, 106, 20)
+# phase 25, LAO on the bench volume at R = 512 with the JAX defaults but 64
+# slices (lao_step 0.05: 20 cone points, light (2, -3, -5), radius 0.19)
+LAO_SLICES = 64
+LAO_FRAMES = 16
+# FP32 operations of K25, counted from csrc/lao.cu, each charged where the
+# function first needs its result: per frame g_rx = rand2(3.14, 2.71).x (the
+# products and sum 3, the cosine, the scale and fract 4: 7) and the shadow
+# direction's z (2): 9; per hit pixel the ray (127, as K15's), rx (the NDC 8,
+# its scales 2, then 7: 17), t0 (4), the cone jitter (8), the shadow
+# direction's x and y (4), norm (6) and scale (6), and the final alpha
+# scale (5): 177; with the cone (LAO) per hit pixel and cone point the
+# offset lao_dx * (lr * tt) and the light's three shifted axes (5); with the
+# shadow (SHADOWS) per hit pixel its offsets sd * lr (3); per active sample
+# t, the activity test and the position (2 + 2 + 9), 7 volume lookups (41
+# each), the gradient (6 offsets, 3 differences, the norm 5 + sqrt: 15), the
+# TF at (value, |gradient|) (2 axes, 12 lerps: 44), the tints (2 x 12 + 2)
+# and the compositing (11): 396; per cone point the direction (3 + 5 +
+# sqrt), 3 quotients and the point (9), the lookup (41) and the sum (2): 61,
+# and the integral's quotient and clamp (3); the shadow its point (3), the
+# lookup (41) and the remap (11): 55
+(OPS_LAO_FRAME, OPS_LAO_PIXEL, OPS_LAO_CONE_PIXEL, OPS_LAO_SHADOW_PIXEL, OPS_LAO_SAMPLE,
+ OPS_LAO_CONE, OPS_LAO_CONE_END, OPS_LAO_SHADOW) = (9, 177, 5, 3, 396, 61, 3, 55)
 
 def log(msg):
     print(msg, flush=True)
@@ -1306,8 +1377,33 @@ def phase_cli():
         raise AssertionError(f"CLI --renderer mcs wrote {img.shape} {img.dtype}, metrics {m_mcs}")
     log(f"# CLI render --device cuda --renderer mcs --frames 16: exit 0 in {dt_mcs:.2f} s "
         f"(process), image {img.shape}, metrics {json.dumps(m_mcs)}")
+    # the occlusion renderers through the CLI (K24, K25), the reference's
+    # defaults
+    occl = {}
+    for key in ("dos", "lao"):
+        with tempfile.TemporaryDirectory() as tmp:
+            out = os.path.join(tmp, f"{key}.npy")
+            cmd = [sys.executable, "-m", "vpt_tpu_torch.cli", "render", "--device", "cuda",
+                   "--renderer", key, "--frames", "16", "-o", out]
+            t0 = time.perf_counter()
+            proc = subprocess.run(cmd, capture_output=True, text=True, timeout=300,
+                                  cwd=os.path.dirname(os.path.abspath(__file__)))
+            dt_k = time.perf_counter() - t0
+            if proc.returncode != 0:
+                raise AssertionError(f"CLI --renderer {key} exited {proc.returncode}: "
+                                     f"{proc.stderr[-2000:]}")
+            m_k = json.loads(proc.stdout.strip().splitlines()[-1])
+            img = np.load(out)
+        if (img.shape != (512, 512, 3) or img.dtype != np.uint8 or m_k.get("frames") != 16
+                or not m_k.get("device", "").startswith("cuda") or not img.any()):
+            raise AssertionError(f"CLI --renderer {key} wrote {img.shape} {img.dtype}, "
+                                 f"metrics {m_k}")
+        occl[key] = dict(seconds=dt_k, metrics=m_k)
+        log(f"# CLI render --device cuda --renderer {key} --frames 16: exit 0 in {dt_k:.2f} s "
+            f"(process), image {img.shape}, metrics {json.dumps(m_k)}")
     return dict(seconds=dt, metrics=metrics, eam=dict(seconds=dt_eam, metrics=m_eam),
-                mcm=dict(seconds=dt_mcm, metrics=m_mcm), mcs=dict(seconds=dt_mcs, metrics=m_mcs))
+                mcm=dict(seconds=dt_mcm, metrics=m_mcm), mcs=dict(seconds=dt_mcs, metrics=m_mcs),
+                **occl)
 
 
 def phase_k3(dev):
@@ -2628,17 +2724,24 @@ def rm_modes(dev):
     """The ray marchers' table modes on the bench volume: (label, density,
     tf_table, filter): linear on the u8 packed table, an f32 packed table
     (a smoothed random density), quasicubic, nearest on the raw grid."""
-    from vpt_tpu_torch import Volume
     from vpt_tpu_torch.models import raymarch as TR
     from vpt_tpu_torch.scene.tf import TransferFunction2D
 
     tf = TransferFunction2D.grayscale_ramp()
+    return [(label, *TR._pack_if_linear(v, tf, dev), v.filter) for label, v in mode_volumes()]
+
+
+def mode_volumes():
+    """The four table modes' volumes on the bench volume: (label, Volume)
+    for linear on the u8 source, an f32 source (a smoothed random density),
+    quasicubic and nearest."""
+    from vpt_tpu_torch import Volume
+
     vol = Volume.sphere_in_cube(VOLUME)
     rng = np.random.default_rng(13)
-    vols = (("linear u8", vol), ("f32", Volume(density=smoothed(rng.random(vol.shape, np.float32)))),
+    return (("linear u8", vol), ("f32", Volume(density=smoothed(rng.random(vol.shape, np.float32)))),
             ("quasicubic", Volume(vol.density, "quasicubic")),
             ("nearest", Volume(vol.density, "nearest")))
-    return [(label, *TR._pack_if_linear(v, tf, dev), v.filter) for label, v in vols]
 
 
 def rm_bitwise(label, kern, plain):
@@ -2867,12 +2970,14 @@ def rm_session(key, dev, frames, checkpoint_at=None, tmp=None):
     return dict(RK.LAUNCHES), s.hdr_image(), dt, s.metrics()
 
 
-def rm_profile(key, dev, frames, *args, calls=1, ready=None, **kw):
+def rm_profile(key, dev, frames, *args, calls=1, reset=False, ready=None, **kw):
     """``calls`` x ``RenderSession(key, volume, *args, **kw).run(frames)``
-    under torch.profiler after a warm-up (and after ``ready()`` returns,
-    where given): the device work by kernel name (ms and launches per
-    frame), the device ms per frame and the profiled host ms per frame
-    (which the profiler's own overhead lengthens)."""
+    (each after a ``reset()`` where ``reset``) under torch.profiler after a
+    warm-up (and after ``ready()`` returns, where given): the device work by
+    kernel name (ms and launches per frame), the device ms per frame and the
+    profiled host ms per frame (which the profiler's own overhead
+    lengthens). The volume is the bench scene's ``sphere_in_cube(VOLUME)``
+    at R = RM_RES."""
     from torch.profiler import ProfilerActivity, profile
 
     from vpt_tpu_torch import Volume
@@ -2889,12 +2994,36 @@ def rm_profile(key, dev, frames, *args, calls=1, ready=None, **kw):
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(calls):
+            if reset:
+                s.reset()
             s.run(frames)
         host = time.perf_counter() - t0
     kernels = {name: dict(ms=k["ms"] / n, launches=k["launches"] / n)
                for name, k in device_kernels(prof).items()}
     return dict(kernels=kernels, device_ms=sum(k["ms"] for k in kernels.values()),
                 profiled_host_ms=host * 1e3 / n)
+
+
+def rm_profiles(specs):
+    """``rm_profile(key, cuda:0, frames, **kw)`` for each (key, frames, kw)
+    of ``specs``, in one fresh process (in-process profiles after earlier
+    ones can lose the device's events, PERF.md question 10). A phase's busy
+    share is such a profile's device ms per frame over the phase's own
+    unprofiled ms per frame (PERF.md section 2)."""
+    code = ("import json, torch, chip_smoke as CS\n"
+            f"specs = {list(specs)!r}\n"
+            "print(json.dumps([CS.rm_profile(key, torch.device('cuda:0'), frames, **kw) "
+            "for key, frames, kw in specs]))\n")
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                          timeout=300, cwd=os.path.dirname(os.path.abspath(__file__)))
+    if proc.returncode != 0:
+        raise AssertionError(f"the profiling process exited {proc.returncode}: "
+                             f"{proc.stderr[-2000:]}")
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    for (key, *_), prof in zip(specs, out):
+        if not prof["device_ms"] > 0:
+            raise AssertionError(f"{key}: the profiler saw no device time")
+    return out
 
 
 def phase_raymarch(dev):
@@ -3010,21 +3139,20 @@ def phase_raymarch(dev):
             for other, what in ((img2, "a second run"), (img3, "a checkpoint round trip")):
                 if not np.array_equal(img.view(np.int32), other.view(np.int32)):
                     raise AssertionError(f"{key}: {what} differs from the first run")
-            prof = rm_profile(key, dev, RM_FRAMES)
-            if not prof["device_ms"] > 0:
-                raise AssertionError(f"{key}: the profiler saw no device time")
-            frame_ms = dt * 1e3 / RM_FRAMES
             sessions[key] = dict(launches=launches, seconds=dt, frames_per_s=RM_FRAMES / dt,
-                                 metrics=metrics, profile=prof,
-                                 device_busy_share=prof["device_ms"] / frame_ms)
+                                 metrics=metrics)
             log(f"# RenderSession({key!r}).run({RM_FRAMES}) at {RM_RES}^2: {dt:.4f} s "
                 f"({RM_FRAMES / dt:.1f} frames/s); launches {launches}; a second run and a "
                 f"checkpoint round trip equal bit for bit")
-            log(f"# profiled run({RM_FRAMES}) of {key!r}, per frame: device "
-                f"{prof['device_ms']:.5f} ms of {frame_ms:.5f} ms unprofiled (busy "
-                f"{prof['device_ms'] / frame_ms:.3f}; profiled host "
-                f"{prof['profiled_host_ms']:.5f} ms); " + ", ".join(
-                    f"{n} {k['ms']:.5f} ms x{k['launches']:g}" for n, k in prof["kernels"].items()))
+    profs = rm_profiles([(key, RM_FRAMES, {}) for key, _ in RM_SESSIONS])
+    for (key, _), prof in zip(RM_SESSIONS, profs):
+        frame_ms = sessions[key]["seconds"] * 1e3 / RM_FRAMES
+        sessions[key].update(profile=prof, device_busy_share=prof["device_ms"] / frame_ms)
+        log(f"# profiled run({RM_FRAMES}) of {key!r} (a fresh process), per frame: device "
+            f"{prof['device_ms']:.5f} ms of {frame_ms:.5f} ms unprofiled (busy "
+            f"{prof['device_ms'] / frame_ms:.3f}; profiled host {prof['profiled_host_ms']:.5f} "
+            "ms); " + ", ".join(
+                f"{n} {k['ms']:.5f} ms x{k['launches']:g}" for n, k in prof["kernels"].items()))
     entries["march[eam]"]["launches"] = sessions["eam"]["launches"]["march_eam"]
     entries["march[depth]"]["launches"] = sessions["depth"]["launches"]["march_depth"]
     entries["mip"]["launches"] = sessions["mip"]["launches"]["mip"]
@@ -3889,19 +4017,20 @@ def mcs_bound(r, ctx, n, reads, n_frames, ms):
 
 def all_launches():
     """Every kernel launch count of the port, as module.key."""
-    from vpt_tpu_torch.kernels import corners, mcm, mcm_spectral, mcs, raymarch
+    from vpt_tpu_torch.kernels import corners, dos, lao, mcm, mcm_spectral, mcs, raymarch
     from vpt_tpu_torch.kernels import spectral_backward, surrogate
 
     return {f"{m.__name__.rsplit('.', 1)[1]}.{k}": v
-            for m in (corners, mcm, mcm_spectral, mcs, raymarch, spectral_backward, surrogate)
+            for m in (corners, dos, lao, mcm, mcm_spectral, mcs, raymarch, spectral_backward,
+                      surrogate)
             for k, v in m.LAUNCHES.items()}
 
 
 def reset_all_counts():
-    from vpt_tpu_torch.kernels import corners, mcm, mcm_spectral, mcs, raymarch
+    from vpt_tpu_torch.kernels import corners, dos, lao, mcm, mcm_spectral, mcs, raymarch
     from vpt_tpu_torch.kernels import spectral_backward, surrogate
 
-    for m in (corners, mcm, mcm_spectral, mcs, raymarch, spectral_backward, surrogate):
+    for m in (corners, dos, lao, mcm, mcm_spectral, mcs, raymarch, spectral_backward, surrogate):
         m.reset_launch_counts()
 
 
@@ -4449,6 +4578,373 @@ def phase_mcs_persistent(dev):
     return list(entries.values()), dict(sessions=sessions, against_k22=k22, seconds=split)
 
 
+def dos_state(res, depth_at, cam, dev, seed=24):
+    """A mid-sweep DOS state: a random colour (alpha < 1) and occlusion, the
+    sweep at ``depth_at`` of its depth range."""
+    from vpt_tpu_torch.kernels import dos as KD
+
+    lo, hi = KD.depth_range(cam)
+    rng = np.random.default_rng(seed)
+    color = rng.random((res, res, 4), np.float32) * np.float32(0.8)
+    occ = rng.random((res, res), np.float32)
+    return dict(color=torch.as_tensor(color, device=dev),
+                occlusion=torch.as_tensor(occ, device=dev), depth=lo + (hi - lo) * depth_at,
+                min_depth=lo, max_depth=hi)
+
+
+def dos_check(label, dens, tft, filt, samples, state, schedule, sd, cam):
+    """K24 (``dos_pass``) and its plain version over ``schedule`` from
+    ``state``: colour, occlusion and display bit for bit."""
+    from vpt_tpu_torch.kernels import dos as KD
+
+    inv = cam.inverse_mvp()
+    c_k, c_p = state["color"].clone(), state["color"].clone()
+    o_k, spare = state["occlusion"].clone(), torch.empty_like(state["occlusion"])
+    occ_k, img_k = KD.dos_pass(c_k, o_k, spare, inv, dens, tft, samples, schedule, sd,
+                               DOS_KW["extinction"], filt)
+    occ_p, img_p = KD.dos_pass_plain(c_p, state["occlusion"].clone(), inv, dens, tft, samples,
+                                     schedule, sd, DOS_KW["extinction"], filt)
+    torch.cuda.synchronize()
+    rm_bitwise(f"K24 ({label})", (c_k, occ_k, img_k), (c_p, occ_p, img_p))
+    return c_k, occ_k, img_k
+
+
+def dos_reads(dens, tft, filt, state, depth_ndc, cam):
+    """The lookups one K24 slice makes: each pixel inside the cube reads one
+    volume entry (row) and the TF's row 0. Returns (RmReads, pixels inside)."""
+    from vpt_tpu_torch.ops import geometry
+
+    res = state["occlusion"].shape[0]
+    dev = state["occlusion"].device
+    i = torch.arange(res, dtype=torch.float32, device=dev)
+    u2 = (i.view(1, -1).expand(res, res) + 0.5) / torch.tensor(float(res), device=dev)
+    v2 = (i.view(-1, 1).expand(res, res) + 0.5) / torch.tensor(float(res), device=dev)
+    px, py, pz = geometry.apply_homogeneous(cam.inverse_mvp(), u2 * 2.0 - 1.0, v2 * 2.0 - 1.0,
+                                            float(depth_ndc))
+    inside = ~((px > 1.0) | (px < 0.0) | (py > 1.0) | (py < 0.0) | (pz > 1.0) | (pz < 0.0))
+    reads = RmReads(dens, filt)
+    reads.add(px, py, pz, inside)
+    return reads, int(inside.sum())
+
+
+def dos_plain_sweep(s, renders):
+    """``s``'s renderer driven ``renders`` times by the plain version on the
+    card from ``s``'s reset state: the state and the last image."""
+    from vpt_tpu_torch.kernels import dos as KD
+    from vpt_tpu_torch.models.dos import slice_schedule
+
+    r = s.renderer
+    state = r.reset(s.camera)
+    img = None
+    for _ in range(renders):
+        sched, sd, depth = slice_schedule(state, s.camera, r.steps, r.slices, r.aperture)
+        occ, img = KD.dos_pass_plain(state["color"], state["occlusion"], s.camera.inverse_mvp(),
+                                     r._density, r._tf_table, r._occl_samples, sched, sd,
+                                     r.extinction, r.volume.filter)
+        state = dict(state, occlusion=occ, depth=depth)
+    return state, img
+
+
+def phase_dos(dev):
+    """Phase 24: DOS (K24 dos_slice) on the bench volume at R = 512 with the
+    JAX defaults: K24 bit for bit against its plain version (colour,
+    occlusion, display) for one slice and for three (the buffers'
+    ping-pong) from a mid-sweep state, in four table modes at 8 samples and
+    on the u8 table at 4; a whole sweep by RenderSession("dos").run(5), the
+    counts set to 0 before (one K24 launch a slice, 201, and nothing else),
+    equal to the plain versions' sweep on the card bit for bit; a render
+    past the end (one display launch); the device time of a slice launch
+    against its bound; ms per render, and the busy share of a whole sweep
+    in a fresh process."""
+    from vpt_tpu_torch import Camera, Volume
+    from vpt_tpu_torch.kernels import dos as KD
+    from vpt_tpu_torch.models.dos import slice_schedule
+    from vpt_tpu_torch.session import RenderSession
+
+    t_phase = time.perf_counter()
+    cam = Camera()
+    res = RM_RES
+    state = dos_state(res, 0.45, cam, dev)
+    sched1, sd, _ = slice_schedule(state, cam, 1, DOS_KW["slices"], DOS_KW["aperture"])
+    sched3, _, _ = slice_schedule(state, cam, 3, DOS_KW["slices"], DOS_KW["aperture"])
+    modes = rm_modes(dev)
+    for n_samples in (8, 4):
+        samples = torch.as_tensor(KD.generate_occlusion_samples(n_samples), device=dev)
+        for label, dens, tft, filt in (modes if n_samples == 8 else modes[:1]):
+            for sched in (sched1, sched3):
+                dos_check(f"{label}, {n_samples} samples, {len(sched)} slices", dens, tft, filt,
+                          samples, state, sched, sd, cam)
+        log(f"# K24 == plain bit for bit (colour, occlusion, display) at {res}^2, {n_samples} "
+            f"samples, 1 and 3 slices from a mid-sweep state: "
+            + ", ".join(m[0] for m in (modes if n_samples == 8 else modes[:1])))
+
+    # the whole sweep through the session: launches, images, the plain sweep
+    s = RenderSession("dos", Volume.sphere_in_cube(VOLUME), device=dev, resolution=res)
+    want = 0
+    st = s.renderer.reset(cam)
+    for _ in range(DOS_RENDERS):
+        sched, _, depth = slice_schedule(st, cam, DOS_KW["steps"], DOS_KW["slices"],
+                                         DOS_KW["aperture"])
+        want += len(sched)
+        st = dict(st, depth=depth)
+    s.run(1)
+    s.reset()
+    reset_all_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    s.run(DOS_RENDERS)
+    dt = time.perf_counter() - t0
+    launches = {k: v for k, v in all_launches().items() if v}
+    if launches != {"dos.dos_slice": want}:
+        raise AssertionError(f"RenderSession('dos').run({DOS_RENDERS}) launched {launches}, "
+                             f"the schedule {want} slices")
+    img = s.hdr_image()
+    t0 = time.perf_counter()
+    pstate, pimg = dos_plain_sweep(s, DOS_RENDERS)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    rm_bitwise("the DOS sweep against the plain sweep",
+               (s.state["color"], s.state["occlusion"], torch.as_tensor(img, device=dev)),
+               (pstate["color"], pstate["occlusion"], pimg))
+    if s.state["depth"] != pstate["depth"] or not s.state["depth"] > s.state["max_depth"]:
+        raise AssertionError(f"the sweep ended at depth {s.state['depth']}, plain "
+                             f"{pstate['depth']}, max {s.state['max_depth']}")
+    if not (np.isfinite(img).all() and img.shape == (res, res, 3) and float(img.min()) < 0.9):
+        raise AssertionError(f"dos: image {img.shape} not finite or empty")
+    reset_all_counts()
+    s.run(1)
+    past = {k: v for k, v in all_launches().items() if v}
+    if past != {"dos.dos_display": 1} or not np.array_equal(s.hdr_image(), img):
+        raise AssertionError(f"a render past the sweep's end launched {past} or changed the image")
+    log(f"# RenderSession('dos').run({DOS_RENDERS}) at {res}^2: {dt * 1e3:.3f} ms "
+        f"({dt * 1e3 / DOS_RENDERS:.3f} ms a render); {want} K24 launches ({DOS_KW['slices']} "
+        "slices) and nothing else; "
+        f"== the plain sweep on the card bit for bit (plain {plain_s:.2f} s); a render past the "
+        "end: one display launch, the same image")
+
+    # one slice launch by device time against its bound (u8 table, 8 samples)
+    _, dens, tft, filt = modes[0]
+    samples = torch.as_tensor(KD.generate_occlusion_samples(8), device=dev)
+    c, o, spare = state["color"].clone(), state["occlusion"].clone(), torch.empty_like(
+        state["occlusion"])
+    ms = device_ms(lambda: KD.dos_pass(c, o, spare, cam.inverse_mvp(), dens, tft, samples, sched1,
+                                       sd, DOS_KW["extinction"], filt))
+    c, o = state["color"].clone(), state["occlusion"].clone()
+    plain_ms = cuda_ms(lambda: KD.dos_pass_plain(c, o, cam.inverse_mvp(), dens, tft, samples,
+                                                 sched1, sd, DOS_KW["extinction"], filt), 3)
+    reads, inside = dos_reads(dens, tft, filt, state, sched1[0][0], cam)
+    # the colour read and (inside the cube) written, the occlusion read and
+    # written, the display written (the launch is its render's last slice)
+    nbytes = (res * res * (16 + 4 + 4 + 12) + inside * 16 + reads.volume_bytes()
+              + tft[0].numel() * 4 + samples.numel() * 4)
+    ops = (8 * OPS_DOS_SLICE_SAMPLE + res * res * (OPS_DOS_PIXEL + OPS_DOS_DISPLAY)
+           + inside * (OPS_DOS_INSIDE + 8 * OPS_DOS_SAMPLE))
+    b = bound(nbytes, ops, ms)
+    render_ms = dt * 1e3 / DOS_RENDERS
+    prof = rm_profiles([("dos", DOS_RENDERS, dict(calls=4, reset=True))])[0]
+    seen = prof["kernels"].get("dos_slice_kernel", {}).get("launches", 0) * DOS_RENDERS
+    if abs(seen - want) > 1e-6:
+        raise AssertionError(f"dos: the profiler saw {seen} K24 launches a sweep, not {want}")
+    busy = prof["device_ms"] / render_ms
+    entry = kernel_line(dict(
+        name="dos_slice", route="cuda", source=DOS_SOURCE, replaces="vpt_tpu/models/dos.py:51",
+        max_abs_err=0.0, ms=ms, plain_ms=plain_ms, launches=launches["dos.dos_slice"],
+        pixels_inside=inside, lookups=reads.lookups, render_ms=render_ms, sweep_ms=dt * 1e3), b)
+    log(f"# K24 dos_slice at {res}^2 (u8, 8 samples): {ms:.5f} ms a slice (device), plain "
+        f"{plain_ms:.4f} ms; {inside} pixels inside the cube; bound {b['bound_ms']:.5f} ms by "
+        f"{b['bound_by']} ({b['bound_bytes']} B, {b['bound_ops']} FP32 ops), share "
+        f"{b['bound_share']:.3f}")
+    log(f"# profiled 4 x (reset, run({DOS_RENDERS})) of 'dos' (a fresh process), per render: "
+        f"device {prof['device_ms']:.5f} ms of {render_ms:.5f} ms unprofiled (busy {busy:.3f}; "
+        f"profiled host {prof['profiled_host_ms']:.5f} ms); " + ", ".join(
+            f"{n} {k['ms']:.5f} ms x{k['launches']:g}" for n, k in prof["kernels"].items()))
+    log(f"# phase 24 (DOS): {time.perf_counter() - t_phase:.1f} s")
+    return [entry], dict(launches=launches, seconds=dt, render_ms=render_ms,
+                         plain_sweep_s=plain_s, profile=prof, device_busy_share=busy)
+
+
+LAO_FLAGS = ((True, True), (True, False), (False, True), (False, False))
+
+
+def lao_inputs(r, cam):
+    p = r.params
+    return ((cam.inverse_mvp(), r._density, r._tf_table, r.light_position, p["extinction"],
+             p["lao_weight"], p["shadows_weight"], p["light_radius"], p["light_coef"]),
+            dict(lao_step=p["lao_step"], slices=r.slices, resolution=r.resolution,
+                 volume_filter=r.volume.filter, **r.flags))
+
+
+def lao_check(label, r, cam):
+    """K25 (``lao_pass``, two runs) and the plain ``lao_frame`` on ``r``'s
+    inputs, bit for bit; returns the image and the plain seconds."""
+    from vpt_tpu_torch.kernels import lao as KL
+
+    args, kw = lao_inputs(r, cam)
+    a = KL.lao_pass(*args, **kw, cone=r._cone, exact=r.exact_stop)
+    b = KL.lao_pass(*args, **kw, cone=r._cone, exact=r.exact_stop)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    p = KL.lao_frame(*args, **kw)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    rm_bitwise(f"K25 ({label}) against a second run", (a,), (b,))
+    rm_bitwise(f"K25 ({label}) against the plain version", (a,), (p,))
+    if not bool(torch.isfinite(a).all()) or not bool((a > 0).any()):
+        raise AssertionError(f"K25 ({label}): the image is empty or not finite")
+    return a, plain_s
+
+
+def lao_replay(r, cam):
+    """The work K25 does on ``r``'s frame, replayed through the plain
+    version's ``observe`` hook: trips per hit pixel (its active samples),
+    lookups, each volume entry and TF row they touch once."""
+    from vpt_tpu_torch.kernels import lao as KL
+    from vpt_tpu_torch.ops import interp
+
+    args, kw = lao_inputs(r, cam)
+    res = r.resolution
+    trips = torch.zeros((res, res), dtype=torch.int32, device=r.device)
+    reads = RmReads(r._density, r.volume.filter)
+    tft = r._tf_table
+    tf_rows = torch.zeros(tft.shape[0] * tft.shape[1], dtype=torch.bool, device=r.device)
+    n = dict(tf_lookups=0)
+
+    def observe(active, points, value, gmag):
+        trips.add_(active.to(torch.int32))
+        for x, y, z in points:
+            reads.add(x, y, z, active)
+        Hp, Wp = tft.shape[0] + (tft.shape[-1] == 4), tft.shape[1] + (tft.shape[-1] == 4)
+        bx, _ = interp._base_and_frac(value, Wp - 1)
+        by, _ = interp._base_and_frac(gmag, Hp - 1)
+        if tft.shape[-1] == 4:  # a raw texture's texel rows
+            by, bx = torch.clamp_max(by, Hp - 2), torch.clamp_max(bx, Wp - 2)
+        tf_rows[(by * tft.shape[1] + bx)[active].to(torch.int64)] = True
+        n["tf_lookups"] += int(active.sum())
+
+    img = KL.lao_frame(*args, **kw, observe=observe)
+    return img, trips, reads, int(tf_rows.sum()) * tft.shape[-1] * 4, n["tf_lookups"]
+
+
+def ray_miss(res, cam, dev):
+    """Which pixels' rays miss the cube (R, R)."""
+    from vpt_tpu_torch.kernels import raymarch as RK
+
+    return RK.ray_bounds(*RK.camera_rays(res, cam.inverse_mvp(), dev))[2]
+
+
+def lao_trip_stats(trips, miss):
+    """Trips per hit pixel (mean, p99, max) and what a warp (32 neighbouring
+    pixels) pays: the mean over warps with a hit of their longest ray, and
+    the trip slots the warps hold (32 x their longest ray) over the trips
+    the rays take."""
+    hit = ~miss
+    t = trips[hit].to(torch.float32)
+    longest = torch.where(hit, trips, 0).reshape(-1, 32).amax(-1).to(torch.float64)
+    busy = longest[hit.reshape(-1, 32).any(-1)]
+    return dict(hit_pixels=int(hit.sum()), ray_mean=float(t.mean()),
+                ray_p99=float(torch.quantile(t, 0.99)), ray_max=int(t.max()),
+                warp_paid=float(busy.mean()),
+                warp_slots_over_trips=float(32 * busy.sum() / t.to(torch.float64).sum()))
+
+
+def phase_lao(dev):
+    """Phase 25: LAO (K25 lao_frame) on the bench volume at R = 512 with 64
+    slices: K25 bit for bit against its plain version (and a second run)
+    in four table modes with both terms, and on the u8 table in the three
+    other flag pairs; the u8 frame by device time against the bound of its
+    replayed work (trips per ray: mean, p99, max, what a warp pays); a
+    RenderSession run(16), the counts set to 0 before (16 K25 launches and
+    nothing else); ms per frame and the busy share in a fresh process."""
+    from vpt_tpu_torch import Camera
+    from vpt_tpu_torch.kernels import lao as KL
+    from vpt_tpu_torch.models.lao import LAORenderer
+    from vpt_tpu_torch.session import RenderSession
+
+    t_phase = time.perf_counter()
+    cam = Camera()
+    vols = mode_volumes()
+    vol = vols[0][1]
+    plain = {}
+    for label, v in vols:
+        flags = LAO_FLAGS if label == "linear u8" else LAO_FLAGS[:1]
+        for lao_on, shadows_on in flags:
+            r = LAORenderer(v, slices=LAO_SLICES, resolution=RM_RES, lao_enabled=lao_on,
+                            shadows_enabled=shadows_on, device=dev)
+            if not (r.exact_stop and KL.cone_clear(cam.inverse_mvp(), r.light_position,
+                                                   r.params["light_radius"],
+                                                   r.params["lao_step"], r.slices)):
+                raise AssertionError(f"LAO ({label}): the early stop is not exact on these inputs")
+            _, plain[(label, lao_on, shadows_on)] = lao_check(
+                f"{label}, lao {lao_on}, shadows {shadows_on}", r, cam)
+    log(f"# K25 == plain bit for bit at {RM_RES}^2, {LAO_SLICES} slices: "
+        + ", ".join(f"{k[0]} (lao {k[1]}, shadows {k[2]}: plain {v:.2f} s)"
+                    for k, v in plain.items()))
+
+    r = LAORenderer(vol, slices=LAO_SLICES, resolution=RM_RES, device=dev)
+    args, kw = lao_inputs(r, cam)
+    # the masked march without the early stop gives the same bits
+    rm_bitwise("K25 masked against K25 stopping early",
+               (KL.lao_pass(*args, **kw, cone=r._cone, exact=False),),
+               (KL.lao_pass(*args, **kw, cone=r._cone, exact=True),))
+    ms = device_ms(lambda: KL.lao_pass(*args, **kw, cone=r._cone, exact=r.exact_stop))
+    img, trips, reads, tf_bytes, tf_lookups = lao_replay(r, cam)
+    stats = lao_trip_stats(trips, ray_miss(RM_RES, cam, dev))
+    n_cone = r._cone.shape[0]
+    samples = int(trips.sum())
+    nbytes = RM_RES * RM_RES * 12 + reads.volume_bytes() + tf_bytes + r._cone.numel() * 4
+    ops = (OPS_LAO_FRAME
+           + stats["hit_pixels"] * (OPS_LAO_PIXEL + n_cone * OPS_LAO_CONE_PIXEL
+                                    + OPS_LAO_SHADOW_PIXEL)
+           + samples * (OPS_LAO_SAMPLE + n_cone * OPS_LAO_CONE + OPS_LAO_CONE_END + OPS_LAO_SHADOW))
+    b = bound(nbytes, ops, ms)
+    log(f"# K25 lao_frame at {RM_RES}^2, {LAO_SLICES} slices (u8, both terms): {ms:.5f} ms "
+        f"(device), plain {plain[('linear u8', True, True)] * 1e3:.1f} ms; {samples} samples, "
+        f"{reads.lookups} volume lookups ({int(reads.touched.sum())} entries), {tf_lookups} TF "
+        f"lookups; bound {b['bound_ms']:.5f} ms by {b['bound_by']} ({b['bound_bytes']} B, "
+        f"{b['bound_ops']} FP32 ops), share {b['bound_share']:.3f}")
+    log(f"# K25 trips per ray over the {stats['hit_pixels']} hit pixels: mean "
+        f"{stats['ray_mean']:.3f}, p99 {stats['ray_p99']:.1f}, max {stats['ray_max']}; a warp "
+        f"with a hit pays {stats['warp_paid']:.3f}, its trip slots "
+        f"{stats['warp_slots_over_trips']:.3f}x the trips taken")
+
+    s = RenderSession("lao", vol, slices=LAO_SLICES, device=dev, resolution=RM_RES)
+    s.run(1)
+    reset_all_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    s.run(LAO_FRAMES)
+    dt = time.perf_counter() - t0
+    launches = {k: v for k, v in all_launches().items() if v}
+    if launches != {"lao.lao_frame": LAO_FRAMES}:
+        raise AssertionError(f"RenderSession('lao').run({LAO_FRAMES}) launched {launches}")
+    simg = s.hdr_image()
+    if not np.array_equal(simg.view(np.int32), img.cpu().numpy().view(np.int32)):
+        raise AssertionError("the session's frame differs from the replayed plain frame")
+    if int(s.state["frame"]) != LAO_FRAMES + 1:
+        raise AssertionError(f"lao: frame count {int(s.state['frame'])}")
+    frame_ms = dt * 1e3 / LAO_FRAMES
+    prof = rm_profiles([("lao", LAO_FRAMES, dict(slices=LAO_SLICES))])[0]
+    busy = prof["device_ms"] / frame_ms
+    seen = sum(k["launches"] for n, k in prof["kernels"].items()
+               if n.startswith("lao_frame_kernel"))
+    if abs(seen - 1) > 1e-6:
+        raise AssertionError(f"lao: the profiler saw {seen} K25 launches a frame")
+    entry = kernel_line(dict(
+        name="lao_frame", route="cuda", source=LAO_SOURCE, replaces="vpt_tpu/models/lao.py:51",
+        max_abs_err=0.0, ms=ms, plain_ms=plain[("linear u8", True, True)] * 1e3,
+        launches=launches["lao.lao_frame"], samples=samples, volume_lookups=reads.lookups,
+        trips=stats, frame_ms=frame_ms), b)
+    log(f"# RenderSession('lao').run({LAO_FRAMES}) at {RM_RES}^2: {dt * 1e3:.3f} ms "
+        f"({frame_ms:.4f} ms a frame); launches {launches}; == the plain frame bit for bit")
+    log(f"# profiled run({LAO_FRAMES}) of 'lao' (a fresh process), per frame: device "
+        f"{prof['device_ms']:.5f} ms of {frame_ms:.5f} ms unprofiled (busy {busy:.3f}; profiled "
+        f"host {prof['profiled_host_ms']:.5f} ms); " + ", ".join(
+            f"{n} {k['ms']:.5f} ms x{k['launches']:g}" for n, k in prof["kernels"].items()))
+    log(f"# phase 25 (LAO): {time.perf_counter() - t_phase:.1f} s")
+    return [entry], dict(launches=launches, seconds=dt, frame_ms=frame_ms, trips=stats,
+                         profile=prof, device_busy_share=busy)
+
+
 def launch_counts():
     from vpt_tpu_torch.kernels import corners as C
     from vpt_tpu_torch.kernels import mcm_spectral as K
@@ -4986,6 +5482,8 @@ def main():
     mcm_kernels, mcm_sessions = phase_mcm(dev)
     mcs_kernels, mcs = phase_mcs(dev)
     mcsp_kernels, mcsp = phase_mcs_persistent(dev)
+    dos_kernels, dos = phase_dos(dev)
+    lao_kernels, lao = phase_lao(dev)
     foreign = sorted(k for k in sys.modules
                      if k in ("jax", "vpt_tpu") or k.startswith(("jax.", "vpt_tpu.")))
     if foreign:
@@ -5033,7 +5531,8 @@ def main():
                k1_modes["quasicubic"], *compact_kernels, k4_sur, k12, k1_xy, *k4_modes.values(),
                *k5_modes.values(), *corner_modes.values(), *sur_modes.values(), k4_raw, k12_raw,
                k1_raw, k13,
-               k14, *rm_kernels, *eam_kernels, *mcm_kernels, *mcs_kernels, *mcsp_kernels]
+               k14, *rm_kernels, *eam_kernels, *mcm_kernels, *mcs_kernels, *mcsp_kernels,
+               *dos_kernels, *lao_kernels]
     missing = [k["name"] for k in kernels + [k3, k3_xy, k3_raw]
                if not {"bound_ms", "bound_by", "library_ms", "launches", "ms", "plain_ms",
                        "max_abs_err"} <= set(k)]
@@ -5051,7 +5550,8 @@ def main():
               "majorant_path": sparse, "mode_sessions": mode_rates, "compaction": compact,
               "cli": cli, "surrogate": {"twin_on_card": twin, "autodiff_fit": autodiff},
               "raymarch_sessions": rm_sessions, "eam_training": eam_fits,
-              "mcm_sessions": mcm_sessions, "mcs": mcs, "mcs_persistent": mcsp,
+              "mcm_sessions": mcm_sessions, "mcs": mcs, "mcs_persistent": mcsp, "dos": dos,
+              "lao": lao,
               "ptxas": ptxas, "gpu": smi}
     log(json.dumps(result))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

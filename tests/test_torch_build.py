@@ -2,6 +2,8 @@
 the machine with nvcc: library naming, the source list, and the ptxas
 report parser that ``chip_smoke.py`` prints from."""
 
+import pytest
+
 from vpt_tpu_torch.kernels import _build
 
 LOG = """== mcm_spectral.cu
@@ -57,7 +59,7 @@ def test_sources_of_each_directory():
     assert set(_build._sources()) == set(_build._SIGNATURES)
     assert set(_build._SIGNATURES) == {"mcm_spectral", "spectral_backward", "corners",
                                        "gather_bench", "surrogate", "raw_backward", "raymarch",
-                                       "mcm", "mcs"}
+                                       "mcm", "mcs", "dos", "lao"}
 
 
 RAYMARCH_LOG = """== raymarch.cu
@@ -171,3 +173,55 @@ def test_ptxas_table_reads_the_surrogate_raw_instantiations():
     assert _build.ptxas_table(SURROGATE_RAW_LOG) == [
         ("surrogate_tape_kernel", "12,1,0,0,1", 64, 4, 4, 40),
         ("surrogate_reverse_kernel", "12,0,0,0,1", 80, 156, 136, 120)]
+
+
+OCCLUSION_LOG = """== dos.cu
+ptxas info    : Compiling entry function '_ZN46_GLOBAL__N__8c9d0e1f_6_dos_cu_3b4c5d6e16dos_slice_kernelENS_4DosPEfffPKvPKfPK6float2P6float4S5_PfSC_' for 'sm_90a'
+ptxas info    : Function properties for _ZN46_GLOBAL__N__8c9d0e1f_6_dos_cu_3b4c5d6e16dos_slice_kernelENS_4DosPEfffPKvPKfPK6float2P6float4S5_PfSC_
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 40 registers, used 0 barriers
+ptxas info    : Compiling entry function '_ZN46_GLOBAL__N__8c9d0e1f_6_dos_cu_3b4c5d6e18dos_display_kernelEiPK6float4Pf' for 'sm_90a'
+ptxas info    : Used 16 registers, used 0 barriers
+== lao.cu
+ptxas info    : Compiling entry function '_ZN46_GLOBAL__N__9d0e1f2a_6_lao_cu_4c5d6e7f16lao_frame_kernelILb1ELb0EEEvNS_4LaoPEPKvPKfPK6float2Pf' for 'sm_90a'
+ptxas info    : Function properties for _ZN46_GLOBAL__N__9d0e1f2a_6_lao_cu_4c5d6e7f16lao_frame_kernelILb1ELb0EEEvNS_4LaoPEPKvPKfPK6float2Pf
+    32 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 56 registers, used 0 barriers, 32 bytes cumulative stack size
+"""
+
+
+def test_ptxas_table_reads_the_occlusion_kernels():
+    """K24 (csrc/dos.cu) is untemplated; K25's row carries LAO,SHADOWS."""
+    assert _build.ptxas_table(OCCLUSION_LOG) == [("dos_slice_kernel", "", 40, 0, 0, 0),
+                                                 ("dos_display_kernel", "", 16, 0, 0, 0),
+                                                 ("lao_frame_kernel", "1,0", 56, 0, 0, 32)]
+
+
+def _enum_count(text, enum):
+    """The value of the last entry (the count) of ``enum`` in a source's
+    text: entries counted from 0, an explicit ``= N`` resetting the count."""
+    import re
+
+    body = re.search(r"enum " + enum + r" \{(.*?)\};", text, re.S).group(1)
+    value = -1
+    for entry in re.sub(r"//[^\n]*", "", body).split(","):
+        entry = entry.strip()
+        if not entry:
+            continue
+        m = re.fullmatch(r"\w+\s*=\s*(\d+)", entry)
+        value = int(m.group(1)) if m else value + 1
+    return value
+
+
+@pytest.mark.parametrize("module,source,f_enum,i_enum", [
+    ("dos", "dos.cu", "DosF", "DosI"), ("lao", "lao.cu", "LaoF", "LaoI"),
+    ("raymarch", "raymarch.cu", "MarchF", "MarchI"), ("mcs", "mcs.cu", "McsF", "McsI"),
+    ("mcm", "mcm.cu", "McmF", "McmI")])
+def test_parameter_layouts_match_the_sources(module, source, f_enum, i_enum):
+    """Each wrapper's parameter block counts (``_F_COUNT``, ``_I_COUNT``)
+    equal its source's enums, which the library also reports at run time."""
+    import importlib
+
+    mod = importlib.import_module(f"vpt_tpu_torch.kernels.{module}")
+    text = (_build.CSRC_DIR / source).read_text()
+    assert (_enum_count(text, f_enum), _enum_count(text, i_enum)) == (mod._F_COUNT, mod._I_COUNT)

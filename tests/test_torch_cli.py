@@ -21,8 +21,8 @@ def _run(capsys, argv):
 
 
 def test_renderers_and_tonemappers_lists(capsys):
-    assert _run(capsys, ["renderers"]).out.split() == ["depth", "eam", "iso", "mcm",
-                                                       "mcm-spectral", "mcs", "mip"]
+    assert _run(capsys, ["renderers"]).out.split() == ["depth", "dos", "eam", "iso", "lao",
+                                                       "mcm", "mcm-spectral", "mcs", "mip"]
     out = _run(capsys, ["tonemappers"]).out
     for key in ("artistic", "reinhard", "aces", "uchimura", "lottes"):
         assert key in out
@@ -110,8 +110,9 @@ def test_invert_eam_matches_jax(tmp_path, capsys):
 
 @pytest.mark.parametrize("argv,names", [
     pytest.param(["render", "--devices", "2"], "--devices", id="argv1---devices"),
-    # mcm and mcs are ported; the id stays, the case now checks the unported dos
-    pytest.param(["render", "--renderer", "dos"], "'dos'", id="argv2-mcm"),
+    # every renderer is ported; the id stays, the case now checks the other
+    # subcommand that builds a mesh (animate on mcm-spectral with --devices)
+    pytest.param(["animate", "--devices", "2"], "--devices", id="argv2-mcm"),
 ])
 def test_exits_name_what_is_not_ported(argv, names, tmp_path, capsys):
     with pytest.raises(SystemExit) as e:

@@ -423,8 +423,8 @@ def test_cli_renders_each_ray_marcher(key, tmp_path, capsys):
 
 def test_cli_lists_the_ported_renderers(capsys):
     cli_main(["renderers"])
-    assert capsys.readouterr().out.split() == ["depth", "eam", "iso", "mcm", "mcm-spectral",
-                                               "mcs", "mip"]
+    assert capsys.readouterr().out.split() == ["depth", "dos", "eam", "iso", "lao", "mcm",
+                                               "mcm-spectral", "mcs", "mip"]
 
 
 @pytest.mark.parametrize("argv,message", [

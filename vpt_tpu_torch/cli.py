@@ -4,6 +4,7 @@
     python -m vpt_tpu_torch.cli render --device cuda --majorant-blocks 8 \\
         --compaction --envmap env.npy -o render.npy
     python -m vpt_tpu_torch.cli render --device cuda --renderer eam -o eam.npy
+    python -m vpt_tpu_torch.cli render --device cuda --renderer dos -o dos.npy
     python -m vpt_tpu_torch.cli invert --device cuda --iterations 100 -o density.npy
 
 Subcommands:
@@ -16,12 +17,12 @@ Subcommands:
               spectral MCM with --spectral --method prb|autodiff
 
 ``render`` and ``animate`` take ``--renderer mcm-spectral`` (the default),
-the RGB renderers ``mcm`` and ``mcs`` or one of the ray marchers ``eam``,
-``mip``, ``iso``, ``depth``, built as ``vpt_tpu/cli.py`` builds them
-(``mcm`` with ``--envmap``, ``--compaction``, ``--extinction``,
-``--bounces`` and ``--steps`` and the grayscale ramp TF; EAM with
-``--extinction``; ``mcs`` and the others with their defaults).
-``--compaction`` is for ``mcm-spectral`` and ``mcm`` only.
+the RGB renderers ``mcm`` and ``mcs``, one of the ray marchers ``eam``,
+``mip``, ``iso``, ``depth`` or the occlusion renderers ``dos`` and ``lao``,
+built as ``vpt_tpu/cli.py`` builds them (``mcm`` with ``--envmap``,
+``--compaction``, ``--extinction``, ``--bounces`` and ``--steps`` and the
+grayscale ramp TF; EAM with ``--extinction``; the others with their
+defaults). ``--compaction`` is for ``mcm-spectral`` and ``mcm`` only.
 
 ``invert`` without ``--spectral`` recovers the volume's density from
 ``--views`` orbit renders by EAM (``optim.fit_density``), as
@@ -32,10 +33,9 @@ a constant 0.2 start. ``invert --spectral`` always fits an
 ``--device`` defaults to ``cuda``: the kernels run on the card, and a
 machine without CUDA exits non-zero instead of falling back to the CPU.
 ``--device cpu`` runs the plain PyTorch versions. What the port has not
-ported yet (other renderers, and ``--devices > 1`` on ``mcm-spectral``,
-the one renderer the reference builds a mesh for) exits non-zero with a
-message naming it; every other renderer ignores ``--devices``, as the
-reference does.
+ported yet (``--devices > 1`` on ``mcm-spectral``, the one renderer the
+reference builds a mesh for) exits non-zero with a message naming it;
+every other renderer ignores ``--devices``, as the reference does.
 """
 
 from __future__ import annotations
@@ -111,13 +111,14 @@ def _device(args):
 
 
 RAY_MARCHERS = ("eam", "mip", "iso", "depth")
+OCCLUSION = ("dos", "lao")
 
 
-PORTED = ("mcm-spectral", "mcm", "mcs", *RAY_MARCHERS)
+PORTED = ("mcm-spectral", "mcm", "mcs", *RAY_MARCHERS, *OCCLUSION)
 
 
 def _check_render_ported(args):
-    """``render`` / ``animate``: mcm-spectral, mcm, mcs and the ray marchers.
+    """``render`` / ``animate``: every renderer of the reference.
     As in ``vpt_tpu/cli.py``, ``--devices`` builds a mesh for mcm-spectral
     only (not ported yet, so refused there) and every other renderer
     ignores it."""
@@ -151,7 +152,7 @@ def _make_session(args):
                              compaction=args.compaction, **common)
     elif key == "eam":
         sess = RenderSession(key, volume, None, EAMConfig(extinction=args.extinction), **common)
-    elif key in RAY_MARCHERS or key == "mcs":
+    elif key in (*RAY_MARCHERS, *OCCLUSION, "mcs"):
         sess = RenderSession(key, volume, **common)
     else:
         material = (MaterialTF.from_uint8(np.load(args.material)) if args.material

@@ -211,13 +211,17 @@ def mcs_ctx_from_numpy(*, inv_mvp, seed_bits, extinction, scatter_dir, density_t
 
 def raymarch_state_from_numpy(fields: dict, device) -> dict:
     """A ray-march renderer's state (EAM: acc, frame; MIP: acc; ISO: cx,
-    cy, cz, ct; Depth: frame) from numpy arrays keyed as the JAX state."""
-    return {k: torch.as_tensor(np.array(v), device=device) for k, v in fields.items()}
+    cy, cz, ct; Depth: frame; DOS: color, occlusion and its sweep's host
+    floats; LAO: frame) from numpy arrays keyed as the JAX state; a Python
+    float stays a host scalar."""
+    return {k: v if isinstance(v, float) else torch.as_tensor(np.array(v), device=device)
+            for k, v in fields.items()}
 
 
 def raymarch_state_to_numpy(state: dict) -> dict:
-    """A ray-march renderer's state as numpy arrays, by key."""
-    return {k: t.cpu().numpy() for k, t in state.items()}
+    """A ray-march renderer's state as numpy arrays (host scalars as they
+    are), by key."""
+    return {k: t.cpu().numpy() if torch.is_tensor(t) else t for k, t in state.items()}
 
 
 mcs_state_from_numpy = raymarch_state_from_numpy

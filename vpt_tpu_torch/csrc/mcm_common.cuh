@@ -1,9 +1,11 @@
 // Device code shared by the spectral MCM forward (mcm_spectral.cu) and the
 // packed-adjoint backward (spectral_backward.cu): the parameter block, the
 // hash chain and draws, the packed-table lookups, and one Woodcock step.
-// The ray marchers (raymarch.cu) and the RGB kernels (mcm.cu, mcs.cu) use
-// its draws, samplers, camera ray, the classic TF's RGBA (sample_rgba) and
-// the raw RGB environment lookup (sample_env_rgb).
+// The ray marchers (raymarch.cu), the RGB kernels (mcm.cu, mcs.cu) and the
+// occlusion renderers (dos.cu, lao.cu) use its draws, samplers, camera rays
+// (cube_ray: a pixel's unjittered ray clamped to the cube), the 2D TF's
+// RGBA (sample_tex2d_rgba, at (x, 0) sample_rgba) and the raw RGB
+// environment lookup (sample_env_rgb).
 //
 // Both kernels run the SAME step function, so the taped forward of the
 // backward leaves a state bit-identical to the forward step kernel's: the
@@ -342,6 +344,17 @@ __device__ __forceinline__ float sample_volume_any(const void* vol, const Params
                        nullptr, P.i[I_QUASICUBIC] != 0, P.i[I_VOL_XY] != 0);
 }
 
+// a volume lookup by runtime flags (the ray marchers' and the occlusion
+// renderers' tables): a raw (D, H, W) f32 grid given as (Dp, Hp, Wp) =
+// (D+1, H+1, W+1), also nearest, or a packed full corner table (u8 or f32)
+__device__ __forceinline__ float sample_volume_flags(const void* vol, int raw, int is_u8, int Dp,
+                                                     int Hp, int Wp, bool qc, bool nearest,
+                                                     float u, float v, float w) {
+  if (raw != 0)
+    return sample_volume_raw(static_cast<const float*>(vol), Dp, Hp, Wp, u, v, w, qc, nearest);
+  return sample_volume(vol, is_u8, Dp, Hp, Wp, u, v, w, nullptr, qc, false);
+}
+
 // where a TF lookup read: its row, fractions, and the per-channel slope
 // d(value)/d(density coordinate) = (x-lerped row1 - row0) * (Hp - 1)
 struct TfAddr {
@@ -470,17 +483,18 @@ __device__ __forceinline__ float sample_light_any(const float* tf, const float* 
   return lerp(__ldg(light + i0), __ldg(light + i1), f);
 }
 
-// RGBA of the classic 2D TF at (x, 0), interp.sample_tex2d's lerps: one
+// RGBA of the classic 2D TF at (x, y), interp.sample_tex2d's lerps: one
 // 16-wide packed corner row (four float4) of a (Hp, Wp, 16) table, or with
 // `raw` four float4 texels of the raw (H, W, 4) texture given as (Hp, Wp) =
 // (H+1, W+1), the columns max(bx - 1, 0) and min(bx, W - 1) of the raw axis
-// (raw_axis), so both layouts give the same bits
-__device__ __forceinline__ float4 sample_rgba(const float* __restrict__ tf, bool raw, int Hp,
-                                              int Wp, float x) {
+// and the rows max(by - 1, 0) and min(by, H - 1) (raw_axis: interp._coords'
+// clamp to the edge), so both layouts give the same bits
+__device__ __forceinline__ float4 sample_tex2d_rgba(const float* __restrict__ tf, bool raw,
+                                                    int Hp, int Wp, float x, float y) {
   int bx, by;
   float fx, fy;
   base_frac(x, Wp - 1, bx, fx);
-  base_frac(0.0f, Hp - 1, by, fy);
+  base_frac(y, Hp - 1, by, fy);
   float4 k00, k01, k10, k11;
   if (raw) {
     const int W = Wp - 1, x0 = max(bx - 1, 0), x1 = min(bx, W - 1);
@@ -498,6 +512,13 @@ __device__ __forceinline__ float4 sample_rgba(const float* __restrict__ tf, bool
   o.z = lerp(lerp(k00.z, k01.z, fx), lerp(k10.z, k11.z, fx), fy);
   o.w = lerp(lerp(k00.w, k01.w, fx), lerp(k10.w, k11.w, fx), fy);
   return o;
+}
+
+// RGBA of the classic 2D TF at (x, 0): a scalar volume's second channel
+// reads 0
+__device__ __forceinline__ float4 sample_rgba(const float* __restrict__ tf, bool raw, int Hp,
+                                              int Wp, float x) {
+  return sample_tex2d_rgba(tf, raw, Hp, Wp, x, 0.0f);
 }
 
 // where an escape's environment lookup read: its 12-wide row, fractions
@@ -598,6 +619,39 @@ __device__ __forceinline__ void apply_homogeneous(const float* m, float x,
   ox = quot(r[0], w);
   oy = quot(r[1], w);
   oz = quot(r[2], w);
+}
+
+// A pixel's unjittered ray clamped to the cube (the ray marchers'
+// camera_rays + ray_bounds + the entry and exit points, _mix3 at tnear and
+// tfar): the NDC point of the pixel centre by a multiply with 1 / resolution
+struct CubeRay {
+  float nx, ny, nz;  // entry
+  float xx, xy, xz;  // exit
+  float tn, tf;
+  bool miss;
+};
+
+__device__ __forceinline__ CubeRay cube_ray(const float* inv_mvp, float inv_res, int ix,
+                                            int iy) {
+  const float sx = (((float)ix + 0.5f) * inv_res - 0.5f) * 2.0f;
+  const float sy = (((float)iy + 0.5f) * inv_res - 0.5f) * -2.0f;
+  float fx, fy, fz, tx, ty, tz;
+  apply_homogeneous(inv_mvp, sx, sy, -1.0f, fx, fy, fz);
+  apply_homogeneous(inv_mvp, sx, sy, 1.0f, tx, ty, tz);
+  const float dx = tx - fx, dy = ty - fy, dz = tz - fz;
+  const float t0x = __fdiv_rn(0.0f - fx, dx), t0y = __fdiv_rn(0.0f - fy, dy);
+  const float t0z = __fdiv_rn(0.0f - fz, dz);
+  const float t1x = __fdiv_rn(1.0f - fx, dx), t1y = __fdiv_rn(1.0f - fy, dy);
+  const float t1z = __fdiv_rn(1.0f - fz, dz);
+  const float tn = nmax(nmax(nmax(nmin(t0x, t1x), nmin(t0y, t1y)), nmin(t0z, t1z)), 0.0f);
+  const float tf = nmax(nmin(nmin(nmax(t0x, t1x), nmax(t0y, t1y)), nmax(t0z, t1z)), 0.0f);
+  CubeRay r;
+  r.nx = lerp(fx, tx, tn); r.ny = lerp(fy, ty, tn); r.nz = lerp(fz, tz, tn);
+  r.xx = lerp(fx, tx, tf); r.xy = lerp(fy, ty, tf); r.xz = lerp(fz, tz, tf);
+  r.tn = tn;
+  r.tf = tf;
+  r.miss = tn >= tf;
+  return r;
 }
 
 struct Ray {

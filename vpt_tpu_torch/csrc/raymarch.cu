@@ -137,40 +137,8 @@ __device__ __forceinline__ float4 sample_point(const void* vol, const float* tf,
   return march_rgba(tf, P, march_density(vol, P, x, y, z));
 }
 
-// A pixel's ray clamped to the cube: camera_rays + ray_bounds + the entry
-// and exit points (_mix3 at tnear and tfar).
-struct PixelRay {
-  float nx, ny, nz;  // entry
-  float xx, xy, xz;  // exit
-  float tn, tf;
-  bool miss;
-};
-
-__device__ __forceinline__ PixelRay pixel_ray(const March& P, int ix, int iy) {
-  const float inv_res = P.f[RF_INV_RES];
-  const float sx = (((float)ix + 0.5f) * inv_res - 0.5f) * 2.0f;
-  const float sy = (((float)iy + 0.5f) * inv_res - 0.5f) * -2.0f;
-  float fx, fy, fz, tx, ty, tz;
-  apply_homogeneous(P.f + RF_INV_MVP, sx, sy, -1.0f, fx, fy, fz);
-  apply_homogeneous(P.f + RF_INV_MVP, sx, sy, 1.0f, tx, ty, tz);
-  const float dx = tx - fx, dy = ty - fy, dz = tz - fz;
-  const float t0x = __fdiv_rn(0.0f - fx, dx), t0y = __fdiv_rn(0.0f - fy, dy);
-  const float t0z = __fdiv_rn(0.0f - fz, dz);
-  const float t1x = __fdiv_rn(1.0f - fx, dx), t1y = __fdiv_rn(1.0f - fy, dy);
-  const float t1z = __fdiv_rn(1.0f - fz, dz);
-  const float tn = nmax(nmax(nmax(nmin(t0x, t1x), nmin(t0y, t1y)), nmin(t0z, t1z)), 0.0f);
-  const float tf = nmax(nmin(nmin(nmax(t0x, t1x), nmax(t0y, t1y)), nmax(t0z, t1z)), 0.0f);
-  PixelRay r;
-  r.nx = lerp(fx, tx, tn); r.ny = lerp(fy, ty, tn); r.nz = lerp(fz, tz, tn);
-  r.xx = lerp(fx, tx, tf); r.xy = lerp(fy, ty, tf); r.xz = lerp(fz, tz, tf);
-  r.tn = tn;
-  r.tf = tf;
-  r.miss = tn >= tf;
-  return r;
-}
-
 // the ray's length inside the cube over the sample count: ray_step_len
-__device__ __forceinline__ float step_length(const PixelRay& r, float step) {
+__device__ __forceinline__ float step_length(const CubeRay& r, float step) {
   const float ex = r.xx - r.nx, ey = r.xy - r.ny, ez = r.xz - r.nz;
   return sqrtf(ex * ex + ey * ey + ez * ez) * step;
 }
@@ -188,7 +156,7 @@ march_kernel(const March P, const void* __restrict__ vol, const float* __restric
   const int pix = blockIdx.x * blockDim.x + threadIdx.x;
   if (pix >= res * res) return;
   const int iy = pix / res, ix = pix - iy * res;
-  const PixelRay r = pixel_ray(P, ix, iy);
+  const CubeRay r = cube_ray(P.f + RF_INV_MVP, P.f[RF_INV_RES], ix, iy);
   const float step = P.f[RF_STEP], offset = P.f[RF_OFFSET], ext = P.f[RF_EXTINCTION];
   const float rsl = step_length(r, step);
   const int trips = P.i[RI_TRIPS];
@@ -253,7 +221,7 @@ mip_kernel(const March P, const void* __restrict__ vol, const float* __restrict_
   const int pix = blockIdx.x * blockDim.x + threadIdx.x;
   if (pix >= res * res) return;
   const int iy = pix / res, ix = pix - iy * res;
-  const PixelRay r = pixel_ray(P, ix, iy);
+  const CubeRay r = cube_ray(P.f + RF_INV_MVP, P.f[RF_INV_RES], ix, iy);
   const float step = P.f[RF_STEP], offset = P.f[RF_OFFSET];
   float val = 0.0f;
   if (!r.miss) {
@@ -280,7 +248,7 @@ iso_kernel(const March P, const void* __restrict__ vol, const float* __restrict_
   const int pix = blockIdx.x * blockDim.x + threadIdx.x;
   if (pix >= res * res) return;
   const int iy = pix / res, ix = pix - iy * res;
-  const PixelRay r = pixel_ray(P, ix, iy);
+  const CubeRay r = cube_ray(P.f + RF_INV_MVP, P.f[RF_INV_RES], ix, iy);
   if (r.miss) return;  // t = -1: the merge keeps the state
   const float step = P.f[RF_STEP], offset = P.f[RF_OFFSET], iso = P.f[RF_ISOVALUE];
   const float t_far = 1.0f - offset * step;
@@ -435,7 +403,7 @@ __device__ __forceinline__ void eam_backward_pixel(const March& P, const float* 
                                                    int pix) {
   const int res = P.i[RI_RES];
   const int iy = pix / res, ix = pix - iy * res;
-  const PixelRay r = pixel_ray(P, ix, iy);
+  const CubeRay r = cube_ray(P.f + RF_INV_MVP, P.f[RF_INV_RES], ix, iy);
   if (r.miss) return;  // the frame is 0 there whatever the tables
   const float step = P.f[RF_STEP], offset = P.f[RF_OFFSET], ext = P.f[RF_EXTINCTION];
   const float rsl = step_length(r, step);

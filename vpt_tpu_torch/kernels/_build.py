@@ -104,6 +104,14 @@ _SIGNATURES = {
         "vpt_mcs_frames": ([_P] * 10, _I),
         "vpt_mcs_persistent": ([_P] * 24, _I),
     },
+    "dos": {
+        "vpt_dos_layout": ([_I], _I),
+        "vpt_dos_sweep": ([_P, _P, _I] + [_P] * 9, _I),
+    },
+    "lao": {
+        "vpt_lao_layout": ([_I], _I),
+        "vpt_lao_frame": ([_P, _P, _I, _I] + [_P] * 5, _I),
+    },
     "gather_bench": {
         "vpt_gather_limits": ([_P], _I),
         "vpt_gather_scalar": ([_P, _P, _P, _L, _P], _I),
@@ -207,7 +215,8 @@ KERNELS = ("step_kernel", "tape_forward_kernel", "reverse_kernel", "contract_vol
            "scatter_rows_kernel", "surrogate_tape_kernel", "surrogate_reverse_kernel",
            "raw_tape_kernel", "raw_replay_kernel", "march_kernel", "mip_kernel", "iso_kernel",
            "iso_shade_kernel", "eam_backward_kernel", "mcm_step_kernel", "mcm_reset_kernel",
-           "mcs_frames_kernel", "mcs_persistent_kernel")
+           "mcs_frames_kernel", "mcs_persistent_kernel", "dos_slice_kernel", "dos_display_kernel",
+           "lao_frame_kernel")
 _ENTRY = re.compile(r"Compiling entry function '\S*?\d(" + "|".join(KERNELS) + r")(I\S*?EE)?[Ev]")
 
 
@@ -221,9 +230,10 @@ def ptxas_table(log_text):
     tape_forward_kernel), NB (K13 raw_tape_kernel, K14 raw_replay_kernel), NS
     (K5 reverse_kernel: 0 for stride mode, else the importance step
     count), MODE (K15 march_kernel: 0 EAM, 1 Depth), LEARN_TF (K19
-    eam_backward_kernel: 0 or 1), "" for the untemplated ones (K20
-    mcm_step_kernel, K21 mcm_reset_kernel, K22 mcs_frames_kernel and K23
-    mcs_persistent_kernel among them)."""
+    eam_backward_kernel: 0 or 1), LAO,SHADOWS (K25 lao_frame_kernel: 0 or
+    1 each), "" for the untemplated ones (K20 mcm_step_kernel, K21
+    mcm_reset_kernel, K22 mcs_frames_kernel, K23 mcs_persistent_kernel and
+    K24 dos_slice_kernel among them)."""
     rows, cur = [], None
     for line in log_text.splitlines():
         m = _ENTRY.search(line)

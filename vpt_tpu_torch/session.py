@@ -7,7 +7,10 @@ accumulation state.
 Checkpoints keep the JAX package's format (``leaf_i`` arrays in the order
 ``jax.tree.flatten`` gives the state: the ``SpectralState`` fields, or a
 dict state's values by sorted key), so a checkpoint written by either
-package loads into the other's session for the same renderer.
+package loads into the other's session for the same renderer. A host-scalar
+leaf (an ``int`` or ``float``, e.g. DOS's sweep depth) is written as the
+0-d array ``np.asarray`` gives and restored as its own Python type, as
+the JAX session does.
 """
 
 from __future__ import annotations
@@ -28,8 +31,9 @@ log = logging.getLogger("vpt_tpu_torch.session")
 
 
 def state_leaves(state) -> list:
-    """The state's tensors in the JAX package's leaf order: a dict state's
-    values by sorted key (the ray-march renderers), else ``tensors()``."""
+    """The state's leaves in the JAX package's leaf order: a dict state's
+    values by sorted key (the ray-march renderers; tensors and host
+    scalars), else ``tensors()``."""
     if isinstance(state, dict):
         return [state[k] for k in sorted(state)]
     return state.tensors()
@@ -167,7 +171,8 @@ class RenderSession:
     # -- checkpoint / resume ----------------------------------------------
     def save_checkpoint(self, path: str):
         """Snapshot the accumulation state (resumable progressive render)."""
-        leaves = [t.cpu().numpy() for t in state_leaves(self.state)]
+        leaves = [t.cpu().numpy() if torch.is_tensor(t) else np.asarray(t)
+                  for t in state_leaves(self.state)]
         np.savez(
             path,
             frame=self.frame,
@@ -189,6 +194,9 @@ class RenderSession:
         leaves = []
         for i, old in enumerate(template):
             saved = data[f"leaf_{i}"]
+            if isinstance(old, (int, float)):  # a host-scalar leaf (DOS's depth)
+                leaves.append(type(old)(saved))
+                continue
             want = (tuple(old.shape), str(old.dtype).replace("torch.", ""))
             if (saved.shape, str(saved.dtype)) != want:
                 raise ValueError(f"leaf {i} mismatch: {saved.shape}/{saved.dtype} vs {want}")
