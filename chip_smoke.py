@@ -8,7 +8,7 @@ Phases (each raises on failure, so any failure exits non-zero):
      per source, all at once); print the ptxas registers, spills and
      stack frame of every instantiation of K1, K4 (and its surrogate
      mode, <NB,MAJ,ENV,XY>), K5, K9, K10, K11, K12 (<NB,MAJ,ENV,XY>), K13,
-     K14 and K15-K25
+     K14 and K15-K28
   3. sample_volume_packed vs its plain version: all 256 u8 codes exact;
      timed at 1M lookups by device time (CUDA-graph replay) against
      F.grid_sample on the float volume, host path beside it
@@ -224,6 +224,25 @@ Phases (each raises on failure, so any failure exits non-zero):
      (16 K25 launches and nothing else), equal to the plain frame; ms per
      frame and the busy share in a fresh process. Phase 14 also runs
      `render --renderer lao`.
+ 26. the slab-sharded render (K26 slab_rows, K27 slab_advance<MAJ>, K28
+     slab_finish<NB,MAJ,ENV>) at world size 1 on a one-process NCCL group
+     (the card is one GPU): K26 on the bench's 129^3 x 8 table, u8 and f32,
+     at n x 1,048,576 requests with n = 1, 2, 4, 8 owners simulated in one
+     process (each owner == its plain version, their sum == a local take,
+     bit for bit), one owner by device time against its bound; render_slab
+     on the bench scene, 2 dispatches == K1 from the same state in every
+     field and the image, bit for bit, in the default, quasicubic, f32-table
+     and environment modes (one all-gather, one reduce-scatter and one
+     launch each of K27, K26, K28 a step); 16 dispatches timed beside K1's,
+     the counts set to 0 before; K27 and K28 per launch by device time
+     against their bounds; the collectives' share and the busy share from a
+     profile in a fresh process; MCMSpectralRenderer(mesh=ray_mesh(...)) ==
+     the renderer without a mesh. Beside phase 11, the sparse scene's
+     513^3 x 8 u8 table in majorant mode: render_slab == K1 over 2
+     dispatches, K27 and K28 in majorant mode timed, and the one-process
+     group closed before phase 12. The slab entries' "launches_of" names
+     the run their launches were counted over: the main path, or the
+     check run of a mode off it (the f32 table, the majorant).
 The line before the last is a JSON object with each kernel's launches,
 error and times, its bound (the larger of the bytes it must move over the
 HBM rate and the FP32 operations this run's data needs over the FP32
@@ -454,6 +473,20 @@ LAO_FRAMES = 16
 # lookup (41) and the remap (11): 55
 (OPS_LAO_FRAME, OPS_LAO_PIXEL, OPS_LAO_CONE_PIXEL, OPS_LAO_SHADOW_PIXEL, OPS_LAO_SAMPLE,
  OPS_LAO_CONE, OPS_LAO_CONE_END, OPS_LAO_SHADOW) = (9, 177, 5, 3, 396, 61, 3, 55)
+# phase 26, the slab render at world size 1 (one NCCL rank): K26 at owners
+# simulated in one process, 16 render_slab dispatches of the bench scene
+SLAB_SOURCE = "vpt_tpu_torch/csrc/slab.cu"
+SLAB_OWNERS = (1, 2, 4, 8)
+SLAB_DISPATCHES = 16
+# FP32 operations of the slab step's halves, OPS_STEP and OPS_LOOKUP's count
+# cut where K27 stops: K27 per lane-step the flight (2 uniforms, log,
+# divide: 4), the position (6) and the out-of-bounds test (6), per lookup
+# the 3 axes' rows and fractions (12); K28 per lane-step the position and
+# the test again (12) and the wheel (7), per lookup the 7 lerps of the
+# routed row (21), the TF's density axis (4), its 9 lerps (27) and g (2),
+# per respawn OPS_RESPAWN and the deposit (4 a bin); K26 per owned u8
+# request its 8 dequantizations
+OPS_K27_STEP, OPS_K27_LOOKUP, OPS_K28_STEP, OPS_K28_LOOKUP, OPS_K26_U8 = 16, 12, 19, 54, 8
 
 def log(msg):
     print(msg, flush=True)
@@ -4017,20 +4050,21 @@ def mcs_bound(r, ctx, n, reads, n_frames, ms):
 
 def all_launches():
     """Every kernel launch count of the port, as module.key."""
-    from vpt_tpu_torch.kernels import corners, dos, lao, mcm, mcm_spectral, mcs, raymarch
+    from vpt_tpu_torch.kernels import corners, dos, lao, mcm, mcm_spectral, mcs, raymarch, slab
     from vpt_tpu_torch.kernels import spectral_backward, surrogate
 
     return {f"{m.__name__.rsplit('.', 1)[1]}.{k}": v
             for m in (corners, dos, lao, mcm, mcm_spectral, mcs, raymarch, spectral_backward,
-                      surrogate)
+                      surrogate, slab)
             for k, v in m.LAUNCHES.items()}
 
 
 def reset_all_counts():
-    from vpt_tpu_torch.kernels import corners, dos, lao, mcm, mcm_spectral, mcs, raymarch
+    from vpt_tpu_torch.kernels import corners, dos, lao, mcm, mcm_spectral, mcs, raymarch, slab
     from vpt_tpu_torch.kernels import spectral_backward, surrogate
 
-    for m in (corners, dos, lao, mcm, mcm_spectral, mcs, raymarch, spectral_backward, surrogate):
+    for m in (corners, dos, lao, mcm, mcm_spectral, mcs, raymarch, spectral_backward, surrogate,
+              slab):
         m.reset_launch_counts()
 
 
@@ -4945,6 +4979,365 @@ def phase_lao(dev):
                          profile=prof, device_busy_share=busy)
 
 
+def slab_requests(n_rows, n, seed=26):
+    """n x N int32 row requests (N = RES^2 x STREAMS, one a lane) from a
+    numpy seed, uniform over a table of ``n_rows`` rows; every 8th is -1 (a
+    lane that looks nothing up)."""
+    g = np.random.default_rng(seed + n)
+    req = g.integers(0, n_rows, size=n * RES * RES * STREAMS).astype(np.int32)
+    req[::8] = -1
+    return req
+
+
+def slab_rows_bound(table, req, ms):
+    """K26's bound at requests ``req``: each request's index read and its
+    32-byte row written once, each owned row of the table read once (its 8
+    u8 codes dequantized)."""
+    owned = torch.unique(req[req >= 0]).numel()
+    row_bytes = 8 * table.element_size()
+    n = req.numel()
+    ops = int((req >= 0).sum()) * OPS_K26_U8 * (table.dtype == torch.uint8)
+    return bound(4 * n + owned * row_bytes + 32 * n, ops, ms)
+
+
+def slab_rows_check(flat, dims, label, dev):
+    """K26 over the (rows, 8) ``flat`` table of dims (Dp, Hp, Wp) split
+    into n = SLAB_OWNERS z-slabs simulated in one process, at n x N
+    requests: each owner's rows equal its plain version bit for bit, and
+    their sum a local take of the dequantized table (a zero row for -1).
+    Returns the kernels-line entry of one owner at N requests (the main
+    path's shape), by device time."""
+    from vpt_tpu_torch.kernels import slab as KS
+    from vpt_tpu_torch.ops import interp
+
+    Dp, Hp, Wp = dims
+    plane = Hp * Wp
+    for n in SLAB_OWNERS:
+        slab_z = -(-Dp // n)
+        req = torch.as_tensor(slab_requests(flat.shape[0], n), device=dev)
+        total = None
+        for r in range(n):
+            lo = r * slab_z * plane
+            part = flat[lo:(r + 1) * slab_z * plane]
+            if part.shape[0] < slab_z * plane:  # the zero pad of pad_packed_for_slabs
+                part = torch.cat([part, part.new_zeros((slab_z * plane - part.shape[0], 8))])
+            got = KS.slab_rows(part.contiguous(), lo, req)
+            want = KS.slab_rows_plain(part, lo, req)
+            if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
+                raise AssertionError(f"K26 {label}, owner {r} of {n}: != its plain version")
+            total = got if total is None else total + got
+        take = interp.dequantize_rows(flat[req.clamp_min(0).to(torch.int64)])
+        take = torch.where(req[:, None] >= 0, take, torch.zeros_like(take))
+        if not torch.equal(total.view(torch.int32), take.view(torch.int32)):
+            raise AssertionError(f"K26 {label}: the {n} owners' sum != a local take")
+    log(f"# K26 slab_rows {label}: each of n = {SLAB_OWNERS} owners == its plain version and "
+        f"their sum == a local take, bit for bit, at n x {RES * RES * STREAMS} requests")
+    req = torch.as_tensor(slab_requests(flat.shape[0], 1), device=dev)
+    ms = device_ms(lambda: KS.slab_rows(flat, 0, req))
+    plain_ms = device_ms(lambda: KS.slab_rows_plain(flat, 0, req))
+    b = slab_rows_bound(flat, req, ms)
+    log(f"# K26 slab_rows {label}, one owner, {req.numel()} requests: {ms:.5f} ms (device), "
+        f"plain {plain_ms:.5f} ms; bound {b['bound_ms']:.5f} ms by {b['bound_by']} "
+        f"({b['bound_bytes']} B), share {b['bound_share']:.3f}")
+    return kernel_line(dict(name="slab_rows" + ("" if flat.dtype == torch.uint8 else "[f32]"),
+                            route="cuda", source=SLAB_SOURCE,
+                            replaces="vpt_tpu/parallel/slab.py:64", max_abs_err=0.0, ms=ms,
+                            plain_ms=plain_ms, requests=req.numel()), b)
+
+
+def slab_ctx(ctx, mesh):
+    """``ctx`` with its full packed table as this rank's slab (the whole
+    table at world size 1)."""
+    from vpt_tpu_torch.parallel import slab as TS
+
+    table = ctx.density.table.view(*ctx.density.dims, 8)
+    return dataclasses.replace(ctx, density=TS.shard_packed_volume(table, mesh))
+
+
+def slab_check(label, ctx, state0, mesh, dims, seeds):
+    """len(seeds) dispatches of render_slab (this rank = every row) against
+    K1 from the same state: every state field and the image bit for bit.
+    Returns the slab's launches (counts set to 0 before)."""
+    from vpt_tpu_torch.kernels import mcm_spectral as K
+    from vpt_tpu_torch.kernels import slab as KS
+    from vpt_tpu_torch.models.mcm_spectral import radiance_to_rgb
+    from vpt_tpu_torch.parallel import mesh as Mesh
+    from vpt_tpu_torch.parallel import slab as TS
+
+    k1 = clone_state(state0)
+    K.step(k1, ctx, seeds, STEPS, BINS)
+    sctx = slab_ctx(ctx, mesh)
+    st = Mesh.shard_spectral_state(state0, mesh)
+    KS.reset_launch_counts()
+    Mesh.reset_collective_counts()
+    for seed in seeds:
+        st, img = TS.render_slab(st, dataclasses.replace(sctx, seed_bits=int(seed)), mesh, dims,
+                                 STEPS, BINS, ctx.volume_filter)
+    torch.cuda.synchronize()
+    launches, coll = dict(KS.LAUNCHES), dict(Mesh.COLLECTIVES)
+    diff = first_difference(st, k1)
+    if diff is not None:
+        raise AssertionError(f"render_slab {label} != K1: {diff}")
+    ref = radiance_to_rgb(k1.radiance, ctx.bin_xyz)
+    if not torch.equal(img.view(torch.int32), ref.view(torch.int32)):
+        raise AssertionError(f"render_slab {label}: the image != K1's")
+    steps = STEPS * len(seeds)
+    want = {"all_gather": steps, "reduce_scatter": steps, "gather_rows": len(seeds)}
+    if coll != want or any(launches[k] != steps for k in ("slab_rows", "slab_advance",
+                                                          "slab_finish")):
+        raise AssertionError(f"render_slab {label}: collectives {coll}, launches {launches}")
+    log(f"# render_slab {label} at world size 1, {'x'.join(map(str, state0.px.shape))} lanes, "
+        f"{len(seeds)} dispatches: every state field and the image == K1 bit for bit; "
+        f"samples {int(st.samples.sum())}; launches {launches}; collectives {coll}")
+    return launches
+
+
+def slab_step_entries(ctx, state0, mesh, dims, suffix, plain_reps=2):
+    """K27 and K28 per launch by device time at one step of a dispatch
+    from ``state0`` (the handoff of that step's K27 and routed rows), their
+    plain versions by CUDA events, and their bounds from this step's data:
+    K27 reads the lane's position and direction, its RNG word and the
+    majorant cells, writes the row, fractions, flight (and majorant) and
+    the word; K28 reads the state, its lane table, the word, the flight
+    (and majorant, and in bounds its request), the routed row and fractions
+    where the lane looked one up, the TF rows it looks up (and the env map),
+    writes the state and the word."""
+    from vpt_tpu_torch.kernels import mcm_spectral as K
+    from vpt_tpu_torch.kernels import slab as KS
+    from vpt_tpu_torch.parallel import mesh as Mesh
+    from vpt_tpu_torch.parallel import slab as TS
+
+    sctx = slab_ctx(ctx, mesh)
+    streams = state0.px.shape[0] if state0.px.ndim == 3 else 1
+    lanes = Mesh.lane_tables(mesh, state0.px.shape[-1], streams)
+    st = Mesh.shard_spectral_state(state0, mesh)
+    n = st.px.numel()
+    rng = torch.empty(n, dtype=torch.int32, device=st.px.device)
+    out = KS.slab_advance(st, sctx, lanes, ctx.seed_bits, True, rng, dims, BINS)
+    rows = TS.distributed_rows(sctx.density.table, out[0], mesh)
+    lookups = int((out[0] >= 0).sum())
+    # K28 reads a lane's routed row and fractions only where it looked one
+    # up, and its request only in majorant mode and in bounds
+    in_bounds = int((~K.sample_position(KS._fields(st), out[2].view(st.px.shape))[3]).sum())
+    samples0 = int(st.samples.sum())
+    after = clone_state(st)
+    KS.slab_finish(after, sctx, lanes, rows, *out[1:], out[0], rng.clone(), BINS, dims)
+    respawns = int(after.samples.sum()) - samples0
+    maj = ctx.majorant is not None
+    k27_ms = device_ms(lambda: KS.slab_advance(st, sctx, lanes, ctx.seed_bits, False, rng, dims,
+                                               BINS))
+    k28_state, k28_rng = clone_state(st), rng.clone()
+    k28_ms = device_ms(lambda: KS.slab_finish(k28_state, sctx, lanes, rows, *out[1:], out[0],
+                                              k28_rng, BINS, dims))
+    p_st, p_rng = clone_state(st), rng.clone()
+    k27_plain = cuda_ms(lambda: KS.slab_advance_plain(p_st, sctx, lanes, ctx.seed_bits, False,
+                                                      p_rng, dims), plain_reps)
+    k28_plain = cuda_ms(lambda: KS.slab_finish_plain(p_st, sctx, lanes, rows, *out[1:], out[0],
+                                                     p_rng, BINS), plain_reps)
+    maj_bytes = min(ctx.majorant.numel() * 4, n * 8) if maj else 0
+    k27_bytes = n * (24 + 4 + 4 + 12 + 4 + 4 + 4 * maj) + maj_bytes
+    tf = ctx.material_tf
+    env = 0 if ctx.environment is None else ctx.environment.numel() * 4
+    k28_bytes = (state_bytes(n, BINS) + n * (8 + 4 + 4 + 4 + 4 * maj) + in_bounds * 4 * maj
+                 + lookups * (32 + 12) + min(tf.numel(), lookups * 18) * 4 + env)
+    b27 = bound(k27_bytes, n * OPS_K27_STEP + lookups * OPS_K27_LOOKUP, k27_ms)
+    b28 = bound(k28_bytes, n * OPS_K28_STEP + lookups * OPS_K28_LOOKUP
+                + respawns * (OPS_RESPAWN + 4 * BINS), k28_ms)
+    for name, ms, pms, b in (("K27 slab_advance", k27_ms, k27_plain, b27),
+                             ("K28 slab_finish", k28_ms, k28_plain, b28)):
+        log(f"# {name}{suffix} per launch, {n} lanes ({lookups} lookups, {respawns} respawns): "
+            f"{ms:.5f} ms (device), plain {pms:.4f} ms; bound {b['bound_ms']:.5f} ms by "
+            f"{b['bound_by']} ({b['bound_bytes']} B, {b['bound_ops']} FP32 ops), share "
+            f"{b['bound_share']:.3f}")
+    common = dict(route="cuda", source=SLAB_SOURCE, replaces="vpt_tpu/parallel/slab.py:680",
+                  max_abs_err=0.0, lanes=n, lookups=lookups, respawns=respawns)
+    return (kernel_line(dict(name="slab_advance" + suffix, ms=k27_ms, plain_ms=k27_plain,
+                             **common), b27),
+            kernel_line(dict(name="slab_finish" + suffix, ms=k28_ms, plain_ms=k28_plain,
+                             **common), b28))
+
+
+def slab_sparse(renderer, cam, dev):
+    """Phase 26 (c): the sparse 512^3 scene's full 513^3 x 8 u8 table
+    (phase 11's renderer) in majorant mode: render_slab == K1 over 2
+    dispatches, K27 and K28 in majorant mode timed."""
+    from vpt_tpu_torch.parallel.mesh import ray_mesh
+
+    t0 = time.perf_counter()
+    mesh = ray_mesh(device=dev)
+    ctx = renderer.ctx(cam, 7)
+    dims = renderer.volume.density.shape
+    launches = slab_check(f"sparse {SPARSE}^3 majorant", ctx, renderer.reset(cam, 7), mesh, dims,
+                          [2654435761 * k % 2**32 for k in (1, 2)])
+    k27, k28 = slab_step_entries(ctx, renderer.reset(cam, 7), mesh, dims, "[majorant]")
+    for e, key in ((k27, "slab_advance_majorant"), (k28, "slab_finish_majorant")):
+        e["launches"] = launches[key]
+        e["launches_of"] = "the sparse majorant check run (2 dispatches)"
+    torch.distributed.destroy_process_group()
+    log(f"# phase 26 (c), the sparse slab: {time.perf_counter() - t0:.1f} s")
+    return [k27, k28]
+
+
+def slab_profile(dispatches):
+    """``dispatches`` render_slab dispatches of the bench scene at world
+    size 1 under torch.profiler, after a warm-up: the device work by
+    kernel name (ms and launches a dispatch), the device ms a dispatch, the
+    profiled host ms a dispatch. Run in a fresh process (``rm_profiles``)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from vpt_tpu_torch import Camera
+    from vpt_tpu_torch.models.mcm_spectral import MCMSpectralRenderer
+    from vpt_tpu_torch.parallel import mesh as Mesh
+    from vpt_tpu_torch.parallel import slab as TS
+    from vpt_tpu_torch.tools.profile_fit import device_kernels
+
+    dev = torch.device("cuda:0")
+    mesh = Mesh.ray_mesh(device=dev)
+    r = MCMSpectralRenderer(*bench_scene_args(), resolution=RES, streams=STREAMS, device=dev)
+    cam = Camera()
+    sctx = slab_ctx(r.ctx(cam, 7), mesh)
+    st = Mesh.shard_spectral_state(r.reset(cam, 7), mesh)
+    dims = r.volume.density.shape
+    seeds = [2654435761 * k % 2**32 for k in range(1, 3 + dispatches)]
+    for seed in seeds[:2]:
+        TS.render_slab(st, dataclasses.replace(sctx, seed_bits=seed), mesh, dims, STEPS, BINS)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for seed in seeds[2:]:
+            TS.render_slab(st, dataclasses.replace(sctx, seed_bits=seed), mesh, dims, STEPS, BINS)
+        torch.cuda.synchronize()
+        host = time.perf_counter() - t0
+    kernels = {name: dict(ms=k["ms"] / dispatches, launches=k["launches"] / dispatches)
+               for name, k in device_kernels(prof).items()}
+    torch.distributed.destroy_process_group()
+    return dict(kernels=kernels, device_ms=sum(k["ms"] for k in kernels.values()),
+                profiled_host_ms=host * 1e3 / dispatches)
+
+
+def phase_slab(dev, sparse_entries):
+    """Phase 26: the slab-sharded render (B14a) at world size 1 on a
+    one-process NCCL group: (a) K26 on the bench's 129^3 x 8 table, u8 and
+    f32, owners simulated; (b) render_slab on the bench scene against K1 bit
+    for bit (default, quasicubic, f32 table, environment map), 16 dispatches
+    timed beside K1's, K27/K26/K28 per launch, the collectives' share and the
+    busy share (a fresh process's profile); (d) MCMSpectralRenderer(mesh=)
+    against the renderer without a mesh. (c) ran beside phase 11."""
+    from vpt_tpu_torch import Camera
+    from vpt_tpu_torch.kernels import mcm_spectral as K
+    from vpt_tpu_torch.kernels import slab as KS
+    from vpt_tpu_torch.models.mcm_spectral import MCMSpectralRenderer
+    from vpt_tpu_torch.parallel import mesh as Mesh
+    from vpt_tpu_torch.parallel import slab as TS
+
+    t_phase = time.perf_counter()
+    mesh = Mesh.ray_mesh(device=dev)
+    cam = Camera()
+    r = MCMSpectralRenderer(*bench_scene_args(), resolution=RES, streams=STREAMS, device=dev)
+    ctx = r.ctx(cam, 7)
+    dims = r.volume.density.shape
+    # (a) K26 alone
+    k26 = slab_rows_check(ctx.density.table, ctx.density.dims, "u8", dev)
+    f32 = f32_ctx(r, cam, dev)
+    k26_f32 = slab_rows_check(f32.density.table, f32.density.dims, "f32", dev)
+    # (b) render_slab against K1
+    seeds2 = [2654435761 * k % 2**32 for k in (1, 2)]
+    s0 = r.reset(cam, 7)
+    slab_check("default", ctx, s0, mesh, dims, seeds2)
+    slab_check("quasicubic", dataclasses.replace(ctx, volume_filter="quasicubic"), s0, mesh, dims,
+               seeds2)
+    k26_f32["launches"] = slab_check("f32 table", f32, s0, mesh, dims, seeds2)["slab_rows"]
+    k26_f32["launches_of"] = "the f32-table check run (2 dispatches)"
+    env_r = MCMSpectralRenderer(*bench_scene_args(), resolution=RES, streams=STREAMS,
+                                environment=seeded_envmap(), device=dev)
+    slab_check("environment", env_r.ctx(cam, 7), env_r.reset(cam, 7), mesh, dims, seeds2)
+    del env_r
+    k27, k28 = slab_step_entries(ctx, s0, mesh, dims, "")
+    # the main path: SLAB_DISPATCHES dispatches, the counts set to 0 just before
+    sctx = slab_ctx(ctx, mesh)
+    st = Mesh.shard_spectral_state(s0, mesh)
+    seeds = [2654435761 * k % 2**32 for k in range(3, 3 + SLAB_DISPATCHES)]
+    TS.render_slab(st, dataclasses.replace(sctx, seed_bits=1), mesh, dims, STEPS, BINS)
+    torch.cuda.synchronize()
+    reset_all_counts()
+    Mesh.reset_collective_counts()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    for seed in seeds:
+        st, img = TS.render_slab(st, dataclasses.replace(sctx, seed_bits=seed), mesh, dims, STEPS,
+                                 BINS)
+    end.record()
+    torch.cuda.synchronize()
+    host_s = time.perf_counter() - t0
+    launches = {k: v for k, v in all_launches().items() if v}
+    coll = dict(Mesh.COLLECTIVES)
+    n_steps = SLAB_DISPATCHES * STEPS
+    want = {"slab.slab_rows": n_steps, "slab.slab_rows_u8": n_steps,
+            "slab.slab_advance": n_steps, "slab.slab_finish": n_steps}
+    if launches != want or coll != {"all_gather": n_steps, "reduce_scatter": n_steps,
+                                    "gather_rows": SLAB_DISPATCHES}:
+        raise AssertionError(f"render_slab x {SLAB_DISPATCHES}: launches {launches}, "
+                             f"collectives {coll}")
+    if not bool(torch.isfinite(img).all()) or tuple(img.shape) != (RES, RES, 3):
+        raise AssertionError(f"render_slab's image: {tuple(img.shape)}, not finite")
+    dispatch_ms = start.elapsed_time(end) / SLAB_DISPATCHES
+    sk = clone_state(s0)
+    k1_ms = cuda_ms(lambda: K.step(sk, ctx, [seeds[0]], STEPS, BINS), SLAB_DISPATCHES)
+    k26["launches"] = launches["slab.slab_rows"]
+    k27["launches"], k28["launches"] = launches["slab.slab_advance"], launches["slab.slab_finish"]
+    for e in (k26, k27, k28):
+        e["launches_of"] = "the main path"
+    log(f"# render_slab on the bench scene (world size 1, NCCL), {SLAB_DISPATCHES} dispatches: "
+        f"{dispatch_ms:.4f} ms a dispatch by CUDA events ({host_s * 1e3 / SLAB_DISPATCHES:.4f} ms "
+        f"host), K1 {k1_ms:.4f} ms a dispatch ({dispatch_ms / k1_ms:.2f}x); launches {launches}; "
+        f"collectives {coll}")
+    prof = fresh_result("slab_profile", 4)
+    coll_ms = sum(k["ms"] for name, k in prof["kernels"].items()
+                  if "nccl" in name.lower() or "memcpy" in name.lower())
+    busy = prof["device_ms"] / dispatch_ms
+    log(f"# profiled render_slab (a fresh process), per dispatch: device {prof['device_ms']:.5f} "
+        f"ms of {dispatch_ms:.5f} ms unprofiled (busy {busy:.3f}); the collectives "
+        f"{coll_ms:.5f} ms ({coll_ms / prof['device_ms']:.3f} of the device time); " + ", ".join(
+            f"{n} {k['ms']:.5f} ms x{k['launches']:g}" for n, k in prof["kernels"].items()))
+    # (d) the mesh renderer at world size 1 against the renderer without one
+    rm = MCMSpectralRenderer(*bench_scene_args(), resolution=RES, streams=STREAMS, mesh=mesh,
+                             device=dev)
+    a, b = r.reset(cam, 7), rm.reset(cam, 7)
+    a, img_a = r.render_many(a, cam, seeds2)
+    b, img_b = rm.render_many(b, cam, seeds2)
+    a, img_a = r.render(a, cam, 9)
+    b, img_b = rm.render(b, cam, 9)
+    torch.cuda.synchronize()
+    diff = first_difference(a, b)
+    if diff is not None or not torch.equal(img_a.view(torch.int32), img_b.view(torch.int32)):
+        raise AssertionError(f"MCMSpectralRenderer(mesh=) != the renderer without a mesh: {diff}")
+    log(f"# MCMSpectralRenderer(mesh=ray_mesh(device={dev})) == the renderer without a mesh bit "
+        "for bit (reset, render_many of 2 seeds, render; every state field and both images)")
+    torch.distributed.destroy_process_group()
+    log(f"# phase 26 (the slab): {time.perf_counter() - t_phase:.1f} s")
+    return ([k26, k26_f32, k27, k28, *sparse_entries],
+            dict(dispatch_ms=dispatch_ms, host_ms=host_s * 1e3 / SLAB_DISPATCHES, k1_ms=k1_ms,
+                 launches=launches, collectives=coll, profile=prof, device_busy_share=busy,
+                 collective_ms=coll_ms))
+
+
+def fresh_result(fn, *args):
+    """``chip_smoke.<fn>(*args)``, a profile, in one fresh process (PERF.md
+    question 10): its JSON result."""
+    code = ("import json, torch, chip_smoke as CS\n"
+            f"print(json.dumps(CS.{fn}(*{args!r})))\n")
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                          timeout=300, cwd=os.path.dirname(os.path.abspath(__file__)))
+    if proc.returncode != 0:
+        raise AssertionError(f"the profiling process exited {proc.returncode}: "
+                             f"{proc.stderr[-2000:]}")
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    if not out["device_ms"] > 0:
+        raise AssertionError(f"{fn}: the profiler saw no device time")
+    return out
+
+
 def launch_counts():
     from vpt_tpu_torch.kernels import corners as C
     from vpt_tpu_torch.kernels import mcm_spectral as K
@@ -5465,6 +5858,7 @@ def main():
     k1_maj, sparse, sparse_renderer, sparse_cam = phase_majorant(dev)
     sparse["xy"] = phase_sparse_xy(sparse_renderer, sparse_cam, dev)
     sparse["raw"] = phase_sparse_raw(sparse_renderer, sparse_cam, dev)
+    slab_sparse_entries = slab_sparse(sparse_renderer, sparse_cam, dev)
     del sparse_renderer
     torch.cuda.empty_cache()
     k1_modes, mode_rates = phase_env_quasicubic(dev)
@@ -5484,6 +5878,7 @@ def main():
     mcsp_kernels, mcsp = phase_mcs_persistent(dev)
     dos_kernels, dos = phase_dos(dev)
     lao_kernels, lao = phase_lao(dev)
+    slab_kernels, slab = phase_slab(dev, slab_sparse_entries)
     foreign = sorted(k for k in sys.modules
                      if k in ("jax", "vpt_tpu") or k.startswith(("jax.", "vpt_tpu.")))
     if foreign:
@@ -5532,7 +5927,7 @@ def main():
                *k5_modes.values(), *corner_modes.values(), *sur_modes.values(), k4_raw, k12_raw,
                k1_raw, k13,
                k14, *rm_kernels, *eam_kernels, *mcm_kernels, *mcs_kernels, *mcsp_kernels,
-               *dos_kernels, *lao_kernels]
+               *dos_kernels, *lao_kernels, *slab_kernels]
     missing = [k["name"] for k in kernels + [k3, k3_xy, k3_raw]
                if not {"bound_ms", "bound_by", "library_ms", "launches", "ms", "plain_ms",
                        "max_abs_err"} <= set(k)]
@@ -5551,7 +5946,7 @@ def main():
               "cli": cli, "surrogate": {"twin_on_card": twin, "autodiff_fit": autodiff},
               "raymarch_sessions": rm_sessions, "eam_training": eam_fits,
               "mcm_sessions": mcm_sessions, "mcs": mcs, "mcs_persistent": mcsp, "dos": dos,
-              "lao": lao,
+              "lao": lao, "slab": slab,
               "ptxas": ptxas, "gpu": smi}
     log(json.dumps(result))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -59,7 +59,7 @@ def test_sources_of_each_directory():
     assert set(_build._sources()) == set(_build._SIGNATURES)
     assert set(_build._SIGNATURES) == {"mcm_spectral", "spectral_backward", "corners",
                                        "gather_bench", "surrogate", "raw_backward", "raymarch",
-                                       "mcm", "mcs", "dos", "lao"}
+                                       "mcm", "mcs", "dos", "lao", "slab"}
 
 
 RAYMARCH_LOG = """== raymarch.cu
@@ -195,6 +195,28 @@ def test_ptxas_table_reads_the_occlusion_kernels():
     assert _build.ptxas_table(OCCLUSION_LOG) == [("dos_slice_kernel", "", 40, 0, 0, 0),
                                                  ("dos_display_kernel", "", 16, 0, 0, 0),
                                                  ("lao_frame_kernel", "1,0", 56, 0, 0, 32)]
+
+
+SLAB_LOG = """== slab.cu
+ptxas info    : Compiling entry function '_ZN47_GLOBAL__N__1e2f3a4b_7_slab_cu_5d6e7f8016slab_rows_kernelEPKvillPKiP6float4l' for 'sm_90a'
+ptxas info    : Function properties for _ZN47_GLOBAL__N__1e2f3a4b_7_slab_cu_5d6e7f8016slab_rows_kernelEPKvillPKiP6float4l
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 20 registers, used 0 barriers
+ptxas info    : Compiling entry function '_ZN47_GLOBAL__N__1e2f3a4b_7_slab_cu_5d6e7f8019slab_advance_kernelILb1EEEvNS_6ParamsEPKfS3_S3_S3_S3_S3_PKjS5_jiPjPK6float2PiPfSB_SB_' for 'sm_90a'
+ptxas info    : Used 40 registers, used 0 barriers
+ptxas info    : Compiling entry function '_ZN47_GLOBAL__N__1e2f3a4b_7_slab_cu_5d6e7f8018slab_finish_kernelILi12ELb0ELb1EEEvNS_6ParamsEPfS2_S2_S2_S2_S2_PiS3_S3_S2_S2_PKjS5_PjPK6float4PKfSB_SB_PKiSB_SB_' for 'sm_90a'
+ptxas info    : Function properties for _ZN47_GLOBAL__N__1e2f3a4b_7_slab_cu_5d6e7f8018slab_finish_kernelILi12ELb0ELb1EEEvNS_6ParamsEPfS2_S2_S2_S2_S2_PiS3_S3_S2_S2_PKjS5_PjPK6float4PKfSB_SB_PKiSB_SB_
+    24 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 56 registers, used 0 barriers, 24 bytes cumulative stack size
+"""
+
+
+def test_ptxas_table_reads_the_slab_kernels():
+    """K26 (csrc/slab.cu) is untemplated, K27 carries MAJ and K28
+    NB,MAJ,ENV."""
+    assert _build.ptxas_table(SLAB_LOG) == [("slab_rows_kernel", "", 20, 0, 0, 0),
+                                            ("slab_advance_kernel", "1", 40, 0, 0, 0),
+                                            ("slab_finish_kernel", "12,0,1", 56, 0, 0, 24)]
 
 
 def _enum_count(text, enum):

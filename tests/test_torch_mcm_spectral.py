@@ -191,9 +191,10 @@ def test_packed_tables_bit_equal_to_jax_static_ctx():
     "quasicubic",
 ])
 def test_options_outside_the_slice_raise(option):
-    """A mesh raises; the environment map, the majorant grid, compaction,
-    the quasicubic filter and raw or partly packed tables are ported and
-    render finite images."""
+    """A mesh that is not a ``parallel.mesh.RayMesh`` raises TypeError (a
+    RayMesh renders, tests/test_torch_mesh.py); the environment map, the
+    majorant grid, compaction, the quasicubic filter and raw or partly
+    packed tables are ported and render finite images."""
     args = list(convert.scene_from(*_scene()))
     kw = {}
     if option == "quasicubic":
@@ -207,7 +208,7 @@ def test_options_outside_the_slice_raise(option):
         _, img = r.render(r.reset(cam, 1), cam, 2)
         assert img.shape == (16, 16, 3) and bool(torch.isfinite(img).all())
         return
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError):
         TM.MCMSpectralRenderer(*args, resolution=16, device="cpu", **kw)
 
 

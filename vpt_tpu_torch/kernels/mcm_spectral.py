@@ -189,6 +189,40 @@ def _surrogate(prob, taken):
     return torch.where(taken, safe / safe.detach(), torch.ones_like(prob))
 
 
+def free_flight(p, rng, ctx):
+    """The free flight of a Woodcock iteration (JAX ``_render_body``'s
+    first draw): (rng, dist, maj, capped). With a majorant grid the flight
+    samples at the local rate extinction * m of the pre-step position's
+    cell and stops at its cap (``capped``); without one, maj and capped are
+    None. ``ctx.extinction`` may be a 0-d tensor; the draw keeps its
+    float32 value."""
+    all_mask = torch.ones(rng.shape, dtype=torch.bool, device=rng.device)
+    ext_f = _f32(float(torch.as_tensor(ctx.extinction).detach()))
+    if ctx.majorant is None:
+        rng, dist = sampling.draw_exponential(rng, all_mask, ext_f)
+        return rng, dist, None, None
+    Gz, Gy, Gx, _ = ctx.majorant.shape
+    # the pre-step position's cell: clip(int32(floor(p*n)), 0, n-1) per axis
+    cell = ((interp._nearest_coords(p["pz"], Gz) * Gy + interp._nearest_coords(p["py"], Gy))
+            * Gx + interp._nearest_coords(p["px"], Gx))
+    row = ctx.majorant.reshape(-1, 2)[cell.to(torch.int64)]
+    maj = torch.clamp_min(row[..., 0], 1e-12)
+    flight_cap = row[..., 1]
+    rng, dist = sampling.draw_exponential(rng, all_mask, maj * ext_f)
+    # a flight past the cap is a pure advance by the cap (no event)
+    capped = dist >= flight_cap
+    return rng, torch.minimum(dist, flight_cap), maj, capped
+
+
+def sample_position(p, dist):
+    """The flight's end (px, py, pz) and whether it left the unit cube."""
+    px = p["px"] + dist * p["dx"]
+    py = p["py"] + dist * p["dy"]
+    pz = p["pz"] + dist * p["dz"]
+    oob = (px > 1.0) | (px < 0.0) | (py > 1.0) | (py < 0.0) | (pz > 1.0) | (pz < 0.0)
+    return px, py, pz, oob
+
+
 def _render_body(p, rng, sx, sy, ctx, n_bins, light, collect: bool = False, score=None):
     """One Woodcock iteration over all lanes; ``p``: dict of lane tensors.
     Same order of operations and draws as the JAX ``_render_body``,
@@ -207,24 +241,8 @@ def _render_body(p, rng, sx, sy, ctx, n_bins, light, collect: bool = False, scor
     autograd this is the surrogate's autograd twin, a test oracle.
     ``ctx.extinction`` may then be a 0-d tensor; the draw keeps its
     float32 value."""
-    all_mask = torch.ones(rng.shape, dtype=torch.bool, device=rng.device)
     diff = score is not None
-    ext_f = _f32(float(torch.as_tensor(ctx.extinction).detach()))
-    maj = capped = None
-    if ctx.majorant is not None:
-        Gz, Gy, Gx, _ = ctx.majorant.shape
-        # the pre-step position's cell: clip(int32(floor(p*n)), 0, n-1) per axis
-        cell = ((interp._nearest_coords(p["pz"], Gz) * Gy + interp._nearest_coords(p["py"], Gy))
-                * Gx + interp._nearest_coords(p["px"], Gx))
-        row = ctx.majorant.reshape(-1, 2)[cell.to(torch.int64)]
-        maj = torch.clamp_min(row[..., 0], 1e-12)
-        flight_cap = row[..., 1]
-        rng, dist = sampling.draw_exponential(rng, all_mask, maj * ext_f)
-        # a flight past the cap is a pure advance by the cap (no event)
-        capped = dist >= flight_cap
-        dist = torch.minimum(dist, flight_cap)
-    else:
-        rng, dist = sampling.draw_exponential(rng, all_mask, ext_f)
+    rng, dist, maj, capped = free_flight(p, rng, ctx)
     if diff:
         # d log p(dist; extinction) on the score, the distance detached; in
         # majorant mode the rate extinction * m with m detached, and a
@@ -238,14 +256,24 @@ def _render_body(p, rng, sx, sy, ctx, n_bins, light, collect: bool = False, scor
             logp = torch.log(ext_t) - ext_t * dist.detach()
         score = score * torch.exp(logp - logp.detach())
         dist = dist.detach()
-    px = p["px"] + dist * p["dx"]
-    py = p["py"] + dist * p["dy"]
-    pz = p["pz"] + dist * p["dz"]
-    oob = (px > 1.0) | (px < 0.0) | (py > 1.0) | (py < 0.0) | (pz > 1.0) | (pz < 0.0)
+    px, py, pz, oob = sample_position(p, dist)
 
     # material lookup (sampled, clamped, even when out of bounds)
-    t = sampling.div_scalar(p["wavelength"] - 400.0, 300.0)
     dens = interp.sample_volume(ctx.density, px, py, pz, ctx.volume_filter)
+    return after_lookup(p, rng, sx, sy, ctx, n_bins, light, dist, maj, capped,
+                        (px, py, pz), oob, dens, collect, score)
+
+
+def after_lookup(p, rng, sx, sy, ctx, n_bins, light, dist, maj, capped, pos, oob, dens,
+                 collect: bool = False, score=None):
+    """The rest of a Woodcock iteration from the flight (``free_flight``,
+    ``sample_position``) and the density at its end: the TF, the event
+    wheel, the deposit, the respawn and the HG scatter; returns what
+    ``_render_body`` returns."""
+    diff = score is not None
+    all_mask = torch.ones(rng.shape, dtype=torch.bool, device=rng.device)
+    px, py, pz = pos
+    t = sampling.div_scalar(p["wavelength"] - 400.0, 300.0)
     if ctx.material_tf.shape[-1] == 18:
         # the fused TF+light table: one row holds both
         mat, light_raw, tf_extras = interp.sample_tex2d_fused1d(ctx.material_tf, t, dens,
@@ -457,7 +485,10 @@ def _raise_on(err: int, what: str):
         raise RuntimeError(f"{what}: CUDA launch failed with cudaError_t {err}")
 
 
-def _params(ctx, resolution, streams, n_bins, steps=0, n_seeds=0, n_lanes=None):
+def _params(ctx, resolution, streams, n_bins, steps=0, n_seeds=0, n_lanes=None, vol_dims=None):
+    """K1's parameter block (csrc/mcm_common.cuh FParam, IParam) for ``ctx``.
+    ``vol_dims``: the padded (Dp, Hp, Wp) a packed lookup addresses, when
+    not the table's own (a z-slab of the table, ``parallel/slab.py``)."""
     if not 1 <= n_bins <= MAX_BINS:
         raise ValueError(f"n_bins={n_bins} outside [1, {MAX_BINS}]")
     if n_lanes is None:
@@ -481,7 +512,7 @@ def _params(ctx, resolution, streams, n_bins, steps=0, n_seeds=0, n_lanes=None):
     # a raw table of n texels along an axis gives that axis as n + 1
     # (csrc/mcm_common.cuh IParam)
     vol_raw = not isinstance(vol, interp.PackedVolume)
-    dims = tuple(d + 1 for d in vol.shape) if vol_raw else vol.dims
+    dims = tuple(d + 1 for d in vol.shape) if vol_raw else vol_dims or vol.dims
     tf_kind = _TF_KIND[tf.shape[-1]]
     tf_dims = (tf.shape[0] + 1, tf.shape[1] + 1) if tf_kind == 1 else tf.shape[:2]
     light_kind = (_LIGHT_FUSED if tf_kind == 0 else _LIGHT_PAIR if light.ndim == 2

@@ -48,6 +48,7 @@ from vpt_tpu_torch.models.base import register_renderer
 from vpt_tpu_torch.ops import interp
 from vpt_tpu_torch.ops.majorant import build_majorant_grid
 from vpt_tpu_torch.ops.spectral import bin_coefficients, xyz_to_rgb_linear
+from vpt_tpu_torch.parallel.mesh import RayMesh, gather_rows, lane_tables
 from vpt_tpu_torch.utils.config import LightConfig, MaterialTF, MCMSpectralConfig, SpectrumConfig
 
 
@@ -339,8 +340,17 @@ class MCMSpectralRenderer(nn.Module):
     is the xy half-packed volume at 4x the raw grid's memory,
     {"material_tf", "light_spectrum"} the raw grid with the fused TF);
     False keeps every table raw. A ``nearest`` volume renders over raw
-    tables whatever ``pack_tables`` says. A mesh raises
-    ``NotImplementedError``."""
+    tables whatever ``pack_tables`` says.
+
+    ``mesh``: a ``parallel.mesh.RayMesh``. The scene tables are replicated
+    (each rank holds them on ``mesh.device``); ``reset`` returns this
+    rank's rows of the state ((rows, W) or (S, rows, W) lanes, as
+    ``mesh.shard_spectral_state`` splits a global state), one K2 launch
+    over the rank's lane table (ix, global iy, seed_iy); ``render`` and
+    ``render_many`` run K1 over that lane table and return the global
+    image, gathered from every rank's rows (the mesh render's one
+    collective). Seeds follow global pixel coordinates, so a render is
+    bit-identical at every world size."""
 
     # bound on _compact_tables' per-pose cache (an orbit renders many poses)
     COMPACT_CACHE_POSES = 8
@@ -365,9 +375,8 @@ class MCMSpectralRenderer(nn.Module):
         super().__init__()
         if compaction and mesh is not None:
             raise ValueError("compaction is a single-device mode")
-        if mesh is not None:
-            raise NotImplementedError(
-                "mcm-spectral option not ported to the torch package yet: mesh")
+        if mesh is not None and not isinstance(mesh, RayMesh):
+            raise TypeError(f"mesh must be a parallel.mesh.RayMesh, got {type(mesh).__name__}")
         if volume.filter not in ("linear", "quasicubic", "nearest"):
             raise ValueError(f"unknown volume filter {volume.filter!r}")
         vol_kind, tf_kind, light_kind, env_packed = table_layout(pack_tables, volume.filter)
@@ -379,6 +388,11 @@ class MCMSpectralRenderer(nn.Module):
         self.resolution = int(resolution)
         self.streams = int(streams)
         self.device = torch.device(device)
+        self.mesh = mesh
+        if mesh is not None:
+            if self.device != mesh.device:
+                raise ValueError(f"renderer device {self.device} != mesh device {mesh.device}")
+            self._mesh_lanes = lane_tables(mesh, self.resolution, self.streams)
         if self.spectrum.n_bins > K.MAX_BINS:
             raise ValueError(f"{self.spectrum.n_bins} bins > the kernel's {K.MAX_BINS}")
 
@@ -475,12 +489,36 @@ class MCMSpectralRenderer(nn.Module):
             t = self._compact_tables(camera)
             return C.compact_reset(self.ctx(camera, seed), t["lane_ix"], t["lane_iy"],
                                    t["lane_seed_iy"], self.spectrum.n_bins, self.resolution)
+        if self.mesh is not None:
+            st = K.reset(self.ctx(camera, seed), self.resolution, self.spectrum.n_bins, 1,
+                         self.vol_table.device, lanes=self._mesh_lanes)
+            return self._mesh_view(SpectralState(**st), self._mesh_state_shape())
         return full_reset(self.ctx(camera, seed), self.resolution, self.spectrum.n_bins,
                           self.streams, device=self.vol_table.device)
+
+    def _mesh_state_shape(self):
+        """This rank's lane shape: (rows, W), or (S, rows, W) with streams."""
+        rows = self._mesh_lanes[0].shape[0] // self.streams
+        return ((rows, self.resolution) if self.streams == 1
+                else (self.streams, rows, self.resolution))
+
+    @staticmethod
+    def _mesh_view(state: SpectralState, lane) -> SpectralState:
+        """The same storage viewed at lane shape ``lane`` (the lane table's
+        (S * rows, W) and the state's (S, rows, W) are one layout)."""
+        fields = {}
+        for k in SpectralState.field_names():
+            t = getattr(state, k)
+            fields[k] = t.view((t.shape[0],) + tuple(lane) if k in ("radiance", "transmittance")
+                               else tuple(lane))
+        return SpectralState(**fields)
 
     def render(self, state: SpectralState, camera, seed: int):
         if self.compaction:
             return self.render_many(state, camera, [seed])
+        if self.mesh is not None:
+            ctx = self.ctx(camera, seed)
+            return self._mesh_render(state, ctx, [ctx.seed_bits])
         return render(state, self.ctx(camera, seed), self.config.steps, self.spectrum.n_bins)
 
     def render_many(self, state: SpectralState, camera, seeds):
@@ -496,4 +534,13 @@ class MCMSpectralRenderer(nn.Module):
                                   self.resolution)
             return state, C.compact_image(state, t["pixel_hit"], t["n_hit"], t["miss"],
                                           ctx.bin_xyz, self.streams)
+        if self.mesh is not None:
+            return self._mesh_render(state, ctx, seeds)
         return render_many(state, ctx, seeds, self.config.steps, self.spectrum.n_bins)
+
+    def _mesh_render(self, state: SpectralState, ctx: SpectralCtx, seeds):
+        """K1 over this rank's lane table (one launch for all ``seeds``),
+        then the global image gathered from every rank's rows."""
+        K.step(self._mesh_view(state, self._mesh_lanes[0].shape), ctx, seeds, self.config.steps,
+               self.spectrum.n_bins, lanes=self._mesh_lanes)
+        return state, gather_rows(radiance_to_rgb(state.radiance, ctx.bin_xyz), self.mesh)
