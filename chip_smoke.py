@@ -8,7 +8,7 @@ Phases (each raises on failure, so any failure exits non-zero):
      per source, all at once); print the ptxas registers, spills and
      stack frame of every instantiation of K1, K4 (and its surrogate
      mode, <NB,MAJ,ENV,XY>), K5, K9, K10, K11, K12 (<NB,MAJ,ENV,XY>), K13,
-     K14 and K15-K28
+     K14 and K15-K31
   3. sample_volume_packed vs its plain version: all 256 u8 codes exact;
      timed at 1M lookups by device time (CUDA-graph replay) against
      F.grid_sample on the float volume, host path beside it
@@ -137,7 +137,7 @@ Phases (each raises on failure, so any failure exits non-zero):
      set to 0 before (one K15 frame and one K19 launch an iteration, and
      nothing else), its losses against the same loop through the plain
      versions (iteration 0 bit for bit, then 1e-3 relative: all 10
-     learning the density, the first 5 learning the TF too), seconds per
+     learning the density, the first 3 learning the TF too), seconds per
      iteration, the device busy share of an iteration (torch.profiler);
      `invert --device cuda --iterations 10` through the CLI.
  21. the RGB MCM renderer (K20 mcm_step, K21 mcm_reset, K8 on the RGB
@@ -243,6 +243,27 @@ Phases (each raises on failure, so any failure exits non-zero):
      group closed before phase 12. The slab entries' "launches_of" names
      the run their launches were counted over: the main path, or the
      check run of a mode off it (the f32 table, the majorant).
+ 27. the slab-sharded PRB backward and optimizer (K27 asking every lane's
+     row, K28 slab_finish<NB,0,ENV,TAPE=1>, K5's ROUTED mode, K29
+     slab_scatter, K30 slab_contract, K31 slab_pack) at world size 1 on a
+     one-process NCCL group, the bench scene: the taped slab dispatch's
+     tape and state == K4's bit for bit (default, quasicubic,
+     environment); K31 == K10's table with pad_packed_for_slabs's zero
+     planes for every owner at n = 1, 2, 4, 8, bit for bit; K5 ROUTED + K29
+     == K5's adjoint over one tape at stride 1, stride 4 and importance 4
+     (the carry bit for bit, the pairs' rows == plain bit for bit); K29 and
+     K30 (with the halos) at n simulated owners == one owner and K9;
+     prb_window_grads_slab (8 dispatches) == the replicated forward-storage
+     window (the image and samples bit for bit) in the three modes; the
+     main path fit_spectral_slab, 3 iterations of 8 dispatches, the counts
+     set to 0 before, against fit_spectral(method="prb", scatter_stride=1)
+     (losses rtol 1e-4, params rtol 5e-4 / atol 5e-6), its launches and
+     collectives an iteration, seconds an iteration, peak memory, the busy
+     share from a fresh process's profile; each new kernel and mode by
+     device time (K5 ROUTED by CUDA events) against its bound, K29 beside
+     index_add_ of the owned pairs. Beside phase 11, one fit_spectral_slab
+     iteration over the sparse 512^3 raw grid (its f32 slab 4.3 GB): its
+     seconds and peak memory. Every phase's seconds are logged and kept.
 The line before the last is a JSON object with each kernel's launches,
 error and times, its bound (the larger of the bytes it must move over the
 HBM rate and the FP32 operations this run's data needs over the FP32
@@ -487,14 +508,26 @@ SLAB_DISPATCHES = 16
 # per respawn OPS_RESPAWN and the deposit (4 a bin); K26 per owned u8
 # request its 8 dequantizations
 OPS_K27_STEP, OPS_K27_LOOKUP, OPS_K28_STEP, OPS_K28_LOOKUP, OPS_K26_U8 = 16, 12, 19, 54, 8
+# the slab backward (phase 27): a window and a fit iteration of SLAB_WINDOW
+# dispatches, SLAB_FIT_ITERS iterations; FP32 operations: K29 8 adds an
+# owned pair, K30 one add a packed value (8 a row); K5 ROUTED as K5 (8 a
+# lane-step, the scatters' arithmetic left out)
+SLAB_WINDOW, SLAB_FIT_ITERS = 8, 3
+OPS_K29_PAIR, OPS_K30_ROW = 8, 8
+SLAB_WRT = frozenset({"density"})
+# the slab backward's tolerances against the replicated path (atomics: the
+# summation order differs): relative L2 of a gradient or adjoint
+SLAB_BWD_RTOL = 1e-5
 
 def log(msg):
     print(msg, flush=True)
 
 
-def cuda_ms(fn, reps: int) -> float:
-    """Mean device time of ``fn()`` over ``reps`` runs, by CUDA events."""
-    fn()
+def cuda_ms(fn, reps: int, warm: bool = True) -> float:
+    """Mean device time of ``fn()`` over ``reps`` runs, by CUDA events,
+    after one untimed call unless ``warm`` is False."""
+    if warm:
+        fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -3389,7 +3422,8 @@ def phase_eam_fit(dev):
         key = "eam_backward[tf]" if learn_tf else "eam_backward"
         args = (g, inv, truth, tft, F["extinction"], offset, F["slices"], "linear", learn_tf)
         ms = device_ms(lambda: RK.eam_backward(*args))
-        plain_ms = cuda_ms(lambda: RK.eam_backward_plain(*args), 1 if learn_tf else 2)
+        # the plain versions ran in the checks above: no warm-up call
+        plain_ms = cuda_ms(lambda: RK.eam_backward_plain(*args), 1 if learn_tf else 2, warm=False)
         b = eam_bwd_bound(reads, tft, res, learn_tf)
         b["bound_share"] = b["bound_ms"] / ms
         big_reads = rm_replay("eam", inv, big, tft, "linear", offset,
@@ -3429,8 +3463,9 @@ def phase_eam_fit(dev):
         # Adam moves an element whose gradient is rounding noise by up to the
         # learning rate; learning the TF, the trajectories may part after
         # iteration 5 (tests/test_torch_eam_grad.py), and the plain TF
-        # gradient takes seconds: the plain loop runs the iterations compared
-        held = F["iterations"] if not learn_tf else 5
+        # gradient takes ~3.8 s an iteration: the plain loop runs the
+        # iterations compared, 3 of them
+        held = F["iterations"] if not learn_tf else 3
         _, plain_losses, plain_dt, plain_launches = eam_fit_run(targets, cams, tft, dev, learn_tf,
                                                                 plain=True, iterations=held)
         if any(plain_launches.values()):
@@ -5082,7 +5117,8 @@ def slab_check(label, ctx, state0, mesh, dims, seeds):
     if not torch.equal(img.view(torch.int32), ref.view(torch.int32)):
         raise AssertionError(f"render_slab {label}: the image != K1's")
     steps = STEPS * len(seeds)
-    want = {"all_gather": steps, "reduce_scatter": steps, "gather_rows": len(seeds)}
+    want = {"all_gather": steps, "reduce_scatter": steps, "gather_rows": len(seeds), "halo": 0,
+            "all_reduce": 0}
     if coll != want or any(launches[k] != steps for k in ("slab_rows", "slab_advance",
                                                           "slab_finish")):
         raise AssertionError(f"render_slab {label}: collectives {coll}, launches {launches}")
@@ -5276,7 +5312,7 @@ def phase_slab(dev, sparse_entries):
     want = {"slab.slab_rows": n_steps, "slab.slab_rows_u8": n_steps,
             "slab.slab_advance": n_steps, "slab.slab_finish": n_steps}
     if launches != want or coll != {"all_gather": n_steps, "reduce_scatter": n_steps,
-                                    "gather_rows": SLAB_DISPATCHES}:
+                                    "gather_rows": SLAB_DISPATCHES, "halo": 0, "all_reduce": 0}:
         raise AssertionError(f"render_slab x {SLAB_DISPATCHES}: launches {launches}, "
                              f"collectives {coll}")
     if not bool(torch.isfinite(img).all()) or tuple(img.shape) != (RES, RES, 3):
@@ -5320,6 +5356,557 @@ def phase_slab(dev, sparse_entries):
             dict(dispatch_ms=dispatch_ms, host_ms=host_s * 1e3 / SLAB_DISPATCHES, k1_ms=k1_ms,
                  launches=launches, collectives=coll, profile=prof, device_busy_share=busy,
                  collective_ms=coll_ms))
+
+
+def rel_l2(a, b):
+    return float((a - b).norm()) / max(float(b.norm()), 1e-30)
+
+
+def slab_tape_check(label, ctx, state0, mesh, dims, seed):
+    """The taped slab dispatch (K27 asking every lane's row, all-gather,
+    K26, reduce-scatter, K28 TAPE a step) against K4 from the same state
+    and seed: the tape and every state field bit for bit."""
+    from vpt_tpu_torch.kernels import spectral_backward as TB
+    from vpt_tpu_torch.parallel import mesh as Mesh
+    from vpt_tpu_torch.parallel import slab as TS
+
+    fields = TB.ctx_tape_fields(ctx, SLAB_WRT)
+    k4_state, k4_tape = TB.tape_forward(state0, ctx, [seed], STEPS, BINS, SLAB_WRT)
+    st, tape = TS.tape_slab_dispatch(Mesh.shard_spectral_state(state0, mesh), slab_ctx(ctx, mesh),
+                                     mesh, dims, STEPS, BINS, seed, fields)
+    torch.cuda.synchronize()
+    ne = tape.view(torch.int32) != k4_tape.view(torch.int32)
+    if bool(ne.any()):
+        bad = {f: int(ne[:, :, i].sum()) for i, f in enumerate(fields) if bool(ne[:, :, i].any())}
+        raise AssertionError(f"K28 TAPE's tape ({label}) != K4's: lane-steps differing by field {bad}")
+    diff = first_difference(st, k4_state)
+    if diff is not None:
+        raise AssertionError(f"the taped slab dispatch ({label}) left another state than K4: {diff}")
+    log(f"# the taped slab dispatch ({label}, {'x'.join(map(str, state0.px.shape))} lanes, "
+        f"{STEPS} steps): K28 TAPE's tape ({len(fields)} fields) and every state field == K4's "
+        "bit for bit")
+
+
+def slab_tape_entries(ctx, state0, mesh, dims):
+    """K27 with every lane's request and K28 TAPE per launch by device time
+    at the first step of a taped dispatch from ``state0``, their plain
+    versions by CUDA events, and their bounds from this step's data: K27's
+    as the forward's, every lane looking up; K28 TAPE reads the state, its
+    lane table, the word, the flight, every lane's request, routed row and
+    fractions and the TF rows looked up, writes the state, the word and the
+    step's tape rows."""
+    from vpt_tpu_torch.kernels import slab as KS
+    from vpt_tpu_torch.kernels import spectral_backward as TB
+    from vpt_tpu_torch.parallel import mesh as Mesh
+    from vpt_tpu_torch.parallel import slab as TS
+
+    sctx = slab_ctx(ctx, mesh)
+    fields = TB.ctx_tape_fields(ctx, SLAB_WRT)
+    lanes = Mesh.lane_tables(mesh, RES, STREAMS)
+    st = Mesh.shard_spectral_state(state0, mesh)
+    n = st.px.numel()
+    rng = torch.empty(n, dtype=torch.int32, device=st.px.device)
+    out = KS.slab_advance(st, sctx, lanes, ctx.seed_bits, True, rng, dims, BINS, tape=True)
+    rows = TS.distributed_rows(sctx.density.table, out[0], mesh)
+    tape = torch.empty((len(fields), n), dtype=torch.float32, device=st.px.device)
+    after = clone_state(st)
+    KS.slab_finish(after, sctx, lanes, rows, *out[1:], out[0], rng.clone(), BINS, dims, tape=tape,
+                   fields=fields)
+    respawns = int(after.samples.sum()) - int(st.samples.sum())
+    k27_ms = device_ms(lambda: KS.slab_advance(st, sctx, lanes, ctx.seed_bits, False, rng, dims,
+                                               BINS, tape=True))
+    k28_state, k28_rng = clone_state(st), rng.clone()
+    k28_ms = device_ms(lambda: KS.slab_finish(k28_state, sctx, lanes, rows, *out[1:], out[0],
+                                              k28_rng, BINS, dims, tape=tape, fields=fields))
+    p_st, p_rng, p_tape = clone_state(st), rng.clone(), tape.clone()
+    k27_plain = cuda_ms(lambda: KS.slab_advance_plain(p_st, sctx, lanes, ctx.seed_bits, False,
+                                                      p_rng, dims, tape=True), 2)
+    k28_plain = cuda_ms(lambda: KS.slab_finish_plain(p_st, sctx, lanes, rows, *out[1:], out[0],
+                                                     p_rng, BINS, p_tape, fields, dims), 2)
+    tf = ctx.material_tf
+    env = 0 if ctx.environment is None else ctx.environment.numel() * 4
+    b27 = bound(n * (24 + 4 + 4 + 12 + 4 + 4), n * (OPS_K27_STEP + OPS_K27_LOOKUP), k27_ms)
+    b28 = bound(state_bytes(n, BINS) + n * (8 + 4 + 4 + 4) + n * (32 + 12)
+                + min(tf.numel(), n * 18) * 4 + env + n * len(fields) * 4,
+                n * (OPS_K28_STEP + OPS_K28_LOOKUP) + respawns * (OPS_RESPAWN + 4 * BINS), k28_ms)
+    for name, ms, pms, b in (("K27 slab_advance[tape]", k27_ms, k27_plain, b27),
+                             ("K28 slab_finish[tape]", k28_ms, k28_plain, b28)):
+        log(f"# {name} per launch, {n} lanes (every lane looks up; {respawns} respawns, "
+            f"{len(fields)} tape fields): {ms:.5f} ms (device), plain {pms:.4f} ms; bound "
+            f"{b['bound_ms']:.5f} ms by {b['bound_by']} ({b['bound_bytes']} B, {b['bound_ops']} "
+            f"FP32 ops), share {b['bound_share']:.3f}")
+    common = dict(route="cuda", source=SLAB_SOURCE, max_abs_err=0.0, lanes=n, respawns=respawns)
+    return (kernel_line(dict(name="slab_advance[tape]", ms=k27_ms, plain_ms=k27_plain,
+                             replaces="vpt_tpu/parallel/slab.py:275", **common), b27),
+            kernel_line(dict(name="slab_finish[tape]", ms=k28_ms, plain_ms=k28_plain,
+                             replaces="vpt_tpu/kernels/spectral_backward.py:660",
+                             tape_fields=len(fields), **common), b28))
+
+
+def slab_pack_check(raw):
+    """K31 against K10's table (``pack_volume`` of the same f32 grid) with
+    pad_packed_for_slabs's zero planes, every owner at n = 1, 2, 4, 8, bit
+    for bit; the whole table by device time against its bound (the grid
+    read once, the table written once)."""
+    from vpt_tpu_torch.kernels import corners as C
+    from vpt_tpu_torch.kernels import slab as KS
+
+    D, H, W = raw.shape
+    plane = (H + 1) * (W + 1)
+    table = C.pack_volume(raw)
+    for n in SLAB_OWNERS:
+        slab_z = -(-(D + 1) // n)
+        padded = torch.cat([table, table.new_zeros(((slab_z * n - (D + 1)) * plane, 8))])
+        for o in range(n):
+            got = KS.slab_pack(raw, o * slab_z, slab_z)
+            want = padded[o * slab_z * plane:(o + 1) * slab_z * plane]
+            if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
+                raise AssertionError(f"K31 slab_pack, owner {o} of {n} != K10's padded table")
+    ms = device_ms(lambda: KS.slab_pack(raw, 0, D + 1))
+    plain_ms = cuda_ms(lambda: KS.slab_pack_plain(raw, 0, D + 1), 2)
+    b = bound(raw.numel() * 4 + table.numel() * 4, 0, ms)
+    log(f"# K31 slab_pack: each owner of n = {SLAB_OWNERS} == K10's padded table bit for bit; the "
+        f"whole {D + 1}x{H + 1}x{W + 1} table {ms:.5f} ms (device), plain {plain_ms:.4f} ms; bound "
+        f"{b['bound_ms']:.5f} ms by {b['bound_by']} ({b['bound_bytes']} B), share "
+        f"{b['bound_share']:.3f}")
+    return kernel_line(dict(name="slab_pack", route="cuda", source=SLAB_SOURCE,
+                            replaces="vpt_tpu/parallel/slab.py:405", max_abs_err=0.0, ms=ms,
+                            plain_ms=plain_ms, rows=table.shape[0]), b)
+
+
+def slab_routed_check(ctx, state0, mesh, dev):
+    """K5 ROUTED + K29 against K5's own adjoint over one 2-dispatch tape
+    (K4's) at stride 1, stride 4 and importance 4, the carry bit for bit;
+    K5 ROUTED's pairs against its plain version (the rows bit for bit, the
+    values within SLAB_BWD_RTOL), K5 ROUTED timed by CUDA events against
+    its bound (the tape's fields read as K5 reads them, the pairs written);
+    K29 at n = 1, 2, 4, 8 simulated owners (their slabs concatenated ==
+    one owner's scatter) and one owner by device time against its bound
+    and index_add_ of the owned pairs; K30 at the same owners, the halos
+    added, against K9 contract_volume, one owner by device time. Returns
+    the three kernels-line entries."""
+    from vpt_tpu_torch.kernels import corners as C
+    from vpt_tpu_torch.kernels import slab as KS
+    from vpt_tpu_torch.kernels import spectral_backward as TB
+    from vpt_tpu_torch.parallel import mesh as Mesh
+
+    seeds = [2654435761 * k % 2**32 for k in (3, 4)]
+    fields = TB.ctx_tape_fields(ctx, SLAB_WRT)
+    sk, tape = TB.tape_forward(state0, ctx, seeds, STEPS, BINS, SLAB_WRT)
+    lane, res, streams, n = TB._lanes(state0)
+    lanes = Mesh.lane_tables(mesh, RES, STREAMS)
+    g_img = torch.as_tensor(np.random.default_rng(0).uniform(-1, 1, (RES, RES, 3)).astype(
+        np.float32), device=dev)
+    g_rs = TB._deposit_cotangents(g_img, ctx, lane, BINS, TB._m_final(sk))
+    rows = ctx.density.table.shape[0]
+    k5 = dict(name="prb_reverse[routed]", route="cuda", source=BWD_SOURCE,
+              replaces="vpt_tpu/parallel/slab.py:279", max_abs_err=0.0, max_rel_l2=0.0, modes={})
+    keep = None
+    for stride, mode in MODES:
+        phases = [TB._dispatch_phase(k, s, len(seeds), stride) for k, s in enumerate(seeds)]
+        kw = dict(scatter_stride=stride, inv_mu=TB._inv_mu(ctx), resolution=res, streams=streams)
+        slots = len(seeds) * (STEPS // stride)
+        pairs = TB.pair_buffer(slots * n, dev)
+
+        def carry():
+            return dict(c=torch.zeros(n, device=dev), cb=torch.zeros(n, device=dev))
+
+        def routed(buf=pairs):
+            cot = carry()
+            TB.prb_reverse(tape, fields, g_rs, cot, {}, phases, seeds, scatter_mode=mode,
+                           lanes=lanes, pairs=buf, **kw)
+            return cot
+
+        adj, cot = {"g_vol": torch.zeros((rows, 8), device=dev)}, carry()
+        TB.prb_reverse(tape, fields, g_rs, cot, adj, phases, seeds, scatter_mode=mode, lanes=lanes,
+                       **kw)
+        cot_r = routed()
+        got = KS.slab_scatter(torch.zeros((rows, 8), device=dev), 0, pairs, 1)
+        plain_pairs = TB.pair_buffer(slots * n, dev)
+        TB.prb_reverse_plain(tape, fields, g_rs, carry(), {}, phases, seeds,
+                             importance=mode == "importance", lanes=lanes, pairs=plain_pairs, **kw)
+        torch.cuda.synchronize()
+        if not (torch.equal(cot["c"], cot_r["c"]) and torch.equal(cot["cb"], cot_r["cb"])):
+            raise AssertionError(f"K5 ROUTED {mode}{stride}: the carry != K5's")
+        rel = rel_l2(got, adj["g_vol"])
+        idx, upd = TB.pair_views(pairs)
+        p_idx, p_upd = TB.pair_views(plain_pairs)
+        own = idx >= 0
+        rel_p = rel_l2(upd[own], p_upd[own])
+        mabs = float((upd[own] - p_upd[own]).abs().max())
+        if (not torch.equal(idx, p_idx) or rel > SLAB_BWD_RTOL or rel_p > SLAB_BWD_RTOL
+                or not float(adj["g_vol"].abs().max()) > 0):
+            raise AssertionError(f"K5 ROUTED {mode}{stride}: + K29 vs K5 rel L2 {rel:.3g}; pairs vs "
+                                 f"plain: rows equal {torch.equal(idx, p_idx)}, values rel L2 "
+                                 f"{rel_p:.3g}")
+        rec = dict(rel_l2_vs_k5=rel, pairs_rel_l2_vs_plain=rel_p, max_abs=mabs,
+                   pairs=int(own.sum()), slots=slots * n)
+        k5["max_abs_err"] = max(k5["max_abs_err"], mabs)
+        k5["max_rel_l2"] = max(k5["max_rel_l2"], rel_p)
+        # K5 ROUTED and K5 adding the rows itself, on the same tape, in turns
+        # (each call's host path, two small uploads, inside the events)
+        acc = torch.zeros((rows, 8), device=dev)
+
+        def atomic():
+            TB.prb_reverse(tape, fields, g_rs, carry(), {"g_vol": acc}, phases, seeds,
+                           scatter_mode=mode, lanes=lanes, **kw)
+
+        turns = [(cuda_ms(routed, 5), cuda_ms(atomic, 5)) for _ in range(2)]
+        rec["ms"] = min(t[0] for t in turns)
+        rec["k5_atomic_ms"] = min(t[1] for t in turns)
+        rec["turns_ms"] = turns
+        rec["plain_ms"] = cuda_ms(lambda: TB.prb_reverse_plain(
+            tape, fields, g_rs, carry(), {}, phases, seeds, importance=mode == "importance",
+            lanes=lanes, pairs=plain_pairs, **kw), 1)
+        n_steps, n_fields = tape.shape[0] * tape.shape[1], tape.shape[2]
+        read_fields = (n_fields if mode == "importance" or stride == 1
+                       else 4 + (n_fields - 4) / stride)
+        rec.update(bound(n_steps * n * read_fields * 4 + g_rs.numel() * 4 + 4 * n * 4
+                         + slots * n * 4 + rec["pairs"] * 32, n_steps * n * 8, rec["ms"]))
+        k5["modes"][f"{mode}{stride}"] = rec
+        log(f"# K5 ROUTED {mode} {stride}, 2 dispatches: the carry == K5's bit for bit, + K29 vs "
+            f"K5's adjoint rel L2 {rel:.3g}; its {rec['pairs']} pairs (of {slots * n} slots) vs "
+            f"plain: rows bit for bit, values rel L2 {rel_p:.3g}, max abs {mabs:.3g}; "
+            f"{rec['ms']:.4f} ms vs {rec['plain_ms']:.4f} ms plain (K5 adding the rows itself "
+            f"{rec['k5_atomic_ms']:.4f}; in turns, ms: {turns}); bound {rec['bound_ms']:.4f} ms "
+            f"by {rec['bound_by']}, share {rec['bound_share']:.3f}")
+        if stride == 1:
+            keep = (pairs, got, adj["g_vol"])
+    s1 = k5["modes"]["stride1"]
+    k5["ms"], k5["plain_ms"] = s1["ms"], s1["plain_ms"]
+    k5 = kernel_line(k5, {k: s1[k] for k in ("bound_ms", "bound_by", "bound_bytes", "bound_ops",
+                                             "bound_share")})
+
+    # K29 at n simulated owners, then one owner timed
+    pairs, one, k5_adj = keep
+    plane = ctx.density.dims[1] * ctx.density.dims[2]
+    Dp = ctx.density.dims[0]
+    err29 = 0.0
+    for n_own in SLAB_OWNERS:
+        per = -(-Dp // n_own) * plane
+        total = torch.cat([KS.slab_scatter(torch.zeros((per, 8), device=dev), o * per, pairs, 1)
+                           for o in range(n_own)])[:rows]
+        r29 = rel_l2(total, one)
+        err29 = max(err29, float((total - one).abs().max()))
+        if r29 > SLAB_BWD_RTOL:
+            raise AssertionError(f"K29 at {n_own} owners: their slabs vs one owner rel L2 {r29:.3g}")
+    idx, upd = TB.pair_views(pairs)
+    own = idx >= 0
+    own_rows, own_upd = idx[own].long(), upd[own].contiguous()
+    touched = int(torch.unique(own_rows).numel())
+    acc = torch.zeros((rows, 8), device=dev)
+    ms29 = device_ms(lambda: KS.slab_scatter(acc, 0, pairs, 1))
+    plain29 = cuda_ms(lambda: KS.slab_scatter_plain(acc, 0, pairs, 1), 3)
+    lib29 = device_ms(lambda: acc.index_add_(0, own_rows, own_upd))
+    b29 = bound(idx.numel() * 4 + int(own.sum()) * 32 + touched * 64, int(own.sum()) * OPS_K29_PAIR,
+                ms29)
+    log(f"# K29 slab_scatter: n = {SLAB_OWNERS} owners' slabs == one owner's within rel L2 "
+        f"{SLAB_BWD_RTOL}; one owner, {idx.numel()} pair slots ({int(own.sum())} pairs, {touched} "
+        f"rows touched): {ms29:.5f} ms (device), plain {plain29:.4f} ms, index_add_ of the owned "
+        f"pairs {lib29:.5f} ms (device); bound {b29['bound_ms']:.5f} ms by {b29['bound_by']} "
+        f"({b29['bound_bytes']} B), share {b29['bound_share']:.3f}")
+    k29 = kernel_line(dict(name="slab_scatter", route="cuda", source=SLAB_SOURCE,
+                           replaces="vpt_tpu/parallel/slab.py:120", max_abs_err=err29, ms=ms29,
+                           plain_ms=plain29, pair_slots=idx.numel(), pairs=int(own.sum())),
+                      b29, library_ms=lib29)
+
+    # K30 at n owners with the halos against K9, then one owner timed
+    dims = tuple(d - 1 for d in ctx.density.dims)
+    D, H, W = dims
+    k9 = C.contract_volume(k5_adj, ctx.density.dims)
+    err30 = 0.0
+    for n_own in SLAB_OWNERS:
+        slab_z = -(-Dp // n_own)
+        padded = torch.cat([k5_adj, k5_adj.new_zeros((slab_z * n_own * plane - rows, 8))])
+        total = torch.zeros((slab_z * n_own + 1, H, W), device=dev)
+        for o in range(n_own):
+            part = KS.slab_contract(padded[o * slab_z * plane:(o + 1) * slab_z * plane], o * slab_z,
+                                    slab_z, dims)
+            plain = KS.slab_contract_plain(padded[o * slab_z * plane:(o + 1) * slab_z * plane],
+                                           o * slab_z, slab_z, dims)
+            err30 = max(err30, float((part - plain).abs().max()))
+            # raw plane lo - 1 + k lands at total[lo + k]; plane -1 is dropped
+            total[o * slab_z:o * slab_z + slab_z + 1] += part
+        r30 = rel_l2(total[1:D + 1], k9)
+        if r30 > SLAB_BWD_RTOL:
+            raise AssertionError(f"K30 at {n_own} owners with the halos vs K9: rel L2 {r30:.3g}")
+    ms30 = device_ms(lambda: KS.slab_contract(k5_adj, 0, Dp, dims))
+    plain30 = cuda_ms(lambda: KS.slab_contract_plain(k5_adj, 0, Dp, dims), 2)
+    b30 = bound(rows * 32 + (Dp + 1) * H * W * 4, rows * OPS_K30_ROW, ms30)
+    log(f"# K30 slab_contract: n = {SLAB_OWNERS} owners, the halos added, == K9 contract_volume "
+        f"within rel L2 {SLAB_BWD_RTOL} (max abs vs plain {err30:.3g}); one owner {ms30:.5f} ms "
+        f"(device), plain {plain30:.4f} ms; bound {b30['bound_ms']:.5f} ms by {b30['bound_by']} "
+        f"({b30['bound_bytes']} B), share {b30['bound_share']:.3f}")
+    k30 = kernel_line(dict(name="slab_contract", route="cuda", source=SLAB_SOURCE,
+                           replaces="vpt_tpu/parallel/slab.py:160", max_abs_err=err30, ms=ms30,
+                           plain_ms=plain30), b30)
+    return k5, k29, k30
+
+
+def slab_window_check(ctx, state0, mesh, dims, dev):
+    """prb_window_grads_slab (SLAB_WINDOW dispatches) against
+    prb_render_and_grads_many(window=True, window_storage="forward") from
+    the same state at stride 1, stride 4 and importance 4: the image and
+    the samples bit for bit, the density gradient within SLAB_BWD_RTOL;
+    each window's ms (host clock, synchronised) beside the replicated
+    one's."""
+    from vpt_tpu_torch.kernels import spectral_backward as TB
+    from vpt_tpu_torch.parallel import mesh as Mesh
+    from vpt_tpu_torch.parallel import slab as TS
+
+    sctx = slab_ctx(ctx, mesh)
+    g_img = torch.ones(RES, RES, 3, device=dev)
+    seeds = [2654435761 * k % 2**32 for k in range(11, 11 + SLAB_WINDOW)]
+    out = {}
+    for stride, mode in MODES:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st, img, g = TS.prb_window_grads_slab(Mesh.shard_spectral_state(state0, mesh), sctx, mesh,
+                                              dims, seeds, g_img, STEPS, BINS,
+                                              scatter_stride=stride, scatter_mode=mode)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        rs, ri, rg = TB.prb_render_and_grads_many(state0, ctx, seeds, g_img, STEPS, BINS,
+                                                  wrt=SLAB_WRT, scatter_stride=stride,
+                                                  scatter_mode=mode, window=True,
+                                                  window_storage="forward")
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        rel = rel_l2(g["density"], rg["density"])
+        if (not torch.equal(img.view(torch.int32), ri.view(torch.int32))
+                or not torch.equal(st.samples, rs.samples) or rel > SLAB_BWD_RTOL
+                or not float(rg["density"].abs().max()) > 0):
+            raise AssertionError(f"prb_window_grads_slab {mode}{stride}: image equal "
+                                 f"{torch.equal(img, ri)}, samples equal "
+                                 f"{torch.equal(st.samples, rs.samples)}, density rel L2 {rel:.3g}")
+        out[f"{mode}{stride}"] = dict(rel_l2=rel, max_abs=float((g["density"] - rg["density"])
+                                                                .abs().max()),
+                                      slab_ms=(t1 - t0) * 1e3, replicated_ms=(t2 - t1) * 1e3)
+        log(f"# prb_window_grads_slab {mode} {stride}, {SLAB_WINDOW} dispatches: the image and the "
+            f"samples == the replicated forward-storage window's bit for bit, the density rel L2 "
+            f"{rel:.3g}; {(t1 - t0) * 1e3:.2f} ms against {(t2 - t1) * 1e3:.2f} ms replicated")
+    return out
+
+
+def slab_fit_profile():
+    """One fit_spectral_slab iteration of the bench scene (SLAB_WINDOW
+    dispatches) at world size 1 under torch.profiler, after a warm-up
+    iteration: the device work by kernel name (ms and launches an
+    iteration), its device ms, the profiled host ms. Run in a fresh
+    process (``fresh_result``)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from vpt_tpu_torch import Camera
+    from vpt_tpu_torch.models.mcm_spectral import MCMSpectralRenderer
+    from vpt_tpu_torch.parallel import mesh as Mesh
+    from vpt_tpu_torch.parallel import slab as TS
+    from vpt_tpu_torch.tools.profile_fit import device_kernels
+
+    dev = torch.device("cuda:0")
+    mesh = Mesh.ray_mesh(device=dev)
+    args = bench_scene_args()
+    cam = Camera()
+    r = MCMSpectralRenderer(*args, resolution=RES, streams=STREAMS,
+                            pack_tables={"material_tf", "light_spectrum"}, mesh=mesh, device=dev)
+    target = torch.full((RES, RES, 3), 0.1, device=dev)
+    init = smoothed(args[0].density, max(VOLUME // 16, 2))
+    kw = dict(dispatches_per_step=SLAB_WINDOW, learning_rate=0.02, seed=1, scatter_stride=1)
+    TS.fit_spectral_slab(target, r, cam, init, mesh, iterations=1, **kw)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        TS.fit_spectral_slab(target, r, cam, init, mesh, iterations=1, **kw)
+        torch.cuda.synchronize()
+        host = time.perf_counter() - t0
+    kernels = device_kernels(prof)
+    torch.distributed.destroy_process_group()
+    return dict(kernels=kernels, device_ms=sum(k["ms"] for k in kernels.values()),
+                profiled_host_ms=host * 1e3)
+
+
+def slab_sparse_fit(renderer, cam, dev):
+    """Phase 27 (c): one fit_spectral_slab iteration (SLAB_WINDOW
+    dispatches) over the sparse 512^3 scene's raw f32 grid (phase 11's
+    volume, the fused TF, no majorant grid: the packed backward has none),
+    the size the slab exists for (its f32 slab 513^3 x 8 x 4 B): its
+    seconds, peak device memory, the launches and a finite loss and
+    gradient step."""
+    from vpt_tpu_torch.models.mcm_spectral import MCMSpectralRenderer
+    from vpt_tpu_torch.parallel import mesh as Mesh
+    from vpt_tpu_torch.parallel import slab as TS
+
+    t0 = time.perf_counter()
+    mesh = Mesh.ray_mesh(device=dev)
+    r = MCMSpectralRenderer(renderer.volume, renderer.material_tf, renderer.light,
+                            renderer.spectrum, renderer.config, resolution=RES, streams=STREAMS,
+                            pack_tables={"material_tf", "light_spectrum"}, mesh=mesh, device=dev)
+    init = r.ctx(cam, 3).density * 0.8
+    target = torch.full((RES, RES, 3), 0.05, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_all_counts()
+    t1 = time.perf_counter()
+    params, losses = TS.fit_spectral_slab(target, r, cam, init, mesh,
+                                          dispatches_per_step=SLAB_WINDOW, iterations=1,
+                                          learning_rate=0.02, seed=3)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t1
+    peak = torch.cuda.max_memory_allocated()
+    launches = {k: v for k, v in all_launches().items() if v}
+    d = params["density"]
+    moved = float((d - init).abs().max())
+    if not (np.isfinite(losses).all() and bool(torch.isfinite(d).all()) and moved > 0
+            and launches.get("slab.slab_pack") == 1 and launches.get("slab.slab_contract") == 1
+            and launches.get("slab.slab_scatter") == SLAB_WINDOW):
+        raise AssertionError(f"the sparse slab fit: losses {losses}, moved {moved}, launches "
+                             f"{launches}")
+    slab_bytes = (d.shape[0] + 1) * (d.shape[1] + 1) * (d.shape[2] + 1) * 32
+    torch.distributed.destroy_process_group()
+    del r, params, init
+    torch.cuda.empty_cache()
+    rec = dict(seconds_per_iteration=dt, peak_memory_bytes=peak, f32_slab_bytes=slab_bytes,
+               loss=losses[0], max_param_change=moved, launches=launches,
+               set_up_seconds=t1 - t0)
+    log(f"# phase 27 (c): fit_spectral_slab over the sparse {SPARSE}^3 raw grid (fused TF, world "
+        f"size 1, its f32 slab {slab_bytes} B), 1 iteration of {SLAB_WINDOW} dispatches: "
+        f"{dt:.3f} s, peak device memory {peak} B, loss {losses[0]:.6g}, max param change "
+        f"{moved:.3g}; launches {launches}")
+    return rec
+
+
+def phase_slab_backward(dev, sparse_fit):
+    """Phase 27: the slab-sharded PRB backward and optimizer (B14b) at world
+    size 1 on a one-process NCCL group, the bench scene: (a) the taped slab
+    dispatch == K4 bit for bit (default, quasicubic, environment), K27 with
+    every lane's request and K28 TAPE per launch; K31 == K10's padded table
+    at n = 1, 2, 4, 8 owners; K5 ROUTED + K29 == K5, K29 and K30 at n owners
+    (``slab_routed_check``); the window against the replicated one in three
+    modes; (b) the main path: fit_spectral_slab, SLAB_FIT_ITERS iterations
+    of SLAB_WINDOW dispatches, the counts set to 0 just before, against
+    fit_spectral(method="prb", scatter_stride=1); the collectives and
+    launches an iteration, seconds an iteration, peak memory, the busy
+    share from a fresh process's profile. (c) ran beside phase 11."""
+    from vpt_tpu_torch import Camera
+    from vpt_tpu_torch.models.mcm_spectral import MCMSpectralRenderer
+    from vpt_tpu_torch.optim import fit_spectral
+    from vpt_tpu_torch.parallel import mesh as Mesh
+    from vpt_tpu_torch.parallel import slab as TS
+
+    t_phase = time.perf_counter()
+    split = {}
+
+    def timed(step, fn, *args, **kw):
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        split[step] = split.get(step, 0.0) + time.perf_counter() - t0
+        return out
+
+    mesh = Mesh.ray_mesh(device=dev)
+    cam = Camera()
+    args = bench_scene_args()
+    r = MCMSpectralRenderer(*args, resolution=RES, streams=STREAMS, device=dev)
+    ctx, s0 = r.ctx(cam, 7), r.reset(cam, 7)
+    dims = r.volume.density.shape
+    seed = 2654435761 * 5 % 2**32
+    timed("tape checks", slab_tape_check, "default", ctx, s0, mesh, dims, seed)
+    timed("tape checks", slab_tape_check, "quasicubic",
+          dataclasses.replace(ctx, volume_filter="quasicubic"), s0, mesh, dims, seed)
+    env_r = MCMSpectralRenderer(*args, resolution=RES, streams=STREAMS,
+                                environment=seeded_envmap(), device=dev)
+    timed("tape checks", slab_tape_check, "environment", env_r.ctx(cam, 7), env_r.reset(cam, 7),
+          mesh, dims, seed)
+    del env_r
+    k27t, k28t = timed("K27/K28 tape timing", slab_tape_entries, ctx, s0, mesh, dims)
+    raw = torch.as_tensor(smoothed(args[0].density, max(VOLUME // 16, 2)), device=dev)
+    k31 = timed("K31", slab_pack_check, raw)
+    k5r, k29, k30 = timed("K5 ROUTED, K29, K30", slab_routed_check, ctx, s0, mesh, dev)
+    windows = timed("windows", slab_window_check, ctx, s0, mesh, dims, dev)
+    torch.cuda.empty_cache()
+
+    # (b) the main path against the replicated fit
+    st = r.reset(cam, 99)
+    st, target = r.render_many(st, cam, [2654435761 * k % 2**32 for k in range(100, 116)])
+    init = raw.cpu().numpy()
+    kw = dict(dispatches_per_step=SLAB_WINDOW, iterations=SLAB_FIT_ITERS, learning_rate=0.02,
+              seed=1, scatter_stride=1)
+    ref_params, ref_losses = timed("replicated fit", fit_spectral, target, r, cam,
+                                   {"density": init}, method="prb", **kw)
+    del st
+    torch.cuda.empty_cache()
+    rs = MCMSpectralRenderer(*args, resolution=RES, streams=STREAMS,
+                             pack_tables={"material_tf", "light_spectrum"}, mesh=mesh, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_all_counts()
+    Mesh.reset_collective_counts()
+    t0 = time.perf_counter()
+    params, losses = TS.fit_spectral_slab(target, rs, cam, init, mesh, **kw)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    split["the main path"] = dt
+    peak = torch.cuda.max_memory_allocated()
+    # the renderer's reset (K2 over the rank's lane table) aside
+    launches = {k: v for k, v in all_launches().items()
+                if v and not k.startswith("mcm_spectral.reset")}
+    coll = dict(Mesh.COLLECTIVES)
+    n, W, S = SLAB_FIT_ITERS, SLAB_WINDOW, STEPS
+    want = {"slab.slab_pack": n, "slab.slab_advance": 2 * n * W * S,
+            "slab.slab_advance_tape": n * W * S, "slab.slab_rows": 2 * n * W * S,
+            "slab.slab_finish": 2 * n * W * S, "slab.slab_finish_tape": n * W * S,
+            "spectral_backward.prb_reverse": n * W, "spectral_backward.prb_reverse_routed": n * W,
+            "slab.slab_scatter": n * W, "slab.slab_contract": n}
+    want_coll = {"all_gather": n * (2 * W * S + W), "reduce_scatter": n * 2 * W * S,
+                 "gather_rows": n, "halo": n, "all_reduce": n}
+    if launches != want or coll != want_coll:
+        raise AssertionError(f"fit_spectral_slab x {n}: launches {launches} (want {want}), "
+                             f"collectives {coll} (want {want_coll})")
+    d, ref_d = params["density"], ref_params["density"]
+    loss_rel = np.abs(np.asarray(losses) - np.asarray(ref_losses)) / np.abs(ref_losses)
+    close = bool(torch.allclose(d, ref_d, rtol=5e-4, atol=5e-6))
+    moved = float((d - raw).abs().max())
+    if not ((loss_rel <= 1e-4).all() and close and moved > 0 and np.isfinite(losses).all()):
+        raise AssertionError(f"fit_spectral_slab vs fit_spectral(prb): losses {losses} vs "
+                             f"{ref_losses}, params close {close} (max abs "
+                             f"{float((d - ref_d).abs().max()):.3g}), moved {moved}")
+    log(f"# fit_spectral_slab (world size 1, NCCL), {n} iterations x {W} dispatches: "
+        f"{dt / n:.4f} s an iteration, peak device memory {peak} B; losses {losses} against "
+        f"fit_spectral(method='prb', scatter_stride=1)'s {ref_losses} (rel at most "
+        f"{loss_rel.max():.2e}), params within rtol 5e-4 / atol 5e-6 (max abs "
+        f"{float((d - ref_d).abs().max()):.3g}); per iteration launches "
+        f"{ {k: v / n for k, v in launches.items()} }, collectives "
+        f"{ {k: v / n for k, v in coll.items()} }")
+    del rs, params, ref_params
+    torch.cuda.empty_cache()
+    prof = timed("the profile", fresh_result, "slab_fit_profile")
+    it_ms = dt / n * 1e3
+    busy = prof["device_ms"] / it_ms
+    coll_ms = sum(k["ms"] for name, k in prof["kernels"].items()
+                  if "nccl" in name.lower() or "memcpy" in name.lower())
+    log(f"# profiled fit_spectral_slab iteration (a fresh process): device {prof['device_ms']:.3f} "
+        f"ms of {it_ms:.3f} ms unprofiled (busy {busy:.3f}, the host's share {1 - busy:.3f}); "
+        f"the collectives {coll_ms:.3f} ms; " + ", ".join(
+            f"{nm} {k['ms']:.4f} ms x{k['launches']:g}" for nm, k in sorted(
+                prof["kernels"].items(), key=lambda kv: -kv[1]["ms"])[:12]))
+    torch.distributed.destroy_process_group()
+    for e, key in ((k27t, "slab.slab_advance_tape"), (k28t, "slab.slab_finish_tape"),
+                   (k5r, "spectral_backward.prb_reverse_routed"), (k29, "slab.slab_scatter"),
+                   (k30, "slab.slab_contract"), (k31, "slab.slab_pack")):
+        e["launches"] = launches[key]
+        e["launches_of"] = "the main path (fit_spectral_slab, 3 iterations)"
+    total = time.perf_counter() - t_phase
+    split["other"] = total - sum(split.values())
+    log(f"# phase 27 (the slab backward): {total:.1f} s: "
+        + ", ".join(f"{k} {v:.1f} s" for k, v in split.items()))
+    return ([k27t, k28t, k5r, k29, k30, k31],
+            dict(windows=windows, fit=dict(losses=losses, replicated_losses=ref_losses,
+                                           seconds_per_iteration=dt / n, peak_memory_bytes=peak,
+                                           launches_per_iteration={k: v / n for k, v in
+                                                                   launches.items()},
+                                           collectives_per_iteration={k: v / n for k, v in
+                                                                      coll.items()}),
+                 profile=prof, device_busy_share=busy, collective_ms=coll_ms,
+                 sparse_512=sparse_fit, seconds=split))
 
 
 def fresh_result(fn, *args):
@@ -5469,11 +6056,12 @@ def surrogate_window(renderer, camera, dev, init):
     return rec
 
 
-def phase_autodiff_fit(camera, dev, prb_windows):
+def phase_autodiff_fit(camera, dev, prb_windows, sparse_scene_):
     """Phase 17: fit_spectral(method="autodiff") at full width on the bench
-    scene, the default routing on the sparse 512^3 majorant scene, a
-    surrogate window split beside phase 9's PRB stride-1 window, and a
-    checkpoint save and resume."""
+    scene, the default routing on the sparse 512^3 majorant scene (phase
+    11's renderer and camera, ``sparse_scene_``: its volume takes ~30 s of
+    host set-up to build), a surrogate window split beside phase 9's PRB
+    stride-1 window, and a checkpoint save and resume."""
     from vpt_tpu_torch.models.mcm_spectral import MCMSpectralRenderer
     from vpt_tpu_torch.session import RenderSession
 
@@ -5535,7 +6123,7 @@ def phase_autodiff_fit(camera, dev, prb_windows):
     out["raw"] = raw_bench_fit(args, target, init, camera, dev)
 
     # the sparse 512^3 majorant scene, method=None: routed to the surrogate
-    sparse, cam, host = sparse_scene(dev)
+    sparse, cam = sparse_scene_
     _, sparse_target = sparse.render_many(sparse.reset(cam, 3), cam,
                                           [(3 + k) * 2654435761 % 2**32 for k in range(16)])
     sparse_init = np.clip(smoothed(sparse.volume.density, 16) * 0.8 + 0.05, 0.0, 1.0)
@@ -5837,48 +6425,63 @@ def main():
         raise AssertionError(f"no ptxas report of {sorted(missing)}")
 
     t_start = time.perf_counter()
-    k3, k3_xy = phase_k3(dev)
-    k3_raw = phase_k3_raw(dev)
+    seconds = {}
+
+    def run(label, fn, *args):
+        """A phase, its seconds logged and kept (PERF.md reads them)."""
+        t0 = time.perf_counter()
+        out = fn(*args)
+        seconds[label] = seconds.get(label, 0.0) + time.perf_counter() - t0
+        log(f"# seconds: {label} {time.perf_counter() - t0:.1f} s")
+        return out
+
+    k3, k3_xy = run("3 K3", phase_k3, dev)
+    k3_raw = run("18 K3 raw", phase_k3_raw, dev)
     renderer = MCMSpectralRenderer(*bench_scene_args(), resolution=RES, streams=STREAMS,
                                    device=dev)
     camera = Camera()
-    k2 = phase_k2(renderer, camera, dev)
-    k1 = phase_k1(renderer, camera, dev)
-    k1_xy = phase_xy(camera, dev)
-    launches, kern, plain = phase_main(dev)
-    k4, keep = phase_k4(renderer, camera, dev)
-    k5 = phase_k5(keep, dev)
+    k2 = run("4 K2", phase_k2, renderer, camera, dev)
+    k1 = run("5 K1", phase_k1, renderer, camera, dev)
+    k1_xy = run("5 xy", phase_xy, camera, dev)
+    launches, kern, plain = run("6 main path", phase_main, dev)
+    k4, keep = run("7 K4", phase_k4, renderer, camera, dev)
+    k5 = run("8 K5", phase_k5, keep, dev)
     del keep
-    k4_modes, k5_modes = phase_bwd_modes(camera, dev)
-    k9, k10, corner_modes = phase_corners(dev)
-    bwd_launches, fits, windows, qc_launches = phase_fit(camera, dev)
-    k6, k7 = phase_gather(dev)
+    k4_modes, k5_modes = run("7-8 backward modes", phase_bwd_modes, camera, dev)
+    k9, k10, corner_modes = run("9 K9/K10", phase_corners, dev)
+    bwd_launches, fits, windows, qc_launches = run("9 training", phase_fit, camera, dev)
+    k6, k7 = run("10 gather", phase_gather, dev)
     del renderer
     torch.cuda.empty_cache()
-    k1_maj, sparse, sparse_renderer, sparse_cam = phase_majorant(dev)
-    sparse["xy"] = phase_sparse_xy(sparse_renderer, sparse_cam, dev)
-    sparse["raw"] = phase_sparse_raw(sparse_renderer, sparse_cam, dev)
-    slab_sparse_entries = slab_sparse(sparse_renderer, sparse_cam, dev)
+    k1_maj, sparse, sparse_renderer, sparse_cam = run("11 majorant", phase_majorant, dev)
+    sparse["xy"] = run("11 sparse xy", phase_sparse_xy, sparse_renderer, sparse_cam, dev)
+    sparse["raw"] = run("18 sparse raw", phase_sparse_raw, sparse_renderer, sparse_cam, dev)
+    slab_sparse_entries = run("26 sparse slab", slab_sparse, sparse_renderer, sparse_cam, dev)
+    slab_sparse_512 = run("27 sparse slab fit", slab_sparse_fit, sparse_renderer, sparse_cam,
+                          dev)
+    k1_modes, mode_rates = run("12 environment, quasicubic", phase_env_quasicubic, dev)
+    compact_kernels, compact = run("13 compaction", phase_compaction, dev)
+    cli = run("14 CLI", phase_cli)
+    k11 = run("15 scatter ceiling", phase_scatter, dev)
+    k4_sur, k12, twin, sur_modes = run("16 surrogate", phase_surrogate, MCMSpectralRenderer(
+        *bench_scene_args(), resolution=RES, streams=STREAMS, device=dev), camera, dev)
+    k4_raw, k12_raw = run("16 surrogate raw", phase_surrogate_raw, camera, dev)
+    autodiff = run("17 autodiff training", phase_autodiff_fit, camera, dev, windows,
+                   (sparse_renderer, sparse_cam))
     del sparse_renderer
     torch.cuda.empty_cache()
-    k1_modes, mode_rates = phase_env_quasicubic(dev)
-    compact_kernels, compact = phase_compaction(dev)
-    cli = phase_cli()
-    k11 = phase_scatter(dev)
-    k4_sur, k12, twin, sur_modes = phase_surrogate(MCMSpectralRenderer(
-        *bench_scene_args(), resolution=RES, streams=STREAMS, device=dev), camera, dev)
-    k4_raw, k12_raw = phase_surrogate_raw(camera, dev)
-    autodiff = phase_autodiff_fit(camera, dev, windows)
-    k1_raw, k13, k14 = phase_raw(camera, dev)
+    k1_raw, k13, k14 = run("18 raw tables", phase_raw, camera, dev)
     torch.cuda.empty_cache()
-    rm_kernels, rm_sessions = phase_raymarch(dev)
-    eam_kernels, eam_fits = phase_eam_fit(dev)
-    mcm_kernels, mcm_sessions = phase_mcm(dev)
-    mcs_kernels, mcs = phase_mcs(dev)
-    mcsp_kernels, mcsp = phase_mcs_persistent(dev)
-    dos_kernels, dos = phase_dos(dev)
-    lao_kernels, lao = phase_lao(dev)
-    slab_kernels, slab = phase_slab(dev, slab_sparse_entries)
+    rm_kernels, rm_sessions = run("19 ray marchers", phase_raymarch, dev)
+    eam_kernels, eam_fits = run("20 EAM training", phase_eam_fit, dev)
+    mcm_kernels, mcm_sessions = run("21 RGB MCM", phase_mcm, dev)
+    mcs_kernels, mcs = run("22 MCS", phase_mcs, dev)
+    mcsp_kernels, mcsp = run("23 MCS persistent", phase_mcs_persistent, dev)
+    dos_kernels, dos = run("24 DOS", phase_dos, dev)
+    lao_kernels, lao = run("25 LAO", phase_lao, dev)
+    slab_kernels, slab = run("26 slab", phase_slab, dev, slab_sparse_entries)
+    slab_bwd_kernels, slab_bwd = run("27 slab backward", phase_slab_backward, dev,
+                                     slab_sparse_512)
     foreign = sorted(k for k in sys.modules
                      if k in ("jax", "vpt_tpu") or k.startswith(("jax.", "vpt_tpu.")))
     if foreign:
@@ -5927,7 +6530,7 @@ def main():
                *k5_modes.values(), *corner_modes.values(), *sur_modes.values(), k4_raw, k12_raw,
                k1_raw, k13,
                k14, *rm_kernels, *eam_kernels, *mcm_kernels, *mcs_kernels, *mcsp_kernels,
-               *dos_kernels, *lao_kernels, *slab_kernels]
+               *dos_kernels, *lao_kernels, *slab_kernels, *slab_bwd_kernels]
     missing = [k["name"] for k in kernels + [k3, k3_xy, k3_raw]
                if not {"bound_ms", "bound_by", "library_ms", "launches", "ms", "plain_ms",
                        "max_abs_err"} <= set(k)]
@@ -5946,8 +6549,8 @@ def main():
               "cli": cli, "surrogate": {"twin_on_card": twin, "autodiff_fit": autodiff},
               "raymarch_sessions": rm_sessions, "eam_training": eam_fits,
               "mcm_sessions": mcm_sessions, "mcs": mcs, "mcs_persistent": mcsp, "dos": dos,
-              "lao": lao, "slab": slab,
-              "ptxas": ptxas, "gpu": smi}
+              "lao": lao, "slab": slab, "slab_backward": slab_bwd,
+              "ptxas": ptxas, "gpu": smi, "phase_seconds": seconds}
     log(json.dumps(result))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                           "kind": torch.cuda.get_device_name(0),

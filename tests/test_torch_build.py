@@ -219,6 +219,34 @@ def test_ptxas_table_reads_the_slab_kernels():
                                             ("slab_finish_kernel", "12,0,1", 56, 0, 0, 24)]
 
 
+SLAB_BWD_LOG = """== slab.cu
+ptxas info    : Compiling entry function '_ZN47_GLOBAL__N__1e2f3a4b_7_slab_cu_5d6e7f8018slab_finish_kernelILi12ELb0ELb1ELb1EEEvNS_6ParamsEPfS2_S2_S2_S2_S2_PiS3_S3_S2_S2_PKjS5_PjPK6float4PKfSB_SB_PKiSB_SB_NS_8TapeSpecES2_' for 'sm_90a'
+ptxas info    : Function properties for _ZN47_GLOBAL__N__1e2f3a4b_7_slab_cu_5d6e7f8018slab_finish_kernelILi12ELb0ELb1ELb1EEEvNS_6ParamsEPfS2_S2_S2_S2_S2_PiS3_S3_S2_S2_PKjS5_PjPK6float4PKfSB_SB_PKiSB_SB_NS_8TapeSpecES2_
+    32 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 64 registers, used 0 barriers, 32 bytes cumulative stack size
+ptxas info    : Compiling entry function '_ZN47_GLOBAL__N__1e2f3a4b_7_slab_cu_5d6e7f8019slab_scatter_kernelEPKfllllPf' for 'sm_90a'
+ptxas info    : Used 24 registers, used 0 barriers
+ptxas info    : Compiling entry function '_ZN47_GLOBAL__N__1e2f3a4b_7_slab_cu_5d6e7f8020slab_contract_kernelEPKfiiiiiPf' for 'sm_90a'
+ptxas info    : Function properties for _ZN47_GLOBAL__N__1e2f3a4b_7_slab_cu_5d6e7f8020slab_contract_kernelEPKfiiiiiPf
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 40 registers, used 0 barriers
+ptxas info    : Compiling entry function '_ZN47_GLOBAL__N__1e2f3a4b_7_slab_cu_5d6e7f8016slab_pack_kernelEPKfiiiiiPf' for 'sm_90a'
+ptxas info    : Used 30 registers, used 0 barriers
+"""
+
+
+def test_ptxas_table_reads_the_slab_backward_kernels():
+    """K28's TAPE instantiation carries NB,MAJ,ENV,TAPE; K29 slab_scatter,
+    K30 slab_contract and K31 slab_pack are untemplated, and none is read
+    as K26's or K10's row."""
+    assert _build.ptxas_table(SLAB_BWD_LOG) == [("slab_finish_kernel", "12,0,1,1", 64, 0, 0, 32),
+                                                ("slab_scatter_kernel", "", 24, 0, 0, 0),
+                                                ("slab_contract_kernel", "", 40, 0, 0, 0),
+                                                ("slab_pack_kernel", "", 30, 0, 0, 0)]
+    assert {"slab_scatter_kernel", "slab_contract_kernel", "slab_pack_kernel"} <= set(
+        _build.KERNELS)
+
+
 def _enum_count(text, enum):
     """The value of the last entry (the count) of ``enum`` in a source's
     text: entries counted from 0, an explicit ``= N`` resetting the count."""
@@ -247,3 +275,25 @@ def test_parameter_layouts_match_the_sources(module, source, f_enum, i_enum):
     mod = importlib.import_module(f"vpt_tpu_torch.kernels.{module}")
     text = (_build.CSRC_DIR / source).read_text()
     assert (_enum_count(text, f_enum), _enum_count(text, i_enum)) == (mod._F_COUNT, mod._I_COUNT)
+
+
+def test_backward_layouts_match_the_sources():
+    """The packed backward's and the slab's wrappers against their sources:
+    K5's integer block (``_R_COUNT``, RParam with R_ROUTED), the tape's
+    fields (``TAPE_FIELDS``, TapeField, which K4 and K28's TAPE mode write),
+    and K1's parameter block, which K27 and K28 take (FParam, IParam), as
+    the libraries report them at run time (vpt_bwd_layout, vpt_slab_layout)."""
+    from vpt_tpu_torch.kernels import mcm_spectral as K
+    from vpt_tpu_torch.kernels import spectral_backward as SB
+
+    bwd = (_build.CSRC_DIR / "spectral_backward.cu").read_text()
+    common = (_build.CSRC_DIR / "adjoint_common.cuh").read_text()
+    step = (_build.CSRC_DIR / "mcm_common.cuh").read_text()
+    assert _enum_count(bwd, "RParam") == SB._R_COUNT
+    assert "R_ROUTED" in bwd and "enum TapeField" not in bwd
+    assert _enum_count(common, "TapeField") == len(SB.TAPE_FIELDS)
+    # F_COUNT is 24 + MAX_BINS + 1 there, an expression _enum_count does not read
+    assert "F_COUNT = 24 + MAX_BINS + 1," in step and K._F_COUNT == 24 + K.MAX_BINS + 1
+    assert _enum_count(step, "IParam") == K._I_COUNT
+    slab = (_build.CSRC_DIR / "slab.cu").read_text()
+    assert '#include "adjoint_common.cuh"' in slab and "case 3: return T_COUNT;" in slab

@@ -102,7 +102,8 @@ def test_mesh_render_makes_no_collective_before_the_image_gather(runs, world):
     the render itself)."""
     for rank in range(world):
         counts = runs[world][rank]["render2"]["counts_many"]
-        assert counts == {"all_gather": 0, "reduce_scatter": 0, "gather_rows": 1}, counts
+        assert counts == {"all_gather": 0, "reduce_scatter": 0, "gather_rows": 1, "halo": 0,
+                          "all_reduce": 0}, counts
 
 
 def test_mesh_render_meets_the_image_contract_against_jax(runs):

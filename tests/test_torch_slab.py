@@ -119,7 +119,8 @@ def test_slab_step_makes_its_two_collectives_and_three_launches(runs, world):
     steps = D.STEPS
     for mode, streams in CASES:
         got = runs[world][0][f"{mode}{streams}"]
-        assert got["counts"] == {"all_gather": steps, "reduce_scatter": steps, "gather_rows": 1}
+        assert got["counts"] == {"all_gather": steps, "reduce_scatter": steps, "gather_rows": 1,
+                                 "halo": 0, "all_reduce": 0}
         assert got["calls"] == {"slab_advance": steps, "slab_rows": steps, "slab_finish": steps}
 
 

@@ -37,6 +37,12 @@ def test_port_and_chip_smoke_import_nothing_of_the_jax_package(tmp_path):
                                                        "vpt_tpu_torch.")]
         for name in names:
             importlib.import_module(name)
+        # the slab backward's entry points and kernels' wrappers
+        from vpt_tpu_torch.parallel.slab import (contract_slab_adjoint, distributed_scatter_add,
+                                                 fit_spectral_slab, make_spectral_prb_step_slab,
+                                                 pack_slab_rows, prb_grads_slab,
+                                                 prb_window_grads_slab)
+        from vpt_tpu_torch.kernels.slab import slab_contract, slab_pack, slab_scatter
         import chip_smoke
         bad = sorted(k for k in sys.modules
                      if k in ("vpt_tpu", "jax") or k.startswith(("vpt_tpu.", "jax.")))

@@ -96,6 +96,41 @@ __device__ __forceinline__ void block_add(double v, double* out) {
   }
 }
 
+// PRB tape fields, mirrored by TAPE_FIELDS in kernels/spectral_backward.py:
+// written by K4 (spectral_backward.cu) and by K28's TAPE mode (slab.cu),
+// read by K5
+enum TapeField {
+  T_EMITTED = 0, T_RESPAWN, T_PRE_BIN, T_ALPHA, T_ALBEDO, T_G, T_HG_COS,
+  T_NULL, T_SCATTER, T_FX,                       // always
+  T_DIST,                                        // extinction
+  T_TF_ROW, T_FY, T_LIGHT_W,                     // material_tf / light
+  T_SLOPE0, T_SLOPE1, T_SLOPE2, T_VOL_ROW0, T_VFX, T_VFY, T_VFZ,  // density
+  T_VOL_ROW1,                                    // density, xy volume
+  T_ENV_ROW, T_ENV_FX, T_ENV_FY, T_ENV_BAND, T_ENV_W,  // environment
+  T_COUNT,
+};
+
+// each field's element offset within a step's tape rows (slot x lanes),
+// -1 for a field the tape does not hold
+struct TapeSpec {
+  int n_fields;
+  long long off[T_COUNT];
+};
+
+inline TapeSpec make_tape_spec(const int* slots, int n_fields, int n_lanes) {
+  TapeSpec T;
+  T.n_fields = n_fields;
+  for (int k = 0; k < T_COUNT; ++k) T.off[k] = slots[k] < 0 ? -1 : (long long)slots[k] * n_lanes;
+  return T;
+}
+
+// one tape value of this lane (`row` points at the lane's slot 0 of the
+// step), written with an evict-first store
+__device__ __forceinline__ void put(float* row, const TapeSpec& T, int field, float v) {
+  const long long o = T.off[field];
+  if (o >= 0) __stcs(row + o, v);
+}
+
 // surrogate tape fields, mirrored by SUR_FIELDS in kernels/surrogate.py;
 // S_MAJ only in majorant mode
 enum SurField {

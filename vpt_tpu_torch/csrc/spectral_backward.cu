@@ -31,9 +31,23 @@
 // warp writes and reads whole 128-byte lines. Int and bool fields are
 // bit-cast into f32 slots (bools as 0.0 / 1.0). Which fields are present
 // depends on `wrt`; `slot[field]` gives each field's index in F or -1. The
-// field list is mirrored by vpt_tpu_torch/kernels/spectral_backward.py
-// (TAPE_FIELDS), and vpt_bwd_layout() lets the wrapper check that the two
-// agree.
+// field list (TapeField, adjoint_common.cuh, which K28's TAPE mode in
+// slab.cu writes too) is mirrored by vpt_tpu_torch/kernels/
+// spectral_backward.py (TAPE_FIELDS), and vpt_bwd_layout() lets the wrapper
+// check that the two agree.
+//
+// prb_reverse's ROUTED mode (R_ROUTED; the slab-sharded backward,
+// vpt_tpu_torch/parallel/slab.py, replacing the volume half of scatter_step
+// under vpt_tpu/parallel/slab.py's vol_scatter_fn hook, :279-280) adds no
+// volume row: where the plain mode adds a lane-step's 8-wide row it stores
+// the pair (global row, the 8 values) at (scatter slot, lane) of a pair
+// buffer, -1 where the row would be all zero; the owner of each row adds
+// it (K29 slab_scatter, slab.cu) after an all-gather of the pairs. A
+// dispatch has steps / stride slots (the steps of its stride phase, or its
+// importance picks). The carry, the extinction score and the TF and env
+// scatters are the plain mode's. A lane table (ix, seed_iy) gives the
+// lanes' global pixels, which seed the importance picks; without one the
+// lane index does, on the (S, H, W) grid.
 //
 // What bounds them on this card.
 // - prb_tape_forward is K1 plus F x 4 B of tape stores per lane-step: at the
@@ -101,23 +115,11 @@
 
 namespace {
 
-// tape fields, mirrored by TAPE_FIELDS in kernels/spectral_backward.py
-enum TapeField {
-  T_EMITTED = 0, T_RESPAWN, T_PRE_BIN, T_ALPHA, T_ALBEDO, T_G, T_HG_COS,
-  T_NULL, T_SCATTER, T_FX,                       // always
-  T_DIST,                                        // extinction
-  T_TF_ROW, T_FY, T_LIGHT_W,                     // material_tf / light
-  T_SLOPE0, T_SLOPE1, T_SLOPE2, T_VOL_ROW0, T_VFX, T_VFY, T_VFZ,  // density
-  T_VOL_ROW1,                                    // density, xy volume
-  T_ENV_ROW, T_ENV_FX, T_ENV_FY, T_ENV_BAND, T_ENV_W,  // environment
-  T_COUNT,
-};
-
 // reverse-pass integer parameters, mirrored by the wrapper
 enum RParam {
   R_N_LANES = 0, R_RES, R_STEPS, R_N_DISPATCH, R_N_FIELDS, R_STRIDE,
   R_IMPORTANCE, R_WANT_EXT, R_WANT_TF, R_WANT_VOL, R_N_BINS,
-  R_PICK_BITS_SET, R_PICK_BITS, R_WANT_ENV, R_VOL_XY, R_COUNT,
+  R_PICK_BITS_SET, R_PICK_BITS, R_WANT_ENV, R_VOL_XY, R_ROUTED, R_COUNT,
 };
 
 // importance mode keeps per-step c, cb, metric and cdf in registers, sized
@@ -133,13 +135,6 @@ enum RParam {
 #define REV_THREADS 128
 constexpr int rev_min_blocks(int ns) { return ns > 16 ? 2 : (ns > 8 ? 4 : 8); }
 
-// each field's element offset within a step's tape rows (slot x lanes),
-// -1 for a field the tape does not hold
-struct TapeSpec {
-  int n_fields;
-  long long off[T_COUNT];
-};
-
 // reverse-pass parameters: the integer block, 1 / mu, and each tape
 // field's element offset within a step's rows (slot x lanes, -1 when
 // absent), computed once per launch on the host
@@ -148,13 +143,6 @@ struct Rev {
   float inv_mu;
   long long off[T_COUNT];
 };
-
-// one tape value of this lane (`row` points at the lane's slot 0 of the
-// step), written with an evict-first store
-__device__ __forceinline__ void put(float* row, const TapeSpec& T, int field, float v) {
-  const long long o = T.off[field];
-  if (o >= 0) __stcs(row + o, v);
-}
 
 // K seeds x `steps` Woodcock iterations per lane (K1), one tape row per
 // step; ENV: escapes read the environment map; XY: an xy half-packed volume
@@ -426,14 +414,24 @@ __device__ __forceinline__ EventGrads event_grads(const EventIn& e, float q) {
   return G;
 }
 
+// ROUTED mode's output: where a lane-step's volume row goes instead of
+// g_vol, the pair buffer's m global rows (int32) and (m, 8) values, and
+// this scatter's pair (slot x lanes + lane)
+struct PairOut {
+  int* idx;
+  float* upd;
+  int64_t at;
+};
+
 // the analytic per-step table scatters of one tape row (JAX scatter_step,
 // :781-862): one 18-wide TF+light row, one 8-wide volume row (two 4-wide
-// plane rows of an xy volume), and an escape's env texels
+// plane rows of an xy volume; in ROUTED mode stored as a pair), and an
+// escape's env texels
 __device__ __forceinline__ void scatter_step(const EventIn& e, const ScatterIn& s, const Rev& R,
                                              float c, float cb, float weight,
                                              float* __restrict__ g_tf,
                                              float* __restrict__ g_vol,
-                                             float* __restrict__ g_env) {
+                                             float* __restrict__ g_env, const PairOut& po) {
   const float q = cb * c * weight;
   const EventGrads G = event_grads(e, q);
   if (R.i[R_WANT_TF]) {
@@ -458,12 +456,23 @@ __device__ __forceinline__ void scatter_step(const EventIn& e, const ScatterIn& 
       const float w0 = (1 - vfy) * (1 - vfx), w1 = (1 - vfy) * vfx;
       const float w2 = vfy * (1 - vfx), w3 = vfy * vfx;
       const float a0 = gd * (1 - vfz), a1 = gd * vfz;
-      // an 8-wide row is 32 B: two 16-byte-aligned float4 adds; an xy
-      // volume's plane rows are 16 B each
-      float* r0 = R.i[R_VOL_XY] ? g_vol + (int64_t)s.vol_row * 4 : g_vol + (int64_t)s.vol_row * 8;
-      float* r1 = R.i[R_VOL_XY] ? g_vol + (int64_t)s.vol_row1 * 4 : r0 + 4;
-      add4(r0, a0 * w0, a0 * w1, a0 * w2, a0 * w3);
-      add4(r1, a1 * w0, a1 * w1, a1 * w2, a1 * w3);
+      if (R.i[R_ROUTED]) {
+        // the pair's 8 values: two 16-byte stores (the buffer's values
+        // start 16-byte aligned)
+        float4* u = reinterpret_cast<float4*>(po.upd + po.at * 8);
+        u[0] = make_float4(a0 * w0, a0 * w1, a0 * w2, a0 * w3);
+        u[1] = make_float4(a1 * w0, a1 * w1, a1 * w2, a1 * w3);
+        po.idx[po.at] = s.vol_row;
+      } else {
+        // an 8-wide row is 32 B: two 16-byte-aligned float4 adds; an xy
+        // volume's plane rows are 16 B each
+        float* r0 = R.i[R_VOL_XY] ? g_vol + (int64_t)s.vol_row * 4 : g_vol + (int64_t)s.vol_row * 8;
+        float* r1 = R.i[R_VOL_XY] ? g_vol + (int64_t)s.vol_row1 * 4 : r0 + 4;
+        add4(r0, a0 * w0, a0 * w1, a0 * w2, a0 * w3);
+        add4(r1, a1 * w0, a1 * w1, a1 * w2, a1 * w3);
+      }
+    } else if (R.i[R_ROUTED]) {
+      po.idx[po.at] = -1;
     }
   }
   if (R.i[R_WANT_ENV]) {
@@ -505,7 +514,9 @@ reverse_kernel(const Rev R, const float* __restrict__ tape,
                float* __restrict__ cb_io, const int* __restrict__ phases,
                const uint32_t* __restrict__ seeds, double* __restrict__ ext_acc,
                float* __restrict__ g_tf, float* __restrict__ g_vol,
-               float* __restrict__ g_env) {
+               float* __restrict__ g_env, const uint32_t* __restrict__ lane_ix,
+               const uint32_t* __restrict__ lane_seed_iy, int* __restrict__ pair_idx,
+               float* __restrict__ pair_upd) {
   // no early return: every thread reaches block_add's __syncthreads
   const int n_lanes = R.i[R_N_LANES];
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
@@ -521,6 +532,9 @@ reverse_kernel(const Rev R, const float* __restrict__ tape,
     const int64_t lanes = n_lanes;
     const int64_t step_rows = (int64_t)R.i[R_N_FIELDS] * lanes;
     float c = c_io[lane], cb = cb_io[lane];
+    // ROUTED: a dispatch's steps / stride scatter slots
+    const int per_disp = steps / stride;
+    PairOut po = {pair_idx, pair_upd, 0};
 
     for (int k = R.i[R_N_DISPATCH] - 1; k >= 0; --k) {
       const float* disp = tape + (int64_t)k * steps * step_rows + lane;
@@ -539,7 +553,10 @@ reverse_kernel(const Rev R, const float* __restrict__ tape,
           }
           carry_update(t, g_rad_scaled, lanes, lane, n_bins, c, cb);
           if (want_ext) ext += c * cb * (R.inv_mu - t.dist);
-          if (now) scatter_step(e, s, R, c, cb, weight, g_tf, g_vol, g_env);
+          if (now) {
+            po.at = ((int64_t)k * per_disp + it / stride) * lanes + lane;
+            scatter_step(e, s, R, c, cb, weight, g_tf, g_vol, g_env, po);
+          }
         }
       } else {
         // per-lane i.i.d. step picks proportional to the scatter magnitude,
@@ -573,6 +590,10 @@ reverse_kernel(const Rev R, const float* __restrict__ tape,
         uint32_t ix, iy, seed_iy;
         float sx, sy;
         lane_coords(lane, R.i[R_RES], ix, iy, seed_iy, 1.0f, sx, sy);
+        if (lane_ix != nullptr) {
+          ix = __ldg(lane_ix + lane);
+          seed_iy = __ldg(lane_seed_iy + lane);
+        }
         const uint32_t bits =
             (R.i[R_PICK_BITS_SET] ? (uint32_t)R.i[R_PICK_BITS] : seeds[k]) ^ 0x7F4A7C15u;
         const uint32_t pick_state = hash3(ix, seed_iy, bits);
@@ -594,8 +615,9 @@ reverse_kernel(const Rev R, const float* __restrict__ tape,
           }
           const float w = (a > 0.0f) ? S / ((float)count * nmax(a, 1e-30f)) : 0.0f;
           const float* row = disp + sel * step_rows;
+          po.at = ((int64_t)k * per_disp + j) * lanes + lane;
           scatter_step(load_event(row, R), load_scatter(row, R, want_tf, want_vol, true), R,
-                       cs, cbs, w, g_tf, g_vol, g_env);
+                       cs, cbs, w, g_tf, g_vol, g_env, po);
         }
       }
     }
@@ -643,9 +665,7 @@ int vpt_prb_tape_forward(const float* fparams, const int* iparams,
                          void* stream) {
   const Params P = make_params(fparams, iparams);
   const int n = P.i[I_N_LANES];
-  TapeSpec T;
-  T.n_fields = n_fields;
-  for (int k = 0; k < T_COUNT; ++k) T.off[k] = slots[k] < 0 ? -1 : (long long)slots[k] * n;
+  const TapeSpec T = make_tape_spec(slots, n_fields, n);
   if (n <= 0) return 0;
   if ((env != nullptr) != (P.i[I_ENV_H] > 0)) return (int)cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -729,11 +749,14 @@ int vpt_surrogate_tape_forward(const float* fparams, const int* iparams, const i
   return (int)cudaGetLastError();
 }
 
+// lane_ix / lane_seed_iy: the lanes' global pixels (both or neither);
+// pair_idx / pair_upd: ROUTED mode's pair buffer (R_ROUTED set, g_vol null)
 int vpt_prb_reverse(const int* rparams, float inv_mu, const int* slots,
                     const float* tape, const float* g_rad_scaled, float* c,
                     float* cb, const int* phases, const uint32_t* seeds,
                     double* ext_acc, float* g_tf, float* g_vol, float* g_env,
-                    void* stream) {
+                    const uint32_t* lane_ix, const uint32_t* lane_seed_iy, int* pair_idx,
+                    float* pair_upd, void* stream) {
   Rev R;
   for (int k = 0; k < R_COUNT; ++k) R.i[k] = rparams[k];
   R.inv_mu = inv_mu;
@@ -744,6 +767,10 @@ int vpt_prb_reverse(const int* rparams, float inv_mu, const int* slots,
   const bool importance = R.i[R_IMPORTANCE] && R.i[R_STRIDE] > 1 &&
                           (R.i[R_WANT_TF] || R.i[R_WANT_VOL] || R.i[R_WANT_ENV]);
   if (importance && steps > MAX_IMP_STEPS) return (int)cudaErrorInvalidValue;
+  if ((lane_ix == nullptr) != (lane_seed_iy == nullptr) ||
+      (R.i[R_ROUTED] != 0) != (pair_idx != nullptr) || (pair_idx == nullptr) != (pair_upd == nullptr) ||
+      (R.i[R_ROUTED] && (g_vol != nullptr || !R.i[R_WANT_VOL] || R.i[R_VOL_XY])))
+    return (int)cudaErrorInvalidValue;
   const int ns = !importance ? 0 : steps <= 8 ? 8 : steps <= 16 ? 16 : 32;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const dim3 grid(blocks_for(n, REV_THREADS)), block(REV_THREADS);
@@ -751,7 +778,8 @@ int vpt_prb_reverse(const int* rparams, float inv_mu, const int* slots,
 #define VPT_NS(NS)                                                                          \
   case NS:                                                                                  \
     reverse_kernel<NS><<<grid, block, 0, st>>>(R, tape, g_rad_scaled, c, cb, phases, seeds, \
-                                               ext_acc, g_tf, g_vol, g_env);                \
+                                               ext_acc, g_tf, g_vol, g_env, lane_ix,        \
+                                               lane_seed_iy, pair_idx, pair_upd);           \
     break;
     VPT_NS(0) VPT_NS(8) VPT_NS(16) VPT_NS(32)
 #undef VPT_NS

@@ -63,7 +63,7 @@ _SIGNATURES = {
     "spectral_backward": {
         "vpt_bwd_layout": ([_I], _I),
         "vpt_prb_tape_forward": ([_P, _P, _P, _I] + [_P] * 16 + [_P], _I),
-        "vpt_prb_reverse": ([_P, _F] + [_P] * 11 + [_P], _I),
+        "vpt_prb_reverse": ([_P, _F] + [_P] * 15 + [_P], _I),
         "vpt_scatter_rows": ([_P, _L, _P, _P], _I),
         "vpt_surrogate_tape_forward": ([_P, _P, _P, _I] + [_P] * 18 + [_P], _I),
     },
@@ -115,8 +115,11 @@ _SIGNATURES = {
     "slab": {
         "vpt_slab_layout": ([_I], _I),
         "vpt_slab_rows": ([_P, _I, _L, _L, _P, _P, _L, _P], _I),
-        "vpt_slab_advance": ([_P] * 10 + [_U, _I] + [_P] * 6 + [_P], _I),
-        "vpt_slab_finish": ([_P] * 23 + [_P], _I),
+        "vpt_slab_advance": ([_P] * 10 + [_U, _I] + [_P] * 6 + [_I, _P], _I),
+        "vpt_slab_finish": ([_P] * 24 + [_I, _P, _P], _I),
+        "vpt_slab_scatter": ([_P, _L, _I, _L, _L, _P, _P], _I),
+        "vpt_slab_contract": ([_P, _I, _I, _I, _I, _I, _P, _P], _I),
+        "vpt_slab_pack": ([_P, _I, _I, _I, _I, _I, _P, _P], _I),
     },
     "gather_bench": {
         "vpt_gather_limits": ([_P], _I),
@@ -222,7 +225,8 @@ KERNELS = ("step_kernel", "tape_forward_kernel", "reverse_kernel", "contract_vol
            "raw_tape_kernel", "raw_replay_kernel", "march_kernel", "mip_kernel", "iso_kernel",
            "iso_shade_kernel", "eam_backward_kernel", "mcm_step_kernel", "mcm_reset_kernel",
            "mcs_frames_kernel", "mcs_persistent_kernel", "dos_slice_kernel", "dos_display_kernel",
-           "lao_frame_kernel", "slab_rows_kernel", "slab_advance_kernel", "slab_finish_kernel")
+           "lao_frame_kernel", "slab_rows_kernel", "slab_advance_kernel", "slab_finish_kernel",
+           "slab_scatter_kernel", "slab_contract_kernel", "slab_pack_kernel")
 _ENTRY = re.compile(r"Compiling entry function '\S*?\d(" + "|".join(KERNELS) + r")(I\S*?EE)?[Ev]")
 
 
@@ -237,10 +241,11 @@ def ptxas_table(log_text):
     (K5 reverse_kernel: 0 for stride mode, else the importance step
     count), MODE (K15 march_kernel: 0 EAM, 1 Depth), LEARN_TF (K19
     eam_backward_kernel: 0 or 1), LAO,SHADOWS (K25 lao_frame_kernel: 0 or
-    1 each), MAJ (K27 slab_advance_kernel), NB,MAJ,ENV (K28
+    1 each), MAJ (K27 slab_advance_kernel), NB,MAJ,ENV,TAPE (K28
     slab_finish_kernel), "" for the untemplated ones (K20 mcm_step_kernel, K21
-    mcm_reset_kernel, K22 mcs_frames_kernel, K23 mcs_persistent_kernel and
-    K24 dos_slice_kernel among them)."""
+    mcm_reset_kernel, K22 mcs_frames_kernel, K23 mcs_persistent_kernel, K24
+    dos_slice_kernel, K26 slab_rows_kernel, K29 slab_scatter_kernel, K30
+    slab_contract_kernel and K31 slab_pack_kernel among them)."""
     rows, cur = [], None
     for line in log_text.splitlines():
         m = _ENTRY.search(line)

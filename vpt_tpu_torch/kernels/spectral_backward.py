@@ -23,7 +23,12 @@ Two kernels of ``vpt_tpu_torch/csrc/spectral_backward.cu``:
   the stride or importance scatters; replaces ``cotangent_update`` +
   ``scatter_step`` (``:781-950``) and ``_importance_metric`` +
   ``_importance_scatter`` (``:411-540``). Plain version
-  ``prb_reverse_plain``.
+  ``prb_reverse_plain``. Its ROUTED mode (``pairs=``, the slab-sharded
+  backward of ``parallel/slab.py``) stores each lane-step's volume row as a
+  (global row, 8 values) pair in a pair buffer (``pair_buffer``) instead of
+  adding it, for the row's owner to add (K29 ``slab_scatter``); a lane
+  table (``lanes=``) gives the lanes' global pixels, which seed the
+  importance picks.
 
 The tape is one f32 tensor ``(K, steps, F, lanes)`` whose F fields are
 ``tape_fields(wrt, env, xy)`` (int and bool fields bit-cast into f32
@@ -78,7 +83,7 @@ ALL_WRT = frozenset({"density", "material_tf", "light_spectrum", "extinction"})
 LEGAL_WRT = ALL_WRT | {"environment"}
 EPS = 1e-5
 
-# tape fields in the order of TapeField in csrc/spectral_backward.cu
+# tape fields in the order of TapeField in csrc/adjoint_common.cuh
 TAPE_FIELDS = (
     "emitted", "respawn", "pre_bin", "alpha", "albedo", "g", "hg_cos",
     "null", "scatter", "fx",                                   # always
@@ -93,7 +98,7 @@ BOOL_FIELDS = frozenset({"respawn", "null", "scatter"})
 _ENV_FIELDS = TAPE_FIELDS[22:]
 # must match MAX_IMP_STEPS and RParam in csrc/spectral_backward.cu
 MAX_IMP_STEPS = 32
-_R_COUNT = 15
+_R_COUNT = 16
 
 # above this many bytes of stacked tape, window_storage="auto" re-simulates
 # from stored start states instead (the JAX package's limit)
@@ -104,7 +109,7 @@ _TAPE_AUTO_LIMIT_BYTES = 6 * 1024**3
 LAUNCHES = {"prb_tape_forward": 0, "prb_reverse": 0,
             "prb_tape_forward_environment": 0, "prb_tape_forward_quasicubic": 0,
             "prb_tape_forward_xy": 0, "prb_reverse_environment": 0, "prb_reverse_xy": 0,
-            "raw_tape": 0, "raw_replay": 0}
+            "prb_reverse_routed": 0, "raw_tape": 0, "raw_replay": 0}
 
 
 def reset_launch_counts():
@@ -358,9 +363,11 @@ def _event_grads(t: _Row, q):
     return grad_alpha, grad_albedo, grad_graw
 
 
-def _scatter_plain(t: _Row, c, cb, weight, adj):
+def _scatter_plain(t: _Row, c, cb, weight, adj, pair=None):
     """The per-step table scatters of one tape row (JAX ``scatter_step``),
-    in the kernel's order."""
+    in the kernel's order. ``pair``: the (idx (lanes,), upd (lanes, 8))
+    views of this scatter's slot in a pair buffer, which then takes the
+    volume rows (-1 where a row is all zero) in place of ``adj["g_vol"]``."""
     q = cb * c * weight
     ga, gb, gg = _event_grads(t, q)
     if "g_tf" in adj:
@@ -373,12 +380,15 @@ def _scatter_plain(t: _Row, c, cb, weight, adj):
             cols += [gb * wk, ga * wk, gg * wk, zero]
         cols += [gl * (1 - fx), gl * fx]
         adj["g_tf"].index_add_(0, t.i("tf_row").to(torch.int64), torch.stack(cols, dim=-1))
-    if "g_vol" in adj:
+    if "g_vol" in adj or pair is not None:
         gd = gb * t.f("slope0") + ga * t.f("slope1") + gg * t.f("slope2")
         vfx, vfy, vfz = t.f("vfx"), t.f("vfy"), t.f("vfz")
         w4 = ((1 - vfy) * (1 - vfx), (1 - vfy) * vfx, vfy * (1 - vfx), vfy * vfx)
         a0, a1 = gd * (1 - vfz), gd * vfz
-        if adj["g_vol"].shape[1] == 4:
+        if pair is not None:
+            pair[0].copy_(torch.where(gd != 0.0, t.i("vol_row0"), -1))
+            pair[1].copy_(torch.stack([a0 * wk for wk in w4] + [a1 * wk for wk in w4], dim=-1))
+        elif adj["g_vol"].shape[1] == 4:
             # xy volume: the z0 and z1 plane rows
             adj["g_vol"].index_add_(0, t.i("vol_row0").to(torch.int64),
                                     torch.stack([a0 * wk for wk in w4], dim=-1))
@@ -409,17 +419,31 @@ def _importance_metric_plain(t: _Row, c, cb, want_tf, want_vol, want_env=False):
 
 def prb_reverse_plain(tapes, fields, g_rad_scaled, cot, adj, phases, seeds, *,
                       scatter_stride: int, importance: bool, inv_mu: float,
-                      resolution: int, streams: int, pick_bits=None):
+                      resolution: int, streams: int, pick_bits=None, lanes=None, pairs=None):
     """Plain PyTorch ``prb_reverse``: updates the carry ``cot`` (dict c, cb
     of (lanes,) tensors) and the adjoints ``adj`` (dict of g_ext (1,),
     g_tf (rows, 18), g_vol (rows, 8) or (rows, 4) for an xy volume, g_env
-    (rows, 12), as present) in place."""
+    (rows, 12), as present) in place; with ``pairs`` (a ``pair_buffer``)
+    the volume rows go to its slots, dispatch k's slot j at k * (steps //
+    stride) + j."""
     n_disp, steps = tapes.shape[0], tapes.shape[1]
+    n_lanes = tapes.shape[3]
     n_bins = g_rad_scaled.shape[0]
     col = {f: i for i, f in enumerate(fields)}
     importance = importance and scatter_stride > 1
-    want_tf, want_vol, want_env = "g_tf" in adj, "g_vol" in adj, "g_env" in adj
+    want_tf, want_env = "g_tf" in adj, "g_env" in adj
+    want_vol = "g_vol" in adj or pairs is not None
     want_scatter = want_tf or want_vol or want_env
+    per_disp = steps // scatter_stride
+    if pairs is not None:
+        idx_all, upd_all = pair_views(pairs)
+
+    def pair(slot):
+        if pairs is None:
+            return None
+        at = slice(slot * n_lanes, (slot + 1) * n_lanes)
+        return idx_all[at], upd_all[at]
+
     c, cb = cot["c"], cot["cb"]
     weight = float(scatter_stride)
     for k in range(n_disp - 1, -1, -1):
@@ -437,21 +461,25 @@ def prb_reverse_plain(tapes, fields, g_rad_scaled, cot, adj, phases, seeds, *,
             if importance:
                 c_all[it], cb_all[it] = c, cb
             elif want_scatter and it % scatter_stride == int(phases[k]):
-                _scatter_plain(t, c, cb, weight, adj)
+                _scatter_plain(t, c, cb, weight, adj, pair(k * per_disp + it // scatter_stride))
         if importance and want_scatter:
             _importance_scatter_plain(tapes[k], col, c_all, cb_all, adj, seeds[k],
                                       scatter_stride, resolution, streams, pick_bits,
-                                      want_tf, want_vol, want_env)
+                                      want_tf, want_vol, want_env, lanes,
+                                      [pair(k * per_disp + j) for j in range(per_disp)])
     cot["c"], cot["cb"] = c, cb
 
 
 def _importance_picks(tape, col, c_all, cb_all, seed, stride, resolution, streams,
-                      pick_bits, want_tf, want_vol, want_env=False):
+                      pick_bits, want_tf, want_vol, want_env=False, lanes=None):
     """Per-lane importance picks of one dispatch (JAX ``_importance_scatter``):
     ``steps // stride`` i.i.d. step picks with probability proportional to
     the step's total scatter magnitude, each weighted S / (count * metric).
     S and the cdf are sequential sums over the steps, in the kernel's order.
-    Returns (picks, weights): per pick, (lanes,) step indices and weights."""
+    The picks seed from each lane's global pixel: the lane table (ix, iy,
+    seed_iy) when given, else the (S, H, W) grid of ``resolution`` and
+    ``streams``. Returns (picks, weights): per pick, (lanes,) step indices
+    and weights."""
     steps = tape.shape[0]
     absq = [_importance_metric_plain(_Row(tape[s], col), c_all[s], cb_all[s],
                                      want_tf, want_vol, want_env) for s in range(steps)]
@@ -465,7 +493,10 @@ def _importance_picks(tape, col, c_all, cb_all, seed, stride, resolution, stream
         cdf.append(run)
     cdf = torch.stack(cdf)
     absq = torch.stack(absq)
-    ix, _, seed_iy = K._pixel_grid(resolution, streams, tape.device)
+    if lanes is None:
+        ix, _, seed_iy = K._pixel_grid(resolution, streams, tape.device)
+    else:
+        ix, _, seed_iy = (t.to(torch.int64) for t in lanes)
     bits = (int(seed) if pick_bits is None else int(pick_bits)) ^ 0x7F4A7C15
     pick_state = sampling.seed_state(ix.reshape(-1), seed_iy.reshape(-1), bits)
     count = steps // stride
@@ -482,24 +513,32 @@ def _importance_picks(tape, col, c_all, cb_all, seed, stride, resolution, stream
 
 
 def _importance_scatter_plain(tape, col, c_all, cb_all, adj, seed, stride, resolution,
-                              streams, pick_bits, want_tf, want_vol, want_env):
-    """The importance-thinned scatters of one dispatch."""
+                              streams, pick_bits, want_tf, want_vol, want_env, lanes=None,
+                              pairs=None):
+    """The importance-thinned scatters of one dispatch; ``pairs``: pick j's
+    pair-buffer slot views (ROUTED mode), else None."""
     picks, weights = _importance_picks(tape, col, c_all, cb_all, seed, stride, resolution,
-                                       streams, pick_bits, want_tf, want_vol, want_env)
+                                       streams, pick_bits, want_tf, want_vol, want_env, lanes)
     c_all, cb_all = torch.stack(c_all), torch.stack(cb_all)
-    for sel, w in zip(picks, weights):
+    for j, (sel, w) in enumerate(zip(picks, weights)):
         row = torch.gather(tape, 0, sel[None, None].expand(1, tape.shape[1], tape.shape[2]))[0]
         _scatter_plain(_Row(row, col), torch.gather(c_all, 0, sel[None])[0],
-                       torch.gather(cb_all, 0, sel[None])[0], w, adj)
+                       torch.gather(cb_all, 0, sel[None])[0], w, adj,
+                       None if pairs is None else pairs[j])
 
 
 def prb_reverse(tapes, fields, g_rad_scaled, cot, adj, phases, seeds, *,
                 scatter_stride: int, scatter_mode: str, inv_mu: float,
-                resolution: int, streams: int, pick_bits=None):
+                resolution: int, streams: int, pick_bits=None, lanes=None, pairs=None):
     """The reverse pass over K stored dispatch tapes (dispatch K-1 first),
     threading ``cot`` (dict c, cb) across them and accumulating into
     ``adj``; both are updated in place. ``phases``/``seeds``: per-dispatch
-    stride phase and frame seed. One kernel launch on a CUDA device."""
+    stride phase and frame seed. One kernel launch on a CUDA device.
+
+    ROUTED mode: ``pairs``, a ``pair_buffer`` of at least K * (steps //
+    stride) * lanes pairs, takes the volume rows (``adj`` then holds no
+    g_vol); ``lanes``: the lanes' int32 lane table (ix, iy, seed_iy), whose
+    global pixels seed the importance picks."""
     if scatter_mode not in ("stride", "importance"):
         raise ValueError(f"unknown scatter_mode {scatter_mode!r}")
     n_disp, steps, n_fields, n_lanes = tapes.shape
@@ -512,18 +551,26 @@ def prb_reverse(tapes, fields, g_rad_scaled, cot, adj, phases, seeds, *,
         raise ValueError(f"importance thinning supports at most {MAX_IMP_STEPS} steps, got {steps}")
     if ("g_ext" in adj) != ("dist" in fields):
         raise ValueError("the extinction adjoint needs the tape's dist field")
-    if (("g_tf" in adj) != ("tf_row" in fields) or ("g_vol" in adj) != ("vol_row0" in fields)
+    routed = pairs is not None
+    if routed and "g_vol" in adj:
+        raise ValueError("ROUTED mode stores the volume rows as pairs: adj holds no g_vol")
+    if (("g_tf" in adj) != ("tf_row" in fields)
+            or ("g_vol" in adj or routed) != ("vol_row0" in fields)
             or ("g_env" in adj) != ("env_row" in fields)):
         raise ValueError("adjoints and tape fields disagree")
     xy = "g_vol" in adj and adj["g_vol"].shape[1] == 4
     if xy != ("vol_row1" in fields):
         raise ValueError("an xy volume's (rows, 4) adjoint needs the tape's vol_row1 field")
+    if routed and pair_capacity(pairs) < n_disp * (steps // scatter_stride) * n_lanes:
+        raise ValueError(f"a pair buffer of {pair_capacity(pairs)} pairs for "
+                         f"{n_disp * (steps // scatter_stride) * n_lanes}")
     tensors = [tapes, g_rad_scaled, cot["c"], cot["cb"], *adj.values()]
+    tensors += ([] if lanes is None else list(lanes)) + ([] if pairs is None else [pairs])
     if K._route(*tensors) == "cpu":
         return prb_reverse_plain(tapes, fields, g_rad_scaled, cot, adj, phases, seeds,
                                  scatter_stride=scatter_stride, importance=importance,
                                  inv_mu=inv_mu, resolution=resolution, streams=streams,
-                                 pick_bits=pick_bits)
+                                 pick_bits=pick_bits, lanes=lanes, pairs=pairs)
     K._check(tapes, "tapes", torch.float32)
     K._check(g_rad_scaled, "g_rad_scaled", torch.float32, (g_rad_scaled.shape[0], n_lanes))
     for name in ("c", "cb"):
@@ -537,12 +584,20 @@ def prb_reverse(tapes, fields, g_rad_scaled, cot, adj, phases, seeds, *,
                  (adj["g_vol"].shape[0], 4 if xy else 8), align=16)
     if "g_env" in adj:
         K._check(adj["g_env"], "g_env", torch.float32, (adj["g_env"].shape[0], 12))
+    if lanes is not None:
+        for t, name in zip(lanes, ("lane_ix", "lane_iy", "lane_seed_iy")):
+            K._check(t, name, torch.int32)
+            if t.numel() != n_lanes:
+                raise ValueError(f"{name}: {t.numel()} lanes for a tape of {n_lanes}")
+    if routed:
+        K._check(pairs, "pairs", torch.float32, (pairs.numel(),), align=16)
     r = np.array([
         n_lanes, resolution, steps, n_disp, n_fields, scatter_stride, int(importance),
-        int("g_ext" in adj), int("g_tf" in adj), int("g_vol" in adj), g_rad_scaled.shape[0],
+        int("g_ext" in adj), int("g_tf" in adj), int("g_vol" in adj or routed),
+        g_rad_scaled.shape[0],
         int(pick_bits is not None),
         int(np.uint32(0 if pick_bits is None else int(pick_bits) & 0xFFFFFFFF).view(np.int32)),
-        int("g_env" in adj), int(xy),
+        int("g_env" in adj), int(xy), int(routed),
     ], np.int32)
     assert r.shape == (_R_COUNT,)
     lib = _build.load()
@@ -562,13 +617,39 @@ def prb_reverse(tapes, fields, g_rad_scaled, cot, adj, phases, seeds, *,
             r.ctypes.data, float(np.float32(inv_mu)), slots.ctypes.data, tapes.data_ptr(),
             g_rad_scaled.data_ptr(), cot["c"].data_ptr(), cot["cb"].data_ptr(),
             phases_dev.data_ptr(), seeds_dev.data_ptr(), K._ptr(ext_acc), ptr("g_tf"),
-            ptr("g_vol"), ptr("g_env"), K._stream(device))
+            ptr("g_vol"), ptr("g_env"), None if lanes is None else lanes[0].data_ptr(),
+            None if lanes is None else lanes[2].data_ptr(),
+            None if pairs is None else pairs.data_ptr(),
+            None if pairs is None else pair_views(pairs)[1].data_ptr(), K._stream(device))
     K._raise_on(err, "prb_reverse")
     LAUNCHES["prb_reverse"] += 1
     LAUNCHES["prb_reverse_environment"] += int("g_env" in adj)
     LAUNCHES["prb_reverse_xy"] += int(xy)
+    LAUNCHES["prb_reverse_routed"] += int(routed)
     if ext_acc is not None:
         adj["g_ext"] += ext_acc.to(torch.float32)
+
+
+def pair_buffer(n_pairs: int, device) -> torch.Tensor:
+    """A ROUTED-mode pair buffer for ``n_pairs`` (global row, 8 values)
+    pairs: one flat f32 tensor of 9 m floats, m = ``n_pairs`` rounded up to
+    a multiple of 4 (so the values start 16-byte aligned), the m rows
+    (int32 bits, all -1 here) first, then the (m, 8) values. One tensor, so
+    one all-gather moves a rank's pairs."""
+    m = -(-int(n_pairs) // 4) * 4
+    buf = torch.empty(9 * m, dtype=torch.float32, device=device)
+    buf[:m].view(torch.int32).fill_(-1)
+    return buf
+
+
+def pair_capacity(pairs: torch.Tensor) -> int:
+    return pairs.numel() // 9
+
+
+def pair_views(pairs: torch.Tensor):
+    """(rows (m,) int32, values (m, 8) f32) views of a pair buffer."""
+    m = pair_capacity(pairs)
+    return pairs[:m].view(torch.int32), pairs[m:].view(m, 8)
 
 
 # ---------------------------------------------------------------------------

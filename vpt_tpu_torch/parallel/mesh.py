@@ -31,9 +31,13 @@ import torch.distributed as dist
 from vpt_tpu_torch.ops.interp import PackedVolume
 
 # collectives run, by kind: "all_gather" and "reduce_scatter" of flat
-# tensors (the slab's routed gather, parallel/slab.py), "gather_rows" (an
-# image or a state leaf gathered along its row axis)
-COLLECTIVES = {"all_gather": 0, "reduce_scatter": 0, "gather_rows": 0}
+# tensors (the slab's routed gather and the backward's gather of the
+# adjoint pairs, parallel/slab.py), "gather_rows" (an image, a state leaf or
+# the slab backward's z-sharded gradient gathered along its row axis),
+# "halo" (a plane handed to the rank before, halo_from_next), "all_reduce"
+# (a sum over the ranks, the slab fit's loss)
+COLLECTIVES = {"all_gather": 0, "reduce_scatter": 0, "gather_rows": 0, "halo": 0,
+               "all_reduce": 0}
 
 
 def reset_collective_counts():
@@ -146,6 +150,28 @@ def reduce_scatter(t: torch.Tensor, mesh: RayMesh) -> torch.Tensor:
                       device=t.device)
     dist.reduce_scatter_tensor(out, t.contiguous(), group=mesh.group)
     COLLECTIVES["reduce_scatter"] += 1
+    return out
+
+
+def halo_from_next(plane: torch.Tensor, mesh: RayMesh) -> torch.Tensor:
+    """Rank r + 1's ``plane`` on rank r, zeros on the last rank: JAX's
+    ``ppermute`` over the pairs (i, i - 1), as one all-gather of the plane
+    (the simplest form both gloo and NCCL run)."""
+    _check_tensor(mesh, plane)
+    out = torch.empty((mesh.size,) + tuple(plane.shape), dtype=plane.dtype, device=plane.device)
+    dist.all_gather_into_tensor(out, plane.reshape((1,) + tuple(plane.shape)).contiguous(),
+                                group=mesh.group)
+    COLLECTIVES["halo"] += 1
+    return out[mesh.rank + 1] if mesh.rank + 1 < mesh.size else torch.zeros_like(plane)
+
+
+def all_reduce(t: torch.Tensor, mesh: RayMesh) -> torch.Tensor:
+    """The sum over ranks of ``t`` (JAX ``psum``), a new tensor on every
+    rank."""
+    _check_tensor(mesh, t)
+    out = t.clone(memory_format=torch.contiguous_format)
+    dist.all_reduce(out, op=dist.ReduceOp.SUM, group=mesh.group)
+    COLLECTIVES["all_reduce"] += 1
     return out
 
 

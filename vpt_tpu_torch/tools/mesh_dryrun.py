@@ -1,4 +1,5 @@
-"""The ray mesh and the slab render across CPU processes under gloo.
+"""The ray mesh, the slab render and the slab backward across CPU processes
+under gloo.
 
     python -m vpt_tpu_torch.tools.mesh_dryrun --world 4 --out DIR [--job NAME ...]
 
@@ -13,7 +14,10 @@ them with the JAX package, which no process here imports.
 
 The scene is the JAX mesh tests' (``tests/test_slab.py``: ``sphere_in_cube(16)``
 at 16^2, a constant TF (0.8, 0.6, 0.2), light (1, 0.2, 0.3), extinction 20, 6
-steps, 12 bins); ``SLAB_MODES`` names the slab render's modes.
+steps, 12 bins); ``SLAB_MODES`` names the slab render's modes. The backward's
+jobs (``bwd_*``, ``tests/test_torch_slab_backward.py``) take their scene as
+numpy arrays (``scene``: the keywords of ``convert.ctx_from_numpy`` and a
+state's fields), so the test can hand them the JAX renderer's ctx and reset.
 """
 
 from __future__ import annotations
@@ -207,8 +211,271 @@ def job_slab_render(mesh, mode, streams=1, seed=5):
                 counts=counts, calls=calls)
 
 
+# ---------------------------------------------------------------------------
+# the slab backward (parallel/slab.py): K5 ROUTED, K28 TAPE, K29, K30, K31
+# ---------------------------------------------------------------------------
+def scatter_inputs(n, rows, seed=7, per_rank=29):
+    """Every rank's (row, 8 values) pairs into a table of ``rows`` rows,
+    from a numpy seed: (n * per_rank,) int32 rows (every 5th -1) and (n *
+    per_rank, 8) f32 values, rank r's the r-th block."""
+    g = np.random.default_rng(seed + n)
+    idx = g.integers(0, rows, size=n * per_rank).astype(np.int32)
+    idx[::5] = -1
+    return idx, g.standard_normal((n * per_rank, 8)).astype(np.float32)
+
+
+def padded_rows(n):
+    """Rows of the scene's corner table padded for ``n`` ranks."""
+    return -(-(VOL + 1) // n) * n * (VOL + 1) ** 2
+
+
+def job_bwd_scatter(mesh, seed=7):
+    """``distributed_scatter_add`` of every rank's pairs into zero adjoint
+    slabs; every rank's slab gathered (the padded table's adjoint)."""
+    from vpt_tpu_torch.parallel import mesh as M
+    from vpt_tpu_torch.parallel import slab
+
+    idx, upd = scatter_inputs(mesh.size, padded_rows(mesh.size), seed)
+    mine = slice(mesh.rank * len(idx) // mesh.size, (mesh.rank + 1) * len(idx) // mesh.size)
+    adj = torch.zeros((padded_rows(mesh.size) // mesh.size, 8))
+    slab.distributed_scatter_add(adj, torch.as_tensor(idx[mine]), torch.as_tensor(upd[mine]),
+                                 mesh)
+    return dict(adj=M.all_gather(adj, mesh).numpy())
+
+
+def contract_input(n, pad_random, seed=11):
+    """A packed density adjoint (padded for ``n`` ranks, (Dp', H+1, W+1, 8)
+    f32) from a numpy seed; the pad planes zero unless ``pad_random``."""
+    g = np.random.default_rng(seed)
+    adj = g.standard_normal((padded_rows(n) // (VOL + 1) ** 2, VOL + 1, VOL + 1, 8))
+    if not pad_random:
+        adj[VOL + 1:] = 0.0
+    return adj.astype(np.float32)
+
+
+def job_bwd_contract(mesh, pad_random):
+    """``contract_slab_adjoint`` of each rank's slab of ``contract_input``:
+    the raw gradient (on every rank) and the collectives it made."""
+    from vpt_tpu_torch.parallel import mesh as M
+    from vpt_tpu_torch.parallel import slab
+
+    adj = contract_input(mesh.size, pad_random).reshape(mesh.size, -1, 8)[mesh.rank]
+    M.reset_collective_counts()
+    g = slab.contract_slab_adjoint(torch.as_tensor(adj.copy()), (VOL, VOL, VOL), mesh)
+    return dict(grad=g.numpy(), counts=dict(M.COLLECTIVES))
+
+
+def pack_input():
+    """A raw (VOL, VOL, VOL) f32 density, the scene's sphere plus noise."""
+    from vpt_tpu_torch import Volume
+
+    d = np.asarray(Volume.sphere_in_cube(VOL).density, np.float32)
+    return (d + 0.1 * np.random.default_rng(13).random(d.shape)).astype(np.float32)
+
+
+def job_bwd_pack(mesh):
+    """``pack_slab_rows`` of ``pack_input``: this rank's slab, its dims."""
+    from vpt_tpu_torch.parallel import slab
+
+    sv = slab.pack_slab_rows(torch.as_tensor(pack_input()), mesh)
+    return dict(table=sv.table.numpy(), dims=sv.dims)
+
+
+def ramp_table():
+    """The density ramp TF of ``tests/test_slab.py``'s backward tests."""
+    table = np.zeros((256, 256, 4), np.float32)
+    table[..., 0] = 0.8
+    table[..., 1] = np.linspace(0, 1, 256)[:, None]
+    table[..., 2] = 0.5
+    return table
+
+
+def _scene(scene, mesh):
+    """(replicated ctx, global state, this rank's slab ctx, this rank's
+    state) of a scene given as numpy arrays."""
+    from vpt_tpu_torch import convert
+    from vpt_tpu_torch.parallel import mesh as M
+    from vpt_tpu_torch.parallel import slab
+
+    ctx = convert.ctx_from_numpy(**scene["ctx"], device="cpu")
+    state = convert.state_from_numpy(scene["state"], "cpu")
+    packed = ctx.density.table.view(*ctx.density.dims, 8).numpy()
+    sctx = dataclasses.replace(ctx, density=slab.shard_packed_volume(
+        slab.pad_packed_for_slabs(packed, mesh.size), mesh))
+    return ctx, state, sctx, M.shard_spectral_state(state, mesh)
+
+
+def _lane_rows(t, mesh, streams):
+    """This rank's lanes of a (..., lanes) tensor over the global (S, R, R)
+    lane grid, in the rank's (S, rows, R) order."""
+    R = int(round((t.shape[-1] // streams) ** 0.5))
+    lo, hi = mesh.rank * R // mesh.size, (mesh.rank + 1) * R // mesh.size
+    return t.reshape(t.shape[:-1] + (streams, R, R))[..., lo:hi, :].reshape(t.shape[:-1] + (-1,))
+
+
+def job_bwd_tape(mesh, scene, steps=STEPS):
+    """The taped slab dispatch's tape and state, and K4's tape (plain,
+    the replicated table, every lane) at this rank's lanes, and K4's state
+    gathered."""
+    from vpt_tpu_torch.kernels import spectral_backward as SB
+    from vpt_tpu_torch.parallel import mesh as M
+    from vpt_tpu_torch.parallel import slab
+
+    ctx, state, sctx, mine = _scene(scene, mesh)
+    streams = state.px.shape[0] if state.px.ndim == 3 else 1
+    fields = SB.ctx_tape_fields(ctx, slab.WRT)
+    k4_state, k4_tape = SB.tape_forward(state, ctx, [ctx.seed_bits], steps, BINS, slab.WRT)
+    st, tape = slab.tape_slab_dispatch(mine, sctx, mesh, (VOL, VOL, VOL), steps, BINS,
+                                       ctx.seed_bits, fields)
+    return dict(tape=tape.numpy(), k4_tape=_lane_rows(k4_tape, mesh, streams).numpy(),
+                state=_numpy_state(M.gather_spectral_state(st, mesh)),
+                k4_state=_numpy_state(k4_state), fields=fields)
+
+
+def _counted(module, names):
+    """Wrap ``module``'s functions ``names`` to count their calls; returns
+    (calls, restore)."""
+    calls = {k: 0 for k in names}
+    saved = {k: getattr(module, k) for k in names}
+
+    def counted(name):
+        def f(*a, **k):
+            calls[name] += 1
+            return saved[name](*a, **k)
+        return f
+
+    for k in names:
+        setattr(module, k, counted(k))
+
+    def restore():
+        for k, f in saved.items():
+            setattr(module, k, f)
+    return calls, restore
+
+
+BWD_WRAPPERS = ("slab_advance", "slab_rows", "slab_finish", "slab_scatter", "slab_contract",
+                "slab_pack")
+
+
+def job_bwd_prb(mesh, scene, g_image, stride=1, steps=STEPS):
+    """``prb_grads_slab`` (this rank's rows; image, samples and the
+    gradient gathered) and the replicated ``prb_render_and_grads`` over the
+    whole table, from the same scene; the collectives and wrapper calls of
+    the slab run (K5's ROUTED calls by ``prb_reverse``)."""
+    from vpt_tpu_torch.kernels import slab as KS
+    from vpt_tpu_torch.kernels import spectral_backward as SB
+    from vpt_tpu_torch.parallel import mesh as M
+    from vpt_tpu_torch.parallel import slab
+
+    ctx, state, sctx, mine = _scene(scene, mesh)
+    g = torch.as_tensor(g_image)
+    ref_state, ref_img, ref = SB.prb_render_and_grads(state, ctx, g, steps, BINS, wrt=slab.WRT,
+                                                      scatter_stride=stride)
+    calls, restore = _counted(KS, BWD_WRAPPERS)
+    rev_calls, rev_restore = _counted(SB, ("prb_reverse", "tape_forward"))
+    try:
+        M.reset_collective_counts()
+        st, img, grads = slab.prb_grads_slab(mine, sctx, mesh, (VOL, VOL, VOL), g, steps, BINS,
+                                             scatter_stride=stride)
+        counts = dict(M.COLLECTIVES)
+    finally:
+        restore()
+        rev_restore()
+    return dict(image=img.numpy(), samples=M.gather_rows(st.samples, mesh, st.samples.ndim - 2)
+                .numpy(), density=grads["density"].numpy(), ref_image=ref_img.numpy(),
+                ref_samples=ref_state.samples.numpy(), ref_density=ref["density"].numpy(),
+                counts=counts, calls={**calls, **rev_calls},
+                untouched=all(torch.equal(a, b) for a, b in zip(
+                    mine.tensors(), M.shard_spectral_state(state, mesh).tensors())))
+
+
+def job_bwd_window(mesh, scene, g_image, seeds, stride=1, mode="stride", steps=STEPS):
+    """``prb_window_grads_slab`` and the replicated
+    ``prb_render_and_grads_many(window=True, window_storage="forward")``;
+    the slab run's collectives and wrapper calls, and the rows its K5
+    ROUTED pairs name ((K, slots, S, R, R) int32 over the global lanes,
+    dispatch K-1 first), which the importance picks decide."""
+    from vpt_tpu_torch.kernels import slab as KS
+    from vpt_tpu_torch.kernels import spectral_backward as SB
+    from vpt_tpu_torch.parallel import mesh as M
+    from vpt_tpu_torch.parallel import slab
+
+    ctx, state, sctx, mine = _scene(scene, mesh)
+    g = torch.as_tensor(g_image)
+    _, ref_img, ref = SB.prb_render_and_grads_many(
+        state, ctx, seeds, g, steps, BINS, wrt=slab.WRT, scatter_stride=stride,
+        scatter_mode=mode, window=True, window_storage="forward")
+    pairs, scatter = [], slab.scatter_pairs
+
+    def recording(adj, buf, m):
+        pairs.append(SB.pair_views(buf)[0].clone())
+        return scatter(adj, buf, m)
+
+    calls, restore = _counted(KS, BWD_WRAPPERS)
+    slab.scatter_pairs = recording
+    try:
+        M.reset_collective_counts()
+        st, img, grads = slab.prb_window_grads_slab(mine, sctx, mesh, (VOL, VOL, VOL), seeds, g,
+                                                    steps, BINS, scatter_stride=stride,
+                                                    scatter_mode=mode)
+        counts = dict(M.COLLECTIVES)
+    finally:
+        slab.scatter_pairs = scatter
+        restore()
+    lane = mine.px.shape if mine.px.ndim == 3 else (1,) + tuple(mine.px.shape)
+    slots = steps // stride
+    rows = torch.stack([p[:slots * mine.px.numel()].reshape((slots,) + tuple(lane))
+                        for p in pairs])
+    return dict(image=img.numpy(), density=grads["density"].numpy(), ref_image=ref_img.numpy(),
+                ref_density=ref["density"].numpy(), counts=counts, calls=calls,
+                pair_rows=M.gather_rows(rows, mesh, rows.ndim - 2).numpy())
+
+
+def fit_renderer(mesh=None, pack=True):
+    """The port's renderer of ``tests/test_slab.py``'s slab fit: the
+    sphere, albedo 0.9, alpha ramping from density 0.3, light (1, 0.2,
+    0.5), extinction 20, 8 steps; ``pack`` True packs every table, else
+    only the TF and light (fused), as the slab fit takes them."""
+    from vpt_tpu_torch import LightConfig, MaterialTF, MCMSpectralConfig, SpectrumConfig, Volume
+    from vpt_tpu_torch.models.mcm_spectral import MCMSpectralRenderer
+
+    table = np.zeros((256, 256, 4), np.float32)
+    dens = np.linspace(0, 1, 256)[:, None]
+    table[..., 0] = 0.9
+    table[..., 1] = np.where(dens > 0.3, (dens - 0.3) / 0.7, 0.0)
+    return MCMSpectralRenderer(
+        Volume.sphere_in_cube(VOL), MaterialTF(table), LightConfig(direction=(1.0, 0.2, 0.5)),
+        SpectrumConfig(), MCMSpectralConfig(extinction=20.0, steps=8), resolution=RES,
+        pack_tables=True if pack else {"material_tf", "light_spectrum"}, mesh=mesh, device="cpu")
+
+
+FIT = dict(dispatches_per_step=4, iterations=3, learning_rate=0.05, seed=3, scatter_stride=1)
+
+
+def job_bwd_fit(mesh, target):
+    """``fit_spectral_slab`` of ``FIT`` from a constant 0.5 density: its
+    params and losses, and the collectives and wrapper calls it made."""
+    from vpt_tpu_torch import Camera
+    from vpt_tpu_torch.kernels import slab as KS
+    from vpt_tpu_torch.parallel import mesh as M
+    from vpt_tpu_torch.parallel import slab
+
+    init = np.full((VOL, VOL, VOL), 0.5, np.float32)
+    calls, restore = _counted(KS, BWD_WRAPPERS)
+    try:
+        M.reset_collective_counts()
+        params, losses = slab.fit_spectral_slab(target, fit_renderer(mesh, pack=False), Camera(),
+                                                init, mesh, **FIT)
+        counts = dict(M.COLLECTIVES)
+    finally:
+        restore()
+    return dict(density=params["density"].numpy(), losses=losses, counts=counts, calls=calls)
+
+
 JOBS = {"shard_state": job_shard_state, "mesh_render": job_mesh_render, "rows": job_rows,
-        "slab_render": job_slab_render}
+        "slab_render": job_slab_render, "bwd_scatter": job_bwd_scatter,
+        "bwd_contract": job_bwd_contract, "bwd_pack": job_bwd_pack, "bwd_tape": job_bwd_tape,
+        "bwd_prb": job_bwd_prb, "bwd_window": job_bwd_window, "bwd_fit": job_bwd_fit}
 
 
 def _worker(rank, world, store, out_dir, jobs):
