@@ -212,15 +212,16 @@ Phases (each raises on failure, so any failure exits non-zero):
      its replay touches); ms per render and the busy share of four whole
      sweeps profiled in a fresh process. Phase 14 also runs `render
      --renderer dos`.
- 25. the local-ambient-occlusion renderer LAO (K25 lao_frame<LAO,SHADOWS>) on
-     the bench volume at 512^2 with the JAX defaults but 64 slices: K25 equal
-     to its plain version (and a second run) bit for bit in the same four
-     table modes with both terms and on the u8 table in the three other flag
-     pairs, the masked march equal to the early-stopping one; the u8 frame by
-     device time against the bound of its work replayed through the plain
-     version (volume entries and TF rows at (value, |gradient|) touched once,
-     the operations per sample), with the trips per ray (mean, p99, max, what
-     a warp pays); RenderSession("lao").run(16), the counts set to 0 before
+ 25. the local-ambient-occlusion renderer LAO (K25
+     lao_frame<LAO,SHADOWS,MODE>) on the bench volume at 512^2 with the JAX
+     defaults but 64 slices: K25 equal to its plain version (and a second
+     run) bit for bit in its five table modes (the same four and the f32
+     table under the quasicubic filter), each in the four flag pairs, each
+     mode's both-term frame by device time, the masked march equal to the
+     early-stopping one; the u8 frame by device time against the bound of
+     its work replayed through the plain version (volume entries and TF rows
+     at (value, |gradient|) touched once, the operations per sample), with
+     the trips per ray (mean, p99, max, what a warp of 8 x 4 pixels pays); RenderSession("lao").run(16), the counts set to 0 before
      (16 K25 launches and nothing else), equal to the plain frame; ms per
      frame and the busy share in a fresh process. Phase 14 also runs
      `render --renderer lao`.
@@ -251,8 +252,10 @@ Phases (each raises on failure, so any failure exits non-zero):
      environment); K31 == K10's table with pad_packed_for_slabs's zero
      planes for every owner at n = 1, 2, 4, 8, bit for bit; K5 ROUTED + K29
      == K5's adjoint over one tape at stride 1, stride 4 and importance 4
-     (the carry bit for bit, the pairs' rows == plain bit for bit); K29 and
-     K30 (with the halos) at n simulated owners == one owner and K9;
+     (the carry bit for bit; K5 ROUTED's pair list == plain's: the same
+     count, and sorted by slot id the slot ids, rows and values bit for
+     bit); K29 and K30 (with the halos) at n simulated owners == one owner
+     and K9; K29 timed in turns with index_add_ over the same list;
      prb_window_grads_slab (8 dispatches) == the replicated forward-storage
      window (the image and samples bit for bit) in the three modes; the
      main path fit_spectral_slab, 3 iterations of 8 dispatches, the counts
@@ -4901,15 +4904,22 @@ def ray_miss(res, cam, dev):
     return RK.ray_bounds(*RK.camera_rays(res, cam.inverse_mvp(), dev))[2]
 
 
+def lao_warps(t):
+    """An (R, R) image as K25's warps see it: (R * R / 32, 32), each row
+    one 8 x 4 pixel tile (R a multiple of 8)."""
+    r = t.shape[0]
+    return t.reshape(r // 4, 4, r // 8, 8).permute(0, 2, 1, 3).reshape(-1, 32)
+
+
 def lao_trip_stats(trips, miss):
-    """Trips per hit pixel (mean, p99, max) and what a warp (32 neighbouring
-    pixels) pays: the mean over warps with a hit of their longest ray, and
-    the trip slots the warps hold (32 x their longest ray) over the trips
-    the rays take."""
+    """Trips per hit pixel (mean, p99, max) and what a warp (K25's 8 x 4
+    pixel tile) pays: the mean over warps with a hit of their longest ray,
+    and the trip slots the warps hold (32 x their longest ray) over the
+    trips the rays take."""
     hit = ~miss
     t = trips[hit].to(torch.float32)
-    longest = torch.where(hit, trips, 0).reshape(-1, 32).amax(-1).to(torch.float64)
-    busy = longest[hit.reshape(-1, 32).any(-1)]
+    longest = lao_warps(torch.where(hit, trips, 0)).amax(-1).to(torch.float64)
+    busy = longest[lao_warps(hit).any(-1)]
     return dict(hit_pixels=int(hit.sum()), ray_mean=float(t.mean()),
                 ray_p99=float(torch.quantile(t, 0.99)), ray_max=int(t.max()),
                 warp_paid=float(busy.mean()),
@@ -4919,24 +4929,28 @@ def lao_trip_stats(trips, miss):
 def phase_lao(dev):
     """Phase 25: LAO (K25 lao_frame) on the bench volume at R = 512 with 64
     slices: K25 bit for bit against its plain version (and a second run)
-    in four table modes with both terms, and on the u8 table in the three
-    other flag pairs; the u8 frame by device time against the bound of its
-    replayed work (trips per ray: mean, p99, max, what a warp pays); a
-    RenderSession run(16), the counts set to 0 before (16 K25 launches and
-    nothing else); ms per frame and the busy share in a fresh process."""
+    in its five table modes (the four of ``mode_volumes`` and the f32
+    table under the quasicubic filter), each in the four flag pairs, and
+    each mode's both-term frame by device time; the u8 frame against the
+    bound of its replayed work (trips per ray: mean, p99, max, what a warp
+    pays); a RenderSession run(16), the counts set to 0 before (16 K25
+    launches and nothing else); ms per frame and the busy share in a fresh
+    process."""
     from vpt_tpu_torch import Camera
     from vpt_tpu_torch.kernels import lao as KL
     from vpt_tpu_torch.models.lao import LAORenderer
     from vpt_tpu_torch.session import RenderSession
 
+    from vpt_tpu_torch import Volume
+
     t_phase = time.perf_counter()
     cam = Camera()
     vols = mode_volumes()
+    vols += (("f32 quasicubic", Volume(vols[1][1].density, "quasicubic")),)
     vol = vols[0][1]
-    plain = {}
+    plain, modes_ms = {}, {}
     for label, v in vols:
-        flags = LAO_FLAGS if label == "linear u8" else LAO_FLAGS[:1]
-        for lao_on, shadows_on in flags:
+        for lao_on, shadows_on in LAO_FLAGS:
             r = LAORenderer(v, slices=LAO_SLICES, resolution=RM_RES, lao_enabled=lao_on,
                             shadows_enabled=shadows_on, device=dev)
             if not (r.exact_stop and KL.cone_clear(cam.inverse_mvp(), r.light_position,
@@ -4945,9 +4959,16 @@ def phase_lao(dev):
                 raise AssertionError(f"LAO ({label}): the early stop is not exact on these inputs")
             _, plain[(label, lao_on, shadows_on)] = lao_check(
                 f"{label}, lao {lao_on}, shadows {shadows_on}", r, cam)
+            if lao_on and shadows_on:
+                args, kw = lao_inputs(r, cam)
+                modes_ms[f"{label} ({KL.kernel_mode(args[1], args[2], kw['volume_filter'])})"] = (
+                    device_ms(lambda: KL.lao_pass(*args, **kw, cone=r._cone,
+                                                  exact=r.exact_stop)))
     log(f"# K25 == plain bit for bit at {RM_RES}^2, {LAO_SLICES} slices: "
         + ", ".join(f"{k[0]} (lao {k[1]}, shadows {k[2]}: plain {v:.2f} s)"
                     for k, v in plain.items()))
+    log("# K25 a frame (device ms, both terms) by table mode: "
+        + ", ".join(f"{k} {v:.5f}" for k, v in modes_ms.items()))
 
     r = LAORenderer(vol, slices=LAO_SLICES, resolution=RM_RES, device=dev)
     args, kw = lao_inputs(r, cam)
@@ -5002,7 +5023,7 @@ def phase_lao(dev):
         name="lao_frame", route="cuda", source=LAO_SOURCE, replaces="vpt_tpu/models/lao.py:51",
         max_abs_err=0.0, ms=ms, plain_ms=plain[("linear u8", True, True)] * 1e3,
         launches=launches["lao.lao_frame"], samples=samples, volume_lookups=reads.lookups,
-        trips=stats, frame_ms=frame_ms), b)
+        trips=stats, frame_ms=frame_ms, modes_ms=modes_ms), b)
     log(f"# RenderSession('lao').run({LAO_FRAMES}) at {RM_RES}^2: {dt * 1e3:.3f} ms "
         f"({frame_ms:.4f} ms a frame); launches {launches}; == the plain frame bit for bit")
     log(f"# profiled run({LAO_FRAMES}) of 'lao' (a fresh process), per frame: device "
@@ -5477,14 +5498,15 @@ def slab_pack_check(raw):
 def slab_routed_check(ctx, state0, mesh, dev):
     """K5 ROUTED + K29 against K5's own adjoint over one 2-dispatch tape
     (K4's) at stride 1, stride 4 and importance 4, the carry bit for bit;
-    K5 ROUTED's pairs against its plain version (the rows bit for bit, the
-    values within SLAB_BWD_RTOL), K5 ROUTED timed by CUDA events against
-    its bound (the tape's fields read as K5 reads them, the pairs written);
-    K29 at n = 1, 2, 4, 8 simulated owners (their slabs concatenated ==
-    one owner's scatter) and one owner by device time against its bound
-    and index_add_ of the owned pairs; K30 at the same owners, the halos
-    added, against K9 contract_volume, one owner by device time. Returns
-    the three kernels-line entries."""
+    K5 ROUTED's pair list against its plain version's (the same count;
+    sorted by slot id, the slot ids, rows and values bit for bit), K5
+    ROUTED timed by CUDA events against its bound (the tape's fields read
+    as K5 reads them, the pairs written); K29 at n = 1, 2, 4, 8 simulated
+    owners (their slabs concatenated == one owner's scatter) and one owner
+    by device time against its bound and, in turns, index_add_ of the
+    list's owned pairs; K30 at the same owners, the halos added, against
+    K9 contract_volume, one owner by device time. Returns the three
+    kernels-line entries."""
     from vpt_tpu_torch.kernels import corners as C
     from vpt_tpu_torch.kernels import slab as KS
     from vpt_tpu_torch.kernels import spectral_backward as TB
@@ -5512,6 +5534,8 @@ def slab_routed_check(ctx, state0, mesh, dev):
             return dict(c=torch.zeros(n, device=dev), cb=torch.zeros(n, device=dev))
 
         def routed(buf=pairs):
+            # a list is appended to: its count back to 0 (a 4-byte fill) each call
+            TB.pair_views(buf)[0].zero_()
             cot = carry()
             TB.prb_reverse(tape, fields, g_rs, cot, {}, phases, seeds, scatter_mode=mode,
                            lanes=lanes, pairs=buf, **kw)
@@ -5529,18 +5553,20 @@ def slab_routed_check(ctx, state0, mesh, dev):
         if not (torch.equal(cot["c"], cot_r["c"]) and torch.equal(cot["cb"], cot_r["cb"])):
             raise AssertionError(f"K5 ROUTED {mode}{stride}: the carry != K5's")
         rel = rel_l2(got, adj["g_vol"])
-        idx, upd = TB.pair_views(pairs)
-        p_idx, p_upd = TB.pair_views(plain_pairs)
-        own = idx >= 0
-        rel_p = rel_l2(upd[own], p_upd[own])
-        mabs = float((upd[own] - p_upd[own]).abs().max())
-        if (not torch.equal(idx, p_idx) or rel > SLAB_BWD_RTOL or rel_p > SLAB_BWD_RTOL
-                or not float(adj["g_vol"].abs().max()) > 0):
-            raise AssertionError(f"K5 ROUTED {mode}{stride}: + K29 vs K5 rel L2 {rel:.3g}; pairs vs "
-                                 f"plain: rows equal {torch.equal(idx, p_idx)}, values rel L2 "
-                                 f"{rel_p:.3g}")
-        rec = dict(rel_l2_vs_k5=rel, pairs_rel_l2_vs_plain=rel_p, max_abs=mabs,
-                   pairs=int(own.sum()), slots=slots * n)
+        count = int(TB.pair_views(pairs)[0][0])
+        p_count = int(TB.pair_views(plain_pairs)[0][0])
+        ids, rws, upd = TB.pair_list(pairs)
+        p_ids, p_rws, p_upd = TB.pair_list(plain_pairs)
+        same = count == p_count and torch.equal(ids, p_ids) and torch.equal(rws, p_rws)
+        rel_p = rel_l2(upd, p_upd) if same else float("inf")
+        mabs = float((upd - p_upd).abs().sum(1).max()) if same and count else 0.0
+        bits = same and torch.equal(upd.view(torch.int32), p_upd.view(torch.int32))
+        if (not bits or rel > SLAB_BWD_RTOL or not float(adj["g_vol"].abs().max()) > 0):
+            raise AssertionError(f"K5 ROUTED {mode}{stride}: + K29 vs K5 rel L2 {rel:.3g}; the list "
+                                 f"vs plain: counts {count} / {p_count}, slot ids and rows equal "
+                                 f"{same}, values bit for bit {bits} (rel L2 {rel_p:.3g})")
+        rec = dict(rel_l2_vs_k5=rel, pairs_rel_l2_vs_plain=rel_p, max_abs=mabs, pairs=count,
+                   slots=slots * n)
         k5["max_abs_err"] = max(k5["max_abs_err"], mabs)
         k5["max_rel_l2"] = max(k5["max_rel_l2"], rel_p)
         # K5 ROUTED and K5 adding the rows itself, on the same tape, in turns
@@ -5557,16 +5583,16 @@ def slab_routed_check(ctx, state0, mesh, dev):
         rec["turns_ms"] = turns
         rec["plain_ms"] = cuda_ms(lambda: TB.prb_reverse_plain(
             tape, fields, g_rs, carry(), {}, phases, seeds, importance=mode == "importance",
-            lanes=lanes, pairs=plain_pairs, **kw), 1)
+            lanes=lanes, pairs=TB.pair_buffer(slots * n, dev), **kw), 1)
         n_steps, n_fields = tape.shape[0] * tape.shape[1], tape.shape[2]
         read_fields = (n_fields if mode == "importance" or stride == 1
                        else 4 + (n_fields - 4) / stride)
         rec.update(bound(n_steps * n * read_fields * 4 + g_rs.numel() * 4 + 4 * n * 4
-                         + slots * n * 4 + rec["pairs"] * 32, n_steps * n * 8, rec["ms"]))
+                         + 4 + rec["pairs"] * 40, n_steps * n * 8, rec["ms"]))
         k5["modes"][f"{mode}{stride}"] = rec
         log(f"# K5 ROUTED {mode} {stride}, 2 dispatches: the carry == K5's bit for bit, + K29 vs "
-            f"K5's adjoint rel L2 {rel:.3g}; its {rec['pairs']} pairs (of {slots * n} slots) vs "
-            f"plain: rows bit for bit, values rel L2 {rel_p:.3g}, max abs {mabs:.3g}; "
+            f"K5's adjoint rel L2 {rel:.3g}; its list of {rec['pairs']} pairs (of {slots * n} "
+            f"slots) == plain's sorted by slot, bit for bit; "
             f"{rec['ms']:.4f} ms vs {rec['plain_ms']:.4f} ms plain (K5 adding the rows itself "
             f"{rec['k5_atomic_ms']:.4f}; in turns, ms: {turns}); bound {rec['bound_ms']:.4f} ms "
             f"by {rec['bound_by']}, share {rec['bound_share']:.3f}")
@@ -5590,25 +5616,28 @@ def slab_routed_check(ctx, state0, mesh, dev):
         err29 = max(err29, float((total - one).abs().max()))
         if r29 > SLAB_BWD_RTOL:
             raise AssertionError(f"K29 at {n_own} owners: their slabs vs one owner rel L2 {r29:.3g}")
-    idx, upd = TB.pair_views(pairs)
-    own = idx >= 0
-    own_rows, own_upd = idx[own].long(), upd[own].contiguous()
+    count, _, idx, upd = TB.pair_views(pairs)
+    n_pairs = int(count[0])
+    own_rows, own_upd = idx[:n_pairs].long(), upd[:n_pairs].contiguous()
     touched = int(torch.unique(own_rows).numel())
     acc = torch.zeros((rows, 8), device=dev)
-    ms29 = device_ms(lambda: KS.slab_scatter(acc, 0, pairs, 1))
+    # K29 and index_add_ of the same list's pairs (its rows as int64, made
+    # once), in turns
+    turns29 = [(device_ms(lambda: KS.slab_scatter(acc, 0, pairs, 1)),
+                device_ms(lambda: acc.index_add_(0, own_rows, own_upd))) for _ in range(3)]
+    ms29, lib29 = (sorted(t[i] for t in turns29)[1] for i in (0, 1))
     plain29 = cuda_ms(lambda: KS.slab_scatter_plain(acc, 0, pairs, 1), 3)
-    lib29 = device_ms(lambda: acc.index_add_(0, own_rows, own_upd))
-    b29 = bound(idx.numel() * 4 + int(own.sum()) * 32 + touched * 64, int(own.sum()) * OPS_K29_PAIR,
-                ms29)
+    b29 = bound(4 + n_pairs * 36 + touched * 64, n_pairs * OPS_K29_PAIR, ms29)
     log(f"# K29 slab_scatter: n = {SLAB_OWNERS} owners' slabs == one owner's within rel L2 "
-        f"{SLAB_BWD_RTOL}; one owner, {idx.numel()} pair slots ({int(own.sum())} pairs, {touched} "
-        f"rows touched): {ms29:.5f} ms (device), plain {plain29:.4f} ms, index_add_ of the owned "
-        f"pairs {lib29:.5f} ms (device); bound {b29['bound_ms']:.5f} ms by {b29['bound_by']} "
-        f"({b29['bound_bytes']} B), share {b29['bound_share']:.3f}")
+        f"{SLAB_BWD_RTOL}; one owner, a list of {n_pairs} pairs ({idx.numel()} slots, {touched} "
+        f"rows touched): {ms29:.5f} ms (device, the median of 3 turns), plain {plain29:.4f} ms, "
+        f"index_add_ of the list's pairs {lib29:.5f} ms (device; turns, ms: {turns29}); bound "
+        f"{b29['bound_ms']:.5f} ms by {b29['bound_by']} ({b29['bound_bytes']} B), share "
+        f"{b29['bound_share']:.3f}")
     k29 = kernel_line(dict(name="slab_scatter", route="cuda", source=SLAB_SOURCE,
                            replaces="vpt_tpu/parallel/slab.py:120", max_abs_err=err29, ms=ms29,
-                           plain_ms=plain29, pair_slots=idx.numel(), pairs=int(own.sum())),
-                      b29, library_ms=lib29)
+                           plain_ms=plain29, pair_slots=idx.numel(), pairs=n_pairs,
+                           turns_ms=turns29), b29, library_ms=lib29)
 
     # K30 at n owners with the halos against K9, then one owner timed
     dims = tuple(d - 1 for d in ctx.density.dims)

@@ -183,18 +183,19 @@ ptxas info    : Used 40 registers, used 0 barriers
 ptxas info    : Compiling entry function '_ZN46_GLOBAL__N__8c9d0e1f_6_dos_cu_3b4c5d6e18dos_display_kernelEiPK6float4Pf' for 'sm_90a'
 ptxas info    : Used 16 registers, used 0 barriers
 == lao.cu
-ptxas info    : Compiling entry function '_ZN46_GLOBAL__N__9d0e1f2a_6_lao_cu_4c5d6e7f16lao_frame_kernelILb1ELb0EEEvNS_4LaoPEPKvPKfPK6float2Pf' for 'sm_90a'
-ptxas info    : Function properties for _ZN46_GLOBAL__N__9d0e1f2a_6_lao_cu_4c5d6e7f16lao_frame_kernelILb1ELb0EEEvNS_4LaoPEPKvPKfPK6float2Pf
+ptxas info    : Compiling entry function '_ZN46_GLOBAL__N__9d0e1f2a_6_lao_cu_4c5d6e7f16lao_frame_kernelILb1ELb0ELi2EEEvNS_4LaoPEPKvPKfPK6float2Pf' for 'sm_90a'
+ptxas info    : Function properties for _ZN46_GLOBAL__N__9d0e1f2a_6_lao_cu_4c5d6e7f16lao_frame_kernelILb1ELb0ELi2EEEvNS_4LaoPEPKvPKfPK6float2Pf
     32 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
 ptxas info    : Used 56 registers, used 0 barriers, 32 bytes cumulative stack size
 """
 
 
 def test_ptxas_table_reads_the_occlusion_kernels():
-    """K24 (csrc/dos.cu) is untemplated; K25's row carries LAO,SHADOWS."""
+    """K24 (csrc/dos.cu) is untemplated; K25's row carries LAO,SHADOWS,MODE
+    (MODE 2: the packed u8 table under the quasicubic filter)."""
     assert _build.ptxas_table(OCCLUSION_LOG) == [("dos_slice_kernel", "", 40, 0, 0, 0),
                                                  ("dos_display_kernel", "", 16, 0, 0, 0),
-                                                 ("lao_frame_kernel", "1,0", 56, 0, 0, 32)]
+                                                 ("lao_frame_kernel", "1,0,2", 56, 0, 0, 32)]
 
 
 SLAB_LOG = """== slab.cu
@@ -224,7 +225,7 @@ ptxas info    : Compiling entry function '_ZN47_GLOBAL__N__1e2f3a4b_7_slab_cu_5d
 ptxas info    : Function properties for _ZN47_GLOBAL__N__1e2f3a4b_7_slab_cu_5d6e7f8018slab_finish_kernelILi12ELb0ELb1ELb1EEEvNS_6ParamsEPfS2_S2_S2_S2_S2_PiS3_S3_S2_S2_PKjS5_PjPK6float4PKfSB_SB_PKiSB_SB_NS_8TapeSpecES2_
     32 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
 ptxas info    : Used 64 registers, used 0 barriers, 32 bytes cumulative stack size
-ptxas info    : Compiling entry function '_ZN47_GLOBAL__N__1e2f3a4b_7_slab_cu_5d6e7f8019slab_scatter_kernelEPKfllllPf' for 'sm_90a'
+ptxas info    : Compiling entry function '_ZN47_GLOBAL__N__1e2f3a4b_7_slab_cu_5d6e7f8019slab_scatter_kernelEPKflllPf' for 'sm_90a'
 ptxas info    : Used 24 registers, used 0 barriers
 ptxas info    : Compiling entry function '_ZN47_GLOBAL__N__1e2f3a4b_7_slab_cu_5d6e7f8020slab_contract_kernelEPKfiiiiiPf' for 'sm_90a'
 ptxas info    : Function properties for _ZN47_GLOBAL__N__1e2f3a4b_7_slab_cu_5d6e7f8020slab_contract_kernelEPKfiiiiiPf

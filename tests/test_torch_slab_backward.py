@@ -174,6 +174,85 @@ def test_distributed_scatter_add_matches_index_add_and_jax(runs, world):
     np.testing.assert_allclose(got, jax_adj, rtol=1e-6, atol=1e-6)
 
 
+def test_distributed_scatter_add_reads_each_list_to_its_count(monkeypatch):
+    """A pair list whose count is below its capacity, garbage past the
+    count (rows inside the slab, NaN values): distributed_scatter_add keeps
+    the -1 rows out of the list, in slot order, and K29's plain version
+    adds only the first count pairs, equal to index_add_ of the owned
+    pairs (world size 1, in this process)."""
+    rows = D.padded_rows(1)
+    idx, upd = D.scatter_inputs(1, rows)
+    made, pair_buffer = [], SB.pair_buffer
+
+    def garbage_buffer(n, device):
+        buf = pair_buffer(n, device)
+        count, slots, rws, vals = SB.pair_views(buf)
+        slots.copy_(torch.arange(slots.numel(), dtype=torch.int32))
+        rws.copy_(torch.arange(rws.numel(), dtype=torch.int32) % rows)
+        vals.fill_(float("nan"))
+        made.append(buf)
+        return buf
+
+    monkeypatch.setattr(SB, "pair_buffer", garbage_buffer)
+    # a world of one: the gather is a copy (the gloo ranks run it in the tests above)
+    monkeypatch.setattr(TS.Mesh, "all_gather", lambda t, mesh: t.clone())
+    mesh = TM.RayMesh(group=None, rank=0, size=1, device=torch.device("cpu"), backend="gloo")
+    got = TS.distributed_scatter_add(torch.zeros((rows, 8)), torch.as_tensor(idx),
+                                     torch.as_tensor(upd), mesh)
+    count, slots, rws, _ = SB.pair_views(made[0])
+    own = idx >= 0
+    assert int(count[0]) == int(own.sum()) < SB.pair_capacity(made[0])
+    np.testing.assert_array_equal(slots[:int(count[0])].numpy(), np.flatnonzero(own))
+    np.testing.assert_array_equal(rws[:int(count[0])].numpy(), idx[own])
+    want = torch.zeros((rows, 8)).index_add_(0, torch.as_tensor(idx[own]).long(),
+                                             torch.as_tensor(upd[own]))
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("stride,mode", [(1, "stride"), (2, "stride"), (4, "importance")])
+def test_routed_plain_list_is_in_slot_order_and_sums_to_k5(stride, mode):
+    """K5 ROUTED's plain version over a 2-dispatch tape of the port's packed
+    renderer: its list holds one pair for every nonzero row, in slot order,
+    each slot id naming its scatter slot and lane; K29's plain version of
+    the list equals the plain K5's own adjoint and the carry is K5's, bit
+    for bit."""
+    r = D.fit_renderer()
+    cam = TCamera()
+    ctx, state = r.ctx(cam, 5), r.reset(cam, 5)
+    seeds, steps = [2654435761 * k % 2**32 for k in (3, 4)], 8
+    fields = SB.ctx_tape_fields(ctx, TS.WRT)
+    sk, tape = SB.tape_forward(state, ctx, seeds, steps, BINS, TS.WRT)
+    lane, res, streams, n = SB._lanes(state)
+    g_rs = SB._deposit_cotangents(torch.as_tensor(_g_image()), ctx, lane, BINS, SB._m_final(sk))
+    phases = [SB._dispatch_phase(k, s, len(seeds), stride) for k, s in enumerate(seeds)]
+    kw = dict(scatter_stride=stride, scatter_mode=mode, inv_mu=SB._inv_mu(ctx), resolution=res,
+              streams=streams)
+    slots = len(seeds) * (steps // stride)
+    rows = ctx.density.table.shape[0]
+    adj = {"g_vol": torch.zeros((rows, 8))}
+    cot = dict(c=torch.zeros(n), cb=torch.zeros(n))
+    SB.prb_reverse(tape, fields, g_rs, cot, adj, phases, seeds, **kw)
+    pairs = SB.pair_buffer(slots * n, "cpu")
+    cot_r = dict(c=torch.zeros(n), cb=torch.zeros(n))
+    SB.prb_reverse(tape, fields, g_rs, cot_r, {}, phases, seeds, pairs=pairs, **kw)
+    count, ids, rws, vals = SB.pair_views(pairs)
+    c = int(count[0])
+    assert 0 < c < slots * n
+    ids, rws, vals = ids[:c], rws[:c], vals[:c]
+    assert bool((ids[1:] > ids[:-1]).all()) and int(ids[0]) >= 0 and int(ids[-1]) < slots * n
+    assert bool((rws >= 0).all()) and bool((rws < rows).all())
+    assert bool((vals != 0).any(dim=1).all())
+    assert all(torch.equal(cot[k], cot_r[k]) for k in ("c", "cb"))
+    assert [t.tolist() for t in SB.pair_list(pairs)[:2]] == [ids.tolist(), rws.tolist()]
+    got = KS.slab_scatter(torch.zeros((rows, 8)), 0, pairs, 1)
+    assert float(adj["g_vol"].abs().max()) > 0
+    torch.testing.assert_close(got, adj["g_vol"], rtol=1e-5, atol=1e-7)
+    # the same number of pairs as the plain K5 added nonzero rows
+    touched = (adj["g_vol"] != 0).any(dim=1)
+    assert int(torch.unique(rws.long()).numel()) == int(touched.sum())
+
+
 @pytest.mark.parametrize("world", WORLDS + (8,))
 @pytest.mark.parametrize("pad_random", [False, True])
 def test_contract_slab_adjoint_matches_k9_and_jax(runs, world, pad_random):

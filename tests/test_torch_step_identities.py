@@ -11,7 +11,14 @@ replacement has to give the IEEE result by construction:
   outside [2^-60, 2^60] the kernel divides;
 - a lane outside the volume reads its escape light from density row 0 of
   the fused TF table (``sample_light``), since the table holds the same
-  light pair in every row.
+  light pair in every row;
+- K25's Markstein variant (``probes/lao_variants.py``, timed on the card
+  against the IEEE divisions ``csrc/lao.cu`` keeps) divides a cone point's
+  three direction components by their shared norm, the cone integral by
+  light_coef, the alpha step by 100 and the shadow remap by f32(1.3) with
+  the same ``quot``, the last two with RN reciprocals written as constants;
+  and ``csrc/lao.cu`` dequantizes a u8 corner without ``u8_unit``'s zero
+  test.
 
 FMAs and the final rounding are emulated exactly: a product of two floats
 is exact in float64, TwoSum gives the exact sum as a float64 pair, and the
@@ -31,6 +38,8 @@ from vpt_tpu_torch.scene.camera import Camera, OrbitController
 
 SRC = Path(__file__).resolve().parent.parent / "vpt_tpu_torch" / "csrc"
 COMMON = (SRC / "mcm_common.cuh").read_text()
+LAO = (SRC / "lao.cu").read_text()
+LAO_PROBE = (SRC.parent.parent / "probes" / "lao_variants.py").read_text()
 
 
 def _const(name):
@@ -173,6 +182,20 @@ def test_u8_dequantization_table_equals_div_scalar_for_all_codes():
     assert np.array_equal(_quot(v, F32(255)).view(np.int32), want.view(np.int32))
 
 
+def test_lao_u8_dequantization_without_the_zero_test_equals_div_scalar():
+    """K25's lao_u8: u8_unit's corrected product with RN(1/255) but no zero
+    test (codes are never negative, and code 0 gives +0 either way): all
+    256 codes equal the IEEE division bit for bit, code 0 as +0."""
+    assert "return __fmaf_rn(__fmaf_rn(-255.0f, q, v), kInv255, q);" in LAO
+    codes = np.arange(256, dtype=np.uint32)
+    v = (np.uint32(0x4B000000) | codes).view(F32) - F32(8388608.0)
+    q = (v.astype(np.float64) * INV255.astype(np.float64)).astype(F32)
+    got = _fma(_fma(np.full_like(v, -255.0), q, v), np.full_like(v, INV255), q)
+    want = div_scalar(torch.arange(256, dtype=torch.float32), 255.0).numpy()
+    assert np.array_equal(got.view(np.int32), want.view(np.int32))
+    assert got[0].view(np.int32) == 0
+
+
 def test_quotient_falls_back_outside_the_exact_range():
     """Operands outside [2^-60, 2^60], infinities and NaN take the division
     (so they equal it trivially); the exact range's own edges are in."""
@@ -183,6 +206,83 @@ def test_quotient_falls_back_outside_the_exact_range():
     a = F32([1e-30, 3e30, np.inf, -np.inf, np.nan, 1e-45, 1.0, -0.0])
     for b in F32([1e-30, 3e30, 1.0, -2.5, 0.0, np.inf]):
         _assert_ieee(a, b, f"fallback b={b}")
+
+
+def _lao_constant(divisor):
+    """(divisor, reciprocal) of one of the Markstein variant's constants."""
+    import ast
+
+    m = re.search(r"MARKSTEIN_RECIPROCALS = (\{[^}]*\})", LAO_PROBE)
+    assert m
+    y = ast.literal_eval(m.group(1))[divisor]
+    b = {"100.0f": F32(100.0), "F32(1.3)": F32(1.3)}[divisor]
+    return b, F32(float.fromhex(y.rstrip("f")))
+
+
+def test_lao_constant_reciprocals_are_correctly_rounded():
+    """The Markstein variant's constant divisors carry RN(1 / b), the
+    reciprocal _quot takes."""
+    for divisor in ("100.0f", "F32(1.3)"):
+        b, y = _lao_constant(divisor)
+        assert y == F32(1) / b, divisor
+
+
+def test_lao_cone_quotients_equal_ieee():
+    """A cone point's jx / |j|, jy / |j|, jz / |j|: j = light + d - p with
+    sample points over the unit cube widened by the march's overshoot, the
+    light's view position from several cameras and random ones over
+    [-20, 20]^3, the jitter offset d = lao_dx * (radius * tt); |j| the IEEE
+    norm in float32, as the kernel computes it (no FMA)."""
+    from vpt_tpu_torch.kernels.lao import cone_table, light_view
+
+    rng = np.random.default_rng(23)
+    lights = [light_view(cam.inverse_mvp(), np.array([2.0, -3.0, -5.0], F32))
+              for cam in (Camera(), Camera(translation=np.array([0.0, 0.0, 1.2])))]
+    lights += list(rng.uniform(-20, 20, (6, 3)).astype(F32))
+    tt = cone_table(0.05)[:, 0]
+    n = 20000
+    p = rng.uniform(-0.05, 1.05, (3, n)).astype(F32)
+    lao_dx = rng.uniform(-0.58, 0.58, n).astype(F32)
+    radius = F32(0.19)
+    for light in lights:
+        d = lao_dx * (radius * rng.choice(tt, n))
+        j = [(F32(light[a]) + d) - p[a] for a in range(3)]
+        norm = np.sqrt(j[0] * j[0] + j[1] * j[1] + j[2] * j[2])
+        for a in range(3):
+            _assert_ieee(j[a], norm, f"cone axis {a}")
+
+
+def test_lao_integral_and_remap_quotients_equal_ieee():
+    """acc_lao / light_coef over cone integrals [0, 20] and coefficients
+    1e-4..1e4 (the default 1.0 among them); (1 - acc_a) * value * ext / 100
+    over alphas [0, 0.9], values [0, 1] and extinctions 1e-2..1e4; (bias +
+    shadow * 1.2) / f32(1.3) over shadows [0, 1], densest around the
+    remap's zero (shadow 1/6), each quotient by the variant's constant."""
+    rng = np.random.default_rng(29)
+    acc = np.concatenate([rng.uniform(0, 20, 4000).astype(F32), F32([0.0, 1.0, 20.0, 1e-7])])
+    coef = np.concatenate([np.exp(rng.uniform(np.log(1e-4), np.log(1e4), 300)).astype(F32),
+                           F32([1.0, 0.5, 2.0, 3.0])])
+    _assert_ieee(acc[:, None], coef[None, :], "cone integral")
+    b, _ = _lao_constant("100.0f")
+    alpha = rng.uniform(0, 0.9, 200000).astype(F32)
+    value = rng.uniform(0, 1, 200000).astype(F32)
+    ext = np.exp(rng.uniform(np.log(1e-2), np.log(1e4), 200000)).astype(F32)
+    _assert_ieee((F32(1) - alpha) * value * ext, b, "alpha step")
+    b, _ = _lao_constant("F32(1.3)")
+    sixth = np.float32(1 / 6)
+    near = sixth + (np.arange(-20000, 20000) * np.spacing(sixth)).astype(F32)
+    shadow = np.concatenate([rng.uniform(0, 1, 400000).astype(F32), near, F32([0.0, 1.0])])
+    bias = F32(1.0 * (1.0 - 1.2))
+    _assert_ieee(bias + shadow * F32(1.2), b, "shadow remap")
+
+
+def test_lao_quotients_fall_back_outside_the_exact_range():
+    """Numerators below 2^-60 and a cone norm of 0, below 2^-60, infinite or
+    NaN (the light's cone through a sample point) take the division."""
+    a = F32([1e-20, -1e-30, 1e-45, 0.0, -0.0, 1.0, np.nan])
+    for b in F32([0.0, 1e-19, 2.0**-61, np.inf, np.nan, 1.0, 100.0, 1.3]):
+        _assert_ieee(a, b, f"fallback b={b}")
+    assert not _in_range(F32([1e-20, 1e-30, 1e-45, 0.0])).any()
 
 
 @pytest.mark.parametrize("torch_pack", [False, True])

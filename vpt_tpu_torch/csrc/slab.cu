@@ -302,26 +302,38 @@ slab_finish_kernel(const Params P, float* __restrict__ px_, float* __restrict__ 
 }
 
 // K29: the owner side of the routed adjoint scatter, the exact transpose of
-// K26. `pairs` is every rank's pair buffer gathered in rank order, n_ranks
-// blocks of 9 m floats: m int32 global rows (-1: none), then m 8-wide rows
-// of values. A thread takes one pair and adds its values into this rank's
-// (rows, 8) slab where lo <= row < lo + rows, by two float4 atomics as K5
-// adds a row.
+// K26. `pairs` is every rank's pair list (K5 ROUTED's, spectral_backward.cu)
+// gathered in rank order, n_ranks blocks of 4 + 10 m floats: the count
+// (int32) in a 16-byte header, m slot ids, m int32 global rows, then m
+// 8-wide rows of values; only the first count pairs are read. blockIdx.y is
+// the rank; the blocks of a rank walk its count with a grid-stride loop, so
+// the count stays on the device and nothing reads an empty slot. A pair's
+// values are added into this rank's (rows, 8) slab where lo <= row < lo +
+// rows, by two float4 atomics as K5 adds a row.
+//
+// What bounds it: per pair a 4-byte row and 32 bytes of values read, per
+// touched adjoint row 32 bytes read and written by the atomics; at the bench
+// scale (53,080 pairs in 16.8 M slots) that is ~4.4 MB, ~1.3 us at 3.35
+// TB/s, below a launch's own latency. The first design read every slot's
+// row to find the 0.32% that held one (67 MB) and lost 13x to index_add_
+// over the owned pairs; the list is compacted where K5 makes it.
 __global__ void __launch_bounds__(256)
-slab_scatter_kernel(const float* __restrict__ pairs, int64_t m, int64_t n_pairs, int64_t lo,
-                    int64_t rows, float* __restrict__ adj) {
-  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n_pairs) return;
-  const int64_t r = i / m, k = i - r * m;
-  const float* block = pairs + r * 9 * m;
-  const int row = __float_as_int(__ldcs(block + k));
-  const int64_t local = (int64_t)row - lo;
-  if (row < 0 || local < 0 || local >= rows) return;
-  const float4* u = reinterpret_cast<const float4*>(block + m + k * 8);
-  const float4 a = __ldcs(u), b = __ldcs(u + 1);
-  float* p = adj + local * 8;
-  add4(p, a.x, a.y, a.z, a.w);
-  add4(p + 4, b.x, b.y, b.z, b.w);
+slab_scatter_kernel(const float* __restrict__ pairs, int64_t m, int64_t lo, int64_t rows,
+                    float* __restrict__ adj) {
+  const float* block = pairs + (int64_t)blockIdx.y * (4 + 10 * m);
+  const int64_t n = __ldg(reinterpret_cast<const int*>(block)), count = n < m ? n : m;
+  const int* row_of = reinterpret_cast<const int*>(block) + 4 + m;
+  const float4* val = reinterpret_cast<const float4*>(block + 4 + 2 * m);
+  for (int64_t k = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; k < count;
+       k += (int64_t)gridDim.x * blockDim.x) {
+    const int row = __ldcs(row_of + k);
+    const int64_t local = (int64_t)row - lo;
+    if (row < 0 || local < 0 || local >= rows) continue;
+    const float4 a = __ldcs(val + 2 * k), b = __ldcs(val + 2 * k + 1);
+    float* p = adj + local * 8;
+    add4(p, a.x, a.y, a.z, a.w);
+    add4(p + 4, b.x, b.y, b.z, b.w);
+  }
 }
 
 // one packed axis entry of raw index a under corner bit `bit` (the edge
@@ -548,16 +560,24 @@ int vpt_slab_finish(const float* fparams, const int* iparams, float* px, float* 
   return (int)cudaGetLastError();
 }
 
-// K29: pairs, every rank's pair buffer gathered (n_ranks blocks of 9 m
-// floats); adj: this rank's (rows, 8) slab of the adjoint, global rows [lo,
-// lo + rows), added into
+// K29: pairs, every rank's pair list gathered (n_ranks blocks of 4 + 10 m
+// floats, m a multiple of 4); adj: this rank's (rows, 8) slab of the
+// adjoint, global rows [lo, lo + rows), added into. A few blocks an SM in
+// all, shared by the ranks.
 int vpt_slab_scatter(const float* pairs, int64_t m, int n_ranks, int64_t lo, int64_t rows,
                      float* adj, void* stream) {
-  const int64_t n = m * n_ranks;
-  if (n <= 0) return 0;
-  if (lo < 0 || rows < 0 || m % 4 != 0) return (int)cudaErrorInvalidValue;
-  slab_scatter_kernel<<<(unsigned)((n + 255) / 256), 256, 0, static_cast<cudaStream_t>(stream)>>>(
-      pairs, m, n, lo, rows, adj);
+  if (m <= 0 || n_ranks <= 0) return 0;
+  if (lo < 0 || rows < 0 || m % 4 != 0 || n_ranks > 65535) return (int)cudaErrorInvalidValue;
+  // the device's SM count, asked once a device
+  static int sms_of[64] = {0};
+  int dev = 0;
+  cudaGetDevice(&dev);
+  int& sms = sms_of[dev & 63];
+  if (sms == 0) cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const int64_t fill = (int64_t)4 * sms / n_ranks, need = (m + 255) / 256;
+  const int64_t per_rank = fill < 1 ? 1 : fill < need ? fill : need;
+  slab_scatter_kernel<<<dim3((unsigned)per_rank, (unsigned)n_ranks), 256, 0,
+                        static_cast<cudaStream_t>(stream)>>>(pairs, m, lo, rows, adj);
   return (int)cudaGetLastError();
 }
 

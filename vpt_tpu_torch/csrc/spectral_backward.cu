@@ -39,15 +39,22 @@
 // prb_reverse's ROUTED mode (R_ROUTED; the slab-sharded backward,
 // vpt_tpu_torch/parallel/slab.py, replacing the volume half of scatter_step
 // under vpt_tpu/parallel/slab.py's vol_scatter_fn hook, :279-280) adds no
-// volume row: where the plain mode adds a lane-step's 8-wide row it stores
-// the pair (global row, the 8 values) at (scatter slot, lane) of a pair
-// buffer, -1 where the row would be all zero; the owner of each row adds
-// it (K29 slab_scatter, slab.cu) after an all-gather of the pairs. A
-// dispatch has steps / stride slots (the steps of its stride phase, or its
-// importance picks). The carry, the extinction score and the TF and env
-// scatters are the plain mode's. A lane table (ix, seed_iy) gives the
-// lanes' global pixels, which seed the importance picks; without one the
-// lane index does, on the (S, H, W) grid.
+// volume row: where the plain mode adds a lane-step's nonzero 8-wide row it
+// appends the pair (slot id, global row, the 8 values) to a pair list, the
+// slot id the (scatter slot) x lanes + lane; the owner of each row adds it
+// (K29 slab_scatter, slab.cu) after an all-gather of the lists. The list is
+// a 16-byte header holding the count (int32), then cap slot ids, cap rows
+// (int32) and (cap, 8) values; the wrapper sizes it at one pair a slot, so
+// it never overflows, and the kernel writes nothing at or past cap. A warp
+// appends its nonzero rows with one atomic on the count (a ballot over the
+// lanes that got here together, the leader's atomicAdd, a shuffle of the
+// base), so the list's order is the atomics' order and an empty slot costs
+// nothing; the slot ids put it back in slot order. A dispatch has steps /
+// stride slots (the steps of its stride phase, or its importance picks).
+// The carry, the extinction score and the TF and env scatters are the plain
+// mode's. A lane table (ix, seed_iy) gives the lanes' global pixels, which
+// seed the importance picks; without one the lane index does, on the (S, H,
+// W) grid.
 //
 // What bounds them on this card.
 // - prb_tape_forward is K1 plus F x 4 B of tape stores per lane-step: at the
@@ -414,14 +421,39 @@ __device__ __forceinline__ EventGrads event_grads(const EventIn& e, float q) {
   return G;
 }
 
-// ROUTED mode's output: where a lane-step's volume row goes instead of
-// g_vol, the pair buffer's m global rows (int32) and (m, 8) values, and
-// this scatter's pair (slot x lanes + lane)
+// ROUTED mode's output: the pair list a lane-step's nonzero volume row is
+// appended to instead of g_vol (its count, slot ids, rows and values, cap
+// pairs), and this scatter's slot id (slot x lanes + lane)
 struct PairOut {
-  int* idx;
+  int* count;
+  int* slot;
+  int* row;
   float* upd;
-  int64_t at;
+  int cap;
+  int at;
 };
+
+// ROUTED mode: append this lane's pair where `has`, one atomic a warp: the
+// lanes that arrive together vote, the leader reserves their places, and
+// each takes the place of its rank among them
+__device__ __forceinline__ void append_pair(const PairOut& po, bool has, int vol_row, float a0,
+                                            float a1, float w0, float w1, float w2, float w3) {
+  const unsigned mask = __activemask();
+  const unsigned vote = __ballot_sync(mask, has);
+  if (vote == 0u) return;
+  const int me = threadIdx.x & 31, leader = __ffs(vote) - 1;
+  int base = 0;
+  if (me == leader) base = atomicAdd(po.count, __popc(vote));
+  base = __shfl_sync(mask, base, leader);
+  const int at = base + __popc(vote & ((1u << me) - 1u));
+  if (!has || at >= po.cap) return;
+  // the values start 16-byte aligned (the wrapper's layout): two 16-byte stores
+  float4* u = reinterpret_cast<float4*>(po.upd + (int64_t)at * 8);
+  u[0] = make_float4(a0 * w0, a0 * w1, a0 * w2, a0 * w3);
+  u[1] = make_float4(a1 * w0, a1 * w1, a1 * w2, a1 * w3);
+  po.slot[at] = po.at;
+  po.row[at] = vol_row;
+}
 
 // the analytic per-step table scatters of one tape row (JAX scatter_step,
 // :781-862): one 18-wide TF+light row, one 8-wide volume row (two 4-wide
@@ -451,18 +483,14 @@ __device__ __forceinline__ void scatter_step(const EventIn& e, const ScatterIn& 
   }
   if (R.i[R_WANT_VOL]) {
     const float gd = G.albedo * s.slope[0] + G.alpha * s.slope[1] + G.graw * s.slope[2];
-    if (gd != 0.0f) {
+    // ROUTED mode (uniform): every lane takes part in its warp's append
+    if (gd != 0.0f || R.i[R_ROUTED]) {
       const float vfx = s.vfx, vfy = s.vfy, vfz = s.vfz;
       const float w0 = (1 - vfy) * (1 - vfx), w1 = (1 - vfy) * vfx;
       const float w2 = vfy * (1 - vfx), w3 = vfy * vfx;
       const float a0 = gd * (1 - vfz), a1 = gd * vfz;
       if (R.i[R_ROUTED]) {
-        // the pair's 8 values: two 16-byte stores (the buffer's values
-        // start 16-byte aligned)
-        float4* u = reinterpret_cast<float4*>(po.upd + po.at * 8);
-        u[0] = make_float4(a0 * w0, a0 * w1, a0 * w2, a0 * w3);
-        u[1] = make_float4(a1 * w0, a1 * w1, a1 * w2, a1 * w3);
-        po.idx[po.at] = s.vol_row;
+        append_pair(po, gd != 0.0f, s.vol_row, a0, a1, w0, w1, w2, w3);
       } else {
         // an 8-wide row is 32 B: two 16-byte-aligned float4 adds; an xy
         // volume's plane rows are 16 B each
@@ -471,8 +499,6 @@ __device__ __forceinline__ void scatter_step(const EventIn& e, const ScatterIn& 
         add4(r0, a0 * w0, a0 * w1, a0 * w2, a0 * w3);
         add4(r1, a1 * w0, a1 * w1, a1 * w2, a1 * w3);
       }
-    } else if (R.i[R_ROUTED]) {
-      po.idx[po.at] = -1;
     }
   }
   if (R.i[R_WANT_ENV]) {
@@ -515,8 +541,7 @@ reverse_kernel(const Rev R, const float* __restrict__ tape,
                const uint32_t* __restrict__ seeds, double* __restrict__ ext_acc,
                float* __restrict__ g_tf, float* __restrict__ g_vol,
                float* __restrict__ g_env, const uint32_t* __restrict__ lane_ix,
-               const uint32_t* __restrict__ lane_seed_iy, int* __restrict__ pair_idx,
-               float* __restrict__ pair_upd) {
+               const uint32_t* __restrict__ lane_seed_iy, const PairOut pairs) {
   // no early return: every thread reaches block_add's __syncthreads
   const int n_lanes = R.i[R_N_LANES];
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
@@ -534,7 +559,7 @@ reverse_kernel(const Rev R, const float* __restrict__ tape,
     float c = c_io[lane], cb = cb_io[lane];
     // ROUTED: a dispatch's steps / stride scatter slots
     const int per_disp = steps / stride;
-    PairOut po = {pair_idx, pair_upd, 0};
+    PairOut po = pairs;
 
     for (int k = R.i[R_N_DISPATCH] - 1; k >= 0; --k) {
       const float* disp = tape + (int64_t)k * steps * step_rows + lane;
@@ -554,7 +579,7 @@ reverse_kernel(const Rev R, const float* __restrict__ tape,
           carry_update(t, g_rad_scaled, lanes, lane, n_bins, c, cb);
           if (want_ext) ext += c * cb * (R.inv_mu - t.dist);
           if (now) {
-            po.at = ((int64_t)k * per_disp + it / stride) * lanes + lane;
+            po.at = (k * per_disp + it / stride) * n_lanes + lane;
             scatter_step(e, s, R, c, cb, weight, g_tf, g_vol, g_env, po);
           }
         }
@@ -615,7 +640,7 @@ reverse_kernel(const Rev R, const float* __restrict__ tape,
           }
           const float w = (a > 0.0f) ? S / ((float)count * nmax(a, 1e-30f)) : 0.0f;
           const float* row = disp + sel * step_rows;
-          po.at = ((int64_t)k * per_disp + j) * lanes + lane;
+          po.at = (k * per_disp + j) * n_lanes + lane;
           scatter_step(load_event(row, R), load_scatter(row, R, want_tf, want_vol, true), R,
                        cs, cbs, w, g_tf, g_vol, g_env, po);
         }
@@ -750,13 +775,15 @@ int vpt_surrogate_tape_forward(const float* fparams, const int* iparams, const i
 }
 
 // lane_ix / lane_seed_iy: the lanes' global pixels (both or neither);
-// pair_idx / pair_upd: ROUTED mode's pair buffer (R_ROUTED set, g_vol null)
+// pairs: ROUTED mode's pair list of pair_cap pairs (R_ROUTED set, g_vol
+// null): the count, then pair_cap slot ids, pair_cap rows, (pair_cap, 8)
+// values; pair_cap a multiple of 4 below 2^31 and at least every slot
 int vpt_prb_reverse(const int* rparams, float inv_mu, const int* slots,
                     const float* tape, const float* g_rad_scaled, float* c,
                     float* cb, const int* phases, const uint32_t* seeds,
                     double* ext_acc, float* g_tf, float* g_vol, float* g_env,
-                    const uint32_t* lane_ix, const uint32_t* lane_seed_iy, int* pair_idx,
-                    float* pair_upd, void* stream) {
+                    const uint32_t* lane_ix, const uint32_t* lane_seed_iy, int* pairs,
+                    int64_t pair_cap, void* stream) {
   Rev R;
   for (int k = 0; k < R_COUNT; ++k) R.i[k] = rparams[k];
   R.inv_mu = inv_mu;
@@ -768,9 +795,16 @@ int vpt_prb_reverse(const int* rparams, float inv_mu, const int* slots,
                           (R.i[R_WANT_TF] || R.i[R_WANT_VOL] || R.i[R_WANT_ENV]);
   if (importance && steps > MAX_IMP_STEPS) return (int)cudaErrorInvalidValue;
   if ((lane_ix == nullptr) != (lane_seed_iy == nullptr) ||
-      (R.i[R_ROUTED] != 0) != (pair_idx != nullptr) || (pair_idx == nullptr) != (pair_upd == nullptr) ||
-      (R.i[R_ROUTED] && (g_vol != nullptr || !R.i[R_WANT_VOL] || R.i[R_VOL_XY])))
+      (R.i[R_ROUTED] != 0) != (pairs != nullptr) ||
+      (R.i[R_ROUTED] && (g_vol != nullptr || !R.i[R_WANT_VOL] || R.i[R_VOL_XY] ||
+                         pair_cap % 4 != 0 || pair_cap >= INT32_MAX ||
+                         pair_cap < (int64_t)R.i[R_N_DISPATCH] * (steps / R.i[R_STRIDE]) * n)))
     return (int)cudaErrorInvalidValue;
+  const int cap = (int)pair_cap;
+  const PairOut po = {pairs, pairs == nullptr ? nullptr : pairs + 4,
+                      pairs == nullptr ? nullptr : pairs + 4 + cap,
+                      pairs == nullptr ? nullptr : reinterpret_cast<float*>(pairs + 4 + 2 * cap),
+                      cap, 0};
   const int ns = !importance ? 0 : steps <= 8 ? 8 : steps <= 16 ? 16 : 32;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const dim3 grid(blocks_for(n, REV_THREADS)), block(REV_THREADS);
@@ -779,7 +813,7 @@ int vpt_prb_reverse(const int* rparams, float inv_mu, const int* slots,
   case NS:                                                                                  \
     reverse_kernel<NS><<<grid, block, 0, st>>>(R, tape, g_rad_scaled, c, cb, phases, seeds, \
                                                ext_acc, g_tf, g_vol, g_env, lane_ix,        \
-                                               lane_seed_iy, pair_idx, pair_upd);           \
+                                               lane_seed_iy, po);                           \
     break;
     VPT_NS(0) VPT_NS(8) VPT_NS(16) VPT_NS(32)
 #undef VPT_NS

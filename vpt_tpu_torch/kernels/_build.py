@@ -63,7 +63,7 @@ _SIGNATURES = {
     "spectral_backward": {
         "vpt_bwd_layout": ([_I], _I),
         "vpt_prb_tape_forward": ([_P, _P, _P, _I] + [_P] * 16 + [_P], _I),
-        "vpt_prb_reverse": ([_P, _F] + [_P] * 15 + [_P], _I),
+        "vpt_prb_reverse": ([_P, _F] + [_P] * 14 + [_L, _P], _I),
         "vpt_scatter_rows": ([_P, _L, _P, _P], _I),
         "vpt_surrogate_tape_forward": ([_P, _P, _P, _I] + [_P] * 18 + [_P], _I),
     },
@@ -240,8 +240,9 @@ def ptxas_table(log_text):
     tape_forward_kernel), NB (K13 raw_tape_kernel, K14 raw_replay_kernel), NS
     (K5 reverse_kernel: 0 for stride mode, else the importance step
     count), MODE (K15 march_kernel: 0 EAM, 1 Depth), LEARN_TF (K19
-    eam_backward_kernel: 0 or 1), LAO,SHADOWS (K25 lao_frame_kernel: 0 or
-    1 each), MAJ (K27 slab_advance_kernel), NB,MAJ,ENV,TAPE (K28
+    eam_backward_kernel: 0 or 1), LAO,SHADOWS,MODE (K25 lao_frame_kernel:
+    0 or 1 each, then the table mode 0-4 of csrc/lao.cu LaoMode), MAJ (K27
+    slab_advance_kernel), NB,MAJ,ENV,TAPE (K28
     slab_finish_kernel), "" for the untemplated ones (K20 mcm_step_kernel, K21
     mcm_reset_kernel, K22 mcs_frames_kernel, K23 mcs_persistent_kernel, K24
     dos_slice_kernel, K26 slab_rows_kernel, K29 slab_scatter_kernel, K30

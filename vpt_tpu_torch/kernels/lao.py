@@ -2,10 +2,13 @@
 
 One kernel of ``vpt_tpu_torch/csrc/lao.cu``:
 
-- ``lao_pass`` (K25 ``lao_frame_kernel<LAO, SHADOWS>``): one LAO frame
-  (replaces ``vpt_tpu/models/lao.py::lao_frame``); plain version
+- ``lao_pass`` (K25 ``lao_frame_kernel<LAO, SHADOWS, MODE>``): one LAO
+  frame (replaces ``vpt_tpu/models/lao.py::lao_frame``); plain version
   ``lao_frame``, the masked fixed-trip scan of the JAX code, with its name
-  and arguments.
+  and arguments. MODE is the table kind (``kernel_mode``): the packed u8
+  or f32 corner table, linear or quasicubic, beside the packed TF, or the
+  raw grid under the nearest filter beside the raw TF, the tables
+  ``LAORenderer`` builds; on a CUDA device other pairs raise.
 
 Per pixel: the camera ray clamped to the cube (``raymarch.camera_rays``,
 ``ray_bounds``), a per-pixel constant "random" value ``rx`` from the trig
@@ -259,6 +262,20 @@ def cone_clear(inv_mvp, light_position, light_radius, lao_step: float, slices: i
     return bool(np.any((light - dmax > 1.0 + e) | (light + dmax < -e)))
 
 
+def kernel_mode(density, tf_table, volume_filter: str):
+    """K25's table mode for these tables (csrc/lao.cu LaoMode), or None
+    where it has no instance: "u8" / "f32" (a packed corner table, linear),
+    "u8 quasicubic" / "f32 quasicubic", each beside the packed (Hp, Wp, 16)
+    TF, or "nearest" (the raw (D, H, W) grid beside the raw (H, W, 4) TF)."""
+    tf_raw = tf_table.shape[-1] == 4
+    if not isinstance(density, interp.PackedVolume):
+        return "nearest" if volume_filter == "nearest" and tf_raw else None
+    if volume_filter == "nearest" or tf_raw:
+        return None
+    kind = "u8" if density.table.dtype == torch.uint8 else "f32"
+    return kind + (" quasicubic" if volume_filter == "quasicubic" else "")
+
+
 def _params(inv_mvp, density, tf_table, light_position, extinction, lao_weight,
             shadows_weight, light_radius, light_coef, slices, resolution, n_cone, exact,
             volume_filter):
@@ -286,7 +303,8 @@ def lao_pass(inv_mvp, density, tf_table, light_position, extinction, lao_weight,
              lao_enabled: bool = True, shadows_enabled: bool = True,
              volume_filter: str = "linear", cone, exact: bool):
     """One LAO frame (R, R, 3), ``lao_frame``: one launch of K25
-    ``lao_frame_kernel<lao_enabled, shadows_enabled>`` on a CUDA device.
+    ``lao_frame_kernel<lao_enabled, shadows_enabled, MODE>`` on a CUDA
+    device, MODE the tables' ``kernel_mode``.
     ``cone``: ``cone_table(lao_step)`` on the tables' device; ``exact``:
     ``early_stop_exact`` of these inputs (the renderer computes both once).
     The rays stop early where ``exact`` holds and, with the cone on,
@@ -303,6 +321,15 @@ def lao_pass(inv_mvp, density, tf_table, light_position, extinction, lao_weight,
                          shadows_enabled=shadows_enabled, volume_filter=volume_filter,
                          stop=exact)
     RK._check_tables(density, tf_table, volume_filter)
+    if kernel_mode(density, tf_table, volume_filter) is None:
+        raise ValueError(f"K25 is built for a packed volume beside the packed TF or a raw grid "
+                         f"under the nearest filter beside the raw TF, not a "
+                         f"{type(density).__name__} under {volume_filter!r} beside a TF of "
+                         f"{tf_table.shape[-1]} channels")
+    rows = density.dims[1] * density.dims[2] if isinstance(density, interp.PackedVolume) \
+        else density.shape[1] * density.shape[2]
+    if rows >= 2**31 - 1:
+        raise ValueError(f"a volume plane of {rows} rows: K25 addresses a plane in 32 bits")
     K._check(cone, "cone", torch.float32, (n_lao_steps(lao_step), 2), align=8)
     if cone.device != vol.device:
         raise ValueError(f"tensors lie on different devices: {vol.device}, {cone.device}")

@@ -24,9 +24,9 @@ the row with ``_tape_row``). Three more kernels serve the backward
 
 - ``slab_scatter`` (K29): the owner side of the routed adjoint scatter, the
   transpose of K26 (``vpt_tpu/parallel/slab.py::_distributed_scatter_add``,
-  :120-137): every rank's (row, 8 values) pairs, gathered, added into this
-  rank's adjoint slab where it owns the row; plain version
-  ``slab_scatter_plain``.
+  :120-137): every rank's pair list (``spectral_backward.pair_buffer``),
+  gathered, its first ``count`` (row, 8 values) pairs added into this rank's
+  adjoint slab where it owns the row; plain version ``slab_scatter_plain``.
 - ``slab_contract`` (K30): this rank's share of the packed adjoint's
   transpose (``_contract_slab_adjoint``, :160-209), the (slab_z + 1, H, W)
   partial with both folds; plain version ``slab_contract_plain``.
@@ -205,14 +205,18 @@ class _TableDims:
 
 
 def slab_scatter_plain(adj: torch.Tensor, lo: int, pairs: torch.Tensor, n_ranks: int):
-    """Plain ``slab_scatter``: adds into the (rows, 8) ``adj`` every pair of
-    the gathered buffer ``pairs`` (``n_ranks`` pair buffers, rank order)
-    whose global row r has lo <= r < lo + rows; returns ``adj``."""
+    """Plain ``slab_scatter``: adds into the (rows, 8) ``adj`` the first
+    ``count`` pairs of each of the ``n_ranks`` pair lists gathered in
+    ``pairs`` (rank order) whose global row r has lo <= r < lo + rows, by
+    one ``index_add_``; returns ``adj``."""
     rows = adj.shape[0]
-    per_rank = pairs.view(int(n_ranks), -1)
-    m = per_rank.shape[1] // 9
-    idx = per_rank[:, :m].contiguous().view(torch.int32).reshape(-1).to(torch.int64)
-    upd = per_rank[:, m:].reshape(-1, 8)
+    rows_of, values = [], []
+    for block in pairs.view(int(n_ranks), -1):
+        count, _, row, val = SB.pair_views(block)
+        n = min(int(count[0]), row.numel())
+        rows_of.append(row[:n].to(torch.int64))
+        values.append(val[:n])
+    idx, upd = torch.cat(rows_of), torch.cat(values)
     local = idx - int(lo)
     owned = (idx >= 0) & (local >= 0) & (local < rows)
     return adj.index_add_(0, local[owned], upd[owned])
@@ -414,15 +418,16 @@ def slab_finish(state, ctx, lanes, rows, frac, dist, maj, idx, rng, n_bins: int,
 def slab_scatter(adj: torch.Tensor, lo: int, pairs: torch.Tensor, n_ranks: int) -> torch.Tensor:
     """K29: adds into this rank's (rows, 8) f32 adjoint slab ``adj`` (global
     rows [lo, lo + rows)) every owned pair of ``pairs``, the ``n_ranks``
-    ranks' pair buffers (``spectral_backward.pair_buffer``) gathered in rank
-    order; pairs of row -1 add nothing. Returns ``adj``."""
+    ranks' pair lists (``spectral_backward.pair_buffer``) gathered in rank
+    order, each read up to its count (on the device: no host sync); pairs
+    of row -1 add nothing. Returns ``adj``."""
     if K._route(adj, pairs) == "cpu":
         return slab_scatter_plain(adj, lo, pairs, n_ranks)
     K._check(adj, "adj", torch.float32, (adj.shape[0], 8), align=16)
     K._check(pairs, "pairs", torch.float32, (pairs.numel(),), align=16)
-    m = pairs.numel() // (9 * int(n_ranks))
-    if pairs.numel() != 9 * m * int(n_ranks) or m % 4:
-        raise ValueError(f"{pairs.numel()} floats are not {n_ranks} pair buffers")
+    m = (pairs.numel() // int(n_ranks) - 4) // 10
+    if pairs.numel() != (4 + 10 * m) * int(n_ranks) or m % 4:
+        raise ValueError(f"{pairs.numel()} floats are not {n_ranks} pair lists")
     lib = _lib()
     with torch.cuda.device(adj.device):
         err = lib.vpt_slab_scatter(pairs.data_ptr(), m, int(n_ranks), int(lo), adj.shape[0],

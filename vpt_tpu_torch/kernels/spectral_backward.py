@@ -24,11 +24,11 @@ Two kernels of ``vpt_tpu_torch/csrc/spectral_backward.cu``:
   ``scatter_step`` (``:781-950``) and ``_importance_metric`` +
   ``_importance_scatter`` (``:411-540``). Plain version
   ``prb_reverse_plain``. Its ROUTED mode (``pairs=``, the slab-sharded
-  backward of ``parallel/slab.py``) stores each lane-step's volume row as a
-  (global row, 8 values) pair in a pair buffer (``pair_buffer``) instead of
-  adding it, for the row's owner to add (K29 ``slab_scatter``); a lane
-  table (``lanes=``) gives the lanes' global pixels, which seed the
-  importance picks.
+  backward of ``parallel/slab.py``) appends each lane-step's nonzero volume
+  row as a (slot id, global row, 8 values) pair to a pair list
+  (``pair_buffer``) instead of adding it, for the row's owner to add (K29
+  ``slab_scatter``); a lane table (``lanes=``) gives the lanes' global
+  pixels, which seed the importance picks.
 
 The tape is one f32 tensor ``(K, steps, F, lanes)`` whose F fields are
 ``tape_fields(wrt, env, xy)`` (int and bool fields bit-cast into f32
@@ -365,9 +365,9 @@ def _event_grads(t: _Row, q):
 
 def _scatter_plain(t: _Row, c, cb, weight, adj, pair=None):
     """The per-step table scatters of one tape row (JAX ``scatter_step``),
-    in the kernel's order. ``pair``: the (idx (lanes,), upd (lanes, 8))
-    views of this scatter's slot in a pair buffer, which then takes the
-    volume rows (-1 where a row is all zero) in place of ``adj["g_vol"]``."""
+    in the kernel's order. ``pair``: called with this scatter's volume rows
+    (lanes,) int32 and values (lanes, 8) where a row is nonzero (a lane
+    mask), which then take the place of ``adj["g_vol"]``."""
     q = cb * c * weight
     ga, gb, gg = _event_grads(t, q)
     if "g_tf" in adj:
@@ -386,8 +386,8 @@ def _scatter_plain(t: _Row, c, cb, weight, adj, pair=None):
         w4 = ((1 - vfy) * (1 - vfx), (1 - vfy) * vfx, vfy * (1 - vfx), vfy * vfx)
         a0, a1 = gd * (1 - vfz), gd * vfz
         if pair is not None:
-            pair[0].copy_(torch.where(gd != 0.0, t.i("vol_row0"), -1))
-            pair[1].copy_(torch.stack([a0 * wk for wk in w4] + [a1 * wk for wk in w4], dim=-1))
+            pair(gd != 0.0, t.i("vol_row0"),
+                 torch.stack([a0 * wk for wk in w4] + [a1 * wk for wk in w4], dim=-1))
         elif adj["g_vol"].shape[1] == 4:
             # xy volume: the z0 and z1 plane rows
             adj["g_vol"].index_add_(0, t.i("vol_row0").to(torch.int64),
@@ -424,8 +424,9 @@ def prb_reverse_plain(tapes, fields, g_rad_scaled, cot, adj, phases, seeds, *,
     of (lanes,) tensors) and the adjoints ``adj`` (dict of g_ext (1,),
     g_tf (rows, 18), g_vol (rows, 8) or (rows, 4) for an xy volume, g_env
     (rows, 12), as present) in place; with ``pairs`` (a ``pair_buffer``)
-    the volume rows go to its slots, dispatch k's slot j at k * (steps //
-    stride) + j."""
+    the nonzero volume rows are appended to its list in slot order, the
+    slot id (k * (steps // stride) + j) * lanes + lane for dispatch k's
+    slot j."""
     n_disp, steps = tapes.shape[0], tapes.shape[1]
     n_lanes = tapes.shape[3]
     n_bins = g_rad_scaled.shape[0]
@@ -435,14 +436,16 @@ def prb_reverse_plain(tapes, fields, g_rad_scaled, cot, adj, phases, seeds, *,
     want_vol = "g_vol" in adj or pairs is not None
     want_scatter = want_tf or want_vol or want_env
     per_disp = steps // scatter_stride
-    if pairs is not None:
-        idx_all, upd_all = pair_views(pairs)
+    found = {}  # slot -> (slot ids, rows, values) of its nonzero rows
 
     def pair(slot):
         if pairs is None:
             return None
-        at = slice(slot * n_lanes, (slot + 1) * n_lanes)
-        return idx_all[at], upd_all[at]
+
+        def put(has, rows, values):
+            lane = torch.nonzero(has)[:, 0]
+            found[slot] = (slot * n_lanes + lane.to(torch.int32), rows[lane], values[lane])
+        return put
 
     c, cb = cot["c"], cot["cb"]
     weight = float(scatter_stride)
@@ -468,6 +471,22 @@ def prb_reverse_plain(tapes, fields, g_rad_scaled, cot, adj, phases, seeds, *,
                                       want_tf, want_vol, want_env, lanes,
                                       [pair(k * per_disp + j) for j in range(per_disp)])
     cot["c"], cot["cb"] = c, cb
+    if found:
+        append_pairs(pairs, *(torch.cat(p) for p in zip(*(found[k] for k in sorted(found)))))
+
+
+def append_pairs(pairs: torch.Tensor, slots, rows, values):
+    """Appends (slot ids, rows, values) to the pair list ``pairs`` after its
+    count, in the given order, and adds them to the count."""
+    count, slot_v, row_v, val_v = pair_views(pairs)
+    at = int(count[0])
+    n = slots.numel()
+    if at + n > slot_v.numel():
+        raise ValueError(f"{at + n} pairs overflow a pair list of {slot_v.numel()}")
+    slot_v[at:at + n] = slots
+    row_v[at:at + n] = rows
+    val_v[at:at + n] = values
+    count += n
 
 
 def _importance_picks(tape, col, c_all, cb_all, seed, stride, resolution, streams,
@@ -516,7 +535,8 @@ def _importance_scatter_plain(tape, col, c_all, cb_all, adj, seed, stride, resol
                               streams, pick_bits, want_tf, want_vol, want_env, lanes=None,
                               pairs=None):
     """The importance-thinned scatters of one dispatch; ``pairs``: pick j's
-    pair-buffer slot views (ROUTED mode), else None."""
+    pair-list appender (ROUTED mode, ``_scatter_plain``'s ``pair``), else
+    None."""
     picks, weights = _importance_picks(tape, col, c_all, cb_all, seed, stride, resolution,
                                        streams, pick_bits, want_tf, want_vol, want_env, lanes)
     c_all, cb_all = torch.stack(c_all), torch.stack(cb_all)
@@ -536,9 +556,11 @@ def prb_reverse(tapes, fields, g_rad_scaled, cot, adj, phases, seeds, *,
     stride phase and frame seed. One kernel launch on a CUDA device.
 
     ROUTED mode: ``pairs``, a ``pair_buffer`` of at least K * (steps //
-    stride) * lanes pairs, takes the volume rows (``adj`` then holds no
-    g_vol); ``lanes``: the lanes' int32 lane table (ix, iy, seed_iy), whose
-    global pixels seed the importance picks."""
+    stride) * lanes pairs, takes the nonzero volume rows, appended to its
+    list (``adj`` then holds no g_vol): in the order of the kernel's
+    atomics on the card, in slot order by the plain version; ``lanes``: the
+    lanes' int32 lane table (ix, iy, seed_iy), whose global pixels seed the
+    importance picks."""
     if scatter_mode not in ("stride", "importance"):
         raise ValueError(f"unknown scatter_mode {scatter_mode!r}")
     n_disp, steps, n_fields, n_lanes = tapes.shape
@@ -591,6 +613,8 @@ def prb_reverse(tapes, fields, g_rad_scaled, cot, adj, phases, seeds, *,
                 raise ValueError(f"{name}: {t.numel()} lanes for a tape of {n_lanes}")
     if routed:
         K._check(pairs, "pairs", torch.float32, (pairs.numel(),), align=16)
+        if pairs.numel() != 4 + 10 * pair_capacity(pairs) or pair_capacity(pairs) >= 2**31 - 1:
+            raise ValueError(f"{pairs.numel()} floats are not a pair list")
     r = np.array([
         n_lanes, resolution, steps, n_disp, n_fields, scatter_stride, int(importance),
         int("g_ext" in adj), int("g_tf" in adj), int("g_vol" in adj or routed),
@@ -620,7 +644,7 @@ def prb_reverse(tapes, fields, g_rad_scaled, cot, adj, phases, seeds, *,
             ptr("g_vol"), ptr("g_env"), None if lanes is None else lanes[0].data_ptr(),
             None if lanes is None else lanes[2].data_ptr(),
             None if pairs is None else pairs.data_ptr(),
-            None if pairs is None else pair_views(pairs)[1].data_ptr(), K._stream(device))
+            0 if pairs is None else pair_capacity(pairs), K._stream(device))
     K._raise_on(err, "prb_reverse")
     LAUNCHES["prb_reverse"] += 1
     LAUNCHES["prb_reverse_environment"] += int("g_env" in adj)
@@ -631,25 +655,37 @@ def prb_reverse(tapes, fields, g_rad_scaled, cot, adj, phases, seeds, *,
 
 
 def pair_buffer(n_pairs: int, device) -> torch.Tensor:
-    """A ROUTED-mode pair buffer for ``n_pairs`` (global row, 8 values)
-    pairs: one flat f32 tensor of 9 m floats, m = ``n_pairs`` rounded up to
-    a multiple of 4 (so the values start 16-byte aligned), the m rows
-    (int32 bits, all -1 here) first, then the (m, 8) values. One tensor, so
-    one all-gather moves a rank's pairs."""
+    """A ROUTED-mode pair list with room for ``n_pairs`` pairs: one flat f32
+    tensor of 4 + 10 m floats, m = ``n_pairs`` rounded up to a multiple of 4
+    (so the values start 16-byte aligned): a 16-byte header whose first word
+    is the count (int32, zeroed here; nothing else is written), then m slot
+    ids and m global rows (int32 bits), then the (m, 8) values. One tensor,
+    so one all-gather moves a rank's pairs."""
     m = -(-int(n_pairs) // 4) * 4
-    buf = torch.empty(9 * m, dtype=torch.float32, device=device)
-    buf[:m].view(torch.int32).fill_(-1)
+    buf = torch.empty(4 + 10 * m, dtype=torch.float32, device=device)
+    buf[:1].view(torch.int32).zero_()
     return buf
 
 
 def pair_capacity(pairs: torch.Tensor) -> int:
-    return pairs.numel() // 9
+    return (pairs.numel() - 4) // 10
 
 
 def pair_views(pairs: torch.Tensor):
-    """(rows (m,) int32, values (m, 8) f32) views of a pair buffer."""
+    """(count (1,) int32, slot ids (m,) int32, rows (m,) int32, values (m,
+    8) f32) views of a pair list; its pairs are the first ``count``."""
     m = pair_capacity(pairs)
-    return pairs[:m].view(torch.int32), pairs[m:].view(m, 8)
+    ints = pairs[:4 + 2 * m].view(torch.int32)
+    return ints[:1], ints[4:4 + m], ints[4 + m:], pairs[4 + 2 * m:].view(m, 8)
+
+
+def pair_list(pairs: torch.Tensor):
+    """The (slot ids, rows, values) of a pair list's first ``count`` pairs,
+    sorted by slot id: K5 ROUTED appends in its atomics' order."""
+    count, slots, rows, values = pair_views(pairs)
+    n = int(count[0])
+    order = torch.argsort(slots[:n].to(torch.int64))
+    return slots[:n][order], rows[:n][order], values[:n][order]
 
 
 # ---------------------------------------------------------------------------

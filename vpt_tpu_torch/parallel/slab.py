@@ -28,11 +28,13 @@ only, cut as the forward is: no rank ever holds the whole packed adjoint.
     - the taped dispatch: the same step loop, K27 asking for every lane's
       row and K28 in TAPE mode writing K4's tape row (the global row in
       ``vol_row0``);
-    - per dispatch, one K5 launch in ROUTED mode stores each scattering
-      lane-step's volume row as a (global row, 8 values) pair instead of
-      adding it; one all-gather of the pairs; K29 ``slab_scatter`` adds the
-      pairs each rank owns into its (rows / n, 8) adjoint slab (the
-      transpose of the routed gather);
+    - per dispatch, one K5 launch in ROUTED mode appends each scattering
+      lane-step's nonzero volume row to a pair list as a (slot id, global
+      row, 8 values) pair instead of adding it; one all-gather of the
+      lists (their whole capacity, as JAX's fixed-size gather moves every
+      slot); K29 ``slab_scatter`` adds the pairs each rank owns, up to each
+      list's count, into its (rows / n, 8) adjoint slab (the transpose of
+      the routed gather);
     - per backward, K30 ``slab_contract`` transposes the rank's slab of the
       packing into its (slab_z + 1, H, W) partial of the raw gradient; its
       first plane goes to the rank before (one ``halo_from_next``), and
@@ -162,13 +164,13 @@ def distributed_scatter_add(adj_slab: torch.Tensor, flat_idx: torch.Tensor,
                             updates: torch.Tensor, mesh: Mesh.RayMesh) -> torch.Tensor:
     """The routed adjoint scatter (JAX ``_distributed_scatter_add``), the
     exact transpose of ``distributed_rows``: every rank's (N,) int32 global
-    rows ``flat_idx`` (-1: none) and (N, 8) f32 ``updates`` are gathered,
-    and each rank adds the pairs it owns into its (rows, 8) ``adj_slab``
-    (K29), in place. Returns ``adj_slab``."""
+    rows ``flat_idx`` (-1: none) and (N, 8) f32 ``updates`` become a pair
+    list in slot order (the slot id the index in ``flat_idx``, the -1 rows
+    left out), the lists are gathered, and each rank adds the pairs it owns
+    into its (rows, 8) ``adj_slab`` (K29), in place. Returns ``adj_slab``."""
     pairs = SB.pair_buffer(flat_idx.numel(), flat_idx.device)
-    idx, upd = SB.pair_views(pairs)
-    idx[:flat_idx.numel()] = flat_idx
-    upd[:flat_idx.numel()] = updates
+    slot = torch.nonzero(flat_idx >= 0)[:, 0]
+    SB.append_pairs(pairs, slot.to(torch.int32), flat_idx[slot], updates[slot])
     return scatter_pairs(adj_slab, pairs, mesh)
 
 

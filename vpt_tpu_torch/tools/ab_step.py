@@ -10,7 +10,23 @@ them (``pack_tables=False``, the RAW instantiation), printed beside the
 ratios: the default K1 and K4 against the other checkout's show what the
 raw template costs the packed builds.
 
-    python -m vpt_tpu_torch.tools.ab_step --other DIR [--reps 50] [--rounds 2]
+With ``--what lao_slab`` it times instead K25 ``lao_frame`` through
+``kernels.lao.lao_pass`` by device time (a CUDA graph of 20 calls) on phase
+25's scene (the bench volume at 512^2, 64 slices, both terms) in the four
+table modes of ``chip_smoke.mode_volumes``,
+and the slab backward's reverse half of one dispatch at world size 1 (a
+one-rank NCCL group): ``pair_buffer``, K5 ROUTED over a one-dispatch K4
+tape of the bench scene (``wrt={density}``) and ``parallel.slab.
+scatter_pairs`` (the pairs' all-gather and K29), whole calls by CUDA
+events, host path included, and their device work alone (the kernels'
+device time under torch.profiler, split by kernel), at stride 1, stride 4
+and importance 4, with K5 ROUTED (and its new pair buffer) by CUDA events
+and K29 (on one list) by device time (a CUDA graph of 20 calls) beside
+them; the ptxas rows of
+K25, K5 and K29. ``--out FILE`` appends every printed line to FILE too.
+
+    python -m vpt_tpu_torch.tools.ab_step --other DIR [--what step|lao_slab]
+        [--reps 50] [--rounds 2]
 
 ``DIR`` is another checkout of the repo (for example the parent commit
 unpacked by ``git archive`` into a gitignored directory). Each checkout
@@ -20,9 +36,9 @@ so that a drift of the card's clocks falls on both. A run is this file
 started with ``--child`` inside the checkout: it imports that checkout's
 ``vpt_tpu_torch`` and ``chip_smoke`` (for the scene), so it uses only what
 both sides of a change share. Per run it prints one JSON line (the
-checkout, K1 ms per dispatch in each mode and K4 ms per 2 dispatches by
-CUDA events, the ptxas rows), then one line of the means and the ratios
-this / other. Needs a CUDA device; exits 1 without.
+checkout, its times by CUDA events, the ptxas rows), then one line of the
+means and the ratios this / other (with ``lao_slab`` also the medians,
+their ratios and each side's spread). Needs a CUDA device; exits 1 without.
 """
 
 from __future__ import annotations
@@ -33,6 +49,8 @@ import os
 import subprocess
 import sys
 from pathlib import Path
+
+import numpy as np
 
 ROOT = Path(__file__).resolve().parents[2]
 K1_MODES = ("default", "environment", "quasicubic", "majorant")
@@ -97,11 +115,104 @@ def child(reps: int) -> dict:
     return out
 
 
-def run_in(root: Path, reps: int) -> dict:
+def child_lao_slab(reps: int) -> dict:
+    """One timing run of K25 in four table modes and of the slab
+    backward's reverse half in three scatter modes, on the checkout on
+    ``sys.path``, through the API both sides of a change share."""
+    import torch
+
+    import chip_smoke as CS
+    from vpt_tpu_torch import Camera
+    from vpt_tpu_torch.kernels import _build
+    from vpt_tpu_torch.kernels import lao as KL
+    from vpt_tpu_torch.kernels import slab as KS
+    from vpt_tpu_torch.kernels import spectral_backward as TB
+    from vpt_tpu_torch.models.lao import LAORenderer
+    from vpt_tpu_torch.models.mcm_spectral import MCMSpectralRenderer
+    from vpt_tpu_torch.parallel import mesh as Mesh
+    from vpt_tpu_torch.parallel import slab as TS
+    from vpt_tpu_torch.tools.gather_bench import graph_ms
+    from vpt_tpu_torch.tools.profile_fit import device_kernels
+    from torch.profiler import ProfilerActivity, profile
+
+    def ms(fn):
+        fn()
+        torch.cuda.synchronize()
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(reps):
+            fn()
+        b.record()
+        torch.cuda.synchronize()
+        return a.elapsed_time(b) / reps
+
+    dev, cam = torch.device("cuda:0"), Camera()
+    out = {}
+    for label, v in CS.mode_volumes():
+        r = LAORenderer(v, slices=CS.LAO_SLICES, resolution=CS.RM_RES, device=dev)
+        args, kw = CS.lao_inputs(r, cam)
+        out[f"k25 {label}_ms"] = graph_ms(lambda: KL.lao_pass(*args, **kw, cone=r._cone,
+                                                              exact=r.exact_stop))
+        del r
+
+    mesh = Mesh.ray_mesh(device=dev)
+    r = MCMSpectralRenderer(*CS.bench_scene_args(), resolution=CS.RES, streams=CS.STREAMS,
+                            device=dev)
+    ctx, s0 = r.ctx(cam, 7), r.reset(cam, 7)
+    seed = 2654435761 * 5 % 2**32
+    fields = TB.ctx_tape_fields(ctx, CS.SLAB_WRT)
+    sk, tape = TB.tape_forward(s0, ctx, [seed], CS.STEPS, CS.BINS, CS.SLAB_WRT)
+    lane, res, streams, n = TB._lanes(s0)
+    lanes = Mesh.lane_tables(mesh, CS.RES, CS.STREAMS)
+    g_img = torch.as_tensor(np.random.default_rng(0).uniform(-1, 1, (CS.RES, CS.RES, 3)).astype(
+        np.float32), device=dev)
+    g_rs = TB._deposit_cotangents(g_img, ctx, lane, CS.BINS, TB._m_final(sk))
+    adj = torch.zeros((ctx.density.table.shape[0], 8), device=dev)
+    for stride, mode in CS.MODES:
+        phase = TB._dispatch_phase(0, seed, 1, stride)
+        kw = dict(scatter_stride=stride, scatter_mode=mode, inv_mu=TB._inv_mu(ctx),
+                  resolution=res, streams=streams, lanes=lanes)
+        slots = CS.STEPS // stride
+
+        def routed(pairs):
+            cot = dict(c=torch.zeros(n, device=dev), cb=torch.zeros(n, device=dev))
+            TB.prb_reverse(tape, fields, g_rs, cot, {}, [phase], [seed], pairs=pairs, **kw)
+
+        def reverse_half():
+            pairs = TB.pair_buffer(slots * n, dev)
+            routed(pairs)
+            TS.scatter_pairs(adj, pairs, mesh)
+
+        kept = TB.pair_buffer(slots * n, dev)
+        routed(kept)
+        out[f"slab reverse {mode}{stride}_ms"] = ms(reverse_half)
+        # the same calls' device work alone, under the profiler: the host's
+        # gaps (allocation, NCCL's host side) left out
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                reverse_half()
+            torch.cuda.synchronize()
+        split = {k: v["ms"] / reps for k, v in device_kernels(prof).items()}
+        out[f"slab reverse device {mode}{stride}_ms"] = sum(split.values()) or None
+        out[f"slab reverse device {mode}{stride} split"] = split
+        # K5 ROUTED with its buffer made as the main path makes it, K29 on one list
+        out[f"k5 routed {mode}{stride}_ms"] = ms(lambda: routed(TB.pair_buffer(slots * n, dev)))
+        out[f"k29 {mode}{stride}_ms"] = graph_ms(lambda: KS.slab_scatter(adj, 0, kept, 1))
+        del kept
+    out["build_seconds"] = _build.build_info["seconds"]
+    out["ptxas"] = [dict(kernel=k, template=t, registers=g, spill_store_bytes=sp,
+                         spill_load_bytes=lo, stack_frame_bytes=f)
+                    for k, t, g, sp, lo, f in _build.ptxas_table(_build.build_info["log"])
+                    if k in ("lao_frame_kernel", "reverse_kernel", "slab_scatter_kernel")]
+    return out
+
+
+def run_in(root: Path, reps: int, what: str) -> dict:
     """One timing process inside the checkout ``root``."""
     env = dict(os.environ, PYTHONPATH=str(root))
     out = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--child",
-                          "--reps", str(reps)], cwd=root, env=env, capture_output=True, text=True)
+                          "--reps", str(reps), "--what", what], cwd=root, env=env,
+                         capture_output=True, text=True)
     if out.returncode != 0:
         raise RuntimeError(f"ab_step in {root} failed:\n{out.stderr[-4000:]}")
     rec = json.loads(out.stdout.strip().splitlines()[-1])
@@ -114,13 +225,15 @@ def main(argv=None):
     p.add_argument("--other", help="another checkout of the repo")
     p.add_argument("--reps", type=int, default=50)
     p.add_argument("--rounds", type=int, default=2)
+    p.add_argument("--what", choices=("step", "lao_slab"), default="step")
+    p.add_argument("--out", help="a file to append every printed line to")
     p.add_argument("--child", action="store_true", help=argparse.SUPPRESS)
     args = p.parse_args(argv)
     if args.child:
         # started as a file: import the checkout's package, not this directory
         here = Path(__file__).resolve().parent
         sys.path[:] = [q for q in sys.path if Path(q or ".").resolve() != here]
-        print(json.dumps(child(args.reps)))
+        print(json.dumps(child(args.reps) if args.what == "step" else child_lao_slab(args.reps)))
         return
     if args.other is None:
         p.error("--other is required")
@@ -131,20 +244,41 @@ def main(argv=None):
         sys.exit(1)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip()
-    print(smi)
+
+    def say(line):
+        print(line, flush=True)
+        if args.out:
+            with open(args.out, "a") as f:
+                f.write(line + "\n")
+
+    say(smi)
     other = Path(args.other).resolve()
     runs = {"other": [], "this": []}
     for side in ("other", "this", "this", "other") * args.rounds:
-        rec = run_in(other if side == "other" else ROOT, args.reps)
+        rec = run_in(other if side == "other" else ROOT, args.reps, args.what)
         runs[side].append(rec)
-        print(json.dumps(dict(side=side, **rec)), flush=True)
+        say(json.dumps(dict(side=side, **rec)))
+    if args.what == "lao_slab":
+        keys = [k for k in runs["this"][0] if k.endswith("_ms") and k in runs["other"][0]
+                and all(r.get(k) is not None for recs in runs.values() for r in recs)]
+        mean = {side: {k: sum(r[k] for r in recs) / len(recs) for k in keys}
+                for side, recs in runs.items()}
+        spread = {side: {k: max(r[k] for r in recs) - min(r[k] for r in recs) for k in keys}
+                  for side, recs in runs.items()}
+        median = {side: {k: float(np.median([r[k] for r in recs])) for k in keys}
+                  for side, recs in runs.items()}
+        say(json.dumps(dict(mean=mean, median=median, spread=spread,
+                            ratio={k: mean["this"][k] / mean["other"][k] for k in keys},
+                            median_ratio={k: median["this"][k] / median["other"][k]
+                                          for k in keys})))
+        return
     mean = {side: {k: sum(r[k] for r in recs) / len(recs) for k in KEYS}
             for side, recs in runs.items()}
     ratio = {k: mean["this"][k] / mean["other"][k] for k in KEYS}
     raw = {side: [r["k1_raw_ms"] for r in recs if r.get("k1_raw_ms") is not None]
            for side, recs in runs.items()}
     k1_raw = {side: sum(v) / len(v) for side, v in raw.items() if v}
-    print(json.dumps(dict(mean=mean, ratio=ratio, k1_raw_ms=k1_raw)))
+    say(json.dumps(dict(mean=mean, ratio=ratio, k1_raw_ms=k1_raw)))
 
 
 if __name__ == "__main__":

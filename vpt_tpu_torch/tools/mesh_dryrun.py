@@ -393,8 +393,9 @@ def job_bwd_window(mesh, scene, g_image, seeds, stride=1, mode="stride", steps=S
     """``prb_window_grads_slab`` and the replicated
     ``prb_render_and_grads_many(window=True, window_storage="forward")``;
     the slab run's collectives and wrapper calls, and the rows its K5
-    ROUTED pairs name ((K, slots, S, R, R) int32 over the global lanes,
-    dispatch K-1 first), which the importance picks decide."""
+    ROUTED pairs name ((K, slots, S, R, R) int32 over the global lanes, -1
+    where a slot holds no pair, dispatch K-1 first; rebuilt from each
+    list's slot ids), which the importance picks decide."""
     from vpt_tpu_torch.kernels import slab as KS
     from vpt_tpu_torch.kernels import spectral_backward as SB
     from vpt_tpu_torch.parallel import mesh as M
@@ -408,7 +409,11 @@ def job_bwd_window(mesh, scene, g_image, seeds, stride=1, mode="stride", steps=S
     pairs, scatter = [], slab.scatter_pairs
 
     def recording(adj, buf, m):
-        pairs.append(SB.pair_views(buf)[0].clone())
+        count, slot_ids, rows, _ = SB.pair_views(buf)
+        n = int(count[0])
+        per_slot = torch.full_like(slot_ids, -1)
+        per_slot[slot_ids[:n].to(torch.int64)] = rows[:n]
+        pairs.append(per_slot)
         return scatter(adj, buf, m)
 
     calls, restore = _counted(KS, BWD_WRAPPERS)
