@@ -4626,7 +4626,8 @@ def phase_mcs_persistent(dev):
         prof = timed("the profile", profiler.finish)
     finally:
         profiler.close()
-    seen = prof["kernels"].get("mcs_persistent_kernel", {}).get("launches", 0) * MCS_FRAMES
+    seen = sum(k["launches"] for n, k in prof["kernels"].items()
+               if n.startswith("mcs_persistent_kernel")) * MCS_FRAMES
     if seen != 1:
         raise AssertionError(f"mcs persistent: the profiler saw {seen * 4:g} of 4 K23 launches")
     # the device's share and the host's wait of the session's first and second

@@ -119,17 +119,23 @@ def test_ptxas_table_reads_the_mcs_kernel():
 
 
 MCSP_LOG = """== mcs.cu
-ptxas info    : Compiling entry function '_ZN46_GLOBAL__N__7b8c9d0e_6_mcs_cu_2a3b4c5d21mcs_persistent_kernelENS_9McsParamsEPKvPKfS4_PK6float2PKjNS_8McsLanesE' for 'sm_90a'
-ptxas info    : Function properties for _ZN46_GLOBAL__N__7b8c9d0e_6_mcs_cu_2a3b4c5d21mcs_persistent_kernelENS_9McsParamsEPKvPKfS4_PK6float2PKjNS_8McsLanesE
-    104 bytes stack frame, 72 bytes spill stores, 72 bytes spill loads
-ptxas info    : Used 96 registers, used 0 barriers
+ptxas info    : Compiling entry function '_ZN46_GLOBAL__N__7b8c9d0e_6_mcs_cu_2a3b4c5d21mcs_persistent_kernelILi0ELb0EEEvNS_9McsParamsEPKvPKfS5_PK6float2PKjNS_8McsLanesE' for 'sm_90a'
+ptxas info    : Function properties for _ZN46_GLOBAL__N__7b8c9d0e_6_mcs_cu_2a3b4c5d21mcs_persistent_kernelILi0ELb0EEEvNS_9McsParamsEPKvPKfS5_PK6float2PKjNS_8McsLanesE
+    32 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 78 registers, used 0 barriers, 32 bytes cumulative stack size
+ptxas info    : Compiling entry function '_ZN46_GLOBAL__N__7b8c9d0e_6_mcs_cu_2a3b4c5d21mcs_persistent_kernelILi5ELb1EEEvNS_9McsParamsEPKvPKfS5_PK6float2PKjNS_8McsLanesE' for 'sm_90a'
+ptxas info    : Function properties for _ZN46_GLOBAL__N__7b8c9d0e_6_mcs_cu_2a3b4c5d21mcs_persistent_kernelILi5ELb1EEEvNS_9McsParamsEPKvPKfS5_PK6float2PKjNS_8McsLanesE
+    40 bytes stack frame, 8 bytes spill stores, 8 bytes spill loads
+ptxas info    : Used 80 registers, used 0 barriers, 40 bytes cumulative stack size
 """
 
 
 def test_ptxas_table_reads_the_mcs_persistent_kernel():
-    """K23 (csrc/mcs.cu, beside K22) is untemplated too, and K22's name is
-    not read inside its row."""
-    assert _build.ptxas_table(MCSP_LOG) == [("mcs_persistent_kernel", "", 96, 72, 72, 104)]
+    """K23 (csrc/mcs.cu, beside K22) is an instance per table mode and
+    majorant, mcs_persistent_kernel<MODE, MAJ>: its rows carry both (MODE
+    the McsMode index, MAJ 0 or 1), and K22's name is not read inside them."""
+    assert _build.ptxas_table(MCSP_LOG) == [("mcs_persistent_kernel", "0,0", 78, 0, 0, 32),
+                                            ("mcs_persistent_kernel", "5,1", 80, 8, 8, 40)]
     assert "mcs_persistent_kernel" in _build.KERNELS
 
 

@@ -58,13 +58,15 @@
 // point along the drawn direction; a shadow ray multiplies its
 // transmittance by (1 - alpha) at each tentative collision.
 //
-// Modes, all uniform runtime flags of each kernel's one instantiation: the
-// volume a packed "full" corner table (u8 or f32, linear or quasicubic) or
-// a raw (D, H, W) f32 grid (linear, quasicubic or nearest); the TF the
-// packed (257, 257, 16) corner table or the raw (256, 256, 4) texture, read
-// at (density, 0) (mcm_common.cuh sample_rgba); the environment a raw (He,
-// We, 3) map (sample_env_rgb); the majorant grid present or not; K23's
-// stream count.
+// Modes: the volume a packed "full" corner table (u8 or f32, linear or
+// quasicubic) or a raw (D, H, W) f32 grid (linear, quasicubic or nearest);
+// the TF the packed (257, 257, 16) corner table or the raw (256, 256, 4)
+// texture, read at (density, 0) (mcm_common.cuh sample_rgba); the
+// environment a raw (He, We, 3) map (sample_env_rgb); the majorant grid
+// present or not; K23's stream count. K22 reads them all as uniform runtime
+// flags of its one instantiation. K23 is an instance per table pair
+// (McsMode) and majorant (MAJ); the environment and the streams are runtime
+// values.
 //
 // What bounds them on this card: each trip is a dependent chain (a hash, a
 // log, a volume row, then the TF row the density selects), and a warp
@@ -76,12 +78,31 @@
 // iteration (a finished sample starts the next at once), and pays for it
 // with a sphere draw and four hashes each step.
 //
+// K23's design, each lever timed in turns on the card (probes/
+// mcsp_variants.py; PERF.md): each instance inlines one table pair's lookup
+// path and the majorant only where it has one; a warp takes an 8 x 4 pixel
+// tile and a block 16 x 8, so that a warp's camera rays stay together in
+// the volume; __launch_bounds__ asks room for 8 blocks an SM (64
+// registers; the default instance without spills, faster than 72-80
+// registers at 6 blocks or 56 with spills uncapped); and the rare branches
+// are light. A deposit and a scatter each about every 30 lane-steps (the
+// default scene: 4.9 M deposits and 4.0 M scatters in 134 M lane-steps a
+// launch) put one of a warp's lanes in each branch most steps, so a warp
+// pays for both: a one-texel environment (the renderer's default) lights a
+// shadow ray with its texel, no atan2f, asinf and 4 gathers, where that is
+// exact (lerp_fixed); the shadow ray's light, which depends on its
+// direction alone, is taken where the lane scatters, and the TF's RGB only
+// there, its alpha at every lookup; sincosf takes the sphere's angle in
+// one call.
+//
 // Numerics: built without fast math and with -fmad=false, so every
 // expression rounds as the plain PyTorch versions' (kernels/mcs.py); every
 // quotient is IEEE's (__fdiv_rn, or the exact reciprocal-and-correction
-// quot), sqrt is IEEE, logf/atan2f/asinf/sinf/cosf the accurate forms,
-// min/max propagate NaN like torch. There are no atomics, so each kernel
-// equals its plain version bit for bit.
+// quot), sqrt is IEEE, logf/atan2f/asinf/sinf/cosf/sincosf the accurate
+// forms (sincosf gives sinf's and cosf's bits on every angle a sphere draw
+// can take, probes/mcsp_variants.py), min/max propagate NaN like torch.
+// There are no atomics, so each kernel equals its plain version bit for
+// bit.
 
 #include "mcm_common.cuh"
 
@@ -110,8 +131,31 @@ enum McsI {
   SI_ENV_H, SI_ENV_W,               // the raw map's He, We
   SI_MAJ_GZ, SI_MAJ_GY, SI_MAJ_GX,  // majorant grid cells (0 without one)
   SI_STEPS, SI_STREAMS,             // K23: iterations a dispatch, streams
+  SI_MODE,                          // K23: the tables' McsMode (kernels/mcs.py persistent_mode)
   SI_COUNT,
 };
+
+// K23's instances by table pair: the pairs MCSRenderer builds (a packed u8
+// or f32 corner table, linear or quasicubic, beside the packed TF; the raw
+// grid under the nearest filter beside the raw TF), each inlining its one
+// lookup path, and every other pair K23 takes (a raw grid under a linear or
+// quasicubic filter, a TF of the other kind) in the generic instance, which
+// reads the table flags at run time as K22 does
+enum McsMode {
+  MM_U8 = 0,    // packed u8 corner table, linear
+  MM_F32,       // packed f32 corner table, linear
+  MM_U8_QC,     // packed u8, quasicubic
+  MM_F32_QC,    // packed f32, quasicubic
+  MM_NEAREST,   // raw f32 grid, nearest, raw TF
+  MM_GENERIC,   // any other pair, by the runtime flags
+  MM_COUNT,
+};
+
+// K23's block: a 16 x 8 pixel tile of one stream, as four warps of 8 x 4
+#define MCSP_TILE_W 16
+#define MCSP_TILE_H 8
+// blocks an SM that K23's __launch_bounds__ asks room for
+#define MCSP_MIN_BLOCKS 8
 
 struct McsParams {
   float f[SF_COUNT];
@@ -326,19 +370,67 @@ struct McsLanes {
   int* samples;
 };
 
+// K23's density at (x, y, z) in MODE's table: one lookup path inlined in
+// each instance (a packed full table with its kind and filter fixed, or the
+// raw grid's nearest texel), the runtime flags of K22's mcs_rgba in the
+// generic one
+template <int MODE>
+__device__ __forceinline__ float mode_density(const void* vol, const McsParams& P, float x,
+                                              float y, float z) {
+  if constexpr (MODE == MM_GENERIC)
+    return sample_volume_flags(vol, P.i[SI_VOL_RAW], P.i[SI_VOL_U8], P.i[SI_VOL_D],
+                               P.i[SI_VOL_H], P.i[SI_VOL_W], P.i[SI_QUASICUBIC] != 0,
+                               P.i[SI_NEAREST] != 0, x, y, z);
+  else if constexpr (MODE == MM_NEAREST)
+    return sample_volume_raw(static_cast<const float*>(vol), P.i[SI_VOL_D], P.i[SI_VOL_H],
+                             P.i[SI_VOL_W], x, y, z, false, true);
+  else
+    return sample_volume(vol, MODE == MM_U8 || MODE == MM_U8_QC, P.i[SI_VOL_D], P.i[SI_VOL_H],
+                         P.i[SI_VOL_W], x, y, z, nullptr, MODE == MM_U8_QC || MODE == MM_F32_QC,
+                         false);
+}
+
+// the TF's RGBA at (density, 0) in MODE's layout (raw beside the raw grid)
+template <int MODE>
+__device__ __forceinline__ float4 mode_rgba(const float* __restrict__ tf, const McsParams& P,
+                                            float d) {
+  const bool raw = MODE == MM_GENERIC ? P.i[SI_TF_RAW] != 0 : MODE == MM_NEAREST;
+  return sample_rgba(tf, raw, P.i[SI_TF_H], P.i[SI_TF_W], d);
+}
+
+// a texel channel that sample_env_rgb's lerps return unchanged when they mix
+// it with itself: a + (a - a) * f is a for a finite f unless a is -0 or not
+// finite
+__device__ __forceinline__ bool lerp_fixed(float a) {
+  return isfinite(a) && __float_as_uint(a) != 0x80000000u;
+}
+
+// this thread's lane: the warp's 8 x 4 pixel tile of the block's 16 x 8;
+// the blocks run over the tiles of stream 0, then of stream 1, ...
+__device__ __forceinline__ void mcsp_pixel(int res, int& ix, int& iy, int& stream) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int tiles_x = (res + MCSP_TILE_W - 1) / MCSP_TILE_W;
+  const int tiles_y = (res + MCSP_TILE_H - 1) / MCSP_TILE_H;
+  const int tx = blockIdx.x % tiles_x, rest = blockIdx.x / tiles_x;
+  const int ty = rest % tiles_y;
+  stream = rest / tiles_y;
+  ix = tx * MCSP_TILE_W + (warp & 1) * 8 + (lane & 7);
+  iy = ty * MCSP_TILE_H + (warp >> 1) * 4 + (lane >> 3);
+}
+
 // K23: K dispatches (one per seed) of SI_STEPS iterations on each lane, its
-// state updated in place.
-__global__ void __launch_bounds__(MCS_THREADS)
+// state updated in place; MODE the tables' McsMode, MAJ the majorant grid.
+template <int MODE, bool MAJ>
+__global__ void __launch_bounds__(MCS_THREADS, MCSP_MIN_BLOCKS)
 mcs_persistent_kernel(const McsParams P, const void* __restrict__ vol,
                       const float* __restrict__ tf, const float* __restrict__ env,
                       const float2* __restrict__ maj, const uint32_t* __restrict__ seeds,
                       const McsLanes L) {
   const int res = P.i[SI_RES];
-  const int plane = res * res;
-  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= P.i[SI_STREAMS] * plane) return;
-  const int stream = lane / plane, pix = lane - stream * plane;
-  const int iy = pix / res, ix = pix - iy * res;
+  int ix, iy, stream;
+  mcsp_pixel(res, ix, iy, stream);
+  if (ix >= res || iy >= res) return;
+  const int lane = (stream * res + iy) * res + ix;
   // the camera segment: its start, its direction seg * (1 / max(len,
   // 1e-30)) and its length, 0 for a ray that misses the cube
   const PixelRay pr = pixel_ray(P, ix, iy);
@@ -348,12 +440,17 @@ mcs_persistent_kernel(const McsParams P, const void* __restrict__ vol,
   const float rdx = segx * inv_md, rdy = segy * inv_md, rdz = segz * inv_md;
   const int He = P.i[SI_ENV_H], We = P.i[SI_ENV_W];
   const float3 view = sample_env_rgb(env, He, We, pr.vx, pr.vy, pr.vz);
+  // a one-texel map whose channels are lerp_fixed: sample_env_rgb returns
+  // its texel for every finite direction, whose fractions are then finite
+  // (tests/test_torch_mcs_modes.py)
+  const float3 texel = make_float3(__ldg(env), __ldg(env + 1), __ldg(env + 2));
+  const bool one_texel = He == 1 && We == 1 && lerp_fixed(texel.x) && lerp_fixed(texel.y) &&
+                         lerp_fixed(texel.z);
   // the chain's uv bits: (ix + 0.5) / R and (iy + s R + 0.5) / R
   const uint32_t ubits = __float_as_uint(__fdiv_rn((float)ix + 0.5f, (float)res));
   const float row = (float)iy + (float)stream * (float)res;
   const uint32_t vbits = __float_as_uint(__fdiv_rn(row + 0.5f, (float)res));
   const Recip ext = recip(P.f[SF_EXTINCTION]);
-  const bool has_maj = maj != nullptr;
 
   bool shadow = L.phase[lane] != 0;
   float dist = L.dist[lane], trans = L.trans[lane];
@@ -362,6 +459,11 @@ mcs_persistent_kernel(const McsParams P, const void* __restrict__ vol,
   float dr = L.dr[lane], dg = L.dg[lane], db = L.db[lane], da = L.da[lane];
   float4 acc = L.acc[lane];
   int samples = L.samples[lane];
+  // the light of the shadow ray, which depends on its direction alone: taken
+  // where the lane scatters, and here for a lane that starts in the shadow
+  // phase (its stored direction may be any bits)
+  float3 light = make_float3(0.0f, 0.0f, 0.0f);
+  if (shadow) light = sample_env_rgb(env, He, We, sdx, sdy, sdz);
   const int steps = P.i[SI_STEPS];
   for (int k = 0; k < P.i[SI_N_FRAMES]; ++k) {
     uint32_t s = hash3(ubits, vbits, __ldg(seeds + k));
@@ -373,7 +475,7 @@ mcs_persistent_kernel(const McsParams P, const void* __restrict__ vol,
       const float seg_max = shadow ? smax : max_dist;
       float m = 1.0f, step;
       bool capped = false;
-      if (has_maj) {
+      if (MAJ) {
         const float2 cell = majorant_row(maj, P, bx + dx * dist, by + dy * dist, bz + dz * dist);
         m = nmax(cell.x, 1e-12f);
         step = __fdiv_rn(-logf(draw(s)), m * P.f[SF_EXTINCTION]);
@@ -386,12 +488,13 @@ mcs_persistent_kernel(const McsParams P, const void* __restrict__ vol,
       const bool escaped = dist2 > seg_max;
       const float px = bx + dx * dist2, py = by + dy * dist2, pz = bz + dz * dist2;
       const bool tentative = !escaped && !capped;
-      // the lookup only where its result is taken (no draw depends on it)
-      float4 rgba = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-      float alpha = 0.0f;
+      // the lookup only where its result is taken (no draw depends on it);
+      // the TF's RGB only where the lane scatters
+      float density = 0.0f, alpha = 0.0f;
       if (tentative) {
-        rgba = mcs_rgba(vol, tf, P, px, py, pz);
-        alpha = nmin(has_maj ? __fdiv_rn(rgba.w, m) : rgba.w, 1.0f);  // rgba.w / 1 exactly
+        density = mode_density<MODE>(vol, P, px, py, pz);
+        const float w = mode_rgba<MODE>(tf, P, density).w;
+        alpha = nmin(MAJ ? __fdiv_rn(w, m) : w, 1.0f);  // w / 1 exactly
       }
       bool scatter = false;
       if (!shadow) {
@@ -403,11 +506,10 @@ mcs_persistent_kernel(const McsParams P, const void* __restrict__ vol,
       const float u2 = draw(s);
       if (escaped) {
         // a deposit: the view's environment, or the shaded collision
-        float4 v = make_float4(view.x, view.y, view.z, 1.0f);
-        if (shadow) {
-          const float3 l = sample_env_rgb(env, He, We, sdx, sdy, sdz);
-          v = make_float4(dr * l.x * trans, dg * l.y * trans, db * l.z * trans, da * trans);
-        }
+        // (dr * l.x * trans rounds as (dr * l.x) * trans)
+        const float4 v = shadow ? make_float4(dr * light.x * trans, dg * light.y * trans,
+                                              db * light.z * trans, da * trans)
+                                : make_float4(view.x, view.y, view.z, 1.0f);
         samples += 1;
         const float n = (float)max(samples, 1);
         acc.x = acc.x + __fdiv_rn(v.x - acc.x, n);
@@ -421,7 +523,9 @@ mcs_persistent_kernel(const McsParams P, const void* __restrict__ vol,
         // a real collision: a shadow ray from it along a uniform direction
         const float radius = sqrtf(u1);
         const float angle = u2 * kTwoPi;
-        const float ox = radius * cosf(angle), oy = radius * sinf(angle);
+        float sa, ca;
+        sincosf(angle, &sa, &ca);
+        const float ox = radius * ca, oy = radius * sa;
         const float norm = ox * ox + oy * oy;
         const float r2 = 2.0f * sqrtf(nmax(1.0f - norm, 0.0f));
         sdx = r2 * ox;
@@ -431,10 +535,13 @@ mcs_persistent_kernel(const McsParams P, const void* __restrict__ vol,
         scx = px;
         scy = py;
         scz = pz;
-        dr = rgba.x;
-        dg = rgba.y;
-        db = rgba.z;
-        da = rgba.w;
+        const float4 c = mode_rgba<MODE>(tf, P, density);
+        dr = c.x;
+        dg = c.y;
+        db = c.z;
+        da = c.w;
+        // the shadow ray's light (a drawn direction is finite)
+        light = one_texel ? texel : sample_env_rgb(env, He, We, sdx, sdy, sdz);
         shadow = true;
         dist = 0.0f;
         trans = 1.0f;
@@ -460,6 +567,25 @@ mcs_persistent_kernel(const McsParams P, const void* __restrict__ vol,
   L.da[lane] = da;
   L.acc[lane] = acc;
   L.samples[lane] = samples;
+}
+
+template <bool MAJ>
+int launch_persistent(int mode, dim3 grid, cudaStream_t st, const McsParams& P, const void* vol,
+                      const float* tf, const float* env, const float2* maj,
+                      const uint32_t* seeds, const McsLanes& L) {
+  switch (mode) {
+#define VPT_MCSP_MODE(M)                                                                      \
+  case M:                                                                                     \
+    mcs_persistent_kernel<M, MAJ><<<grid, MCS_THREADS, 0, st>>>(P, vol, tf, env, maj, seeds, \
+                                                                 L);                          \
+    break;
+    VPT_MCSP_MODE(MM_U8) VPT_MCSP_MODE(MM_F32) VPT_MCSP_MODE(MM_U8_QC)
+    VPT_MCSP_MODE(MM_F32_QC) VPT_MCSP_MODE(MM_NEAREST) VPT_MCSP_MODE(MM_GENERIC)
+#undef VPT_MCSP_MODE
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
 }
 
 McsParams make_mcs_params(const float* fparams, const int* iparams) {
@@ -501,6 +627,7 @@ int vpt_mcs_frames(const float* fparams, const int* iparams, const void* vol, co
 
 // maj may be null: exact mode. seeds: n_frames (dispatches) uint32. The 16
 // state arrays: S * R * R lanes each (acc S * R * R float4), updated in place.
+// The instance: SI_MODE (McsMode), and the majorant's presence.
 int vpt_mcs_persistent(const float* fparams, const int* iparams, const void* vol,
                        const float* tf, const float* env, const float* maj, const uint32_t* seeds,
                        uint8_t* phase, float* dist, float* trans, float* sdx, float* sdy,
@@ -514,13 +641,16 @@ int vpt_mcs_persistent(const float* fparams, const int* iparams, const void* vol
       (P.i[SI_NEAREST] != 0 && P.i[SI_VOL_RAW] == 0) || streams < 1 ||
       (int64_t)streams * res * res > 2147483647LL || (int64_t)streams * res > (1 << 23))
     return (int)cudaErrorInvalidValue;
+  const int mode = P.i[SI_MODE];
+  if (mode < 0 || mode >= MM_COUNT) return (int)cudaErrorInvalidValue;
   const McsLanes L{phase, dist, trans, sdx, sdy, sdz, smax, scx, scy, scz, dr, dg, db, da,
                    reinterpret_cast<float4*>(acc), samples};
-  const int lanes = streams * res * res;
-  mcs_persistent_kernel<<<blocks_for(lanes, MCS_THREADS), MCS_THREADS, 0,
-                          static_cast<cudaStream_t>(stream)>>>(
-      P, vol, tf, env, reinterpret_cast<const float2*>(maj), seeds, L);
-  return (int)cudaGetLastError();
+  const int64_t tiles = (int64_t)blocks_for(res, MCSP_TILE_W) * blocks_for(res, MCSP_TILE_H);
+  const dim3 grid((unsigned)(tiles * streams));
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float2* m = reinterpret_cast<const float2*>(maj);
+  if (m != nullptr) return launch_persistent<true>(mode, grid, st, P, vol, tf, env, m, seeds, L);
+  return launch_persistent<false>(mode, grid, st, P, vol, tf, env, m, seeds, L);
 }
 
 }  // extern "C"

@@ -45,12 +45,12 @@
 // wave of threads and lasts as long as its longest rays (those that graze
 // the cube or cross its empty margin take every sample), each sample two
 // dependent gathers (the TF row waits on the density): the kernels are
-// bound by that latency chain. A thread holds 40-56 registers, a block
-// 128 threads. K19 walks each ray twice (the march replayed, then its
-// steps backwards) and adds 8 float atomics per step into the density
-// gradient (1 for nearest); neighbouring pixels' rays share voxels, so
-// those atomics meet on the same addresses (counted by chip_smoke.py's
-// phase 20).
+// bound by that latency chain. A thread holds 40-72 registers, a block
+// 128 threads (K19 without the TF 256). K19 walks each ray twice (the
+// march replayed, then its steps backwards) and adds 8 float atomics per
+// step into the density gradient (1 for nearest); neighbouring pixels'
+// rays share voxels, so those atomics meet on the same addresses (counted
+// by chip_smoke.py's phase 20).
 //
 // The marches stop early where nothing later can change the result, which
 // the masked scans of the JAX code cannot: EAM once acc_a >= 0.99 or t >= 1,
@@ -314,6 +314,14 @@ iso_shade_kernel(const March P, const void* __restrict__ vol, const float* __res
 // of doubles)
 #define EAM_BWD_MAX_TF_W 1536
 
+// K19's threads a block: 256 for the density alone, 128 learning the TF
+// (timed in turns, probes/eam_tf_sums.py: 256 took K19<0> 0.75-0.85x the
+// time of 128, and K19<1> 1.00-1.05x)
+template <bool LEARN_TF>
+constexpr int eam_bwd_threads() {
+  return LEARN_TF ? 128 : 256;
+}
+
 // The raw TF's texels that a classic lookup at (x, 0) reads, and its value
 // with sample_rgba's bits: base_frac(0, H) puts v = 0 on rows y0 = y1 = 0
 // (fy = 0.5) for every H, so sample_rgba's four texels are row 0's columns
@@ -383,6 +391,60 @@ __device__ __forceinline__ void scatter_volume_raw(float* __restrict__ g, const 
   atomicAdd(g + p11 + x1, g11 * fx);
 }
 
+// K19's TF terms of one thread's current run: the samples whose lookups
+// read the same texel pair (x0, x1) of row 0, summed in double in
+// registers (channels of x0, then of x1); x0 < 0 before the first sample.
+// Along a ray the density changes slowly: every sample in empty space reads
+// the pair (0, 0), and a piecewise-constant volume keeps one pair across
+// each region, so a run spans many samples.
+struct TfRun {
+  int x0, x1;
+  double s[8];
+};
+
+// The run's sums added into the block's row s_tf, one shared atomic per
+// channel and texel for each group of the warp's lanes that flush the same
+// pair together (__match_any_sync over the lanes that reach the flush): the
+// group's sums meet by a tree of shuffles, and its lowest lane adds them.
+// A double add on shared memory is a compare-and-swap loop, and a row's
+// few hot texels (texel 0 above all) take the whole block's terms, so the
+// aggregation keeps the loops from spinning on each other.
+__device__ __forceinline__ void flush_tf_run(const TfRun& run, double* s_tf) {
+  const unsigned active = __activemask();
+  const unsigned key = ((unsigned)run.x0 << 16) | (unsigned)run.x1;
+  unsigned peers = __match_any_sync(active, key);
+  const int lane = threadIdx.x & 31;
+  const bool leader = (peers & ((1u << lane) - 1u)) == 0u;
+  double s[8];
+#pragma unroll
+  for (int c = 0; c < 8; ++c) s[c] = run.s[c];
+  // a tree over the group's ranks: in round r the lanes whose rank is a
+  // multiple of 2^r add the next remaining peer above them
+  int rank = __popc(peers & ((1u << lane) - 1u));
+  peers &= 0xfffffffeu << lane;
+  while (__any_sync(active, peers != 0u)) {
+    const int next = __ffs(peers);
+#pragma unroll
+    for (int c = 0; c < 8; ++c) {
+      const double t = __shfl_sync(active, s[c], (next - 1) & 31);
+      if (next != 0) s[c] += t;
+    }
+    peers &= ~__ballot_sync(active, rank & 1);
+    rank >>= 1;
+  }
+  if (!leader) return;
+  if (run.x0 == run.x1) {  // the row's edge: both corners on one texel
+#pragma unroll
+    for (int c = 0; c < 4; ++c) atomicAdd(s_tf + run.x0 * 4 + c, s[c] + s[4 + c]);
+    return;
+  }
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    atomicAdd(s_tf + run.x0 * 4 + c, s[c]);
+    atomicAdd(s_tf + run.x1 * 4 + c, s[4 + c]);
+  }
+}
+
 // One pixel of K19. Forward: K15<EAM>'s march replayed with the same
 // rounding, taping (A, d) per active step. Then the renormalization's
 // adjoint and the compositing recurrence walked backwards. With A the
@@ -393,14 +455,16 @@ __device__ __forceinline__ void scatter_volume_raw(float* __restrict__ g, const 
 //   lambda_C . c_rgb (dL/dw): dL/dc_rgb = w lambda_C, dL/da = (1 - A) u,
 //   dL/dc.a = dL/da * ext * ray_step_len, lambda_A -= a u.
 // dL/dc reaches d through the TF row's slope, (k1 - k0) * W, and the
-// texels x0, x1 by the transposed lerp (LEARN_TF: into the block's shared
-// row s_tf).
+// texels x0, x1 by the transposed lerp (LEARN_TF: each texel's term in
+// float, summed in double in the thread's run, TfRun, which is flushed
+// into the block's shared row s_tf when the pair changes and at the ray's
+// end).
 template <bool LEARN_TF>
 __device__ __forceinline__ void eam_backward_pixel(const March& P, const float* __restrict__ vol,
                                                    const float* __restrict__ tf,
                                                    const float* __restrict__ g_img,
                                                    float* __restrict__ g_vol, double* s_tf,
-                                                   int pix) {
+                                                   TfRun& run, int pix) {
   const int res = P.i[RI_RES];
   const int iy = pix / res, ix = pix - iy * res;
   const CubeRay r = cube_ray(P.f + RF_INV_MVP, P.f[RF_INV_RES], ix, iy);
@@ -444,11 +508,18 @@ __device__ __forceinline__ void eam_backward_pixel(const March& P, const float* 
     const float4 gc = make_float4(w * lr, w * lg, w * lb, da * ext * rsl);
     if (LEARN_TF) {
       const float gx[4] = {gc.x, gc.y, gc.z, gc.w};
+      if (q.x0 != run.x0 || q.x1 != run.x1) {
+        if (run.x0 >= 0) flush_tf_run(run, s_tf);
+        run.x0 = q.x0;
+        run.x1 = q.x1;
+#pragma unroll
+        for (int c8 = 0; c8 < 8; ++c8) run.s[c8] = 0.0;
+      }
 #pragma unroll
       for (int ch = 0; ch < 4; ++ch) {
         const float hi = gx[ch] * q.fx;
-        atomicAdd(s_tf + q.x0 * 4 + ch, (double)(gx[ch] - hi));
-        atomicAdd(s_tf + q.x1 * 4 + ch, (double)hi);
+        run.s[ch] += (double)(gx[ch] - hi);
+        run.s[4 + ch] += (double)hi;
       }
     }
     const float dd = (gc.x * (q.k1.x - q.k0.x) + gc.y * (q.k1.y - q.k0.y) +
@@ -467,9 +538,12 @@ __device__ __forceinline__ void eam_backward_pixel(const March& P, const float* 
 // there would serialise on W x 4 addresses. The row is summed in double:
 // a texel takes ~1e6 terms at 512^2 (every empty-space sample lands on
 // texel 0's alpha), which under a signed cotangent cancel ~1000-fold, and
-// float32 sums then lose ~1e-4 of the result.
+// float32 sums then lose ~1e-4 of the result. A thread sums its run of
+// samples on one texel pair in registers (TfRun) and a warp's lanes that
+// flush one pair together add it once (flush_tf_run), so the block's
+// compare-and-swap loops on its few hot texels stay rare.
 template <bool LEARN_TF>
-__global__ void __launch_bounds__(MARCH_THREADS)
+__global__ void __launch_bounds__(eam_bwd_threads<LEARN_TF>())
 eam_backward_kernel(const March P, const float* __restrict__ vol, const float* __restrict__ tf,
                     const float* __restrict__ g_img, float* __restrict__ g_vol,
                     double* __restrict__ g_row) {
@@ -479,10 +553,14 @@ eam_backward_kernel(const March P, const float* __restrict__ vol, const float* _
     for (int k = threadIdx.x; k < row; k += blockDim.x) s_tf[k] = 0.0;
     __syncthreads();
   }
+  TfRun run;
+  run.x0 = -1;
+  run.x1 = -1;
   const int pix = blockIdx.x * blockDim.x + threadIdx.x;
   if (pix < P.i[RI_RES] * P.i[RI_RES])
-    eam_backward_pixel<LEARN_TF>(P, vol, tf, g_img, g_vol, s_tf, pix);
+    eam_backward_pixel<LEARN_TF>(P, vol, tf, g_img, g_vol, s_tf, run, pix);
   if (LEARN_TF) {
+    if (run.x0 >= 0) flush_tf_run(run, s_tf);  // the ray's last run
     __syncthreads();
     for (int k = threadIdx.x; k < row; k += blockDim.x)
       if (s_tf[k] != 0.0) atomicAdd(g_row + k, s_tf[k]);
@@ -578,13 +656,16 @@ int vpt_eam_backward(const float* fparams, const int* iparams, const float* vol,
     return (int)cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* v = static_cast<const float*>(vol);
+  const int pixels = P.i[RI_RES] * P.i[RI_RES];
   if (g_row != nullptr) {
+    constexpr int threads = eam_bwd_threads<true>();
     const size_t smem = (size_t)(P.i[RI_TF_W] - 1) * 4 * sizeof(double);
-    eam_backward_kernel<true><<<march_blocks(P), MARCH_THREADS, smem, st>>>(P, v, tf, g_img,
-                                                                             g_vol, g_row);
+    eam_backward_kernel<true><<<blocks_for(pixels, threads), threads, smem, st>>>(
+        P, v, tf, g_img, g_vol, g_row);
   } else {
-    eam_backward_kernel<false><<<march_blocks(P), MARCH_THREADS, 0, st>>>(P, v, tf, g_img, g_vol,
-                                                                          g_row);
+    constexpr int threads = eam_bwd_threads<false>();
+    eam_backward_kernel<false><<<blocks_for(pixels, threads), threads, 0, st>>>(
+        P, v, tf, g_img, g_vol, g_row);
   }
   return (int)cudaGetLastError();
 }

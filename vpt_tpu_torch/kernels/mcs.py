@@ -9,7 +9,8 @@ Two kernels of ``vpt_tpu_torch/csrc/mcs.cu``:
 - ``persistent`` (K23 ``mcs_persistent``): K dispatches of ``steps``
   iterations of the persistent-lane state machine, the lane state updated
   in place (replaces ``_mcs_persistent_dispatch_impl`` looped by
-  ``mcs_persistent_many``); plain version ``persistent_plain``.
+  ``mcs_persistent_many``); plain version ``persistent_plain``. K23 is an
+  instance per table pair (``persistent_mode``) and majorant.
 
 Per pixel and frame: a Woodcock free flight along the camera ray to a real
 collision or an escape (``_woodcock_distance``), a ratio-tracked
@@ -66,7 +67,9 @@ from vpt_tpu_torch.ops import geometry, interp, sampling
 
 # must match SF_COUNT / SI_COUNT in csrc/mcs.cu
 _F_COUNT = 18
-_I_COUNT = 20
+_I_COUNT = 21
+# K23's instances, in the order of csrc/mcs.cu McsMode
+PERSISTENT_MODES = ("u8", "f32", "u8 quasicubic", "f32 quasicubic", "nearest", "generic")
 
 # MCSPersistentState's fields, in the JAX state's leaf order
 PERSISTENT_FIELDS = ("phase", "dist", "trans", "sdx", "sdy", "sdz", "smax", "scx", "scy", "scz",
@@ -368,6 +371,22 @@ def persistent_plain(state, ctx, seeds, steps: int, volume_filter: str = "linear
 # ---------------------------------------------------------------------------
 # CUDA wrapper
 # ---------------------------------------------------------------------------
+def persistent_mode(density, tf_table, volume_filter: str) -> str:
+    """K23's instance for these tables (csrc/mcs.cu McsMode): "u8" / "f32"
+    (a packed corner table, linear), "u8 quasicubic" / "f32 quasicubic",
+    each beside the packed (Hp, Wp, 16) TF, or "nearest" (the raw (D, H, W)
+    grid beside the raw (H, W, 4) TF), the pairs ``MCSRenderer`` builds; any
+    other pair K23 takes runs the "generic" instance, which reads the table
+    kinds at run time."""
+    tf_raw = tf_table.shape[-1] == 4
+    if not isinstance(density, interp.PackedVolume):
+        return "nearest" if volume_filter == "nearest" and tf_raw else "generic"
+    if tf_raw or volume_filter not in ("linear", "quasicubic"):
+        return "generic"
+    kind = "u8" if density.table.dtype == torch.uint8 else "f32"
+    return kind + (" quasicubic" if volume_filter == "quasicubic" else "")
+
+
 def _check_tables(ctx, volume_filter):
     if isinstance(ctx.density, interp.PackedVolume) and ctx.density.kind != "full":
         raise ValueError(f"mcs reads a full packed volume table, not {ctx.density.kind!r}")
@@ -400,7 +419,7 @@ def _params(ctx, resolution: int, n_frames: int, max_collisions: int, volume_fil
         int(not vol_raw and vol.table.dtype == torch.uint8), *dims,
         int(volume_filter == "quasicubic"), int(volume_filter == "nearest"), int(tf_raw),
         tf.shape[0] + tf_raw, tf.shape[1] + tf_raw, env.shape[0], env.shape[1], *maj,
-        steps, streams,
+        steps, streams, PERSISTENT_MODES.index(persistent_mode(vol, tf, volume_filter)),
     ], np.int32)
     assert i.shape == (_I_COUNT,)
     return f, i
@@ -472,8 +491,9 @@ def _check_persistent_state(state, streams: int):
 def persistent(state, ctx, seeds, steps: int, volume_filter: str = "linear", streams: int = 1):
     """K dispatches of ``steps`` persistent-lane iterations, one per seed,
     updating ``state`` (an ``MCSPersistentState``) in place. On a CUDA device
-    one launch of K23 ``mcs_persistent``, which reads and writes each lane's
-    fields once; the seeds are uploaded on the launch's stream."""
+    one launch of K23 ``mcs_persistent`` (its instance for the tables'
+    ``persistent_mode``), which reads and writes each lane's fields once; the
+    seeds are uploaded on the launch's stream."""
     seeds = np.asarray(seeds, np.uint32).reshape(-1)
     tensors = [getattr(state, k) for k in PERSISTENT_FIELDS] + [
         RK._volume_tensor(ctx.density), ctx.tf_table, ctx.environment]

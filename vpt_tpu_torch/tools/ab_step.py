@@ -23,9 +23,20 @@ device time under torch.profiler, split by kernel), at stride 1, stride 4
 and importance 4, with K5 ROUTED (and its new pair buffer) by CUDA events
 and K29 (on one list) by device time (a CUDA graph of 20 calls) beside
 them; the ptxas rows of
-K25, K5 and K29. ``--out FILE`` appends every printed line to FILE too.
+K25, K5 and K29.
 
-    python -m vpt_tpu_torch.tools.ab_step --other DIR [--what step|lao_slab]
+With ``--what eam_mcsp`` it times K19 ``eam_backward`` without and with the
+TF (``kernels.raymarch.eam_backward``) on phase 20's scene (the CLI's invert
+scene at 512^2, 32 slices, the signed cotangent) over the 64^3 and 128^3
+grids, and K23 ``mcs_persistent`` on phase 23's launch (512^2 x 4 streams, 8
+steps, 16 dispatches from a warm state) in the modes of
+``chip_smoke.mcsp_modes`` (u8, f32, quasicubic, nearest, the environment
+map, the majorant, one stream), all by device time (a CUDA graph of 20
+calls; K23's less the state copies, ``chip_smoke.mcsp_device_ms``), with
+the ptxas rows of K19 and K23. ``--out FILE`` appends every printed line to
+FILE too.
+
+    python -m vpt_tpu_torch.tools.ab_step --other DIR [--what step|lao_slab|eam_mcsp]
         [--reps 50] [--rounds 2]
 
 ``DIR`` is another checkout of the repo (for example the parent commit
@@ -37,8 +48,9 @@ started with ``--child`` inside the checkout: it imports that checkout's
 ``vpt_tpu_torch`` and ``chip_smoke`` (for the scene), so it uses only what
 both sides of a change share. Per run it prints one JSON line (the
 checkout, its times by CUDA events, the ptxas rows), then one line of the
-means and the ratios this / other (with ``lao_slab`` also the medians,
-their ratios and each side's spread). Needs a CUDA device; exits 1 without.
+means and the ratios this / other (with ``lao_slab`` and ``eam_mcsp`` also
+the medians, their ratios and each side's spread). Needs a CUDA device;
+exits 1 without.
 """
 
 from __future__ import annotations
@@ -207,6 +219,49 @@ def child_lao_slab(reps: int) -> dict:
     return out
 
 
+def child_eam_mcsp() -> dict:
+    """One timing run of K19 (both instances, two grids) and of K23 in
+    phase 23's modes on the checkout on ``sys.path``, through the API both
+    sides of a change share."""
+    import torch
+
+    import chip_smoke as CS
+    from vpt_tpu_torch.kernels import _build
+    from vpt_tpu_torch.kernels import mcs as KS
+    from vpt_tpu_torch.kernels import raymarch as RK
+    from vpt_tpu_torch.models.raymarch import _seed_to_offset
+
+    dev, F = torch.device("cuda:0"), CS.EAM_FIT
+    truth, tft, cams = CS.eam_fit_scene(dev)
+    inv, offset = cams[1].inverse_mvp(), np.float32(_seed_to_offset(1))
+    gen = torch.Generator(device=dev).manual_seed(20)
+    g = torch.rand((F["res"], F["res"], 3), generator=gen, device=dev) * 2.0 - 1.0
+    out = {}
+    for label, dens in ((f"{F['volume']}^3", truth), ("128^3", CS.eam_fit_scene(dev, 128)[0])):
+        for tf in (False, True):
+            args = (g, inv, dens, tft, F["extinction"], offset, F["slices"], "linear", tf)
+            out[f"k19<{int(tf)}> {label}_ms"] = CS.device_ms(lambda: RK.eam_backward(*args))
+    kw_p = dict(persistent=True, steps=CS.MCSP_STEPS, streams=CS.MCSP_STREAMS)
+    for label, vol, env, kw in CS.mcsp_modes():
+        r = CS.mcs_make_session(dev, vol, env, {**kw_p, **kw}).renderer
+        warm = r.reset(None)
+        KS.persistent(warm, r.ctx(CS.mcs_camera(), 1), CS.mcsp_seeds(1, CS.MCSP_DISPATCHES),
+                      r.steps, r.volume.filter, r.streams)
+        seeds = CS.mcsp_seeds(1 + CS.MCSP_DISPATCHES, CS.MCSP_DISPATCHES)
+        out[f"k23 {label}_ms"] = CS.mcsp_device_ms(r, warm, seeds)
+        del r, warm
+        torch.cuda.empty_cache()
+    out["build_seconds"] = _build.build_info["seconds"]
+    out["ptxas"] = [dict(kernel=k, template=t, registers=r, spill_store_bytes=sp,
+                         spill_load_bytes=lo, stack_frame_bytes=f)
+                    for k, t, r, sp, lo, f in _build.ptxas_table(_build.build_info["log"])
+                    if k in ("eam_backward_kernel", "mcs_persistent_kernel")]
+    return out
+
+
+CHILDREN = {"step": child, "lao_slab": child_lao_slab, "eam_mcsp": lambda reps: child_eam_mcsp()}
+
+
 def run_in(root: Path, reps: int, what: str) -> dict:
     """One timing process inside the checkout ``root``."""
     env = dict(os.environ, PYTHONPATH=str(root))
@@ -225,7 +280,7 @@ def main(argv=None):
     p.add_argument("--other", help="another checkout of the repo")
     p.add_argument("--reps", type=int, default=50)
     p.add_argument("--rounds", type=int, default=2)
-    p.add_argument("--what", choices=("step", "lao_slab"), default="step")
+    p.add_argument("--what", choices=tuple(CHILDREN), default="step")
     p.add_argument("--out", help="a file to append every printed line to")
     p.add_argument("--child", action="store_true", help=argparse.SUPPRESS)
     args = p.parse_args(argv)
@@ -233,7 +288,7 @@ def main(argv=None):
         # started as a file: import the checkout's package, not this directory
         here = Path(__file__).resolve().parent
         sys.path[:] = [q for q in sys.path if Path(q or ".").resolve() != here]
-        print(json.dumps(child(args.reps) if args.what == "step" else child_lao_slab(args.reps)))
+        print(json.dumps(CHILDREN[args.what](args.reps)))
         return
     if args.other is None:
         p.error("--other is required")
@@ -258,7 +313,7 @@ def main(argv=None):
         rec = run_in(other if side == "other" else ROOT, args.reps, args.what)
         runs[side].append(rec)
         say(json.dumps(dict(side=side, **rec)))
-    if args.what == "lao_slab":
+    if args.what != "step":
         keys = [k for k in runs["this"][0] if k.endswith("_ms") and k in runs["other"][0]
                 and all(r.get(k) is not None for recs in runs.values() for r in recs)]
         mean = {side: {k: sum(r[k] for r in recs) / len(recs) for k in keys}
