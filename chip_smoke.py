@@ -3826,7 +3826,8 @@ def phase_mcm(dev):
                 if not np.array_equal(img.view(np.int32), other.view(np.int32)):
                     raise AssertionError(f"mcm: {what} differs from the first run")
             prof = mcm_profile()
-            seen = prof["kernels"].get("mcm_step_kernel", {}).get("launches", 0) * MCM_FRAMES
+            seen = sum(k["launches"] for n, k in prof["kernels"].items()
+                       if n.startswith("mcm_step_kernel")) * MCM_FRAMES
             if seen != 1:
                 raise AssertionError(f"mcm: the profiler saw {seen * 4:g} of 4 K20 launches")
             frame_ms = dt * 1e3 / MCM_FRAMES
@@ -4050,19 +4051,35 @@ def mcs_replay(r, ctx, seeds, dirs):
 
 def mcs_trip_stats(d_trips, t_trips, hit):
     """The trips per lane and frame (both loops) over the pixels whose ray
-    hits the cube (mean, p99, max), and per launch: a lane's mean total,
-    the mean over warps (32 neighbouring pixels) of what a warp pays, the
-    sum over frames of each loop's slowest lane in the warp, and what the
-    reference's lockstep loops pay, the sum over frames of each loop's
-    slowest lane in the frame."""
+    hits the cube (mean, p99, max), and per launch: a lane's mean total;
+    the mean over warps of what a warp pays, with per-frame loops the sum
+    over frames of each loop's slowest lane in the warp, with one stream of
+    trips a lane its slowest lane's total trips over the launch (the
+    stream's waits for turns come on top), each for warps of 32
+    neighbouring pixels of a row and of 8 x 4 pixel tiles
+    (``kernels.mcs.warp_tiles``, K22's layout: per-frame loops over tiles);
+    and what the reference's lockstep loops pay, the sum over frames of
+    each loop's slowest lane in the frame."""
+    from vpt_tpu_torch.kernels import mcs as KS
+
     tr = (d_trips + t_trips)[:, hit].to(torch.float32).reshape(-1)
     warp = lambda t: t.reshape(t.shape[0], -1, 32).amax(-1).to(torch.float64)  # noqa: E731
+    tiles = KS.warp_tiles(d_trips.shape[-1], d_trips.device)
+
+    def tile(t):  # (..., R, R) -> (..., warps): each 8 x 4 tile's slowest lane
+        flat = t.reshape(*t.shape[:-2], -1).to(torch.float64)
+        return torch.where(tiles >= 0, flat[..., tiles.clamp_min(0)], 0.0).amax(-1)
+
+    total = (d_trips + t_trips).sum(0).to(torch.float64)
     return dict(lane_frame_mean=float(tr.mean()),
                 lane_frame_p99=float(torch.quantile(tr, 0.99)), lane_frame_max=int(tr.max()),
                 distance_mean=float(d_trips[:, hit].to(torch.float32).mean()),
                 transmittance_mean=float(t_trips[:, hit].to(torch.float32).mean()),
                 launch_lane_mean=float((d_trips + t_trips).sum(0)[hit].to(torch.float32).mean()),
                 launch_warp_paid=float((warp(d_trips) + warp(t_trips)).sum(0).mean()),
+                launch_tile_loops_paid=float((tile(d_trips) + tile(t_trips)).sum(0).mean()),
+                launch_stream_paid=float(total.reshape(-1, 32).amax(-1).mean()),
+                launch_tile_paid=float(tile(total).mean()),
                 launch_frame_paid=int((d_trips.reshape(d_trips.shape[0], -1).amax(-1)
                                        + t_trips.reshape(t_trips.shape[0], -1).amax(-1)).sum()))
 
@@ -4242,8 +4259,11 @@ def phase_mcs(dev):
                     f"{stats['distance_mean']:.3f}, transmittance "
                     f"{stats['transmittance_mean']:.3f}), p99 {stats['lane_frame_p99']:.1f}, max "
                     f"{stats['lane_frame_max']}; per launch a lane {stats['launch_lane_mean']:.2f},"
-                    f" a warp pays {stats['launch_warp_paid']:.2f}, the reference's lockstep "
-                    f"frames {stats['launch_frame_paid']}")
+                    f" a warp pays with per-frame loops {stats['launch_warp_paid']:.2f} over a row,"
+                    f" {stats['launch_tile_loops_paid']:.2f} over an 8 x 4 tile (K22), with one "
+                    f"stream of trips {stats['launch_stream_paid']:.2f} over a row, "
+                    f"{stats['launch_tile_paid']:.2f} over a tile; the reference's lockstep frames "
+                    f"{stats['launch_frame_paid']}")
                 del acc, racc, d_trips, t_trips
             runs.append((label, s, ctx, dirs, replay))
             torch.cuda.empty_cache()
@@ -4305,7 +4325,8 @@ def phase_mcs(dev):
         prof = timed("the profile", profiler.finish)
     finally:
         profiler.close()
-    seen = prof["kernels"].get("mcs_frames_kernel", {}).get("launches", 0) * MCS_FRAMES
+    seen = sum(k["launches"] for n, k in prof["kernels"].items()
+               if n.startswith("mcs_frames_kernel")) * MCS_FRAMES
     if seen != 1:
         raise AssertionError(f"mcs: the profiler saw {seen * 4:g} of 4 K22 launches")
     frame_ms = sessions["u8"]["seconds"] * 1e3 / MCS_FRAMES

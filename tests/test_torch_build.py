@@ -86,10 +86,14 @@ def test_ptxas_table_reads_the_ray_march_kernels():
 
 
 MCM_LOG = """== mcm.cu
-ptxas info    : Compiling entry function '_ZN46_GLOBAL__N__6a7b8c9d_6_mcm_cu_1f2e3d4c15mcm_step_kernelENS_9McmParamsENS_8McmStateEPKvPKfS6_PKjS8_S8_' for 'sm_90a'
-ptxas info    : Function properties for _ZN46_GLOBAL__N__6a7b8c9d_6_mcm_cu_1f2e3d4c15mcm_step_kernelENS_9McmParamsENS_8McmStateEPKvPKfS6_PKjS8_S8_
-    16 bytes stack frame, 4 bytes spill stores, 4 bytes spill loads
-ptxas info    : Used 64 registers, used 0 barriers, 16 bytes cumulative stack size
+ptxas info    : Compiling entry function '_ZN46_GLOBAL__N__6a7b8c9d_6_mcm_cu_1f2e3d4c15mcm_step_kernelILi0EEEvNS_9McmParamsENS_8McmStateEPKvPKfS7_PKjS9_S9_' for 'sm_90a'
+ptxas info    : Function properties for _ZN46_GLOBAL__N__6a7b8c9d_6_mcm_cu_1f2e3d4c15mcm_step_kernelILi0EEEvNS_9McmParamsENS_8McmStateEPKvPKfS7_PKjS9_S9_
+    32 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 48 registers, used 0 barriers, 32 bytes cumulative stack size
+ptxas info    : Compiling entry function '_ZN46_GLOBAL__N__6a7b8c9d_6_mcm_cu_1f2e3d4c15mcm_step_kernelILi7EEEvNS_9McmParamsENS_8McmStateEPKvPKfS7_PKjS9_S9_' for 'sm_90a'
+ptxas info    : Function properties for _ZN46_GLOBAL__N__6a7b8c9d_6_mcm_cu_1f2e3d4c15mcm_step_kernelILi7EEEvNS_9McmParamsENS_8McmStateEPKvPKfS7_PKjS9_S9_
+    56 bytes stack frame, 48 bytes spill stores, 28 bytes spill loads
+ptxas info    : Used 48 registers, used 0 barriers, 56 bytes cumulative stack size
 ptxas info    : Compiling entry function '_ZN46_GLOBAL__N__6a7b8c9d_6_mcm_cu_1f2e3d4c16mcm_reset_kernelENS_9McmParamsEjNS_8McmStateEPKjS4_' for 'sm_90a'
 ptxas info    : Function properties for _ZN46_GLOBAL__N__6a7b8c9d_6_mcm_cu_1f2e3d4c16mcm_reset_kernelENS_9McmParamsEjNS_8McmStateEPKjS4_
     0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
@@ -98,24 +102,32 @@ ptxas info    : Used 40 registers, used 0 barriers
 
 
 def test_ptxas_table_reads_the_rgb_mcm_kernels():
-    """K20 and K21 (csrc/mcm.cu) are untemplated: their rows carry no
-    template arguments, and K1's name inside K20's does not match."""
-    assert _build.ptxas_table(MCM_LOG) == [("mcm_step_kernel", "", 64, 4, 4, 16),
+    """K20 (csrc/mcm.cu) is an instance per table pair, mcm_step_kernel<MODE>
+    (MODE the McmMode index): its rows carry it; K21 is untemplated, and
+    K1's name inside K20's does not match."""
+    assert _build.ptxas_table(MCM_LOG) == [("mcm_step_kernel", "0", 48, 0, 0, 32),
+                                           ("mcm_step_kernel", "7", 48, 48, 28, 56),
                                            ("mcm_reset_kernel", "", 40, 0, 0, 0)]
 
 
 MCS_LOG = """== mcs.cu
-ptxas info    : Compiling entry function '_ZN46_GLOBAL__N__7b8c9d0e_6_mcs_cu_2a3b4c5d17mcs_frames_kernelENS_9McsParamsEPKvPKfS4_PK6float2PK6float4PS8_PKi' for 'sm_90a'
-ptxas info    : Function properties for _ZN46_GLOBAL__N__7b8c9d0e_6_mcs_cu_2a3b4c5d17mcs_frames_kernelENS_9McsParamsEPKvPKfS4_PK6float2PK6float4PS8_PKi
+ptxas info    : Compiling entry function '_ZN46_GLOBAL__N__7b8c9d0e_6_mcs_cu_2a3b4c5d17mcs_frames_kernelILi0ELb0EEEvNS_9McsParamsEPKvPKfS5_PK6float2PK6float4PS9_PKi' for 'sm_90a'
+ptxas info    : Function properties for _ZN46_GLOBAL__N__7b8c9d0e_6_mcs_cu_2a3b4c5d17mcs_frames_kernelILi0ELb0EEEvNS_9McsParamsEPKvPKfS5_PK6float2PK6float4PS9_PKi
     0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
-ptxas info    : Used 72 registers, used 0 barriers
+ptxas info    : Used 64 registers, used 1 barriers
+ptxas info    : Compiling entry function '_ZN46_GLOBAL__N__7b8c9d0e_6_mcs_cu_2a3b4c5d17mcs_frames_kernelILi5ELb1EEEvNS_9McsParamsEPKvPKfS5_PK6float2PK6float4PS9_PKi' for 'sm_90a'
+ptxas info    : Function properties for _ZN46_GLOBAL__N__7b8c9d0e_6_mcs_cu_2a3b4c5d17mcs_frames_kernelILi5ELb1EEEvNS_9McsParamsEPKvPKfS5_PK6float2PK6float4PS9_PKi
+    24 bytes stack frame, 24 bytes spill stores, 36 bytes spill loads
+ptxas info    : Used 64 registers, used 1 barriers, 24 bytes cumulative stack size
 """
 
 
 def test_ptxas_table_reads_the_mcs_kernel():
-    """K22 (csrc/mcs.cu) is untemplated: its row carries no template
-    arguments."""
-    assert _build.ptxas_table(MCS_LOG) == [("mcs_frames_kernel", "", 72, 0, 0, 0)]
+    """K22 (csrc/mcs.cu) is an instance per table mode and majorant,
+    mcs_frames_kernel<MODE, MAJ>: its rows carry both (MODE the McsMode
+    index, MAJ 0 or 1)."""
+    assert _build.ptxas_table(MCS_LOG) == [("mcs_frames_kernel", "0,0", 64, 0, 0, 0),
+                                           ("mcs_frames_kernel", "5,1", 64, 24, 36, 24)]
 
 
 MCSP_LOG = """== mcs.cu

@@ -140,3 +140,48 @@ def test_one_texel_light_needs_a_finite_channel_other_than_minus_zero(channel):
     got = sample_environment(env, d[:, 0], d[:, 1], d[:, 2])[:, 0]
     assert not torch.equal(got.view(torch.int32),
                            torch.full_like(got, channel).view(torch.int32))
+
+
+@pytest.mark.parametrize("kind,filt,want", [
+    ("u8", "linear", "u8"), ("f32", "linear", "f32"), ("u8", "quasicubic", "u8 quasicubic"),
+    ("f32", "quasicubic", "f32 quasicubic"), ("u8", "nearest", "nearest")])
+@pytest.mark.parametrize("majorant", [None, 2])
+@pytest.mark.parametrize("env", [None, "map"])
+def test_every_frames_renderer_pair_has_its_instance(kind, filt, want, majorant, env):
+    """K22 (mcs_frames_kernel<MODE, MAJ>) is chosen by the same SI_MODE and
+    the majorant's presence: every pair the frame renderer builds runs its
+    own instance, with the majorant where the renderer has one; the
+    dispatch instantiates every mode with and without it."""
+    environment = (None if env is None
+                   else np.random.default_rng(1).random((4, 8, 3)).astype(np.float32))
+    r = MCSRenderer(_volume(kind, filt), None, environment, resolution=RES,
+                    majorant_blocks=majorant, device="cpu")
+    ctx = r.ctx(Camera(), 3)
+    assert KS.persistent_mode(ctx.density, ctx.tf_table, r.volume.filter) == want
+    f, i = KS._params(ctx, RES, 2, r.max_collisions, r.volume.filter)
+    assert int(i[-1]) == KS.PERSISTENT_MODES.index(want)
+    assert (ctx.majorant is not None) == (majorant is not None)
+    text = (_build.CSRC_DIR / "mcs.cu").read_text()
+    for name in re.findall(r"^\s*(MM_\w+)", re.search(r"enum McsMode \{(.*?)\};", text,
+                                                       re.S).group(1), re.M)[:-1]:
+        assert f"VPT_MCS_MODE({name})" in text
+    assert "launch_frames<true>(" in text and "launch_frames<false>(" in text
+
+
+@pytest.mark.parametrize("res", [512, 100, 24, 7])
+def test_warp_tiles_cover_each_pixel_once(res):
+    """kernels/mcs.warp_tiles, the mirror of mcsp_pixel's 8 x 4 tiles that
+    chip_smoke's trip statistics use: every pixel in exactly one warp's
+    lanes, each warp's lanes an 8 x 4 block of the image, lane l at (l % 8,
+    l // 8) in it, the tile sizes those of csrc/mcs.cu."""
+    text = (_build.CSRC_DIR / "mcs.cu").read_text()
+    assert "#define MCSP_TILE_W 16" in text and "#define MCSP_TILE_H 8" in text
+    w = KS.warp_tiles(res)
+    inside = w[w >= 0]
+    assert inside.numel() == res * res
+    assert torch.equal(torch.sort(inside).values, torch.arange(res * res))
+    ix, iy = w % res, w // res
+    lane = torch.arange(32)
+    ok = w >= 0
+    x0, y0 = ix[:, :1], iy[:, :1]
+    assert bool(((ix == x0 + lane % 8) & (iy == y0 + lane // 8))[ok].all())

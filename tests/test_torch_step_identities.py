@@ -151,6 +151,71 @@ def test_slab_quotient_equals_ieee_over_direction_components():
     _assert_ieee((F32(1) - f)[:, None], d[None, :], "slab t1")
 
 
+def _frame_directions():
+    """K22's per-frame scattering directions: the host's draws for 400
+    seeds, the axes and signed zeros, tiny and huge components."""
+    from vpt_tpu_torch.models.mcs import _host_scatter_direction
+
+    d = np.stack([_host_scatter_direction(s) for s in range(400)])
+    special = F32([0.0, -0.0, 1.0, -1.0, 1e-30, -1e-30, 2.0**-70, -(2.0**-70), 3e38])
+    grid = np.stack(np.meshgrid(special, special, special, indexing="ij"), -1).reshape(-1, 3)
+    return np.concatenate([d, grid]).astype(F32)
+
+
+def _collision_points(n=600):
+    """Collision coordinates in the unit cube, its faces, signed zero and a
+    rounding's step outside it."""
+    rng = np.random.default_rng(9)
+    edges = F32([0.0, -0.0, 1.0, 0.5, 1e-7, -1e-8, np.nextafter(F32(1), F32(2)), 1e-40])
+    return np.concatenate([rng.uniform(0, 1, n).astype(F32), edges])
+
+
+def test_cube_exit_quotients_by_a_frames_reciprocal_equal_ieee():
+    """cube_exit's (0 - c) / d and (1 - c) / d by quot with each frame
+    direction component's reciprocal, computed once per frame (K22's
+    McsFrame): IEEE's quotient at every collision coordinate, exactly zero
+    and tiny components taking the division."""
+    d = _frame_directions().reshape(-1)
+    c = _collision_points()
+    _assert_ieee((F32(0) - c)[:, None], d[None, :], "exit t0")
+    _assert_ieee((F32(1) - c)[:, None], d[None, :], "exit t1")
+
+
+def _ieee_exit(c, d):
+    """csrc/mcs.cu cube_exit on arrays: (n, 3) points, (3,) direction."""
+    def nmax(a, b):
+        return np.where(np.isnan(a) | np.isnan(b), a + b, np.fmax(a, b))
+
+    def nmin(a, b):
+        return np.where(np.isnan(a) | np.isnan(b), a + b, np.fmin(a, b))
+
+    with np.errstate(all="ignore"):
+        t0 = (F32(0) - c) / d
+        t1 = (F32(1) - c) / d
+    m = nmax(t0, t1)
+    return nmax(nmin(nmin(m[:, 0], m[:, 1]), m[:, 2]), F32(0))
+
+
+def test_cube_exit_by_the_directions_faces_equals_both_quotients():
+    """K22's cube_exit_frame: where every direction component is finite and
+    nonzero and the point finite, the larger quotient on each axis is the
+    face's (1 - c where the component is positive, 0 - c where negative),
+    bit for bit, since rounding is monotone; elsewhere both quotients."""
+    rng = np.random.default_rng(4)
+    c = rng.uniform(0, 1, (2000, 3)).astype(F32)
+    c = np.concatenate([c, np.stack(np.meshgrid(*[F32([0.0, -0.0, 1.0, 1e-40])] * 3,
+                                                indexing="ij"), -1).reshape(-1, 3)])
+    for d in _frame_directions():
+        if not (np.isfinite(d).all() and (d != 0).all()):
+            continue
+        face = np.where(d > 0, F32(1), F32(0))
+        with np.errstate(all="ignore"):
+            t = (face - c) / d
+        got = np.fmax(np.fmin(np.fmin(t[:, 0], t[:, 1]), t[:, 2]), F32(0))
+        want = _ieee_exit(c, d)
+        assert np.array_equal(got.view(np.int32), want.view(np.int32)), d
+
+
 def test_homogeneous_quotient_equals_ieee_for_camera_rays():
     """apply_homogeneous's x/w, y/w, z/w on the near and far points of
     random screen positions, for several camera poses (the row sums in

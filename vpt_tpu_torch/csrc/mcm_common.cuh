@@ -607,6 +607,14 @@ __device__ __forceinline__ float3 sample_env_rgb(const float* __restrict__ env, 
   return make_float3(o[0], o[1], o[2]);
 }
 
+// a texel channel that sample_env_rgb's lerps return unchanged when they mix
+// it with itself: a + (a - a) * f is a for a finite f unless a is -0 or not
+// finite (so a one-texel map whose channels all pass gives its texel at
+// every finite direction: K20's escape, K23's shadow light)
+__device__ __forceinline__ bool lerp_fixed(float a) {
+  return isfinite(a) && __float_as_uint(a) != 0x80000000u;
+}
+
 __device__ __forceinline__ void apply_homogeneous(const float* m, float x,
                                                   float y, float z, float& ox,
                                                   float& oy, float& oz) {

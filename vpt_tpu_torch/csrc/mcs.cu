@@ -7,19 +7,23 @@
 //                              (:473-615) looped by mcs_persistent_many
 //                              (:625-641): the persistent lanes.
 //
-// K22. One thread per pixel. The pixel's camera ray, its cube interval, its view
-// direction's environment and its uv seed bits are the same for every
-// frame, so a thread computes them once; then, for each of the launch's K
-// frames (seed and host-drawn scattering direction read from `inputs`):
-// the chain hash3(bits(u), bits(v), seed); a Woodcock free flight from the
-// cube's entry to a real collision or an escape (_woodcock_distance); at
-// the collision the TF's RGBA, the light (the environment at the scattering
-// direction, alpha 1) and a ratio-tracked transmittance toward the cube's
-// exit along that direction (_woodcock_transmittance); diffuse x light x
+// K22. One thread per pixel, an 8 x 4 pixel tile a warp. The pixel's
+// camera ray, its cube interval, its view direction's environment and its uv
+// seed bits are the same for every frame, so a thread computes them once and
+// keeps them in registers. The block computes each frame's values once into
+// shared memory: the light
+// (the environment at the frame's scattering direction, alpha 1), the
+// reciprocals of the direction's components and of the running mean's
+// divisor, the seed. Then each lane runs its K frames: per frame the chain
+// hash3(bits(u), bits(v), seed); a Woodcock free flight from the cube's
+// entry to a real collision or an escape (_woodcock_distance); at the
+// collision the TF's RGBA (from the density the collision's trip looked
+// up), the light and a ratio-tracked transmittance toward the cube's exit
+// along that direction (_woodcock_transmittance); diffuse x light x
 // transmittance, or the environment on a miss or an escape; the running
-// mean acc + (img - acc) / frame. `acc` is read and written once per
-// launch, in place. The frame count is read, never written: the wrapper
-// advances it on the same stream after the launch.
+// mean acc + (img - acc) / frame. `acc` is read and
+// written once per launch, in place. The frame count is read, never
+// written: the wrapper advances it on the same stream after the launch.
 //
 // Both loops run per lane, capped at max_collisions trips. That equals the
 // reference's all-lanes-done while_loops under their global trip counter:
@@ -63,10 +67,9 @@
 // the TF the packed (257, 257, 16) corner table or the raw (256, 256, 4)
 // texture, read at (density, 0) (mcm_common.cuh sample_rgba); the
 // environment a raw (He, We, 3) map (sample_env_rgb); the majorant grid
-// present or not; K23's stream count. K22 reads them all as uniform runtime
-// flags of its one instantiation. K23 is an instance per table pair
-// (McsMode) and majorant (MAJ); the environment and the streams are runtime
-// values.
+// present or not; K23's stream count. K22 and K23 are each an instance per
+// table pair (McsMode) and majorant (MAJ); the environment and the streams
+// are runtime values.
 //
 // What bounds them on this card: each trip is a dependent chain (a hash, a
 // log, a volume row, then the TF row the density selects), and a warp
@@ -78,22 +81,18 @@
 // iteration (a finished sample starts the next at once), and pays for it
 // with a sphere draw and four hashes each step.
 //
-// K23's design, each lever timed in turns on the card (probes/
-// mcsp_variants.py; PERF.md): each instance inlines one table pair's lookup
-// path and the majorant only where it has one; a warp takes an 8 x 4 pixel
-// tile and a block 16 x 8, so that a warp's camera rays stay together in
-// the volume; __launch_bounds__ asks room for 8 blocks an SM (64
-// registers; the default instance without spills, faster than 72-80
-// registers at 6 blocks or 56 with spills uncapped); and the rare branches
-// are light. A deposit and a scatter each about every 30 lane-steps (the
-// default scene: 4.9 M deposits and 4.0 M scatters in 134 M lane-steps a
-// launch) put one of a warp's lanes in each branch most steps, so a warp
-// pays for both: a one-texel environment (the renderer's default) lights a
-// shadow ray with its texel, no atan2f, asinf and 4 gathers, where that is
-// exact (lerp_fixed); the shadow ray's light, which depends on its
-// direction alone, is taken where the lane scatters, and the TF's RGB only
-// there, its alpha at every lookup; sincosf takes the sphere's angle in
-// one call.
+// K22's design, each lever timed in turns on the card (probes/
+// mcs_mcm_variants.py; PERF.md): each instance inlines one table pair's
+// lookup path and the majorant only where it has one; the per-frame values
+// are computed once a block; the collision's density comes from its trip,
+// the RGB only where a frame is shaded; cube_exit takes one quotient an axis
+// where the direction's signs pick the face; a warp takes an 8 x 4 pixel
+// tile. A minimum of blocks an SM in __launch_bounds__ (6 to 12) lost in
+// most scenes, and the camera segment and view environment in shared memory
+// instead of registers lost 2-6%. A warp keeps per-frame loops: one stream
+// of trips a lane (a warp paying its slowest lane's total trips, the lanes
+// whose loop ended turning together) won 6% on the default scene but lost
+// 15-27% where loops are short and alike.
 //
 // Numerics: built without fast math and with -fmad=false, so every
 // expression rounds as the plain PyTorch versions' (kernels/mcs.py); every
@@ -131,16 +130,16 @@ enum McsI {
   SI_ENV_H, SI_ENV_W,               // the raw map's He, We
   SI_MAJ_GZ, SI_MAJ_GY, SI_MAJ_GX,  // majorant grid cells (0 without one)
   SI_STEPS, SI_STREAMS,             // K23: iterations a dispatch, streams
-  SI_MODE,                          // K23: the tables' McsMode (kernels/mcs.py persistent_mode)
+  SI_MODE,                          // the tables' McsMode (kernels/mcs.py persistent_mode)
   SI_COUNT,
 };
 
-// K23's instances by table pair: the pairs MCSRenderer builds (a packed u8
-// or f32 corner table, linear or quasicubic, beside the packed TF; the raw
-// grid under the nearest filter beside the raw TF), each inlining its one
-// lookup path, and every other pair K23 takes (a raw grid under a linear or
-// quasicubic filter, a TF of the other kind) in the generic instance, which
-// reads the table flags at run time as K22 does
+// K22's and K23's instances by table pair: the pairs MCSRenderer builds (a
+// packed u8 or f32 corner table, linear or quasicubic, beside the packed TF;
+// the raw grid under the nearest filter beside the raw TF), each inlining its
+// one lookup path, and every other pair they take (a raw grid under a linear
+// or quasicubic filter, a TF of the other kind) in the generic instance,
+// which reads the table flags at run time
 enum McsMode {
   MM_U8 = 0,    // packed u8 corner table, linear
   MM_F32,       // packed f32 corner table, linear
@@ -151,7 +150,8 @@ enum McsMode {
   MM_COUNT,
 };
 
-// K23's block: a 16 x 8 pixel tile of one stream, as four warps of 8 x 4
+// K22's and K23's block: a 16 x 8 pixel tile (of one stream), as four warps
+// of 8 x 4
 #define MCSP_TILE_W 16
 #define MCSP_TILE_H 8
 // blocks an SM that K23's __launch_bounds__ asks room for
@@ -161,19 +161,6 @@ struct McsParams {
   float f[SF_COUNT];
   int i[SI_COUNT];
 };
-
-// the TF's RGBA at the volume's density at (x, y, z): _sample_tf
-__device__ __forceinline__ float4 mcs_rgba(const void* vol, const float* __restrict__ tf,
-                                           const McsParams& P, float x, float y, float z) {
-  float d;
-  if (P.i[SI_VOL_RAW] != 0)
-    d = sample_volume_raw(static_cast<const float*>(vol), P.i[SI_VOL_D], P.i[SI_VOL_H],
-                          P.i[SI_VOL_W], x, y, z, P.i[SI_QUASICUBIC] != 0, P.i[SI_NEAREST] != 0);
-  else
-    d = sample_volume(vol, P.i[SI_VOL_U8], P.i[SI_VOL_D], P.i[SI_VOL_H], P.i[SI_VOL_W], x, y, z,
-                      nullptr, P.i[SI_QUASICUBIC] != 0, false);
-  return sample_rgba(tf, P.i[SI_TF_RAW] != 0, P.i[SI_TF_H], P.i[SI_TF_W], d);
-}
 
 // A segment from (fx, fy, fz) to (tx, ty, tz): its length and the divisor
 // max(length, 1e-30) of the fraction t = dist / divisor along it
@@ -202,12 +189,13 @@ __device__ __forceinline__ float2 majorant_row(const float2* __restrict__ maj, c
 // One trip's free flight from distance `dist`: the step (capped at the
 // majorant cell's flight range), whether it was capped, and the cell's
 // majorant m (1 without a grid)
+template <bool MAJ>
 __device__ __forceinline__ float flight(uint32_t& s, const McsParams& P, const Recip& ext,
                                         const float2* __restrict__ maj, const Segment& g,
                                         float dist, bool& capped, float& m) {
   capped = false;
   m = 1.0f;
-  if (maj == nullptr) return quot(-logf(draw(s)), ext);
+  if (!MAJ) return quot(-logf(draw(s)), ext);
   const float t0 = __fdiv_rn(dist, g.den);
   const float2 row = majorant_row(maj, P, lerp(g.fx, g.tx, t0), lerp(g.fy, g.ty, t0),
                                   lerp(g.fz, g.tz, t0));
@@ -215,55 +203,6 @@ __device__ __forceinline__ float flight(uint32_t& s, const McsParams& P, const R
   const float step = __fdiv_rn(-logf(draw(s)), m * P.f[SF_EXTINCTION]);
   capped = step >= row.y;
   return nmin(step, row.y);
-}
-
-// _woodcock_distance on one lane: the distance of the first real collision,
-// or past g.len on an escape, or where max_collisions trips left it.
-__device__ __forceinline__ float woodcock_distance(uint32_t& s, const McsParams& P,
-                                                   const Recip& ext, const void* vol,
-                                                   const float* __restrict__ tf,
-                                                   const float2* __restrict__ maj,
-                                                   const Segment& g) {
-  float dist = 0.0f;
-  const int cap = P.i[SI_MAX_COLLISIONS];
-  for (int i = 0; i < cap; ++i) {
-    bool capped;
-    float m;
-    dist = dist + flight(s, P, ext, maj, g, dist, capped, m);
-    if (dist > g.len) break;  // escaped
-    if (capped) continue;     // a pure advance: no lookup, no uniform
-    const float t = __fdiv_rn(dist, g.den);
-    float alpha = mcs_rgba(vol, tf, P, lerp(g.fx, g.tx, t), lerp(g.fy, g.ty, t),
-                           lerp(g.fz, g.tz, t)).w;
-    const float u = draw(s);
-    if (maj != nullptr) alpha = nmin(__fdiv_rn(alpha, m), 1.0f);
-    if (u < alpha) break;  // a real collision
-  }
-  return dist;
-}
-
-// _woodcock_transmittance on one lane: the product of (1 - alpha) over the
-// tentative collisions up to g.len; draws only the flights.
-__device__ __forceinline__ float woodcock_transmittance(uint32_t& s, const McsParams& P,
-                                                        const Recip& ext, const void* vol,
-                                                        const float* __restrict__ tf,
-                                                        const float2* __restrict__ maj,
-                                                        const Segment& g) {
-  float dist = 0.0f, trans = 1.0f;
-  const int cap = P.i[SI_MAX_COLLISIONS];
-  for (int i = 0; i < cap; ++i) {
-    bool capped;
-    float m;
-    dist = dist + flight(s, P, ext, maj, g, dist, capped, m);
-    if (dist > g.len) break;
-    if (capped) continue;
-    const float t = __fdiv_rn(dist, g.den);
-    float alpha = mcs_rgba(vol, tf, P, lerp(g.fx, g.tx, t), lerp(g.fy, g.ty, t),
-                           lerp(g.fz, g.tz, t)).w;
-    if (maj != nullptr) alpha = nmin(__fdiv_rn(alpha, m), 1.0f);
-    trans = trans * (1.0f - alpha);
-  }
-  return trans;
 }
 
 // the far end of the ray from (x, y, z) along d in the unit cube, clamped
@@ -305,62 +244,6 @@ __device__ __forceinline__ PixelRay pixel_ray(const McsParams& P, int ix, int iy
                   tn >= tfar};
 }
 
-// K22: K frames per pixel merged into acc (R, R, 4) in place. inputs: K
-// float4 (the frame seed's bits, the scattering direction); frame: the
-// count before this launch.
-__global__ void __launch_bounds__(MCS_THREADS)
-mcs_frames_kernel(const McsParams P, const void* __restrict__ vol, const float* __restrict__ tf,
-                  const float* __restrict__ env, const float2* __restrict__ maj,
-                  const float4* __restrict__ inputs, float4* __restrict__ acc,
-                  const int* __restrict__ frame) {
-  const int res = P.i[SI_RES];
-  const int pix = blockIdx.x * blockDim.x + threadIdx.x;
-  if (pix >= res * res) return;
-  const int iy = pix / res, ix = pix - iy * res;
-  // the camera ray, its entry and exit points, the view direction's
-  // environment
-  const PixelRay pr = pixel_ray(P, ix, iy);
-  const bool miss = pr.miss;
-  const Segment ray = segment(pr.ex, pr.ey, pr.ez, pr.xx, pr.xy, pr.xz);
-  const int He = P.i[SI_ENV_H], We = P.i[SI_ENV_W];
-  const float3 view = sample_env_rgb(env, He, We, pr.vx, pr.vy, pr.vz);
-  // the pixel's uv bits: (i + 0.5) / R by IEEE division
-  const uint32_t ubits = __float_as_uint(__fdiv_rn((float)ix + 0.5f, (float)res));
-  const uint32_t vbits = __float_as_uint(__fdiv_rn((float)iy + 0.5f, (float)res));
-  const Recip ext = recip(P.f[SF_EXTINCTION]);
-  float4 a = acc[pix];
-  int count = __ldg(frame);
-  for (int k = 0; k < P.i[SI_N_FRAMES]; ++k) {
-    const float4 in = __ldg(inputs + k);
-    float4 img = make_float4(view.x, view.y, view.z, 1.0f);
-    if (!miss) {
-      uint32_t s = hash3(ubits, vbits, __float_as_uint(in.x));
-      const float dist = woodcock_distance(s, P, ext, vol, tf, maj, ray);
-      if (!(dist > ray.len)) {
-        // the collision, the light's exit along the scattering direction
-        const float t = __fdiv_rn(dist, ray.den);
-        const float cx = lerp(ray.fx, ray.tx, t), cy = lerp(ray.fy, ray.ty, t);
-        const float cz = lerp(ray.fz, ray.tz, t);
-        const float stf = cube_exit(cx, cy, cz, in.y, in.z, in.w);
-        const Segment shadow = segment(cx, cy, cz, cx + in.y * stf, cy + in.z * stf,
-                                       cz + in.w * stf);
-        const float4 diffuse = mcs_rgba(vol, tf, P, cx, cy, cz);
-        const float3 light = sample_env_rgb(env, He, We, in.y, in.z, in.w);
-        const float T = woodcock_transmittance(s, P, ext, vol, tf, maj, shadow);
-        img = make_float4(diffuse.x * light.x * T, diffuse.y * light.y * T,
-                          diffuse.z * light.z * T, diffuse.w * 1.0f * T);
-      }
-    }
-    count += 1;
-    const float n = (float)count;
-    a.x = a.x + __fdiv_rn(img.x - a.x, n);
-    a.y = a.y + __fdiv_rn(img.y - a.y, n);
-    a.z = a.z + __fdiv_rn(img.z - a.z, n);
-    a.w = a.w + __fdiv_rn(img.w - a.w, n);
-  }
-  acc[pix] = a;
-}
-
 // The persistent lanes' state: each field an (S, R, R) array, `phase` the
 // bool tensor's bytes (0 or 1), `acc` float4
 struct McsLanes {
@@ -370,10 +253,10 @@ struct McsLanes {
   int* samples;
 };
 
-// K23's density at (x, y, z) in MODE's table: one lookup path inlined in
-// each instance (a packed full table with its kind and filter fixed, or the
-// raw grid's nearest texel), the runtime flags of K22's mcs_rgba in the
-// generic one
+// K22's and K23's density at (x, y, z) in MODE's table: one lookup path
+// inlined in each instance (a packed full table with its kind and filter
+// fixed, or the raw grid's nearest texel), the table flags read at run time
+// in the generic one
 template <int MODE>
 __device__ __forceinline__ float mode_density(const void* vol, const McsParams& P, float x,
                                               float y, float z) {
@@ -398,13 +281,6 @@ __device__ __forceinline__ float4 mode_rgba(const float* __restrict__ tf, const 
   return sample_rgba(tf, raw, P.i[SI_TF_H], P.i[SI_TF_W], d);
 }
 
-// a texel channel that sample_env_rgb's lerps return unchanged when they mix
-// it with itself: a + (a - a) * f is a for a finite f unless a is -0 or not
-// finite
-__device__ __forceinline__ bool lerp_fixed(float a) {
-  return isfinite(a) && __float_as_uint(a) != 0x80000000u;
-}
-
 // this thread's lane: the warp's 8 x 4 pixel tile of the block's 16 x 8;
 // the blocks run over the tiles of stream 0, then of stream 1, ...
 __device__ __forceinline__ void mcsp_pixel(int res, int& ix, int& iy, int& stream) {
@@ -416,6 +292,187 @@ __device__ __forceinline__ void mcsp_pixel(int res, int& ix, int& iy, int& strea
   stream = rest / tiles_y;
   ix = tx * MCSP_TILE_W + (warp & 1) * 8 + (lane & 7);
   iy = ty * MCSP_TILE_H + (warp >> 1) * 4 + (lane >> 3);
+}
+
+// K22's per-frame values, the same for every pixel, computed once per block:
+// the running mean's divisor (the count + k + 1); the scattering direction's
+// components as divisors, the cube face each leaves through (1 where it is
+// positive, else 0) and whether all three are finite and nonzero (then, from
+// a finite point, the larger of cube_exit's two quotients on each axis is the
+// face's: rounding is monotone); the light (the environment at the
+// direction, alpha 1); the seed's bits
+struct McsFrame {
+  Recip n, dx, dy, dz;
+  float face_x, face_y, face_z;
+  bool faces;
+  float3 light;
+  uint32_t seed;
+};
+
+// K22's frames a block holds in shared memory: a launch of more runs them in
+// chunks, the block's lanes meeting at each chunk's end
+#define MCS_CHUNK 32
+
+// frames k0 .. k0 + kn - 1 of the launch into F, one a thread
+__device__ __forceinline__ void fill_frames(McsFrame* F, const McsParams& P,
+                                            const float* __restrict__ env,
+                                            const float4* __restrict__ inputs, int count, int k0,
+                                            int kn) {
+  for (int j = threadIdx.x; j < kn; j += blockDim.x) {
+    const float4 in = __ldg(inputs + k0 + j);
+    McsFrame f;
+    f.n = recip((float)(count + k0 + j + 1));
+    f.dx = recip(in.y);
+    f.dy = recip(in.z);
+    f.dz = recip(in.w);
+    f.face_x = in.y > 0.0f ? 1.0f : 0.0f;
+    f.face_y = in.z > 0.0f ? 1.0f : 0.0f;
+    f.face_z = in.w > 0.0f ? 1.0f : 0.0f;
+    f.faces = isfinite(in.y) && isfinite(in.z) && isfinite(in.w) && in.y != 0.0f &&
+              in.z != 0.0f && in.w != 0.0f;
+    f.light = sample_env_rgb(env, P.i[SI_ENV_H], P.i[SI_ENV_W], in.y, in.z, in.w);
+    f.seed = __float_as_uint(in.x);
+    F[j] = f;
+  }
+}
+
+// cube_exit from (x, y, z) along the frame's direction, each quotient by
+// quot; one quotient an axis where the faces decide
+__device__ __forceinline__ float cube_exit_frame(float x, float y, float z, const McsFrame& f) {
+  if (f.faces && isfinite(x) && isfinite(y) && isfinite(z))
+    return nmax(nmin(nmin(quot(f.face_x - x, f.dx), quot(f.face_y - y, f.dy)),
+                     quot(f.face_z - z, f.dz)), 0.0f);
+  const float t0x = quot(0.0f - x, f.dx), t0y = quot(0.0f - y, f.dy);
+  const float t0z = quot(0.0f - z, f.dz);
+  const float t1x = quot(1.0f - x, f.dx), t1y = quot(1.0f - y, f.dy);
+  const float t1z = quot(1.0f - z, f.dz);
+  return nmax(nmin(nmin(nmax(t0x, t1x), nmax(t0y, t1y)), nmax(t0z, t1z)), 0.0f);
+}
+
+// the running mean acc + (img - acc) / n
+__device__ __forceinline__ void mean_add(float4& a, const float4& img, const Recip& n) {
+  a.x = a.x + quot(img.x - a.x, n);
+  a.y = a.y + quot(img.y - a.y, n);
+  a.z = a.z + quot(img.z - a.z, n);
+  a.w = a.w + quot(img.w - a.w, n);
+}
+
+// One chunk of frames F[0 .. kn) merged into `a` (`run`: a live pixel whose
+// ray hits the cube; a live miss takes the view's environment for every
+// frame). Per frame, from the chain base + 101 seed (hash3(bits(u), bits(v),
+// seed)): the distance loop; at a collision (or its cap) the shadow segment
+// to the cube's exit along the frame's direction and the transmittance
+// loop, each loop capped at max_collisions trips; the collision's density
+// from the distance loop's last trip where that trip looked it up there, its
+// RGB only where the frame is shaded.
+template <int MODE, bool MAJ>
+__device__ __forceinline__ void frames_chunk(float4& a, bool live, bool run, uint32_t base,
+                                             const Segment& g, const float4& view,
+                                             const McsFrame* F, int kn, const McsParams& P,
+                                             const Recip& ext, const void* __restrict__ vol,
+                                             const float* __restrict__ tf,
+                                             const float2* __restrict__ maj) {
+  if (live && !run)  // a miss takes no trips: every frame is the view's environment
+    for (int k = 0; k < kn; ++k) mean_add(a, view, F[k].n);
+  const int cap = P.i[SI_MAX_COLLISIONS];
+  if (!run) return;
+  for (int k = 0; k < kn; ++k) {
+    const McsFrame& f = F[k];
+    uint32_t s = pcg_hash(base + 101u * f.seed);
+    float dist = 0.0f, density = 0.0f;
+    bool looked = false;  // the last trip looked up the density at `dist`
+    for (int trips = 0; trips < cap; ++trips) {
+      bool capped;
+      float m;
+      dist = dist + flight<MAJ>(s, P, ext, maj, g, dist, capped, m);
+      looked = false;
+      if (dist > g.len) break;  // escaped
+      if (capped) continue;     // a pure advance: no lookup, no uniform
+      const float t = __fdiv_rn(dist, g.den);
+      const float d = mode_density<MODE>(vol, P, lerp(g.fx, g.tx, t), lerp(g.fy, g.ty, t),
+                                         lerp(g.fz, g.tz, t));
+      float alpha = mode_rgba<MODE>(tf, P, d).w;
+      const float u = draw(s);
+      if (MAJ) alpha = nmin(__fdiv_rn(alpha, m), 1.0f);
+      density = d;
+      looked = true;
+      if (u < alpha) break;  // a real collision
+    }
+    float4 img = view;
+    if (!(dist > g.len)) {
+      const float t = __fdiv_rn(dist, g.den);
+      const float cx = lerp(g.fx, g.tx, t), cy = lerp(g.fy, g.ty, t), cz = lerp(g.fz, g.tz, t);
+      if (!looked) density = mode_density<MODE>(vol, P, cx, cy, cz);
+      const float stf = cube_exit_frame(cx, cy, cz, f);
+      const Segment sh = segment(cx, cy, cz, cx + f.dx.b * stf, cy + f.dy.b * stf,
+                                 cz + f.dz.b * stf);
+      float sd = 0.0f, trans = 1.0f;
+      for (int trips = 0; trips < cap; ++trips) {
+        bool capped;
+        float m;
+        sd = sd + flight<MAJ>(s, P, ext, maj, sh, sd, capped, m);
+        if (sd > sh.len) break;
+        if (capped) continue;
+        const float t2 = __fdiv_rn(sd, sh.den);
+        float alpha = mode_rgba<MODE>(tf, P, mode_density<MODE>(
+            vol, P, lerp(sh.fx, sh.tx, t2), lerp(sh.fy, sh.ty, t2), lerp(sh.fz, sh.tz, t2))).w;
+        if (MAJ) alpha = nmin(__fdiv_rn(alpha, m), 1.0f);
+        trans = trans * (1.0f - alpha);  // ratio tracking
+      }
+      // frame k's image: the collision's diffuse x light x transmittance
+      const float4 diffuse = mode_rgba<MODE>(tf, P, density);
+      const float3 light = f.light;
+      img = make_float4(diffuse.x * light.x * trans, diffuse.y * light.y * trans,
+                        diffuse.z * light.z * trans, diffuse.w * 1.0f * trans);
+    }
+    mean_add(a, img, f.n);
+  }
+}
+
+// K22: K frames per pixel merged into acc (R, R, 4) in place; MODE the
+// tables' McsMode, MAJ the majorant grid. A warp takes an 8 x 4 pixel tile,
+// a block 16 x 8 (mcsp_pixel, as K23's stream 0). inputs: K float4 (the
+// frame seed's bits, the scattering direction); frame: the count before this
+// launch.
+template <int MODE, bool MAJ>
+__global__ void __launch_bounds__(MCS_THREADS)
+mcs_frames_kernel(const McsParams P, const void* __restrict__ vol, const float* __restrict__ tf,
+                  const float* __restrict__ env, const float2* __restrict__ maj,
+                  const float4* __restrict__ inputs, float4* __restrict__ acc,
+                  const int* __restrict__ frame) {
+  __shared__ McsFrame F[MCS_CHUNK];
+  const int res = P.i[SI_RES];
+  int ix, iy, stream;
+  mcsp_pixel(res, ix, iy, stream);
+  const bool live = ix < res && iy < res;  // every thread takes part in the fills
+  const int pix = iy * res + ix;
+  float4 a = make_float4(0.0f, 0.0f, 0.0f, 0.0f), view = a;
+  Segment ray{};
+  uint32_t base = 0;
+  bool run = false;
+  if (live) {
+    // the camera ray, its segment inside the cube, the view direction's
+    // environment; the chain's uv bits ((i + 0.5) / R by IEEE division)
+    const PixelRay pr = pixel_ray(P, ix, iy);
+    ray = segment(pr.ex, pr.ey, pr.ez, pr.xx, pr.xy, pr.xz);
+    const float3 v = sample_env_rgb(env, P.i[SI_ENV_H], P.i[SI_ENV_W], pr.vx, pr.vy, pr.vz);
+    view = make_float4(v.x, v.y, v.z, 1.0f);
+    const uint32_t ubits = __float_as_uint(__fdiv_rn((float)ix + 0.5f, (float)res));
+    const uint32_t vbits = __float_as_uint(__fdiv_rn((float)iy + 0.5f, (float)res));
+    base = 19u * ubits + 47u * vbits + 131u;
+    run = !pr.miss;
+    a = acc[pix];
+  }
+  const Recip ext = recip(P.f[SF_EXTINCTION]);
+  const int count = __ldg(frame), n_frames = P.i[SI_N_FRAMES];
+  for (int k0 = 0; k0 < n_frames; k0 += MCS_CHUNK) {
+    const int kn = min(n_frames - k0, MCS_CHUNK);
+    if (k0 > 0) __syncthreads();  // every lane is done with the last chunk
+    fill_frames(F, P, env, inputs, count, k0, kn);
+    __syncthreads();
+    frames_chunk<MODE, MAJ>(a, live, run, base, ray, view, F, kn, P, ext, vol, tf, maj);
+  }
+  if (live) acc[pix] = a;
 }
 
 // K23: K dispatches (one per seed) of SI_STEPS iterations on each lane, its
@@ -570,6 +627,25 @@ mcs_persistent_kernel(const McsParams P, const void* __restrict__ vol,
 }
 
 template <bool MAJ>
+int launch_frames(int mode, dim3 grid, cudaStream_t st, const McsParams& P, const void* vol,
+                  const float* tf, const float* env, const float2* maj, const float4* inputs,
+                  float4* acc, const int* frame) {
+  switch (mode) {
+#define VPT_MCS_MODE(M)                                                                       \
+  case M:                                                                                     \
+    mcs_frames_kernel<M, MAJ><<<grid, MCS_THREADS, 0, st>>>(P, vol, tf, env, maj, inputs, acc, \
+                                                             frame);                          \
+    break;
+    VPT_MCS_MODE(MM_U8) VPT_MCS_MODE(MM_F32) VPT_MCS_MODE(MM_U8_QC)
+    VPT_MCS_MODE(MM_F32_QC) VPT_MCS_MODE(MM_NEAREST) VPT_MCS_MODE(MM_GENERIC)
+#undef VPT_MCS_MODE
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
+template <bool MAJ>
 int launch_persistent(int mode, dim3 grid, cudaStream_t st, const McsParams& P, const void* vol,
                       const float* tf, const float* env, const float2* maj,
                       const uint32_t* seeds, const McsLanes& L) {
@@ -608,6 +684,7 @@ int vpt_mcs_layout(int which) {
 }
 
 // maj (Gz*Gy*Gx float2) may be null: exact mode. inputs: n_frames float4.
+// The instance: SI_MODE (McsMode), and the majorant's presence.
 int vpt_mcs_frames(const float* fparams, const int* iparams, const void* vol, const float* tf,
                    const float* env, const float* maj, const float* inputs, float* acc,
                    const int* frame, void* stream) {
@@ -618,11 +695,15 @@ int vpt_mcs_frames(const float* fparams, const int* iparams, const void* vol, co
       (maj != nullptr) != (P.i[SI_MAJ_GZ] > 0) ||
       (P.i[SI_NEAREST] != 0 && P.i[SI_VOL_RAW] == 0) || res > 46340)
     return (int)cudaErrorInvalidValue;
-  mcs_frames_kernel<<<blocks_for(res * res, MCS_THREADS), MCS_THREADS, 0,
-                      static_cast<cudaStream_t>(stream)>>>(
-      P, vol, tf, env, reinterpret_cast<const float2*>(maj),
-      reinterpret_cast<const float4*>(inputs), reinterpret_cast<float4*>(acc), frame);
-  return (int)cudaGetLastError();
+  const int mode = P.i[SI_MODE];
+  if (mode < 0 || mode >= MM_COUNT) return (int)cudaErrorInvalidValue;
+  const dim3 grid((unsigned)((int64_t)blocks_for(res, MCSP_TILE_W) * blocks_for(res, MCSP_TILE_H)));
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float2* m = reinterpret_cast<const float2*>(maj);
+  const float4* in = reinterpret_cast<const float4*>(inputs);
+  float4* out = reinterpret_cast<float4*>(acc);
+  if (m != nullptr) return launch_frames<true>(mode, grid, st, P, vol, tf, env, m, in, out, frame);
+  return launch_frames<false>(mode, grid, st, P, vol, tf, env, m, in, out, frame);
 }
 
 // maj may be null: exact mode. seeds: n_frames (dispatches) uint32. The 16

@@ -243,11 +243,12 @@ def ptxas_table(log_text):
     eam_backward_kernel: 0 or 1), LAO,SHADOWS,MODE (K25 lao_frame_kernel:
     0 or 1 each, then the table mode 0-4 of csrc/lao.cu LaoMode), MAJ (K27
     slab_advance_kernel), NB,MAJ,ENV,TAPE (K28
-    slab_finish_kernel), "" for the untemplated ones (K20 mcm_step_kernel, K21
-    mcm_reset_kernel, K22 mcs_frames_kernel, K24 dos_slice_kernel, K26
-    slab_rows_kernel, K29 slab_scatter_kernel, K30 slab_contract_kernel and
-    K31 slab_pack_kernel among them); MODE,MAJ for K23 mcs_persistent_kernel
-    (the table mode 0-5 of csrc/mcs.cu McsMode, the majorant 0 or 1)."""
+    slab_finish_kernel), MODE (K20 mcm_step_kernel: the table mode 0-7 of
+    csrc/mcm.cu McmMode), "" for the untemplated ones (K21 mcm_reset_kernel,
+    K24 dos_slice_kernel, K26 slab_rows_kernel, K29 slab_scatter_kernel, K30
+    slab_contract_kernel and K31 slab_pack_kernel among them); MODE,MAJ for
+    K22 mcs_frames_kernel and K23 mcs_persistent_kernel (the table mode 0-5
+    of csrc/mcs.cu McsMode, the majorant 0 or 1)."""
     rows, cur = [], None
     for line in log_text.splitlines():
         m = _ENTRY.search(line)

@@ -6,7 +6,8 @@ Two kernels of ``vpt_tpu_torch/csrc/mcm.cu``:
   iterations of the RGB multiple-scattering renderer, in place (replaces
   ``vpt_tpu/models/mcm.py::_render_body`` looped by ``render`` and
   ``render_many``, and ``mcm_compact.render_compact_many`` over a lane
-  table); plain version ``step_plain``.
+  table); plain version ``step_plain``. K20 is an instance per table pair
+  (``step_mode``).
 - ``reset`` (K21 ``mcm_reset``): fresh photons (replaces ``full_reset`` and
   ``mcm_compact.compact_reset``); plain version ``reset_plain``.
 
@@ -46,8 +47,11 @@ from vpt_tpu_torch.ops import geometry, interp, sampling
 
 # must match MF_COUNT / MI_COUNT in csrc/mcm.cu
 _F_COUNT = 20
-_I_COUNT = 17
+_I_COUNT = 18
 _FILTERS = ("linear", "quasicubic", "nearest")
+# K20's instances, in the order of csrc/mcm.cu McmMode
+STEP_MODES = ("u8", "f32", "u8 quasicubic", "f32 quasicubic", "raw", "raw quasicubic", "nearest",
+              "generic")
 
 # the equirect mapping's f32 constant INVPI * 0.5 (vpt_tpu/models/mcm.py:32, :67)
 INV_PI_HALF = float(np.float32(0.31830988618 * 0.5))
@@ -257,6 +261,24 @@ def _check_lanes(lanes, lane):
         K._check(t, name, torch.int32, lane)
 
 
+def step_mode(density, tf_table, volume_filter: str) -> str:
+    """K20's instance for these tables (csrc/mcm.cu McmMode): "u8" / "f32"
+    (a packed corner table, linear), "u8 quasicubic" / "f32 quasicubic",
+    each beside the packed (Hp, Wp, 16) TF, or "raw" / "raw quasicubic" /
+    "nearest" (the raw (D, H, W) grid under that filter beside the raw
+    (H, W, 4) TF), the pairs ``MCMRenderer`` builds; any other pair the
+    wrapper takes runs the "generic" instance, which reads the table kinds
+    at run time."""
+    tf_raw = tf_table.shape[-1] == 4
+    if not isinstance(density, interp.PackedVolume):
+        raw = {"linear": "raw", "quasicubic": "raw quasicubic", "nearest": "nearest"}
+        return raw.get(volume_filter, "generic") if tf_raw else "generic"
+    if tf_raw or volume_filter not in ("linear", "quasicubic"):
+        return "generic"
+    kind = "u8" if density.table.dtype == torch.uint8 else "f32"
+    return kind + (" quasicubic" if volume_filter == "quasicubic" else "")
+
+
 def _params(ctx, resolution: int, n_lanes: int, steps: int = 0, n_seeds: int = 0):
     if n_lanes >= 2**31:
         raise ValueError("more than 2**31 - 1 lanes")
@@ -276,6 +298,7 @@ def _params(ctx, resolution: int, n_lanes: int, steps: int = 0, n_seeds: int = 0
         int(not vol_raw and vol.table.dtype == torch.uint8), *dims,
         int(ctx.volume_filter == "quasicubic"), int(ctx.volume_filter == "nearest"), int(tf_raw),
         tf.shape[0] + tf_raw, tf.shape[1] + tf_raw, env.shape[0], env.shape[1],
+        STEP_MODES.index(step_mode(vol, tf, ctx.volume_filter)),
     ], np.int32)
     assert i.shape == (_I_COUNT,)
     return f, i
@@ -288,9 +311,10 @@ def _check_layout(lib):
 
 def step(state, ctx, seeds, steps: int, lanes=None):
     """K render dispatches (one per frame seed) of ``steps`` iterations,
-    updating ``state`` in place; one kernel launch on a CUDA device.
-    ``lanes``: an int32 lane table (ix, iy) of the state's (M, resolution)
-    lane shape, or None for the pixel grid."""
+    updating ``state`` in place; one kernel launch on a CUDA device, of
+    K20's instance for the tables' ``step_mode``. ``lanes``: an int32 lane
+    table (ix, iy) of the state's (M, resolution) lane shape, or None for
+    the pixel grid."""
     tensors = [getattr(state, k) for k in STATE_FIELDS] + _ctx_tensors(ctx) + list(lanes or ())
     if K._route(*tensors) == "cpu":
         return step_plain(state, ctx, seeds, steps, lanes)

@@ -5,7 +5,8 @@ Two kernels of ``vpt_tpu_torch/csrc/mcs.cu``:
 - ``frames`` (K22 ``mcs_frames``): K frames of the reference-exact frame
   path merged into the running mean ``acc`` in place (replaces
   ``vpt_tpu/models/mcs.py::_mcs_frame_impl`` looped by ``mcs_frames``);
-  plain version ``frames_plain``.
+  plain version ``frames_plain``. K22 is an instance per table pair
+  (``persistent_mode``, which names K22's instances too) and majorant.
 - ``persistent`` (K23 ``mcs_persistent``): K dispatches of ``steps``
   iterations of the persistent-lane state machine, the lane state updated
   in place (replaces ``_mcs_persistent_dispatch_impl`` looped by
@@ -372,12 +373,12 @@ def persistent_plain(state, ctx, seeds, steps: int, volume_filter: str = "linear
 # CUDA wrapper
 # ---------------------------------------------------------------------------
 def persistent_mode(density, tf_table, volume_filter: str) -> str:
-    """K23's instance for these tables (csrc/mcs.cu McsMode): "u8" / "f32"
+    """K22's and K23's instance for these tables (csrc/mcs.cu McsMode): "u8" / "f32"
     (a packed corner table, linear), "u8 quasicubic" / "f32 quasicubic",
     each beside the packed (Hp, Wp, 16) TF, or "nearest" (the raw (D, H, W)
     grid beside the raw (H, W, 4) TF), the pairs ``MCSRenderer`` builds; any
-    other pair K23 takes runs the "generic" instance, which reads the table
-    kinds at run time."""
+    other pair the wrappers take runs the "generic" instance, which reads
+    the table kinds at run time."""
     tf_raw = tf_table.shape[-1] == 4
     if not isinstance(density, interp.PackedVolume):
         return "nearest" if volume_filter == "nearest" and tf_raw else "generic"
@@ -385,6 +386,21 @@ def persistent_mode(density, tf_table, volume_filter: str) -> str:
         return "generic"
     kind = "u8" if density.table.dtype == torch.uint8 else "f32"
     return kind + (" quasicubic" if volume_filter == "quasicubic" else "")
+
+
+def warp_tiles(resolution: int, device=None) -> torch.Tensor:
+    """The pixels of each warp of K22 (and of K23's stream 0): csrc/mcs.cu
+    ``mcsp_pixel``'s 8 x 4 pixel tile a warp, 16 x 8 a block, the blocks
+    row-major over the tiles. (warps, 32) flat indices iy * R + ix in lane
+    order, -1 where a lane lies outside the image."""
+    tiles_x, tiles_y = -(-resolution // 16), -(-resolution // 8)
+    block = torch.arange(tiles_x * tiles_y, device=device).view(-1, 1, 1)
+    warp = torch.arange(4, device=device).view(1, -1, 1)
+    lane = torch.arange(32, device=device).view(1, 1, -1)
+    ix = (block % tiles_x) * 16 + (warp & 1) * 8 + (lane & 7)
+    iy = (block // tiles_x) * 8 + (warp >> 1) * 4 + (lane >> 3)
+    inside = (ix < resolution) & (iy < resolution)
+    return torch.where(inside, iy * resolution + ix, -1).view(-1, 32)
 
 
 def _check_tables(ctx, volume_filter):
@@ -438,8 +454,9 @@ def frames(acc, frame, ctx, seeds, scatter_dirs, max_collisions: int = 1024,
            volume_filter: str = "linear"):
     """K frames, one per (seed, scatter direction), merged into the running
     mean ``acc`` (R, R, 4) in place; ``frame`` (0-d int32) advanced by K.
-    On a CUDA device one launch of K22 ``mcs_frames`` (which reads the
-    count) and the count's ``add_`` on the same stream."""
+    On a CUDA device one launch of K22 ``mcs_frames`` (its instance for the
+    tables' ``persistent_mode`` and the majorant; it reads the count) and
+    the count's ``add_`` on the same stream."""
     seeds = np.asarray(seeds, np.uint32).reshape(-1)
     dirs = np.asarray(scatter_dirs, np.float32).reshape(-1, 3)
     if len(dirs) != len(seeds):

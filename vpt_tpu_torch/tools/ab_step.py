@@ -33,11 +33,22 @@ steps, 16 dispatches from a warm state) in the modes of
 ``chip_smoke.mcsp_modes`` (u8, f32, quasicubic, nearest, the environment
 map, the majorant, one stream), all by device time (a CUDA graph of 20
 calls; K23's less the state copies, ``chip_smoke.mcsp_device_ms``), with
-the ptxas rows of K19 and K23. ``--out FILE`` appends every printed line to
-FILE too.
+the ptxas rows of K19 and K23.
 
-    python -m vpt_tpu_torch.tools.ab_step --other DIR [--what step|lao_slab|eam_mcsp]
-        [--reps 50] [--rounds 2]
+With ``--what mcs_mcm`` it times K22 ``mcs_frames`` on phase 22's 16-frame
+launch (512^2, the frustum-filling camera, ``sphere_in_cube(128)``) in the
+modes of ``chip_smoke.mcs_modes`` (u8, f32, quasicubic, nearest, the
+environment map, the majorant, ``max_collisions=16``; ``chip_smoke.
+mcs_device_ms``) and K20 ``mcm_step`` on phase 21's launch of 16 dispatches
+from the reset state (512^2, the bench volume, 8 steps) in the modes of
+``chip_smoke.mcm_modes`` (u8, f32, quasicubic, raw, nearest, the
+environment map, the lane table; each call copying the reset state first,
+less the copies), all by device time (a CUDA graph of 20 calls), with the
+ptxas rows of K20-K23. ``--out FILE`` appends every printed line to FILE
+too.
+
+    python -m vpt_tpu_torch.tools.ab_step --other DIR
+        [--what step|lao_slab|eam_mcsp|mcs_mcm] [--reps 50] [--rounds 2]
 
 ``DIR`` is another checkout of the repo (for example the parent commit
 unpacked by ``git archive`` into a gitignored directory). Each checkout
@@ -48,8 +59,8 @@ started with ``--child`` inside the checkout: it imports that checkout's
 ``vpt_tpu_torch`` and ``chip_smoke`` (for the scene), so it uses only what
 both sides of a change share. Per run it prints one JSON line (the
 checkout, its times by CUDA events, the ptxas rows), then one line of the
-means and the ratios this / other (with ``lao_slab`` and ``eam_mcsp`` also
-the medians, their ratios and each side's spread). Needs a CUDA device;
+means and the ratios this / other (with ``lao_slab``, ``eam_mcsp`` and
+``mcs_mcm`` also the medians, their ratios and each side's spread). Needs a CUDA device;
 exits 1 without.
 """
 
@@ -259,7 +270,67 @@ def child_eam_mcsp() -> dict:
     return out
 
 
-CHILDREN = {"step": child, "lao_slab": child_lao_slab, "eam_mcsp": lambda reps: child_eam_mcsp()}
+def child_mcs_mcm() -> dict:
+    """One timing run of K22 in phase 22's modes and of K20 in phase 21's
+    modes on the checkout on ``sys.path``, through the API both sides of a
+    change share."""
+    import torch
+
+    import chip_smoke as CS
+    from vpt_tpu_torch import Camera
+    from vpt_tpu_torch.kernels import _build
+    from vpt_tpu_torch.kernels import mcm as KM
+    from vpt_tpu_torch.kernels import mcm_spectral as K
+    from vpt_tpu_torch.models.mcm import MCMState
+
+    dev, out = torch.device("cuda:0"), {}
+    frames = [(k + 1) * 2654435761 % 2**32 for k in range(CS.MCS_FRAMES)]
+    for label, vol, env, kw in CS.mcs_modes():
+        r = CS.mcs_make_session(dev, vol, env, kw).renderer
+        ctx, dirs = CS.mcs_inputs(r, frames)
+        out[f"k22 {label}_ms"] = CS.mcs_device_ms(r, ctx, frames, dirs)
+        del r, ctx
+        torch.cuda.empty_cache()
+    lib, cam = _build.load(), Camera()
+    seeds = [(k + 1) * 2654435761 % 2**32 for k in range(CS.MCM_FRAMES)]
+    seeds_dev = torch.as_tensor(np.asarray(seeds, np.uint32).view(np.int32), device=dev)
+    for label, vol, env, pack, compaction in CS.mcm_modes():
+        r = CS.mcm_renderer(vol, env, pack, compaction, dev)
+        ctx = r.ctx(cam, 7)
+        lanes = None
+        if compaction:
+            t = r._compact_tables(cam)
+            lanes = (t["lane_ix"], t["lane_iy"])
+        s0 = MCMState(**KM.reset(ctx, CS.RES, dev, lanes))
+        work = CS.clone_state(s0)
+        f, i = KM._params(ctx, CS.RES, s0.px.numel(), CS.STEPS, len(seeds))
+        ix, iy = lanes or (None, None)
+
+        def copy():
+            for a, b in zip(work.tensors(), s0.tensors()):
+                a.copy_(b)
+
+        def launch():
+            copy()
+            K._raise_on(lib.vpt_mcm_step(
+                f.ctypes.data, i.ctypes.data, *(getattr(work, k).data_ptr() for k in KM.STATE_FIELDS),
+                K.density_table(ctx).data_ptr(), ctx.tf_table.data_ptr(), ctx.environment.data_ptr(),
+                K._ptr(ix), K._ptr(iy), seeds_dev.data_ptr(), K._stream(dev)), "mcm_step")
+
+        out[f"k20 {label}_ms"] = CS.device_ms(launch) - CS.device_ms(copy)
+        del r, ctx, s0, work
+        torch.cuda.empty_cache()
+    out["build_seconds"] = _build.build_info["seconds"]
+    out["ptxas"] = [dict(kernel=k, template=t, registers=r, spill_store_bytes=sp,
+                         spill_load_bytes=lo, stack_frame_bytes=f)
+                    for k, t, r, sp, lo, f in _build.ptxas_table(_build.build_info["log"])
+                    if k in ("mcs_frames_kernel", "mcs_persistent_kernel", "mcm_step_kernel",
+                             "mcm_reset_kernel")]
+    return out
+
+
+CHILDREN = {"step": child, "lao_slab": child_lao_slab, "eam_mcsp": lambda reps: child_eam_mcsp(),
+            "mcs_mcm": lambda reps: child_mcs_mcm()}
 
 
 def run_in(root: Path, reps: int, what: str) -> dict:
