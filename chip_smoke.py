@@ -116,10 +116,16 @@ Phases (each raises on failure, so any failure exits non-zero):
      the u8 packed table, an f32 packed table, quasicubic and nearest over
      the raw grid, at offset 0 and a session's first (the first differing
      pixel printed otherwise); BASELINE config 1 (64^3, 256^2, 64 slices,
-     extinction 80, offsets 0 and 0.37); K15 over sphere_in_cube(256) (a
-     136 MB u8 table, past the L2), checked and timed; each kernel timed by
-     device time against its bound and its plain version; a
-     RenderSession per renderer, run(16) with the counts set to 0 before
+     extinction 80, offsets 0 and 0.37); K15's and K16's other instances
+     (the f32 table under quasicubic, the raw grid under linear and
+     quasicubic, a packed table beside the raw TF: every MarchMode) bit for
+     bit at both offsets; K15 over sphere_in_cube(256) (a 136 MB u8 table,
+     past the L2), checked and timed; each kernel timed by device time
+     against its bound and its plain version, with its instance's
+     registers, blocks an SM and waves, and for K15 and K16 the trips per
+     ray (mean, p99, max; what a warp pays over a row of 32 and over an
+     8 x 4 tile); a RenderSession per renderer, run(16) with the counts
+     set to 0 before
      (16 launches of K15, K16 or K17, for ISO also 16 of K18), finite and
      non-empty images, a second run and a checkpoint round trip equal bit
      for bit. Phase 14 also runs `render --renderer eam --device cuda`.
@@ -2842,21 +2848,22 @@ def rm_entries(dens, filt, x, y, z):
 
 class RmReads:
     """The lookups of a ray-march pass, replayed with the plain pieces: how
-    many, and which volume table entries (packed rows or raw texels) they
-    touch, each counted once."""
+    many, each pixel's (``trips``), and which volume table entries (packed
+    rows or raw texels) they touch, each counted once."""
 
     def __init__(self, dens, filt):
         from vpt_tpu_torch.ops import interp
 
         packed = isinstance(dens, interp.PackedVolume)
         vol = dens.table if packed else dens
-        self.dens, self.filt, self.lookups = dens, filt, 0
+        self.dens, self.filt, self.lookups, self.trips = dens, filt, 0, 0
         self.entry_bytes = vol.shape[-1] * vol.element_size() if packed else vol.element_size()
         self.touched = torch.zeros(vol.shape[0] if packed else vol.numel(), dtype=torch.bool,
                                    device=vol.device)
 
     def add(self, x, y, z, mask):
         self.lookups += int(mask.sum())
+        self.trips = self.trips + mask.to(torch.int32)  # each pixel's lookups
         for e in rm_entries(self.dens, self.filt, x, y, z):
             self.touched[e[mask].to(torch.int64)] = True
 
@@ -2910,6 +2917,43 @@ def rm_replay(kind, inv, dens, tft, filt, offset, eam=None):
         a = torch.where(active, a + w, a)
         reads.add(*pos, active)
     return reads, None
+
+
+def rm_trip_stats(trips, miss):
+    """Samples per ray over the hit pixels (mean, p99, max) and what a warp
+    pays when it marches 32 pixels of a row (K17's layout, and K15's and
+    K16's before their redesign) or an 8 x 4 tile (K15's and K16's): the
+    mean over warps with a hit of their longest ray, and the sample slots
+    the warps hold (32 x their longest ray) over the samples the rays
+    take."""
+    hit = ~miss
+    t = trips[hit].to(torch.float64)
+    out = dict(hit_pixels=int(hit.sum()), ray_mean=float(t.mean()),
+               ray_p99=float(torch.quantile(t, 0.99)), ray_max=int(t.max()))
+    for name, warps in (("row", lambda x: x.reshape(-1, 32)), ("tile", lao_warps)):
+        longest = warps(torch.where(hit, trips, 0)).amax(-1).to(torch.float64)
+        busy = longest[warps(hit).any(-1)]
+        out[f"{name}_warp_paid"] = float(busy.mean())
+        out[f"{name}_slots_over_trips"] = float(32 * busy.sum() / t.sum())
+    return out
+
+
+def march_occupancy(kernel, template, res):
+    """A ray-march kernel's instance as the card holds it: its registers
+    (ptxas), the 128-thread blocks an SM holds by those registers (a warp's
+    registers allocated in units of 256, 64K an SM, at most 16 blocks), the
+    blocks of a pass at R x R (K15, K16: 16 x 8 pixel tiles; the others
+    ceil(R^2 / 128)) and the waves they make over the card's SMs."""
+    from vpt_tpu_torch.kernels import _build
+
+    regs = {(k, t): g for k, t, g, *_ in _build.ptxas_table(_build.build_info["log"])}[
+        (kernel, template)]
+    per_sm = min(65536 // (-(-regs * 32 // 256) * 256 * 4), 16)
+    blocks = (-(-res // 16) * -(-res // 8) if kernel in ("march_kernel", "mip_kernel")
+              else -(-res * res // 128))
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return dict(instance=f"{kernel}<{template}>", registers=regs, blocks_per_sm=per_sm,
+                blocks=blocks, waves=blocks / (per_sm * sms))
 
 
 def rm_shade_reads(dens, filt, closest, h):
@@ -3009,6 +3053,12 @@ RM_REPLACES = {
     "iso_shade": "vpt_tpu/models/raymarch.py:259",
 }
 RM_SESSIONS = (("eam", "march_eam"), ("mip", "mip"), ("iso", "iso"), ("depth", "march_depth"))
+# each timed pass's instance on the u8 table (ptxas kernel, template), and
+# the passes whose trips per ray phase 19 prints
+RM_INSTANCES = {"march[eam]": ("march_kernel", "0,0"), "march[depth]": ("march_kernel", "1,0"),
+                "mip": ("mip_kernel", "0"), "iso": ("iso_kernel", ""),
+                "iso_shade": ("iso_shade_kernel", "")}
+RM_TRIPS = ("march[eam]", "march[depth]", "mip")
 
 
 def rm_session(key, dev, frames, checkpoint_at=None, tmp=None):
@@ -3116,7 +3166,29 @@ def phase_raymarch(dev):
     for label, dens, tft, filt in modes:
         for off in (0.0, offset):
             rm_check(rm_passes(inv, dens, tft, filt, off, dev), f"{label}, offset {off:.4f}")
-        log(f"# K15-K18 ({label}) == plain bit for bit at {RM_RES}^2, offsets 0 and {offset:.4f}")
+        log(f"# K15-K18 ({label}: K15/K16 <{RK.march_mode(dens, tft, filt)}>) == plain bit for "
+            f"bit at {RM_RES}^2, offsets 0 and {offset:.4f}")
+    # K15's and K16's other instances: the f32 table under quasicubic, the
+    # raw grid under linear and quasicubic beside the raw TF, and a packed
+    # table beside the raw TF (the generic instance)
+    raw_grid = torch.as_tensor(np.asarray(Volume.sphere_in_cube(VOLUME).density, np.float32),
+                               device=dev)
+    raw_tf = modes[3][2]
+    others = (("f32 quasicubic", modes[1][1], modes[1][2], "quasicubic"),
+              ("raw", raw_grid, raw_tf, "linear"),
+              ("raw quasicubic", raw_grid, raw_tf, "quasicubic"),
+              ("u8 + raw TF", modes[0][1], raw_tf, "linear"))
+    for label, dens, tft, filt in others:
+        for off in (0.0, offset):
+            passes = rm_passes(inv, dens, tft, filt, off, dev)
+            rm_check({k: passes[k] for k in ("march[eam]", "march[depth]", "mip")},
+                     f"{label}, offset {off:.4f}")
+        log(f"# K15/K16 <{RK.march_mode(dens, tft, filt)}> ({label}) == plain bit for bit at "
+            f"{RM_RES}^2, offsets 0 and {offset:.4f}")
+    seen = {RK.march_mode(d, t, f) for _, d, t, f in (*modes, *others)}
+    if seen != set(RK.MARCH_MODES):
+        raise AssertionError(f"phase 19 checked K15/K16 in {sorted(seen)}, not every instance")
+    del raw_grid, others
 
     # BASELINE config 1: 64^3, 256^2, 64 slices, extinction 80, the oracle
     # test's TF and pose, raw tables as its eam_frame call takes them
@@ -3141,6 +3213,7 @@ def phase_raymarch(dev):
 
     # each kernel by device time at R = 512 on the u8 linear table
     _, dens, tft, filt = modes[0]
+    miss = ray_miss(RM_RES, Camera(), dev)
     passes = rm_passes(inv, dens, tft, filt, offset, dev)
     kinds = {"march[eam]": "eam", "march[depth]": "depth", "mip": "mip", "iso": "iso"}
     n_px = RM_RES * RM_RES
@@ -3164,13 +3237,27 @@ def phase_raymarch(dev):
             nbytes = rm_iso_state_bytes(hit_t, st_k) if name == "iso" else state_bytes[name]
             b = rm_bound(reads, tft, nbytes, n_px * OPS_MARCH_RAY + reads.lookups * OPS_MARCH_SAMPLE)
         b["bound_share"] = b["bound_ms"] / ms
+        occ = march_occupancy(*RM_INSTANCES[name], RM_RES)
+        extra = dict(occupancy=occ)
+        if name in RM_TRIPS:
+            extra["trips"] = rm_trip_stats(reads.trips, miss)
         entries[name] = kernel_line(dict(name=name, route="cuda", source=RM_SOURCE,
                                          replaces=RM_REPLACES[name], max_abs_err=0.0, ms=ms,
-                                         plain_ms=plain_ms, samples=reads.lookups), b)
+                                         plain_ms=plain_ms, samples=reads.lookups, **extra), b)
         log(f"# {name} at {RM_RES}^2: {ms:.5f} ms kernel (device), plain {plain_ms:.4f} ms; "
             f"{reads.lookups} lookups, {int(reads.touched.sum())} volume entries; bound "
             f"{b['bound_ms']:.5f} ms by {b['bound_by']} ({b['bound_bytes']} B, "
-            f"{b['bound_ops']} FP32 ops), share {b['bound_share']:.3f}")
+            f"{b['bound_ops']} FP32 ops), share {b['bound_share']:.3f}; {occ['instance']}: "
+            f"{occ['registers']} registers, {occ['blocks_per_sm']} blocks an SM, "
+            f"{occ['blocks']} blocks, {occ['waves']:.3f} waves")
+        if name in RM_TRIPS:
+            tr = extra["trips"]
+            log(f"# {name} trips per ray over the {tr['hit_pixels']} hit pixels: mean "
+                f"{tr['ray_mean']:.3f}, p99 {tr['ray_p99']:.1f}, max {tr['ray_max']}; a warp with "
+                f"a hit pays {tr['row_warp_paid']:.3f} over a row of 32 "
+                f"({tr['row_slots_over_trips']:.3f}x the trips taken), "
+                f"{tr['tile_warp_paid']:.3f} over an 8 x 4 tile "
+                f"({tr['tile_slots_over_trips']:.3f}x)")
 
     # K15 over a 256^3 volume: its 136 MB u8 table does not fit in the L2
     big = TR._pack_if_linear(Volume.sphere_in_cube(256), TransferFunction2D.grayscale_ramp(), dev)
@@ -3401,7 +3488,10 @@ def phase_eam_fit(dev):
                 err[key] = max(err[key], eam_bwd_check(
                     g, inv, dens, tft, offset, filt, learn_tf,
                     f"{label}, {filt}, {'with' if learn_tf else 'without'} the TF"))
-        log(f"# EAMFrame forward == eam_frame bit for bit ({label}; linear, quasicubic, nearest)")
+        instances = ", ".join(RK.march_mode(dens, tft, f) for f in ("linear", "quasicubic",
+                                                                     "nearest"))
+        log(f"# EAMFrame forward == eam_frame bit for bit ({label}; linear, quasicubic, nearest: "
+            f"K15 <{instances}>)")
 
     # device times against the bounds, on the fit's scene (linear)
     entries, reads = {}, rm_replay("eam", inv, truth, tft, "linear", offset,
@@ -3413,14 +3503,17 @@ def phase_eam_fit(dev):
     b = rm_bound(reads, tft, res * res * 3 * 4,
                  res * res * OPS_MARCH_RAY + reads.lookups * OPS_MARCH_SAMPLE)
     b["bound_share"] = b["bound_ms"] / ms
+    occ = march_occupancy("march_kernel", "0,4", res)
     entries["march[eam_frame]"] = kernel_line(dict(
         name="march[eam_frame]", route="cuda", source=RM_SOURCE,
         replaces="vpt_tpu/models/raymarch.py:99", max_abs_err=0.0, ms=ms,
-        plain_ms=plain_ms, samples=reads.lookups), b)
+        plain_ms=plain_ms, samples=reads.lookups, occupancy=occ), b)
     log(f"# march[eam_frame] (K15, the frame alone) at {res}^2 over {F['volume']}^3: {ms:.5f} ms "
         f"(device), plain {plain_ms:.4f} ms; {reads.lookups} samples, "
         f"{int(reads.touched.sum())} grid entries; bound {b['bound_ms']:.5f} ms by "
-        f"{b['bound_by']}, share {b['bound_share']:.3f}")
+        f"{b['bound_by']}, share {b['bound_share']:.3f}; {occ['instance']}: "
+        f"{occ['registers']} registers, {occ['blocks_per_sm']} blocks an SM, {occ['waves']:.3f} "
+        "waves")
     for learn_tf in (False, True):
         key = "eam_backward[tf]" if learn_tf else "eam_backward"
         args = (g, inv, truth, tft, F["extinction"], offset, F["slices"], "linear", learn_tf)

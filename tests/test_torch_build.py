@@ -63,7 +63,7 @@ def test_sources_of_each_directory():
 
 
 RAYMARCH_LOG = """== raymarch.cu
-ptxas info    : Compiling entry function '_ZN46_GLOBAL__N__5d1e2f3a_11_raymarch_cu_7c6b5a4912march_kernelILi1EEEvNS_5MarchEPKvPKfPfPKiS6_' for 'sm_90a'
+ptxas info    : Compiling entry function '_ZN46_GLOBAL__N__5d1e2f3a_11_raymarch_cu_7c6b5a4912march_kernelILi1ELi0EEEvNS_5MarchEPKvPKfPfPKiS6_' for 'sm_90a'
 ptxas info    : Used 56 registers, used 0 barriers
 ptxas info    : Compiling entry function '_ZN46_GLOBAL__N__5d1e2f3a_11_raymarch_cu_7c6b5a4916iso_shade_kernelENS_5MarchEPKvPKfS4_S4_S4_S4_Pf' for 'sm_90a'
 ptxas info    : Function properties for _ZN46_GLOBAL__N__5d1e2f3a_11_raymarch_cu_7c6b5a4916iso_shade_kernelENS_5MarchEPKvPKfS4_S4_S4_S4_Pf
@@ -71,18 +71,19 @@ ptxas info    : Function properties for _ZN46_GLOBAL__N__5d1e2f3a_11_raymarch_cu
 ptxas info    : Used 56 registers, used 0 barriers
 ptxas info    : Compiling entry function '_ZN46_GLOBAL__N__5d1e2f3a_11_raymarch_cu_7c6b5a4910iso_kernelENS_5MarchEPKvPKfPfS5_S5_S5_' for 'sm_90a'
 ptxas info    : Used 40 registers, used 0 barriers
-ptxas info    : Compiling entry function '_ZN46_GLOBAL__N__5d1e2f3a_11_raymarch_cu_7c6b5a4910mip_kernelENS_5MarchEPKvPKfPf' for 'sm_90a'
+ptxas info    : Compiling entry function '_ZN46_GLOBAL__N__5d1e2f3a_11_raymarch_cu_7c6b5a4910mip_kernelILi7EEEvNS_5MarchEPKvPKfPf' for 'sm_90a'
 ptxas info    : Used 48 registers, used 0 barriers
 """
 
 
 def test_ptxas_table_reads_the_ray_march_kernels():
-    """K15's mode is its template argument; iso_kernel is not read into
+    """K15's kind (EAM 0, Depth 1) and table mode are its template
+    arguments, K16's table mode its one; iso_kernel is not read into
     iso_shade_kernel's row."""
-    assert _build.ptxas_table(RAYMARCH_LOG) == [("march_kernel", "1", 56, 0, 0, 0),
+    assert _build.ptxas_table(RAYMARCH_LOG) == [("march_kernel", "1,0", 56, 0, 0, 0),
                                                 ("iso_shade_kernel", "", 56, 0, 0, 0),
                                                 ("iso_kernel", "", 40, 0, 0, 0),
-                                                ("mip_kernel", "", 48, 0, 0, 0)]
+                                                ("mip_kernel", "7", 48, 0, 0, 0)]
 
 
 MCM_LOG = """== mcm.cu

@@ -154,3 +154,25 @@ def test_mesh_options_that_raise(case):
         three = RayMesh(group=None, rank=0, size=3, device=torch.device("cpu"), backend="gloo")
         with pytest.raises(ValueError):
             TM.MCMSpectralRenderer(*_scene(), mesh=three, **kw)
+
+
+@pytest.fixture(scope="module")
+def fit_runs(tmp_path_factory):
+    """``fit_spectral`` on the mesh renderer at world sizes 1 and 2."""
+    return {w: D.run(w, tmp_path_factory.mktemp(f"fit{w}"), [("fit", "fit_mesh", {})])
+            for w in (1, 2)}
+
+
+@pytest.mark.parametrize("world", [1, 2])
+@pytest.mark.parametrize("method", ["prb", "autodiff"])
+def test_fit_spectral_on_a_mesh_renderer(fit_runs, world, method):
+    """Over two ranks ``fit_spectral`` refuses a mesh renderer on every rank
+    (NotImplementedError, as ``fit_density(mesh=...)``), where it once
+    failed with a shape error; over one rank it fits, its losses finite."""
+    for rank in fit_runs[world]:
+        got = rank["fit"][method]
+        if world > 1:
+            assert got.get("raised") == "NotImplementedError" and "mesh" in got["message"]
+        else:
+            assert "raised" not in got, got
+            assert len(got["losses"]) == D.FIT["iterations"] and np.isfinite(got["losses"]).all()

@@ -41,16 +41,35 @@
 // volume rows the samples touch sit in the L2 (the whole 129^3 x 8 u8
 // table is 17 MB), and the TF is read at v = 0 only, one row of the table
 // (16 KB packed); the bytes and operations a pass needs (counted by
-// chip_smoke.py's phase 19) bound it far below its time. A pass is one
-// wave of threads and lasts as long as its longest rays (those that graze
-// the cube or cross its empty margin take every sample), each sample two
-// dependent gathers (the TF row waits on the density): the kernels are
-// bound by that latency chain. A thread holds 40-72 registers, a block
+// chip_smoke.py's phase 19) bound it far below its time. A pass lasts as
+// long as its longest rays (those that graze the cube or cross its empty
+// margin take every sample), each sample two dependent gathers (the TF row
+// waits on the density) and the instructions of its lookups. K17-K19 run
+// that chain one sample at a time, their tables' layout read from the
+// parameter block at every lookup; a thread holds 40-72 registers, a block
 // 128 threads (K19 without the TF 256). K19 walks each ray twice (the
 // march replayed, then its steps backwards) and adds 8 float atomics per
 // step into the density gradient (1 for nearest); neighbouring pixels'
 // rays share voxels, so those atomics meet on the same addresses (counted
 // by chip_smoke.py's phase 20).
+//
+// K15 and K16 (redesigned; each lever timed in turns on the card,
+// probes/raymarch_variants.py, PERF.md): an instance per table pair
+// (MarchMode, written by the wrapper into RI_MODE: the pairs the renderers
+// and fit_density build inline their one lookup path, a generic instance
+// reads the flags); a warp marches an 8 x 4 pixel tile, a block 16 x 8, so
+// a warp's rays are alike in length; the lookups of a batch of samples
+// (MIP_BATCH, EAM_BATCH, DEPTH_BATCH) are issued together, their volume
+// gathers and then their TF gathers, and folded in order, so a thread waits
+// on two gathers a batch instead of two a sample (K15 composites a batch's
+// samples in order and stops where the one-sample loop stops; only whole
+// batches whose every t is < 1 are batched, the rest runs one sample at a
+// time, so no lookup is issued for t >= 1); K16's offset wrap is exact
+// without fmodf where the offsets lie in [0, 2); K16 and Depth load the
+// TF's alpha words only, the TF's row at v = 0 located once a thread, the
+// raw TF's one row read once a lookup; a u8 corner is dequantized without
+// u8_unit's zero test. A dynamic queue of tiles (a warp taking the next
+// tile from a global counter) lost 10-40% to the static grid.
 //
 // The marches stop early where nothing later can change the result, which
 // the masked scans of the JAX code cannot: EAM once acc_a >= 0.99 or t >= 1,
@@ -74,6 +93,16 @@
 namespace {
 
 #define MARCH_THREADS 128
+// K15's and K16's block: a 16 x 8 pixel tile, as four warps of 8 x 4
+#define MARCH_TILE_W 16
+#define MARCH_TILE_H 8
+// samples whose lookups a thread issues together: K16, K15 EAM, K15 Depth
+#define MIP_BATCH 8
+#define EAM_BATCH 8
+#define DEPTH_BATCH 2
+// K15's minimum of blocks an SM (__launch_bounds__): EAM, Depth
+#define EAM_MIN_BLOCKS 3
+#define DEPTH_MIN_BLOCKS 8
 
 // parameter block layout, mirrored by vpt_tpu_torch/kernels/raymarch.py
 enum MarchF {
@@ -98,9 +127,24 @@ enum MarchI {
   RI_NEAREST,      // raw grid only
   RI_TF_RAW,       // 1: a raw (H, W, 4) texture, given as H+1, W+1
   RI_TF_H, RI_TF_W,
+  RI_MODE,         // K15, K16: the tables' MarchMode (kernels/raymarch.py march_mode)
   RI_COUNT,
 };
-enum MarchMode { EAM = 0, DEPTH = 1 };
+enum MarchKind { EAM = 0, DEPTH = 1 };
+// K15's and K16's instance by table pair: the pairs the renderers and
+// fit_density build, each inlining its one lookup path, and every other
+// pair the wrapper takes in the generic instance, which reads the flags
+enum MarchMode {
+  MM_U8 = 0,     // packed u8 corner table, linear, beside the packed TF
+  MM_F32,        // packed f32 corner table, linear, packed TF
+  MM_U8_QC,      // packed u8, quasicubic, packed TF
+  MM_F32_QC,     // packed f32, quasicubic, packed TF
+  MM_RAW,        // raw f32 grid, linear, raw TF
+  MM_RAW_QC,     // raw f32 grid, quasicubic, raw TF
+  MM_NEAREST,    // raw f32 grid, nearest, raw TF
+  MM_GENERIC,    // any other pair, by the runtime flags
+  MM_COUNT,
+};
 
 struct March {
   float f[RF_COUNT];
@@ -143,31 +187,221 @@ __device__ __forceinline__ float step_length(const CubeRay& r, float step) {
   return sqrtf(ex * ex + ey * ey + ez * ez) * step;
 }
 
+// ---------------------------------------------------------------------------
+// K15 and K16: an instance per table pair, batches of samples
+// ---------------------------------------------------------------------------
+template <int MODE>
+__host__ __device__ constexpr bool mode_raw() {
+  return MODE == MM_RAW || MODE == MM_RAW_QC || MODE == MM_NEAREST;
+}
+template <int MODE>
+__host__ __device__ constexpr bool mode_u8() {
+  return MODE == MM_U8 || MODE == MM_U8_QC;
+}
+
+// byte k of a packed u8 corner row as float(code) / 255: u8_unit's
+// corrected product with RN(1/255) without its zero test (a code of 0
+// gives +0 either way; tests/test_torch_raymarch_modes.py holds all 256)
+__device__ __forceinline__ float march_u8(uint32_t word, int k) {
+  const float v = __uint_as_float(__byte_perm(word, 0x4B000000u, 0x7440u + k)) - 8388608.0f;
+  const float q = __fmul_rn(v, kInv255);
+  return __fmaf_rn(__fmaf_rn(-255.0f, q, v), kInv255, q);
+}
+
+// sample_volume on a packed u8 "full" table (the same row, corners, lerps
+// and bits), its corners dequantized by march_u8
+template <bool QC>
+__device__ __forceinline__ float sample_volume_u8(const void* table, int Dp, int Hp, int Wp,
+                                                  float u, float v, float w) {
+  int64_t row, row1;
+  float fx, fy, fz;
+  volume_rows(false, Dp, Hp, Wp, u, v, w, row, row1, fx, fy, fz);
+  if (QC) {
+    fx = quasicubic(fx);
+    fy = quasicubic(fy);
+    fz = quasicubic(fz);
+  }
+  const uint2 raw = __ldg(reinterpret_cast<const uint2*>(static_cast<const uint8_t*>(table) +
+                                                         row * 8));
+  const float c00 = lerp(march_u8(raw.x, 0), march_u8(raw.x, 1), fx);
+  const float c01 = lerp(march_u8(raw.x, 2), march_u8(raw.x, 3), fx);
+  const float c10 = lerp(march_u8(raw.y, 0), march_u8(raw.y, 1), fx);
+  const float c11 = lerp(march_u8(raw.y, 2), march_u8(raw.y, 3), fx);
+  const float c0 = lerp(c00, c01, fy);
+  const float c1 = lerp(c10, c11, fy);
+  return lerp(c0, c1, fz);
+}
+
+// the volume density at (u, v, w) in MODE's table: one lookup path inlined
+// in each instance, march_density's runtime flags in the generic one
+template <int MODE>
+__device__ __forceinline__ float mode_density(const void* vol, const March& P, float u, float v,
+                                              float w) {
+  if constexpr (MODE == MM_GENERIC)
+    return march_density(vol, P, u, v, w);
+  else if constexpr (mode_raw<MODE>())
+    return sample_volume_raw(static_cast<const float*>(vol), P.i[RI_VOL_D], P.i[RI_VOL_H],
+                             P.i[RI_VOL_W], u, v, w, MODE == MM_RAW_QC, MODE == MM_NEAREST);
+  else if constexpr (mode_u8<MODE>())
+    return sample_volume_u8<MODE == MM_U8_QC>(vol, P.i[RI_VOL_D], P.i[RI_VOL_H], P.i[RI_VOL_W],
+                                              u, v, w);
+  else
+    return sample_volume(vol, 0, P.i[RI_VOL_D], P.i[RI_VOL_H], P.i[RI_VOL_W], u, v, w, nullptr,
+                         MODE == MM_F32_QC, false);
+}
+
+// The classic TF read at v = 0 (sample_rgba's y): the rows its four
+// texels come from and their fraction, the same for every lookup, located
+// once a thread. Packed: the 16-wide corner row by of the (Hp, Wp, 16)
+// table (k00, k01, k10, k11 as four float4 at column bx); raw: rows y0 (r0)
+// and y1 (r1) of the (H, W, 4) texture.
+struct TfAt0 {
+  const float4* r0;
+  const float4* r1;
+  float fy;
+  int Wp;
+  bool raw;
+};
+
+template <int MODE>
+__device__ __forceinline__ TfAt0 tf_at0(const float* __restrict__ tf, const March& P) {
+  TfAt0 q;
+  if constexpr (MODE == MM_GENERIC)
+    q.raw = P.i[RI_TF_RAW] != 0;
+  else
+    q.raw = mode_raw<MODE>();
+  const int Hp = P.i[RI_TF_H];
+  q.Wp = P.i[RI_TF_W];
+  int by;
+  base_frac(0.0f, Hp - 1, by, q.fy);
+  const float4* t = reinterpret_cast<const float4*>(tf);
+  q.r0 = q.raw ? t + (int64_t)max(by - 1, 0) * (q.Wp - 1) : t + ((int64_t)by * q.Wp) * 4;
+  // the raw y1 = min(by, H - 1) is y0: base_frac puts v = 0 at by = 0 for
+  // every H, so both rows of a lookup are row 0 and its k10, k11 are k00,
+  // k01 (the packed row holds all four)
+  q.r1 = q.r0;
+  return q;
+}
+
+// the four texels of a lookup at x, as sample_tex2d_rgba addresses them
+__device__ __forceinline__ void tf_texels(const TfAt0& q, float x, const float4*& p00,
+                                          const float4*& p01, const float4*& p10,
+                                          const float4*& p11, float& fx) {
+  int bx;
+  base_frac(x, q.Wp - 1, bx, fx);
+  if (q.raw) {
+    const int x0 = max(bx - 1, 0), x1 = min(bx, q.Wp - 2);
+    p00 = q.r0 + x0;
+    p01 = q.r0 + x1;
+    p10 = q.r1 + x0;
+    p11 = q.r1 + x1;
+  } else {
+    p00 = q.r0 + bx * 4;
+    p01 = p00 + 1;
+    p10 = p00 + 2;
+    p11 = p00 + 3;
+  }
+}
+
+// sample_rgba(tf, ..., x): the same texels, lerps and bits
+__device__ __forceinline__ float4 tf_rgba(const TfAt0& q, float x) {
+  const float4 *p00, *p01, *p10, *p11;
+  float fx;
+  tf_texels(q, x, p00, p01, p10, p11, fx);
+  const float4 k00 = __ldg(p00), k01 = __ldg(p01), k10 = __ldg(p10), k11 = __ldg(p11);
+  const float fy = q.fy;
+  float4 o;
+  o.x = lerp(lerp(k00.x, k01.x, fx), lerp(k10.x, k11.x, fx), fy);
+  o.y = lerp(lerp(k00.y, k01.y, fx), lerp(k10.y, k11.y, fx), fy);
+  o.z = lerp(lerp(k00.z, k01.z, fx), lerp(k10.z, k11.z, fx), fy);
+  o.w = lerp(lerp(k00.w, k01.w, fx), lerp(k10.w, k11.w, fx), fy);
+  return o;
+}
+
+// sample_rgba(...).w with only the four alpha words loaded
+__device__ __forceinline__ float tf_alpha(const TfAt0& q, float x) {
+  const float4 *p00, *p01, *p10, *p11;
+  float fx;
+  tf_texels(q, x, p00, p01, p10, p11, fx);
+  const float a00 = __ldg(&p00->w), a01 = __ldg(&p01->w);
+  const float a10 = __ldg(&p10->w), a11 = __ldg(&p11->w);
+  return lerp(lerp(a00, a01, fx), lerp(a10, a11, fx), q.fy);
+}
+
+// this thread's pixel: the warp's 8 x 4 tile of the block's 16 x 8 (the
+// blocks a grid over the image's tiles)
+__device__ __forceinline__ void march_pixel(int& ix, int& iy) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  ix = blockIdx.x * MARCH_TILE_W + (warp & 1) * 8 + (lane & 7);
+  iy = blockIdx.y * MARCH_TILE_H + (warp >> 1) * 4 + (lane >> 3);
+}
+
+// The march's samples along r at t: the point lerped from entry to exit
+__device__ __forceinline__ void ray_point(const CubeRay& r, float t, float& x, float& y,
+                                          float& z) {
+  x = lerp(r.nx, r.xx, t);
+  y = lerp(r.ny, r.xy, t);
+  z = lerp(r.nz, r.xz, t);
+}
+
 // K15: EAM (composite, renormalize, running average into acc (R, R, 3) with
 // the frame count already advanced, or the frame itself into out (R, R, 3)
 // when out is given) or Depth (march to the threshold, write the display
-// image out (R, R, 3)).
-template <int MODE>
-__global__ void __launch_bounds__(MARCH_THREADS)
-march_kernel(const March P, const void* __restrict__ vol, const float* __restrict__ tf,
-             float* __restrict__ acc, const int* __restrict__ frame,
-             float* __restrict__ out) {
-  const int res = P.i[RI_RES];
-  const int pix = blockIdx.x * blockDim.x + threadIdx.x;
-  if (pix >= res * res) return;
-  const int iy = pix / res, ix = pix - iy * res;
+// image out (R, R, 3)); MODE the tables' MarchMode. Sample k sits at t =
+// step * offset + k * step, which grows with k, so a batch whose last t is
+// < 1 has every t < 1: such batches issue their lookups together; the rest
+// of the ray runs one sample at a time. Both stop at the first sample with
+// t >= 1 or the accumulated opacity past its limit, as the one-sample loop.
+template <int KIND, int MODE>
+__device__ __forceinline__ void march_ray(const March& P, const void* __restrict__ vol,
+                                          const float* __restrict__ tf, float* __restrict__ acc,
+                                          const int* __restrict__ frame, float* __restrict__ out,
+                                          int ix, int iy) {
+  constexpr int B = KIND == EAM ? EAM_BATCH : DEPTH_BATCH;
+  const int pix = iy * P.i[RI_RES] + ix;
   const CubeRay r = cube_ray(P.f + RF_INV_MVP, P.f[RF_INV_RES], ix, iy);
   const float step = P.f[RF_STEP], offset = P.f[RF_OFFSET], ext = P.f[RF_EXTINCTION];
   const float rsl = step_length(r, step);
   const int trips = P.i[RI_TRIPS];
-  if (MODE == EAM) {
+  const float t0 = step * offset;
+  const TfAt0 q = tf_at0<MODE>(tf, P);
+  if (KIND == EAM) {
     float ar = 0.0f, ag = 0.0f, ab = 0.0f, aa = 0.0f;
     if (!r.miss) {
-      for (int k = 0; k < trips; ++k) {
-        const float t = step * offset + (float)k * step;
+      int k = 0;
+      bool live = true;
+      for (; k + B <= trips; k += B) {
+        if (!(t0 + (float)(k + B - 1) * step < 1.0f) || !(aa < 0.99f)) break;
+        float d[B];
+#pragma unroll
+        for (int j = 0; j < B; ++j) {
+          float x, y, z;
+          ray_point(r, t0 + (float)(k + j) * step, x, y, z);
+          d[j] = mode_density<MODE>(vol, P, x, y, z);
+        }
+        float4 c[B];
+#pragma unroll
+        for (int j = 0; j < B; ++j) c[j] = tf_rgba(q, d[j]);
+#pragma unroll
+        for (int j = 0; j < B; ++j) {
+          if (!(aa < 0.99f)) {
+            live = false;
+            break;
+          }
+          const float w = (1.0f - aa) * (c[j].w * rsl * ext);
+          ar = ar + w * c[j].x;
+          ag = ag + w * c[j].y;
+          ab = ab + w * c[j].z;
+          aa = aa + w;
+        }
+        if (!live) break;
+      }
+      for (; live && k < trips; ++k) {
+        const float t = t0 + (float)k * step;
         if (!(t < 1.0f) || !(aa < 0.99f)) break;
-        const float4 c = sample_point(vol, tf, P, lerp(r.nx, r.xx, t), lerp(r.ny, r.xy, t),
-                                      lerp(r.nz, r.xz, t));
+        float x, y, z;
+        ray_point(r, t, x, y, z);
+        const float4 c = tf_rgba(q, mode_density<MODE>(vol, P, x, y, z));
         const float w = (1.0f - aa) * (c.w * rsl * ext);
         ar = ar + w * c.x;
         ag = ag + w * c.y;
@@ -193,12 +427,37 @@ march_kernel(const March P, const void* __restrict__ vol, const float* __restric
     const float thr = P.f[RF_THRESHOLD];
     float a = 0.0f, t_stop = -1.0f;
     if (!r.miss) {
-      for (int k = 0; k < trips; ++k) {
-        const float t = step * offset + (float)k * step;
+      int k = 0;
+      bool live = true;
+      for (; k + B <= trips; k += B) {
+        if (!(t0 + (float)(k + B - 1) * step < 1.0f) || !(a < thr)) break;
+        float d[B];
+#pragma unroll
+        for (int j = 0; j < B; ++j) {
+          float x, y, z;
+          ray_point(r, t0 + (float)(k + j) * step, x, y, z);
+          d[j] = mode_density<MODE>(vol, P, x, y, z);
+        }
+        float al[B];
+#pragma unroll
+        for (int j = 0; j < B; ++j) al[j] = tf_alpha(q, d[j]);
+#pragma unroll
+        for (int j = 0; j < B; ++j) {
+          if (!(a < thr)) {
+            live = false;
+            break;
+          }
+          a = a + (1.0f - a) * al[j] * rsl * ext;
+          if (a >= thr) t_stop = (t0 + (float)(k + j) * step) + step;
+        }
+        if (!live) break;
+      }
+      for (; live && k < trips; ++k) {
+        const float t = t0 + (float)k * step;
         if (!(t < 1.0f) || !(a < thr)) break;
-        const float4 c = sample_point(vol, tf, P, lerp(r.nx, r.xx, t), lerp(r.ny, r.xy, t),
-                                      lerp(r.nz, r.xz, t));
-        a = a + (1.0f - a) * c.w * rsl * ext;
+        float x, y, z;
+        ray_point(r, t, x, y, z);
+        a = a + (1.0f - a) * tf_alpha(q, mode_density<MODE>(vol, P, x, y, z)) * rsl * ext;
         if (a >= thr) t_stop = t + step;
       }
     }
@@ -212,29 +471,97 @@ march_kernel(const March P, const void* __restrict__ vol, const float* __restric
   }
 }
 
+// K15's minimum of blocks an SM: EAM's 3 leave ptxas the registers to keep
+// a batch's lookups in flight (167 on the u8 table, against 72 without a
+// minimum); Depth's short rays keep to 61 at 8 (none spills there)
+template <int KIND>
+__host__ __device__ constexpr int march_min_blocks() {
+  return KIND == EAM ? EAM_MIN_BLOCKS : DEPTH_MIN_BLOCKS;
+}
+
+template <int KIND, int MODE>
+__global__ void __launch_bounds__(MARCH_THREADS, march_min_blocks<KIND>())
+march_kernel(const March P, const void* __restrict__ vol, const float* __restrict__ tf,
+             float* __restrict__ acc, const int* __restrict__ frame,
+             float* __restrict__ out) {
+  int ix, iy;
+  march_pixel(ix, iy);
+  if (ix < P.i[RI_RES] && iy < P.i[RI_RES])
+    march_ray<KIND, MODE>(P, vol, tf, acc, frame, out, ix, iy);
+}
+
+// jnp.mod / torch.remainder of x by 1: fmodf, then the divisor's sign
+__device__ __forceinline__ float mip_wrap(float x) {
+  float o = fmodf(x, 1.0f);
+  if (o < 0.0f) o = o + 1.0f;
+  return o;
+}
+
+// mip_wrap on [0, 2): x < 1 ? x : x - 1 (x - 1 exact by Sterbenz's lemma,
+// fmodf's bits)
+__device__ __forceinline__ float mip_wrap_02(float x) {
+  return x < 1.0f ? x : x - 1.0f;
+}
+
 // K16: the maximum TF alpha over the offset-wrapped march, max-merged into
-// acc (R, R).
-__global__ void __launch_bounds__(MARCH_THREADS)
-mip_kernel(const March P, const void* __restrict__ vol, const float* __restrict__ tf,
-           float* __restrict__ acc) {
-  const int res = P.i[RI_RES];
-  const int pix = blockIdx.x * blockDim.x + threadIdx.x;
-  if (pix >= res * res) return;
-  const int iy = pix / res, ix = pix - iy * res;
+// acc (R, R); MODE the tables' MarchMode. The maximum folds in sample order,
+// a batch's lookups issued together. x_k = offset + k * step is monotone in
+// k and the same in every thread: where its ends lie in [0, 2), so does
+// every x_k, and the march wraps them without fmodf.
+template <int MODE>
+__device__ __forceinline__ void mip_ray(const March& P, const void* __restrict__ vol,
+                                        const float* __restrict__ tf, float* __restrict__ acc,
+                                        int ix, int iy) {
+  constexpr int B = MIP_BATCH;
+  const int pix = iy * P.i[RI_RES] + ix;
   const CubeRay r = cube_ray(P.f + RF_INV_MVP, P.f[RF_INV_RES], ix, iy);
   const float step = P.f[RF_STEP], offset = P.f[RF_OFFSET];
+  const int trips = P.i[RI_TRIPS];
   float val = 0.0f;
   if (!r.miss) {
-    for (int k = 0; k < P.i[RI_TRIPS]; ++k) {
-      // jnp.mod / torch.remainder by 1: fmod, then the divisor's sign
-      float o = fmodf(offset + (float)k * step, 1.0f);
-      if (o < 0.0f) o = o + 1.0f;
-      const float4 c = sample_point(vol, tf, P, lerp(r.nx, r.xx, o), lerp(r.ny, r.xy, o),
-                                    lerp(r.nz, r.xz, o));
-      val = nmax(val, c.w);
+    const TfAt0 q = tf_at0<MODE>(tf, P);
+    const float x0 = offset + 0.0f * step, x1 = offset + (float)(trips - 1) * step;
+    if (x0 >= 0.0f && x0 < 2.0f && x1 >= 0.0f && x1 < 2.0f) {
+      int k = 0;
+      for (; k + B <= trips; k += B) {
+        float d[B];
+#pragma unroll
+        for (int j = 0; j < B; ++j) {
+          float x, y, z;
+          ray_point(r, mip_wrap_02(offset + (float)(k + j) * step), x, y, z);
+          d[j] = mode_density<MODE>(vol, P, x, y, z);
+        }
+        float al[B];
+#pragma unroll
+        for (int j = 0; j < B; ++j) al[j] = tf_alpha(q, d[j]);
+#pragma unroll
+        for (int j = 0; j < B; ++j) val = nmax(val, al[j]);
+      }
+      for (; k < trips; ++k) {
+        float x, y, z;
+        ray_point(r, mip_wrap_02(offset + (float)k * step), x, y, z);
+        val = nmax(val, tf_alpha(q, mode_density<MODE>(vol, P, x, y, z)));
+      }
+    } else {
+      for (int k = 0; k < trips; ++k) {
+        float x, y, z;
+        ray_point(r, mip_wrap(offset + (float)k * step), x, y, z);
+        val = nmax(val, tf_alpha(q, mode_density<MODE>(vol, P, x, y, z)));
+      }
     }
   }
   acc[pix] = nmax(acc[pix], val);
+}
+
+// a minimum of one block an SM leaves ptxas the registers to keep a
+// batch's lookups in flight (77 on the u8 table, against 40 without it)
+template <int MODE>
+__global__ void __launch_bounds__(MARCH_THREADS, 1)
+mip_kernel(const March P, const void* __restrict__ vol, const float* __restrict__ tf,
+           float* __restrict__ acc) {
+  int ix, iy;
+  march_pixel(ix, iy);
+  if (ix < P.i[RI_RES] && iy < P.i[RI_RES]) mip_ray<MODE>(P, vol, tf, acc, ix, iy);
 }
 
 // K17: the closest sample with alpha >= isovalue, merged into the state's
@@ -576,6 +903,25 @@ unsigned march_blocks(const March& P) {
   return (unsigned)blocks_for(P.i[RI_RES] * P.i[RI_RES], MARCH_THREADS);
 }
 
+// K15's and K16's instance: RI_MODE a MarchMode whose tables are the ones
+// the flags describe (the generic instance takes any)
+bool mode_ok(const March& P) {
+  const int m = P.i[RI_MODE];
+  if (m < 0 || m >= MM_COUNT) return false;
+  if (m == MM_GENERIC) return true;
+  const bool raw = m == MM_RAW || m == MM_RAW_QC || m == MM_NEAREST;
+  const bool qc = m == MM_U8_QC || m == MM_F32_QC || m == MM_RAW_QC;
+  return (P.i[RI_VOL_RAW] != 0) == raw && (P.i[RI_TF_RAW] != 0) == raw &&
+         (P.i[RI_QUASICUBIC] != 0) == qc && (P.i[RI_NEAREST] != 0) == (m == MM_NEAREST) &&
+         (raw || (P.i[RI_VOL_U8] != 0) == (m == MM_U8 || m == MM_U8_QC));
+}
+
+// K15's and K16's grid: 16 x 8 pixel tiles
+dim3 march_grid(const March& P) {
+  return dim3((unsigned)blocks_for(P.i[RI_RES], MARCH_TILE_W),
+              (unsigned)blocks_for(P.i[RI_RES], MARCH_TILE_H));
+}
+
 }  // namespace
 
 extern "C" {
@@ -593,32 +939,55 @@ int vpt_march_layout(int which) {
 // mode 0 (EAM): acc (R*R*3 floats) updated in place, frame a device int
 // holding the advanced frame count, out null; or the frame alone: out
 // (R*R*3 floats) written, acc and frame null; mode 1 (Depth): out (R*R*3
-// floats) written, acc and frame null
+// floats) written, acc and frame null. The instance: RI_MODE (MarchMode).
 int vpt_march(const float* fparams, const int* iparams, int mode, const void* vol,
               const float* tf, float* acc, const int* frame, float* out, void* stream) {
   const March P = make_march(fparams, iparams);
-  if (!march_ok(P, vol, tf)) return (int)cudaErrorInvalidValue;
+  if (!march_ok(P, vol, tf) || !mode_ok(P)) return (int)cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (mode == EAM) {
     const bool merge = acc != nullptr && frame != nullptr && out == nullptr;
     const bool alone = acc == nullptr && frame == nullptr && out != nullptr;
     if (!merge && !alone) return (int)cudaErrorInvalidValue;
-    march_kernel<EAM><<<march_blocks(P), MARCH_THREADS, 0, st>>>(P, vol, tf, acc, frame, out);
   } else if (mode == DEPTH) {
     if (acc != nullptr || frame != nullptr || out == nullptr) return (int)cudaErrorInvalidValue;
-    march_kernel<DEPTH><<<march_blocks(P), MARCH_THREADS, 0, st>>>(P, vol, tf, acc, frame, out);
   } else {
     return (int)cudaErrorInvalidValue;
+  }
+  const dim3 grid = march_grid(P);
+  switch (P.i[RI_MODE] * 2 + mode) {
+#define VPT_MARCH_MODE(M)                                                                       \
+  case M * 2 + EAM:                                                                             \
+    march_kernel<EAM, M><<<grid, MARCH_THREADS, 0, st>>>(P, vol, tf, acc, frame, out);          \
+    break;                                                                                      \
+  case M * 2 + DEPTH:                                                                           \
+    march_kernel<DEPTH, M><<<grid, MARCH_THREADS, 0, st>>>(P, vol, tf, acc, frame, out);        \
+    break;
+    VPT_MARCH_MODE(MM_U8) VPT_MARCH_MODE(MM_F32) VPT_MARCH_MODE(MM_U8_QC)
+    VPT_MARCH_MODE(MM_F32_QC) VPT_MARCH_MODE(MM_RAW) VPT_MARCH_MODE(MM_RAW_QC)
+    VPT_MARCH_MODE(MM_NEAREST) VPT_MARCH_MODE(MM_GENERIC)
+#undef VPT_MARCH_MODE
   }
   return (int)cudaGetLastError();
 }
 
+// The instance: RI_MODE (MarchMode).
 int vpt_mip(const float* fparams, const int* iparams, const void* vol, const float* tf,
             float* acc, void* stream) {
   const March P = make_march(fparams, iparams);
-  if (!march_ok(P, vol, tf) || acc == nullptr) return (int)cudaErrorInvalidValue;
-  mip_kernel<<<march_blocks(P), MARCH_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      P, vol, tf, acc);
+  if (!march_ok(P, vol, tf) || !mode_ok(P) || acc == nullptr) return (int)cudaErrorInvalidValue;
+  const dim3 grid = march_grid(P);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (P.i[RI_MODE]) {
+#define VPT_MIP_MODE(M)                                                                         \
+  case M:                                                                                       \
+    mip_kernel<M><<<grid, MARCH_THREADS, 0, st>>>(P, vol, tf, acc);                             \
+    break;
+    VPT_MIP_MODE(MM_U8) VPT_MIP_MODE(MM_F32) VPT_MIP_MODE(MM_U8_QC) VPT_MIP_MODE(MM_F32_QC)
+    VPT_MIP_MODE(MM_RAW) VPT_MIP_MODE(MM_RAW_QC) VPT_MIP_MODE(MM_NEAREST)
+    VPT_MIP_MODE(MM_GENERIC)
+#undef VPT_MIP_MODE
+  }
   return (int)cudaGetLastError();
 }
 

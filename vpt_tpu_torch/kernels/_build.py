@@ -239,7 +239,9 @@ def ptxas_table(log_text):
     surrogate_tape_kernel and K12 surrogate_reverse_kernel), NB,ENV,XY (K4
     tape_forward_kernel), NB (K13 raw_tape_kernel, K14 raw_replay_kernel), NS
     (K5 reverse_kernel: 0 for stride mode, else the importance step
-    count), MODE (K15 march_kernel: 0 EAM, 1 Depth), LEARN_TF (K19
+    count), KIND,MODE (K15 march_kernel: 0 EAM, 1 Depth, then the table
+    mode 0-7 of csrc/raymarch.cu MarchMode), MODE (K16 mip_kernel: the same
+    table mode), LEARN_TF (K19
     eam_backward_kernel: 0 or 1), LAO,SHADOWS,MODE (K25 lao_frame_kernel:
     0 or 1 each, then the table mode 0-4 of csrc/lao.cu LaoMode), MAJ (K27
     slab_advance_kernel), NB,MAJ,ENV,TAPE (K28

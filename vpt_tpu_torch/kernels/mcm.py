@@ -262,7 +262,8 @@ def _check_lanes(lanes, lane):
 
 
 def step_mode(density, tf_table, volume_filter: str) -> str:
-    """K20's instance for these tables (csrc/mcm.cu McmMode): "u8" / "f32"
+    """K20's instance for these tables (csrc/mcm.cu McmMode; K15's and
+    K16's too, csrc/raymarch.cu MarchMode): "u8" / "f32"
     (a packed corner table, linear), "u8 quasicubic" / "f32 quasicubic",
     each beside the packed (Hp, Wp, 16) TF, or "raw" / "raw quasicubic" /
     "nearest" (the raw (D, H, W) grid under that filter beside the raw

@@ -46,7 +46,11 @@ the JAX scan computes them.
 
 A volume is a ``PackedVolume`` of kind "full" (u8 or f32; linear or
 quasicubic filter) or a raw (D, H, W) f32 grid (also nearest); a TF is the
-packed (257, 257, 16) corner table or the raw (256, 256, 4) texture.
+packed (257, 257, 16) corner table or the raw (256, 256, 4) texture. K15
+and K16 run an instance per table pair (``march_mode``, ``MARCH_MODES``:
+csrc/raymarch.cu MarchMode, written into the parameter block's last
+integer): the pairs the renderers and ``optim.fit_density`` build each have
+their own, every other pair the checks take runs the "generic" instance.
 
 Each wrapper runs its plain version when its tensors lie on the CPU and
 launches the kernel when they lie on a CUDA device; anything else raises.
@@ -61,14 +65,20 @@ import numpy as np
 import torch
 
 from vpt_tpu_torch.kernels import _build
+from vpt_tpu_torch.kernels import mcm as KM
 from vpt_tpu_torch.kernels import mcm_spectral as K
 from vpt_tpu_torch.ops import geometry, interp
 
 # must match RF_COUNT / RI_COUNT in csrc/raymarch.cu
 _F_COUNT = 26
-_I_COUNT = 12
+_I_COUNT = 13
 _EAM, _DEPTH = 0, 1
 _FILTERS = ("linear", "quasicubic", "nearest")
+# K15's and K16's instance for a table pair: K20's (csrc/raymarch.cu
+# MarchMode lists them in McmMode's order; the pairs the renderers and
+# optim.fit_density build have their own, every other pair "generic")
+MARCH_MODES = KM.STEP_MODES
+march_mode = KM.step_mode
 # K19's limits: EAM_BWD_MAX_TRIPS and EAM_BWD_MAX_TF_W in csrc/raymarch.cu
 EAM_BACKWARD_MAX_TRIPS = 256
 EAM_BACKWARD_MAX_TF_W = 1536
@@ -326,7 +336,8 @@ def _params(inv_mvp, density, tf_table, volume_filter, resolution, trips, step, 
     i = np.array([resolution, trips, int(raw),
                   int(not raw and density.table.dtype == torch.uint8), *dims,
                   int(volume_filter == "quasicubic"), int(volume_filter == "nearest"),
-                  int(tf_raw), tf_table.shape[0] + tf_raw, tf_table.shape[1] + tf_raw], np.int32)
+                  int(tf_raw), tf_table.shape[0] + tf_raw, tf_table.shape[1] + tf_raw,
+                  MARCH_MODES.index(march_mode(density, tf_table, volume_filter))], np.int32)
     assert i.shape == (_I_COUNT,)
     return f, i
 

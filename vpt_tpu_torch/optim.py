@@ -409,6 +409,13 @@ def fit_spectral(target_image, renderer, camera, init_params: dict,
         raise ValueError("fit_spectral on a compacted renderer: the reset state has the lane "
                          "table's shape, which the reference's fit_spectral does not broadcast "
                          "either (ValueError: incompatible shapes)")
+    mesh = getattr(renderer, "mesh", None)
+    if mesh is not None and mesh.size > 1:
+        # the backward would take the rank's rows of the reset state for the
+        # whole pixel grid
+        raise NotImplementedError("fit_spectral on a mesh renderer over more than one rank: the "
+                                  "PRB step and the surrogate window over a rank's lane table "
+                                  "(ROADMAP 6c) are not ported to the torch package yet")
     device = renderer.device
     # the reference's loss, PRB step and eval pass no filter: linear
     base_ctx = dataclasses.replace(renderer.ctx(camera, seed), volume_filter="linear")

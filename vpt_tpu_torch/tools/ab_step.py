@@ -44,11 +44,19 @@ from the reset state (512^2, the bench volume, 8 steps) in the modes of
 ``chip_smoke.mcm_modes`` (u8, f32, quasicubic, raw, nearest, the
 environment map, the lane table; each call copying the reset state first,
 less the copies), all by device time (a CUDA graph of 20 calls), with the
-ptxas rows of K20-K23. ``--out FILE`` appends every printed line to FILE
-too.
+ptxas rows of K20-K23.
+
+With ``--what raymarch`` it times K16 ``mip_pass``, K15 ``eam_pass``,
+``eam_frame_pass`` and ``depth_pass`` on phase 19's scene (the bench volume
+at 512^2, the JAX defaults, the session's first offset) in the four table
+modes of ``chip_smoke.rm_modes`` (u8, f32, quasicubic, nearest) and on
+BASELINE config 1's 64^3 raw tables (256^2, 64 slices, extinction 80), and
+K15's frame alone on phase 20's 64^3 raw grid (``fit_density``'s), all by
+device time (a CUDA graph of 20 calls), with the ptxas rows of K15-K19.
+``--out FILE`` appends every printed line to FILE too.
 
     python -m vpt_tpu_torch.tools.ab_step --other DIR
-        [--what step|lao_slab|eam_mcsp|mcs_mcm] [--reps 50] [--rounds 2]
+        [--what step|lao_slab|eam_mcsp|mcs_mcm|raymarch] [--reps 50] [--rounds 2]
 
 ``DIR`` is another checkout of the repo (for example the parent commit
 unpacked by ``git archive`` into a gitignored directory). Each checkout
@@ -59,9 +67,9 @@ started with ``--child`` inside the checkout: it imports that checkout's
 ``vpt_tpu_torch`` and ``chip_smoke`` (for the scene), so it uses only what
 both sides of a change share. Per run it prints one JSON line (the
 checkout, its times by CUDA events, the ptxas rows), then one line of the
-means and the ratios this / other (with ``lao_slab``, ``eam_mcsp`` and
-``mcs_mcm`` also the medians, their ratios and each side's spread). Needs a CUDA device;
-exits 1 without.
+means and the ratios this / other (with ``lao_slab``, ``eam_mcsp``,
+``mcs_mcm`` and ``raymarch`` also the medians, their ratios and each side's
+spread). Needs a CUDA device; exits 1 without.
 """
 
 from __future__ import annotations
@@ -329,8 +337,69 @@ def child_mcs_mcm() -> dict:
     return out
 
 
+def child_raymarch() -> dict:
+    """One timing run of K16, K15 EAM (merged into a running average, and
+    the frame alone) and K15 Depth on phase 19's scene in its four table
+    modes and on BASELINE config 1's 64^3 raw tables, and of K15's frame
+    alone on phase 20's 64^3 raw grid, on the checkout on ``sys.path``,
+    through the wrappers both sides of a change share."""
+    import torch
+
+    import chip_smoke as CS
+    from vpt_tpu_torch import Camera, Volume
+    from vpt_tpu_torch.kernels import _build
+    from vpt_tpu_torch.kernels import raymarch as RK
+    from vpt_tpu_torch.models import raymarch as TR
+    from vpt_tpu_torch.scene.camera import OrbitController
+    from vpt_tpu_torch.session import frame_seed
+
+    dev, out = torch.device("cuda:0"), {}
+    offset = TR._seed_to_offset(frame_seed(0, 1))
+    d, steps = CS.RM_DEPTH, CS.RM_MIP_STEPS
+
+    def time_modes(label, inv, dens, tft, filt, res, extinction, slices):
+        acc = torch.zeros((res, res, 3), device=dev)
+        frame = torch.tensor(3, dtype=torch.int32, device=dev)
+        mip = torch.zeros((res, res), device=dev)
+        out[f"k16 {label}_ms"] = CS.device_ms(
+            lambda: RK.mip_pass(mip, inv, dens, tft, offset, steps, filt))
+        out[f"k15 eam {label}_ms"] = CS.device_ms(
+            lambda: RK.eam_pass(acc, frame, inv, dens, tft, extinction, offset, slices, filt))
+        out[f"k15 eam frame {label}_ms"] = CS.device_ms(
+            lambda: RK.eam_frame_pass(inv, dens, tft, extinction, offset, slices, res, filt))
+        out[f"k15 depth {label}_ms"] = CS.device_ms(
+            lambda: RK.depth_pass(inv, dens, tft, d["extinction"], d["threshold"], offset,
+                                  d["slices"], res, filt))
+
+    inv = Camera().inverse_mvp()
+    for label, dens, tft, filt in CS.rm_modes(dev):
+        time_modes(label, inv, dens, tft, filt, CS.RM_RES, CS.RM_EAM["extinction"],
+                   CS.RM_EAM["slices"])
+    # BASELINE config 1: 64^3, 256^2, 64 slices, extinction 80, raw tables
+    cam1 = Camera()
+    OrbitController(yaw=0.5, pitch=-0.3).apply(cam1)
+    tf1 = np.zeros((256, 256, 4), np.float32)
+    tf1[..., :3] = (0.9, 0.7, 0.4)
+    tf1[..., 3] = np.linspace(0, 1, 256)[None, :]
+    time_modes("config 1", cam1.inverse_mvp(),
+               torch.as_tensor(Volume.sphere_in_cube(64).density, device=dev),
+               torch.as_tensor(tf1, device=dev), "linear", 256, 80.0, 64)
+    F = CS.EAM_FIT
+    truth, tft, cams = CS.eam_fit_scene(dev)
+    args = (cams[1].inverse_mvp(), truth, tft, F["extinction"], np.float32(TR._seed_to_offset(1)),
+            F["slices"], F["res"])
+    out["k15 fit frame_ms"] = CS.device_ms(lambda: RK.eam_frame_pass(*args))
+    out["build_seconds"] = _build.build_info["seconds"]
+    out["ptxas"] = [dict(kernel=k, template=t, registers=r, spill_store_bytes=sp,
+                         spill_load_bytes=lo, stack_frame_bytes=f)
+                    for k, t, r, sp, lo, f in _build.ptxas_table(_build.build_info["log"])
+                    if k in ("march_kernel", "mip_kernel", "iso_kernel", "iso_shade_kernel",
+                             "eam_backward_kernel")]
+    return out
+
+
 CHILDREN = {"step": child, "lao_slab": child_lao_slab, "eam_mcsp": lambda reps: child_eam_mcsp(),
-            "mcs_mcm": lambda reps: child_mcs_mcm()}
+            "mcs_mcm": lambda reps: child_mcs_mcm(), "raymarch": lambda reps: child_raymarch()}
 
 
 def run_in(root: Path, reps: int, what: str) -> dict:

@@ -477,10 +477,32 @@ def job_bwd_fit(mesh, target):
     return dict(density=params["density"].numpy(), losses=losses, counts=counts, calls=calls)
 
 
+def job_fit_mesh(mesh):
+    """``optim.fit_spectral`` of ``FIT`` on ``fit_renderer(mesh)`` from a
+    constant 0.5 density towards a black image, by each method: the
+    exception's type and message where it raised, else its losses."""
+    from vpt_tpu_torch import Camera
+    from vpt_tpu_torch import optim
+
+    target = np.zeros((RES, RES, 3), np.float32)
+    init = {"density": np.full((VOL, VOL, VOL), 0.5, np.float32)}
+    out = {}
+    for method in ("prb", "autodiff"):
+        try:
+            _, losses = optim.fit_spectral(target, fit_renderer(mesh), Camera(), init,
+                                           method=method, **FIT)
+        except NotImplementedError as e:
+            out[method] = dict(raised=type(e).__name__, message=str(e))
+        else:
+            out[method] = dict(losses=np.asarray(losses))
+    return out
+
+
 JOBS = {"shard_state": job_shard_state, "mesh_render": job_mesh_render, "rows": job_rows,
         "slab_render": job_slab_render, "bwd_scatter": job_bwd_scatter,
         "bwd_contract": job_bwd_contract, "bwd_pack": job_bwd_pack, "bwd_tape": job_bwd_tape,
-        "bwd_prb": job_bwd_prb, "bwd_window": job_bwd_window, "bwd_fit": job_bwd_fit}
+        "bwd_prb": job_bwd_prb, "bwd_window": job_bwd_window, "bwd_fit": job_bwd_fit,
+        "fit_mesh": job_fit_mesh}
 
 
 def _worker(rank, world, store, out_dir, jobs):
